@@ -12,8 +12,10 @@ This package imports neither JAX nor ``apex_tpu``; the tests hold it
 against ``apex_tpu`` on the same inputs and weights.
 
 Ported so far: the GPT serving path (``models.gpt``,
-``serving.{kv_cache,decode,scheduler}``) with the LayerNorm-forward and
-flash-attention-forward kernels.
+``serving.{kv_cache,decode,scheduler}``) and the single-device GPT
+pretraining step (``models.pretrain``, ``optimizers``, ``amp.scaler``,
+``multi_tensor``), on the LayerNorm forward and backward, flash-attention
+forward, dq and dk/dv, and fused-Adam kernels.
 """
 
 from apex_tpu_torch._backend import resolve_device

@@ -35,13 +35,14 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # one shared library per source; the ops modules bind their symbols
-SOURCES = ("layer_norm", "flash_fwd")
+SOURCES = ("layer_norm", "flash_fwd", "flash_bwd", "fused_adam")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_declared: set = set()     # (library, symbol) pairs whose C types are set
 _launches: Dict[str, int] = {}
 
 
@@ -127,6 +128,7 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_int64
 F = ctypes.c_float
 
 
@@ -136,20 +138,22 @@ def library(name: str, launcher: str, argtypes,
     needed; all sources are built together on the first call), with the
     C signatures of its ``launcher`` and its ``error_string`` function
     declared — pointers and the stream as ``c_void_p``, so ctypes never
-    cuts them to 32 bits."""
+    cuts them to 32 bits. A library with several launchers is loaded
+    once; each call declares the launcher it names."""
     lib = _libs.get(name)
-    if lib is not None:
+    if lib is not None and (name, launcher) in _declared:
         return lib
-    if not library_path(name).is_file():
+    if lib is None and not library_path(name).is_file():
         build_all()
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(str(library_path(name)))
-            fn = getattr(lib, launcher)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-            es = getattr(lib, error_string)
-            es.argtypes = [ctypes.c_int]
-            es.restype = ctypes.c_char_p
-            _libs[name] = lib
-        return _libs[name]
+            _libs[name] = ctypes.CDLL(str(library_path(name)))
+        lib = _libs[name]
+        fn = getattr(lib, launcher)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        es = getattr(lib, error_string)
+        es.argtypes = [ctypes.c_int]
+        es.restype = ctypes.c_char_p
+        _declared.add((name, launcher))
+        return lib

@@ -36,55 +36,13 @@
 // stream of K and V run at a fraction of the card's rate (split-K
 // decoding would fix that).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // the reference's NEG_INF
 constexpr int kBQ = 64;            // query rows per block (16 per warp)
 constexpr int kBK = 64;            // keys per tile
 constexpr int kThreads = 128;
-constexpr int kPad = 8;            // bf16 padding per shared-memory row
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(const __nv_bfloat16* lo,
-                                             const __nv_bfloat16* hi) {
-  return (uint32_t)__bfloat16_as_ushort(*lo) |
-         ((uint32_t)__bfloat16_as_ushort(*hi) << 16);
-}
-
-// The reference's additive mask for one score; keys past the end of the
-// sequence are excluded outright (they do not exist in the reference).
-__device__ __forceinline__ float mask_score(float s, int qi, int kj, int off,
-                                            int sk, int causal, int window,
-                                            bool has_seg, int qs, int ks) {
-  if (kj >= sk) return -INFINITY;
-  bool masked = false;
-  if (causal && kj > qi + off) masked = true;
-  if (window > 0 && kj <= qi + off - window) masked = true;
-  if (has_seg && qs != ks) masked = true;
-  return masked ? s + kNegInf : s;
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));

@@ -1,4 +1,4 @@
-// LayerNorm / RMSNorm forward for Hopper (sm_90a).
+// LayerNorm / RMSNorm forward and backward for Hopper (sm_90a).
 //
 // Replaces: apex_tpu/ops/layer_norm.py `_fwd_kernel` (:45), launched by
 // `_fwd_pallas` (:92; `pallas_call` at :101). Same arithmetic: x is
@@ -6,8 +6,7 @@
 // centred values second (two passes over data already on chip, never
 // E[x^2] - E[x]^2), then rstd = rsqrt(var + eps), y = (x - mean) * rstd
 // [* w] [+ b] in fp32, rounded to x's dtype. RMSNorm uses mean = 0. Also
-// writes the fp32 per-row mean and rstd the backward (a later port)
-// reads.
+// writes the fp32 per-row mean and rstd the backward reads.
 //
 // Bound on the card: memory. The kernel reads x once and writes y once,
 // 2 * rows * h * sizeof(x) bytes, against ~8 fp32 operations per
@@ -230,21 +229,259 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
+// Dispatch on dtype (0 fp32, 1 bf16) and on whether h divides into
+// 16-byte packs: F<T, N>::run(args...), or -1 for an unknown dtype.
+template <template <typename, int> class F, typename... A>
+int dispatch(int dtype, int h, A... args) {
+  if (dtype == 0)
+    return h % Pack<float>::N == 0 ? F<float, Pack<float>::N>::run(args...)
+                                   : F<float, 1>::run(args...);
+  if (dtype == 1)
+    return h % Pack<__nv_bfloat16>::N == 0
+               ? F<__nv_bfloat16, Pack<__nv_bfloat16>::N>::run(args...)
+               : F<__nv_bfloat16, 1>::run(args...);
+  return -1;
+}
+
 template <typename T, int N>
-void launch(const void* x, const float* w, const float* b, void* y,
-            float* mean, float* rstd, int rows, int h, float eps, int rms,
-            cudaStream_t stream) {
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  if (h <= kWarpRowMax) {
-    const int grid = (rows + kRowsPerWarpBlock - 1) / kRowsPerWarpBlock;
-    ln_fwd_warp<T, N><<<grid, 32 * kRowsPerWarpBlock, 0, stream>>>(
-        xt, w, b, yt, mean, rstd, rows, h, eps, rms);
-  } else {
-    ln_fwd_block<T, N><<<rows, kBlockThreads, 0, stream>>>(
-        xt, w, b, yt, mean, rstd, h, eps, rms);
+struct Fwd {
+  static int run(const void* x, const float* w, const float* b, void* y,
+                 float* mean, float* rstd, int rows, int h, float eps,
+                 int rms, cudaStream_t stream) {
+    const T* xt = static_cast<const T*>(x);
+    T* yt = static_cast<T*>(y);
+    if (h <= kWarpRowMax) {
+      const int grid = (rows + kRowsPerWarpBlock - 1) / kRowsPerWarpBlock;
+      ln_fwd_warp<T, N><<<grid, 32 * kRowsPerWarpBlock, 0, stream>>>(
+          xt, w, b, yt, mean, rstd, rows, h, eps, rms);
+    } else {
+      ln_fwd_block<T, N><<<rows, kBlockThreads, 0, stream>>>(
+          xt, w, b, yt, mean, rstd, h, eps, rms);
+    }
+    return 0;
+  }
+};
+
+// ---- backward ------------------------------------------------------------
+//
+// Replaces: apex_tpu/ops/layer_norm.py `_bwd_kernel` (:67), launched by
+// `_bwd_pallas` (:124; `pallas_call` at :130). Same arithmetic, in fp32
+// from the forward's saved mean and rstd: xhat = (x - mean) * rstd,
+// wg = g * w (g without affine), c1 = mean(wg), c2 = mean(wg * xhat),
+// dx = rstd * (wg - c1 - xhat * c2) (RMSNorm: c1 = 0), written in x's
+// dtype; dw = sum over rows of g * xhat and db = sum of g, as per-block
+// fp32 partials (blocks, h) that the caller sums afterwards, as the
+// reference sums its per-tile partials in XLA (:152). No atomics, so the
+// result is the same from run to run on a given card.
+//
+// Bound on the card: memory. It reads x and g and writes dx once
+// (3 * rows * h * sizeof(x) bytes, ~50 MB at (8192, 1024) bf16, ~15 us
+// at 3.35 TB/s); the partials add 2 * blocks * h * 4 bytes, written once
+// and summed once.
+//
+// Design: the forward's row-per-warp scheme for h <= 1024. A block of
+// eight warps walks rows with a grid stride; each lane keeps its columns'
+// x-hat, w*g and its running dw/db partials in registers, so each row is
+// read from device memory once and reduced by warp shuffles alone. At
+// the end the eight warps add their partials into shared memory in a
+// fixed order and the block writes one partial row. Wider rows take one
+// 256-thread block per row at a time; each thread owns fixed columns of
+// dw/db accumulators in shared memory (8 h bytes, so h up to 29,056).
+// The grid is sized to the blocks the card keeps resident
+// (`apex_ln_bwd_grid`), which bounds the partials' size.
+
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdMaxH = 29056;  // 8 h bytes of shared accumulators
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdThreads)
+    ln_bwd_warp(const T* __restrict__ x, const T* __restrict__ g,
+                const float* __restrict__ w, const float* __restrict__ mean,
+                const float* __restrict__ rstd, T* __restrict__ dx,
+                float* __restrict__ dw_part, float* __restrict__ db_part,
+                int rows, int h, int rms) {
+  constexpr int kSlots = kWarpRowMax / (32 * N);
+  __shared__ float red_w[kWarpRowMax], red_b[kWarpRowMax];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float dw_acc[kSlots * N], db_acc[kSlots * N];
+#pragma unroll
+  for (int i = 0; i < kSlots * N; ++i) dw_acc[i] = db_acc[i] = 0.f;
+
+  for (int row = blockIdx.x * kBwdWarps + warp; row < rows;
+       row += gridDim.x * kBwdWarps) {
+    const T* xr = x + (size_t)row * h;
+    const T* gr = g + (size_t)row * h;
+    const float mu = mean[row], rs = rstd[row];
+    float xh[kSlots * N], wg[kSlots * N];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = (s * 32 + lane) * N;
+      if (c < h) {
+        float xv[N], gv[N];
+        load<T, N>(xr + c, xv);
+        load<T, N>(gr + c, gv);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const int k = s * N + i;
+          xh[k] = (xv[i] - mu) * rs;
+          wg[k] = w != nullptr ? gv[i] * __ldg(w + c + i) : gv[i];
+          s1 += wg[k];
+          s2 += wg[k] * xh[k];
+          dw_acc[k] += gv[i] * xh[k];
+          db_acc[k] += gv[i];
+        }
+      }
+    }
+    const float c1 = rms ? 0.f : warp_sum(s1) / (float)h;
+    const float c2 = warp_sum(s2) / (float)h;
+    T* dr = dx + (size_t)row * h;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = (s * 32 + lane) * N;
+      if (c < h) {
+        float o[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          o[i] = rs * (wg[s * N + i] - c1 - xh[s * N + i] * c2);
+        store<T, N>(dr + c, o);
+      }
+    }
+  }
+
+  // the warps' partials into shared memory, one warp after another
+  for (int wi = 0; wi < kBwdWarps; ++wi) {
+    if (warp == wi) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = (s * 32 + lane) * N;
+        if (c < h) {
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            const int k = s * N + i;
+            red_w[c + i] = wi == 0 ? dw_acc[k] : red_w[c + i] + dw_acc[k];
+            red_b[c + i] = wi == 0 ? db_acc[k] : red_b[c + i] + db_acc[k];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < h; c += kBwdThreads) {
+    dw_part[(size_t)blockIdx.x * h + c] = red_w[c];
+    db_part[(size_t)blockIdx.x * h + c] = red_b[c];
   }
 }
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kBlockThreads)
+    ln_bwd_block(const T* __restrict__ x, const T* __restrict__ g,
+                 const float* __restrict__ w, const float* __restrict__ mean,
+                 const float* __restrict__ rstd, T* __restrict__ dx,
+                 float* __restrict__ dw_part, float* __restrict__ db_part,
+                 int rows, int h, int rms) {
+  extern __shared__ float acc[];  // dw: [0, h), db: [h, 2h)
+  __shared__ float red[32];
+  float xb[N], gb[N];
+  for (int c = threadIdx.x * N; c < h; c += kBlockThreads * N) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[c + i] = acc[h + c + i] = 0.f;
+  }
+
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const T* xr = x + (size_t)row * h;
+    const T* gr = g + (size_t)row * h;
+    const float mu = mean[row], rs = rstd[row];
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = threadIdx.x * N; c < h; c += kBlockThreads * N) {
+      load<T, N>(xr + c, xb);
+      load<T, N>(gr + c, gb);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float xh = (xb[i] - mu) * rs;
+        const float wg = w != nullptr ? gb[i] * __ldg(w + c + i) : gb[i];
+        s1 += wg;
+        s2 += wg * xh;
+        acc[c + i] += gb[i] * xh;
+        acc[h + c + i] += gb[i];
+      }
+    }
+    const float c1 = rms ? 0.f : block_sum(s1, red) / (float)h;
+    const float c2 = block_sum(s2, red) / (float)h;
+    T* dr = dx + (size_t)row * h;
+    for (int c = threadIdx.x * N; c < h; c += kBlockThreads * N) {
+      load<T, N>(xr + c, xb);
+      load<T, N>(gr + c, gb);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float xh = (xb[i] - mu) * rs;
+        const float wg = w != nullptr ? gb[i] * __ldg(w + c + i) : gb[i];
+        xb[i] = rs * (wg - c1 - xh * c2);
+      }
+      store<T, N>(dr + c, xb);
+    }
+  }
+  // each thread wrote only its own columns of acc: no barrier needed
+  for (int c = threadIdx.x * N; c < h; c += kBlockThreads * N) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      dw_part[(size_t)blockIdx.x * h + c + i] = acc[c + i];
+      db_part[(size_t)blockIdx.x * h + c + i] = acc[h + c + i];
+    }
+  }
+}
+
+// Blocks the backward launches for (rows, h): what the card keeps
+// resident, at most one per row (block path) or per eight rows.
+template <typename T, int N>
+struct BwdGrid {
+  static int run(int rows, int h, cudaError_t* err) {
+    int dev = 0, sms = 0, per_sm = 0;
+    *err = cudaGetDevice(&dev);
+    if (*err == cudaSuccess)
+      *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev);
+    if (*err != cudaSuccess) return 0;
+    int work;
+    if (h <= kWarpRowMax) {
+      *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, ln_bwd_warp<T, N>, kBwdThreads, 0);
+      work = (rows + kBwdWarps - 1) / kBwdWarps;
+    } else {
+      const int bytes = 8 * h;
+      *err = cudaFuncSetAttribute(ln_bwd_block<T, N>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  bytes);
+      if (*err == cudaSuccess)
+        *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, ln_bwd_block<T, N>, kBlockThreads, bytes);
+      work = rows;
+    }
+    const int cap = sms * (per_sm > 0 ? per_sm : 1);
+    return work < cap ? work : cap;
+  }
+};
+
+template <typename T, int N>
+struct Bwd {
+  static int run(const void* x, const void* g, const float* w,
+                 const float* mean, const float* rstd, void* dx,
+                 float* dw_part, float* db_part, int blocks, int rows, int h,
+                 int rms, cudaStream_t stream) {
+    const T* xt = static_cast<const T*>(x);
+    const T* gt = static_cast<const T*>(g);
+    T* dt = static_cast<T*>(dx);
+    if (h <= kWarpRowMax) {
+      ln_bwd_warp<T, N><<<blocks, kBwdThreads, 0, stream>>>(
+          xt, gt, w, mean, rstd, dt, dw_part, db_part, rows, h, rms);
+    } else {
+      ln_bwd_block<T, N><<<blocks, kBlockThreads, 8 * h, stream>>>(
+          xt, gt, w, mean, rstd, dt, dw_part, db_part, rows, h, rms);
+    }
+    return 0;
+  }
+};
 
 }  // namespace
 
@@ -255,28 +492,46 @@ extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
                            void* y, void* mean, void* rstd, int rows, int h,
                            float eps, int rms, int dtype, void* stream) {
   if (rows == 0 || h == 0) return (int)cudaGetLastError();
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  float* mf = static_cast<float*>(mean);
-  float* rf = static_cast<float*>(rstd);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (h % Pack<float>::N == 0)
-      launch<float, Pack<float>::N>(x, wf, bf, y, mf, rf, rows, h, eps, rms, s);
-    else
-      launch<float, 1>(x, wf, bf, y, mf, rf, rows, h, eps, rms, s);
-  } else if (dtype == 1) {
-    if (h % Pack<__nv_bfloat16>::N == 0)
-      launch<__nv_bfloat16, Pack<__nv_bfloat16>::N>(x, wf, bf, y, mf, rf,
-                                                    rows, h, eps, rms, s);
-    else
-      launch<__nv_bfloat16, 1>(x, wf, bf, y, mf, rf, rows, h, eps, rms, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  const int r = dispatch<Fwd>(
+      dtype, h, x, static_cast<const float*>(w),
+      static_cast<const float*>(b), y, static_cast<float*>(mean),
+      static_cast<float*>(rstd), rows, h, eps, rms,
+      static_cast<cudaStream_t>(stream));
+  if (r < 0) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 extern "C" const char* apex_ln_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The number of blocks `apex_ln_bwd` launches for (rows, h, dtype): the
+// caller allocates (blocks, h) fp32 partials for dw and for db. Returns
+// a negative CUDA error code on failure (-1, cudaErrorInvalidValue, for
+// an unknown dtype).
+extern "C" int apex_ln_bwd_grid(int rows, int h, int dtype) {
+  if (rows <= 0 || h <= 0 || h > kBwdMaxH) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  const int blocks = dispatch<BwdGrid>(dtype, h, rows, h, &err);
+  if (err != cudaSuccess) return -(int)err;
+  return blocks;
+}
+
+// x, g, dx: (rows, h) contiguous, dtype 0 = fp32, 1 = bf16. w: (h,) fp32
+// or null (no affine). mean, rstd: (rows,) fp32 from the forward.
+// dw_part, db_part: (blocks, h) fp32, blocks from apex_ln_bwd_grid.
+// Returns cudaGetLastError() after the launch.
+extern "C" int apex_ln_bwd(const void* x, const void* g, const void* w,
+                           const void* mean, const void* rstd, void* dx,
+                           void* dw_part, void* db_part, int blocks, int rows,
+                           int h, int rms, int dtype, void* stream) {
+  if (rows == 0 || h == 0) return (int)cudaGetLastError();
+  if (blocks <= 0 || h > kBwdMaxH) return (int)cudaErrorInvalidValue;
+  const int r = dispatch<Bwd>(
+      dtype, h, x, g, static_cast<const float*>(w),
+      static_cast<const float*>(mean), static_cast<const float*>(rstd), dx,
+      static_cast<float*>(dw_part), static_cast<float*>(db_part), blocks,
+      rows, h, rms, static_cast<cudaStream_t>(stream));
+  if (r < 0) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

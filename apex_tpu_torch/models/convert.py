@@ -1,4 +1,5 @@
-"""Convert the reference's GPT parameters into a ``GPTModel``.
+"""Convert the reference's GPT parameters (and its Adam state) into the
+port's ``GPTModel`` (and ``FlatOptState``).
 
 The input is the parameter tree of the reference's ``GPTModel``
 (``apex_tpu/models/gpt.py``) with numpy leaves, with or without the
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+from apex_tpu_torch.optimizers.fused import FlatOptState
 
 # torch name inside one layer -> reference path inside one layer
 _LAYER_KEYS = {
@@ -114,4 +116,23 @@ def load_jax_params(model: GPTModel, params_np: Mapping) -> GPTModel:
     return model
 
 
-__all__ = ["gpt_params_from_jax", "load_jax_params"]
+def load_jax_opt_state(state: FlatOptState, config: GPTConfig,
+                       opt_state_np: Mapping) -> FlatOptState:
+    """Copy the reference's Adam state into ``state`` (the port's, for a
+    :class:`GPTModel` of ``config``) and return it.
+
+    ``opt_state_np`` holds ``"master"``, ``"m"`` and ``"v"``, each the
+    reference's ``FlatOptState`` buffer unpacked through its space
+    (``space.unpack(buf, dtype="buffer")``: the param tree with fp32
+    numpy leaves), and ``"count"``. The two flat layouts order their
+    leaves differently, so each leaf goes by parameter name into its
+    slot of the port's buffers, in place: parameters bound to the
+    master see the loaded values."""
+    bufs = {"master": state.master, **state.slots}
+    for key in ("master", "m", "v"):
+        named = gpt_params_from_jax(opt_state_np[key], config)
+        state.space.pack_into(bufs[key], named)
+    return state._replace(count=int(opt_state_np["count"]))
+
+
+__all__ = ["gpt_params_from_jax", "load_jax_opt_state", "load_jax_params"]

@@ -1,6 +1,6 @@
-"""Megatron-style GPT, dense, for serving.
+"""Megatron-style GPT, dense, for serving and training.
 
-Counterpart of ``apex_tpu/models/gpt.py`` (:43-574) at tp=1: token +
+Counterpart of ``apex_tpu/models/gpt.py`` (:43-577) at tp=1: token +
 position embedding, L pre-LN blocks [LayerNorm, fused-QKV attention,
 LayerNorm, GELU MLP], a final LayerNorm and the tied LM head. What the
 port keeps exactly, because the tests hold it against the reference on
@@ -15,12 +15,17 @@ converted weights:
 - the serving hooks: ``return_kv`` (prefill), ``kv_ctx`` + ``ctx_mask``
   with one query per sequence (decode) or a chunk of queries over
   ``[ctx | chunk]`` keys with the causal ``sk > sq`` offset (chunked
-  prefill).
+  prefill);
+- the training loss :func:`gpt_loss_fn`: mean cross entropy over fp32
+  logits through a plain logsumexp, as the reference computes it outside
+  any kernel. The forward differentiates through the LayerNorm and
+  flash-attention kernels' backward kernels.
 
 Layers are a Python loop over an ``nn.ModuleList``; the reference's
 ``scan_layers`` is only a parameter layout there, and ``convert.py``
 reads both layouts. MoE, the ring and softmax attention backends,
-sequence parallelism and dropout belong to later slices of the port.
+sequence parallelism and dropout (``attention_dropout`` /
+``hidden_dropout`` above 0 raise) belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -58,10 +63,17 @@ class GPTConfig:
     ffn_hidden_size: Optional[int] = None   # default 4*hidden
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    attention_dropout: float = 0.0
+    hidden_dropout: float = 0.0
     attention_backend: str = "flash"
     num_experts: int = 0
 
     def __post_init__(self):
+        if self.attention_dropout > 0.0 or self.hidden_dropout > 0.0:
+            raise NotImplementedError(
+                "dropout (attention_dropout / hidden_dropout > 0) is not "
+                "ported yet: the attention-dropout kernel path comes with "
+                "a later slice")
         if self.num_kv_heads is not None and self.num_kv_heads < 1:
             raise ValueError(
                 f"num_kv_heads must be >= 1 or None, got {self.num_kv_heads}")
@@ -303,5 +315,15 @@ class GPTModel(nn.Module):
         return logits
 
 
+def gpt_loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy over tokens (the reference's ``gpt_loss_fn``
+    :577 outside a tensor-parallel axis): ``logits`` (s, b, vocab) fp32,
+    ``labels`` (b, s)."""
+    labels_sb = labels.transpose(0, 1).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels_sb[..., None])[..., 0]
+    return torch.mean(lse - tgt)
+
+
 __all__ = ["GPTConfig", "GPTLayer", "GPTModel", "ParallelAttention",
-           "ParallelMLP"]
+           "ParallelMLP", "gpt_loss_fn"]

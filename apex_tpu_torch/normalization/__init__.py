@@ -3,10 +3,10 @@
 
 ``FusedLayerNorm`` / ``FusedRMSNorm`` hold fp32 parameters named
 ``weight`` and ``bias`` (the reference's ``scale`` is ``weight`` here; see
-``models/convert.py``) and run the fused forward of
-``apex_tpu_torch.ops.layer_norm``: fp32 compute, output in the input's
-dtype, so bf16 activations with fp32 parameters need no separate
-"mixed" module.
+``models/convert.py``) and run the fused norm of
+``apex_tpu_torch.ops.layer_norm``, forward and (under autograd) backward:
+fp32 compute, output in the input's dtype, so bf16 activations with
+fp32 parameters need no separate "mixed" module.
 """
 
 from __future__ import annotations

@@ -1,19 +1,25 @@
-"""Flash attention forward over (batch, heads, seq, head_dim).
+"""Flash attention over (batch, heads, seq, head_dim), forward and
+backward.
 
 Counterpart of ``flash_attention`` in ``apex_tpu/ops/attention.py``. On
 a CUDA tensor the forward runs the hand-written kernel in
-``csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``); on a
-CPU tensor it runs :func:`_attention_torch`, the plain PyTorch version
-that mirrors the reference's ``_attention_xla``.
+``csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``) and the
+backward the two kernels in ``csrc/flash_bwd.cu`` (``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel``); on a CPU tensor they run :func:`_attention_torch`
+and :func:`_flash_bwd_torch`, the plain PyTorch versions. A call that
+autograd has to differentiate goes through ``_FlashFn``, the counterpart
+of the reference's ``custom_vjp`` (``_flash_fwd_rule`` /
+``_flash_bwd_rule``): the forward saves ``(q, k, v, out, lse)``, the
+backward forms ``delta = rowsum(out * dO)`` in PyTorch (the reference
+leaves it to XLA, :828) and recomputes the probabilities from the lse.
 
-The kernel covers what the serving path needs: causal masking with the
-``sk - sq`` offset (chunked prefill), GQA, segment ids (packed batches
-and the decode context mask) and the sliding window, with bf16 inputs
-and head_dim 32, 64 or 128. An additive ``bias``, attention dropout and
-``q_positions``/``kv_positions`` (ring attention) stay in the plain
-version for now: on a CUDA tensor they raise ``NotImplementedError``,
-as does a call autograd would have to differentiate (the backward
-kernels belong to the training slice).
+The kernels cover causal masking with the ``sk - sq`` offset (chunked
+prefill), GQA, segment ids (packed batches and the decode context mask)
+and the sliding window, with bf16 inputs and head_dim 32, 64 or 128. An
+additive ``bias``, attention dropout, ``q_positions``/``kv_positions``
+(ring attention) and the gradient of a returned lse stay in the plain
+version for now, which differentiates them by ordinary autograd: on a
+CUDA tensor they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from apex_tpu_torch._backend import check_kernel_input, uses_kernel
 
 NEG_INF = -1e30
 KERNEL = "flash_fwd"
+BWD_DQ_KERNEL = "flash_bwd_dq"
+BWD_DKV_KERNEL = "flash_bwd_dkv"
 HEAD_DIMS = (32, 64, 128)
 
 
@@ -124,27 +132,48 @@ def _attention_torch(q, k, v, bias, q_seg, k_seg, scale, causal,
     return out.to(q.dtype)
 
 
-def _library() -> ctypes.CDLL:
-    P, I, F = _build.P, _build.I, _build.F
-    return _build.library(
-        "flash_fwd", "apex_flash_fwd",
-        (P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P),
-        "apex_flash_error_string")
+def _flash_bwd_torch(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
+                     causal, window):
+    """Plain version of the two backward kernels: ``(dq, dk, dv)`` from
+    the whole (sq, sk) matrix in fp32, with the kernels' arithmetic —
+    P recomputed from the lse (clamped at NEG_INF / 2), dS rounded to
+    the input dtype before its products, P rounded for dV (the
+    reference's ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``). GQA sums dk
+    and dv over each kv head's group."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    group = h // hk
+    qg = q.float().reshape(b, hk, group, sq, d)
+    og = dout.float().reshape(b, hk, group, sq, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kf) * scale
+    neg = torch.zeros((b, sq, sk), dtype=torch.float32, device=q.device)
+    if causal or window is not None:
+        neg = neg + _mask_full(sq, sk, causal, window, None, None,
+                               q.device)[None]
+    if q_seg is not None:
+        neg = torch.where(q_seg[:, :, None] != k_seg[:, None, :], NEG_INF,
+                          neg)
+    s = s + neg[:, None, None]
+    lse_c = torch.clamp(lse, min=NEG_INF * 0.5).reshape(b, hk, group, sq, 1)
+    p = torch.exp(s - lse_c)
+    dp = torch.einsum("bkgqd,bkcd->bkgqc", og, vf)
+    ds = p * (dp - delta.reshape(b, hk, group, sq, 1))
+    ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds, qg) * scale
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p.to(dout.dtype).float(), og)
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
-def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window):
-    """The kernel: returns ``(out, lse)`` like ``_flash_fwd_pallas``."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash-attention backward kernels are not ported yet "
-            "(training slice of the port); run the forward under "
-            "torch.no_grad() or torch.inference_mode()")
+def _check_kernel_args(q, k, v, q_seg, k_seg):
+    """Raise on what the kernels do not take; returns the segment ids as
+    contiguous int32 (or None)."""
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_kernel_input(name, t, (torch.bfloat16,), dev)
-    b, h, sq, d = q.shape
-    hk, sk = k.shape[1], k.shape[2]
+    b, d = q.shape[0], q.shape[3]
     if d not in HEAD_DIMS:
         raise NotImplementedError(
             f"head_dim {d}: the kernel is built for {HEAD_DIMS}")
@@ -156,6 +185,93 @@ def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window):
         k_seg = k_seg.to(torch.int32).contiguous()
         check_kernel_input("segment_ids", q_seg, (torch.int32,), dev)
         check_kernel_input("kv_segment_ids", k_seg, (torch.int32,), dev)
+    return q_seg, k_seg
+
+
+def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
+                    causal, window, kernels=(BWD_DQ_KERNEL, BWD_DKV_KERNEL)):
+    """The dq kernel and the dk/dv kernel: returns ``(dq, dk, dv)`` like
+    ``_flash_bwd_pallas``. ``kernels`` names the ones to launch (both by
+    default; one alone to time it); a kernel left out returns None for
+    its outputs."""
+    q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
+    dev = q.device
+    dout = dout.contiguous()
+    check_kernel_input("grad", dout, (torch.bfloat16,), dev)
+    for name, t in (("lse", lse), ("delta", delta)):
+        check_kernel_input(name, t, (torch.float32,), dev)
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q) if BWD_DQ_KERNEL in kernels else None
+    dk, dv = ((torch.empty_like(k), torch.empty_like(v))
+              if BWD_DKV_KERNEL in kernels else (None, None))
+    P, I, F = _build.P, _build.I, _build.F
+    lib = _build.library(
+        "flash_bwd", "apex_flash_bwd",
+        (P,) * 11 + (I,) * 6 + (F, I, I, P), "apex_flash_bwd_error_string")
+    segs = (None if q_seg is None else q_seg.data_ptr(),
+            None if k_seg is None else k_seg.data_ptr())
+    launches = ((BWD_DQ_KERNEL, (dq, None, None)),
+                (BWD_DKV_KERNEL, (None, dk, dv)))
+    for kernel, outs in launches:
+        if kernel not in kernels:
+            continue
+        outs = [None if t is None else t.data_ptr() for t in outs]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.apex_flash_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), *segs, *outs, b, h, hk,
+                sq, sk, d, float(scale), int(causal),
+                0 if window is None else int(window), stream)
+        if err:
+            raise RuntimeError(
+                f"{kernel}: CUDA error {err} at launch: "
+                f"{lib.apex_flash_bwd_error_string(err).decode()}")
+        _build.count_launch(kernel)
+    return dq, dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+    """The reference's ``custom_vjp`` around flash attention: the
+    kernels on CUDA tensors, the plain versions on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, k_seg, scale, causal, window, kernel):
+        if kernel:
+            out, lse = _flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
+                                   window)
+        else:
+            out, lse = _attention_torch(q, k, v, None, q_seg, k_seg, scale,
+                                        causal, window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, k_seg)
+        ctx.args = (scale, causal, window, kernel)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_seg, k_seg = ctx.saved_tensors
+        scale, causal, window, kernel = ctx.args
+        delta = torch.sum(out.float() * dout.float(), dim=-1)
+        dq, dk, dv = (_flash_bwd_cuda if kernel else _flash_bwd_torch)(
+            q, k, v, lse, dout, delta, q_seg, k_seg, scale, causal, window)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _library() -> ctypes.CDLL:
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.library(
+        "flash_fwd", "apex_flash_fwd",
+        (P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P),
+        "apex_flash_error_string")
+
+
+def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window):
+    """The kernel: returns ``(out, lse)`` like ``_flash_fwd_pallas``."""
+    q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    dev = q.device
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     lib = _library()
@@ -234,15 +350,21 @@ def _attention(q, k, v, kernel: bool, *, bias=None, segment_ids=None,
     scale, q_seg, k_seg, seed = _prepare(
         q, k, v, bias, segment_ids, kv_segment_ids, causal, window_size,
         softmax_scale, dropout_rate, dropout_rng, q_positions, kv_positions)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    unported = [name for name, on in (
+        ("bias", bias is not None), ("dropout", dropout_rate > 0.0),
+        ("q_positions/kv_positions", q_positions is not None),
+        ("the gradient of a returned lse", grad and return_lse)) if on]
+    if kernel and unported:
+        raise NotImplementedError(
+            f"flash_attention with {', '.join(unported)} has no CUDA "
+            "kernel yet (dropout and ring-attention slices of the port); "
+            "it runs only on CPU tensors")
+    if grad and not unported:
+        return _FlashFn.apply(q, k, v, q_seg, k_seg, scale, causal,
+                              window_size, kernel)
     if kernel:
-        unported = [name for name, on in (
-            ("bias", bias is not None), ("dropout", dropout_rate > 0.0),
-            ("q_positions/kv_positions", q_positions is not None)) if on]
-        if unported:
-            raise NotImplementedError(
-                f"flash_attention with {', '.join(unported)} has no CUDA "
-                "kernel yet (training / ring-attention slices of the "
-                "port); it runs only on CPU tensors")
         out, lse = _flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
                                window_size)
         return (out, lse) if return_lse else out
@@ -284,8 +406,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_plain(q, k, v, **kw):
-    """:func:`flash_attention` through the plain version on any device
-    — the yardstick the kernel is held against on the card. Takes the
+    """:func:`flash_attention` through the plain versions on any device
+    — the yardstick the kernels are held against on the card. Takes the
     same keywords."""
     return _attention(q, k, v, False, **kw)
 
