@@ -60,7 +60,8 @@ __global__ void __launch_bounds__(kThreads)
     adam_kernel(const float* p, const float* m, const float* v,
                 const float* __restrict__ g, float* p_out, float* m_out,
                 float* v_out, float* __restrict__ found, int64_t n,
-                AdamScalars s) {
+                AdamScalars s, const float* __restrict__ inv_ptr) {
+  if (inv_ptr != nullptr) s.inv_scale = *inv_ptr;
   bool bad = false;
   const int64_t n4 = n / 4;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -97,12 +98,15 @@ __global__ void __launch_bounds__(kThreads)
 // p, m, v, g: n fp32 each, 16-byte aligned; p_out, m_out, v_out: n fp32,
 // each either its input (in place) or a separate buffer. found: one fp32
 // the caller zeroed. adam_w: 1 = decoupled weight decay (AdamW), 0 = L2.
-// Returns cudaGetLastError() after the launch.
+// inv_ptr: the gradient's multiplier in device memory (a scale that
+// folds in a clip factor computed on the device), or null to use
+// inv_scale. Returns cudaGetLastError() after the launch.
 extern "C" int apex_adam(const void* p, const void* m, const void* v,
                          const void* g, void* p_out, void* m_out, void* v_out,
                          void* found, int64_t n, float lr, float b1, float b2,
                          float eps, float wd, float bc1, float bc2,
-                         float inv_scale, int adam_w, void* stream) {
+                         float inv_scale, const void* inv_ptr, int adam_w,
+                         void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -114,7 +118,8 @@ extern "C" int apex_adam(const void* p, const void* m, const void* v,
       static_cast<const float*>(p), static_cast<const float*>(m),
       static_cast<const float*>(v), static_cast<const float*>(g),
       static_cast<float*>(p_out), static_cast<float*>(m_out),
-      static_cast<float*>(v_out), static_cast<float*>(found), n, s);
+      static_cast<float*>(v_out), static_cast<float*>(found), n, s,
+      static_cast<const float*>(inv_ptr));
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Convert the reference's GPT parameters (and its Adam state) into the
+"""Convert the reference's GPT parameters (and its optimizer state) into the
 port's ``GPTModel`` (and ``FlatOptState``).
 
 The input is the parameter tree of the reference's ``GPTModel``
@@ -118,16 +118,18 @@ def load_jax_params(model: GPTModel, params_np: Mapping) -> GPTModel:
 
 def load_jax_opt_state(state: FlatOptState, config: GPTConfig,
                        opt_state_np: Mapping) -> FlatOptState:
-    """Copy the reference's Adam state into ``state`` (the port's, for a
-    :class:`GPTModel` of ``config``) and return it.
+    """Copy the reference's FusedAdam or FusedLAMB state (both keep the
+    slots ``m`` and ``v``) into ``state`` (the port's, for a
+    :class:`GPTModel` of ``config``, in either flat layout) and return
+    it.
 
     ``opt_state_np`` holds ``"master"``, ``"m"`` and ``"v"``, each the
     reference's ``FlatOptState`` buffer unpacked through its space
     (``space.unpack(buf, dtype="buffer")``: the param tree with fp32
-    numpy leaves), and ``"count"``. The two flat layouts order their
-    leaves differently, so each leaf goes by parameter name into its
-    slot of the port's buffers, in place: parameters bound to the
-    master see the loaded values."""
+    numpy leaves), and ``"count"``. The two flat layouts order (and,
+    segmented, pad) their leaves differently, so each leaf goes by
+    parameter name into its slot of the port's buffers, in place:
+    parameters bound to the master see the loaded values."""
     bufs = {"master": state.master, **state.slots}
     for key in ("master", "m", "v"):
         named = gpt_params_from_jax(opt_state_np[key], config)

@@ -9,14 +9,20 @@ reference's::
 
     model = init_gpt_pretrain_params(cfg, generator)
     step, state = make_gpt_pretrain_step(cfg, FusedAdam(lr))(model)
+    step, state = make_gpt_pretrain_step(
+        cfg, FusedLAMB(lr, weight_decay=0.01, max_grad_norm=1.0))(model)
     state, loss = step(state, tokens, labels)
 
 The model's parameters are bound as views into the optimizer's flat
 master and their ``.grad`` into one flat fp32 gradient buffer
-(``FlatSpace.bind``): the backward pass accumulates straight into the
-flat gradient and the in-place Adam sweep is the weight update. On CUDA
-the step runs the LayerNorm and flash-attention kernels forward and
-backward and the Adam kernel; on the CPU their plain versions.
+(``FlatSpace.bind``), whatever the master's layout: the plain one, or
+FusedLAMB's segmented one, whose offsets differ. The backward pass
+accumulates straight into the flat gradient and the in-place optimizer
+sweep is the weight update. On CUDA the step runs the LayerNorm and
+flash-attention kernels forward and backward and the optimizer's
+kernels (Adam; or LAMB's sum of squares for its clip, the one-pass
+segment kernel and the two stages over the large leaves); on the CPU
+their plain versions.
 
 The mesh (data, tensor and pipeline parallelism) waits for the
 distributed slice: ``mesh=`` and interleaved pipeline chunks raise.
@@ -56,8 +62,9 @@ class PretrainStep:
         self._bound: Optional[torch.Tensor] = None
 
     def init(self) -> FlatOptState:
-        """The optimizer state for the model's parameters, with the
-        parameters bound to its master."""
+        """The optimizer state for the model's parameters (in the
+        optimizer's own flat layout), with the parameters bound to its
+        master."""
         state = self.opt.init(dict(self.model.named_parameters()))
         self._bind(state)
         return state

@@ -3,19 +3,47 @@
 
 - `FlatSpace`: the aligned flat layout of a model's parameters, with
   parameters and gradients bound as views into flat buffers;
+  `segmented_space` / `SegmentMeta`: the segment-aligned layout of the
+  one-pass LAMB;
 - `fused_elementwise`: one sweep of a functor over flat buffers, a CUDA
   kernel per ported functor on CUDA tensors, plain PyTorch on CPU
-  tensors;
-- `fused_adam_update`: the Adam / AdamW functor (kernel
-  ``csrc/fused_adam.cu``).
+  tensors; `fused_sumsq_partials`: per-tile sums of squares
+  (``csrc/sumsq.cu``);
+- `fused_adam_update`: the Adam / AdamW functor (``csrc/fused_adam.cu``);
+- the L2 norms (`per_tensor_l2norm`, `multi_tensor_l2norm`,
+  `fused_unscale_l2norm`);
+- LAMB: `fused_lamb_compute_update_term` and `fused_lamb_update` (the
+  two stages, ``csrc/fused_lamb.cu``), `lamb_trust_ratio`, and
+  `fused_lamb_segmented_update` (the one-pass segment kernel,
+  ``csrc/lamb_segment.cu``).
 """
 
 from apex_tpu_torch.multi_tensor.engine import (
     fused_elementwise,
+    fused_sumsq_partials,
     register_kernel,
 )
-from apex_tpu_torch.multi_tensor.flat_buffer import DEFAULT_ALIGN, FlatSpace
-from apex_tpu_torch.multi_tensor.ops import fused_adam_update
+from apex_tpu_torch.multi_tensor.flat_buffer import (
+    DEFAULT_ALIGN,
+    FlatSpace,
+    SegmentMeta,
+    default_seg_elems,
+    segmented_space,
+)
+from apex_tpu_torch.multi_tensor.ops import (
+    fused_adam_update,
+    fused_lamb_compute_update_term,
+    fused_lamb_update,
+    fused_unscale_l2norm,
+    lamb_trust_ratio,
+    multi_tensor_l2norm,
+    per_tensor_l2norm,
+)
+from apex_tpu_torch.multi_tensor.segmented import fused_lamb_segmented_update
 
-__all__ = ["DEFAULT_ALIGN", "FlatSpace", "fused_adam_update",
-           "fused_elementwise", "register_kernel"]
+__all__ = ["DEFAULT_ALIGN", "FlatSpace", "SegmentMeta", "default_seg_elems",
+           "fused_adam_update", "fused_elementwise",
+           "fused_lamb_compute_update_term", "fused_lamb_segmented_update",
+           "fused_lamb_update", "fused_sumsq_partials",
+           "fused_unscale_l2norm", "lamb_trust_ratio", "multi_tensor_l2norm",
+           "per_tensor_l2norm", "register_kernel", "segmented_space"]

@@ -1,24 +1,31 @@
 """Fused element-wise engine over flat buffers.
 
-Counterpart of ``apex_tpu/multi_tensor/engine.py`` ``fused_elementwise``.
-There one Pallas kernel sweeps the flat buffers with a Python functor
-traced into it. A CUDA kernel cannot take a Python functor, so here each
-functor that has a kernel registers it (:func:`register_kernel`): on
-CUDA tensors ``fused_elementwise`` launches the functor's kernel, and a
-functor without one raises. On CPU tensors it runs the functor itself
-as plain PyTorch over whole buffers, the reference's
-``_fused_elementwise_xla``. So far one functor has a kernel: Adam
-(``multi_tensor/ops.py``, ``csrc/fused_adam.cu``).
+Counterpart of ``apex_tpu/multi_tensor/engine.py`` ``fused_elementwise``
+and ``fused_sumsq_partials``. There one Pallas kernel sweeps the flat
+buffers with a Python functor traced into it. A CUDA kernel cannot take
+a Python functor, so here each functor that has a kernel registers it
+(:func:`register_kernel`): on CUDA tensors ``fused_elementwise``
+launches the functor's kernel, and a functor without one raises. On CPU
+tensors it runs the functor itself as plain PyTorch over whole buffers,
+the reference's ``_fused_elementwise_xla``. Functors with a kernel: Adam
+(``csrc/fused_adam.cu``) and the two LAMB stages (``csrc/fused_lamb.cu``),
+all in ``multi_tensor/ops.py``.
 
 ``check_finite`` and ``found_inf`` keep the reference's meaning (a
 float32 0-d tensor in {0, 1} over the named inputs). ``aliases`` maps an
 input to the output that is written into it, in place, on both paths
-(the reference's ``input_output_aliases``). The plain version also
-takes the per-tensor scalars (``tile_ids`` / ``per_tensor``) and the
-per-subtile sum-of-squares partials (``sumsq_subtiles``); on CUDA they
-raise until their kernels are ported. Stochastic rounding
+(the reference's ``input_output_aliases``). Per-tensor scalars (``tile_ids`` / ``per_tensor``) and the
+per-subtile sum-of-squares partials (``sumsq_subtiles``) reach the
+kernels; on CUDA the partials come one value a 2048-element subtile,
+shaped ``(num_tiles, sub, 1)`` (the plain version's 128 lanes are summed
+already — every consumer sums the lanes first). A scalar or per-tensor
+value that is a tensor on the card stays there: the kernel reads it
+through a pointer, so no step waits on a host read. Stochastic rounding
 (``sr_outputs``) raises everywhere: the reference's plain path draws
 ``jax.random`` threefry bits, which the port does not reproduce yet.
+
+``fused_sumsq_partials`` (the reference's kernels #7 and #8) runs
+``csrc/sumsq.cu`` on CUDA tensors and its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from apex_tpu_torch._backend import uses_kernel
+from apex_tpu_torch import _build
+from apex_tpu_torch._backend import check_kernel_input, uses_kernel
 
 LANES = 128
 DEFAULT_TILE_ROWS = 512
@@ -36,18 +44,49 @@ DEFAULT_TILE_ROWS = 512
 # FlatSpace alignment quantum
 PER_TENSOR_TILE_ROWS = 16
 
-# functor -> its CUDA launcher, launcher(inputs, outputs, scalars, found,
-# check_finite); see register_kernel
+SUMSQ_KERNEL = "sumsq"
+SUMSQ_SCALED_KERNEL = "sumsq_scaled"
+
+# functor -> its CUDA launcher; see register_kernel
 _KERNELS: Dict[Callable, Callable] = {}
 
 
 def register_kernel(fn: Callable, launcher: Callable) -> None:
     """Give functor ``fn`` a CUDA kernel. ``launcher(inputs, outputs,
-    scalars, found, check_finite)`` gets the input buffers, the output
-    buffers (an aliased output is its input), the scalars as Python
-    floats already rounded to fp32, and a zeroed fp32 ``found``; it
-    launches the kernel or raises on what the kernel does not take."""
+    scalars, found, check_finite, per_tensor, tile_ids, sumsq)`` gets
+    the input buffers, the output buffers (an aliased output is its
+    input), the scalars (:func:`kernel_scalar`: Python floats rounded to
+    fp32, or 0-d fp32 tensors on the card), a zeroed fp32 ``found``, the
+    per-tensor values as fp32 tensors on the card, the int32 subtile ->
+    leaf map on the card (or None), and ``sumsq``, a list of
+    ``(kind, idx, partials)`` with one fp32 buffer of ``ceil(n / 2048)``
+    or more elements per requested partial. It launches the kernel or
+    raises on what the kernel does not take."""
     _KERNELS[fn] = launcher
+
+
+def kernel_scalar(s, device: torch.device):
+    """A scalar as a kernel takes it: a 0-d tensor on ``device`` stays
+    there as fp32 (the kernel reads it through its pointer, so nothing
+    waits for the device); anything else becomes a Python float rounded
+    to fp32."""
+    if isinstance(s, torch.Tensor) and s.device.type == "cuda":
+        if s.numel() != 1:
+            raise ValueError(f"a scalar must have one element, got "
+                             f"shape {tuple(s.shape)}")
+        if s.device != device:
+            raise ValueError(f"scalar on {s.device}, buffers on {device}")
+        return s.reshape(()).to(torch.float32).contiguous()
+    return float(np.float32(float(s)))
+
+
+def scalar_pointer(s) -> Tuple[float, Optional[int]]:
+    """``(value, pointer)`` of a :func:`kernel_scalar` for a C launcher:
+    a device scalar passes its address (and 0.0), a host one its value
+    (and a null pointer)."""
+    if isinstance(s, torch.Tensor):
+        return 0.0, s.data_ptr()
+    return s, None
 
 
 def _pad_to(buf: torch.Tensor, n: int) -> torch.Tensor:
@@ -81,7 +120,8 @@ def fused_elementwise(
     subtile-granular ``tile_ids``, as in the reference). Returns
     ``(outputs, found_inf)``; ``sumsq_subtiles`` partials, shaped
     ``(num_tiles, tile_rows // PER_TENSOR_TILE_ROWS, LANES)``, follow
-    the outputs. ``kernel`` defaults to whether the buffers lie on a
+    the outputs (``(num_tiles, sub, 1)`` on CUDA, see the module
+    docstring). ``kernel`` defaults to whether the buffers lie on a
     CUDA device; ``kernel=False`` runs the plain version on any device
     (the yardstick the kernels are held against on the card)."""
     n = inputs[0].shape[0]
@@ -120,7 +160,8 @@ def fused_elementwise(
     if kernel:
         return _fused_elementwise_cuda(fn, inputs, scalars, num_outputs,
                                        out_dtypes, check_finite, tile_ids,
-                                       per_tensor, aliases, sumsq_subtiles)
+                                       per_tensor, aliases, sumsq_subtiles,
+                                       tile_rows)
     outs, found = _fused_elementwise_torch(
         fn, inputs, scalars, num_outputs, out_dtypes, check_finite,
         tile_ids, per_tensor, tile_rows * LANES, sumsq_subtiles)
@@ -132,17 +173,13 @@ def fused_elementwise(
 
 def _fused_elementwise_cuda(fn, inputs, scalars, num_outputs, out_dtypes,
                             check_finite, tile_ids, per_tensor, aliases,
-                            sumsq_subtiles):
+                            sumsq_subtiles, tile_rows):
     launcher = _KERNELS.get(fn)
     if launcher is None:
         raise NotImplementedError(
             f"functor {getattr(fn, '__name__', fn)!r} has no CUDA kernel "
             "yet; only the functors with a ported kernel run on CUDA "
             "tensors (it runs on CPU tensors)")
-    if tile_ids is not None or per_tensor or sumsq_subtiles:
-        raise NotImplementedError(
-            "per-tensor scalars (tile_ids/per_tensor) and sumsq_subtiles "
-            "have no CUDA kernel yet (they come with the LAMB kernels)")
     dev = inputs[0].device
     n = inputs[0].shape[0]
     by_out = {o: i for i, o in aliases.items()}
@@ -150,8 +187,29 @@ def _fused_elementwise_cuda(fn, inputs, scalars, num_outputs, out_dtypes,
             torch.empty(n, dtype=out_dtypes[j], device=dev)
             for j in range(num_outputs)]
     found = torch.zeros((), dtype=torch.float32, device=dev)
-    vals = [float(torch.as_tensor(s, dtype=torch.float32)) for s in scalars]
-    launcher(list(inputs), outs, vals, found, tuple(check_finite))
+    vals = [kernel_scalar(s, dev) for s in scalars]
+    ids = None
+    if tile_ids is not None:
+        ids = (tile_ids if isinstance(tile_ids, torch.Tensor) else
+               torch.as_tensor(np.asarray(tile_ids, np.int32)))
+        ids = ids.to(dev, torch.int32)
+        if ids.shape[0] * PER_TENSOR_TILE_ROWS * LANES < n:
+            raise ValueError(f"tile_ids cover {ids.shape[0]} subtiles; "
+                             f"{n} elements need more")
+    pt = [torch.as_tensor(p, dtype=torch.float32, device=dev).reshape(-1)
+          .contiguous() for p in per_tensor]
+    tile = tile_rows * LANES
+    num_tiles = -(-n // tile)
+    sub = tile // (PER_TENSOR_TILE_ROWS * LANES)
+    n_sub = -(-n // (PER_TENSOR_TILE_ROWS * LANES))
+    sumsq = []
+    for kind, idx in sumsq_subtiles:
+        part = torch.empty(num_tiles * sub, dtype=torch.float32, device=dev)
+        part[n_sub:].zero_()
+        sumsq.append((kind, idx, part))
+    launcher(list(inputs), outs, vals, found, tuple(check_finite), pt, ids,
+             sumsq)
+    outs.extend(part.view(num_tiles, sub, 1) for _, _, part in sumsq)
     return outs, found
 
 
@@ -167,8 +225,10 @@ def _fused_elementwise_torch(fn, inputs, scalars, num_outputs, out_dtypes,
     if tile_ids is not None:
         # subtile-granular ids: blocks reshape at subtile granularity and
         # the per-tensor values broadcast as (n_subtiles, 1)
-        ids = torch.as_tensor(np.asarray(tile_ids), dtype=torch.long,
-                              device=dev)
+        ids = (tile_ids.to(dev, torch.long)
+               if isinstance(tile_ids, torch.Tensor) else
+               torch.as_tensor(np.asarray(tile_ids), dtype=torch.long,
+                               device=dev))
         padded_n = ids.shape[0] * sub_elems
         bufs = [_pad_to(b, padded_n).reshape(-1, sub_elems) for b in inputs]
         tvals = [torch.as_tensor(p, dtype=torch.float32, device=dev)[ids][
@@ -201,5 +261,65 @@ def _fused_elementwise_torch(fn, inputs, scalars, num_outputs, out_dtypes,
     return outs, found
 
 
+# ---------------------------------------------------------------------------
+# Per-tile sums of squares (global and per-tensor L2 norms)
+# ---------------------------------------------------------------------------
+
+
+def fused_sumsq_partials(buf: torch.Tensor, tile_rows: Optional[int] = None,
+                         scale=None, *, plain: bool = False) -> torch.Tensor:
+    """Per-tile partial sums of squares of a flat buffer, ``(num_tiles,)``
+    fp32 for tiles of ``tile_rows * 128`` elements (default 512 rows, a
+    65,536-element tile, for a global norm; ``PER_TENSOR_TILE_ROWS`` for
+    per-tensor norms, whose tiles never straddle a leaf).
+
+    ``scale`` (a number, or a 0-d tensor that may live on the card)
+    multiplies every element before it is squared, in the same read:
+    the fused train step's unscale. On CUDA tensors this launches
+    ``csrc/sumsq.cu`` (counted as ``sumsq``, or ``sumsq_scaled`` with a
+    scale); on CPU tensors, or with ``plain=True``, the plain version
+    (the reference's ``impl="xla"`` branch). The finishing sum is the
+    caller's."""
+    tile_rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
+    tile = tile_rows * LANES
+    if buf.ndim != 1:
+        raise ValueError("fused_sumsq_partials takes a 1-D buffer")
+    n = buf.shape[0]
+    num_tiles = -(-n // tile)
+    if not plain and uses_kernel(buf):
+        return _sumsq_cuda(buf, tile, num_tiles, scale)
+    x = _pad_to(buf, num_tiles * tile).float()
+    if scale is not None:
+        x = x * torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+    x = x.reshape(num_tiles, tile)
+    return torch.sum(x * x, dim=1)
+
+
+def _sumsq_cuda(buf, tile, num_tiles, scale) -> torch.Tensor:
+    dev = buf.device
+    check_kernel_input("buf", buf, (torch.float32,), dev)
+    out = torch.empty(num_tiles, dtype=torch.float32, device=dev)
+    if scale is not None:
+        s = kernel_scalar(scale, dev)
+        if not isinstance(s, torch.Tensor):     # a fill: no host copy
+            s = torch.full((), s, dtype=torch.float32, device=dev)
+    P, L = _build.P, _build.L
+    lib = _build.library("sumsq", "apex_sumsq", (P, P, L, L, P, P),
+                         "apex_sumsq_error_string")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.apex_sumsq(buf.data_ptr(), out.data_ptr(), buf.shape[0],
+                             tile, None if scale is None else s.data_ptr(),
+                             stream)
+    name = SUMSQ_KERNEL if scale is None else SUMSQ_SCALED_KERNEL
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: "
+                           f"{lib.apex_sumsq_error_string(err).decode()}")
+    _build.count_launch(name)
+    return out
+
+
 __all__ = ["LANES", "DEFAULT_TILE_ROWS", "PER_TENSOR_TILE_ROWS",
-           "fused_elementwise", "register_kernel"]
+           "SUMSQ_KERNEL", "SUMSQ_SCALED_KERNEL", "fused_elementwise",
+           "fused_sumsq_partials", "kernel_scalar", "register_kernel",
+           "scalar_pointer"]

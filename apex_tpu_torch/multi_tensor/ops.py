@@ -1,30 +1,82 @@
 """Fused multi-tensor ops over flat buffers.
 
-Counterpart of ``apex_tpu/multi_tensor/ops.py``. Ported so far: the
-Adam / AdamW update, whose functor runs as the kernel in
-``csrc/fused_adam.cu`` on CUDA buffers and as plain PyTorch on CPU
-buffers. The other functors (scale, axpby, the L2 norms, Adagrad, SGD,
-LAMB, NovoGrad, LARS) wait for their kernels.
+Counterpart of ``apex_tpu/multi_tensor/ops.py``. Ported so far, each
+functor a kernel on CUDA buffers and plain PyTorch on CPU buffers:
+
+- the Adam / AdamW update (``csrc/fused_adam.cu``);
+- the L2 norms (``per_tensor_l2norm``, ``multi_tensor_l2norm``,
+  ``fused_unscale_l2norm``) over the sum-of-squares kernels
+  (``csrc/sumsq.cu``), finished in plain PyTorch as the reference
+  finishes them in XLA;
+- LAMB: stage 1 (``fused_lamb_compute_update_term``) and stage 2 of
+  ``fused_lamb_update`` (``csrc/fused_lamb.cu``), and the trust ratio.
+
+The other functors (scale, axpby, Adagrad, SGD, NovoGrad, LARS) wait
+for their kernels.
+
+Scalars that come from the device (a clip factor from a device norm,
+the trust ratios) stay on the device: the kernels read them through a
+pointer, so a step never waits on a host read of them. Where the
+reference aliases LAMB's gradient buffer to the update term u, the port
+writes u into a buffer of its own and leaves the caller's gradient as
+it was (the same bytes move).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from apex_tpu_torch import _build
 from apex_tpu_torch._backend import check_kernel_input
 from apex_tpu_torch.multi_tensor.engine import (
+    LANES,
+    PER_TENSOR_TILE_ROWS,
     fused_elementwise,
+    fused_sumsq_partials,
+    kernel_scalar,
     register_kernel,
+    scalar_pointer,
 )
+from apex_tpu_torch.multi_tensor.flat_buffer import FlatSpace
 
 ADAM_KERNEL = "fused_adam"
+LAMB_STAGE1_KERNEL = "lamb_stage1"
+LAMB_STAGE2_KERNEL = "lamb_stage2"
 
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
+
+
+def _dev_f32(x, device) -> torch.Tensor:
+    """``x`` as a 0-d fp32 tensor on ``device`` (a device tensor stays
+    where it is: no host read). Arithmetic between two such tensors
+    rounds as the reference's fp32 scalar arithmetic does; a CUDA
+    tensor divided by a Python number would be multiplied by its
+    reciprocal instead. A host number becomes a fill on the device's
+    stream (``torch.tensor(..., device=cuda)`` would copy it from the
+    host and wait for the stream)."""
+    if isinstance(x, torch.Tensor) and x.device == torch.device(device):
+        return x.reshape(()).to(torch.float32)
+    return torch.full((), float(np.float32(float(x))), dtype=torch.float32,
+                      device=device)
+
+
+def _host_scalars(name, scalars, allowed_device=()) -> None:
+    for i, s in enumerate(scalars):
+        if isinstance(s, torch.Tensor) and i not in allowed_device:
+            raise NotImplementedError(
+                f"{name}: scalar {i} lives on the device; the kernel takes "
+                "it by value (only the scales it reads by pointer may)")
+
+
+def _launch_error(lib, fn_name: str, kernel: str, err: int) -> None:
+    if err:
+        msg = getattr(lib, fn_name)(err).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {err} at launch: {msg}")
 
 
 def _adam_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
@@ -45,30 +97,34 @@ def _adam_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
     return [p_ - lr_ * upd, m2, v2]
 
 
-def _adam_kernel(inputs, outputs, scalars, found, check_finite) -> None:
+def _adam_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
+                 tile_ids, sumsq) -> None:
     """Launch ``csrc/fused_adam.cu`` for :func:`_adam_fn`."""
     if check_finite != (3,):
         raise NotImplementedError(
             f"the Adam kernel checks the gradient (input 3) for "
             f"non-finite values; check_finite={check_finite} is not built")
+    if per_tensor or tile_ids is not None or sumsq:
+        raise NotImplementedError(
+            "the Adam kernel takes no per-tensor scalars or sumsq partials")
+    _host_scalars(ADAM_KERNEL, scalars, allowed_device=(8,))
     dev = inputs[0].device
     for name, t in zip(("p", "m", "v", "g", "p_out", "m_out", "v_out"),
                        (*inputs, *outputs)):
         check_kernel_input(name, t, (torch.float32,), dev)
-    lr, b1, b2, eps, wd, bc1, bc2, mode, inv_scale = scalars
+    lr, b1, b2, eps, wd, bc1, bc2, mode = scalars[:8]
+    inv_val, inv_ptr = scalar_pointer(scalars[8])
     P, L, F, I = _build.P, _build.L, _build.F, _build.I
     lib = _build.library("fused_adam", "apex_adam",
-                         (P,) * 8 + (L,) + (F,) * 8 + (I, P),
+                         (P,) * 8 + (L,) + (F,) * 8 + (P, I, P),
                          "apex_adam_error_string")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.apex_adam(*(t.data_ptr() for t in (*inputs, *outputs)),
                             found.data_ptr(), inputs[0].numel(), lr, b1, b2,
-                            eps, wd, bc1, bc2, inv_scale, int(mode > 0.5),
-                            stream)
-    if err:
-        raise RuntimeError(f"{ADAM_KERNEL}: CUDA error {err} at launch: "
-                           f"{lib.apex_adam_error_string(err).decode()}")
+                            eps, wd, bc1, bc2, inv_val, inv_ptr,
+                            int(mode > 0.5), stream)
+    _launch_error(lib, "apex_adam_error_string", ADAM_KERNEL, err)
     _build.count_launch(ADAM_KERNEL)
 
 
@@ -85,7 +141,9 @@ def fused_adam_update(
 
     ``adam_w_mode`` selects decoupled weight decay (AdamW) against L2
     regularisation; ``grad_scale`` divides the gradient inside the same
-    sweep. The bias corrections are computed in fp32 as the reference
+    sweep (a 0-d tensor on the card stays there: the kernel reads its
+    reciprocal through a pointer). The bias corrections are computed in
+    fp32 as the reference
     computes them (:153-158). With ``in_place`` (the default, the
     reference's aliasing) p, m and v are overwritten and returned; with
     ``in_place=False`` they are left as they were and the results are
@@ -98,10 +156,13 @@ def fused_adam_update(
     if not bias_correction:
         bc1 = bc2 = _f32(1.0)
     mode = 1.0 if adam_w_mode else 0.0
+    inv_scale = (1.0 / _dev_f32(grad_scale, g.device)
+                 if isinstance(grad_scale, torch.Tensor)
+                 else 1.0 / _f32(grad_scale))
     (p2, m2, v2), found = fused_elementwise(
         _adam_fn, [p, m, v, g],
         scalars=[lr, beta1, beta2, eps, weight_decay, bc1, bc2, mode,
-                 1.0 / _f32(grad_scale)],
+                 inv_scale],
         num_outputs=3, out_dtypes=[p.dtype, m.dtype, v.dtype],
         check_finite=(3,),
         aliases={0: 0, 1: 1, 2: 2} if in_place else None,
@@ -109,4 +170,373 @@ def fused_adam_update(
     return p2, m2, v2, found
 
 
-__all__ = ["ADAM_KERNEL", "fused_adam_update"]
+# ---------------------------------------------------------------------------
+# L2 norms (the reference's :74-132)
+# ---------------------------------------------------------------------------
+
+_PT_TILE = PER_TENSOR_TILE_ROWS * LANES
+
+
+def _segment_sum(per_subtile: torch.Tensor, space: FlatSpace) -> torch.Tensor:
+    """(num_leaves,) sums of per-subtile values by leaf (the reference's
+    ``jax.ops.segment_sum`` over ``tile_leaf_ids``)."""
+    ids = space.device_subtile_leaf_ids(per_subtile.device)
+    out = torch.zeros(space.num_leaves, dtype=torch.float32,
+                      device=per_subtile.device)
+    return out.index_add_(0, ids.long(), per_subtile[:ids.shape[0]])
+
+
+def _norms_from_subtile_partials(partials: torch.Tensor,
+                                 space: FlatSpace) -> torch.Tensor:
+    """(num_leaves,) L2 norms from per-subtile sum-of-squares partials
+    (the engine's ``sumsq_subtiles`` outputs): a lane sum, then a sum by
+    leaf — every leaf is aligned to the subtile, so nothing re-reads the
+    buffer."""
+    return torch.sqrt(_segment_sum(partials.sum(-1).reshape(-1), space))
+
+
+def per_tensor_l2norm(buf: torch.Tensor, space: FlatSpace, *,
+                      plain: bool = False) -> torch.Tensor:
+    """(num_leaves,) L2 norms of each tensor in the flat buffer: per-
+    subtile partials (kernel ``sumsq``) and a sum by leaf."""
+    partials = fused_sumsq_partials(buf, PER_TENSOR_TILE_ROWS, plain=plain)
+    return torch.sqrt(_segment_sum(partials, space))
+
+
+def multi_tensor_l2norm(buf: torch.Tensor, space: Optional[FlatSpace] = None,
+                        *, per_tensor: bool = False, plain: bool = False):
+    """Global L2 norm of a flat buffer, and the per-tensor norms with
+    ``per_tensor=True`` (else None)."""
+    if per_tensor:
+        if space is None:
+            raise ValueError("per_tensor=True requires a FlatSpace")
+        pt = per_tensor_l2norm(buf, space, plain=plain)
+        return torch.sqrt(torch.sum(pt * pt)), pt
+    partials = fused_sumsq_partials(buf, plain=plain)
+    return torch.sqrt(torch.sum(partials)), None
+
+
+def fused_unscale_l2norm(g: torch.Tensor, *, inv_scale=1.0,
+                         plain: bool = False):
+    """Global L2 norm of ``inv_scale * g`` and ``found_inf`` in one read
+    of ``g`` (kernel ``sumsq_scaled``): ``found_inf`` is 1 when the
+    total is not finite (a non-finite gradient, or a square that
+    overflows). Returns ``(norm, found_inf)``, both 0-d fp32 on ``g``'s
+    device."""
+    partials = fused_sumsq_partials(g, scale=inv_scale, plain=plain)
+    total = torch.sum(partials)
+    found = (~torch.isfinite(total)).to(torch.float32)
+    return torch.sqrt(total), found
+
+
+# ---------------------------------------------------------------------------
+# LAMB (the reference's :265-411; ref csrc/multi_tensor_lamb.cu)
+# ---------------------------------------------------------------------------
+
+
+def _lamb_stage1_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
+                    ) -> List[torch.Tensor]:
+    """The reference's stage-1 functor (:300-309), one elementwise op at
+    a time on fp32 0-d scalars. The gradient is DIVIDED by ``inv``
+    (clip x grad_scale)."""
+    p_, m_, v_, g_ = [x.float() for x in ins]
+    b1_, b2_, beta3_, eps_, wd, bc1_, bc2_, mode_, inv = s
+    g_ = g_ / inv
+    g_eff = torch.where(mode_ > 0.5, g_, g_ + wd * p_)
+    m2 = b1_ * m_ + beta3_ * g_eff
+    v2 = b2_ * v_ + (1.0 - b2_) * g_eff * g_eff
+    upd = (m2 / bc1_) / (torch.sqrt(v2 / bc2_) + eps_)
+    upd = upd + torch.where(mode_ > 0.5, wd * p_, 0.0)
+    return [upd, m2, v2]
+
+
+def _lamb_stage2_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor],
+                    t: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The reference's stage-2 functor (:395-399): p - lr * ratio * u."""
+    p_, u_ = [x.float() for x in ins]
+    (lr_,) = s
+    (r_,) = t
+    return [p_ - lr_ * r_ * u_]
+
+
+_STAGE1_SUMSQ = ((), (("in", 0), ("out", 0)),
+                 (("in", 0), ("out", 0), ("in", 3)))
+
+
+def _lamb_stage1_kernel(inputs, outputs, scalars, found, check_finite,
+                        per_tensor, tile_ids, sumsq) -> None:
+    """Launch ``csrc/fused_lamb.cu`` stage 1 for :func:`_lamb_stage1_fn`."""
+    kinds = tuple((k, i) for k, i, _ in sumsq)
+    if check_finite != (3,) or per_tensor or tile_ids is not None \
+            or kinds not in _STAGE1_SUMSQ:
+        raise NotImplementedError(
+            "the LAMB stage-1 kernel checks g (input 3), takes no per-"
+            "tensor scalars, and emits the partials of p, u and "
+            f"optionally g; got check_finite={check_finite}, "
+            f"sumsq_subtiles={kinds}")
+    _host_scalars(LAMB_STAGE1_KERNEL, scalars, allowed_device=(8,))
+    dev = inputs[0].device
+    for name, t in zip(("p", "m", "v", "g", "u", "m_out", "v_out"),
+                       (*inputs, *outputs)):
+        check_kernel_input(name, t, (torch.float32,), dev)
+    parts = [b.data_ptr() for _, _, b in sumsq] + [None] * (3 - len(sumsq))
+    inv_val, inv_ptr = scalar_pointer(scalars[8])
+    _stage1_launch(inputs, outputs, found, parts, scalars[:8], inv_val,
+                   inv_ptr)
+
+
+def _stage1_launch(inputs, outputs, found, parts, scalars, inv_val, inv_ptr,
+                   segs=None, seg_elems=0) -> None:
+    b1, b2, beta3, eps, wd, bc1, bc2, mode = scalars
+    P, L, F, I = _build.P, _build.L, _build.F, _build.I
+    lib = _build.library("fused_lamb", "apex_lamb_stage1",
+                         (P,) * 11 + (L,) + (F,) * 8 + (P, I, P, L, L, P),
+                         "apex_lamb_error_string")
+    dev = inputs[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.apex_lamb_stage1(
+            *(t.data_ptr() for t in (*inputs, *outputs)), found.data_ptr(),
+            *parts, inputs[0].numel(), b1, b2, beta3, eps, wd, bc1, bc2,
+            inv_val, inv_ptr, int(mode > 0.5),
+            None if segs is None else segs.data_ptr(),
+            0 if segs is None else segs.numel(), seg_elems, stream)
+    _launch_error(lib, "apex_lamb_error_string", LAMB_STAGE1_KERNEL, err)
+    _build.count_launch(LAMB_STAGE1_KERNEL)
+
+
+def _lamb_stage2_kernel(inputs, outputs, scalars, found, check_finite,
+                        per_tensor, tile_ids, sumsq) -> None:
+    """Launch ``csrc/fused_lamb.cu`` stage 2 for :func:`_lamb_stage2_fn`:
+    the ratios stay on the device, each subtile reads its leaf's."""
+    if check_finite or sumsq or len(per_tensor) != 1 or tile_ids is None:
+        raise NotImplementedError(
+            "the LAMB stage-2 kernel takes one per-tensor ratio through "
+            "tile_ids and no finite check or sumsq partials")
+    _host_scalars(LAMB_STAGE2_KERNEL, scalars)
+    dev = inputs[0].device
+    for name, t in zip(("p", "u", "p_out"), (*inputs, *outputs)):
+        check_kernel_input(name, t, (torch.float32,), dev)
+    (ratio,) = per_tensor
+    _stage2_launch(inputs[0], inputs[1], outputs[0], ratio, tile_ids,
+                   scalars[0])
+
+
+def _stage2_launch(p, u, p_out, ratio, tile_ids, lr, segs=None,
+                   seg_elems=0) -> None:
+    P, L, F = _build.P, _build.L, _build.F
+    lib = _build.library("fused_lamb", "apex_lamb_stage2",
+                         (P, P, P, P, P, L, F, P, L, L, P),
+                         "apex_lamb_error_string")
+    dev = p.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.apex_lamb_stage2(
+            p.data_ptr(), u.data_ptr(), p_out.data_ptr(), ratio.data_ptr(),
+            tile_ids.data_ptr(), p.numel(), lr,
+            None if segs is None else segs.data_ptr(),
+            0 if segs is None else segs.numel(), seg_elems, stream)
+    _launch_error(lib, "apex_lamb_error_string", LAMB_STAGE2_KERNEL, err)
+    _build.count_launch(LAMB_STAGE2_KERNEL)
+
+
+register_kernel(_lamb_stage1_fn, _lamb_stage1_kernel)
+register_kernel(_lamb_stage2_fn, _lamb_stage2_kernel)
+
+
+def lamb_scalars(*, beta1, beta2, step, bias_correction, grad_averaging):
+    """``(b1, b2, beta3, bc1, bc2)`` as fp32 0-d CPU tensors, computed as
+    the reference computes them (:355-361)."""
+    step_t = _f32(float(step))
+    b1, b2 = _f32(beta1), _f32(beta2)
+    beta3 = 1.0 - b1 if grad_averaging else _f32(1.0)
+    one = _f32(1.0)
+    bc1 = 1.0 - torch.pow(b1, step_t) if bias_correction else one
+    bc2 = 1.0 - torch.pow(b2, step_t) if bias_correction else one
+    return b1, b2, beta3, bc1, bc2
+
+
+def lamb_inv_scale(g: torch.Tensor, *, max_grad_norm, global_grad_norm,
+                   grad_scale, plain: bool = False):
+    """The divisor of stage 1, clip x grad_scale (:362-374): with a clip,
+    a 0-d fp32 tensor on ``g``'s device computed from the (device)
+    global norm — ``multi_tensor_l2norm(g)`` when none is handed in —
+    and never read on the host; without one, ``grad_scale`` itself."""
+    if not (max_grad_norm and max_grad_norm > 0):
+        return grad_scale
+    dev = g.device
+    if global_grad_norm is None:
+        global_grad_norm, _ = multi_tensor_l2norm(g, plain=plain)
+    gs = _dev_f32(grad_scale, dev)
+    norm = _dev_f32(global_grad_norm, dev) / gs
+    clip = torch.maximum(norm / _dev_f32(max_grad_norm, dev),
+                         _dev_f32(1.0, dev))
+    return clip * gs
+
+
+def fused_lamb_compute_update_term(
+    p, m, v, g, *,
+    beta1, beta2, beta3, eps, weight_decay, bias_correction1,
+    bias_correction2, adam_w_mode, inv_scale,
+    with_norm_partials=False, with_grad_partials=False,
+    in_place=True, plain=False,
+):
+    """LAMB stage 1 (kernel ``lamb_stage1``): the update term u, m' and
+    v', and from the same pass the per-subtile partial sums of squares
+    of p and u (``with_norm_partials``) and of the raw g
+    (``with_grad_partials``). ``inv_scale`` divides g (a 0-d tensor on
+    the card stays there). With ``in_place`` m and v are overwritten.
+    Returns ``((u, m', v'[, p_part, u_part][, g_part]),
+    found_inf)``."""
+    mode = 1.0 if adam_w_mode else 0.0
+    sumsq = _STAGE1_SUMSQ[2 if with_grad_partials else 1] \
+        if with_norm_partials else ()
+    if with_grad_partials and not with_norm_partials:
+        sumsq = (("in", 3),)
+    return fused_elementwise(
+        _lamb_stage1_fn, [p, m, v, g],
+        scalars=[beta1, beta2, beta3, eps, weight_decay, bias_correction1,
+                 bias_correction2, mode, inv_scale],
+        num_outputs=3,
+        out_dtypes=[torch.float32, m.dtype, v.dtype], check_finite=(3,),
+        aliases={1: 1, 2: 2} if in_place else None,
+        sumsq_subtiles=sumsq, kernel=False if plain else None)
+
+
+def lamb_trust_ratio(w_norm, u_norm, *, weight_decay, use_nvlamb):
+    """Per-tensor trust ratio (:322-328): ||p|| / ||u|| where both are
+    positive, else 1; all ones unless the group decays or NVLAMB."""
+    ratio = torch.where((w_norm > 0.0) & (u_norm > 0.0), w_norm / u_norm,
+                        torch.ones_like(w_norm))
+    if not use_nvlamb and not (weight_decay > 0.0):
+        ratio = torch.ones_like(ratio)
+    return ratio
+
+
+def lamb_apply(p, u, ratio, *, lr, tile_ids, in_place=True, plain=False):
+    """LAMB stage 2 (kernel ``lamb_stage2``): p' = p - lr * ratio * u,
+    ``ratio`` per leaf through the subtile map ``tile_ids``."""
+    (p2,), _ = fused_elementwise(
+        _lamb_stage2_fn, [p, u], scalars=[lr], per_tensor=[ratio],
+        tile_ids=tile_ids, num_outputs=1, out_dtypes=[p.dtype],
+        aliases={0: 0} if in_place else None,
+        kernel=False if plain else None)
+    return p2
+
+
+def fused_lamb_update(
+    p, m, v, g, space: FlatSpace, *,
+    lr, beta1=0.9, beta2=0.999, eps=1e-6, step=1,
+    weight_decay=0.0, bias_correction=True, grad_averaging=True,
+    max_grad_norm=0.0, adam_w_mode=True, use_nvlamb=False,
+    global_grad_norm=None, grad_scale=1.0, with_grad_norm=False,
+    in_place=True, plain=False,
+):
+    """One fused LAMB step over flat fp32 buffers, the reference's two
+    stages: the global-norm clip (``multi_tensor_l2norm`` of g when no
+    ``global_grad_norm`` is handed in and ``max_grad_norm > 0``), stage 1
+    with the p and u partials, the per-tensor norms and trust ratios,
+    stage 2. ``with_grad_norm`` appends the per-tensor norms of the raw
+    gradient, from the same stage-1 pass. With ``in_place`` p, m and v
+    are overwritten; else new buffers are returned and the inputs left
+    as they were. ``plain=True`` runs the plain versions on any device.
+    Returns ``(p', m', v', found_inf[, grad_norm_per_tensor])``."""
+    b1, b2, beta3, bc1, bc2 = lamb_scalars(
+        beta1=beta1, beta2=beta2, step=step, bias_correction=bias_correction,
+        grad_averaging=grad_averaging)
+    inv_scale = lamb_inv_scale(g, max_grad_norm=max_grad_norm,
+                               global_grad_norm=global_grad_norm,
+                               grad_scale=grad_scale, plain=plain)
+    outs, found = fused_lamb_compute_update_term(
+        p, m, v, g, beta1=b1, beta2=b2, beta3=beta3, eps=eps,
+        weight_decay=weight_decay, bias_correction1=bc1,
+        bias_correction2=bc2, adam_w_mode=adam_w_mode, inv_scale=inv_scale,
+        with_norm_partials=True, with_grad_partials=with_grad_norm,
+        in_place=in_place, plain=plain)
+    u, m2, v2, p_part, u_part = outs[:5]
+    ratio = lamb_trust_ratio(_norms_from_subtile_partials(p_part, space),
+                             _norms_from_subtile_partials(u_part, space),
+                             weight_decay=weight_decay, use_nvlamb=use_nvlamb)
+    p2 = lamb_apply(p, u, ratio, lr=lr,
+                    tile_ids=space.device_subtile_leaf_ids(p.device),
+                    in_place=in_place, plain=plain)
+    if with_grad_norm:
+        return p2, m2, v2, found, _norms_from_subtile_partials(outs[5], space)
+    return p2, m2, v2, found
+
+
+def lamb_stage1_segments(p, m, v, g, outs, segs, seg_elems, *, scalars,
+                         inv_scale, with_grad_partials=False, plain=False):
+    """LAMB stage 1 over the listed segments only (the large leaves of a
+    segmented layout, all in one launch of ``lamb_stage1``): u, m', v'
+    into ``outs`` there, the rest untouched. ``segs`` is an int32 tensor
+    of segment indices, ``scalars`` ``(b1, b2, beta3, eps, wd, bc1, bc2,
+    mode)``. Returns ``(pp, uu, gg, found_inf)``: per-subtile sums of
+    squares of p, u and (with ``with_grad_partials``, else None) g, one
+    per 2048-element subtile of the whole buffer — only the listed
+    segments' entries are defined."""
+    n, dev = p.shape[0], p.device
+    n_sub = n // _PT_TILE
+    parts = [torch.empty(n_sub, dtype=torch.float32, device=dev)
+             for _ in range(3 if with_grad_partials else 2)]
+    if not plain and p.device.type == "cuda":
+        for name, t in zip(("p", "m", "v", "g", "u", "m_out", "v_out"),
+                           (p, m, v, g, *outs)):
+            check_kernel_input(name, t, (torch.float32,), dev)
+        vals = [kernel_scalar(x, dev) for x in scalars]
+        _host_scalars(LAMB_STAGE1_KERNEL, vals)
+        inv_val, inv_ptr = scalar_pointer(kernel_scalar(inv_scale, dev))
+        found = torch.zeros((), dtype=torch.float32, device=dev)
+        ptrs = [t.data_ptr() for t in parts] + [None] * (3 - len(parts))
+        _stage1_launch([p, m, v, g], list(outs), found, ptrs, vals, inv_val,
+                       inv_ptr, segs=segs, seg_elems=seg_elems)
+        return (*parts[:2], parts[2] if with_grad_partials else None, found)
+    idx = segs.long()
+    k, sub = idx.shape[0], seg_elems // _PT_TILE
+    X = [b.view(-1, seg_elems)[idx].float() for b in (p, m, v, g)]
+    found = (~torch.isfinite(X[3]).all()).to(torch.float32)
+    s = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+         for x in (*scalars, inv_scale)]
+    res = _lamb_stage1_fn(X, s, None)
+    for buf, val in zip(outs, res):
+        buf.view(-1, seg_elems).index_copy_(0, idx, val.to(buf.dtype))
+    for part, x in zip(parts, (X[0], res[0], X[3])):
+        part.zero_().view(-1, sub).index_copy_(
+            0, idx, (x * x).view(k, sub, _PT_TILE).sum(-1))
+    return (*parts[:2], parts[2] if with_grad_partials else None, found)
+
+
+def lamb_stage2_segments(p, u, p_out, ratio, tile_ids, segs, seg_elems, *,
+                         lr, plain=False):
+    """LAMB stage 2 over the listed segments only (one launch of
+    ``lamb_stage2``): p' = p - lr * ratio[leaf] * u there, the leaf of
+    each subtile from ``tile_ids`` (the space's subtile -> leaf map on
+    the device)."""
+    if not plain and p.device.type == "cuda":
+        dev = p.device
+        for name, t in zip(("p", "u", "p_out"), (p, u, p_out)):
+            check_kernel_input(name, t, (torch.float32,), dev)
+        lr_v = kernel_scalar(lr, dev)
+        _host_scalars(LAMB_STAGE2_KERNEL, [lr_v])
+        _stage2_launch(p, u, p_out, ratio.float().contiguous(),
+                       tile_ids.to(dev, torch.int32), lr_v, segs=segs,
+                       seg_elems=seg_elems)
+        return p_out
+    idx = segs.long()
+    k, sub = idx.shape[0], seg_elems // _PT_TILE
+    P = p.view(-1, seg_elems)[idx].float().view(k, sub, _PT_TILE)
+    U = u.view(-1, seg_elems)[idx].float().view(k, sub, _PT_TILE)
+    r = ratio[tile_ids.long().view(-1, sub)[idx]]
+    lr_t = torch.as_tensor(lr, dtype=torch.float32, device=p.device)
+    p_out.view(-1, seg_elems).index_copy_(
+        0, idx, (P - lr_t * r[..., None] * U).view(k, seg_elems)
+        .to(p_out.dtype))
+    return p_out
+
+
+__all__ = ["ADAM_KERNEL", "LAMB_STAGE1_KERNEL", "LAMB_STAGE2_KERNEL",
+           "fused_adam_update", "fused_lamb_compute_update_term",
+           "fused_lamb_update", "fused_unscale_l2norm", "lamb_apply",
+           "lamb_inv_scale", "lamb_scalars", "lamb_stage1_segments",
+           "lamb_stage2_segments", "lamb_trust_ratio",
+           "multi_tensor_l2norm", "per_tensor_l2norm"]

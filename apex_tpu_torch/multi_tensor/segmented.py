@@ -1,0 +1,246 @@
+"""One-pass LAMB over a segmented flat layout.
+
+Counterpart of ``apex_tpu/multi_tensor/segmented.py``. The two-stage
+LAMB (``ops.fused_lamb_update``) writes the update term u in stage 1 and
+reads it back with p in stage 2: 10 memory accesses an element. Over
+the layout of ``flat_buffer.segmented_space`` every small leaf lives
+inside one segment, so its norms are segment-local, and one kernel
+(``_small_segment_pass``, ``csrc/lamb_segment.cu``) runs both stages
+per segment with u (and p) held on chip: 7 accesses an element, 8
+without the p stash. Where the reference holds a segment in one TPU
+core's VMEM, the port holds it across the shared memory of a
+thread-block cluster (the source's note says how). Leaves larger than a
+segment take the two stages over their own segments: one launch of
+``lamb_stage1`` and one of ``lamb_stage2`` over the list of every large
+leaf's segments (the reference runs the two stages leaf by leaf), the
+per-leaf norms summed per segment, then per leaf, in a fixed order.
+
+On CPU tensors (or with ``plain=True``) the segment pass runs its plain
+version, which follows the reference kernel's arithmetic: per-subtile
+sums, per-slot sums, trust ratios, p'.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from apex_tpu_torch import _build
+from apex_tpu_torch._backend import check_kernel_input, uses_kernel
+from apex_tpu_torch.multi_tensor.engine import kernel_scalar, scalar_pointer
+from apex_tpu_torch.multi_tensor.flat_buffer import (
+    BLOCK_SMEM_BYTES,
+    CHUNK,
+    CHUNK_ROWS,
+    CLUSTER_BLOCKS,
+    DEFAULT_ALIGN,
+    FlatSpace,
+    SegmentMeta,
+    segment_smem_bytes,
+)
+from apex_tpu_torch.multi_tensor.ops import (
+    _lamb_stage1_fn,
+    lamb_inv_scale,
+    lamb_scalars,
+    lamb_stage1_segments,
+    lamb_stage2_segments,
+    lamb_trust_ratio,
+)
+
+SEGMENT_KERNEL = "lamb_segment"
+
+_stage1_math = _lamb_stage1_fn      # the reference's _stage1_math (:57)
+
+
+def _small_segment_pass(p, m, v, g, outs, *, meta: SegmentMeta, scalars,
+                        inv_scale, lr, use_nvlamb: bool, wd_is_zero: bool,
+                        stash_p: bool = True, with_grad_norm: bool = False,
+                        plain: bool = False
+                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Both LAMB stages over the small segments of ``meta``, writing
+    p', m', v' into ``outs`` (which may be p, m, v themselves); the
+    other segments are neither read nor written. ``scalars`` are
+    ``(b1, b2, beta3, eps, wd, bc1, bc2, mode)``. Returns ``(found_inf,
+    gg)``, ``gg`` the ``(n_small, max_slots)`` per-slot sums of the raw
+    g^2 with ``with_grad_norm``, else None."""
+    if meta.seg_elems % CHUNK:
+        raise ValueError(f"seg_elems {meta.seg_elems} must be a multiple "
+                         f"of the chunk {CHUNK}")
+    if not plain and uses_kernel(p):
+        return _segment_cuda(p, m, v, g, outs, meta, scalars, inv_scale, lr,
+                             use_nvlamb, wd_is_zero, stash_p, with_grad_norm)
+    dev = p.device
+    se, ms = meta.seg_elems, meta.max_slots
+    segs, slot = (t.long() for t in meta.device_maps(dev))
+    n_small, sub = slot.shape
+    views = [b.view(meta.n_segments, se) for b in (p, m, v, g)]
+    P, M, V, G = (x[segs].float() for x in views)
+    found = (~torch.isfinite(G).all()).to(torch.float32)
+    s = [torch.as_tensor(x, dtype=torch.float32, device=dev)
+         for x in (*scalars, inv_scale)]
+    u, m2, v2 = _stage1_math([P, M, V, G], s, None)
+
+    def per_slot(x):
+        per_sub = (x * x).reshape(n_small, sub, DEFAULT_ALIGN).sum(-1)
+        acc = torch.zeros(n_small, ms + 1, dtype=torch.float32, device=dev)
+        return acc.scatter_add_(1, torch.where(slot >= 0, slot, ms),
+                                per_sub)[:, :ms]
+
+    wn, un = torch.sqrt(per_slot(P)), torch.sqrt(per_slot(u))
+    ratio = torch.where((wn > 0.0) & (un > 0.0), wn / un,
+                        torch.ones_like(wn))
+    if not use_nvlamb and wd_is_zero:
+        ratio = torch.ones_like(ratio)
+    rr = torch.where(slot >= 0, ratio.gather(1, slot.clamp_min(0)),
+                     torch.zeros((), device=dev))
+    lr_t = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    p2 = (P.view(n_small, sub, DEFAULT_ALIGN)
+          - lr_t * rr[..., None] * u.view(n_small, sub, DEFAULT_ALIGN))
+    for buf, val in zip(outs, (p2, m2, v2)):
+        buf.view(meta.n_segments, se).index_copy_(
+            0, segs, val.reshape(n_small, se).to(buf.dtype))
+    return found, per_slot(G) if with_grad_norm else None
+
+
+def _segment_cuda(p, m, v, g, outs, meta, scalars, inv_scale, lr,
+                  use_nvlamb, wd_is_zero, stash_p, with_grad_norm):
+    dev = p.device
+    for name, t in zip(("p", "m", "v", "g", "p_out", "m_out", "v_out"),
+                       (p, m, v, g, *outs)):
+        check_kernel_input(name, t, (torch.float32,), dev)
+        if t.shape[0] != meta.n_segments * meta.seg_elems:
+            raise ValueError(f"{name} does not cover the segmented space")
+    if meta.seg_elems % (CLUSTER_BLOCKS * DEFAULT_ALIGN):
+        raise ValueError(f"seg_elems {meta.seg_elems} must be a multiple "
+                         f"of {CLUSTER_BLOCKS * DEFAULT_ALIGN}")
+    smem = segment_smem_bytes(meta.seg_elems, meta.max_slots, stash_p)
+    if smem > BLOCK_SMEM_BYTES:
+        raise ValueError(
+            f"seg_elems={meta.seg_elems} (stash_p={stash_p}) needs {smem} "
+            f"bytes of shared memory a block; a block has {BLOCK_SMEM_BYTES}")
+    vals = [kernel_scalar(x, dev) for x in (*scalars, lr)]
+    if any(isinstance(x, torch.Tensor) for x in vals):
+        raise NotImplementedError(
+            f"{SEGMENT_KERNEL}: only the gradient divisor may live on the "
+            "device")
+    inv_val, inv_ptr = scalar_pointer(kernel_scalar(inv_scale, dev))
+    b1, b2, beta3, eps, wd, bc1, bc2, mode, lr_f = vals
+    segs, slot = meta.device_maps(dev)
+    n_small = len(meta.small_segments)
+    found = torch.zeros((), dtype=torch.float32, device=dev)
+    gg = (torch.empty(n_small, meta.max_slots, dtype=torch.float32,
+                      device=dev) if with_grad_norm else None)
+    P, L, F, I = _build.P, _build.L, _build.F, _build.I
+    lib = _build.library("lamb_segment", "apex_lamb_segment",
+                         (P,) * 11 + (I, L, I) + (F,) * 9 + (P, I, I, I, I, P),
+                         "apex_lamb_segment_error_string")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.apex_lamb_segment(
+            *(t.data_ptr() for t in (p, m, v, g, *outs)), found.data_ptr(),
+            None if gg is None else gg.data_ptr(), segs.data_ptr(),
+            slot.data_ptr(), n_small, meta.seg_elems, meta.max_slots,
+            b1, b2, beta3, eps, wd, bc1, bc2, lr_f, inv_val, inv_ptr,
+            int(mode > 0.5), int(use_nvlamb), int(wd_is_zero), int(stash_p),
+            stream)
+    if err:
+        msg = lib.apex_lamb_segment_error_string(err).decode()
+        raise RuntimeError(f"{SEGMENT_KERNEL}: CUDA error {err} at launch: "
+                           f"{msg}")
+    _build.count_launch(SEGMENT_KERNEL)
+    return found, gg
+
+
+def fused_lamb_segmented_update(
+    p, m, v, g, space: FlatSpace, meta: SegmentMeta, *,
+    lr, beta1=0.9, beta2=0.999, eps=1e-6, step=1,
+    weight_decay=0.0, bias_correction=True, grad_averaging=True,
+    max_grad_norm=0.0, adam_w_mode=True, use_nvlamb=False,
+    global_grad_norm=None, grad_scale=1.0, stash_p=None, u_dtype=None,
+    with_grad_norm=False, in_place=True, plain=False,
+):
+    """LAMB step over a segment-aligned flat space (the reference's
+    ``fused_lamb_segmented_update``, :350): the one-pass kernel over the
+    small segments, then the two stages over the large leaves' segments.
+    The math is ``ops.fused_lamb_update``'s; only the schedule differs.
+    ``with_grad_norm`` appends the per-tensor norms of the raw gradient,
+    from the segment pass's slot sums and the large leaves' stage-1
+    partials. With ``in_place`` p, m and v are overwritten; else new
+    buffers are returned (every segment is written: the small ones by
+    the segment pass, the large leaves' by their stages) and the inputs
+    left as they were. Returns ``(p', m', v', found_inf[,
+    grad_norm_per_tensor])``."""
+    if meta.n_segments * meta.seg_elems != space.total:
+        raise ValueError(
+            f"SegmentMeta (n_segments={meta.n_segments}, seg_elems="
+            f"{meta.seg_elems}) does not cover the space (total="
+            f"{space.total}): it was built for another layout")
+    stash_p = meta.stash_p if stash_p is None else bool(stash_p)
+    u_name = meta.u_dtype_name if u_dtype is None else \
+        str(u_dtype).replace("torch.", "")
+    if u_name != "float32":
+        raise NotImplementedError(
+            f"a {u_name} update-term stash is not ported yet; u is fp32")
+    dev = p.device
+    b1, b2, beta3, bc1, bc2 = lamb_scalars(
+        beta1=beta1, beta2=beta2, step=step, bias_correction=bias_correction,
+        grad_averaging=grad_averaging)
+    inv_scale = lamb_inv_scale(g, max_grad_norm=max_grad_norm,
+                               global_grad_norm=global_grad_norm,
+                               grad_scale=grad_scale, plain=plain)
+    mode = 1.0 if adam_w_mode else 0.0
+    outs = ((p, m, v) if in_place else
+            tuple(torch.empty_like(b) for b in (p, m, v)))
+    found = torch.zeros((), dtype=torch.float32, device=dev)
+    nl = space.num_leaves
+    leaf_gg = (torch.zeros(nl, dtype=torch.float32, device=dev)
+               if with_grad_norm else None)
+    if meta.small_segments:
+        found, gg = _small_segment_pass(
+            p, m, v, g, outs, meta=meta,
+            scalars=(b1, b2, beta3, eps, weight_decay, bc1, bc2, mode),
+            inv_scale=inv_scale, lr=lr, use_nvlamb=use_nvlamb,
+            wd_is_zero=not (weight_decay > 0.0), stash_p=stash_p,
+            with_grad_norm=with_grad_norm, plain=plain)
+        if with_grad_norm:
+            leaf_gg = torch.zeros(nl + 1, dtype=torch.float32,
+                                  device=dev).index_add_(
+                0, meta.device_slot_leaf(dev, nl), gg.reshape(-1))[:nl]
+
+    if meta.large:
+        # the two stages over every large leaf's segments, one launch
+        # each; the per-leaf norms from the per-subtile partials (a sum
+        # per segment, then per leaf over its segments, in a fixed order)
+        segs, leaves, gather = meta.device_large(dev)
+        u = torch.empty_like(p)
+        pp, uu, gg, f = lamb_stage1_segments(
+            p, m, v, g, (u, outs[1], outs[2]), segs, meta.seg_elems,
+            scalars=(b1, b2, beta3, eps, weight_decay, bc1, bc2, mode),
+            inv_scale=inv_scale, with_grad_partials=with_grad_norm,
+            plain=plain)
+        found = torch.maximum(found, f)
+        sub = meta.seg_elems // DEFAULT_ALIGN
+
+        def per_leaf(part):
+            per_seg = part.view(-1, sub)[segs.long()].sum(-1)
+            return torch.cat([per_seg, per_seg.new_zeros(1)])[gather].sum(-1)
+
+        ratio = torch.ones(nl, dtype=torch.float32, device=dev)
+        ratio.index_copy_(0, leaves, lamb_trust_ratio(
+            torch.sqrt(per_leaf(pp)), torch.sqrt(per_leaf(uu)),
+            weight_decay=weight_decay, use_nvlamb=use_nvlamb))
+        lamb_stage2_segments(p, u, outs[0], ratio,
+                             space.device_subtile_leaf_ids(dev), segs,
+                             meta.seg_elems, lr=lr, plain=plain)
+        if with_grad_norm:
+            leaf_gg = leaf_gg.index_add_(0, leaves, per_leaf(gg))
+    p2, m2, v2 = outs
+    if with_grad_norm:
+        return p2, m2, v2, found, torch.sqrt(leaf_gg)
+    return p2, m2, v2, found
+
+
+__all__ = ["CHUNK", "CHUNK_ROWS", "SEGMENT_KERNEL",
+           "fused_lamb_segmented_update"]

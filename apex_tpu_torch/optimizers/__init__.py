@@ -1,13 +1,16 @@
 """Fused optimizers over the flat parameter space (counterpart of
 ``apex_tpu/optimizers/``). Ported so far: `FusedAdam` (the Adam kernel,
-``csrc/fused_adam.cu``) and `make_train_step` with the loss scaler.
-FusedLAMB and the other optimizers wait for their kernels."""
+``csrc/fused_adam.cu``), `FusedLAMB` (the sum-of-squares, LAMB stage
+and one-pass segment kernels) and `make_train_step` with the loss
+scaler, the global-norm clip and the grad-norm report. The other
+optimizers wait for their kernels; `FusedMixedPrecisionLamb` raises."""
 
 from apex_tpu_torch.optimizers.fused import (
     FlatFusedOptimizer,
     FlatOptState,
     FusedAdam,
     FusedLAMB,
+    FusedMixedPrecisionLamb,
 )
 from apex_tpu_torch.optimizers.train_step import (
     StepAux,
@@ -16,4 +19,5 @@ from apex_tpu_torch.optimizers.train_step import (
 )
 
 __all__ = ["FlatFusedOptimizer", "FlatOptState", "FusedAdam", "FusedLAMB",
-           "StepAux", "TrainStep", "make_train_step"]
+           "FusedMixedPrecisionLamb", "StepAux", "TrainStep",
+           "make_train_step"]

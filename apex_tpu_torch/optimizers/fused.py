@@ -1,7 +1,7 @@
 """Fused optimizers over the flat parameter space.
 
 Counterpart of ``apex_tpu/optimizers/fused.py`` (``FlatOptState``,
-``FlatFusedOptimizer``, ``FusedAdam``). The state holds the fp32 master
+``FlatFusedOptimizer``, ``FusedAdam``, ``FusedLAMB``). The state holds the fp32 master
 copy of every parameter and the optimizer's slots as flat buffers laid
 out by a :class:`~apex_tpu_torch.multi_tensor.FlatSpace`, and one fused
 kernel sweep updates them all.
@@ -22,18 +22,35 @@ synchronisation; the traffic is the in-place sweep's.
 The step count is a host integer (the reference carries an int32 on
 the device): the bias corrections are computed on the host from it, in
 fp32 as the reference computes them. ``found_inf`` stays a 0-d fp32
-tensor on the device. FusedLAMB and the other optimizers wait for their
-kernels; a bf16 master with stochastic rounding raises.
+tensor on the device. FusedLAMB's clip factor and trust ratios stay on
+the device too (the kernels read them by pointer): its step reads
+nothing on the host but ``found_inf`` on the skip path. The other
+optimizers wait for their kernels; a bf16 master with stochastic
+rounding raises, and so does ``FusedMixedPrecisionLamb``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
                     Tuple, Union)
 
 import torch
 
-from apex_tpu_torch.multi_tensor import FlatSpace, fused_adam_update
+from apex_tpu_torch.multi_tensor import (
+    FlatSpace,
+    fused_adam_update,
+    fused_lamb_segmented_update,
+    fused_lamb_update,
+)
+from apex_tpu_torch.multi_tensor.flat_buffer import (
+    CHUNK,
+    DEFAULT_ALIGN,
+    DEFAULT_SEG_SMEM_BUDGET,
+    SegmentMeta,
+    _round_up,
+    segmented_space,
+)
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -46,10 +63,22 @@ class FlatOptState(NamedTuple):
     slots: Dict[str, torch.Tensor]
     count: int                      # successful (unskipped) steps
     found_inf: torch.Tensor         # 0-d fp32 {0, 1} from the last step
+    # the SegmentMeta of a segment-aligned space (FusedLAMB with
+    # segmented=True), carried with the space it was built for; else None
+    seg_meta: Optional[SegmentMeta] = None
 
 
 def _resolve_lr(lr: Schedule, count: int):
     return lr(count) if callable(lr) else lr
+
+
+def _small_last(params: Mapping[str, torch.Tensor], seg: int
+                ) -> Dict[str, torch.Tensor]:
+    """``params`` with the leaves larger than a ``seg``-element segment
+    first, each group in the order given."""
+    large = {k: t for k, t in params.items()
+             if _round_up(max(t.numel(), 1), DEFAULT_ALIGN) > seg}
+    return {**large, **{k: t for k, t in params.items() if k not in large}}
 
 
 class FlatFusedOptimizer:
@@ -70,10 +99,12 @@ class FlatFusedOptimizer:
         raise NotImplementedError
 
     def _update(self, state: FlatOptState, g: torch.Tensor, lr,
-                grad_scale, in_place: bool
+                grad_scale, in_place: bool, **kw
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                            torch.Tensor]:
-        """Return (new_master, new_slots, found_inf)."""
+        """Return (new_master, new_slots, found_inf[, grad norms]);
+        ``kw`` holds ``global_grad_norm`` / ``with_grad_norm`` when the
+        caller passed them (optimizers that take them say so)."""
         raise NotImplementedError
 
     # -- public API --------------------------------------------------------
@@ -115,20 +146,25 @@ class FlatFusedOptimizer:
         new master by name. With ``skip_if_nonfinite`` the update is
         discarded when any gradient (or ``extra_found_inf``) is
         non-finite, and the count then counts only unskipped steps.
-        ``global_grad_norm`` and ``with_grad_norm`` serve FusedLAMB's
-        in-kernel clip and norms, not ported yet: they raise."""
-        if global_grad_norm is not None or with_grad_norm:
-            raise NotImplementedError(
-                "global_grad_norm / with_grad_norm belong to FusedLAMB, "
-                "which is not ported yet")
+        ``global_grad_norm`` hands a precomputed (device) norm to an
+        optimizer that clips inside its update (FusedLAMB), so no second
+        norm pass runs; ``with_grad_norm=True`` returns ``(params,
+        new_state, grad_norm_per_tensor)``, the per-tensor norms of the
+        raw gradient reduced inside the update (FusedLAMB)."""
         g = flat_grads
         if g.shape != state.master.shape:
             raise ValueError(f"flat_grads shape {tuple(g.shape)} != master "
                              f"{tuple(state.master.shape)}")
         g = g.float()
         lr_val = _resolve_lr(lr if lr is not None else self.lr, state.count)
-        new_master, new_slots, found = self._update(
-            state, g, lr_val, grad_scale, in_place=not skip_if_nonfinite)
+        extra_kw = {}
+        if global_grad_norm is not None:
+            extra_kw["global_grad_norm"] = global_grad_norm
+        if with_grad_norm:
+            extra_kw["with_grad_norm"] = True
+        upd = self._update(state, g, lr_val, grad_scale,
+                           in_place=not skip_if_nonfinite, **extra_kw)
+        new_master, new_slots, found = upd[:3]
         if extra_found_inf is not None:
             found = torch.maximum(found, torch.as_tensor(
                 extra_found_inf, dtype=torch.float32, device=found.device))
@@ -138,7 +174,9 @@ class FlatFusedOptimizer:
                                             state.count)
         new_state = FlatOptState(space=state.space, master=new_master,
                                  slots=new_slots, count=count,
-                                 found_inf=found)
+                                 found_inf=found, seg_meta=state.seg_meta)
+        if with_grad_norm:
+            return state.space.unpack(new_master), new_state, upd[3]
         return state.space.unpack(new_master), new_state
 
     def state_dict(self, state: FlatOptState) -> Dict[str, Any]:
@@ -188,14 +226,169 @@ class FusedAdam(FlatFusedOptimizer):
 
 
 class FusedLAMB(FlatFusedOptimizer):
-    """Not ported yet: LAMB needs the segment-resident one-pass kernel
-    and the sum-of-squares kernels of its clip."""
+    """LAMB with the global-grad-norm clip and per-tensor trust ratios
+    (the reference's ``FusedLAMB``, :320).
+
+    ``segmented=True`` (the default) lays the flat space out in
+    segments (``multi_tensor.segmented_space``) and runs both LAMB
+    stages in one kernel pass (``csrc/lamb_segment.cu``) for every leaf
+    that fits a segment: 7 memory accesses an element (8 with
+    ``seg_stash_p=False``) against the two-stage schedule's 10. Leaves
+    larger than a segment take the two stages over their own slices.
+    The small leaves are laid out together after the large ones
+    (:meth:`layout`), not in the order given. ``segmented=False`` runs
+    the two stages over the whole buffer (``csrc/fused_lamb.cu``). The
+    math is the same; the schedule and the flat layout's padding differ.
+
+    Segment knobs, the reference's names (None = chosen from the
+    parameters): ``seg_elems`` (elements per segment, a multiple of the
+    65,536-element chunk), ``seg_stash_p`` (keep p in shared memory, 7
+    accesses, or re-read it, 8), ``seg_vmem_budget`` (bytes of shared
+    memory the stash may take across one thread-block cluster of the
+    segment kernel; default ``DEFAULT_SEG_SMEM_BUDGET``, eight blocks'
+    worth). A bf16 update-term stash (``seg_u_dtype``,
+    ``seg_allow_bf16_u``) is not ported yet and raises, as do
+    ``stochastic_rounding`` and a reduced-precision master.
+    """
+
+    def __init__(self, lr=1e-3, bias_correction=True, betas=(0.9, 0.999),
+                 eps=1e-6, weight_decay=0.01, grad_averaging=True,
+                 adam_w_mode=True, max_grad_norm=1.0, use_nvlamb=False, *,
+                 master_dtype=torch.float32, stochastic_rounding=False,
+                 segmented=True, seg_elems=None, seg_stash_p=None,
+                 seg_u_dtype=None, seg_allow_bf16_u=False,
+                 seg_vmem_budget=None):
+        super().__init__(lr, master_dtype=master_dtype,
+                         stochastic_rounding=stochastic_rounding)
+        if (seg_u_dtype is not None and seg_u_dtype != torch.float32) \
+                or seg_allow_bf16_u:
+            raise NotImplementedError(
+                "a bf16 update-term stash (seg_u_dtype / seg_allow_bf16_u) "
+                "is not ported yet; the segment kernel stashes u in fp32")
+        self.bias_correction = bias_correction
+        self.betas = betas
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.grad_averaging = grad_averaging
+        self.adam_w_mode = adam_w_mode
+        self.max_grad_norm = max_grad_norm
+        self.use_nvlamb = use_nvlamb
+        self.segmented = bool(segmented)
+        self.seg_elems = seg_elems
+        self.seg_stash_p = seg_stash_p
+        self.seg_vmem_budget = seg_vmem_budget
+
+    def _segment_config(self, params: Mapping[str, torch.Tensor]
+                        ) -> Tuple[int, bool]:
+        """``(seg_elems, stash_p)``: explicit knobs win; the rest is
+        chosen for the fewest expected memory accesses an element within
+        the budget, as the reference chooses (:368-425), but counting
+        the elements each pass sweeps in the layout it would get
+        (:meth:`layout`), padding included: 7 accesses an element of the
+        small segments (8 without the stash), 10 of the large leaves'
+        segments. The reference takes the largest segment that fits and
+        counts only the leaves' own sizes, so it cannot see that a large
+        leaf rounded up to whole segments sweeps padding (at GPT-2 345M,
+        196,608-element segments pad the matrices by 9.6 M elements;
+        65,536 pads them by none). Every whole-chunk size up to the
+        budget is a candidate; ties go to the smaller stash."""
+        budget = self.seg_vmem_budget or DEFAULT_SEG_SMEM_BUDGET
+        if self.seg_elems is not None and self.seg_elems % CHUNK:
+            raise ValueError(
+                f"seg_elems={self.seg_elems} must be a multiple of the "
+                f"kernel chunk ({CHUNK} elements); round up to "
+                f"{_round_up(self.seg_elems, CHUNK)}")
+        shapes = {k: torch.empty(max(t.numel(), 1), device="meta")
+                  for k, t in params.items()}
+        total = max(sum(_round_up(t.numel(), DEFAULT_ALIGN)
+                        for t in shapes.values()), 1)
+        best = None
+        for stash in ((self.seg_stash_p,) if self.seg_stash_p is not None
+                      else (True, False)):
+            bpe, cost = (8, 7) if stash else (4, 8)
+            if self.seg_elems is not None:
+                segs = (self.seg_elems,)
+                over = self.seg_elems * bpe > budget
+            else:
+                top = min((budget // bpe) // CHUNK * CHUNK,
+                          _round_up(total, CHUNK))
+                segs = range(CHUNK, top + 1, CHUNK)
+                over = False
+            for seg in segs:
+                _, meta = segmented_space(_small_last(shapes, seg),
+                                          seg_elems=seg)
+                small = len(meta.small_segments) * seg
+                expected = (cost * small
+                            + 10 * (meta.n_segments * seg - small)) / total
+                key = (over, expected, seg * bpe)
+                if best is None or key < best[0]:
+                    best = (key, (seg, bool(stash)))
+        if best is None:
+            raise ValueError(f"no segment size fits the budget {budget} "
+                             f"(seg_elems={self.seg_elems})")
+        return best[1]
+
+    def layout(self, params: Mapping[str, torch.Tensor]
+               ) -> Tuple[FlatSpace, SegmentMeta]:
+        """The segmented master's layout for ``params``: the space and
+        its :class:`SegmentMeta`. The leaves larger than a segment come
+        first, in the order given, then every leaf that fits one, so
+        the small leaves fill as few segments as they can.
+        ``segmented_space`` (as the reference's) starts a fresh segment
+        after each large leaf: in module order (ln, qkv.w, qkv.b,
+        proj.w, ...) each run of biases and norms would take a mostly
+        empty segment of its own, which both LAMB passes would sweep.
+        Leaves are bound and loaded by name, so the order is free."""
+        seg, stash_p = self._segment_config(params)
+        space, meta = segmented_space(_small_last(params, seg),
+                                      seg_elems=seg)
+        return space, dataclasses.replace(meta, stash_p=stash_p)
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> FlatOptState:
+        if not self.segmented:
+            return super().init(params)
+        space, meta = self.layout(params)
+        master = space.pack(params, dtype=self.master_dtype)
+        return FlatOptState(
+            space=space, master=master, slots=self._init_slots(master),
+            count=0, found_inf=torch.zeros((), dtype=torch.float32,
+                                           device=master.device),
+            seg_meta=meta)
+
+    def _init_slots(self, master):
+        return {"m": torch.zeros_like(master), "v": torch.zeros_like(master)}
+
+    def _update(self, state, g, lr, grad_scale, in_place,
+                global_grad_norm=None, with_grad_norm=False):
+        kw = dict(
+            lr=lr, beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
+            step=state.count + 1, weight_decay=self.weight_decay,
+            bias_correction=self.bias_correction,
+            grad_averaging=self.grad_averaging,
+            max_grad_norm=self.max_grad_norm, adam_w_mode=self.adam_w_mode,
+            use_nvlamb=self.use_nvlamb, grad_scale=grad_scale,
+            global_grad_norm=global_grad_norm, with_grad_norm=with_grad_norm,
+            in_place=in_place)
+        args = (state.master, state.slots["m"], state.slots["v"], g,
+                state.space)
+        if self.segmented and state.seg_meta is not None:
+            outs = fused_lamb_segmented_update(*args, state.seg_meta, **kw)
+        else:
+            outs = fused_lamb_update(*args, **kw)
+        p2, m2, v2, found = outs[:4]
+        return (p2, {"m": m2, "v": v2}, found, *outs[4:])
+
+
+class FusedMixedPrecisionLamb(FusedLAMB):
+    """Not ported yet: the reference's bf16-master LAMB needs the
+    stochastic-rounding outputs of the kernels."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "FusedLAMB is not ported yet: it needs the one-pass LAMB "
-            "kernel (multi_tensor/segmented.py) and the sum-of-squares "
-            "kernels of its global-norm clip; use FusedAdam")
+            "FusedMixedPrecisionLamb (a bf16 master with stochastic "
+            "rounding) is not ported yet; use FusedLAMB with the fp32 "
+            "master")
 
 
-__all__ = ["FlatFusedOptimizer", "FlatOptState", "FusedAdam", "FusedLAMB"]
+__all__ = ["FlatFusedOptimizer", "FlatOptState", "FusedAdam", "FusedLAMB",
+           "FusedMixedPrecisionLamb"]

@@ -17,7 +17,13 @@ Phases, in order; any failure exits non-zero before the last line:
    serving shapes; the LayerNorm backward, the flash dq and dk/dv and
    the Adam kernels at the training shapes (Adam bitwise, with an
    injected inf: found_inf set, a skipped step leaving the state as it
-   was).
+   was). Then the LAMB kernels on GPT-2 345M's buffers: both
+   sum-of-squares kernels (an injected inf and nan set found_inf), LAMB
+   stage 1 (u, m', v' bitwise) and stage 2 (p' bitwise) over the plain
+   flat space, the one-pass segment kernel over the segmented layout with
+   the p stash on and off and with the grad norms (m', v' bitwise), and
+   ``FusedLAMB.step_flat``: segmented (FusedLAMB's layout, and the same
+   at the reference rule's segment size) and two-stage.
 3. Serving at full width: GPT-2 345M (hidden 1024, 24 layers, 16 heads,
    vocab 50304, bf16 compute, fp32 parameters, random weights from the
    seed) behind ``ContinuousBatcher(max_batch=8, prefill_chunk=256)``
@@ -36,7 +42,19 @@ Phases, in order; any failure exits non-zero before the last line:
    peak memory and one profiled step. Then the first step's loss and
    every parameter's gradient at batch 2 through the kernels and through
    their plain versions.
-5. The ``kernels`` JSON line, then the device line the caller reads.
+5. Training at full width with FusedLAMB: ``make_gpt_pretrain_step(cfg,
+   FusedLAMB(lr, weight_decay=0.01, max_grad_norm=1.0))``, ten steps on
+   one batch of 8 x 1024 tokens with the launch counts set to 0 just
+   before and read just after (every kernel of the path must have
+   launched: LayerNorm, flash attention, the sum of squares of the clip,
+   the segment pass, LAMB stages 1 and 2); the loss must be finite and
+   fall. Step time, tokens/s, peak memory, one profiled step with the
+   optimizer's share. Then one ``make_train_step(opt, scaler=...,
+   with_grad_norm=True)`` step on the real gradient (counts reset: the
+   scaled sum of squares must launch; the norm must match the plain
+   norm), one with an inf (skipped, state unchanged, scale halved), and
+   one LAMB update through the kernels and their plain versions.
+6. The ``kernels`` JSON line, then the device line the caller reads.
 
 Needs a CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``); exits 1 without printing a result otherwise.
@@ -45,6 +63,7 @@ Needs a CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -62,10 +81,18 @@ from apex_tpu_torch.models import (
     init_gpt_pretrain_params,
     make_gpt_pretrain_step,
 )
-from apex_tpu_torch.multi_tensor import FlatSpace, fused_adam_update
+from apex_tpu_torch.amp import LossScaler
+from apex_tpu_torch.multi_tensor import (
+    FlatSpace,
+    fused_adam_update,
+    fused_lamb_segmented_update,
+    fused_unscale_l2norm,
+)
+from apex_tpu_torch.multi_tensor import engine
 from apex_tpu_torch.multi_tensor import ops as mt_ops
+from apex_tpu_torch.multi_tensor.segmented import SEGMENT_KERNEL
 from apex_tpu_torch.ops import attention, layer_norm
-from apex_tpu_torch.optimizers import FusedAdam
+from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, make_train_step
 from apex_tpu_torch.serving import (
     ContinuousBatcher,
     DecodeStep,
@@ -112,6 +139,26 @@ TRAIN_LOSS_TOL = 5e-4
 TRAIN_GRAD_REL_TOL = 0.04
 TRAIN_STEPS = 10
 TRAIN_BATCH = 8
+# per-tile and per-subtile sums of squares, kernels against plain: fp32
+# sums of up to 65,536 squares in another order
+SUMSQ_REL_TOL = 1e-5
+# the segment pass's p', relative to each element's step |p - p'| (plus
+# one rounding of p'): its trust ratios come from per-slot sums taken in
+# another order
+SEG_P_REL_TOL = 1e-5
+# the scaler step's global grad norm against a float64 norm of the same
+# gradient
+GRAD_NORM_REL_TOL = 1e-5
+# one LAMB update, kernels against plain versions, trust ratios from sums
+# in other orders (relative ~1e-7): with one clip factor, every element's
+# |dp'| within this share of its step plus one rounding of p'. With each
+# side's own clip factor (one bit apart, relative ~6e-8 in m', v'), m'
+# and v' within this share of their largest |value|, and |dp'| within
+# this share of its parameter's largest step plus one rounding: where
+# u's two terms cancel, the bit moves an element's step by more than
+# this share of itself
+LAMB_PARAM_TOL = 1e-5
+LAMB_LR = 1e-3
 
 PROMPT_LENS = (700, 32, 411, 96, 256, 530, 64, 180)
 MAX_NEW = 32
@@ -459,17 +506,325 @@ def flash_bwd_cases(gen, dev) -> list:
     return out
 
 
-def gpt_flat_size(cfg: GPTConfig) -> int:
-    """Elements of the optimizer's flat buffers for GPT of ``cfg``
-    (every parameter padded to the flat space's alignment)."""
+def gpt_leaves(cfg: GPTConfig) -> dict:
+    """GPT of ``cfg``'s parameters in module order, as shapes on the meta
+    device (the flat layouts need only their order and sizes)."""
     h, f = cfg.hidden_size, cfg.ffn
     qkv = (cfg.num_heads + 2 * cfg.kv_heads) * cfg.head_dim
     layer = [(h,), (h,), (qkv, h), (qkv,), (h, h), (h,), (h,), (h,),
              (f, h), (f,), (h, f), (h,)]
-    shapes = [(cfg.vocab_size, h), (cfg.max_seq_len, h), (h,), (h,)] \
-        + layer * cfg.num_layers
-    return FlatSpace.create({str(i): torch.empty(s_, device="meta")
-                             for i, s_ in enumerate(shapes)}).total
+    shapes = [(cfg.vocab_size, h), (cfg.max_seq_len, h)] \
+        + layer * cfg.num_layers + [(h,), (h,)]
+    return {f"{i:03d}": torch.empty(s_, device="meta")
+            for i, s_ in enumerate(shapes)}
+
+
+def gpt_flat_size(cfg: GPTConfig) -> int:
+    """Elements of the optimizer's plain flat buffers for GPT of ``cfg``
+    (every parameter padded to the flat space's alignment)."""
+    return FlatSpace.create(gpt_leaves(cfg)).total
+
+
+def _seeded(n, dev, seed, scale=1.0, positive=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = (torch.rand(n, generator=gen, device=dev) if positive
+         else torch.randn(n, generator=gen, device=dev))
+    return t.mul_(scale)
+
+
+def sumsq_cases(dev) -> list:
+    """#7 and #8 over a GPT-2 345M-sized flat gradient, per-tile partials
+    against the plain version; an inf and a nan must set found_inf."""
+    n = gpt_flat_size(GPTConfig.gpt2_345m())
+    g = _seeded(n, dev, 2, 1e-2)
+    scale = torch.tensor(1.0 / 1024, device=dev)
+    rows = []
+    for name, sc, ops in ((engine.SUMSQ_KERNEL, None, 2),
+                          (engine.SUMSQ_SCALED_KERNEL, scale, 3)):
+        got = engine.fused_sumsq_partials(g, scale=sc)
+        want = engine.fused_sumsq_partials(g, scale=sc, plain=True)
+        again = engine.fused_sumsq_partials(g, scale=sc)
+        torch.cuda.synchronize()
+        rel = float(((got - want).abs() / want.abs()).max())
+        err = float((got - want).abs().max())
+        deterministic = torch.equal(got, again)
+        print(f"  {name} n={n} fp32 tiles of 65536: max_abs_err={err:.3e} "
+              f"max_rel_err={rel:.3e} (tol {SUMSQ_REL_TOL}) "
+              f"deterministic={deterministic}")
+        check(rel <= SUMSQ_REL_TOL and deterministic,
+              f"{name} kernel disagrees with its plain version")
+        kernel = lambda sc=sc: engine.fused_sumsq_partials(  # noqa: E731
+            g, scale=sc)
+        ms, h_ms = device_ms(kernel), host_ms(kernel)
+        plain_ms = device_ms(lambda sc=sc: engine.fused_sumsq_partials(
+            g, scale=sc, plain=True), iters=5)
+        lib_ms = device_ms(lambda: torch.linalg.vector_norm(g))
+        b_ms, by = bound(nbytes(g, got), ops * n, PEAK_FP32_FLOPS)
+        print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms={lib_ms:.5f} (vector_norm) bound_ms={b_ms:.5f} "
+              f"({by})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "apex_tpu_torch/csrc/sumsq.cu",
+                     "replaces": "apex_tpu/multi_tensor/engine.py:"
+                                 + ("519" if sc is None else "543"),
+                     "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": lib_ms, "host_ms": h_ms,
+                     "shape": f"n={n} fp32, 65536-element tiles"})
+    found = []
+    for bad in (float("inf"), float("nan")):
+        b = g.clone()
+        b[n // 3] = bad
+        found.append(float(fused_unscale_l2norm(b)[1]))
+        del b
+    print(f"  fused_unscale_l2norm found_inf with an inf, a nan: {found}")
+    check(found == [1.0, 1.0], "found_inf not set by an inf or a nan")
+    return rows
+
+
+def lamb_stage_cases(dev) -> list:
+    """LAMB stage 1 (u, m', v' bitwise; partials) and stage 2 (p'
+    bitwise) over GPT-2 345M's plain flat space, against their plain
+    versions, out of place."""
+    space = FlatSpace.create(gpt_leaves(GPTConfig.gpt2_345m()))
+    n = space.total
+    p = _seeded(n, dev, 3, 2e-2)
+    m = _seeded(n, dev, 4, 1e-3)
+    v = _seeded(n, dev, 5, 1e-6, positive=True)
+    g = _seeded(n, dev, 6, 1e-2)
+    inv = torch.tensor(1.75, device=dev)   # a clip factor on the device
+    kw = dict(beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+              weight_decay=0.01, bias_correction1=0.271,
+              bias_correction2=0.002997, adam_w_mode=True, inv_scale=inv,
+              with_norm_partials=True, with_grad_partials=True,
+              in_place=False)
+    got, f = mt_ops.fused_lamb_compute_update_term(p, m, v, g, **kw)
+    want, wf = mt_ops.fused_lamb_compute_update_term(p, m, v, g, plain=True,
+                                                     **kw)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(got[:3], want[:3]))
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:3], want[:3]))
+    part_rel = max(float(((a.sum(-1) - b.sum(-1)).abs()
+                          / b.sum(-1).abs().clamp_min(1e-30)).max())
+                   for a, b in zip(got[3:], want[3:]))
+    print(f"  {mt_ops.LAMB_STAGE1_KERNEL} n={n} fp32: u/m'/v' bitwise="
+          f"{bitwise} max_abs_err={err:.3e}; p/u/g partials max_rel_err="
+          f"{part_rel:.3e} (tol {SUMSQ_REL_TOL}); found={float(f)}")
+    check(bitwise and part_rel <= SUMSQ_REL_TOL and float(f) == 0.0,
+          "lamb_stage1 kernel disagrees with its plain version")
+    del want
+    s1 = lambda: mt_ops.fused_lamb_compute_update_term(  # noqa: E731
+        p, m, v, g, **kw)
+    rows = []
+    ms, h_ms = device_ms(s1, iters=5, replays=3), host_ms(s1, iters=5)
+    plain_ms = host_ms(lambda: mt_ops.fused_lamb_compute_update_term(
+        p, m, v, g, plain=True, **kw), iters=2, warmup=1)
+    # p, m, v, g read; u, m', v' written; three partials per subtile
+    b_ms, by = bound(28 * n + 12 * (n // 2048), 22 * n, PEAK_FP32_FLOPS)
+    print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms=none bound_ms={b_ms:.5f} ({by})")
+    rows.append({"name": mt_ops.LAMB_STAGE1_KERNEL, "route": "cuda",
+                 "source": "apex_tpu_torch/csrc/fused_lamb.cu",
+                 "replaces": "apex_tpu/multi_tensor/engine.py:243",
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                 "host_ms": h_ms, "shape": f"n={n} fp32 (GPT-2 345M plain "
+                                           "flat space), with p/u/g partials"})
+    u = got[0]
+    del got
+    ratio = torch.rand(space.num_leaves, device=dev).add_(0.5)
+    ids = space.device_subtile_leaf_ids(dev)
+    s2 = lambda plain=False: mt_ops.lamb_apply(  # noqa: E731
+        p, u, ratio, lr=1e-3, tile_ids=ids, in_place=False, plain=plain)
+    a, b = s2(), s2(True)
+    torch.cuda.synchronize()
+    bitwise2 = torch.equal(a.view(torch.int32), b.view(torch.int32))
+    err2 = float((a - b).abs().max())
+    print(f"  {mt_ops.LAMB_STAGE2_KERNEL} n={n} fp32, {space.num_leaves} "
+          f"per-leaf ratios on the device: p' bitwise={bitwise2} "
+          f"max_abs_err={err2:.3e}")
+    check(bitwise2, "lamb_stage2 kernel disagrees with its plain version")
+    del a, b
+    ms, h_ms = device_ms(s2, iters=5, replays=3), host_ms(s2, iters=5)
+    plain_ms = host_ms(lambda: s2(True), iters=2, warmup=1)
+    b_ms, by = bound(12 * n + 4 * (n // 2048), 3 * n, PEAK_FP32_FLOPS)
+    print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms=none bound_ms={b_ms:.5f} ({by})")
+    rows.append({"name": mt_ops.LAMB_STAGE2_KERNEL, "route": "cuda",
+                 "source": "apex_tpu_torch/csrc/fused_lamb.cu",
+                 "replaces": "apex_tpu/multi_tensor/engine.py:243",
+                 "max_abs_err": err2, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                 "host_ms": h_ms, "shape": f"n={n} fp32, per-leaf ratios"})
+    return rows
+
+
+def segment_layout(cfg: GPTConfig, seg_elems=None):
+    """FusedLAMB's segmented layout for GPT of ``cfg`` (its own segment
+    size, or ``seg_elems``), and its numbers: the segmented total against
+    the plain one; the elements the segment pass sweeps, those in live
+    slots and the parameters among them; the large leaves' elements."""
+    leaves = gpt_leaves(cfg)
+    space, meta = FusedLAMB(seg_elems=seg_elems).layout(leaves)
+    plain = FlatSpace.create(leaves).total
+    small = len(meta.small_segments) * meta.seg_elems
+    large = sum(plen for _, _, plen in meta.large)
+    large_ids = {l_ for l_, _, _ in meta.large}
+    real_small = sum(space.sizes[i] for i in range(space.num_leaves)
+                     if i not in large_ids)
+    real_large = sum(space.sizes[i] for i in large_ids)
+    live = int((meta.slot_ids >= 0).sum()) * 2048
+    info = {"seg_elems": meta.seg_elems, "stash_p": meta.stash_p,
+            "segmented_total": space.total, "plain_total": plain,
+            "small_segments": len(meta.small_segments),
+            "large_leaves": len(meta.large), "elements_small_segments": small,
+            "elements_in_live_slots": live,
+            "parameters_in_small_leaves": real_small,
+            "elements_large_leaves": large,
+            "parameters_in_large_leaves": real_large,
+            "max_slots": meta.max_slots}
+    print(f"  segmented layout: seg_elems={meta.seg_elems} "
+          f"stash_p={meta.stash_p}, total {space.total} against the plain "
+          f"{plain} (+{100 * (space.total / plain - 1):.3f}%); "
+          f"{len(meta.small_segments)} small segments ({small} elements "
+          f"swept, {live} in live slots, {real_small} parameters), "
+          f"{len(meta.large)} large leaves ({large} elements for "
+          f"{real_large} parameters)")
+    return space, meta, info
+
+
+def segment_cases(dev) -> dict:
+    """The segment pass on GPT-2 345M's segmented layout at FusedLAMB's
+    default seg_elems, stash_p on and off, with_grad_norm: m' and v'
+    bitwise, p' (on every parameter of the small leaves) and the
+    per-slot grad sums within tolerance; an inf in a small segment sets
+    found_inf. Then ``FusedLAMB.step_flat`` on the segmented layout, on
+    the layout at the reference rule's segment size and two-stage."""
+    from apex_tpu_torch.multi_tensor.segmented import _small_segment_pass
+    cfg = GPTConfig.gpt2_345m()
+    space, meta, info = segment_layout(cfg)
+    n = space.total
+    p = _seeded(n, dev, 7, 2e-2)
+    m = _seeded(n, dev, 8, 1e-3)
+    v = _seeded(n, dev, 9, 1e-6, positive=True)
+    g = _seeded(n, dev, 10, 1e-2)
+    scal = (0.9, 0.999, 0.1, 1e-6, 0.01, 0.271, 0.002997, 1.0)
+    inv = torch.tensor(1.75, device=dev)
+    outs = [torch.empty_like(p) for _ in range(3)]
+    ref = [torch.empty_like(p) for _ in range(3)]
+    large_ids = {l_ for l_, _, _ in meta.large}
+    live = torch.cat([torch.arange(off, off + size, device=dev)
+                      for i, (off, size) in enumerate(zip(space.offsets,
+                                                          space.sizes))
+                      if i not in large_ids])
+    real = info["parameters_in_small_leaves"]
+    swept = info["elements_small_segments"]
+    cases, worst = [], 0.0
+    for stash in (True, False):
+        for with_gn in (False, True):
+            for o, r in zip(outs + ref, (p, m, v) * 2):
+                o.copy_(r)
+            kw = dict(meta=meta, scalars=scal, inv_scale=inv, lr=1e-3,
+                      use_nvlamb=False, wd_is_zero=False, stash_p=stash,
+                      with_grad_norm=with_gn)
+            f, gg = _small_segment_pass(p, m, v, g, outs, **kw)
+            wf, wgg = _small_segment_pass(p, m, v, g, ref, plain=True, **kw)
+            torch.cuda.synchronize()
+            bitwise = all(torch.equal(a.view(torch.int32),
+                                      b.view(torch.int32))
+                          for a, b in zip(outs[1:], ref[1:]))
+            want, p_in, got = ref[0][live], p[live], outs[0][live]
+            step = (p_in - want).abs()
+            diff = (got - want).abs()
+            ulp = 2.0 ** -23 * torch.maximum(got.abs(), want.abs())
+            # beyond the stated share of each parameter's step, at most
+            # one rounding of p' (an element whose step is below an ulp
+            # of p' moves by an ulp when its ratio's last bit moves; the
+            # ulp of the larger value, as the two may round into
+            # neighbouring binades)
+            p_excess = float((diff - SEG_P_REL_TOL * step - ulp).max())
+            p_rel = float((diff / (step + 1e-30)).max())
+            p_rel_ulp = float((diff / (step + ulp + 1e-30)).max())
+            gg_rel = (float(((gg - wgg).abs() / wgg.abs().clamp_min(1e-30))
+                            .max()) if with_gn else 0.0)
+            worst = max(worst, float((outs[0] - ref[0]).abs().max()))
+            print(f"  {SEGMENT_KERNEL} stash_p={stash} with_grad_norm="
+                  f"{with_gn}: m'/v' bitwise={bitwise}; on the {real} "
+                  f"parameters, p' max |diff| / |step|={p_rel:.3e}, / "
+                  f"(|step| + ulp(p'))={p_rel_ulp:.3e}, max(|diff| - "
+                  f"{SEG_P_REL_TOL}|step| - ulp(p'))={p_excess:.3e} (tol 0); "
+                  f"grad sums max_rel={gg_rel:.3e} (tol {SUMSQ_REL_TOL}), "
+                  f"found={float(f)}")
+            check(bitwise and p_excess <= 0.0 and float(f) == 0.0
+                  and gg_rel <= SUMSQ_REL_TOL,
+                  "lamb_segment kernel disagrees with its plain version")
+            run = lambda kw=kw: _small_segment_pass(  # noqa: E731
+                p, m, v, g, outs, **kw)
+            ms, h_ms = device_ms(run, iters=10, replays=3), host_ms(run)
+            plain_ms = host_ms(lambda kw=kw: _small_segment_pass(
+                p, m, v, g, ref, plain=True, **kw), iters=3, warmup=1)
+            # the bytes the LAMB update needs: the small leaves' own
+            # parameters, each read (p, m, v, g) and written (p', m', v')
+            # once, p twice without the stash; not the padding swept
+            b_ms, by = bound((28 if stash else 32) * real, 25 * real,
+                             PEAK_FP32_FLOPS)
+            print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms="
+                  f"{plain_ms:.5f} library_ms=none bound_ms={b_ms:.5f} "
+                  f"({by}) over {real} parameters ({swept} elements swept)")
+            cases.append({"stash_p": stash, "with_grad_norm": with_gn,
+                          "ms": ms, "host_ms": h_ms, "plain_ms": plain_ms,
+                          "bound_ms": b_ms, "bound_by": by,
+                          "p_rel": p_rel, "p_rel_ulp": p_rel_ulp,
+                          "p_excess": p_excess, "gg_rel": gg_rel})
+    bad = g.clone()
+    bad[meta.small_segments[0] * meta.seg_elems + 11] = float("inf")
+    f, _ = _small_segment_pass(p, m, v, bad, outs, **kw)
+    print(f"  {SEGMENT_KERNEL} with an inf in a small segment: found_inf="
+          f"{float(f)}")
+    check(float(f) == 1.0, "lamb_segment found_inf not set")
+    del bad, outs, ref, live
+    # FusedLAMB.step_flat in place: segmented (the default layout, and
+    # the layout at the reference rule's segment size) and two-stage
+    from apex_tpu_torch.optimizers import FlatOptState
+    ref_space, ref_meta, ref_info = segment_layout(cfg, seg_elems=196608)
+    layouts = {"segmented": (space, meta),
+               "segmented_196608": (ref_space, ref_meta),
+               "two_stage": (FlatSpace.create(gpt_leaves(cfg)), None)}
+    times = {}
+    for name, (sp, mt) in layouts.items():
+        opt = FusedLAMB(lr=1e-3, weight_decay=0.01, max_grad_norm=1.0,
+                        segmented=mt is not None)
+        if sp.total > n:
+            bufs = [_seeded(sp.total, dev, 11 + i) for i in range(4)]
+            bufs[2].abs_().mul_(1e-6)
+            bufs[3].mul_(1e-2)
+        else:
+            bufs = [b[:sp.total] for b in (p, m, v, g)]
+        state = FlatOptState(space=sp, master=bufs[0],
+                             slots={"m": bufs[1], "v": bufs[2]}, count=0,
+                             found_inf=torch.zeros((), device=dev),
+                             seg_meta=mt)
+        times[name] = host_ms(lambda: opt.step_flat(state, bufs[3]),
+                              iters=10)
+        del state, bufs
+    print(f"  FusedLAMB.step_flat with the clip, in place: segmented "
+          f"{times['segmented']:.5f} ms ({n} elements), at seg_elems="
+          f"196608 {times['segmented_196608']:.5f} ms ({ref_space.total}), "
+          f"two-stage {times['two_stage']:.5f} ms (host clock over CUDA "
+          f"events, 10 calls)")
+    top = dict(cases[0])
+    return {"name": SEGMENT_KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/lamb_segment.cu",
+            "replaces": "apex_tpu/multi_tensor/segmented.py:126",
+            "max_abs_err": worst, "ms": top["ms"], "host_ms": top["host_ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None,
+            "cases": cases, "layout": info, "layout_196608": ref_info,
+            "step_flat_ms": times,
+            "shape": f"{len(meta.small_segments)} small segments of "
+                     f"{meta.seg_elems} fp32 ({real} parameters; GPT-2 "
+                     f"345M segmented layout)"}
 
 
 def adam_case(dev) -> dict:
@@ -611,6 +966,7 @@ def train(seed: int, dev, card: str) -> dict:
     else:
         print("  profiled step: the profiler traced no device time "
               "(breakdown not measured)")
+    state, split = split_step(step, state, x, y)
 
     # the kernel path against the plain path: one loss and every
     # parameter's gradient at batch 2, on the same (trained) weights
@@ -635,7 +991,242 @@ def train(seed: int, dev, card: str) -> dict:
             "tokens_per_s": tokens / step_s, "peak_gib": peak / 2**30,
             "batch2_loss": [loss_k, loss_p],
             "batch2_grad_rel_err": {"max": worst[0], "param": worst[1]},
+            "split": split,
             "profile": {"wall_ms": p_wall * 1e3, "device_busy_ms": busy_ms,
+                        "top": [{"ms": t, "count": n, "name": key}
+                                for t, n, key in per_kernel[:20]]}}
+
+
+def update_excess(st, got, want) -> dict:
+    """How far one LAMB update through the kernels (``got``) lies from
+    the plain one (``want``), both from state ``st``: per parameter, the
+    worst excess of |dp'| over ``LAMB_PARAM_TOL`` of each element's own
+    step, and over that share of the parameter's largest step, plus one
+    rounding of p' (the ulp of the larger value: the two may round into
+    neighbouring binades); m' and v' bitwise, and their largest
+    difference relative to each buffer's largest value."""
+    element, param = (-np.inf, ""), (-np.inf, "")
+    old = st.space.unpack(st.master, "buffer")
+    new_w = st.space.unpack(want[0], "buffer")
+    for name, a in st.space.unpack(got[0], "buffer").items():
+        step = (old[name] - new_w[name]).abs()
+        diff = (a - new_w[name]).abs() - 2.0 ** -23 * torch.maximum(
+            a.abs(), new_w[name].abs())
+        element = max(element, (float((diff - LAMB_PARAM_TOL * step).max()),
+                                name))
+        param = max(param, (float(diff.max() - LAMB_PARAM_TOL * step.max()),
+                            name))
+    return {"element": element, "param": param,
+            "mv_bitwise": all(torch.equal(a.view(torch.int32),
+                                          b.view(torch.int32))
+                              for a, b in zip(got[1:3], want[1:3])),
+            "mv_rel": max(float((a - b).abs().max() / b.abs().max())
+                          for a, b in zip(got[1:3], want[1:3]))}
+
+
+def split_step(step, state, x, y, reps: int = 3):
+    """Host-clock milliseconds of a training step's two parts, with a
+    synchronise after each: the forward and backward, then the
+    optimizer's ``step_flat`` (medians of ``reps`` steps). Set against
+    the unsynchronised step's median, they show whether a step's idle
+    device time sits in the model's part or the optimizer's."""
+    fb, opt = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step._grad.zero_()
+        gpt_loss_fn(step.model(x), y).backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, state = step.opt.step_flat(state, step._grad)
+        torch.cuda.synchronize()
+        fb.append(t1 - t0)
+        opt.append(time.perf_counter() - t1)
+    fb_ms, opt_ms = float(np.median(fb)) * 1e3, float(np.median(opt)) * 1e3
+    print(f"  split step (synchronised, median of {reps}): forward+backward "
+          f"{fb_ms:.2f} ms, optimizer {opt_ms:.3f} ms")
+    return state, {"forward_backward_ms": fb_ms, "optimizer_ms": opt_ms}
+
+
+OPT_KERNEL_KEYS = ("sumsq_kernel", "stage1_kernel", "stage2_kernel",
+                   "segment_kernel")
+
+
+def train_lamb(seed: int, dev, card: str) -> dict:
+    """GPT-2 345M with FusedLAMB and its global-norm clip: ten steps on
+    one batch through ``make_gpt_pretrain_step``; one scaler step with
+    ``with_grad_norm`` on the real flat gradient; one with an inf in it;
+    one LAMB update through the kernels and through their plain
+    versions."""
+    cfg = GPTConfig.gpt2_345m()           # bf16 compute, fp32 parameters
+    t0 = time.perf_counter()
+    model = init_gpt_pretrain_params(
+        cfg, torch.Generator().manual_seed(seed), device=dev)
+    opt = FusedLAMB(lr=LAMB_LR, weight_decay=0.01, max_grad_norm=1.0)
+    step, state = make_gpt_pretrain_step(cfg, opt)(model)
+    meta = state.seg_meta
+    check(meta is not None, "FusedLAMB did not lay the master out in "
+          "segments")
+    rng = np.random.RandomState(seed)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                       (TRAIN_BATCH, cfg.max_seq_len + 1)),
+                           device=dev).long()
+    x, y = toks[:, :-1], toks[:, 1:]
+    print(f"  GPT-2 345M with FusedLAMB(lr={LAMB_LR}, weight_decay=0.01, "
+          f"max_grad_norm=1.0): flat buffers of {state.master.numel()} fp32 "
+          f"(seg_elems={meta.seg_elems}, stash_p={meta.stash_p}, "
+          f"{len(meta.small_segments)} small segments, {len(meta.large)} "
+          f"large leaves), set-up {time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        losses.append(float(loss))           # synchronises
+        times.append(time.perf_counter() - t0)
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(times[2:]))
+    tokens = TRAIN_BATCH * cfg.max_seq_len
+    print(f"  losses {[round(v_, 4) for v_ in losses]}")
+    print(f"  launches over {TRAIN_STEPS} steps {launches}")
+    print(f"  training (LAMB): step_ms median of the last {TRAIN_STEPS - 2} "
+          f"{step_s * 1e3:.2f} (first {times[0] * 1e3:.1f}), tokens_per_s="
+          f"{tokens / step_s:.0f}, peak memory {peak / 2**30:.2f} GiB "
+          f"on {card}")
+    check(all(np.isfinite(losses)), "non-finite training loss (LAMB)")
+    check(losses[-1] < losses[0], "the LAMB training loss did not fall")
+    path = (layer_norm.KERNEL, layer_norm.BWD_KERNEL, attention.KERNEL,
+            attention.BWD_DQ_KERNEL, attention.BWD_DKV_KERNEL,
+            engine.SUMSQ_KERNEL, mt_ops.LAMB_STAGE1_KERNEL,
+            mt_ops.LAMB_STAGE2_KERNEL, SEGMENT_KERNEL)
+    for kernel in path:
+        check(launches.get(kernel, 0) > 0,
+              f"kernel {kernel} never launched on the LAMB training path")
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        float(loss)
+        p_wall = time.perf_counter() - t0
+    per_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                         for e in prof.key_averages()), reverse=True)
+    busy_ms = sum(t for t, _, _ in per_kernel)
+    opt_ms = sum(t for t, _, key in per_kernel
+                 if any(k in key for k in OPT_KERNEL_KEYS))
+    if busy_ms > 0:
+        print(f"  profiled LAMB step: wall {p_wall * 1e3:.1f} ms, device busy "
+              f"{busy_ms:.1f} ms ({100 * busy_ms / (p_wall * 1e3):.1f}%), "
+              f"{sum(n for _, n, _ in per_kernel)} device ops; the "
+              f"optimizer's kernels {opt_ms:.3f} ms ("
+              f"{100 * opt_ms / busy_ms:.2f}% of device time); top:")
+        for t, n, key in per_kernel[:14]:
+            print(f"    {t:9.3f} ms {n:6d}x  {key[:90]}")
+    else:
+        print("  profiled LAMB step: the profiler traced no device time "
+              "(breakdown not measured)")
+    state, split = split_step(step, state, x, y)
+    # the optimizer step alone, on the last gradient (host clock over
+    # CUDA events: it includes the per-leaf Python loop)
+    grad = step._grad
+    opt_step_ms = host_ms(lambda: opt.step_flat(state, grad), iters=5,
+                          warmup=1)
+    print(f"  FusedLAMB.step_flat on the model's state: {opt_step_ms:.3f} ms")
+
+    # make_train_step with the scaler and with_grad_norm, on the real
+    # flat gradient scaled by the loss scale, as a scaled loss gives it
+    tstep = make_train_step(opt, scaler=LossScaler(), with_grad_norm=True)
+    ss = tstep.scaler.init()
+    scaled = grad * ss.loss_scale
+    master, m_slot, count = (state.master.clone(), state.slots["m"].clone(),
+                             state.count)
+    want_norm = float(torch.linalg.vector_norm(grad.double()))
+    _build.reset_launch_counts()
+    state2, ss2, aux = tstep(state, scaled, ss)
+    torch.cuda.synchronize()
+    scaler_launches = _build.launch_counts()
+    gnorm = float(aux.grad_norm)
+    pt = aux.grad_norm_per_tensor
+    pt_total = float(torch.sqrt((pt.double() ** 2).sum()))
+    print(f"  make_train_step(scaler, with_grad_norm): grad_norm {gnorm:.6f} "
+          f"against the plain norm {want_norm:.6f} (rel tol "
+          f"{GRAD_NORM_REL_TOL}); found_inf {float(aux.found_inf)}; launches "
+          f"{scaler_launches}")
+    check(scaler_launches.get(engine.SUMSQ_SCALED_KERNEL, 0) > 0,
+          "sumsq_scaled never launched on the scaler path")
+    check(abs(gnorm - want_norm) <= GRAD_NORM_REL_TOL * want_norm
+          and abs(pt_total - want_norm) <= GRAD_NORM_REL_TOL * want_norm
+          and float(aux.found_inf) == 0.0 and state2.count == count + 1,
+          "scaler step's grad_norm disagrees with the plain path")
+    model_state = state2
+    # an inf in the gradient: skipped, nothing moves, the scale backs off
+    bad = scaled.clone()
+    bad[12345] = float("inf")
+    before = (state2.master.clone(), state2.slots["m"].clone(),
+              state2.slots["v"].clone(), state2.count)
+    state3, ss3, aux3 = tstep(state2, bad, ss2)
+    torch.cuda.synchronize()
+    skipped = (float(aux3.found_inf) == 1.0
+               and torch.equal(state3.master, before[0])
+               and torch.equal(state3.slots["m"], before[1])
+               and torch.equal(state3.slots["v"], before[2])
+               and state3.count == before[3]
+               and ss3.loss_scale == ss2.loss_scale / 2)
+    print(f"  scaler step with an inf: found_inf {float(aux3.found_inf)}, "
+          f"state unchanged and scale {ss2.loss_scale} -> {ss3.loss_scale}: "
+          f"{skipped}")
+    check(skipped, "the overflowing LAMB step was not skipped")
+    del bad, scaled, before, state3, master, m_slot
+
+    # one LAMB update from the same state and gradient, kernels against
+    # plain versions, every parameter's master: first with the clip's
+    # norm handed to both (one clip factor: m' and v' bitwise, p' apart
+    # only by ratios summed in other orders), then with each side
+    # computing its own norm (clip factors one bit apart)
+    st = model_state
+    kw = dict(lr=LAMB_LR, weight_decay=0.01, max_grad_norm=1.0,
+              step=st.count + 1)
+    gnorm_k, _ = mt_ops.multi_tensor_l2norm(grad)
+    upd = {}
+    for case, extra in (("same_norm", dict(global_grad_norm=gnorm_k)),
+                        ("own_norm", {})):
+        outs = []
+        for plain in (False, True):
+            copies = [t.clone() for t in (st.master, st.slots["m"],
+                                          st.slots["v"])]
+            outs.append(fused_lamb_segmented_update(
+                *copies, grad, st.space, meta, plain=plain, **kw, **extra))
+        got, want = outs
+        torch.cuda.synchronize()
+        upd[case] = update_excess(st, got, want)
+        del outs, got, want, copies
+    same, own = upd["same_norm"], upd["own_norm"]
+    print(f"  one LAMB update, kernels vs plain, the clip's norm handed to "
+          f"both: m'/v' bitwise={same['mv_bitwise']}; worst parameter "
+          f"max(|dp'| - {LAMB_PARAM_TOL}|step| - ulp(p')) "
+          f"{same['element'][0]:.3e} in {same['element'][1]} (tol 0)")
+    print(f"  one LAMB update, kernels vs plain, each side's own norm: m'/v' "
+          f"max rel {own['mv_rel']:.3e} (tol {LAMB_PARAM_TOL}); worst "
+          f"parameter max(|dp'| - {LAMB_PARAM_TOL} max|step| - ulp(p')) "
+          f"{own['param'][0]:.3e} in {own['param'][1]} (tol 0); per "
+          f"element, max(|dp'| - {LAMB_PARAM_TOL}|step| - ulp(p')) "
+          f"{own['element'][0]:.3e} in {own['element'][1]}")
+    check(same["mv_bitwise"] and same["element"][0] <= 0.0
+          and own["mv_rel"] <= LAMB_PARAM_TOL and own["param"][0] <= 0.0,
+          "LAMB update: kernel path disagrees with the plain path")
+    return {"launches": launches, "steps": TRAIN_STEPS, "losses": losses,
+            "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": tokens / step_s, "peak_gib": peak / 2**30,
+            "opt_step_ms": opt_step_ms, "split": split,
+            "scaler_launches": scaler_launches,
+            "grad_norm": [gnorm, want_norm, pt_total],
+            "update_excess": upd,
+            "profile": {"wall_ms": p_wall * 1e3, "device_busy_ms": busy_ms,
+                        "optimizer_ms": opt_ms,
                         "top": [{"ms": t, "count": n, "name": key}
                                 for t, n, key in per_kernel[:20]]}}
 
@@ -843,6 +1434,12 @@ def main(argv=None) -> int:
         ln_bwd = layer_norm_bwd_case(gen, dev)
         fl_bwd = flash_bwd_cases(gen, dev)
         adam = adam_case(dev)
+        torch.cuda.empty_cache()
+        sumsq_rows = sumsq_cases(dev)
+        torch.cuda.empty_cache()
+        stage_rows = lamb_stage_cases(dev)
+        torch.cuda.empty_cache()
+        seg = segment_cases(dev)
     torch.cuda.empty_cache()
 
     print("phase 3: serving GPT-2 345M")
@@ -851,24 +1448,40 @@ def main(argv=None) -> int:
 
     print("phase 4: training GPT-2 345M")
     trn = train(args.seed, dev, card)
-    kernels = [ln, fl, ln_bwd, *fl_bwd, adam]
-    for k in kernels:
-        # the forward kernels run on both paths: their launches are the
-        # serving run's, with the training run's beside them
-        serving = any(k is x for x in (ln, fl))
-        run = srv if serving else trn
-        k["path"] = "serving" if serving else "training"
-        k["launches"] = run["launches"].get(k["name"], 0)
-        k["launches_per_step"] = k["launches"] / max(run["steps"], 1)
-        k["launches_training"] = trn["launches"].get(k["name"], 0)
+    torch.cuda.empty_cache()
 
-    print("phase 5: kernels")
+    print("phase 5: training GPT-2 345M with FusedLAMB")
+    lamb = train_lamb(args.seed, dev, card)
+    torch.cuda.empty_cache()
+    kernels = [ln, fl, ln_bwd, *fl_bwd, adam, *sumsq_rows, *stage_rows, seg]
+    for k in kernels:
+        # the forward kernels run on every path: their launches are the
+        # serving run's, with the training runs' beside them; the scaled
+        # sum of squares runs on the scaler step
+        if any(k is x for x in (ln, fl)):
+            path, launches, steps = "serving", srv["launches"], srv["steps"]
+        elif any(k is x for x in (ln_bwd, *fl_bwd, adam)):
+            path, launches, steps = "training", trn["launches"], trn["steps"]
+        elif k["name"] == engine.SUMSQ_SCALED_KERNEL:
+            path, launches, steps = ("training_lamb_scaler_step",
+                                     lamb["scaler_launches"], 1)
+        else:
+            path, launches, steps = ("training_lamb", lamb["launches"],
+                                     lamb["steps"])
+        k["path"] = path
+        k["launches"] = launches.get(k["name"], 0)
+        k["launches_per_step"] = k["launches"] / max(steps, 1)
+        k["launches_training"] = trn["launches"].get(k["name"], 0)
+        k["launches_training_lamb"] = lamb["launches"].get(k["name"], 0)
+
+    print("phase 6: kernels")
     line = {"kernels": kernels}
     print(json.dumps(line))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": secs, "serving": srv,
-                       "training": trn, **line}, f, indent=1)
+                       "training": trn, "training_lamb": lamb, **line}, f,
+                      indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

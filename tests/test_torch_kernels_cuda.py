@@ -237,3 +237,214 @@ def test_adam_kernel_found_inf_and_out_of_place(cuda_device):
     for t, s_ in zip((p, m, v), saved):
         assert torch.equal(t, s_)
     assert p2.data_ptr() != p.data_ptr()
+
+
+# -- the sum-of-squares and LAMB kernels ------------------------------------
+#
+# Tolerances: sums of squares, norms and trust ratios relative 1e-5 (fp32
+# sums in another order); LAMB stage 1's u, m' and v', stage 2's p' and
+# the segment pass's m' and v': bitwise (every operation rounded on its
+# own in the plain version's order); the segment pass's p' within 1e-5 of
+# each element's step |p - p'| plus one ulp of p' (its ratios come from
+# sums in another order).
+
+
+def _rand(rng, n, dev, scale=1.0, positive=False):
+    a = rng.randn(n).astype(np.float32) * scale
+    return torch.from_numpy(np.abs(a) if positive else a).to(dev)
+
+
+def _lamb_scalars():
+    return dict(beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+                weight_decay=0.01, bias_correction1=0.271,
+                bias_correction2=0.002997)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 517, 3 * 65536 + 517])
+@pytest.mark.parametrize("tile_rows", [None, 16])
+@pytest.mark.parametrize("scale", [None, 0.375, "device"])
+def test_sumsq_kernel_matches_plain(cuda_device, n, tile_rows, scale):
+    from apex_tpu_torch.multi_tensor import engine
+    x = _rand(np.random.RandomState(n), n, cuda_device)
+    if scale == "device":
+        scale = torch.tensor(0.25, device=cuda_device)
+    name = engine.SUMSQ_KERNEL if scale is None else \
+        engine.SUMSQ_SCALED_KERNEL
+    before = _build.launch_counts().get(name, 0)
+    got = engine.fused_sumsq_partials(x, tile_rows, scale=scale)
+    want = engine.fused_sumsq_partials(x, tile_rows, scale=scale, plain=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    again = engine.fused_sumsq_partials(x, tile_rows, scale=scale)
+    assert torch.equal(got, again)                     # deterministic
+
+
+@pytest.mark.cuda
+def test_unscale_l2norm_found_inf_on_card(cuda_device):
+    from apex_tpu_torch.multi_tensor import fused_unscale_l2norm
+    x = torch.randn(100_000, device=cuda_device)
+    assert float(fused_unscale_l2norm(x)[1]) == 0.0
+    for bad in (float("inf"), float("nan")):
+        y = x.clone()
+        y[4321] = bad
+        assert float(fused_unscale_l2norm(y, inv_scale=0.5)[1]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3 * 2048 + 517, 1 << 20])
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+@pytest.mark.parametrize("grad_partials", [False, True])
+@pytest.mark.parametrize("inv", ["host", "device"])
+def test_lamb_stage1_kernel_bitwise_equals_plain(cuda_device, n, adam_w_mode,
+                                                 grad_partials, inv):
+    from apex_tpu_torch.multi_tensor import fused_lamb_compute_update_term
+    rng = np.random.RandomState(11)
+    p, m, g = (_rand(rng, n, cuda_device) for _ in range(3))
+    v = _rand(rng, n, cuda_device, positive=True)
+    inv_scale = 3.0 if inv == "host" else torch.tensor(3.0,
+                                                       device=cuda_device)
+    kw = dict(_lamb_scalars(), adam_w_mode=adam_w_mode, inv_scale=inv_scale,
+              with_norm_partials=True, with_grad_partials=grad_partials)
+    want, wf = fused_lamb_compute_update_term(p, m.clone(), v.clone(), g,
+                                              plain=True, **kw)
+    before = _build.launch_counts().get(mt_ops.LAMB_STAGE1_KERNEL, 0)
+    got, f = fused_lamb_compute_update_term(p, m, v, g, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[mt_ops.LAMB_STAGE1_KERNEL] == before + 1
+    assert got[1] is m and got[2] is v
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert len(got) == len(want)
+    for a, b in zip(got[3:], want[3:]):
+        torch.testing.assert_close(a.sum(-1), b.sum(-1), rtol=1e-5, atol=0)
+    assert float(f) == float(wf) == 0.0
+    g[n - 1] = float("nan")
+    assert float(fused_lamb_compute_update_term(p, m, v, g, **kw)[1]) == 1.0
+
+
+@pytest.mark.cuda
+def test_lamb_stage2_kernel_bitwise_equals_plain(cuda_device):
+    from apex_tpu_torch.multi_tensor import FlatSpace
+    space = FlatSpace.create({"a": torch.empty(5000), "b": torch.empty(7),
+                              "c": torch.empty(70000)})
+    rng = np.random.RandomState(12)
+    p, u = (_rand(rng, space.total, cuda_device) for _ in range(2))
+    ratio = torch.tensor([0.5, 2.0, 1.25], device=cuda_device)
+    ids = space.device_subtile_leaf_ids(cuda_device)
+    want = mt_ops.lamb_apply(p, u, ratio, lr=1e-3, tile_ids=ids,
+                             in_place=False, plain=True)
+    before = _build.launch_counts().get(mt_ops.LAMB_STAGE2_KERNEL, 0)
+    got = mt_ops.lamb_apply(p, u, ratio, lr=1e-3, tile_ids=ids)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[mt_ops.LAMB_STAGE2_KERNEL] == before + 1
+    assert got is p
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _segmented_case(dev, seed, seg_elems=65536):
+    from apex_tpu_torch.multi_tensor import segmented_space
+    shapes = [(3000,), (10,), (70000,), (40, 700), (5,), (130000,),
+              (2048,), (61000,), (7,), (9000,), (1024,), (1024,)]
+    space, meta = segmented_space(
+        {f"l{i:02d}": torch.empty(s, device="meta")
+         for i, s in enumerate(shapes)}, seg_elems=seg_elems)
+    rng = np.random.RandomState(seed)
+    bufs = []
+    for scale, pos in ((1.0, False), (0.01, False), (1e-4, True), (0.5, False)):
+        b = torch.zeros(space.total, device=dev)
+        for off, size in zip(space.offsets, space.sizes):
+            b[off:off + size] = _rand(rng, size, dev, scale, pos)
+        bufs.append(b)
+    return space, meta, bufs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stash_p", [True, False])
+@pytest.mark.parametrize("with_grad_norm", [False, True])
+@pytest.mark.parametrize("clip", [False, True])
+def test_segmented_lamb_kernels_match_plain(cuda_device, stash_p,
+                                            with_grad_norm, clip):
+    from apex_tpu_torch.multi_tensor import fused_lamb_segmented_update
+    from apex_tpu_torch.multi_tensor.segmented import SEGMENT_KERNEL
+    space, meta, (p, m, v, g) = _segmented_case(cuda_device, 13)
+    kw = dict(lr=2e-3, weight_decay=0.01, step=3, stash_p=stash_p,
+              with_grad_norm=with_grad_norm,
+              max_grad_norm=1.0 if clip else 0.0, grad_scale=4.0)
+    want = fused_lamb_segmented_update(p.clone(), m.clone(), v.clone(), g,
+                                       space, meta, plain=True, **kw)
+    counts = _build.launch_counts()
+    got = fused_lamb_segmented_update(p.clone(), m.clone(), v.clone(), g,
+                                      space, meta, **kw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after[SEGMENT_KERNEL] == counts.get(SEGMENT_KERNEL, 0) + 1
+    assert meta.large                  # one launch each for all of them
+    for k in (mt_ops.LAMB_STAGE1_KERNEL, mt_ops.LAMB_STAGE2_KERNEL):
+        assert after[k] == counts.get(k, 0) + 1
+    for a, b in zip(got[1:3], want[1:3]):
+        if clip:     # each side's own norm may differ in its last bit
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-9)
+        else:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    step = (p - want[0]).abs()
+    bound = 1e-5 * step + torch.finfo(torch.float32).eps * want[0].abs()
+    assert bool(((got[0] - want[0]).abs() <= bound + 1e-12).all())
+    assert float(got[3]) == float(want[3]) == 0.0
+    if with_grad_norm:
+        torch.testing.assert_close(got[4], want[4], rtol=1e-5, atol=0)
+    # deterministic: the same bits again
+    again = fused_lamb_segmented_update(p.clone(), m.clone(), v.clone(), g,
+                                        space, meta, **kw)
+    for a, b in zip(got[:3], again[:3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_segment_kernel_found_inf_and_out_of_place(cuda_device):
+    from apex_tpu_torch.multi_tensor import fused_lamb_segmented_update
+    space, meta, (p, m, v, g) = _segmented_case(cuda_device, 14)
+    g[meta.small_segments[0] * meta.seg_elems + 3] = float("inf")
+    saved = [t.clone() for t in (p, m, v)]
+    got = fused_lamb_segmented_update(p, m, v, g, space, meta, lr=1e-3,
+                                      in_place=False)
+    torch.cuda.synchronize()
+    assert float(got[3]) == 1.0
+    for t, s_ in zip((p, m, v), saved):
+        assert torch.equal(t, s_)
+    # out of place writes every element: with a finite gradient the new
+    # buffers equal the in-place result bit for bit
+    g[meta.small_segments[0] * meta.seg_elems + 3] = 0.0
+    new = fused_lamb_segmented_update(p, m, v, g, space, meta, lr=1e-3,
+                                      in_place=False)
+    fused_lamb_segmented_update(p, m, v, g, space, meta, lr=1e-3)
+    for a, b in zip(new[:3], (p, m, v)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segmented", [True, False])
+def test_fused_lamb_step_on_card_matches_plain(cuda_device, segmented):
+    """FusedLAMB.step_flat through the kernels against the same step
+    through the plain versions (``plain`` runs the update's plain
+    versions on the card)."""
+    from apex_tpu_torch.multi_tensor import (fused_lamb_segmented_update,
+                                             fused_lamb_update)
+    from apex_tpu_torch.optimizers import FusedLAMB
+    params = {f"w{i}": torch.randn(s, device=cuda_device)
+              for i, s in enumerate([(300, 1000), (1000,), (2, 7), (5000,)])}
+    opt = FusedLAMB(lr=1e-2, segmented=segmented, seg_elems=65536)
+    state = opt.init(params)
+    g = torch.randn(state.master.shape[0], device=cuda_device)
+    kw = dict(lr=1e-2, weight_decay=0.01, max_grad_norm=1.0, step=1)
+    args = (state.master.clone(), state.slots["m"].clone(),
+            state.slots["v"].clone(), g, state.space)
+    want = (fused_lamb_segmented_update(*args, state.seg_meta, plain=True,
+                                        **kw) if segmented else
+            fused_lamb_update(*args, plain=True, **kw))
+    _, state = opt.step_flat(state, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(state.slots["m"], want[1], rtol=1e-5,
+                               atol=1e-9)
+    torch.testing.assert_close(state.master, want[0], rtol=1e-6, atol=1e-7)

@@ -199,10 +199,12 @@ def test_entry_points_default_to_cuda():
 def test_unported_options_raise():
     _, cfg = _configs("fp32")
     opt = FusedAdam(lr=LR)
-    with pytest.raises(NotImplementedError, match="max_grad_norm"):
-        make_train_step(opt, max_grad_norm=1.0)
-    with pytest.raises(NotImplementedError, match="FusedLAMB"):
-        FusedLAMB(lr=LR)
+    with pytest.raises(NotImplementedError, match="stochastic"):
+        FusedLAMB(lr=LR, stochastic_rounding=True)
+    with pytest.raises(NotImplementedError, match="fingerprint"):
+        make_train_step(opt, fingerprint_every=10)
+    with pytest.raises(NotImplementedError, match="chained"):
+        make_train_step(FusedLAMB(lr=LR), max_grad_norm=1.0).chained(4)
     for kw in ({"attention_dropout": 0.1}, {"hidden_dropout": 0.1}):
         with pytest.raises(NotImplementedError, match="dropout"):
             GPTConfig(**kw)
@@ -229,7 +231,8 @@ def test_loss_falls_over_steps_on_one_batch():
 
 def test_training_modules_import_no_jax():
     code = ("import sys, apex_tpu_torch.models, apex_tpu_torch.optimizers, "
-            "apex_tpu_torch.multi_tensor, apex_tpu_torch.amp; "
+            "apex_tpu_torch.multi_tensor, apex_tpu_torch.amp, "
+            "apex_tpu_torch.multi_tensor.segmented; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'apex_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
