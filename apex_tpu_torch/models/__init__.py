@@ -1,7 +1,14 @@
 """Models (counterpart of ``apex_tpu/models/``): GPT for serving and
-single-device pretraining."""
+single-device pretraining, BERT for single-device pretraining."""
 
+from apex_tpu_torch.models.bert import (
+    BertConfig,
+    BertModel,
+    bert_extended_attention_mask,
+    bert_loss_fn,
+)
 from apex_tpu_torch.models.convert import (
+    bert_params_from_jax,
     gpt_params_from_jax,
     load_jax_opt_state,
     load_jax_params,
@@ -13,7 +20,8 @@ from apex_tpu_torch.models.pretrain import (
     make_gpt_pretrain_step,
 )
 
-__all__ = ["GPTConfig", "GPTModel", "PretrainStep", "gpt_loss_fn",
-           "gpt_params_from_jax", "init_gpt_pretrain_params",
-           "load_jax_opt_state", "load_jax_params",
-           "make_gpt_pretrain_step"]
+__all__ = ["BertConfig", "BertModel", "GPTConfig", "GPTModel",
+           "PretrainStep", "bert_extended_attention_mask", "bert_loss_fn",
+           "bert_params_from_jax", "gpt_loss_fn", "gpt_params_from_jax",
+           "init_gpt_pretrain_params", "load_jax_opt_state",
+           "load_jax_params", "make_gpt_pretrain_step"]

@@ -19,13 +19,18 @@ converted weights:
 - the training loss :func:`gpt_loss_fn`: mean cross entropy over fp32
   logits through a plain logsumexp, as the reference computes it outside
   any kernel. The forward differentiates through the LayerNorm and
-  flash-attention kernels' backward kernels.
+  flash-attention kernels' backward kernels;
+- ``attention_backend="softmax"`` (the reference's :326-354): fp32
+  scores divided by sqrt(head_dim) and cast to the compute dtype, the
+  causal fused softmax, ``probs @ v`` accumulated in fp32 and cast; GQA
+  repeats each kv head over its group of q heads. The serving hooks
+  (``kv_ctx``) run flash attention whatever the backend, as there.
 
 Layers are a Python loop over an ``nn.ModuleList``; the reference's
 ``scan_layers`` is only a parameter layout there, and ``convert.py``
-reads both layouts. MoE, the ring and softmax attention backends,
-sequence parallelism and dropout (``attention_dropout`` /
-``hidden_dropout`` above 0 raise) belong to later slices of the port.
+reads both layouts. MoE, the ring attention backend, sequence
+parallelism and dropout (``attention_dropout`` / ``hidden_dropout``
+above 0 raise) belong to later slices of the port.
 """
 
 from __future__ import annotations
@@ -41,6 +46,11 @@ from apex_tpu_torch._backend import DeviceLike, resolve_device
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.attention import attention_plain, flash_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
+from apex_tpu_torch.ops.softmax import softmax_plain
+from apex_tpu_torch.transformer.functional import (
+    AttnMaskType,
+    FusedScaleMaskSoftmax,
+)
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -83,13 +93,21 @@ class GPTConfig:
                 f"({self.num_heads})")
         if self.hidden_size % self.num_heads:
             raise ValueError("num_heads must divide hidden_size")
-        if self.attention_window is not None and self.attention_window < 1:
-            raise ValueError("attention_window must be >= 1")
-        if self.attention_backend != "flash":
+        if self.attention_window is not None:
+            if self.attention_backend != "flash":
+                raise ValueError(
+                    "attention_window requires attention_backend='flash' "
+                    f"(got {self.attention_backend!r})")
+            if self.attention_window < 1:
+                raise ValueError("attention_window must be >= 1")
+        if self.attention_backend == "ring":
             raise NotImplementedError(
-                f"attention_backend={self.attention_backend!r} is not ported "
-                "yet (only 'flash'); the softmax and ring backends belong "
-                "to later slices of the port")
+                "attention_backend='ring' is not ported yet; ring attention "
+                "belongs to the context-parallel slice of the port")
+        if self.attention_backend not in ("flash", "softmax"):
+            raise ValueError(
+                "attention_backend must be 'flash', 'softmax' or 'ring', "
+                f"got {self.attention_backend!r}")
         if self.num_experts:
             raise NotImplementedError(
                 "MoE (num_experts > 0) is not ported yet")
@@ -113,21 +131,47 @@ class GPTConfig:
                          max_seq_len=1024, **kw)
 
 
+def _fused_softmax(scores, mask=None, *, causal=False):
+    return FusedScaleMaskSoftmax(
+        attn_mask_type=AttnMaskType.causal if causal
+        else AttnMaskType.padding)(scores, mask)
+
+
 class _Ops(NamedTuple):
-    """The two fused ops a forward runs: the kernels' wrappers
-    (:meth:`GPTModel.forward`) or their plain versions
-    (:meth:`GPTModel.forward_plain`)."""
+    """The fused ops a forward runs: the kernels' wrappers (``forward``)
+    or their plain versions (``forward_plain``). ``softmax(scores (b, h,
+    sq, sk), mask, causal=...)`` is the attention softmax of the softmax
+    backend."""
 
     layer_norm: Callable
     attention: Callable
+    softmax: Callable
 
 
-KERNEL_OPS = _Ops(fused_layer_norm, flash_attention)
-PLAIN_OPS = _Ops(layer_norm_plain, attention_plain)
+KERNEL_OPS = _Ops(fused_layer_norm, flash_attention, _fused_softmax)
+PLAIN_OPS = _Ops(layer_norm_plain, attention_plain, softmax_plain)
 
 
 def _norm(ops: _Ops, m: FusedLayerNorm, x: torch.Tensor) -> torch.Tensor:
     return ops.layer_norm(x, m.weight, m.bias, eps=m.eps)
+
+
+def softmax_attention(q, k, v, mask, causal: bool, dtype: torch.dtype,
+                      ops: _Ops = KERNEL_OPS) -> torch.Tensor:
+    """Attention over materialised scores, the reference's softmax
+    backend (GPT :326-354, BERT :131-154): q, k, v (s, b, heads, d) ->
+    ctx (b, heads, s, d). The scores are an fp32 product divided by
+    sqrt(d), cast to ``dtype``; the softmax runs at scale 1 (causal, or
+    with the boolean ``mask`` (b or 1, 1, s, s)); ``probs @ v`` is
+    accumulated in fp32 and cast to ``dtype``."""
+    d = q.shape[-1]
+    qb, kb, vb = (t.permute(1, 2, 0, 3).float() for t in (q, k, v))
+    # a 0-d tensor on q's device: PyTorch multiplies a CUDA tensor by the
+    # reciprocal of a host number, where the reference divides
+    root_d = torch.full((), float(d), device=q.device).sqrt()
+    scores = torch.matmul(qb, kb.transpose(-1, -2)) / root_d
+    probs = ops.softmax(scores.to(dtype), mask, causal=causal)
+    return torch.matmul(probs.float(), vb).to(dtype)
 
 
 class ParallelAttention(nn.Module):
@@ -164,7 +208,7 @@ class ParallelAttention(nn.Module):
         v = v.reshape(s, b, nkv, hd)
         kv_new = (k.permute(1, 2, 0, 3).contiguous(),
                   v.permute(1, 2, 0, 3).contiguous())
-        qb = q.permute(1, 2, 0, 3).contiguous()          # (b, h, s, d)
+        qb = q.permute(1, 2, 0, 3)                       # (b, h, s, d)
 
         if kv_ctx is not None:
             if cfg.attention_window is not None:
@@ -181,10 +225,17 @@ class ParallelAttention(nn.Module):
                 [torch.where(ctx_mask, 0, 1).to(torch.int32),
                  torch.zeros((b, s), dtype=torch.int32, device=x.device)],
                 dim=1)
-            ctx = ops.attention(qb, k_all, v_all, causal=s > 1,
+            ctx = ops.attention(qb.contiguous(), k_all, v_all, causal=s > 1,
                                 kv_segment_ids=kv_seg)
+        elif cfg.attention_backend == "softmax":
+            # the score buffer dominates memory here: share kv heads by
+            # repeating each over its group of q heads
+            ctx = softmax_attention(q, k.repeat_interleave(group, dim=2),
+                                    v.repeat_interleave(group, dim=2), None,
+                                    True, cfg.dtype, ops)
         else:
-            ctx = ops.attention(qb, kv_new[0], kv_new[1], causal=True,
+            ctx = ops.attention(qb.contiguous(), kv_new[0], kv_new[1],
+                                causal=True,
                                 window_size=cfg.attention_window)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, cfg.num_heads * hd)
         out = self.proj(ctx)
@@ -326,4 +377,4 @@ def gpt_loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["GPTConfig", "GPTLayer", "GPTModel", "ParallelAttention",
-           "ParallelMLP", "gpt_loss_fn"]
+           "ParallelMLP", "gpt_loss_fn", "softmax_attention"]

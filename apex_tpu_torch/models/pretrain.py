@@ -1,4 +1,5 @@
-"""The GPT pretraining step on one device.
+"""The pretraining step on one device (GPT by default, or any model with
+its loss).
 
 Counterpart of ``apex_tpu/models/pretrain.py`` (``init_gpt_pretrain_params``
 :32, ``make_gpt_pretrain_step`` :42) and of the step it builds on one
@@ -12,6 +13,20 @@ reference's::
     step, state = make_gpt_pretrain_step(
         cfg, FusedLAMB(lr, weight_decay=0.01, max_grad_norm=1.0))(model)
     state, loss = step(state, tokens, labels)
+
+Another model trains through the same step with its loss, as the
+reference's ``MeshTrainStep(loss_fn=...)`` composes it (BERT-Large
+pretraining, ``bench.py`` :852-862)::
+
+    def loss_fn(model, tokens, attn, tokentypes, labels, loss_mask, nsp):
+        return bert_loss_fn(*model(tokens, attn, tokentypes), labels,
+                            loss_mask, nsp)
+
+    step = PretrainStep(BertModel(cfg), FusedLAMB(lr, weight_decay=0.01,
+                        max_grad_norm=1.0, use_nvlamb=True), loss_fn=loss_fn)
+    state = step.init()
+    state, loss = step(state, tokens, attn, tokentypes, labels, loss_mask,
+                       nsp)
 
 The model's parameters are bound as views into the optimizer's flat
 master and their ``.grad`` into one flat fp32 gradient buffer
@@ -32,7 +47,7 @@ the reference at one pipeline stage, have no effect.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -50,14 +65,23 @@ def init_gpt_pretrain_params(cfg: GPTConfig,
     return GPTModel(cfg, device=device, generator=generator)
 
 
+def _gpt_loss(model: GPTModel, tokens, labels) -> torch.Tensor:
+    return gpt_loss_fn(model(tokens.long()), labels)
+
+
 class PretrainStep:
     """One fused training step of ``model`` on one device:
-    ``state, loss = step(state, tokens, labels)`` (``tokens`` and
-    ``labels`` (b, s); ``loss`` a 0-d fp32 tensor)."""
+    ``state, loss = step(state, *batch)``, ``loss`` a 0-d fp32 tensor.
 
-    def __init__(self, model: GPTModel, optimizer: FlatFusedOptimizer):
+    ``loss_fn(model, *batch)`` gives the loss of one batch (each item
+    moved to the master's device first); the default is GPT's,
+    ``batch = (tokens, labels)``, both (b, s)."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: FlatFusedOptimizer,
+                 *, loss_fn: Optional[Callable[..., torch.Tensor]] = None):
         self.model = model
         self.opt = optimizer
+        self.loss_fn = _gpt_loss if loss_fn is None else loss_fn
         self._grad: Optional[torch.Tensor] = None
         self._bound: Optional[torch.Tensor] = None
 
@@ -75,15 +99,14 @@ class PretrainStep:
         state.space.bind(self.model, state.master, self._grad)
         self._bound = state.master
 
-    def step(self, state: FlatOptState, tokens,
-             labels) -> Tuple[FlatOptState, torch.Tensor]:
+    def step(self, state: FlatOptState,
+             *batch) -> Tuple[FlatOptState, torch.Tensor]:
         if state.master is not self._bound:
             self._bind(state)       # a state the model is not bound to
         dev = state.master.device
-        tokens = torch.as_tensor(tokens, device=dev).long()
-        labels = torch.as_tensor(labels, device=dev).long()
+        batch = [torch.as_tensor(t, device=dev) for t in batch]
         self._grad.zero_()
-        loss = gpt_loss_fn(self.model(tokens), labels)
+        loss = self.loss_fn(self.model, *batch)
         loss.backward()
         _, new_state = self.opt.step_flat(state, self._grad)
         return new_state, loss.detach()

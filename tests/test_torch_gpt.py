@@ -5,8 +5,10 @@ heads over 2 kv heads, width 32) is initialised in flax, its params are
 converted with ``load_jax_params``, and the same tokens go through both
 models: the full forward, the ``return_kv`` prefill, the ``kv_ctx``
 single-token decode path and the chunked-prefill path (``s > 1`` over
-``[ctx | chunk]``), for both flax layer layouts. The reference runs its
-XLA paths. Tolerances: logits within 1e-4 absolute (fp32 products and
+``[ctx | chunk]``), for both flax layer layouts and both attention
+backends (``"softmax"``: GQA by repeated kv heads, the causal fused
+softmax; the serving hooks run flash attention under either). The
+reference runs its XLA paths. Tolerances: logits within 1e-4 absolute (fp32 products and
 reductions in other orders, through 2 layers and a 64-way LM head); the
 ``return_kv`` K/V within 1e-5 (one fp32 projection of the same inputs).
 """
@@ -41,20 +43,26 @@ def ref_config(**kw):
     return RefConfig(**base)
 
 
-def port_config():
+def port_config(**kw):
     return GPTConfig(vocab_size=VOCAB, max_seq_len=SEQ, hidden_size=HID,
                      num_layers=LAYERS, num_heads=HEADS, num_kv_heads=KV,
-                     dtype=torch.float32, param_dtype=torch.float32)
+                     dtype=torch.float32, param_dtype=torch.float32, **kw)
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["scan", "unrolled"])
+@pytest.fixture(scope="module",
+                params=[(True, "flash"), (False, "flash"),
+                        (True, "softmax"), (False, "softmax")],
+                ids=["scan", "unrolled", "scan-softmax", "unrolled-softmax"])
 def pair(request):
-    ref = RefModel(ref_config(scan_layers=request.param))
+    scan, backend = request.param
+    ref = RefModel(ref_config(scan_layers=scan, attention_backend=backend))
     toks = jnp.asarray(np.random.RandomState(0).randint(0, VOCAB, (1, 8)),
                        jnp.int32)
     params = ref.init(jax.random.PRNGKey(0), toks)
     params_np = jax.tree_util.tree_map(np.asarray, params)
-    port = load_jax_params(GPTModel(port_config(), device="cpu"), params_np)
+    port = load_jax_params(
+        GPTModel(port_config(attention_backend=backend), device="cpu"),
+        params_np)
     return ref, params, port
 
 
@@ -149,7 +157,12 @@ def test_converter_bf16_leaves_cross_as_bits(pair):
 
 
 def test_unported_config_options_raise():
-    with pytest.raises(NotImplementedError, match="softmax"):
-        GPTConfig(attention_backend="softmax")
+    with pytest.raises(NotImplementedError, match="ring"):
+        GPTConfig(attention_backend="ring")
+    # the reference's rule: a sliding window needs the flash backend
+    with pytest.raises(ValueError, match="attention_window"):
+        GPTConfig(attention_backend="softmax", attention_window=4)
+    with pytest.raises(ValueError, match="attention_backend"):
+        GPTConfig(attention_backend="dense")
     with pytest.raises(NotImplementedError, match="MoE"):
         GPTConfig(num_experts=4)

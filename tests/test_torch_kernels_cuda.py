@@ -4,7 +4,7 @@ card.
 Every test here needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode; the plain versions are held against apex_tpu on
 the CPU by test_torch_layer_norm.py, test_torch_attention.py and their
-_bwd counterparts, and test_torch_adam.py). This
+_bwd counterparts, test_torch_adam.py and test_torch_softmax.py). This
 file imports neither JAX nor apex_tpu, so it runs on a machine with
 only PyTorch: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py``.
@@ -20,6 +20,10 @@ dq, dk and dv within 2^-6 of each one's largest |value| (both round dS
 to bf16 before its products; fp32 values that differ in their last bits
 may round to neighbouring bf16 values). Adam: bitwise (the kernel
 rounds every operation on its own, in the plain version's order).
+Softmax forwards within one bf16 ulp of the value (2^-7; fp32 within
+1e-5 of the value: sums in another order), the backward within one ulp
+of each row's largest |dx| (the row's dot product is summed in another
+order).
 """
 
 import numpy as np
@@ -448,3 +452,130 @@ def test_fused_lamb_step_on_card_matches_plain(cuda_device, segmented):
     torch.testing.assert_close(state.slots["m"], want[1], rtol=1e-5,
                                atol=1e-9)
     torch.testing.assert_close(state.master, want[0], rtol=1e-6, atol=1e-7)
+
+
+# -- the softmax family (ops/softmax.py, csrc/softmax.cu) --------------------
+
+# name: (mode, x shape, mask batch or None)
+SOFTMAX_CASES = {
+    "scaled_bert": ("scaled", (2, 4, 64, 512), None),
+    "scaled_ragged_37": ("scaled", (3, 5, 37), None),
+    "scaled_1000": ("scaled", (6, 1000), None),
+    "scaled_block_2048": ("scaled", (2, 3, 2048), None),
+    "scaled_block_3001": ("scaled", (5, 3001), None),
+    "causal_square": ("causal", (4, 128, 128), None),
+    "causal_1024": ("causal", (2, 1024, 1024), None),
+    "causal_offset_33x100": ("causal", (3, 33, 100), None),
+    "causal_block_1500": ("causal", (2, 40, 1500), None),
+    "masked_bert": ("masked", (2, 4, 128, 512), 2),
+    "masked_broadcast": ("masked", (2, 4, 128, 512), 1),
+    "masked_ragged_45": ("masked", (2, 3, 20, 45), 2),
+    "masked_block_1100": ("masked", (2, 2, 24, 1100), 2),
+}
+
+
+def _softmax_inputs(case, dev, dtype, seed=0):
+    """x and the mask (the outer-product padding mask of BERT, pad query
+    rows fully masked) for one case."""
+    mode, shape, mb = SOFTMAX_CASES[case]
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(3 * rng.randn(*shape).astype(np.float32)).to(
+        dev, dtype)
+    mask = None
+    if mode == "masked":
+        b, _, sq, sk = shape
+        lens = rng.randint(sk // 4, sk, b)
+        keep = np.arange(sk)[None, :] < lens[:, None]
+        qkeep = np.arange(sq)[None, :] < np.minimum(lens, sq - 2)[:, None]
+        full = ~(qkeep[:, :, None] & keep[:, None, :])[:, None]
+        mask = torch.from_numpy(full[:mb]).to(dev)
+    return mode, x, mask
+
+
+def _close_to_plain(got, want, dtype):
+    """bf16: within one bf16 ulp of the value elementwise; fp32: within
+    1e-5 of the value (fp32 sums in another order)."""
+    a, b = got.float(), want.float()
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    excess = (a - b).abs() - tol * torch.maximum(a.abs(), b.abs())
+    assert float(excess.max()) <= 0.0, float(excess.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(SOFTMAX_CASES))
+def test_softmax_fwd_kernels_match_plain(cuda_device, case, dtype):
+    from apex_tpu_torch.ops import softmax
+    mode, x, mask = _softmax_inputs(case, cuda_device, dtype)
+    kernel = softmax._MODES[mode][1]
+    before = _build.launch_counts().get(kernel, 0)
+    if mask is not None:
+        mask = mask.expand(mask.shape[0], 1, *x.shape[2:])
+    y = softmax._fwd_cuda(x, mask, 0.8, mode)
+    want = softmax._fwd_torch(x, mask, 0.8, mode)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[kernel] == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    _close_to_plain(y, want, dtype)
+    if mode == "causal":
+        sq, sk = x.shape[-2:]
+        upper = torch.arange(sk, device=cuda_device)[None, :] > torch.arange(
+            sq, device=cuda_device)[:, None]
+        assert bool((y[:, upper] == 0).all())
+    if mode == "masked":
+        # pad query rows (every key masked): the softmax of the shifted
+        # scores, not zeros
+        pad = mask[:, 0].all(dim=-1)
+        rows = y[pad.expand(x.shape[0], -1)[:, None].expand(
+            -1, x.shape[1], -1)]
+        assert rows.numel() and bool((rows.float().sum(-1) > 0.9).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sk", [512, 1024, 37, 1000, 2048, 3001])
+def test_softmax_bwd_kernel_matches_plain(cuda_device, sk, dtype):
+    """dx within one ulp of each row's largest |dx| (bf16 2^-7, fp32
+    1e-5): dot = sum(g * y) is summed in another order, and where g and
+    dot nearly cancel that moves dx by a share of the row's scale, not of
+    the element."""
+    from apex_tpu_torch.ops import softmax
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(2 * rng.randn(40, sk).astype(np.float32)).to(
+        cuda_device, dtype)
+    y = softmax._fwd_torch(x, None, 1.0, "scaled")
+    g = torch.from_numpy(rng.randn(40, sk).astype(np.float32)).to(
+        cuda_device, dtype)
+    before = _build.launch_counts().get(softmax.BWD_KERNEL, 0)
+    dx = softmax._bwd_cuda(y, g, 0.125)
+    want = softmax._bwd_torch(y, g, 0.125)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[softmax.BWD_KERNEL] == before + 1
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    row = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    assert float(((dx.float() - want.float()).abs() / row).max()) <= tol
+
+
+@pytest.mark.cuda
+def test_softmax_autograd_runs_both_kernels(cuda_device):
+    from apex_tpu_torch.ops import softmax
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+    _, x, mask = _softmax_inputs("masked_ragged_45", cuda_device,
+                                 torch.bfloat16)
+    x.requires_grad_()
+    counts = dict(_build.launch_counts())
+    y = FusedScaleMaskSoftmax()(x, mask)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for k in (softmax.MASKED_KERNEL, softmax.BWD_KERNEL):
+        assert after.get(k, 0) == counts.get(k, 0) + 1, k
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.cuda
+def test_softmax_kernel_refuses_other_dtypes(cuda_device):
+    from apex_tpu_torch.ops import softmax
+    with pytest.raises(TypeError, match="softmax kernel"):
+        softmax.scaled_softmax(torch.zeros(4, 8, device=cuda_device,
+                                           dtype=torch.float16))

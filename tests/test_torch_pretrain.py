@@ -5,8 +5,9 @@ trains in the reference — ``make_gpt_pretrain_step(cfg, FusedAdam(lr=2e-3,
 weight_decay=0.01, impl="xla"))`` on one device — for one step; its
 weights and its Adam state (master, m, v, count) are then converted into
 the port (``load_jax_params``, ``load_jax_opt_state``), and both take the
-same three further steps. The losses are compared at each step, and
-every parameter, m and v after the third, per parameter name. The port
+same three further steps, under the flash attention backend and under
+the softmax one. The losses are compared at each step, and every
+parameter, m and v after the third, per parameter name. The port
 runs its plain PyTorch versions on the CPU (the kernel path is held
 against the plain path on the card by ``chip_smoke.py``).
 
@@ -64,10 +65,14 @@ PARAM_REL_FP32 = 1e-5
 
 
 def _configs(dt):
+    """The reference's and the port's tiny GPT for ``dt``: "fp32" or
+    "bf16", with "-softmax" for the softmax attention backend."""
+    dt, _, backend = dt.partition("-")
     jdt, tdt = {"fp32": (jnp.float32, torch.float32),
                 "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
     shape = dict(vocab_size=VOCAB, max_seq_len=SEQ, hidden_size=HID,
-                 num_layers=LAYERS, num_heads=HEADS)
+                 num_layers=LAYERS, num_heads=HEADS,
+                 attention_backend=backend or "flash")
     return RefConfig(dtype=jdt, **shape), GPTConfig(dtype=tdt, **shape)
 
 
@@ -95,10 +100,11 @@ def _key_bias_mask(cfg):
     return mask.reshape(-1)
 
 
-@pytest.fixture(scope="module", params=["fp32", "bf16"])
+@pytest.fixture(scope="module",
+                params=["fp32", "bf16", "fp32-softmax", "bf16-softmax"])
 def trained(request):
-    dt = request.param
-    rcfg, cfg = _configs(dt)
+    rcfg, cfg = _configs(request.param)
+    dt = request.param.partition("-")[0]
     params = ref_init(rcfg, jax.random.PRNGKey(0))
     ref_step, rs = ref_make(rcfg, RefAdam(lr=LR, weight_decay=0.01,
                                           impl="xla"))(params)
