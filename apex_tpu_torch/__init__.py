@@ -12,10 +12,11 @@ This package imports neither JAX nor ``apex_tpu``; the tests hold it
 against ``apex_tpu`` on the same inputs and weights.
 
 Ported so far: the GPT serving path (``models.gpt``,
-``serving.{kv_cache,decode,scheduler}``) and the single-device GPT
-pretraining step (``models.pretrain``, ``optimizers``, ``amp.scaler``,
-``multi_tensor``), on the LayerNorm forward and backward, flash-attention
-forward, dq and dk/dv, and fused-Adam kernels.
+``serving.{kv_cache,decode,scheduler}``), single-device GPT and BERT
+pretraining (``models.pretrain``, ``optimizers``, ``amp``,
+``multi_tensor``, ``ops``) and ResNet-50 ImageNet training
+(``models.resnet``, ``parallel``, ``contrib.bottleneck``, FusedSGD,
+FusedLARS and LARC), on the kernels of ``csrc/``.
 """
 
 from apex_tpu_torch._backend import resolve_device

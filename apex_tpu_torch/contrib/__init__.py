@@ -1,0 +1,2 @@
+"""Contributed ops (counterpart of ``apex_tpu/contrib/``). Ported so far:
+``bottleneck.conv2d_nhwc``."""

@@ -1,5 +1,6 @@
 """Models (counterpart of ``apex_tpu/models/``): GPT for serving and
-single-device pretraining, BERT for single-device pretraining."""
+single-device pretraining, BERT and ResNet for single-device
+pretraining."""
 
 from apex_tpu_torch.models.bert import (
     BertConfig,
@@ -12,8 +13,16 @@ from apex_tpu_torch.models.convert import (
     gpt_params_from_jax,
     load_jax_opt_state,
     load_jax_params,
+    load_jax_resnet,
+    resnet_params_from_jax,
 )
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, gpt_loss_fn
+from apex_tpu_torch.models.resnet import (
+    ResNet,
+    ResNetBottleneckBlock,
+    ResNetConfig,
+    cross_entropy_logits,
+)
 from apex_tpu_torch.models.pretrain import (
     PretrainStep,
     init_gpt_pretrain_params,
@@ -21,7 +30,9 @@ from apex_tpu_torch.models.pretrain import (
 )
 
 __all__ = ["BertConfig", "BertModel", "GPTConfig", "GPTModel",
-           "PretrainStep", "bert_extended_attention_mask", "bert_loss_fn",
-           "bert_params_from_jax", "gpt_loss_fn", "gpt_params_from_jax",
-           "init_gpt_pretrain_params", "load_jax_opt_state",
-           "load_jax_params", "make_gpt_pretrain_step"]
+           "PretrainStep", "ResNet", "ResNetBottleneckBlock", "ResNetConfig",
+           "bert_extended_attention_mask", "bert_loss_fn",
+           "bert_params_from_jax", "cross_entropy_logits", "gpt_loss_fn",
+           "gpt_params_from_jax", "init_gpt_pretrain_params",
+           "load_jax_opt_state", "load_jax_params", "load_jax_resnet",
+           "make_gpt_pretrain_step", "resnet_params_from_jax"]

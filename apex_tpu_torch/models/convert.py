@@ -1,6 +1,6 @@
-"""Convert the reference's GPT and BERT parameters (and their optimizer
-state) into the port's ``GPTModel`` / ``BertModel`` (and
-``FlatOptState``).
+"""Convert the reference's GPT, BERT and ResNet parameters (and their
+optimizer state) into the port's ``GPTModel`` / ``BertModel`` /
+``ResNet`` (and ``FlatOptState``).
 
 The input is the parameter tree of the reference's ``GPTModel``
 (``apex_tpu/models/gpt.py``) or ``BertModel`` (``apex_tpu/models/bert.py``)
@@ -19,17 +19,24 @@ bf16 leaves (numpy's ``bfloat16`` from ml_dtypes, or their raw
 ``uint16`` bits) cross as uint16 views and come out as
 ``torch.bfloat16``. A missing or an extra key, or a shape that does not
 fit the config, raises.
+
+ResNet (``resnet_params_from_jax``, ``load_jax_resnet``): the
+reference's tree names map to module paths ('/' -> '.'), its HWIO conv
+kernels become OIHW, BatchNorm's ``scale`` becomes ``weight`` and the
+``batch_stats`` ``mean`` / ``var`` the buffers ``running_mean`` /
+``running_var``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from apex_tpu_torch.models.bert import BertConfig, BertModel
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+from apex_tpu_torch.models.resnet import ResNet, ResNetConfig
 from apex_tpu_torch.optimizers.fused import FlatOptState
 
 # torch name inside one layer -> reference path inside one layer
@@ -150,9 +157,62 @@ def bert_params_from_jax(params_np: Mapping, config: BertConfig
                             _bert_top_keys(config), _BERT_LAYER_KEYS, "BERT")
 
 
+_RESNET_LEAF = {"scale": "weight", "mean": "running_mean",
+                "var": "running_var"}
+
+
+def resnet_params_from_jax(params_np: Mapping,
+                           batch_stats_np: Optional[Mapping] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` entries (CPU tensors) of a :class:`ResNet`
+    holding the reference's ``params`` (with or without the outer
+    ``{"params": ...}``) and, when given, its ``batch_stats``: module
+    paths for tree paths, OIHW conv weights for HWIO kernels, BatchNorm
+    ``weight`` / ``running_mean`` / ``running_var`` for ``scale`` /
+    ``mean`` / ``var``."""
+    state: Dict[str, torch.Tensor] = {}
+    trees = [params_np.get("params", params_np)]
+    if batch_stats_np is not None:
+        trees.append(batch_stats_np.get("batch_stats", batch_stats_np))
+    for tree in trees:
+        for path, leaf in _flatten(tree).items():
+            *mods, leaf_name = path.split("/")
+            t = _to_torch(leaf)
+            if t.ndim == 4:                      # HWIO -> OIHW
+                t = t.permute(3, 2, 0, 1).contiguous()
+            state[".".join(mods + [_RESNET_LEAF.get(leaf_name, leaf_name)])] \
+                = t
+    return state
+
+
+def load_jax_resnet(model: ResNet, params_np: Mapping,
+                    batch_stats_np: Optional[Mapping] = None) -> ResNet:
+    """Copy the reference's ResNet parameters (and, when given, its
+    ``batch_stats``) into ``model`` and return it. Strict: every
+    parameter (and, with ``batch_stats``, every running statistic) is
+    set and shapes must match."""
+    state = resnet_params_from_jax(params_np, batch_stats_np)
+    own = model.state_dict()
+    wanted = set(own) if batch_stats_np is not None else {
+        k for k in own if not k.endswith(("running_mean", "running_var"))}
+    if set(state) != wanted:
+        raise KeyError(f"reference ResNet params do not match the model: "
+                       f"missing {sorted(wanted - set(state))}, unexpected "
+                       f"{sorted(set(state) - wanted)}")
+    for name, t in state.items():
+        if own[name].shape != t.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} from the "
+                             f"reference, {tuple(own[name].shape)} in the "
+                             "model")
+    model.load_state_dict(state, strict=batch_stats_np is not None)
+    return model
+
+
 def _params_for(config, params_np: Mapping) -> Dict[str, torch.Tensor]:
     if isinstance(config, BertConfig):
         return bert_params_from_jax(params_np, config)
+    if isinstance(config, ResNetConfig):
+        return resnet_params_from_jax(params_np)
     return gpt_params_from_jax(params_np, config)
 
 
@@ -171,26 +231,33 @@ def load_jax_params(model: Union[GPTModel, BertModel],
 
 
 def load_jax_opt_state(state: FlatOptState,
-                       config: Union[GPTConfig, BertConfig],
+                       config: Union[GPTConfig, BertConfig, ResNetConfig],
                        opt_state_np: Mapping) -> FlatOptState:
-    """Copy the reference's FusedAdam or FusedLAMB state (both keep the
-    slots ``m`` and ``v``) into ``state`` (the port's, for a
-    :class:`GPTModel` or :class:`BertModel` of ``config``, in either flat
-    layout) and return it.
+    """Copy the reference's optimizer state into ``state`` (the port's,
+    for a :class:`GPTModel`, :class:`BertModel` or :class:`ResNet` of
+    ``config``, in either flat layout) and return it: FusedAdam's or
+    FusedLAMB's slots ``m`` and ``v``, FusedSGD's or FusedLARS's
+    ``momentum`` and ``initialized``.
 
-    ``opt_state_np`` holds ``"master"``, ``"m"`` and ``"v"``, each the
+    ``opt_state_np`` holds ``"master"`` and each flat slot, each the
     reference's ``FlatOptState`` buffer unpacked through its space
     (``space.unpack(buf, dtype="buffer")``: the param tree with fp32
-    numpy leaves), and ``"count"``. The two flat layouts order (and,
-    segmented, pad) their leaves differently, so each leaf goes by
-    parameter name into its slot of the port's buffers, in place:
-    parameters bound to the master see the loaded values."""
+    numpy leaves), every 0-d slot as a number, and ``"count"``. The two
+    flat layouts order (and, segmented, pad) their leaves differently,
+    so each leaf goes by parameter name into its slot of the port's
+    buffers, in place: parameters bound to the master see the loaded
+    values."""
     bufs = {"master": state.master, **state.slots}
-    for key in ("master", "m", "v"):
-        named = _params_for(config, opt_state_np[key])
-        state.space.pack_into(bufs[key], named)
+    with torch.no_grad():
+        for key, buf in bufs.items():
+            if buf.ndim == 0:
+                buf.fill_(float(np.asarray(opt_state_np[key])))
+            else:
+                state.space.pack_into(
+                    buf, _params_for(config, opt_state_np[key]))
     return state._replace(count=int(opt_state_np["count"]))
 
 
 __all__ = ["bert_params_from_jax", "gpt_params_from_jax",
-           "load_jax_opt_state", "load_jax_params"]
+           "load_jax_opt_state", "load_jax_params", "load_jax_resnet",
+           "resnet_params_from_jax"]

@@ -28,6 +28,22 @@ pretraining, ``bench.py`` :852-862)::
     state, loss = step(state, tokens, attn, tokentypes, labels, loss_mask,
                        nsp)
 
+ResNet-50 trains the same way (``examples/imagenet/main_amp.py``), its
+BatchNorm running statistics module buffers that the forward updates;
+under amp O2 the step goes through ``make_train_step`` with the
+dynamic loss scaler::
+
+    model = ResNet(ResNetConfig.resnet50(dtype=torch.float16))
+    opt = FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    _, state, amp_state = amp.initialize(dict(model.named_parameters()),
+                                         opt, opt_level="O2")
+    step = PretrainStep(model, opt, loss_fn=lambda m, x, y:
+                        cross_entropy_logits(m(x), y),
+                        train_step=make_train_step(
+                            opt, scaler=amp.make_scaler(amp_state.properties)))
+    state, scaler_state, loss = step(state, images, labels,
+                                     scaler_state=amp_state.scalers[0])
+
 The model's parameters are bound as views into the optimizer's flat
 master and their ``.grad`` into one flat fp32 gradient buffer
 (``FlatSpace.bind``), whatever the master's layout: the plain one, or
@@ -52,8 +68,10 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from apex_tpu_torch._backend import DeviceLike
+from apex_tpu_torch.amp.scaler import ScalerState
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, gpt_loss_fn
 from apex_tpu_torch.optimizers.fused import FlatFusedOptimizer, FlatOptState
+from apex_tpu_torch.optimizers.train_step import TrainStep
 
 
 def init_gpt_pretrain_params(cfg: GPTConfig,
@@ -75,13 +93,22 @@ class PretrainStep:
 
     ``loss_fn(model, *batch)`` gives the loss of one batch (each item
     moved to the master's device first); the default is GPT's,
-    ``batch = (tokens, labels)``, both (b, s)."""
+    ``batch = (tokens, labels)``, both (b, s). ``train_step`` (a
+    :class:`~apex_tpu_torch.optimizers.TrainStep` of ``optimizer``, from
+    ``make_train_step``) takes the update instead of
+    ``optimizer.step_flat``; with a loss scaler the backward pass runs
+    on the scaled loss and the call is ``state, scaler_state, loss =
+    step(state, *batch, scaler_state=...)``."""
 
     def __init__(self, model: torch.nn.Module, optimizer: FlatFusedOptimizer,
-                 *, loss_fn: Optional[Callable[..., torch.Tensor]] = None):
+                 *, loss_fn: Optional[Callable[..., torch.Tensor]] = None,
+                 train_step: Optional[TrainStep] = None):
+        if train_step is not None and train_step.opt is not optimizer:
+            raise ValueError("train_step was built for another optimizer")
         self.model = model
         self.opt = optimizer
         self.loss_fn = _gpt_loss if loss_fn is None else loss_fn
+        self.train_step = train_step
         self._grad: Optional[torch.Tensor] = None
         self._bound: Optional[torch.Tensor] = None
 
@@ -99,17 +126,44 @@ class PretrainStep:
         state.space.bind(self.model, state.master, self._grad)
         self._bound = state.master
 
-    def step(self, state: FlatOptState,
-             *batch) -> Tuple[FlatOptState, torch.Tensor]:
+    def backward(self, state: FlatOptState, *batch,
+                 scaler_state: Optional[ScalerState] = None) -> torch.Tensor:
+        """The loss of one batch, its gradient (of the loss scaled by
+        ``scaler_state``'s scale, when given) in the flat buffer
+        ``grad``, the model bound to ``state``'s master first."""
         if state.master is not self._bound:
             self._bind(state)       # a state the model is not bound to
         dev = state.master.device
         batch = [torch.as_tensor(t, device=dev) for t in batch]
         self._grad.zero_()
         loss = self.loss_fn(self.model, *batch)
-        loss.backward()
-        _, new_state = self.opt.step_flat(state, self._grad)
-        return new_state, loss.detach()
+        if scaler_state is None:
+            loss.backward()
+        else:
+            self.train_step.scaler.scale_loss(loss, scaler_state).backward()
+        return loss.detach()
+
+    @property
+    def grad(self) -> Optional[torch.Tensor]:
+        """The flat fp32 gradient of the last :meth:`backward`."""
+        return self._grad
+
+    def step(self, state: FlatOptState, *batch,
+             scaler_state: Optional[ScalerState] = None):
+        scaler = None if self.train_step is None else self.train_step.scaler
+        if (scaler is None) != (scaler_state is None):
+            raise ValueError("pass scaler_state exactly when the step's "
+                             "train_step has a loss scaler")
+        loss = self.backward(state, *batch, scaler_state=scaler_state)
+        if self.train_step is None:
+            _, new_state = self.opt.step_flat(state, self._grad)
+            return new_state, loss
+        if scaler is None:
+            new_state, _ = self.train_step(state, self._grad)
+            return new_state, loss
+        new_state, scaler_state, _ = self.train_step(state, self._grad,
+                                                     scaler_state)
+        return new_state, scaler_state, loss
 
     __call__ = step
 

@@ -16,6 +16,8 @@
   two stages, ``csrc/fused_lamb.cu``), `lamb_trust_ratio`, and
   `fused_lamb_segmented_update` (the one-pass segment kernel,
   ``csrc/lamb_segment.cu``).
+- `fused_sgd_update` and `fused_lars_update` (the SGD and LARS
+  functors, ``csrc/fused_sgd.cu``).
 """
 
 from apex_tpu_torch.multi_tensor.engine import (
@@ -34,6 +36,8 @@ from apex_tpu_torch.multi_tensor.ops import (
     fused_adam_update,
     fused_lamb_compute_update_term,
     fused_lamb_update,
+    fused_lars_update,
+    fused_sgd_update,
     fused_unscale_l2norm,
     lamb_trust_ratio,
     multi_tensor_l2norm,
@@ -44,6 +48,7 @@ from apex_tpu_torch.multi_tensor.segmented import fused_lamb_segmented_update
 __all__ = ["DEFAULT_ALIGN", "FlatSpace", "SegmentMeta", "default_seg_elems",
            "fused_adam_update", "fused_elementwise",
            "fused_lamb_compute_update_term", "fused_lamb_segmented_update",
-           "fused_lamb_update", "fused_sumsq_partials",
+           "fused_lamb_update", "fused_lars_update", "fused_sgd_update",
+           "fused_sumsq_partials",
            "fused_unscale_l2norm", "lamb_trust_ratio", "multi_tensor_l2norm",
            "per_tensor_l2norm", "register_kernel", "segmented_space"]

@@ -8,8 +8,8 @@ a Python functor, so here each functor that has a kernel registers it
 launches the functor's kernel, and a functor without one raises. On CPU
 tensors it runs the functor itself as plain PyTorch over whole buffers,
 the reference's ``_fused_elementwise_xla``. Functors with a kernel: Adam
-(``csrc/fused_adam.cu``) and the two LAMB stages (``csrc/fused_lamb.cu``),
-all in ``multi_tensor/ops.py``.
+(``csrc/fused_adam.cu``), the two LAMB stages (``csrc/fused_lamb.cu``),
+SGD and LARS (``csrc/fused_sgd.cu``), all in ``multi_tensor/ops.py``.
 
 ``check_finite`` and ``found_inf`` keep the reference's meaning (a
 float32 0-d tensor in {0, 1} over the named inputs). ``aliases`` maps an

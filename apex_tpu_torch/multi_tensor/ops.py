@@ -9,10 +9,13 @@ functor a kernel on CUDA buffers and plain PyTorch on CPU buffers:
   (``csrc/sumsq.cu``), finished in plain PyTorch as the reference
   finishes them in XLA;
 - LAMB: stage 1 (``fused_lamb_compute_update_term``) and stage 2 of
-  ``fused_lamb_update`` (``csrc/fused_lamb.cu``), and the trust ratio.
+  ``fused_lamb_update`` (``csrc/fused_lamb.cu``), and the trust ratio;
+- SGD (``fused_sgd_update``) and LARS (``fused_lars_update``: the
+  per-tensor norms over ``csrc/sumsq.cu``, then the LARS sweep), both in
+  ``csrc/fused_sgd.cu``.
 
-The other functors (scale, axpby, Adagrad, SGD, NovoGrad, LARS) wait
-for their kernels.
+The other functors (scale, axpby, Adagrad, NovoGrad) wait for their
+kernels.
 
 Scalars that come from the device (a clip factor from a device norm,
 the trust ratios) stay on the device: the kernels read them through a
@@ -45,6 +48,8 @@ from apex_tpu_torch.multi_tensor.flat_buffer import FlatSpace
 ADAM_KERNEL = "fused_adam"
 LAMB_STAGE1_KERNEL = "lamb_stage1"
 LAMB_STAGE2_KERNEL = "lamb_stage2"
+SGD_KERNEL = "fused_sgd"
+LARS_KERNEL = "fused_lars"
 
 
 def _f32(x) -> torch.Tensor:
@@ -168,6 +173,103 @@ def fused_adam_update(
         aliases={0: 0, 1: 1, 2: 2} if in_place else None,
         kernel=False if plain else None)
     return p2, m2, v2, found
+
+
+# ---------------------------------------------------------------------------
+# SGD (the reference's :220-243; ref csrc/multi_tensor_sgd_kernel.cu)
+# ---------------------------------------------------------------------------
+
+
+def _sgd_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
+            ) -> List[torch.Tensor]:
+    """The reference's SGD functor (:233-243), one elementwise op at a
+    time on fp32 0-d scalars."""
+    p_, mom_, g_ = [x.float() for x in ins]
+    lr_, mu, damp, wd, scale_, first, nest, wd_after = s
+    g_ = g_ * scale_
+    g_ = torch.where(wd_after > 0.5, g_, g_ + wd * p_)
+    mom2 = torch.where(first > 0.5, g_, mu * mom_ + (1.0 - damp) * g_)
+    upd = torch.where(nest > 0.5, g_ + mu * mom2, mom2)
+    upd = torch.where(mu == 0.0, g_, upd)
+    mom2 = torch.where(mu == 0.0, mom_, mom2)
+    upd = torch.where(wd_after > 0.5, upd + wd * p_, upd)
+    return [p_ - lr_ * upd, mom2]
+
+
+def _launch_sgd_family(fn_name: str, kernel: str, argtypes, inputs, outputs,
+                       found, *args) -> None:
+    """Check the three fp32 inputs and two outputs, then launch
+    ``fn_name`` of ``csrc/fused_sgd.cu`` with ``args`` after the
+    buffers and ``found``, on the buffers' current stream."""
+    dev = inputs[0].device
+    for name, t in zip(("p", "mom", "g", "p_out", "mom_out"),
+                       (*inputs, *outputs)):
+        check_kernel_input(name, t, (torch.float32,), dev)
+    lib = _build.library("fused_sgd", fn_name, argtypes,
+                         "apex_sgd_error_string")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(
+            *(t.data_ptr() for t in (*inputs, *outputs)), found.data_ptr(),
+            *args, stream)
+    _launch_error(lib, "apex_sgd_error_string", kernel, err)
+    _build.count_launch(kernel)
+
+
+def _sgd_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
+                tile_ids, sumsq) -> None:
+    """Launch ``csrc/fused_sgd.cu`` ``apex_sgd`` for :func:`_sgd_fn`: the
+    scale (scalar 4) and the first-run flag (scalar 5) may live on the
+    device."""
+    if check_finite != (2,) or per_tensor or tile_ids is not None or sumsq:
+        raise NotImplementedError(
+            "the SGD kernel checks g (input 2) for non-finite values and "
+            "takes no per-tensor scalars or sumsq partials; got "
+            f"check_finite={check_finite}")
+    _host_scalars(SGD_KERNEL, scalars, allowed_device=(4, 5))
+    lr, mu, damp, wd, _, _, nest, wd_after = scalars
+    scale_val, scale_ptr = scalar_pointer(scalars[4])
+    first_val, first_ptr = scalar_pointer(scalars[5])
+    P, L, F, I = _build.P, _build.L, _build.F, _build.I
+    _launch_sgd_family(
+        "apex_sgd", SGD_KERNEL, (P,) * 6 + (L,) + (F,) * 5 + (P, I, P, I, I, P),
+        inputs, outputs, found, inputs[0].numel(), lr, mu, damp, wd,
+        scale_val, scale_ptr, int(first_val > 0.5), first_ptr,
+        int(nest > 0.5), int(wd_after > 0.5))
+
+
+register_kernel(_sgd_fn, _sgd_kernel)
+
+
+def fused_sgd_update(
+    p, mom, g, *,
+    lr, momentum=0.0, dampening=0.0, nesterov=False, weight_decay=0.0,
+    wd_after_momentum=False, scale=1.0, first_run=False, in_place=True,
+    plain=False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused SGD step over flat fp32 buffers (kernel ``fused_sgd``):
+    momentum, dampening, nesterov and the weight-decay order as the
+    reference has them. ``scale`` multiplies the gradient (a 0-d tensor
+    on the card stays there). ``first_run`` (a bool, or a 0-d tensor
+    that the kernel reads on the device) seeds the momentum buffer with
+    the gradient, the reference's first-iteration branch. With
+    ``in_place`` p and mom are overwritten; else new buffers are
+    returned and the inputs left as they were. ``plain=True`` runs the
+    plain version on any device. Returns ``(p', mom', found_inf)``,
+    ``found_inf`` covering g."""
+    if isinstance(first_run, torch.Tensor):
+        first = first_run
+    else:
+        first = 1.0 if first_run else 0.0
+    (p2, mom2), found = fused_elementwise(
+        _sgd_fn, [p, mom, g],
+        scalars=[lr, momentum, dampening, weight_decay, scale, first,
+                 1.0 if nesterov else 0.0,
+                 1.0 if wd_after_momentum else 0.0],
+        num_outputs=2, out_dtypes=[p.dtype, mom.dtype], check_finite=(2,),
+        aliases={0: 0, 1: 1} if in_place else None,
+        kernel=False if plain else None)
+    return p2, mom2, found
 
 
 # ---------------------------------------------------------------------------
@@ -534,9 +636,106 @@ def lamb_stage2_segments(p, u, p_out, ratio, tile_ids, segs, seg_elems, *,
     return p_out
 
 
+# ---------------------------------------------------------------------------
+# LARS (the reference's :471-499; ref csrc/multi_tensor_lars.cu)
+# ---------------------------------------------------------------------------
+
+
+def _lars_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor],
+             t: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The reference's LARS functor (:487-493), one elementwise op at a
+    time: the per-tensor ratio scales the decayed gradient, then
+    momentum SGD."""
+    p_, mom_, g_ = [x.float() for x in ins]
+    lr_, mu, wd, first = s
+    (ratio,) = t
+    g_ = (g_ + wd * p_) * ratio
+    mom2 = torch.where(first > 0.5, g_, mu * mom_ + g_)
+    return [p_ - lr_ * mom2, mom2]
+
+
+def _lars_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
+                 tile_ids, sumsq) -> None:
+    """Launch ``csrc/fused_sgd.cu`` ``apex_lars`` for :func:`_lars_fn`:
+    the ratios stay on the device, each subtile reads its leaf's; the
+    first-run flag (scalar 3) may live on the device."""
+    if check_finite != (2,) or sumsq or len(per_tensor) != 1 \
+            or tile_ids is None:
+        raise NotImplementedError(
+            "the LARS kernel checks g (input 2), takes one per-tensor "
+            "ratio through tile_ids and no sumsq partials; got "
+            f"check_finite={check_finite}")
+    _host_scalars(LARS_KERNEL, scalars, allowed_device=(3,))
+    lr, mu, wd, _ = scalars
+    first_val, first_ptr = scalar_pointer(scalars[3])
+    (ratio,) = per_tensor
+    P, L, F, I = _build.P, _build.L, _build.F, _build.I
+    _launch_sgd_family(
+        "apex_lars", LARS_KERNEL, (P,) * 8 + (L,) + (F,) * 3 + (I, P, P),
+        inputs, outputs, found, ratio.data_ptr(), tile_ids.data_ptr(),
+        inputs[0].numel(), lr, mu, wd, int(first_val > 0.5), first_ptr)
+
+
+register_kernel(_lars_fn, _lars_kernel)
+
+
+def lars_ratio(w_norm, g_norm, *, trust_coefficient, weight_decay, eps,
+               clip):
+    """Per-tensor LARS ratio (:481-485): ``trust * ||p|| / (||g|| +
+    wd * ||p|| + eps)`` where both norms are positive, else 1; capped at
+    1 in clip mode (LARC's, ref apex/parallel/LARC.py:91-99)."""
+    adaptive = trust_coefficient * w_norm / (g_norm + weight_decay * w_norm
+                                             + eps)
+    adaptive = torch.where((w_norm > 0.0) & (g_norm > 0.0), adaptive,
+                           torch.ones_like(adaptive))
+    return torch.clamp(adaptive, max=1.0) if clip else adaptive
+
+
+def lars_apply(p, mom, g, ratio, *, lr, momentum, weight_decay, tile_ids,
+               first_run=False, in_place=True, plain=False):
+    """The LARS sweep (kernel ``fused_lars``) given the per-leaf
+    ``ratio`` (read through the subtile map ``tile_ids``): returns
+    ``(p', mom', found_inf)``. ``first_run`` as for
+    :func:`fused_sgd_update`."""
+    if not isinstance(first_run, torch.Tensor):
+        first_run = 1.0 if first_run else 0.0
+    (p2, mom2), found = fused_elementwise(
+        _lars_fn, [p, mom, g],
+        scalars=[lr, momentum, weight_decay, first_run],
+        per_tensor=[ratio], tile_ids=tile_ids, num_outputs=2,
+        out_dtypes=[p.dtype, mom.dtype], check_finite=(2,),
+        aliases={0: 0, 1: 1} if in_place else None,
+        kernel=False if plain else None)
+    return p2, mom2, found
+
+
+def fused_lars_update(
+    p, mom, g, space: FlatSpace, *,
+    lr, momentum=0.9, weight_decay=0.0, trust_coefficient=0.02, eps=1e-8,
+    clip=True, first_run=False, in_place=True, plain=False,
+):
+    """One LARS/LARC step over flat fp32 buffers: the per-tensor norms of
+    p and g (two sweeps of kernel ``sumsq``), the ratios
+    (:func:`lars_ratio`, on the device), then the LARS sweep
+    (:func:`lars_apply`). With ``in_place`` p and mom are overwritten;
+    else new buffers are returned and the inputs left as they were.
+    ``plain=True`` runs the plain versions on any device. Returns
+    ``(p', mom', found_inf)``."""
+    ratio = lars_ratio(per_tensor_l2norm(p, space, plain=plain),
+                       per_tensor_l2norm(g, space, plain=plain),
+                       trust_coefficient=trust_coefficient,
+                       weight_decay=weight_decay, eps=eps, clip=clip)
+    return lars_apply(p, mom, g, ratio, lr=lr, momentum=momentum,
+                      weight_decay=weight_decay, first_run=first_run,
+                      tile_ids=space.device_subtile_leaf_ids(p.device),
+                      in_place=in_place, plain=plain)
+
+
 __all__ = ["ADAM_KERNEL", "LAMB_STAGE1_KERNEL", "LAMB_STAGE2_KERNEL",
-           "fused_adam_update", "fused_lamb_compute_update_term",
-           "fused_lamb_update", "fused_unscale_l2norm", "lamb_apply",
-           "lamb_inv_scale", "lamb_scalars", "lamb_stage1_segments",
-           "lamb_stage2_segments", "lamb_trust_ratio",
+           "LARS_KERNEL", "SGD_KERNEL", "fused_adam_update",
+           "fused_lamb_compute_update_term", "fused_lamb_update",
+           "fused_lars_update", "fused_sgd_update", "fused_unscale_l2norm",
+           "lamb_apply", "lamb_inv_scale", "lamb_scalars",
+           "lamb_stage1_segments", "lamb_stage2_segments",
+           "lamb_trust_ratio", "lars_apply", "lars_ratio",
            "multi_tensor_l2norm", "per_tensor_l2norm"]

@@ -1,7 +1,8 @@
 """Fused optimizers over the flat parameter space.
 
 Counterpart of ``apex_tpu/optimizers/fused.py`` (``FlatOptState``,
-``FlatFusedOptimizer``, ``FusedAdam``, ``FusedLAMB``). The state holds the fp32 master
+``FlatFusedOptimizer``, ``FusedAdam``, ``FusedLAMB``, ``FusedSGD``,
+``FusedLARS``). The state holds the fp32 master
 copy of every parameter and the optimizer's slots as flat buffers laid
 out by a :class:`~apex_tpu_torch.multi_tensor.FlatSpace`, and one fused
 kernel sweep updates them all.
@@ -24,9 +25,10 @@ the device): the bias corrections are computed on the host from it, in
 fp32 as the reference computes them. ``found_inf`` stays a 0-d fp32
 tensor on the device. FusedLAMB's clip factor and trust ratios stay on
 the device too (the kernels read them by pointer): its step reads
-nothing on the host but ``found_inf`` on the skip path. The other
-optimizers wait for their kernels; a bf16 master with stochastic
-rounding raises, and so does ``FusedMixedPrecisionLamb``.
+nothing on the host but ``found_inf`` on the skip path; so do FusedSGD's
+and FusedLARS's first-run flag and FusedLARS's ratios. The other
+optimizers (NovoGrad, Adagrad) wait for their kernels; a bf16 master
+with stochastic rounding raises, and so does ``FusedMixedPrecisionLamb``.
 """
 
 from __future__ import annotations
@@ -42,7 +44,10 @@ from apex_tpu_torch.multi_tensor import (
     fused_adam_update,
     fused_lamb_segmented_update,
     fused_lamb_update,
+    fused_lars_update,
+    fused_sgd_update,
 )
+from apex_tpu_torch.multi_tensor.ops import _dev_f32, _f32
 from apex_tpu_torch.multi_tensor.flat_buffer import (
     CHUNK,
     DEFAULT_ALIGN,
@@ -178,6 +183,11 @@ class FlatFusedOptimizer:
         if with_grad_norm:
             return state.space.unpack(new_master), new_state, upd[3]
         return state.space.unpack(new_master), new_state
+
+    def master_params(self, state: FlatOptState) -> Dict[str, torch.Tensor]:
+        """fp32 views of the master weights by name (the reference's
+        ``master_params``, :265)."""
+        return state.space.unpack(state.master, dtype="buffer")
 
     def state_dict(self, state: FlatOptState) -> Dict[str, Any]:
         return {"master": state.master, "slots": dict(state.slots),
@@ -379,6 +389,91 @@ class FusedLAMB(FlatFusedOptimizer):
         return (p2, {"m": m2, "v": v2}, found, *outs[4:])
 
 
+def _first_run_slots(master: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The momentum buffer and the reference's ``initialized`` flag, a
+    0-d fp32 tensor on the master's device that the kernels read by
+    pointer (its first-run branch, :503), so no step reads it on the
+    host."""
+    return {"momentum": torch.zeros_like(master),
+            "initialized": torch.zeros((), dtype=torch.float32,
+                                       device=master.device)}
+
+
+def _momentum_slots(state: FlatOptState, mom2: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+    return {"momentum": mom2,
+            "initialized": torch.ones_like(state.slots["initialized"])}
+
+
+class FusedSGD(FlatFusedOptimizer):
+    """SGD with momentum, dampening, nesterov and either weight-decay
+    order in one fused kernel (the reference's ``FusedSGD``, :486;
+    ``csrc/fused_sgd.cu``). The gradient is multiplied by the fp32
+    reciprocal of ``grad_scale`` inside the sweep (:514)."""
+
+    def __init__(self, lr, momentum=0.0, dampening=0.0, weight_decay=0.0,
+                 nesterov=False, wd_after_momentum=False, *,
+                 master_dtype=torch.float32, stochastic_rounding=False):
+        super().__init__(lr, master_dtype=master_dtype,
+                         stochastic_rounding=stochastic_rounding)
+        self.momentum = momentum
+        self.dampening = dampening
+        self.weight_decay = weight_decay
+        self.nesterov = nesterov
+        self.wd_after_momentum = wd_after_momentum
+
+    def _init_slots(self, master):
+        return _first_run_slots(master)
+
+    def _update(self, state, g, lr, grad_scale, in_place):
+        scale = (1.0 / _dev_f32(grad_scale, g.device)
+                 if isinstance(grad_scale, torch.Tensor)
+                 else 1.0 / _f32(grad_scale))
+        p2, mom2, found = fused_sgd_update(
+            state.master, state.slots["momentum"], g, lr=lr,
+            momentum=self.momentum, dampening=self.dampening,
+            nesterov=self.nesterov, weight_decay=self.weight_decay,
+            wd_after_momentum=self.wd_after_momentum, scale=scale,
+            first_run=state.slots["initialized"] == 0, in_place=in_place)
+        return p2, _momentum_slots(state, mom2), found
+
+
+class FusedLARS(FlatFusedOptimizer):
+    """LARS: per-tensor adaptive lr and momentum SGD (the reference's
+    ``FusedLARS``, :577): the per-tensor norms of the master and the
+    gradient (kernel ``sumsq``), the ratios on the device, then one
+    sweep (kernel ``fused_lars``). The gradient is divided by
+    ``grad_scale`` before the norms, as the reference divides it (:597);
+    by a 0-d tensor, since PyTorch multiplies a CUDA tensor by the
+    reciprocal of a Python divisor. A host ``grad_scale`` of 1 skips
+    that pass: g / 1 is g, bit for bit."""
+
+    def __init__(self, lr, momentum=0.9, weight_decay=0.0,
+                 trust_coefficient=0.02, eps=1e-8, clip=True, *,
+                 master_dtype=torch.float32, stochastic_rounding=False):
+        super().__init__(lr, master_dtype=master_dtype,
+                         stochastic_rounding=stochastic_rounding)
+        self.momentum = momentum
+        self.weight_decay = weight_decay
+        self.trust_coefficient = trust_coefficient
+        self.eps = eps
+        self.clip = clip
+
+    def _init_slots(self, master):
+        return _first_run_slots(master)
+
+    def _update(self, state, g, lr, grad_scale, in_place):
+        if isinstance(grad_scale, torch.Tensor) or grad_scale != 1.0:
+            g = g / _dev_f32(grad_scale, g.device)
+        p2, mom2, found = fused_lars_update(
+            state.master, state.slots["momentum"], g, state.space, lr=lr,
+            momentum=self.momentum, weight_decay=self.weight_decay,
+            trust_coefficient=self.trust_coefficient, eps=self.eps,
+            clip=self.clip, first_run=state.slots["initialized"] == 0,
+            in_place=in_place)
+        return p2, _momentum_slots(state, mom2), found
+
+
 class FusedMixedPrecisionLamb(FusedLAMB):
     """Not ported yet: the reference's bf16-master LAMB needs the
     stochastic-rounding outputs of the kernels."""
@@ -391,4 +486,4 @@ class FusedMixedPrecisionLamb(FusedLAMB):
 
 
 __all__ = ["FlatFusedOptimizer", "FlatOptState", "FusedAdam", "FusedLAMB",
-           "FusedMixedPrecisionLamb"]
+           "FusedLARS", "FusedMixedPrecisionLamb", "FusedSGD"]

@@ -29,7 +29,15 @@ Phases, in order; any failure exits non-zero before the last line:
    broadcast from 1), the scaled forward at the same shape, the causal
    forward at GPT-2 345M's (128, 1024, 1024), the shared backward at
    both; forwards within one bf16 ulp elementwise, the backward within
-   one bf16 ulp of each row's largest |dx|.
+   one bf16 ulp of each row's largest |dx|. Then the SGD and LARS kernels
+   over ResNet-50's flat buffers (25.7 M fp32): SGD bitwise with
+   momentum, first run, nesterov, dampening with the weight decay after
+   momentum, no momentum, and a device scale and first-run flag; an inf
+   and a nan set found_inf and the out-of-place step leaves the state
+   as it was; LARS bitwise given the same ratios, the whole update
+   (norms on the sum-of-squares kernel) within LARS_TOL of the plain
+   one; the library yardstick is ``torch.optim.SGD(fused=True)`` over
+   the same 161 tensors (LARS has none).
 3. Serving at full width: GPT-2 345M (hidden 1024, 24 layers, 16 heads,
    vocab 50304, bf16 compute, fp32 parameters, random weights from the
    seed) behind ``ContinuousBatcher(max_batch=8, prefill_chunk=256)``
@@ -83,7 +91,26 @@ Phases, in order; any failure exits non-zero before the last line:
    and its loss against the flash backend's on the same weights; then
    three steps at 8 x 1024, the causal forward and the backward launched
    24 times a step and no flash kernel.
-8. Each phase's wall seconds, the ``kernels`` JSON line (all fifteen
+8. ResNet-50 ImageNet training (``ResNetConfig.resnet50()``: bottleneck
+   blocks (3, 4, 6, 3), width 64, 1000 classes, fp32 parameters, random
+   weights from the seed) on one synthetic batch of 128 x 224 x 224 x 3
+   through ``PretrainStep(model, opt, loss_fn=...)``. First the fp32
+   forward at batch 2 against the same model and weights on the CPU
+   (cuDNN with TF32 off: ``main`` sets ``allow_tf32 = False``), within
+   RESNET_FP32_TOL. Then four runs, each with the launch counts set to 0
+   just before and read just after, and one profiled step (conv, BN,
+   casts and optimizer shares): FusedSGD(lr 0.1, momentum 0.9, weight
+   decay 1e-4) with bf16 compute, 10 steps; amp O2 (fp16 compute, fp32
+   master, ``amp.initialize`` and the dynamic scaler of ``make_scaler``
+   through ``make_train_step``), 10 steps, then one with an inf in the
+   gradient, which must be skipped with master and momentum exactly as
+   they were; FusedLARS and LARC(FusedSGD), 3 steps each. Losses finite,
+   the first update lowering the loss (at lr 0.1 and momentum 0.9 the
+   loss on one fixed batch then climbs again, as the reference's does),
+   running statistics finite, ``fused_sgd`` once a step
+   (``fused_lars`` once and ``sumsq`` twice on the LARS run). Step time
+   (median of steps 3-10, 2-3 on the short runs), images/s, peak memory.
+9. Each phase's wall seconds, the ``kernels`` JSON line (all seventeen
    kernels, each with its launches on its path), then the device line
    the caller reads.
 
@@ -104,15 +131,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from apex_tpu_torch import _build
+from apex_tpu_torch import _build, amp
 from apex_tpu_torch.models import (
     BertConfig,
     BertModel,
     GPTConfig,
     GPTModel,
     PretrainStep,
+    ResNet,
+    ResNetConfig,
     bert_extended_attention_mask,
     bert_loss_fn,
+    cross_entropy_logits,
     gpt_loss_fn,
     init_gpt_pretrain_params,
     make_gpt_pretrain_step,
@@ -130,7 +160,14 @@ from apex_tpu_torch.multi_tensor.segmented import SEGMENT_KERNEL
 from apex_tpu_torch.models.gpt import KERNEL_OPS, PLAIN_OPS
 from apex_tpu_torch.ops import attention, layer_norm, softmax
 from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
-from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, make_train_step
+from apex_tpu_torch.optimizers import (
+    FusedAdam,
+    FusedLAMB,
+    FusedLARS,
+    FusedSGD,
+    make_train_step,
+)
+from apex_tpu_torch.parallel import LARC
 from apex_tpu_torch.serving import (
     ContinuousBatcher,
     DecodeStep,
@@ -221,6 +258,24 @@ BERT_GRAD_REL_TOL = 0.1
 # bf16, flash rounds P to bf16 inside its tiles
 BACKEND_LOSS_TOL = 5e-3
 
+# ResNet-50 training (phase 8): the reference bench's batch and size
+# (bench.py:709-714) and its optimizer settings (bench.py:730)
+RESNET_BATCH, RESNET_HW = 128, 224
+RESNET_SGD = dict(lr=0.1, momentum=0.9, weight_decay=1e-4)
+RESNET_STEPS, RESNET_LARS_STEPS = 10, 3
+# the card's fp32 forward (cuDNN, TF32 off) against the CPU's on the same
+# weights at batch 2, relative to the largest |logit| and per running
+# statistic: fp32 sums in other orders (cuDNN may pick Winograd or FFT
+# algorithms, whose fp32 error exceeds a direct sum's) move them ~1e-5;
+# a window shifted by a padding or read through a wrong layout moves them
+# by their own scale
+RESNET_FP32_TOL = 1e-3
+# a full LARS update, kernels against plain versions: the ratios come
+# from sums of squares in other orders (relative ~1e-7). mom' within this
+# share of its terms (|mu * mom| + |mom'|), p' within lr times that plus
+# one ulp of the larger of |p| and |p'|
+LARS_TOL = 1e-6
+
 PROMPT_LENS = (700, 32, 411, 96, 256, 530, 64, 180)
 MAX_NEW = 32
 
@@ -299,8 +354,9 @@ def nbytes(*ts) -> int:
 def _profiled(run, label: str, shares: dict):
     """One call of ``run`` under the profiler (device activity): returns
     its result and a dict of the wall, the device-busy ms and, for each
-    entry of ``shares`` (name -> substrings of kernel names), its device
-    ms and share of the busy time."""
+    entry of ``shares`` (name -> substrings of kernel names; a kernel
+    counts in the first entry it matches), its device ms and share of
+    the busy time."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -311,9 +367,12 @@ def _profiled(run, label: str, shares: dict):
     per_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                          for e in prof.key_averages()), reverse=True)
     busy = sum(t for t, _, _ in per_kernel)
-    part = {k: sum(t for t, _, key in per_kernel
-                   if any(x in key for x in keys))
-            for k, keys in shares.items()}
+    part = dict.fromkeys(shares, 0.0)       # each kernel in its first match
+    for t, _, key in per_kernel:
+        for k, keys in shares.items():
+            if any(x in key for x in keys):
+                part[k] += t
+                break
     if busy > 0:
         print(f"  profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
               f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%); "
@@ -998,6 +1057,170 @@ def adam_case(dev) -> dict:
             "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
             "step_flat_ms": step_ms, "step_flat_skip_ms": skip_ms,
             "shape": f"n={n} fp32 (GPT-2 345M flat buffers)"}
+
+
+# -- ResNet-50's flat buffers: the SGD and LARS kernels ------------------------
+
+
+def resnet_space() -> FlatSpace:
+    """ResNet-50's parameters in module order, in the optimizers' flat
+    layout (built on the CPU: the layout needs only names and sizes)."""
+    model = ResNet(ResNetConfig.resnet50(), device="cpu")
+    return FlatSpace.create({k: torch.empty(p.shape, device="meta")
+                             for k, p in model.named_parameters()})
+
+
+def _bitwise(got, want) -> bool:
+    return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, want))
+
+
+def sgd_case(dev, space: FlatSpace) -> dict:
+    """The SGD kernel over ResNet-50's flat buffers, every flag bitwise
+    against the plain version; an inf and a nan set found_inf, and the
+    out-of-place step leaves p and mom as they were. Timed in place with
+    the runs' settings (momentum 0.9, weight decay 1e-4)."""
+    n = space.total
+    p, mom = _seeded(n, dev, 11), _seeded(n, dev, 12, 1e-2)
+    g = _seeded(n, dev, 13, 1e-2)
+    cases = {"momentum": dict(momentum=0.9),
+             "first_run": dict(momentum=0.9, first_run=True),
+             "nesterov": dict(momentum=0.9, nesterov=True),
+             "dampening_wd_after": dict(momentum=0.9, dampening=0.1,
+                                        wd_after_momentum=True),
+             "no_momentum": dict(momentum=0.0),
+             "device_scale_and_flag": dict(
+                 momentum=0.9, scale=torch.full((), 2.0 ** -16, device=dev),
+                 first_run=torch.ones((), device=dev) > 0)}
+    flags, err = {}, 0.0
+    for case, extra in cases.items():
+        kw = dict(lr=0.1, weight_decay=1e-4, **extra)
+        want = mt_ops.fused_sgd_update(p.clone(), mom.clone(), g, plain=True,
+                                       **kw)
+        got = mt_ops.fused_sgd_update(p.clone(), mom.clone(), g, **kw)
+        torch.cuda.synchronize()
+        flags[case] = _bitwise(got[:2], want[:2])
+        err = max(err, *(float((a - b).abs().max())
+                         for a, b in zip(got[:2], want[:2])))
+        del want, got
+    bad = g.clone()
+    bad[12345] = float("inf")
+    bad[n - 7] = float("nan")
+    before = (p.clone(), mom.clone())
+    *_, found = mt_ops.fused_sgd_update(p, mom, bad, lr=0.1, momentum=0.9,
+                                        in_place=False)
+    untouched = torch.equal(p, before[0]) and torch.equal(mom, before[1])
+    found = float(found)
+    del bad, before
+    print(f"  fused_sgd n={n} fp32 (ResNet-50): bitwise {flags}; "
+          f"max_abs_err={err:.3e} found_inf={found} "
+          f"state_untouched={untouched}")
+    check(all(flags.values()), "fused_sgd kernel is not bitwise equal to "
+          "its plain version")
+    check(found == 1.0 and untouched, "fused_sgd found_inf / skip wrong")
+    kw = dict(lr=0.1, momentum=0.9, weight_decay=1e-4)
+    kernel = lambda: mt_ops.fused_sgd_update(p, mom, g, **kw)  # noqa: E731
+    ms, h_ms = device_ms(kernel), host_ms(kernel)
+    plain_ms = host_ms(lambda: mt_ops.fused_sgd_update(
+        p, mom, g, plain=True, **kw), iters=3, warmup=1)
+    # the library yardstick: torch's fused SGD over the same 161 tensors
+    params = [torch.nn.Parameter(t.clone()) for t in
+              space.unpack(p, "buffer").values()]
+    for prm, gt in zip(params, space.unpack(g, "buffer").values()):
+        prm.grad = gt.clone()
+    lib = torch.optim.SGD(params, fused=True, **kw)
+    lib_ms = host_ms(lib.step)
+    del params, lib
+    # per element: p, mom, g read, p and mom written; ~7 fp32 operations
+    b_ms, by = bound(20 * n, 7 * n, PEAK_FP32_FLOPS)
+    print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms={lib_ms:.5f} (SGD fused, {space.num_leaves} tensors) "
+          f"bound_ms={b_ms:.5f} ({by})")
+    return {"name": mt_ops.SGD_KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/fused_sgd.cu",
+            "replaces": "apex_tpu/multi_tensor/engine.py:243",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "host_ms": h_ms, "bitwise": flags,
+            "shape": f"n={n} fp32 (ResNet-50 flat buffers)"}
+
+
+def lars_case(dev, space: FlatSpace) -> dict:
+    """The LARS kernel over ResNet-50's flat buffers: bitwise against the
+    plain version given the same ratios (host and device first-run flag);
+    the full update (two sums of squares, the ratios, the sweep) within
+    LARS_TOL of the plain update; found_inf on an inf."""
+    n = space.total
+    p, mom = _seeded(n, dev, 21), _seeded(n, dev, 22, 1e-2)
+    g = _seeded(n, dev, 23, 1e-2)
+    ids = space.device_subtile_leaf_ids(dev)
+    tc = dict(trust_coefficient=0.02, weight_decay=1e-4, eps=1e-8,
+              clip=True)
+    ratio = mt_ops.lars_ratio(mt_ops.per_tensor_l2norm(p, space),
+                              mt_ops.per_tensor_l2norm(g, space), **tc)
+    flags = {}
+    for first in (False, torch.ones((), device=dev) > 0):
+        kw = dict(lr=0.1, momentum=0.9, weight_decay=1e-4, first_run=first,
+                  tile_ids=ids)
+        want = mt_ops.lars_apply(p.clone(), mom.clone(), g, ratio,
+                                 plain=True, **kw)
+        got = mt_ops.lars_apply(p.clone(), mom.clone(), g, ratio, **kw)
+        torch.cuda.synchronize()
+        flags["first_run" if isinstance(first, torch.Tensor)
+              else "momentum"] = _bitwise(got[:2], want[:2])
+        del want, got
+    kw = dict(lr=0.1, momentum=0.9, **tc)
+    want = mt_ops.fused_lars_update(p.clone(), mom.clone(), g, space,
+                                    plain=True, **kw)
+    got = mt_ops.fused_lars_update(p.clone(), mom.clone(), g, space, **kw)
+    torch.cuda.synchronize()
+    tm = want[1].abs() + (0.9 * mom).abs()
+    m_excess = float(((got[1] - want[1]).abs() - LARS_TOL * tm).max())
+    tp = torch.maximum(p.abs(), want[0].abs())
+    ulp = torch.nextafter(tp, torch.full_like(tp, float("inf"))) - tp
+    p_excess = float(((got[0] - want[0]).abs() - 0.1 * LARS_TOL * tm
+                      - ulp).max())
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:2], want[:2]))
+    del want, got, tm, tp, ulp
+    bad = g.clone()
+    bad[n // 3] = float("inf")
+    found = float(mt_ops.fused_lars_update(p.clone(), mom.clone(), bad,
+                                           space, in_place=False, **kw)[2])
+    del bad
+    print(f"  fused_lars n={n} fp32 (ResNet-50): given the ratios bitwise "
+          f"{flags}; full update max_abs_err={err:.3e}, excess over the "
+          f"tolerance ({LARS_TOL}): mom' {m_excess:.3e}, p' {p_excess:.3e} "
+          f"(<= 0 passes); found_inf={found}")
+    check(all(flags.values()), "fused_lars kernel is not bitwise equal to "
+          "its plain version")
+    check(m_excess <= 0 and p_excess <= 0, "the LARS update through the "
+          "kernels disagrees with the plain update")
+    check(found == 1.0, "fused_lars found_inf not set")
+    kwa = dict(lr=0.1, momentum=0.9, weight_decay=1e-4, tile_ids=ids)
+    kernel = lambda: mt_ops.lars_apply(p, mom, g, ratio, **kwa)  # noqa
+    ms, h_ms = device_ms(kernel), host_ms(kernel)
+    plain_ms = host_ms(lambda: mt_ops.lars_apply(p, mom, g, ratio,
+                                                 plain=True, **kwa),
+                       iters=3, warmup=1)
+    full = lambda: mt_ops.fused_lars_update(p, mom, g, space, **kw)  # noqa
+    full_ms = device_ms(full)
+    full_plain_ms = host_ms(lambda: mt_ops.fused_lars_update(
+        p, mom, g, space, plain=True, **kw), iters=3, warmup=1)
+    b_ms, by = bound(20 * n, 5 * n, PEAK_FP32_FLOPS)
+    fb_ms, _ = bound(28 * n, 9 * n, PEAK_FP32_FLOPS)
+    print(f"    sweep: ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"bound_ms={b_ms:.5f} ({by}); whole update (norms, ratios, sweep): "
+          f"ms={full_ms:.5f} plain_ms={full_plain_ms:.5f} bound_ms="
+          f"{fb_ms:.5f}; no library call")
+    return {"name": mt_ops.LARS_KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/fused_sgd.cu",
+            "replaces": "apex_tpu/multi_tensor/engine.py:243",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "host_ms": h_ms, "update_ms": full_ms,
+            "update_plain_ms": full_plain_ms, "update_bound_ms": fb_ms,
+            "excess": {"mom": m_excess, "p": p_excess}, "bitwise": flags,
+            "shape": f"n={n} fp32 (ResNet-50 flat buffers)"}
 
 
 # the BERT-Large batch of phase 6: real lengths of the eight sequences
@@ -1694,6 +1917,181 @@ def train_gpt_softmax(seed: int, dev, card: str) -> dict:
             "batch2_flash_loss": loss_f}
 
 
+# -- phase 8: ResNet-50 ImageNet training --------------------------------------
+
+RESNET_SHARES = {
+    "optimizer": ("sgd_kernel", "lars_kernel", "sumsq_kernel"),
+    "conv": ("xmma", "conv", "Conv", "cudnn", "implicit", "cutlass",
+             "gemm", "wgrad", "dgrad", "fprop", "nchw", "nhwc"),
+    "casts": ("direct_copy", "copy_kernel"),
+    "bn_reductions": ("reduce_kernel",),
+    "bn_elementwise": ("elementwise",),
+}
+
+
+def resnet_loss(model, x, y):
+    return cross_entropy_logits(model(x), y)
+
+
+def _stats_finite(model) -> bool:
+    return all(bool(torch.isfinite(b).all()) for b in model.buffers())
+
+
+def resnet_fp32_check(seed: int, dev, x) -> dict:
+    """The card's fp32 forward (train mode: batch statistics, running
+    statistics updated) against the same model and weights on the CPU,
+    at batch 2. cuDNN runs without TF32 (main sets allow_tf32 False)."""
+    cfg = ResNetConfig.resnet50(dtype=torch.float32)
+    gpu = ResNet(cfg, device=dev, generator=torch.Generator().manual_seed(seed))
+    cpu = ResNet(cfg, device="cpu",
+                 generator=torch.Generator().manual_seed(seed))
+    x2 = x[:2]
+    with torch.no_grad():
+        got = gpu(x2).cpu()
+        want = cpu(x2.cpu())
+    logit = float((got - want).abs().max() / want.abs().max())
+    own = cpu.state_dict()
+    stats = max(float((b.cpu() - own[k]).abs().max() / own[k].abs().max())
+                for k, b in gpu.named_buffers())
+    print(f"  fp32 forward at batch 2, card (cuDNN, allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}) vs CPU on the same weights: "
+          f"logits {logit:.3e}, running statistics {stats:.3e} of their "
+          f"largest |value| (tol {RESNET_FP32_TOL})")
+    check(logit <= RESNET_FP32_TOL and stats <= RESNET_FP32_TOL,
+          "ResNet-50 fp32 forward: the card disagrees with the CPU")
+    return {"logit_rel_err": logit, "stats_rel_err": stats}
+
+
+def _resnet_run(label, model, step, state, x, y, steps, card):
+    """``steps`` steps of ``step`` (``state, loss = step(state, x, y)``)
+    with the launch counts set to 0 just before and read just after, then
+    one profiled step: the run's numbers."""
+    state, losses, times, launches = _train_loop(step, state, (x, y), steps)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(times[2:] if steps > 3 else times[1:]))
+    print(f"  {label}: losses {[round(v_, 4) for v_ in losses]}")
+    print(f"    launches over {steps} steps {launches}")
+    print(f"    step_ms median of steps {3 if steps > 3 else 2}-{steps} "
+          f"{step_s * 1e3:.2f} (first {times[0] * 1e3:.1f}), images_per_s "
+          f"{RESNET_BATCH / step_s:.1f}, peak memory {peak / 2**30:.2f} GiB "
+          f"on {card}")
+    check(all(np.isfinite(losses)), f"ResNet-50 {label}: non-finite loss")
+    # at the reference bench's lr 0.1 and momentum 0.9 on one fixed batch
+    # the loss falls for two steps and then climbs: the reference's own
+    # trajectory does the same (a CPU run at full depth, reduced batch)
+    check(losses[1] < losses[0], f"ResNet-50 {label}: the first update "
+          "did not lower the loss")
+    check(_stats_finite(model), f"ResNet-50 {label}: non-finite BatchNorm "
+          "running statistics")
+    (state, _), prof = _profiled(lambda: step(state, x, y),
+                                 f"ResNet-50 {label} step", RESNET_SHARES)
+    return state, {"launches": launches, "steps": steps, "losses": losses,
+                   "step_ms": step_s * 1e3,
+                   "step_ms_all": [t * 1e3 for t in times],
+                   "images_per_s": RESNET_BATCH / step_s,
+                   "peak_gib": peak / 2**30, "profile": prof}
+
+
+def train_resnet(seed: int, dev, card: str) -> dict:
+    """ResNet-50 at 128 x 224^2 on one synthetic batch: the fp32 forward
+    against the CPU at batch 2; FusedSGD with bf16 compute (10 steps);
+    amp O2 (fp16 compute, fp32 master, the dynamic loss scaler; 10 steps
+    and one with an inf in the gradient, skipped); FusedLARS and
+    LARC(FusedSGD) (3 steps each)."""
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(rng.randn(RESNET_BATCH, RESNET_HW, RESNET_HW, 3)
+                        .astype(np.float32), device=dev)
+    y = torch.as_tensor(rng.randint(0, 1000, RESNET_BATCH), device=dev)
+    out = {"fp32_check": resnet_fp32_check(seed, dev, x)}
+
+    def build(cfg):
+        return ResNet(cfg, device=dev,
+                      generator=torch.Generator().manual_seed(seed))
+
+    # FusedSGD, bf16 compute (the reference bench's headline)
+    t0 = time.perf_counter()
+    model = build(ResNetConfig.resnet50())
+    opt = FusedSGD(**RESNET_SGD)
+    step = PretrainStep(model, opt, loss_fn=resnet_loss)
+    state = step.init()
+    print(f"  ResNet-50: {sum(p.numel() for p in model.parameters())} "
+          f"parameters in {state.space.num_leaves} tensors, flat buffers of "
+          f"{state.master.numel()} fp32, batch {RESNET_BATCH} x {RESNET_HW}^2"
+          f", set-up {time.perf_counter() - t0:.1f} s")
+    state, run = _resnet_run("FusedSGD bf16", model, step, state, x, y,
+                             RESNET_STEPS, card)
+    check(run["launches"].get(mt_ops.SGD_KERNEL, 0) == RESNET_STEPS
+          and run["launches"].get(mt_ops.LARS_KERNEL, 0) == 0,
+          "fused_sgd not launched once a step on the SGD run")
+    out["sgd_bf16"] = run
+    del model, step, state, opt
+    torch.cuda.empty_cache()
+
+    # amp O2: fp16 compute, fp32 master, the dynamic loss scaler
+    model = build(ResNetConfig.resnet50(dtype=torch.float16))
+    opt = FusedSGD(**RESNET_SGD)
+    _, state, amp_state = amp.initialize(dict(model.named_parameters()), opt,
+                                         opt_level="O2")
+    check(amp_state.properties.cast_model_type == model.config.dtype,
+          "O2's cast type is not the model's compute dtype")
+    scaler = amp.make_scaler(amp_state.properties)
+    step = PretrainStep(model, opt, loss_fn=resnet_loss,
+                        train_step=make_train_step(opt, scaler=scaler))
+    box = {"ss": amp_state.scalers[0], "skipped": 0}
+
+    def o2_step(st, xb, yb):
+        st, box["ss"], loss = step(st, xb, yb, scaler_state=box["ss"])
+        box["skipped"] += int(box["ss"].found_inf > 0)
+        return st, loss
+
+    state, run = _resnet_run("amp O2 fp16", model, o2_step, state, x, y,
+                             RESNET_STEPS, card)
+    check(run["launches"].get(mt_ops.SGD_KERNEL, 0) == RESNET_STEPS,
+          "fused_sgd not launched once a step on the O2 run")
+    # an inf in the gradient: skipped, master and momentum exactly as
+    # they were, the scale halved
+    ss = box["ss"]
+    step.backward(state, x, y, scaler_state=ss)
+    step.grad[12345] = float("inf")
+    before = (state.master.clone(), state.slots["momentum"].clone(),
+              state.count)
+    state2, ss2, aux = step.train_step(state, step.grad, ss)
+    torch.cuda.synchronize()
+    skipped = (float(aux.found_inf) == 1.0
+               and torch.equal(state2.master, before[0])
+               and torch.equal(state2.slots["momentum"], before[1])
+               and state2.count == before[2]
+               and ss2.loss_scale == ss.loss_scale / 2)
+    print(f"    injected inf: found_inf {float(aux.found_inf)}, master and "
+          f"momentum unchanged, count {state2.count}, scale "
+          f"{ss.loss_scale} -> {ss2.loss_scale}: {skipped}; skipped in the "
+          f"{RESNET_STEPS} steps before it: {box['skipped']}")
+    check(skipped, "the O2 step with an inf was not skipped")
+    run.update(final_loss_scale=ss2.loss_scale,
+               skipped_steps=box["skipped"] + 1, count=state2.count)
+    out["o2_fp16"] = run
+    del model, step, state, state2, opt, before
+    torch.cuda.empty_cache()
+
+    # the large-batch optimizers: FusedLARS, LARC around FusedSGD
+    for key, opt in (("lars", FusedLARS(**RESNET_SGD)),
+                     ("larc", LARC(FusedSGD(**RESNET_SGD)))):
+        model = build(ResNetConfig.resnet50())
+        step = PretrainStep(model, opt, loss_fn=resnet_loss)
+        state, run = _resnet_run(type(opt).__name__ + " bf16", model, step,
+                                 step.init(), x, y, RESNET_LARS_STEPS, card)
+        n = RESNET_LARS_STEPS
+        want = ({mt_ops.LARS_KERNEL: n, engine.SUMSQ_KERNEL: 2 * n,
+                 mt_ops.SGD_KERNEL: 0} if key == "lars" else
+                {mt_ops.SGD_KERNEL: n, mt_ops.LARS_KERNEL: 0})
+        check(all(run["launches"].get(k, 0) == v for k, v in want.items()),
+              f"ResNet-50 {key}: launches {run['launches']}, expected {want}")
+        out[key] = run
+        del model, step, state, opt
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- phase 3: serving at full width --------------------------------------------
 
 
@@ -1916,6 +2314,9 @@ def main(argv=None) -> int:
             rows.append(segment_cases(dev))
             torch.cuda.empty_cache()
             rows += softmax_cases(gen, dev)
+            torch.cuda.empty_cache()
+            space = resnet_space()
+            rows += [sgd_case(dev, space), lars_case(dev, space)]
         return rows
 
     card, secs = phase("phase 1: environment", environment)
@@ -1931,6 +2332,8 @@ def main(argv=None) -> int:
                  lambda: train_bert(args.seed, dev, card))
     gsm = phase("phase 7: GPT-2 345M on the softmax attention backend",
                 lambda: train_gpt_softmax(args.seed, dev, card))
+    rn = phase("phase 8: ResNet-50 ImageNet training (FusedSGD, amp O2, "
+               "FusedLARS, LARC)", lambda: train_resnet(args.seed, dev, card))
     # where each kernel's launches are read: the path that runs it (the
     # forward kernels run on every GPT path: their launches are the
     # serving run's; the scaled sum of squares runs on the scaler step;
@@ -1951,6 +2354,11 @@ def main(argv=None) -> int:
         softmax.BWD_KERNEL: ("training_bert_softmax",
                              bert["softmax"]["launches"],
                              bert["softmax"]["steps"]),
+        mt_ops.SGD_KERNEL: ("training_resnet_sgd",
+                            rn["sgd_bf16"]["launches"],
+                            rn["sgd_bf16"]["steps"]),
+        mt_ops.LARS_KERNEL: ("training_resnet_lars", rn["lars"]["launches"],
+                             rn["lars"]["steps"]),
     }
     for k in kernels:
         name = k["name"]
@@ -1968,11 +2376,16 @@ def main(argv=None) -> int:
         for key, run in (("training", trn), ("training_lamb", lamb),
                          ("bert_softmax", bert["softmax"]),
                          ("bert_flash", bert["flash"]),
-                         ("gpt_softmax", gsm)):
+                         ("gpt_softmax", gsm),
+                         ("resnet_sgd", rn["sgd_bf16"]),
+                         ("resnet_o2", rn["o2_fp16"]),
+                         ("resnet_lars", rn["lars"]),
+                         ("resnet_larc", rn["larc"])):
             k[f"launches_{key}"] = run["launches"].get(name, 0)
         check(k["launches"] > 0, f"{name}: no launch on its path")
 
-    print("phase 8: kernels")
+    check(len(kernels) == 17, f"{len(kernels)} kernels in the line, not 17")
+    print("phase 9: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -1982,7 +2395,8 @@ def main(argv=None) -> int:
             json.dump({"card": card, "build_s": secs, "phase_wall_s": walls,
                        "serving": srv, "training": trn,
                        "training_lamb": lamb, "bert": bert,
-                       "gpt_softmax": gsm, **line}, f, indent=1)
+                       "gpt_softmax": gsm, "resnet": rn, **line}, f,
+                      indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

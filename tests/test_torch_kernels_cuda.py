@@ -579,3 +579,153 @@ def test_softmax_kernel_refuses_other_dtypes(cuda_device):
     with pytest.raises(TypeError, match="softmax kernel"):
         softmax.scaled_softmax(torch.zeros(4, 8, device=cuda_device,
                                            dtype=torch.float16))
+
+
+# -- the SGD and LARS kernels -------------------------------------------------
+#
+# Tolerances: p' and mom' bitwise against the plain versions given the
+# same scalars and ratios (every operation rounded on its own in the plain
+# version's order). A whole LARS update computes its ratios from the
+# sum-of-squares kernel's partials, summed in another order than the plain
+# norms: mom' within 1e-6 of its terms (|mu * mom| + |mom'|), p' within lr
+# times that plus one ulp of the larger of |p| and |p'|.
+
+SGD_FLAGS = {
+    "no_momentum": dict(momentum=0.0),
+    "momentum": dict(momentum=0.9),
+    "nesterov": dict(momentum=0.9, nesterov=True),
+    "dampening": dict(momentum=0.9, dampening=0.1),
+    "wd_after_momentum": dict(momentum=0.9, wd_after_momentum=True),
+    "first_run": dict(momentum=0.9, first_run=True),
+    "first_run_device": dict(momentum=0.9, first_run="device"),
+    "scale_device": dict(momentum=0.9, nesterov=True, scale="device"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 517, 3 * 2048 + 517, 1 << 20])
+@pytest.mark.parametrize("case", sorted(SGD_FLAGS))
+def test_sgd_kernel_bitwise_equals_plain(cuda_device, n, case):
+    rng = np.random.RandomState(n % 997)
+    p, mom, g = (_rand(rng, n, cuda_device) for _ in range(3))
+    kw = {"lr": 0.1, "weight_decay": 1e-4, "scale": 0.125,
+          **SGD_FLAGS[case]}
+    if kw.get("first_run") == "device":
+        kw["first_run"] = torch.zeros((), device=cuda_device) == 0
+    if kw["scale"] == "device":
+        kw["scale"] = torch.full((), 0.125, device=cuda_device)
+    want = mt_ops.fused_sgd_update(p.clone(), mom.clone(), g, plain=True,
+                                   **kw)
+    before = _build.launch_counts().get(mt_ops.SGD_KERNEL, 0)
+    got = mt_ops.fused_sgd_update(p, mom, g, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[mt_ops.SGD_KERNEL] == before + 1
+    assert got[0] is p and got[1] is mom                    # in place
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert float(got[2]) == float(want[2]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lars", [False, True])
+def test_sgd_and_lars_kernels_found_inf_and_out_of_place(cuda_device, lars):
+    from apex_tpu_torch.multi_tensor import FlatSpace
+    space = FlatSpace.create({"a": torch.empty(5000), "b": torch.empty(7)})
+    rng = np.random.RandomState(13)
+    p, mom, g = (_rand(rng, space.total, cuda_device) for _ in range(3))
+    g[4321] = float("nan")
+    g[space.total - 1] = float("inf")
+    saved = [p.clone(), mom.clone()]
+    if lars:
+        p2, m2, found = mt_ops.fused_lars_update(p, mom, g, space, lr=0.1,
+                                                 in_place=False)
+    else:
+        p2, m2, found = mt_ops.fused_sgd_update(p, mom, g, lr=0.1,
+                                                momentum=0.9, in_place=False)
+    torch.cuda.synchronize()
+    assert float(found) == 1.0
+    assert torch.equal(p, saved[0]) and torch.equal(mom, saved[1])
+    assert p2.data_ptr() != p.data_ptr() and m2.data_ptr() != mom.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [517, 3 * 2048 + 517, 70000])
+@pytest.mark.parametrize("first_run", [False, True, "device"])
+def test_lars_kernel_bitwise_equals_plain_given_the_ratios(cuda_device, n,
+                                                           first_run):
+    rng = np.random.RandomState(n)
+    p, mom, g = (_rand(rng, n, cuda_device) for _ in range(3))
+    n_sub = -(-n // 2048)
+    ids = torch.from_numpy((np.arange(n_sub) % 3).astype(np.int32)).to(
+        cuda_device)
+    ratio = torch.tensor([0.5, 0.0123, 1.0], device=cuda_device)
+    if first_run == "device":
+        first_run = torch.ones((), device=cuda_device) > 0
+    kw = dict(lr=0.1, momentum=0.9, weight_decay=1e-4, first_run=first_run,
+              tile_ids=ids)
+    want = mt_ops.lars_apply(p.clone(), mom.clone(), g, ratio, plain=True,
+                             **kw)
+    before = _build.launch_counts().get(mt_ops.LARS_KERNEL, 0)
+    got = mt_ops.lars_apply(p, mom, g, ratio, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[mt_ops.LARS_KERNEL] == before + 1
+    assert got[0] is p and got[1] is mom
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [True, False])
+def test_fused_lars_update_on_card_matches_plain(cuda_device, clip):
+    from apex_tpu_torch.multi_tensor import FlatSpace
+    space = FlatSpace.create({"a": torch.empty(70000), "b": torch.empty(7),
+                              "c": torch.empty(3, 3000), "z": torch.empty(9)})
+    rng = np.random.RandomState(14)
+    p = torch.zeros(space.total, device=cuda_device)
+    g = torch.zeros(space.total, device=cuda_device)
+    for name, off, size in zip(space.names, space.offsets, space.sizes):
+        if name != "z":                      # a zero leaf: ratio 1
+            p[off:off + size] = _rand(rng, size, cuda_device)
+            g[off:off + size] = _rand(rng, size, cuda_device, 0.01)
+    mom = _rand(rng, space.total, cuda_device)
+    kw = dict(lr=0.1, momentum=0.9, weight_decay=1e-4, clip=clip)
+    want = mt_ops.fused_lars_update(p.clone(), mom.clone(), g, space,
+                                    plain=True, **kw)
+    counts = _build.launch_counts()
+    got = mt_ops.fused_lars_update(p.clone(), mom.clone(), g, space, **kw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after[mt_ops.LARS_KERNEL] == counts.get(mt_ops.LARS_KERNEL, 0) + 1
+    from apex_tpu_torch.multi_tensor import engine
+    assert after[engine.SUMSQ_KERNEL] == counts.get(engine.SUMSQ_KERNEL,
+                                                     0) + 2
+    tm = want[1].abs() + (0.9 * mom).abs()
+    assert ((got[1] - want[1]).abs() <= 1e-6 * tm).all()
+    tp = torch.maximum(p.abs(), want[0].abs())
+    ulp = torch.nextafter(tp, torch.full_like(tp, float("inf"))) - tp
+    assert ((got[0] - want[0]).abs() <= 0.1 * 1e-6 * tm + ulp).all()
+
+
+@pytest.mark.cuda
+def test_fused_sgd_lars_and_larc_steps_launch_their_kernels(cuda_device):
+    from apex_tpu_torch.optimizers import FusedLARS, FusedSGD
+    from apex_tpu_torch.parallel import LARC
+    params = {"w": torch.randn(300, 7, device=cuda_device),
+              "b": torch.randn(7, device=cuda_device)}
+    for opt, kernel in ((FusedSGD(lr=0.1, momentum=0.9), mt_ops.SGD_KERNEL),
+                        (FusedLARS(lr=0.1), mt_ops.LARS_KERNEL),
+                        (LARC(FusedSGD(lr=0.1, momentum=0.9)),
+                         mt_ops.SGD_KERNEL)):
+        state = opt.init(params)
+        g = torch.randn_like(state.master)
+        before = _build.launch_counts().get(kernel, 0)
+        _, state = opt.step_flat(state, g)
+        _, state = opt.step_flat(state, g, skip_if_nonfinite=True)
+        torch.cuda.synchronize()
+        assert _build.launch_counts()[kernel] == before + 2
+        assert state.count == 2 and float(state.slots["initialized"]) == 1.0
+        bad = g.clone()
+        bad[3] = float("inf")
+        master = state.master.clone()
+        _, state = opt.step_flat(state, bad, skip_if_nonfinite=True)
+        assert state.count == 2 and torch.equal(state.master, master)
