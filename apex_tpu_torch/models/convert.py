@@ -237,25 +237,57 @@ def load_jax_opt_state(state: FlatOptState,
     for a :class:`GPTModel`, :class:`BertModel` or :class:`ResNet` of
     ``config``, in either flat layout) and return it: FusedAdam's or
     FusedLAMB's slots ``m`` and ``v``, FusedSGD's or FusedLARS's
-    ``momentum`` and ``initialized``.
+    ``momentum`` and ``initialized``, FusedAdagrad's ``h``,
+    FusedNovoGrad's ``m`` and its per-leaf ``v``.
 
     ``opt_state_np`` holds ``"master"`` and each flat slot, each the
     reference's ``FlatOptState`` buffer unpacked through its space
     (``space.unpack(buf, dtype="buffer")``: the param tree with fp32
-    numpy leaves), every 0-d slot as a number, and ``"count"``. The two
-    flat layouts order (and, segmented, pad) their leaves differently,
-    so each leaf goes by parameter name into its slot of the port's
-    buffers, in place: parameters bound to the master see the loaded
-    values."""
+    numpy leaves), every 0-d slot as a number, every per-leaf slot (one
+    value a leaf, ``(num_leaves,)``) as the param tree with that value at
+    each leaf (``space.treedef.unflatten(list(v))``), and ``"count"``.
+    The two flat layouts order (and, segmented, pad) their leaves
+    differently, so each leaf goes by parameter name into its slot of
+    the port's buffers, in place: parameters bound to the master see the
+    loaded values. A per-leaf slot cannot be loaded from a reference
+    built with ``scan_layers=True``: there one value covers a stacked
+    leaf of all the layers, where the port keeps one a layer."""
     bufs = {"master": state.master, **state.slots}
     with torch.no_grad():
         for key, buf in bufs.items():
             if buf.ndim == 0:
                 buf.fill_(float(np.asarray(opt_state_np[key])))
-            else:
+            elif buf.shape == state.master.shape:
                 state.space.pack_into(
                     buf, _params_for(config, opt_state_np[key]))
+            elif buf.shape == (state.space.num_leaves,):
+                _load_per_leaf(buf, state, config, key, opt_state_np[key])
+            else:
+                raise ValueError(
+                    f"slot {key!r} of shape {tuple(buf.shape)} is neither "
+                    "0-d, flat nor one value a leaf")
     return state._replace(count=int(opt_state_np["count"]))
+
+
+def _load_per_leaf(buf: torch.Tensor, state: FlatOptState, config,
+                   key: str, tree: Mapping) -> None:
+    """``buf[i]`` = the reference's value of the leaf named
+    ``state.space.names[i]``, from ``tree`` (the param tree with one
+    value a leaf)."""
+    flat = _flatten(tree.get("params", tree))
+    if any(p.startswith("layers/layer/") for p in flat):
+        raise ValueError(
+            f"slot {key!r}: a per-leaf slot of a scan_layers=True reference "
+            "holds one value for a stacked leaf of all the layers; the "
+            "port keeps one per layer (build the reference with "
+            "scan_layers=False)")
+    if any(np.size(v) != 1 for v in flat.values()):
+        raise ValueError(f"slot {key!r}: a per-leaf slot takes one value "
+                         "at each leaf")
+    vals = _params_for(config, {p: np.asarray(v, np.float32).reshape(())
+                                for p, v in flat.items()})
+    buf.copy_(torch.stack([vals[name].reshape(()).float()
+                           for name in state.space.names]))
 
 
 __all__ = ["bert_params_from_jax", "gpt_params_from_jax",

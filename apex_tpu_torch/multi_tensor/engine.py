@@ -7,9 +7,11 @@ a Python functor, so here each functor that has a kernel registers it
 (:func:`register_kernel`): on CUDA tensors ``fused_elementwise``
 launches the functor's kernel, and a functor without one raises. On CPU
 tensors it runs the functor itself as plain PyTorch over whole buffers,
-the reference's ``_fused_elementwise_xla``. Functors with a kernel: Adam
-(``csrc/fused_adam.cu``), the two LAMB stages (``csrc/fused_lamb.cu``),
-SGD and LARS (``csrc/fused_sgd.cu``), all in ``multi_tensor/ops.py``.
+the reference's ``_fused_elementwise_xla``. Every functor of
+``multi_tensor/ops.py`` has a kernel: scale and axpby
+(``csrc/scale_axpby.cu``), Adam (``csrc/fused_adam.cu``), Adagrad and
+NovoGrad (``csrc/adagrad_novograd.cu``), the two LAMB stages
+(``csrc/fused_lamb.cu``), SGD and LARS (``csrc/fused_sgd.cu``).
 
 ``check_finite`` and ``found_inf`` keep the reference's meaning (a
 float32 0-d tensor in {0, 1} over the named inputs). ``aliases`` maps an
@@ -177,9 +179,10 @@ def _fused_elementwise_cuda(fn, inputs, scalars, num_outputs, out_dtypes,
     launcher = _KERNELS.get(fn)
     if launcher is None:
         raise NotImplementedError(
-            f"functor {getattr(fn, '__name__', fn)!r} has no CUDA kernel "
-            "yet; only the functors with a ported kernel run on CUDA "
-            "tensors (it runs on CPU tensors)")
+            f"functor {getattr(fn, '__name__', fn)!r} has no CUDA kernel: "
+            "on CUDA tensors fused_elementwise runs the functors of "
+            "multi_tensor/ops.py, each through its registered kernel; "
+            "another functor runs on CPU tensors only")
     dev = inputs[0].device
     n = inputs[0].shape[0]
     by_out = {o: i for i, o in aliases.items()}

@@ -1,9 +1,16 @@
 """Fused multi-tensor ops over flat buffers.
 
-Counterpart of ``apex_tpu/multi_tensor/ops.py``. Ported so far, each
-functor a kernel on CUDA buffers and plain PyTorch on CPU buffers:
+Counterpart of ``apex_tpu/multi_tensor/ops.py``. Every functor of the
+reference is ported, each a kernel on CUDA buffers and plain PyTorch on
+CPU buffers:
 
+- ``multi_tensor_scale`` and ``multi_tensor_axpby`` (``csrc/scale_axpby.cu``:
+  fp32, bf16 or fp16 in and out);
 - the Adam / AdamW update (``csrc/fused_adam.cu``);
+- Adagrad (``fused_adagrad_update``) and NovoGrad
+  (``fused_novograd_update``: the per-tensor norms over
+  ``csrc/sumsq.cu``, then the NovoGrad sweep), both in
+  ``csrc/adagrad_novograd.cu``;
 - the L2 norms (``per_tensor_l2norm``, ``multi_tensor_l2norm``,
   ``fused_unscale_l2norm``) over the sum-of-squares kernels
   (``csrc/sumsq.cu``), finished in plain PyTorch as the reference
@@ -14,8 +21,7 @@ functor a kernel on CUDA buffers and plain PyTorch on CPU buffers:
   per-tensor norms over ``csrc/sumsq.cu``, then the LARS sweep), both in
   ``csrc/fused_sgd.cu``.
 
-The other functors (scale, axpby, Adagrad, NovoGrad) wait for their
-kernels.
+The stochastic-rounding outputs (``sr_seed``) are not ported yet.
 
 Scalars that come from the device (a clip factor from a device norm,
 the trust ratios) stay on the device: the kernels read them through a
@@ -33,7 +39,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch import _build
-from apex_tpu_torch._backend import check_kernel_input
+from apex_tpu_torch._backend import check_kernel_input, uses_kernel
 from apex_tpu_torch.multi_tensor.engine import (
     LANES,
     PER_TENSOR_TILE_ROWS,
@@ -45,7 +51,11 @@ from apex_tpu_torch.multi_tensor.engine import (
 )
 from apex_tpu_torch.multi_tensor.flat_buffer import FlatSpace
 
+SCALE_KERNEL = "multi_tensor_scale"
+AXPBY_KERNEL = "multi_tensor_axpby"
 ADAM_KERNEL = "fused_adam"
+ADAGRAD_KERNEL = "fused_adagrad"
+NOVOGRAD_KERNEL = "fused_novograd"
 LAMB_STAGE1_KERNEL = "lamb_stage1"
 LAMB_STAGE2_KERNEL = "lamb_stage2"
 SGD_KERNEL = "fused_sgd"
@@ -70,6 +80,15 @@ def _dev_f32(x, device) -> torch.Tensor:
                       device=device)
 
 
+def _inv_scale(grad_scale, device) -> torch.Tensor:
+    """``1 / grad_scale`` in fp32, as the reference computes it: a 0-d
+    tensor on ``device`` for a device scale (no host read), else a 0-d
+    CPU tensor."""
+    if isinstance(grad_scale, torch.Tensor):
+        return 1.0 / _dev_f32(grad_scale, device)
+    return 1.0 / _f32(grad_scale)
+
+
 def _host_scalars(name, scalars, allowed_device=()) -> None:
     for i, s in enumerate(scalars):
         if isinstance(s, torch.Tensor) and i not in allowed_device:
@@ -82,6 +101,137 @@ def _launch_error(lib, fn_name: str, kernel: str, err: int) -> None:
     if err:
         msg = getattr(lib, fn_name)(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err} at launch: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# scale / axpby (the reference's :36-71; ref csrc/multi_tensor_scale_kernel.cu,
+# multi_tensor_axpby_kernel.cu)
+# ---------------------------------------------------------------------------
+
+# the kernels' dtype codes (csrc/scale_axpby.cu)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def _scale_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
+              ) -> List[torch.Tensor]:
+    """The reference's scale functor (:45-46): x in fp32 times the
+    scale."""
+    return [ins[0].float() * s[0]]
+
+
+def _axpby_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
+              ) -> List[torch.Tensor]:
+    """The reference's axpby functor (:64-65): x * a + y * b in fp32, one
+    elementwise op at a time."""
+    return [ins[0].float() * s[0] + ins[1].float() * s[1]]
+
+
+def _scale_axpby_launch(fn_name: str, kernel: str, argtypes, names, bufs,
+                        found, *args) -> None:
+    """Check ``bufs`` (fp32, bf16 or fp16 on one device), then launch
+    ``fn_name`` of ``csrc/scale_axpby.cu`` with their pointers, ``found``,
+    the length, their dtype codes and ``args``."""
+    dev = bufs[0].device
+    for name, t in zip(names, bufs):
+        check_kernel_input(name, t, tuple(_DTYPE_CODES), dev)
+    lib = _build.library("scale_axpby", fn_name, argtypes,
+                         "apex_scale_axpby_error_string")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(
+            *(t.data_ptr() for t in bufs), found.data_ptr(), bufs[0].numel(),
+            *(_DTYPE_CODES[t.dtype] for t in bufs), *args, stream)
+    _launch_error(lib, "apex_scale_axpby_error_string", kernel, err)
+    _build.count_launch(kernel)
+
+
+def _scale_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
+                  tile_ids, sumsq) -> None:
+    """Launch ``csrc/scale_axpby.cu`` ``apex_scale`` for :func:`_scale_fn`.
+    The kernel sets ``found`` over its output after the cast
+    (:func:`multi_tensor_scale`'s convention), so it takes no input
+    check; the scale may live on the device."""
+    if check_finite or per_tensor or tile_ids is not None or sumsq:
+        raise NotImplementedError(
+            "the scale kernel flags its outputs and takes no input check, "
+            f"per-tensor scalars or sumsq partials; got check_finite="
+            f"{check_finite}")
+    val, ptr = scalar_pointer(scalars[0])
+    P, L, F, I = _build.P, _build.L, _build.F, _build.I
+    _scale_axpby_launch(
+        "apex_scale", SCALE_KERNEL, (P, P, P, L, I, I, F, P, P),
+        ("x", "out"), [inputs[0], outputs[0]], found, val, ptr)
+
+
+def _axpby_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
+                  tile_ids, sumsq) -> None:
+    """Launch ``csrc/scale_axpby.cu`` ``apex_axpby`` for
+    :func:`_axpby_fn`: ``found`` over x, y or both; a and b may live on
+    the device."""
+    if not set(check_finite) <= {0, 1} or per_tensor \
+            or tile_ids is not None or sumsq:
+        raise NotImplementedError(
+            "the axpby kernel checks x (input 0) and/or y (input 1) and "
+            "takes no per-tensor scalars or sumsq partials; got "
+            f"check_finite={check_finite}")
+    (a, a_ptr), (b, b_ptr) = (scalar_pointer(s) for s in scalars)
+    P, L, F, I = _build.P, _build.L, _build.F, _build.I
+    _scale_axpby_launch(
+        "apex_axpby", AXPBY_KERNEL, (P, P, P, P, L, I, I, I, F, F, P, P, I, I,
+                                     P),
+        ("x", "y", "out"), [*inputs, outputs[0]], found, a, b, a_ptr, b_ptr,
+        int(0 in check_finite), int(1 in check_finite))
+
+
+register_kernel(_scale_fn, _scale_kernel)
+register_kernel(_axpby_fn, _axpby_kernel)
+
+
+def multi_tensor_scale(x, scale, *, out_dtype=None, in_place=False,
+                       plain=False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out = x * scale`` in fp32, cast to ``out_dtype`` (default x's;
+    each of fp32, bf16 and fp16 in and out), and ``found_inf`` over the
+    outputs after the cast: a finite x whose scaled value overflows the
+    output dtype counts, as in the reference (:50-51). On CUDA the
+    kernel ``multi_tensor_scale`` sets the flag in the same sweep; the
+    plain version checks the output afterwards, as the reference does.
+    ``scale`` may be a 0-d tensor on the card (the kernel reads it by
+    pointer). With ``in_place`` the result is written into x (same
+    dtype). ``plain=True`` runs the plain version on any device.
+    Returns ``(out, found_inf)``."""
+    kernel = not plain and uses_kernel(x)
+    (out,), found = fused_elementwise(
+        _scale_fn, [x], scalars=[scale], out_dtypes=[out_dtype or x.dtype],
+        aliases={0: 0} if in_place else None, kernel=kernel)
+    if not kernel:
+        found = (~torch.isfinite(out).all()).to(torch.float32)
+    return out, found
+
+
+def multi_tensor_axpby(x, y, a, b, *, arg_to_check=-1, out_dtype=None,
+                       in_place=False, plain=False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``out = x * a + y * b`` in fp32, cast to ``out_dtype`` (default
+    x's), with ``found_inf`` over x and y (``arg_to_check=-1``), x alone
+    (0) or y alone (1), as the reference's (:55-71; the amp scaler's
+    gradient accumulation). ``a`` and ``b`` may be 0-d tensors on the
+    card. With ``in_place`` the result is written into x (same dtype).
+    ``plain=True`` runs the plain version on any device (kernel
+    ``multi_tensor_axpby`` on CUDA). Returns ``(out, found_inf)``."""
+    if arg_to_check not in (-1, 0, 1):
+        raise ValueError(f"arg_to_check must be -1, 0 or 1, got "
+                         f"{arg_to_check}")
+    (out,), found = fused_elementwise(
+        _axpby_fn, [x, y], scalars=[a, b], out_dtypes=[out_dtype or x.dtype],
+        check_finite={-1: (0, 1), 0: (0,), 1: (1,)}[arg_to_check],
+        aliases={0: 0} if in_place else None,
+        kernel=False if plain else None)
+    return out, found
+
+
+# ---------------------------------------------------------------------------
+# Adam (the reference's :140-185; ref csrc/multi_tensor_adam.cu)
+# ---------------------------------------------------------------------------
 
 
 def _adam_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
@@ -161,9 +311,7 @@ def fused_adam_update(
     if not bias_correction:
         bc1 = bc2 = _f32(1.0)
     mode = 1.0 if adam_w_mode else 0.0
-    inv_scale = (1.0 / _dev_f32(grad_scale, g.device)
-                 if isinstance(grad_scale, torch.Tensor)
-                 else 1.0 / _f32(grad_scale))
+    inv_scale = _inv_scale(grad_scale, g.device)
     (p2, m2, v2), found = fused_elementwise(
         _adam_fn, [p, m, v, g],
         scalars=[lr, beta1, beta2, eps, weight_decay, bc1, bc2, mode,
@@ -173,6 +321,87 @@ def fused_adam_update(
         aliases={0: 0, 1: 1, 2: 2} if in_place else None,
         kernel=False if plain else None)
     return p2, m2, v2, found
+
+
+# ---------------------------------------------------------------------------
+# Adagrad (the reference's :192-217; ref csrc/multi_tensor_adagrad.cu)
+# ---------------------------------------------------------------------------
+
+
+def _adagrad_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
+                ) -> List[torch.Tensor]:
+    """The reference's Adagrad functor (:201-206), one elementwise op at
+    a time on fp32 0-d scalars; the division stays a division."""
+    p_, h_, g_ = [x.float() for x in ins]
+    lr_, eps_, wd, inv_scale = s
+    g_ = g_ * inv_scale + wd * p_
+    h2 = h_ + g_ * g_
+    return [p_ - lr_ * g_ / (torch.sqrt(h2) + eps_), h2]
+
+
+def _adagrad_family_launch(fn_name: str, kernel: str, argtypes, names,
+                           inputs, outputs, found, *args) -> None:
+    """Check the three fp32 inputs and two outputs, then launch
+    ``fn_name`` of ``csrc/adagrad_novograd.cu`` with ``args`` after the
+    buffers and ``found``, on the buffers' current stream."""
+    dev = inputs[0].device
+    for name, t in zip(names, (*inputs, *outputs)):
+        check_kernel_input(name, t, (torch.float32,), dev)
+    lib = _build.library("adagrad_novograd", fn_name, argtypes,
+                         "apex_adagrad_novograd_error_string")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, fn_name)(
+            *(t.data_ptr() for t in (*inputs, *outputs)), found.data_ptr(),
+            *args, stream)
+    _launch_error(lib, "apex_adagrad_novograd_error_string", kernel, err)
+    _build.count_launch(kernel)
+
+
+def _adagrad_kernel(inputs, outputs, scalars, found, check_finite,
+                    per_tensor, tile_ids, sumsq) -> None:
+    """Launch ``csrc/adagrad_novograd.cu`` ``apex_adagrad`` for
+    :func:`_adagrad_fn`: the gradient's multiplier (scalar 3, 1 /
+    grad_scale) may live on the device."""
+    if check_finite != (2,) or per_tensor or tile_ids is not None or sumsq:
+        raise NotImplementedError(
+            "the Adagrad kernel checks g (input 2) for non-finite values "
+            "and takes no per-tensor scalars or sumsq partials; got "
+            f"check_finite={check_finite}")
+    _host_scalars(ADAGRAD_KERNEL, scalars, allowed_device=(3,))
+    lr, eps, wd, _ = scalars
+    inv_val, inv_ptr = scalar_pointer(scalars[3])
+    P, L, F = _build.P, _build.L, _build.F
+    _adagrad_family_launch(
+        "apex_adagrad", ADAGRAD_KERNEL, (P,) * 6 + (L,) + (F,) * 4 + (P, P),
+        ("p", "h", "g", "p_out", "h_out"), inputs, outputs, found,
+        inputs[0].numel(), lr, eps, wd, inv_val, inv_ptr)
+
+
+register_kernel(_adagrad_fn, _adagrad_kernel)
+
+
+def fused_adagrad_update(
+    p, h, g, *, lr, eps=1e-10, weight_decay=0.0, grad_scale=1.0,
+    in_place=True, plain=False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused Adagrad step over flat fp32 buffers (kernel
+    ``fused_adagrad``), L2-mode weight decay (the reference's
+    ADAGRAD_MODE_0): ``h += g'^2; p -= lr * g' / (sqrt(h) + eps)`` with
+    ``g' = g / grad_scale + wd * p``. The reciprocal of ``grad_scale`` is
+    taken in fp32 as the reference takes it (:208); a 0-d tensor on the
+    card stays there and the kernel reads its reciprocal by pointer.
+    With ``in_place`` p and h are overwritten; else new buffers are
+    returned and the inputs left as they were. ``plain=True`` runs the
+    plain version on any device. Returns ``(p', h', found_inf)``,
+    ``found_inf`` covering g."""
+    (p2, h2), found = fused_elementwise(
+        _adagrad_fn, [p, h, g],
+        scalars=[lr, eps, weight_decay, _inv_scale(grad_scale, g.device)],
+        num_outputs=2, out_dtypes=[p.dtype, h.dtype], check_finite=(2,),
+        aliases={0: 0, 1: 1} if in_place else None,
+        kernel=False if plain else None)
+    return p2, h2, found
 
 
 # ---------------------------------------------------------------------------
@@ -637,6 +866,115 @@ def lamb_stage2_segments(p, u, p_out, ratio, tile_ids, segs, seg_elems, *,
 
 
 # ---------------------------------------------------------------------------
+# NovoGrad (the reference's :419-468; ref csrc/multi_tensor_novograd.cu)
+# ---------------------------------------------------------------------------
+
+
+def _novograd_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor],
+                 t: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The reference's NovoGrad functor (:451-457), one elementwise op at
+    a time on fp32 0-d scalars: the gradient is divided by its leaf's
+    denominator, and ``lr / bc1`` is a division too."""
+    p_, m_, g_ = [x.float() for x in ins]
+    lr_, b1, beta3_, wd, bc1_ = s
+    (dn,) = t
+    g_ = g_ / dn + wd * p_
+    m2 = b1 * m_ + beta3_ * g_
+    return [p_ - (lr_ / bc1_) * m2, m2]
+
+
+def _novograd_kernel(inputs, outputs, scalars, found, check_finite,
+                     per_tensor, tile_ids, sumsq) -> None:
+    """Launch ``csrc/adagrad_novograd.cu`` ``apex_novograd`` for
+    :func:`_novograd_fn`: the denominators stay on the device, each
+    subtile reads its leaf's."""
+    if check_finite != (2,) or sumsq or len(per_tensor) != 1 \
+            or tile_ids is None:
+        raise NotImplementedError(
+            "the NovoGrad kernel checks g (input 2), takes one per-tensor "
+            "denominator through tile_ids and no sumsq partials; got "
+            f"check_finite={check_finite}")
+    _host_scalars(NOVOGRAD_KERNEL, scalars)
+    lr, b1, beta3, wd, bc1 = scalars
+    (denom,) = per_tensor
+    P, L, F = _build.P, _build.L, _build.F
+    _adagrad_family_launch(
+        "apex_novograd", NOVOGRAD_KERNEL, (P,) * 8 + (L,) + (F,) * 5 + (P,),
+        ("p", "m", "g", "p_out", "m_out"), inputs, outputs, found,
+        denom.data_ptr(), tile_ids.data_ptr(), inputs[0].numel(), lr, bc1, b1,
+        beta3, wd)
+
+
+register_kernel(_novograd_fn, _novograd_kernel)
+
+
+def novograd_denominators(g_norm, v, *, beta2, eps, step, bias_correction):
+    """NovoGrad's per-leaf second moment and denominator (:436-447),
+    scalar work on ``g_norm``'s device: ``v' = ||g||^2`` at step 1, else
+    ``b2 * v + (1 - b2) * ||g|| * ||g||``, and ``(sqrt(v') + eps) /
+    sqrt(bc2)``. ``1 - b2`` is taken in Python double and rounded once,
+    as the reference's Python arithmetic is. Returns ``(v', denom)``."""
+    dev = g_norm.device
+    if step > 1:
+        v2 = (_dev_f32(beta2, dev) * v
+              + _dev_f32(1.0 - beta2, dev) * g_norm * g_norm)
+    else:
+        v2 = g_norm * g_norm
+    bc2 = (1.0 - torch.pow(_f32(beta2), _f32(float(step)))
+           if bias_correction else _f32(1.0))
+    denom = (torch.sqrt(v2) + _dev_f32(eps, dev)) \
+        / torch.sqrt(_dev_f32(bc2, dev))
+    return v2, denom
+
+
+def novograd_apply(p, m, g, denom, *, lr, beta1, beta3, weight_decay, bc1,
+                   tile_ids, in_place=True, plain=False):
+    """The NovoGrad sweep (kernel ``fused_novograd``) given the per-leaf
+    ``denom`` (read through the subtile map ``tile_ids``): returns
+    ``(p', m', found_inf)``."""
+    (p2, m2), found = fused_elementwise(
+        _novograd_fn, [p, m, g],
+        scalars=[lr, beta1, beta3, weight_decay, bc1], per_tensor=[denom],
+        tile_ids=tile_ids, num_outputs=2,
+        out_dtypes=[p.dtype, m.dtype], check_finite=(2,),
+        aliases={0: 0, 1: 1} if in_place else None,
+        kernel=False if plain else None)
+    return p2, m2, found
+
+
+def fused_novograd_update(
+    p, m, v, g, space: FlatSpace, *,
+    lr, beta1=0.95, beta2=0.98, eps=1e-8, step=1, weight_decay=0.0,
+    grad_averaging=True, bias_correction=False, in_place=True, plain=False,
+):
+    """One NovoGrad step over flat fp32 buffers: the second moment ``v``
+    is one fp32 scalar per leaf (``(num_leaves,)``), an EMA of the leaf's
+    ||g||^2. The per-leaf norms of g (one sweep of kernel ``sumsq``), the
+    denominators (:func:`novograd_denominators`, on the device), then
+    the NovoGrad sweep (:func:`novograd_apply`). ``beta3`` is ``1 -
+    beta1`` in Python double (or 1 without grad averaging) rounded once
+    to fp32, as the reference takes it (:438); LAMB's is computed in
+    fp32. With ``in_place`` p, m and v are overwritten; else new buffers
+    are returned and the inputs left as they were. ``plain=True`` runs
+    the plain versions on any device. Returns ``(p', m', v', found_inf)``,
+    ``found_inf`` covering g."""
+    v2, denom = novograd_denominators(
+        per_tensor_l2norm(g, space, plain=plain), v, beta2=beta2, eps=eps,
+        step=step, bias_correction=bias_correction)
+    bc1 = (1.0 - torch.pow(_f32(beta1), _f32(float(step)))
+           if bias_correction else _f32(1.0))
+    p2, m2, found = novograd_apply(
+        p, m, g, denom, lr=lr, beta1=beta1,
+        beta3=1.0 - beta1 if grad_averaging else 1.0,
+        weight_decay=weight_decay, bc1=bc1,
+        tile_ids=space.device_subtile_leaf_ids(p.device), in_place=in_place,
+        plain=plain)
+    if in_place:
+        v2 = v.copy_(v2)
+    return p2, m2, v2, found
+
+
+# ---------------------------------------------------------------------------
 # LARS (the reference's :471-499; ref csrc/multi_tensor_lars.cu)
 # ---------------------------------------------------------------------------
 
@@ -731,11 +1069,14 @@ def fused_lars_update(
                       in_place=in_place, plain=plain)
 
 
-__all__ = ["ADAM_KERNEL", "LAMB_STAGE1_KERNEL", "LAMB_STAGE2_KERNEL",
-           "LARS_KERNEL", "SGD_KERNEL", "fused_adam_update",
+__all__ = ["ADAGRAD_KERNEL", "ADAM_KERNEL", "AXPBY_KERNEL",
+           "LAMB_STAGE1_KERNEL", "LAMB_STAGE2_KERNEL", "LARS_KERNEL",
+           "NOVOGRAD_KERNEL", "SCALE_KERNEL", "SGD_KERNEL",
+           "fused_adagrad_update", "fused_adam_update",
            "fused_lamb_compute_update_term", "fused_lamb_update",
-           "fused_lars_update", "fused_sgd_update", "fused_unscale_l2norm",
-           "lamb_apply", "lamb_inv_scale", "lamb_scalars",
-           "lamb_stage1_segments", "lamb_stage2_segments",
+           "fused_lars_update", "fused_novograd_update", "fused_sgd_update",
+           "fused_unscale_l2norm", "lamb_apply", "lamb_inv_scale",
+           "lamb_scalars", "lamb_stage1_segments", "lamb_stage2_segments",
            "lamb_trust_ratio", "lars_apply", "lars_ratio",
-           "multi_tensor_l2norm", "per_tensor_l2norm"]
+           "multi_tensor_axpby", "multi_tensor_l2norm", "multi_tensor_scale",
+           "novograd_apply", "novograd_denominators", "per_tensor_l2norm"]

@@ -2,10 +2,11 @@
 
 Counterpart of ``apex_tpu/optimizers/fused.py`` (``FlatOptState``,
 ``FlatFusedOptimizer``, ``FusedAdam``, ``FusedLAMB``, ``FusedSGD``,
-``FusedLARS``). The state holds the fp32 master
-copy of every parameter and the optimizer's slots as flat buffers laid
-out by a :class:`~apex_tpu_torch.multi_tensor.FlatSpace`, and one fused
-kernel sweep updates them all.
+``FusedNovoGrad``, ``FusedAdagrad``, ``FusedLARS``). The state holds the
+fp32 master copy of every parameter and the optimizer's slots as flat
+buffers laid out by a :class:`~apex_tpu_torch.multi_tensor.FlatSpace`
+(NovoGrad's ``v``: one value a leaf), and one fused kernel sweep updates
+them all.
 
 Where the reference is functional (new buffers each step, donated by
 the jitted step), the port updates in place: ``step_flat`` overwrites
@@ -26,9 +27,10 @@ fp32 as the reference computes them. ``found_inf`` stays a 0-d fp32
 tensor on the device. FusedLAMB's clip factor and trust ratios stay on
 the device too (the kernels read them by pointer): its step reads
 nothing on the host but ``found_inf`` on the skip path; so do FusedSGD's
-and FusedLARS's first-run flag and FusedLARS's ratios. The other
-optimizers (NovoGrad, Adagrad) wait for their kernels; a bf16 master
-with stochastic rounding raises, and so does ``FusedMixedPrecisionLamb``.
+and FusedLARS's first-run flag and FusedLARS's ratios, FusedNovoGrad's
+per-leaf norms and denominators, and FusedAdagrad's gradient scale. A
+bf16 master with stochastic rounding raises, and so does
+``FusedMixedPrecisionLamb``.
 """
 
 from __future__ import annotations
@@ -41,13 +43,15 @@ import torch
 
 from apex_tpu_torch.multi_tensor import (
     FlatSpace,
+    fused_adagrad_update,
     fused_adam_update,
     fused_lamb_segmented_update,
     fused_lamb_update,
     fused_lars_update,
+    fused_novograd_update,
     fused_sgd_update,
 )
-from apex_tpu_torch.multi_tensor.ops import _dev_f32, _f32
+from apex_tpu_torch.multi_tensor.ops import _dev_f32, _inv_scale
 from apex_tpu_torch.multi_tensor.flat_buffer import (
     CHUNK,
     DEFAULT_ALIGN,
@@ -100,7 +104,10 @@ class FlatFusedOptimizer:
 
     # -- subclass hooks ----------------------------------------------------
 
-    def _init_slots(self, master: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _init_slots(self, space: FlatSpace, master: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+        """The zeroed slots for ``master`` (laid out by ``space``: a
+        per-leaf slot has ``space.num_leaves`` entries)."""
         raise NotImplementedError
 
     def _update(self, state: FlatOptState, g: torch.Tensor, lr,
@@ -120,7 +127,7 @@ class FlatFusedOptimizer:
         space = FlatSpace.create(params)
         master = space.pack(params, dtype=self.master_dtype)
         return FlatOptState(
-            space=space, master=master, slots=self._init_slots(master),
+            space=space, master=master, slots=self._init_slots(space, master),
             count=0, found_inf=torch.zeros((), dtype=torch.float32,
                                            device=master.device))
 
@@ -221,7 +228,7 @@ class FusedAdam(FlatFusedOptimizer):
         self.adam_w_mode = adam_w_mode
         self.weight_decay = weight_decay
 
-    def _init_slots(self, master):
+    def _init_slots(self, space, master):
         return {"m": torch.zeros_like(master), "v": torch.zeros_like(master)}
 
     def _update(self, state, g, lr, grad_scale, in_place):
@@ -360,12 +367,12 @@ class FusedLAMB(FlatFusedOptimizer):
         space, meta = self.layout(params)
         master = space.pack(params, dtype=self.master_dtype)
         return FlatOptState(
-            space=space, master=master, slots=self._init_slots(master),
+            space=space, master=master, slots=self._init_slots(space, master),
             count=0, found_inf=torch.zeros((), dtype=torch.float32,
                                            device=master.device),
             seg_meta=meta)
 
-    def _init_slots(self, master):
+    def _init_slots(self, space, master):
         return {"m": torch.zeros_like(master), "v": torch.zeros_like(master)}
 
     def _update(self, state, g, lr, grad_scale, in_place,
@@ -422,20 +429,86 @@ class FusedSGD(FlatFusedOptimizer):
         self.nesterov = nesterov
         self.wd_after_momentum = wd_after_momentum
 
-    def _init_slots(self, master):
+    def _init_slots(self, space, master):
         return _first_run_slots(master)
 
     def _update(self, state, g, lr, grad_scale, in_place):
-        scale = (1.0 / _dev_f32(grad_scale, g.device)
-                 if isinstance(grad_scale, torch.Tensor)
-                 else 1.0 / _f32(grad_scale))
         p2, mom2, found = fused_sgd_update(
             state.master, state.slots["momentum"], g, lr=lr,
             momentum=self.momentum, dampening=self.dampening,
             nesterov=self.nesterov, weight_decay=self.weight_decay,
-            wd_after_momentum=self.wd_after_momentum, scale=scale,
+            wd_after_momentum=self.wd_after_momentum,
+            scale=_inv_scale(grad_scale, g.device),
             first_run=state.slots["initialized"] == 0, in_place=in_place)
         return p2, _momentum_slots(state, mom2), found
+
+
+class FusedNovoGrad(FlatFusedOptimizer):
+    """NovoGrad with a per-leaf scalar second moment (the reference's
+    ``FusedNovoGrad``, :521): the per-leaf norms of the gradient (kernel
+    ``sumsq``), the denominators on the device, then one sweep (kernel
+    ``fused_novograd``). ``v`` is a ``(num_leaves,)`` fp32 slot. The
+    gradient is divided by ``grad_scale`` in a plain pass first where
+    the scale is not 1, as in the reference (:542): a 0-d device scale
+    through ``torch.where`` (no host read); a host scale of 1 skips the
+    pass (g / 1 is g, bit for bit). It has no clip of its own: clip
+    first (``contrib.clip_grad.clip_grad_norm_``) or through
+    ``make_train_step(max_grad_norm=...)``."""
+
+    def __init__(self, lr=1e-3, betas=(0.95, 0.98), eps=1e-8,
+                 weight_decay=0.0, grad_averaging=True, bias_correction=False,
+                 *, master_dtype=torch.float32, stochastic_rounding=False):
+        super().__init__(lr, master_dtype=master_dtype,
+                         stochastic_rounding=stochastic_rounding)
+        self.betas = betas
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.grad_averaging = grad_averaging
+        self.bias_correction = bias_correction
+
+    def _init_slots(self, space, master):
+        return {"m": torch.zeros_like(master),
+                "v": torch.zeros(space.num_leaves, dtype=torch.float32,
+                                 device=master.device)}
+
+    def _update(self, state, g, lr, grad_scale, in_place):
+        if isinstance(grad_scale, torch.Tensor):
+            gs = _dev_f32(grad_scale, g.device)
+            g = torch.where(gs != 1.0, g / gs, g)
+        elif grad_scale != 1.0:
+            g = g / _dev_f32(grad_scale, g.device)
+        p2, m2, v2, found = fused_novograd_update(
+            state.master, state.slots["m"], state.slots["v"], g, state.space,
+            lr=lr, beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
+            step=state.count + 1, weight_decay=self.weight_decay,
+            grad_averaging=self.grad_averaging,
+            bias_correction=self.bias_correction, in_place=in_place)
+        return p2, {"m": m2, "v": v2}, found
+
+
+class FusedAdagrad(FlatFusedOptimizer):
+    """Adagrad in one fused kernel (the reference's ``FusedAdagrad``,
+    :555; ``csrc/adagrad_novograd.cu``): L2 weight decay, the gradient
+    multiplied by the fp32 reciprocal of ``grad_scale`` inside the sweep
+    (a 0-d device scale, as the fused train step gives it, is read by
+    pointer)."""
+
+    def __init__(self, lr=1e-2, eps=1e-10, weight_decay=0.0, *,
+                 master_dtype=torch.float32, stochastic_rounding=False):
+        super().__init__(lr, master_dtype=master_dtype,
+                         stochastic_rounding=stochastic_rounding)
+        self.eps = eps
+        self.weight_decay = weight_decay
+
+    def _init_slots(self, space, master):
+        return {"h": torch.zeros_like(master)}
+
+    def _update(self, state, g, lr, grad_scale, in_place):
+        p2, h2, found = fused_adagrad_update(
+            state.master, state.slots["h"], g, lr=lr, eps=self.eps,
+            weight_decay=self.weight_decay, grad_scale=grad_scale,
+            in_place=in_place)
+        return p2, {"h": h2}, found
 
 
 class FusedLARS(FlatFusedOptimizer):
@@ -459,7 +532,7 @@ class FusedLARS(FlatFusedOptimizer):
         self.eps = eps
         self.clip = clip
 
-    def _init_slots(self, master):
+    def _init_slots(self, space, master):
         return _first_run_slots(master)
 
     def _update(self, state, g, lr, grad_scale, in_place):
@@ -485,5 +558,6 @@ class FusedMixedPrecisionLamb(FusedLAMB):
             "master")
 
 
-__all__ = ["FlatFusedOptimizer", "FlatOptState", "FusedAdam", "FusedLAMB",
-           "FusedLARS", "FusedMixedPrecisionLamb", "FusedSGD"]
+__all__ = ["FlatFusedOptimizer", "FlatOptState", "FusedAdagrad", "FusedAdam",
+           "FusedLAMB", "FusedLARS", "FusedMixedPrecisionLamb",
+           "FusedNovoGrad", "FusedSGD"]

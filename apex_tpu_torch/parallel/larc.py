@@ -1,17 +1,17 @@
 """LARC: layer-wise adaptive rate clipping or scaling around a fused
 optimizer.
 
-Counterpart of ``apex_tpu/parallel/larc.py`` ``LARC`` (:67) and
-``_adaptive_ratio`` (:27): each leaf's gradient is multiplied by
-``trust * ||p|| / (||g|| + wd * ||p|| + eps) / lr`` (``lr / lr`` where a
-norm is 0), capped at 1 in clip mode, and the wrapped optimizer then
-takes its step with the base lr. As in the reference, the per-leaf norms
-and the ratios are plain tensor code (XLA there, PyTorch here, on the
-device: nothing is read on the host); the step is the wrapped
+Counterpart of ``apex_tpu/parallel/larc.py`` ``LARC`` (:67),
+``larc_transform`` (:38) and ``_adaptive_ratio`` (:27): each leaf's
+gradient is multiplied by ``trust * ||p|| / (||g|| + wd * ||p|| + eps) /
+lr`` (``lr / lr`` where a norm is 0), capped at 1 in clip mode, and the
+optimizer then takes its step with the base lr. As in the reference, the
+per-leaf norms and the ratios are plain tensor code (XLA there, PyTorch
+here, on the device: nothing is read on the host); the step is the
 optimizer's kernel (``FusedSGD``: ``csrc/fused_sgd.cu``).
-
-The optax transformation ``larc_transform`` waits with the optax
-adapter.
+``larc_transform`` is the same scaling as a
+:class:`~apex_tpu_torch.optimizers.optax_adapter.GradientTransformation`
+over name -> tensor mappings, to run before any optimizer.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from apex_tpu_torch.optimizers.fused import (
     FlatOptState,
     _resolve_lr,
 )
+from apex_tpu_torch.optimizers.optax_adapter import GradientTransformation
 
 
 def adaptive_ratio(p_norm: torch.Tensor, g_norm: torch.Tensor, lr: torch.Tensor,
@@ -39,6 +40,36 @@ def adaptive_ratio(p_norm: torch.Tensor, g_norm: torch.Tensor, lr: torch.Tensor,
     if clip:
         return torch.clamp(adaptive / lr, max=1.0)
     return adaptive / lr
+
+
+def larc_transform(learning_rate: float, trust_coefficient: float = 0.02,
+                   clip: bool = True, eps: float = 1e-8,
+                   weight_decay: float = 0.0) -> GradientTransformation:
+    """LARC as a gradient transformation (the reference's, :38): its
+    ``update(grads, state, params)`` scales each leaf's gradient by its
+    adaptive-lr / base-lr ratio (norms of the leaf, in fp32), so the
+    optimizer that follows with ``learning_rate`` realises LARC. The
+    state is empty."""
+
+    def init_fn(params: Mapping[str, torch.Tensor]) -> tuple:
+        return ()
+
+    def update_fn(updates: Mapping[str, torch.Tensor], state, params=None):
+        if params is None:
+            raise ValueError("larc_transform requires params")
+        out = {}
+        for k, g in updates.items():
+            p = params[k]
+            r = adaptive_ratio(
+                torch.linalg.vector_norm(p.float()),
+                torch.linalg.vector_norm(g.float()),
+                _dev_f32(learning_rate, g.device),
+                trust_coefficient=trust_coefficient, clip=clip, eps=eps,
+                weight_decay=weight_decay)
+            out[k] = (g.float() * r).to(g.dtype)
+        return out, state
+
+    return GradientTransformation(init_fn, update_fn)
 
 
 class LARC:
@@ -84,4 +115,4 @@ class LARC:
         return self.optimizer.step_flat(state, scaled, lr=lr, **kw)
 
 
-__all__ = ["LARC", "adaptive_ratio"]
+__all__ = ["LARC", "adaptive_ratio", "larc_transform"]

@@ -37,7 +37,20 @@ Phases, in order; any failure exits non-zero before the last line:
    as it was; LARS bitwise given the same ratios, the whole update
    (norms on the sum-of-squares kernel) within LARS_TOL of the plain
    one; the library yardstick is ``torch.optim.SGD(fused=True)`` over
-   the same 161 tensors (LARS has none).
+   the same 161 tensors (LARS has none). Then the scale, axpby, Adagrad
+   and NovoGrad kernels over GPT-2 345M's flat buffers (355 M fp32):
+   scale bitwise for fp32, bf16 and fp16 in and out with a host and a
+   device factor (an inf, a nan and an fp16 output that overflows set
+   found_inf); axpby bitwise (host and device a, b; bf16 x; bf16 and
+   fp16 out), found_inf over x, y or both as ``arg_to_check`` says;
+   Adagrad bitwise with weight decay and a host and a device grad_scale;
+   NovoGrad bitwise given the same per-leaf denominators, the whole
+   update (norms on the sum-of-squares kernel) within NOVOGRAD_TOL of
+   the plain one; an inf and a nan set found_inf and the out-of-place
+   calls leave their inputs as they were. Library yardsticks:
+   ``torch.mul(x, s, out=y)`` for scale, ``torch.optim.Adagrad`` (fused
+   where the card's PyTorch takes it, else foreach) over the GPT's
+   tensors; none for axpby and NovoGrad.
 3. Serving at full width: GPT-2 345M (hidden 1024, 24 layers, 16 heads,
    vocab 50304, bf16 compute, fp32 parameters, random weights from the
    seed) behind ``ContinuousBatcher(max_batch=8, prefill_chunk=256)``
@@ -110,7 +123,25 @@ Phases, in order; any failure exits non-zero before the last line:
    running statistics finite, ``fused_sgd`` once a step
    (``fused_lars`` once and ``sumsq`` twice on the LARS run). Step time
    (median of steps 3-10, 2-3 on the short runs), images/s, peak memory.
-9. Each phase's wall seconds, the ``kernels`` JSON line (all seventeen
+9. GPT-2 345M (phase 4's model, weights and batch of 8 x 1024) with
+   (a) ``FusedNovoGrad(lr=1e-2, betas=(0.95, 0.98), weight_decay=1e-3)``
+   and the contrib clip, the reference user's loop (``PretrainStep.
+   backward``, ``clip_grad_norm_(step.grad, 1.0)`` on the flat gradient,
+   ``step_flat``), ten steps: ``sumsq`` twice a step (the clip's norm and
+   NovoGrad's per-leaf norms), ``multi_tensor_scale`` and
+   ``fused_novograd`` once; the loss must fall; and (b)
+   ``make_train_step(FusedAdagrad(lr=1e-3, weight_decay=0.01),
+   scaler=LossScaler(), max_grad_norm=1.0)`` through ``PretrainStep``,
+   three steps: ``sumsq_scaled`` and ``fused_adagrad`` once a step; the
+   first update must lower the loss; then one step with an inf in the
+   gradient, skipped with master and h bitwise unchanged and the scale
+   halved. Launch counts are set to 0 just before each run and read
+   just after. Each: step time, tokens/s, peak memory, one profiled step
+   with the optimizer's share, one update through the kernels against
+   their plain versions on the real gradient; then one gradient
+   accumulation of two real gradients through ``multi_tensor_axpby``
+   (counts reset: no model path calls it).
+10. Each phase's wall seconds, the ``kernels`` JSON line (all twenty-one
    kernels, each with its launches on its path), then the device line
    the caller reads.
 
@@ -132,6 +163,7 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch import _build, amp
+from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
 from apex_tpu_torch.models import (
     BertConfig,
     BertModel,
@@ -161,9 +193,11 @@ from apex_tpu_torch.models.gpt import KERNEL_OPS, PLAIN_OPS
 from apex_tpu_torch.ops import attention, layer_norm, softmax
 from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
 from apex_tpu_torch.optimizers import (
+    FusedAdagrad,
     FusedAdam,
     FusedLAMB,
     FusedLARS,
+    FusedNovoGrad,
     FusedSGD,
     make_train_step,
 )
@@ -275,6 +309,21 @@ RESNET_FP32_TOL = 1e-3
 # share of its terms (|mu * mom| + |mom'|), p' within lr times that plus
 # one ulp of the larger of |p| and |p'|
 LARS_TOL = 1e-6
+# GPT-2 345M with FusedNovoGrad and the clip, then FusedAdagrad under the
+# dynamic loss scaler (phase 9): the reference user's settings
+# (FusedNovoGrad's defaults: grad averaging, no bias correction)
+NOVOGRAD_LR, NOVOGRAD_BETAS, NOVOGRAD_WD = 1e-2, (0.95, 0.98), 1e-3
+NOVOGRAD_STEPS, ADAGRAD_STEPS = 10, 3
+ADAGRAD_LR = 1e-3
+CLIP_NORM = 1.0
+# a full NovoGrad update, kernels against plain versions: the per-leaf
+# norms are fp32 sums in other orders, the largest leaf (the embedding,
+# 51.5 M elements) summing 25,152 subtile partials through atomics in no
+# fixed order (an H100 read 3.2e-6 relative on v'), as SUMSQ_REL_TOL. v'
+# within this share of itself, m' within this share of its terms (|b1 m|
+# + |m'| + |wd p|) plus one ulp, p' within lr / bc1 times that plus one
+# ulp of the larger of |p| and |p'|
+NOVOGRAD_TOL = 1e-5
 
 PROMPT_LENS = (700, 32, 411, 96, 256, 530, 64, 180)
 MAX_NEW = 32
@@ -368,10 +417,13 @@ def _profiled(run, label: str, shares: dict):
                          for e in prof.key_averages()), reverse=True)
     busy = sum(t for t, _, _ in per_kernel)
     part = dict.fromkeys(shares, 0.0)       # each kernel in its first match
-    for t, _, key in per_kernel:
+    matched = []
+    for t, n, key in per_kernel:
         for k, keys in shares.items():
             if any(x in key for x in keys):
                 part[k] += t
+                matched.append({"share": k, "ms": t, "count": n,
+                                "name": key[:90]})
                 break
     if busy > 0:
         print(f"  profiled {label}: wall {wall * 1e3:.1f} ms, device busy "
@@ -380,11 +432,15 @@ def _profiled(run, label: str, shares: dict):
                           for k, v in part.items()) + "; top:")
         for t, n, key in per_kernel[:10]:
             print(f"    {t:9.3f} ms {n:6d}x  {key[:90]}")
+        print("    in the shares: " + "; ".join(
+            f"{m['name'][:40]} {m['ms']:.3f} ms {m['count']}x"
+            for m in matched[:8]))
     else:
         print(f"  profiled {label}: the profiler traced no device time "
               "(breakdown not measured)")
     return result, {"wall_ms": wall * 1e3, "device_busy_ms": busy,
                     **{f"{k}_ms": v for k, v in part.items()},
+                    "matched": matched,
                     "top": [{"ms": t, "count": n, "name": key}
                             for t, n, key in per_kernel[:20]]}
 
@@ -1221,6 +1277,335 @@ def lars_case(dev, space: FlatSpace) -> dict:
             "update_plain_ms": full_plain_ms, "update_bound_ms": fb_ms,
             "excess": {"mom": m_excess, "p": p_excess}, "bitwise": flags,
             "shape": f"n={n} fp32 (ResNet-50 flat buffers)"}
+
+
+# -- GPT-2 345M's flat buffers: the scale, axpby, Adagrad and NovoGrad kernels
+
+
+def _same_bits(a, b) -> bool:
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def scale_case(dev) -> dict:
+    """The scale kernel over a GPT-2 345M-sized flat gradient, bitwise
+    against the plain version for fp32, bf16 and fp16 in and out, with a
+    host and a device scale; an inf, a nan and an fp16 output that
+    overflows set found_inf; the out-of-place call leaves x as it was.
+    Timed in place on fp32 with a device factor (the clip's call) and out
+    of place fp32 -> bf16."""
+    n = gpt_flat_size(GPTConfig.gpt2_345m())
+    x = _seeded(n, dev, 41, 1e-2)
+    coef = torch.full((), 0.7, device=dev)
+    cases = {"fp32_device_scale": (torch.float32, None, coef),
+             "fp32_host_scale": (torch.float32, None, 0.7),
+             "fp32_to_bf16": (torch.float32, torch.bfloat16, coef),
+             "fp32_to_fp16": (torch.float32, torch.float16, 0.7),
+             "bf16_to_fp32": (torch.bfloat16, torch.float32, coef),
+             "fp16_to_bf16": (torch.float16, torch.bfloat16, 0.7)}
+    flags, err = {}, 0.0
+    for case, (in_dt, out_dt, sc) in cases.items():
+        xin = x if in_dt == torch.float32 else x.to(in_dt)
+        want = mt_ops.multi_tensor_scale(xin, sc, out_dtype=out_dt,
+                                         plain=True)
+        got = mt_ops.multi_tensor_scale(xin, sc, out_dtype=out_dt)
+        torch.cuda.synchronize()
+        flags[case] = (_same_bits(got[0], want[0])
+                       and float(got[1]) == float(want[1]) == 0.0)
+        err = max(err, float((got[0].float() - want[0].float()).abs().max()))
+        del xin, want, got
+    found = []
+    for bad, out_dt in ((float("inf"), None), (float("nan"), None),
+                        (1e5, torch.float16)):
+        b = x.clone()
+        b[n // 3] = bad
+        found.append(float(mt_ops.multi_tensor_scale(b, 1.0,
+                                                     out_dtype=out_dt)[1]))
+        del b
+    before = x.clone()
+    mt_ops.multi_tensor_scale(x, coef)
+    untouched = torch.equal(x, before)
+    del before
+    print(f"  multi_tensor_scale n={n}: bitwise {flags}; max_abs_err="
+          f"{err:.3e}; found_inf with an inf, a nan, an fp16 overflow "
+          f"{found}; out of place leaves x: {untouched}")
+    check(all(flags.values()), "multi_tensor_scale kernel is not bitwise "
+          "equal to its plain version")
+    check(found == [1.0, 1.0, 1.0] and untouched,
+          "multi_tensor_scale found_inf / out of place wrong")
+    one = torch.ones((), device=dev)          # an unclipped step's factor
+    kernel = lambda: mt_ops.multi_tensor_scale(  # noqa: E731
+        x, one, in_place=True)
+    ms, h_ms = device_ms(kernel), host_ms(kernel)
+    bf16_ms = device_ms(lambda: mt_ops.multi_tensor_scale(
+        x, one, out_dtype=torch.bfloat16))
+    plain_ms = host_ms(lambda: mt_ops.multi_tensor_scale(
+        x, one, in_place=True, plain=True), iters=3, warmup=1)
+    y = torch.empty_like(x)
+    lib_ms = device_ms(lambda: torch.mul(x, one, out=y))
+    del y
+    b_ms, by = bound(8 * n, n, PEAK_FP32_FLOPS)
+    b16_ms, _ = bound(6 * n, n, PEAK_FP32_FLOPS)
+    print(f"    fp32 in place: ms={ms:.5f} host_ms={h_ms:.5f} plain_ms="
+          f"{plain_ms:.5f} library_ms={lib_ms:.5f} (torch.mul out=) "
+          f"bound_ms={b_ms:.5f} ({by}); fp32 -> bf16 ms={bf16_ms:.5f} "
+          f"bound_ms={b16_ms:.5f}")
+    return {"name": mt_ops.SCALE_KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/scale_axpby.cu",
+            "replaces": "apex_tpu/multi_tensor/engine.py:243",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "host_ms": h_ms, "bf16_out_ms": bf16_ms,
+            "bf16_out_bound_ms": b16_ms, "bitwise": flags,
+            "shape": f"n={n} fp32 in place (GPT-2 345M flat gradient)"}
+
+
+def axpby_case(dev) -> dict:
+    """The axpby kernel over GPT-2 345M-sized flat buffers, bitwise
+    against the plain version (host and device a, b; bf16 x; bf16 and
+    fp16 out); found_inf over x, y or both as arg_to_check says; the
+    inputs left as they were. Timed fp32, out of place."""
+    n = gpt_flat_size(GPTConfig.gpt2_345m())
+    x, y = _seeded(n, dev, 42, 1e-2), _seeded(n, dev, 43, 1e-2)
+    half = torch.full((), 0.5, device=dev)
+    cases = {"fp32_host": (torch.float32, None, 0.5, -1.5),
+             "fp32_device": (torch.float32, None, half, half),
+             "bf16_x": (torch.bfloat16, None, 0.5, 2.0),
+             "bf16_out": (torch.float32, torch.bfloat16, 1.0, 1.0),
+             "fp16_out": (torch.float32, torch.float16, 1.0, -1.0)}
+    flags, err = {}, 0.0
+    for case, (x_dt, out_dt, a, b) in cases.items():
+        xin = x if x_dt == torch.float32 else x.to(x_dt)
+        want = mt_ops.multi_tensor_axpby(xin, y, a, b, out_dtype=out_dt,
+                                         plain=True)
+        got = mt_ops.multi_tensor_axpby(xin, y, a, b, out_dtype=out_dt)
+        torch.cuda.synchronize()
+        flags[case] = (_same_bits(got[0], want[0])
+                       and float(got[1]) == float(want[1]) == 0.0)
+        err = max(err, float((got[0].float() - want[0].float()).abs().max()))
+        del xin, want, got
+    found = {}
+    before = (x.clone(), y.clone())
+    for arg, bad_x, expect in ((-1, True, 1.0), (-1, False, 1.0),
+                               (0, True, 1.0), (0, False, 0.0),
+                               (1, False, 1.0), (1, True, 0.0)):
+        bx, by_ = (x.clone(), y) if bad_x else (x, y.clone())
+        (bx if bad_x else by_)[n - 5] = float("nan" if arg else "inf")
+        got = float(mt_ops.multi_tensor_axpby(bx, by_, 1.0, 1.0,
+                                              arg_to_check=arg)[1])
+        found[f"{arg}_{'x' if bad_x else 'y'}"] = got == expect
+        del bx, by_
+    untouched = torch.equal(x, before[0]) and torch.equal(y, before[1])
+    del before
+    print(f"  multi_tensor_axpby n={n}: bitwise {flags}; max_abs_err="
+          f"{err:.3e}; found_inf as arg_to_check says {found}; inputs "
+          f"untouched: {untouched}")
+    check(all(flags.values()), "multi_tensor_axpby kernel is not bitwise "
+          "equal to its plain version")
+    check(all(found.values()) and untouched,
+          "multi_tensor_axpby found_inf / out of place wrong")
+    kernel = lambda: mt_ops.multi_tensor_axpby(x, y, 0.5, 0.5)  # noqa
+    ms, h_ms = device_ms(kernel), host_ms(kernel)
+    plain_ms = host_ms(lambda: mt_ops.multi_tensor_axpby(
+        x, y, 0.5, 0.5, plain=True), iters=3, warmup=1)
+    b_ms, by = bound(12 * n, 3 * n, PEAK_FP32_FLOPS)
+    print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"bound_ms={b_ms:.5f} ({by}); no library call")
+    return {"name": mt_ops.AXPBY_KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/scale_axpby.cu",
+            "replaces": "apex_tpu/multi_tensor/engine.py:243",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "host_ms": h_ms, "bitwise": flags,
+            "shape": f"n={n} fp32 x, y, out (GPT-2 345M flat buffers)"}
+
+
+def _library_adagrad(space: FlatSpace, p, g):
+    """``torch.optim.Adagrad`` over GPT-2 345M's tensors (a yardstick
+    only): fused where this PyTorch takes it on the card, else foreach.
+    Returns ``(ms, which)``."""
+    params = [torch.nn.Parameter(t.clone()) for t in
+              space.unpack(p, "buffer").values()]
+    for prm, gt in zip(params, space.unpack(g, "buffer").values()):
+        prm.grad = gt.clone()
+    for kind in ("fused", "foreach"):
+        try:
+            lib = torch.optim.Adagrad(params, lr=ADAGRAD_LR,
+                                      weight_decay=0.01, **{kind: True})
+            lib.step()
+            return host_ms(lib.step), f"Adagrad({kind}=True)"
+        except (RuntimeError, ValueError, TypeError) as e:
+            print(f"    torch.optim.Adagrad({kind}=True) refused: "
+                  f"{str(e).splitlines()[0][:120]}")
+    return None, "none"
+
+
+def adagrad_case(dev) -> dict:
+    """The Adagrad kernel over GPT-2 345M's flat buffers, bitwise against
+    the plain version (weight decay, a host and a device grad_scale); an
+    inf and a nan set found_inf and the out-of-place step leaves p and h
+    as they were. Timed in place with the path's settings (a device
+    scale: the loss scale times the clip factor)."""
+    space = FlatSpace.create(gpt_leaves(GPTConfig.gpt2_345m()))
+    n = space.total
+    p, h = _seeded(n, dev, 51, 2e-2), _seeded(n, dev, 52, 1e2, positive=True)
+    g = _seeded(n, dev, 53, 2.0 ** 10)
+    dscale = torch.full((), 1.3 * 2.0 ** 16, device=dev)
+    cases = {"lr_only": {}, "weight_decay": dict(weight_decay=0.01),
+             "host_scale": dict(weight_decay=0.01, grad_scale=2.0 ** 16),
+             "device_scale": dict(weight_decay=0.01, grad_scale=dscale)}
+    flags, err = {}, 0.0
+    for case, extra in cases.items():
+        kw = dict(lr=ADAGRAD_LR, **extra)
+        want = mt_ops.fused_adagrad_update(p.clone(), h.clone(), g,
+                                           plain=True, **kw)
+        got = mt_ops.fused_adagrad_update(p.clone(), h.clone(), g, **kw)
+        torch.cuda.synchronize()
+        flags[case] = _bitwise(got[:2], want[:2])
+        err = max(err, *(float((a - b).abs().max())
+                         for a, b in zip(got[:2], want[:2])))
+        del want, got
+    bad = g.clone()
+    bad[12345] = float("inf")
+    bad[n - 7] = float("nan")
+    before = (p.clone(), h.clone())
+    *_, found = mt_ops.fused_adagrad_update(p, h, bad, lr=ADAGRAD_LR,
+                                            in_place=False)
+    untouched = torch.equal(p, before[0]) and torch.equal(h, before[1])
+    found = float(found)
+    del bad, before
+    print(f"  fused_adagrad n={n} fp32: bitwise {flags}; max_abs_err="
+          f"{err:.3e} found_inf={found} state_untouched={untouched}")
+    check(all(flags.values()), "fused_adagrad kernel is not bitwise equal "
+          "to its plain version")
+    check(found == 1.0 and untouched, "fused_adagrad found_inf / skip wrong")
+    kw = dict(lr=ADAGRAD_LR, weight_decay=0.01, grad_scale=dscale)
+    kernel = lambda: mt_ops.fused_adagrad_update(p, h, g, **kw)  # noqa
+    ms, h_ms = device_ms(kernel), host_ms(kernel)
+    plain_ms = host_ms(lambda: mt_ops.fused_adagrad_update(
+        p, h, g, plain=True, **kw), iters=3, warmup=1)
+    lib_ms, lib = _library_adagrad(space, p, g)
+    # per element: p, h, g read, p and h written; ~7 fp32 operations
+    b_ms, by = bound(20 * n, 7 * n, PEAK_FP32_FLOPS)
+    print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms={lib_ms} ({lib}, {space.num_leaves} tensors) "
+          f"bound_ms={b_ms:.5f} ({by})")
+    return {"name": mt_ops.ADAGRAD_KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/adagrad_novograd.cu",
+            "replaces": "apex_tpu/multi_tensor/engine.py:243",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+            "library": lib, "host_ms": h_ms, "bitwise": flags,
+            "shape": f"n={n} fp32 (GPT-2 345M flat buffers)"}
+
+
+def novograd_excess(p, m, got, want, *, lr_bc1, b1, wd) -> dict:
+    """How far one NovoGrad update through the kernels (``got``: p', m',
+    v') lies from the plain one (``want``), both from p and m: v''s
+    largest relative difference, and the excess of |dm'| over
+    NOVOGRAD_TOL of its terms (|b1 m| + |m'| + |wd p|) plus one ulp of
+    m', and of |dp'| over lr / bc1 times that plus one ulp of the larger
+    of |p| and |p'| (<= 0 passes)."""
+    inf = torch.full((), float("inf"), device=p.device)
+    tm = (b1 * m).abs() + want[1].abs() + (wd * p).abs()
+    am = want[1].abs()
+    bm = NOVOGRAD_TOL * tm + (torch.nextafter(am, inf) - am)
+    m_excess = float(((got[1] - want[1]).abs() - bm).max())
+    tp = torch.maximum(p.abs(), want[0].abs())
+    p_excess = float(((got[0] - want[0]).abs() - lr_bc1 * bm
+                      - (torch.nextafter(tp, inf) - tp)).max())
+    v_rel = float(((got[2] - want[2]).abs() / want[2].abs()).max())
+    return {"v_rel": v_rel, "m": m_excess, "p": p_excess,
+            "ok": (v_rel <= NOVOGRAD_TOL and m_excess <= 0
+                   and p_excess <= 0)}
+
+
+def novograd_case(dev) -> dict:
+    """The NovoGrad kernel over GPT-2 345M's flat space: bitwise against
+    the plain version given the same denominators (with and without grad
+    averaging and bias correction); the whole update (per-leaf norms on
+    the sum-of-squares kernel) within NOVOGRAD_TOL of the plain one; an
+    inf and a nan set found_inf and the out-of-place step leaves p, m
+    and v as they were."""
+    space = FlatSpace.create(gpt_leaves(GPTConfig.gpt2_345m()))
+    n = space.total
+    p, m = _seeded(n, dev, 61, 2e-2), _seeded(n, dev, 62, 1e-3)
+    g = _seeded(n, dev, 63, 1e-2)
+    v = _seeded(space.num_leaves, dev, 64, 10.0, positive=True)
+    ids = space.device_subtile_leaf_ids(dev)
+    b1, b2 = NOVOGRAD_BETAS
+    _, denom = mt_ops.novograd_denominators(
+        mt_ops.per_tensor_l2norm(g, space), v, beta2=b2, eps=1e-8, step=2,
+        bias_correction=False)
+    cases = {"grad_averaging": dict(beta3=1.0 - b1, bc1=1.0),
+             "no_averaging": dict(beta3=1.0, bc1=1.0),
+             "bias_correction": dict(beta3=1.0 - b1, bc1=1.0 - b1 ** 3)}
+    flags = {}
+    for case, extra in cases.items():
+        kw = dict(lr=NOVOGRAD_LR, beta1=b1, weight_decay=NOVOGRAD_WD,
+                  tile_ids=ids, **extra)
+        want = mt_ops.novograd_apply(p.clone(), m.clone(), g, denom,
+                                     plain=True, **kw)
+        got = mt_ops.novograd_apply(p.clone(), m.clone(), g, denom, **kw)
+        torch.cuda.synchronize()
+        flags[case] = _bitwise(got[:2], want[:2])
+        del want, got
+    kw = dict(lr=NOVOGRAD_LR, beta1=b1, beta2=b2, weight_decay=NOVOGRAD_WD,
+              step=2)
+    outs = [mt_ops.fused_novograd_update(p.clone(), m.clone(), v.clone(), g,
+                                         space, plain=plain, **kw)
+            for plain in (False, True)]
+    torch.cuda.synchronize()
+    excess = novograd_excess(p, m, *outs, lr_bc1=NOVOGRAD_LR, b1=b1,
+                             wd=NOVOGRAD_WD)
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    del outs
+    bad = g.clone()
+    bad[12345] = float("inf")
+    bad[n - 7] = float("nan")
+    before = (p.clone(), m.clone(), v.clone())
+    found = float(mt_ops.fused_novograd_update(p, m, v, bad, space,
+                                               in_place=False, **kw)[3])
+    untouched = all(torch.equal(a, b) for a, b in zip((p, m, v), before))
+    del bad, before
+    print(f"  fused_novograd n={n} fp32 ({space.num_leaves} leaves): given "
+          f"the denominators bitwise {flags}; whole update max_abs_err="
+          f"{err:.3e}, v' rel {excess['v_rel']:.3e}, excess over the "
+          f"tolerance ({NOVOGRAD_TOL}): m' {excess['m']:.3e}, p' "
+          f"{excess['p']:.3e} (<= 0 passes); found_inf={found} "
+          f"state_untouched={untouched}")
+    check(all(flags.values()), "fused_novograd kernel is not bitwise equal "
+          "to its plain version")
+    check(excess["ok"], "the NovoGrad update through the kernels disagrees "
+          "with the plain update")
+    check(found == 1.0 and untouched, "fused_novograd found_inf / skip wrong")
+    kwa = dict(lr=NOVOGRAD_LR, beta1=b1, beta3=1.0 - b1,
+               weight_decay=NOVOGRAD_WD, bc1=1.0, tile_ids=ids)
+    kernel = lambda: mt_ops.novograd_apply(p, m, g, denom, **kwa)  # noqa
+    ms, h_ms = device_ms(kernel), host_ms(kernel)
+    plain_ms = host_ms(lambda: mt_ops.novograd_apply(
+        p, m, g, denom, plain=True, **kwa), iters=3, warmup=1)
+    full = lambda: mt_ops.fused_novograd_update(  # noqa: E731
+        p, m, v, g, space, **kw)
+    full_ms = device_ms(full)
+    full_plain_ms = host_ms(lambda: mt_ops.fused_novograd_update(
+        p, m, v, g, space, plain=True, **kw), iters=3, warmup=1)
+    b_ms, by = bound(20 * n, 7 * n, PEAK_FP32_FLOPS)
+    fb_ms, _ = bound(24 * n, 9 * n, PEAK_FP32_FLOPS)
+    print(f"    sweep: ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"bound_ms={b_ms:.5f} ({by}); whole update (norms, denominators, "
+          f"sweep): ms={full_ms:.5f} plain_ms={full_plain_ms:.5f} bound_ms="
+          f"{fb_ms:.5f}; no library call")
+    return {"name": mt_ops.NOVOGRAD_KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/adagrad_novograd.cu",
+            "replaces": "apex_tpu/multi_tensor/engine.py:243",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+            "host_ms": h_ms, "update_ms": full_ms,
+            "update_plain_ms": full_plain_ms, "update_bound_ms": fb_ms,
+            "excess": excess, "bitwise": flags,
+            "shape": f"n={n} fp32, {space.num_leaves} leaves (GPT-2 345M "
+                     "flat buffers)"}
 
 
 # the BERT-Large batch of phase 6: real lengths of the eight sequences
@@ -2092,6 +2477,237 @@ def train_resnet(seed: int, dev, card: str) -> dict:
     return out
 
 
+# -- phase 9: GPT-2 345M with FusedNovoGrad + clip, FusedAdagrad + scaler ----
+
+NOVOGRAD_KEYS = ("sumsq_kernel", "scale_kernel", "novograd_kernel")
+ADAGRAD_KEYS = ("sumsq_kernel", "adagrad_kernel")
+GPT_PATH = (layer_norm.KERNEL, layer_norm.BWD_KERNEL, attention.KERNEL,
+            attention.BWD_DQ_KERNEL, attention.BWD_DKV_KERNEL)
+
+
+def _gpt_batch(seed: int, dev, cfg: GPTConfig):
+    """Phase 4's batch of TRAIN_BATCH x 1024 tokens from the seed."""
+    rng = np.random.RandomState(seed)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                       (TRAIN_BATCH, cfg.max_seq_len + 1)),
+                           device=dev).long()
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _run_summary(label, losses, times, launches, peak, card, cfg) -> dict:
+    step_s = float(np.median(times[2:]))
+    tokens = TRAIN_BATCH * cfg.max_seq_len
+    print(f"  {label}: losses {[round(v_, 4) for v_ in losses]}")
+    print(f"  {label}: launches over {len(losses)} steps {launches}")
+    print(f"  {label}: step_ms median of steps 3-{len(losses)} "
+          f"{step_s * 1e3:.2f} (first {times[0] * 1e3:.1f}), tokens_per_s="
+          f"{tokens / step_s:.0f}, peak memory {peak / 2**30:.2f} GiB on "
+          f"{card}")
+    check(all(np.isfinite(losses)), f"non-finite training loss ({label})")
+    return {"launches": launches, "steps": len(losses), "losses": losses,
+            "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": tokens / step_s, "peak_gib": peak / 2**30}
+
+
+def _check_launches(label, launches, per_step, steps) -> None:
+    """Each kernel of ``per_step`` launched exactly that many times a
+    step, and the GPT model's kernels at least once."""
+    for kernel, k in per_step.items():
+        check(launches.get(kernel, 0) == k * steps,
+              f"{label}: {kernel} launched {launches.get(kernel, 0)} times "
+              f"in {steps} steps, not {k} a step")
+    for kernel in GPT_PATH:
+        check(launches.get(kernel, 0) > 0,
+              f"{label}: kernel {kernel} never launched")
+
+
+def train_novograd(seed: int, dev, card: str) -> dict:
+    """GPT-2 345M with FusedNovoGrad and the contrib clip, the reference
+    user's loop: ``PretrainStep.backward``, ``clip_grad_norm_`` on the
+    flat gradient, ``FusedNovoGrad.step_flat``; ten steps with the launch
+    counts set to 0 just before and read just after, one profiled step,
+    then one update through the kernels and through their plain versions
+    on the real (clipped) gradient."""
+    cfg = GPTConfig.gpt2_345m()           # bf16 compute, fp32 parameters
+    t0 = time.perf_counter()
+    model = init_gpt_pretrain_params(
+        cfg, torch.Generator().manual_seed(seed), device=dev)
+    opt = FusedNovoGrad(lr=NOVOGRAD_LR, betas=NOVOGRAD_BETAS,
+                        weight_decay=NOVOGRAD_WD)
+    step = PretrainStep(model, opt)
+    state = step.init()
+    x, y = _gpt_batch(seed, dev, cfg)
+    print(f"  GPT-2 345M with FusedNovoGrad(lr={NOVOGRAD_LR}, betas="
+          f"{NOVOGRAD_BETAS}, weight_decay={NOVOGRAD_WD}) and "
+          f"clip_grad_norm_(max_norm={CLIP_NORM}): flat buffers of "
+          f"{state.master.numel()} fp32, v of {state.slots['v'].numel()} "
+          f"leaves, set-up {time.perf_counter() - t0:.1f} s")
+    norms = []
+
+    def novo_step(state, x, y):
+        loss = step.backward(state, x, y)
+        _, norm = clip_grad_norm_(step.grad, max_norm=CLIP_NORM)
+        norms.append(norm)
+        _, state = opt.step_flat(state, step.grad)
+        return state, loss
+
+    state, losses, times, launches = _train_loop(novo_step, state, (x, y),
+                                                 NOVOGRAD_STEPS)
+    out = _run_summary("NovoGrad", losses, times, launches,
+                       torch.cuda.max_memory_allocated(), card, cfg)
+    out["grad_norms"] = [float(t) for t in norms]
+    print(f"  NovoGrad: global grad norms before the clip "
+          f"{[round(v_, 3) for v_ in out['grad_norms']]}")
+    check(losses[-1] < losses[0], "the NovoGrad training loss did not fall")
+    _check_launches("NovoGrad", launches,
+                    {engine.SUMSQ_KERNEL: 2, mt_ops.SCALE_KERNEL: 1,
+                     mt_ops.NOVOGRAD_KERNEL: 1}, NOVOGRAD_STEPS)
+    (state, _), out["profile"] = _profiled(
+        lambda: novo_step(state, x, y), "NovoGrad step",
+        {"optimizer": NOVOGRAD_KEYS})
+    # the step's three parts, each synchronised (host clock, median of 3)
+    parts = {"forward_backward": [], "clip": [], "novograd": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = [time.perf_counter()]
+        step.backward(state, x, y)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        clip_grad_norm_(step.grad, CLIP_NORM)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        _, state = opt.step_flat(state, step.grad)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for k, a, b in zip(parts, t, t[1:]):
+            parts[k].append(b - a)
+    out["split_ms"] = {k: float(np.median(v)) * 1e3 for k, v in parts.items()}
+    print("  NovoGrad step's parts (synchronised, median of 3): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in out["split_ms"].items()))
+    # one update from the trained state on the last clipped gradient,
+    # kernels against plain versions
+    kw = dict(lr=NOVOGRAD_LR, beta1=NOVOGRAD_BETAS[0],
+              beta2=NOVOGRAD_BETAS[1], weight_decay=NOVOGRAD_WD,
+              step=state.count + 1)
+    p, m, v = state.master, state.slots["m"], state.slots["v"]
+    outs = [mt_ops.fused_novograd_update(p.clone(), m.clone(), v.clone(),
+                                         step.grad, state.space, plain=plain,
+                                         **kw)
+            for plain in (False, True)]
+    torch.cuda.synchronize()
+    out["update_excess"] = novograd_excess(
+        p, m, *outs, lr_bc1=NOVOGRAD_LR, b1=NOVOGRAD_BETAS[0],
+        wd=NOVOGRAD_WD)
+    del outs
+    e = out["update_excess"]
+    print(f"  one NovoGrad update on the real gradient, kernels vs plain: "
+          f"v' rel {e['v_rel']:.3e} (tol {NOVOGRAD_TOL}); excess m' "
+          f"{e['m']:.3e}, p' {e['p']:.3e} (<= 0 passes)")
+    check(e["ok"], "NovoGrad update on the real gradient: kernel path "
+          "disagrees with the plain path")
+    return out
+
+
+def train_adagrad(seed: int, dev, card: str) -> dict:
+    """GPT-2 345M with FusedAdagrad through ``make_train_step(opt,
+    scaler=LossScaler(), max_grad_norm=1.0)`` (the skip path, out of
+    place): three steps with the launch counts set to 0 just before and
+    read just after, one profiled step, one step with an inf injected
+    into the gradient (skipped: master and h bitwise as they were, the
+    scale halved), one update through the kernel and its plain version
+    on the real gradient, and one gradient accumulation of two real
+    gradients through ``multi_tensor_axpby`` (counts reset: no model
+    path calls it)."""
+    cfg = GPTConfig.gpt2_345m()
+    t0 = time.perf_counter()
+    model = init_gpt_pretrain_params(
+        cfg, torch.Generator().manual_seed(seed), device=dev)
+    opt = FusedAdagrad(lr=ADAGRAD_LR, weight_decay=0.01)
+    tstep = make_train_step(opt, scaler=LossScaler(), max_grad_norm=CLIP_NORM)
+    step = PretrainStep(model, opt, train_step=tstep)
+    state = step.init()
+    x, y = _gpt_batch(seed, dev, cfg)
+    print(f"  GPT-2 345M with make_train_step(FusedAdagrad(lr={ADAGRAD_LR}, "
+          f"weight_decay=0.01), scaler=LossScaler(), max_grad_norm="
+          f"{CLIP_NORM}): set-up {time.perf_counter() - t0:.1f} s")
+    sc = {"ss": tstep.scaler.init()}
+
+    def ada_step(state, x, y):
+        state, sc["ss"], loss = step(state, x, y, scaler_state=sc["ss"])
+        return state, loss
+
+    state, losses, times, launches = _train_loop(ada_step, state, (x, y),
+                                                 ADAGRAD_STEPS)
+    out = _run_summary("Adagrad", losses, times, launches,
+                       torch.cuda.max_memory_allocated(), card, cfg)
+    ss = sc["ss"]
+    out["loss_scale"] = ss.loss_scale
+    check(losses[1] < losses[0], "the first Adagrad update did not lower "
+          "the loss")
+    check(state.count == ADAGRAD_STEPS, f"{ADAGRAD_STEPS - state.count} "
+          "Adagrad steps skipped without an overflow")
+    _check_launches("Adagrad", launches,
+                    {engine.SUMSQ_SCALED_KERNEL: 1, mt_ops.ADAGRAD_KERNEL: 1},
+                    ADAGRAD_STEPS)
+    (state, _), out["profile"] = _profiled(
+        lambda: ada_step(state, x, y), "Adagrad step",
+        {"optimizer": ADAGRAD_KEYS})
+    ss = sc["ss"]
+    # an inf in the gradient: skipped, nothing moves, the scale backs off
+    step.backward(state, x, y, scaler_state=ss)
+    first_grad = step.grad.clone()
+    step.grad[12345] = float("inf")
+    master, h, count = state.master.clone(), state.slots["h"].clone(), \
+        state.count
+    state2, ss2, aux = tstep(state, step.grad, ss)
+    torch.cuda.synchronize()
+    skipped = (float(aux.found_inf) == 1.0
+               and torch.equal(state2.master, master)
+               and torch.equal(state2.slots["h"], h)
+               and state2.count == count
+               and ss2.loss_scale == ss.loss_scale / 2)
+    print(f"  Adagrad step with an inf: found_inf {float(aux.found_inf)}, "
+          f"master and h unchanged, scale {ss.loss_scale} -> "
+          f"{ss2.loss_scale}: {skipped}")
+    check(skipped, "the overflowing Adagrad step was not skipped")
+    out["overflow_skipped"] = skipped
+    del master, h
+    # one update on the real (scaled) gradient with the train step's
+    # device grad_scale (loss scale times the clip factor), kernel vs plain
+    norm, _ = mt_ops.fused_unscale_l2norm(first_grad)
+    ls = mt_ops._dev_f32(ss.loss_scale, dev)
+    clip = torch.maximum(norm / ls / mt_ops._dev_f32(CLIP_NORM, dev),
+                         torch.ones((), device=dev))
+    kw = dict(lr=ADAGRAD_LR, weight_decay=0.01, grad_scale=ls * clip)
+    outs = [mt_ops.fused_adagrad_update(state.master.clone(),
+                                        state.slots["h"].clone(), first_grad,
+                                        plain=plain, **kw)
+            for plain in (False, True)]
+    torch.cuda.synchronize()
+    out["update_bitwise"] = _bitwise(outs[0][:2], outs[1][:2])
+    print(f"  one Adagrad update on the real gradient (grad_scale "
+          f"{float(kw['grad_scale']):.1f}), kernel vs plain: bitwise "
+          f"{out['update_bitwise']}")
+    check(out["update_bitwise"], "Adagrad update on the real gradient: "
+          "kernel disagrees with the plain version")
+    del outs
+    # gradient accumulation: this step's gradient plus the next one's
+    step.backward(state, x, y, scaler_state=ss)
+    _build.reset_launch_counts()
+    acc, found = mt_ops.multi_tensor_axpby(first_grad, step.grad, 1.0, 1.0)
+    torch.cuda.synchronize()
+    out["axpby_launches"] = _build.launch_counts()
+    want = mt_ops.multi_tensor_axpby(first_grad, step.grad, 1.0, 1.0,
+                                     plain=True)[0]
+    acc_ok = float(found) == 0.0 and _same_bits(acc, want)
+    print(f"  gradient accumulation (multi_tensor_axpby of two real "
+          f"gradients): found_inf {float(found)}, bitwise to plain "
+          f"{acc_ok}; launches {out['axpby_launches']}")
+    check(acc_ok and out["axpby_launches"].get(mt_ops.AXPBY_KERNEL) == 1,
+          "gradient accumulation through multi_tensor_axpby failed")
+    return out
+
+
 # -- phase 3: serving at full width --------------------------------------------
 
 
@@ -2317,6 +2933,11 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             space = resnet_space()
             rows += [sgd_case(dev, space), lars_case(dev, space)]
+            torch.cuda.empty_cache()
+            for case in (scale_case, axpby_case, adagrad_case,
+                         novograd_case):
+                rows.append(case(dev))
+                torch.cuda.empty_cache()
         return rows
 
     card, secs = phase("phase 1: environment", environment)
@@ -2334,6 +2955,10 @@ def main(argv=None) -> int:
                 lambda: train_gpt_softmax(args.seed, dev, card))
     rn = phase("phase 8: ResNet-50 ImageNet training (FusedSGD, amp O2, "
                "FusedLARS, LARC)", lambda: train_resnet(args.seed, dev, card))
+    novo = phase("phase 9a: training GPT-2 345M with FusedNovoGrad and the "
+                 "clip", lambda: train_novograd(args.seed, dev, card))
+    ada = phase("phase 9b: training GPT-2 345M with FusedAdagrad under the "
+                "loss scaler", lambda: train_adagrad(args.seed, dev, card))
     # where each kernel's launches are read: the path that runs it (the
     # forward kernels run on every GPT path: their launches are the
     # serving run's; the scaled sum of squares runs on the scaler step;
@@ -2359,6 +2984,14 @@ def main(argv=None) -> int:
                             rn["sgd_bf16"]["steps"]),
         mt_ops.LARS_KERNEL: ("training_resnet_lars", rn["lars"]["launches"],
                              rn["lars"]["steps"]),
+        mt_ops.SCALE_KERNEL: ("training_novograd", novo["launches"],
+                              novo["steps"]),
+        mt_ops.NOVOGRAD_KERNEL: ("training_novograd", novo["launches"],
+                                 novo["steps"]),
+        mt_ops.ADAGRAD_KERNEL: ("training_adagrad", ada["launches"],
+                                ada["steps"]),
+        mt_ops.AXPBY_KERNEL: ("grad_accumulation_axpby",
+                              ada["axpby_launches"], 1),
     }
     for k in kernels:
         name = k["name"]
@@ -2380,12 +3013,13 @@ def main(argv=None) -> int:
                          ("resnet_sgd", rn["sgd_bf16"]),
                          ("resnet_o2", rn["o2_fp16"]),
                          ("resnet_lars", rn["lars"]),
-                         ("resnet_larc", rn["larc"])):
+                         ("resnet_larc", rn["larc"]),
+                         ("novograd", novo), ("adagrad", ada)):
             k[f"launches_{key}"] = run["launches"].get(name, 0)
         check(k["launches"] > 0, f"{name}: no launch on its path")
 
-    check(len(kernels) == 17, f"{len(kernels)} kernels in the line, not 17")
-    print("phase 9: kernels")
+    check(len(kernels) == 21, f"{len(kernels)} kernels in the line, not 21")
+    print("phase 10: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -2395,7 +3029,9 @@ def main(argv=None) -> int:
             json.dump({"card": card, "build_s": secs, "phase_wall_s": walls,
                        "serving": srv, "training": trn,
                        "training_lamb": lamb, "bert": bert,
-                       "gpt_softmax": gsm, "resnet": rn, **line}, f,
+                       "gpt_softmax": gsm, "resnet": rn,
+                       "training_novograd": novo, "training_adagrad": ada,
+                       **line}, f,
                       indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

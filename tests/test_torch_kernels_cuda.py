@@ -4,7 +4,9 @@ card.
 Every test here needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode; the plain versions are held against apex_tpu on
 the CPU by test_torch_layer_norm.py, test_torch_attention.py and their
-_bwd counterparts, test_torch_adam.py and test_torch_softmax.py). This
+_bwd counterparts, test_torch_adam.py, test_torch_softmax.py,
+test_torch_sgd.py, test_torch_scale_axpby.py and
+test_torch_novograd_adagrad.py). This
 file imports neither JAX nor apex_tpu, so it runs on a machine with
 only PyTorch: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py``.
@@ -23,7 +25,9 @@ rounds every operation on its own, in the plain version's order).
 Softmax forwards within one bf16 ulp of the value (2^-7; fp32 within
 1e-5 of the value: sums in another order), the backward within one ulp
 of each row's largest |dx| (the row's dot product is summed in another
-order).
+order). SGD, LARS, scale, axpby, Adagrad and NovoGrad: bitwise (the
+tolerances of the whole LARS and NovoGrad updates are stated with their
+tests).
 """
 
 import numpy as np
@@ -729,3 +733,279 @@ def test_fused_sgd_lars_and_larc_steps_launch_their_kernels(cuda_device):
         master = state.master.clone()
         _, state = opt.step_flat(state, bad, skip_if_nonfinite=True)
         assert state.count == 2 and torch.equal(state.master, master)
+
+
+# -- the scale, axpby, Adagrad and NovoGrad kernels ---------------------------
+#
+# Tolerances: bitwise against the plain versions (every operation and
+# cast rounded on its own in the plain version's order), NovoGrad given
+# the same denominators. A whole NovoGrad update computes its per-leaf
+# norms from the sum-of-squares kernel's partials, summed in another
+# order than the plain norms: v' within 1e-6 relative, m' within 1e-6 of
+# its terms (|b1 m| + |m'| + |wd p|) plus one ulp, p' within lr times
+# that plus one ulp of the larger of |p| and |p'|.
+
+SCALE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _same_bits(a, b) -> bool:
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def _launches(kernel):
+    return _build.launch_counts().get(kernel, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 517, 3 * 2048 + 517, 1 << 20])
+@pytest.mark.parametrize("out_dtype", SCALE_DTYPES)
+@pytest.mark.parametrize("in_dtype", SCALE_DTYPES)
+def test_scale_kernel_bitwise_equals_plain(cuda_device, in_dtype, out_dtype,
+                                           n):
+    rng = np.random.RandomState(n % 991)
+    x = _rand(rng, n, cuda_device, 3.0).to(in_dtype)
+    for scale in (0.37, torch.full((), 0.37, device=cuda_device)):
+        want = mt_ops.multi_tensor_scale(x, scale, out_dtype=out_dtype,
+                                         plain=True)
+        before = _launches(mt_ops.SCALE_KERNEL)
+        got = mt_ops.multi_tensor_scale(x, scale, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert _launches(mt_ops.SCALE_KERNEL) == before + 1
+        assert _same_bits(got[0], want[0])
+        assert float(got[1]) == float(want[1]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inf", "nan", "fp16_overflow",
+                                  "bf16_in_inf"])
+def test_scale_kernel_found_inf_over_outputs(cuda_device, case):
+    n = 3 * 2048 + 517
+    x = _rand(np.random.RandomState(31), n, cuda_device)
+    out_dtype, scale = None, 0.5
+    if case == "inf":
+        x[n - 1] = float("inf")
+    elif case == "nan":
+        x[1234] = float("nan")
+    elif case == "fp16_overflow":            # finite in, inf after the cast
+        x[77] = 3e4
+        out_dtype, scale = torch.float16, 4.0
+    else:
+        x = x.to(torch.bfloat16)
+        x[5] = float("-inf")
+    want = mt_ops.multi_tensor_scale(x, scale, out_dtype=out_dtype,
+                                     plain=True)
+    got = mt_ops.multi_tensor_scale(x, scale, out_dtype=out_dtype)
+    assert float(got[1]) == float(want[1]) == 1.0
+    assert _same_bits(got[0], want[0])
+
+
+@pytest.mark.cuda
+def test_scale_kernel_in_place(cuda_device):
+    x = _rand(np.random.RandomState(32), 70001, cuda_device)
+    want = mt_ops.multi_tensor_scale(x, 2.0 ** -7, plain=True)[0]
+    got, found = mt_ops.multi_tensor_scale(x, 2.0 ** -7, in_place=True)
+    assert got is x and float(found) == 0.0 and _same_bits(x, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 517, 3 * 2048 + 517, 1 << 20])
+@pytest.mark.parametrize("out_dtype", SCALE_DTYPES)
+@pytest.mark.parametrize("xy", ["fp32_fp32", "bf16_fp32", "bf16_bf16"])
+def test_axpby_kernel_bitwise_equals_plain(cuda_device, xy, out_dtype, n):
+    rng = np.random.RandomState(n % 983)
+    dts = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    x, y = (_rand(rng, n, cuda_device).to(dts[d]) for d in xy.split("_"))
+    for a, b in ((2.0, -3.0), (torch.full((), 0.5, device=cuda_device),
+                               torch.full((), 1.5, device=cuda_device))):
+        want = mt_ops.multi_tensor_axpby(x, y, a, b, out_dtype=out_dtype,
+                                         plain=True)
+        before = _launches(mt_ops.AXPBY_KERNEL)
+        got = mt_ops.multi_tensor_axpby(x, y, a, b, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert _launches(mt_ops.AXPBY_KERNEL) == before + 1
+        assert _same_bits(got[0], want[0])
+        assert float(got[1]) == float(want[1]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+@pytest.mark.parametrize("arg_to_check,bad_x,expect", [
+    (-1, True, 1.0), (-1, False, 1.0), (0, True, 1.0),
+    (0, False, 0.0), (1, False, 1.0), (1, True, 0.0),
+])
+def test_axpby_kernel_arg_to_check(cuda_device, arg_to_check, bad_x, expect,
+                                   bad):
+    rng = np.random.RandomState(33)
+    n = 3 * 2048 + 517
+    x, y = _rand(rng, n, cuda_device), _rand(rng, n, cuda_device)
+    (x if bad_x else y)[n - 2] = bad
+    got = mt_ops.multi_tensor_axpby(x, y, 1.0, 1.0,
+                                    arg_to_check=arg_to_check)
+    want = mt_ops.multi_tensor_axpby(x, y, 1.0, 1.0,
+                                     arg_to_check=arg_to_check, plain=True)
+    assert float(got[1]) == float(want[1]) == expect
+
+
+ADAGRAD_FLAGS = {
+    "plain": dict(),
+    "weight_decay": dict(weight_decay=0.01),
+    "grad_scale": dict(grad_scale=65536.0, weight_decay=0.01),
+    "device_scale": dict(grad_scale="device", weight_decay=0.01),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 517, 3 * 2048 + 517, 1 << 20])
+@pytest.mark.parametrize("case", sorted(ADAGRAD_FLAGS))
+def test_adagrad_kernel_bitwise_equals_plain(cuda_device, n, case):
+    rng = np.random.RandomState(n % 977)
+    p, g = _rand(rng, n, cuda_device), _rand(rng, n, cuda_device)
+    h = _rand(rng, n, cuda_device, positive=True)
+    kw = {"lr": 1e-3, "eps": 1e-10, **ADAGRAD_FLAGS[case]}
+    if kw.get("grad_scale") == "device":
+        kw["grad_scale"] = torch.full((), 3.0 * 2 ** 15, device=cuda_device)
+    want = mt_ops.fused_adagrad_update(p.clone(), h.clone(), g, plain=True,
+                                       **kw)
+    before = _launches(mt_ops.ADAGRAD_KERNEL)
+    got = mt_ops.fused_adagrad_update(p, h, g, **kw)
+    torch.cuda.synchronize()
+    assert _launches(mt_ops.ADAGRAD_KERNEL) == before + 1
+    assert got[0] is p and got[1] is h                      # in place
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    assert float(got[2]) == float(want[2]) == 0.0
+
+
+def _novograd_space():
+    from apex_tpu_torch.multi_tensor import FlatSpace
+    return FlatSpace.create({"a": torch.empty(70000), "b": torch.empty(7),
+                             "c": torch.empty(3, 3000),
+                             "z": torch.empty(9)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("novograd", [False, True])
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+def test_adagrad_and_novograd_found_inf_and_out_of_place(cuda_device, bad,
+                                                         novograd):
+    space = _novograd_space()
+    rng = np.random.RandomState(34)
+    p, s, g = (_rand(rng, space.total, cuda_device, positive=True)
+               for _ in range(3))
+    v = torch.ones(space.num_leaves, device=cuda_device)
+    g[4321] = bad
+    saved = [p.clone(), s.clone(), v.clone()]
+    if novograd:
+        p2, s2, v2, found = mt_ops.fused_novograd_update(
+            p, s, v, g, space, lr=1e-2, step=2, in_place=False)
+        assert torch.equal(v, saved[2]) and v2.data_ptr() != v.data_ptr()
+    else:
+        p2, s2, found = mt_ops.fused_adagrad_update(p, s, g, lr=1e-2,
+                                                    in_place=False)
+    torch.cuda.synchronize()
+    assert float(found) == 1.0
+    assert torch.equal(p, saved[0]) and torch.equal(s, saved[1])
+    assert p2.data_ptr() != p.data_ptr() and s2.data_ptr() != s.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [517, 3 * 2048 + 517, 70000])
+@pytest.mark.parametrize("grad_averaging", [True, False])
+@pytest.mark.parametrize("bc1", [1.0, 0.05])
+def test_novograd_kernel_bitwise_equals_plain_given_denominators(
+        cuda_device, n, grad_averaging, bc1):
+    rng = np.random.RandomState(n)
+    p, m, g = (_rand(rng, n, cuda_device) for _ in range(3))
+    n_sub = -(-n // 2048)
+    ids = torch.from_numpy((np.arange(n_sub) % 3).astype(np.int32)).to(
+        cuda_device)
+    denom = torch.tensor([0.5, 12.3, 1e-3], device=cuda_device)
+    kw = dict(lr=1e-2, beta1=0.95, beta3=0.05 if grad_averaging else 1.0,
+              weight_decay=1e-3, bc1=bc1, tile_ids=ids)
+    want = mt_ops.novograd_apply(p.clone(), m.clone(), g, denom, plain=True,
+                                 **kw)
+    before = _launches(mt_ops.NOVOGRAD_KERNEL)
+    got = mt_ops.novograd_apply(p, m, g, denom, **kw)
+    torch.cuda.synchronize()
+    assert _launches(mt_ops.NOVOGRAD_KERNEL) == before + 1
+    assert got[0] is p and got[1] is m
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1, 2])
+def test_fused_novograd_update_on_card_matches_plain(cuda_device, step):
+    space = _novograd_space()
+    rng = np.random.RandomState(35)
+    p = torch.zeros(space.total, device=cuda_device)
+    g = torch.zeros(space.total, device=cuda_device)
+    for name, off, size in zip(space.names, space.offsets, space.sizes):
+        if name != "z":                      # a zero leaf: g / eps
+            p[off:off + size] = _rand(rng, size, cuda_device)
+            g[off:off + size] = _rand(rng, size, cuda_device, 0.01)
+    m = _rand(rng, space.total, cuda_device, 0.01)
+    v = torch.rand(space.num_leaves, device=cuda_device)
+    kw = dict(lr=1e-2, beta1=0.95, beta2=0.98, weight_decay=1e-3, step=step,
+              bias_correction=True)
+    want = mt_ops.fused_novograd_update(p.clone(), m.clone(), v.clone(), g,
+                                        space, plain=True, **kw)
+    counts = _build.launch_counts()
+    got = mt_ops.fused_novograd_update(p.clone(), m.clone(), v.clone(), g,
+                                       space, **kw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    from apex_tpu_torch.multi_tensor import engine
+    assert after[mt_ops.NOVOGRAD_KERNEL] == counts.get(
+        mt_ops.NOVOGRAD_KERNEL, 0) + 1
+    assert after[engine.SUMSQ_KERNEL] == counts.get(engine.SUMSQ_KERNEL,
+                                                     0) + 1
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+    tm = (0.95 * m).abs() + want[1].abs() + (1e-3 * p).abs()
+    ulp_m = torch.nextafter(want[1].abs(), torch.full_like(m, float("inf"))) \
+        - want[1].abs()
+    assert ((got[1] - want[1]).abs() <= 1e-6 * tm + ulp_m).all()
+    bc1 = 1.0 - 0.95 ** step
+    tp = torch.maximum(p.abs(), want[0].abs())
+    ulp_p = torch.nextafter(tp, torch.full_like(tp, float("inf"))) - tp
+    assert ((got[0] - want[0]).abs()
+            <= 1e-2 / bc1 * (1e-6 * tm + ulp_m) + ulp_p).all()
+
+
+@pytest.mark.cuda
+def test_novograd_adagrad_and_clip_launch_their_kernels(cuda_device):
+    from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
+    from apex_tpu_torch.multi_tensor import engine
+    from apex_tpu_torch.optimizers import (FusedAdagrad, FusedNovoGrad,
+                                           make_train_step)
+    from apex_tpu_torch.amp import LossScaler
+    params = {"w": torch.randn(300, 7, device=cuda_device),
+              "b": torch.randn(7, device=cuda_device)}
+    opt = FusedNovoGrad(lr=1e-2)
+    state = opt.init(params)
+    g = torch.randn_like(state.master)
+    before = _build.launch_counts()
+    clip_grad_norm_(g, 1.0)
+    _, state = opt.step_flat(state, g)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for k, n in ((engine.SUMSQ_KERNEL, 2), (mt_ops.SCALE_KERNEL, 1),
+                 (mt_ops.NOVOGRAD_KERNEL, 1)):
+        assert after[k] == before.get(k, 0) + n, k
+    assert state.count == 1 and state.slots["v"].shape == (2,)
+    opt = FusedAdagrad(lr=1e-3, weight_decay=0.01)
+    tstep = make_train_step(opt, scaler=LossScaler(), max_grad_norm=1.0)
+    state, ss = opt.init(params), tstep.scaler.init()
+    before = _build.launch_counts()
+    state, ss, aux = tstep(state, g * ss.loss_scale, ss)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for k in (engine.SUMSQ_SCALED_KERNEL, mt_ops.ADAGRAD_KERNEL):
+        assert after[k] == before.get(k, 0) + 1, k
+    bad = g.clone()
+    bad[3] = float("inf")
+    master, h = state.master.clone(), state.slots["h"].clone()
+    state2, ss2, aux = tstep(state, bad, ss)
+    assert float(aux.found_inf) == 1.0 and state2.count == 1
+    assert torch.equal(state2.master, master)
+    assert torch.equal(state2.slots["h"], h)
+    assert ss2.loss_scale == ss.loss_scale / 2
