@@ -1,6 +1,9 @@
-"""Tensor-parallel layers at tp=1 (counterpart of
-``apex_tpu/transformer/tensor_parallel/``)."""
+"""Tensor-parallel layers and the vocab-parallel cross entropy at tp=1
+(counterpart of ``apex_tpu/transformer/tensor_parallel/``)."""
 
+from apex_tpu_torch.transformer.tensor_parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
+)
 from apex_tpu_torch.transformer.tensor_parallel.layers import (
     ColumnParallelLinear,
     RowParallelLinear,
@@ -8,4 +11,4 @@ from apex_tpu_torch.transformer.tensor_parallel.layers import (
 )
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "vocab_parallel_cross_entropy"]

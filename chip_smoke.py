@@ -50,7 +50,14 @@ Phases, in order; any failure exits non-zero before the last line:
    calls leave their inputs as they were. Library yardsticks:
    ``torch.mul(x, s, out=y)`` for scale, ``torch.optim.Adagrad`` (fused
    where the card's PyTorch takes it, else foreach) over the GPT's
-   tensors; none for axpby and NovoGrad.
+   tensors; none for axpby and NovoGrad. Then the cross-entropy kernels
+   at GPT-2 345M's (8 x 1024, 50304) logits, fp32 and bf16, smoothing
+   0.1 and 0, padded label rows: loss and lse within XENT_FWD_TOL, dx
+   bitwise given the same lse, padding rows exactly 0 (library:
+   ``F.cross_entropy`` with ``label_smoothing`` and ``ignore_index``,
+   forward and backward); and the RoPE kernel, forward and the -sin
+   backward bitwise, at Llama-2-7B's sbhd in bf16 and fp32, GPT-NeoX-20B's
+   cached and the packed thd layout (no library call).
 3. Serving at full width: GPT-2 345M (hidden 1024, 24 layers, 16 heads,
    vocab 50304, bf16 compute, fp32 parameters, random weights from the
    seed) behind ``ContinuousBatcher(max_batch=8, prefill_chunk=256)``
@@ -141,7 +148,24 @@ Phases, in order; any failure exits non-zero before the last line:
    their plain versions on the real gradient; then one gradient
    accumulation of two real gradients through ``multi_tensor_axpby``
    (counts reset: no model path calls it).
-10. Each phase's wall seconds, the ``kernels`` JSON line (all twenty-one
+10. The slice's paths at full width: (a) GPT-2 345M (phase 4's model,
+   weights and batch of 8 x 1024) with the contrib xentropy loss,
+   ``softmax_cross_entropy(logits, labels.T, smoothing=0.1,
+   padding_idx=0)`` summed and divided by the count of real labels (the
+   labels' tails padded on rows of 1024, 1024, 900, 1024, 700, 1024,
+   1024 and 512 real labels), through ``PretrainStep(model,
+   FusedAdam(lr=1e-4, weight_decay=0.01), loss_fn=...)``: at batch 2 on
+   the initial weights the loss and every gradient through the kernels
+   against the plain versions, then ten steps with the launch counts set
+   to 0 just before and read just after (``xentropy_fwd``,
+   ``xentropy_bwd`` and Adam once a step; the loss must fall), step time
+   beside phase 4's, tokens/s, peak memory, one profiled step with the
+   xentropy kernels' share; (b) RoPE on q and k with a backward through
+   both, at Llama-2-7B's sbhd (4096, 2, 32, 128), eight packed sequences
+   of 8,192 tokens (thd) at its heads, and GPT-NeoX-20B's cached (2048,
+   4, 64, 96) with 24 rotated channels: four launches a variant, outputs
+   and gradients bitwise against the plain version.
+11. Each phase's wall seconds, the ``kernels`` JSON line (all twenty-four
    kernels, each with its launches on its path), then the device line
    the caller reads.
 
@@ -190,8 +214,14 @@ from apex_tpu_torch.multi_tensor import engine
 from apex_tpu_torch.multi_tensor import ops as mt_ops
 from apex_tpu_torch.multi_tensor.segmented import SEGMENT_KERNEL
 from apex_tpu_torch.models.gpt import KERNEL_OPS, PLAIN_OPS
-from apex_tpu_torch.ops import attention, layer_norm, softmax
-from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy
+from apex_tpu_torch.ops import attention, layer_norm, rope, softmax, xentropy
+from apex_tpu_torch.transformer.functional import (
+    FusedScaleMaskSoftmax,
+    fused_apply_rotary_pos_emb,
+    fused_apply_rotary_pos_emb_cached,
+    fused_apply_rotary_pos_emb_thd,
+)
 from apex_tpu_torch.optimizers import (
     FusedAdagrad,
     FusedAdam,
@@ -2708,6 +2738,388 @@ def train_adagrad(seed: int, dev, card: str) -> dict:
     return out
 
 
+# -- cross entropy and RoPE: the kernels and their paths (phases 2 and 10) ----
+
+# GPT-2 345M's LM loss through contrib xentropy, the reference user's swap
+# (MLPerf): label smoothing 0.1, the labels' tails padded with
+# XENT_PAD on rows of these real lengths
+XENT_SMOOTHING = 0.1
+XENT_PAD = 0
+XENT_LENS = (1024, 1024, 900, 1024, 700, 1024, 1024, 512)
+# the forward's loss and lse, kernel against plain version: fp32
+# logsumexp and mean over 50,304 logits summed in another order (an online
+# max and rescaled sum per thread, combined across the block), within
+# this share of max(1, |value|)
+XENT_FWD_TOL = 1e-5
+# RoPE at public widths: Llama-2-7B's attention (sbhd, rot = d = 128),
+# GPT-NeoX-20B's (64 heads of 96, rotary_pct 0.25: rot 24, 72 channels
+# passed through), and eight sequences of 8,192 tokens packed (thd) at
+# Llama-2-7B's heads
+LLAMA_SBHD = (4096, 2, 32, 128)
+NEOX_SBHD = (2048, 4, 64, 96)
+NEOX_ROT = 24
+THD_LENS = (2048, 512, 1024, 1536, 256, 768, 1280, 768)
+THD_HEADS = (32, 128)
+
+
+def xent_labels(y: torch.Tensor) -> torch.Tensor:
+    """(b, s) labels with row i's tail past XENT_LENS[i] set to
+    XENT_PAD."""
+    real = (torch.arange(y.shape[1], device=y.device)[None, :]
+            < torch.tensor(XENT_LENS, device=y.device)[:, None])
+    return torch.where(real, y, XENT_PAD)
+
+
+def xent_loss(model, tokens, labels):
+    """The reference user's composed loss: contrib xentropy over (s, b)
+    logits, summed, divided by the count of real labels."""
+    losses = softmax_cross_entropy(model(tokens.long()), labels.T,
+                                   smoothing=XENT_SMOOTHING,
+                                   padding_idx=XENT_PAD)
+    return losses.sum() / (labels != XENT_PAD).sum()
+
+
+def xent_loss_plain(model, tokens, labels):
+    """:func:`xent_loss` through the plain versions: the model's
+    ``forward_plain`` and xentropy's plain forward and backward."""
+    logits = model.forward_plain(tokens.long())
+    k = logits.shape[-1]
+    lab = labels.T
+    losses = xentropy._XentropyFn.apply(
+        logits.reshape(-1, k), lab.reshape(-1).to(torch.int32),
+        XENT_SMOOTHING, False).reshape(lab.shape)
+    losses = torch.where(lab == XENT_PAD, 0.0, losses)
+    return losses.sum() / (labels != XENT_PAD).sum()
+
+
+def _ulps(got, want) -> int:
+    view = torch.int16 if got.element_size() == 2 else torch.int32
+    return int((got.view(view).to(torch.int64)
+                - want.view(view).to(torch.int64)).abs().max())
+
+
+def xentropy_cases(dev) -> list:
+    """#14 and #15 at GPT-2 345M's (8 x 1024, 50304) logits, fp32 (its
+    fp32 LM head) and bf16, smoothing 0 and 0.1, with padded label rows
+    (g = 0 there, as the contrib loss gives): loss and lse within
+    XENT_FWD_TOL, dx bitwise given the same lse, padding rows exactly 0.
+    The library yardstick: ``F.cross_entropy(..., reduction="none",
+    label_smoothing=s, ignore_index=pad)`` forward and its backward (the
+    same smoothing: lse - (1 - s) x[y] - s mean(x))."""
+    cfg = GPTConfig.gpt2_345m()
+    seq, k = cfg.max_seq_len, cfg.vocab_size
+    rows = TRAIN_BATCH * seq
+    cgen = torch.Generator(device=dev).manual_seed(7)
+    y = torch.randint(1, k, (seq, TRAIN_BATCH), generator=cgen, device=dev)
+    y = xent_labels(y.T).T.reshape(-1).to(torch.int32)   # (s, b) order
+    real = y != XENT_PAD
+    g = torch.where(real, 1.0 / float(real.sum()), 0.0)
+    fwd, bwd = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (2 * torch.randn(rows, k, generator=cgen, device=dev)).to(dtype)
+        for s in (XENT_SMOOTHING, 0.0):
+            loss, lse = xentropy._fwd_cuda(x, y, s)
+            want_loss, want_lse = xentropy._fwd_torch(x, y, s)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in
+                      ((loss, want_loss), (lse, want_lse)))
+            rel = max(float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+                      for a, b in ((loss, want_loss), (lse, want_lse)))
+            name = f"{str(dtype)[6:]} s={s}"
+            print(f"  {xentropy.FWD_KERNEL}[{name}] ({rows}, {k}): "
+                  f"max_abs_err={err:.3e} rel={rel:.3e} (tol {XENT_FWD_TOL})")
+            check(bool(torch.isfinite(loss).all()), "non-finite loss")
+            check(rel <= XENT_FWD_TOL, f"{xentropy.FWD_KERNEL}[{name}] "
+                  "disagrees with its plain version")
+            dx = xentropy._bwd_cuda(x, y, want_lse, g, s)
+            want_dx = xentropy._bwd_torch(x, y, want_lse, g, s)
+            torch.cuda.synchronize()
+            ulps = _ulps(dx, want_dx)
+            pad_zero = bool((dx[~real] == 0).all())
+            derr = float((dx.float() - want_dx.float()).abs().max())
+            print(f"  {xentropy.BWD_KERNEL}[{name}]: bitwise {ulps == 0} "
+                  f"(max {ulps} ulps, max_abs_err={derr:.3e}), padding rows "
+                  f"exactly 0: {pad_zero}")
+            check(ulps == 0, f"{xentropy.BWD_KERNEL}[{name}] is not bitwise "
+                  "equal to its plain version given the same lse")
+            check(pad_zero, f"{xentropy.BWD_KERNEL}[{name}]: padding rows "
+                  "not 0")
+            del dx, want_dx, want_loss, loss
+            case_f = {"case": name, "max_abs_err": err, "rel_err": rel,
+                      "shape": f"({rows}, {k}) {str(dtype)[6:]}"}
+            case_b = {"case": name, "max_abs_err": derr, "ulps": ulps,
+                      "shape": case_f["shape"]}
+            if s == XENT_SMOOTHING:
+                f_k = lambda: xentropy._fwd_cuda(x, y, s)  # noqa: E731
+                b_k = lambda: xentropy._bwd_cuda(  # noqa: E731
+                    x, y, want_lse, g, s)
+                case_f["ms"] = device_ms(f_k)
+                case_b["ms"] = device_ms(b_k)
+                case_f["plain_ms"] = device_ms(
+                    lambda: xentropy._fwd_torch(x, y, s), iters=3,
+                    replays=2)
+                case_b["plain_ms"] = device_ms(
+                    lambda: xentropy._bwd_torch(x, y, want_lse, g, s),
+                    iters=3, replays=2)
+                yl = y.long()
+                lib = lambda: F.cross_entropy(  # noqa: E731
+                    x, yl, reduction="none", label_smoothing=s,
+                    ignore_index=XENT_PAD)
+                case_f["library_ms"] = _library_ms(xentropy.FWD_KERNEL, lib)
+                xl = x.detach().requires_grad_()
+                with torch.enable_grad():    # phase 2 runs under no_grad
+                    out = F.cross_entropy(xl, yl, reduction="none",
+                                          label_smoothing=s,
+                                          ignore_index=XENT_PAD)
+                case_b["library_ms"] = _library_ms(
+                    xentropy.BWD_KERNEL, lambda: torch.autograd.grad(
+                        out, xl, g, retain_graph=True))
+                del xl, out
+                # forward: logits and labels read, loss and lse written;
+                # per logit a max, a subtract, an exp and two sums.
+                # backward: logits, labels, lse and g read, dx written;
+                # per logit a subtract, an exp, a select, two subtracts
+                # and a product
+                case_f["bound_ms"], case_f["bound_by"] = bound(
+                    nbytes(x, y) + 2 * 4 * rows, 5 * x.numel(),
+                    PEAK_FP32_FLOPS)
+                case_b["bound_ms"], case_b["bound_by"] = bound(
+                    nbytes(x, y, want_lse, g, x), 6 * x.numel(),
+                    PEAK_FP32_FLOPS)
+                for c in (case_f, case_b):
+                    lm = c["library_ms"]
+                    print(f"    [{c['case']}] ms={c['ms']:.5f} plain_ms="
+                          f"{c['plain_ms']:.5f} library_ms="
+                          f"{lm if lm is None else round(lm, 5)} "
+                          f"bound_ms={c['bound_ms']:.5f} ({c['bound_by']})")
+            fwd.append(case_f)
+            bwd.append(case_b)
+            del lse, want_lse
+        del x
+        torch.cuda.empty_cache()
+    out = []
+    for name, line, cases in ((xentropy.FWD_KERNEL, 32, fwd),
+                              (xentropy.BWD_KERNEL, 47, bwd)):
+        top = {k_: v_ for k_, v_ in cases[0].items() if k_ != "case"}
+        out.append({"name": name, "route": "cuda",
+                    "source": "apex_tpu_torch/csrc/xentropy.cu",
+                    "replaces": f"apex_tpu/ops/xentropy.py:{line}", **top,
+                    "max_abs_err": max(c["max_abs_err"] for c in cases),
+                    "cases": cases})
+    return out
+
+
+def rope_freqs(s: int, rot: int, dev) -> torch.Tensor:
+    """(s, 1, 1, rot) angles as Megatron builds them: position times
+    1 / 10000^(2i / rot), the half duplicated."""
+    inv = 1.0 / (10000 ** (torch.arange(0, rot, 2, device=dev).float()
+                           / rot))
+    ang = torch.outer(torch.arange(s, device=dev).float(), inv)
+    return torch.cat([ang, ang], dim=-1)[:, None, None, :]
+
+
+def _thd_cu(dev) -> torch.Tensor:
+    return torch.tensor(np.concatenate([[0], np.cumsum(THD_LENS)]),
+                        dtype=torch.int32, device=dev)
+
+
+def rope_case(name, t, cos, sin, cu) -> dict:
+    """The RoPE kernel forward and backward (-sin flag) against the plain
+    version on the same tables: bitwise."""
+    if cu is None:
+        c, s_ = cos, sin
+    else:       # the plain version's per-token tables
+        pos = rope._thd_positions(cu, t.shape[0], cos.shape[0])
+        c, s_ = cos[pos][:, None], sin[pos][:, None]
+    got = rope._rope_cuda(t, cos, sin, cu)
+    back = rope._rope_cuda(t, cos, sin, cu, negate=True)
+    want = rope._apply_torch(t, c, s_)
+    want_back = rope._apply_torch(t, c, -s_)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in ((got, want), (back, want_back)))
+    ok = _same_bits(got, want) and _same_bits(back, want_back)
+    print(f"  rope[{name}] {tuple(t.shape)} {str(t.dtype)[6:]} rot "
+          f"{cos.shape[-1]}: forward and -sin backward bitwise {ok} "
+          f"(max_abs_err={err:.3e})")
+    check(ok, f"rope[{name}] kernel is not bitwise equal to its plain "
+          "version")
+    del got, back, want, want_back
+    kernel = lambda: rope._rope_cuda(t, cos, sin, cu)  # noqa: E731
+    ms = device_ms(kernel)
+    plain_ms = device_ms(lambda: rope._apply_torch(t, c, s_), iters=3,
+                         replays=2)
+    # t read and written once, the tables read once; three fp32
+    # operations per rotated channel
+    rot = cos.shape[-1]
+    b_ms, by = bound(2 * nbytes(t) + nbytes(cos, sin),
+                     3 * t.numel() // t.shape[-1] * rot, PEAK_FP32_FLOPS)
+    print(f"    ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms=None "
+          f"(no single PyTorch call) bound_ms={b_ms:.5f} ({by})")
+    return {"case": name, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": by,
+            "shape": f"{tuple(t.shape)} {str(t.dtype)[6:]}, rot {rot}"}
+
+
+def rope_cases(dev) -> dict:
+    """#16 at its public widths: Llama-2-7B's sbhd in bf16 (the headline)
+    and fp32, GPT-NeoX-20B's cached (rot 24 of 96), and the packed thd
+    layout at Llama-2-7B's heads."""
+    cgen = torch.Generator(device=dev).manual_seed(16)
+    rnd = lambda shape, dt: torch.randn(  # noqa: E731
+        shape, generator=cgen, device=dev).to(dt)
+    cases = []
+    f = rope_freqs(LLAMA_SBHD[0], LLAMA_SBHD[3], dev)
+    cos, sin = torch.cos(f), torch.sin(f)
+    for dt in (torch.bfloat16, torch.float32):
+        cases.append(rope_case(f"llama2_7b_sbhd_{str(dt)[6:]}",
+                               rnd(LLAMA_SBHD, dt), cos, sin, None))
+        torch.cuda.empty_cache()
+    f = rope_freqs(NEOX_SBHD[0], NEOX_ROT, dev)
+    cases.append(rope_case("neox20b_cached", rnd(NEOX_SBHD, torch.bfloat16),
+                           torch.cos(f), torch.sin(f), None))
+    tab = rope_freqs(max(THD_LENS), THD_HEADS[1], dev)[:, 0, 0]
+    cases.append(rope_case("llama2_7b_thd",
+                           rnd((sum(THD_LENS), *THD_HEADS), torch.bfloat16),
+                           torch.cos(tab), torch.sin(tab), _thd_cu(dev)))
+    top = {k_: v_ for k_, v_ in cases[0].items() if k_ != "case"}
+    return {"name": rope.KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/rope.cu",
+            "replaces": "apex_tpu/ops/rope.py:58", **top,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "cases": cases}
+
+
+def _xent_grads(step, fwd_loss, x, y):
+    """The loss and the flat gradient of ``fwd_loss`` at one batch."""
+    step._grad.zero_()
+    loss = fwd_loss(step.model, x, y)
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), step._grad.clone()
+
+
+def train_xentropy(seed: int, dev, card: str) -> dict:
+    """GPT-2 345M (phase 4's model, weights and batch) with the contrib
+    xentropy loss through ``PretrainStep(model, FusedAdam(lr=1e-4,
+    weight_decay=0.01), loss_fn=xent_loss)``: at batch 2 on the initial
+    weights the loss and every gradient through the kernels against the
+    plain versions; then ten steps with the launch counts set to 0 just
+    before and read just after (each xentropy kernel and Adam once a
+    step), one profiled step."""
+    cfg = GPTConfig.gpt2_345m()
+    t0 = time.perf_counter()
+    model = init_gpt_pretrain_params(
+        cfg, torch.Generator().manual_seed(seed), device=dev)
+    step = PretrainStep(model, FusedAdam(lr=1e-4, weight_decay=0.01),
+                        loss_fn=xent_loss)
+    state = step.init()
+    x, y = _gpt_batch(seed, dev, cfg)
+    y = xent_labels(y)
+    real = int((y != XENT_PAD).sum())
+    print(f"  GPT-2 345M with softmax_cross_entropy(smoothing="
+          f"{XENT_SMOOTHING}, padding_idx={XENT_PAD}) and FusedAdam(lr=1e-4, "
+          f"weight_decay=0.01): {real} real labels of "
+          f"{y.numel()}, set-up {time.perf_counter() - t0:.1f} s")
+    # kernels against plain versions at batch 2 on the initial weights
+    x2, y2 = x[2:4], y[2:4]            # rows of 900 and 1024 real labels
+    loss_k, gk = _xent_grads(step, xent_loss, x2, y2)
+    loss_p, gp = _xent_grads(step, xent_loss_plain, x2, y2)
+    worst = (0.0, "")
+    plain = state.space.unpack(gp, "buffer")
+    for name, a in state.space.unpack(gk, "buffer").items():
+        e = plain[name]
+        rel = float((a - e).norm() / e.norm().clamp_min(1e-30))
+        worst = max(worst, (rel, name))
+    del gk, gp, plain
+    print(f"  batch 2, kernels vs plain: loss {loss_k:.5f} vs {loss_p:.5f} "
+          f"(tol {TRAIN_LOSS_TOL}); worst gradient relative L2 error "
+          f"{worst[0]:.3e} in {worst[1]} (tol {TRAIN_GRAD_REL_TOL})")
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_TOL,
+          "xentropy training loss: kernel path disagrees with the plain path")
+    check(worst[0] <= TRAIN_GRAD_REL_TOL,
+          "xentropy gradients: kernel path disagrees with the plain path")
+
+    state, losses, times, launches = _train_loop(step, state, (x, y),
+                                                 TRAIN_STEPS)
+    out = _run_summary("xentropy", losses, times, launches,
+                       torch.cuda.max_memory_allocated(), card, cfg)
+    check(losses[-1] < losses[0], "the xentropy training loss did not fall")
+    _check_launches("xentropy", launches,
+                    {xentropy.FWD_KERNEL: 1, xentropy.BWD_KERNEL: 1,
+                     mt_ops.ADAM_KERNEL: 1}, TRAIN_STEPS)
+    (state, _), out["profile"] = _profiled(
+        lambda: step(state, x, y), "xentropy step",
+        {"xentropy": ("xentropy",), "optimizer": ("adam_kernel",)})
+    out.update(real_labels=real, batch2_loss=[loss_k, loss_p],
+               batch2_grad_rel_err={"max": worst[0], "param": worst[1]})
+    return out
+
+
+def rope_path(seed: int, dev, card: str) -> dict:
+    """RoPE as a model applies it: q and k through
+    ``fused_apply_rotary_pos_emb`` at Llama-2-7B's sbhd shape, through
+    ``_thd`` with eight packed sequences, and through ``_cached`` at
+    GPT-NeoX-20B's, each with a backward through both (two forward and
+    two backward launches a variant); launch counts set to 0 just before
+    and read just after. Outputs and gradients bitwise against the plain
+    version on the same tables."""
+    cgen = torch.Generator(device=dev).manual_seed(seed + 16)
+    rnd = lambda shape: torch.randn(  # noqa: E731
+        shape, generator=cgen, device=dev).to(torch.bfloat16)
+    f_llama = rope_freqs(LLAMA_SBHD[0], LLAMA_SBHD[3], dev)
+    f_thd = rope_freqs(max(THD_LENS), THD_HEADS[1], dev)
+    f_neox = rope_freqs(NEOX_SBHD[0], NEOX_ROT, dev)
+    cu = _thd_cu(dev)
+    thd = (sum(THD_LENS), *THD_HEADS)
+    pos = rope._thd_positions(cu, thd[0], f_thd.shape[0])
+    variants = {
+        # name: (shape, apply, the plain version's cos and sin)
+        "sbhd": (LLAMA_SBHD, lambda t: fused_apply_rotary_pos_emb(t, f_llama),
+                 torch.cos(f_llama), torch.sin(f_llama)),
+        "thd": (thd, lambda t: fused_apply_rotary_pos_emb_thd(t, cu, f_thd),
+                torch.cos(f_thd[:, 0, 0])[pos][:, None],
+                torch.sin(f_thd[:, 0, 0])[pos][:, None]),
+        "cached": (NEOX_SBHD, lambda t: fused_apply_rotary_pos_emb_cached(
+            t, torch.cos(f_neox), torch.sin(f_neox)),
+            torch.cos(f_neox), torch.sin(f_neox)),
+    }
+    inputs = {k: [rnd(v[0]).requires_grad_() for _ in range(2)] + [
+        rnd(v[0]) for _ in range(2)] for k, v in variants.items()}
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    outs, times = {}, {}
+    for name, (_, apply, _, _) in variants.items():
+        q, k, gq, gk = inputs[name]
+        t0 = time.perf_counter()
+        qr, kr = apply(q), apply(k)
+        torch.autograd.backward([qr, kr], [gq, gk])
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        outs[name] = (qr.detach(), kr.detach())
+    launches = _build.launch_counts()
+    ok = {}
+    for name, (_, _, c, s) in variants.items():
+        q, k, gq, gk = inputs[name]
+        qr, kr = outs[name]
+        ok[name] = (_same_bits(qr, rope._apply_torch(q.detach(), c, s))
+                    and _same_bits(kr, rope._apply_torch(k.detach(), c, s))
+                    and _same_bits(q.grad, rope._apply_torch(gq, c, -s))
+                    and _same_bits(k.grad, rope._apply_torch(gk, c, -s)))
+    print(f"  RoPE path (q and k, forward and backward): launches "
+          f"{launches}; wall ms (first call each, synchronised) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+          + f"; bitwise against plain {ok} on {card}")
+    check(launches.get(rope.KERNEL, 0) == 4 * len(variants),
+          f"rope launched {launches.get(rope.KERNEL, 0)} times, not "
+          f"{4 * len(variants)}")
+    check(all(ok.values()), "RoPE path: outputs or gradients differ from "
+          "the plain version")
+    return {"launches": launches, "steps": 1, "wall_ms": times,
+            "bitwise": ok}
+
+
 # -- phase 3: serving at full width --------------------------------------------
 
 
@@ -2938,6 +3350,10 @@ def main(argv=None) -> int:
                          novograd_case):
                 rows.append(case(dev))
                 torch.cuda.empty_cache()
+            rows += xentropy_cases(dev)
+            torch.cuda.empty_cache()
+            rows.append(rope_cases(dev))
+            torch.cuda.empty_cache()
         return rows
 
     card, secs = phase("phase 1: environment", environment)
@@ -2959,6 +3375,14 @@ def main(argv=None) -> int:
                  "clip", lambda: train_novograd(args.seed, dev, card))
     ada = phase("phase 9b: training GPT-2 345M with FusedAdagrad under the "
                 "loss scaler", lambda: train_adagrad(args.seed, dev, card))
+    xent = phase("phase 10a: training GPT-2 345M with contrib xentropy "
+                 "(label smoothing, padded labels)",
+                 lambda: train_xentropy(args.seed, dev, card))
+    print(f"  xentropy step {xent['step_ms']:.2f} ms against phase 4's "
+          f"gpt_loss_fn step {trn['step_ms']:.2f} ms in this call (for "
+          "comparison only)")
+    rp = phase("phase 10b: RoPE at Llama-2-7B and GPT-NeoX-20B widths",
+               lambda: rope_path(args.seed, dev, card))
     # where each kernel's launches are read: the path that runs it (the
     # forward kernels run on every GPT path: their launches are the
     # serving run's; the scaled sum of squares runs on the scaler step;
@@ -2992,6 +3416,11 @@ def main(argv=None) -> int:
                                 ada["steps"]),
         mt_ops.AXPBY_KERNEL: ("grad_accumulation_axpby",
                               ada["axpby_launches"], 1),
+        xentropy.FWD_KERNEL: ("training_xentropy", xent["launches"],
+                              xent["steps"]),
+        xentropy.BWD_KERNEL: ("training_xentropy", xent["launches"],
+                              xent["steps"]),
+        rope.KERNEL: ("rope_path", rp["launches"], rp["steps"]),
     }
     for k in kernels:
         name = k["name"]
@@ -3014,12 +3443,13 @@ def main(argv=None) -> int:
                          ("resnet_o2", rn["o2_fp16"]),
                          ("resnet_lars", rn["lars"]),
                          ("resnet_larc", rn["larc"]),
-                         ("novograd", novo), ("adagrad", ada)):
+                         ("novograd", novo), ("adagrad", ada),
+                         ("xentropy", xent)):
             k[f"launches_{key}"] = run["launches"].get(name, 0)
         check(k["launches"] > 0, f"{name}: no launch on its path")
 
-    check(len(kernels) == 21, f"{len(kernels)} kernels in the line, not 21")
-    print("phase 10: kernels")
+    check(len(kernels) == 24, f"{len(kernels)} kernels in the line, not 24")
+    print("phase 11: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -3031,6 +3461,7 @@ def main(argv=None) -> int:
                        "training_lamb": lamb, "bert": bert,
                        "gpt_softmax": gsm, "resnet": rn,
                        "training_novograd": novo, "training_adagrad": ada,
+                       "training_xentropy": xent, "rope_path": rp,
                        **line}, f,
                       indent=1)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ Every test here needs a CUDA device and skips without one (a CUDA
 kernel has no CPU mode; the plain versions are held against apex_tpu on
 the CPU by test_torch_layer_norm.py, test_torch_attention.py and their
 _bwd counterparts, test_torch_adam.py, test_torch_softmax.py,
-test_torch_sgd.py, test_torch_scale_axpby.py and
-test_torch_novograd_adagrad.py). This
+test_torch_sgd.py, test_torch_scale_axpby.py,
+test_torch_novograd_adagrad.py, test_torch_xentropy.py and
+test_torch_rope.py). This
 file imports neither JAX nor apex_tpu, so it runs on a machine with
 only PyTorch: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py``.
@@ -27,7 +28,7 @@ Softmax forwards within one bf16 ulp of the value (2^-7; fp32 within
 of each row's largest |dx| (the row's dot product is summed in another
 order). SGD, LARS, scale, axpby, Adagrad and NovoGrad: bitwise (the
 tolerances of the whole LARS and NovoGrad updates are stated with their
-tests).
+tests). Cross entropy and RoPE: stated with their tests.
 """
 
 import numpy as np
@@ -1009,3 +1010,203 @@ def test_novograd_adagrad_and_clip_launch_their_kernels(cuda_device):
     assert torch.equal(state2.master, master)
     assert torch.equal(state2.slots["h"], h)
     assert ss2.loss_scale == ss.loss_scale / 2
+
+
+# -- the cross-entropy and RoPE kernels ---------------------------------------
+#
+# Tolerances: the xentropy forward's loss and lse within 1e-5 of
+# max(1, |value|) (fp32 logsumexp and mean summed in another order: an
+# online max and rescaled sum per thread, combined across the block); the
+# backward bitwise given the same lse (every operation rounded on its own
+# in the plain version's order, `expf`), padding rows (g = 0) exactly 0.
+# RoPE bitwise for every dtype, layout and the -sin flag (products and
+# sums rounded on their own, in the plain version's order).
+
+XENT_TOL = 1e-5
+XENT_CASES = [(16, 50304), (37, 131), (64, 1000), (8, 32128), (5, 3)]
+
+
+def _xent_inputs(rows, k, dev, dtype, seed):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((3 * rng.randn(rows, k)).astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, k, rows).astype(np.int32))
+    g = torch.from_numpy(rng.randn(rows).astype(np.float32))
+    g[::3] = 0.0                                 # padding rows
+    return x.to(dev, dtype), y.to(dev), g.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", XENT_CASES)
+def test_xentropy_kernels_match_plain(cuda_device, shape, dtype, smoothing):
+    from apex_tpu_torch.ops import xentropy
+    x, y, g = _xent_inputs(*shape, cuda_device, dtype, seed=11)
+    before = _build.launch_counts()
+    loss, lse = xentropy._fwd_cuda(x, y, smoothing)
+    want_loss, want_lse = xentropy._fwd_torch(x, y, smoothing)
+    dx = xentropy._bwd_cuda(x, y, want_lse, g, smoothing)
+    want_dx = xentropy._bwd_torch(x, y, want_lse, g, smoothing)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for k in (xentropy.FWD_KERNEL, xentropy.BWD_KERNEL):
+        assert after[k] == before.get(k, 0) + 1, k
+    for got, want in ((loss, want_loss), (lse, want_lse)):
+        assert bool(((got - want).abs()
+                     <= XENT_TOL * want.abs().clamp_min(1.0)).all())
+    assert dx.dtype == dtype
+    assert torch.equal(dx.view(torch.int16 if dtype != torch.float32
+                               else torch.int32),
+                       want_dx.view(torch.int16 if dtype != torch.float32
+                                    else torch.int32))
+    assert bool((dx[::3] == 0).all())
+
+
+@pytest.mark.cuda
+def test_xentropy_kernel_out_of_range_labels(cuda_device):
+    from apex_tpu_torch.ops import xentropy
+    x, _, g = _xent_inputs(4, 40, cuda_device, torch.float32, seed=12)
+    y = torch.tensor([-1, 40, -100, 3], dtype=torch.int32,
+                     device=cuda_device)
+    loss, lse = xentropy._fwd_cuda(x, y, 0.1)
+    want_loss, want_lse = xentropy._fwd_torch(x, y, 0.1)
+    dx = xentropy._bwd_cuda(x, y, want_lse, g, 0.1)
+    assert bool(((loss - want_loss).abs() <= XENT_TOL * 10).all())
+    assert torch.equal(dx, xentropy._bwd_torch(x, y, want_lse, g, 0.1))
+
+
+@pytest.mark.cuda
+def test_xentropy_autograd_runs_both_kernels(cuda_device):
+    from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy
+    from apex_tpu_torch.ops import xentropy
+    x, y, _ = _xent_inputs(2 * 33, 517, cuda_device, torch.bfloat16,
+                           seed=13)
+    x = x.reshape(2, 33, 517).requires_grad_()
+    y = y.reshape(2, 33).long()
+    y[:, 30:] = 0
+    before = _build.launch_counts()
+    with torch.no_grad():
+        softmax_cross_entropy(x, y, 0.1)
+    mid = _build.launch_counts()
+    assert mid[xentropy.FWD_KERNEL] == before.get(xentropy.FWD_KERNEL, 0) + 1
+    assert mid.get(xentropy.BWD_KERNEL, 0) == before.get(
+        xentropy.BWD_KERNEL, 0)
+    softmax_cross_entropy(x, y, 0.1).sum().backward()
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for k in (xentropy.FWD_KERNEL, xentropy.BWD_KERNEL):
+        assert after[k] == mid.get(k, 0) + 1, k
+    assert bool((x.grad[:, 30:] == 0).all())
+    assert bool(torch.isfinite(x.grad.float()).all())
+
+
+@pytest.mark.cuda
+def test_xentropy_kernel_refuses_other_inputs(cuda_device):
+    from apex_tpu_torch.ops import softmax_cross_entropy_loss
+    y = torch.zeros(4, dtype=torch.long, device=cuda_device)
+    with pytest.raises(TypeError):
+        softmax_cross_entropy_loss(
+            torch.zeros(4, 8, device=cuda_device, dtype=torch.float64), y)
+    with pytest.raises(ValueError, match="contiguous"):
+        softmax_cross_entropy_loss(
+            torch.zeros(8, 4, device=cuda_device).t(), y)
+
+
+ROPE_CASES = {
+    # name: (t shape, rot, thd lengths or None)
+    "sbhd_full": ((33, 2, 4, 128), 128, None),
+    "sbhd_partial": ((17, 3, 2, 64), 32, None),
+    "neox_rot24": ((9, 2, 3, 96), 24, None),
+    "odd_pairs": ((5, 2, 2, 22), 6, None),
+    "thd": ((40, 4, 128), 128, (7, 1, 20, 12)),
+    "thd_partial": ((40, 3, 96), 24, (13, 27)),
+}
+
+
+def _rope_inputs(case, dev, dtype, seed=14):
+    shape, rot, lens = ROPE_CASES[case]
+    rng = np.random.RandomState(seed)
+    t = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev, dtype)
+    s_max = shape[0] if lens is None else max(lens) + 3
+    freqs = torch.from_numpy(
+        (3 * rng.randn(s_max, 1, 1, rot)).astype(np.float32)).to(dev)
+    cu = None if lens is None else torch.tensor(
+        np.concatenate([[0], np.cumsum(lens)]), dtype=torch.int32,
+        device=dev)
+    return t, freqs, cu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("negate", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", sorted(ROPE_CASES))
+def test_rope_kernel_bitwise_equals_plain(cuda_device, case, dtype, negate):
+    from apex_tpu_torch.ops import rope
+    t, freqs, cu = _rope_inputs(case, cuda_device, dtype)
+    tab = freqs.reshape(freqs.shape[0], -1)
+    cos, sin = torch.cos(tab), torch.sin(tab)
+    before = _build.launch_counts().get(rope.KERNEL, 0)
+    if cu is None:
+        got = rope._rope_cuda(t, cos[:, None, None], sin[:, None, None],
+                              None, negate)
+        c, s = cos[:, None, None], sin[:, None, None]
+    else:
+        got = rope._rope_cuda(t, cos, sin, cu, negate)
+        pos = rope._thd_positions(cu, t.shape[0], tab.shape[0])
+        c, s = cos[pos][:, None], sin[pos][:, None]
+    want = rope._apply_torch(t, c, -s if negate else s)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[rope.KERNEL] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_rope_autograd_runs_the_kernel_both_ways(cuda_device):
+    from apex_tpu_torch.ops import rope
+    from apex_tpu_torch.transformer.functional import (
+        fused_apply_rotary_pos_emb, fused_apply_rotary_pos_emb_thd)
+    t, freqs, _ = _rope_inputs("sbhd_partial", cuda_device, torch.bfloat16)
+    t.requires_grad_()
+    before = _build.launch_counts().get(rope.KERNEL, 0)
+    fused_apply_rotary_pos_emb(t, freqs).float().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[rope.KERNEL] == before + 2
+    want = rope._apply_torch(torch.ones_like(t), torch.cos(freqs),
+                             -torch.sin(freqs))
+    assert torch.equal(t.grad, want)
+    t, freqs, cu = _rope_inputs("thd", cuda_device, torch.float32)
+    t.requires_grad_()
+    out = fused_apply_rotary_pos_emb_thd(t, cu, freqs)
+    out.sum().backward()
+    t_cpu = t.detach().cpu().requires_grad_()
+    want = fused_apply_rotary_pos_emb_thd(t_cpu, cu.cpu(), freqs.cpu())
+    want.sum().backward()
+    # the card's cos/sin against the CPU's: an ulp apart at most
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(t.grad.cpu(), t_cpu.grad, rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_rope_kernel_refuses_other_inputs(cuda_device):
+    from apex_tpu_torch.transformer.functional import (
+        fused_apply_rotary_pos_emb, fused_apply_rotary_pos_emb_cached)
+    t = torch.zeros(4, 2, 2, 8, device=cuda_device)
+    with pytest.raises(ValueError):            # odd rotated width
+        fused_apply_rotary_pos_emb(t, torch.zeros(4, 1, 1, 7,
+                                                  device=cuda_device))
+    with pytest.raises(ValueError):            # wider than the head
+        fused_apply_rotary_pos_emb(t, torch.zeros(4, 1, 1, 10,
+                                                  device=cuda_device))
+    with pytest.raises(ValueError):            # not contiguous
+        fused_apply_rotary_pos_emb(t.transpose(1, 2),
+                                   torch.zeros(4, 1, 1, 8,
+                                               device=cuda_device))
+    cos = torch.zeros(4, 2, 1, 8, device=cuda_device)
+    with pytest.raises(ValueError):            # varies along the batch
+        fused_apply_rotary_pos_emb_cached(t, cos, cos)
+    with pytest.raises(TypeError):
+        fused_apply_rotary_pos_emb(t.double(), torch.zeros(
+            4, 1, 1, 8, device=cuda_device))
