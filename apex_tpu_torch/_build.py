@@ -37,7 +37,7 @@ BUILD_DIR = _PKG / "_build"
 # one shared library per source; the ops modules bind their symbols
 SOURCES = ("layer_norm", "flash_fwd", "flash_bwd", "fused_adam", "sumsq",
            "fused_lamb", "lamb_segment", "softmax", "fused_sgd",
-           "scale_axpby", "adagrad_novograd", "xentropy", "rope")
+           "scale_axpby", "adagrad_novograd", "xentropy", "rope", "dropout")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -131,6 +131,7 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_int64
+U = ctypes.c_uint32
 F = ctypes.c_float
 
 

@@ -67,7 +67,8 @@ __global__ void __launch_bounds__(kThreads)
                         const int* __restrict__ q_seg,
                         const int* __restrict__ k_seg,
                         __nv_bfloat16* __restrict__ dq, int H, int HK, int SQ,
-                        int SK, float scale, int causal, int window) {
+                        int SK, float scale, int causal, int window,
+                        Dropout dr) {
   constexpr int LD = D + kPad;
   constexpr int KS = D / 16;    // k16 steps over head_dim
   constexpr int NT = kBK / 8;   // n8 tiles of a score row
@@ -158,8 +159,13 @@ __global__ void __launch_bounds__(kThreads)
                                            SK, causal, window, has_seg, qs1,
                                            ks) -
                                 l1);
-        s[j][e] = p0 * (dpv[j][e] - d0);
-        s[j][2 + e] = p1 * (dpv[j][2 + e] - d1);
+        float dp0 = dpv[j][e], dp1 = dpv[j][2 + e];
+        if (dr.on) {
+          dp0 = dropped(dr, bh, qi0, kj, dp0);
+          dp1 = dropped(dr, bh, qi1, kj, dp1);
+        }
+        s[j][e] = p0 * (dp0 - d0);
+        s[j][2 + e] = p1 * (dp1 - d1);
       }
     }
 
@@ -198,7 +204,8 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ k_seg,
                          __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int H, int HK, int SQ,
-                         int SK, float scale, int causal, int window) {
+                         int SK, float scale, int causal, int window,
+                         Dropout dr) {
   constexpr int LD = D + kPad;
   constexpr int KS = D / 16;
   constexpr int NT = kBQ / 8;   // n8 tiles of a (transposed) score row
@@ -298,10 +305,20 @@ __global__ void __launch_bounds__(kThreads)
                                              SK, causal, window, has_seg, qs,
                                              ks1) -
                                   L);
-          s[j][e] = p0;
-          s[j][2 + e] = p1;
-          dpv[j][e] = p0 * (dpv[j][e] - Dl);
-          dpv[j][2 + e] = p1 * (dpv[j][2 + e] - Dl);
+          // dv takes the dropped P, dS the undropped one
+          float pv0 = p0, pv1 = p1, dp0 = dpv[j][e], dp1 = dpv[j][2 + e];
+          if (dr.on) {
+            const bool keep0 = dropout_keep(dr.seed, bh, qi, kj0, dr.thresh);
+            const bool keep1 = dropout_keep(dr.seed, bh, qi, kj1, dr.thresh);
+            pv0 = keep0 ? __fdiv_rn(p0, dr.keep) : 0.f;
+            pv1 = keep1 ? __fdiv_rn(p1, dr.keep) : 0.f;
+            dp0 = keep0 ? __fdiv_rn(dp0, dr.keep) : 0.f;
+            dp1 = keep1 ? __fdiv_rn(dp1, dr.keep) : 0.f;
+          }
+          s[j][e] = pv0;
+          s[j][2 + e] = pv1;
+          dpv[j][e] = p0 * (dp0 - Dl);
+          dpv[j][2 + e] = p1 * (dp1 - Dl);
         }
       }
 
@@ -352,7 +369,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, const void* q_seg,
            const void* k_seg, void* dq, void* dk, void* dv, int B, int H,
            int HK, int SQ, int SK, float scale, int causal, int window,
-           cudaStream_t stream) {
+           Dropout dr, cudaStream_t stream) {
   using bf = __nv_bfloat16;
   const bf* qt = static_cast<const bf*>(q);
   const bf* kt = static_cast<const bf*>(k);
@@ -372,7 +389,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     dim3 grid((SQ + kBQ - 1) / kBQ, B * H);
     flash_bwd_dq_kernel<D><<<grid, kThreads, dq_bytes, stream>>>(
         qt, kt, vt, ot, lt, dt, qs, ks, static_cast<bf*>(dq), H, HK, SQ, SK,
-        scale, causal, window);
+        scale, causal, window, dr);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -380,7 +397,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     dim3 grid((SK + kBK - 1) / kBK, B * HK);
     flash_bwd_dkv_kernel<D><<<grid, kThreads, dkv_bytes, stream>>>(
         qt, kt, vt, ot, lt, dt, qs, ks, static_cast<bf*>(dk),
-        static_cast<bf*>(dv), H, HK, SQ, SK, scale, causal, window);
+        static_cast<bf*>(dv), H, HK, SQ, SK, scale, causal, window, dr);
   }
   return (int)cudaGetLastError();
 }
@@ -390,28 +407,31 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // One entry for both kernels: dq null skips the dq kernel, dk (and dv)
 // null skips the dk/dv kernel. Returns cudaGetLastError() after the
 // launches (cudaErrorInvalidValue for a head_dim other than 32, 64 or
-// 128, or a grid beyond the y limit). window <= 0 means no window.
+// 128, or a grid beyond the y limit). window <= 0 means no window. The
+// dropout arguments are the forward's.
 extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* q_seg,
                               const void* k_seg, void* dq, void* dk, void* dv,
                               int B, int H, int HK, int SQ, int SK, int D,
                               float scale, int causal, int window,
-                              void* stream) {
+                              int dropout, uint32_t seed, uint32_t thresh,
+                              float keep, void* stream) {
   if (B == 0 || H == 0 || SQ == 0 || SK == 0) return (int)cudaGetLastError();
   if (HK <= 0 || H % HK || B * H > 65535) return (int)cudaErrorInvalidValue;
   if ((dk == nullptr) != (dv == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout dr{dropout, seed, thresh, keep};
   switch (D) {
     case 32:
       return launch<32>(q, k, v, dout, lse, delta, q_seg, k_seg, dq, dk, dv, B,
-                        H, HK, SQ, SK, scale, causal, window, s);
+                        H, HK, SQ, SK, scale, causal, window, dr, s);
     case 64:
       return launch<64>(q, k, v, dout, lse, delta, q_seg, k_seg, dq, dk, dv, B,
-                        H, HK, SQ, SK, scale, causal, window, s);
+                        H, HK, SQ, SK, scale, causal, window, dr, s);
     case 128:
       return launch<128>(q, k, v, dout, lse, delta, q_seg, k_seg, dq, dk, dv,
-                         B, H, HK, SQ, SK, scale, causal, window, s);
+                         B, H, HK, SQ, SK, scale, causal, window, dr, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,7 +1,8 @@
 // Pieces shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
 // the bf16 tensor-core product on `mma.sync` m16n8k16 fragments, bf16
-// packing, and the reference's mask (apex_tpu/ops/attention.py
-// `_mask_block`, :59-86).
+// packing, the reference's mask (apex_tpu/ops/attention.py
+// `_mask_block`, :59-86) and its dropout keep mask (`_dropout_keep`,
+// :89-112).
 //
 // Fragment layout of m16n8k16 (per warp; g = lane / 4, t = lane % 4):
 // A (16 x 16, row-major) a[0] = (g, 2t..2t+1), a[1] = (g+8, 2t..), a[2] =
@@ -57,6 +58,44 @@ __device__ __forceinline__ float mask_score(float s, int qi, int kj, int off,
   if (window > 0 && kj <= qi + off - window) masked = true;
   if (has_seg && qs != ks) masked = true;
   return masked ? s + kNegInf : s;
+}
+
+// The reference's counter-based attention-dropout mask: the murmur3
+// finaliser of (seed, flat q-head index b * H + h, global query row,
+// global key column), kept where the hash is >= thresh = min(int(rate *
+// 2^32), 2^32 - 1) (computed on the host). It hashes global indices, not
+// block indices, so any tile shape gives the same mask; the forward and
+// both backward kernels regenerate it from the same seed.
+__device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t bh,
+                                             uint32_t row, uint32_t col,
+                                             uint32_t thresh) {
+  uint32_t x = (row * 0x9E3779B1u) ^ (col * 0x85EBCA77u);
+  x ^= bh * 0xC2B2AE3Du;
+  x ^= seed;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= thresh;
+}
+
+// The dropout arguments of the three kernels: `on` is rate > 0; a kept
+// value is divided by `keep` (fp32 1 - rate), as the reference's
+// `p / (1.0 - rate)`.
+struct Dropout {
+  int on;
+  uint32_t seed;
+  uint32_t thresh;
+  float keep;
+};
+
+// v dropped at (bh, row, col): kept and divided by 1 - rate, or 0.
+__device__ __forceinline__ float dropped(const Dropout& dr, uint32_t bh,
+                                         int row, int col, float v) {
+  return dropout_keep(dr.seed, bh, (uint32_t)row, (uint32_t)col, dr.thresh)
+             ? __fdiv_rn(v, dr.keep)
+             : 0.f;
 }
 
 // A fragment of rows r0, r0 + 8 (r0 = 16-row slab + g) of a row-major

@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(kThreads)
                      const int* __restrict__ k_seg,
                      __nv_bfloat16* __restrict__ out,
                      float* __restrict__ lse, int H, int HK, int SQ, int SK,
-                     float scale, int causal, int window) {
+                     float scale, int causal, int window, Dropout dr) {
   constexpr int LD = D + kPad;  // shared-memory row stride (elements)
   constexpr int CH = D / 8;     // 16-byte chunks per row
   constexpr int KS = D / 16;    // k16 steps of q.k^T
@@ -203,6 +203,18 @@ __global__ void __launch_bounds__(kThreads)
       o[j][2] *= corr1;
       o[j][3] *= corr1;
     }
+    if (dr.on) {
+      // dropout touches only what multiplies V; l keeps the full sum
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kj = k0 + j * 8 + 2 * t + e;
+          s[j][e] = dropped(dr, bh, qi0, kj, s[j][e]);
+          s[j][2 + e] = dropped(dr, bh, qi1, kj, s[j][2 + e]);
+        }
+      }
+    }
 
     // O += P V: the score accumulators of two adjacent n8 tiles are
     // exactly the A fragment of one k16 step
@@ -256,7 +268,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* q_seg,
            const void* k_seg, void* out, void* lse, int B, int H, int HK,
-           int SQ, int SK, float scale, int causal, int window,
+           int SQ, int SK, float scale, int causal, int window, Dropout dr,
            cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
   if (bytes > 48 * 1024) {
@@ -271,7 +283,7 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_seg),
       static_cast<const int*>(k_seg), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), H, HK, SQ, SK, scale, causal, window);
+      static_cast<float*>(lse), H, HK, SQ, SK, scale, causal, window, dr);
   return (int)cudaGetLastError();
 }
 
@@ -280,25 +292,29 @@ int launch(const void* q, const void* k, const void* v, const void* q_seg,
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // a head_dim other than 32, 64 or 128 or a grid beyond the y limit).
 // window <= 0 means no window; q_seg and k_seg are both null or both set.
+// dropout != 0 drops P in the P.V product: kept where the hash of
+// (seed, b * H + h, row, col) is >= thresh, divided by keep (1 - rate).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const void* q_seg, const void* k_seg,
                               void* out, void* lse, int B, int H, int HK,
                               int SQ, int SK, int D, float scale, int causal,
-                              int window, void* stream) {
+                              int window, int dropout, uint32_t seed,
+                              uint32_t thresh, float keep, void* stream) {
   if (B == 0 || H == 0 || SQ == 0) return (int)cudaGetLastError();
   if (HK <= 0 || H % HK || B * H > 65535 || SK < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout dr{dropout, seed, thresh, keep};
   switch (D) {
     case 32:
       return launch<32>(q, k, v, q_seg, k_seg, out, lse, B, H, HK, SQ, SK,
-                        scale, causal, window, s);
+                        scale, causal, window, dr, s);
     case 64:
       return launch<64>(q, k, v, q_seg, k_seg, out, lse, B, H, HK, SQ, SK,
-                        scale, causal, window, s);
+                        scale, causal, window, dr, s);
     case 128:
       return launch<128>(q, k, v, q_seg, k_seg, out, lse, B, H, HK, SQ, SK,
-                         scale, causal, window, s);
+                         scale, causal, window, dr, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -28,7 +28,11 @@ converted weights:
   pads. Real rows agree under both; pad rows differ and stay out of the
   loss and the pooler.
 
-Dropout above 0 raises, as in GPT; ``bert_param_specs`` waits for the
+Dropout follows GPT's (``forward(..., deterministic=False,
+dropout_key=key)``): the attention probabilities dropped in the flash
+kernel or, on the softmax backend, through ``ops/dropout.py``; the hidden
+dropout after the attention projection and after ``fc2``, with the keys
+Flax gives each scope (``_rng.py``). ``bert_param_specs`` waits for the
 mesh.
 """
 
@@ -42,9 +46,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._backend import DeviceLike, resolve_device
+from apex_tpu_torch.models._rng import LayerKeys
 from apex_tpu_torch.models.gpt import (
     KERNEL_OPS,
     PLAIN_OPS,
+    _dropout_keys,
+    _hidden_dropout,
     _norm,
     _Ops,
     softmax_attention,
@@ -73,17 +80,18 @@ class BertConfig:
     attention_dropout: float = 0.0
     hidden_dropout: float = 0.0
     layernorm_epsilon: float = 1e-5
+    # the reference's layer scan: here only the layout of the dropout keys
+    scan_layers: bool = True
 
     def __post_init__(self):
         if self.attention_backend not in ("softmax", "flash"):
             raise ValueError(
                 f"attention_backend must be 'softmax' or 'flash', got "
                 f"{self.attention_backend!r}")
-        if self.attention_dropout > 0.0 or self.hidden_dropout > 0.0:
-            raise NotImplementedError(
-                "dropout (attention_dropout / hidden_dropout > 0) is not "
-                "ported yet: the attention-dropout kernel path comes with "
-                "a later slice")
+        for name in ("attention_dropout", "hidden_dropout"):
+            if not 0.0 <= getattr(self, name) < 1.0:
+                raise ValueError(f"{name} must be in [0, 1), got "
+                                 f"{getattr(self, name)}")
         if self.hidden_size % self.num_heads:
             raise ValueError("num_heads must divide hidden_size")
 
@@ -131,11 +139,14 @@ class BertParallelAttention(nn.Module):
             cfg.hidden_size, cfg.hidden_size, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, device=device)
 
-    def forward(self, x, mask, ops: _Ops = KERNEL_OPS):
+    def forward(self, x, mask, ops: _Ops = KERNEL_OPS,
+                keys: Optional[LayerKeys] = None):
         """``mask``: the (b, 1, s, s) boolean mask (softmax backend) or
-        the raw (b, s) keep-mask (flash backend)."""
+        the raw (b, s) keep-mask (flash backend); ``keys``: the layer's
+        dropout keys (None: deterministic)."""
         cfg = self.config
         hd = cfg.head_dim
+        rate = cfg.attention_dropout if keys is not None else 0.0
         qkv = self.qkv(x)
         s, b = qkv.shape[0], qkv.shape[1]
         q, k, v = torch.split(qkv.reshape(s, b, cfg.num_heads, 3 * hd), hd,
@@ -144,9 +155,12 @@ class BertParallelAttention(nn.Module):
             qb, kb, vb = (t.permute(1, 2, 0, 3).contiguous()
                           for t in (q, k, v))
             ctx = ops.attention(qb, kb, vb,
-                                segment_ids=mask.to(torch.int32))
+                                segment_ids=mask.to(torch.int32),
+                                dropout_rate=rate,
+                                dropout_rng=keys.attention if rate else None)
         else:
-            ctx = softmax_attention(q, k, v, mask, False, cfg.dtype, ops)
+            ctx = softmax_attention(q, k, v, mask, False, cfg.dtype, ops,
+                                    (rate, keys.attention) if rate else None)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, cfg.hidden_size)
         return self.proj(ctx)
 
@@ -171,11 +185,14 @@ class BertLayer(nn.Module):
                                      param_dtype=cfg.param_dtype,
                                      device=device)
 
-    def forward(self, x, mask, ops: _Ops = KERNEL_OPS):
-        x = x + self.attention(_norm(ops, self.input_norm, x), mask, ops)
+    def forward(self, x, mask, ops: _Ops = KERNEL_OPS,
+                keys: Optional[LayerKeys] = None):
+        rate = self.attention.config.hidden_dropout
+        a = self.attention(_norm(ops, self.input_norm, x), mask, ops, keys)
+        x = x + _hidden_dropout(ops, rate, a, keys, 0)
         hcol = F.gelu(self.fc1(_norm(ops, self.post_norm, x)),
                       approximate="tanh")
-        return x + self.fc2(hcol)
+        return x + _hidden_dropout(ops, rate, self.fc2(hcol), keys, 1)
 
 
 class BertPooler(nn.Module):
@@ -272,21 +289,28 @@ class BertModel(nn.Module):
                 p.normal_(0.0, std, generator=generator)
         self.to(dev)
 
-    def forward(self, tokens, attention_mask, tokentype_ids=None
+    def forward(self, tokens, attention_mask, tokentype_ids=None, *,
+                deterministic=True, dropout_key=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """``deterministic=False`` applies the config's dropout, keyed on
+        ``dropout_key`` (the reference's ``rngs={"dropout": key}``)."""
         return self._forward(tokens, attention_mask, tokentype_ids,
-                             KERNEL_OPS)
+                             KERNEL_OPS, deterministic, dropout_key)
 
-    def forward_plain(self, tokens, attention_mask, tokentype_ids=None
+    def forward_plain(self, tokens, attention_mask, tokentype_ids=None, *,
+                      deterministic=True, dropout_key=None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """:meth:`forward` through the plain PyTorch versions of the
         kernels on any device — the yardstick the kernel path is held
         against on the card."""
         return self._forward(tokens, attention_mask, tokentype_ids,
-                             PLAIN_OPS)
+                             PLAIN_OPS, deterministic, dropout_key)
 
-    def _forward(self, tokens, attention_mask, tokentype_ids, ops):
+    def _forward(self, tokens, attention_mask, tokentype_ids, ops,
+                 deterministic=True, dropout_key=None):
         cfg = self.config
+        keys = _dropout_keys(cfg, deterministic, dropout_key,
+                             cfg.attention_backend == "softmax")
         dev = self.embedding.weight.device
         tokens = torch.as_tensor(tokens, device=dev).long()
         attention_mask = torch.as_tensor(attention_mask, device=dev)
@@ -301,8 +325,8 @@ class BertModel(nn.Module):
             tt = self.tokentype_embedding.to(cfg.dtype)
             x = x + tt[torch.as_tensor(tokentype_ids, device=dev).long()]
         x = x.transpose(0, 1)                              # (s, b, h)
-        for layer in self.layers:
-            x = layer(x, mask, ops)
+        for i, layer in enumerate(self.layers):
+            x = layer(x, mask, ops, None if keys is None else keys[i])
         x = _norm(ops, self.final_norm, x)
         binary = None
         if cfg.add_binary_head:

@@ -26,25 +26,36 @@ converted weights:
   repeats each kv head over its group of q heads. The serving hooks
   (``kv_ctx``) run flash attention whatever the backend, as there.
 
+- dropout (``forward(..., deterministic=False, dropout_key=key)``, the
+  reference's ``apply(..., deterministic=False, rngs={"dropout":
+  key})``): ``attention_dropout`` in the flash kernel (its
+  counter-based mask) or, on the softmax backend, on the probabilities
+  through ``ops/dropout.py``; ``hidden_dropout`` after the attention
+  projection and after the MLP, through ``ops/dropout.py``. Each draw's
+  key is the one Flax gives that scope (``_rng.py``), so the masks are
+  the reference's bit for bit.
+
 Layers are a Python loop over an ``nn.ModuleList``; the reference's
-``scan_layers`` is only a parameter layout there, and ``convert.py``
-reads both layouts. MoE, the ring attention backend, sequence
-parallelism and dropout (``attention_dropout`` / ``hidden_dropout``
-above 0 raise) belong to later slices of the port.
+``scan_layers`` is a parameter layout there, which ``convert.py`` reads
+either way, and the layout of the dropout keys, which ``scan_layers``
+selects. MoE, the ring attention backend and sequence parallelism
+belong to later slices of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from apex_tpu_torch._backend import DeviceLike, resolve_device
+from apex_tpu_torch.models._rng import LayerKeys, layer_keys
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.attention import attention_plain, flash_attention
+from apex_tpu_torch.ops.dropout import dropout, dropout_plain
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
 from apex_tpu_torch.ops.softmax import softmax_plain
 from apex_tpu_torch.transformer.functional import (
@@ -76,14 +87,16 @@ class GPTConfig:
     attention_dropout: float = 0.0
     hidden_dropout: float = 0.0
     attention_backend: str = "flash"
+    # the reference's layer scan: here only the layout of the dropout
+    # keys (its parameter layout is convert.py's business)
+    scan_layers: bool = True
     num_experts: int = 0
 
     def __post_init__(self):
-        if self.attention_dropout > 0.0 or self.hidden_dropout > 0.0:
-            raise NotImplementedError(
-                "dropout (attention_dropout / hidden_dropout > 0) is not "
-                "ported yet: the attention-dropout kernel path comes with "
-                "a later slice")
+        for name in ("attention_dropout", "hidden_dropout"):
+            if not 0.0 <= getattr(self, name) < 1.0:
+                raise ValueError(f"{name} must be in [0, 1), got "
+                                 f"{getattr(self, name)}")
         if self.num_kv_heads is not None and self.num_kv_heads < 1:
             raise ValueError(
                 f"num_kv_heads must be >= 1 or None, got {self.num_kv_heads}")
@@ -141,15 +154,17 @@ class _Ops(NamedTuple):
     """The fused ops a forward runs: the kernels' wrappers (``forward``)
     or their plain versions (``forward_plain``). ``softmax(scores (b, h,
     sq, sk), mask, causal=...)`` is the attention softmax of the softmax
-    backend."""
+    backend; ``dropout(x, rate, key)`` Flax's ``nn.Dropout``."""
 
     layer_norm: Callable
     attention: Callable
     softmax: Callable
+    dropout: Callable
 
 
-KERNEL_OPS = _Ops(fused_layer_norm, flash_attention, _fused_softmax)
-PLAIN_OPS = _Ops(layer_norm_plain, attention_plain, softmax_plain)
+KERNEL_OPS = _Ops(fused_layer_norm, flash_attention, _fused_softmax, dropout)
+PLAIN_OPS = _Ops(layer_norm_plain, attention_plain, softmax_plain,
+                 dropout_plain)
 
 
 def _norm(ops: _Ops, m: FusedLayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -157,12 +172,13 @@ def _norm(ops: _Ops, m: FusedLayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_attention(q, k, v, mask, causal: bool, dtype: torch.dtype,
-                      ops: _Ops = KERNEL_OPS) -> torch.Tensor:
+                      ops: _Ops = KERNEL_OPS, drop=None) -> torch.Tensor:
     """Attention over materialised scores, the reference's softmax
     backend (GPT :326-354, BERT :131-154): q, k, v (s, b, heads, d) ->
     ctx (b, heads, s, d). The scores are an fp32 product divided by
     sqrt(d), cast to ``dtype``; the softmax runs at scale 1 (causal, or
-    with the boolean ``mask`` (b or 1, 1, s, s)); ``probs @ v`` is
+    with the boolean ``mask`` (b or 1, 1, s, s)); ``drop=(rate, key)``
+    drops the probabilities (``nn.Dropout``); ``probs @ v`` is
     accumulated in fp32 and cast to ``dtype``."""
     d = q.shape[-1]
     qb, kb, vb = (t.permute(1, 2, 0, 3).float() for t in (q, k, v))
@@ -171,6 +187,8 @@ def softmax_attention(q, k, v, mask, causal: bool, dtype: torch.dtype,
     root_d = torch.full((), float(d), device=q.device).sqrt()
     scores = torch.matmul(qb, kb.transpose(-1, -2)) / root_d
     probs = ops.softmax(scores.to(dtype), mask, causal=causal)
+    if drop is not None:
+        probs = ops.dropout(probs, *drop)
     return torch.matmul(probs.float(), vb).to(dtype)
 
 
@@ -193,9 +211,12 @@ class ParallelAttention(nn.Module):
             cfg.num_heads * cfg.head_dim, cfg.hidden_size, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, device=device)
 
-    def forward(self, x, *, kv_ctx=None, return_kv=False, ops=KERNEL_OPS):
+    def forward(self, x, *, kv_ctx=None, return_kv=False, ops=KERNEL_OPS,
+                keys: Optional[LayerKeys] = None):
+        """``keys``: the layer's dropout keys (None: deterministic)."""
         cfg = self.config
         hd, nkv = cfg.head_dim, cfg.kv_heads
+        rate = cfg.attention_dropout if keys is not None else 0.0
         group = cfg.num_heads // nkv
         qkv = self.qkv(x)
         s, b = qkv.shape[0], qkv.shape[1]
@@ -232,11 +253,14 @@ class ParallelAttention(nn.Module):
             # repeating each over its group of q heads
             ctx = softmax_attention(q, k.repeat_interleave(group, dim=2),
                                     v.repeat_interleave(group, dim=2), None,
-                                    True, cfg.dtype, ops)
+                                    True, cfg.dtype, ops,
+                                    (rate, keys.attention) if rate else None)
         else:
             ctx = ops.attention(qb.contiguous(), kv_new[0], kv_new[1],
                                 causal=True,
-                                window_size=cfg.attention_window)
+                                window_size=cfg.attention_window,
+                                dropout_rate=rate,
+                                dropout_rng=keys.attention if rate else None)
         ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, cfg.num_heads * hd)
         out = self.proj(ctx)
         return (out, kv_new) if return_kv else out
@@ -259,6 +283,15 @@ class ParallelMLP(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
+def _hidden_dropout(ops: _Ops, rate: float, x, keys: Optional[LayerKeys],
+                    i: int):
+    """The layer's ``i``-th hidden ``nn.Dropout`` (``Dropout_0`` after
+    the attention, ``Dropout_1`` after the MLP)."""
+    if keys is None or rate <= 0.0:
+        return x
+    return ops.dropout(x, rate, keys.hidden[i])
+
+
 class GPTLayer(nn.Module):
     """Pre-LN transformer block."""
 
@@ -272,14 +305,18 @@ class GPTLayer(nn.Module):
                                         dtype=cfg.param_dtype)
         self.mlp = ParallelMLP(cfg, device=device)
 
-    def forward(self, x, *, kv_ctx=None, return_kv=False, ops=KERNEL_OPS):
+    def forward(self, x, *, kv_ctx=None, return_kv=False, ops=KERNEL_OPS,
+                keys: Optional[LayerKeys] = None):
+        """``keys``: the layer's dropout keys (None: deterministic)."""
         a = self.attention(_norm(ops, self.input_norm, x), kv_ctx=kv_ctx,
-                           return_kv=return_kv, ops=ops)
+                           return_kv=return_kv, ops=ops, keys=keys)
         kv = None
         if return_kv:
             a, kv = a
-        x = x + a
-        y = x + self.mlp(_norm(ops, self.post_norm, x))
+        rate = self.attention.config.hidden_dropout
+        x = x + _hidden_dropout(ops, rate, a, keys, 0)
+        m = self.mlp(_norm(ops, self.post_norm, x))
+        y = x + _hidden_dropout(ops, rate, m, keys, 1)
         return (y, kv) if return_kv else y
 
 
@@ -318,25 +355,34 @@ class GPTModel(nn.Module):
         self.to(dev)
 
     def forward(self, tokens, *, positions=None, kv_ctx=None, ctx_mask=None,
-                return_kv=False):
+                return_kv=False, deterministic=True, dropout_key=None):
         """``positions`` (s,) or (b, s) override ``arange(s)``;
         ``kv_ctx=(k_ctx, v_ctx)`` ``(num_layers, b, kv_heads, L,
         head_dim)`` with ``ctx_mask`` (b, L) runs the cached decode /
         chunk path; ``return_kv=True`` also returns this call's K/V
-        stacked ``(num_layers, b, kv_heads, s, head_dim)``."""
+        stacked ``(num_layers, b, kv_heads, s, head_dim)``.
+        ``deterministic=False`` applies the config's dropout, keyed on
+        ``dropout_key`` (the reference's ``rngs={"dropout": key}``: a
+        (2,) tensor or pair of uint32 words)."""
         return self._forward(tokens, positions, kv_ctx, ctx_mask,
-                             return_kv, KERNEL_OPS)
+                             return_kv, KERNEL_OPS, deterministic,
+                             dropout_key)
 
     def forward_plain(self, tokens, *, positions=None, kv_ctx=None,
-                      ctx_mask=None, return_kv=False):
+                      ctx_mask=None, return_kv=False, deterministic=True,
+                      dropout_key=None):
         """:meth:`forward` through the plain PyTorch versions of the
         kernels on any device — the yardstick the kernel path is held
         against on the card."""
         return self._forward(tokens, positions, kv_ctx, ctx_mask,
-                             return_kv, PLAIN_OPS)
+                             return_kv, PLAIN_OPS, deterministic,
+                             dropout_key)
 
-    def _forward(self, tokens, positions, kv_ctx, ctx_mask, return_kv, ops):
+    def _forward(self, tokens, positions, kv_ctx, ctx_mask, return_kv, ops,
+                 deterministic=True, dropout_key=None):
         cfg = self.config
+        keys = _dropout_keys(cfg, deterministic, dropout_key,
+                             cfg.attention_backend == "softmax")
         b, s = tokens.shape
         x = self.embedding(tokens)                           # (b, s, h)
         pos = self.position_embedding
@@ -353,7 +399,8 @@ class GPTModel(nn.Module):
         for i, layer in enumerate(self.layers):
             ctx = (None if kv_ctx is None
                    else (kv_ctx[0][i], kv_ctx[1][i], ctx_mask))
-            x = layer(x, kv_ctx=ctx, return_kv=serving, ops=ops)
+            x = layer(x, kv_ctx=ctx, return_kv=serving, ops=ops,
+                      keys=None if keys is None else keys[i])
             if serving:
                 x, (k, v) = x
                 ks.append(k)
@@ -364,6 +411,22 @@ class GPTModel(nn.Module):
         if return_kv:
             return logits, (torch.stack(ks), torch.stack(vs))
         return logits
+
+
+def _dropout_keys(cfg, deterministic: bool, dropout_key,
+                  softmax_backend: bool) -> Optional[List[LayerKeys]]:
+    """Each layer's dropout keys for a forward of ``cfg``, or None when
+    it drops nothing."""
+    if deterministic or (cfg.attention_dropout <= 0.0
+                         and cfg.hidden_dropout <= 0.0):
+        return None
+    if dropout_key is None:
+        raise ValueError("deterministic=False with dropout needs "
+                         "dropout_key (the reference's rngs={'dropout': "
+                         "key})")
+    return layer_keys(dropout_key, cfg.num_layers,
+                      scan_layers=cfg.scan_layers,
+                      softmax_backend=softmax_backend)
 
 
 def gpt_loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -55,6 +55,13 @@ kernels (Adam; or LAMB's sum of squares for its clip, the one-pass
 segment kernel and the two stages over the large leaves); on the CPU
 their plain versions.
 
+Dropout: ``step(state, *batch, dropout_key=key)`` (and ``backward``)
+pass a per-step key to the loss as ``loss_fn(model, *batch,
+dropout_key=key)``, the counterpart of the reference's user feeding
+``rngs={"dropout": key}`` into ``apply`` (``tests/test_bert.py``):
+the model then runs with ``deterministic=False``. Without a key the step
+is as before, deterministic.
+
 The mesh (data, tensor and pipeline parallelism) waits for the
 distributed slice: ``mesh=`` and interleaved pipeline chunks raise.
 ``schedule``, ``num_microbatches`` and ``remat`` are accepted and, as in
@@ -83,8 +90,11 @@ def init_gpt_pretrain_params(cfg: GPTConfig,
     return GPTModel(cfg, device=device, generator=generator)
 
 
-def _gpt_loss(model: GPTModel, tokens, labels) -> torch.Tensor:
-    return gpt_loss_fn(model(tokens.long()), labels)
+def _gpt_loss(model: GPTModel, tokens, labels,
+              dropout_key=None) -> torch.Tensor:
+    return gpt_loss_fn(model(tokens.long(),
+                             deterministic=dropout_key is None,
+                             dropout_key=dropout_key), labels)
 
 
 class PretrainStep:
@@ -93,7 +103,9 @@ class PretrainStep:
 
     ``loss_fn(model, *batch)`` gives the loss of one batch (each item
     moved to the master's device first); the default is GPT's,
-    ``batch = (tokens, labels)``, both (b, s). ``train_step`` (a
+    ``batch = (tokens, labels)``, both (b, s). A step given a
+    ``dropout_key`` calls ``loss_fn(model, *batch, dropout_key=key)``.
+    ``train_step`` (a
     :class:`~apex_tpu_torch.optimizers.TrainStep` of ``optimizer``, from
     ``make_train_step``) takes the update instead of
     ``optimizer.step_flat``; with a loss scaler the backward pass runs
@@ -127,16 +139,23 @@ class PretrainStep:
         self._bound = state.master
 
     def backward(self, state: FlatOptState, *batch,
-                 scaler_state: Optional[ScalerState] = None) -> torch.Tensor:
+                 scaler_state: Optional[ScalerState] = None,
+                 dropout_key=None) -> torch.Tensor:
         """The loss of one batch, its gradient (of the loss scaled by
         ``scaler_state``'s scale, when given) in the flat buffer
-        ``grad``, the model bound to ``state``'s master first."""
+        ``grad``, the model bound to ``state``'s master first.
+        ``dropout_key`` (a (2,) tensor or pair of uint32 words) turns
+        the model's dropout on for this batch."""
         if state.master is not self._bound:
             self._bind(state)       # a state the model is not bound to
         dev = state.master.device
         batch = [torch.as_tensor(t, device=dev) for t in batch]
         self._grad.zero_()
-        loss = self.loss_fn(self.model, *batch)
+        if dropout_key is None:
+            loss = self.loss_fn(self.model, *batch)
+        else:
+            loss = self.loss_fn(self.model, *batch,
+                                dropout_key=dropout_key)
         if scaler_state is None:
             loss.backward()
         else:
@@ -149,12 +168,13 @@ class PretrainStep:
         return self._grad
 
     def step(self, state: FlatOptState, *batch,
-             scaler_state: Optional[ScalerState] = None):
+             scaler_state: Optional[ScalerState] = None, dropout_key=None):
         scaler = None if self.train_step is None else self.train_step.scaler
         if (scaler is None) != (scaler_state is None):
             raise ValueError("pass scaler_state exactly when the step's "
                              "train_step has a loss scaler")
-        loss = self.backward(state, *batch, scaler_state=scaler_state)
+        loss = self.backward(state, *batch, scaler_state=scaler_state,
+                             dropout_key=dropout_key)
         if self.train_step is None:
             _, new_state = self.opt.step_flat(state, self._grad)
             return new_state, loss

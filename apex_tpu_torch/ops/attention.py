@@ -14,9 +14,15 @@ backward forms ``delta = rowsum(out * dO)`` in PyTorch (the reference
 leaves it to XLA, :828) and recomputes the probabilities from the lse.
 
 The kernels cover causal masking with the ``sk - sq`` offset (chunked
-prefill), GQA, segment ids (packed batches and the decode context mask)
-and the sliding window, with bf16 inputs and head_dim 32, 64 or 128. An
-additive ``bias``, attention dropout, ``q_positions``/``kv_positions``
+prefill), GQA, segment ids (packed batches and the decode context mask),
+the sliding window and attention dropout, with bf16 inputs and head_dim
+32, 64 or 128. Dropout is the reference's counter-based mask
+(:func:`_dropout_keep`, the murmur3 finaliser of the seed, the flat
+q-head index and the global query row and key column), regenerated in
+the forward and both backward kernels from one uint32 seed: the
+forward's normaliser sums the undropped probabilities and only ``P V``
+takes ``keep ? P / (1 - rate) : 0``; the backward drops ``dP`` and the
+``P`` of ``dV``. An additive ``bias``, ``q_positions``/``kv_positions``
 (ring attention) and the gradient of a returned lse stay in the plain
 version for now, which differentiates them by ordinary autograd: on a
 CUDA tensor they raise ``NotImplementedError``.
@@ -78,7 +84,37 @@ def _dropout_keep(seed: int, bh, row, col, rate: float) -> torch.Tensor:
     x = x ^ (x >> 13)
     x = (x * 0xC2B2AE35) & _M32
     x = x ^ (x >> 16)
-    return x >= min(int(rate * 2.0 ** 32), 2 ** 32 - 1)
+    return x >= _dropout_thresh(rate)
+
+
+def _dropout_thresh(rate: float) -> int:
+    return min(int(rate * 2.0 ** 32), 2 ** 32 - 1)
+
+
+def _keep_divisor(rate: float, device) -> torch.Tensor:
+    """``1 - rate`` in fp32 as a 0-d tensor on ``device``: the
+    reference divides by it (a CUDA tensor divided by a host number is
+    multiplied by its reciprocal instead)."""
+    return torch.full((), 1.0 - rate, dtype=torch.float32, device=device)
+
+
+def dropout_seed(dropout_rng) -> int:
+    """The uint32 seed of the dropout mask, as the reference folds it
+    (``flash_attention`` :1043-1050): a key's two words xor-ed (a (2,)
+    tensor, array or pair), or a one-word seed (an int) as it is."""
+    if isinstance(dropout_rng, int):
+        return dropout_rng & _M32
+    if isinstance(dropout_rng, torch.Tensor):
+        words = dropout_rng.reshape(-1).tolist()
+    elif hasattr(dropout_rng, "ravel"):
+        words = dropout_rng.ravel().tolist()
+    else:
+        words = list(dropout_rng)
+    if len(words) not in (1, 2):
+        raise ValueError(f"dropout_rng must be a seed or a key of two "
+                         f"words, got {len(words)} words")
+    seed = int(words[0]) & _M32
+    return seed ^ (int(words[1]) & _M32) if len(words) == 2 else seed
 
 
 def _attention_torch(q, k, v, bias, q_seg, k_seg, scale, causal,
@@ -116,7 +152,8 @@ def _attention_torch(q, k, v, bias, q_seg, k_seg, scale, causal,
         row = torch.arange(sq, device=q.device).reshape(1, 1, sq, 1)
         col = torch.arange(sk, device=q.device).reshape(1, 1, 1, sk)
         keep = _dropout_keep(dropout_seed, bh, row, col, dropout_rate)
-        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
+        p = torch.where(keep, p / _keep_divisor(dropout_rate, q.device),
+                        0.0)
     if hk != h:
         out = torch.einsum(
             "bkgqc,bkcd->bkgqd", p.reshape(b, hk, h // hk, sq, sk),
@@ -133,13 +170,16 @@ def _attention_torch(q, k, v, bias, q_seg, k_seg, scale, causal,
 
 
 def _flash_bwd_torch(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
-                     causal, window):
+                     causal, window, rate=0.0, seed=None):
     """Plain version of the two backward kernels: ``(dq, dk, dv)`` from
     the whole (sq, sk) matrix in fp32, with the kernels' arithmetic —
     P recomputed from the lse (clamped at NEG_INF / 2), dS rounded to
     the input dtype before its products, P rounded for dV (the
     reference's ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``). GQA sums dk
-    and dv over each kv head's group."""
+    and dv over each kv head's group. With dropout (the reference's
+    ``_finish_bwd`` :876-880 and the kernels): ``dP`` and the ``P`` of
+    ``dV`` become ``keep ? x / (1 - rate) : 0``, ``dS`` keeps the
+    undropped ``P``."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     group = h // hk
@@ -158,11 +198,21 @@ def _flash_bwd_torch(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     lse_c = torch.clamp(lse, min=NEG_INF * 0.5).reshape(b, hk, group, sq, 1)
     p = torch.exp(s - lse_c)
     dp = torch.einsum("bkgqd,bkcd->bkgqc", og, vf)
+    p_v = p
+    if rate > 0.0:
+        # flat q-head index b * h + kv head * group + g, global indices
+        bh = torch.arange(b * h, device=q.device).reshape(b, hk, group, 1, 1)
+        row = torch.arange(sq, device=q.device).reshape(sq, 1)
+        col = torch.arange(sk, device=q.device).reshape(1, sk)
+        keep = _dropout_keep(seed, bh, row, col, rate)
+        div = _keep_divisor(rate, q.device)
+        p_v = torch.where(keep, p / div, 0.0)
+        dp = torch.where(keep, dp / div, 0.0)
     ds = p * (dp - delta.reshape(b, hk, group, sq, 1))
     ds = ds.to(q.dtype).float()
     dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, kf) * scale
     dk = torch.einsum("bkgqc,bkgqd->bkcd", ds, qg) * scale
-    dv = torch.einsum("bkgqc,bkgqd->bkcd", p.to(dout.dtype).float(), og)
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p_v.to(dout.dtype).float(), og)
     return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 
@@ -188,8 +238,17 @@ def _check_kernel_args(q, k, v, q_seg, k_seg):
     return q_seg, k_seg
 
 
+def _dropout_args(rate: float, seed):
+    """The kernels' dropout arguments: (on, seed, thresh, keep)."""
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0
+    keep = torch.tensor(1.0 - rate, dtype=torch.float32).item()
+    return 1, int(seed) & _M32, _dropout_thresh(rate), keep
+
+
 def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
-                    causal, window, kernels=(BWD_DQ_KERNEL, BWD_DKV_KERNEL)):
+                    causal, window, rate=0.0, seed=None,
+                    kernels=(BWD_DQ_KERNEL, BWD_DKV_KERNEL)):
     """The dq kernel and the dk/dv kernel: returns ``(dq, dk, dv)`` like
     ``_flash_bwd_pallas``. ``kernels`` names the ones to launch (both by
     default; one alone to time it); a kernel left out returns None for
@@ -205,12 +264,14 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     dq = torch.empty_like(q) if BWD_DQ_KERNEL in kernels else None
     dk, dv = ((torch.empty_like(k), torch.empty_like(v))
               if BWD_DKV_KERNEL in kernels else (None, None))
-    P, I, F = _build.P, _build.I, _build.F
+    P, I, U, F = _build.P, _build.I, _build.U, _build.F
     lib = _build.library(
         "flash_bwd", "apex_flash_bwd",
-        (P,) * 11 + (I,) * 6 + (F, I, I, P), "apex_flash_bwd_error_string")
+        (P,) * 11 + (I,) * 6 + (F, I, I, I, U, U, F, P),
+        "apex_flash_bwd_error_string")
     segs = (None if q_seg is None else q_seg.data_ptr(),
             None if k_seg is None else k_seg.data_ptr())
+    drop = _dropout_args(rate, seed)
     launches = ((BWD_DQ_KERNEL, (dq, None, None)),
                 (BWD_DKV_KERNEL, (None, dk, dv)))
     for kernel, outs in launches:
@@ -223,7 +284,7 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), *segs, *outs, b, h, hk,
                 sq, sk, d, float(scale), int(causal),
-                0 if window is None else int(window), stream)
+                0 if window is None else int(window), *drop, stream)
         if err:
             raise RuntimeError(
                 f"{kernel}: CUDA error {err} at launch: "
@@ -237,36 +298,42 @@ class _FlashFn(torch.autograd.Function):
     kernels on CUDA tensors, the plain versions on CPU tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_seg, k_seg, scale, causal, window, kernel):
+    def forward(ctx, q, k, v, q_seg, k_seg, scale, causal, window, rate,
+                seed, kernel):
         if kernel:
             out, lse = _flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
-                                   window)
+                                   window, rate, seed)
         else:
             out, lse = _attention_torch(q, k, v, None, q_seg, k_seg, scale,
-                                        causal, window, return_lse=True)
+                                        causal, window, rate, seed,
+                                        return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse, q_seg, k_seg)
-        ctx.args = (scale, causal, window, kernel)
+        ctx.args = (scale, causal, window, rate, seed, kernel)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, q_seg, k_seg = ctx.saved_tensors
-        scale, causal, window, kernel = ctx.args
+        scale, causal, window, rate, seed, kernel = ctx.args
+        # delta = rowsum(dO * O) whatever the dropout: the 1 / (1 - rate)
+        # of the kept probabilities cancels in rowsum(P * dP)
         delta = torch.sum(out.float() * dout.float(), dim=-1)
         dq, dk, dv = (_flash_bwd_cuda if kernel else _flash_bwd_torch)(
-            q, k, v, lse, dout, delta, q_seg, k_seg, scale, causal, window)
-        return dq, dk, dv, None, None, None, None, None, None
+            q, k, v, lse, dout, delta, q_seg, k_seg, scale, causal, window,
+            rate, seed)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def _library() -> ctypes.CDLL:
-    P, I, F = _build.P, _build.I, _build.F
+    P, I, U, F = _build.P, _build.I, _build.U, _build.F
     return _build.library(
         "flash_fwd", "apex_flash_fwd",
-        (P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, P),
+        (P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, U, U, F, P),
         "apex_flash_error_string")
 
 
-def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window):
+def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
+                seed=None):
     """The kernel: returns ``(out, lse)`` like ``_flash_fwd_pallas``."""
     q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
     b, h, sq, d = q.shape
@@ -284,7 +351,7 @@ def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window):
             None if k_seg is None else k_seg.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, d,
             float(scale), int(causal), 0 if window is None else int(window),
-            stream)
+            *_dropout_args(rate, seed), stream)
     if err:
         raise RuntimeError(f"{KERNEL}: CUDA error {err} at launch: "
                            f"{lib.apex_flash_error_string(err).decode()}")
@@ -338,9 +405,12 @@ def _prepare(q, k, v, bias, segment_ids, kv_segment_ids, causal,
                                   device=kv_segment_ids.device)
     if not (0.0 <= dropout_rate < 1.0):
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
-    if dropout_rate > 0.0 and dropout_rng is None:
-        raise ValueError("dropout_rate > 0 requires dropout_rng")
-    return softmax_scale, segment_ids, kv_segment_ids, dropout_rng
+    seed = None
+    if dropout_rate > 0.0:
+        if dropout_rng is None:
+            raise ValueError("dropout_rate > 0 requires dropout_rng")
+        seed = dropout_seed(dropout_rng)
+    return softmax_scale, segment_ids, kv_segment_ids, seed
 
 
 def _attention(q, k, v, kernel: bool, *, bias=None, segment_ids=None,
@@ -353,20 +423,20 @@ def _attention(q, k, v, kernel: bool, *, bias=None, segment_ids=None,
     grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
     unported = [name for name, on in (
-        ("bias", bias is not None), ("dropout", dropout_rate > 0.0),
+        ("bias", bias is not None),
         ("q_positions/kv_positions", q_positions is not None),
         ("the gradient of a returned lse", grad and return_lse)) if on]
     if kernel and unported:
         raise NotImplementedError(
             f"flash_attention with {', '.join(unported)} has no CUDA "
-            "kernel yet (dropout and ring-attention slices of the port); "
-            "it runs only on CPU tensors")
+            "kernel yet (the ring-attention slice of the port); it runs "
+            "only on CPU tensors")
     if grad and not unported:
         return _FlashFn.apply(q, k, v, q_seg, k_seg, scale, causal,
-                              window_size, kernel)
+                              window_size, dropout_rate, seed, kernel)
     if kernel:
         out, lse = _flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
-                               window_size)
+                               window_size, dropout_rate, seed)
         return (out, lse) if return_lse else out
     return _attention_torch(q, k, v, bias, q_seg, k_seg, scale, causal,
                             window_size, dropout_rate, seed,
@@ -382,7 +452,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window_size: Optional[int] = None,
                     softmax_scale: Optional[float] = None,
                     dropout_rate: float = 0.0,
-                    dropout_rng: Optional[int] = None,
+                    dropout_rng=None,
                     return_lse: bool = False,
                     q_positions: Optional[torch.Tensor] = None,
                     kv_positions: Optional[torch.Tensor] = None):
@@ -394,8 +464,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the reference). ``causal`` lets query i see keys j <= i + (sk - sq);
     ``window_size=w`` further restricts it to its last ``w`` keys.
     ``return_lse=True`` also returns the fp32 (b, h, sq) log-sum-exp
-    (``NEG_INF`` on fully-masked rows). ``dropout_rng`` is the uint32
-    seed of the counter-based dropout mask (plain version only)."""
+    (``NEG_INF`` on fully-masked rows). ``dropout_rate`` drops the
+    attention probabilities with the counter-based mask of
+    ``dropout_rng``: a key (its two uint32 words, xor-ed into the seed
+    as the reference folds it) or a uint32 seed."""
     return _attention(
         q, k, v, uses_kernel(q), bias=bias, segment_ids=segment_ids,
         kv_segment_ids=kv_segment_ids, causal=causal,
@@ -412,4 +484,4 @@ def attention_plain(q, k, v, **kw):
     return _attention(q, k, v, False, **kw)
 
 
-__all__ = ["NEG_INF", "attention_plain", "flash_attention"]
+__all__ = ["NEG_INF", "attention_plain", "dropout_seed", "flash_attention"]

@@ -12,7 +12,13 @@ continuous-batching scheduler (counterpart of ``apex_tpu/serving/``).
     state, results = serve_loop(batcher, state, requests)
 """
 
-from apex_tpu_torch.serving.decode import DecodeStep, StepOut, make_decode_step
+from apex_tpu_torch.serving.decode import (
+    DecodeStep,
+    StepOut,
+    greedy_sampling,
+    make_decode_step,
+    select_token,
+)
 from apex_tpu_torch.serving.kv_cache import (
     TRASH_BLOCK,
     KVCache,
@@ -50,8 +56,10 @@ __all__ = [
     "append_kv_prefill",
     "apply_copies",
     "gather_kv",
+    "greedy_sampling",
     "make_decode_step",
     "scrub_blocks",
+    "select_token",
     "serve_loop",
     "static_batch_generate",
 ]

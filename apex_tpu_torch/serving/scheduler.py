@@ -58,14 +58,21 @@ from apex_tpu_torch.serving.kv_cache import (
 
 @dataclasses.dataclass
 class Request:
-    """One generation request. Decoding is greedy: ``temperature`` must
-    be 0 until sampled decoding is ported."""
+    """One generation request. ``temperature == 0`` decodes greedily;
+    ``temperature > 0`` draws from the softmax at that temperature,
+    restricted to the top ``top_k`` logits (0: off) and the ``top_p``
+    nucleus (1.0: off), keyed on ``seed`` and each token's sequence
+    index, so the stream is a pure function of ``(seed, index)``
+    (``decode.select_token``)."""
 
     id: Any
     prompt: Sequence[int]
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
     temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).ravel()
@@ -77,10 +84,11 @@ class Request:
         if self.temperature < 0:
             raise ValueError(
                 f"request {self.id!r}: temperature must be >= 0")
-        if self.temperature > 0:
-            raise NotImplementedError(
-                f"request {self.id!r}: sampled decoding (temperature > 0) "
-                "is not ported yet; use temperature 0 (greedy)")
+        if self.top_k < 0:
+            raise ValueError(f"request {self.id!r}: top_k must be >= 0")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError(
+                f"request {self.id!r}: top_p must be in (0, 1]")
 
 
 @dataclasses.dataclass
@@ -260,6 +268,16 @@ class ContinuousBatcher:
         return self.cache.table_array(seq_ids, width)
 
     @staticmethod
+    def _sampling_for(flights: List[_InFlight]):
+        """Per-lane ``(temperatures, top_ks, top_ps, seeds)`` (the
+        reference's ``_sampling_for`` :1070)."""
+        return (np.array([f.req.temperature for f in flights], np.float32),
+                np.array([f.req.top_k for f in flights], np.int32),
+                np.array([f.req.top_p for f in flights], np.float32),
+                np.array([f.req.seed & 0xFFFFFFFF for f in flights],
+                         np.uint32))
+
+    @staticmethod
     def _check_finite(out, flights: List[_InFlight], where: str) -> None:
         finite = out.finite[:len(flights)].cpu().numpy()
         if not finite.all():
@@ -280,7 +298,8 @@ class ContinuousBatcher:
             tokens[i, :len(f.req.prompt)] = f.req.prompt
             lengths[i] = len(f.req.prompt)
         tables = self._tables_for([f.seq_id for f in admitted])
-        out = self.step_fn.prefill(state, tokens, lengths, tables)
+        out = self.step_fn.prefill(state, tokens, lengths, tables,
+                                   self._sampling_for(admitted))
         ids = out.next_token.cpu().numpy()       # waits for the device
         now = self.clock()
         self._check_finite(out, admitted, "prefill")
@@ -352,8 +371,9 @@ class ContinuousBatcher:
             starts[i] = f.prefilled
             lengths[i] = cs
         tables = self._tables_for([f.seq_id for f, _ in batchees])
-        out = self.step_fn.prefill_chunk(state, tokens, starts, lengths,
-                                         tables)
+        out = self.step_fn.prefill_chunk(
+            state, tokens, starts, lengths, tables,
+            self._sampling_for([f for f, _ in batchees]))
         ids = out.next_token.cpu().numpy()
         now = self.clock()
         flights = [f for f, _ in batchees]
@@ -385,7 +405,8 @@ class ContinuousBatcher:
             tokens[i] = f.generated[-1]
             positions[i] = f.position
         tables = self._tables_for([f.seq_id for f in flights])
-        out = self.step_fn.decode(state, tokens, positions, tables)
+        out = self.step_fn.decode(state, tokens, positions, tables,
+                                  self._sampling_for(flights))
         ids = out.next_token.cpu().numpy()
         now = self.clock()
         self._check_finite(out, flights, "decode")

@@ -165,7 +165,39 @@ Phases, in order; any failure exits non-zero before the last line:
    of 8,192 tokens (thd) at its heads, and GPT-NeoX-20B's cached (2048,
    4, 64, 96) with 24 rotated channels: four launches a variant, outputs
    and gradients bitwise against the plain version.
-11. Each phase's wall seconds, the ``kernels`` JSON line (all twenty-four
+11. Dropout and sampled decoding: (a) the flash forward, dq and dk/dv
+   kernels with dropout 0.1 against the plain forward and backward with
+   the same mask, at GPT-2 345M's training shape (b 8, h 16, s 1024, d
+   64, causal) and BERT-Large's (b 8, h 16, s 512, d 64, the keep-mask of
+   phase 6's lengths as segment ids), within the flash tolerances; pad
+   queries and keys put in segments of their own give rows of exactly 0
+   (out, dq, dk, dv; lse NEG_INF); the forward kernel's mask, read off
+   its output (q = 0, V the identity over 64 keys), bitwise the plain
+   mask over 8.4 M pairs, its kept share within 0.001 of 0.9. Then
+   ``dropout.cu`` at (1024, 8, 1024) and (8, 16, 512, 512) bf16, output
+   and gradient bitwise. Times by CUDA-graph replay beside their
+   bounds; library yardsticks SDPA with ``dropout_p`` and
+   ``F.dropout`` (another generator: comparison only). (b) GPT-2 345M
+   with attention and hidden dropout 0.1 (Megatron's defaults), phase
+   4's model, weights and batch, FusedAdam, ten steps each with its own
+   key: the launch counts set to 0 just before and read just after (24
+   flash forwards, 24 dq, 24 dk/dv, 48 dropout forwards and 48 backwards
+   a step), losses finite and falling, the step time beside phase 4's;
+   at batch 2 on one key the loss and gradients through the kernels
+   against the plain versions (phase 4's tolerances). (c) BERT-Large
+   with both dropouts 0.1 (Google's ``bert_config.json``) and NVLAMB,
+   ten steps on each backend (flash: the kernel drops; softmax: the
+   probabilities through ``dropout.cu``, 72 dropout launches a step),
+   batch 2 against the plain path (the loss within BERT_DROPOUT_LOSS_TOL,
+   the gradients within phase 6's 10%), and in both (b) and (c) the
+   dropout kernel alone (every other op plain) bitwise the plain path,
+   loss and gradients. (d) Phase 3's
+   eight requests with lanes 1, 3, 5 and 7 sampled at temperature 0.8,
+   top-k 50, top-p 0.95 and their own seeds: the greedy lanes give phase
+   3's tokens, a second run replays every stream token for token, the
+   sampler on the host draws the card's token from the card's logits at
+   every dispatch; TPOT and tokens/s beside phase 3's.
+12. Each phase's wall seconds, the ``kernels`` JSON line (all twenty-five
    kernels, each with its launches on its path), then the device line
    the caller reads.
 
@@ -187,6 +219,7 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch import _build, amp
+from apex_tpu_torch import random as jrandom
 from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
 from apex_tpu_torch.models import (
     BertConfig,
@@ -216,6 +249,7 @@ from apex_tpu_torch.multi_tensor.segmented import SEGMENT_KERNEL
 from apex_tpu_torch.models.gpt import KERNEL_OPS, PLAIN_OPS
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy
 from apex_tpu_torch.ops import attention, layer_norm, rope, softmax, xentropy
+from apex_tpu_torch.ops import dropout as dropout_op
 from apex_tpu_torch.transformer.functional import (
     FusedScaleMaskSoftmax,
     fused_apply_rotary_pos_emb,
@@ -237,6 +271,7 @@ from apex_tpu_torch.serving import (
     DecodeStep,
     KVCache,
     Request,
+    select_token,
     serve_loop,
 )
 
@@ -3279,12 +3314,576 @@ def serve(seed: int, dev, card: str) -> dict:
               "(breakdown not measured)")
     return {"launches": launches, "steps": steps, "tokens_per_s":
             tokens / wall, "mean_ttft_ms": ttft * 1e3,
+            "tokens": {r.id: r.tokens for r in results},
             "mean_tpot_ms": tpot * 1e3, "wall_s": wall,
             "ttft_ms": ttfts.tolist(), "tpot_ms": tpots.tolist(),
             "logit_max_abs_diff": diffs,
             "profile": {"wall_ms": p_wall * 1e3, "device_busy_ms": busy_ms,
                         "top": [{"ms": t, "count": n, "name": key}
                                 for t, n, key in per_kernel[:20]]}}
+
+
+# -- phases 2 and 12: dropout and sampled decoding ------------------------------
+
+# Megatron's GPT-2 345M (--attention-dropout 0.1 --hidden-dropout 0.1) and
+# Google's BERT-Large bert_config.json (attention_probs_dropout_prob and
+# hidden_dropout_prob 0.1)
+DROP_RATE = 0.1
+DROPOUT_STEPS = 10
+# the kept share of the flash mask over 8.4 M (query, key) pairs: its
+# standard deviation there is 1.0e-4, so 0.001 is ten of them
+KEPT_TOL = 0.001
+# dropout.cu's integer work an element: threefry2x32's 20 rounds of add,
+# rotate and xor (60) and 5 key injections (2 each, 10), the counter's
+# words and the xor of the outputs (4), the uniform float (3), the
+# compare, the division and the select (3), the index (4); counted
+# against the fp32 rate, the card's fastest non-tensor rate (its INT32
+# lanes are half as many), so the bound is the least time it could take
+DROPOUT_OPS_PER_ELEMENT = 84
+DROPOUT_SHAPES = {"hidden": (1024, 8, 1024), "probs": (8, 16, 512, 512)}
+# BERT-Large with dropout at batch 2, kernels against plain versions: the
+# dropout kernel alone is bitwise its plain version (loss and gradients
+# exactly equal, checked as such), so the gap is the LayerNorm and
+# softmax kernels' one-ulp roundings carried through 24 layers into a
+# loss of 144 MLM positions. Over five keys on an H100 the whole kernel
+# path's gap ranged 2.4e-4 to 5.1e-3 (without dropout, phase 6: 1.9e-3),
+# the unluckiest key at phase 6's BERT_LOSS_TOL; twice that is held
+BERT_DROPOUT_LOSS_TOL = 1e-2
+GAP_KEYS = ((0, 1), (5, 7), (123, 456), (2024, 7))
+# the flash cases with dropout: GPT-2 345M's training (b, h, s, d), causal,
+# and BERT-Large's (h, s, d) over the batch of BERT_LENS
+FLASH_DROPOUT_GPT = (TRAIN_BATCH, 16, 1024, 64)
+FLASH_DROPOUT_BERT = (16, 512, 64)
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+DROPOUT_KEY = (0x2545F491, 0x9E3779B9)
+
+
+def _dropout_key(seed: int, i: int) -> torch.Tensor:
+    """The key of training step ``i``: ``fold_in(PRNGKey(seed), i)``."""
+    return jrandom.fold_in(jrandom.PRNGKey(seed), i)
+
+
+def _rel_errs(got, want) -> dict:
+    return {n: float((g.float() - w.float()).abs().max())
+            / max(float(w.float().abs().max()), 1e-6)
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def flash_dropout_case(name, gen, dev, b, h, sq, d, causal, keep=None):
+    """The three flash kernels with dropout against the plain forward and
+    backward with the same mask, at one training shape: (fwd case, dq
+    case, dk/dv case)."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    q, k, v, do = (rnd(b, h, sq, d) for _ in range(4))
+    scale, seed = d ** -0.5, attention.dropout_seed(DROPOUT_KEY)
+    seg = keep                       # BERT: the keep-mask as segment ids
+    fwd_args = (q, k, v, seg, seg, scale, causal, None, DROP_RATE, seed)
+    out, lse = attention._flash_cuda(*fwd_args)
+    pout, plse = attention._attention_torch(
+        q, k, v, None, seg, seg, scale, causal, None, DROP_RATE, seed,
+        return_lse=True)
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, lse, do, delta, seg, seg, scale, causal, None,
+            DROP_RATE, seed)
+    got = attention._flash_bwd_cuda(*args)
+    want = attention._flash_bwd_torch(*args)
+    torch.cuda.synchronize()
+    diff = (out.float() - pout.float()).abs()
+    row_scale = pout.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    rel = float((diff / row_scale).max())
+    lse_err = float((lse - plse).abs().max())
+    errs = _rel_errs(got, want)
+    print(f"  flash dropout[{name}] b={b} h={h} s={sq} d={d} causal={causal} "
+          f"segments={keep is not None} rate {DROP_RATE}: out row_rel_err "
+          f"{rel:.3e} (tol {FLASH_OUT_REL_TOL}) lse_err {lse_err:.3e} (tol "
+          f"{FLASH_LSE_TOL}); " + " ".join(f"{n} rel {e:.3e}"
+                                         for n, e in errs.items())
+          + f" (tol {FLASH_BWD_REL_TOL})")
+    check(bool(torch.isfinite(out).all()), f"flash dropout[{name}]: "
+          "non-finite output")
+    check(rel <= FLASH_OUT_REL_TOL and lse_err <= FLASH_LSE_TOL,
+          f"flash dropout[{name}]: forward kernel disagrees with plain")
+    check(all(e <= FLASH_BWD_REL_TOL for e in errs.values()),
+          f"flash dropout[{name}]: backward kernels disagree with plain")
+    zeros = None
+    if keep is not None:
+        # pad queries in a segment no key has, pad keys in one no query
+        # has: those rows of out and dq and of dk and dv are exactly 0
+        q_seg = torch.where(keep > 0, 1, 2).to(torch.int32)
+        zo, zl = attention._flash_cuda(q, k, v, q_seg, keep, scale, causal,
+                                       None, DROP_RATE, seed)
+        zd = (zo.float() * do.float()).sum(-1)
+        zq, zk, zv = attention._flash_bwd_cuda(
+            q, k, v, zl, do, zd, q_seg, keep, scale, causal, None,
+            DROP_RATE, seed)
+        torch.cuda.synchronize()
+        pad_q = (keep == 0)[:, None, :, None]
+        pad_k = (keep == 0)[:, None, :, None]
+        zeros = {"out": int((zo * pad_q).count_nonzero()),
+                 "lse": int(((zl != attention.NEG_INF)
+                             & (keep == 0)[:, None]).sum()),
+                 "dq": int((zq * pad_q).count_nonzero()),
+                 "dk": int((zk * pad_k).count_nonzero()),
+                 "dv": int((zv * pad_k).count_nonzero())}
+        print(f"    masked rows (pad queries and keys in their own "
+              f"segments): nonzero entries {zeros}")
+        check(not any(zeros.values()), f"flash dropout[{name}]: a masked "
+              "row is not exactly 0")
+        del zo, zl, zd, zq, zk, zv
+    live = _allowed(b, sq, sq, causal, None, dev)
+    if keep is not None:
+        live = live & (keep[:, :, None] == keep[:, None, :])
+    pairs = int(live.sum()) * h
+    seg_bytes = nbytes(seg) * 2 if seg is not None else 0
+    fwd_ms = device_ms(lambda: attention._flash_cuda(*fwd_args))
+    fwd_plain = device_ms(lambda: attention._attention_torch(
+        q, k, v, None, seg, seg, scale, causal, None, DROP_RATE, seed,
+        return_lse=True), iters=3, replays=2)
+    bwd_plain = device_ms(lambda: attention._flash_bwd_torch(*args),
+                          iters=3, replays=2)
+    mask = None if keep is None else (
+        keep[:, :, None] == keep[:, None, :])[:, None]
+    sdpa = dict(dropout_p=DROP_RATE, is_causal=causal) if mask is None \
+        else dict(dropout_p=DROP_RATE, attn_mask=mask)
+    lib_fwd = _library_ms("SDPA dropout", lambda: F.scaled_dot_product_attention(
+        q, k, v, **sdpa))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        lo = F.scaled_dot_product_attention(ql, kl, vl, **sdpa)
+    lib_bwd = _library_ms("SDPA dropout backward", lambda: torch.autograd.grad(
+        lo, (ql, kl, vl), do, retain_graph=True))
+    del lo, ql, kl, vl
+    b_ms, by = bound(nbytes(q, k, v, out, lse) + seg_bytes, 4 * d * pairs,
+                     PEAK_BF16_TENSOR_FLOPS)
+    shape = (f"b={b} h={h} s={sq} d={d} causal={causal} "
+             f"segments={keep is not None} dropout {DROP_RATE}")
+    print(f"    flash_fwd: ms={fwd_ms:.5f} plain_ms={fwd_plain:.5f} "
+          f"library_ms={lib_fwd} (SDPA dropout_p) bound_ms={b_ms:.5f} ({by})")
+    fwd = {"case": f"dropout_{name}", "ms": fwd_ms, "plain_ms": fwd_plain,
+           "library_ms": lib_fwd, "bound_ms": b_ms, "bound_by": by,
+           "row_rel_err": rel, "lse_err": lse_err,
+           "max_abs_err": float(diff.max()), "masked_rows": zeros,
+           "shape": shape}
+    rows = []
+    for kname, n_products, outs in (
+            (attention.BWD_DQ_KERNEL, 3, got[:1]),
+            (attention.BWD_DKV_KERNEL, 4, got[1:])):
+        ms = device_ms(lambda kname=kname: attention._flash_bwd_cuda(
+            *args, kernels=(kname,)))
+        kb_ms, kby = bound(nbytes(q, k, v, do, lse, delta, *outs) + seg_bytes,
+                           2 * d * n_products * pairs,
+                           PEAK_BF16_TENSOR_FLOPS)
+        print(f"    {kname}: ms={ms:.5f} bound_ms={kb_ms:.5f} ({kby}); both "
+              f"kernels' plain_ms={bwd_plain:.5f}, SDPA dropout backward "
+              f"library_ms={lib_bwd}")
+        rows.append({"case": f"dropout_{name}", "ms": ms,
+                     "plain_ms": bwd_plain, "library_ms": lib_bwd,
+                     "bound_ms": kb_ms, "bound_by": kby, "errors": errs,
+                     "max_abs_err": max(float((g_.float() - w_.float())
+                                              .abs().max())
+                                        for g_, w_ in zip(got, want)),
+                     "shape": shape})
+    return fwd, rows[0], rows[1]
+
+
+def flash_dropout_mask_probe(dev, b, h, sq) -> dict:
+    """The forward kernel's keep mask read off its output: q = 0 makes the
+    probabilities uniform and V the identity over 64 keys puts key j's
+    dropped weight in column j. Held bitwise to the plain mask; its kept
+    share within KEPT_TOL of 1 - rate."""
+    sk = 64
+    q = torch.zeros(b, h, sq, sk, dtype=torch.bfloat16, device=dev)
+    k = torch.zeros(b, h, sk, sk, dtype=torch.bfloat16, device=dev)
+    v = torch.eye(sk, device=dev).to(torch.bfloat16).expand(
+        b, h, sk, sk).contiguous()
+    seed = attention.dropout_seed(DROPOUT_KEY)
+    out, _ = attention._flash_cuda(q, k, v, None, None, 1.0, False, None,
+                                   DROP_RATE, seed)
+    bh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+    keep = attention._dropout_keep(
+        seed, bh, torch.arange(sq, device=dev).reshape(sq, 1),
+        torch.arange(sk, device=dev).reshape(1, sk), DROP_RATE)
+    same = bool(torch.equal(out != 0, keep))
+    kept = float((out != 0).float().mean())
+    print(f"  flash dropout mask probe over {b * h * sq * sk} (query, key) "
+          f"pairs: bitwise the plain mask {same}; kept share {kept:.5f} "
+          f"(1 - rate {1 - DROP_RATE}, tol {KEPT_TOL})")
+    check(same, "the flash kernel's dropout mask is not the plain mask")
+    check(abs(kept - (1 - DROP_RATE)) <= KEPT_TOL,
+          "the flash dropout mask keeps the wrong share")
+    return {"pairs": b * h * sq * sk, "kept": kept, "bitwise": same}
+
+
+def flash_dropout_cases(gen, dev) -> dict:
+    b, h, s, d = FLASH_DROPOUT_GPT
+    gpt = flash_dropout_case("gpt_train", gen, dev, b, h, s, d, True)
+    bh, bs, bd = FLASH_DROPOUT_BERT
+    bert = flash_dropout_case("bert_train", gen, dev, len(BERT_LENS), bh, bs,
+                              bd, False, keep=bert_keep(dev, BERT_LENS, bs))
+    return {"fwd": [gpt[0], bert[0]], "dq": [gpt[1], bert[1]],
+            "dkv": [gpt[2], bert[2]],
+            "probe": flash_dropout_mask_probe(dev, b, h, s)}
+
+
+def dropout_case(name, gen, dev, shape) -> dict:
+    """dropout.cu against its plain version: the output and the gradient
+    bitwise, on one key."""
+    x = torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    g = torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    key = DROPOUT_KEY
+    got = dropout_op._dropout_cuda(x, key, DROP_RATE)
+    want = dropout_op._dropout_torch(x, key, DROP_RATE)
+    xg = x.clone().requires_grad_()
+    with torch.enable_grad():
+        dropout_op.dropout(xg, DROP_RATE, key).backward(g)
+    gwant = dropout_op._dropout_torch(g, key, DROP_RATE)
+    torch.cuda.synchronize()
+    same = _same_bits(got, want)
+    gsame = _same_bits(xg.grad, gwant)
+    kept = float((got != 0).float().mean())
+    print(f"  dropout[{name}] {tuple(shape)} bf16 rate {DROP_RATE}: output "
+          f"bitwise {same}, gradient bitwise {gsame}, kept share {kept:.5f}")
+    check(same and gsame, f"dropout[{name}]: kernel disagrees with plain")
+    kernel = lambda: dropout_op._dropout_cuda(x, key, DROP_RATE)  # noqa: E731
+    ms, h_ms = device_ms(kernel), host_ms(kernel)
+    plain_ms = device_ms(lambda: dropout_op._dropout_torch(x, key, DROP_RATE),
+                         iters=3, replays=2)
+    lib_ms = _library_ms("F.dropout", lambda: F.dropout(x, DROP_RATE))
+    b_ms, by = bound(nbytes(x, got), DROPOUT_OPS_PER_ELEMENT * x.numel(),
+                     PEAK_FP32_FLOPS)
+    print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms={lib_ms} (F.dropout) bound_ms={b_ms:.5f} ({by})")
+    return {"case": name, "ms": ms, "host_ms": h_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "kept": kept, "shape": f"{tuple(shape)} bf16"}
+
+
+def dropout_cases(gen, dev) -> dict:
+    cases = [dropout_case(n, gen, dev, s) for n, s in DROPOUT_SHAPES.items()]
+    # the headline is the hidden dropout's: GPT's path launches it most
+    top = {k_: v_ for k_, v_ in cases[0].items() if k_ != "case"}
+    return {"name": "dropout", "route": "cuda",
+            "source": "apex_tpu_torch/csrc/dropout.cu",
+            "replaces": "none: Flax nn.Dropout (XLA threefry and select, "
+                        "no pallas_call), not the port of a TPU kernel",
+            **top, "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "cases": cases}
+
+
+DROPOUT_COUNTERS = (dropout_op.FWD_KERNEL, dropout_op.BWD_KERNEL)
+# every op plain but dropout: the dropout kernel's own effect on a step
+DROPOUT_ONLY = PLAIN_OPS._replace(dropout=KERNEL_OPS.dropout)
+
+
+def _dropout_loop(step, state, batch, steps: int, seed: int):
+    """``steps`` steps, step i with its own dropout key, the launch
+    counts set to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch, dropout_key=_dropout_key(seed, i))
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    return state, losses, times, _build.launch_counts()
+
+
+def _check_per_step(label, launches, want: dict, steps: int) -> None:
+    for k, n in want.items():
+        check(launches.get(k, 0) == n * steps,
+              f"{label}: {k} launched {launches.get(k, 0)} times in "
+              f"{steps} steps, not {n} a step")
+
+
+def _worst_rel(space, gk, gp):
+    plain = space.unpack(gp, "buffer")
+    return max((float((a - plain[n]).norm()
+                      / plain[n].norm().clamp_min(1e-30)), n)
+               for n, a in space.unpack(gk, "buffer").items())
+
+
+def train_dropout(seed: int, dev, card: str, base_ms: float) -> dict:
+    """Phase 12b: GPT-2 345M with Megatron's dropouts, phase 4's model,
+    weights and batch, FusedAdam, DROPOUT_STEPS steps each with its own
+    key; the batch-2 loss and gradients through the kernels against the
+    plain versions on one key."""
+    cfg = GPTConfig.gpt2_345m(attention_dropout=DROP_RATE,
+                              hidden_dropout=DROP_RATE)
+    model = init_gpt_pretrain_params(
+        cfg, torch.Generator().manual_seed(seed), device=dev)
+    step, state = make_gpt_pretrain_step(
+        cfg, FusedAdam(lr=1e-4, weight_decay=0.01))(model)
+    rng = np.random.RandomState(seed)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                       (TRAIN_BATCH, cfg.max_seq_len + 1)),
+                           device=dev).long()
+    x, y = toks[:, :-1], toks[:, 1:]
+    key = _dropout_key(seed, 1000)
+    x2, y2 = x[:2], y[:2]
+    loss_k, gk = _grads(step, model, lambda t: model(
+        t, deterministic=False, dropout_key=key), x2, y2)
+    loss_p, gp = _grads(step, model, lambda t: model.forward_plain(
+        t, deterministic=False, dropout_key=key), x2, y2)
+    loss_d, gd = _grads(step, model, lambda t: model._forward(
+        t, None, None, None, False, DROPOUT_ONLY, False, key), x2, y2)
+    with torch.no_grad():
+        loss_det = float(gpt_loss_fn(model(x2), y2))
+    worst = _worst_rel(state.space, gk, gp)
+    drop_same = loss_d == loss_p and bool(torch.equal(gd, gp))
+    del gk, gp, gd
+    print(f"  batch 2, the dropout kernel alone (every other op plain) "
+          f"against the plain path: loss and gradients bitwise {drop_same}")
+    check(drop_same, "GPT: the dropout kernel alone moves the loss or the "
+          "gradients")
+    print(f"  batch 2 with dropout, kernels vs plain on one key: loss "
+          f"{loss_k:.5f} vs {loss_p:.5f} (tol {TRAIN_LOSS_TOL}); worst "
+          f"gradient relative L2 error {worst[0]:.3e} in {worst[1]} (tol "
+          f"{TRAIN_GRAD_REL_TOL}); the loss without dropout {loss_det:.5f}")
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_TOL,
+          "GPT dropout loss: kernel path disagrees with the plain path")
+    check(worst[0] <= TRAIN_GRAD_REL_TOL,
+          "GPT dropout gradients: kernel path disagrees with the plain path")
+    state, losses, times, launches = _dropout_loop(
+        step, state, (x, y), DROPOUT_STEPS, seed)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(times[2:]))
+    tokens = TRAIN_BATCH * cfg.max_seq_len
+    print(f"  losses {[round(v_, 4) for v_ in losses]}")
+    print(f"  launches over {DROPOUT_STEPS} steps {launches}")
+    print(f"  GPT-2 345M dropout {DROP_RATE}: step_ms median of the last "
+          f"{DROPOUT_STEPS - 2} {step_s * 1e3:.2f} (first "
+          f"{times[0] * 1e3:.1f}) against phase 4's {base_ms:.2f} without "
+          f"dropout in this call; tokens_per_s={tokens / step_s:.0f}, peak "
+          f"memory {peak / 2**30:.2f} GiB on {card}")
+    check(all(np.isfinite(losses)), "GPT dropout: non-finite loss")
+    check(losses[-1] < losses[0], "GPT dropout: the loss did not fall")
+    n = cfg.num_layers
+    _check_per_step("GPT dropout", launches, {
+        attention.KERNEL: n, attention.BWD_DQ_KERNEL: n,
+        attention.BWD_DKV_KERNEL: n, dropout_op.FWD_KERNEL: 2 * n,
+        dropout_op.BWD_KERNEL: 2 * n, mt_ops.ADAM_KERNEL: 1},
+        DROPOUT_STEPS)
+    (state, _), prof = _profiled(
+        lambda: step(state, x, y, dropout_key=_dropout_key(seed, 99)),
+        "GPT dropout step", {"dropout": ("dropout_kernel",),
+                             "flash": ("flash_",)})
+    return {"launches": launches, "steps": DROPOUT_STEPS, "losses": losses,
+            "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
+            "base_step_ms": base_ms, "tokens_per_s": tokens / step_s,
+            "peak_gib": peak / 2**30, "batch2_loss": [loss_k, loss_p],
+            "batch2_loss_without_dropout": loss_det,
+            "batch2_grad_rel_err": {"max": worst[0], "param": worst[1]},
+            "batch2_dropout_kernel_alone_bitwise": drop_same,
+            "profile": prof}
+
+
+def train_bert_dropout(seed: int, dev, card: str, base: dict) -> dict:
+    """Phase 12c: BERT-Large with both dropouts at 0.1 and NVLAMB on each
+    backend (the flash kernel drops in its tiles; the softmax backend
+    drops the probabilities through dropout.cu), DROPOUT_STEPS steps
+    each; the batch-2 loss and gradients through the kernels against the
+    plain versions on one key."""
+    batch = bert_batch(seed, dev, 30528)
+    b2 = tuple(t[:2] for t in batch)
+    padded = len(BERT_LENS) * 512
+    out = {}
+    key = _dropout_key(seed, 1000)
+    for backend in ("softmax", "flash"):
+        cfg = BertConfig.bert_large(attention_backend=backend,
+                                    attention_dropout=DROP_RATE,
+                                    hidden_dropout=DROP_RATE)
+        model = BertModel(cfg, device=dev,
+                          generator=torch.Generator().manual_seed(seed))
+        opt = FusedLAMB(lr=1e-4, weight_decay=0.01, max_grad_norm=1.0,
+                        use_nvlamb=True)
+        step = PretrainStep(model, opt, loss_fn=bert_dropout_loss)
+        state = step.init()
+        loss_k, gk = _bert_grads(step, lambda *a: model(
+            *a, deterministic=False, dropout_key=key), b2)
+        loss_p, gp = _bert_grads(step, lambda *a: model.forward_plain(
+            *a, deterministic=False, dropout_key=key), b2)
+        loss_d, gd = _bert_grads(step, lambda *a: model._forward(
+            *a, DROPOUT_ONLY, False, key), b2)
+        worst = _worst_rel(state.space, gk, gp)
+        drop_same = loss_d == loss_p and bool(torch.equal(gd, gp))
+        del gk, gp, gd
+        print(f"  BERT-Large {backend} with dropout, batch 2, kernels vs "
+              f"plain on one key: loss {loss_k:.5f} vs {loss_p:.5f} (tol "
+              f"{BERT_DROPOUT_LOSS_TOL}); worst gradient relative L2 error "
+              f"{worst[0]:.3e} in {worst[1]} (tol {BERT_GRAD_REL_TOL}); "
+              f"the dropout kernel alone bitwise the plain path {drop_same}")
+        check(drop_same, f"BERT {backend}: the dropout kernel alone moves "
+              "the loss or the gradients")
+        # the same gap on other keys: how far the kernels' roundings move
+        # this loss (no check: the spread behind BERT_DROPOUT_LOSS_TOL)
+        gaps = {}
+        with torch.no_grad():
+            for k_ in GAP_KEYS:
+                lk, lp = (float(bert_loss_fn(
+                    *fwd(*b2[:3], deterministic=False, dropout_key=k_),
+                    *b2[3:])) for fwd in (model, model.forward_plain))
+                gaps[str(k_)] = abs(lk - lp)
+        print(f"    loss gaps on other keys: " + ", ".join(
+            f"{k_} {g_:.3e}" for k_, g_ in gaps.items()))
+        check(abs(loss_k - loss_p) <= BERT_DROPOUT_LOSS_TOL,
+              f"BERT {backend} dropout loss: kernels disagree with plain")
+        check(worst[0] <= BERT_GRAD_REL_TOL,
+              f"BERT {backend} dropout gradients: kernels disagree with "
+              "plain")
+        state, losses, times, launches = _dropout_loop(
+            step, state, batch, DROPOUT_STEPS, seed)
+        peak = torch.cuda.max_memory_allocated()
+        step_s = float(np.median(times[2:]))
+        print(f"  losses {[round(v_, 4) for v_ in losses]}")
+        print(f"  launches over {DROPOUT_STEPS} steps {launches}")
+        print(f"  BERT-Large {backend} dropout {DROP_RATE}: step_ms median "
+              f"of the last {DROPOUT_STEPS - 2} {step_s * 1e3:.2f} against "
+              f"phase 6's {base[backend]['step_ms']:.2f} without dropout in "
+              f"this call; tokens_per_s {padded / step_s:.0f} padded; peak "
+              f"memory {peak / 2**30:.2f} GiB on {card}")
+        check(all(np.isfinite(losses)), f"BERT {backend} dropout: non-finite "
+              "loss")
+        check(losses[-1] < losses[0], f"BERT {backend} dropout: the loss did "
+              "not fall")
+        n = cfg.num_layers
+        if backend == "softmax":
+            want = {softmax.MASKED_KERNEL: n, softmax.BWD_KERNEL: n,
+                    dropout_op.FWD_KERNEL: 3 * n,
+                    dropout_op.BWD_KERNEL: 3 * n}
+            absent = FLASH_KERNELS
+        else:
+            want = {attention.KERNEL: n, attention.BWD_DQ_KERNEL: n,
+                    attention.BWD_DKV_KERNEL: n,
+                    dropout_op.FWD_KERNEL: 2 * n,
+                    dropout_op.BWD_KERNEL: 2 * n}
+            absent = SOFTMAX_KERNELS
+        _check_per_step(f"BERT {backend} dropout", launches, want,
+                        DROPOUT_STEPS)
+        for k in absent:
+            check(launches.get(k, 0) == 0,
+                  f"kernel {k} launched on the BERT {backend} dropout path")
+        out[backend] = {"launches": launches, "steps": DROPOUT_STEPS,
+                        "losses": losses, "step_ms": step_s * 1e3,
+                        "step_ms_all": [t * 1e3 for t in times],
+                        "base_step_ms": base[backend]["step_ms"],
+                        "tokens_per_s_padded": padded / step_s,
+                        "peak_gib": peak / 2**30,
+                        "batch2_loss": [loss_k, loss_p],
+                        "batch2_grad_rel_err": {"max": worst[0],
+                                                "param": worst[1]},
+                        "batch2_dropout_kernel_alone_bitwise": drop_same,
+                        "batch2_loss_gaps_other_keys": gaps}
+        del model, step, state, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def bert_dropout_loss(model, tokens, keep, tt, labels, loss_mask, nsp,
+                      dropout_key=None):
+    return bert_loss_fn(*model(tokens, keep, tt,
+                               deterministic=dropout_key is None,
+                               dropout_key=dropout_key),
+                        labels, loss_mask, nsp)
+
+
+class _RecordingStep(DecodeStep):
+    """A DecodeStep that keeps each dispatch's logits (on the host), its
+    sampling arrays, fold positions and selected tokens."""
+
+    def __init__(self, model, cache):
+        super().__init__(model, cache)
+        self.calls = []
+
+    def _select(self, out, state, sampling, fold_pos):
+        res = DecodeStep._select(out, state, sampling, fold_pos)
+        self.calls.append((out.cpu(), sampling, np.asarray(fold_pos).copy(),
+                           res.next_token.cpu()))
+        return res
+
+
+def serve_sampled(seed: int, dev, card: str, srv: dict) -> dict:
+    """Phase 12d: phase 3's eight requests with the lanes mixed, the odd
+    ones sampled at SAMPLED with their own seeds: the greedy lanes give
+    phase 3's tokens, a second run replays every stream, and the sampler
+    on the host (the plain CPU ops) draws the card's token from the
+    card's logits at every dispatch."""
+    cfg = GPTConfig.gpt2_345m()
+    model = GPTModel(cfg, device=dev,
+                     generator=torch.Generator().manual_seed(seed))
+    model.requires_grad_(False)
+    cache = KVCache.for_config(cfg, num_blocks=8 * 1024 // 16,
+                               block_size=16, device=dev)
+    state = cache.init_state()
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    requests = [Request(id=i, prompt=p, max_new_tokens=MAX_NEW,
+                        **(dict(SAMPLED, seed=1000 + i) if i % 2 else {}))
+                for i, p in enumerate(prompts)]
+
+    def run(step_fn=None):
+        nonlocal state
+        cache.reset_prefix_cache()
+        batcher = ContinuousBatcher(model, cache, max_batch=8,
+                                    prefill_chunk=PREFILL_CHUNK,
+                                    step_fn=step_fn)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, results = serve_loop(batcher, state, requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return ({r.id: r for r in results}, wall, batcher.step_idx,
+                _build.launch_counts())
+
+    state, _ = serve_loop(ContinuousBatcher(model, cache), state, [
+        Request(id="warm", prompt=prompts[1][:16], max_new_tokens=2,
+                **SAMPLED)])
+    res, wall, steps, launches = run()
+    check(len(res) == len(requests), "not every sampled request finished")
+    for i, r in res.items():
+        check(r.finish_reason == "length" and len(r.tokens) == MAX_NEW,
+              f"request {i} finished with {r.finish_reason}")
+    for kernel in (layer_norm.KERNEL, attention.KERNEL):
+        check(launches.get(kernel, 0) > 0,
+              f"kernel {kernel} never launched on the sampled serving path")
+    greedy_same = {i: res[i].tokens == srv["tokens"][i]
+                   for i in res if i % 2 == 0}
+    rec = _RecordingStep(model, cache)
+    res2, _, _, _ = run(rec)
+    replay = {i: res2[i].tokens == res[i].tokens for i in res}
+    host_same, draws = 0, 0
+    for logits, sampling, fold_pos, tok in rec.calls:
+        want = select_token(logits, sampling, fold_pos)
+        host_same += int(torch.equal(want, tok))
+        draws += 1
+    distinct = {i: len(set(res[i].tokens)) for i in res if i % 2}
+    tokens = sum(len(r.tokens) for r in res.values())
+    tpot = float(np.mean([r.tpot_s for r in res.values()])) * 1e3
+    ttft = float(np.mean([r.ttft_s for r in res.values()])) * 1e3
+    print(f"  sampled serving (lanes 1, 3, 5, 7 at {SAMPLED}): "
+          f"tokens_per_s={tokens / wall:.1f} mean_ttft_ms={ttft:.2f} "
+          f"mean_tpot_ms={tpot:.2f} over {steps} engine steps, against "
+          f"phase 3's greedy {srv['tokens_per_s']:.1f} tokens/s and "
+          f"{srv['mean_tpot_ms']:.2f} ms in this call, on {card}")
+    print(f"  greedy lanes as phase 3: {greedy_same}; replay token for "
+          f"token: {replay}; host sampler on the card's logits draws the "
+          f"card's tokens in {host_same} of {draws} dispatches; distinct "
+          f"tokens per sampled stream {distinct}")
+    check(all(greedy_same.values()), "a greedy lane differs from phase 3")
+    check(all(replay.values()), "a sampled stream did not replay")
+    check(host_same == draws, "the host sampler disagrees with the card's")
+    check(all(n > 1 for n in distinct.values()), "a sampled stream is "
+          "constant")
+    return {"launches": launches, "steps": steps,
+            "tokens_per_s": tokens / wall, "mean_tpot_ms": tpot,
+            "mean_ttft_ms": ttft, "wall_s": wall,
+            "greedy_as_phase3": greedy_same, "replay": replay,
+            "host_sampler_agrees": [host_same, draws],
+            "tokens": {i: r.tokens for i, r in res.items()}}
 
 
 def main(argv=None) -> int:
@@ -3383,6 +3982,32 @@ def main(argv=None) -> int:
           "comparison only)")
     rp = phase("phase 10b: RoPE at Llama-2-7B and GPT-NeoX-20B widths",
                lambda: rope_path(args.seed, dev, card))
+
+    def dropout_kernel_cases():
+        gen = torch.Generator().manual_seed(args.seed + 11)
+        with torch.no_grad():
+            flash = flash_dropout_cases(gen, dev)
+            torch.cuda.empty_cache()
+            return flash, dropout_cases(gen, dev)
+
+    fdrop, drow = phase("phase 11a: the flash kernels with dropout and "
+                        "dropout.cu against their plain versions",
+                        dropout_kernel_cases)
+    gdr = phase("phase 11b: GPT-2 345M with attention and hidden dropout "
+                "0.1", lambda: train_dropout(args.seed, dev, card,
+                                             trn["step_ms"]))
+    bdr = phase("phase 11c: BERT-Large with attention and hidden dropout "
+                "0.1 on both backends",
+                lambda: train_bert_dropout(args.seed, dev, card, bert))
+    ssv = phase("phase 11d: serving GPT-2 345M with sampled lanes",
+                lambda: serve_sampled(args.seed, dev, card, srv))
+    # the dropout cases join their kernels' rows; dropout.cu gets its own
+    by_name = {k["name"]: k for k in kernels}
+    by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
+    by_name[attention.KERNEL]["dropout_mask_probe"] = fdrop["probe"]
+    by_name[attention.BWD_DQ_KERNEL]["cases"] += fdrop["dq"]
+    by_name[attention.BWD_DKV_KERNEL]["cases"] += fdrop["dkv"]
+    kernels.append(drow)
     # where each kernel's launches are read: the path that runs it (the
     # forward kernels run on every GPT path: their launches are the
     # serving run's; the scaled sum of squares runs on the scaler step;
@@ -3421,7 +4046,16 @@ def main(argv=None) -> int:
         xentropy.BWD_KERNEL: ("training_xentropy", xent["launches"],
                               xent["steps"]),
         rope.KERNEL: ("rope_path", rp["launches"], rp["steps"]),
+        # one kernel, counted forward and backward apart
+        "dropout": ("training_gpt_dropout", gdr["launches"], gdr["steps"]),
     }
+
+    def launched(counts: dict, name: str) -> int:
+        # dropout.cu is one kernel, counted forward and backward apart
+        if name == drow["name"]:
+            return sum(counts.get(c_, 0) for c_ in DROPOUT_COUNTERS)
+        return counts.get(name, 0)
+
     for k in kernels:
         name = k["name"]
         if name in paths:
@@ -3433,7 +4067,7 @@ def main(argv=None) -> int:
             path, launches, steps = ("training_lamb", lamb["launches"],
                                      lamb["steps"])
         k["path"] = path
-        k["launches"] = launches.get(name, 0)
+        k["launches"] = launched(launches, name)
         k["launches_per_step"] = k["launches"] / max(steps, 1)
         for key, run in (("training", trn), ("training_lamb", lamb),
                          ("bert_softmax", bert["softmax"]),
@@ -3444,12 +4078,17 @@ def main(argv=None) -> int:
                          ("resnet_lars", rn["lars"]),
                          ("resnet_larc", rn["larc"]),
                          ("novograd", novo), ("adagrad", ada),
-                         ("xentropy", xent)):
-            k[f"launches_{key}"] = run["launches"].get(name, 0)
+                         ("xentropy", xent), ("gpt_dropout", gdr),
+                         ("bert_dropout_softmax", bdr["softmax"]),
+                         ("bert_dropout_flash", bdr["flash"]),
+                         ("serving_sampled", ssv)):
+            k[f"launches_{key}"] = launched(run["launches"], name)
         check(k["launches"] > 0, f"{name}: no launch on its path")
+    for counter in DROPOUT_COUNTERS:
+        drow[f"launches_{counter}"] = gdr["launches"].get(counter, 0)
 
-    check(len(kernels) == 24, f"{len(kernels)} kernels in the line, not 24")
-    print("phase 11: kernels")
+    check(len(kernels) == 25, f"{len(kernels)} kernels in the line, not 25")
+    print("phase 12: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -3462,7 +4101,9 @@ def main(argv=None) -> int:
                        "gpt_softmax": gsm, "resnet": rn,
                        "training_novograd": novo, "training_adagrad": ada,
                        "training_xentropy": xent, "rope_path": rp,
-                       **line}, f,
+                       "training_gpt_dropout": gdr,
+                       "training_bert_dropout": bdr,
+                       "serving_sampled": ssv, **line}, f,
                       indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -231,8 +231,12 @@ def test_converter_rejects_missing_and_extra_keys(params):
 def test_config_checks():
     with pytest.raises(ValueError, match="attention_backend"):
         BertConfig(attention_backend="ring")
+    # dropout is ported (tests/test_torch_pretrain_dropout.py): rates in
+    # [0, 1) are taken, others refused
     for kw in ({"attention_dropout": 0.1}, {"hidden_dropout": 0.1}):
-        with pytest.raises(NotImplementedError, match="dropout"):
+        assert BertConfig(**kw).scan_layers
+    for kw in ({"attention_dropout": 1.0}, {"hidden_dropout": -0.1}):
+        with pytest.raises(ValueError, match="dropout"):
             BertConfig(**kw)
     cfg = BertConfig.bert_large()
     assert (cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.max_seq_len,

@@ -28,7 +28,14 @@ Softmax forwards within one bf16 ulp of the value (2^-7; fp32 within
 of each row's largest |dx| (the row's dot product is summed in another
 order). SGD, LARS, scale, axpby, Adagrad and NovoGrad: bitwise (the
 tolerances of the whole LARS and NovoGrad updates are stated with their
-tests). Cross entropy and RoPE: stated with their tests.
+tests). Cross entropy and RoPE: stated with their tests. Flash attention
+with dropout: outputs within 2^-6 of each row's largest |value| (two
+bf16 ulps: the kept probabilities and the outputs grow by 1 / (1 -
+rate), so an absolute bound would not keep up with them), the lse and
+the gradients as above, and its keep mask bitwise (read off
+an output: q = 0 makes the probabilities uniform, V the identity puts
+key j's weight in column j). Dropout (``csrc/dropout.cu``): output and
+gradient bitwise.
 """
 
 import numpy as np
@@ -38,6 +45,7 @@ import torch
 from apex_tpu_torch import _build
 from apex_tpu_torch.multi_tensor import fused_adam_update, ops as mt_ops
 from apex_tpu_torch.ops import attention, layer_norm
+from apex_tpu_torch.ops import dropout as dropout_op
 
 
 @pytest.fixture
@@ -151,8 +159,10 @@ def test_flash_kernel_refuses_unported_options(cuda_device):
     with pytest.raises(NotImplementedError, match="bias"):
         attention.flash_attention(
             q, q, q, bias=torch.zeros(1, 1, 8, 8, device=cuda_device))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        attention.flash_attention(q, q, q, dropout_rate=0.1, dropout_rng=1)
+    with pytest.raises(NotImplementedError, match="q_positions"):
+        pos = torch.arange(8, device=cuda_device)
+        attention.flash_attention(q, q, q, causal=True, q_positions=pos,
+                                  kv_positions=pos)
     with pytest.raises(NotImplementedError, match="head_dim"):
         z = torch.zeros(1, 2, 8, 48, device=cuda_device,
                         dtype=torch.bfloat16)
@@ -190,6 +200,170 @@ def test_flash_bwd_kernels_match_plain(cuda_device, case):
         scale_w = max(float(w.float().abs().max()), 1e-6)
         err = float((g.float() - w.float()).abs().max())
         assert err <= 2.0 ** -6 * scale_w, (name, err, scale_w)
+
+
+def _row_rel_err(got, want) -> float:
+    """The largest |got - want| of each row over the row's largest
+    |want|: with dropout the kept probabilities are 1 / (1 - rate) larger,
+    and so are the outputs and their bf16 ulps."""
+    diff = (got.float() - want.float()).abs()
+    return float((diff / want.float().abs().amax(-1, keepdim=True)
+                  .clamp_min(1e-6)).max())
+
+
+def _flash_inputs(case, cuda_device, seed):
+    b, h, hk, sq, sk, d, causal, window, segs = ATTENTION_CASES[case]
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for shape in (
+        (b, h, sq, d), (b, hk, sk, d), (b, hk, sk, d), (b, h, sq, d)))
+    q_seg = k_seg = None
+    if segs:
+        k_seg = torch.from_numpy(
+            (rng.rand(b, sk) < 0.2).astype(np.int32)).to(cuda_device)
+        q_seg = torch.zeros(b, sq, dtype=torch.int32, device=cuda_device)
+    return (q, k, v, do, q_seg, k_seg, d ** -0.5, causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.4])
+@pytest.mark.parametrize("case", sorted(ATTENTION_CASES))
+def test_flash_kernel_with_dropout_matches_plain(cuda_device, case, rate):
+    q, k, v, _, q_seg, k_seg, scale, causal, window = _flash_inputs(
+        case, cuda_device, 11)
+    seed = 0x9E3779B9
+    before = _build.launch_counts().get(attention.KERNEL, 0)
+    out, lse = attention._flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
+                                     window, rate, seed)
+    pout, plse = attention._attention_torch(
+        q, k, v, None, q_seg, k_seg, scale, causal, window, rate, seed,
+        return_lse=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[attention.KERNEL] == before + 1
+    assert _row_rel_err(out, pout) <= 2.0 ** -6
+    # the normaliser sums the undropped probabilities
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ATTENTION_CASES))
+def test_flash_bwd_kernels_with_dropout_match_plain(cuda_device, case):
+    q, k, v, do, q_seg, k_seg, scale, causal, window = _flash_inputs(
+        case, cuda_device, 13)
+    rate, seed = 0.1, 12345
+    out, lse = attention._flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
+                                     window, rate, seed)
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, lse, do, delta, q_seg, k_seg, scale, causal, window,
+            rate, seed)
+    got = attention._flash_bwd_cuda(*args)
+    want = attention._flash_bwd_torch(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        scale_w = max(float(w.float().abs().max()), 1e-6)
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 2.0 ** -6 * scale_w, (name, err, scale_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gqa", [False, True])
+def test_flash_dropout_mask_is_the_plain_mask(cuda_device, gqa):
+    b, h, sq, sk = 2, 4, 200, 64
+    hk = 2 if gqa else h
+    q = torch.zeros(b, h, sq, sk, dtype=torch.bfloat16, device=cuda_device)
+    k = torch.randn(b, hk, sk, sk, device=cuda_device).to(torch.bfloat16)
+    v = torch.eye(sk, device=cuda_device).to(torch.bfloat16).expand(
+        b, hk, sk, sk).contiguous()
+    rate, seed = 0.25, 7
+    out, _ = attention._flash_cuda(q, k, v, None, None, 1.0, False, None,
+                                   rate, seed)
+    bh = torch.arange(b * h, device=cuda_device).reshape(b, h, 1, 1)
+    row = torch.arange(sq, device=cuda_device).reshape(sq, 1)
+    col = torch.arange(sk, device=cuda_device).reshape(1, sk)
+    keep = attention._dropout_keep(seed, bh, row, col, rate)
+    assert torch.equal(out != 0, keep)
+    kept = out[keep].float()
+    assert torch.equal(kept, torch.full_like(kept, float(torch.tensor(
+        1.0 / sk / 0.75).to(torch.bfloat16))))
+    # the dk/dv kernel hashes the q head of its GQA sweep: with dO the
+    # identity over the same keys, dv row j sums the kept p of column j
+    do = torch.eye(sq, sk, device=cuda_device).to(torch.bfloat16).expand(
+        b, h, sq, sk).contiguous()
+    lse = torch.full((b, h, sq), float(np.log(sk)), device=cuda_device)
+    delta = torch.zeros(b, h, sq, device=cuda_device)
+    args = (q, k, v, lse, do, delta, None, None, 1.0, False, None, rate,
+            seed)
+    got = attention._flash_bwd_cuda(*args)
+    want = attention._flash_bwd_torch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.cuda
+def test_flash_autograd_with_dropout_runs_the_kernels(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, do = (torch.randn(2, 4, 96, 64, device=cuda_device,
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(causal=True, dropout_rate=0.1,
+              dropout_rng=torch.tensor([3, 4]))
+    grads = []
+    for fn in (attention.flash_attention, attention.attention_plain):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        counts = _build.launch_counts()
+        out = fn(*leaves, **kw)
+        out.backward(do)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        for kname in (attention.KERNEL, attention.BWD_DQ_KERNEL,
+                      attention.BWD_DKV_KERNEL):
+            n = 1 if fn is attention.flash_attention else 0
+            assert after.get(kname, 0) == counts.get(kname, 0) + n
+        grads.append((out.detach(), [t.grad for t in leaves]))
+    (out, got), (pout, want) = grads
+    assert _row_rel_err(out, pout) <= 2.0 ** -6
+    for g, w in zip(got, want):
+        scale_w = max(float(w.float().abs().max()), 1e-6)
+        assert float((g.float() - w.float()).abs().max()) <= \
+            2.0 ** -6 * scale_w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [(1,), (3,), (4097,), (8, 16, 64, 65),
+                                   (1 << 20, 3)])
+def test_dropout_kernel_bitwise_equals_plain(cuda_device, dtype, shape):
+    x = (torch.randn(*shape, device=cuda_device) * 3).to(dtype)
+    key = (0x12345678, 0x9ABCDEF0)
+    before = _build.launch_counts().get(dropout_op.FWD_KERNEL, 0)
+    got = dropout_op._dropout_cuda(x, key, 0.1)
+    want = dropout_op._dropout_torch(x, key, 0.1)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[dropout_op.FWD_KERNEL] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got.view(-1).view(torch.uint8),
+                       want.view(-1).view(torch.uint8))
+    if x.numel() > 100000:
+        kept = float((got != 0).float().mean())
+        assert abs(kept - 0.9) < 0.002
+
+
+@pytest.mark.cuda
+def test_dropout_autograd_runs_both_launches(cuda_device):
+    x = torch.randn(64, 1000, device=cuda_device,
+                    dtype=torch.bfloat16).requires_grad_()
+    g = torch.randn(64, 1000, device=cuda_device, dtype=torch.bfloat16)
+    counts = _build.launch_counts()
+    y = dropout_op.dropout(x, 0.1, torch.tensor([5, 6]))
+    y.backward(g)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for kname in (dropout_op.FWD_KERNEL, dropout_op.BWD_KERNEL):
+        assert after[kname] == counts.get(kname, 0) + 1
+    assert torch.equal(x.grad, dropout_op._dropout_torch(g, (5, 6), 0.1))
+    with pytest.raises(TypeError):
+        dropout_op._dropout_cuda(x.detach().double(), (0, 1), 0.1)
 
 
 @pytest.mark.cuda

@@ -211,9 +211,6 @@ def test_unported_options_raise():
         make_train_step(opt, fingerprint_every=10)
     with pytest.raises(NotImplementedError, match="chained"):
         make_train_step(FusedLAMB(lr=LR), max_grad_norm=1.0).chained(4)
-    for kw in ({"attention_dropout": 0.1}, {"hidden_dropout": 0.1}):
-        with pytest.raises(NotImplementedError, match="dropout"):
-            GPTConfig(**kw)
     with pytest.raises(NotImplementedError, match="mesh"):
         make_gpt_pretrain_step(cfg, opt, mesh=object())
     with pytest.raises(NotImplementedError, match="pipe"):

@@ -11,7 +11,13 @@ converted; both packages then serve the same prompts:
   layers and the LM head, summed in other orders);
 - ``ContinuousBatcher``: six requests, one of them chunked and two
   sharing a prompt prefix, give the reference engine's token streams
-  exactly.
+  exactly, greedy and sampled (temperature, top-k, top-p and seed per
+  request, lanes mixed);
+- sampled ``DecodeStep`` dispatches draw the reference's tokens: the
+  gumbel noise comes from the ported threefry2x32 and the key
+  ``fold_in(PRNGKey(seed), token index)``. Its ``-log(-log(u))`` is an
+  fp32 ulp or so off the reference's on ~20% of draws (the two ``log``
+  implementations), far below the gaps between candidate scores.
 
 Then the port's own rules: an entry point without ``device`` raises
 where there is no CUDA device, ``import apex_tpu_torch`` loads no JAX,
@@ -212,14 +218,120 @@ def test_decode_step_greedy_tokens_match_reference(models):
 
 
 def test_decode_step_refuses_sampling(models):
+    # sampled decoding is ported (the sampled-stream tests below): what
+    # is refused is a sampling setting outside its range, as the
+    # reference's Request refuses it
     _, _, port = models
     c = port_cache()
     step = serving.make_decode_step(port, c)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        step.decode(c.init_state(), [1], [0], np.zeros((1, 1), np.int32),
-                    temperatures=[0.7])
-    with pytest.raises(NotImplementedError, match="temperature"):
-        serving.Request(id=0, prompt=[1, 2], temperature=0.5)
+    table = np.zeros((1, 1), np.int32)
+    with pytest.raises(ValueError, match="temperature"):
+        step.decode(c.init_state(), [1], [0], table,
+                    sampling=([-0.5], [0], [1.0], [0]))
+    with pytest.raises(ValueError, match="top_p"):
+        step.decode(c.init_state(), [1], [0], table,
+                    sampling=([0.7], [0], [0.0], [0]))
+    for kw in ({"temperature": -1.0}, {"top_k": -1}, {"top_p": 0.0},
+               {"top_p": 1.5}):
+        with pytest.raises(ValueError):
+            serving.Request(id=0, prompt=[1, 2], **kw)
+    assert serving.Request(id=0, prompt=[1, 2], temperature=0.5).seed == 0
+
+
+SAMPLING = {   # per lane: (temperature, top_k, top_p, seed)
+    "mixed": [(0.0, 0, 1.0, 0), (0.8, 50, 0.95, 11), (1.3, 0, 1.0, 7),
+              (0.6, 5, 1.0, 3)],
+    "nucleus": [(1.0, 0, 0.3, 1), (2.0, 0, 0.9, 2), (0.9, 3, 0.5, 5),
+                (1.0, 1, 1.0, 9)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SAMPLING))
+def test_decode_step_sampled_tokens_match_reference(models, case):
+    ref, params, port = models
+    lanes = SAMPLING[case]
+    plens, n_decode = [11, 6, 9, 4], 8
+    b = len(plens)
+    rng = np.random.RandomState(5)
+    toks = np.zeros((b, 16), np.int32)
+    for i, n in enumerate(plens):
+        toks[i, :n] = rng.randint(0, VOCAB, n)
+    sampling = tuple(np.asarray(col, dt) for col, dt in zip(
+        zip(*lanes), (np.float32, np.int32, np.float32, np.uint32)))
+    rc, pc = ref_cache(), port_cache()
+    for c in (rc, pc):
+        for i, n in enumerate(plens):
+            c.allocate(i, n + n_decode)
+    tables = rc.table_array(list(range(b)), width=8)
+    rstep = ref_serving.make_decode_step(ref, rc)
+    pstep = serving.make_decode_step(port, pc)
+    lengths = np.asarray(plens, np.int32)
+    rout = rstep.prefill(params, rc.init_state(), toks, lengths, tables,
+                         sampling=sampling)
+    pout = pstep.prefill(pc.init_state(), toks, lengths, tables,
+                         sampling=sampling)
+    rstate, pstate = rout.cache, pout.cache
+    positions = lengths.copy()
+    greedy_lane = [t == 0.0 for t, _, _, _ in lanes]
+    for _ in range(n_decode):
+        nxt = np.asarray(rout.next_token)
+        np.testing.assert_array_equal(pout.next_token.numpy(), nxt)
+        # a greedy lane is the argmax, whatever its neighbours draw
+        for i, g in enumerate(greedy_lane):
+            if g:
+                assert nxt[i] == int(np.argmax(np.asarray(rout.logits)[i]))
+        rout = rstep.decode(params, rstate, nxt, positions, tables,
+                            sampling=sampling)
+        pout = pstep.decode(pstate, nxt, positions, tables,
+                            sampling=sampling)
+        rstate, pstate = rout.cache, pout.cache
+        positions = positions + 1
+
+
+def test_select_token_draws_the_reference_gumbel_argmax():
+    # the sampler alone, on logits with well-separated scores: its draw
+    # is argmax(masked + gumbel(fold_in(PRNGKey(seed), pos)))
+    rng = np.random.RandomState(6)
+    b, v = 6, 97
+    out = rng.randn(b, v).astype(np.float32) * 3
+    seeds = np.arange(b, dtype=np.uint32) * 1000 + 17
+    pos = np.arange(b) + 40
+    temps = np.full(b, 0.7, np.float32)
+    got = serving.select_token(
+        torch.from_numpy(out), (temps, np.zeros(b, np.int32),
+                                np.ones(b, np.float32), seeds), pos)
+    for i in range(b):
+        key = jax.random.fold_in(jax.random.PRNGKey(seeds[i]), pos[i])
+        g = np.asarray(jax.random.gumbel(key, (v,), jnp.float32))
+        assert int(got[i]) == int(np.argmax(out[i] / np.float32(0.7) + g))
+
+
+def test_batcher_sampled_streams_match_reference(models):
+    ref, params, port = models
+    rc, pc = ref_cache(), port_cache()
+    kw = dict(max_batch=4, max_prefill_batch=2, prefill_chunk=8)
+    knobs = [dict(temperature=0.8, top_k=50, top_p=0.95, seed=1),
+             dict(),
+             dict(temperature=1.2, top_k=0, top_p=0.9, seed=2),
+             dict(temperature=0.5, top_k=8, top_p=1.0, seed=3),
+             dict(),
+             dict(temperature=1.0, top_k=0, top_p=1.0, seed=4)]
+    reqs = _requests()
+
+    def run(mod, eng, c):
+        return mod.serve_loop(eng, c.init_state(), [
+            mod.Request(id=i, prompt=p, max_new_tokens=n, **k)
+            for (i, p, n), k in zip(reqs, knobs)])[1]
+
+    rres = run(ref_serving, ref_serving.ContinuousBatcher(ref, params, rc,
+                                                          **kw), rc)
+    pres = run(serving, serving.ContinuousBatcher(port, pc, **kw), pc)
+    want = {r.id: r.tokens for r in rres}
+    assert {r.id: r.tokens for r in pres} == want
+    # a replay regenerates every sampled stream token for token
+    pc2 = port_cache()
+    again = run(serving, serving.ContinuousBatcher(port, pc2, **kw), pc2)
+    assert {r.id: r.tokens for r in again} == want
 
 
 # -- ContinuousBatcher ---------------------------------------------------------
