@@ -37,7 +37,8 @@ BUILD_DIR = _PKG / "_build"
 # one shared library per source; the ops modules bind their symbols
 SOURCES = ("layer_norm", "flash_fwd", "flash_bwd", "fused_adam", "sumsq",
            "fused_lamb", "lamb_segment", "softmax", "fused_sgd",
-           "scale_axpby", "adagrad_novograd", "xentropy", "rope", "dropout")
+           "scale_axpby", "adagrad_novograd", "xentropy", "rope", "dropout",
+           "stochastic_round")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

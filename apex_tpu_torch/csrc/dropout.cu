@@ -28,6 +28,9 @@
 // that) and 3.35 TB/s the two bounds are within a factor of two, and the
 // integer pipe is the likelier limit.
 //
+// The generator (`threefry_bits`) is csrc/sr_common.cuh's, shared with the
+// stochastic-rounding kernels.
+//
 // Design: a grid-stride loop, one element a thread an iteration, four
 // consecutive elements a thread (fp32: one 16-byte load; bf16/fp16 one
 // 8-byte load), the key words and thresholds in registers. Each
@@ -39,37 +42,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sr_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kVec = 4;  // elements a thread an iteration
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
-  return __funnelshift_l(x, x, r);
-}
-
-// jax.random's threefry2x32 (jax/_src/prng.py `_threefry2x32_lowering`),
-// returning the xor of its two output words (`bits` at 32-bit width).
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t hi, uint32_t lo) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = hi + k0, x1 = lo + k1;
-#define APEX_TF_ROUND(r) \
-  x0 += x1;              \
-  x1 = rotl(x1, r) ^ x0;
-  APEX_TF_ROUND(13) APEX_TF_ROUND(15) APEX_TF_ROUND(26) APEX_TF_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  APEX_TF_ROUND(17) APEX_TF_ROUND(29) APEX_TF_ROUND(16) APEX_TF_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  APEX_TF_ROUND(13) APEX_TF_ROUND(15) APEX_TF_ROUND(26) APEX_TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  APEX_TF_ROUND(17) APEX_TF_ROUND(29) APEX_TF_ROUND(16) APEX_TF_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  APEX_TF_ROUND(13) APEX_TF_ROUND(15) APEX_TF_ROUND(26) APEX_TF_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-#undef APEX_TF_ROUND
-  return x0 ^ x1;
-}
 
 __device__ __forceinline__ bool keep_at(uint32_t k0, uint32_t k1, int64_t i,
                                         float keep_p) {

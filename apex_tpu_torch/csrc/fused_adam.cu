@@ -22,6 +22,16 @@
 // parameters plus alignment padding) moves ~9.94 GB, ~2.97 ms at
 // 3.35 TB/s.
 //
+// A bf16 master (the reference's `sr_outputs=(0,)` with a bf16 p,
+// ops.py:182): the same fp32 arithmetic on p read as bf16, p' written with
+// stochastic rounding through csrc/sr_common.cuh (the threefry stream of
+// the engine's xla path, keyed on the host); bitwise the plain version's
+// `stochastic_round_cast`. 24 bytes an element (2.54 ms at GPT-2 345M)
+// against the fp32 work plus ~84 integer operations of threefry (~0.45 ms
+// at 67 T/s, ~0.9 ms at the integer pipe's half rate): the memory sweep
+// and the hash take comparable time, and this simple kernel does not
+// overlap them beyond what the warps' interleaving gives.
+//
 // Design: a grid-stride loop of 16-byte (float4) loads and stores, each
 // element read and written exactly once; a tail of n % 4 elements takes
 // scalar loads. The found flag is a plain store of 1.0 by any thread
@@ -31,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sr_common.cuh"
 
 namespace {
 
@@ -56,18 +68,22 @@ __device__ __forceinline__ float adam_one(float p, float& m, float& v,
 
 constexpr int kThreads = 256;
 
+// TP: the parameter buffer's type, float (the fp32 master) or
+// __nv_bfloat16 (a bf16 master, p' written with stochastic rounding
+// through `key`; m and v stay fp32)
+template <typename TP>
 __global__ void __launch_bounds__(kThreads)
-    adam_kernel(const float* p, const float* m, const float* v,
-                const float* __restrict__ g, float* p_out, float* m_out,
+    adam_kernel(const TP* p, const float* m, const float* v,
+                const float* __restrict__ g, TP* p_out, float* m_out,
                 float* v_out, float* __restrict__ found, int64_t n,
-                AdamScalars s, const float* __restrict__ inv_ptr) {
+                AdamScalars s, const float* __restrict__ inv_ptr, SrKey key) {
   if (inv_ptr != nullptr) s.inv_scale = *inv_ptr;
   bool bad = false;
   const int64_t n4 = n / 4;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t start = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   for (int64_t i = start; i < n4; i += stride) {
-    const float4 pv = reinterpret_cast<const float4*>(p)[i];
+    const float4 pv = load4(p, i * 4);
     float4 mv = reinterpret_cast<const float4*>(m)[i];
     float4 vv = reinterpret_cast<const float4*>(v)[i];
     const float4 gv = reinterpret_cast<const float4*>(g)[i];
@@ -78,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
     po.y = adam_one(pv.y, mv.y, vv.y, gv.y, s);
     po.z = adam_one(pv.z, mv.z, vv.z, gv.z, s);
     po.w = adam_one(pv.w, mv.w, vv.w, gv.w, s);
-    reinterpret_cast<float4*>(p_out)[i] = po;
+    store4(p_out, i * 4, po, key);
     reinterpret_cast<float4*>(m_out)[i] = mv;
     reinterpret_cast<float4*>(v_out)[i] = vv;
   }
@@ -86,7 +102,7 @@ __global__ void __launch_bounds__(kThreads)
     float mi = m[i], vi = v[i];
     const float gi = g[i];
     bad |= !isfinite(gi);
-    p_out[i] = adam_one(p[i], mi, vi, gi, s);
+    store1(p_out, i, adam_one(load1(p, i), mi, vi, gi, s), key);
     m_out[i] = mi;
     v_out[i] = vi;
   }
@@ -100,13 +116,16 @@ __global__ void __launch_bounds__(kThreads)
 // the caller zeroed. adam_w: 1 = decoupled weight decay (AdamW), 0 = L2.
 // inv_ptr: the gradient's multiplier in device memory (a scale that
 // folds in a clip factor computed on the device), or null to use
-// inv_scale. Returns cudaGetLastError() after the launch.
+// inv_scale. p_bf16: 1 when p and p_out are bf16 (a bf16 master): p' is
+// then written with stochastic rounding, the threefry stream of the key
+// (k0, k1) over the element index. Returns cudaGetLastError() after the
+// launch.
 extern "C" int apex_adam(const void* p, const void* m, const void* v,
                          const void* g, void* p_out, void* m_out, void* v_out,
                          void* found, int64_t n, float lr, float b1, float b2,
                          float eps, float wd, float bc1, float bc2,
                          float inv_scale, const void* inv_ptr, int adam_w,
-                         void* stream) {
+                         int p_bf16, uint32_t k0, uint32_t k1, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
@@ -114,12 +133,24 @@ extern "C" int apex_adam(const void* p, const void* m, const void* v,
   const int64_t want = (n / 4 + kThreads - 1) / kThreads + 1;
   const int grid = (int)(want < (int64_t)sms * 8 ? want : (int64_t)sms * 8);
   AdamScalars s{lr, b1, b2, eps, wd, bc1, bc2, inv_scale, adam_w != 0};
-  adam_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(m),
-      static_cast<const float*>(v), static_cast<const float*>(g),
-      static_cast<float*>(p_out), static_cast<float*>(m_out),
-      static_cast<float*>(v_out), static_cast<float*>(found), n, s,
-      static_cast<const float*>(inv_ptr));
+  const SrKey key{k0, k1, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* fm = static_cast<const float*>(m);
+  const float* fv = static_cast<const float*>(v);
+  const float* fg = static_cast<const float*>(g);
+  float* fm_out = static_cast<float*>(m_out);
+  float* fv_out = static_cast<float*>(v_out);
+  float* ff = static_cast<float*>(found);
+  const float* inv = static_cast<const float*>(inv_ptr);
+  if (p_bf16)
+    adam_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(p), fm, fv, fg,
+        static_cast<__nv_bfloat16*>(p_out), fm_out, fv_out, ff, n, s, inv,
+        key);
+  else
+    adam_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(p), fm, fv, fg, static_cast<float*>(p_out),
+        fm_out, fv_out, ff, n, s, inv, key);
   return (int)cudaGetLastError();
 }
 

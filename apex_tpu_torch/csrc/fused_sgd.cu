@@ -34,6 +34,12 @@
 // HBM3 at 700 W (chip_smoke.py): 0.184 ms (SGD) and 0.182 ms (LARS),
 // 84% of the bound.
 //
+// A bf16 master (the reference's `sr_outputs=(0,)`, ops.py:254, :502): p
+// read as bf16, the same fp32 arithmetic, p' written with stochastic
+// rounding (csrc/sr_common.cuh: the threefry stream of the engine's xla
+// path, keyed on the host); mom stays fp32. 16 bytes an element and ~84
+// integer operations of the hash.
+//
 // Design: a grid-stride loop of 16-byte (float4) loads and stores, each
 // element read and written once; LARS reads its leaf's ratio once per
 // float4 (a 2048-element subtile never splits a float4). A ragged tail
@@ -45,6 +51,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sr_common.cuh"
 
 namespace {
 
@@ -89,11 +97,12 @@ __device__ __forceinline__ bool finite4(const float4& v) {
   return isfinite(v.x) && isfinite(v.y) && isfinite(v.z) && isfinite(v.w);
 }
 
+template <typename TP>
 __global__ void __launch_bounds__(kThreads)
-    sgd_kernel(const float* p, const float* mom, const float* __restrict__ g,
-               float* p_out, float* mom_out, float* __restrict__ found,
+    sgd_kernel(const TP* p, const float* mom, const float* __restrict__ g,
+               TP* p_out, float* mom_out, float* __restrict__ found,
                int64_t n, SgdScalars s, const float* __restrict__ scale_ptr,
-               const float* __restrict__ first_ptr) {
+               const float* __restrict__ first_ptr, SrKey key) {
   if (scale_ptr != nullptr) s.scale = *scale_ptr;
   if (first_ptr != nullptr) s.first = *first_ptr > 0.5f;
   bool bad = false;
@@ -101,7 +110,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   const int64_t start = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   for (int64_t i = start; i < n4; i += stride) {
-    const float4 pv = reinterpret_cast<const float4*>(p)[i];
+    const float4 pv = load4(p, i * 4);
     float4 mv = reinterpret_cast<const float4*>(mom)[i];
     const float4 gv = reinterpret_cast<const float4*>(g)[i];
     bad |= !finite4(gv);
@@ -110,25 +119,27 @@ __global__ void __launch_bounds__(kThreads)
     po.y = sgd_one(pv.y, mv.y, gv.y, s);
     po.z = sgd_one(pv.z, mv.z, gv.z, s);
     po.w = sgd_one(pv.w, mv.w, gv.w, s);
-    reinterpret_cast<float4*>(p_out)[i] = po;
+    store4(p_out, i * 4, po, key);
     reinterpret_cast<float4*>(mom_out)[i] = mv;
   }
   for (int64_t i = n4 * 4 + start; i < n; i += stride) {
     float mi = mom[i];
     const float gi = g[i];
     bad |= !isfinite(gi);
-    p_out[i] = sgd_one(p[i], mi, gi, s);
+    store1(p_out, i, sgd_one(load1(p, i), mi, gi, s), key);
     mom_out[i] = mi;
   }
   if (bad) *found = 1.0f;
 }
 
+template <typename TP>
 __global__ void __launch_bounds__(kThreads)
-    lars_kernel(const float* p, const float* mom, const float* __restrict__ g,
-                float* p_out, float* mom_out, float* __restrict__ found,
+    lars_kernel(const TP* p, const float* mom, const float* __restrict__ g,
+                TP* p_out, float* mom_out, float* __restrict__ found,
                 const float* __restrict__ ratio,
                 const int* __restrict__ leaf_of_subtile, int64_t n,
-                LarsScalars s, const float* __restrict__ first_ptr) {
+                LarsScalars s, const float* __restrict__ first_ptr,
+                SrKey key) {
   if (first_ptr != nullptr) s.first = *first_ptr > 0.5f;
   bool bad = false;
   const int64_t n4 = n / 4;
@@ -136,7 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t start = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   for (int64_t i = start; i < n4; i += stride) {
     const float r = ratio[leaf_of_subtile[(i * 4) / kSubtile]];
-    const float4 pv = reinterpret_cast<const float4*>(p)[i];
+    const float4 pv = load4(p, i * 4);
     float4 mv = reinterpret_cast<const float4*>(mom)[i];
     const float4 gv = reinterpret_cast<const float4*>(g)[i];
     bad |= !finite4(gv);
@@ -145,15 +156,17 @@ __global__ void __launch_bounds__(kThreads)
     po.y = lars_one(pv.y, mv.y, gv.y, r, s);
     po.z = lars_one(pv.z, mv.z, gv.z, r, s);
     po.w = lars_one(pv.w, mv.w, gv.w, r, s);
-    reinterpret_cast<float4*>(p_out)[i] = po;
+    store4(p_out, i * 4, po, key);
     reinterpret_cast<float4*>(mom_out)[i] = mv;
   }
   for (int64_t i = n4 * 4 + start; i < n; i += stride) {
     float mi = mom[i];
     const float gi = g[i];
     bad |= !isfinite(gi);
-    p_out[i] = lars_one(p[i], mi, gi, ratio[leaf_of_subtile[i / kSubtile]],
-                        s);
+    store1(p_out, i,
+           lars_one(load1(p, i), mi, gi, ratio[leaf_of_subtile[i / kSubtile]],
+                    s),
+           key);
     mom_out[i] = mi;
   }
   if (bad) *found = 1.0f;
@@ -176,24 +189,38 @@ int grid_for(Kernel kernel, int64_t n) {
 // its input (in place) or a separate buffer. found: one fp32 the caller
 // zeroed. scale_ptr / first_ptr: the gradient's multiplier and the
 // first-run flag (> 0.5: seed the momentum with the gradient) in device
-// memory, or null to use scale / first. Returns cudaGetLastError() after
-// the launch.
+// memory, or null to use scale / first. p_bf16: 1 when p and p_out are
+// bf16 (a bf16 master), p' then written with stochastic rounding, the
+// threefry stream of the key (k0, k1) over the element index. Returns
+// cudaGetLastError() after the launch.
 extern "C" int apex_sgd(const void* p, const void* mom, const void* g,
                         void* p_out, void* mom_out, void* found, int64_t n,
                         float lr, float momentum, float dampening, float wd,
                         float scale, const void* scale_ptr, int first,
                         const void* first_ptr, int nesterov,
-                        int wd_after_momentum, void* stream) {
+                        int wd_after_momentum, int p_bf16, uint32_t k0,
+                        uint32_t k1, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   SgdScalars s{lr, momentum, dampening, wd, scale, first != 0, nesterov != 0,
                wd_after_momentum != 0};
-  sgd_kernel<<<grid_for(sgd_kernel, n), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(mom),
-      static_cast<const float*>(g), static_cast<float*>(p_out),
-      static_cast<float*>(mom_out), static_cast<float*>(found), n, s,
-      static_cast<const float*>(scale_ptr),
-      static_cast<const float*>(first_ptr));
+  const SrKey key{k0, k1, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* fmom = static_cast<const float*>(mom);
+  const float* fg = static_cast<const float*>(g);
+  float* fmom_out = static_cast<float*>(mom_out);
+  float* ff = static_cast<float*>(found);
+  const float* sp = static_cast<const float*>(scale_ptr);
+  const float* fp = static_cast<const float*>(first_ptr);
+  if (p_bf16)
+    sgd_kernel<__nv_bfloat16>
+        <<<grid_for(sgd_kernel<__nv_bfloat16>, n), kThreads, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(p), fmom, fg,
+            static_cast<__nv_bfloat16*>(p_out), fmom_out, ff, n, s, sp, fp,
+            key);
+  else
+    sgd_kernel<float><<<grid_for(sgd_kernel<float>, n), kThreads, 0, st>>>(
+        static_cast<const float*>(p), fmom, fg, static_cast<float*>(p_out),
+        fmom_out, ff, n, s, sp, fp, key);
   return (int)cudaGetLastError();
 }
 
@@ -203,19 +230,31 @@ extern "C" int apex_lars(const void* p, const void* mom, const void* g,
                          void* p_out, void* mom_out, void* found,
                          const void* ratio, const void* leaf_of_subtile,
                          int64_t n, float lr, float momentum, float wd,
-                         int first, const void* first_ptr, void* stream) {
+                         int first, const void* first_ptr, int p_bf16,
+                         uint32_t k0, uint32_t k1, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   if (ratio == nullptr || leaf_of_subtile == nullptr)
     return (int)cudaErrorInvalidValue;
   LarsScalars s{lr, momentum, wd, first != 0};
-  lars_kernel<<<grid_for(lars_kernel, n), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(p), static_cast<const float*>(mom),
-      static_cast<const float*>(g), static_cast<float*>(p_out),
-      static_cast<float*>(mom_out), static_cast<float*>(found),
-      static_cast<const float*>(ratio),
-      static_cast<const int*>(leaf_of_subtile), n, s,
-      static_cast<const float*>(first_ptr));
+  const SrKey key{k0, k1, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* fmom = static_cast<const float*>(mom);
+  const float* fg = static_cast<const float*>(g);
+  float* fmom_out = static_cast<float*>(mom_out);
+  float* ff = static_cast<float*>(found);
+  const float* fr = static_cast<const float*>(ratio);
+  const int* ids = static_cast<const int*>(leaf_of_subtile);
+  const float* fp = static_cast<const float*>(first_ptr);
+  if (p_bf16)
+    lars_kernel<__nv_bfloat16>
+        <<<grid_for(lars_kernel<__nv_bfloat16>, n), kThreads, 0, st>>>(
+            static_cast<const __nv_bfloat16*>(p), fmom, fg,
+            static_cast<__nv_bfloat16*>(p_out), fmom_out, ff, fr, ids, n, s,
+            fp, key);
+  else
+    lars_kernel<float><<<grid_for(lars_kernel<float>, n), kThreads, 0, st>>>(
+        static_cast<const float*>(p), fmom, fg, static_cast<float*>(p_out),
+        fmom_out, ff, fr, ids, n, s, fp, key);
   return (int)cudaGetLastError();
 }
 

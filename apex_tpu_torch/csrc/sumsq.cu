@@ -1,4 +1,4 @@
-// Per-tile sums of squares of a flat fp32 buffer for Hopper (sm_90a).
+// Per-tile sums of squares of a flat fp32 or bf16 buffer for Hopper (sm_90a).
 //
 // Replaces: apex_tpu/multi_tensor/engine.py `fused_sumsq_partials`, both
 // of its Pallas kernels: `kernel` (:519, `pallas_call` :528), sum of x^2
@@ -9,6 +9,9 @@
 // reference returns one partial per tile of `tile_rows * 128` elements;
 // the finishing sum (a global norm or a per-tensor segment sum) is plain
 // PyTorch, as the reference leaves it to XLA.
+//
+// A bf16 buffer (a bf16 master's ||p||, which LARS reads) is read as
+// fp32, as the reference's `astype(float32)` reads it.
 //
 // Bound on the card: memory. It reads each element once (4 bytes) and
 // does two fp32 operations on it; GPT-2 345M's flat gradient (355 M
@@ -24,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sr_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -33,25 +38,28 @@ __device__ __forceinline__ float sq(float x, float s, bool scaled) {
   return __fmul_rn(y, y);
 }
 
+// T: the buffer's type, float or __nv_bfloat16 (a bf16 master's
+// ||p||, read as fp32)
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    sumsq_kernel(const float* __restrict__ x, float* __restrict__ partials,
+    sumsq_kernel(const T* __restrict__ x, float* __restrict__ partials,
                  int64_t n, int64_t tile, const float* __restrict__ scale) {
   const bool scaled = scale != nullptr;
   const float s = scaled ? *scale : 1.0f;
   const int64_t start = (int64_t)blockIdx.x * tile;
   const int64_t lim = (n - start < tile) ? n - start : tile;
-  const float* base = x + start;
+  const T* base = x + start;
   float acc = 0.0f;
   const int64_t nv = lim / 4;
   for (int64_t i = threadIdx.x; i < nv; i += kThreads) {
-    const float4 v = reinterpret_cast<const float4*>(base)[i];
+    const float4 v = load4(base, i * 4);
     acc = __fadd_rn(acc, sq(v.x, s, scaled));
     acc = __fadd_rn(acc, sq(v.y, s, scaled));
     acc = __fadd_rn(acc, sq(v.z, s, scaled));
     acc = __fadd_rn(acc, sq(v.w, s, scaled));
   }
   for (int64_t i = nv * 4 + threadIdx.x; i < lim; i += kThreads)
-    acc = __fadd_rn(acc, sq(base[i], s, scaled));
+    acc = __fadd_rn(acc, sq(load1(base, i), s, scaled));
   for (int off = 16; off > 0; off >>= 1)
     acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
   __shared__ float warp_sums[kThreads / 32];
@@ -67,18 +75,26 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// x: n fp32, 16-byte aligned; partials: ceil(n / tile) fp32; tile: a
-// multiple of 4. scale: one fp32 in device memory, or null for no scale.
+// x: n elements of dtype (0 fp32, 1 bf16), 16-byte aligned; partials:
+// ceil(n / tile) fp32; tile: a multiple of 4 (so every tile's 4-element
+// loads stay aligned for either dtype). scale: one fp32 in device memory, or null for no scale.
 // Returns cudaGetLastError() after the launch.
 extern "C" int apex_sumsq(const void* x, void* partials, int64_t n,
-                          int64_t tile, const void* scale, void* stream) {
+                          int64_t tile, const void* scale, int dtype,
+                          void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const int64_t tiles = (n + tile - 1) / tile;
-  if (tiles > 0x7fffffff || tile <= 0 || tile % 4) return (int)cudaErrorInvalidValue;
-  sumsq_kernel<<<(unsigned)tiles, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(partials), n, tile,
-      static_cast<const float*>(scale));
+  if (tiles > 0x7fffffff || tile <= 0 || tile % 4 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(partials);
+  const float* sc = static_cast<const float*>(scale);
+  if (dtype == 1)
+    sumsq_kernel<__nv_bfloat16><<<(unsigned)tiles, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), out, n, tile, sc);
+  else
+    sumsq_kernel<float><<<(unsigned)tiles, kThreads, 0, st>>>(
+        static_cast<const float*>(x), out, n, tile, sc);
   return (int)cudaGetLastError();
 }
 

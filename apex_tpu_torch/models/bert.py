@@ -75,6 +75,9 @@ class BertConfig:
     num_tokentypes: int = 2
     add_binary_head: bool = True
     dtype: torch.dtype = torch.bfloat16
+    # the linears' and embeddings' parameters; the LayerNorms' stay fp32
+    # as the reference's (its FusedLayerNorm takes no param_dtype): a bf16
+    # master casts the whole model (``model.bfloat16()``)
     param_dtype: torch.dtype = torch.float32
     attention_backend: str = "softmax"
     attention_dropout: float = 0.0
@@ -174,10 +177,10 @@ class BertLayer(nn.Module):
         h = cfg.hidden_size
         eps = cfg.layernorm_epsilon
         self.input_norm = FusedLayerNorm(h, eps, device=device,
-                                         dtype=cfg.param_dtype)
+                                         dtype=torch.float32)
         self.attention = BertParallelAttention(cfg, device=device)
         self.post_norm = FusedLayerNorm(h, eps, device=device,
-                                        dtype=cfg.param_dtype)
+                                        dtype=torch.float32)
         self.fc1 = ColumnParallelLinear(h, cfg.ffn, dtype=cfg.dtype,
                                         param_dtype=cfg.param_dtype,
                                         device=device)
@@ -228,7 +231,7 @@ class BertLMHead(nn.Module):
         self.dense_bias = nn.Parameter(torch.zeros(
             h, dtype=cfg.param_dtype, device=device))
         self.norm = FusedLayerNorm(h, cfg.layernorm_epsilon, device=device,
-                                   dtype=cfg.param_dtype)
+                                   dtype=torch.float32)
         self.bias = nn.Parameter(torch.zeros(
             cfg.vocab_size, dtype=cfg.param_dtype, device=device))
 
@@ -267,7 +270,7 @@ class BertModel(nn.Module):
         self.layers = nn.ModuleList(
             [BertLayer(cfg, device="cpu") for _ in range(cfg.num_layers)])
         self.final_norm = FusedLayerNorm(h, cfg.layernorm_epsilon,
-                                         device="cpu", dtype=cfg.param_dtype)
+                                         device="cpu", dtype=torch.float32)
         if cfg.add_binary_head:
             self.pooler = BertPooler(cfg, device="cpu")
             self.binary_weight = nn.Parameter(torch.empty(

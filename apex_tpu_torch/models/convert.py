@@ -242,8 +242,9 @@ def load_jax_opt_state(state: FlatOptState,
 
     ``opt_state_np`` holds ``"master"`` and each flat slot, each the
     reference's ``FlatOptState`` buffer unpacked through its space
-    (``space.unpack(buf, dtype="buffer")``: the param tree with fp32
-    numpy leaves), every 0-d slot as a number, every per-leaf slot (one
+    (``space.unpack(buf, dtype="buffer")``: the param tree with numpy
+    leaves of the buffer's dtype; a bf16 master's cross as bf16 or their
+    uint16 bits, into the port's bf16 master bit for bit), every 0-d slot as a number, every per-leaf slot (one
     value a leaf, ``(num_leaves,)``) as the param tree with that value at
     each leaf (``space.treedef.unflatten(list(v))``), and ``"count"``.
     The two flat layouts order (and, segmented, pad) their leaves

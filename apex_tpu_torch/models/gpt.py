@@ -83,6 +83,9 @@ class GPTConfig:
     attention_window: Optional[int] = None
     ffn_hidden_size: Optional[int] = None   # default 4*hidden
     dtype: torch.dtype = torch.bfloat16
+    # the linears' and embeddings' parameters; the LayerNorms' stay fp32
+    # as the reference's (its FusedLayerNorm takes no param_dtype): a bf16
+    # master casts the whole model (``model.bfloat16()``)
     param_dtype: torch.dtype = torch.float32
     attention_dropout: float = 0.0
     hidden_dropout: float = 0.0
@@ -299,10 +302,10 @@ class GPTLayer(nn.Module):
         super().__init__()
         cfg = config
         self.input_norm = FusedLayerNorm(cfg.hidden_size, device=device,
-                                         dtype=cfg.param_dtype)
+                                         dtype=torch.float32)
         self.attention = ParallelAttention(cfg, device=device)
         self.post_norm = FusedLayerNorm(cfg.hidden_size, device=device,
-                                        dtype=cfg.param_dtype)
+                                        dtype=torch.float32)
         self.mlp = ParallelMLP(cfg, device=device)
 
     def forward(self, x, *, kv_ctx=None, return_kv=False, ops=KERNEL_OPS,
@@ -342,7 +345,7 @@ class GPTModel(nn.Module):
         self.layers = nn.ModuleList(
             [GPTLayer(cfg, device="cpu") for _ in range(cfg.num_layers)])
         self.final_norm = FusedLayerNorm(cfg.hidden_size, device="cpu",
-                                         dtype=cfg.param_dtype)
+                                         dtype=torch.float32)
         with torch.no_grad():
             for name, p in self.named_parameters():
                 if name.endswith("norm.weight"):

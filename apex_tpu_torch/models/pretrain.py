@@ -5,7 +5,7 @@ Counterpart of ``apex_tpu/models/pretrain.py`` (``init_gpt_pretrain_params``
 :32, ``make_gpt_pretrain_step`` :42) and of the step it builds on one
 device, ``apex_tpu/mesh/mesh.py`` ``MeshTrainStep`` (:270) at the
 identity plan: the loss's value and its gradient with respect to the
-flat fp32 master, then ``opt.step_flat``. The loop reads as the
+flat master, then ``opt.step_flat``. The loop reads as the
 reference's::
 
     model = init_gpt_pretrain_params(cfg, generator)
@@ -45,9 +45,14 @@ dynamic loss scaler::
                                      scaler_state=amp_state.scalers[0])
 
 The model's parameters are bound as views into the optimizer's flat
-master and their ``.grad`` into one flat fp32 gradient buffer
-(``FlatSpace.bind``), whatever the master's layout: the plain one, or
-FusedLAMB's segmented one, whose offsets differ. The backward pass
+master and their ``.grad`` into one flat gradient buffer of the
+master's dtype (``FlatSpace.bind``), whatever the master's layout: the
+plain one, or FusedLAMB's segmented one, whose offsets differ. A bf16
+master (``master_dtype=torch.bfloat16, stochastic_rounding=True``) takes
+a model cast to bf16 (``model.bfloat16()``): its gradient buffer is
+bf16 as PyTorch keeps a ``.grad`` in its parameter's dtype (the
+reference's ``jax.grad`` of a bf16 master is bf16 too, ``pretrain.py``
+:136-137), and ``step_flat`` reads it as fp32. The backward pass
 accumulates straight into the flat gradient and the in-place optimizer
 sweep is the weight update. On CUDA the step runs the LayerNorm and
 flash-attention kernels forward and backward and the optimizer's
@@ -164,7 +169,8 @@ class PretrainStep:
 
     @property
     def grad(self) -> Optional[torch.Tensor]:
-        """The flat fp32 gradient of the last :meth:`backward`."""
+        """The flat gradient of the last :meth:`backward`, in the
+        master's dtype."""
         return self._grad
 
     def step(self, state: FlatOptState, *batch,

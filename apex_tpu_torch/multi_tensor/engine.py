@@ -22,12 +22,24 @@ kernels; on CUDA the partials come one value a 2048-element subtile,
 shaped ``(num_tiles, sub, 1)`` (the plain version's 128 lanes are summed
 already — every consumer sums the lanes first). A scalar or per-tensor
 value that is a tensor on the card stays there: the kernel reads it
-through a pointer, so no step waits on a host read. Stochastic rounding
-(``sr_outputs``) raises everywhere: the reference's plain path draws
-``jax.random`` threefry bits, which the port does not reproduce yet.
+through a pointer, so no step waits on a host read.
+
+Stochastic rounding (``sr_outputs``, ``sr_seed``) writes a bf16 output
+with E[result] equal to its fp32 value: 16 random bits added below the
+bf16 mantissa boundary, then truncated (:func:`stochastic_round_cast`).
+The bits are the reference's xla/interpret stream, ``jax.random.bits``
+of ``fold_in(PRNGKey(sr_seed), j)`` over the element's flat index for
+output ``j`` (``apex_tpu_torch.random``), bitwise on both paths: the
+plain path casts the fp32 output, the kernels hash each element in their
+epilogue (``csrc/sr_common.cuh``) with the key's two words computed on
+the host. The optimizers' functors take SR on output 0, p'; the
+reference's compiled-TPU kernels draw the TPU's hardware generator,
+which no other device reproduces.
 
 ``fused_sumsq_partials`` (the reference's kernels #7 and #8) runs
-``csrc/sumsq.cu`` on CUDA tensors and its plain version on CPU tensors.
+``csrc/sumsq.cu`` on CUDA tensors (fp32 or bf16) and its plain version on
+CPU tensors; ``stochastic_round_cast`` runs ``csrc/stochastic_round.cu``
+on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ import torch
 
 from apex_tpu_torch import _build
 from apex_tpu_torch._backend import check_kernel_input, uses_kernel
+from apex_tpu_torch.random import M32, bits as threefry_bits, threefry2x32
 
 LANES = 128
 DEFAULT_TILE_ROWS = 512
@@ -48,6 +61,7 @@ PER_TENSOR_TILE_ROWS = 16
 
 SUMSQ_KERNEL = "sumsq"
 SUMSQ_SCALED_KERNEL = "sumsq_scaled"
+SR_CAST_KERNEL = "stochastic_round"
 
 # functor -> its CUDA launcher; see register_kernel
 _KERNELS: Dict[Callable, Callable] = {}
@@ -55,15 +69,17 @@ _KERNELS: Dict[Callable, Callable] = {}
 
 def register_kernel(fn: Callable, launcher: Callable) -> None:
     """Give functor ``fn`` a CUDA kernel. ``launcher(inputs, outputs,
-    scalars, found, check_finite, per_tensor, tile_ids, sumsq)`` gets
+    scalars, found, check_finite, per_tensor, tile_ids, sumsq, sr)`` gets
     the input buffers, the output buffers (an aliased output is its
     input), the scalars (:func:`kernel_scalar`: Python floats rounded to
     fp32, or 0-d fp32 tensors on the card), a zeroed fp32 ``found``, the
     per-tensor values as fp32 tensors on the card, the int32 subtile ->
     leaf map on the card (or None), and ``sumsq``, a list of
     ``(kind, idx, partials)`` with one fp32 buffer of ``ceil(n / 2048)``
-    or more elements per requested partial. It launches the kernel or
-    raises on what the kernel does not take."""
+    or more elements per requested partial, and ``sr``: None, or the
+    threefry key words ``(k0, k1)`` of output 0's stochastic rounding
+    (:func:`sr_key_words`; output 0 is then bf16). It launches the
+    kernel or raises on what the kernel does not take."""
     _KERNELS[fn] = launcher
 
 
@@ -82,6 +98,18 @@ def kernel_scalar(s, device: torch.device):
     return float(np.float32(float(s)))
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sqrt`` rounded correctly, as the kernels' ``__fsqrt_rn``
+    and the reference's XLA sqrt are. PyTorch's fp32 sqrt on the CPU is
+    not: its vectorized kernel is an ulp off on some elements, and its
+    first call in a process has returned one worker thread's chunk of a
+    large tensor far off. So an fp32 CPU tensor takes the root in fp64
+    and rounds once, which is exact (53 >= 2 * 24 + 2 bits)."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return x.double().sqrt().float()
+    return torch.sqrt(x)
+
+
 def scalar_pointer(s) -> Tuple[float, Optional[int]]:
     """``(value, pointer)`` of a :func:`kernel_scalar` for a C launcher:
     a device scalar passes its address (and 0.0), a host one its value
@@ -89,6 +117,73 @@ def scalar_pointer(s) -> Tuple[float, Optional[int]]:
     if isinstance(s, torch.Tensor):
         return 0.0, s.data_ptr()
     return s, None
+
+
+def sr_key_words(seed, salt: int = 0) -> Tuple[int, int]:
+    """The two uint32 words of ``fold_in(PRNGKey(seed), salt)``, the key
+    of a stochastic-rounding stream (the reference's
+    ``stochastic_round_cast``, which reads an int32 ``seed`` as uint32),
+    computed on the host."""
+    return threefry2x32(0, int(seed) & M32, 0, int(salt) & M32)
+
+
+def sr_round_bits(x: torch.Tensor, rbits: torch.Tensor) -> torch.Tensor:
+    """``x`` (fp32) to bf16 by adding the low 16 bits of ``rbits`` (uint32
+    values in an int64 tensor of x's shape) and truncating; non-finite
+    values take a nearest cast. The plain version of
+    ``csrc/sr_common.cuh`` ``sr_to_bf16``."""
+    xf = x.float()
+    xi = xf.view(torch.int32).long() & M32
+    t = (xi + (rbits & 0xFFFF)) & 0xFFFF0000
+    trunc = torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)
+    return torch.where(torch.isfinite(xf), trunc.view(torch.float32),
+                       xf).to(torch.bfloat16)
+
+
+def murmur_bits(seed, idx: torch.Tensor) -> torch.Tensor:
+    """The segment kernel's counter hash (the reference's
+    ``segmented.py`` :244-255, the murmur3 finalizer) of the flat indices
+    ``idx`` (int64) under ``seed``, as uint32 values in int64: the index
+    wraps at 2^32 as the reference's uint32 iota does."""
+    h = (idx & M32) ^ ((int(seed) * 0x9E3779B9) & M32)
+    h = ((h ^ (h >> 16)) * 0x85EBCA6B) & M32
+    h = ((h ^ (h >> 13)) * 0xC2B2AE35) & M32
+    return h ^ (h >> 16)
+
+
+def stochastic_round_cast(x: torch.Tensor, seed, salt: int = 0, *,
+                          plain: bool = False) -> torch.Tensor:
+    """fp32 -> bf16 stochastic rounding (the reference's
+    ``stochastic_round_cast``, engine.py:48-67): the threefry bits of
+    ``fold_in(PRNGKey(seed), salt)`` over each element's flat index,
+    their low 16 added below the bf16 mantissa boundary, then truncated;
+    E[result] is x. Non-finite values take a nearest cast. On a CUDA
+    tensor this launches ``csrc/stochastic_round.cu`` (counted as
+    ``stochastic_round``); on a CPU tensor, or with ``plain=True``, the
+    plain version."""
+    if not plain and uses_kernel(x):
+        return _sr_cast_cuda(x, sr_key_words(seed, salt))
+    k = sr_key_words(seed, salt)
+    return sr_round_bits(x, threefry_bits(k, x.shape, x.device))
+
+
+def _sr_cast_cuda(x: torch.Tensor, key: Tuple[int, int]) -> torch.Tensor:
+    dev = x.device
+    x = x.contiguous()
+    check_kernel_input("x", x, (torch.float32,), dev)
+    y = torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+    P, L, U = _build.P, _build.L, _build.U
+    lib = _build.library("stochastic_round", "apex_sr_cast",
+                         (P, P, L, U, U, P), "apex_sr_cast_error_string")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.apex_sr_cast(x.data_ptr(), y.data_ptr(), x.numel(), *key,
+                               stream)
+    if err:
+        raise RuntimeError(f"{SR_CAST_KERNEL}: CUDA error {err} at launch: "
+                           f"{lib.apex_sr_cast_error_string(err).decode()}")
+    _build.count_launch(SR_CAST_KERNEL)
+    return y
 
 
 def _pad_to(buf: torch.Tensor, n: int) -> torch.Tensor:
@@ -125,17 +220,30 @@ def fused_elementwise(
     the outputs (``(num_tiles, sub, 1)`` on CUDA, see the module
     docstring). ``kernel`` defaults to whether the buffers lie on a
     CUDA device; ``kernel=False`` runs the plain version on any device
-    (the yardstick the kernels are held against on the card)."""
+    (the yardstick the kernels are held against on the card).
+
+    ``sr_outputs`` lists outputs written with stochastic rounding to
+    bf16 (their ``out_dtypes`` entry must be bf16, and ``sr_seed`` an
+    integer, the reference's int32 seed), output ``j`` from the stream
+    of ``fold_in(PRNGKey(sr_seed), j)``; the kernels take it on output 0
+    (p') only."""
     n = inputs[0].shape[0]
     for b in inputs:
         if b.ndim != 1 or b.shape[0] != n:
             raise ValueError("flat buffers must be same-length 1-D")
     if out_dtypes is None:
         out_dtypes = [inputs[0].dtype] * num_outputs
-    if sr_outputs or sr_seed is not None:
-        raise NotImplementedError(
-            "stochastic rounding (sr_outputs) is not ported yet: the "
-            "reference's plain path draws jax.random threefry bits")
+    sr_outputs = tuple(sr_outputs)
+    if sr_outputs:
+        if sr_seed is None:
+            raise ValueError("sr_outputs requires sr_seed")
+        for j in sr_outputs:
+            if not 0 <= j < num_outputs:
+                raise ValueError(f"sr output {j} out of range")
+            if out_dtypes[j] != torch.bfloat16:
+                raise ValueError(
+                    f"stochastic rounding targets bfloat16 outputs; "
+                    f"output {j} is {out_dtypes[j]}")
     tile_rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
     for kind, idx in sumsq_subtiles:
         if kind not in ("in", "out") or not (
@@ -160,13 +268,18 @@ def fused_elementwise(
     if kernel is None:
         kernel = uses_kernel(inputs[0])
     if kernel:
-        return _fused_elementwise_cuda(fn, inputs, scalars, num_outputs,
-                                       out_dtypes, check_finite, tile_ids,
-                                       per_tensor, aliases, sumsq_subtiles,
-                                       tile_rows)
+        if sr_outputs and sr_outputs != (0,):
+            raise NotImplementedError(
+                f"the kernels write output 0 (p') with stochastic rounding; "
+                f"sr_outputs={sr_outputs} is not built")
+        return _fused_elementwise_cuda(
+            fn, inputs, scalars, num_outputs, out_dtypes, check_finite,
+            tile_ids, per_tensor, aliases, sumsq_subtiles, tile_rows,
+            sr_key_words(sr_seed, 0) if sr_outputs else None)
     outs, found = _fused_elementwise_torch(
         fn, inputs, scalars, num_outputs, out_dtypes, check_finite,
-        tile_ids, per_tensor, tile_rows * LANES, sumsq_subtiles)
+        tile_ids, per_tensor, tile_rows * LANES, sumsq_subtiles, sr_outputs,
+        sr_seed)
     for in_idx, out_idx in aliases.items():
         inputs[in_idx].copy_(outs[out_idx])
         outs[out_idx] = inputs[in_idx]
@@ -175,7 +288,7 @@ def fused_elementwise(
 
 def _fused_elementwise_cuda(fn, inputs, scalars, num_outputs, out_dtypes,
                             check_finite, tile_ids, per_tensor, aliases,
-                            sumsq_subtiles, tile_rows):
+                            sumsq_subtiles, tile_rows, sr):
     launcher = _KERNELS.get(fn)
     if launcher is None:
         raise NotImplementedError(
@@ -211,14 +324,14 @@ def _fused_elementwise_cuda(fn, inputs, scalars, num_outputs, out_dtypes,
         part[n_sub:].zero_()
         sumsq.append((kind, idx, part))
     launcher(list(inputs), outs, vals, found, tuple(check_finite), pt, ids,
-             sumsq)
+             sumsq, sr)
     outs.extend(part.view(num_tiles, sub, 1) for _, _, part in sumsq)
     return outs, found
 
 
 def _fused_elementwise_torch(fn, inputs, scalars, num_outputs, out_dtypes,
                              check_finite, tile_ids, per_tensor, tile,
-                             sumsq_subtiles):
+                             sumsq_subtiles, sr_outputs=(), sr_seed=None):
     """Plain version (the reference's ``_fused_elementwise_xla``)."""
     n = inputs[0].shape[0]
     dev = inputs[0].device
@@ -248,8 +361,10 @@ def _fused_elementwise_torch(fn, inputs, scalars, num_outputs, out_dtypes,
     if len(raw) != num_outputs:
         raise ValueError(f"functor returned {len(raw)} outputs, expected "
                          f"{num_outputs}")
-    outs = [(o.reshape(-1)[:n] if tile_ids is not None else o).to(dt)
-            for o, dt in zip(raw, out_dtypes)]
+    outs = [o.reshape(-1)[:n] if tile_ids is not None else o for o in raw]
+    outs = [stochastic_round_cast(o, sr_seed, j, plain=True)
+            if j in sr_outputs else o.to(dt)
+            for j, (o, dt) in enumerate(zip(outs, out_dtypes))]
     if sumsq_subtiles:
         # the kernel's (num_tiles, sub, LANES) partial layout
         num_tiles = -(-n // tile)
@@ -276,11 +391,12 @@ def fused_sumsq_partials(buf: torch.Tensor, tile_rows: Optional[int] = None,
     65,536-element tile, for a global norm; ``PER_TENSOR_TILE_ROWS`` for
     per-tensor norms, whose tiles never straddle a leaf).
 
+    ``buf`` is fp32 or bf16 (a bf16 master's ``||p||``, read as fp32).
     ``scale`` (a number, or a 0-d tensor that may live on the card)
     multiplies every element before it is squared, in the same read:
     the fused train step's unscale. On CUDA tensors this launches
     ``csrc/sumsq.cu`` (counted as ``sumsq``, or ``sumsq_scaled`` with a
-    scale); on CPU tensors, or with ``plain=True``, the plain version
+    scale, each with ``_bf16`` for a bf16 buffer); on CPU tensors, or with ``plain=True``, the plain version
     (the reference's ``impl="xla"`` branch). The finishing sum is the
     caller's."""
     tile_rows = DEFAULT_TILE_ROWS if tile_rows is None else tile_rows
@@ -300,21 +416,23 @@ def fused_sumsq_partials(buf: torch.Tensor, tile_rows: Optional[int] = None,
 
 def _sumsq_cuda(buf, tile, num_tiles, scale) -> torch.Tensor:
     dev = buf.device
-    check_kernel_input("buf", buf, (torch.float32,), dev)
+    check_kernel_input("buf", buf, (torch.float32, torch.bfloat16), dev)
     out = torch.empty(num_tiles, dtype=torch.float32, device=dev)
     if scale is not None:
         s = kernel_scalar(scale, dev)
         if not isinstance(s, torch.Tensor):     # a fill: no host copy
             s = torch.full((), s, dtype=torch.float32, device=dev)
     P, L = _build.P, _build.L
-    lib = _build.library("sumsq", "apex_sumsq", (P, P, L, L, P, P),
+    lib = _build.library("sumsq", "apex_sumsq", (P, P, L, L, P, _build.I, P),
                          "apex_sumsq_error_string")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.apex_sumsq(buf.data_ptr(), out.data_ptr(), buf.shape[0],
                              tile, None if scale is None else s.data_ptr(),
-                             stream)
+                             int(buf.dtype == torch.bfloat16), stream)
     name = SUMSQ_KERNEL if scale is None else SUMSQ_SCALED_KERNEL
+    if buf.dtype == torch.bfloat16:
+        name += "_bf16"             # counted apart: a bf16 master's ||p||
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} at launch: "
                            f"{lib.apex_sumsq_error_string(err).decode()}")
@@ -323,6 +441,8 @@ def _sumsq_cuda(buf, tile, num_tiles, scale) -> torch.Tensor:
 
 
 __all__ = ["LANES", "DEFAULT_TILE_ROWS", "PER_TENSOR_TILE_ROWS",
-           "SUMSQ_KERNEL", "SUMSQ_SCALED_KERNEL", "fused_elementwise",
-           "fused_sumsq_partials", "kernel_scalar", "register_kernel",
-           "scalar_pointer"]
+           "SR_CAST_KERNEL", "SUMSQ_KERNEL", "SUMSQ_SCALED_KERNEL",
+           "fused_elementwise", "fused_sumsq_partials", "kernel_scalar",
+           "murmur_bits", "register_kernel", "scalar_pointer",
+           "sqrt_rn", "sr_key_words", "sr_round_bits",
+           "stochastic_round_cast"]

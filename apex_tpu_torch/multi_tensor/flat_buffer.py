@@ -10,8 +10,11 @@ name, never index for index.
 
 Where the reference differentiates with respect to the flat master
 (``grad_fn`` over ``unpack``), the port makes each parameter a view
-into the flat fp32 master and each ``.grad`` a view into one flat fp32
-gradient buffer that autograd accumulates into in place
+into the flat master (fp32, or bf16 for a master-free bf16 optimizer)
+and each ``.grad`` a view into one flat gradient buffer of the master's
+dtype (PyTorch keeps a gradient in its parameter's dtype; the
+reference's ``jax.grad`` of a bf16 master is bf16 too) that autograd
+accumulates into in place
 (:meth:`FlatSpace.bind`, :meth:`FlatSpace.leaves`): an in-place update
 of the master is the weight update, and the gradients arrive already
 flat. This is the contiguous-buffer layout of Megatron-LM's optimizer.
@@ -140,21 +143,25 @@ class FlatSpace:
         ``master``, and its ``.grad`` at its view of ``grad``. Autograd
         then accumulates into ``grad`` in place (zero it before each
         backward), and an in-place update of ``master`` updates the
-        module's weights."""
+        module's weights. ``master`` is fp32 or bf16, ``grad`` and every
+        parameter of the master's dtype."""
         params = dict(module.named_parameters())
         if set(params) != set(self.names):
             raise ValueError(
                 "the module's parameters do not match the flat space: "
                 f"missing {sorted(set(self.names) - set(params))}, "
                 f"unexpected {sorted(set(params) - set(self.names))}")
-        if master.dtype != torch.float32 or grad.dtype != torch.float32:
-            raise TypeError("bind needs fp32 master and grad buffers")
+        if master.dtype not in (torch.float32, torch.bfloat16) \
+                or grad.dtype != master.dtype:
+            raise TypeError(
+                f"bind needs an fp32 or bf16 master and a gradient buffer "
+                f"of its dtype; got {master.dtype} and {grad.dtype}")
         for name, off, size, shape in zip(self.names, self.offsets,
                                           self.sizes, self.shapes):
             p = params[name]
-            if p.dtype != torch.float32:
+            if p.dtype != master.dtype:
                 raise TypeError(f"{name} is {p.dtype}; the flat master "
-                                "holds fp32 parameters")
+                                f"holds {master.dtype} parameters")
             p.data = master[off:off + size].view(shape)
             p.grad = grad[off:off + size].view(shape)
 
@@ -162,10 +169,10 @@ class FlatSpace:
         """Differentiate a loss over the named leaves straight into this
         space: the returned ``fn(master, *args, **kwargs)`` calls
         ``loss_fn(leaves, *args, **kwargs)`` on views of ``master`` and
-        returns the flat fp32 gradient (with the loss first when
-        ``with_value``)."""
+        returns the flat gradient in the master's dtype (with the loss
+        first when ``with_value``)."""
         def flat(master, *args, **kwargs):
-            grad = torch.zeros_like(master, dtype=torch.float32)
+            grad = torch.zeros_like(master)
             loss = loss_fn(self.leaves(master, grad), *args, **kwargs)
             loss.backward()
             return (loss.detach(), grad) if with_value else grad
@@ -215,13 +222,15 @@ BLOCK_SMEM_BYTES = 232448
 DEFAULT_SEG_SMEM_BUDGET = CLUSTER_BLOCKS * (BLOCK_SMEM_BYTES - 16384)
 
 
-def segment_smem_bytes(seg_elems: int, max_slots: int, stash_p: bool) -> int:
+def segment_smem_bytes(seg_elems: int, max_slots: int, stash_p: bool,
+                       u_bytes: int = 4) -> int:
     """Shared memory one block of the segment kernel takes: its share of
-    u (and of p with ``stash_p``), the per-slot sums and ratios, and its
+    u (``u_bytes`` an element: 4 for fp32, 2 for a bf16 stash) and of p
+    with ``stash_p`` (fp32), the per-slot sums and ratios, and its
     per-subtile sums (``segment_smem`` in the source)."""
     e = seg_elems // CLUSTER_BLOCKS
-    return 4 * ((2 if stash_p else 1) * e + 4 * max_slots
-                + 3 * (e // DEFAULT_ALIGN))
+    return (u_bytes * e + (4 * e if stash_p else 0)
+            + 4 * (4 * max_slots + 3 * (e // DEFAULT_ALIGN)))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -246,7 +255,7 @@ class SegmentMeta:
     stash_p: bool = True
     u_dtype_name: str = "float32"
     # the index maps on each device (device_maps, device_slot_leaf,
-    # device_large)
+    # device_large, device_large_streams)
     _device: Dict[Any, Any] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
 
@@ -303,6 +312,25 @@ class SegmentMeta:
                     torch.as_tensor(gather).to(dev))
             self._device[key] = maps
         return maps
+
+    def device_large_streams(self, device) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+        """The large leaves' stochastic-rounding streams on ``device``,
+        made once, as ``lamb_stage2_segments`` takes them: one int64 row
+        per segment of ``device_large`` (leaf by leaf), the ordinal of the
+        segment's leaf in ``large`` and that leaf's first element, and the
+        large leaves' indices (``device_large``'s). The step's seed is
+        all that changes from step to step."""
+        dev = torch.device(device)
+        key = ("large_streams", dev)
+        rows = self._device.get(key)
+        if rows is None:
+            rows = [(k, start) for k, (_, start, plen) in enumerate(self.large)
+                    for _ in range(plen // self.seg_elems)]
+            rows = torch.as_tensor(np.asarray(rows, np.int64).reshape(-1, 2)
+                                   ).to(dev)
+            self._device[key] = rows
+        return rows, self.device_large(dev)[1]
 
 
 def default_seg_elems(total_estimate: int, cap: Optional[int] = None,

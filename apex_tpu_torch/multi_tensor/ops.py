@@ -21,7 +21,14 @@ CPU buffers:
   per-tensor norms over ``csrc/sumsq.cu``, then the LARS sweep), both in
   ``csrc/fused_sgd.cu``.
 
-The stochastic-rounding outputs (``sr_seed``) are not ported yet.
+A bf16 master with stochastic rounding: every update takes ``sr_seed``
+(the reference's), and with it p (and p') are bf16: the kernels read p
+as bf16, do the fp32 arithmetic as before and write p' through the
+threefry stream of ``fold_in(PRNGKey(sr_seed), 0)`` over the element
+index (``csrc/sr_common.cuh``; the key's words computed on the host),
+bitwise the plain path's ``stochastic_round_cast``. The slots (m, v, h,
+momentum) stay fp32, as in the reference. LAMB's stage 1 and the norms
+(``per_tensor_l2norm``, the sum-of-squares kernel) read a bf16 p.
 
 Scalars that come from the device (a clip factor from a device norm,
 the trust ratios) stay on the device: the kernels read them through a
@@ -48,7 +55,10 @@ from apex_tpu_torch.multi_tensor.engine import (
     kernel_scalar,
     register_kernel,
     scalar_pointer,
+    sqrt_rn,
+    sr_round_bits,
 )
+from apex_tpu_torch.random import M32, threefry2x32
 from apex_tpu_torch.multi_tensor.flat_buffer import FlatSpace
 
 SCALE_KERNEL = "multi_tensor_scale"
@@ -60,6 +70,20 @@ LAMB_STAGE1_KERNEL = "lamb_stage1"
 LAMB_STAGE2_KERNEL = "lamb_stage2"
 SGD_KERNEL = "fused_sgd"
 LARS_KERNEL = "fused_lars"
+# the bf16-master variants, counted apart: p' written with stochastic
+# rounding (``<kernel>_sr``), and LAMB stage 1 reading a bf16 p
+SR_SUFFIX = "_sr"
+LAMB_STAGE1_BF16_KERNEL = "lamb_stage1_bf16"
+# the leaf streams stage 2's segment list keys in shared memory
+# (csrc/fused_lamb.cu kMaxStreams)
+STAGE2_MAX_STREAMS = 6144
+
+
+def _sr(sr_seed) -> dict:
+    """The engine's stochastic-rounding arguments for output 0 (p')."""
+    if sr_seed is None:
+        return {}
+    return {"sr_outputs": (0,), "sr_seed": sr_seed}
 
 
 def _f32(x) -> torch.Tensor:
@@ -95,6 +119,32 @@ def _host_scalars(name, scalars, allowed_device=()) -> None:
             raise NotImplementedError(
                 f"{name}: scalar {i} lives on the device; the kernel takes "
                 "it by value (only the scales it reads by pointer may)")
+
+
+def _p_dtypes(sr) -> Tuple[torch.dtype, ...]:
+    """The parameter dtype a functor kernel takes: bf16 when it writes p'
+    with stochastic rounding (``sr`` the key words), else fp32."""
+    return (torch.bfloat16,) if sr is not None else (torch.float32,)
+
+
+def _sr_args(sr) -> Tuple[int, int, int]:
+    """``(p_bf16, k0, k1)`` of a launcher: a bf16 p and the key of its
+    stochastic rounding, or fp32 and no key."""
+    return (0, 0, 0) if sr is None else (1, *sr)
+
+
+def sr_variant(kernel: str, sr) -> str:
+    """The counter of ``kernel``'s launch: its own, or with ``sr`` (the
+    key words of a bf16 p' written with stochastic rounding) its SR
+    variant's."""
+    return kernel if sr is None else kernel + SR_SUFFIX
+
+
+def _no_sr(kernel: str, sr) -> None:
+    if sr is not None:
+        raise NotImplementedError(
+            f"{kernel}: the reference writes this functor's outputs without "
+            "stochastic rounding, and so does its kernel")
 
 
 def _launch_error(lib, fn_name: str, kernel: str, err: int) -> None:
@@ -146,7 +196,7 @@ def _scale_axpby_launch(fn_name: str, kernel: str, argtypes, names, bufs,
 
 
 def _scale_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
-                  tile_ids, sumsq) -> None:
+                  tile_ids, sumsq, sr) -> None:
     """Launch ``csrc/scale_axpby.cu`` ``apex_scale`` for :func:`_scale_fn`.
     The kernel sets ``found`` over its output after the cast
     (:func:`multi_tensor_scale`'s convention), so it takes no input
@@ -156,6 +206,7 @@ def _scale_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
             "the scale kernel flags its outputs and takes no input check, "
             f"per-tensor scalars or sumsq partials; got check_finite="
             f"{check_finite}")
+    _no_sr(SCALE_KERNEL, sr)
     val, ptr = scalar_pointer(scalars[0])
     P, L, F, I = _build.P, _build.L, _build.F, _build.I
     _scale_axpby_launch(
@@ -164,7 +215,7 @@ def _scale_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
 
 
 def _axpby_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
-                  tile_ids, sumsq) -> None:
+                  tile_ids, sumsq, sr) -> None:
     """Launch ``csrc/scale_axpby.cu`` ``apex_axpby`` for
     :func:`_axpby_fn`: ``found`` over x, y or both; a and b may live on
     the device."""
@@ -174,6 +225,7 @@ def _axpby_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
             "the axpby kernel checks x (input 0) and/or y (input 1) and "
             "takes no per-tensor scalars or sumsq partials; got "
             f"check_finite={check_finite}")
+    _no_sr(AXPBY_KERNEL, sr)
     (a, a_ptr), (b, b_ptr) = (scalar_pointer(s) for s in scalars)
     P, L, F, I = _build.P, _build.L, _build.F, _build.I
     _scale_axpby_launch(
@@ -247,14 +299,15 @@ def _adam_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
     v2 = b2 * v_ + (1.0 - b2) * g_eff * g_eff
     mhat = m2 / bc1_
     vhat = v2 / bc2_
-    upd = mhat / (torch.sqrt(vhat) + eps_)
+    upd = mhat / (sqrt_rn(vhat) + eps_)
     upd = upd + torch.where(mode_ > 0.5, wd * p_, 0.0)
     return [p_ - lr_ * upd, m2, v2]
 
 
 def _adam_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
-                 tile_ids, sumsq) -> None:
-    """Launch ``csrc/fused_adam.cu`` for :func:`_adam_fn`."""
+                 tile_ids, sumsq, sr) -> None:
+    """Launch ``csrc/fused_adam.cu`` for :func:`_adam_fn` (p and p' bf16
+    with stochastic rounding when ``sr`` holds its key words)."""
     if check_finite != (3,):
         raise NotImplementedError(
             f"the Adam kernel checks the gradient (input 3) for "
@@ -266,21 +319,22 @@ def _adam_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
     dev = inputs[0].device
     for name, t in zip(("p", "m", "v", "g", "p_out", "m_out", "v_out"),
                        (*inputs, *outputs)):
-        check_kernel_input(name, t, (torch.float32,), dev)
+        check_kernel_input(name, t, _p_dtypes(sr) if name[0] == "p"
+                           else (torch.float32,), dev)
     lr, b1, b2, eps, wd, bc1, bc2, mode = scalars[:8]
     inv_val, inv_ptr = scalar_pointer(scalars[8])
-    P, L, F, I = _build.P, _build.L, _build.F, _build.I
+    P, L, F, I, U = _build.P, _build.L, _build.F, _build.I, _build.U
     lib = _build.library("fused_adam", "apex_adam",
-                         (P,) * 8 + (L,) + (F,) * 8 + (P, I, P),
+                         (P,) * 8 + (L,) + (F,) * 8 + (P, I, I, U, U, P),
                          "apex_adam_error_string")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.apex_adam(*(t.data_ptr() for t in (*inputs, *outputs)),
                             found.data_ptr(), inputs[0].numel(), lr, b1, b2,
                             eps, wd, bc1, bc2, inv_val, inv_ptr,
-                            int(mode > 0.5), stream)
+                            int(mode > 0.5), *_sr_args(sr), stream)
     _launch_error(lib, "apex_adam_error_string", ADAM_KERNEL, err)
-    _build.count_launch(ADAM_KERNEL)
+    _build.count_launch(sr_variant(ADAM_KERNEL, sr))
 
 
 register_kernel(_adam_fn, _adam_kernel)
@@ -290,9 +344,10 @@ def fused_adam_update(
     p, m, v, g, *,
     lr, beta1=0.9, beta2=0.999, eps=1e-8, step=1,
     adam_w_mode=True, bias_correction=True, weight_decay=0.0,
-    grad_scale=1.0, in_place=True, plain=False,
+    grad_scale=1.0, in_place=True, plain=False, sr_seed=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One fused Adam/AdamW step over flat fp32 buffers.
+    """One fused Adam/AdamW step over flat fp32 buffers (p bf16 with
+    ``sr_seed``: p' written with stochastic rounding).
 
     ``adam_w_mode`` selects decoupled weight decay (AdamW) against L2
     regularisation; ``grad_scale`` divides the gradient inside the same
@@ -319,7 +374,7 @@ def fused_adam_update(
         num_outputs=3, out_dtypes=[p.dtype, m.dtype, v.dtype],
         check_finite=(3,),
         aliases={0: 0, 1: 1, 2: 2} if in_place else None,
-        kernel=False if plain else None)
+        kernel=False if plain else None, **_sr(sr_seed))
     return p2, m2, v2, found
 
 
@@ -336,17 +391,22 @@ def _adagrad_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
     lr_, eps_, wd, inv_scale = s
     g_ = g_ * inv_scale + wd * p_
     h2 = h_ + g_ * g_
-    return [p_ - lr_ * g_ / (torch.sqrt(h2) + eps_), h2]
+    return [p_ - lr_ * g_ / (sqrt_rn(h2) + eps_), h2]
 
 
 def _adagrad_family_launch(fn_name: str, kernel: str, argtypes, names,
-                           inputs, outputs, found, *args) -> None:
-    """Check the three fp32 inputs and two outputs, then launch
-    ``fn_name`` of ``csrc/adagrad_novograd.cu`` with ``args`` after the
-    buffers and ``found``, on the buffers' current stream."""
+                           inputs, outputs, found, sr, *args) -> None:
+    """Check the three inputs and two outputs (fp32; p and p' bf16 with
+    stochastic rounding), then launch ``fn_name`` of
+    ``csrc/adagrad_novograd.cu`` with ``args`` and the SR arguments after
+    the buffers and ``found``, on the buffers' current stream."""
     dev = inputs[0].device
     for name, t in zip(names, (*inputs, *outputs)):
-        check_kernel_input(name, t, (torch.float32,), dev)
+        check_kernel_input(name, t, _p_dtypes(sr) if name[0] == "p"
+                           else (torch.float32,), dev)
+    argtypes = tuple(argtypes[:-1]) + (_build.I, _build.U, _build.U,
+                                       argtypes[-1])
+    args = (*args, *_sr_args(sr))
     lib = _build.library("adagrad_novograd", fn_name, argtypes,
                          "apex_adagrad_novograd_error_string")
     with torch.cuda.device(dev):
@@ -355,11 +415,11 @@ def _adagrad_family_launch(fn_name: str, kernel: str, argtypes, names,
             *(t.data_ptr() for t in (*inputs, *outputs)), found.data_ptr(),
             *args, stream)
     _launch_error(lib, "apex_adagrad_novograd_error_string", kernel, err)
-    _build.count_launch(kernel)
+    _build.count_launch(sr_variant(kernel, sr))
 
 
 def _adagrad_kernel(inputs, outputs, scalars, found, check_finite,
-                    per_tensor, tile_ids, sumsq) -> None:
+                    per_tensor, tile_ids, sumsq, sr) -> None:
     """Launch ``csrc/adagrad_novograd.cu`` ``apex_adagrad`` for
     :func:`_adagrad_fn`: the gradient's multiplier (scalar 3, 1 /
     grad_scale) may live on the device."""
@@ -374,7 +434,7 @@ def _adagrad_kernel(inputs, outputs, scalars, found, check_finite,
     P, L, F = _build.P, _build.L, _build.F
     _adagrad_family_launch(
         "apex_adagrad", ADAGRAD_KERNEL, (P,) * 6 + (L,) + (F,) * 4 + (P, P),
-        ("p", "h", "g", "p_out", "h_out"), inputs, outputs, found,
+        ("p", "h", "g", "p_out", "h_out"), inputs, outputs, found, sr,
         inputs[0].numel(), lr, eps, wd, inv_val, inv_ptr)
 
 
@@ -383,10 +443,10 @@ register_kernel(_adagrad_fn, _adagrad_kernel)
 
 def fused_adagrad_update(
     p, h, g, *, lr, eps=1e-10, weight_decay=0.0, grad_scale=1.0,
-    in_place=True, plain=False,
+    in_place=True, plain=False, sr_seed=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused Adagrad step over flat fp32 buffers (kernel
-    ``fused_adagrad``), L2-mode weight decay (the reference's
+    ``fused_adagrad``; p bf16 with ``sr_seed``), L2-mode weight decay (the reference's
     ADAGRAD_MODE_0): ``h += g'^2; p -= lr * g' / (sqrt(h) + eps)`` with
     ``g' = g / grad_scale + wd * p``. The reciprocal of ``grad_scale`` is
     taken in fp32 as the reference takes it (:208); a 0-d tensor on the
@@ -400,7 +460,7 @@ def fused_adagrad_update(
         scalars=[lr, eps, weight_decay, _inv_scale(grad_scale, g.device)],
         num_outputs=2, out_dtypes=[p.dtype, h.dtype], check_finite=(2,),
         aliases={0: 0, 1: 1} if in_place else None,
-        kernel=False if plain else None)
+        kernel=False if plain else None, **_sr(sr_seed))
     return p2, h2, found
 
 
@@ -426,14 +486,19 @@ def _sgd_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
 
 
 def _launch_sgd_family(fn_name: str, kernel: str, argtypes, inputs, outputs,
-                       found, *args) -> None:
-    """Check the three fp32 inputs and two outputs, then launch
-    ``fn_name`` of ``csrc/fused_sgd.cu`` with ``args`` after the
-    buffers and ``found``, on the buffers' current stream."""
+                       found, sr, *args) -> None:
+    """Check the three inputs and two outputs (fp32; p and p' bf16 with
+    stochastic rounding), then launch ``fn_name`` of ``csrc/fused_sgd.cu``
+    with ``args`` and the SR arguments after the buffers and ``found``,
+    on the buffers' current stream."""
     dev = inputs[0].device
     for name, t in zip(("p", "mom", "g", "p_out", "mom_out"),
                        (*inputs, *outputs)):
-        check_kernel_input(name, t, (torch.float32,), dev)
+        check_kernel_input(name, t, _p_dtypes(sr) if name[0] == "p"
+                           else (torch.float32,), dev)
+    argtypes = tuple(argtypes[:-1]) + (_build.I, _build.U, _build.U,
+                                       argtypes[-1])
+    args = (*args, *_sr_args(sr))
     lib = _build.library("fused_sgd", fn_name, argtypes,
                          "apex_sgd_error_string")
     with torch.cuda.device(dev):
@@ -442,11 +507,11 @@ def _launch_sgd_family(fn_name: str, kernel: str, argtypes, inputs, outputs,
             *(t.data_ptr() for t in (*inputs, *outputs)), found.data_ptr(),
             *args, stream)
     _launch_error(lib, "apex_sgd_error_string", kernel, err)
-    _build.count_launch(kernel)
+    _build.count_launch(sr_variant(kernel, sr))
 
 
 def _sgd_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
-                tile_ids, sumsq) -> None:
+                tile_ids, sumsq, sr) -> None:
     """Launch ``csrc/fused_sgd.cu`` ``apex_sgd`` for :func:`_sgd_fn`: the
     scale (scalar 4) and the first-run flag (scalar 5) may live on the
     device."""
@@ -462,7 +527,7 @@ def _sgd_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
     P, L, F, I = _build.P, _build.L, _build.F, _build.I
     _launch_sgd_family(
         "apex_sgd", SGD_KERNEL, (P,) * 6 + (L,) + (F,) * 5 + (P, I, P, I, I, P),
-        inputs, outputs, found, inputs[0].numel(), lr, mu, damp, wd,
+        inputs, outputs, found, sr, inputs[0].numel(), lr, mu, damp, wd,
         scale_val, scale_ptr, int(first_val > 0.5), first_ptr,
         int(nest > 0.5), int(wd_after > 0.5))
 
@@ -474,9 +539,10 @@ def fused_sgd_update(
     p, mom, g, *,
     lr, momentum=0.0, dampening=0.0, nesterov=False, weight_decay=0.0,
     wd_after_momentum=False, scale=1.0, first_run=False, in_place=True,
-    plain=False,
+    plain=False, sr_seed=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One fused SGD step over flat fp32 buffers (kernel ``fused_sgd``):
+    """One fused SGD step over flat fp32 buffers (kernel ``fused_sgd``; p
+    bf16 with ``sr_seed``):
     momentum, dampening, nesterov and the weight-decay order as the
     reference has them. ``scale`` multiplies the gradient (a 0-d tensor
     on the card stays there). ``first_run`` (a bool, or a 0-d tensor
@@ -497,7 +563,7 @@ def fused_sgd_update(
                  1.0 if wd_after_momentum else 0.0],
         num_outputs=2, out_dtypes=[p.dtype, mom.dtype], check_finite=(2,),
         aliases={0: 0, 1: 1} if in_place else None,
-        kernel=False if plain else None)
+        kernel=False if plain else None, **_sr(sr_seed))
     return p2, mom2, found
 
 
@@ -523,7 +589,7 @@ def _norms_from_subtile_partials(partials: torch.Tensor,
     (the engine's ``sumsq_subtiles`` outputs): a lane sum, then a sum by
     leaf — every leaf is aligned to the subtile, so nothing re-reads the
     buffer."""
-    return torch.sqrt(_segment_sum(partials.sum(-1).reshape(-1), space))
+    return sqrt_rn(_segment_sum(partials.sum(-1).reshape(-1), space))
 
 
 def per_tensor_l2norm(buf: torch.Tensor, space: FlatSpace, *,
@@ -531,7 +597,7 @@ def per_tensor_l2norm(buf: torch.Tensor, space: FlatSpace, *,
     """(num_leaves,) L2 norms of each tensor in the flat buffer: per-
     subtile partials (kernel ``sumsq``) and a sum by leaf."""
     partials = fused_sumsq_partials(buf, PER_TENSOR_TILE_ROWS, plain=plain)
-    return torch.sqrt(_segment_sum(partials, space))
+    return sqrt_rn(_segment_sum(partials, space))
 
 
 def multi_tensor_l2norm(buf: torch.Tensor, space: Optional[FlatSpace] = None,
@@ -542,9 +608,9 @@ def multi_tensor_l2norm(buf: torch.Tensor, space: Optional[FlatSpace] = None,
         if space is None:
             raise ValueError("per_tensor=True requires a FlatSpace")
         pt = per_tensor_l2norm(buf, space, plain=plain)
-        return torch.sqrt(torch.sum(pt * pt)), pt
+        return sqrt_rn(torch.sum(pt * pt)), pt
     partials = fused_sumsq_partials(buf, plain=plain)
-    return torch.sqrt(torch.sum(partials)), None
+    return sqrt_rn(torch.sum(partials)), None
 
 
 def fused_unscale_l2norm(g: torch.Tensor, *, inv_scale=1.0,
@@ -557,7 +623,7 @@ def fused_unscale_l2norm(g: torch.Tensor, *, inv_scale=1.0,
     partials = fused_sumsq_partials(g, scale=inv_scale, plain=plain)
     total = torch.sum(partials)
     found = (~torch.isfinite(total)).to(torch.float32)
-    return torch.sqrt(total), found
+    return sqrt_rn(total), found
 
 
 # ---------------------------------------------------------------------------
@@ -576,7 +642,7 @@ def _lamb_stage1_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor], _
     g_eff = torch.where(mode_ > 0.5, g_, g_ + wd * p_)
     m2 = b1_ * m_ + beta3_ * g_eff
     v2 = b2_ * v_ + (1.0 - b2_) * g_eff * g_eff
-    upd = (m2 / bc1_) / (torch.sqrt(v2 / bc2_) + eps_)
+    upd = (m2 / bc1_) / (sqrt_rn(v2 / bc2_) + eps_)
     upd = upd + torch.where(mode_ > 0.5, wd * p_, 0.0)
     return [upd, m2, v2]
 
@@ -595,8 +661,9 @@ _STAGE1_SUMSQ = ((), (("in", 0), ("out", 0)),
 
 
 def _lamb_stage1_kernel(inputs, outputs, scalars, found, check_finite,
-                        per_tensor, tile_ids, sumsq) -> None:
-    """Launch ``csrc/fused_lamb.cu`` stage 1 for :func:`_lamb_stage1_fn`."""
+                        per_tensor, tile_ids, sumsq, sr) -> None:
+    """Launch ``csrc/fused_lamb.cu`` stage 1 for :func:`_lamb_stage1_fn`
+    (p fp32 or bf16)."""
     kinds = tuple((k, i) for k, i, _ in sumsq)
     if check_finite != (3,) or per_tensor or tile_ids is not None \
             or kinds not in _STAGE1_SUMSQ:
@@ -605,15 +672,22 @@ def _lamb_stage1_kernel(inputs, outputs, scalars, found, check_finite,
             "tensor scalars, and emits the partials of p, u and "
             f"optionally g; got check_finite={check_finite}, "
             f"sumsq_subtiles={kinds}")
+    _no_sr(LAMB_STAGE1_KERNEL, sr)
     _host_scalars(LAMB_STAGE1_KERNEL, scalars, allowed_device=(8,))
     dev = inputs[0].device
-    for name, t in zip(("p", "m", "v", "g", "u", "m_out", "v_out"),
-                       (*inputs, *outputs)):
-        check_kernel_input(name, t, (torch.float32,), dev)
+    _check_stage1(inputs, outputs, dev)
     parts = [b.data_ptr() for _, _, b in sumsq] + [None] * (3 - len(sumsq))
     inv_val, inv_ptr = scalar_pointer(scalars[8])
     _stage1_launch(inputs, outputs, found, parts, scalars[:8], inv_val,
                    inv_ptr)
+
+
+def _check_stage1(inputs, outputs, dev) -> None:
+    """Stage 1's buffers: p fp32 or bf16, everything else fp32."""
+    for name, t in zip(("p", "m", "v", "g", "u", "m_out", "v_out"),
+                       (*inputs, *outputs)):
+        check_kernel_input(name, t, (torch.float32, torch.bfloat16)
+                           if name == "p" else (torch.float32,), dev)
 
 
 def _stage1_launch(inputs, outputs, found, parts, scalars, inv_val, inv_ptr,
@@ -621,7 +695,7 @@ def _stage1_launch(inputs, outputs, found, parts, scalars, inv_val, inv_ptr,
     b1, b2, beta3, eps, wd, bc1, bc2, mode = scalars
     P, L, F, I = _build.P, _build.L, _build.F, _build.I
     lib = _build.library("fused_lamb", "apex_lamb_stage1",
-                         (P,) * 11 + (L,) + (F,) * 8 + (P, I, P, L, L, P),
+                         (P,) * 11 + (L,) + (F,) * 8 + (P, I, P, L, L, I, P),
                          "apex_lamb_error_string")
     dev = inputs[0].device
     with torch.cuda.device(dev):
@@ -631,15 +705,19 @@ def _stage1_launch(inputs, outputs, found, parts, scalars, inv_val, inv_ptr,
             *parts, inputs[0].numel(), b1, b2, beta3, eps, wd, bc1, bc2,
             inv_val, inv_ptr, int(mode > 0.5),
             None if segs is None else segs.data_ptr(),
-            0 if segs is None else segs.numel(), seg_elems, stream)
+            0 if segs is None else segs.numel(), seg_elems,
+            int(inputs[0].dtype == torch.bfloat16), stream)
     _launch_error(lib, "apex_lamb_error_string", LAMB_STAGE1_KERNEL, err)
-    _build.count_launch(LAMB_STAGE1_KERNEL)
+    _build.count_launch(LAMB_STAGE1_BF16_KERNEL
+                        if inputs[0].dtype == torch.bfloat16
+                        else LAMB_STAGE1_KERNEL)
 
 
 def _lamb_stage2_kernel(inputs, outputs, scalars, found, check_finite,
-                        per_tensor, tile_ids, sumsq) -> None:
+                        per_tensor, tile_ids, sumsq, sr) -> None:
     """Launch ``csrc/fused_lamb.cu`` stage 2 for :func:`_lamb_stage2_fn`:
-    the ratios stay on the device, each subtile reads its leaf's."""
+    the ratios stay on the device, each subtile reads its leaf's (p and
+    p' bf16 with stochastic rounding when ``sr`` holds its key words)."""
     if check_finite or sumsq or len(per_tensor) != 1 or tile_ids is None:
         raise NotImplementedError(
             "the LAMB stage-2 kernel takes one per-tensor ratio through "
@@ -647,28 +725,39 @@ def _lamb_stage2_kernel(inputs, outputs, scalars, found, check_finite,
     _host_scalars(LAMB_STAGE2_KERNEL, scalars)
     dev = inputs[0].device
     for name, t in zip(("p", "u", "p_out"), (*inputs, *outputs)):
-        check_kernel_input(name, t, (torch.float32,), dev)
+        check_kernel_input(name, t, _p_dtypes(sr) if name[0] == "p"
+                           else (torch.float32,), dev)
     (ratio,) = per_tensor
     _stage2_launch(inputs[0], inputs[1], outputs[0], ratio, tile_ids,
-                   scalars[0])
+                   scalars[0], sr=sr)
 
 
 def _stage2_launch(p, u, p_out, ratio, tile_ids, lr, segs=None,
-                   seg_elems=0) -> None:
-    P, L, F = _build.P, _build.L, _build.F
+                   seg_elems=0, sr=None, seg_streams=None,
+                   sr_seed=None) -> None:
+    P, L, F, I, U = _build.P, _build.L, _build.F, _build.I, _build.U
     lib = _build.library("fused_lamb", "apex_lamb_stage2",
-                         (P, P, P, P, P, L, F, P, L, L, P),
+                         (P, P, P, P, P, L, F, P, L, L, I, U, U, P, P, L, U,
+                          P),
                          "apex_lamb_error_string")
     dev = p.device
+    p_bf16, k0, k1 = _sr_args(sr)
+    rows, leaves = (None, None) if seg_streams is None else seg_streams
+    if seg_streams is not None:
+        p_bf16 = 1
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.apex_lamb_stage2(
             p.data_ptr(), u.data_ptr(), p_out.data_ptr(), ratio.data_ptr(),
             tile_ids.data_ptr(), p.numel(), lr,
             None if segs is None else segs.data_ptr(),
-            0 if segs is None else segs.numel(), seg_elems, stream)
+            0 if segs is None else segs.numel(), seg_elems, p_bf16, k0, k1,
+            None if rows is None else rows.data_ptr(),
+            None if leaves is None else leaves.data_ptr(),
+            0 if leaves is None else leaves.numel(),
+            0 if sr_seed is None else int(sr_seed) & M32, stream)
     _launch_error(lib, "apex_lamb_error_string", LAMB_STAGE2_KERNEL, err)
-    _build.count_launch(LAMB_STAGE2_KERNEL)
+    _build.count_launch(LAMB_STAGE2_KERNEL + (SR_SUFFIX if p_bf16 else ""))
 
 
 register_kernel(_lamb_stage1_fn, _lamb_stage1_kernel)
@@ -744,14 +833,16 @@ def lamb_trust_ratio(w_norm, u_norm, *, weight_decay, use_nvlamb):
     return ratio
 
 
-def lamb_apply(p, u, ratio, *, lr, tile_ids, in_place=True, plain=False):
+def lamb_apply(p, u, ratio, *, lr, tile_ids, in_place=True, plain=False,
+               sr_seed=None):
     """LAMB stage 2 (kernel ``lamb_stage2``): p' = p - lr * ratio * u,
-    ``ratio`` per leaf through the subtile map ``tile_ids``."""
+    ``ratio`` per leaf through the subtile map ``tile_ids`` (p bf16 and
+    p' stochastically rounded with ``sr_seed``)."""
     (p2,), _ = fused_elementwise(
         _lamb_stage2_fn, [p, u], scalars=[lr], per_tensor=[ratio],
         tile_ids=tile_ids, num_outputs=1, out_dtypes=[p.dtype],
         aliases={0: 0} if in_place else None,
-        kernel=False if plain else None)
+        kernel=False if plain else None, **_sr(sr_seed))
     return p2
 
 
@@ -761,10 +852,11 @@ def fused_lamb_update(
     weight_decay=0.0, bias_correction=True, grad_averaging=True,
     max_grad_norm=0.0, adam_w_mode=True, use_nvlamb=False,
     global_grad_norm=None, grad_scale=1.0, with_grad_norm=False,
-    in_place=True, plain=False,
+    in_place=True, plain=False, sr_seed=None,
 ):
-    """One fused LAMB step over flat fp32 buffers, the reference's two
-    stages: the global-norm clip (``multi_tensor_l2norm`` of g when no
+    """One fused LAMB step over flat fp32 buffers (p bf16 with
+    ``sr_seed``: stage 1 reads it, stage 2 writes p' with stochastic
+    rounding), the reference's two stages: the global-norm clip (``multi_tensor_l2norm`` of g when no
     ``global_grad_norm`` is handed in and ``max_grad_norm > 0``), stage 1
     with the p and u partials, the per-tensor norms and trust ratios,
     stage 2. ``with_grad_norm`` appends the per-tensor norms of the raw
@@ -790,7 +882,7 @@ def fused_lamb_update(
                              weight_decay=weight_decay, use_nvlamb=use_nvlamb)
     p2 = lamb_apply(p, u, ratio, lr=lr,
                     tile_ids=space.device_subtile_leaf_ids(p.device),
-                    in_place=in_place, plain=plain)
+                    in_place=in_place, plain=plain, sr_seed=sr_seed)
     if with_grad_norm:
         return p2, m2, v2, found, _norms_from_subtile_partials(outs[5], space)
     return p2, m2, v2, found
@@ -811,9 +903,7 @@ def lamb_stage1_segments(p, m, v, g, outs, segs, seg_elems, *, scalars,
     parts = [torch.empty(n_sub, dtype=torch.float32, device=dev)
              for _ in range(3 if with_grad_partials else 2)]
     if not plain and p.device.type == "cuda":
-        for name, t in zip(("p", "m", "v", "g", "u", "m_out", "v_out"),
-                           (p, m, v, g, *outs)):
-            check_kernel_input(name, t, (torch.float32,), dev)
+        _check_stage1((p, m, v, g), outs, dev)
         vals = [kernel_scalar(x, dev) for x in scalars]
         _host_scalars(LAMB_STAGE1_KERNEL, vals)
         inv_val, inv_ptr = scalar_pointer(kernel_scalar(inv_scale, dev))
@@ -838,20 +928,42 @@ def lamb_stage1_segments(p, m, v, g, outs, segs, seg_elems, *, scalars,
 
 
 def lamb_stage2_segments(p, u, p_out, ratio, tile_ids, segs, seg_elems, *,
-                         lr, plain=False):
+                         lr, seg_streams=None, sr_seed=None, plain=False):
     """LAMB stage 2 over the listed segments only (one launch of
     ``lamb_stage2``): p' = p - lr * ratio[leaf] * u there, the leaf of
     each subtile from ``tile_ids`` (the space's subtile -> leaf map on
-    the device)."""
+    the device). A bf16 p takes ``sr_seed`` and ``seg_streams``, the pair
+    ``(rows, leaves)`` of int64 tensors on p's device that
+    ``SegmentMeta.device_large_streams`` makes: ``leaves`` the streams'
+    leaf indices (at most ``STAGE2_MAX_STREAMS``), ``rows`` one ``(k,
+    base)`` a listed segment, its stream and that leaf's first element.
+    p' at element ``i`` takes the threefry bits of stream index ``i -
+    base`` under ``fold_in(PRNGKey(sr_seed + leaves[k] + 1), 0)`` (the
+    reference's large leaf, segmented.py:485-499: one stream per leaf,
+    indexed within its slice)."""
+    sr = seg_streams is not None
+    if sr != (sr_seed is not None) or sr != (p.dtype != torch.float32):
+        raise ValueError("a bf16 p takes stochastic rounding (seg_streams "
+                         "and sr_seed), an fp32 one neither")
     if not plain and p.device.type == "cuda":
         dev = p.device
         for name, t in zip(("p", "u", "p_out"), (p, u, p_out)):
-            check_kernel_input(name, t, (torch.float32,), dev)
+            check_kernel_input(name, t, (p.dtype,) if name[0] == "p"
+                               else (torch.float32,), dev)
+        if seg_streams is not None:
+            for name, t in zip(("seg_streams rows", "seg_streams leaves"),
+                               seg_streams):
+                check_kernel_input(name, t, (torch.int64,), dev)
+            if seg_streams[1].numel() > STAGE2_MAX_STREAMS:
+                raise ValueError(
+                    f"{LAMB_STAGE2_KERNEL}: {seg_streams[1].numel()} leaf "
+                    f"streams, at most {STAGE2_MAX_STREAMS}")
         lr_v = kernel_scalar(lr, dev)
         _host_scalars(LAMB_STAGE2_KERNEL, [lr_v])
         _stage2_launch(p, u, p_out, ratio.float().contiguous(),
                        tile_ids.to(dev, torch.int32), lr_v, segs=segs,
-                       seg_elems=seg_elems)
+                       seg_elems=seg_elems, seg_streams=seg_streams,
+                       sr_seed=sr_seed)
         return p_out
     idx = segs.long()
     k, sub = idx.shape[0], seg_elems // _PT_TILE
@@ -859,9 +971,19 @@ def lamb_stage2_segments(p, u, p_out, ratio, tile_ids, segs, seg_elems, *,
     U = u.view(-1, seg_elems)[idx].float().view(k, sub, _PT_TILE)
     r = ratio[tile_ids.long().view(-1, sub)[idx]]
     lr_t = torch.as_tensor(lr, dtype=torch.float32, device=p.device)
-    p_out.view(-1, seg_elems).index_copy_(
-        0, idx, (P - lr_t * r[..., None] * U).view(k, seg_elems)
-        .to(p_out.dtype))
+    val = (P - lr_t * r[..., None] * U).view(k, seg_elems)
+    if seg_streams is None:
+        val = val.to(p_out.dtype)
+    else:
+        t, leaves = (x.to(p.device) for x in seg_streams)
+        leaf = leaves[t[:, 0:1]]
+        k0, k1 = threefry2x32(0, (int(sr_seed) + leaf + 1) & M32, 0, 0)
+        pos = (idx[:, None] * seg_elems
+               + torch.arange(seg_elems, device=p.device)[None, :]
+               - t[:, 1:2])
+        y1, y2 = threefry2x32(k0, k1, pos >> 32, pos & M32)
+        val = sr_round_bits(val, y1 ^ y2)
+    p_out.view(-1, seg_elems).index_copy_(0, idx, val)
     return p_out
 
 
@@ -884,7 +1006,7 @@ def _novograd_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor],
 
 
 def _novograd_kernel(inputs, outputs, scalars, found, check_finite,
-                     per_tensor, tile_ids, sumsq) -> None:
+                     per_tensor, tile_ids, sumsq, sr) -> None:
     """Launch ``csrc/adagrad_novograd.cu`` ``apex_novograd`` for
     :func:`_novograd_fn`: the denominators stay on the device, each
     subtile reads its leaf's."""
@@ -900,7 +1022,7 @@ def _novograd_kernel(inputs, outputs, scalars, found, check_finite,
     P, L, F = _build.P, _build.L, _build.F
     _adagrad_family_launch(
         "apex_novograd", NOVOGRAD_KERNEL, (P,) * 8 + (L,) + (F,) * 5 + (P,),
-        ("p", "m", "g", "p_out", "m_out"), inputs, outputs, found,
+        ("p", "m", "g", "p_out", "m_out"), inputs, outputs, found, sr,
         denom.data_ptr(), tile_ids.data_ptr(), inputs[0].numel(), lr, bc1, b1,
         beta3, wd)
 
@@ -922,23 +1044,24 @@ def novograd_denominators(g_norm, v, *, beta2, eps, step, bias_correction):
         v2 = g_norm * g_norm
     bc2 = (1.0 - torch.pow(_f32(beta2), _f32(float(step)))
            if bias_correction else _f32(1.0))
-    denom = (torch.sqrt(v2) + _dev_f32(eps, dev)) \
-        / torch.sqrt(_dev_f32(bc2, dev))
+    denom = (sqrt_rn(v2) + _dev_f32(eps, dev)) \
+        / sqrt_rn(_dev_f32(bc2, dev))
     return v2, denom
 
 
 def novograd_apply(p, m, g, denom, *, lr, beta1, beta3, weight_decay, bc1,
-                   tile_ids, in_place=True, plain=False):
+                   tile_ids, in_place=True, plain=False, sr_seed=None):
     """The NovoGrad sweep (kernel ``fused_novograd``) given the per-leaf
     ``denom`` (read through the subtile map ``tile_ids``): returns
-    ``(p', m', found_inf)``."""
+    ``(p', m', found_inf)`` (p bf16 and p' stochastically rounded with
+    ``sr_seed``)."""
     (p2, m2), found = fused_elementwise(
         _novograd_fn, [p, m, g],
         scalars=[lr, beta1, beta3, weight_decay, bc1], per_tensor=[denom],
         tile_ids=tile_ids, num_outputs=2,
         out_dtypes=[p.dtype, m.dtype], check_finite=(2,),
         aliases={0: 0, 1: 1} if in_place else None,
-        kernel=False if plain else None)
+        kernel=False if plain else None, **_sr(sr_seed))
     return p2, m2, found
 
 
@@ -946,8 +1069,9 @@ def fused_novograd_update(
     p, m, v, g, space: FlatSpace, *,
     lr, beta1=0.95, beta2=0.98, eps=1e-8, step=1, weight_decay=0.0,
     grad_averaging=True, bias_correction=False, in_place=True, plain=False,
+    sr_seed=None,
 ):
-    """One NovoGrad step over flat fp32 buffers: the second moment ``v``
+    """One NovoGrad step over flat fp32 buffers (p bf16 with ``sr_seed``): the second moment ``v``
     is one fp32 scalar per leaf (``(num_leaves,)``), an EMA of the leaf's
     ||g||^2. The per-leaf norms of g (one sweep of kernel ``sumsq``), the
     denominators (:func:`novograd_denominators`, on the device), then
@@ -968,7 +1092,7 @@ def fused_novograd_update(
         beta3=1.0 - beta1 if grad_averaging else 1.0,
         weight_decay=weight_decay, bc1=bc1,
         tile_ids=space.device_subtile_leaf_ids(p.device), in_place=in_place,
-        plain=plain)
+        plain=plain, sr_seed=sr_seed)
     if in_place:
         v2 = v.copy_(v2)
     return p2, m2, v2, found
@@ -993,7 +1117,7 @@ def _lars_fn(ins: Sequence[torch.Tensor], s: Sequence[torch.Tensor],
 
 
 def _lars_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
-                 tile_ids, sumsq) -> None:
+                 tile_ids, sumsq, sr) -> None:
     """Launch ``csrc/fused_sgd.cu`` ``apex_lars`` for :func:`_lars_fn`:
     the ratios stay on the device, each subtile reads its leaf's; the
     first-run flag (scalar 3) may live on the device."""
@@ -1010,7 +1134,7 @@ def _lars_kernel(inputs, outputs, scalars, found, check_finite, per_tensor,
     P, L, F, I = _build.P, _build.L, _build.F, _build.I
     _launch_sgd_family(
         "apex_lars", LARS_KERNEL, (P,) * 8 + (L,) + (F,) * 3 + (I, P, P),
-        inputs, outputs, found, ratio.data_ptr(), tile_ids.data_ptr(),
+        inputs, outputs, found, sr, ratio.data_ptr(), tile_ids.data_ptr(),
         inputs[0].numel(), lr, mu, wd, int(first_val > 0.5), first_ptr)
 
 
@@ -1030,11 +1154,11 @@ def lars_ratio(w_norm, g_norm, *, trust_coefficient, weight_decay, eps,
 
 
 def lars_apply(p, mom, g, ratio, *, lr, momentum, weight_decay, tile_ids,
-               first_run=False, in_place=True, plain=False):
+               first_run=False, in_place=True, plain=False, sr_seed=None):
     """The LARS sweep (kernel ``fused_lars``) given the per-leaf
     ``ratio`` (read through the subtile map ``tile_ids``): returns
-    ``(p', mom', found_inf)``. ``first_run`` as for
-    :func:`fused_sgd_update`."""
+    ``(p', mom', found_inf)`` (p bf16 and p' stochastically rounded with
+    ``sr_seed``). ``first_run`` as for :func:`fused_sgd_update`."""
     if not isinstance(first_run, torch.Tensor):
         first_run = 1.0 if first_run else 0.0
     (p2, mom2), found = fused_elementwise(
@@ -1043,17 +1167,18 @@ def lars_apply(p, mom, g, ratio, *, lr, momentum, weight_decay, tile_ids,
         per_tensor=[ratio], tile_ids=tile_ids, num_outputs=2,
         out_dtypes=[p.dtype, mom.dtype], check_finite=(2,),
         aliases={0: 0, 1: 1} if in_place else None,
-        kernel=False if plain else None)
+        kernel=False if plain else None, **_sr(sr_seed))
     return p2, mom2, found
 
 
 def fused_lars_update(
     p, mom, g, space: FlatSpace, *,
     lr, momentum=0.9, weight_decay=0.0, trust_coefficient=0.02, eps=1e-8,
-    clip=True, first_run=False, in_place=True, plain=False,
+    clip=True, first_run=False, in_place=True, plain=False, sr_seed=None,
 ):
-    """One LARS/LARC step over flat fp32 buffers: the per-tensor norms of
-    p and g (two sweeps of kernel ``sumsq``), the ratios
+    """One LARS/LARC step over flat fp32 buffers (p bf16 with ``sr_seed``:
+    its norms read it as fp32, p' stochastically rounded): the per-tensor
+    norms of p and g (two sweeps of kernel ``sumsq``), the ratios
     (:func:`lars_ratio`, on the device), then the LARS sweep
     (:func:`lars_apply`). With ``in_place`` p and mom are overwritten;
     else new buffers are returned and the inputs left as they were.
@@ -1066,12 +1191,14 @@ def fused_lars_update(
     return lars_apply(p, mom, g, ratio, lr=lr, momentum=momentum,
                       weight_decay=weight_decay, first_run=first_run,
                       tile_ids=space.device_subtile_leaf_ids(p.device),
-                      in_place=in_place, plain=plain)
+                      in_place=in_place, plain=plain, sr_seed=sr_seed)
 
 
 __all__ = ["ADAGRAD_KERNEL", "ADAM_KERNEL", "AXPBY_KERNEL",
-           "LAMB_STAGE1_KERNEL", "LAMB_STAGE2_KERNEL", "LARS_KERNEL",
-           "NOVOGRAD_KERNEL", "SCALE_KERNEL", "SGD_KERNEL",
+           "LAMB_STAGE1_BF16_KERNEL", "LAMB_STAGE1_KERNEL",
+           "LAMB_STAGE2_KERNEL", "LARS_KERNEL", "NOVOGRAD_KERNEL",
+           "SCALE_KERNEL", "SGD_KERNEL", "SR_SUFFIX", "STAGE2_MAX_STREAMS",
+           "sr_variant",
            "fused_adagrad_update", "fused_adam_update",
            "fused_lamb_compute_update_term", "fused_lamb_update",
            "fused_lars_update", "fused_novograd_update", "fused_sgd_update",

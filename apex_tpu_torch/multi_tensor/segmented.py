@@ -18,18 +18,35 @@ per-leaf norms summed per segment, then per leaf, in a fixed order.
 On CPU tensors (or with ``plain=True``) the segment pass runs its plain
 version, which follows the reference kernel's arithmetic: per-subtile
 sums, per-slot sums, trust ratios, p'.
+
+A bf16 master (``sr_seed``) follows the reference's kernel schedule
+(its ``impl="pallas"``/``"interpret"`` path): the segment pass writes p'
+with stochastic rounding through the reference's murmur3 hash of each
+element's global flat index (:235-261), and each large leaf's stage 2
+through its own threefry stream, ``fold_in(PRNGKey(sr_seed + leaf + 1),
+0)`` over the element's index within the leaf's slice (:485-499), the
+leaf being its index in this space. Both streams are keyed by the
+layout: they match the reference's bit for bit only on a tree laid out
+as the port lays it out. ``u_dtype=torch.bfloat16`` stashes the update
+term in bf16 (the reference's ``u_dtype``, :105-109), half the shared
+memory, at ~2^-9 relative error in u.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from apex_tpu_torch import _build
 from apex_tpu_torch._backend import check_kernel_input, uses_kernel
-from apex_tpu_torch.multi_tensor.engine import kernel_scalar, scalar_pointer
+from apex_tpu_torch.multi_tensor.engine import (
+    kernel_scalar,
+    murmur_bits,
+    scalar_pointer,
+    sqrt_rn,
+    sr_round_bits,
+)
 from apex_tpu_torch.multi_tensor.flat_buffer import (
     BLOCK_SMEM_BYTES,
     CHUNK,
@@ -50,6 +67,7 @@ from apex_tpu_torch.multi_tensor.ops import (
 )
 
 SEGMENT_KERNEL = "lamb_segment"
+SEGMENT_SR_KERNEL = "lamb_segment_sr"      # a bf16 master's, counted apart
 
 _stage1_math = _lamb_stage1_fn      # the reference's _stage1_math (:57)
 
@@ -57,20 +75,31 @@ _stage1_math = _lamb_stage1_fn      # the reference's _stage1_math (:57)
 def _small_segment_pass(p, m, v, g, outs, *, meta: SegmentMeta, scalars,
                         inv_scale, lr, use_nvlamb: bool, wd_is_zero: bool,
                         stash_p: bool = True, with_grad_norm: bool = False,
+                        sr_seed=None, u_dtype=torch.float32,
                         plain: bool = False
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Both LAMB stages over the small segments of ``meta``, writing
     p', m', v' into ``outs`` (which may be p, m, v themselves); the
     other segments are neither read nor written. ``scalars`` are
-    ``(b1, b2, beta3, eps, wd, bc1, bc2, mode)``. Returns ``(found_inf,
-    gg)``, ``gg`` the ``(n_small, max_slots)`` per-slot sums of the raw
-    g^2 with ``with_grad_norm``, else None."""
+    ``(b1, b2, beta3, eps, wd, bc1, bc2, mode)``. With ``sr_seed`` p is
+    bf16 and p' is written with stochastic rounding (the murmur3 bits of
+    the global flat index); ``u_dtype`` is the update term's stash (fp32,
+    or bf16 rounded to nearest). Returns ``(found_inf, gg)``, ``gg`` the
+    ``(n_small, max_slots)`` per-slot sums of the raw g^2 with
+    ``with_grad_norm``, else None."""
     if meta.seg_elems % CHUNK:
         raise ValueError(f"seg_elems {meta.seg_elems} must be a multiple "
                          f"of the chunk {CHUNK}")
+    if u_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"u_dtype must be float32 or bfloat16, got "
+                         f"{u_dtype}")
+    if (sr_seed is not None) != (p.dtype == torch.bfloat16):
+        raise ValueError("stochastic rounding (sr_seed) writes a bf16 p', "
+                         f"and a bf16 p needs it; p is {p.dtype}")
     if not plain and uses_kernel(p):
         return _segment_cuda(p, m, v, g, outs, meta, scalars, inv_scale, lr,
-                             use_nvlamb, wd_is_zero, stash_p, with_grad_norm)
+                             use_nvlamb, wd_is_zero, stash_p, with_grad_norm,
+                             sr_seed, u_dtype)
     dev = p.device
     se, ms = meta.seg_elems, meta.max_slots
     segs, slot = (t.long() for t in meta.device_maps(dev))
@@ -88,7 +117,7 @@ def _small_segment_pass(p, m, v, g, outs, *, meta: SegmentMeta, scalars,
         return acc.scatter_add_(1, torch.where(slot >= 0, slot, ms),
                                 per_sub)[:, :ms]
 
-    wn, un = torch.sqrt(per_slot(P)), torch.sqrt(per_slot(u))
+    wn, un = sqrt_rn(per_slot(P)), sqrt_rn(per_slot(u))
     ratio = torch.where((wn > 0.0) & (un > 0.0), wn / un,
                         torch.ones_like(wn))
     if not use_nvlamb and wd_is_zero:
@@ -96,8 +125,12 @@ def _small_segment_pass(p, m, v, g, outs, *, meta: SegmentMeta, scalars,
     rr = torch.where(slot >= 0, ratio.gather(1, slot.clamp_min(0)),
                      torch.zeros((), device=dev))
     lr_t = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    u_st = u.to(u_dtype).float()
     p2 = (P.view(n_small, sub, DEFAULT_ALIGN)
-          - lr_t * rr[..., None] * u.view(n_small, sub, DEFAULT_ALIGN))
+          - lr_t * rr[..., None] * u_st.view(n_small, sub, DEFAULT_ALIGN))
+    if sr_seed is not None:
+        idx = segs[:, None] * se + torch.arange(se, device=dev)[None, :]
+        p2 = sr_round_bits(p2.reshape(n_small, se), murmur_bits(sr_seed, idx))
     for buf, val in zip(outs, (p2, m2, v2)):
         buf.view(meta.n_segments, se).index_copy_(
             0, segs, val.reshape(n_small, se).to(buf.dtype))
@@ -105,21 +138,26 @@ def _small_segment_pass(p, m, v, g, outs, *, meta: SegmentMeta, scalars,
 
 
 def _segment_cuda(p, m, v, g, outs, meta, scalars, inv_scale, lr,
-                  use_nvlamb, wd_is_zero, stash_p, with_grad_norm):
+                  use_nvlamb, wd_is_zero, stash_p, with_grad_norm, sr_seed,
+                  u_dtype):
     dev = p.device
     for name, t in zip(("p", "m", "v", "g", "p_out", "m_out", "v_out"),
                        (p, m, v, g, *outs)):
-        check_kernel_input(name, t, (torch.float32,), dev)
+        check_kernel_input(name, t, (p.dtype,) if name[0] == "p"
+                           else (torch.float32,), dev)
         if t.shape[0] != meta.n_segments * meta.seg_elems:
             raise ValueError(f"{name} does not cover the segmented space")
     if meta.seg_elems % (CLUSTER_BLOCKS * DEFAULT_ALIGN):
         raise ValueError(f"seg_elems {meta.seg_elems} must be a multiple "
                          f"of {CLUSTER_BLOCKS * DEFAULT_ALIGN}")
-    smem = segment_smem_bytes(meta.seg_elems, meta.max_slots, stash_p)
+    u_bf16 = u_dtype == torch.bfloat16
+    smem = segment_smem_bytes(meta.seg_elems, meta.max_slots, stash_p,
+                              u_bytes=2 if u_bf16 else 4)
     if smem > BLOCK_SMEM_BYTES:
         raise ValueError(
-            f"seg_elems={meta.seg_elems} (stash_p={stash_p}) needs {smem} "
-            f"bytes of shared memory a block; a block has {BLOCK_SMEM_BYTES}")
+            f"seg_elems={meta.seg_elems} (stash_p={stash_p}, u {u_dtype}) "
+            f"needs {smem} bytes of shared memory a block; a block has "
+            f"{BLOCK_SMEM_BYTES}")
     vals = [kernel_scalar(x, dev) for x in (*scalars, lr)]
     if any(isinstance(x, torch.Tensor) for x in vals):
         raise NotImplementedError(
@@ -132,9 +170,10 @@ def _segment_cuda(p, m, v, g, outs, meta, scalars, inv_scale, lr,
     found = torch.zeros((), dtype=torch.float32, device=dev)
     gg = (torch.empty(n_small, meta.max_slots, dtype=torch.float32,
                       device=dev) if with_grad_norm else None)
-    P, L, F, I = _build.P, _build.L, _build.F, _build.I
+    P, L, F, I, U = _build.P, _build.L, _build.F, _build.I, _build.U
     lib = _build.library("lamb_segment", "apex_lamb_segment",
-                         (P,) * 11 + (I, L, I) + (F,) * 9 + (P, I, I, I, I, P),
+                         (P,) * 11 + (I, L, I) + (F,) * 9
+                         + (P, I, I, I, I, I, I, U, P),
                          "apex_lamb_segment_error_string")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -144,12 +183,14 @@ def _segment_cuda(p, m, v, g, outs, meta, scalars, inv_scale, lr,
             slot.data_ptr(), n_small, meta.seg_elems, meta.max_slots,
             b1, b2, beta3, eps, wd, bc1, bc2, lr_f, inv_val, inv_ptr,
             int(mode > 0.5), int(use_nvlamb), int(wd_is_zero), int(stash_p),
-            stream)
+            int(sr_seed is not None), int(u_bf16),
+            0 if sr_seed is None else int(sr_seed) & 0xFFFFFFFF, stream)
     if err:
         msg = lib.apex_lamb_segment_error_string(err).decode()
         raise RuntimeError(f"{SEGMENT_KERNEL}: CUDA error {err} at launch: "
                            f"{msg}")
-    _build.count_launch(SEGMENT_KERNEL)
+    _build.count_launch(SEGMENT_KERNEL if sr_seed is None
+                        else SEGMENT_SR_KERNEL)
     return found, gg
 
 
@@ -159,7 +200,7 @@ def fused_lamb_segmented_update(
     weight_decay=0.0, bias_correction=True, grad_averaging=True,
     max_grad_norm=0.0, adam_w_mode=True, use_nvlamb=False,
     global_grad_norm=None, grad_scale=1.0, stash_p=None, u_dtype=None,
-    with_grad_norm=False, in_place=True, plain=False,
+    with_grad_norm=False, in_place=True, plain=False, sr_seed=None,
 ):
     """LAMB step over a segment-aligned flat space (the reference's
     ``fused_lamb_segmented_update``, :350): the one-pass kernel over the
@@ -170,19 +211,23 @@ def fused_lamb_segmented_update(
     partials. With ``in_place`` p, m and v are overwritten; else new
     buffers are returned (every segment is written: the small ones by
     the segment pass, the large leaves' by their stages) and the inputs
-    left as they were. Returns ``(p', m', v', found_inf[,
-    grad_norm_per_tensor])``."""
+    left as they were. ``sr_seed`` (a bf16 p): p' written with stochastic
+    rounding, the streams of the module docstring; ``u_dtype`` (default
+    the meta's) the segment pass's update-term stash. Returns ``(p', m',
+    v', found_inf[, grad_norm_per_tensor])``."""
     if meta.n_segments * meta.seg_elems != space.total:
         raise ValueError(
             f"SegmentMeta (n_segments={meta.n_segments}, seg_elems="
             f"{meta.seg_elems}) does not cover the space (total="
             f"{space.total}): it was built for another layout")
     stash_p = meta.stash_p if stash_p is None else bool(stash_p)
-    u_name = meta.u_dtype_name if u_dtype is None else \
-        str(u_dtype).replace("torch.", "")
-    if u_name != "float32":
-        raise NotImplementedError(
-            f"a {u_name} update-term stash is not ported yet; u is fp32")
+    if u_dtype is None:
+        u_dtype = getattr(torch, meta.u_dtype_name)
+    if sr_seed is not None and p.dtype != torch.bfloat16:
+        # the truncation targets the bf16 mantissa boundary; another
+        # dtype would quantize silently (the reference's :392-399)
+        raise ValueError("stochastic rounding targets bfloat16 params; got "
+                         f"{p.dtype}")
     dev = p.device
     b1, b2, beta3, bc1, bc2 = lamb_scalars(
         beta1=beta1, beta2=beta2, step=step, bias_correction=bias_correction,
@@ -203,7 +248,8 @@ def fused_lamb_segmented_update(
             scalars=(b1, b2, beta3, eps, weight_decay, bc1, bc2, mode),
             inv_scale=inv_scale, lr=lr, use_nvlamb=use_nvlamb,
             wd_is_zero=not (weight_decay > 0.0), stash_p=stash_p,
-            with_grad_norm=with_grad_norm, plain=plain)
+            with_grad_norm=with_grad_norm, sr_seed=sr_seed, u_dtype=u_dtype,
+            plain=plain)
         if with_grad_norm:
             leaf_gg = torch.zeros(nl + 1, dtype=torch.float32,
                                   device=dev).index_add_(
@@ -214,7 +260,7 @@ def fused_lamb_segmented_update(
         # each; the per-leaf norms from the per-subtile partials (a sum
         # per segment, then per leaf over its segments, in a fixed order)
         segs, leaves, gather = meta.device_large(dev)
-        u = torch.empty_like(p)
+        u = torch.empty_like(p, dtype=torch.float32)
         pp, uu, gg, f = lamb_stage1_segments(
             p, m, v, g, (u, outs[1], outs[2]), segs, meta.seg_elems,
             scalars=(b1, b2, beta3, eps, weight_decay, bc1, bc2, mode),
@@ -229,18 +275,20 @@ def fused_lamb_segmented_update(
 
         ratio = torch.ones(nl, dtype=torch.float32, device=dev)
         ratio.index_copy_(0, leaves, lamb_trust_ratio(
-            torch.sqrt(per_leaf(pp)), torch.sqrt(per_leaf(uu)),
+            sqrt_rn(per_leaf(pp)), sqrt_rn(per_leaf(uu)),
             weight_decay=weight_decay, use_nvlamb=use_nvlamb))
-        lamb_stage2_segments(p, u, outs[0], ratio,
-                             space.device_subtile_leaf_ids(dev), segs,
-                             meta.seg_elems, lr=lr, plain=plain)
+        lamb_stage2_segments(
+            p, u, outs[0], ratio, space.device_subtile_leaf_ids(dev), segs,
+            meta.seg_elems, lr=lr, plain=plain, sr_seed=sr_seed,
+            seg_streams=None if sr_seed is None
+            else meta.device_large_streams(dev))
         if with_grad_norm:
             leaf_gg = leaf_gg.index_add_(0, leaves, per_leaf(gg))
     p2, m2, v2 = outs
     if with_grad_norm:
-        return p2, m2, v2, found, torch.sqrt(leaf_gg)
+        return p2, m2, v2, found, sqrt_rn(leaf_gg)
     return p2, m2, v2, found
 
 
-__all__ = ["CHUNK", "CHUNK_ROWS", "SEGMENT_KERNEL",
+__all__ = ["CHUNK", "CHUNK_ROWS", "SEGMENT_KERNEL", "SEGMENT_SR_KERNEL",
            "fused_lamb_segmented_update"]

@@ -28,9 +28,17 @@ tensor on the device. FusedLAMB's clip factor and trust ratios stay on
 the device too (the kernels read them by pointer): its step reads
 nothing on the host but ``found_inf`` on the skip path; so do FusedSGD's
 and FusedLARS's first-run flag and FusedLARS's ratios, FusedNovoGrad's
-per-leaf norms and denominators, and FusedAdagrad's gradient scale. A
-bf16 master with stochastic rounding raises, and so does
-``FusedMixedPrecisionLamb``.
+per-leaf norms and denominators, and FusedAdagrad's gradient scale.
+
+``master_dtype=torch.bfloat16, stochastic_rounding=True`` drops the fp32
+master (the reference's master-free mode, :104-130): the parameters live
+in one bf16 flat buffer and every update writes p' with stochastic
+rounding, seeded by the unskipped step count (:126-130), so a skipped
+step leaves the next one the same stream and a resumed state replays
+it. The slots stay fp32. The reference's policy holds: SR only with a
+bf16 master, a bf16 master only with SR, and every leaf already in the
+master's dtype (:64-96, the same errors). On CUDA tensors the updates
+launch the kernels' SR variants, nothing else.
 """
 
 from __future__ import annotations
@@ -68,13 +76,46 @@ class FlatOptState(NamedTuple):
     """State of a flat-space fused optimizer."""
 
     space: FlatSpace
-    master: torch.Tensor            # fp32 flat master params
+    master: torch.Tensor            # flat master params: fp32, or bf16
     slots: Dict[str, torch.Tensor]
     count: int                      # successful (unskipped) steps
     found_inf: torch.Tensor         # 0-d fp32 {0, 1} from the last step
     # the SegmentMeta of a segment-aligned space (FusedLAMB with
     # segmented=True), carried with the space it was built for; else None
     seg_meta: Optional[SegmentMeta] = None
+
+
+def validate_master_dtype(master_dtype, stochastic_rounding: bool
+                          ) -> torch.dtype:
+    """The reference's master-dtype policy (:64-77): a reduced master
+    only with stochastic rounding, and only bf16."""
+    if stochastic_rounding and master_dtype != torch.bfloat16:
+        raise ValueError(
+            "stochastic_rounding requires master_dtype=bfloat16 "
+            f"(got {master_dtype})")
+    if master_dtype != torch.float32 and not stochastic_rounding:
+        raise ValueError(
+            "a reduced-precision master without stochastic rounding "
+            "loses sub-ulp updates to nearest rounding; pass "
+            "stochastic_rounding=True (or keep master_dtype=float32)")
+    return master_dtype
+
+
+def check_leaf_dtypes(params: Mapping[str, torch.Tensor],
+                      master_dtype) -> None:
+    """A reduced master stores every leaf at ``master_dtype``; packing a
+    wider leaf would quantize it silently at init, so the reference
+    (:80-96) asks for an explicit cast."""
+    if master_dtype == torch.float32:
+        return
+    wider = {str(t.dtype).replace("torch.", "") for t in params.values()
+             if t.dtype != master_dtype}
+    if wider:
+        raise ValueError(
+            f"master_dtype={str(master_dtype).replace('torch.', '')} "
+            f"requires all param leaves in that dtype; found "
+            f"{sorted(wider)} — cast the tree explicitly (mixed per-leaf "
+            "masters are not supported)")
 
 
 def _resolve_lr(lr: Schedule, count: int):
@@ -90,17 +131,31 @@ def _small_last(params: Mapping[str, torch.Tensor], seg: int
     return {**large, **{k: t for k, t in params.items() if k not in large}}
 
 
+def _mv_slots(master: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The fp32 m and v slots (fp32 under a bf16 master too, as the
+    reference keeps them, :57-61)."""
+    return {"m": torch.zeros_like(master, dtype=torch.float32),
+            "v": torch.zeros_like(master, dtype=torch.float32)}
+
+
 class FlatFusedOptimizer:
-    """Base: one fused kernel sweep over the flat buffers."""
+    """Base: one fused kernel sweep over the flat buffers.
+    ``master_dtype=torch.bfloat16`` with ``stochastic_rounding=True``: a
+    bf16 master written with stochastic rounding (the module
+    docstring)."""
 
     def __init__(self, lr: Schedule, *, master_dtype=torch.float32,
                  stochastic_rounding: bool = False):
-        if stochastic_rounding or master_dtype != torch.float32:
-            raise NotImplementedError(
-                "a reduced-precision master with stochastic rounding is "
-                "not ported yet; the master is fp32")
         self.lr = lr
-        self.master_dtype = master_dtype
+        self.stochastic_rounding = bool(stochastic_rounding)
+        self.master_dtype = validate_master_dtype(master_dtype,
+                                                  self.stochastic_rounding)
+
+    def _sr_seed(self, state: "FlatOptState") -> Optional[int]:
+        """The step's stochastic-rounding seed (None without SR): the
+        unskipped step count, so each step rounds with a fresh stream and
+        a resumed state replays it (:126-130)."""
+        return state.count if self.stochastic_rounding else None
 
     # -- subclass hooks ----------------------------------------------------
 
@@ -124,6 +179,7 @@ class FlatFusedOptimizer:
     def init(self, params: Mapping[str, torch.Tensor]) -> FlatOptState:
         """The state for ``params`` (a name -> tensor mapping, e.g.
         ``dict(model.named_parameters())``), on the params' device."""
+        check_leaf_dtypes(params, self.master_dtype)
         space = FlatSpace.create(params)
         master = space.pack(params, dtype=self.master_dtype)
         return FlatOptState(
@@ -135,7 +191,8 @@ class FlatFusedOptimizer:
              **kw) -> Tuple[Dict[str, torch.Tensor], FlatOptState]:
         """:meth:`step_flat` for gradients given per parameter name
         (packed into the flat layout first: one extra read and write of
-        the gradients)."""
+        the gradients). The returned params take each leaf's own dtype
+        (the reference's master -> model cast)."""
         g = state.space.pack(grads, dtype=torch.float32,
                              device=state.master.device)
         return self.step_flat(state, g, **kw)
@@ -154,8 +211,9 @@ class FlatFusedOptimizer:
     ) -> Tuple[Dict[str, torch.Tensor], FlatOptState]:
         """One optimizer step on gradients already in the flat layout.
 
-        Returns ``(params, new_state)``, ``params`` being views of the
-        new master by name. With ``skip_if_nonfinite`` the update is
+        Returns ``(params, new_state)``, ``params`` being the new master
+        by name (views; a leaf whose dtype differs from the master's comes
+        back cast to its own). With ``skip_if_nonfinite`` the update is
         discarded when any gradient (or ``extra_found_inf``) is
         non-finite, and the count then counts only unskipped steps.
         ``global_grad_norm`` hands a precomputed (device) norm to an
@@ -192,8 +250,8 @@ class FlatFusedOptimizer:
         return state.space.unpack(new_master), new_state
 
     def master_params(self, state: FlatOptState) -> Dict[str, torch.Tensor]:
-        """fp32 views of the master weights by name (the reference's
-        ``master_params``, :265)."""
+        """Views of the master weights by name, in the master's dtype (the
+        reference's ``master_params``, :265)."""
         return state.space.unpack(state.master, dtype="buffer")
 
     def state_dict(self, state: FlatOptState) -> Dict[str, Any]:
@@ -229,7 +287,7 @@ class FusedAdam(FlatFusedOptimizer):
         self.weight_decay = weight_decay
 
     def _init_slots(self, space, master):
-        return {"m": torch.zeros_like(master), "v": torch.zeros_like(master)}
+        return _mv_slots(master)
 
     def _update(self, state, g, lr, grad_scale, in_place):
         p2, m2, v2, found = fused_adam_update(
@@ -238,7 +296,7 @@ class FusedAdam(FlatFusedOptimizer):
             step=state.count + 1, adam_w_mode=self.adam_w_mode,
             bias_correction=self.bias_correction,
             weight_decay=self.weight_decay, grad_scale=grad_scale,
-            in_place=in_place)
+            in_place=in_place, sr_seed=self._sr_seed(state))
         return p2, {"m": m2, "v": v2}, found
 
 
@@ -263,9 +321,11 @@ class FusedLAMB(FlatFusedOptimizer):
     accesses, or re-read it, 8), ``seg_vmem_budget`` (bytes of shared
     memory the stash may take across one thread-block cluster of the
     segment kernel; default ``DEFAULT_SEG_SMEM_BUDGET``, eight blocks'
-    worth). A bf16 update-term stash (``seg_u_dtype``,
-    ``seg_allow_bf16_u``) is not ported yet and raises, as do
-    ``stochastic_rounding`` and a reduced-precision master.
+    worth), ``seg_u_dtype`` (the update term's stash: fp32, or bf16,
+    which halves it at ~2^-9 relative error in u; never chosen unless
+    ``seg_allow_bf16_u=True`` or named, as in the reference). With a
+    bf16 master the segment pass and the large leaves' stage 2 write p'
+    with stochastic rounding (``multi_tensor/segmented.py``).
     """
 
     def __init__(self, lr=1e-3, bias_correction=True, betas=(0.9, 0.999),
@@ -277,11 +337,9 @@ class FusedLAMB(FlatFusedOptimizer):
                  seg_vmem_budget=None):
         super().__init__(lr, master_dtype=master_dtype,
                          stochastic_rounding=stochastic_rounding)
-        if (seg_u_dtype is not None and seg_u_dtype != torch.float32) \
-                or seg_allow_bf16_u:
-            raise NotImplementedError(
-                "a bf16 update-term stash (seg_u_dtype / seg_allow_bf16_u) "
-                "is not ported yet; the segment kernel stashes u in fp32")
+        if seg_u_dtype not in (None, torch.float32, torch.bfloat16):
+            raise ValueError(f"seg_u_dtype must be float32 or bfloat16, got "
+                             f"{seg_u_dtype}")
         self.bias_correction = bias_correction
         self.betas = betas
         self.eps = eps
@@ -293,14 +351,16 @@ class FusedLAMB(FlatFusedOptimizer):
         self.segmented = bool(segmented)
         self.seg_elems = seg_elems
         self.seg_stash_p = seg_stash_p
+        self.seg_u_dtype = seg_u_dtype
+        self.seg_allow_bf16_u = bool(seg_allow_bf16_u)
         self.seg_vmem_budget = seg_vmem_budget
 
     def _segment_config(self, params: Mapping[str, torch.Tensor]
-                        ) -> Tuple[int, bool]:
-        """``(seg_elems, stash_p)``: explicit knobs win; the rest is
-        chosen for the fewest expected memory accesses an element within
-        the budget, as the reference chooses (:368-425), but counting
-        the elements each pass sweeps in the layout it would get
+                        ) -> Tuple[int, bool, torch.dtype]:
+        """``(seg_elems, stash_p, u_dtype)``: explicit knobs win; the rest
+        is chosen for the fewest expected memory accesses an element
+        within the budget, as the reference chooses (:368-425), but
+        counting the elements each pass sweeps in the layout it would get
         (:meth:`layout`), padding included: 7 accesses an element of the
         small segments (8 without the stash), 10 of the large leaves'
         segments. The reference takes the largest segment that fits and
@@ -308,7 +368,10 @@ class FusedLAMB(FlatFusedOptimizer):
         leaf rounded up to whole segments sweeps padding (at GPT-2 345M,
         196,608-element segments pad the matrices by 9.6 M elements;
         65,536 pads them by none). Every whole-chunk size up to the
-        budget is a candidate; ties go to the smaller stash."""
+        budget is a candidate; ties go to the smaller stash. The stash
+        takes u's size plus 4 bytes of p an element (the reference's
+        count, :393-397): a bf16 u is a candidate only with
+        ``seg_allow_bf16_u`` or when named."""
         budget = self.seg_vmem_budget or DEFAULT_SEG_SMEM_BUDGET
         if self.seg_elems is not None and self.seg_elems % CHUNK:
             raise ValueError(
@@ -319,27 +382,34 @@ class FusedLAMB(FlatFusedOptimizer):
                   for k, t in params.items()}
         total = max(sum(_round_up(t.numel(), DEFAULT_ALIGN)
                         for t in shapes.values()), 1)
+        u_dtypes = ((self.seg_u_dtype,) if self.seg_u_dtype is not None
+                    else (torch.float32, torch.bfloat16)
+                    if self.seg_allow_bf16_u else (torch.float32,))
         best = None
         for stash in ((self.seg_stash_p,) if self.seg_stash_p is not None
                       else (True, False)):
-            bpe, cost = (8, 7) if stash else (4, 8)
-            if self.seg_elems is not None:
-                segs = (self.seg_elems,)
-                over = self.seg_elems * bpe > budget
-            else:
-                top = min((budget // bpe) // CHUNK * CHUNK,
-                          _round_up(total, CHUNK))
-                segs = range(CHUNK, top + 1, CHUNK)
-                over = False
-            for seg in segs:
-                _, meta = segmented_space(_small_last(shapes, seg),
-                                          seg_elems=seg)
-                small = len(meta.small_segments) * seg
-                expected = (cost * small
-                            + 10 * (meta.n_segments * seg - small)) / total
-                key = (over, expected, seg * bpe)
-                if best is None or key < best[0]:
-                    best = (key, (seg, bool(stash)))
+            for u_dt in u_dtypes:
+                bpe = (2 if u_dt == torch.bfloat16 else 4) + (4 if stash
+                                                               else 0)
+                cost = 7 if stash else 8
+                if self.seg_elems is not None:
+                    segs = (self.seg_elems,)
+                    over = self.seg_elems * bpe > budget
+                else:
+                    top = min((budget // bpe) // CHUNK * CHUNK,
+                              _round_up(total, CHUNK))
+                    segs = range(CHUNK, top + 1, CHUNK)
+                    over = False
+                for seg in segs:
+                    _, meta = segmented_space(_small_last(shapes, seg),
+                                              seg_elems=seg)
+                    small = len(meta.small_segments) * seg
+                    expected = (cost * small
+                                + 10 * (meta.n_segments * seg - small)
+                                ) / total
+                    key = (over, expected, seg * bpe)
+                    if best is None or key < best[0]:
+                        best = (key, (seg, bool(stash), u_dt))
         if best is None:
             raise ValueError(f"no segment size fits the budget {budget} "
                              f"(seg_elems={self.seg_elems})")
@@ -356,14 +426,17 @@ class FusedLAMB(FlatFusedOptimizer):
         proj.w, ...) each run of biases and norms would take a mostly
         empty segment of its own, which both LAMB passes would sweep.
         Leaves are bound and loaded by name, so the order is free."""
-        seg, stash_p = self._segment_config(params)
+        seg, stash_p, u_dtype = self._segment_config(params)
         space, meta = segmented_space(_small_last(params, seg),
                                       seg_elems=seg)
-        return space, dataclasses.replace(meta, stash_p=stash_p)
+        return space, dataclasses.replace(
+            meta, stash_p=stash_p,
+            u_dtype_name=str(u_dtype).replace("torch.", ""))
 
     def init(self, params: Mapping[str, torch.Tensor]) -> FlatOptState:
         if not self.segmented:
             return super().init(params)
+        check_leaf_dtypes(params, self.master_dtype)
         space, meta = self.layout(params)
         master = space.pack(params, dtype=self.master_dtype)
         return FlatOptState(
@@ -373,7 +446,7 @@ class FusedLAMB(FlatFusedOptimizer):
             seg_meta=meta)
 
     def _init_slots(self, space, master):
-        return {"m": torch.zeros_like(master), "v": torch.zeros_like(master)}
+        return _mv_slots(master)
 
     def _update(self, state, g, lr, grad_scale, in_place,
                 global_grad_norm=None, with_grad_norm=False):
@@ -385,7 +458,7 @@ class FusedLAMB(FlatFusedOptimizer):
             max_grad_norm=self.max_grad_norm, adam_w_mode=self.adam_w_mode,
             use_nvlamb=self.use_nvlamb, grad_scale=grad_scale,
             global_grad_norm=global_grad_norm, with_grad_norm=with_grad_norm,
-            in_place=in_place)
+            in_place=in_place, sr_seed=self._sr_seed(state))
         args = (state.master, state.slots["m"], state.slots["v"], g,
                 state.space)
         if self.segmented and state.seg_meta is not None:
@@ -401,7 +474,7 @@ def _first_run_slots(master: torch.Tensor) -> Dict[str, torch.Tensor]:
     0-d fp32 tensor on the master's device that the kernels read by
     pointer (its first-run branch, :503), so no step reads it on the
     host."""
-    return {"momentum": torch.zeros_like(master),
+    return {"momentum": torch.zeros_like(master, dtype=torch.float32),
             "initialized": torch.zeros((), dtype=torch.float32,
                                        device=master.device)}
 
@@ -439,7 +512,8 @@ class FusedSGD(FlatFusedOptimizer):
             nesterov=self.nesterov, weight_decay=self.weight_decay,
             wd_after_momentum=self.wd_after_momentum,
             scale=_inv_scale(grad_scale, g.device),
-            first_run=state.slots["initialized"] == 0, in_place=in_place)
+            first_run=state.slots["initialized"] == 0, in_place=in_place,
+            sr_seed=self._sr_seed(state))
         return p2, _momentum_slots(state, mom2), found
 
 
@@ -467,7 +541,7 @@ class FusedNovoGrad(FlatFusedOptimizer):
         self.bias_correction = bias_correction
 
     def _init_slots(self, space, master):
-        return {"m": torch.zeros_like(master),
+        return {"m": torch.zeros_like(master, dtype=torch.float32),
                 "v": torch.zeros(space.num_leaves, dtype=torch.float32,
                                  device=master.device)}
 
@@ -482,7 +556,8 @@ class FusedNovoGrad(FlatFusedOptimizer):
             lr=lr, beta1=self.betas[0], beta2=self.betas[1], eps=self.eps,
             step=state.count + 1, weight_decay=self.weight_decay,
             grad_averaging=self.grad_averaging,
-            bias_correction=self.bias_correction, in_place=in_place)
+            bias_correction=self.bias_correction, in_place=in_place,
+            sr_seed=self._sr_seed(state))
         return p2, {"m": m2, "v": v2}, found
 
 
@@ -501,13 +576,13 @@ class FusedAdagrad(FlatFusedOptimizer):
         self.weight_decay = weight_decay
 
     def _init_slots(self, space, master):
-        return {"h": torch.zeros_like(master)}
+        return {"h": torch.zeros_like(master, dtype=torch.float32)}
 
     def _update(self, state, g, lr, grad_scale, in_place):
         p2, h2, found = fused_adagrad_update(
             state.master, state.slots["h"], g, lr=lr, eps=self.eps,
             weight_decay=self.weight_decay, grad_scale=grad_scale,
-            in_place=in_place)
+            in_place=in_place, sr_seed=self._sr_seed(state))
         return p2, {"h": h2}, found
 
 
@@ -543,21 +618,41 @@ class FusedLARS(FlatFusedOptimizer):
             momentum=self.momentum, weight_decay=self.weight_decay,
             trust_coefficient=self.trust_coefficient, eps=self.eps,
             clip=self.clip, first_run=state.slots["initialized"] == 0,
-            in_place=in_place)
+            in_place=in_place, sr_seed=self._sr_seed(state))
         return p2, _momentum_slots(state, mom2), found
 
 
 class FusedMixedPrecisionLamb(FusedLAMB):
-    """Not ported yet: the reference's bf16-master LAMB needs the
-    stochastic-rounding outputs of the kernels."""
+    """LAMB over a tree of fp32 and reduced-precision leaves (the
+    reference's ``FusedMixedPrecisionLamb``, :608-647; its own reference
+    is apex's ``fused_mixed_precision_lamb.py``). It is FusedLAMB with an
+    fp32 master: every leaf is packed into the fp32 master, updated
+    there, and ``step`` returns each leaf in its own dtype (the
+    master -> model cast for the reduced leaves, the direct fp32 update
+    for the rest). ``reduced_precision_dtype`` validates the reference's
+    contract at init: every leaf is fp32 or that dtype. It is not a
+    stochastic-rounding optimizer: for a bf16 master written with SR,
+    use ``FusedLAMB(master_dtype=torch.bfloat16,
+    stochastic_rounding=True)``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FusedMixedPrecisionLamb (a bf16 master with stochastic "
-            "rounding) is not ported yet; use FusedLAMB with the fp32 "
-            "master")
+    def __init__(self, *args, reduced_precision_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.reduced_precision_dtype = reduced_precision_dtype
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> FlatOptState:
+        if self.reduced_precision_dtype is not None:
+            bad = {str(t.dtype).replace("torch.", "")
+                   for t in params.values()
+                   if t.dtype not in (torch.float32,
+                                      self.reduced_precision_dtype)}
+            if bad:
+                rp = str(self.reduced_precision_dtype).replace("torch.", "")
+                raise ValueError(f"params must be float32 or {rp}; found "
+                                 f"{sorted(bad)}")
+        return super().init(params)
 
 
 __all__ = ["FlatFusedOptimizer", "FlatOptState", "FusedAdagrad", "FusedAdam",
            "FusedLAMB", "FusedLARS", "FusedMixedPrecisionLamb",
-           "FusedNovoGrad", "FusedSGD"]
+           "FusedNovoGrad", "FusedSGD", "check_leaf_dtypes",
+           "validate_master_dtype"]

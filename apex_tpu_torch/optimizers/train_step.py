@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from apex_tpu_torch.amp.scaler import LossScaler, ScalerState
+from apex_tpu_torch.multi_tensor.engine import sqrt_rn
 from apex_tpu_torch.multi_tensor.ops import _dev_f32, fused_unscale_l2norm
 from apex_tpu_torch.optimizers.fused import (
     FlatFusedOptimizer,
@@ -110,7 +111,7 @@ class TrainStep:
             gnorm_pt = outs[2]
             if loss_scale is not None:
                 gnorm_pt = gnorm_pt / _dev_f32(loss_scale, dev)
-            unscaled_norm = torch.sqrt(torch.sum(gnorm_pt * gnorm_pt))
+            unscaled_norm = sqrt_rn(torch.sum(gnorm_pt * gnorm_pt))
         aux = StepAux(found_inf=new_state.found_inf, grad_norm=unscaled_norm,
                       grad_norm_per_tensor=gnorm_pt, loss_scale=loss_scale)
         if scaler_state is not None:

@@ -197,9 +197,33 @@ Phases, in order; any failure exits non-zero before the last line:
    3's tokens, a second run replays every stream token for token, the
    sampler on the host draws the card's token from the card's logits at
    every dispatch; TPOT and tokens/s beside phase 3's.
-12. Each phase's wall seconds, the ``kernels`` JSON line (all twenty-five
-   kernels, each with its launches on its path), then the device line
-   the caller reads.
+12. Master-free bf16 training with stochastic rounding (SR): (a) each
+   SR kernel against its plain version on the card: the SR cast
+   (``csrc/stochastic_round.cu``) at GPT-2 345M's buffer, bitwise, an
+   eighth of 2^24 copies of 1 + 2^-10 rounded up (within 0.1%), a
+   fixed seed replayed bitwise; the Adam, Adagrad and NovoGrad SR
+   kernels and LAMB's stage 1 over a bf16 p and stage 2 with SR (over
+   the whole buffer and over the large leaves' segments, a key per
+   leaf) at GPT-2 345M's buffers, SGD and LARS (and LARS's ||p|| over a
+   bf16 p) at ResNet-50's: p' and the slots bitwise, an inf setting
+   found_inf with the state left as it was; the segment pass with SR
+   over BERT-Large's segmented layout, p stash on and off, u fp32 and
+   bf16: m', v' bitwise, p' within one bf16 ulp. Each beside the same
+   kernel over an fp32 master, its plain version and its bound. (b)
+   BERT-Large (bf16 parameters) with phase 6's FusedLAMB (NVLAMB) over a
+   bf16 master with SR, ten steps on phase 6's batch beside phase 6's
+   step in this call: exact launches a step of the SR segment and stage
+   kernels, losses finite and falling, step time, tokens/s, peak
+   memory, one profiled step; batch 2 against the plain path (phase 6's
+   tolerances) and one update on the real gradient (m', v' bitwise, p'
+   within one ulp). (c) GPT-2 345M with phase 4's FusedAdam over a bf16
+   master, ten steps beside phase 4's, batch 2 and one update (bitwise)
+   against the plain versions, then a step under the loss scaler with an
+   inf: skipped bitwise, the count not advanced, the next step's p' the
+   one the skipped step would have written.
+13. Each phase's wall seconds, the ``kernels`` JSON line (all thirty-five
+   kernels and variants, each with its launches on its path), then the
+   device line the caller reads.
 
 Needs a CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``); exits 1 without printing a result otherwise.
@@ -243,7 +267,7 @@ from apex_tpu_torch.multi_tensor import (
     fused_lamb_segmented_update,
     fused_unscale_l2norm,
 )
-from apex_tpu_torch.multi_tensor import engine
+from apex_tpu_torch.multi_tensor import engine, segmented
 from apex_tpu_torch.multi_tensor import ops as mt_ops
 from apex_tpu_torch.multi_tensor.segmented import SEGMENT_KERNEL
 from apex_tpu_torch.models.gpt import KERNEL_OPS, PLAIN_OPS
@@ -3886,6 +3910,641 @@ def serve_sampled(seed: int, dev, card: str, srv: dict) -> dict:
             "tokens": {i: r.tokens for i, r in res.items()}}
 
 
+# -- phase 12: master-free bf16 training with stochastic rounding --------------
+
+# the seed (the optimizer's step count) the phase-12a kernels round with
+SR_SEED = 3
+# 2^24 copies of 1 + 2^-10, 1/8 of a bf16 ulp above 1: the share rounded
+# up must be 1/8 within 0.1% (a binomial's sd there is 0.008%)
+SR_UNBIASED_N = 1 << 24
+SR_UP_TOL = 1e-3
+# integer operations a threefry-hashed element costs (csrc/sr_common.cuh:
+# 20 rounds, the key injections, the add and truncation), as dropout.cu's
+SR_HASH_OPS = 84
+# the bf16-master paths (12b, 12c): phase 6's and phase 4's settings with
+# master_dtype=bf16 and stochastic_rounding=True
+SR_OPT = dict(master_dtype=torch.bfloat16, stochastic_rounding=True)
+SR_STEPS = 10
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance between two bf16 buffers in ulps (bit
+    patterns of same-sign values)."""
+    return int((a.view(torch.int16).int() - b.view(torch.int16).int())
+               .abs().max())
+
+
+def _sr_row(name, source, n, err, run, plain_run, fp32_run, nbytes_, ops,
+            shape, library_run=None, **extra) -> dict:
+    """Time an SR kernel (CUDA graph replay), its plain version (host
+    clock), the same kernel over an fp32 master (the yardstick) and, where
+    one PyTorch call computes the same function (none rounds
+    stochastically), that call, with its bound: bytes over 3.35 TB/s or
+    integer and fp32 operations over 67 T/s, whichever is larger."""
+    ms = device_ms(run, iters=5, replays=3)
+    plain_ms = host_ms(plain_run, iters=1, warmup=1)
+    fp32_ms = device_ms(fp32_run, iters=5, replays=3) if fp32_run else None
+    lib_ms = device_ms(library_run) if library_run else None
+    b_ms, by = bound(nbytes_, ops, PEAK_FP32_FLOPS)
+    fmt = lambda x: "none" if x is None else f"{x:.5f}"  # noqa: E731
+    print(f"    {name}: ms={ms:.5f} plain_ms={plain_ms:.5f} fp32_master_ms="
+          f"{fmt(fp32_ms)} library_ms={fmt(lib_ms)} bound_ms={b_ms:.5f} "
+          f"({by})")
+    return {"name": name, "route": "cuda",
+            "source": f"apex_tpu_torch/csrc/{source}",
+            "replaces": extra.pop("replaces",
+                                  "apex_tpu/multi_tensor/engine.py:84"),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "fp32_master_ms": fp32_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms, "shape": shape, **extra}
+
+
+def sr_cast_case(dev) -> dict:
+    """``stochastic_round_cast`` at GPT-2 345M's buffer, bitwise against
+    its plain version; unbiased on 2^24 copies of 1 + 2^-10; a fixed seed
+    replays bitwise."""
+    n = gpt_flat_size(GPTConfig.gpt2_345m())
+    x = _seeded(n, dev, 30, 2e-2)
+    x[:3] = torch.tensor([float("inf"), -float("inf"), float("nan")])
+    got = engine.stochastic_round_cast(x, SR_SEED, 0)
+    want = engine.stochastic_round_cast(x, SR_SEED, 0, plain=True)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    err = float((got.float() - want.float())[3:].abs().max())
+    del want
+    ones = torch.full((SR_UNBIASED_N,), 1.0 + 2.0 ** -10, device=dev)
+    y = engine.stochastic_round_cast(ones, 11)
+    up = float((y.float() > 1.0).float().mean())
+    replay = torch.equal(y.view(torch.int16),
+                         engine.stochastic_round_cast(ones, 11)
+                         .view(torch.int16))
+    del ones, y
+    print(f"  {engine.SR_CAST_KERNEL} n={n} fp32 -> bf16: bitwise={bitwise}"
+          f" (inf, -inf, nan included); 2^24 x (1 + 2^-10): rounded up "
+          f"{up:.6f} (1/8 within {SR_UP_TOL}); fixed-seed replay bitwise "
+          f"{replay}")
+    check(bitwise and replay and abs(up - 0.125) <= SR_UP_TOL,
+          "stochastic_round kernel: not bitwise, not unbiased or not "
+          "replayed")
+    launches = _direct(lambda: engine.stochastic_round_cast(x, SR_SEED))
+    return _sr_row(
+        engine.SR_CAST_KERNEL, "stochastic_round.cu", n, err,
+        lambda: engine.stochastic_round_cast(x, SR_SEED),
+        lambda: engine.stochastic_round_cast(x, SR_SEED, plain=True), None,
+        6 * n, SR_HASH_OPS * n, f"n={n} fp32 -> bf16 (GPT-2 345M flat "
+        "buffer)", replaces="apex_tpu/multi_tensor/engine.py:48",
+        up_share=up, direct_launches=launches)
+
+
+def _sr_update(name, fn, p32, slots, n, shape, nbytes_, ops, source,
+               dev) -> dict:
+    """One functor's SR kernel: ``fn(p, slots, plain)`` runs the update
+    in place on ``p`` (bf16 with SR, or fp32) and ``slots``; the kernel
+    against the plain version on copies (p' and the slots bitwise), its
+    launch count on one call, then the times."""
+    pb = p32.bfloat16()
+    copies = lambda: [t.clone() for t in slots]       # noqa: E731
+    got = fn(pb.clone(), copies(), False)
+    want = fn(pb.clone(), copies(), True)
+    torch.cuda.synchronize()
+    p_bitwise = torch.equal(got[0].view(torch.int16),
+                            want[0].view(torch.int16))
+    s_bitwise = all(torch.equal(a, b) for a, b in zip(got[1:], want[1:])
+                    if isinstance(a, torch.Tensor) and a.ndim)
+    err = float((got[0].float() - want[0].float()).abs().max())
+    del got, want
+    print(f"  {name} n={n} bf16 p (SR, seed {SR_SEED}): p' bitwise="
+          f"{p_bitwise}, slots bitwise={s_bitwise}, max_abs_err={err:.3e}")
+    check(p_bitwise and s_bitwise, f"{name}: SR kernel disagrees with its "
+          "plain version")
+    launches = _direct(lambda: fn(pb, slots, False))
+    return _sr_row(name, source, n, err, lambda: fn(pb, slots, False),
+                   lambda: fn(pb.clone(), copies(), True),
+                   lambda: fn(p32, slots, False), nbytes_,
+                   ops + SR_HASH_OPS * n, shape, direct_launches=launches)
+
+
+def _direct(run) -> dict:
+    """The launch counts of one call of ``run``, set to 0 just before:
+    the path of a kernel that no model path of this script runs."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    return _build.launch_counts()
+
+
+def sr_update_cases(dev) -> list:
+    """12a: each functor's SR kernel against its plain version. Adam,
+    Adagrad, NovoGrad and LAMB stage 1 / stage 2 (whole buffer and the
+    large leaves' segment list, keys per leaf) at GPT-2 345M's buffers;
+    SGD and LARS (and LARS's ||p|| over a bf16 p) at ResNet-50's."""
+    cfg = GPTConfig.gpt2_345m()
+    space = FlatSpace.create(gpt_leaves(cfg))
+    n = space.total
+    ids = space.device_subtile_leaf_ids(dev)
+    p32 = _seeded(n, dev, 31, 2e-2)
+    g = _seeded(n, dev, 32, 1e-2)
+    rows = []
+    gshape = f"n={n} (GPT-2 345M flat buffers), bf16 p, fp32 slots"
+    m, v = _seeded(n, dev, 33, 1e-3), _seeded(n, dev, 34, 1e-6, True)
+    kw = dict(lr=1e-4, weight_decay=0.01, step=3)
+
+    def adam(p, s, plain):
+        return fused_adam_update(
+            p, s[0], s[1], g, plain=plain,
+            sr_seed=SR_SEED if p.dtype == torch.bfloat16 else None, **kw)
+
+    rows.append(_sr_update(mt_ops.ADAM_KERNEL + mt_ops.SR_SUFFIX, adam, p32,
+                           [m, v], n, gshape, 24 * n, 16 * n,
+                           "fused_adam.cu", dev))
+    bad = g.clone()
+    bad[n // 5] = float("inf")
+    pb = p32.bfloat16()
+    before = [pb.clone(), m.clone(), v.clone()]
+    *_, found = fused_adam_update(pb, m, v, bad, in_place=False,
+                                  sr_seed=SR_SEED, **kw)
+    untouched = all(torch.equal(a, b) for a, b in zip((pb, m, v), before))
+    print(f"  fused_adam_sr with an inf: found_inf={float(found)}, state "
+          f"untouched={untouched}")
+    check(float(found) == 1.0 and untouched, "fused_adam_sr found_inf / "
+          "skip wrong")
+    del bad, before, pb
+
+    def adagrad(p, s, plain):
+        return mt_ops.fused_adagrad_update(
+            p, s[0], g, lr=1e-3, weight_decay=0.01, plain=plain,
+            sr_seed=SR_SEED if p.dtype == torch.bfloat16 else None)
+
+    rows.append(_sr_update(mt_ops.ADAGRAD_KERNEL + mt_ops.SR_SUFFIX, adagrad,
+                           p32, [v], n, gshape, 16 * n, 7 * n,
+                           "adagrad_novograd.cu", dev))
+    denom = torch.rand(space.num_leaves, device=dev).add_(0.5)
+
+    def novograd(p, s, plain):
+        return mt_ops.novograd_apply(
+            p, s[0], g, denom, lr=1e-2, beta1=0.95, beta3=0.05,
+            weight_decay=1e-3, bc1=torch.tensor(1.0), tile_ids=ids,
+            plain=plain,
+            sr_seed=SR_SEED if p.dtype == torch.bfloat16 else None)
+
+    rows.append(_sr_update(mt_ops.NOVOGRAD_KERNEL + mt_ops.SR_SUFFIX,
+                           novograd, p32, [m], n, gshape, 16 * n, 6 * n,
+                           "adagrad_novograd.cu", dev))
+    del denom
+    rows += _sr_lamb_cases(dev, cfg, space, ids, p32, m, v, g)
+    del p32, m, v, g
+    torch.cuda.empty_cache()
+    rspace = resnet_space()
+    rn = rspace.total
+    rids = rspace.device_subtile_leaf_ids(dev)
+    rp, rmom, rg = (_seeded(rn, dev, 40 + i, s_) for i, s_ in
+                    enumerate((1.0, 1e-2, 1e-2)))
+    rshape = f"n={rn} (ResNet-50 flat buffers), bf16 p, fp32 momentum"
+
+    def sgd(p, s, plain):
+        return mt_ops.fused_sgd_update(
+            p, s[0], rg, lr=0.1, momentum=0.9, weight_decay=1e-4,
+            plain=plain,
+            sr_seed=SR_SEED if p.dtype == torch.bfloat16 else None)
+
+    rows.append(_sr_update(mt_ops.SGD_KERNEL + mt_ops.SR_SUFFIX, sgd, rp,
+                           [rmom], rn, rshape, 16 * rn, 7 * rn,
+                           "fused_sgd.cu", dev))
+    rpb = rp.bfloat16()
+    got = engine.fused_sumsq_partials(rpb, 16)
+    want = engine.fused_sumsq_partials(rpb, 16, plain=True)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    print(f"  {engine.SUMSQ_KERNEL}_bf16 over ResNet-50's bf16 p (LARS's "
+          f"||p||): per-subtile max_rel_err={rel:.3e} (tol {SUMSQ_REL_TOL})")
+    check(rel <= SUMSQ_REL_TOL, "sumsq over a bf16 buffer disagrees with "
+          "its plain version")
+    launches = _direct(lambda: engine.fused_sumsq_partials(rpb, 16))
+    sumsq_row = _sr_row(
+        engine.SUMSQ_KERNEL + "_bf16", "sumsq.cu", rn,
+        float((got - want).abs().max()),
+        lambda: engine.fused_sumsq_partials(rpb, 16),
+        lambda: engine.fused_sumsq_partials(rpb, 16, plain=True),
+        lambda: engine.fused_sumsq_partials(rp, 16), 2 * rn + 4 * (rn // 2048),
+        2 * rn, f"n={rn} bf16 (ResNet-50), 2048-element tiles",
+        library_run=lambda: torch.linalg.vector_norm(rpb,
+                                                     dtype=torch.float32),
+        replaces="apex_tpu/multi_tensor/engine.py:519", max_rel_err=rel,
+        direct_launches=launches)
+    rows.append(sumsq_row)
+    ratio = mt_ops.lars_ratio(mt_ops.per_tensor_l2norm(rpb, rspace),
+                              mt_ops.per_tensor_l2norm(rg, rspace),
+                              trust_coefficient=0.02, weight_decay=1e-4,
+                              eps=1e-8, clip=True)
+
+    def lars(p, s, plain):
+        return mt_ops.lars_apply(
+            p, s[0], rg, ratio, lr=0.1, momentum=0.9, weight_decay=1e-4,
+            tile_ids=rids, plain=plain,
+            sr_seed=SR_SEED if p.dtype == torch.bfloat16 else None)
+
+    rows.append(_sr_update(mt_ops.LARS_KERNEL + mt_ops.SR_SUFFIX, lars, rp,
+                           [rmom], rn, rshape, 16 * rn, 5 * rn,
+                           "fused_sgd.cu", dev))
+    return rows
+
+
+def _sr_lamb_cases(dev, cfg, space, ids, p32, m, v, g) -> list:
+    """LAMB stage 1 over a bf16 p (u, m', v' bitwise), stage 2 with SR
+    over the whole buffer and over the large leaves' segments of
+    FusedLAMB's segmented GPT-2 345M layout (p' bitwise given the same
+    ratios)."""
+    n = space.total
+    pb = p32.bfloat16()
+    kw = dict(beta1=0.9, beta2=0.999, beta3=0.1, eps=1e-6,
+              weight_decay=0.01, bias_correction1=0.271,
+              bias_correction2=0.002997, adam_w_mode=True,
+              inv_scale=torch.tensor(1.75, device=dev),
+              with_norm_partials=True, in_place=False)
+    got, _ = mt_ops.fused_lamb_compute_update_term(pb, m, v, g, **kw)
+    want, _ = mt_ops.fused_lamb_compute_update_term(pb, m, v, g, plain=True,
+                                                    **kw)
+    torch.cuda.synchronize()
+    bitwise = _bitwise(got[:3], want[:3])
+    part_rel = max(float(((a.sum(-1) - b.sum(-1)).abs()
+                          / b.sum(-1).abs().clamp_min(1e-30)).max())
+                   for a, b in zip(got[3:], want[3:]))
+    err = max(float((a - b).abs().max()) for a, b in zip(got[:3], want[:3]))
+    print(f"  {mt_ops.LAMB_STAGE1_BF16_KERNEL} n={n}: u/m'/v' bitwise="
+          f"{bitwise}; partials max_rel_err={part_rel:.3e}")
+    check(bitwise and part_rel <= SUMSQ_REL_TOL, "lamb_stage1 over a bf16 "
+          "p disagrees with its plain version")
+    u = got[0]
+    del got, want
+    rows = [_sr_row(
+        mt_ops.LAMB_STAGE1_BF16_KERNEL, "fused_lamb.cu", n, err,
+        lambda: mt_ops.fused_lamb_compute_update_term(pb, m, v, g, **kw),
+        lambda: mt_ops.fused_lamb_compute_update_term(pb, m, v, g,
+                                                      plain=True, **kw),
+        lambda: mt_ops.fused_lamb_compute_update_term(p32, m, v, g, **kw),
+        26 * n + 8 * (n // 2048), 22 * n, f"n={n} (GPT-2 345M plain flat "
+        "space), bf16 p, with the p and u partials")]
+    ratio = torch.rand(space.num_leaves, device=dev).add_(0.5)
+    s2 = lambda p, plain=False: mt_ops.lamb_apply(  # noqa: E731
+        p, u, ratio, lr=1e-3, tile_ids=ids, in_place=False, plain=plain,
+        sr_seed=SR_SEED if p.dtype == torch.bfloat16 else None)
+    a, b = s2(pb), s2(pb, True)
+    torch.cuda.synchronize()
+    whole = torch.equal(a.view(torch.int16), b.view(torch.int16))
+    err2 = float((a.float() - b.float()).abs().max())
+    del a, b
+    # the segment list: the large leaves of FusedLAMB's GPT-2 layout, each
+    # with its own stream (key per leaf, index within the leaf)
+    sspace, meta, _ = segment_layout(cfg)
+    ns = sspace.total
+    segs, _, _ = meta.device_large(dev)
+    sp = _seeded(ns, dev, 35, 2e-2).bfloat16()
+    su = _seeded(ns, dev, 36, 1.0)
+    sratio = torch.rand(sspace.num_leaves, device=dev).add_(0.5)
+    sids = sspace.device_subtile_leaf_ids(dev)
+    streams = meta.device_large_streams(dev)
+    seg = lambda out, plain=False: mt_ops.lamb_stage2_segments(  # noqa
+        sp, su, out, sratio, sids, segs, meta.seg_elems, lr=1e-3,
+        seg_streams=streams, sr_seed=SR_SEED, plain=plain)
+    a, b = seg(sp.clone()), seg(sp.clone(), True)
+    torch.cuda.synchronize()
+    listed = torch.equal(a.view(torch.int16), b.view(torch.int16))
+    del a, b
+    large = segs.numel() * meta.seg_elems
+    print(f"  {mt_ops.LAMB_STAGE2_KERNEL}{mt_ops.SR_SUFFIX}: whole buffer "
+          f"n={n} p' bitwise={whole}; the {len(meta.large)} large leaves' "
+          f"{segs.numel()} segments ({large} elements, keys per leaf) p' "
+          f"bitwise={listed}")
+    check(whole and listed, "lamb_stage2 SR disagrees with its plain "
+          "version")
+    out = sp.clone()
+    row = _sr_row(
+        mt_ops.LAMB_STAGE2_KERNEL + mt_ops.SR_SUFFIX, "fused_lamb.cu", n,
+        err2, lambda: s2(pb), lambda: s2(pb, True), lambda: s2(p32),
+        8 * n + 4 * (n // 2048), (3 + SR_HASH_OPS) * n,
+        f"n={n} (GPT-2 345M plain flat space), bf16 p, per-leaf ratios")
+    seg_ms = device_ms(lambda: seg(out), iters=5, replays=3)
+    seg_plain_ms = host_ms(lambda: seg(out, True), iters=1, warmup=1)
+    # the same segment list over an fp32 master (no stochastic rounding)
+    sp32 = sp.float()
+    out32 = sp32.clone()
+    seg32_ms = device_ms(lambda: mt_ops.lamb_stage2_segments(
+        sp32, su, out32, sratio, sids, segs, meta.seg_elems, lr=1e-3),
+        iters=5, replays=3)
+    del sp32, out32
+    seg_bound, seg_by = bound(8 * large, (3 + SR_HASH_OPS) * large,
+                              PEAK_FP32_FLOPS)
+    print(f"    segment list ({large} elements): ms={seg_ms:.5f} "
+          f"plain_ms={seg_plain_ms:.5f} fp32_master_ms={seg32_ms:.5f} "
+          f"bound_ms={seg_bound:.5f} ({seg_by})")
+    row["cases"] = [{"segments": int(segs.numel()), "elements": large,
+                     "ms": seg_ms, "plain_ms": seg_plain_ms,
+                     "fp32_master_ms": seg32_ms, "bound_ms": seg_bound,
+                     "bound_by": seg_by}]
+    rows.append(row)
+    return rows
+
+
+def bert_leaves(cfg: BertConfig) -> dict:
+    """BERT of ``cfg``'s parameters in module order, as shapes on the
+    meta device, from a one-layer model's names."""
+    one = BertModel(dataclasses.replace(cfg, num_layers=1), device="cpu")
+    items = [(k, tuple(p_.shape)) for k, p_ in one.named_parameters()]
+    layer = [(k[len("layers.0."):], s_) for k, s_ in items
+             if k.startswith("layers.0.")]
+    out = {}
+    for k, s_ in items:
+        if k.startswith("layers.0."):
+            if k == "layers.0." + layer[0][0]:
+                for i in range(cfg.num_layers):
+                    for name, shp in layer:
+                        out[f"layers.{i}.{name}"] = torch.empty(
+                            shp, device="meta")
+            continue
+        out[k] = torch.empty(s_, device="meta")
+    return out
+
+
+def sr_segment_case(dev) -> dict:
+    """12a: the segment pass with SR over FusedLAMB's segmented layout of
+    BERT-Large (phase 6's optimizer), p stash on and off, u fp32 and
+    bf16: m', v' bitwise, p' within one bf16 ulp (the ratios' sums in
+    another order); the fp32-master pass beside it."""
+    from apex_tpu_torch.multi_tensor.segmented import _small_segment_pass
+    cfg = BertConfig.bert_large()
+    space, meta = FusedLAMB(lr=1e-4, weight_decay=0.01, max_grad_norm=1.0,
+                            use_nvlamb=True).layout(bert_leaves(cfg))
+    n = space.total
+    p32 = _seeded(n, dev, 50, 2e-2)
+    pb = p32.bfloat16()
+    m, v = _seeded(n, dev, 51, 1e-3), _seeded(n, dev, 52, 1e-6, True)
+    g = _seeded(n, dev, 53, 1e-2)
+    large_ids = {l_ for l_, _, _ in meta.large}
+    real = sum(space.sizes[i] for i in range(space.num_leaves)
+               if i not in large_ids)
+    scal = (0.9, 0.999, 0.1, 1e-6, 0.01, 0.271, 0.002997, 1.0)
+    base = dict(meta=meta, scalars=scal, inv_scale=1.0, lr=1e-4,
+                use_nvlamb=True, wd_is_zero=False)
+    outs = [torch.empty_like(pb), torch.empty_like(m), torch.empty_like(v)]
+    ref = [torch.empty_like(pb), torch.empty_like(m), torch.empty_like(v)]
+    cases, worst = [], 0
+    for stash in (True, False):
+        for u_dt in (torch.float32, torch.bfloat16):
+            kw = dict(base, stash_p=stash, u_dtype=u_dt, sr_seed=SR_SEED)
+            f, _ = _small_segment_pass(pb, m, v, g, outs, **kw)
+            wf, _ = _small_segment_pass(pb, m, v, g, ref, plain=True, **kw)
+            torch.cuda.synchronize()
+            small = torch.cat([torch.arange(s_ * meta.seg_elems,
+                                            (s_ + 1) * meta.seg_elems,
+                                            device=dev)
+                               for s_ in meta.small_segments])
+            mv = all(torch.equal(a[small].view(torch.int32),
+                                 b[small].view(torch.int32))
+                     for a, b in zip(outs[1:], ref[1:]))
+            ulps = _bf16_ulps(outs[0][small], ref[0][small])
+            worst = max(worst, ulps)
+            del small
+            print(f"  {segmented.SEGMENT_SR_KERNEL} stash_p={stash} u="
+                  f"{str(u_dt)[6:]}: m'/v' bitwise={mv}, p' within {ulps} "
+                  f"bf16 ulp (tol 1), found={float(f)}")
+            check(mv and ulps <= 1 and float(f) == 0.0,
+                  "lamb_segment SR disagrees with its plain version")
+            run = lambda kw=kw: _small_segment_pass(  # noqa: E731
+                pb, m, v, g, outs, **kw)
+            ms = device_ms(run, iters=5, replays=3)
+            plain_ms = host_ms(lambda kw=kw: _small_segment_pass(
+                pb, m, v, g, ref, plain=True, **kw), iters=1, warmup=1)
+            # the small leaves' own parameters: p (2 bytes, twice without
+            # the stash), m, v, g read, p', m', v' written; the hash
+            b_ms, by = bound((24 if stash else 26) * real,
+                             (25 + 12) * real, PEAK_FP32_FLOPS)
+            print(f"    ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms="
+                  f"{b_ms:.5f} ({by}) over {real} parameters")
+            cases.append({"stash_p": stash, "u_dtype": str(u_dt)[6:],
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                          "bound_by": by, "p_ulps": ulps})
+    fkw = dict(base, stash_p=True)
+    fp32_ms = device_ms(lambda: _small_segment_pass(p32, m, v, g,
+                                                    [p32, m, v], **fkw),
+                        iters=5, replays=3)
+    print(f"    the fp32-master pass (stash, u fp32): ms={fp32_ms:.5f}")
+    top = cases[0]
+    return {"name": segmented.SEGMENT_SR_KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/lamb_segment.cu",
+            "replaces": "apex_tpu/multi_tensor/segmented.py:126",
+            "max_abs_err": worst, "max_abs_err_unit": "bf16 ulp",
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "fp32_master_ms": fp32_ms, "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": None, "cases": cases,
+            "shape": f"{len(meta.small_segments)} small segments of "
+                     f"{meta.seg_elems} (BERT-Large segmented layout, "
+                     f"{real} parameters), bf16 p"}
+
+
+SR_PROFILE_SHARES = {"optimizer": OPT_KERNEL_KEYS + ("adam_kernel",)}
+
+
+def _grad_cast_ms(grad: torch.Tensor) -> float:
+    """Device ms of the fp32 copy of a bf16 master's flat gradient that
+    ``step_flat`` makes (``g.float()``, 6 bytes an element)."""
+    ms = device_ms(lambda: grad.float(), iters=5, replays=3)
+    print(f"  the gradient's fp32 copy (g.float(), {grad.numel()} bf16 -> "
+          f"fp32): {ms:.5f} ms, bound "
+          f"{6 * grad.numel() / PEAK_BYTES_PER_S * 1e3:.5f} ms (bytes)")
+    return ms
+
+
+def train_bert_sr(seed: int, dev, card: str, base: dict) -> dict:
+    """12b: BERT-Large (bf16 parameters, softmax backend) with phase 6's
+    FusedLAMB (NVLAMB) over a bf16 master with SR, ten steps on phase 6's
+    batch beside phase 6's fp32-master run in this call; at batch 2 the
+    loss and gradients through the kernels against the plain versions
+    (phase 6's tolerances), and one update on the real gradient through
+    the kernels against the plain versions (m', v' bitwise, p' within
+    one bf16 ulp)."""
+    cfg = BertConfig.bert_large(param_dtype=torch.bfloat16)
+    batch = bert_batch(seed, dev, cfg.vocab_size)
+    b2 = tuple(t[:2] for t in batch)
+    padded, real = len(BERT_LENS) * 512, sum(BERT_LENS)
+    t0 = time.perf_counter()
+    model = BertModel(cfg, device=dev, generator=torch.Generator()
+                      .manual_seed(seed)).bfloat16()
+    opt = FusedLAMB(lr=1e-4, weight_decay=0.01, max_grad_norm=1.0,
+                    use_nvlamb=True, **SR_OPT)
+    step = PretrainStep(model, opt, loss_fn=bert_loss)
+    state = step.init()
+    meta = state.seg_meta
+    print(f"  BERT-Large, bf16 master (SR): {state.master.numel()} bf16 "
+          f"elements, seg_elems {meta.seg_elems}, {len(meta.small_segments)}"
+          f" small segments, {len(meta.large)} large leaves; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    loss_k, gk = _bert_grads(step, model, b2)
+    loss_p, gp = _bert_grads(step, model.forward_plain, b2)
+    worst = max((float((a.float() - gp_.float()).norm()
+                       / gp_.float().norm().clamp_min(1e-30)), name)
+                for (name, a), gp_ in zip(
+                    state.space.unpack(gk, "buffer").items(),
+                    state.space.unpack(gp, "buffer").values()))
+    print(f"  batch 2, kernels vs plain: loss {loss_k:.5f} vs {loss_p:.5f} "
+          f"(tol {BERT_LOSS_TOL}); worst gradient relative L2 error "
+          f"{worst[0]:.3e} in {worst[1]} (tol {BERT_GRAD_REL_TOL})")
+    check(abs(loss_k - loss_p) <= BERT_LOSS_TOL and worst[0]
+          <= BERT_GRAD_REL_TOL, "BERT bf16 master: kernel path disagrees "
+          "with the plain path")
+    # one update on the real gradient, one norm handed to both
+    gf = gk.float()
+    norm, _ = mt_ops.multi_tensor_l2norm(gf)
+    ukw = dict(lr=1e-4, weight_decay=0.01, max_grad_norm=1.0,
+               use_nvlamb=True, step=1, global_grad_norm=norm,
+               in_place=False, sr_seed=0)
+    upd = [fused_lamb_segmented_update(
+        state.master, state.slots["m"], state.slots["v"], gf, state.space,
+        meta, plain=plain, **ukw) for plain in (False, True)]
+    torch.cuda.synchronize()
+    u_mv = _bitwise(upd[0][1:3], upd[1][1:3])
+    u_ulps = _bf16_ulps(upd[0][0], upd[1][0])
+    print(f"  one update on the real gradient, kernels vs plain: m'/v' "
+          f"bitwise {u_mv}, p' within {u_ulps} bf16 ulp (tol 1)")
+    check(u_mv and u_ulps <= 1, "BERT bf16 update: kernels disagree with "
+          "the plain versions")
+    del gk, gp, gf, upd
+    state, losses, times, launches = _train_loop(step, state, batch,
+                                                 SR_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = float(np.median(times[2:]))
+    print(f"  losses {[round(v_, 4) for v_ in losses]}")
+    print(f"  launches over {SR_STEPS} steps {launches}")
+    print(f"  BERT-Large bf16 master: step_ms median of steps 3-{SR_STEPS} "
+          f"{step_s * 1e3:.2f} against phase 6's fp32 master "
+          f"{base['step_ms']:.2f} in this call; tokens_per_s "
+          f"{padded / step_s:.0f} padded, {real / step_s:.0f} real; peak "
+          f"memory {peak / 2**30:.2f} GiB (phase 6 {base['peak_gib']:.2f}) "
+          f"on {card}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "BERT bf16 master: the loss is not finite or did not fall")
+    per_step = {segmented.SEGMENT_SR_KERNEL: 1,
+                mt_ops.LAMB_STAGE1_BF16_KERNEL: 1,
+                mt_ops.LAMB_STAGE2_KERNEL + mt_ops.SR_SUFFIX: 1,
+                engine.SUMSQ_KERNEL: 1,
+                softmax.MASKED_KERNEL: cfg.num_layers,
+                softmax.BWD_KERNEL: cfg.num_layers}
+    for k, c in per_step.items():
+        check(launches.get(k, 0) == c * SR_STEPS, f"BERT bf16: {k} "
+              f"launched {launches.get(k, 0)} times, not {c} a step")
+    for k in (SEGMENT_KERNEL, mt_ops.LAMB_STAGE1_KERNEL,
+              mt_ops.LAMB_STAGE2_KERNEL):
+        check(launches.get(k, 0) == 0, f"BERT bf16: the fp32 {k} launched")
+    prof = _profiled(lambda: step(state, *batch), "BERT bf16-master step",
+                     SR_PROFILE_SHARES)[1]
+    cast_ms = _grad_cast_ms(step.grad)
+    return {"grad_cast_ms": cast_ms, "launches": launches,
+            "steps": SR_STEPS, "losses": losses,
+            "step_ms": step_s * 1e3, "step_ms_all": [t * 1e3 for t in times],
+            "fp32_master_step_ms": base["step_ms"],
+            "tokens_per_s_padded": padded / step_s,
+            "tokens_per_s_real": real / step_s, "peak_gib": peak / 2**30,
+            "batch2_loss": [loss_k, loss_p], "batch2_grad_rel_err": worst,
+            "update_p_ulps": u_ulps, "profile": prof}
+
+
+def train_gpt_sr(seed: int, dev, card: str, base: dict) -> dict:
+    """12c: GPT-2 345M (bf16 parameters) with phase 4's FusedAdam over a
+    bf16 master with SR, ten steps on phase 4's batch beside phase 4's
+    run in this call; batch 2 kernels vs plain (phase 4's tolerances);
+    one Adam update on the real gradient, kernel vs plain, bitwise; then
+    a step under the dynamic loss scaler with an inf in the gradient:
+    skipped bitwise, the count not advanced, and the next step draws the
+    stream the skipped one would have."""
+    cfg = GPTConfig.gpt2_345m(param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = init_gpt_pretrain_params(
+        cfg, torch.Generator().manual_seed(seed), device=dev).bfloat16()
+    opt = FusedAdam(lr=1e-4, weight_decay=0.01, **SR_OPT)
+    step, state = make_gpt_pretrain_step(cfg, opt)(model)
+    x, y = _gpt_batch(seed, dev, cfg)
+    print(f"  GPT-2 345M, bf16 master (SR): {state.master.numel()} bf16 "
+          f"elements; set-up {time.perf_counter() - t0:.1f} s")
+    x2, y2 = x[:2], y[:2]
+    loss_k, gk = _grads(step, model, model, x2, y2)
+    loss_p, gp = _grads(step, model, model.forward_plain, x2, y2)
+    worst = max((float((a.float() - gp_.float()).norm()
+                       / gp_.float().norm().clamp_min(1e-30)), name)
+                for (name, a), gp_ in zip(
+                    state.space.unpack(gk, "buffer").items(),
+                    state.space.unpack(gp, "buffer").values()))
+    print(f"  batch 2, kernels vs plain: loss {loss_k:.5f} vs {loss_p:.5f} "
+          f"(tol {TRAIN_LOSS_TOL}); worst gradient relative L2 error "
+          f"{worst[0]:.3e} in {worst[1]} (tol {TRAIN_GRAD_REL_TOL})")
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_TOL
+          and worst[0] <= TRAIN_GRAD_REL_TOL, "GPT bf16 master: kernel path "
+          "disagrees with the plain path")
+    gf = gk.float()
+    upd = [fused_adam_update(state.master, state.slots["m"],
+                             state.slots["v"], gf, lr=1e-4,
+                             weight_decay=0.01, step=1, in_place=False,
+                             sr_seed=0, plain=plain) for plain in (False, True)]
+    torch.cuda.synchronize()
+    u_ok = (torch.equal(upd[0][0].view(torch.int16),
+                        upd[1][0].view(torch.int16))
+            and _bitwise(upd[0][1:3], upd[1][1:3]))
+    print(f"  one Adam update on the real gradient, kernel vs plain: "
+          f"bitwise {u_ok}")
+    check(u_ok, "GPT bf16 Adam update: kernel disagrees with the plain "
+          "version")
+    del gk, gp, gf, upd
+    state, losses, times, launches = _train_loop(step, state, (x, y),
+                                                 SR_STEPS)
+    out = _run_summary("GPT-2 345M bf16 master", losses, times, launches,
+                       torch.cuda.max_memory_allocated(), card, cfg)
+    print(f"  against phase 4's fp32 master in this call: step_ms "
+          f"{base['step_ms']:.2f}, peak {base['peak_gib']:.2f} GiB")
+    check(losses[-1] < losses[0], "GPT bf16 master: the loss did not fall")
+    _check_launches("GPT bf16 master", launches,
+                    {mt_ops.ADAM_KERNEL + mt_ops.SR_SUFFIX: 1,
+                     mt_ops.ADAM_KERNEL: 0}, SR_STEPS)
+    (state, _), out["profile"] = _profiled(
+        lambda: step(state, x, y), "GPT bf16-master step", SR_PROFILE_SHARES)
+    state, out["split"] = split_step(step, state, x, y)
+    out["grad_cast_ms"] = _grad_cast_ms(step.grad)
+    # the scaler: an inf in the gradient is skipped, count unmoved, and
+    # the next step rounds with the stream the skipped one would have
+    tstep = make_train_step(opt, scaler=LossScaler())
+    sstep = PretrainStep(model, opt, train_step=tstep)
+    ss = tstep.scaler.init()
+    sstep.backward(state, x, y, scaler_state=ss)
+    real_grad = sstep.grad.clone()
+    replica = state._replace(master=state.master.clone(), slots={
+        k: t_.clone() for k, t_ in state.slots.items()})
+    expect, _, _ = tstep(replica, real_grad, ss)
+    master, m_, count = state.master.clone(), state.slots["m"].clone(), \
+        state.count
+    bad = real_grad.clone()
+    bad[12345] = float("inf")
+    state2, ss2, aux = tstep(state, bad, ss)
+    torch.cuda.synchronize()
+    skipped = (float(aux.found_inf) == 1.0 and state2.count == count
+               and torch.equal(state2.master.view(torch.int16),
+                               master.view(torch.int16))
+               and torch.equal(state2.slots["m"], m_)
+               and ss2.loss_scale == ss.loss_scale / 2)
+    after, _, _ = tstep(state2, real_grad, ss)
+    torch.cuda.synchronize()
+    same_stream = torch.equal(after.master.view(torch.int16),
+                              expect.master.view(torch.int16))
+    print(f"  scaler step with an inf: skipped (found_inf "
+          f"{float(aux.found_inf)}, count {count} -> {state2.count}, master "
+          f"and m bitwise, scale {ss.loss_scale} -> {ss2.loss_scale}): "
+          f"{skipped}; the next step's p' bitwise the one the skipped step "
+          f"would have written: {same_stream}")
+    check(skipped and same_stream, "GPT bf16 master: the overflow step was "
+          "not skipped cleanly")
+    out.update(batch2_loss=[loss_k, loss_p], batch2_grad_rel_err=worst,
+               fp32_master_step_ms=base["step_ms"],
+               overflow_skipped=skipped, same_stream_after_skip=same_stream)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4001,6 +4660,24 @@ def main(argv=None) -> int:
                 lambda: train_bert_dropout(args.seed, dev, card, bert))
     ssv = phase("phase 11d: serving GPT-2 345M with sampled lanes",
                 lambda: serve_sampled(args.seed, dev, card, srv))
+
+    def sr_kernel_cases():
+        with torch.no_grad():
+            rows = [sr_cast_case(dev)]
+            torch.cuda.empty_cache()
+            rows += sr_update_cases(dev)
+            torch.cuda.empty_cache()
+            rows.append(sr_segment_case(dev))
+        return rows
+
+    srk = phase("phase 12a: the stochastic-rounding kernels against their "
+                "plain versions", sr_kernel_cases)
+    bsr = phase("phase 12b: BERT-Large with a bf16 master (FusedLAMB NVLAMB, "
+                "stochastic rounding)",
+                lambda: train_bert_sr(args.seed, dev, card, bert["softmax"]))
+    gsr = phase("phase 12c: GPT-2 345M with a bf16 master (FusedAdam, "
+                "stochastic rounding) and the loss scaler",
+                lambda: train_gpt_sr(args.seed, dev, card, trn))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -4008,6 +4685,7 @@ def main(argv=None) -> int:
     by_name[attention.BWD_DQ_KERNEL]["cases"] += fdrop["dq"]
     by_name[attention.BWD_DKV_KERNEL]["cases"] += fdrop["dkv"]
     kernels.append(drow)
+    kernels += srk
     # where each kernel's launches are read: the path that runs it (the
     # forward kernels run on every GPT path: their launches are the
     # serving run's; the scaled sum of squares runs on the scaler step;
@@ -4048,7 +4726,19 @@ def main(argv=None) -> int:
         rope.KERNEL: ("rope_path", rp["launches"], rp["steps"]),
         # one kernel, counted forward and backward apart
         "dropout": ("training_gpt_dropout", gdr["launches"], gdr["steps"]),
+        mt_ops.ADAM_KERNEL + mt_ops.SR_SUFFIX: ("training_gpt_bf16",
+                                                gsr["launches"],
+                                                gsr["steps"]),
     }
+    for k in (segmented.SEGMENT_SR_KERNEL, mt_ops.LAMB_STAGE1_BF16_KERNEL,
+              mt_ops.LAMB_STAGE2_KERNEL + mt_ops.SR_SUFFIX):
+        paths[k] = ("training_bert_bf16", bsr["launches"], bsr["steps"])
+    # the SR kernels that no model path here runs: one call each, the
+    # counts set to 0 just before
+    for row in srk:
+        direct = row.pop("direct_launches", None)
+        if direct is not None:
+            paths.setdefault(row["name"], ("phase12a_direct", direct, 1))
 
     def launched(counts: dict, name: str) -> int:
         # dropout.cu is one kernel, counted forward and backward apart
@@ -4081,14 +4771,15 @@ def main(argv=None) -> int:
                          ("xentropy", xent), ("gpt_dropout", gdr),
                          ("bert_dropout_softmax", bdr["softmax"]),
                          ("bert_dropout_flash", bdr["flash"]),
-                         ("serving_sampled", ssv)):
+                         ("serving_sampled", ssv), ("bert_bf16", bsr),
+                         ("gpt_bf16", gsr)):
             k[f"launches_{key}"] = launched(run["launches"], name)
         check(k["launches"] > 0, f"{name}: no launch on its path")
     for counter in DROPOUT_COUNTERS:
         drow[f"launches_{counter}"] = gdr["launches"].get(counter, 0)
 
-    check(len(kernels) == 25, f"{len(kernels)} kernels in the line, not 25")
-    print("phase 12: kernels")
+    check(len(kernels) == 35, f"{len(kernels)} kernels in the line, not 35")
+    print("phase 13: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -4103,7 +4794,8 @@ def main(argv=None) -> int:
                        "training_xentropy": xent, "rope_path": rp,
                        "training_gpt_dropout": gdr,
                        "training_bert_dropout": bdr,
-                       "serving_sampled": ssv, **line}, f,
+                       "serving_sampled": ssv, "training_bert_bf16": bsr,
+                       "training_gpt_bf16": gsr, **line}, f,
                       indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -253,10 +253,15 @@ def test_flat_space_layout_and_views():
 
 
 def test_engine_rejects_what_it_does_not_take():
+    """The reference's stochastic-rounding checks (engine.py sr_outputs):
+    a seed is required and the output must be bf16."""
     x = torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="stochastic rounding"):
+    with pytest.raises(ValueError, match="requires sr_seed"):
         fused_elementwise(lambda i, s, t: [i[0]], [x], sr_outputs=(0,),
-                          out_dtypes=[torch.bfloat16], sr_seed=1)
+                          out_dtypes=[torch.bfloat16])
+    with pytest.raises(ValueError, match="targets bfloat16"):
+        fused_elementwise(lambda i, s, t: [i[0]], [x], sr_outputs=(0,),
+                          sr_seed=1)
     with pytest.raises(TypeError, match="in place"):
         fused_elementwise(lambda i, s, t: [i[0]], [x],
                           out_dtypes=[torch.bfloat16], aliases={0: 0})

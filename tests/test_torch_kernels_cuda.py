@@ -35,7 +35,8 @@ rate), so an absolute bound would not keep up with them), the lse and
 the gradients as above, and its keep mask bitwise (read off
 an output: q = 0 makes the probabilities uniform, V the identity puts
 key j's weight in column j). Dropout (``csrc/dropout.cu``): output and
-gradient bitwise.
+gradient bitwise. Stochastic rounding (a bf16 master): stated with its
+tests.
 """
 
 import numpy as np
@@ -1384,3 +1385,216 @@ def test_rope_kernel_refuses_other_inputs(cuda_device):
     with pytest.raises(TypeError):
         fused_apply_rotary_pos_emb(t.double(), torch.zeros(
             4, 1, 1, 8, device=cuda_device))
+
+
+# -- stochastic rounding: the bf16-master kernels ---------------------------
+#
+# Tolerances: the cast and every functor's p' bitwise (the kernels run the
+# plain version's fp32 arithmetic and hash the same stream); the slots
+# bitwise as without SR; the segmented update's p' within one bf16 ulp
+# (its ratios come from sums in another order, which may move the fp32
+# value across a rounding boundary), m' and v' bitwise.
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in bf16 ulps, from the bit patterns (same-sign values)."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4097, 1 << 20])
+def test_stochastic_round_cast_kernel_bitwise_equals_plain(cuda_device, n):
+    from apex_tpu_torch.multi_tensor import engine
+    x = _rand(np.random.RandomState(n), n, cuda_device) * 3.0
+    if n > 3:
+        x[:3] = torch.tensor([float("inf"), -float("inf"), 1.0 + 2 ** -10])
+    before = _build.launch_counts().get(engine.SR_CAST_KERNEL, 0)
+    got = engine.stochastic_round_cast(x, 7, 2)
+    want = engine.stochastic_round_cast(x, 7, 2, plain=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[engine.SR_CAST_KERNEL] == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def _sr_space(dev):
+    from apex_tpu_torch.multi_tensor import FlatSpace
+    space = FlatSpace.create({"a": torch.empty(5000), "b": torch.empty(7),
+                              "c": torch.empty(70000)})
+    return space, space.device_subtile_leaf_ids(dev)
+
+
+def _sr_adam(p, s, g, _space, plain):
+    return fused_adam_update(p, *s, g, lr=1e-3, weight_decay=0.01, step=3,
+                             grad_scale=4.0, sr_seed=5, plain=plain)
+
+
+def _sr_adagrad(p, s, g, _space, plain):
+    return mt_ops.fused_adagrad_update(p, s[0].abs(), g, lr=1e-2,
+                                       weight_decay=0.01, sr_seed=5,
+                                       plain=plain)
+
+
+def _sr_sgd(p, s, g, _space, plain):
+    return mt_ops.fused_sgd_update(p, s[0], g, lr=0.1, momentum=0.9,
+                                   nesterov=True, weight_decay=1e-4,
+                                   sr_seed=5, plain=plain)
+
+
+def _sr_novograd(p, s, g, space, plain):
+    ids = space.device_subtile_leaf_ids(p.device)
+    denom = torch.tensor([0.5, 2.0, 1.25], device=p.device)
+    return mt_ops.novograd_apply(p, s[0], g, denom, lr=0.01, beta1=0.95,
+                                 beta3=0.05, weight_decay=1e-3,
+                                 bc1=torch.tensor(1.0), tile_ids=ids,
+                                 sr_seed=5, plain=plain)
+
+
+def _sr_lars(p, s, g, space, plain):
+    ids = space.device_subtile_leaf_ids(p.device)
+    ratio = torch.tensor([0.5, 2.0, 1.25], device=p.device)
+    return mt_ops.lars_apply(p, s[0], g, ratio, lr=0.1, momentum=0.9,
+                             weight_decay=1e-4, tile_ids=ids, sr_seed=5,
+                             plain=plain)
+
+
+def _sr_lamb2(p, s, g, space, plain):
+    ids = space.device_subtile_leaf_ids(p.device)
+    ratio = torch.tensor([0.5, 2.0, 1.25], device=p.device)
+    return (mt_ops.lamb_apply(p, g, ratio, lr=1e-3, tile_ids=ids, sr_seed=5,
+                              plain=plain),)
+
+
+SR_FUNCTORS = {"adam": (_sr_adam, mt_ops.ADAM_KERNEL),
+               "adagrad": (_sr_adagrad, mt_ops.ADAGRAD_KERNEL),
+               "sgd": (_sr_sgd, mt_ops.SGD_KERNEL),
+               "novograd": (_sr_novograd, mt_ops.NOVOGRAD_KERNEL),
+               "lars": (_sr_lars, mt_ops.LARS_KERNEL),
+               "lamb_stage2": (_sr_lamb2, mt_ops.LAMB_STAGE2_KERNEL)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SR_FUNCTORS))
+def test_sr_functor_kernels_bitwise_equal_plain(cuda_device, name):
+    fn, kernel = SR_FUNCTORS[name]
+    space, _ = _sr_space(cuda_device)
+    rng = np.random.RandomState(20)
+    p = _rand(rng, space.total, cuda_device).bfloat16()
+    slots = [_rand(rng, space.total, cuda_device, 0.01),
+             _rand(rng, space.total, cuda_device, 1e-4, positive=True)]
+    g = _rand(rng, space.total, cuda_device)
+    want = fn(p.clone(), [t.clone() for t in slots], g, space, True)
+    kernel = mt_ops.sr_variant(kernel, (0, 0))
+    before = _build.launch_counts().get(kernel, 0)
+    got = fn(p, slots, g, space, False)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[kernel] == before + 1
+    assert got[0] is p and p.dtype == torch.bfloat16        # in place
+    assert torch.equal(got[0].view(torch.int16), want[0].view(torch.int16))
+    for a, b in zip(got[1:], want[1:]):
+        if a.dtype == torch.float32 and a.ndim:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_sr_kernels_refuse_what_they_do_not_take(cuda_device):
+    n = 4096
+    p = torch.zeros(n, device=cuda_device)
+    m, v, g = (torch.zeros(n, device=cuda_device) for _ in range(3))
+    with pytest.raises(ValueError, match="targets bfloat16"):
+        fused_adam_update(p, m, v, g, lr=1e-3, sr_seed=1)
+    with pytest.raises(TypeError):         # a bf16 p needs SR
+        fused_adam_update(p.bfloat16(), m, v, g, lr=1e-3)
+
+
+@pytest.mark.cuda
+def test_lamb_stage1_and_sumsq_read_bf16_p(cuda_device):
+    from apex_tpu_torch.multi_tensor import (engine,
+                                             fused_lamb_compute_update_term)
+    rng = np.random.RandomState(21)
+    n = 3 * 65536 + 517
+    p = _rand(rng, n, cuda_device).bfloat16()
+    m, g = (_rand(rng, n, cuda_device) for _ in range(2))
+    v = _rand(rng, n, cuda_device, positive=True)
+    kw = dict(_lamb_scalars(), adam_w_mode=True, inv_scale=3.0,
+              with_norm_partials=True)
+    want, _ = fused_lamb_compute_update_term(p, m.clone(), v.clone(), g,
+                                             plain=True, **kw)
+    got, _ = fused_lamb_compute_update_term(p, m, v, g, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(got[3:], want[3:]):
+        torch.testing.assert_close(a.sum(-1), b.sum(-1), rtol=1e-5, atol=0)
+    torch.testing.assert_close(engine.fused_sumsq_partials(p, 16),
+                               engine.fused_sumsq_partials(p, 16, plain=True),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stash_p", [True, False])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_segmented_lamb_sr_kernels_match_plain(cuda_device, stash_p,
+                                               u_dtype):
+    from apex_tpu_torch.multi_tensor import fused_lamb_segmented_update
+    from apex_tpu_torch.multi_tensor.segmented import SEGMENT_SR_KERNEL
+    space, meta, (p, m, v, g) = _segmented_case(cuda_device, 22)
+    p = p.bfloat16()
+    kw = dict(lr=2e-3, weight_decay=0.01, step=3, stash_p=stash_p,
+              u_dtype=u_dtype, sr_seed=17)
+    want = fused_lamb_segmented_update(p.clone(), m.clone(), v.clone(), g,
+                                       space, meta, plain=True, **kw)
+    counts = _build.launch_counts()
+    got = fused_lamb_segmented_update(p.clone(), m.clone(), v.clone(), g,
+                                      space, meta, **kw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for k in (SEGMENT_SR_KERNEL, mt_ops.LAMB_STAGE1_BF16_KERNEL,
+              mt_ops.LAMB_STAGE2_KERNEL + mt_ops.SR_SUFFIX):
+        assert after[k] == counts.get(k, 0) + 1, k
+    for a, b in zip(got[1:3], want[1:3]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert got[0].dtype == torch.bfloat16
+    assert int(_bf16_ulps(got[0], want[0]).max()) <= 1
+    again = fused_lamb_segmented_update(p.clone(), m.clone(), v.clone(), g,
+                                        space, meta, **kw)
+    assert torch.equal(got[0].view(torch.int16), again[0].view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_stage2_segment_list_sr_bitwise_equals_plain(cuda_device):
+    """Stage 2 over the large leaves' segments with each leaf's stream,
+    its key derived in the kernel from the layout's tables and the seed."""
+    space, meta, (p, _, _, u) = _segmented_case(cuda_device, 23)
+    p = p.bfloat16()
+    segs, _, _ = meta.device_large(cuda_device)
+    ratio = torch.linspace(0.5, 1.5, space.num_leaves, device=cuda_device)
+    ids = space.device_subtile_leaf_ids(cuda_device)
+    kw = dict(lr=1e-2, seg_streams=meta.device_large_streams(cuda_device),
+              sr_seed=29)
+    want = mt_ops.lamb_stage2_segments(p, u, p.clone(), ratio, ids, segs,
+                                       meta.seg_elems, plain=True, **kw)
+    name = mt_ops.LAMB_STAGE2_KERNEL + mt_ops.SR_SUFFIX
+    before = _build.launch_counts().get(name, 0)
+    got = mt_ops.lamb_stage2_segments(p, u, p.clone(), ratio, ids, segs,
+                                      meta.seg_elems, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert not torch.equal(got.view(torch.int16), p.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_bf16_master_skip_leaves_state(cuda_device):
+    from apex_tpu_torch.optimizers import FusedAdam
+    opt = FusedAdam(lr=1e-3, master_dtype=torch.bfloat16,
+                    stochastic_rounding=True)
+    st = opt.init({"w": torch.randn(10_000, device=cuda_device).bfloat16()})
+    g = torch.randn(st.master.shape[0], device=cuda_device)
+    g[77] = float("inf")
+    saved = [st.master.clone(), st.slots["m"].clone(), st.count]
+    _, st2 = opt.step_flat(st, g, skip_if_nonfinite=True)
+    assert float(st2.found_inf) == 1.0 and st2.count == saved[2]
+    assert torch.equal(st2.master.view(torch.int16),
+                       saved[0].view(torch.int16))
+    assert torch.equal(st2.slots["m"], saved[1])

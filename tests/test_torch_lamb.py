@@ -558,12 +558,14 @@ def test_train_step_clip_conflict_and_unported_options_raise():
         make_train_step(opt, fingerprint_every=2)
     with pytest.raises(NotImplementedError, match="chained"):
         make_train_step(opt).chained(2)
-    with pytest.raises(NotImplementedError, match="stochastic"):
+    with pytest.raises(ValueError, match="requires master_dtype=bfloat16"):
         FusedLAMB(lr=1e-3, stochastic_rounding=True)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        FusedLAMB(lr=1e-3, seg_allow_bf16_u=True)
-    with pytest.raises(NotImplementedError, match="FusedMixedPrecisionLamb"):
-        FusedMixedPrecisionLamb(lr=1e-3)
+    with pytest.raises(ValueError, match="seg_u_dtype"):
+        FusedLAMB(lr=1e-3, seg_u_dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        FusedMixedPrecisionLamb(
+            lr=1e-3, reduced_precision_dtype=torch.bfloat16).init(
+            {"a": torch.zeros(8, dtype=torch.float16)})
     with pytest.raises(ValueError, match="multiple of the kernel chunk"):
         FusedLAMB(seg_elems=1000).init({"a": torch.zeros(8)})
 
@@ -584,7 +586,7 @@ def test_segment_config_matches_reference():
         rseg, rstash, _ = ref._segment_config(
             {k: jnp.asarray(v) for k, v in tree.items()})
         assert port._segment_config({k: _t(v) for k, v in tree.items()}) \
-            == port_only.get(budget, (rseg, rstash))
+            == (*port_only.get(budget, (rseg, rstash)), torch.float32)
 
 
 def _swept_accesses(params, seg, stash):
@@ -613,8 +615,10 @@ def test_segment_config_counts_padding():
     rseg, rstash, _ = RefLAMB(impl="xla", seg_vmem_budget=budget) \
         ._segment_config({k: jnp.asarray(v) for k, v in tree.items()})
     params = {k: torch.empty(v.shape, device="meta") for k, v in tree.items()}
-    seg, stash = FusedLAMB(seg_vmem_budget=budget)._segment_config(params)
+    seg, stash, u_dt = FusedLAMB(seg_vmem_budget=budget)._segment_config(
+        params)
     assert (rseg, rstash) == (262144, False) and (seg, stash) == (65536, True)
+    assert u_dt == torch.float32
     got, got_total = _swept_accesses(params, seg, stash)
     want, want_total = _swept_accesses(params, rseg, rstash)
     assert got < want and got_total < want_total
@@ -682,6 +686,6 @@ def test_default_segment_fits_one_cluster():
         BLOCK_SMEM_BYTES, segment_smem_bytes)
     big = {"w": torch.empty(8_000_000, device="meta"),
            "b": torch.empty(1024, device="meta")}
-    seg, stash = FusedLAMB()._segment_config(big)
-    assert seg % SEG == 0 and stash
+    seg, stash, u_dt = FusedLAMB()._segment_config(big)
+    assert seg % SEG == 0 and stash and u_dt == torch.float32
     assert segment_smem_bytes(seg, 512, stash) <= BLOCK_SMEM_BYTES

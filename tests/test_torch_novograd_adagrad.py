@@ -233,12 +233,13 @@ def test_fused_novograd_found_inf_and_out_of_place():
 
 def test_every_functor_has_a_kernel_but_sr():
     """On CUDA tensors ``fused_elementwise`` finds a kernel for every
-    functor of the reference's ops.py; stochastic rounding raises."""
+    functor of the reference's ops.py; stochastic rounding of a non-bf16
+    output raises the reference's error."""
     functors = (ops._scale_fn, ops._axpby_fn, ops._adam_fn, ops._adagrad_fn,
                 ops._novograd_fn, ops._lamb_stage1_fn, ops._lamb_stage2_fn,
                 ops._sgd_fn, ops._lars_fn)
     assert all(fn in engine._KERNELS for fn in functors)
-    with pytest.raises(NotImplementedError, match="stochastic rounding"):
+    with pytest.raises(ValueError, match="stochastic rounding targets"):
         engine.fused_elementwise(ops._scale_fn, [torch.zeros(8)],
                                  scalars=[1.0], sr_outputs=(0,), sr_seed=0)
 
@@ -322,8 +323,14 @@ def test_novograd_device_grad_scale_takes_the_where_pass():
 
 @pytest.mark.parametrize("cls", [FusedNovoGrad, FusedAdagrad])
 def test_stochastic_rounding_raises(cls):
-    with pytest.raises(NotImplementedError, match="stochastic rounding"):
-        cls(stochastic_rounding=True, master_dtype=torch.bfloat16)
+    """The reference's master-dtype policy: SR needs a bf16 master, a bf16
+    master needs SR; the two together construct."""
+    with pytest.raises(ValueError, match="requires master_dtype=bfloat16"):
+        cls(stochastic_rounding=True)
+    with pytest.raises(ValueError, match="without stochastic rounding"):
+        cls(master_dtype=torch.bfloat16)
+    assert cls(stochastic_rounding=True,
+               master_dtype=torch.bfloat16).master_dtype == torch.bfloat16
 
 
 # -- larc_transform and as_optax ----------------------------------------------
@@ -465,7 +472,10 @@ def test_load_per_leaf_slot_from_scanned_reference_raises():
 
 def test_new_modules_import_no_jax_or_optax():
     code = ("import sys, apex_tpu_torch.optimizers, apex_tpu_torch.parallel, "
-            "apex_tpu_torch.contrib.clip_grad, apex_tpu_torch.multi_tensor; "
+            "apex_tpu_torch.contrib.clip_grad, apex_tpu_torch.multi_tensor, "
+            "apex_tpu_torch.multi_tensor.engine, "
+            "apex_tpu_torch.multi_tensor.segmented, "
+            "apex_tpu_torch.optimizers.fused, apex_tpu_torch.random; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'apex_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -205,7 +205,7 @@ def test_entry_points_default_to_cuda():
 def test_unported_options_raise():
     _, cfg = _configs("fp32")
     opt = FusedAdam(lr=LR)
-    with pytest.raises(NotImplementedError, match="stochastic"):
+    with pytest.raises(ValueError, match="requires master_dtype=bfloat16"):
         FusedLAMB(lr=LR, stochastic_rounding=True)
     with pytest.raises(NotImplementedError, match="fingerprint"):
         make_train_step(opt, fingerprint_every=10)
@@ -215,7 +215,7 @@ def test_unported_options_raise():
         make_gpt_pretrain_step(cfg, opt, mesh=object())
     with pytest.raises(NotImplementedError, match="pipe"):
         make_gpt_pretrain_step(cfg, opt, num_model_chunks=2)
-    with pytest.raises(NotImplementedError, match="stochastic"):
+    with pytest.raises(ValueError, match="requires master_dtype=bfloat16"):
         FusedAdam(lr=LR, stochastic_rounding=True)
 
 
@@ -235,7 +235,10 @@ def test_loss_falls_over_steps_on_one_batch():
 def test_training_modules_import_no_jax():
     code = ("import sys, apex_tpu_torch.models, apex_tpu_torch.optimizers, "
             "apex_tpu_torch.multi_tensor, apex_tpu_torch.amp, "
-            "apex_tpu_torch.multi_tensor.segmented; "
+            "apex_tpu_torch.multi_tensor.segmented, "
+            "apex_tpu_torch.multi_tensor.engine, "
+            "apex_tpu_torch.optimizers.fused, apex_tpu_torch.models.pretrain, "
+            "apex_tpu_torch.models.convert, apex_tpu_torch.random; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'apex_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
