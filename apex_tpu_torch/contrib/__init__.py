@@ -1,3 +1,4 @@
 """Contributed ops (counterpart of ``apex_tpu/contrib/``). Ported so far:
-``bottleneck.conv2d_nhwc``, ``clip_grad.clip_grad_norm_`` and
+``bottleneck.conv2d_nhwc``, ``clip_grad.clip_grad_norm_``,
+``multihead_attn`` (``SelfMultiheadAttn``, ``EncdecMultiheadAttn``) and
 ``xentropy`` (``softmax_cross_entropy``, ``SoftmaxCrossEntropyLoss``)."""

@@ -6,13 +6,19 @@
 // there, each recomputing the probabilities from the forward's lse:
 //   s  = scale * q k^T + mask            (mask: `_mask_block`, NEG_INF)
 //   P  = exp(s - max(lse, NEG_INF / 2))  (:433: fully-masked rows give 0)
-//   dP = dO v^T,  dS = P * (dP - delta), rounded to bf16 (:460, :536)
+//   dP = dO v^T,  dS = P * (dP - delta) [+ P * glse], rounded to bf16
+//   (:456-460, :533-536)
 //   dq = scale * dS k,  dk = scale * dS^T q,  dv = bf16(P)^T dO
 // with delta = rowsum(out * dO) computed by the caller (`_flash_bwd_rule`
-// :828 leaves it to XLA). GQA sums dk and dv over the q heads of each kv
-// head's group inside one block (:475-483); nothing is repeated in
-// memory. Masking is the forward's: causal with the sk - sq offset, the
-// sliding window on the same offset, segment ids, fully-masked rows.
+// :828 leaves it to XLA). glse, the cotangent of a returned lse (`_flash_
+// lse_bwd_rule` :933-946), adds P * glse with the undropped P (:457-459,
+// :534-535). GQA sums dk and dv over the q heads of each kv head's group
+// inside one block (:475-483); nothing is repeated in memory. Masking is
+// the forward's: causal with the sk - sq offset, the sliding window on the
+// same offset, segment ids, fully-masked rows, the additive bias (:437-438,
+// :509-510), and with global positions the causal and window tests on
+// positions, a tile pair skipped when its position bounds leave no live
+// score (`_block_live_dynamic`, in place of the static bounds).
 //
 // Bound on the card: compute, by a small margin. At b8 h16 s1024 d64
 // causal the five products of the gradient are ~43 GFLOP (43 us at
@@ -44,19 +50,22 @@ constexpr int kBQ = 64;   // query rows per tile (16 per warp)
 constexpr int kBK = 64;   // keys per tile (16 per warp in dk/dv)
 constexpr int kThreads = 128;
 
-template <int D>
+template <int D, bool EXTRA>
 constexpr int dq_smem_bytes() {
-  return 4 * 64 * (D + kPad) * 2 + kBK * 4;
+  return 4 * 64 * (D + kPad) * 2 + (EXTRA ? 2 : 1) * kBK * 4;
 }
 
-template <int D>
+template <int D, bool EXTRA>
 constexpr int dkv_smem_bytes() {
-  return 4 * 64 * (D + kPad) * 2 + 3 * kBQ * 4;
+  return 4 * 64 * (D + kPad) * 2 + (EXTRA ? 5 : 3) * kBQ * 4;
 }
 
-// q, dO: (B, H, SQ, D); k, v: (B, HK, SK, D) bf16. lse, delta: (B, H, SQ)
-// fp32. q_seg: (B, SQ), k_seg: (B, SK) int32 or both null. dq like q.
-template <int D>
+// q, dO: (B, H, SQ, D); k, v: (B, HK, SK, D) bf16. lse, delta, glse: (B,
+// H, SQ) fp32 (glse may be null). q_seg: (B, SQ), k_seg: (B, SK) int32 or
+// both null; q_pos: (SQ,), k_pos: (SK,) int32 or both null. dq like q.
+// EXTRA = false compiles the bias, position and glse code away (the
+// launch picks it when all three are absent), as in the forward.
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -66,6 +75,9 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta,
                         const int* __restrict__ q_seg,
                         const int* __restrict__ k_seg,
+                        const int* __restrict__ q_pos,
+                        const int* __restrict__ k_pos,
+                        const float* __restrict__ glse, Bias bias,
                         __nv_bfloat16* __restrict__ dq, int H, int HK, int SQ,
                         int SK, float scale, int causal, int window,
                         Dropout dr) {
@@ -79,6 +91,7 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* sK = sO + kBQ * LD;
   __nv_bfloat16* sV = sK + kBK * LD;
   int* sKs = reinterpret_cast<int*>(sV + kBK * LD);
+  int* sKp = sKs + kBK;  // positions of the query tile, then of each key tile
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -86,8 +99,12 @@ __global__ void __launch_bounds__(kThreads)
   const int bi = bh / H, hi = bh % H;
   const int kvh = hi / (H / HK);
   const int q0 = blockIdx.x * kBQ;
-  const int off = SK - SQ;
+  const bool has_pos = EXTRA && q_pos != nullptr;
+  const int off = has_pos ? 0 : SK - SQ;
   const bool has_seg = q_seg != nullptr;
+  const bool has_bias = EXTRA && bias.p != nullptr;
+  const bool has_glse = EXTRA && glse != nullptr;
+  const long long bbase = bi * bias.sb + hi * bias.sh;
 
   const __nv_bfloat16* kp = k + (size_t)(bi * HK + kvh) * SK * D;
   const __nv_bfloat16* vp = v + (size_t)(bi * HK + kvh) * SK * D;
@@ -105,18 +122,39 @@ __global__ void __launch_bounds__(kThreads)
   const float d1 = qi1 < SQ ? dp_[qi1] : 0.f;
   const int qs0 = (has_seg && qi0 < SQ) ? q_seg[(size_t)bi * SQ + qi0] : 0;
   const int qs1 = (has_seg && qi1 < SQ) ? q_seg[(size_t)bi * SQ + qi1] : 0;
+  const float* gp = glse + (size_t)bh * SQ;
+  const float g0 = (has_glse && qi0 < SQ) ? gp[qi0] : 0.f;
+  const float g1 = (has_glse && qi1 < SQ) ? gp[qi1] : 0.f;
+  int qr0 = qi0, qr1 = qi1, q_lo = 0, q_hi = 0;
+  if (has_pos) {
+    qr0 = qi0 < SQ ? q_pos[qi0] : 0;
+    qr1 = qi1 < SQ ? q_pos[qi1] : 0;
+    load_pos(sKp, q_pos, q0, SQ, tid, kThreads);
+    __syncthreads();
+    tile_bounds(sKp, min(kBQ, SQ - q0), lane, &q_lo, &q_hi);
+  }
 
   float acc[DT][4];
 #pragma unroll
   for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  const int q_last = min(q0 + kBQ, SQ) - 1;
-  const int k_end = causal ? min(SK, q_last + off + 1) : SK;
-  int k_begin = window > 0 ? max(0, q0 + off - window + 1) : 0;
-  k_begin -= k_begin % kBK;
+  int k_begin = 0, k_end = SK;
+  if (!has_pos) {
+    const int q_last = min(q0 + kBQ, SQ) - 1;
+    if (causal) k_end = min(SK, q_last + off + 1);
+    if (window > 0) k_begin = max(0, q0 + off - window + 1);
+    k_begin -= k_begin % kBK;
+  }
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // every warp is done with the previous tile
+    if (has_pos) {
+      load_pos(sKp, k_pos, k0, SK, tid, kThreads);
+      __syncthreads();
+      int k_lo, k_hi;
+      tile_bounds(sKp, min(kBK, SK - k0), lane, &k_lo, &k_hi);
+      if (!tile_live(q_lo, q_hi, k_lo, k_hi, window)) continue;
+    }
     load_tile<D>(sK, kp, k0, SK, kBK, tid, kThreads);
     load_tile<D>(sV, vp, k0, SK, kBK, tid, kThreads);
     if (has_seg) {
@@ -152,12 +190,17 @@ __global__ void __launch_bounds__(kThreads)
         const int kl = j * 8 + 2 * t + e;
         const int kj = k0 + kl;
         const int ks = has_seg ? sKs[kl] : 0;
-        const float p0 = __expf(mask_score(s[j][e] * scale, qi0, kj, off, SK,
-                                           causal, window, has_seg, qs0, ks) -
+        const int kc = has_pos ? sKp[kl] : kj;
+        float x0 = s[j][e] * scale, x1 = s[j][2 + e] * scale;
+        if (has_bias && kj < SK) {
+          if (qi0 < SQ) x0 = __fadd_rn(x0, bias_at(bias, bbase, qi0, kj));
+          if (qi1 < SQ) x1 = __fadd_rn(x1, bias_at(bias, bbase, qi1, kj));
+        }
+        const float p0 = __expf(mask_score(x0, qr0, kc, off, kj < SK, causal,
+                                           window, has_seg, qs0, ks) -
                                 l0);
-        const float p1 = __expf(mask_score(s[j][2 + e] * scale, qi1, kj, off,
-                                           SK, causal, window, has_seg, qs1,
-                                           ks) -
+        const float p1 = __expf(mask_score(x1, qr1, kc, off, kj < SK, causal,
+                                           window, has_seg, qs1, ks) -
                                 l1);
         float dp0 = dpv[j][e], dp1 = dpv[j][2 + e];
         if (dr.on) {
@@ -166,6 +209,10 @@ __global__ void __launch_bounds__(kThreads)
         }
         s[j][e] = p0 * (dp0 - d0);
         s[j][2 + e] = p1 * (dp1 - d1);
+        if (has_glse) {
+          s[j][e] = __fadd_rn(s[j][e], __fmul_rn(p0, g0));
+          s[j][2 + e] = __fadd_rn(s[j][2 + e], __fmul_rn(p1, g1));
+        }
       }
     }
 
@@ -192,7 +239,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Same arguments; dk, dv like k. One block per (64-key tile, b*hk).
-template <int D>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -202,6 +249,9 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ delta,
                          const int* __restrict__ q_seg,
                          const int* __restrict__ k_seg,
+                         const int* __restrict__ q_pos,
+                         const int* __restrict__ k_pos,
+                         const float* __restrict__ glse, Bias bias,
                          __nv_bfloat16* __restrict__ dk,
                          __nv_bfloat16* __restrict__ dv, int H, int HK, int SQ,
                          int SK, float scale, int causal, int window,
@@ -218,6 +268,8 @@ __global__ void __launch_bounds__(kThreads)
   float* sL = reinterpret_cast<float*>(sO + kBQ * LD);
   float* sD = sL + kBQ;
   int* sQs = reinterpret_cast<int*>(sD + kBQ);
+  float* sG = reinterpret_cast<float*>(sQs + kBQ);   // glse
+  int* sQp = reinterpret_cast<int*>(sG + kBQ);       // query positions
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -225,8 +277,11 @@ __global__ void __launch_bounds__(kThreads)
   const int bi = bhk / HK, kvh = bhk % HK;
   const int group = H / HK;
   const int k0 = blockIdx.x * kBK;
-  const int off = SK - SQ;
+  const bool has_pos = EXTRA && q_pos != nullptr;
+  const int off = has_pos ? 0 : SK - SQ;
   const bool has_seg = q_seg != nullptr;
+  const bool has_bias = EXTRA && bias.p != nullptr;
+  const bool has_glse = EXTRA && glse != nullptr;
 
   load_tile<D>(sK, k + (size_t)bhk * SK * D, k0, SK, kBK, tid, kThreads);
   load_tile<D>(sV, v + (size_t)bhk * SK * D, k0, SK, kBK, tid, kThreads);
@@ -235,6 +290,16 @@ __global__ void __launch_bounds__(kThreads)
   const int kj0 = k0 + r0, kj1 = kj0 + 8;
   const int ks0 = (has_seg && kj0 < SK) ? k_seg[(size_t)bi * SK + kj0] : 0;
   const int ks1 = (has_seg && kj1 < SK) ? k_seg[(size_t)bi * SK + kj1] : 0;
+  // the columns the causal and window tests compare, and the key tile's
+  // position bounds
+  int kc0 = kj0, kc1 = kj1, k_lo = 0, k_hi = 0;
+  if (has_pos) {
+    kc0 = kj0 < SK ? k_pos[kj0] : 0;
+    kc1 = kj1 < SK ? k_pos[kj1] : 0;
+    load_pos(sQp, k_pos, k0, SK, tid, kThreads);
+    __syncthreads();
+    tile_bounds(sQp, min(kBK, SK - k0), lane, &k_lo, &k_hi);
+  }
 
   float ak[DT][4], av[DT][4];
 #pragma unroll
@@ -245,17 +310,28 @@ __global__ void __launch_bounds__(kThreads)
 
   // query range that can see this key tile: from the causal diagonal of
   // its first key to the window's end of its last
-  const int k_last = min(k0 + kBK, SK) - 1;
-  int q_begin = causal ? max(0, k0 - off) : 0;
-  q_begin -= q_begin % kBQ;
-  const int q_end = window > 0 ? min(SQ, k_last - off + window) : SQ;
+  int q_begin = 0, q_end = SQ;
+  if (!has_pos) {
+    const int k_last = min(k0 + kBK, SK) - 1;
+    if (causal) q_begin = max(0, k0 - off);
+    q_begin -= q_begin % kBQ;
+    if (window > 0) q_end = min(SQ, k_last - off + window);
+  }
 
   for (int gh = 0; gh < group; ++gh) {
     const int bh = bi * H + kvh * group + gh;
+    const long long bbase = bi * bias.sb + (kvh * group + gh) * bias.sh;
     const __nv_bfloat16* qp = q + (size_t)bh * SQ * D;
     const __nv_bfloat16* op = dout + (size_t)bh * SQ * D;
     for (int q0 = q_begin; q0 < q_end; q0 += kBQ) {
       __syncthreads();  // every warp is done with the previous tile
+      if (has_pos) {
+        load_pos(sQp, q_pos, q0, SQ, tid, kThreads);
+        __syncthreads();
+        int q_lo, q_hi;
+        tile_bounds(sQp, min(kBQ, SQ - q0), lane, &q_lo, &q_hi);
+        if (!tile_live(q_lo, q_hi, k_lo, k_hi, window)) continue;
+      }
       load_tile<D>(sQ, qp, q0, SQ, kBQ, tid, kThreads);
       load_tile<D>(sO, op, q0, SQ, kBQ, tid, kThreads);
       for (int i = tid; i < kBQ; i += kThreads) {
@@ -266,6 +342,8 @@ __global__ void __launch_bounds__(kThreads)
                    : INFINITY;
         sD[i] = ok ? delta[(size_t)bh * SQ + qi] : 0.f;
         sQs[i] = (has_seg && ok) ? q_seg[(size_t)bi * SQ + qi] : 0;
+        if (EXTRA)
+          sG[i] = (has_glse && ok) ? glse[(size_t)bh * SQ + qi] : 0.f;
       }
       __syncthreads();
 
@@ -297,12 +375,18 @@ __global__ void __launch_bounds__(kThreads)
           const int qi = q0 + ql;
           const float L = sL[ql], Dl = sD[ql];
           const int qs = sQs[ql];
-          const float p0 = __expf(mask_score(s[j][e] * scale, qi, kj0, off, SK,
+          const int qr = has_pos ? sQp[ql] : qi;
+          float x0 = s[j][e] * scale, x1 = s[j][2 + e] * scale;
+          if (has_bias && qi < SQ) {
+            if (kj0 < SK) x0 = __fadd_rn(x0, bias_at(bias, bbase, qi, kj0));
+            if (kj1 < SK) x1 = __fadd_rn(x1, bias_at(bias, bbase, qi, kj1));
+          }
+          const float p0 = __expf(mask_score(x0, qr, kc0, off, kj0 < SK,
                                              causal, window, has_seg, qs,
                                              ks0) -
                                   L);
-          const float p1 = __expf(mask_score(s[j][2 + e] * scale, qi, kj1, off,
-                                             SK, causal, window, has_seg, qs,
+          const float p1 = __expf(mask_score(x1, qr, kc1, off, kj1 < SK,
+                                             causal, window, has_seg, qs,
                                              ks1) -
                                   L);
           // dv takes the dropped P, dS the undropped one
@@ -319,6 +403,11 @@ __global__ void __launch_bounds__(kThreads)
           s[j][2 + e] = pv1;
           dpv[j][e] = p0 * (dp0 - Dl);
           dpv[j][2 + e] = p1 * (dp1 - Dl);
+          if (has_glse) {
+            const float G = sG[ql];
+            dpv[j][e] = __fadd_rn(dpv[j][e], __fmul_rn(p0, G));
+            dpv[j][2 + e] = __fadd_rn(dpv[j][2 + e], __fmul_rn(p1, G));
+          }
         }
       }
 
@@ -364,12 +453,14 @@ cudaError_t allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, const void* q_seg,
-           const void* k_seg, void* dq, void* dk, void* dv, int B, int H,
-           int HK, int SQ, int SK, float scale, int causal, int window,
-           Dropout dr, cudaStream_t stream) {
+template <int D, bool EXTRA>
+int launch_both(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                const void* q_seg, const void* k_seg, const void* q_pos,
+                const void* k_pos, const void* glse, const Bias& bias,
+                void* dq, void* dk, void* dv, int B, int H, int HK, int SQ,
+                int SK, float scale, int causal, int window, Dropout dr,
+                cudaStream_t stream) {
   using bf = __nv_bfloat16;
   const bf* qt = static_cast<const bf*>(q);
   const bf* kt = static_cast<const bf*>(k);
@@ -379,27 +470,48 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   const float* dt = static_cast<const float*>(delta);
   const int* qs = static_cast<const int*>(q_seg);
   const int* ks = static_cast<const int*>(k_seg);
-  constexpr int dq_bytes = dq_smem_bytes<D>();
-  constexpr int dkv_bytes = dkv_smem_bytes<D>();
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, dq_bytes);
+  const int* qpos = static_cast<const int*>(q_pos);
+  const int* kpos = static_cast<const int*>(k_pos);
+  const float* gl = static_cast<const float*>(glse);
+  constexpr int dq_bytes = dq_smem_bytes<D, EXTRA>();
+  constexpr int dkv_bytes = dkv_smem_bytes<D, EXTRA>();
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D, EXTRA>, dq_bytes);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(flash_bwd_dkv_kernel<D>, dkv_bytes);
+  e = allow_smem(flash_bwd_dkv_kernel<D, EXTRA>, dkv_bytes);
   if (e != cudaSuccess) return (int)e;
   if (dq != nullptr) {
     dim3 grid((SQ + kBQ - 1) / kBQ, B * H);
-    flash_bwd_dq_kernel<D><<<grid, kThreads, dq_bytes, stream>>>(
-        qt, kt, vt, ot, lt, dt, qs, ks, static_cast<bf*>(dq), H, HK, SQ, SK,
-        scale, causal, window, dr);
+    flash_bwd_dq_kernel<D, EXTRA><<<grid, kThreads, dq_bytes, stream>>>(
+        qt, kt, vt, ot, lt, dt, qs, ks, qpos, kpos, gl, bias,
+        static_cast<bf*>(dq), H, HK, SQ, SK, scale, causal, window, dr);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   if (dk != nullptr) {
     dim3 grid((SK + kBK - 1) / kBK, B * HK);
-    flash_bwd_dkv_kernel<D><<<grid, kThreads, dkv_bytes, stream>>>(
-        qt, kt, vt, ot, lt, dt, qs, ks, static_cast<bf*>(dk),
-        static_cast<bf*>(dv), H, HK, SQ, SK, scale, causal, window, dr);
+    flash_bwd_dkv_kernel<D, EXTRA><<<grid, kThreads, dkv_bytes, stream>>>(
+        qt, kt, vt, ot, lt, dt, qs, ks, qpos, kpos, gl, bias,
+        static_cast<bf*>(dk), static_cast<bf*>(dv), H, HK, SQ, SK, scale,
+        causal, window, dr);
   }
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, const void* q_seg,
+           const void* k_seg, const void* q_pos, const void* k_pos,
+           const void* glse, const Bias& bias, void* dq, void* dk, void* dv,
+           int B, int H, int HK, int SQ, int SK, float scale, int causal,
+           int window, Dropout dr, cudaStream_t stream) {
+  if (q_pos == nullptr && glse == nullptr && bias.p == nullptr)
+    return launch_both<D, false>(q, k, v, dout, lse, delta, q_seg, k_seg,
+                                 q_pos, k_pos, glse, bias, dq, dk, dv, B, H,
+                                 HK, SQ, SK, scale, causal, window, dr,
+                                 stream);
+  return launch_both<D, true>(q, k, v, dout, lse, delta, q_seg, k_seg, q_pos,
+                              k_pos, glse, bias, dq, dk, dv, B, H, HK, SQ, SK,
+                              scale, causal, window, dr, stream);
 }
 
 }  // namespace
@@ -408,11 +520,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // null skips the dk/dv kernel. Returns cudaGetLastError() after the
 // launches (cudaErrorInvalidValue for a head_dim other than 32, 64 or
 // 128, or a grid beyond the y limit). window <= 0 means no window. The
-// dropout arguments are the forward's.
+// dropout, position and bias arguments are the forward's; glse (B, H, SQ)
+// fp32, or null, is the cotangent of the forward's lse.
 extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* q_seg,
-                              const void* k_seg, void* dq, void* dk, void* dv,
+                              const void* k_seg, const void* q_pos,
+                              const void* k_pos, const void* glse,
+                              const void* bias, int bias_bf16, long long sb,
+                              long long sh, long long sq, long long sk,
+                              void* dq, void* dk, void* dv,
                               int B, int H, int HK, int SQ, int SK, int D,
                               float scale, int causal, int window,
                               int dropout, uint32_t seed, uint32_t thresh,
@@ -420,18 +537,24 @@ extern "C" int apex_flash_bwd(const void* q, const void* k, const void* v,
   if (B == 0 || H == 0 || SQ == 0 || SK == 0) return (int)cudaGetLastError();
   if (HK <= 0 || H % HK || B * H > 65535) return (int)cudaErrorInvalidValue;
   if ((dk == nullptr) != (dv == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((q_pos == nullptr) != (k_pos == nullptr) || (q_pos && !causal))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{dropout, seed, thresh, keep};
+  const Bias bs{bias, bias_bf16, sb, sh, sq, sk};
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, dout, lse, delta, q_seg, k_seg, dq, dk, dv, B,
-                        H, HK, SQ, SK, scale, causal, window, dr, s);
+      return launch<32>(q, k, v, dout, lse, delta, q_seg, k_seg, q_pos, k_pos,
+                        glse, bs, dq, dk, dv, B, H, HK, SQ, SK, scale, causal,
+                        window, dr, s);
     case 64:
-      return launch<64>(q, k, v, dout, lse, delta, q_seg, k_seg, dq, dk, dv, B,
-                        H, HK, SQ, SK, scale, causal, window, dr, s);
+      return launch<64>(q, k, v, dout, lse, delta, q_seg, k_seg, q_pos, k_pos,
+                        glse, bs, dq, dk, dv, B, H, HK, SQ, SK, scale, causal,
+                        window, dr, s);
     case 128:
-      return launch<128>(q, k, v, dout, lse, delta, q_seg, k_seg, dq, dk, dv,
-                         B, H, HK, SQ, SK, scale, causal, window, dr, s);
+      return launch<128>(q, k, v, dout, lse, delta, q_seg, k_seg, q_pos,
+                         k_pos, glse, bs, dq, dk, dv, B, H, HK, SQ, SK, scale,
+                         causal, window, dr, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -14,6 +14,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -47,17 +48,70 @@ __device__ __forceinline__ uint32_t pack_raw(const __nv_bfloat16* lo,
          ((uint32_t)__bfloat16_as_ushort(*hi) << 16);
 }
 
-// The reference's additive mask for one score; keys past the end of the
-// sequence are excluded outright (they do not exist in the reference).
-__device__ __forceinline__ float mask_score(float s, int qi, int kj, int off,
-                                            int sk, int causal, int window,
+// The reference's additive mask for one score. `row` and `col` are what
+// the causal and window tests compare: the query and key indices with
+// off = sk - sq, or, given global positions (ring and blockwise chunks,
+// `_mask_block` :68-73), the two positions with off = 0. A key past the
+// end of the sequence (`key_ok` false) is excluded outright: it does not
+// exist in the reference.
+__device__ __forceinline__ float mask_score(float s, int row, int col, int off,
+                                            bool key_ok, int causal, int window,
                                             bool has_seg, int qs, int ks) {
-  if (kj >= sk) return -INFINITY;
+  if (!key_ok) return -INFINITY;
   bool masked = false;
-  if (causal && kj > qi + off) masked = true;
-  if (window > 0 && kj <= qi + off - window) masked = true;
+  if (causal && col > row + off) masked = true;
+  if (window > 0 && col <= row + off - window) masked = true;
   if (has_seg && qs != ks) masked = true;
   return masked ? s + kNegInf : s;
+}
+
+// The additive bias (`bias_ref`, :224-225): element (b, h, q, k) sits at
+// b * sb + h * sh + q * sq + k * sk, with stride 0 on each dimension the
+// bias broadcasts (size 1; `_bias_index_map` :40-47 and the size-1
+// blocks of :303-314). fp32 or bf16, read as fp32 as `bias_ref[0].astype(
+// jnp.float32)` does. A null pointer means no bias.
+struct Bias {
+  const void* p;
+  int bf16;
+  long long sb, sh, sq, sk;
+};
+
+__device__ __forceinline__ float bias_at(const Bias& bs, long long base,
+                                         int qi, int kj) {
+  const long long i = base + qi * bs.sq + kj * bs.sk;
+  return bs.bf16 ? __bfloat162float(
+                       static_cast<const __nv_bfloat16*>(bs.p)[i])
+                 : static_cast<const float*>(bs.p)[i];
+}
+
+// Positions of tile entries i0 .. i0 + 63 (0 past n) into shared `dst`.
+__device__ __forceinline__ void load_pos(int* dst, const int* pos, int i0,
+                                         int n, int tid, int nthreads) {
+  for (int i = tid; i < 64; i += nthreads)
+    dst[i] = i0 + i < n ? pos[i0 + i] : 0;
+}
+
+// The least and largest of the first `n` (1..64) positions of a tile in
+// shared memory; every lane of the calling warp gets both. Zig-zag shards
+// are not contiguous, so the bounds come from the positions themselves,
+// never from the tile's index.
+__device__ __forceinline__ void tile_bounds(const int* p, int n, int lane,
+                                            int* lo, int* hi) {
+  const bool a = lane < n, b = lane + 32 < n;
+  const int mn = min(a ? p[lane] : INT_MAX, b ? p[lane + 32] : INT_MAX);
+  const int mx = max(a ? p[lane] : INT_MIN, b ? p[lane + 32] : INT_MIN);
+  *lo = __reduce_min_sync(0xffffffffu, mn);
+  *hi = __reduce_max_sync(0xffffffffu, mx);
+}
+
+// `_block_live_dynamic` (:126-137): whether a (query tile, key tile) pair
+// with these position bounds can hold an unmasked score. Positions come
+// only with causal masking.
+__device__ __forceinline__ bool tile_live(int q_lo, int q_hi, int k_lo,
+                                          int k_hi, int window) {
+  bool run = q_hi >= k_lo;
+  if (window > 0) run = run && k_hi > q_lo - window;
+  return run;
 }
 
 // The reference's counter-based attention-dropout mask: the murmur3

@@ -8,6 +8,13 @@
 // The mask follows `_mask_block` (:59-86): causal with the sk - sq
 // offset, the sliding window on the same offset, and segment ids
 // (a key is masked where q_seg != k_seg), each adding NEG_INF = -1e30.
+// Given global positions (q_pos, k_pos: ring and blockwise chunks), the
+// causal and window tests compare positions with no offset (:68-73), and
+// a key tile is skipped when the bounds of its positions and the query
+// tile's leave no live pair (`_block_live_dynamic` :126-137): zig-zag
+// shards are not contiguous, so the static bounds below do not apply. An
+// additive bias (any of the four dimensions broadcast, fp32 or bf16) is
+// added to the scaled scores before the mask (:224-225).
 // GQA reads kv head `h / (H / HK)`; K and V are never repeated. A row
 // with every key masked writes 0 and lse = NEG_INF (:254-269). Scores
 // are scaled in fp32 after the product, as at :221-223; P is rounded to
@@ -26,7 +33,12 @@
 // as the A operand of P.V, so scores never touch shared or device
 // memory. K and V stream through shared memory one 64-key tile at a time
 // with 16-byte loads. Tiles wholly above the causal diagonal or wholly
-// before the window are never loaded. Any sq and sk work: rows and keys
+// before the window (by positions, when given) are never loaded. A bias
+// is read straight from device memory per score, a quad's four lanes on
+// 32 contiguous bytes of a row; a broadcast bias (a key-padding row, one
+// (sq, sk) matrix for every head) stays in L1 and L2. The bias and
+// position code is a template branch (EXTRA): without them the kernel
+// keeps its registers and its speed. Any sq and sk work: rows and keys
 // past the end are masked inside the kernel (the TPU kernel needed
 // blocks that divide the sequence, `_pick_block` :51-56, and fell to
 // blocks of 1 on the decode shape sk = L + 1). What this first version
@@ -54,20 +66,25 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <int D>
+template <int D, bool EXTRA>
 constexpr int smem_bytes() {
-  return (kBQ + 2 * kBK) * (D + kPad) * 2 + kBK * 4;
+  return (kBQ + 2 * kBK) * (D + kPad) * 2 + (EXTRA ? 2 : 1) * kBK * 4;
 }
 
 // q: (B, H, SQ, D); k, v: (B, HK, SK, D); q_seg: (B, SQ), k_seg: (B, SK)
-// int32 or both null; out: (B, H, SQ, D); lse: (B, H, SQ) fp32.
-template <int D>
+// int32 or both null; q_pos: (SQ,), k_pos: (SK,) int32 or both null;
+// out: (B, H, SQ, D); lse: (B, H, SQ) fp32. EXTRA = false compiles the
+// bias and position code away (the launch picks it when both are absent),
+// so a call without them runs the kernel it ran before they existed.
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const int* __restrict__ q_seg,
                      const int* __restrict__ k_seg,
+                     const int* __restrict__ q_pos,
+                     const int* __restrict__ k_pos, Bias bias,
                      __nv_bfloat16* __restrict__ out,
                      float* __restrict__ lse, int H, int HK, int SQ, int SK,
                      float scale, int causal, int window, Dropout dr) {
@@ -81,6 +98,7 @@ __global__ void __launch_bounds__(kThreads)
   __nv_bfloat16* sK = sQ + kBQ * LD;
   __nv_bfloat16* sV = sK + kBK * LD;
   int* sKs = reinterpret_cast<int*>(sV + kBK * LD);
+  int* sKp = sKs + kBK;  // positions of the query tile, then of each key tile
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
@@ -88,8 +106,11 @@ __global__ void __launch_bounds__(kThreads)
   const int bi = bh / H, hi = bh % H;
   const int kvh = hi / (H / HK);
   const int q0 = blockIdx.x * kBQ;
-  const int off = SK - SQ;
+  const bool has_pos = EXTRA && q_pos != nullptr;
+  const int off = has_pos ? 0 : SK - SQ;
   const bool has_seg = q_seg != nullptr;
+  const bool has_bias = EXTRA && bias.p != nullptr;
+  const long long bbase = bi * bias.sb + hi * bias.sh;
 
   const __nv_bfloat16* qp = q + (size_t)bh * SQ * D;
   const __nv_bfloat16* kp = k + (size_t)(bi * HK + kvh) * SK * D;
@@ -118,6 +139,16 @@ __global__ void __launch_bounds__(kThreads)
   const int qi0 = q0 + r0, qi1 = qi0 + 8;
   const int qs0 = (has_seg && qi0 < SQ) ? q_seg[(size_t)bi * SQ + qi0] : 0;
   const int qs1 = (has_seg && qi1 < SQ) ? q_seg[(size_t)bi * SQ + qi1] : 0;
+  // the rows the causal and window tests compare, and the query tile's
+  // position bounds
+  int qr0 = qi0, qr1 = qi1, q_lo = 0, q_hi = 0;
+  if (has_pos) {
+    qr0 = qi0 < SQ ? q_pos[qi0] : 0;
+    qr1 = qi1 < SQ ? q_pos[qi1] : 0;
+    load_pos(sKp, q_pos, q0, SQ, tid, kThreads);
+    __syncthreads();
+    tile_bounds(sKp, min(kBQ, SQ - q0), lane, &q_lo, &q_hi);
+  }
 
   float o[DT][4];
 #pragma unroll
@@ -125,14 +156,25 @@ __global__ void __launch_bounds__(kThreads)
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
   // key range this query tile can see: nothing past the causal diagonal
-  // of its last row, nothing before the window of its first row
-  const int q_last = min(q0 + kBQ, SQ) - 1;
-  const int k_end = causal ? min(SK, q_last + off + 1) : SK;
-  int k_begin = window > 0 ? max(0, q0 + off - window + 1) : 0;
-  k_begin -= k_begin % kBK;
+  // of its last row, nothing before the window of its first row (with
+  // positions, every tile, each tested on its own bounds below)
+  int k_begin = 0, k_end = SK;
+  if (!has_pos) {
+    const int q_last = min(q0 + kBQ, SQ) - 1;
+    if (causal) k_end = min(SK, q_last + off + 1);
+    if (window > 0) k_begin = max(0, q0 + off - window + 1);
+    k_begin -= k_begin % kBK;
+  }
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();  // every warp is done with the previous tile
+    if (has_pos) {
+      load_pos(sKp, k_pos, k0, SK, tid, kThreads);
+      __syncthreads();
+      int k_lo, k_hi;
+      tile_bounds(sKp, min(kBK, SK - k0), lane, &k_lo, &k_hi);
+      if (!tile_live(q_lo, q_hi, k_lo, k_hi, window)) continue;
+    }
     for (int i = tid; i < kBK * CH; i += kThreads) {
       const int r = i / CH, c = (i % CH) * 8;
       uint4 kv = zero, vv = zero;
@@ -169,10 +211,16 @@ __global__ void __launch_bounds__(kThreads)
         const int kl = j * 8 + 2 * t + e;
         const int kj = k0 + kl;
         const int ks = has_seg ? sKs[kl] : 0;
-        s[j][e] = mask_score(s[j][e] * scale, qi0, kj, off, SK, causal,
-                             window, has_seg, qs0, ks);
-        s[j][2 + e] = mask_score(s[j][2 + e] * scale, qi1, kj, off, SK,
-                                 causal, window, has_seg, qs1, ks);
+        const int kc = has_pos ? sKp[kl] : kj;
+        float x0 = s[j][e] * scale, x1 = s[j][2 + e] * scale;
+        if (has_bias && kj < SK) {
+          if (qi0 < SQ) x0 = __fadd_rn(x0, bias_at(bias, bbase, qi0, kj));
+          if (qi1 < SQ) x1 = __fadd_rn(x1, bias_at(bias, bbase, qi1, kj));
+        }
+        s[j][e] = mask_score(x0, qr0, kc, off, kj < SK, causal, window,
+                             has_seg, qs0, ks);
+        s[j][2 + e] = mask_score(x1, qr1, kc, off, kj < SK, causal, window,
+                                 has_seg, qs1, ks);
         mx0 = fmaxf(mx0, s[j][e]);
         mx1 = fmaxf(mx1, s[j][2 + e]);
       }
@@ -265,37 +313,60 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* q_seg,
-           const void* k_seg, void* out, void* lse, int B, int H, int HK,
-           int SQ, int SK, float scale, int causal, int window, Dropout dr,
-           cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
+template <int D, bool EXTRA>
+int launch_one(const void* q, const void* k, const void* v,
+               const void* q_seg, const void* k_seg, const void* q_pos,
+               const void* k_pos, const Bias& bias, void* out, void* lse,
+               int B, int H, int HK, int SQ, int SK, float scale, int causal,
+               int window, Dropout dr, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<D, EXTRA>();
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        flash_fwd_kernel<D, EXTRA>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((SQ + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<D><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_kernel<D, EXTRA><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(q_seg),
-      static_cast<const int*>(k_seg), static_cast<__nv_bfloat16*>(out),
+      static_cast<const int*>(k_seg), static_cast<const int*>(q_pos),
+      static_cast<const int*>(k_pos), bias, static_cast<__nv_bfloat16*>(out),
       static_cast<float*>(lse), H, HK, SQ, SK, scale, causal, window, dr);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* q_seg,
+           const void* k_seg, const void* q_pos, const void* k_pos,
+           const Bias& bias, void* out, void* lse, int B, int H, int HK,
+           int SQ, int SK, float scale, int causal, int window, Dropout dr,
+           cudaStream_t stream) {
+  if (q_pos == nullptr && bias.p == nullptr)
+    return launch_one<D, false>(q, k, v, q_seg, k_seg, q_pos, k_pos, bias,
+                                out, lse, B, H, HK, SQ, SK, scale, causal,
+                                window, dr, stream);
+  return launch_one<D, true>(q, k, v, q_seg, k_seg, q_pos, k_pos, bias, out,
+                             lse, B, H, HK, SQ, SK, scale, causal, window, dr,
+                             stream);
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // a head_dim other than 32, 64 or 128 or a grid beyond the y limit).
-// window <= 0 means no window; q_seg and k_seg are both null or both set.
-// dropout != 0 drops P in the P.V product: kept where the hash of
-// (seed, b * H + h, row, col) is >= thresh, divided by keep (1 - rate).
+// window <= 0 means no window; q_seg and k_seg are both null or both set,
+// as are q_pos and k_pos (positions need causal != 0). bias null means no
+// bias; else bias_bf16 says its type and sb, sh, sq, sk are its element
+// strides over (b, h, q, k), 0 where it broadcasts. dropout != 0 drops P
+// in the P.V product: kept where the hash of (seed, b * H + h, row, col)
+// is >= thresh, divided by keep (1 - rate).
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const void* q_seg, const void* k_seg,
+                              const void* q_pos, const void* k_pos,
+                              const void* bias, int bias_bf16, long long sb,
+                              long long sh, long long sq, long long sk,
                               void* out, void* lse, int B, int H, int HK,
                               int SQ, int SK, int D, float scale, int causal,
                               int window, int dropout, uint32_t seed,
@@ -303,18 +374,21 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
   if (B == 0 || H == 0 || SQ == 0) return (int)cudaGetLastError();
   if (HK <= 0 || H % HK || B * H > 65535 || SK < 1)
     return (int)cudaErrorInvalidValue;
+  if ((q_pos == nullptr) != (k_pos == nullptr) || (q_pos && !causal))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{dropout, seed, thresh, keep};
+  const Bias bs{bias, bias_bf16, sb, sh, sq, sk};
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, q_seg, k_seg, out, lse, B, H, HK, SQ, SK,
-                        scale, causal, window, dr, s);
+      return launch<32>(q, k, v, q_seg, k_seg, q_pos, k_pos, bs, out, lse, B,
+                        H, HK, SQ, SK, scale, causal, window, dr, s);
     case 64:
-      return launch<64>(q, k, v, q_seg, k_seg, out, lse, B, H, HK, SQ, SK,
-                        scale, causal, window, dr, s);
+      return launch<64>(q, k, v, q_seg, k_seg, q_pos, k_pos, bs, out, lse, B,
+                        H, HK, SQ, SK, scale, causal, window, dr, s);
     case 128:
-      return launch<128>(q, k, v, q_seg, k_seg, out, lse, B, H, HK, SQ, SK,
-                         scale, causal, window, dr, s);
+      return launch<128>(q, k, v, q_seg, k_seg, q_pos, k_pos, bs, out, lse, B,
+                         H, HK, SQ, SK, scale, causal, window, dr, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -14,6 +14,7 @@ from apex_tpu_torch.models.convert import (
     load_jax_opt_state,
     load_jax_params,
     load_jax_resnet,
+    multihead_attn_params_from_jax,
     resnet_params_from_jax,
 )
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, gpt_loss_fn
@@ -35,4 +36,5 @@ __all__ = ["BertConfig", "BertModel", "GPTConfig", "GPTModel",
            "bert_params_from_jax", "cross_entropy_logits", "gpt_loss_fn",
            "gpt_params_from_jax", "init_gpt_pretrain_params",
            "load_jax_opt_state", "load_jax_params", "load_jax_resnet",
-           "make_gpt_pretrain_step", "resnet_params_from_jax"]
+           "make_gpt_pretrain_step", "multihead_attn_params_from_jax",
+           "resnet_params_from_jax"]

@@ -25,6 +25,11 @@ reference's tree names map to module paths ('/' -> '.'), its HWIO conv
 kernels become OIHW, BatchNorm's ``scale`` becomes ``weight`` and the
 ``batch_stats`` ``mean`` / ``var`` the buffers ``running_mean`` /
 ``running_var``.
+
+Multi-head attention (``multihead_attn_params_from_jax``): the
+reference's ``SelfMultiheadAttn`` / ``EncdecMultiheadAttn`` tree. Its
+Flax ``Dense`` kernels are stored (in, out) and become ``nn.Linear``
+weights (out, in); ``lyr_nrm``'s ``scale`` becomes ``weight``.
 """
 
 from __future__ import annotations
@@ -155,6 +160,34 @@ def bert_params_from_jax(params_np: Mapping, config: BertConfig
     the reference's parameters ``params_np`` (CPU tensors)."""
     return _params_from_jax(params_np, config.num_layers,
                             _bert_top_keys(config), _BERT_LAYER_KEYS, "BERT")
+
+
+_MHA_DENSE = ("qkv_proj", "q_proj", "k_proj", "v_proj", "kv_proj",
+              "out_proj")
+
+
+def multihead_attn_params_from_jax(params_np: Mapping
+                                   ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's ``SelfMultiheadAttn`` or
+    ``EncdecMultiheadAttn`` holding the reference module's parameters
+    ``params_np`` (numpy leaves, with or without ``{"params": ...}``;
+    CPU tensors). A name the modules do not have raises."""
+    flat = _flatten(params_np.get("params", params_np))
+    state: Dict[str, torch.Tensor] = {}
+    for path, leaf in flat.items():
+        mod, _, leaf_name = path.partition("/")
+        t = _to_torch(leaf)
+        if mod in _MHA_DENSE and leaf_name in ("kernel", "bias"):
+            name = "weight" if leaf_name == "kernel" else "bias"
+            state[f"{mod}.{name}"] = t.T.contiguous() if name == "weight" \
+                else t
+        elif mod == "lyr_nrm" and leaf_name in ("scale", "bias"):
+            state[f"lyr_nrm.{'weight' if leaf_name == 'scale' else 'bias'}"] \
+                = t
+        else:
+            raise KeyError(f"unexpected multi-head attention parameter "
+                           f"{path!r}")
+    return state
 
 
 _RESNET_LEAF = {"scale": "weight", "mean": "running_mean",

@@ -9,23 +9,27 @@ backward the two kernels in ``csrc/flash_bwd.cu`` (``_bwd_dq_kernel`` and
 and :func:`_flash_bwd_torch`, the plain PyTorch versions. A call that
 autograd has to differentiate goes through ``_FlashFn``, the counterpart
 of the reference's ``custom_vjp`` (``_flash_fwd_rule`` /
-``_flash_bwd_rule``): the forward saves ``(q, k, v, out, lse)``, the
-backward forms ``delta = rowsum(out * dO)`` in PyTorch (the reference
-leaves it to XLA, :828) and recomputes the probabilities from the lse.
+``_flash_bwd_rule``, and with ``return_lse=True`` ``_flash_lse_fwd_rule``
+/ ``_flash_lse_bwd_rule``): the forward saves ``(q, k, v, out, lse)``,
+the backward forms ``delta = rowsum(out * dO)`` in PyTorch (the reference
+leaves it to XLA, :828), recomputes the probabilities from the lse and
+passes the lse's cotangent ``glse`` to the kernels; the bias's gradient
+is recomputed in PyTorch (:func:`_dbias`, the reference's ``_finish_bwd``
+:835-892, which runs outside any ``pallas_call``).
 
 The kernels cover causal masking with the ``sk - sq`` offset (chunked
 prefill), GQA, segment ids (packed batches and the decode context mask),
-the sliding window and attention dropout, with bf16 inputs and head_dim
-32, 64 or 128. Dropout is the reference's counter-based mask
-(:func:`_dropout_keep`, the murmur3 finaliser of the seed, the flat
-q-head index and the global query row and key column), regenerated in
-the forward and both backward kernels from one uint32 seed: the
-forward's normaliser sums the undropped probabilities and only ``P V``
-takes ``keep ? P / (1 - rate) : 0``; the backward drops ``dP`` and the
-``P`` of ``dV``. An additive ``bias``, ``q_positions``/``kv_positions``
-(ring attention) and the gradient of a returned lse stay in the plain
-version for now, which differentiates them by ordinary autograd: on a
-CUDA tensor they raise ``NotImplementedError``.
+the sliding window, an additive bias (each dimension full or broadcast,
+fp32 or bf16), global ``q_positions``/``kv_positions`` (ring and
+blockwise chunks: the causal and window tests compare positions, and
+tiles are skipped by their position bounds) and attention dropout, with
+bf16 inputs and head_dim 32, 64 or 128. Dropout is the reference's
+counter-based mask (:func:`_dropout_keep`, the murmur3 finaliser of the
+seed, the flat q-head index and the global query row and key column),
+regenerated in the forward and both backward kernels from one uint32
+seed: the forward's normaliser sums the undropped probabilities and only
+``P V`` takes ``keep ? P / (1 - rate) : 0``; the backward drops ``dP``
+and the ``P`` of ``dV``.
 """
 
 from __future__ import annotations
@@ -169,8 +173,61 @@ def _attention_torch(q, k, v, bias, q_seg, k_seg, scale, causal,
     return out.to(q.dtype)
 
 
+def _bias5(bias, hk: int, group: int) -> torch.Tensor:
+    """``bias`` (b_b, h_b, sq_b, sk_b) in fp32, viewed over (batch, kv
+    head, q head of the group, sq, sk) for broadcasting."""
+    b_b, h_b, sq_b, sk_b = bias.shape
+    if h_b == 1:
+        return bias.float().reshape(b_b, 1, 1, sq_b, sk_b)
+    return bias.float().reshape(b_b, hk, group, sq_b, sk_b)
+
+
+def _ds_torch(q, k, v, lse, dout, delta, q_seg, k_seg, scale, causal,
+              window, rate, seed, bias, glse, q_pos, k_pos, b0=0):
+    """The backward's fp32 probabilities over (b, kv head, q head of the
+    group, sq, sk): ``(p_v, ds)`` with ``p_v`` what multiplied V (the
+    dropped P) and ``ds = P (dP - delta) + P glse`` (undropped P). ``b0``
+    is the first batch row of this slice, for the dropout hash."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    group = h // hk
+    qg = q.float().reshape(b, hk, group, sq, d)
+    og = dout.float().reshape(b, hk, group, sq, d)
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qg, k.float()) * scale
+    if bias is not None:
+        s = s + _bias5(bias, hk, group)
+    neg = torch.zeros((b, sq, sk), dtype=torch.float32, device=q.device)
+    if causal or window is not None:
+        neg = neg + _mask_full(sq, sk, causal, window, q_pos, k_pos,
+                               q.device)[None]
+    if q_seg is not None:
+        neg = torch.where(q_seg[:, :, None] != k_seg[:, None, :], NEG_INF,
+                          neg)
+    s = s + neg[:, None, None]
+    lse_c = torch.clamp(lse, min=NEG_INF * 0.5).reshape(b, hk, group, sq, 1)
+    p = torch.exp(s - lse_c)
+    dp = torch.einsum("bkgqd,bkcd->bkgqc", og, v.float())
+    p_v = p
+    if rate > 0.0:
+        # flat q-head index b * h + kv head * group + g, global indices
+        bh = torch.arange(b0 * h, (b0 + b) * h,
+                          device=q.device).reshape(b, hk, group, 1, 1)
+        row = torch.arange(sq, device=q.device).reshape(sq, 1)
+        col = torch.arange(sk, device=q.device).reshape(1, sk)
+        keep = _dropout_keep(seed, bh, row, col, rate)
+        div = _keep_divisor(rate, q.device)
+        p_v = torch.where(keep, p / div, 0.0)
+        dp = torch.where(keep, dp / div, 0.0)
+    ds = p * (dp - delta.reshape(b, hk, group, sq, 1))
+    if glse is not None:
+        # lse is an output too: dlse_i / ds_ij = p_ij, undropped
+        ds = ds + p * glse.float().reshape(b, hk, group, sq, 1)
+    return p_v, ds
+
+
 def _flash_bwd_torch(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
-                     causal, window, rate=0.0, seed=None):
+                     causal, window, rate=0.0, seed=None, *, bias=None,
+                     glse=None, q_pos=None, k_pos=None):
     """Plain version of the two backward kernels: ``(dq, dk, dv)`` from
     the whole (sq, sk) matrix in fp32, with the kernels' arithmetic —
     P recomputed from the lse (clamped at NEG_INF / 2), dS rounded to
@@ -179,42 +236,59 @@ def _flash_bwd_torch(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     and dv over each kv head's group. With dropout (the reference's
     ``_finish_bwd`` :876-880 and the kernels): ``dP`` and the ``P`` of
     ``dV`` become ``keep ? x / (1 - rate) : 0``, ``dS`` keeps the
-    undropped ``P``."""
+    undropped ``P``. ``bias`` and the positions mask the scores as in
+    the forward; ``glse``, the cotangent of the lse, adds ``P glse`` to
+    ``dS``."""
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     group = h // hk
+    p_v, ds = _ds_torch(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
+                        causal, window, rate, seed, bias, glse, q_pos, k_pos)
+    ds = ds.to(q.dtype).float()
     qg = q.float().reshape(b, hk, group, sq, d)
     og = dout.float().reshape(b, hk, group, sq, d)
-    kf, vf = k.float(), v.float()
-    s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kf) * scale
-    neg = torch.zeros((b, sq, sk), dtype=torch.float32, device=q.device)
-    if causal or window is not None:
-        neg = neg + _mask_full(sq, sk, causal, window, None, None,
-                               q.device)[None]
-    if q_seg is not None:
-        neg = torch.where(q_seg[:, :, None] != k_seg[:, None, :], NEG_INF,
-                          neg)
-    s = s + neg[:, None, None]
-    lse_c = torch.clamp(lse, min=NEG_INF * 0.5).reshape(b, hk, group, sq, 1)
-    p = torch.exp(s - lse_c)
-    dp = torch.einsum("bkgqd,bkcd->bkgqc", og, vf)
-    p_v = p
-    if rate > 0.0:
-        # flat q-head index b * h + kv head * group + g, global indices
-        bh = torch.arange(b * h, device=q.device).reshape(b, hk, group, 1, 1)
-        row = torch.arange(sq, device=q.device).reshape(sq, 1)
-        col = torch.arange(sk, device=q.device).reshape(1, sk)
-        keep = _dropout_keep(seed, bh, row, col, rate)
-        div = _keep_divisor(rate, q.device)
-        p_v = torch.where(keep, p / div, 0.0)
-        dp = torch.where(keep, dp / div, 0.0)
-    ds = p * (dp - delta.reshape(b, hk, group, sq, 1))
-    ds = ds.to(q.dtype).float()
-    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, kf) * scale
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, k.float()) * scale
     dk = torch.einsum("bkgqc,bkgqd->bkcd", ds, qg) * scale
     dv = torch.einsum("bkgqc,bkgqd->bkcd", p_v.to(dout.dtype).float(), og)
     return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+# fp32 scores one slice of the bias gradient's recompute may hold
+DBIAS_CHUNK_ELEMS = 1 << 26
+
+
+def _dbias(q, k, v, bias, lse, dout, delta, q_seg, k_seg, scale, causal,
+           window, rate, seed, glse, q_pos, k_pos) -> torch.Tensor:
+    """The bias's gradient, in its own (broadcast) shape and dtype: fp32
+    ``dS`` recomputed a slice of batch rows at a time (at most
+    ``DBIAS_CHUNK_ELEMS`` scores live) and summed over every dimension
+    the bias broadcasts. The reference's ``_finish_bwd`` (:835-892)
+    recomputes it per (batch, head) slice in XLA, outside any
+    ``pallas_call``; it is not a kernel of the port either."""
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    b_b, h_b, sq_b, sk_b = bias.shape
+    acc = torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
+    dims = [i for i, n in enumerate((h_b, sq_b, sk_b), 1) if n == 1]
+    step = max(1, DBIAS_CHUNK_ELEMS // (h * sq * sk))
+    for b0 in range(0, b, step):
+        sl = slice(b0, min(b, b0 + step))
+        bias_sl = bias[sl] if b_b > 1 else bias
+        _, ds = _ds_torch(
+            q[sl], k[sl], v[sl], lse[sl], dout[sl], delta[sl],
+            None if q_seg is None else q_seg[sl],
+            None if k_seg is None else k_seg[sl], scale, causal, window,
+            rate, seed, bias_sl, None if glse is None else glse[sl],
+            q_pos, k_pos, b0=b0)
+        ds = ds.reshape(ds.shape[0], h, sq, sk)
+        if dims:
+            ds = ds.sum(dim=dims, keepdim=True)
+        if b_b == 1:
+            acc += ds.sum(dim=0, keepdim=True)
+        else:
+            acc[sl] += ds
+    return acc.to(bias.dtype)
 
 
 def _check_kernel_args(q, k, v, q_seg, k_seg):
@@ -238,6 +312,30 @@ def _check_kernel_args(q, k, v, q_seg, k_seg):
     return q_seg, k_seg
 
 
+def _extra_args(q, bias, q_pos, k_pos):
+    """The kernels' position and bias arguments: ``(q_pos, k_pos, bias,
+    bias_bf16, sb, sh, sq, sk)``, pointers or None. The bias is read
+    through its own element strides, 0 on each dimension of size 1, so a
+    broadcast or expanded bias is never copied."""
+    dev = q.device
+    pos = []
+    for name, t in (("q_positions", q_pos), ("kv_positions", k_pos)):
+        if t is not None:
+            check_kernel_input(name, t, (torch.int32,), dev)
+        pos.append(None if t is None else t.data_ptr())
+    if bias is None:
+        return (*pos, None, 0, 0, 0, 0, 0)
+    if bias.device != dev:
+        raise ValueError(f"bias is on {bias.device}, expected {dev}")
+    if bias.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"bias has dtype {bias.dtype}; the kernels take "
+                        "torch.float32 or torch.bfloat16")
+    strides = [0 if n == 1 else st for n, st in zip(bias.shape,
+                                                    bias.stride())]
+    return (*pos, bias.data_ptr(), int(bias.dtype == torch.bfloat16),
+            *strides)
+
+
 def _dropout_args(rate: float, seed):
     """The kernels' dropout arguments: (on, seed, thresh, keep)."""
     if rate <= 0.0:
@@ -248,29 +346,33 @@ def _dropout_args(rate: float, seed):
 
 def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
                     causal, window, rate=0.0, seed=None,
-                    kernels=(BWD_DQ_KERNEL, BWD_DKV_KERNEL)):
+                    kernels=(BWD_DQ_KERNEL, BWD_DKV_KERNEL), *, bias=None,
+                    glse=None, q_pos=None, k_pos=None):
     """The dq kernel and the dk/dv kernel: returns ``(dq, dk, dv)`` like
     ``_flash_bwd_pallas``. ``kernels`` names the ones to launch (both by
     default; one alone to time it); a kernel left out returns None for
-    its outputs."""
+    its outputs. ``glse`` (fp32, like lse) is the cotangent of the lse."""
     q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
     dev = q.device
     dout = dout.contiguous()
     check_kernel_input("grad", dout, (torch.bfloat16,), dev)
-    for name, t in (("lse", lse), ("delta", delta)):
+    for name, t in (("lse", lse), ("delta", delta), ("glse", glse)):
         check_kernel_input(name, t, (torch.float32,), dev)
+    extra = _extra_args(q, bias, q_pos, k_pos)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     dq = torch.empty_like(q) if BWD_DQ_KERNEL in kernels else None
     dk, dv = ((torch.empty_like(k), torch.empty_like(v))
               if BWD_DKV_KERNEL in kernels else (None, None))
-    P, I, U, F = _build.P, _build.I, _build.U, _build.F
+    P, I, L, U, F = _build.P, _build.I, _build.L, _build.U, _build.F
     lib = _build.library(
         "flash_bwd", "apex_flash_bwd",
-        (P,) * 11 + (I,) * 6 + (F, I, I, I, U, U, F, P),
+        (P,) * 12 + (I, L, L, L, L) + (P,) * 3 + (I,) * 6
+        + (F, I, I, I, U, U, F, P),
         "apex_flash_bwd_error_string")
     segs = (None if q_seg is None else q_seg.data_ptr(),
             None if k_seg is None else k_seg.data_ptr())
+    gl = None if glse is None else glse.data_ptr()
     drop = _dropout_args(rate, seed)
     launches = ((BWD_DQ_KERNEL, (dq, None, None)),
                 (BWD_DKV_KERNEL, (None, dk, dv)))
@@ -282,9 +384,10 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.apex_flash_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), *segs, *outs, b, h, hk,
-                sq, sk, d, float(scale), int(causal),
-                0 if window is None else int(window), *drop, stream)
+                lse.data_ptr(), delta.data_ptr(), *segs, *extra[:2], gl,
+                *extra[2:], *outs, b, h, hk, sq, sk, d, float(scale),
+                int(causal), 0 if window is None else int(window), *drop,
+                stream)
         if err:
             raise RuntimeError(
                 f"{kernel}: CUDA error {err} at launch: "
@@ -295,47 +398,67 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
 
 class _FlashFn(torch.autograd.Function):
     """The reference's ``custom_vjp`` around flash attention: the
-    kernels on CUDA tensors, the plain versions on CPU tensors."""
+    kernels on CUDA tensors, the plain versions on CPU tensors. With
+    ``with_lse`` it returns ``(out, lse)``, both differentiable
+    (``_flash_with_lse``); the lse's cotangent reaches the kernels as
+    ``glse``, and the bias's gradient is recomputed (:func:`_dbias`)
+    when the bias requires one."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_seg, k_seg, scale, causal, window, rate,
-                seed, kernel):
+    def forward(ctx, q, k, v, bias, q_seg, k_seg, q_pos, k_pos, scale,
+                causal, window, rate, seed, kernel, with_lse):
         if kernel:
             out, lse = _flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
-                                   window, rate, seed)
+                                   window, rate, seed, bias=bias,
+                                   q_pos=q_pos, k_pos=k_pos)
         else:
-            out, lse = _attention_torch(q, k, v, None, q_seg, k_seg, scale,
+            out, lse = _attention_torch(q, k, v, bias, q_seg, k_seg, scale,
                                         causal, window, rate, seed,
-                                        return_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse, q_seg, k_seg)
+                                        return_lse=True, q_pos=q_pos,
+                                        k_pos=k_pos)
+        ctx.save_for_backward(q, k, v, bias, out, lse, q_seg, k_seg, q_pos,
+                              k_pos)
         ctx.args = (scale, causal, window, rate, seed, kernel)
-        return out
+        ctx.set_materialize_grads(False)
+        return (out, lse) if with_lse else out
 
     @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse, q_seg, k_seg = ctx.saved_tensors
+    def backward(ctx, dout, glse=None):
+        q, k, v, bias, out, lse, q_seg, k_seg, q_pos, k_pos = \
+            ctx.saved_tensors
         scale, causal, window, rate, seed, kernel = ctx.args
+        if dout is None:
+            dout = torch.zeros_like(out)
         # delta = rowsum(dO * O) whatever the dropout: the 1 / (1 - rate)
         # of the kept probabilities cancels in rowsum(P * dP)
         delta = torch.sum(out.float() * dout.float(), dim=-1)
+        if glse is not None:
+            glse = glse.float().contiguous()
+        pos = dict(q_pos=q_pos, k_pos=k_pos)
         dq, dk, dv = (_flash_bwd_cuda if kernel else _flash_bwd_torch)(
             q, k, v, lse, dout, delta, q_seg, k_seg, scale, causal, window,
-            rate, seed)
-        return dq, dk, dv, None, None, None, None, None, None, None, None
+            rate, seed, bias=bias, glse=glse, **pos)
+        dbias = None
+        if bias is not None and ctx.needs_input_grad[3]:
+            dbias = _dbias(q, k, v, bias, lse, dout, delta, q_seg, k_seg,
+                           scale, causal, window, rate, seed, glse, **pos)
+        return (dq, dk, dv, dbias) + (None,) * 11
 
 
 def _library() -> ctypes.CDLL:
-    P, I, U, F = _build.P, _build.I, _build.U, _build.F
+    P, I, L, U, F = _build.P, _build.I, _build.L, _build.U, _build.F
     return _build.library(
         "flash_fwd", "apex_flash_fwd",
-        (P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, I, I, U, U, F, P),
+        (P,) * 8 + (I, L, L, L, L) + (P, P) + (I,) * 6
+        + (F, I, I, I, U, U, F, P),
         "apex_flash_error_string")
 
 
 def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
-                seed=None):
+                seed=None, *, bias=None, q_pos=None, k_pos=None):
     """The kernel: returns ``(out, lse)`` like ``_flash_fwd_pallas``."""
     q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
+    extra = _extra_args(q, bias, q_pos, k_pos)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     dev = q.device
@@ -348,7 +471,7 @@ def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
         err = lib.apex_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if q_seg is None else q_seg.data_ptr(),
-            None if k_seg is None else k_seg.data_ptr(),
+            None if k_seg is None else k_seg.data_ptr(), *extra,
             out.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, d,
             float(scale), int(causal), 0 if window is None else int(window),
             *_dropout_args(rate, seed), stream)
@@ -359,12 +482,20 @@ def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
     return out, lse
 
 
+def as_positions(t, device) -> torch.Tensor:
+    """Token positions (a tensor, array or sequence) as the contiguous
+    int32 vector on ``device`` that the kernels read."""
+    return torch.as_tensor(t, device=device).reshape(-1).to(
+        torch.int32).contiguous()
+
+
 def _prepare(q, k, v, bias, segment_ids, kv_segment_ids, causal,
              window_size, softmax_scale, dropout_rate, dropout_rng,
              q_positions, kv_positions):
     """Validate the arguments and apply the reference's defaults
     (``flash_attention`` :995-1050); returns (scale, q_seg, k_seg,
-    seed)."""
+    seed, q_pos, k_pos), the positions as int32 tensors on q's
+    device."""
     if bias is not None:
         b, h, sq, sk = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
         ok = (bias.ndim == 4
@@ -410,38 +541,38 @@ def _prepare(q, k, v, bias, segment_ids, kv_segment_ids, causal,
         if dropout_rng is None:
             raise ValueError("dropout_rate > 0 requires dropout_rng")
         seed = dropout_seed(dropout_rng)
-    return softmax_scale, segment_ids, kv_segment_ids, seed
+    q_pos = k_pos = None
+    if q_positions is not None:
+        q_pos, k_pos = (as_positions(t, q.device)
+                        for t in (q_positions, kv_positions))
+        if q_pos.numel() != q.shape[2] or k_pos.numel() != k.shape[2]:
+            raise ValueError(
+                f"positions of {q_pos.numel()} queries and {k_pos.numel()} "
+                f"keys for sq={q.shape[2]}, sk={k.shape[2]}")
+    return softmax_scale, segment_ids, kv_segment_ids, seed, q_pos, k_pos
 
 
 def _attention(q, k, v, kernel: bool, *, bias=None, segment_ids=None,
                kv_segment_ids=None, causal=False, window_size=None,
                softmax_scale=None, dropout_rate=0.0, dropout_rng=None,
                return_lse=False, q_positions=None, kv_positions=None):
-    scale, q_seg, k_seg, seed = _prepare(
+    scale, q_seg, k_seg, seed, q_pos, k_pos = _prepare(
         q, k, v, bias, segment_ids, kv_segment_ids, causal, window_size,
         softmax_scale, dropout_rate, dropout_rng, q_positions, kv_positions)
     grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
-    unported = [name for name, on in (
-        ("bias", bias is not None),
-        ("q_positions/kv_positions", q_positions is not None),
-        ("the gradient of a returned lse", grad and return_lse)) if on]
-    if kernel and unported:
-        raise NotImplementedError(
-            f"flash_attention with {', '.join(unported)} has no CUDA "
-            "kernel yet (the ring-attention slice of the port); it runs "
-            "only on CPU tensors")
-    if grad and not unported:
-        return _FlashFn.apply(q, k, v, q_seg, k_seg, scale, causal,
-                              window_size, dropout_rate, seed, kernel)
+        t is not None and t.requires_grad for t in (q, k, v, bias))
+    if grad:
+        return _FlashFn.apply(q, k, v, bias, q_seg, k_seg, q_pos, k_pos,
+                              scale, causal, window_size, dropout_rate, seed,
+                              kernel, return_lse)
     if kernel:
         out, lse = _flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
-                               window_size, dropout_rate, seed)
+                               window_size, dropout_rate, seed, bias=bias,
+                               q_pos=q_pos, k_pos=k_pos)
         return (out, lse) if return_lse else out
     return _attention_torch(q, k, v, bias, q_seg, k_seg, scale, causal,
                             window_size, dropout_rate, seed,
-                            return_lse=return_lse, q_pos=q_positions,
-                            k_pos=kv_positions)
+                            return_lse=return_lse, q_pos=q_pos, k_pos=k_pos)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -463,8 +594,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     only keys of its own segment (either defaults from the other, as in
     the reference). ``causal`` lets query i see keys j <= i + (sk - sq);
     ``window_size=w`` further restricts it to its last ``w`` keys.
+    ``q_positions`` (sq,) / ``kv_positions`` (sk,) give global token
+    positions (ring and blockwise chunks): the causal and window tests
+    then compare positions, with no offset. ``bias`` is an additive fp32
+    or bf16 logit bias, 4-D with each dimension 1 or full (b, h, sq,
+    sk); its gradient comes back in its own shape.
     ``return_lse=True`` also returns the fp32 (b, h, sq) log-sum-exp
-    (``NEG_INF`` on fully-masked rows). ``dropout_rate`` drops the
+    (``NEG_INF`` on fully-masked rows), differentiable: chunk results
+    merge exactly through ``logaddexp``. ``dropout_rate`` drops the
     attention probabilities with the counter-based mask of
     ``dropout_rng``: a key (its two uint32 words, xor-ed into the seed
     as the reference folds it) or a uint32 seed."""

@@ -221,7 +221,34 @@ Phases, in order; any failure exits non-zero before the last line:
    against the plain versions, then a step under the loss scaler with an
    inf: skipped bitwise, the count not advanced, the next step's p' the
    one the skipped step would have written.
-13. Each phase's wall seconds, the ``kernels`` JSON line (all thirty-five
+13. The flash kernels' bias, global positions and lse cotangent. (a)
+   Forward, dq and dk/dv against their plain versions: a bias of each
+   broadcast class ((1, 1, sq, sk), (b, 1, 1, sk), (b, h, sq, sk)) in
+   fp32 and bf16 at the multi-head attention stack's shape (120 x 16
+   heads x 64 x 64), a key-padding bias with dropout 0.1 (the keep mask
+   read off an output, bitwise the plain mask), zig-zag positions and the
+   lse cotangent at a chunk's shape (16 heads, 2048 x 2048 of 8192
+   tokens), the lse cotangent alone, and dbias by recompute (PyTorch)
+   against autograd through the plain forward; SDPA with a float
+   ``attn_mask`` as the library yardstick. (b) The reference's
+   multi-head attention perf test at its defaults: three 18-layer stacks
+   (self attention with a bool future mask, self attention and
+   encoder-decoder attention with an additive key-padding mask of real
+   lengths 32-64), 120 x 64 tokens, hidden 1024, 16 heads, dropout 0.1,
+   biases and norm-add, bf16: forward + backward ms per layer with
+   ``impl="fast"`` (the flash kernels) against ``"default"`` (the plain
+   attention), exactly 18 launches a pass of each flash and LayerNorm
+   kernel, and at 8 sequences the output and every gradient within
+   MHA_OUT_REL_TOL / MHA_GRAD_REL_TOL of the plain path. (c) Causal
+   attention over 8192 tokens (b 1, 16 heads, d 64, bf16) in 4 zig-zag
+   shards on one card, the ring's serial schedule (``_chunk_attn`` in 2 x
+   2 sub-tiles, ``_merge``, then ``_chunk_grads`` against the global lse
+   and delta, one launch of each kernel per live sub-tile), and the same
+   combine differentiated by autograd through out and lse: the forward
+   and dq, dk, dv against the unchunked kernel within ZZ_OUT_REL_TOL and
+   ZZ_GRAD_REL_TOL, the kernel tiles the position bounds skipped, and the
+   time against the unchunked call.
+14. Each phase's wall seconds, the ``kernels`` JSON line (all thirty-five
    kernels and variants, each with its launches on its path), then the
    device line the caller reads.
 
@@ -245,6 +272,10 @@ import torch.nn.functional as F
 from apex_tpu_torch import _build, amp
 from apex_tpu_torch import random as jrandom
 from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
+from apex_tpu_torch.contrib.multihead_attn import (
+    EncdecMultiheadAttn,
+    SelfMultiheadAttn,
+)
 from apex_tpu_torch.models import (
     BertConfig,
     BertModel,
@@ -290,6 +321,7 @@ from apex_tpu_torch.optimizers import (
     make_train_step,
 )
 from apex_tpu_torch.parallel import LARC
+from apex_tpu_torch.transformer import context_parallel
 from apex_tpu_torch.serving import (
     ContinuousBatcher,
     DecodeStep,
@@ -3393,47 +3425,117 @@ def _rel_errs(got, want) -> dict:
             for n, g, w in zip(("dq", "dk", "dv"), got, want)}
 
 
-def flash_dropout_case(name, gen, dev, b, h, sq, d, causal, keep=None):
-    """The three flash kernels with dropout against the plain forward and
-    backward with the same mask, at one training shape: (fwd case, dq
-    case, dk/dv case)."""
-    def rnd(*shape):
-        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
-    q, k, v, do = (rnd(b, h, sq, d) for _ in range(4))
-    scale, seed = d ** -0.5, attention.dropout_seed(DROPOUT_KEY)
-    seg = keep                       # BERT: the keep-mask as segment ids
-    fwd_args = (q, k, v, seg, seg, scale, causal, None, DROP_RATE, seed)
-    out, lse = attention._flash_cuda(*fwd_args)
+def flash_option_case(name, q, k, v, do, *, causal, live_pairs, seg=None,
+                      bias=None, q_pos=None, k_pos=None, glse=None,
+                      rate=0.0, sdpa=None, shape=""):
+    """The three flash kernels with the options of one case (segment ids,
+    dropout, a bias, positions, an lse cotangent) against their plain
+    versions on the same inputs: (fwd row, dq row, dk/dv row), each with
+    its times, bound and SDPA yardstick (``sdpa``: its keyword arguments
+    carrying the same mask, or None where no library call computes the
+    function)."""
+    scale = q.shape[-1] ** -0.5
+    seed = attention.dropout_seed(DROPOUT_KEY) if rate > 0.0 else None
+    kw = dict(bias=bias, q_pos=q_pos, k_pos=k_pos)
+    fwd_args = (q, k, v, seg, seg, scale, causal, None, rate, seed)
+    out, lse = attention._flash_cuda(*fwd_args, **kw)
     pout, plse = attention._attention_torch(
-        q, k, v, None, seg, seg, scale, causal, None, DROP_RATE, seed,
-        return_lse=True)
+        q, k, v, bias, seg, seg, scale, causal, None, rate, seed,
+        return_lse=True, q_pos=q_pos, k_pos=k_pos)
     delta = (out.float() * do.float()).sum(-1)
-    args = (q, k, v, lse, do, delta, seg, seg, scale, causal, None,
-            DROP_RATE, seed)
-    got = attention._flash_bwd_cuda(*args)
-    want = attention._flash_bwd_torch(*args)
+    args = (q, k, v, lse, do, delta, seg, seg, scale, causal, None, rate,
+            seed)
+    bkw = dict(kw, glse=glse)
+    got = attention._flash_bwd_cuda(*args, **bkw)
+    want = attention._flash_bwd_torch(*args, **bkw)
     torch.cuda.synchronize()
     diff = (out.float() - pout.float()).abs()
+    # fully masked rows are 0 on both sides: any floor keeps them at 0
     row_scale = pout.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
     rel = float((diff / row_scale).max())
     lse_err = float((lse - plse).abs().max())
     errs = _rel_errs(got, want)
-    print(f"  flash dropout[{name}] b={b} h={h} s={sq} d={d} causal={causal} "
-          f"segments={keep is not None} rate {DROP_RATE}: out row_rel_err "
-          f"{rel:.3e} (tol {FLASH_OUT_REL_TOL}) lse_err {lse_err:.3e} (tol "
-          f"{FLASH_LSE_TOL}); " + " ".join(f"{n} rel {e:.3e}"
-                                         for n, e in errs.items())
+    print(f"  flash {name} {shape}: out row_rel_err {rel:.3e} (tol "
+          f"{FLASH_OUT_REL_TOL}) lse_err {lse_err:.3e} (tol {FLASH_LSE_TOL})"
+          "; " + " ".join(f"{n} rel {e:.3e}" for n, e in errs.items())
           + f" (tol {FLASH_BWD_REL_TOL})")
-    check(bool(torch.isfinite(out).all()), f"flash dropout[{name}]: "
-          "non-finite output")
+    check(bool(torch.isfinite(out).all()), f"flash {name}: non-finite")
     check(rel <= FLASH_OUT_REL_TOL and lse_err <= FLASH_LSE_TOL,
-          f"flash dropout[{name}]: forward kernel disagrees with plain")
+          f"flash {name}: forward kernel disagrees with plain")
     check(all(e <= FLASH_BWD_REL_TOL for e in errs.values()),
-          f"flash dropout[{name}]: backward kernels disagree with plain")
+          f"flash {name}: backward kernels disagree with plain")
+    extra_bytes = nbytes(bias, q_pos, k_pos) + 2 * nbytes(seg)
+    fwd_ms = device_ms(lambda: attention._flash_cuda(*fwd_args, **kw))
+    fwd_plain = device_ms(lambda: attention._attention_torch(
+        q, k, v, bias, seg, seg, scale, causal, None, rate, seed,
+        return_lse=True, q_pos=q_pos, k_pos=k_pos), iters=3, replays=2)
+    bwd_plain = device_ms(lambda: attention._flash_bwd_torch(*args, **bkw),
+                          iters=3, replays=2)
+    lib_fwd = lib_bwd = None
+    if sdpa is not None:
+        sdpa = dict(sdpa, dropout_p=rate)
+        lib_fwd = _library_ms(f"SDPA {name}", lambda: (
+            F.scaled_dot_product_attention(q, k, v, **sdpa)))
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            lo = F.scaled_dot_product_attention(ql, kl, vl, **sdpa)
+        lib_bwd = _library_ms(f"SDPA {name} backward", lambda: (
+            torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True)))
+        del lo, ql, kl, vl
+    b_ms, by = bound(nbytes(q, k, v, out, lse) + extra_bytes,
+                     4 * q.shape[-1] * live_pairs, PEAK_BF16_TENSOR_FLOPS)
+    print(f"    flash_fwd: ms={fwd_ms:.5f} plain_ms={fwd_plain:.5f} "
+          f"library_ms={lib_fwd} bound_ms={b_ms:.5f} ({by})")
+    rows = [{"case": name, "ms": fwd_ms, "plain_ms": fwd_plain,
+             "library_ms": lib_fwd, "bound_ms": b_ms, "bound_by": by,
+             "row_rel_err": rel, "lse_err": lse_err,
+             "max_abs_err": float(diff.max()), "shape": shape}]
+    for kname, n_products, outs in (
+            (attention.BWD_DQ_KERNEL, 3, got[:1]),
+            (attention.BWD_DKV_KERNEL, 4, got[1:])):
+        ms = device_ms(lambda kname=kname: attention._flash_bwd_cuda(
+            *args, kernels=(kname,), **bkw))
+        kb_ms, kby = bound(nbytes(q, k, v, do, lse, delta, glse, *outs)
+                           + extra_bytes, 2 * q.shape[-1] * n_products
+                           * live_pairs, PEAK_BF16_TENSOR_FLOPS)
+        print(f"    {kname}: ms={ms:.5f} bound_ms={kb_ms:.5f} ({kby}); both "
+              f"kernels' plain_ms={bwd_plain:.5f}, SDPA backward "
+              f"library_ms={lib_bwd}")
+        rows.append({"case": name, "ms": ms, "plain_ms": bwd_plain,
+                     "library_ms": lib_bwd, "bound_ms": kb_ms,
+                     "bound_by": kby, "errors": errs,
+                     "max_abs_err": max(float((g_.float() - w_.float())
+                                              .abs().max())
+                                        for g_, w_ in zip(got, want)),
+                     "shape": shape})
+    return rows
+
+
+def flash_dropout_case(name, gen, dev, b, h, sq, d, causal, keep=None):
+    """The three flash kernels with dropout against the plain forward and
+    backward with the same mask, at one training shape: (fwd case, dq
+    case, dk/dv case); with segment ids, the masked rows exactly 0."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    q, k, v, do = (rnd(b, h, sq, d) for _ in range(4))
+    seg = keep                       # BERT: the keep-mask as segment ids
+    live = _allowed(b, sq, sq, causal, None, dev)
+    mask = None
+    if keep is not None:
+        mask = keep[:, :, None] == keep[:, None, :]
+        live = live & mask
+    rows = flash_option_case(
+        f"dropout_{name}", q, k, v, do, causal=causal, seg=seg,
+        rate=DROP_RATE, live_pairs=int(live.sum()) * h,
+        sdpa=(dict(is_causal=causal) if mask is None
+              else dict(attn_mask=mask[:, None])),
+        shape=f"b={b} h={h} s={sq} d={d} causal={causal} "
+              f"segments={keep is not None} dropout {DROP_RATE}")
     zeros = None
     if keep is not None:
         # pad queries in a segment no key has, pad keys in one no query
         # has: those rows of out and dq and of dk and dv are exactly 0
+        scale, seed = d ** -0.5, attention.dropout_seed(DROPOUT_KEY)
         q_seg = torch.where(keep > 0, 1, 2).to(torch.int32)
         zo, zl = attention._flash_cuda(q, k, v, q_seg, keep, scale, causal,
                                        None, DROP_RATE, seed)
@@ -3442,73 +3544,19 @@ def flash_dropout_case(name, gen, dev, b, h, sq, d, causal, keep=None):
             q, k, v, zl, do, zd, q_seg, keep, scale, causal, None,
             DROP_RATE, seed)
         torch.cuda.synchronize()
-        pad_q = (keep == 0)[:, None, :, None]
-        pad_k = (keep == 0)[:, None, :, None]
-        zeros = {"out": int((zo * pad_q).count_nonzero()),
+        pad = (keep == 0)[:, None, :, None]
+        zeros = {"out": int((zo * pad).count_nonzero()),
                  "lse": int(((zl != attention.NEG_INF)
                              & (keep == 0)[:, None]).sum()),
-                 "dq": int((zq * pad_q).count_nonzero()),
-                 "dk": int((zk * pad_k).count_nonzero()),
-                 "dv": int((zv * pad_k).count_nonzero())}
+                 "dq": int((zq * pad).count_nonzero()),
+                 "dk": int((zk * pad).count_nonzero()),
+                 "dv": int((zv * pad).count_nonzero())}
         print(f"    masked rows (pad queries and keys in their own "
               f"segments): nonzero entries {zeros}")
         check(not any(zeros.values()), f"flash dropout[{name}]: a masked "
               "row is not exactly 0")
-        del zo, zl, zd, zq, zk, zv
-    live = _allowed(b, sq, sq, causal, None, dev)
-    if keep is not None:
-        live = live & (keep[:, :, None] == keep[:, None, :])
-    pairs = int(live.sum()) * h
-    seg_bytes = nbytes(seg) * 2 if seg is not None else 0
-    fwd_ms = device_ms(lambda: attention._flash_cuda(*fwd_args))
-    fwd_plain = device_ms(lambda: attention._attention_torch(
-        q, k, v, None, seg, seg, scale, causal, None, DROP_RATE, seed,
-        return_lse=True), iters=3, replays=2)
-    bwd_plain = device_ms(lambda: attention._flash_bwd_torch(*args),
-                          iters=3, replays=2)
-    mask = None if keep is None else (
-        keep[:, :, None] == keep[:, None, :])[:, None]
-    sdpa = dict(dropout_p=DROP_RATE, is_causal=causal) if mask is None \
-        else dict(dropout_p=DROP_RATE, attn_mask=mask)
-    lib_fwd = _library_ms("SDPA dropout", lambda: F.scaled_dot_product_attention(
-        q, k, v, **sdpa))
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    with torch.enable_grad():
-        lo = F.scaled_dot_product_attention(ql, kl, vl, **sdpa)
-    lib_bwd = _library_ms("SDPA dropout backward", lambda: torch.autograd.grad(
-        lo, (ql, kl, vl), do, retain_graph=True))
-    del lo, ql, kl, vl
-    b_ms, by = bound(nbytes(q, k, v, out, lse) + seg_bytes, 4 * d * pairs,
-                     PEAK_BF16_TENSOR_FLOPS)
-    shape = (f"b={b} h={h} s={sq} d={d} causal={causal} "
-             f"segments={keep is not None} dropout {DROP_RATE}")
-    print(f"    flash_fwd: ms={fwd_ms:.5f} plain_ms={fwd_plain:.5f} "
-          f"library_ms={lib_fwd} (SDPA dropout_p) bound_ms={b_ms:.5f} ({by})")
-    fwd = {"case": f"dropout_{name}", "ms": fwd_ms, "plain_ms": fwd_plain,
-           "library_ms": lib_fwd, "bound_ms": b_ms, "bound_by": by,
-           "row_rel_err": rel, "lse_err": lse_err,
-           "max_abs_err": float(diff.max()), "masked_rows": zeros,
-           "shape": shape}
-    rows = []
-    for kname, n_products, outs in (
-            (attention.BWD_DQ_KERNEL, 3, got[:1]),
-            (attention.BWD_DKV_KERNEL, 4, got[1:])):
-        ms = device_ms(lambda kname=kname: attention._flash_bwd_cuda(
-            *args, kernels=(kname,)))
-        kb_ms, kby = bound(nbytes(q, k, v, do, lse, delta, *outs) + seg_bytes,
-                           2 * d * n_products * pairs,
-                           PEAK_BF16_TENSOR_FLOPS)
-        print(f"    {kname}: ms={ms:.5f} bound_ms={kb_ms:.5f} ({kby}); both "
-              f"kernels' plain_ms={bwd_plain:.5f}, SDPA dropout backward "
-              f"library_ms={lib_bwd}")
-        rows.append({"case": f"dropout_{name}", "ms": ms,
-                     "plain_ms": bwd_plain, "library_ms": lib_bwd,
-                     "bound_ms": kb_ms, "bound_by": kby, "errors": errs,
-                     "max_abs_err": max(float((g_.float() - w_.float())
-                                              .abs().max())
-                                        for g_, w_ in zip(got, want)),
-                     "shape": shape})
-    return fwd, rows[0], rows[1]
+    rows[0]["masked_rows"] = zeros
+    return rows
 
 
 def flash_dropout_mask_probe(dev, b, h, sq) -> dict:
@@ -4545,6 +4593,595 @@ def train_gpt_sr(seed: int, dev, card: str, base: dict) -> dict:
     return out
 
 
+# -- phase 13: the flash kernels' bias, positions and lse cotangent, driven by
+# -- contrib multi-head attention and zig-zag chunked causal attention --------
+
+# the reference's multi-head attention perf test at its defaults
+# (examples/multihead_attn/perf_test_multihead_attn.py): hidden 1024, 16
+# heads, sequence 64, 18 layers, dropout 0.1, the largest of its 10-120
+# sequences, biases and norm-add on, bf16 (its accelerator dtype); one
+# layer's weights applied 18 times with the key PRNGKey(i) at layer i
+MHA_HIDDEN, MHA_HEADS, MHA_SEQ, MHA_SEQS, MHA_LAYERS = 1024, 16, 64, 120, 18
+MHA_LENS = (32, 64)          # the additive key-padding mask's real lengths
+MHA_CHECK_SEQS = 8
+MHA_TRIALS, MHA_WARMUP = 5, 2
+# the 18-layer stacks at 8 sequences, the flash kernels against the plain
+# attention (LayerNorm kernels and bf16 projections on both sides), in
+# relative L2 norm per tensor: the kernels round P and dS to bf16 where the
+# plain attention keeps fp32, and the residual stream carries each layer's
+# difference into the next. An H100 read 3.3e-3 to 4.7e-3 on the output
+# and at most 4.1e-3 to 6.5e-3 on a gradient (the input's) in the three
+# stacks; about 3x that is held
+MHA_OUT_REL_TOL = 1.5e-2
+MHA_GRAD_REL_TOL = 2e-2
+# zig-zag chunked causal attention at GPT-2 345M's attention layout: cp 4
+# shards of two 1024-token chunks, each shard cut in ng x ng sub-tiles
+ZZ_HEADS, ZZ_SEQ, ZZ_D, ZZ_CP, ZZ_NG = 16, 8192, 64, 4, 2
+# chunked against unchunked kernel, the flash tolerances (two bf16 ulps of
+# a row's or a gradient's largest |value|): each chunk's output is rounded
+# to bf16 before the fp32 merge, and each chunk's dq, dk, dv to bf16
+# before they are summed (up to 2 x 4 partials a row). An H100 read 9.1e-3
+# on the output and 8.3e-4 to 6.6e-3 on the gradients
+ZZ_OUT_REL_TOL = FLASH_OUT_REL_TOL
+ZZ_GRAD_REL_TOL = FLASH_BWD_REL_TOL
+
+
+def _live_pairs(q_pos, k_pos) -> int:
+    """(query, key) pairs a causal mask over these positions leaves."""
+    return int((k_pos[None, :] <= q_pos[:, None]).sum())
+
+
+def _tile_pairs(q_pos, k_pos, tile: int = 64):
+    """(tile pairs, pairs the position bounds skip) of one kernel call:
+    ``_block_live_dynamic``'s test on each (64-query, 64-key) tile."""
+    qt = [q_pos[i:i + tile] for i in range(0, len(q_pos), tile)]
+    kt = [k_pos[i:i + tile] for i in range(0, len(k_pos), tile)]
+    skipped = sum(1 for a in qt for b_ in kt if b_.min() > a.max())
+    return len(qt) * len(kt), skipped
+
+
+def flash_bias_dropout_probe(dev, b, h, s) -> dict:
+    """The forward kernel's keep mask with a bias, read off its output: q
+    = 0 leaves softmax(bias) in each row (every entry > 0) and V the
+    identity over ``s`` keys puts key j's dropped weight in column j."""
+    q = torch.zeros(b, h, s, s, dtype=torch.bfloat16, device=dev)
+    k = torch.randn(b, h, s, s, device=dev).to(torch.bfloat16)
+    v = torch.eye(s, device=dev).to(torch.bfloat16).expand(
+        b, h, s, s).contiguous()
+    bias = 2 * torch.randn(b, 1, 1, s, device=dev)
+    seed = attention.dropout_seed(DROPOUT_KEY)
+    out, _ = attention._flash_cuda(q, k, v, None, None, 1.0, False, None,
+                                   DROP_RATE, seed, bias=bias)
+    pout = attention._attention_torch(q, k, v, bias, None, None, 1.0, False,
+                                      None, DROP_RATE, seed)
+    bh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+    keep = attention._dropout_keep(
+        seed, bh, torch.arange(s, device=dev).reshape(s, 1),
+        torch.arange(s, device=dev).reshape(1, s), DROP_RATE)
+    same = bool(torch.equal(out != 0, keep)) and bool(
+        torch.equal(pout != 0, keep))
+    print(f"  flash bias + dropout mask probe over {b * h * s * s} (query, "
+          f"key) pairs: the kernel's and the plain mask bitwise the hash's "
+          f"{same}")
+    check(same, "flash with a bias: the dropout mask is not the plain mask")
+    return {"pairs": b * h * s * s, "bitwise": same}
+
+
+def dbias_case(name, gen, dev, b, h, s, d, shape) -> dict:
+    """dbias by recompute (``_dbias`` from the kernels' lse, in PyTorch)
+    against ``torch.autograd`` through the plain forward; dq, dk, dv with
+    it. Times the recompute alone."""
+    def rnd(*shape_):
+        return torch.randn(*shape_, generator=gen).to(dev, torch.bfloat16)
+    q, k, v, do = (rnd(b, h, s, d) for _ in range(4))
+    bias0 = torch.randn(*shape, generator=gen).to(dev)
+    grads = []
+    for flash in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias0)]
+        with torch.enable_grad():
+            if flash:
+                out = attention.flash_attention(*leaves[:3], bias=leaves[3])
+            else:
+                out = attention._attention_torch(
+                    *leaves[:3], leaves[3], None, None, d ** -0.5, False)
+            out.backward(do)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    errs = {n: float((g_.float() - w_.float()).abs().max())
+            / max(float(w_.float().abs().max()), 1e-6)
+            for n, g_, w_ in zip(("dq", "dk", "dv", "dbias"), *grads)}
+    print(f"  dbias[{name}] bias {tuple(shape)}: relative errors against "
+          f"autograd through the plain forward {errs} (tol "
+          f"{FLASH_BWD_REL_TOL})")
+    check(all(e <= FLASH_BWD_REL_TOL for e in errs.values()),
+          f"dbias[{name}]: disagrees with autograd through the plain forward")
+    scale = d ** -0.5
+    out, lse = attention._flash_cuda(q, k, v, None, None, scale, False, None,
+                                     bias=bias0)
+    delta = (out.float() * do.float()).sum(-1)
+    ms = device_ms(lambda: attention._dbias(
+        q, k, v, bias0, lse, do, delta, None, None, scale, False, None, 0.0,
+        None, None, None, None), iters=5, replays=2)
+    print(f"    dbias recompute (PyTorch, not a kernel) ms={ms:.5f}")
+    return {"case": name, "shape": list(shape), "errors": errs,
+            "dbias_ms": ms}
+
+
+def flash_extra_cases(gen, dev) -> dict:
+    """Phase 13a: bias of each broadcast class in fp32 and bf16 at the
+    multi-head attention stack's shape, bias with dropout, positions and
+    the lse cotangent at the 1024-token sub-tiles of phase 13c, dbias by
+    recompute."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+    b, h, s, d = MHA_SEQS, MHA_HEADS, MHA_SEQ, MHA_HIDDEN // MHA_HEADS
+    q, k, v, do = (rnd(b, h, s, d) for _ in range(4))
+    lens = torch.from_numpy(np.random.RandomState(7).randint(
+        MHA_LENS[0], MHA_LENS[1] + 1, size=b)).to(dev)
+    pad = torch.where(torch.arange(s, device=dev)[None] >= lens[:, None],
+                      -10000.0, 0.0)
+    classes = {"q_k": (1, 1, s, s), "key_padding": (b, 1, 1, s),
+               "full": (b, h, s, s)}
+    rows = {"fwd": [], "dq": [], "dkv": []}
+
+    def add(case_rows):
+        for key, row in zip(("fwd", "dq", "dkv"), case_rows):
+            rows[key].append(row)
+    mha_shape = f"b={b} h={h} s={s} d={d}"
+    for cname, shape in classes.items():
+        for dt in (torch.float32, torch.bfloat16):
+            bias = torch.randn(*shape, generator=gen).to(dev)
+            if cname == "key_padding":
+                bias = bias + pad[:, None, None, :]
+            bias = bias.to(dt)
+            add(flash_option_case(
+                f"bias_{cname}_{str(dt)[6:]}", q, k, v, do, causal=False,
+                bias=bias, live_pairs=b * h * s * s,
+                sdpa=dict(attn_mask=bias.to(torch.bfloat16)),
+                shape=f"{mha_shape} bias {tuple(shape)} {dt}"))
+    bias = pad[:, None, None, :].contiguous()
+    add(flash_option_case(
+        "bias_key_padding_dropout", q, k, v, do, causal=False, bias=bias,
+        rate=DROP_RATE, live_pairs=b * h * s * s,
+        sdpa=dict(attn_mask=bias.to(torch.bfloat16)),
+        shape=f"{mha_shape} bias {tuple(bias.shape)} dropout {DROP_RATE}"))
+    probe = flash_bias_dropout_probe(dev, b, h, s)
+    # positions: the 1024-token sub-tiles that phase 13c's schedule gives
+    # the kernels (shard 0 holds chunks 0 and 7, shard 3 chunks 3 and 4):
+    # chunk 4 against itself (a diagonal call), chunk 7 against chunk 3
+    # (wholly past), and chunk 0 against chunk 4, wholly in the future,
+    # which 13c skips: there every row is masked, out and the gradients
+    # exactly 0 and lse NEG_INF
+    perm, _ = context_parallel.zigzag_indices(ZZ_SEQ, ZZ_CP)
+    n = ZZ_SEQ // ZZ_CP // ZZ_NG
+
+    def sub_tile(i, b_):
+        return perm[(i * ZZ_NG + b_) * n:(i * ZZ_NG + b_ + 1) * n]
+    zq, zk, zv, zdo = (rnd(1, ZZ_HEADS, n, ZZ_D) for _ in range(4))
+    glse = torch.randn(1, ZZ_HEADS, n, generator=gen).to(dev)
+    tiles = {}
+    for cname, (i, qb), (j, kb) in (("diagonal", (3, 1), (3, 1)),
+                                    ("past", (0, 1), (3, 0)),
+                                    ("future", (0, 0), (3, 1))):
+        qp, kp = sub_tile(i, qb), sub_tile(j, kb)
+        qpd, kpd = (torch.from_numpy(p_.astype(np.int32)).to(dev)
+                    for p_ in (qp, kp))
+        mask = torch.where(kpd[None, :] <= qpd[:, None], 0.0,
+                           attention.NEG_INF).to(torch.bfloat16)
+        live = ZZ_HEADS * _live_pairs(qp, kp)
+        tiles[cname] = _tile_pairs(qp, kp)
+        zshape = (f"b=1 h={ZZ_HEADS} s={n} d={ZZ_D} chunk {qp[0] // n} "
+                  f"against chunk {kp[0] // n} of {ZZ_SEQ} tokens")
+        add(flash_option_case(f"positions_{cname}", zq, zk, zv, zdo,
+                              causal=True, q_pos=qpd, k_pos=kpd,
+                              live_pairs=live, sdpa=dict(attn_mask=mask),
+                              shape=zshape))
+        add(flash_option_case(f"positions_glse_{cname}", zq, zk, zv, zdo,
+                              causal=True, q_pos=qpd, k_pos=kpd, glse=glse,
+                              live_pairs=live, shape=zshape))
+        if cname == "future":
+            scale = ZZ_D ** -0.5
+            out, lse = attention._flash_cuda(zq, zk, zv, None, None, scale,
+                                             True, None, q_pos=qpd,
+                                             k_pos=kpd)
+            delta = (out.float() * zdo.float()).sum(-1)
+            grads = attention._flash_bwd_cuda(
+                zq, zk, zv, lse, zdo, delta, None, None, scale, True, None,
+                q_pos=qpd, k_pos=kpd, glse=glse)
+            masked = (not out.count_nonzero() and not any(
+                g_.count_nonzero() for g_ in grads)
+                and bool((lse == attention.NEG_INF).all()))
+            print(f"  flash positions wholly in the future: out, dq, dk, dv "
+                  f"exactly 0 and lse NEG_INF {masked}")
+            check(masked, "flash positions: a chunk wholly in the future "
+                  "left a nonzero output or gradient or a finite lse")
+    print(f"  position tile pairs (total, skipped by the position bounds) "
+          f"per call: {tiles}")
+    add(flash_option_case("glse", q, k, v, do, causal=False,
+                          glse=torch.randn(b, h, s, generator=gen).to(dev),
+                          live_pairs=b * h * s * s, shape=mha_shape))
+    dbias = [dbias_case(cname, gen, dev, b, h, s, d, shape)
+             for cname, shape in classes.items()]
+    return {**rows, "bias_dropout_probe": probe, "position_tiles": tiles,
+            "dbias": dbias}
+
+
+def _mha_stack(mod, x, mem, masks, keys):
+    """The perf test's stack: one layer applied ``len(keys)`` times, each
+    with its dropout key."""
+    h = x
+    for key in keys:
+        h, _ = mod(*((h,) if mem is None else (h, mem)), **masks,
+                   dropout_key=key)
+    return h
+
+
+def _mha_fwd_bwd(mod, x, mem, masks, keys, x_grad=False):
+    mod.zero_grad(set_to_none=True)
+    x = x.detach().requires_grad_(x_grad)
+    with torch.enable_grad():
+        h = _mha_stack(mod, x, mem, masks, keys)
+        h.float().pow(2).sum().backward()
+    return h.detach(), x.grad
+
+
+def _rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-12))
+
+
+MHA_KERNELS = (attention.KERNEL, attention.BWD_DQ_KERNEL,
+               attention.BWD_DKV_KERNEL, layer_norm.KERNEL,
+               layer_norm.BWD_KERNEL)
+
+
+def mha_stacks(seed: int, dev, card: str) -> dict:
+    """Phase 13b: three 18-layer multi-head attention stacks at the perf
+    test's shape, ``impl="fast"`` (the flash kernels) against
+    ``"default"`` (the plain attention) on the same weights and keys."""
+    s, b, e = MHA_SEQ, MHA_SEQS, MHA_HIDDEN
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(0.5 * rng.randn(s, b, e).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    lens = torch.from_numpy(rng.randint(MHA_LENS[0], MHA_LENS[1] + 1,
+                                        size=b)).to(dev)
+    pad = torch.where(torch.arange(s, device=dev)[None] >= lens[:, None],
+                      -10000.0, 0.0)
+    future = torch.triu(torch.ones(s, s, dtype=torch.bool, device=dev), 1)
+    keys = [jrandom.key_words(jrandom.PRNGKey(i)) for i in range(MHA_LAYERS)]
+    stacks = {
+        "self_future": (SelfMultiheadAttn, {}, {"attn_mask": future}),
+        "self_key_padding": (SelfMultiheadAttn, {"mask_additive": True},
+                             {"key_padding_mask": pad}),
+        "encdec_key_padding": (EncdecMultiheadAttn, {"mask_additive": True},
+                               {"key_padding_mask": pad}),
+    }
+    res = {}
+    for sname, (cls, kw, masks) in stacks.items():
+        mods = {impl: cls(e, MHA_HEADS, dropout=DROP_RATE, bias=True,
+                          include_norm_add=True, impl=impl,
+                          dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator().manual_seed(seed), **kw)
+                for impl in ("fast", "default")}
+        mem = x if cls is EncdecMultiheadAttn else None
+        launches, per_layer = {}, {}
+        for impl, mod in mods.items():
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            _mha_fwd_bwd(mod, x, mem, masks, keys)
+            torch.cuda.synchronize()
+            launches[impl] = _build.launch_counts()
+            want = MHA_LAYERS if impl == "fast" else 0
+            for kname in MHA_KERNELS:
+                n = want if kname.startswith("flash") else MHA_LAYERS
+                check(launches[impl].get(kname, 0) == n,
+                      f"MHA {sname} {impl}: {kname} launched "
+                      f"{launches[impl].get(kname, 0)} times, not {n}")
+            for _ in range(MHA_WARMUP):
+                _mha_fwd_bwd(mod, x, mem, masks, keys)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MHA_TRIALS):
+                _mha_fwd_bwd(mod, x, mem, masks, keys)
+            torch.cuda.synchronize()
+            per_layer[impl] = ((time.perf_counter() - t0) * 1e3
+                               / MHA_TRIALS / MHA_LAYERS)
+        # 8 sequences: output, input gradient and every parameter's
+        # gradient through the kernels against the plain attention
+        xs = x[:, :MHA_CHECK_SEQS].contiguous()
+        ms_ = {n_: (m_[:MHA_CHECK_SEQS] if n_ == "key_padding_mask" else m_)
+               for n_, m_ in masks.items()}
+        outs = {}
+        for impl, mod in mods.items():
+            h, gx = _mha_fwd_bwd(mod, xs, None if mem is None else xs, ms_,
+                                 keys, x_grad=True)
+            outs[impl] = (h, gx, {n_: p.grad.clone()
+                                  for n_, p in mod.named_parameters()})
+        (h, gx, gp), (ph, pgx, pgp) = outs["fast"], outs["default"]
+        out_err = _rel_l2(h, ph)
+        grad_errs = {"x": _rel_l2(gx, pgx),
+                     **{n_: _rel_l2(gp[n_], pgp[n_]) for n_ in gp}}
+        worst = max(grad_errs.items(), key=lambda kv: kv[1])
+        finite = bool(torch.isfinite(h.float()).all())
+        print(f"  MHA {sname} ({MHA_LAYERS} layers, {b} x {s} tokens, "
+              f"hidden {e}, {MHA_HEADS} heads, dropout {DROP_RATE}, bf16): "
+              f"fwd+bwd ms per layer fast {per_layer['fast']:.4f} default "
+              f"{per_layer['default']:.4f} "
+              f"({per_layer['default'] / per_layer['fast']:.2f}x) on {card}")
+        print(f"    launches in one fwd+bwd: fast "
+              f"{ {k_: launches['fast'].get(k_, 0) for k_ in MHA_KERNELS} } "
+              f"default "
+              f"{ {k_: launches['default'].get(k_, 0) for k_ in MHA_KERNELS} }")
+        print(f"    {MHA_CHECK_SEQS} sequences, fast vs default: output "
+              f"relative L2 {out_err:.3e} (tol {MHA_OUT_REL_TOL}), worst "
+              f"gradient {worst[1]:.3e} in {worst[0]} (tol "
+              f"{MHA_GRAD_REL_TOL})")
+        check(finite, f"MHA {sname}: non-finite output")
+        check(out_err <= MHA_OUT_REL_TOL,
+              f"MHA {sname}: output through the kernels disagrees")
+        check(worst[1] <= MHA_GRAD_REL_TOL,
+              f"MHA {sname}: gradients through the kernels disagree")
+        res[sname] = {"ms_per_layer": per_layer, "launches": launches["fast"],
+                      "launches_default": launches["default"],
+                      "steps": 1, "out_rel_l2": out_err,
+                      "grad_rel_l2": grad_errs}
+        if sname == "self_key_padding":
+            _, res["profile"] = _profiled(
+                lambda: _mha_fwd_bwd(mods["fast"], x, mem, masks, keys),
+                f"MHA {sname} fwd+bwd (fast)",
+                {"flash": ("flash_",), "layer_norm": ("ln_",),
+                 "gemm": ("gemm", "sm90_", "nvjet", "cutlass"),
+                 "elementwise": ("elementwise", "direct_copy",
+                                 "reduce_kernel")})
+        del mods, outs
+        torch.cuda.empty_cache()
+    return res
+
+
+def _zz_chunk_out(parts):
+    """The ring's merge of one shard's partials (the reference's order:
+    sub-tiles of a kv shard first, then shard after shard)."""
+    acc = None
+    for p_ in parts:
+        acc = p_ if acc is None else context_parallel._merge(acc, p_)
+    return acc
+
+
+def zigzag_chunked(seed: int, dev, card: str) -> dict:
+    """Phase 13c: causal attention over 8192 tokens in cp 4 zig-zag shards
+    on one card, the ring's serial schedule: each q shard against every kv
+    shard through ``_chunk_attn`` (ng x ng sub-tiles, a sub-tile wholly in
+    the future skipped), merged by ``_merge``; then ``_chunk_grads``
+    against the global lse and delta; then the same combine differentiated
+    by autograd through out and lse (the lse cotangent). All against the
+    unchunked ``flash_attention(causal=True)`` kernel on the same tokens."""
+    h, S, d, cp, ng = ZZ_HEADS, ZZ_SEQ, ZZ_D, ZZ_CP, ZZ_NG
+    rng = np.random.RandomState(seed + 13)
+    q, k, v, g = (torch.from_numpy(rng.randn(1, h, S, d).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    perm, _ = context_parallel.zigzag_indices(S, cp)
+    n, sub = S // cp, S // cp // ng
+    rows = [perm[i * n:(i + 1) * n] for i in range(cp)]
+    rows_dev = [torch.from_numpy(r_).to(dev) for r_ in rows]
+
+    def cut(t, i, b_):
+        return t[:, :, rows_dev[i][b_ * sub:(b_ + 1) * sub]].contiguous()
+    pos = [[torch.from_numpy(rows[i][b_ * sub:(b_ + 1) * sub].astype(
+        np.int32)).to(dev) for b_ in range(ng)] for i in range(cp)]
+    qs = [[cut(q, i, b_) for b_ in range(ng)] for i in range(cp)]
+    ks = [[cut(k, i, b_) for b_ in range(ng)] for i in range(cp)]
+    vs = [[cut(v, i, b_) for b_ in range(ng)] for i in range(cp)]
+    gs = [[cut(g, i, b_) for b_ in range(ng)] for i in range(cp)]
+
+    def live(i, qb, j, kb):
+        # `_skip_future_tile`: the sub-tile runs unless wholly in the future
+        return (rows[j][kb * sub:(kb + 1) * sub].min()
+                <= rows[i][qb * sub:(qb + 1) * sub].max())
+    sched = [(i, qb, j, kb) for i in range(cp) for qb in range(ng)
+             for step in range(cp) for j in [(i - step) % cp]
+             for kb in range(ng)]
+    live_calls = [c_ for c_ in sched if live(*c_)]
+    tiles = [0, 0]
+    for i, qb, j, kb in live_calls:
+        t_, s_ = _tile_pairs(rows[i][qb * sub:(qb + 1) * sub],
+                             rows[j][kb * sub:(kb + 1) * sub])
+        tiles[0] += t_
+        tiles[1] += s_
+    zero = (torch.zeros(1, h, sub, d, device=dev),
+            torch.full((1, h, sub), attention.NEG_INF, device=dev))
+
+    def forward(chunk_attn):
+        """(out fp32, lse) of every shard's sub-blocks, [i][qb]."""
+        res = []
+        for i in range(cp):
+            res.append([_zz_chunk_out(
+                chunk_attn(i, qb, j, kb) if live(i, qb, j, kb) else zero
+                for step in range(cp) for j in [(i - step) % cp]
+                for kb in range(ng)) for qb in range(ng)])
+        return res
+
+    def kernel_attn(i, qb, j, kb):
+        return context_parallel._chunk_attn(qs[i][qb], ks[j][kb], vs[j][kb],
+                                            pos[i][qb], pos[j][kb], scale,
+                                            True)
+
+    def global_stats(fwd):
+        """The global (lse, delta) of every shard's sub-blocks, [i][qb]."""
+        return [[(fwd[i][qb][1].contiguous(),
+                  (fwd[i][qb][0].to(torch.bfloat16).float()
+                   * gs[i][qb].float()).sum(-1))
+                 for qb in range(ng)] for i in range(cp)]
+
+    def backward(fwd):
+        """dq [i][qb], dk and dv [j][kb] in fp32, each sub-tile's share
+        through ``_chunk_grads`` against the global lse and delta."""
+        dq = [[torch.zeros(1, h, sub, d, device=dev) for _ in range(ng)]
+              for _ in range(cp)]
+        dk = [[torch.zeros(1, h, sub, d, device=dev) for _ in range(ng)]
+              for _ in range(cp)]
+        dv = [[torch.zeros(1, h, sub, d, device=dev) for _ in range(ng)]
+              for _ in range(cp)]
+        stats = global_stats(fwd)
+        for i, qb, j, kb in live_calls:
+            lse_b, delta_b = stats[i][qb]
+            dq_p, dk_p, dv_p = context_parallel._chunk_grads(
+                qs[i][qb], ks[j][kb], vs[j][kb], pos[i][qb], pos[j][kb],
+                gs[i][qb], lse_b, delta_b, scale, True)
+            dq[i][qb] += dq_p.float()
+            dk[j][kb] += dk_p.float()
+            dv[j][kb] += dv_p.float()
+        return dq, dk, dv
+
+    def assemble(parts):
+        full = torch.zeros(1, h, S, d, device=dev)
+        for i in range(cp):
+            for b_ in range(ng):
+                full[:, :, rows_dev[i][b_ * sub:(b_ + 1) * sub]] = \
+                    parts[i][b_].float()
+        return full
+
+    def row_rel(got, ref):
+        diff = (got.float() - ref.float()).abs()
+        return float((diff / ref.float().abs().amax(-1, keepdim=True)
+                      .clamp_min(1e-6)).max())
+
+    def max_rel(got, ref):
+        return float((got.float() - ref.float()).abs().max()
+                     / ref.float().abs().max().clamp_min(1e-6))
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    fwd = forward(kernel_attn)
+    grads = backward(fwd)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    n_live = len(live_calls)
+    for kname in (attention.KERNEL, attention.BWD_DQ_KERNEL,
+                  attention.BWD_DKV_KERNEL):
+        check(launches.get(kname, 0) == n_live,
+              f"zig-zag: {kname} launched {launches.get(kname, 0)} times, "
+              f"not once for each of the {n_live} live sub-tiles")
+    # the schedule's last diagonal and last wholly-past sub-tile call
+    # (chunk 4 against itself and against chunk 0), each kernel against
+    # its plain version on the same inputs
+    stats = global_stats(fwd)
+    plain_err = {}
+    for i, qb, j, kb in reversed(live_calls):
+        kind = "diagonal" if (i, qb) == (j, kb) else "past"
+        if kind in plain_err:
+            continue
+        o_k, l_k = kernel_attn(i, qb, j, kb)
+        o_p, l_p = attention._attention_torch(
+            qs[i][qb], ks[j][kb], vs[j][kb], None, None, None, scale, True,
+            return_lse=True, q_pos=pos[i][qb], k_pos=pos[j][kb])
+        lse_b, delta_b = stats[i][qb]
+        g_k = context_parallel._chunk_grads(
+            qs[i][qb], ks[j][kb], vs[j][kb], pos[i][qb], pos[j][kb],
+            gs[i][qb], lse_b, delta_b, scale, True)
+        g_p = attention._flash_bwd_torch(
+            qs[i][qb], ks[j][kb], vs[j][kb], lse_b, gs[i][qb], delta_b,
+            None, None, scale, True, None, q_pos=pos[i][qb],
+            k_pos=pos[j][kb])
+        grad_errs = _rel_errs(g_k, g_p)
+        plain_err[kind] = {"out": row_rel(o_k.to(torch.bfloat16), o_p),
+                           "lse": float((l_k - l_p).abs().max()),
+                           **grad_errs}
+        check(plain_err[kind]["out"] <= FLASH_OUT_REL_TOL
+              and plain_err[kind]["lse"] <= FLASH_LSE_TOL
+              and all(e_ <= FLASH_BWD_REL_TOL for e_ in grad_errs.values()),
+              f"zig-zag: the {kind} sub-tile call disagrees with the plain "
+              "version")
+    print(f"    sub-tile calls of the schedule against the plain versions: "
+          f"{plain_err} (tol out {FLASH_OUT_REL_TOL}, lse {FLASH_LSE_TOL}, "
+          f"grads {FLASH_BWD_REL_TOL})")
+    check(len(plain_err) == 2, "zig-zag: the schedule lacks a diagonal or "
+          "a wholly-past sub-tile call")
+    out_c = assemble([[o_ for o_, _ in r_] for r_ in fwd])
+    lse_c = torch.zeros(1, h, S, device=dev)
+    for i in range(cp):
+        for b_ in range(ng):
+            lse_c[:, :, rows_dev[i][b_ * sub:(b_ + 1) * sub]] = fwd[i][b_][1]
+    dq_c, dk_c, dv_c = (assemble(p_) for p_ in grads)
+    # the unchunked kernel on the same tokens
+    with torch.no_grad():
+        out_f, lse_f = attention.flash_attention(q, k, v, causal=True,
+                                                 return_lse=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        attention.flash_attention(*leaves, causal=True).backward(g)
+    want = [t.grad for t in leaves]
+
+    out_err = row_rel(out_c.to(torch.bfloat16), out_f)
+    lse_err = float((lse_c - lse_f).abs().max())
+    grad_err = {n_: max_rel(a_, b_) for n_, a_, b_ in
+                zip(("dq", "dk", "dv"), (dq_c, dk_c, dv_c), want)}
+    # the blockwise combine differentiated by autograd through out and lse
+    lq, lk, lv = (t.clone().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        cq = [[cut(lq, i, b_) for b_ in range(ng)] for i in range(cp)]
+        ck = [[cut(lk, i, b_) for b_ in range(ng)] for i in range(cp)]
+        cv = [[cut(lv, i, b_) for b_ in range(ng)] for i in range(cp)]
+        afwd = forward(lambda i, qb, j, kb: context_parallel._chunk_attn(
+            cq[i][qb], ck[j][kb], cv[j][kb], pos[i][qb], pos[j][kb], scale,
+            True))
+        loss = sum((afwd[i][b_][0] * gs[i][b_].float()).sum()
+                   for i in range(cp) for b_ in range(ng))
+        loss.backward()
+    glse_err = {n_: max_rel(a_.grad, b_) for n_, a_, b_ in
+                zip(("dq", "dk", "dv"), (lq, lk, lv), want)}
+    print(f"  zig-zag S={S} h={h} d={d} cp={cp} ng={ng} bf16: "
+          f"{n_live} of {len(sched)} sub-tile calls live; kernel tile pairs "
+          f"{tiles[0]}, {tiles[1]} skipped by the position bounds; launches "
+          f"{ {k_: launches.get(k_, 0) for k_ in MHA_KERNELS[:3]} }")
+    print(f"    chunked vs unchunked kernel: out row_rel_err {out_err:.3e} "
+          f"(tol {ZZ_OUT_REL_TOL}) lse_err {lse_err:.3e} (tol "
+          f"{FLASH_LSE_TOL}); _chunk_grads {grad_err}; autograd through "
+          f"out and lse {glse_err} (tol {ZZ_GRAD_REL_TOL})")
+    check(bool(torch.isfinite(out_c).all()), "zig-zag: non-finite output")
+    check(out_err <= ZZ_OUT_REL_TOL and lse_err <= FLASH_LSE_TOL,
+          "zig-zag: the chunked forward disagrees with the unchunked kernel")
+    check(all(e_ <= ZZ_GRAD_REL_TOL for e_ in grad_err.values()),
+          "zig-zag: _chunk_grads disagree with the unchunked kernel")
+    check(all(e_ <= ZZ_GRAD_REL_TOL for e_ in glse_err.values()),
+          "zig-zag: the lse-cotangent gradients disagree with the "
+          "unchunked kernel")
+    del afwd, loss, cq, ck, cv, lq, lk, lv, leaves
+    # times: the serial schedule against the unchunked call, on the device
+    # (CUDA graph replay: the kernels, merges and the gaps between them)
+    # and by CUDA events around back-to-back runs (the schedule's host
+    # work included)
+    with torch.no_grad():
+        delta_f = (out_f.float() * g.float()).sum(-1)
+        runs = {
+            "fwd": lambda: forward(kernel_attn),
+            "bwd": lambda: backward(fwd),
+            "unchunked_fwd": lambda: attention._flash_cuda(
+                q, k, v, None, None, scale, True, None),
+            "unchunked_bwd": lambda: attention._flash_bwd_cuda(
+                q, k, v, lse_f, g, delta_f, None, None, scale, True, None)}
+        dev_ms = {n_: device_ms(fn, iters=3, replays=3)
+                  for n_, fn in runs.items()}
+        host = {n_: host_ms(fn, iters=3, warmup=1) for n_, fn in runs.items()}
+    pairs = h * S * (S + 1) // 2
+    fwd_bound = bound(0, 4 * d * pairs, PEAK_BF16_TENSOR_FLOPS)[0]
+    bwd_bound = bound(0, 14 * d * pairs, PEAK_BF16_TENSOR_FLOPS)[0]
+    print("    device ms (graph replay): " + ", ".join(
+        f"{n_} {t_:.4f}" for n_, t_ in dev_ms.items()) + "; with the host "
+          "(CUDA events): " + ", ".join(f"{n_} {t_:.4f}"
+                                        for n_, t_ in host.items())
+          + f"; bound forward {fwd_bound:.4f}, backward {bwd_bound:.4f} "
+          f"(operations) on {card}")
+    return {"launches": launches, "steps": 1, "live_calls": n_live,
+            "calls": len(sched), "tile_pairs": tiles[0],
+            "tiles_skipped": tiles[1], "out_row_rel_err": out_err,
+            "lse_err": lse_err, "chunk_grads_rel_err": grad_err,
+            "glse_grads_rel_err": glse_err, "sub_tile_vs_plain": plain_err,
+            "device_ms": dev_ms,
+            "host_ms": host, "bound_ms": {"fwd": fwd_bound,
+                                          "bwd": bwd_bound}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4678,12 +5315,33 @@ def main(argv=None) -> int:
     gsr = phase("phase 12c: GPT-2 345M with a bf16 master (FusedAdam, "
                 "stochastic rounding) and the loss scaler",
                 lambda: train_gpt_sr(args.seed, dev, card, trn))
+
+    def flash_extra_kernel_cases():
+        gen = torch.Generator().manual_seed(args.seed + 13)
+        with torch.no_grad():
+            return flash_extra_cases(gen, dev)
+
+    fx = phase("phase 13a: the flash kernels with a bias, global positions "
+               "and an lse cotangent against their plain versions",
+               flash_extra_kernel_cases)
+    mha = phase("phase 13b: contrib multi-head attention, three 18-layer "
+                "stacks at the perf test's shape",
+                lambda: mha_stacks(args.seed, dev, card))
+    zz = phase("phase 13c: zig-zag chunked causal attention over "
+               f"{ZZ_SEQ} tokens in {ZZ_CP} shards",
+               lambda: zigzag_chunked(args.seed, dev, card))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
     by_name[attention.KERNEL]["dropout_mask_probe"] = fdrop["probe"]
     by_name[attention.BWD_DQ_KERNEL]["cases"] += fdrop["dq"]
     by_name[attention.BWD_DKV_KERNEL]["cases"] += fdrop["dkv"]
+    # the bias, position and lse-cotangent cases join them too
+    by_name[attention.KERNEL]["cases"] += fx["fwd"]
+    by_name[attention.KERNEL]["bias_dropout_mask_probe"] = \
+        fx["bias_dropout_probe"]
+    by_name[attention.BWD_DQ_KERNEL]["cases"] += fx["dq"]
+    by_name[attention.BWD_DKV_KERNEL]["cases"] += fx["dkv"]
     kernels.append(drow)
     kernels += srk
     # where each kernel's launches are read: the path that runs it (the
@@ -4772,14 +5430,19 @@ def main(argv=None) -> int:
                          ("bert_dropout_softmax", bdr["softmax"]),
                          ("bert_dropout_flash", bdr["flash"]),
                          ("serving_sampled", ssv), ("bert_bf16", bsr),
-                         ("gpt_bf16", gsr)):
+                         ("gpt_bf16", gsr),
+                         ("mha_self_future", mha["self_future"]),
+                         ("mha_self_key_padding", mha["self_key_padding"]),
+                         ("mha_encdec_key_padding",
+                          mha["encdec_key_padding"]),
+                         ("zigzag", zz)):
             k[f"launches_{key}"] = launched(run["launches"], name)
         check(k["launches"] > 0, f"{name}: no launch on its path")
     for counter in DROPOUT_COUNTERS:
         drow[f"launches_{counter}"] = gdr["launches"].get(counter, 0)
 
     check(len(kernels) == 35, f"{len(kernels)} kernels in the line, not 35")
-    print("phase 13: kernels")
+    print("phase 14: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -4795,7 +5458,10 @@ def main(argv=None) -> int:
                        "training_gpt_dropout": gdr,
                        "training_bert_dropout": bdr,
                        "serving_sampled": ssv, "training_bert_bf16": bsr,
-                       "training_gpt_bf16": gsr, **line}, f,
+                       "training_gpt_bf16": gsr,
+                       "flash_extra": {k_: fx[k_] for k_ in (
+                           "bias_dropout_probe", "position_tiles", "dbias")},
+                       "multihead_attn": mha, "zigzag": zz, **line}, f,
                       indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -113,13 +113,29 @@ def test_fully_masked_row_has_no_gradient():
 
 
 def test_options_without_kernel_differentiate_by_autograd():
-    """bias, dropout and a returned lse's gradient take ordinary
-    autograd through the plain forward on CPU tensors."""
+    """bias, dropout and a returned lse's gradient, once left to ordinary
+    autograd through the plain forward, now take ``_FlashFn`` and its
+    flash backward (their kernels are ported): its gradients, dbias
+    included, agree with ordinary autograd through the plain forward."""
     qkvg, _ = _inputs("causal")
-    q, k, v, g = (torch.from_numpy(a).requires_grad_() for a in qkvg)
-    bias = torch.zeros(1, 1, 32, 32, requires_grad=True)
-    out, lse = port.flash_attention(q, k, v, bias=bias, causal=True,
-                                    return_lse=True)
-    (out * torch.from_numpy(qkvg[3])).sum().add(lse.sum()).backward()
-    assert bias.grad is not None and torch.isfinite(q.grad).all()
-    assert "FlashFn" not in type(out.grad_fn).__name__
+    g = torch.from_numpy(qkvg[3])
+    bias0 = np.random.RandomState(3).randn(1, 1, 32, 32).astype(np.float32)
+    kw = dict(causal=True, dropout_rate=0.2, dropout_rng=7)
+    grads = []
+    for flash in (True, False):
+        q, k, v = (torch.from_numpy(a).requires_grad_() for a in qkvg[:3])
+        bias = torch.from_numpy(bias0).requires_grad_()
+        if flash:
+            out, lse = port.flash_attention(q, k, v, bias=bias,
+                                            return_lse=True, **kw)
+            assert "FlashFn" in type(out.grad_fn).__name__
+        else:
+            out, lse = port._attention_torch(
+                q, k, v, bias, None, None, 16 ** -0.5, True, None, 0.2, 7,
+                return_lse=True)
+        (out * g).sum().add(lse.sum()).backward()
+        grads.append([t.grad.numpy() for t in (q, k, v, bias)])
+    _close(grads[0], grads[1], FP32_RTOL)
+    scale = float(np.abs(grads[1][3]).max())
+    assert float(np.abs(grads[0][3] - grads[1][3]).max()) <= \
+        FP32_RTOL * scale

@@ -6,8 +6,9 @@ kernel has no CPU mode; the plain versions are held against apex_tpu on
 the CPU by test_torch_layer_norm.py, test_torch_attention.py and their
 _bwd counterparts, test_torch_adam.py, test_torch_softmax.py,
 test_torch_sgd.py, test_torch_scale_axpby.py,
-test_torch_novograd_adagrad.py, test_torch_xentropy.py and
-test_torch_rope.py). This
+test_torch_novograd_adagrad.py, test_torch_xentropy.py,
+test_torch_rope.py, test_torch_attention_bias.py and
+test_torch_multihead_attn.py). This
 file imports neither JAX nor apex_tpu, so it runs on a machine with
 only PyTorch: ``python -m pytest --noconftest -m cuda
 tests/test_torch_kernels_cuda.py``.
@@ -34,7 +35,15 @@ bf16 ulps: the kept probabilities and the outputs grow by 1 / (1 -
 rate), so an absolute bound would not keep up with them), the lse and
 the gradients as above, and its keep mask bitwise (read off
 an output: q = 0 makes the probabilities uniform, V the identity puts
-key j's weight in column j). Dropout (``csrc/dropout.cu``): output and
+key j's weight in column j). With a bias, global positions or an lse
+cotangent: outputs, lse and gradients as with dropout, dbias (recomputed
+in PyTorch from the kernels' lse) within 2^-6 of its largest |value|
+against autograd through the plain forward, the masks bitwise; rows
+with no live key exactly 0. One multi-head attention layer (bf16,
+dropout and an additive key-padding mask) on the kernels against its
+plain path: the output within 2e-2 absolute, each gradient within 2e-2
+in relative L2 norm (bf16 projections and LayerNorm on both sides; the
+attention rounds P and dS to bf16 on one). Dropout (``csrc/dropout.cu``): output and
 gradient bitwise. Stochastic rounding (a bf16 master): stated with its
 tests.
 """
@@ -156,18 +165,25 @@ def test_flash_kernel_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_unported_options(cuda_device):
+    # bias and positions have kernels now; a head_dim outside the built
+    # ones and fp32 inputs are still refused
     q = torch.zeros(1, 2, 8, 64, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bias"):
-        attention.flash_attention(
-            q, q, q, bias=torch.zeros(1, 1, 8, 8, device=cuda_device))
-    with pytest.raises(NotImplementedError, match="q_positions"):
-        pos = torch.arange(8, device=cuda_device)
-        attention.flash_attention(q, q, q, causal=True, q_positions=pos,
-                                  kv_positions=pos)
+    before = _build.launch_counts().get(attention.KERNEL, 0)
+    attention.flash_attention(
+        q, q, q, bias=torch.zeros(1, 1, 8, 8, device=cuda_device))
+    pos = torch.arange(8, device=cuda_device)
+    attention.flash_attention(q, q, q, causal=True, q_positions=pos,
+                              kv_positions=pos)
+    assert _build.launch_counts()[attention.KERNEL] == before + 2
     with pytest.raises(NotImplementedError, match="head_dim"):
         z = torch.zeros(1, 2, 8, 48, device=cuda_device,
                         dtype=torch.bfloat16)
         attention.flash_attention(z, z, z)
+    with pytest.raises(TypeError, match="dtype"):
+        attention.flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(TypeError, match="bias"):
+        attention.flash_attention(q, q, q, bias=torch.zeros(
+            1, 1, 8, 8, device=cuda_device, dtype=torch.float16))
 
 
 @pytest.mark.cuda
@@ -379,8 +395,220 @@ def test_flash_autograd_runs_the_backward_kernels(cuda_device):
                   attention.BWD_DKV_KERNEL):
         assert after[kname] == counts.get(kname, 0) + 1
     assert torch.isfinite(q.grad.float()).all()
-    with pytest.raises(NotImplementedError, match="lse"):
-        attention.flash_attention(q, q, q, return_lse=True)
+    # a differentiated lse takes the same kernels (its cotangent as glse)
+    q.grad = None
+    counts = _build.launch_counts()
+    out, lse = attention.flash_attention(q, q, q, causal=True,
+                                         return_lse=True)
+    (out.float().sum() + lse.sum()).backward()
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for kname in (attention.KERNEL, attention.BWD_DQ_KERNEL,
+                  attention.BWD_DKV_KERNEL):
+        assert after[kname] == counts.get(kname, 0) + 1
+    assert torch.isfinite(q.grad.float()).all()
+
+
+BIAS_CLASSES = {
+    "q_k": lambda b, h, sq, sk: (1, 1, sq, sk),
+    "key_padding": lambda b, h, sq, sk: (b, 1, 1, sk),
+    "full": lambda b, h, sq, sk: (b, h, sq, sk),
+}
+
+
+def _grad_rel_errs(got, want):
+    return {n: float((g.float() - w.float()).abs().max())
+            / max(float(w.float().abs().max()), 1e-6)
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(BIAS_CLASSES))
+@pytest.mark.parametrize("case", ["causal", "chunk", "gqa", "window"])
+def test_flash_kernels_with_bias_match_plain(cuda_device, case, shape,
+                                             dtype):
+    q, k, v, do, q_seg, k_seg, scale, causal, window = _flash_inputs(
+        case, cuda_device, 17)
+    b, h, sq, sk = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
+    rng = np.random.RandomState(19)
+    bias = torch.from_numpy(2 * rng.randn(*BIAS_CLASSES[shape](
+        b, h, sq, sk)).astype(np.float32)).to(cuda_device, dtype)
+    kw = dict(bias=bias)
+    counts = _build.launch_counts()
+    out, lse = attention._flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
+                                     window, **kw)
+    pout, plse = attention._attention_torch(
+        q, k, v, bias, q_seg, k_seg, scale, causal, window, return_lse=True)
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, lse, do, delta, q_seg, k_seg, scale, causal, window)
+    got = attention._flash_bwd_cuda(*args, **kw)
+    want = attention._flash_bwd_torch(*args, **kw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for kname in (attention.KERNEL, attention.BWD_DQ_KERNEL,
+                  attention.BWD_DKV_KERNEL):
+        assert after[kname] == counts.get(kname, 0) + 1
+    assert _row_rel_err(out, pout) <= 2.0 ** -6
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+    for name, e in _grad_rel_errs(got, want).items():
+        assert e <= 2.0 ** -6, (name, e)
+
+
+@pytest.mark.cuda
+def test_flash_bias_with_dropout_keeps_the_plain_mask(cuda_device):
+    # q = 0: the probabilities are softmax(bias) along each row, all > 0;
+    # V the identity over 64 keys puts key j's dropped weight in column j
+    b, h, sq, sk = 2, 4, 130, 64
+    q = torch.zeros(b, h, sq, sk, dtype=torch.bfloat16, device=cuda_device)
+    k = torch.randn(b, h, sk, sk, device=cuda_device).to(torch.bfloat16)
+    v = torch.eye(sk, device=cuda_device).to(torch.bfloat16).expand(
+        b, h, sk, sk).contiguous()
+    bias = torch.randn(b, 1, 1, sk, device=cuda_device)
+    rate, seed = 0.1, 99
+    out, lse = attention._flash_cuda(q, k, v, None, None, 1.0, False, None,
+                                     rate, seed, bias=bias)
+    pout, plse = attention._attention_torch(
+        q, k, v, bias, None, None, 1.0, False, None, rate, seed,
+        return_lse=True)
+    bh = torch.arange(b * h, device=cuda_device).reshape(b, h, 1, 1)
+    keep = attention._dropout_keep(
+        seed, bh, torch.arange(sq, device=cuda_device).reshape(sq, 1),
+        torch.arange(sk, device=cuda_device).reshape(1, sk), rate)
+    torch.cuda.synchronize()
+    assert torch.equal(out != 0, keep) and torch.equal(pout != 0, keep)
+    assert _row_rel_err(out, pout) <= 2.0 ** -6
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-3)
+
+
+def _zigzag_shard_pos(seq, cp, i, dev):
+    piece = seq // (2 * cp)
+    pos = np.concatenate([np.arange(i * piece, (i + 1) * piece),
+                          np.arange((2 * cp - 1 - i) * piece,
+                                    (2 * cp - i) * piece)])
+    return torch.from_numpy(pos.astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 70])
+@pytest.mark.parametrize("pair", [(0, 0), (1, 0), (0, 3), (2, 1), (3, 3)])
+def test_flash_kernels_with_positions_match_plain(cuda_device, pair, window):
+    # 4 zig-zag shards of two 40-token chunks: tiles of 64 straddle chunks
+    seq, cp = 320, 4
+    qi, kj = pair
+    qp = _zigzag_shard_pos(seq, cp, qi, cuda_device)
+    kp = _zigzag_shard_pos(seq, cp, kj, cuda_device)
+    rng = np.random.RandomState(23)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, 4, 80, 64).astype(
+        np.float32)).to(cuda_device, torch.bfloat16) for _ in range(4))
+    glse = torch.from_numpy(rng.randn(1, 4, 80).astype(np.float32)).to(
+        cuda_device)
+    kw = dict(q_pos=qp, k_pos=kp)
+    scale = 0.125
+    out, lse = attention._flash_cuda(q, k, v, None, None, scale, True,
+                                     window, **kw)
+    pout, plse = attention._attention_torch(
+        q, k, v, None, None, None, scale, True, window, return_lse=True,
+        **kw)
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, lse, do, delta, None, None, scale, True, window)
+    got = attention._flash_bwd_cuda(*args, glse=glse, **kw)
+    want = attention._flash_bwd_torch(*args, glse=glse, **kw)
+    torch.cuda.synchronize()
+    live = plse > attention.NEG_INF * 0.5
+    assert torch.equal(live, lse > attention.NEG_INF * 0.5)
+    # rows with no live key: out exactly 0, lse NEG_INF, dq exactly 0
+    assert (out[~live] == 0).all() and (lse[~live] == attention.NEG_INF).all()
+    assert (got[0][~live] == 0).all()
+    if live.any():
+        assert _row_rel_err(out[live], pout[live]) <= 2.0 ** -6
+        torch.testing.assert_close(lse[live], plse[live], rtol=0, atol=1e-3)
+    for name, e in _grad_rel_errs(got, want).items():
+        assert e <= 2.0 ** -6, (name, e)
+    if not live.any():
+        assert all((g == 0).all() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ATTENTION_CASES))
+def test_flash_bwd_kernels_with_glse_match_plain(cuda_device, case):
+    q, k, v, do, q_seg, k_seg, scale, causal, window = _flash_inputs(
+        case, cuda_device, 29)
+    out, lse = attention._flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
+                                     window)
+    glse = torch.randn(lse.shape, device=cuda_device)
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, lse, do, delta, q_seg, k_seg, scale, causal, window)
+    got = attention._flash_bwd_cuda(*args, glse=glse)
+    want = attention._flash_bwd_torch(*args, glse=glse)
+    torch.cuda.synchronize()
+    for name, e in _grad_rel_errs(got, want).items():
+        assert e <= 2.0 ** -6, (name, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(BIAS_CLASSES))
+def test_flash_dbias_matches_autograd_through_plain(cuda_device, shape):
+    q, k, v, do, _, _, scale, causal, window = _flash_inputs(
+        "gqa", cuda_device, 31)
+    b, h, sq, sk = q.shape[0], q.shape[1], q.shape[2], k.shape[2]
+    bias0 = torch.randn(BIAS_CLASSES[shape](b, h, sq, sk),
+                        device=cuda_device)
+    grads = []
+    for flash in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, bias0)]
+        if flash:
+            out = attention.flash_attention(*leaves[:3], bias=leaves[3],
+                                            causal=causal)
+        else:
+            out = attention._attention_torch(
+                *leaves[:3], leaves[3], None, None, scale, causal, window)
+        out.backward(do)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv", "dbias"), *grads):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 2.0 ** -6 * float(w.float().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_multihead_attn_layer_on_card_matches_plain(cuda_device):
+    from apex_tpu_torch.contrib.multihead_attn import SelfMultiheadAttn
+    s, b, e = 64, 6, 256
+    mods = [SelfMultiheadAttn(e, 4, dropout=0.1, bias=True,
+                              include_norm_add=True, impl=impl,
+                              mask_additive=True, dtype=torch.bfloat16,
+                              device=cuda_device,
+                              generator=torch.Generator().manual_seed(5))
+            for impl in ("fast", "default")]
+    x = (0.5 * torch.randn(s, b, e, device=cuda_device)).to(torch.bfloat16)
+    lens = torch.tensor([64, 40, 33, 64, 50, 61], device=cuda_device)
+    mask = torch.where(torch.arange(s, device=cuda_device)[None]
+                       >= lens[:, None], -10000.0, 0.0)
+    outs = []
+    for mod in mods:
+        counts = _build.launch_counts()
+        xl = x.clone().requires_grad_()
+        out, _ = mod(xl, key_padding_mask=mask, dropout_key=(3, 4))
+        out.float().pow(2).sum().backward()
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        n = 1 if mod.impl == "fast" else 0
+        for kname in (attention.KERNEL, attention.BWD_DQ_KERNEL,
+                      attention.BWD_DKV_KERNEL):
+            assert after.get(kname, 0) == counts.get(kname, 0) + n
+        for kname in (layer_norm.KERNEL, layer_norm.BWD_KERNEL):
+            assert after[kname] == counts.get(kname, 0) + 1
+        outs.append((out.detach(), xl.grad,
+                     {n_: p.grad for n_, p in mod.named_parameters()}))
+    (out, gx, gp), (pout, pgx, pgp) = outs
+    assert float((out.float() - pout.float()).abs().max()) <= 2e-2
+    for name, g, w in [("x", gx, pgx)] + [(n_, gp[n_], pgp[n_])
+                                          for n_ in gp]:
+        rel = float((g.float() - w.float()).norm()
+                    / w.float().norm().clamp_min(1e-6))
+        assert rel <= 2e-2, (name, rel)
 
 
 @pytest.mark.cuda
