@@ -35,10 +35,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # one shared library per source; the ops modules bind their symbols
-SOURCES = ("layer_norm", "flash_fwd", "flash_bwd", "fused_adam", "sumsq",
+SOURCES = ("layer_norm", "flash_fwd", "flash_bwd", "flash_fwd_fp16",
+           "flash_bwd_fp16", "flash_fwd_fp32", "flash_bwd_fp32",
+           "fused_adam", "sumsq",
            "fused_lamb", "lamb_segment", "softmax", "fused_sgd",
            "scale_axpby", "adagrad_novograd", "xentropy", "rope", "dropout",
-           "stochastic_round")
+           "stochastic_round", "kprobe", "launch_probe")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -95,10 +97,15 @@ def build_log(name: str) -> str:
     return log.read_text() if log.is_file() else ""
 
 
+# seconds each library took to build in this process (its nvcc's wall time)
+build_seconds: Dict[str, float] = {}
+
+
 def build_all(names: Iterable[str] = SOURCES) -> float:
     """Compile every library in ``names`` that is not built yet — one
     ``nvcc`` per source, started together — and return the seconds it
-    took. Raises with the compiler's output when a build fails."""
+    took (each library's own in :data:`build_seconds`). Raises with the
+    compiler's output when a build fails."""
     t0 = time.perf_counter()
     with _lock:
         BUILD_DIR.mkdir(exist_ok=True)
@@ -108,21 +115,29 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
             if out.is_file():
                 continue
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            log = out.with_name(f"{out.name}.{os.getpid()}.out")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
                    str(tmp), str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out)
+            with open(log, "w") as f:
+                proc = subprocess.Popen(cmd, stdout=f,
+                                        stderr=subprocess.STDOUT, text=True)
+            procs[name] = (proc, tmp, out, log)
         failed = []
-        for name, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"--- {name} (nvcc exit {proc.returncode})\n"
-                              f"{log}")
-                tmp.unlink(missing_ok=True)
-                continue
-            out.with_suffix(".log").write_text(log)
-            os.replace(tmp, out)
+        while procs:
+            for name in [n for n, p in procs.items()
+                         if p[0].poll() is not None]:
+                proc, tmp, out, log = procs.pop(name)
+                build_seconds[name] = time.perf_counter() - t0
+                text = log.read_text()
+                log.unlink(missing_ok=True)
+                if proc.returncode != 0:
+                    failed.append(f"--- {name} (nvcc exit "
+                                  f"{proc.returncode})\n{text}")
+                    tmp.unlink(missing_ok=True)
+                    continue
+                out.with_suffix(".log").write_text(text)
+                os.replace(tmp, out)
+            time.sleep(0.05)
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failed))

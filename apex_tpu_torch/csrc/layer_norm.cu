@@ -14,8 +14,8 @@
 // at which the H100's fp32 units (67 TFLOP/s) would be the limit.
 //
 // Design against that bound: each element is read from device memory
-// exactly once, with 16-byte vector loads and stores (8 bf16 or 4 fp32
-// per lane) whenever h allows it. For h <= 1024 one warp owns one row
+// exactly once, with 16-byte vector loads and stores (8 bf16 or fp16, or
+// 4 fp32, per lane) whenever h allows it. For h <= 1024 one warp owns one row
 // and keeps the whole row in registers, so both reduction passes run on
 // registers and reduce through warp shuffles alone; four rows share a
 // 128-thread block. Wider rows take one 256-thread block per row, which
@@ -25,6 +25,7 @@
 // (`_tileable`, :206); here the grid simply covers every row.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +69,21 @@ __device__ __forceinline__ void load<__nv_bfloat16, 1>(const __nv_bfloat16* p,
                                                        float* out) {
   out[0] = __bfloat162float(*p);
 }
+template <>
+__device__ __forceinline__ void load<__half, 8>(const __half* p, float* out) {
+  uint4 r = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __half2float(__ushort_as_half((unsigned short)w[i]));
+    out[2 * i + 1] =
+        __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
+  }
+}
+template <>
+__device__ __forceinline__ void load<__half, 1>(const __half* p, float* out) {
+  out[0] = __half2float(*p);
+}
 
 template <typename T, int n>
 __device__ __forceinline__ void store(T* p, const float* in);
@@ -96,6 +112,21 @@ template <>
 __device__ __forceinline__ void store<__nv_bfloat16, 1>(__nv_bfloat16* p,
                                                         const float* in) {
   *p = __float2bfloat16_rn(in[0]);
+}
+template <>
+__device__ __forceinline__ void store<__half, 8>(__half* p, const float* in) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t lo = __half_as_ushort(__float2half_rn(in[2 * i]));
+    uint32_t hi = __half_as_ushort(__float2half_rn(in[2 * i + 1]));
+    w[i] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+template <>
+__device__ __forceinline__ void store<__half, 1>(__half* p, const float* in) {
+  *p = __float2half_rn(in[0]);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -229,8 +260,8 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-// Dispatch on dtype (0 fp32, 1 bf16) and on whether h divides into
-// 16-byte packs: F<T, N>::run(args...), or -1 for an unknown dtype.
+// Dispatch on dtype (0 fp32, 1 bf16, 2 fp16) and on whether h divides
+// into 16-byte packs: F<T, N>::run(args...), or -1 for an unknown dtype.
 template <template <typename, int> class F, typename... A>
 int dispatch(int dtype, int h, A... args) {
   if (dtype == 0)
@@ -240,6 +271,9 @@ int dispatch(int dtype, int h, A... args) {
     return h % Pack<__nv_bfloat16>::N == 0
                ? F<__nv_bfloat16, Pack<__nv_bfloat16>::N>::run(args...)
                : F<__nv_bfloat16, 1>::run(args...);
+  if (dtype == 2)
+    return h % Pack<__half>::N == 0 ? F<__half, Pack<__half>::N>::run(args...)
+                                    : F<__half, 1>::run(args...);
   return -1;
 }
 
@@ -485,9 +519,9 @@ struct Bwd {
 
 }  // namespace
 
-// x, y: (rows, h) contiguous, dtype 0 = fp32, 1 = bf16. w, b: (h,) fp32
-// or null (no affine / no bias). mean, rstd: (rows,) fp32. Pointers must
-// be 16-byte aligned. Returns cudaGetLastError() after the launch.
+// x, y: (rows, h) contiguous, dtype 0 = fp32, 1 = bf16, 2 = fp16. w, b:
+// (h,) fp32 or null (no affine / no bias). mean, rstd: (rows,) fp32.
+// Pointers must be 16-byte aligned. Returns cudaGetLastError() after the launch.
 extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
                            void* y, void* mean, void* rstd, int rows, int h,
                            float eps, int rms, int dtype, void* stream) {
@@ -517,8 +551,8 @@ extern "C" int apex_ln_bwd_grid(int rows, int h, int dtype) {
   return blocks;
 }
 
-// x, g, dx: (rows, h) contiguous, dtype 0 = fp32, 1 = bf16. w: (h,) fp32
-// or null (no affine). mean, rstd: (rows,) fp32 from the forward.
+// x, g, dx: (rows, h) contiguous, dtype 0 = fp32, 1 = bf16, 2 = fp16. w:
+// (h,) fp32 or null (no affine). mean, rstd: (rows,) fp32 from the forward.
 // dw_part, db_part: (blocks, h) fp32, blocks from apex_ln_bwd_grid.
 // Returns cudaGetLastError() after the launch.
 extern "C" int apex_ln_bwd(const void* x, const void* g, const void* w,

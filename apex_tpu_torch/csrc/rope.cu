@@ -7,7 +7,11 @@
 // [-t2, t1]), the remaining d - rot channels copied, the result rounded to
 // t's dtype. The backward is the same rotation with -sin (`_rope_cached_bwd`
 // :129-133): a flag negates sin in the kernel, bitwise the same as passing
-// -sin. cos and sin are (positions, rot) fp32 tables; for the packed
+// -sin. cos and sin are fp32 tables read through element strides: a
+// position stride and one per middle dimension of t, 0 where the table
+// broadcasts (the reference sends tables that vary beyond the position
+// axis to XLA, `_rope_any` :110-116; here the same kernel reads them, as
+// the flash bias is read); for the packed
 // varlen (thd) layout the kernel finds each token's position itself, by a
 // binary search of cu_seqlens (the reference's searchsorted, :171-174),
 // and reads that row of the cos(freqs) and sin(freqs) tables, which is
@@ -19,7 +23,8 @@
 //
 // Design against that bound. One block row per position (grid.x), the
 // position's rows split over grid.y: cos and sin of a position are read
-// through L1 (__ldg) and reused by every (batch, head) row of it. Each
+// through L1 (__ldg) and reused by every (batch, head) row of it (a table
+// that varies along a middle dimension is offset per row). Each
 // thread owns V channel pairs (i, i + rot/2) of one row, loaded as two
 // vectors of up to 16 bytes, so rotate_half happens in registers; the
 // pass-through channels are copied V at a time as raw bytes. V is the
@@ -149,16 +154,36 @@ __device__ __forceinline__ int table_row(int n, const int* cu, int nseq,
   return pos < 0 ? 0 : (pos >= rows_in_table ? rows_in_table - 1 : pos);
 }
 
+// The tables' element strides: along positions (`pos`), and along up to
+// three middle dimensions of t (sizes `size`, row-major, the last fastest;
+// 0 where the table broadcasts). `nmid` = 0: every row reads one table row.
+struct Strides {
+  long long pos;
+  int nmid;
+  int size[3];
+  long long mid[3];
+};
+
+// The table offset of row r of t's flattened middle dimensions.
+__device__ __forceinline__ long long mid_offset(const Strides& ts, int r) {
+  long long o = 0;
+  for (int i = ts.nmid - 1; i >= 0; --i) {
+    o += (long long)(r % ts.size[i]) * ts.mid[i];
+    r /= ts.size[i];
+  }
+  return o;
+}
+
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     rope_kernel(const T* __restrict__ t, const float* __restrict__ cos_t,
                 const float* __restrict__ sin_t, const int* __restrict__ cu,
-                int nseq, int table_rows, T* __restrict__ out, int rows,
-                int d, int rot, int negate) {
+                int nseq, int table_rows, Strides ts, T* __restrict__ out,
+                int rows, int d, int rot, int negate) {
   const int n = blockIdx.x;
   const int pos = table_row(n, cu, nseq, table_rows);
-  const float* cs = cos_t + (int64_t)pos * rot;
-  const float* sn = sin_t + (int64_t)pos * rot;
+  const float* cs0 = cos_t + (int64_t)pos * ts.pos;
+  const float* sn0 = sin_t + (int64_t)pos * ts.pos;
   const int half = rot >> 1;
   const int rot_items = half / V;
   const int items = rot_items + (d - rot) / V;
@@ -172,6 +197,9 @@ __global__ void __launch_bounds__(kThreads)
     T* dst = out + base + (int64_t)r * d;
     if (i < rot_items) {
       const int j = i * V;
+      const long long mo = ts.nmid ? mid_offset(ts, r) : 0;
+      const float* cs = cs0 + mo;
+      const float* sn = sn0 + mo;
       float x1[V], x2[V], c1[V], c2[V], s1[V], s2[V];
       load<T, V>(src + j, x1);
       load<T, V>(src + half + j, x2);
@@ -199,9 +227,9 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int V>
 cudaError_t launch(const void* t, const float* cos_t, const float* sin_t,
-                   const int* cu, int nseq, int table_rows, void* out,
-                   int64_t n, int rows, int d, int rot, int negate,
-                   cudaStream_t stream) {
+                   const int* cu, int nseq, int table_rows,
+                   const Strides& ts, void* out, int64_t n, int rows, int d,
+                   int rot, int negate, cudaStream_t stream) {
   if (n > INT_MAX) return cudaErrorInvalidValue;
   const int items = rot / 2 / V + (d - rot) / V;
   const int64_t per_block = (int64_t)kThreads * kItemsPerThread;
@@ -210,7 +238,7 @@ cudaError_t launch(const void* t, const float* cos_t, const float* sin_t,
   if (gy > 65535) gy = 65535;
   const dim3 grid((unsigned)n, (unsigned)gy);
   rope_kernel<T, V><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(t), cos_t, sin_t, cu, nseq, table_rows,
+      static_cast<const T*>(t), cos_t, sin_t, cu, nseq, table_rows, ts,
       static_cast<T*>(out), rows, d, rot, negate);
   return cudaGetLastError();
 }
@@ -218,54 +246,74 @@ cudaError_t launch(const void* t, const float* cos_t, const float* sin_t,
 template <typename T>
 cudaError_t launch_vec(const void* t, const float* cos_t,
                        const float* sin_t, const int* cu, int nseq,
-                       int table_rows, void* out, int64_t n, int rows, int d,
-                       int rot, int negate, cudaStream_t stream) {
+                       int table_rows, const Strides& ts, void* out,
+                       int64_t n, int rows, int d, int rot, int negate,
+                       cudaStream_t stream) {
   constexpr int kMax = 16 / sizeof(T);
   const int half = rot / 2;
-  auto fits = [&](int v) { return v <= kMax && half % v == 0 && d % v == 0; };
+  // a vector of V table values must stay aligned at every table offset
+  auto strides_fit = [&](int v) {
+    bool ok = ts.pos % v == 0;
+    for (int i = 0; i < ts.nmid; ++i) ok = ok && ts.mid[i] % v == 0;
+    return ok;
+  };
+  auto fits = [&](int v) {
+    return v <= kMax && half % v == 0 && d % v == 0 && strides_fit(v);
+  };
   if constexpr (kMax >= 8) {
     if (fits(8))
-      return launch<T, 8>(t, cos_t, sin_t, cu, nseq, table_rows, out, n,
-                          rows, d, rot, negate, stream);
+      return launch<T, 8>(t, cos_t, sin_t, cu, nseq, table_rows, ts, out,
+                          n, rows, d, rot, negate, stream);
   }
   if (fits(4))
-    return launch<T, 4>(t, cos_t, sin_t, cu, nseq, table_rows, out, n, rows,
-                        d, rot, negate, stream);
+    return launch<T, 4>(t, cos_t, sin_t, cu, nseq, table_rows, ts, out, n,
+                        rows, d, rot, negate, stream);
   if (fits(2))
-    return launch<T, 2>(t, cos_t, sin_t, cu, nseq, table_rows, out, n, rows,
-                        d, rot, negate, stream);
-  return launch<T, 1>(t, cos_t, sin_t, cu, nseq, table_rows, out, n, rows, d,
-                      rot, negate, stream);
+    return launch<T, 2>(t, cos_t, sin_t, cu, nseq, table_rows, ts, out, n,
+                        rows, d, rot, negate, stream);
+  return launch<T, 1>(t, cos_t, sin_t, cu, nseq, table_rows, ts, out, n,
+                      rows, d, rot, negate, stream);
 }
 
 }  // namespace
 
 // t, out: contiguous (n, rows, d), dtype 0 = fp32, 1 = bf16, 2 = fp16,
-// 16-byte aligned; cos_t, sin_t: contiguous (table_rows, rot) fp32, 16-byte
-// aligned, rot even and <= d. cu: null (row n of the tables for position
-// n; table_rows == n) or (nseq + 1,) int32 cumulative sequence starts (thd).
+// 16-byte aligned; cos_t, sin_t: fp32 tables, 16-byte aligned, with one
+// layout: element (position p, middle index r, channel c) at p * tsn +
+// mid_offset(r) + c, where r runs over nmid (0-3) middle dimensions of t
+// of sizes m0, m1, m2 (their product is rows) with table strides st0,
+// st1, st2 (0 where the table broadcasts); rot even and <= d. cu: null
+// (position n reads table row n, or row 0 everywhere with tsn = 0) or
+// (nseq + 1,) int32 cumulative sequence starts (thd; table_rows rows).
 // negate != 0 rotates by -sin (the backward). Returns cudaGetLastError()
 // after the launch.
 extern "C" int apex_rope(const void* t, const float* cos_t,
                          const float* sin_t, const int* cu, int nseq,
-                         int table_rows, void* out, int64_t n, int rows,
-                         int d, int rot, int negate, int dtype, void* stream) {
+                         int table_rows, long long tsn, int nmid, int m0,
+                         int m1, int m2, long long st0, long long st1,
+                         long long st2, void* out, int64_t n, int rows,
+                         int d, int rot, int negate, int dtype,
+                         void* stream) {
   if (n == 0 || rows == 0 || d == 0) return (int)cudaGetLastError();
   if (n < 0 || rows < 0 || d < 0 || rot < 0 || rot > d || rot % 2 ||
-      table_rows <= 0 || (cu != nullptr && nseq < 0))
+      table_rows <= 0 || (cu != nullptr && nseq < 0) || nmid < 0 ||
+      nmid > 3 || tsn < 0 || st0 < 0 || st1 < 0 || st2 < 0)
     return (int)cudaErrorInvalidValue;
+  const Strides ts{tsn, nmid, {m0, m1, m2}, {st0, st1, st2}};
+  for (int i = 0; i < nmid; ++i)
+    if (ts.size[i] <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
       return (int)launch_vec<float>(t, cos_t, sin_t, cu, nseq, table_rows,
-                                    out, n, rows, d, rot, negate, st);
+                                    ts, out, n, rows, d, rot, negate, st);
     case 1:
       return (int)launch_vec<__nv_bfloat16>(t, cos_t, sin_t, cu, nseq,
-                                            table_rows, out, n, rows, d, rot,
-                                            negate, st);
+                                            table_rows, ts, out, n, rows, d,
+                                            rot, negate, st);
     case 2:
       return (int)launch_vec<__half>(t, cos_t, sin_t, cu, nseq, table_rows,
-                                     out, n, rows, d, rot, negate, st);
+                                     ts, out, n, rows, d, rot, negate, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

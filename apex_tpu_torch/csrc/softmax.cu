@@ -12,7 +12,9 @@
 // fp32, plus -10000 where the mask is True (added, not substituted: a row
 // whose keys are all masked is the softmax of the shifted scores), m = the
 // row's max, e = exp(s - m), y = e / sum(e) (a division, not a reciprocal),
-// rounded to x's dtype. Each product and sum is rounded on its own
+// rounded to x's dtype (fp32, bf16 or fp16: the fills are added in fp32
+// registers, and -1e30 is never stored). Each product and sum is rounded
+// on its own
 // (`__fmul_rn`, `__fadd_rn`), so nothing is contracted into an FMA that the
 // plain version does not do. The backward: dot = sum(y * g) in fp32, then
 // dx = (scale * y) * (g - dot), rounded to y's dtype.
@@ -24,9 +26,9 @@
 // lower triangle of x. The backward reads y and g and writes dx.
 //
 // Design against that bound: every score is read from device memory once,
-// with 16-byte vector loads and stores (8 bf16 or 4 fp32 a lane, with 8 or
-// 4 mask bytes beside them) whenever the row width and the pointers allow,
-// else one element at a time. For sk <= 1024 one warp owns one row and
+// with 16-byte vector loads and stores (8 bf16 or fp16, or 4 fp32, a lane,
+// with 8 or 4 mask bytes beside them) whenever the row width and the
+// pointers allow, else one element at a time. For sk <= 1024 one warp owns one row and
 // keeps it in registers, so the max, the sum and the output run on
 // registers and reduce through warp shuffles; four rows share a 128-thread
 // block. Wider rows take one 256-thread block per row, which re-reads its
@@ -38,6 +40,7 @@
 // and the loops any width.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -86,6 +89,21 @@ __device__ __forceinline__ void load<__nv_bfloat16, 1>(const __nv_bfloat16* p,
                                                        float* out) {
   out[0] = __bfloat162float(*p);
 }
+template <>
+__device__ __forceinline__ void load<__half, 8>(const __half* p, float* out) {
+  uint4 r = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __half2float(__ushort_as_half((unsigned short)w[i]));
+    out[2 * i + 1] =
+        __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
+  }
+}
+template <>
+__device__ __forceinline__ void load<__half, 1>(const __half* p, float* out) {
+  out[0] = __half2float(*p);
+}
 
 template <typename T, int n>
 __device__ __forceinline__ void store(T* p, const float* in);
@@ -114,6 +132,21 @@ template <>
 __device__ __forceinline__ void store<__nv_bfloat16, 1>(__nv_bfloat16* p,
                                                         const float* in) {
   *p = __float2bfloat16_rn(in[0]);
+}
+template <>
+__device__ __forceinline__ void store<__half, 8>(__half* p, const float* in) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t lo = __half_as_ushort(__float2half_rn(in[2 * i]));
+    uint32_t hi = __half_as_ushort(__float2half_rn(in[2 * i + 1]));
+    w[i] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+template <>
+__device__ __forceinline__ void store<__half, 1>(__half* p, const float* in) {
+  *p = __float2half_rn(in[0]);
 }
 
 // n mask bytes (one per score; torch.bool is one byte), little-endian.
@@ -494,8 +527,8 @@ inline bool packed(int dtype, int sk, const void* a, const void* b,
 
 }  // namespace
 
-// x, y: contiguous, rows x sk, dtype 0 = fp32, 1 = bf16. mode 0: no mask;
-// mode 1: causal over (rows / sq, sq, sk); mode 2: mask (mb, sq, sk) bool
+// x, y: contiguous, rows x sk, dtype 0 = fp32, 1 = bf16, 2 = fp16. mode
+// 0: no mask; mode 1: causal over (rows / sq, sq, sk); mode 2: mask (mb, sq, sk) bool
 // bytes, row r of x (b, heads, sq, sk) reading mask batch
 // (r / (heads * sq)) % mb. Returns cudaGetLastError() after the launch.
 extern "C" int apex_softmax_fwd(const void* x, const void* mask, void* y,
@@ -516,10 +549,14 @@ extern "C" int apex_softmax_fwd(const void* x, const void* mask, void* y,
   if (dtype == 1)
     return (int)fwd_mode<__nv_bfloat16>(mode, vec, x, m, y, rows, sq, sk,
                                         heads, mb, scale, st);
+  if (dtype == 2)
+    return (int)fwd_mode<__half>(mode, vec, x, m, y, rows, sq, sk, heads, mb,
+                                 scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// y, g, dx: contiguous, rows x sk, one dtype (0 = fp32, 1 = bf16).
+// y, g, dx: contiguous, rows x sk, one dtype (0 = fp32, 1 = bf16, 2 =
+// fp16).
 // Returns cudaGetLastError() after the launch.
 extern "C" int apex_softmax_bwd(const void* y, const void* g, void* dx,
                                 int64_t rows, int sk, float scale, int dtype,
@@ -533,6 +570,8 @@ extern "C" int apex_softmax_bwd(const void* y, const void* g, void* dx,
   if (dtype == 1)
     return (int)bwd_packed<__nv_bfloat16>(vec, y, g, dx, rows, sk, scale,
                                           st);
+  if (dtype == 2)
+    return (int)bwd_packed<__half>(vec, y, g, dx, rows, sk, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

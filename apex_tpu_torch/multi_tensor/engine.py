@@ -51,6 +51,7 @@ import torch
 
 from apex_tpu_torch import _build
 from apex_tpu_torch._backend import check_kernel_input, uses_kernel
+from apex_tpu_torch.multi_tensor.flat_buffer import DEFAULT_ALIGN
 from apex_tpu_torch.random import M32, bits as threefry_bits, threefry2x32
 
 LANES = 128
@@ -61,6 +62,8 @@ PER_TENSOR_TILE_ROWS = 16
 
 SUMSQ_KERNEL = "sumsq"
 SUMSQ_SCALED_KERNEL = "sumsq_scaled"
+LEAF_SUM_KERNEL = "leaf_sum"
+LEAF_SUM_THREADS = 256      # the kernel's block: the width of its order
 SR_CAST_KERNEL = "stochastic_round"
 
 # functor -> its CUDA launcher; see register_kernel
@@ -104,9 +107,12 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     not: its vectorized kernel is an ulp off on some elements, and its
     first call in a process has returned one worker thread's chunk of a
     large tensor far off. So an fp32 CPU tensor takes the root in fp64
-    and rounds once, which is exact (53 >= 2 * 24 + 2 bits)."""
+    and rounds once, which is exact (53 >= 2 * 24 + 2 bits), through
+    numpy's single-threaded, correctly rounded ``sqrt`` rather than any
+    of PyTorch's threaded CPU kernels."""
     if x.device.type == "cpu" and x.dtype == torch.float32:
-        return x.double().sqrt().float()
+        root = np.sqrt(x.detach().numpy().astype(np.float64))
+        return torch.from_numpy(np.asarray(root.astype(np.float32)))
     return torch.sqrt(x)
 
 
@@ -440,9 +446,79 @@ def _sumsq_cuda(buf, tile, num_tiles, scale) -> torch.Tensor:
     return out
 
 
-__all__ = ["LANES", "DEFAULT_TILE_ROWS", "PER_TENSOR_TILE_ROWS",
+def leaf_runs(space) -> torch.Tensor:
+    """(num_leaves, 2) int32 ``[start, end)`` of each leaf's per-subtile
+    partials (subtiles of ``DEFAULT_ALIGN`` elements: no subtile straddles
+    two leaves), on the CPU."""
+    sub = DEFAULT_ALIGN
+    return torch.tensor([[off // sub, (off + size) // sub] for off, size in
+                         zip(space.offsets, space.padded_sizes)],
+                        dtype=torch.int32).reshape(-1, 2)
+
+
+def _leaf_sum_torch(x: torch.Tensor, runs: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``leaf_sum``: each run of ``x`` summed in the
+    kernel's order — ``LEAF_SUM_THREADS`` strided running sums (element
+    j of a run goes to sum j mod 256, in turn, from +0), then a halving
+    tree (``v[i] += v[i + s]``, s = 128, ..., 1). Padding adds +0, which
+    changes no sum, so the result is bitwise the kernel's."""
+    runs = runs.to(x.device).long()
+    start, length = runs[:, 0], runs[:, 1] - runs[:, 0]
+    w = LEAF_SUM_THREADS
+    depth = max(1, -(-int(length.max()) // w)) if runs.shape[0] else 1
+    k = torch.arange(depth * w, device=x.device)
+    idx = start[:, None] + k[None, :]
+    live = k[None, :] < length[:, None]
+    vals = torch.where(live, x[idx.clamp(0, max(x.shape[0] - 1, 0))],
+                       torch.zeros((), dtype=torch.float32,
+                                   device=x.device))
+    vals = vals.reshape(-1, depth, w)
+    acc = torch.zeros(vals.shape[0], w, dtype=torch.float32, device=x.device)
+    for j in range(depth):
+        acc = acc + vals[:, j]
+    while w > 1:
+        w //= 2
+        acc = acc[:, :w] + acc[:, w:2 * w]
+    return acc[:, 0]
+
+
+def leaf_sums(per_subtile: torch.Tensor, space, *,
+              plain: bool = False) -> torch.Tensor:
+    """(num_leaves,) fp32 sums of per-subtile values by leaf, in one
+    fixed order (:func:`_leaf_sum_torch`): the reference's
+    ``jax.ops.segment_sum`` over ``tile_leaf_ids``. On a CUDA tensor the
+    ``leaf_sum`` kernel of ``csrc/sumsq.cu`` (bitwise the plain version,
+    and the same bits on every run); on a CPU tensor, or with
+    ``plain=True``, the plain version."""
+    dev = per_subtile.device
+    runs = space._device_ids.get(("leaf_runs", dev))
+    if runs is None:
+        runs = space._device_ids[("leaf_runs", dev)] = leaf_runs(space).to(
+            dev)
+    x = per_subtile.float().contiguous()
+    if plain or not uses_kernel(x):
+        return _leaf_sum_torch(x, runs)
+    check_kernel_input("partials", x, (torch.float32,), dev)
+    out = torch.empty(runs.shape[0], dtype=torch.float32, device=dev)
+    lib = _build.library("sumsq", "apex_leaf_sum",
+                         (_build.P, _build.P, _build.P, _build.I, _build.P),
+                         "apex_sumsq_error_string")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.apex_leaf_sum(x.data_ptr(), runs.data_ptr(),
+                                out.data_ptr(), runs.shape[0], stream)
+    if err:
+        raise RuntimeError(f"{LEAF_SUM_KERNEL}: CUDA error {err} at launch: "
+                           f"{lib.apex_sumsq_error_string(err).decode()}")
+    _build.count_launch(LEAF_SUM_KERNEL)
+    return out
+
+
+__all__ = ["LANES", "DEFAULT_TILE_ROWS", "LEAF_SUM_KERNEL",
+           "PER_TENSOR_TILE_ROWS",
            "SR_CAST_KERNEL", "SUMSQ_KERNEL", "SUMSQ_SCALED_KERNEL",
            "fused_elementwise", "fused_sumsq_partials", "kernel_scalar",
+           "leaf_sums",
            "murmur_bits", "register_kernel", "scalar_pointer",
            "sqrt_rn", "sr_key_words", "sr_round_bits",
            "stochastic_round_cast"]

@@ -53,6 +53,7 @@ from apex_tpu_torch.multi_tensor.engine import (
     fused_elementwise,
     fused_sumsq_partials,
     kernel_scalar,
+    leaf_sums,
     register_kernel,
     scalar_pointer,
     sqrt_rn,
@@ -574,30 +575,23 @@ def fused_sgd_update(
 _PT_TILE = PER_TENSOR_TILE_ROWS * LANES
 
 
-def _segment_sum(per_subtile: torch.Tensor, space: FlatSpace) -> torch.Tensor:
-    """(num_leaves,) sums of per-subtile values by leaf (the reference's
-    ``jax.ops.segment_sum`` over ``tile_leaf_ids``)."""
-    ids = space.device_subtile_leaf_ids(per_subtile.device)
-    out = torch.zeros(space.num_leaves, dtype=torch.float32,
-                      device=per_subtile.device)
-    return out.index_add_(0, ids.long(), per_subtile[:ids.shape[0]])
-
-
-def _norms_from_subtile_partials(partials: torch.Tensor,
-                                 space: FlatSpace) -> torch.Tensor:
+def _norms_from_subtile_partials(partials: torch.Tensor, space: FlatSpace,
+                                 plain: bool = False) -> torch.Tensor:
     """(num_leaves,) L2 norms from per-subtile sum-of-squares partials
     (the engine's ``sumsq_subtiles`` outputs): a lane sum, then a sum by
-    leaf — every leaf is aligned to the subtile, so nothing re-reads the
-    buffer."""
-    return sqrt_rn(_segment_sum(partials.sum(-1).reshape(-1), space))
+    leaf in a fixed order (``leaf_sums``) — every leaf is aligned to the
+    subtile, so nothing re-reads the buffer."""
+    return sqrt_rn(leaf_sums(partials.sum(-1).reshape(-1), space,
+                             plain=plain))
 
 
 def per_tensor_l2norm(buf: torch.Tensor, space: FlatSpace, *,
                       plain: bool = False) -> torch.Tensor:
     """(num_leaves,) L2 norms of each tensor in the flat buffer: per-
-    subtile partials (kernel ``sumsq``) and a sum by leaf."""
+    subtile partials (kernel ``sumsq``) and a sum by leaf in a fixed order
+    (kernel ``leaf_sum``)."""
     partials = fused_sumsq_partials(buf, PER_TENSOR_TILE_ROWS, plain=plain)
-    return sqrt_rn(_segment_sum(partials, space))
+    return sqrt_rn(leaf_sums(partials, space, plain=plain))
 
 
 def multi_tensor_l2norm(buf: torch.Tensor, space: Optional[FlatSpace] = None,
@@ -877,14 +871,16 @@ def fused_lamb_update(
         with_norm_partials=True, with_grad_partials=with_grad_norm,
         in_place=in_place, plain=plain)
     u, m2, v2, p_part, u_part = outs[:5]
-    ratio = lamb_trust_ratio(_norms_from_subtile_partials(p_part, space),
-                             _norms_from_subtile_partials(u_part, space),
-                             weight_decay=weight_decay, use_nvlamb=use_nvlamb)
+    ratio = lamb_trust_ratio(
+        _norms_from_subtile_partials(p_part, space, plain),
+        _norms_from_subtile_partials(u_part, space, plain),
+        weight_decay=weight_decay, use_nvlamb=use_nvlamb)
     p2 = lamb_apply(p, u, ratio, lr=lr,
                     tile_ids=space.device_subtile_leaf_ids(p.device),
                     in_place=in_place, plain=plain, sr_seed=sr_seed)
     if with_grad_norm:
-        return p2, m2, v2, found, _norms_from_subtile_partials(outs[5], space)
+        return p2, m2, v2, found, _norms_from_subtile_partials(outs[5],
+                                                               space, plain)
     return p2, m2, v2, found
 
 

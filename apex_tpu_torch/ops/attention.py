@@ -20,10 +20,15 @@ is recomputed in PyTorch (:func:`_dbias`, the reference's ``_finish_bwd``
 The kernels cover causal masking with the ``sk - sq`` offset (chunked
 prefill), GQA, segment ids (packed batches and the decode context mask),
 the sliding window, an additive bias (each dimension full or broadcast,
-fp32 or bf16), global ``q_positions``/``kv_positions`` (ring and
+fp32, bf16 or fp16), global ``q_positions``/``kv_positions`` (ring and
 blockwise chunks: the causal and window tests compare positions, and
 tiles are skipped by their position bounds) and attention dropout, with
-bf16 inputs and head_dim 32, 64 or 128. Dropout is the reference's
+bf16, fp16 or fp32 inputs and any head_dim up to 128 (zero-padded inside
+the kernels to the next built width, :data:`BUILT_WIDTHS`). A head_dim
+past 128 raises: the dk/dv kernel's accumulators would not fit in
+registers. Launch counts are kept per dtype: bf16 under the kernel's
+name, fp16 and fp32 with a ``_fp16`` / ``_fp32`` suffix
+(:func:`kernel_name`). Dropout is the reference's
 counter-based mask (:func:`_dropout_keep`, the murmur3 finaliser of the
 seed, the flat q-head index and the global query row and key column),
 regenerated in the forward and both backward kernels from one uint32
@@ -46,7 +51,19 @@ NEG_INF = -1e30
 KERNEL = "flash_fwd"
 BWD_DQ_KERNEL = "flash_bwd_dq"
 BWD_DKV_KERNEL = "flash_bwd_dkv"
-HEAD_DIMS = (32, 64, 128)
+# head widths the kernels are built for; a narrower head_dim is zero-padded
+# in shared memory to the next one
+BUILT_WIDTHS = (32, 64, 96, 128)
+MAX_HEAD_DIM = BUILT_WIDTHS[-1]
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_SUFFIX = {torch.bfloat16: "", torch.float16: "_fp16",
+           torch.float32: "_fp32"}
+
+
+def kernel_name(base: str, dtype: torch.dtype) -> str:
+    """The launch counter of kernel ``base`` (``KERNEL``,
+    ``BWD_DQ_KERNEL``, ``BWD_DKV_KERNEL``) at ``dtype``."""
+    return base + _SUFFIX[dtype]
 
 
 def _mask_full(sq: int, sk: int, causal: bool, window: Optional[int],
@@ -295,12 +312,14 @@ def _check_kernel_args(q, k, v, q_seg, k_seg):
     """Raise on what the kernels do not take; returns the segment ids as
     contiguous int32 (or None)."""
     dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_kernel_input(name, t, (torch.bfloat16,), dev)
+    check_kernel_input("q", q, tuple(DTYPE_CODES), dev)
+    for name, t in (("k", k), ("v", v)):
+        check_kernel_input(name, t, (q.dtype,), dev)
     b, d = q.shape[0], q.shape[3]
-    if d not in HEAD_DIMS:
+    if not 1 <= d <= MAX_HEAD_DIM:
         raise NotImplementedError(
-            f"head_dim {d}: the kernel is built for {HEAD_DIMS}")
+            f"head_dim {d}: the kernels take 1 to {MAX_HEAD_DIM} (the dk/dv "
+            f"kernel's accumulators of a wider head exceed its registers)")
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -314,7 +333,7 @@ def _check_kernel_args(q, k, v, q_seg, k_seg):
 
 def _extra_args(q, bias, q_pos, k_pos):
     """The kernels' position and bias arguments: ``(q_pos, k_pos, bias,
-    bias_bf16, sb, sh, sq, sk)``, pointers or None. The bias is read
+    bias_dtype, sb, sh, sq, sk)``, pointers or None. The bias is read
     through its own element strides, 0 on each dimension of size 1, so a
     broadcast or expanded bias is never copied."""
     dev = q.device
@@ -327,13 +346,12 @@ def _extra_args(q, bias, q_pos, k_pos):
         return (*pos, None, 0, 0, 0, 0, 0)
     if bias.device != dev:
         raise ValueError(f"bias is on {bias.device}, expected {dev}")
-    if bias.dtype not in (torch.float32, torch.bfloat16):
+    if bias.dtype not in DTYPE_CODES:
         raise TypeError(f"bias has dtype {bias.dtype}; the kernels take "
-                        "torch.float32 or torch.bfloat16")
+                        f"{', '.join(str(d) for d in DTYPE_CODES)}")
     strides = [0 if n == 1 else st for n, st in zip(bias.shape,
                                                     bias.stride())]
-    return (*pos, bias.data_ptr(), int(bias.dtype == torch.bfloat16),
-            *strides)
+    return (*pos, bias.data_ptr(), DTYPE_CODES[bias.dtype], *strides)
 
 
 def _dropout_args(rate: float, seed):
@@ -355,7 +373,7 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
     dev = q.device
     dout = dout.contiguous()
-    check_kernel_input("grad", dout, (torch.bfloat16,), dev)
+    check_kernel_input("grad", dout, (q.dtype,), dev)
     for name, t in (("lse", lse), ("delta", delta), ("glse", glse)):
         check_kernel_input(name, t, (torch.float32,), dev)
     extra = _extra_args(q, bias, q_pos, k_pos)
@@ -366,8 +384,8 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
               if BWD_DKV_KERNEL in kernels else (None, None))
     P, I, L, U, F = _build.P, _build.I, _build.L, _build.U, _build.F
     lib = _build.library(
-        "flash_bwd", "apex_flash_bwd",
-        (P,) * 12 + (I, L, L, L, L) + (P,) * 3 + (I,) * 6
+        "flash_bwd" + _SUFFIX[q.dtype], "apex_flash_bwd",
+        (P,) * 12 + (I, L, L, L, L) + (P,) * 3 + (I,) * 7
         + (F, I, I, I, U, U, F, P),
         "apex_flash_bwd_error_string")
     segs = (None if q_seg is None else q_seg.data_ptr(),
@@ -385,14 +403,15 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
             err = lib.apex_flash_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), *segs, *extra[:2], gl,
-                *extra[2:], *outs, b, h, hk, sq, sk, d, float(scale),
+                *extra[2:], *outs, b, h, hk, sq, sk, d,
+                DTYPE_CODES[q.dtype], float(scale),
                 int(causal), 0 if window is None else int(window), *drop,
                 stream)
         if err:
             raise RuntimeError(
                 f"{kernel}: CUDA error {err} at launch: "
                 f"{lib.apex_flash_bwd_error_string(err).decode()}")
-        _build.count_launch(kernel)
+        _build.count_launch(kernel_name(kernel, q.dtype))
     return dq, dk, dv
 
 
@@ -445,11 +464,14 @@ class _FlashFn(torch.autograd.Function):
         return (dq, dk, dv, dbias) + (None,) * 11
 
 
-def _library() -> ctypes.CDLL:
+def _library(dtype: torch.dtype) -> ctypes.CDLL:
+    """The forward's library for ``dtype``: one a dtype
+    (``csrc/flash_fwd.cu``, ``flash_fwd_fp16.cu``, ``flash_fwd_fp32.cu``),
+    built in parallel."""
     P, I, L, U, F = _build.P, _build.I, _build.L, _build.U, _build.F
     return _build.library(
-        "flash_fwd", "apex_flash_fwd",
-        (P,) * 8 + (I, L, L, L, L) + (P, P) + (I,) * 6
+        "flash_fwd" + _SUFFIX[dtype], "apex_flash_fwd",
+        (P,) * 8 + (I, L, L, L, L) + (P, P) + (I,) * 7
         + (F, I, I, I, U, U, F, P),
         "apex_flash_error_string")
 
@@ -464,7 +486,7 @@ def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
     dev = q.device
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    lib = _library()
+    lib = _library(q.dtype)
     # the ctypes call launches on the current device: make it q's
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -473,12 +495,12 @@ def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
             None if q_seg is None else q_seg.data_ptr(),
             None if k_seg is None else k_seg.data_ptr(), *extra,
             out.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, d,
-            float(scale), int(causal), 0 if window is None else int(window),
+            DTYPE_CODES[q.dtype], float(scale), int(causal), 0 if window is None else int(window),
             *_dropout_args(rate, seed), stream)
     if err:
         raise RuntimeError(f"{KERNEL}: CUDA error {err} at launch: "
                            f"{lib.apex_flash_error_string(err).decode()}")
-    _build.count_launch(KERNEL)
+    _build.count_launch(kernel_name(KERNEL, q.dtype))
     return out, lse
 
 
@@ -596,8 +618,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window_size=w`` further restricts it to its last ``w`` keys.
     ``q_positions`` (sq,) / ``kv_positions`` (sk,) give global token
     positions (ring and blockwise chunks): the causal and window tests
-    then compare positions, with no offset. ``bias`` is an additive fp32
-    or bf16 logit bias, 4-D with each dimension 1 or full (b, h, sq,
+    then compare positions, with no offset. ``bias`` is an additive fp32,
+    bf16 or fp16 logit bias, 4-D with each dimension 1 or full (b, h, sq,
     sk); its gradient comes back in its own shape.
     ``return_lse=True`` also returns the fp32 (b, h, sq) log-sum-exp
     (``NEG_INF`` on fully-masked rows), differentiable: chunk results
@@ -621,4 +643,5 @@ def attention_plain(q, k, v, **kw):
     return _attention(q, k, v, False, **kw)
 
 
-__all__ = ["NEG_INF", "attention_plain", "dropout_seed", "flash_attention"]
+__all__ = ["NEG_INF", "attention_plain", "dropout_seed", "flash_attention",
+           "kernel_name"]

@@ -6,8 +6,10 @@ forward and the backward run the hand-written kernels in
 ``_bwd_kernel``); on a CPU tensor they run :func:`_fwd_torch` and
 :func:`_bwd_torch`, the plain PyTorch versions that mirror the
 reference's ``_fwd_xla`` and ``_bwd_xla`` line for line. Compute is fp32
-and the output takes ``x``'s dtype, so bf16 ``x`` with fp32 weights (the
-reference's ``MixedFusedLayerNorm``) works as is.
+and the output takes ``x``'s dtype (fp32, bf16 or fp16), so bf16 or fp16
+``x`` with fp32 weights (the reference's ``MixedFusedLayerNorm``) works
+as is. fp16 launches count as ``layer_norm_fwd_fp16`` and
+``layer_norm_bwd_fp16`` (:func:`kernel_name`).
 
 A call that autograd has to differentiate goes through ``_NormFn``, the
 counterpart of the reference's ``custom_vjp``: the forward saves
@@ -27,7 +29,13 @@ from apex_tpu_torch._backend import check_kernel_input, uses_kernel
 
 KERNEL = "layer_norm_fwd"
 BWD_KERNEL = "layer_norm_bwd"
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def kernel_name(base: str, dtype: torch.dtype) -> str:
+    """The launch counter of ``base`` (``KERNEL`` or ``BWD_KERNEL``) at
+    ``dtype``: fp16 launches count apart, as ``<base>_fp16``."""
+    return base + "_fp16" if dtype == torch.float16 else base
 
 
 def _fwd_torch(x2: torch.Tensor, w: Optional[torch.Tensor],
@@ -79,7 +87,7 @@ def _fwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
     if err:
         raise RuntimeError(f"{KERNEL}: CUDA error {err} at launch: "
                            f"{lib.apex_ln_error_string(err).decode()}")
-    _build.count_launch(KERNEL)
+    _build.count_launch(kernel_name(KERNEL, x2.dtype))
     return y, mean, rstd
 
 
@@ -143,7 +151,7 @@ def _bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
     if err:
         raise RuntimeError(f"{BWD_KERNEL}: CUDA error {err} at launch: "
                            f"{lib.apex_ln_error_string(err).decode()}")
-    _build.count_launch(BWD_KERNEL)
+    _build.count_launch(kernel_name(BWD_KERNEL, x2.dtype))
     return dx, dw_part.sum(dim=0), db_part.sum(dim=0)
 
 

@@ -10,9 +10,10 @@ rounded to ``t``'s dtype::
 On a CUDA tensor the sbhd, cached and thd variants run the hand-written
 kernel in ``csrc/rope.cu`` (the port of the Pallas ``_rope_kernel``); on
 a CPU tensor they run :func:`_apply_torch`, the reference's ``_apply``
-op for op. The kernel takes cos and sin that vary along the position
-axis only, ``(n, 1..., rot)`` (the reference's ``rows_only`` layouts);
-it raises for any other broadcast, which the plain version takes.
+op for op. The kernel reads cos and sin through their element strides,
+so tables that vary along any dimension of ``t`` (per batch, per head)
+run on it as well as the position-only ``(n, 1..., rot)`` layouts (the
+reference's ``rows_only`` kernel path; it sends the others to XLA).
 
 A call that autograd has to differentiate goes through ``_RopeFn``, the
 counterpart of the reference's ``custom_vjp``: it saves only cos and sin,
@@ -79,13 +80,51 @@ def _thd_positions(cu_seqlens: torch.Tensor, tokens: int,
 # -- kernel -------------------------------------------------------------------
 
 
+def _table_strides(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                   thd: bool):
+    """The kernel's view of the tables: ``(cos, sin, tsn, mids)``, the
+    tables with a contiguous channel axis (one layout for both), the
+    element stride along positions and ``(size, stride)`` of each middle
+    dimension of ``t``, 0 where the table broadcasts. A 2-D table (rows,
+    rot) broadcasts over every middle dimension; otherwise it has t's
+    rank, each dimension 1 or t's (the position axis: t's, 1, or, for
+    thd, any number of rows that positions index). Raises on any other
+    shape."""
+    n, rot = t.shape[0], cos.shape[-1]
+    mid = tuple(t.shape[1:-1])
+    if cos.ndim == 2:
+        cos, sin = (x.reshape(x.shape[0], *([1] * len(mid)), rot)
+                    for x in (cos, sin))
+    ok = cos.ndim == t.ndim and all(
+        c in (1, m) for c, m in zip(cos.shape[1:-1], mid))
+    if not thd:
+        ok = ok and cos.shape[0] in (1, n)
+    if not ok:
+        raise ValueError(
+            f"cos/sin {tuple(cos.shape)} do not broadcast against t "
+            f"{tuple(t.shape)}: each dimension must be 1 or t's (the "
+            f"position axis t's or 1), the last the rotated width")
+    if len(mid) > 3:
+        raise ValueError(f"t {tuple(t.shape)}: the kernel takes at most "
+                         f"three dimensions between positions and channels")
+    if cos.stride() != sin.stride() or cos.stride(-1) != 1:
+        cos, sin = cos.contiguous(), sin.contiguous()
+    tsn = 0 if cos.shape[0] == 1 else cos.stride(0)
+    mids = [(m, 0 if c == 1 else st) for m, c, st in
+            zip(mid, cos.shape[1:-1], cos.stride()[1:-1])]
+    return cos, sin, tsn, mids
+
+
 def _rope_cuda(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                cu_seqlens: Optional[torch.Tensor] = None,
                negate: bool = False) -> torch.Tensor:
-    """The kernel: ``t`` (n, ..., d); ``cos``/``sin`` the fp32 tables,
-    (n, 1..., rot) or, with ``cu_seqlens`` (thd), (positions, rot) rows
-    that each token indexes by its position in its sequence. ``negate``
-    rotates by -sin (the backward)."""
+    """The kernel: ``t`` (n, ..., d); ``cos``/``sin`` the fp32 tables of
+    one shape, broadcasting against t (each dimension 1 or t's, the last
+    the rotated width ``rot``; a 2-D (rows, rot) table broadcasts over
+    every middle dimension) and read through their element strides, or,
+    with ``cu_seqlens`` (thd), tables whose rows each token indexes by
+    its position in its sequence. ``negate`` rotates by -sin (the
+    backward)."""
     dev = t.device
     check_kernel_input("t", t, tuple(_DTYPE_CODES), dev)
     n, d = t.shape[0], t.shape[-1]
@@ -94,17 +133,19 @@ def _rope_cuda(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
         raise ValueError(f"the rotated width {rot} must be even and at "
                          f"most the head width {d}")
     for name, tab in (("cos", cos), ("sin", sin)):
-        check_kernel_input(name, tab, (torch.float32,), dev)
+        if tab.device != dev:
+            raise ValueError(f"{name} is on {tab.device}, expected {dev}")
+        if tab.dtype != torch.float32:
+            raise TypeError(f"{name} has dtype {tab.dtype}; the kernel "
+                            "takes torch.float32")
         if tab.shape != cos.shape:
             raise ValueError(f"{name} {tuple(tab.shape)} does not match "
                              f"cos {tuple(cos.shape)}")
+    cos, sin, tsn, mids = _table_strides(t, cos, sin, cu_seqlens is not None)
+    for name, tab in (("cos", cos), ("sin", sin)):
+        if tab.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     table_rows = cos.shape[0]
-    if cos.numel() != table_rows * rot or (cu_seqlens is None
-                                           and table_rows != n):
-        raise ValueError(
-            f"cos/sin {tuple(cos.shape)} must vary along the position axis "
-            f"only, (n, 1..., rot), with n = {n} positions of t "
-            f"{tuple(t.shape)}")
     nseq = 0
     if cu_seqlens is not None:
         check_kernel_input("cu_seqlens", cu_seqlens, (torch.int32,), dev)
@@ -117,17 +158,22 @@ def _rope_cuda(t: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
         return out
     if table_rows == 0:
         raise ValueError("empty cos/sin tables")
+    # only the middle dimensions a table varies along need an offset
+    sizes = [m for m, _ in mids] + [1] * (3 - len(mids))
+    strides = [st for _, st in mids] + [0] * (3 - len(mids))
+    nmid = len(mids) if any(strides) else 0
     P, I, L = _build.P, _build.I, _build.L
     lib = _build.library("rope", "apex_rope",
-                         (P, P, P, P, I, I, P, L, I, I, I, I, I, P),
+                         (P, P, P, P, I, I, L, I, I, I, I, L, L, L, P, L, I,
+                          I, I, I, I, P),
                          "apex_rope_error_string")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.apex_rope(
             t.data_ptr(), cos.data_ptr(), sin.data_ptr(),
             None if cu_seqlens is None else cu_seqlens.data_ptr(), nseq,
-            table_rows, out.data_ptr(), n, rows, d, rot, int(negate),
-            _DTYPE_CODES[t.dtype], stream)
+            table_rows, tsn, nmid, *sizes, *strides, out.data_ptr(), n,
+            rows, d, rot, int(negate), _DTYPE_CODES[t.dtype], stream)
     if err:
         raise RuntimeError(f"{KERNEL}: CUDA error {err} at launch: "
                            f"{lib.apex_rope_error_string(err).decode()}")

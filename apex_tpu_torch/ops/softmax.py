@@ -24,8 +24,10 @@ the counterpart of the reference's ``custom_vjp``: the forward saves
 only ``y``, the backward returns no gradient for the mask. Other calls
 run the forward alone. The reference falls back to XLA where its row
 tiling finds no tile; the kernel takes any row count and width, so
-nothing here falls back: a CUDA tensor of another dtype than fp32 or
-bf16 raises.
+nothing here falls back: a CUDA tensor of another dtype than fp32, bf16
+or fp16 raises. fp16 launches count apart (:func:`kernel_name`); the
+fills are added in fp32 before the output is rounded, so -1e30 is never
+stored in fp16.
 """
 
 from __future__ import annotations
@@ -48,7 +50,14 @@ BWD_KERNEL = "softmax_bwd"
 # mask mode -> (the kernel's mode code, its launch counter)
 _MODES = {"scaled": (0, SCALED_KERNEL), "causal": (1, CAUSAL_KERNEL),
           "masked": (2, MASKED_KERNEL)}
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def kernel_name(base: str, dtype: torch.dtype) -> str:
+    """The launch counter of ``base`` (a forward mode's or
+    ``BWD_KERNEL``) at ``dtype``: fp16 launches count apart, as
+    ``<base>_fp16``."""
+    return base + "_fp16" if dtype == torch.float16 else base
 
 
 # -- plain versions -----------------------------------------------------------
@@ -144,7 +153,7 @@ def _fwd_cuda(x: torch.Tensor, mask: Optional[torch.Tensor], scale: float,
     if err:
         raise RuntimeError(f"{counter}: CUDA error {err} at launch: "
                            f"{lib.apex_softmax_error_string(err).decode()}")
-    _build.count_launch(counter)
+    _build.count_launch(kernel_name(counter, x.dtype))
     return y
 
 
@@ -172,7 +181,7 @@ def _bwd_cuda(y: torch.Tensor, g: torch.Tensor, scale: float
     if err:
         raise RuntimeError(f"{BWD_KERNEL}: CUDA error {err} at launch: "
                            f"{lib.apex_softmax_error_string(err).decode()}")
-    _build.count_launch(BWD_KERNEL)
+    _build.count_launch(kernel_name(BWD_KERNEL, y.dtype))
     return dx
 
 

@@ -1,0 +1,5 @@
+"""Probes of the card for the port's kernels: ``kprobe`` (the optimizer
+engine's bandwidth ladder, counterpart of ``tools/tpu_kprobe.py``) and
+``launch_probe`` (the launch shapes sm_90 takes, counterpart of
+``tools/mosaic_probe.py``). Run each with ``python -m`` on a CUDA
+device."""

@@ -248,7 +248,37 @@ Phases, in order; any failure exits non-zero before the last line:
    and dq, dk, dv against the unchunked kernel within ZZ_OUT_REL_TOL and
    ZZ_GRAD_REL_TOL, the kernel tiles the position bounds skipped, and the
    time against the unchunked call.
-14. Each phase's wall seconds, the ``kernels`` JSON line (all thirty-five
+14. The fp32 and fp16 kernels, any head width, strided RoPE tables,
+   fixed-order leaf sums and the probes. (a) The flash forward, dq and
+   dk/dv kernels in fp32 and fp16 against their plain versions at GPT-2
+   345M's training shape (b 8, h 16, s 1024, d 64, causal), the serving
+   prefill and decode shapes, once with a key-padding bias at the
+   multi-head attention shape, once with the positions of a past 1024-token
+   zig-zag sub-tile and once with dropout 0.1 (FLASH32_REL_TOL and
+   FLASH16_REL_TOL); head_dim 96 in bf16; LayerNorm forward and backward
+   in fp16 at (8192, 1024); the four softmax kernels in fp16 at rows
+   10-13's shapes; RoPE at Llama-2-7B's sbhd with a table per batch row
+   (bitwise); the leaf-sum kernel at GPT-2 345M's 292 leaves (bitwise, two
+   runs bitwise). Each with its device ms, bound, plain ms and the library
+   call at the same dtype. (b) GPT-2 345M at the example's dtype, fp32
+   (flash, FusedAdam, 8 x 1024, FP32_STEPS steps; ``allow_tf32`` False,
+   PyTorch's default): every fp32 flash kernel exactly 24 times a step,
+   losses finite and falling, step time, tokens/s, peak memory, a
+   profiled step; batch 2 against the plain path. (c) GPT-2 345M at
+   ``dtype=float16`` under the dynamic loss scaler, FP16_STEPS steps on
+   each attention backend (the fp16 flash kernels, or the fp16 causal
+   softmax and its backward, 24 a step; LayerNorm fp16 49), the scale and
+   the skipped steps, batch 2 against the plain path; and
+   ``FusedScaleMaskSoftmax`` in fp16 with a mask and without (the masked
+   and scaled forwards, which no fp16 model path calls). (d) Phase 13b's
+   three multi-head attention stacks at their fp32 default and at fp16,
+   ``impl="fast"`` against ``"default"``, exact launches. (e) The kprobe
+   ladder at 64 M fp32 (``apex_tpu_torch/tools/kprobe.py``: every kernel
+   rung bitwise its plain version, the found flag 0 and then 1 on an
+   injected inf, each rung's GB/s against 3.35 TB/s) and the launch probe
+   (``apex_tpu_torch/tools/launch_probe.py``: every case inside sm_90's
+   limits PASSes, every case outside FAILs).
+15. Each phase's wall seconds, the ``kernels`` JSON line (all fifty-six
    kernels and variants, each with its launches on its path), then the
    device line the caller reads.
 
@@ -322,6 +352,7 @@ from apex_tpu_torch.optimizers import (
 )
 from apex_tpu_torch.parallel import LARC
 from apex_tpu_torch.transformer import context_parallel
+from apex_tpu_torch.tools import kprobe, launch_probe
 from apex_tpu_torch.serving import (
     ContinuousBatcher,
     DecodeStep,
@@ -438,13 +469,15 @@ NOVOGRAD_STEPS, ADAGRAD_STEPS = 10, 3
 ADAGRAD_LR = 1e-3
 CLIP_NORM = 1.0
 # a full NovoGrad update, kernels against plain versions: the per-leaf
-# norms are fp32 sums in other orders, the largest leaf (the embedding,
-# 51.5 M elements) summing 25,152 subtile partials through atomics in no
-# fixed order (an H100 read 3.2e-6 relative on v'), as SUMSQ_REL_TOL. v'
-# within this share of itself, m' within this share of its terms (|b1 m|
-# + |m'| + |wd p|) plus one ulp, p' within lr / bc1 times that plus one
-# ulp of the larger of |p| and |p'|
-NOVOGRAD_TOL = 1e-5
+# sums of the subtile partials are taken in one fixed order on both sides
+# (the leaf_sum kernel and its plain version, bitwise; before, atomics
+# added the embedding's 25,152 partials in any order and an H100 read
+# 3.2e-6 relative on v'); the partials themselves are fp32 sums of 2,048
+# squares in another order (~1e-7 relative). v' within this share of
+# itself, m' within this share of its terms (|b1 m| + |m'| + |wd p|) plus
+# one ulp, p' within lr / bc1 times that plus one ulp of the larger of |p|
+# and |p'|
+NOVOGRAD_TOL = 1e-6
 
 PROMPT_LENS = (700, 32, 411, 96, 256, 530, 64, 180)
 MAX_NEW = 32
@@ -1675,11 +1708,19 @@ def novograd_case(dev) -> dict:
               step=2)
     outs = [mt_ops.fused_novograd_update(p.clone(), m.clone(), v.clone(), g,
                                          space, plain=plain, **kw)
-            for plain in (False, True)]
+            for plain in (False, True, False)]
     torch.cuda.synchronize()
-    excess = novograd_excess(p, m, *outs, lr_bc1=NOVOGRAD_LR, b1=b1,
+    excess = novograd_excess(p, m, *outs[:2], lr_bc1=NOVOGRAD_LR, b1=b1,
                              wd=NOVOGRAD_WD)
-    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs[:2]))
+    # the per-leaf sums in their fixed order: two runs give the same bits
+    replay = _bitwise(outs[0][:3], outs[2][:3])
+    sums = mt_ops.per_tensor_l2norm(g, space)
+    sums_plain = mt_ops.per_tensor_l2norm(g, space, plain=True)
+    leaf_bits = _bitwise([engine.leaf_sums(
+        engine.fused_sumsq_partials(g, engine.PER_TENSOR_TILE_ROWS),
+        space)], [engine.leaf_sums(engine.fused_sumsq_partials(
+            g, engine.PER_TENSOR_TILE_ROWS), space, plain=True)])
     del outs
     bad = g.clone()
     bad[12345] = float("inf")
@@ -1693,8 +1734,12 @@ def novograd_case(dev) -> dict:
           f"the denominators bitwise {flags}; whole update max_abs_err="
           f"{err:.3e}, v' rel {excess['v_rel']:.3e}, excess over the "
           f"tolerance ({NOVOGRAD_TOL}): m' {excess['m']:.3e}, p' "
-          f"{excess['p']:.3e} (<= 0 passes); found_inf={found} "
-          f"state_untouched={untouched}")
+          f"{excess['p']:.3e} (<= 0 passes); two runs bitwise {replay}; "
+          f"per-leaf sums kernel vs plain bitwise {leaf_bits} (norms "
+          f"max rel {float(((sums - sums_plain) / sums_plain).abs().max()):.3e}"
+          f"); found_inf={found} state_untouched={untouched}")
+    check(replay and leaf_bits, "the NovoGrad per-leaf sums are not in a "
+          "fixed order")
     check(all(flags.values()), "fused_novograd kernel is not bitwise equal "
           "to its plain version")
     check(excess["ok"], "the NovoGrad update through the kernels disagrees "
@@ -1724,7 +1769,8 @@ def novograd_case(dev) -> dict:
             "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "host_ms": h_ms, "update_ms": full_ms,
             "update_plain_ms": full_plain_ms, "update_bound_ms": fb_ms,
-            "excess": excess, "bitwise": flags,
+            "excess": excess, "bitwise": flags, "replay_bitwise": replay,
+            "leaf_sums_bitwise": leaf_bits,
             "shape": f"n={n} fp32, {space.num_leaves} leaves (GPT-2 345M "
                      "flat buffers)"}
 
@@ -1768,17 +1814,23 @@ def _library_ms(name, fn):
 
 def softmax_fwd_case(name, x, mask, mode, lib, bound_bytes) -> dict:
     """One forward kernel of ``csrc/softmax.cu`` against its plain version
-    on the same inputs: within one bf16 ulp elementwise."""
+    on the same inputs: within one ulp of x's dtype elementwise (bf16
+    SOFTMAX_FWD_TOL, fp16 FP16_ULP)."""
+    fp16 = x.dtype == torch.float16
+    tol = FP16_ULP if fp16 else SOFTMAX_FWD_TOL
+    # fp16's subnormals (below 2^-14) are 2^-24 apart: one of them is an
+    # ulp there, however small the value
+    floor = FP16_SUBNORMAL_ULP if fp16 else 0.0
     y = softmax._fwd_cuda(x, mask, 1.0, mode)
     want = softmax._fwd_torch(x, mask, 1.0, mode)
     torch.cuda.synchronize()
     err = float((y.float() - want.float()).abs().max())
-    excess = _ulp_excess(y, want, SOFTMAX_FWD_TOL)
+    excess = _ulp_excess(y, want, tol)
     check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
     print(f"  {name} {tuple(x.shape)} {str(x.dtype)[6:]}: max_abs_err="
-          f"{err:.3e} max(|diff| - 2^-7 max(|y|, |y_plain|))={excess:.3e} "
-          f"(tol 0)")
-    check(excess <= 0.0, f"{name} kernel disagrees with its plain version")
+          f"{err:.3e} max(|diff| - {tol} max(|y|, |y_plain|))={excess:.3e} "
+          f"(tol {floor})")
+    check(excess <= floor, f"{name} kernel disagrees with its plain version")
     kernel = lambda: softmax._fwd_cuda(x, mask, 1.0, mode)  # noqa: E731
     ms, h_ms = device_ms(kernel), host_ms(kernel)
     plain_ms = device_ms(lambda: softmax._fwd_torch(x, mask, 1.0, mode),
@@ -1792,14 +1844,16 @@ def softmax_fwd_case(name, x, mask, mode, lib, bound_bytes) -> dict:
     return {"max_abs_err": err, "ulp_excess": excess, "ms": ms,
             "host_ms": h_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": by,
-            "shape": f"{tuple(x.shape)} bf16"
+            "shape": f"{tuple(x.shape)} {str(x.dtype)[6:]}"
                      + ("" if mask is None else
                         f", mask {tuple(mask.shape)} bool")}
 
 
 def softmax_bwd_case(name, y, g) -> dict:
     """The shared backward against its plain version, relative to each
-    row's largest |dx|."""
+    row's largest |dx| (bf16 SOFTMAX_BWD_TOL, fp16 FP16_ROW_TOL)."""
+    tol = FP16_ROW_TOL if y.dtype == torch.float16 else SOFTMAX_BWD_TOL
+    kname = softmax.kernel_name(softmax.BWD_KERNEL, y.dtype)
     dx = softmax._bwd_cuda(y, g, 1.0)
     want = softmax._bwd_torch(y, g, 1.0)
     torch.cuda.synchronize()
@@ -1808,17 +1862,15 @@ def softmax_bwd_case(name, y, g) -> dict:
     rel = float((diff / row).max())
     err = float(diff.max())
     check(bool(torch.isfinite(dx).all()), f"{name}: non-finite dx")
-    print(f"  {softmax.BWD_KERNEL}[{name}] {tuple(y.shape)}: max_abs_err="
-          f"{err:.3e} max |diff| / row max |dx| = {rel:.3e} (tol "
-          f"{SOFTMAX_BWD_TOL})")
-    check(rel <= SOFTMAX_BWD_TOL,
-          f"{softmax.BWD_KERNEL}[{name}] kernel disagrees with its plain "
-          "version")
+    print(f"  {kname}[{name}] {tuple(y.shape)}: max_abs_err="
+          f"{err:.3e} max |diff| / row max |dx| = {rel:.3e} (tol {tol})")
+    check(rel <= tol,
+          f"{kname}[{name}] kernel disagrees with its plain version")
     kernel = lambda: softmax._bwd_cuda(y, g, 1.0)  # noqa: E731
     ms, h_ms = device_ms(kernel), host_ms(kernel)
     plain_ms = device_ms(lambda: softmax._bwd_torch(y, g, 1.0), iters=3,
                          replays=2)
-    lib_ms = _library_ms(softmax.BWD_KERNEL, lambda: (
+    lib_ms = _library_ms(kname, lambda: (
         torch._softmax_backward_data(g, y, -1, y.dtype)))
     # y and g read, dx written; per element: product, sum, subtract, two
     # products
@@ -1829,31 +1881,32 @@ def softmax_bwd_case(name, y, g) -> dict:
     return {"case": name, "max_abs_err": err, "row_rel_err": rel, "ms": ms,
             "host_ms": h_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": b_ms, "bound_by": by,
-            "shape": f"{tuple(y.shape)} bf16"}
+            "shape": f"{tuple(y.shape)} {str(y.dtype)[6:]}"}
 
 
-def softmax_cases(gen, dev) -> list:
+def softmax_cases(gen, dev, dtype=torch.bfloat16) -> list:
     """#10-#13 at their path shapes: BERT-Large's scores (8, 16, 512, 512)
     with its padded outer-product mask (mask batch 8, and broadcast from
     1) for the masked and the scaled forward, GPT-2 345M's (8 * 16,
     1024, 1024) for the causal one, and the backward at both."""
     rnd = lambda *shape: (3 * torch.randn(*shape, generator=gen)).to(  # noqa
-        dev, torch.bfloat16)
+        dev, dtype)
+    kn = lambda base: softmax.kernel_name(base, dtype)  # noqa: E731
     x = rnd(*BERT_SCORES)
     mask = bert_extended_attention_mask(bert_keep(dev))   # (b, 1, s, s)
     full = mask.expand(*BERT_SCORES).contiguous()         # for the library
     rows = {}
-    masked = [softmax_fwd_case(softmax.MASKED_KERNEL, x, mask, "masked",
+    masked = [softmax_fwd_case(kn(softmax.MASKED_KERNEL), x, mask, "masked",
                                lambda: torch._masked_softmax(x, full, 3, 2),
                                nbytes(x, x, mask))]
     one = mask[7:8]                          # the 200-token sequence's
     masked.append(softmax_fwd_case(
-        softmax.MASKED_KERNEL + "[mask batch 1]", x, one, "masked",
+        kn(softmax.MASKED_KERNEL) + "[mask batch 1]", x, one, "masked",
         lambda: torch._masked_softmax(x, one.expand(*BERT_SCORES), 3, 2),
         nbytes(x, x, one)))
     rows["masked"] = masked
     rows["scaled"] = [softmax_fwd_case(
-        softmax.SCALED_KERNEL, x, None, "scaled",
+        kn(softmax.SCALED_KERNEL), x, None, "scaled",
         lambda: torch.softmax(x, -1), nbytes(x, x))]
     y_bert = softmax._fwd_cuda(x, mask, 1.0, "masked")
     g_bert = rnd(*BERT_SCORES).div_(3)
@@ -1863,7 +1916,7 @@ def softmax_cases(gen, dev) -> list:
     live = a * sq * (sq + 1) // 2            # the lower triangle (sq == sk)
     upper = torch.triu(torch.ones(sq, sk, dtype=torch.bool, device=dev), 1)
     rows["causal"] = [softmax_fwd_case(
-        softmax.CAUSAL_KERNEL, xc, None, "causal",
+        kn(softmax.CAUSAL_KERNEL), xc, None, "causal",
         lambda: torch._masked_softmax(xc.view(a // 16, 16, sq, sk), upper,
                                       3, 0),
         2 * live + nbytes(xc))]
@@ -1880,7 +1933,7 @@ def softmax_cases(gen, dev) -> list:
                             ("bwd", softmax.BWD_KERNEL, 71)):
         cases = rows[key]
         top = {k_: v_ for k_, v_ in cases[0].items() if k_ != "case"}
-        out.append({"name": name, "route": "cuda",
+        out.append({"name": kn(name), "route": "cuda",
                     "source": "apex_tpu_torch/csrc/softmax.cu",
                     "replaces": f"apex_tpu/ops/softmax.py:{line}", **top,
                     "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -1891,13 +1944,14 @@ def softmax_cases(gen, dev) -> list:
 # -- phase 4: training at full width --------------------------------------------
 
 
-def _grads(step, model, fwd, x, y):
-    """The loss and the flat gradient of one forward through ``fwd``."""
+def _grads(step, model, fwd, x, y, loss_scale=1.0):
+    """The loss and the flat gradient of one forward through ``fwd``
+    (of the loss times ``loss_scale``, divided by it again)."""
     step._grad.zero_()
     loss = gpt_loss_fn(fwd(x), y)
-    loss.backward()
+    (loss.float() * loss_scale).backward()
     torch.cuda.synchronize()
-    return float(loss.detach()), step._grad.clone()
+    return float(loss.detach()), step._grad.clone() / loss_scale
 
 
 def train(seed: int, dev, card: str) -> dict:
@@ -2600,7 +2654,8 @@ def train_resnet(seed: int, dev, card: str) -> dict:
 
 # -- phase 9: GPT-2 345M with FusedNovoGrad + clip, FusedAdagrad + scaler ----
 
-NOVOGRAD_KEYS = ("sumsq_kernel", "scale_kernel", "novograd_kernel")
+NOVOGRAD_KEYS = ("sumsq_kernel", "scale_kernel", "novograd_kernel",
+                 "leaf_sum_kernel")
 ADAGRAD_KEYS = ("sumsq_kernel", "adagrad_kernel")
 GPT_PATH = (layer_norm.KERNEL, layer_norm.BWD_KERNEL, attention.KERNEL,
             attention.BWD_DQ_KERNEL, attention.BWD_DKV_KERNEL)
@@ -2682,7 +2737,8 @@ def train_novograd(seed: int, dev, card: str) -> dict:
     check(losses[-1] < losses[0], "the NovoGrad training loss did not fall")
     _check_launches("NovoGrad", launches,
                     {engine.SUMSQ_KERNEL: 2, mt_ops.SCALE_KERNEL: 1,
-                     mt_ops.NOVOGRAD_KERNEL: 1}, NOVOGRAD_STEPS)
+                     mt_ops.NOVOGRAD_KERNEL: 1, engine.LEAF_SUM_KERNEL: 1},
+                    NOVOGRAD_STEPS)
     (state, _), out["profile"] = _profiled(
         lambda: novo_step(state, x, y), "NovoGrad step",
         {"optimizer": NOVOGRAD_KEYS})
@@ -4816,12 +4872,14 @@ def _mha_stack(mod, x, mem, masks, keys):
     return h
 
 
-def _mha_fwd_bwd(mod, x, mem, masks, keys, x_grad=False):
+def _mha_fwd_bwd(mod, x, mem, masks, keys, x_grad=False, loss_scale=1.0):
+    """One forward and backward of the stack on ``sum(h^2) *
+    loss_scale``."""
     mod.zero_grad(set_to_none=True)
     x = x.detach().requires_grad_(x_grad)
     with torch.enable_grad():
         h = _mha_stack(mod, x, mem, masks, keys)
-        h.float().pow(2).sum().backward()
+        (h.float().pow(2).sum() * loss_scale).backward()
     return h.detach(), x.grad
 
 
@@ -4835,14 +4893,20 @@ MHA_KERNELS = (attention.KERNEL, attention.BWD_DQ_KERNEL,
                layer_norm.BWD_KERNEL)
 
 
-def mha_stacks(seed: int, dev, card: str) -> dict:
-    """Phase 13b: three 18-layer multi-head attention stacks at the perf
-    test's shape, ``impl="fast"`` (the flash kernels) against
-    ``"default"`` (the plain attention) on the same weights and keys."""
+def mha_stacks(seed: int, dev, card: str, dtype=torch.bfloat16) -> dict:
+    """Phase 13b (and 14d at fp32 and fp16): three 18-layer multi-head
+    attention stacks at the perf test's shape, ``impl="fast"`` (the flash
+    kernels) against ``"default"`` (the plain attention) on the same
+    weights and keys, in ``dtype``."""
     s, b, e = MHA_SEQ, MHA_SEQS, MHA_HIDDEN
+    dname = str(dtype)[6:]
+    out_tol, grad_tol = MHA_REL_TOLS[dtype]
+    ls = MHA_FP16_LOSS_SCALE if dtype == torch.float16 else 1.0
+    kernels = [attention.kernel_name(k_, dtype) for k_ in MHA_KERNELS[:3]] \
+        + [layer_norm.kernel_name(k_, dtype) for k_ in MHA_KERNELS[3:]]
     rng = np.random.RandomState(seed)
     x = torch.from_numpy(0.5 * rng.randn(s, b, e).astype(np.float32)).to(
-        dev, torch.bfloat16)
+        dev, dtype)
     lens = torch.from_numpy(rng.randint(MHA_LENS[0], MHA_LENS[1] + 1,
                                         size=b)).to(dev)
     pad = torch.where(torch.arange(s, device=dev)[None] >= lens[:, None],
@@ -4860,7 +4924,7 @@ def mha_stacks(seed: int, dev, card: str) -> dict:
     for sname, (cls, kw, masks) in stacks.items():
         mods = {impl: cls(e, MHA_HEADS, dropout=DROP_RATE, bias=True,
                           include_norm_add=True, impl=impl,
-                          dtype=torch.bfloat16, device=dev,
+                          dtype=dtype, device=dev,
                           generator=torch.Generator().manual_seed(seed), **kw)
                 for impl in ("fast", "default")}
         mem = x if cls is EncdecMultiheadAttn else None
@@ -4868,21 +4932,21 @@ def mha_stacks(seed: int, dev, card: str) -> dict:
         for impl, mod in mods.items():
             torch.cuda.synchronize()
             _build.reset_launch_counts()
-            _mha_fwd_bwd(mod, x, mem, masks, keys)
+            _mha_fwd_bwd(mod, x, mem, masks, keys, loss_scale=ls)
             torch.cuda.synchronize()
             launches[impl] = _build.launch_counts()
             want = MHA_LAYERS if impl == "fast" else 0
-            for kname in MHA_KERNELS:
+            for kname in kernels:
                 n = want if kname.startswith("flash") else MHA_LAYERS
                 check(launches[impl].get(kname, 0) == n,
                       f"MHA {sname} {impl}: {kname} launched "
                       f"{launches[impl].get(kname, 0)} times, not {n}")
             for _ in range(MHA_WARMUP):
-                _mha_fwd_bwd(mod, x, mem, masks, keys)
+                _mha_fwd_bwd(mod, x, mem, masks, keys, loss_scale=ls)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(MHA_TRIALS):
-                _mha_fwd_bwd(mod, x, mem, masks, keys)
+                _mha_fwd_bwd(mod, x, mem, masks, keys, loss_scale=ls)
             torch.cuda.synchronize()
             per_layer[impl] = ((time.perf_counter() - t0) * 1e3
                                / MHA_TRIALS / MHA_LAYERS)
@@ -4894,7 +4958,7 @@ def mha_stacks(seed: int, dev, card: str) -> dict:
         outs = {}
         for impl, mod in mods.items():
             h, gx = _mha_fwd_bwd(mod, xs, None if mem is None else xs, ms_,
-                                 keys, x_grad=True)
+                                 keys, x_grad=True, loss_scale=ls)
             outs[impl] = (h, gx, {n_: p.grad.clone()
                                   for n_, p in mod.named_parameters()})
         (h, gx, gp), (ph, pgx, pgp) = outs["fast"], outs["default"]
@@ -4904,28 +4968,28 @@ def mha_stacks(seed: int, dev, card: str) -> dict:
         worst = max(grad_errs.items(), key=lambda kv: kv[1])
         finite = bool(torch.isfinite(h.float()).all())
         print(f"  MHA {sname} ({MHA_LAYERS} layers, {b} x {s} tokens, "
-              f"hidden {e}, {MHA_HEADS} heads, dropout {DROP_RATE}, bf16): "
+              f"hidden {e}, {MHA_HEADS} heads, dropout {DROP_RATE}, "
+              f"{dname}): "
               f"fwd+bwd ms per layer fast {per_layer['fast']:.4f} default "
               f"{per_layer['default']:.4f} "
               f"({per_layer['default'] / per_layer['fast']:.2f}x) on {card}")
         print(f"    launches in one fwd+bwd: fast "
-              f"{ {k_: launches['fast'].get(k_, 0) for k_ in MHA_KERNELS} } "
+              f"{ {k_: launches['fast'].get(k_, 0) for k_ in kernels} } "
               f"default "
-              f"{ {k_: launches['default'].get(k_, 0) for k_ in MHA_KERNELS} }")
+              f"{ {k_: launches['default'].get(k_, 0) for k_ in kernels} }")
         print(f"    {MHA_CHECK_SEQS} sequences, fast vs default: output "
-              f"relative L2 {out_err:.3e} (tol {MHA_OUT_REL_TOL}), worst "
-              f"gradient {worst[1]:.3e} in {worst[0]} (tol "
-              f"{MHA_GRAD_REL_TOL})")
-        check(finite, f"MHA {sname}: non-finite output")
-        check(out_err <= MHA_OUT_REL_TOL,
-              f"MHA {sname}: output through the kernels disagrees")
-        check(worst[1] <= MHA_GRAD_REL_TOL,
-              f"MHA {sname}: gradients through the kernels disagree")
+              f"relative L2 {out_err:.3e} (tol {out_tol}), worst "
+              f"gradient {worst[1]:.3e} in {worst[0]} (tol {grad_tol})")
+        check(finite, f"MHA {sname} {dname}: non-finite output")
+        check(out_err <= out_tol,
+              f"MHA {sname} {dname}: output through the kernels disagrees")
+        check(worst[1] <= grad_tol,
+              f"MHA {sname} {dname}: gradients through the kernels disagree")
         res[sname] = {"ms_per_layer": per_layer, "launches": launches["fast"],
                       "launches_default": launches["default"],
                       "steps": 1, "out_rel_l2": out_err,
                       "grad_rel_l2": grad_errs}
-        if sname == "self_key_padding":
+        if sname == "self_key_padding" and dtype == torch.bfloat16:
             _, res["profile"] = _profiled(
                 lambda: _mha_fwd_bwd(mods["fast"], x, mem, masks, keys),
                 f"MHA {sname} fwd+bwd (fast)",
@@ -5182,6 +5246,658 @@ def zigzag_chunked(seed: int, dev, card: str) -> dict:
                                           "bwd": bwd_bound}}
 
 
+# -- phase 14: fp32 and fp16 kernels, any head width, strided RoPE tables,
+# -- fixed-order leaf sums and the probes ------------------------------------
+
+# fp32 flash against the plain fp32 version, relative to each output's
+# (each gradient's) largest |value|: the kernels' products are exact (three
+# bf16 parts a value, six products), only the fp32 sums run in another
+# order (and the forward's online softmax rescales its partial sums), so
+# an output row errs by a few ulps of its terms, |v|, not of its own mean,
+# which over 1024 keys can be ten times smaller (an H100 read 1.4e-5 of a
+# row's largest |value| at the training shape, 1.1e-6 to 4.3e-6 of the
+# tensor's on small cases)
+FLASH32_REL_TOL = 1e-5
+# fp16: two fp16 ulps (the kernel rounds P to fp16 before P.V, the plain
+# forward does not; both round dS); an H100 read 9.7e-4 on outputs
+FLASH16_REL_TOL = 2.0 ** -9
+FP16_ULP = 2.0 ** -10        # one fp16 ulp of the value (LayerNorm, softmax)
+FP16_SUBNORMAL_ULP = 2.0 ** -24   # the ulp of fp16's subnormals
+FP16_ABS = 2.0 ** -14        # near zero, as LN_ABS_TOL is for bf16
+FP16_ROW_TOL = 2.0 ** -9     # two fp16 ulps of a row's largest |dx|
+FLASH_DTYPE_TOLS = {torch.float32: FLASH32_REL_TOL,
+                    torch.float16: FLASH16_REL_TOL,
+                    torch.bfloat16: FLASH_OUT_REL_TOL}
+# the example's own dtype: GPT-2 345M in fp32 (pretrain_gpt.py without
+# --bf16), and amp's fp16 under the dynamic loss scaler
+FP32_STEPS, FP16_STEPS = 10, 5
+# fp32 through 24 layers, kernels against plain versions at batch 2: every
+# product exact on both sides, fp32 sums in other orders (flash, LayerNorm).
+# An H100 read a loss 9.5e-7 apart (one fp32 ulp of ~9.2) and gradients at
+# most 1.2e-6 apart in relative L2; about 10x and 8x that is held
+TRAIN32_LOSS_TOL = 1e-5
+TRAIN32_GRAD_REL_TOL = 1e-5
+# fp16 rounds 8x finer than bf16 (2^-11 against 2^-8); its gradients are
+# taken of the loss times the scaler's scale, as the fp16 path takes them
+# (unscaled, its small gradients flush to 0 and an H100 read 9.7e-2).
+# Under the scale an H100 read losses 1e-5 apart and gradients at most
+# 1.9e-3 apart in relative L2 (a LayerNorm weight); about 10x and 3x that
+# is held
+TRAIN16_LOSS_TOL, TRAIN16_GRAD_REL_TOL = 1e-4, 6e-3
+# the multi-head attention stacks at each dtype (relative L2, output and
+# gradients): bf16 as phase 13b; fp32 exact products, sums in other orders
+# (an H100 read at most 3.2e-7 on an output and 5.5e-7 on a gradient;
+# about 20x is held); fp16 (an H100 read 5.8e-4 and 8.0e-4; about 3x)
+# fp16's backward through 18 layers overflows at the loss sum(h^2) on both
+# paths (plain too: |dx| passes 65504); 2^-8, the scale a loss scaler would
+# settle on, keeps |dx| under 1,000
+MHA_FP16_LOSS_SCALE = 2.0 ** -8
+MHA_REL_TOLS = {torch.bfloat16: (MHA_OUT_REL_TOL, MHA_GRAD_REL_TOL),
+                torch.float32: (1e-5, 1e-5),
+                torch.float16: (2e-3, 2.5e-3)}
+KPROBE_N = 64_000_000        # the reference's --n (tools/tpu_kprobe.py:47)
+LN_TRAIN_ROWS = TRAIN_BATCH * 1024
+
+
+def _rate(dtype) -> float:
+    """The peak the flash kernels' operations are bounded by: the fp16 and
+    bf16 tensor cores, or, for the fp32 design (six bf16 products for each
+    fp32 one), the card's fp32 FMA rate."""
+    return PEAK_FP32_FLOPS if dtype == torch.float32 else \
+        PEAK_BF16_TENSOR_FLOPS
+
+
+def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
+                     causal=True, written=None, bias_shape=None,
+                     dropout=False, positions=None) -> dict:
+    """The flash forward, dq and dk/dv kernels at ``dtype`` against their
+    plain versions on one case: the output per row and each gradient
+    within FLASH_DTYPE_TOLS, then each kernel's device ms, its bound, the
+    plain version's ms and SDPA's (forward; backward by autograd) at the
+    same dtype. Returns ``{"fwd": row, "dq": row, "dkv": row}``."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, dtype)
+    q, k, v, do = rnd(b, h, sq, d), rnd(b, hk, sk, d), rnd(b, hk, sk, d), \
+        rnd(b, h, sq, d)
+    kw = {"causal": causal}
+    kv_seg = None
+    if written is not None:
+        L = sk - sq
+        ctx = torch.arange(L)[None, :] >= torch.tensor(written)[:, None]
+        kv_seg = torch.cat([ctx.int(), torch.zeros(b, sq, dtype=torch.int32)],
+                           dim=1).to(dev)
+        kw["kv_segment_ids"] = kv_seg
+    bias = None
+    if bias_shape is not None:
+        bias = torch.where(torch.rand(*bias_shape, generator=gen) < 0.25,
+                           -10000.0, 0.0).to(dev, dtype)
+        kw["bias"] = bias
+    if dropout:
+        kw.update(dropout_rate=DROP_RATE, dropout_rng=DROPOUT_KEY)
+    if positions is not None:
+        kw.update(q_positions=positions[0], kv_positions=positions[1])
+    scale, q_seg, k_seg, seed, q_pos, k_pos = attention._prepare(
+        q, k, v, bias, None, kw.get("kv_segment_ids"), causal, None, None,
+        DROP_RATE if dropout else 0.0, kw.get("dropout_rng"),
+        kw.get("q_positions"), kw.get("kv_positions"))
+    rate = DROP_RATE if dropout else 0.0
+    ex = dict(bias=bias, q_pos=q_pos, k_pos=k_pos)
+    fwd = lambda: attention._flash_cuda(  # noqa: E731
+        q, k, v, q_seg, k_seg, scale, causal, None, rate, seed, **ex)
+    out, lse = fwd()
+    pout, plse = attention._attention_torch(
+        q, k, v, bias, q_seg, k_seg, scale, causal, None, rate, seed,
+        return_lse=True, q_pos=q_pos, k_pos=k_pos)
+    delta = (out.float() * do.float()).sum(-1)
+    args = (q, k, v, lse, do, delta, q_seg, k_seg, scale, causal, None, rate,
+            seed)
+    grads = attention._flash_bwd_cuda(*args, **ex)
+    pgrads = attention._flash_bwd_torch(*args, **ex)
+    torch.cuda.synchronize()
+    tol = FLASH_DTYPE_TOLS[dtype]
+    # bf16 and fp16 per output row (their roundings are the row's); fp32
+    # against the output's largest |value| (FLASH32_REL_TOL)
+    row = (pout.float().abs().amax(dim=-1, keepdim=True)
+           if dtype != torch.float32 else pout.float().abs().max())
+    out_err = float(((out.float() - pout.float()).abs()
+                     / row.clamp_min(1e-6)).max())
+    lse_err = float((lse - plse).abs().max())
+    g_errs = {n_: float((a.float() - e.float()).abs().max()
+                        / e.float().abs().max().clamp_min(1e-6))
+              for n_, a, e in zip(("dq", "dk", "dv"), grads, pgrads)}
+    abs_errs = {"fwd": float((out.float() - pout.float()).abs().max()),
+                "dq": float((grads[0].float() - pgrads[0].float()).abs()
+                            .max()),
+                "dkv": max(float((a.float() - e.float()).abs().max())
+                           for a, e in zip(grads[1:], pgrads[1:]))}
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (out, *grads))
+    dname = str(dtype)[6:]
+    shape = (f"b={b} h={h} hk={hk} sq={sq} sk={sk} d={d} {dname} causal="
+             f"{causal}" + (" segments" if written is not None else "")
+             + (f" bias {tuple(bias_shape)}" if bias_shape else "")
+             + (f" dropout {DROP_RATE}" if dropout else "")
+             + (" positions" if positions is not None else ""))
+    print(f"  flash {dname}[{name}] {shape}: out rel_err={out_err:.3e} "
+          f"lse_err={lse_err:.3e} " + " ".join(
+              f"{n_}={e_:.3e}" for n_, e_ in g_errs.items())
+          + f" (tol {tol}, lse {FLASH_LSE_TOL})")
+    check(finite, f"flash {dname}[{name}]: non-finite output or gradient")
+    check(out_err <= tol and lse_err <= FLASH_LSE_TOL
+          and max(g_errs.values()) <= tol,
+          f"flash {dname}[{name}] kernels disagree with their plain versions")
+    del pout, plse, pgrads
+    plain_fwd = device_ms(lambda: attention._attention_torch(
+        q, k, v, bias, q_seg, k_seg, scale, causal, None, rate, seed,
+        return_lse=True, q_pos=q_pos, k_pos=k_pos), iters=2, replays=2)
+    plain_bwd = device_ms(lambda: attention._flash_bwd_torch(*args, **ex),
+                          iters=2, replays=2)
+    # the library's attention at the same dtype, forward and backward
+    live = _allowed(b, sq, sk, causal, kv_seg, dev)
+    if positions is not None:
+        live = (positions[1][None, None, :].long()
+                <= positions[0][None, :, None].long()).expand(b, sq, sk)
+    mask = None
+    if bias is not None:
+        mask = bias.expand(b, h, sq, sk)
+    elif written is not None or positions is not None or sq != sk:
+        mask = live[:, None]
+    sdpa_kw = dict(attn_mask=mask, dropout_p=rate, enable_gqa=hk != h,
+                   is_causal=causal and mask is None)
+    lib_fwd = _library_ms(f"SDPA {dname}", lambda: (
+        F.scaled_dot_product_attention(q, k, v, **sdpa_kw)))
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        lo = F.scaled_dot_product_attention(ql, kl, vl, **sdpa_kw)
+    lib_bwd = _library_ms(f"SDPA backward {dname}", lambda: (
+        torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True)))
+    del lo, ql, kl, vl
+    pairs = int(live.sum()) * h
+    rows = {}
+    for key, kname, kernel, n_prod, outs, pms, lms in (
+            ("fwd", attention.KERNEL, fwd, 2, (out, lse), plain_fwd,
+             lib_fwd),
+            ("dq", attention.BWD_DQ_KERNEL, lambda: attention._flash_bwd_cuda(
+                *args, kernels=(attention.BWD_DQ_KERNEL,), **ex), 3,
+             grads[:1], plain_bwd, lib_bwd),
+            ("dkv", attention.BWD_DKV_KERNEL,
+             lambda: attention._flash_bwd_cuda(
+                 *args, kernels=(attention.BWD_DKV_KERNEL,), **ex), 4,
+             grads[1:], plain_bwd, lib_bwd)):
+        ms = device_ms(kernel)
+        ins = (q, k, v) if key == "fwd" else (q, k, v, do, lse, delta)
+        b_ms, by = bound(nbytes(*ins, *outs, bias, kv_seg),
+                         2 * d * n_prod * pairs, _rate(dtype))
+        print(f"    {attention.kernel_name(kname, dtype)}: ms={ms:.5f} "
+              f"bound_ms={b_ms:.5f} ({by}) plain_ms={pms:.5f} "
+              f"library_ms={lms if lms is None else round(lms, 5)}"
+              + ("" if key == "fwd" else " (plain and library: both "
+                 "backward kernels' work)"))
+        rows[key] = {"case": name, "ms": ms, "bound_ms": b_ms,
+                     "bound_by": by, "plain_ms": pms, "library_ms": lms,
+                     "max_abs_err": abs_errs[key],
+                     "rel_err": out_err if key == "fwd" else max(
+                         g_errs[x_] for x_ in (("dq",) if key == "dq"
+                                               else ("dk", "dv"))),
+                     "shape": shape}
+    del out, lse, grads
+    return rows
+
+
+def flash_dtype_cases(gen, dev) -> tuple:
+    """Phase 14a's flash cases: fp32 and fp16 at GPT-2 345M's training
+    shape (b 8, h 16, s 1024, d 64, causal), at the serving prefill and
+    decode shapes, once with a key-padding bias at the multi-head attention
+    shape, once with the zig-zag positions of a past 1024-token sub-tile
+    and once with dropout 0.1; and head_dim 96 in bf16 (zero-padded to the
+    built 96). Returns (the six fp32 and fp16 rows, the bf16 d=96 case
+    for each bf16 row)."""
+    zz_q = torch.arange(7 * 1024, 8 * 1024, device=dev, dtype=torch.int32)
+    zz_k = torch.arange(3 * 1024, 4 * 1024, device=dev, dtype=torch.int32)
+    rows = []
+    for dtype in (torch.float32, torch.float16):
+        cases = [
+            flash_dtype_case("train", gen, dev, dtype, TRAIN_BATCH, 16, 16,
+                             1024, 1024, 64),
+            flash_dtype_case("prefill", gen, dev, dtype, 4, 16, 16, 512, 512,
+                             64),
+            flash_dtype_case("decode", gen, dev, dtype, 8, 16, 16, 1, 1025,
+                             64, causal=False,
+                             written=[1024, 700, 512, 300, 200, 100, 64, 32]),
+            flash_dtype_case("mha_bias", gen, dev, dtype, MHA_SEQS, 16, 16,
+                             MHA_SEQ, MHA_SEQ, 64, causal=False,
+                             bias_shape=(MHA_SEQS, 1, 1, MHA_SEQ)),
+            flash_dtype_case("positions_past", gen, dev, dtype, 1, 16, 16,
+                             1024, 1024, 64, positions=(zz_q, zz_k)),
+            flash_dtype_case("train_dropout", gen, dev, dtype, TRAIN_BATCH,
+                             16, 16, 1024, 1024, 64, dropout=True),
+        ]
+        torch.cuda.empty_cache()
+        dname = str(dtype)[6:]
+        for key, base, src, line in (
+                ("fwd", attention.KERNEL, "flash_fwd", 182),
+                ("dq", attention.BWD_DQ_KERNEL, "flash_bwd", 402),
+                ("dkv", attention.BWD_DKV_KERNEL, "flash_bwd", 470)):
+            crows = [c[key] for c in cases]
+            top = {k_: v_ for k_, v_ in crows[0].items() if k_ != "case"}
+            rows.append({"name": attention.kernel_name(base, dtype),
+                         "route": "cuda",
+                         "source": f"apex_tpu_torch/csrc/{src}_{dname}.cu"
+                         .replace("float32", "fp32").replace("float16",
+                                                             "fp16"),
+                         "replaces": f"apex_tpu/ops/attention.py:{line}",
+                         **top, "max_abs_err": max(
+                             c_["max_abs_err"] for c_ in crows),
+                         "cases": crows})
+    d96 = flash_dtype_case("head_dim_96", gen, dev, torch.bfloat16, 4, 16,
+                           16, 1024, 1024, 96)
+    return rows, d96
+
+
+def ln_fp16_cases(gen, dev) -> list:
+    """LayerNorm #1 and #3 in fp16 at the training rows (8192, 1024): the
+    output within one fp16 ulp (plus FP16_ABS near zero), the statistics
+    within LN_STAT_TOL, dx as the output, dw and db within LN_PARAM_TOL."""
+    rows, h = LN_TRAIN_ROWS, 1024
+    x = torch.randn(rows, h, generator=gen).mul_(2).add_(0.5).to(
+        dev, torch.float16)
+    g = torch.randn(rows, h, generator=gen).to(dev, torch.float16)
+    w = (1 + 0.1 * torch.randn(h, generator=gen)).to(dev)
+    b = (0.1 * torch.randn(h, generator=gen)).to(dev)
+    y, mean, rstd = layer_norm._fwd_cuda(x, w, b, 1e-5, False)
+    py, pmean, prstd = layer_norm._fwd_torch(x, w, b, 1e-5, False)
+    dx, dw, db = layer_norm._bwd_cuda(x, w, mean, rstd, g, False)
+    pdx, pdw, pdb = layer_norm._bwd_torch(x, w, mean, rstd, g, False)
+    torch.cuda.synchronize()
+
+    def excess(a, e):
+        return float(((a.float() - e.float()).abs()
+                      - FP16_ULP * e.float().abs()).max())
+    y_ex, dx_ex = excess(y, py), excess(dx, pdx)
+    stat = max(float((mean - pmean).abs().max()),
+               float(((rstd - prstd) / prstd).abs().max()))
+    p_err = max(float((a - e).abs().max()) / float(e.abs().max())
+                for a, e in ((dw, pdw), (db, pdb)))
+    print(f"  layer_norm fp16 rows={rows} h={h}: y excess over one fp16 ulp "
+          f"{y_ex:.3e}, dx {dx_ex:.3e} (tol {FP16_ABS}); stat_err="
+          f"{stat:.3e} (tol {LN_STAT_TOL}); dw/db rel_err={p_err:.3e} (tol "
+          f"{LN_PARAM_TOL})")
+    check(y_ex <= FP16_ABS and stat <= LN_STAT_TOL,
+          "layer_norm_fwd fp16 kernel disagrees with its plain version")
+    check(dx_ex <= FP16_ABS and p_err <= LN_PARAM_TOL,
+          "layer_norm_bwd fp16 kernel disagrees with its plain version")
+    wl, bl = w.half(), b.half()
+    _, lmean, lrstd = torch.native_layer_norm(x, (h,), wl, bl, 1e-5)
+    out = []
+    for base, kernel, plain, lib, ins, outs, ops, line in (
+            (layer_norm.KERNEL,
+             lambda: layer_norm._fwd_cuda(x, w, b, 1e-5, False),
+             lambda: layer_norm._fwd_torch(x, w, b, 1e-5, False),
+             lambda: F.layer_norm(x, (h,), wl, bl, 1e-5), (x, w, b),
+             (y, mean, rstd), 8, 45),
+            (layer_norm.BWD_KERNEL,
+             lambda: layer_norm._bwd_cuda(x, w, mean, rstd, g, False),
+             lambda: layer_norm._bwd_torch(x, w, mean, rstd, g, False),
+             lambda: torch.ops.aten.native_layer_norm_backward(
+                 g, x, (h,), lmean, lrstd, wl, bl, [True, True, True]),
+             (x, g, w, mean, rstd), (dx, dw, db), 13, 67)):
+        ms = device_ms(kernel)
+        plain_ms = device_ms(plain, iters=5)
+        lib_ms = device_ms(lib)
+        b_ms, by = bound(nbytes(*ins, *outs), ops * rows * h,
+                         PEAK_FP32_FLOPS)
+        name = layer_norm.kernel_name(base, torch.float16)
+        print(f"    {name}: ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms="
+              f"{lib_ms:.5f} bound_ms={b_ms:.5f} ({by})")
+        out.append({"name": name, "route": "cuda",
+                    "source": "apex_tpu_torch/csrc/layer_norm.cu",
+                    "replaces": f"apex_tpu/ops/layer_norm.py:{line}",
+                    "max_abs_err": float((y.float() - py.float()).abs().max())
+                    if base == layer_norm.KERNEL
+                    else float((dx.float() - pdx.float()).abs().max()),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": by, "library_ms": lib_ms,
+                    "shape": f"rows={rows} h={h} fp16 x, fp32 w/b"})
+    return out
+
+
+def rope_strided_case(dev) -> dict:
+    """#16 with tables that vary per batch (C 3): Llama-2-7B's sbhd in bf16
+    with a (s, b, 1, rot) cos and sin, read through their strides."""
+    s, b, h, d = LLAMA_SBHD
+    f = rope_freqs(s, d, dev)
+    # a per-sequence position offset: each batch row's own table
+    off = torch.arange(b, device=dev, dtype=torch.float32)[None, :, None,
+                                                           None] * 17.0
+    inv = f[1:2] if s > 1 else f
+    ang = f + off * inv
+    cgen = torch.Generator(device=dev).manual_seed(17)
+    t = torch.randn(LLAMA_SBHD, generator=cgen, device=dev).bfloat16()
+    return rope_case("llama2_7b_sbhd_per_batch_tables", t, torch.cos(ang),
+                     torch.sin(ang), None)
+
+
+def leaf_sum_case(dev) -> dict:
+    """The fixed-order per-leaf sum (C 4) at GPT-2 345M's 292 leaves:
+    bitwise its plain version, and two runs bitwise; ``index_add_`` (the
+    atomics it replaces) as the library yardstick."""
+    space = FlatSpace.create(gpt_leaves(GPTConfig.gpt2_345m()))
+    n_sub = space.total // engine.DEFAULT_ALIGN
+    x = _seeded(n_sub, dev, 71, 1.0, positive=True)
+    a = engine.leaf_sums(x, space)
+    b = engine.leaf_sums(x, space)
+    p = engine.leaf_sums(x, space, plain=True)
+    torch.cuda.synchronize()
+    ok = _same_bits(a, p) and _same_bits(a, b)
+    ids = space.device_subtile_leaf_ids(dev).long()
+    lib = torch.zeros(space.num_leaves, device=dev).index_add_(0, ids,
+                                                               x[:len(ids)])
+    lib_rel = float(((lib - p) / p.abs().clamp_min(1e-30)).abs().max())
+    runs = engine.leaf_runs(space)
+    longest = int((runs[:, 1] - runs[:, 0]).max())
+    print(f"  leaf_sum {n_sub} partials in {space.num_leaves} leaves "
+          f"(the longest run {longest}): kernel vs plain and two runs "
+          f"bitwise {ok}; index_add_ (atomics) max rel {lib_rel:.3e}")
+    check(ok, "leaf_sum kernel is not bitwise its plain version")
+    ms = device_ms(lambda: engine.leaf_sums(x, space))
+    # the plain version reads its longest run on the host: CUDA events
+    plain_ms = host_ms(lambda: engine.leaf_sums(x, space, plain=True),
+                       iters=3, warmup=1)
+    out = torch.zeros(space.num_leaves, device=dev)
+    lib_ms = device_ms(lambda: out.zero_().index_add_(0, ids, x[:len(ids)]))
+    b_ms, by = bound(nbytes(x, a) + 8 * space.num_leaves, n_sub,
+                     PEAK_FP32_FLOPS)
+    print(f"    ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
+          f"bound_ms={b_ms:.5f} ({by})")
+    return {"name": engine.LEAF_SUM_KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/sumsq.cu",
+            "replaces": "apex_tpu/multi_tensor/engine.py:519",
+            "max_abs_err": float((a - p).abs().max()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms, "index_add_rel_err": lib_rel,
+            "shape": f"{n_sub} fp32 partials, {space.num_leaves} leaves "
+                     "(GPT-2 345M)"}
+
+
+def dtype_kernel_cases(seed: int, dev) -> dict:
+    """Phase 14a: every new dtype case of the kernels against its plain
+    version, with its times."""
+    gen = torch.Generator().manual_seed(seed + 14)
+    with torch.no_grad():
+        flash, d96 = flash_dtype_cases(gen, dev)
+        torch.cuda.empty_cache()
+        ln = ln_fp16_cases(gen, dev)
+        torch.cuda.empty_cache()
+        sm = softmax_cases(gen, dev, torch.float16)
+        torch.cuda.empty_cache()
+        rp = rope_strided_case(dev)
+        torch.cuda.empty_cache()
+        ls = leaf_sum_case(dev)
+        torch.cuda.empty_cache()
+    return {"rows": flash + ln + sm + [ls], "d96": d96, "rope": rp}
+
+
+def _flash_names(dtype):
+    return tuple(attention.kernel_name(k_, dtype) for k_ in (
+        attention.KERNEL, attention.BWD_DQ_KERNEL, attention.BWD_DKV_KERNEL))
+
+
+def _ln_names(dtype):
+    return tuple(layer_norm.kernel_name(k_, dtype)
+                 for k_ in (layer_norm.KERNEL, layer_norm.BWD_KERNEL))
+
+
+def _worst_grad(space, gk, gp):
+    plain = space.unpack(gp, "buffer")
+    return max((float((a - plain[n_]).norm()
+                      / plain[n_].norm().clamp_min(1e-30)), n_)
+               for n_, a in space.unpack(gk, "buffer").items())
+
+
+def train_fp32(seed: int, dev, card: str) -> dict:
+    """Phase 14b: GPT-2 345M at the example's own dtype, fp32 (flash
+    backend, FusedAdam, 8 x 1024 tokens, FP32_STEPS steps): every fp32
+    flash kernel exactly 24 times a step, losses finite and falling, step
+    time, tokens/s, peak memory, a profiled step's busy share; at batch 2
+    the loss and gradients against the plain path."""
+    cfg = GPTConfig.gpt2_345m(dtype=torch.float32)
+    t0 = time.perf_counter()
+    model = init_gpt_pretrain_params(
+        cfg, torch.Generator().manual_seed(seed), device=dev)
+    step, state = make_gpt_pretrain_step(
+        cfg, FusedAdam(lr=1e-4, weight_decay=0.01))(model)
+    x, y = _gpt_batch(seed, dev, cfg)
+    print(f"  GPT-2 345M fp32 (torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, PyTorch's default), "
+          f"set-up {time.perf_counter() - t0:.1f} s")
+    state, losses, times, launches = _train_loop(step, state, (x, y),
+                                                 FP32_STEPS)
+    out = _run_summary("GPT-2 fp32", losses, times, launches,
+                       torch.cuda.max_memory_allocated(), card, cfg)
+    check(losses[-1] < losses[0], "the fp32 training loss did not fall")
+    per_step = {k_: cfg.num_layers for k_ in _flash_names(torch.float32)}
+    per_step.update({k_: 2 * cfg.num_layers + 1
+                     for k_ in _ln_names(torch.float32)})
+    per_step[mt_ops.ADAM_KERNEL] = 1
+    _check_per_step("GPT-2 fp32", launches, per_step, FP32_STEPS)
+    for k_ in _flash_names(torch.bfloat16)[:1] + _flash_names(
+            torch.float16)[:1]:
+        check(launches.get(k_, 0) == 0, f"GPT-2 fp32: {k_} launched")
+    (state, _), out["profile"] = _profiled(
+        lambda: step(state, x, y), "GPT-2 fp32 step",
+        {"flash": ("flash_",), "optimizer": ("adam_kernel",),
+         "layer_norm": ("ln_",)})
+    x2, y2 = x[:2], y[:2]
+    loss_k, gk = _grads(step, model, model, x2, y2)
+    loss_p, gp = _grads(step, model, model.forward_plain, x2, y2)
+    worst = _worst_grad(state.space, gk, gp)
+    print(f"  batch 2, kernels vs plain: loss {loss_k:.7f} vs {loss_p:.7f} "
+          f"(|diff| {abs(loss_k - loss_p):.3e}, tol {TRAIN32_LOSS_TOL}); "
+          f"worst gradient relative L2 {worst[0]:.3e} in {worst[1]} (tol "
+          f"{TRAIN32_GRAD_REL_TOL})")
+    check(abs(loss_k - loss_p) <= TRAIN32_LOSS_TOL,
+          "fp32 loss: kernel path disagrees with the plain path")
+    check(worst[0] <= TRAIN32_GRAD_REL_TOL,
+          "fp32 gradients: kernel path disagrees with the plain path")
+    out.update({"batch2_loss": [loss_k, loss_p],
+                "batch2_grad_rel_err": {"max": worst[0], "param": worst[1]},
+                "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    return out
+
+
+def train_fp16(seed: int, dev, card: str, backend: str) -> dict:
+    """Phase 14c: GPT-2 345M at ``dtype=float16`` under the dynamic loss
+    scaler (``make_train_step(FusedAdam, scaler=LossScaler())`` through
+    ``PretrainStep``), FP16_STEPS steps on ``backend``: the fp16 flash
+    kernels (flash) or the fp16 causal softmax and its backward (softmax)
+    exactly 24 times a step, LayerNorm fp16 49; the scale and the skipped
+    steps; at batch 2 the loss and gradients against the plain path."""
+    cfg = GPTConfig.gpt2_345m(dtype=torch.float16, attention_backend=backend)
+    model = init_gpt_pretrain_params(
+        cfg, torch.Generator().manual_seed(seed), device=dev)
+    opt = FusedAdam(lr=1e-4, weight_decay=0.01)
+    tstep = make_train_step(opt, scaler=LossScaler())
+    step = PretrainStep(model, opt, train_step=tstep)
+    state, ss = step.init(), tstep.scaler.init()
+    x, y = _gpt_batch(seed, dev, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses, times, scales, skipped = [], [], [], []
+    for _ in range(FP16_STEPS):
+        t0 = time.perf_counter()
+        count = state.count
+        state, ss, loss = step(state, x, y, scaler_state=ss)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        scales.append(float(ss.loss_scale))
+        skipped.append(state.count == count)
+    launches = _build.launch_counts()
+    label = f"GPT-2 fp16 {backend}"
+    out = _run_summary(label, losses, times, launches,
+                       torch.cuda.max_memory_allocated(), card, cfg)
+    print(f"  {label}: loss scale after each step {scales}, skipped "
+          f"{sum(skipped)} of {FP16_STEPS} ({skipped})")
+    check(not all(skipped), f"{label}: every step skipped")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall")
+    per_step = {k_: 2 * cfg.num_layers + 1 for k_ in _ln_names(torch.float16)}
+    if backend == "flash":
+        per_step.update({k_: cfg.num_layers
+                         for k_ in _flash_names(torch.float16)})
+    else:
+        per_step.update({softmax.kernel_name(k_, torch.float16):
+                         cfg.num_layers for k_ in (softmax.CAUSAL_KERNEL,
+                                                   softmax.BWD_KERNEL)})
+        for k_ in _flash_names(torch.float16):
+            check(launches.get(k_, 0) == 0, f"{label}: {k_} launched")
+    _check_per_step(label, launches, per_step, FP16_STEPS)
+    x2, y2 = x[:2], y[:2]
+    step._bind(state)          # the model on the state's (new) master
+    # the gradients as the fp16 path takes them: of the loss times the
+    # scaler's scale (unscaled, fp16's small gradients flush to 0)
+    scale = float(ss.loss_scale)
+    loss_k, gk = _grads(step, step.model, step.model, x2, y2, scale)
+    loss_p, gp = _grads(step, step.model, step.model.forward_plain, x2, y2,
+                        scale)
+    worst = _worst_grad(state.space, gk, gp)
+    print(f"  batch 2, kernels vs plain: loss {loss_k:.5f} vs {loss_p:.5f} "
+          f"(tol {TRAIN16_LOSS_TOL}); worst gradient relative L2 "
+          f"{worst[0]:.3e} in {worst[1]} (tol {TRAIN16_GRAD_REL_TOL})")
+    check(abs(loss_k - loss_p) <= TRAIN16_LOSS_TOL,
+          f"{label} loss: kernel path disagrees with the plain path")
+    check(worst[0] <= TRAIN16_GRAD_REL_TOL,
+          f"{label} gradients: kernel path disagrees with the plain path")
+    out.update({"loss_scales": scales, "skipped": skipped,
+                "batch2_loss": [loss_k, loss_p],
+                "batch2_grad_rel_err": {"max": worst[0], "param": worst[1]}})
+    return out
+
+
+def probe_cases(dev) -> list:
+    """Phase 14e: the kprobe ladder at KPROBE_N (every kernel rung bitwise
+    its plain version, adam_found exactly 0 and then 1 on an injected inf)
+    and the launch probe (every case inside sm_90's limits PASSes, every
+    one outside FAILs). One row a kernel, with its launches on this run."""
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    recs = kprobe.ladder(KPROBE_N, device=dev, timer=device_ms)
+    k_launches = _build.launch_counts()
+    gb = KPROBE_N * 4 / 1e9
+    for rec in recs.values():
+        print(f"  kprobe {json.dumps(rec)}")
+        print(f"    {rec['what']}: {rec['gb_per_sec']:.1f} GB/s against "
+              f"{PEAK_BYTES_PER_S / 1e9:.0f} GB/s "
+              f"({100 * rec['gb_per_sec'] / (PEAK_BYTES_PER_S / 1e9):.1f}%)")
+    for rung in kprobe.KERNEL_RUNGS:
+        check(recs[rung]["bitwise"],
+              f"kprobe {rung} is not bitwise its plain version")
+    check(recs["adam_found"]["found_clean"] == 0.0
+          and recs["adam_found"]["found_inf"] == 1.0,
+          "kprobe adam_found: the flag is wrong")
+    p, m, v, g = kprobe.inputs(KPROBE_N, dev)
+    rows = []
+    for rung in kprobe.KERNEL_RUNGS:
+        rec = recs[rung]
+        plain_ms = device_ms(lambda r=rung: kprobe.plain_rung(r, p, m, v, g),
+                             iters=3, replays=2)
+        lib_ms = device_ms(lambda: torch.mul(p, 1.0000001)) \
+            if rung == "copy1" else None
+        b_ms, by = bound(kprobe.STREAMS[rung] * gb * 1e9,
+                         (1 if rung == "copy1" else 11) * KPROBE_N,
+                         PEAK_FP32_FLOPS)
+        print(f"    {kprobe.kernel_name(rung)}: ms={rec['ms']:.5f} plain_ms="
+              f"{plain_ms:.5f} library_ms="
+              f"{lib_ms if lib_ms is None else round(lib_ms, 5)} bound_ms="
+              f"{b_ms:.5f} ({by})")
+        rows.append({"name": kprobe.kernel_name(rung), "route": "cuda",
+                     "source": "apex_tpu_torch/csrc/kprobe.cu",
+                     "replaces": "tools/tpu_kprobe.py:" + {
+                         "copy1": "93", "multi7": "108", "adam_math": "134",
+                         "adam_found": "163", "adam_alias": "180"}[rung],
+                     "max_abs_err": 0.0 if rec["bitwise"] else None,
+                     "ms": rec["ms"], "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                     "gb_per_sec": rec["gb_per_sec"],
+                     "direct_launches": k_launches,
+                     "shape": f"n={KPROBE_N} fp32"})
+    rows[0]["ladder"] = recs
+    del p, m, v, g
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    results = launch_probe.probe_all(dev, echo=lambda s_: print(s_))
+    l_launches = _build.launch_counts()
+    off = [r for r in results if r["result"] != r["expected"]]
+    check(not off, f"launch probe: cases not as expected {off}")
+    # each kernel's time on one case: the largest tiling, 64 K elements at
+    # 256 threads, the gather
+    big = launch_probe.CASES[8]
+    xt = torch.rand(big.arr_shape, device=dev)
+    xl = torch.rand(1 << 16, device=dev)
+    ids, vals, xg = launch_probe.gather_inputs(dev)
+    sz = launch_probe.GATHER_SIZES
+    lim = launch_probe.Limit("threads 256", 256, 0, 1, True)
+    org = torch.from_numpy(launch_probe.block_origins(big)).to(dev)
+    for name, kernel, plain, lib, ins, line in (
+            (launch_probe.TILES_KERNEL,
+             lambda: launch_probe.run_tiles(big, xt, org),
+             lambda: launch_probe.plain_tiles(big, xt),
+             lambda: torch.mul(xt, 2.0), (xt,), "24"),
+            (launch_probe.LIMITS_KERNEL,
+             lambda: launch_probe.run_limit(lim, xl),
+             lambda: xl * 2.0, lambda: torch.mul(xl, 2.0), (xl,), "24"),
+            (launch_probe.GATHER_KERNEL,
+             lambda: launch_probe.run_gather(ids, vals, xg, sz["tile_rows"],
+                                             sz["sub"]),
+             lambda: launch_probe.plain_gather(ids, vals, xg,
+                                               sz["tile_rows"], sz["sub"]),
+             None, (xg,), "102")):
+        ms = device_ms(kernel)
+        plain_ms = host_ms(plain, iters=5)
+        lib_ms = device_ms(lib) if lib is not None else None
+        b_ms, by = bound(2 * nbytes(*ins), ins[0].numel(), PEAK_FP32_FLOPS)
+        print(f"    {name}: ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms="
+              f"{lib_ms if lib_ms is None else round(lib_ms, 5)} bound_ms="
+              f"{b_ms:.6f} ({by})")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "apex_tpu_torch/csrc/launch_probe.cu",
+                     "replaces": f"tools/mosaic_probe.py:{line}",
+                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                     "direct_launches": l_launches,
+                     "cases": [r for r in results if r["kind"] == {
+                         launch_probe.TILES_KERNEL: "tiles",
+                         launch_probe.LIMITS_KERNEL: "limits",
+                         launch_probe.GATHER_KERNEL: "gather"}[name]]})
+    return rows
+
+
+def fp16_softmax_dispatch(seed: int, dev) -> dict:
+    """Phase 14c: ``FusedScaleMaskSoftmax(input_in_fp16=True)`` at the BERT
+    scores' shape, with BERT's padding mask and without one, forward and
+    backward, the counts set to 0 just before: the fp16 masked and scaled
+    forwards, which no fp16 model path here calls, and the backward."""
+    gen = torch.Generator().manual_seed(seed)
+    scores = torch.randn(*BERT_SCORES, generator=gen).to(
+        dev, torch.float16).requires_grad_()
+    mask = bert_extended_attention_mask(bert_keep(dev))
+    _build.reset_launch_counts()
+    fn = FusedScaleMaskSoftmax(input_in_fp16=True)
+    fn(scores, mask).float().sum().backward()
+    fn(scores).float().sum().backward()
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    print(f"  FusedScaleMaskSoftmax fp16 with a padding mask and without, "
+          f"forward and backward: launches {launches}")
+    for base, n in ((softmax.MASKED_KERNEL, 1), (softmax.SCALED_KERNEL, 1),
+                    (softmax.BWD_KERNEL, 2)):
+        k_ = softmax.kernel_name(base, torch.float16)
+        check(launches.get(k_, 0) == n, f"{k_} launched "
+              f"{launches.get(k_, 0)} times in the dispatcher run, not {n}")
+    check(bool(torch.isfinite(scores.grad.float()).all()),
+          "fp16 dispatcher: non-finite gradient")
+    return {"launches": launches, "steps": 1}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5213,7 +5929,10 @@ def main(argv=None) -> int:
               f"{torch.cuda.get_device_name(0)} "
               f"x{torch.cuda.device_count()}")
         secs = _build.build_all()
-        print(f"  built {', '.join(_build.SOURCES)} in {secs:.1f} s")
+        print(f"  built {', '.join(_build.SOURCES)} in {secs:.1f} s; the "
+              "slowest: " + ", ".join(
+                  f"{n} {t:.1f} s" for n, t in sorted(
+                      _build.build_seconds.items(), key=lambda kv: -kv[1])[:4]))
         for src in _build.SOURCES:
             for line in _build.build_log(src).splitlines():
                 if "registers" in line or "spill" in line:
@@ -5330,6 +6049,25 @@ def main(argv=None) -> int:
     zz = phase("phase 13c: zig-zag chunked causal attention over "
                f"{ZZ_SEQ} tokens in {ZZ_CP} shards",
                lambda: zigzag_chunked(args.seed, dev, card))
+    dk14 = phase("phase 14a: fp32 and fp16 flash, fp16 LayerNorm and "
+                 "softmax, head_dim 96, per-batch RoPE tables and the "
+                 "fixed-order leaf sums against their plain versions",
+                 lambda: dtype_kernel_cases(args.seed, dev))
+    f32 = phase("phase 14b: GPT-2 345M pretraining in fp32 (the example's "
+                "dtype)", lambda: train_fp32(args.seed, dev, card))
+    f16 = {backend: phase(f"phase 14c: GPT-2 345M at fp16 under the loss "
+                          f"scaler, {backend} backend",
+                          lambda b_=backend: train_fp16(args.seed, dev, card,
+                                                        b_))
+           for backend in ("flash", "softmax")}
+    f16["dispatcher"] = phase("phase 14c: the fp16 softmax dispatcher",
+                              lambda: fp16_softmax_dispatch(args.seed, dev))
+    mha16 = {str(dt)[6:]: phase(
+        f"phase 14d: contrib multi-head attention stacks at "
+        f"{str(dt)[6:]}", lambda d_=dt: mha_stacks(args.seed, dev, card, d_))
+        for dt in (torch.float32, torch.float16)}
+    prb = phase("phase 14e: the kprobe ladder and the launch probe",
+                lambda: probe_cases(dev))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -5342,8 +6080,16 @@ def main(argv=None) -> int:
         fx["bias_dropout_probe"]
     by_name[attention.BWD_DQ_KERNEL]["cases"] += fx["dq"]
     by_name[attention.BWD_DKV_KERNEL]["cases"] += fx["dkv"]
+    # phase 14: head_dim 96 (bf16) and the per-batch RoPE tables join their
+    # rows; the new dtypes, the leaf sum and the probes get their own
+    for key, base in (("fwd", attention.KERNEL),
+                      ("dq", attention.BWD_DQ_KERNEL),
+                      ("dkv", attention.BWD_DKV_KERNEL)):
+        by_name[base]["cases"].append(dk14["d96"][key])
+    by_name[rope.KERNEL]["cases"].append(dk14["rope"])
     kernels.append(drow)
     kernels += srk
+    kernels += dk14["rows"] + prb
     # where each kernel's launches are read: the path that runs it (the
     # forward kernels run on every GPT path: their launches are the
     # serving run's; the scaled sum of squares runs on the scaler step;
@@ -5391,12 +6137,27 @@ def main(argv=None) -> int:
     for k in (segmented.SEGMENT_SR_KERNEL, mt_ops.LAMB_STAGE1_BF16_KERNEL,
               mt_ops.LAMB_STAGE2_KERNEL + mt_ops.SR_SUFFIX):
         paths[k] = ("training_bert_bf16", bsr["launches"], bsr["steps"])
+    for k in _flash_names(torch.float32):
+        paths[k] = ("training_gpt_fp32", f32["launches"], f32["steps"])
+    for k in _flash_names(torch.float16) + _ln_names(torch.float16):
+        paths[k] = ("training_gpt_fp16_flash", f16["flash"]["launches"],
+                    f16["flash"]["steps"])
+    for base in (softmax.CAUSAL_KERNEL, softmax.BWD_KERNEL):
+        paths[softmax.kernel_name(base, torch.float16)] = (
+            "training_gpt_fp16_softmax", f16["softmax"]["launches"],
+            f16["softmax"]["steps"])
+    for base in (softmax.SCALED_KERNEL, softmax.MASKED_KERNEL):
+        paths[softmax.kernel_name(base, torch.float16)] = (
+            "fp16_dispatcher", f16["dispatcher"]["launches"], 1)
+    paths[engine.LEAF_SUM_KERNEL] = ("training_novograd", novo["launches"],
+                                     novo["steps"])
     # the SR kernels that no model path here runs: one call each, the
-    # counts set to 0 just before
-    for row in srk:
-        direct = row.pop("direct_launches", None)
-        if direct is not None:
-            paths.setdefault(row["name"], ("phase12a_direct", direct, 1))
+    # counts set to 0 just before; the probes: their own run
+    for label, rows_ in (("phase12a_direct", srk), ("phase14e_probes", prb)):
+        for row in rows_:
+            direct = row.pop("direct_launches", None)
+            if direct is not None:
+                paths.setdefault(row["name"], (label, direct, 1))
 
     def launched(counts: dict, name: str) -> int:
         # dropout.cu is one kernel, counted forward and backward apart
@@ -5435,14 +6196,20 @@ def main(argv=None) -> int:
                          ("mha_self_key_padding", mha["self_key_padding"]),
                          ("mha_encdec_key_padding",
                           mha["encdec_key_padding"]),
-                         ("zigzag", zz)):
+                         ("zigzag", zz), ("gpt_fp32", f32),
+                         ("gpt_fp16_flash", f16["flash"]),
+                         ("gpt_fp16_softmax", f16["softmax"]),
+                         *((f"mha_{d_}_{k_}", mha16[d_][k_])
+                           for d_ in mha16 for k_ in (
+                               "self_future", "self_key_padding",
+                               "encdec_key_padding"))):
             k[f"launches_{key}"] = launched(run["launches"], name)
         check(k["launches"] > 0, f"{name}: no launch on its path")
     for counter in DROPOUT_COUNTERS:
         drow[f"launches_{counter}"] = gdr["launches"].get(counter, 0)
 
-    check(len(kernels) == 35, f"{len(kernels)} kernels in the line, not 35")
-    print("phase 14: kernels")
+    check(len(kernels) == 56, f"{len(kernels)} kernels in the line, not 56")
+    print("phase 15: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -5461,8 +6228,12 @@ def main(argv=None) -> int:
                        "training_gpt_bf16": gsr,
                        "flash_extra": {k_: fx[k_] for k_ in (
                            "bias_dropout_probe", "position_tiles", "dbias")},
-                       "multihead_attn": mha, "zigzag": zz, **line}, f,
-                      indent=1)
+                       "multihead_attn": mha, "zigzag": zz,
+                       "training_gpt_fp32": f32, "training_gpt_fp16": f16,
+                       "multihead_attn_dtypes": mha16,
+                       "phase14_kernels": {"d96": dk14["d96"],
+                                           "rope": dk14["rope"]},
+                       **line}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -165,25 +165,41 @@ def test_flash_kernel_matches_plain(cuda_device, case):
 
 @pytest.mark.cuda
 def test_flash_kernel_refuses_unported_options(cuda_device):
-    # bias and positions have kernels now; a head_dim outside the built
-    # ones and fp32 inputs are still refused
+    # bias and positions have kernels, and so (since fp16 and fp32 were
+    # ported and head widths pad to the built ones) do fp32 and fp16 q/k/v,
+    # head_dim 48 and an fp16 bias: each launches its dtype's kernel. What
+    # is still refused: a head_dim past 128 and integer inputs.
     q = torch.zeros(1, 2, 8, 64, device=cuda_device, dtype=torch.bfloat16)
-    before = _build.launch_counts().get(attention.KERNEL, 0)
+    before = _build.launch_counts()
     attention.flash_attention(
         q, q, q, bias=torch.zeros(1, 1, 8, 8, device=cuda_device))
     pos = torch.arange(8, device=cuda_device)
     attention.flash_attention(q, q, q, causal=True, q_positions=pos,
                               kv_positions=pos)
-    assert _build.launch_counts()[attention.KERNEL] == before + 2
+    z = torch.zeros(1, 2, 8, 48, device=cuda_device, dtype=torch.bfloat16)
+    attention.flash_attention(z, z, z)
+    attention.flash_attention(q, q, q, bias=torch.zeros(
+        1, 1, 8, 8, device=cuda_device, dtype=torch.float16))
+    after = _build.launch_counts()
+    assert after[attention.KERNEL] == before.get(attention.KERNEL, 0) + 4
+    for dtype in (torch.float32, torch.float16):
+        name = attention.kernel_name(attention.KERNEL, dtype)
+        n0 = _build.launch_counts().get(name, 0)
+        out = attention.flash_attention(q.to(dtype), q.to(dtype),
+                                        q.to(dtype))
+        assert out.dtype == dtype
+        assert _build.launch_counts()[name] == n0 + 1
     with pytest.raises(NotImplementedError, match="head_dim"):
-        z = torch.zeros(1, 2, 8, 48, device=cuda_device,
+        w = torch.zeros(1, 2, 8, 160, device=cuda_device,
                         dtype=torch.bfloat16)
-        attention.flash_attention(z, z, z)
+        attention.flash_attention(w, w, w)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        w = torch.zeros(1, 2, 8, 272, device=cuda_device,
+                        dtype=torch.bfloat16)
+        attention.flash_attention(w, w, w)
     with pytest.raises(TypeError, match="dtype"):
-        attention.flash_attention(q.float(), q.float(), q.float())
-    with pytest.raises(TypeError, match="bias"):
-        attention.flash_attention(q, q, q, bias=torch.zeros(
-            1, 1, 8, 8, device=cuda_device, dtype=torch.float16))
+        i = torch.zeros(1, 2, 8, 64, device=cuda_device, dtype=torch.int32)
+        attention.flash_attention(i, i, i)
 
 
 @pytest.mark.cuda
@@ -983,10 +999,16 @@ def test_softmax_autograd_runs_both_kernels(cuda_device):
 
 @pytest.mark.cuda
 def test_softmax_kernel_refuses_other_dtypes(cuda_device):
+    # fp16 has kernels now (counted as <kernel>_fp16); fp64 is refused
     from apex_tpu_torch.ops import softmax
+    name = softmax.kernel_name(softmax.SCALED_KERNEL, torch.float16)
+    n0 = _build.launch_counts().get(name, 0)
+    softmax.scaled_softmax(torch.zeros(4, 8, device=cuda_device,
+                                       dtype=torch.float16))
+    assert _build.launch_counts()[name] == n0 + 1
     with pytest.raises(TypeError, match="softmax kernel"):
         softmax.scaled_softmax(torch.zeros(4, 8, device=cuda_device,
-                                           dtype=torch.float16))
+                                           dtype=torch.float64))
 
 
 # -- the SGD and LARS kernels -------------------------------------------------
@@ -1607,8 +1629,8 @@ def test_rope_kernel_refuses_other_inputs(cuda_device):
         fused_apply_rotary_pos_emb(t.transpose(1, 2),
                                    torch.zeros(4, 1, 1, 8,
                                                device=cuda_device))
-    cos = torch.zeros(4, 2, 1, 8, device=cuda_device)
-    with pytest.raises(ValueError):            # varies along the batch
+    cos = torch.zeros(4, 3, 1, 8, device=cuda_device)
+    with pytest.raises(ValueError):            # does not broadcast
         fused_apply_rotary_pos_emb_cached(t, cos, cos)
     with pytest.raises(TypeError):
         fused_apply_rotary_pos_emb(t.double(), torch.zeros(
@@ -1826,3 +1848,218 @@ def test_bf16_master_skip_leaves_state(cuda_device):
     assert torch.equal(st2.master.view(torch.int16),
                        saved[0].view(torch.int16))
     assert torch.equal(st2.slots["m"], saved[1])
+
+
+# -- fp16 and fp32 flash kernels, any head width up to 128 -------------------
+#
+# Tolerances, relative to each gradient's largest |value| and, for the
+# output, to each query row's (fp16, bf16) or the output's (fp32): fp32
+# within 1e-5 (the kernels' products are exact in three bf16 parts, their
+# fp32 sums in another order, which errs by ulps of the terms |v|, not of
+# a row's mean); fp16 within 2^-9 (two fp16 ulps: the kernel rounds P to
+# fp16 before P.V, the plain forward does not; both round dS); bf16 as
+# above (2^-6).
+
+FLASH_DTYPE_TOL = {torch.float32: 1e-5, torch.float16: 2.0 ** -9,
+                   torch.bfloat16: 2.0 ** -6}
+
+
+def _row_rel(got, want):
+    got, want = got.detach(), want.detach()
+    d = (got.float() - want.float()).abs()
+    scale = want.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
+    return float((d / scale).max())
+
+
+def _grad_rel(got, want):
+    got, want = got.detach(), want.detach()
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [17, 48, 64, 96, 128])
+@pytest.mark.parametrize("extra", ["causal", "bias", "dropout",
+                                   "positions"])
+def test_flash_kernels_take_every_dtype_and_width(cuda_device, dtype, d,
+                                                  extra):
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    b, h, hk, sq, sk = 2, 4, 2, 70, 70
+    if extra == "positions":
+        b, sk = 1, 134
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda_device,
+                           generator=gen).to(dtype)
+    q, k, v, do = rnd(b, h, sq, d), rnd(b, hk, sk, d), rnd(b, hk, sk, d), \
+        rnd(b, h, sq, d)
+    kw = {"causal": extra != "bias"}
+    if extra == "bias":
+        kw["bias"] = rnd(b, 1, sq, sk)
+    elif extra == "dropout":
+        kw.update(dropout_rate=0.1, dropout_rng=(3, 4))
+    elif extra == "positions":
+        kw.update(q_positions=torch.arange(sk - sq, sk, device=cuda_device),
+                  kv_positions=torch.arange(sk, device=cuda_device))
+    names = [attention.kernel_name(n, dtype) for n in (
+        attention.KERNEL, attention.BWD_DQ_KERNEL, attention.BWD_DKV_KERNEL)]
+    before = _build.launch_counts()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attention.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, do)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    pout = attention.attention_plain(*plain, **kw)
+    pgrads = torch.autograd.grad(pout, plain, do)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for n in names:
+        assert after.get(n, 0) == before.get(n, 0) + 1, n
+    tol = FLASH_DTYPE_TOL[dtype]
+    assert out.dtype == dtype and out.shape == q.shape
+    rel = _grad_rel if dtype == torch.float32 else _row_rel
+    assert rel(out, pout) <= tol
+    for g, pg in zip(grads, pgrads):
+        assert g.dtype == dtype and g.shape == pg.shape
+        assert _grad_rel(g, pg) <= tol
+
+
+# -- fp16 LayerNorm and softmax ----------------------------------------------
+#
+# Tolerances: outputs within one fp16 ulp of the value (2^-10 |y|) plus
+# 2^-14 near zero; dx within 2^-9 of each row's largest |value|; dw, db
+# within 1e-5 of their largest |value|.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [1024, 1000, 4096])
+def test_fp16_layer_norm_kernels_match_plain(cuda_device, h):
+    gen = torch.Generator(device=cuda_device).manual_seed(h)
+    x = (2 * torch.randn(257, h, device=cuda_device, generator=gen)
+         + 0.5).half()
+    g = torch.randn(257, h, device=cuda_device, generator=gen).half()
+    w = 1 + 0.1 * torch.randn(h, device=cuda_device, generator=gen)
+    b = 0.1 * torch.randn(h, device=cuda_device, generator=gen)
+    before = _build.launch_counts()
+    y, mean, rstd = layer_norm._fwd_cuda(x, w, b, 1e-5, False)
+    dx, dw, db = layer_norm._bwd_cuda(x, w, mean, rstd, g, False)
+    py, pmean, prstd = layer_norm._fwd_torch(x, w, b, 1e-5, False)
+    pdx, pdw, pdb = layer_norm._bwd_torch(x, w, mean, rstd, g, False)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for base in (layer_norm.KERNEL, layer_norm.BWD_KERNEL):
+        n = layer_norm.kernel_name(base, torch.float16)
+        assert after[n] == before.get(n, 0) + 1
+    assert y.dtype == dx.dtype == torch.float16
+    excess = (y.float() - py.float()).abs() - 2.0 ** -10 * py.float().abs()
+    assert float(excess.max()) <= 2.0 ** -14
+    assert float((mean - pmean).abs().max()) <= 1e-5
+    assert _row_rel(dx, pdx) <= 2.0 ** -9 or float(
+        (dx.float() - pdx.float()).abs().max()) <= 2.0 ** -14
+    for a, e in ((dw, pdw), (db, pdb)):
+        assert _grad_rel(a, e) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,shape", [("scaled", (4, 8, 64, 200)),
+                                        ("causal", (16, 128, 128)),
+                                        ("causal", (4, 64, 2000)),
+                                        ("masked", (4, 8, 64, 64))])
+def test_fp16_softmax_kernels_match_plain(cuda_device, mode, shape):
+    from apex_tpu_torch.ops import softmax
+    gen = torch.Generator(device=cuda_device).manual_seed(len(shape))
+    x = (3 * torch.randn(*shape, device=cuda_device, generator=gen)).half()
+    g = torch.randn(*shape, device=cuda_device, generator=gen).half()
+    mask = None
+    if mode == "masked":
+        mask = torch.rand(shape[0], 1, shape[2], shape[3],
+                          device=cuda_device, generator=gen) < 0.3
+    code, counter = softmax._MODES[mode]
+    before = _build.launch_counts()
+    y = softmax._fwd_cuda(x, mask, 0.5, mode)
+    dx = softmax._bwd_cuda(y, g, 0.5)
+    py = softmax._fwd_torch(x, mask, 0.5, mode)
+    pdx = softmax._bwd_torch(y, g, 0.5)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for base in (counter, softmax.BWD_KERNEL):
+        n = softmax.kernel_name(base, torch.float16)
+        assert after[n] == before.get(n, 0) + 1
+    assert bool(torch.isfinite(y).all())       # -1e30 never stored
+    excess = (y.float() - py.float()).abs() - 2.0 ** -10 * py.float().abs()
+    assert float(excess.max()) <= 2.0 ** -14
+    row = pdx.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-3)
+    assert float(((dx.float() - pdx.float()).abs() / row).max()) <= 2.0 ** -9
+
+
+# -- RoPE tables that vary beyond the position axis (bitwise) ----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+@pytest.mark.parametrize("table", ["batch", "head", "batch_head",
+                                   "broadcast_positions", "expanded"])
+def test_rope_kernel_reads_strided_tables(cuda_device, dtype, table):
+    from apex_tpu_torch.ops import rope
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    s, b, h, d, rot = 64, 3, 4, 64, 48
+    t = torch.randn(s, b, h, d, device=cuda_device, generator=gen).to(dtype)
+    shape = {"batch": (s, b, 1, rot), "head": (s, 1, h, rot),
+             "batch_head": (s, b, h, rot), "broadcast_positions":
+             (1, b, 1, rot), "expanded": (s, 1, 1, rot)}[table]
+    ang = torch.randn(*shape, device=cuda_device, generator=gen)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if table == "expanded":
+        cos, sin = cos.expand(s, b, 1, rot), sin.expand(s, b, 1, rot)
+    n0 = _build.launch_counts().get(rope.KERNEL, 0)
+    for negate in (False, True):
+        got = rope._rope_cuda(t, cos, sin, None, negate)
+        want = rope._apply_torch(t, cos, -sin if negate else sin)
+        assert torch.equal(got, want), (table, negate)
+    assert _build.launch_counts()[rope.KERNEL] == n0 + 2
+
+
+# -- the fixed-order leaf sums ------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_leaf_sum_kernel_is_bitwise_the_plain_order(cuda_device):
+    from apex_tpu_torch.multi_tensor import FlatSpace, engine
+    space = FlatSpace.create({"emb": torch.zeros(25152 * 2048),
+                              "b": torch.zeros(5),
+                              "w": torch.zeros(3 << 20)})
+    n_sub = space.total // 2048
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.rand(n_sub, device=cuda_device, generator=gen)
+    n0 = _build.launch_counts().get(engine.LEAF_SUM_KERNEL, 0)
+    a = engine.leaf_sums(x, space)
+    b = engine.leaf_sums(x, space)
+    p = engine.leaf_sums(x, space, plain=True)
+    assert _build.launch_counts()[engine.LEAF_SUM_KERNEL] == n0 + 2
+    assert torch.equal(a, b) and torch.equal(a, p)
+
+
+# -- the probes -----------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_kprobe_rungs_are_bitwise_their_plain_versions(cuda_device):
+    from apex_tpu_torch.tools import kprobe
+    recs = kprobe.ladder(1 << 20 | 3, device=cuda_device,
+                         timer=lambda fn: 1.0)
+    for rung in kprobe.KERNEL_RUNGS:
+        assert recs[rung]["bitwise"], rung
+    assert recs["adam_found"]["found_clean"] == 0.0
+    assert recs["adam_found"]["found_inf"] == 1.0
+
+
+@pytest.mark.cuda
+def test_launch_probe_passes_inside_the_limits_and_fails_outside(
+        cuda_device):
+    from apex_tpu_torch.tools import launch_probe
+    results = launch_probe.probe_all(cuda_device, echo=None)
+    off = [r for r in results if r["result"] != r["expected"]]
+    assert not off, off
+    assert any(r["result"] == "FAIL" for r in results)

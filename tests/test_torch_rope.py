@@ -215,14 +215,19 @@ def test_freqs_and_tables_get_no_gradient():
 
 def test_the_kernel_takes_no_plain_path_arguments():
     """What the kernel's wrapper refuses before it would build or launch:
-    an odd rotated width or one wider than the head, and tables that vary
-    along more than the position axis (this runs the checks on the CPU,
-    where the launch itself is not reached)."""
+    an odd rotated width or one wider than the head, and tables that do
+    not broadcast against t (this runs the checks on the CPU, where the
+    launch itself is not reached). A table that varies along a middle
+    dimension of t is no longer refused: the kernel reads it through its
+    strides, which the wrapper computes here."""
     t = torch.zeros(4, 2, 8)
     for cos in (torch.zeros(4, 1, 7), torch.zeros(4, 1, 10),
-                torch.zeros(4, 2, 8), torch.zeros(3, 1, 8)):
+                torch.zeros(3, 1, 8), torch.zeros(4, 3, 8)):
         with pytest.raises(ValueError):
             port._rope_cuda(t, cos, cos.clone())
+    cos = torch.zeros(4, 2, 8)
+    _, _, tsn, mids = port._table_strides(t, cos, cos.clone(), False)
+    assert tsn == 16 and mids == [(2, 8)]
     with pytest.raises(TypeError):
         port._rope_cuda(t.double(), torch.zeros(4, 1, 8),
                         torch.zeros(4, 1, 8))
