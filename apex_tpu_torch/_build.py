@@ -44,6 +44,9 @@ SOURCES = ("layer_norm", "flash_fwd", "flash_bwd", "flash_fwd_fp16",
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# after the source: the wgmma/TMA backward reaches the driver's tensor-map
+# encoder through dlopen (no link against the driver library)
+LINK_FLAGS = ("-ldl",)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -81,7 +84,7 @@ def _digest(name: str) -> str:
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.name.encode())
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -117,7 +120,7 @@ def build_all(names: Iterable[str] = SOURCES) -> float:
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
             log = out.with_name(f"{out.name}.{os.getpid()}.out")
             cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o",
-                   str(tmp), str(CSRC / f"{name}.cu")]
+                   str(tmp), str(CSRC / f"{name}.cu"), *LINK_FLAGS]
             with open(log, "w") as f:
                 proc = subprocess.Popen(cmd, stdout=f,
                                         stderr=subprocess.STDOUT, text=True)

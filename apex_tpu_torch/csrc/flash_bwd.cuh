@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): bf16, fp16 or fp32 in, fp32
-// accumulate.
+// Flash-attention backward for fp32 inputs on `mma.sync` (bf16 and fp16 take
+// the wgmma/TMA design of flash_bwd_sm90.cuh, which names this header for
+// the function both compute).
 //
 // Replaces: apex_tpu/ops/attention.py `_bwd_dq_kernel` (:402, `pallas_call`
 // at :657) and `_bwd_dkv_kernel` (:470, `pallas_call` at :711), both
@@ -27,7 +28,8 @@
 // kernels (~60 GFLOP), against ~117 MB of q, k, v, dO read and dq, dk,
 // dv written (35 us at 3.35 TB/s). fp16 is bf16's; fp32 runs six bf16
 // products for each (`flash_common.cuh`) and is bound by the card's 67
-// TFLOP/s of fp32 FMA for the same flops.
+// TFLOP/s of fp32 FMA for the same flops. fp32 is the only element type
+// instanced here.
 //
 // Design: the forward's tile and fragment scheme (`flash_common.cuh`).
 // dq: one 128-thread block per (64-query tile, batch*head); each warp
@@ -41,17 +43,15 @@
 // of dv and dk. No atomics: each output element is written once by one
 // thread, so both kernels are deterministic. Q, K, V and dO tiles sit in
 // shared memory; fragments are read from it per k16 step, which keeps
-// registers for the accumulators. Left for later work: wgmma/TMA,
-// double-buffered tiles, and at head_dim 128 the accumulators press on
-// the register file. fp16 and fp32 inputs and head widths below the built
-// ones (zero-padded in shared memory) are the forward's. A head_dim past
-// 128 is refused: dk/dv keeps D fp32 accumulators a thread (dk and dv of
-// its warp's 16 keys: 256 at D = 256, past the 255-register limit
-// whatever the query tile), so it would need D split across warps.
+// registers for the accumulators. fp32 tiles are three bf16 part tiles
+// and each product six bf16 products (`flash_common.cuh`); head widths
+// below the built ones are zero-padded in shared memory. A head_dim past
+// 128 is refused: the part tiles take 96 KB each at D = 256, and dk/dv's
+// four would need 384 KB of shared memory.
 
 #pragma once
 
-#include "flash_common.cuh"
+#include "flash_bwd_api.cuh"
 
 namespace {
 
@@ -467,24 +467,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
-struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta, *q_seg, *k_seg, *q_pos,
-      *k_pos, *glse;
-  Bias bias;
-  void *dq, *dk, *dv;
-  int B, H, HK, SQ, SK, DH;
-  float scale;
-  int causal, window;
-  Dropout dr;
-};
-
 template <typename T, int D, bool EXTRA>
 int launch_both(const Args& a, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(a.q);
@@ -532,78 +514,23 @@ int launch(const Args& a, cudaStream_t stream) {
   return launch_both<T, D, true>(a, stream);
 }
 
-template <typename T>
-int launch_width(const Args& a, cudaStream_t stream) {
+// fp32 only: bf16 and fp16 take flash_bwd_sm90.cuh. A head_dim past 128
+// is refused (three bf16 part tiles of 96 KB each at D = 256: dk/dv's four
+// would take 384 KB of shared memory, against 227 KB).
+template <>
+int launch_width<float>(const Args& a, cudaStream_t stream) {
   switch (built_width(a.DH)) {
     case 32:
-      return launch<T, 32>(a, stream);
+      return launch<float, 32>(a, stream);
     case 64:
-      return launch<T, 64>(a, stream);
+      return launch<float, 64>(a, stream);
     case 96:
-      return launch<T, 96>(a, stream);
+      return launch<float, 96>(a, stream);
     case 128:
-      return launch<T, 128>(a, stream);
+      return launch<float, 128>(a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The launcher of element type T (each flash_bwd*.cu exports it for its
-// dtype, one library each, so that the dtypes build in parallel).
-// One entry for both kernels: dq null skips the dq kernel, dk (and dv)
-// null skips the dk/dv kernel. Returns cudaGetLastError() after the
-// launches (cudaErrorInvalidValue for a head_dim past 128, an unknown
-// dtype or a grid beyond the y limit). dtype (0 fp32, 1 bf16, 2 fp16) is
-// that of q, k, v, dout and the gradients. window <= 0 means no window.
-// The dropout, position and bias arguments are the forward's; glse (B, H,
-// SQ) fp32, or null, is the cotangent of the forward's lse.
-template <typename T>
-int apex_flash_bwd_entry(const void* q, const void* k, const void* v,
-                              const void* dout, const void* lse,
-                              const void* delta, const void* q_seg,
-                              const void* k_seg, const void* q_pos,
-                              const void* k_pos, const void* glse,
-                              const void* bias, int bias_dtype, long long sb,
-                              long long sh, long long sq, long long sk,
-                              void* dq, void* dk, void* dv,
-                              int B, int H, int HK, int SQ, int SK, int D,
-                              int dtype, float scale, int causal, int window,
-                              int dropout, uint32_t seed, uint32_t thresh,
-                              float keep, void* stream) {
-  if (dtype != Elem<T>::kCode) return (int)cudaErrorInvalidValue;
-  if (B == 0 || H == 0 || SQ == 0 || SK == 0) return (int)cudaGetLastError();
-  if (HK <= 0 || H % HK || B * H > 65535) return (int)cudaErrorInvalidValue;
-  if ((dk == nullptr) != (dv == nullptr)) return (int)cudaErrorInvalidValue;
-  if ((q_pos == nullptr) != (k_pos == nullptr) || (q_pos && !causal))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{q,     k,     v,     dout,  lse,   delta, q_seg, k_seg,
-               q_pos, k_pos, glse,  Bias{bias, bias_dtype, sb, sh, sq, sk},
-               dq,    dk,    dv,    B,     H,     HK,    SQ,    SK,
-               D,     scale, causal, window,
-               Dropout{dropout, seed, thresh, keep}};
-  return launch_width<T>(a, s);
-}
-
 }  // namespace
-
-// The C entry points of one dtype's library: `apex_flash_bwd`, the entry
-// above for T (its dtype argument must be T's code), and the error string.
-#define APEX_EXPORT_FLASH_BWD(T)                                             \
-  extern "C" int apex_flash_bwd(                                             \
-      const void* q, const void* k, const void* v, const void* dout,        \
-      const void* lse, const void* delta, const void* q_seg,                \
-      const void* k_seg, const void* q_pos, const void* k_pos,              \
-      const void* glse, const void* bias, int bias_dtype, long long sb,     \
-      long long sh, long long sq, long long sk, void* dq, void* dk,         \
-      void* dv, int B, int H, int HK, int SQ, int SK, int D, int dtype,     \
-      float scale, int causal, int window, int dropout, uint32_t seed,      \
-      uint32_t thresh, float keep, void* stream) {                          \
-    return apex_flash_bwd_entry<T>(                                         \
-        q, k, v, dout, lse, delta, q_seg, k_seg, q_pos, k_pos, glse, bias,  \
-        bias_dtype, sb, sh, sq, sk, dq, dk, dv, B, H, HK, SQ, SK, D, dtype, \
-        scale, causal, window, dropout, seed, thresh, keep, stream);        \
-  }                                                                         \
-  extern "C" const char* apex_flash_bwd_error_string(int err) {             \
-    return cudaGetErrorString(static_cast<cudaError_t>(err));               \
-  }

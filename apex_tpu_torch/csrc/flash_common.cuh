@@ -214,10 +214,10 @@ __host__ __device__ constexpr int tile_elems() {
 
 // The built head widths: a head_dim is zero-padded in shared memory to the
 // next of these (zero columns add nothing to q.k and their output columns
-// are not stored). 0 past the widest.
+// are not stored). 0 past the widest. 256 is built for bf16 and fp16 only.
 __host__ __device__ constexpr int built_width(int dh) {
   return dh < 1 ? 0 : dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 96 ? 96
-                                                     : dh <= 128 ? 128 : 0;
+         : dh <= 128 ? 128 : dh <= 256 ? 256 : 0;
 }
 
 // The reference's additive mask for one score. `row` and `col` are what

@@ -22,8 +22,9 @@
 // the input dtype for the P.V product (the reference's `p.astype(v.dtype)`,
 // :249), while l sums the fp32 probabilities. fp32 inputs take exact
 // products (three bf16 parts a value, `flash_common.cuh`) and the accurate
-// exp; any head_dim up to 128 runs, zero-padded in shared memory to the
-// next built width (32, 64, 96, 128).
+// exp; any head_dim up to 128 runs (up to 256 in bf16 and fp16),
+// zero-padded in shared memory to the next built width (32, 64, 96, 128,
+// 256).
 //
 // Bound on the card: prefill is compute-bound (4 * b * h * sq * sk * d
 // flops, about half of that when causal, against 989 TFLOP/s of bf16 or
@@ -102,9 +103,12 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int KS = D / 16;    // k16 steps of q.k^T
   constexpr int NT = kBK / 8;   // n8 tiles of a score row
   constexpr int DT = D / 8;     // n8 tiles of an output row
-  // 16-bit Q fragments stay in registers for the whole key loop; fp32's
-  // (three parts each) are re-read from shared memory per k16 step
-  constexpr bool kQRegs = P == 1;
+  // 16-bit Q fragments stay in registers for the whole key loop up to D =
+  // 128; at 256 (beside 128 output accumulators) and for fp32 (three parts
+  // each) they are re-read from shared memory per k16 step. At 256 ptxas
+  // keeps 250 registers a thread, 255 and a 16-byte spill with EXTRA: the
+  // 64-key tile stays.
+  constexpr bool kQRegs = P == 1 && D <= 128;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using S = typename E::S;
   constexpr int PS = part_stride<T, D>(), TE = tile_elems<T, D>();
@@ -359,6 +363,9 @@ int launch_width(const Args& a, cudaStream_t stream) {
       return launch<T, 96>(a, stream);
     case 128:
       return launch<T, 128>(a, stream);
+    case 256:   // bf16 and fp16: fp32's three part tiles would not fit
+      if constexpr (Elem<T>::kParts == 1) return launch<T, 256>(a, stream);
+      return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -367,7 +374,8 @@ int launch_width(const Args& a, cudaStream_t stream) {
 // The launcher of element type T (each flash_fwd*.cu exports it for its
 // dtype, one library each, so that the dtypes build in parallel).
 // Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// a head_dim past 128, an unknown dtype or a grid beyond the y limit).
+// a head_dim past the dtype's widest built width, an unknown dtype or a
+// grid beyond the y limit).
 // dtype: 0 fp32, 1 bf16, 2 fp16, for q, k, v and out. window <= 0 means
 // no window; q_seg and k_seg are both null or both set, as are q_pos and
 // k_pos (positions need causal != 0). bias null means no bias; else

@@ -23,10 +23,12 @@ the sliding window, an additive bias (each dimension full or broadcast,
 fp32, bf16 or fp16), global ``q_positions``/``kv_positions`` (ring and
 blockwise chunks: the causal and window tests compare positions, and
 tiles are skipped by their position bounds) and attention dropout, with
-bf16, fp16 or fp32 inputs and any head_dim up to 128 (zero-padded inside
-the kernels to the next built width, :data:`BUILT_WIDTHS`). A head_dim
-past 128 raises: the dk/dv kernel's accumulators would not fit in
-registers. Launch counts are kept per dtype: bf16 under the kernel's
+bf16, fp16 or fp32 inputs and any head_dim up to 256 in bf16 and fp16, up
+to 128 in fp32 (zero-padded inside the kernels to the next built width,
+:data:`BUILT_WIDTHS`; :func:`check_head_dim` says why wider ones raise).
+The bf16 and fp16 backward is the wgmma/TMA design of
+``csrc/flash_bwd_sm90.cuh``; fp32's keeps ``csrc/flash_bwd.cuh``. Launch
+counts are kept per dtype: bf16 under the kernel's
 name, fp16 and fp32 with a ``_fp16`` / ``_fp32`` suffix
 (:func:`kernel_name`). Dropout is the reference's
 counter-based mask (:func:`_dropout_keep`, the murmur3 finaliser of the
@@ -52,9 +54,12 @@ KERNEL = "flash_fwd"
 BWD_DQ_KERNEL = "flash_bwd_dq"
 BWD_DKV_KERNEL = "flash_bwd_dkv"
 # head widths the kernels are built for; a narrower head_dim is zero-padded
-# in shared memory to the next one
-BUILT_WIDTHS = (32, 64, 96, 128)
+# in shared memory to the next one. fp32 stops at 128: its three bf16 part
+# tiles take 96 KB each at 256, so the dk/dv kernel's four would need 384 KB
+# of shared memory against the card's 227 KB.
+BUILT_WIDTHS = (32, 64, 96, 128, 256)
 MAX_HEAD_DIM = BUILT_WIDTHS[-1]
+FP32_MAX_HEAD_DIM = 128
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SUFFIX = {torch.bfloat16: "", torch.float16: "_fp16",
            torch.float32: "_fp32"}
@@ -308,6 +313,30 @@ def _dbias(q, k, v, bias, lse, dout, delta, q_seg, k_seg, scale, causal,
     return acc.to(bias.dtype)
 
 
+def check_head_dim(d: int, dtype: torch.dtype) -> None:
+    """Raise unless the kernels are built for head_dim ``d`` at ``dtype``:
+    1 to 256 in bf16 and fp16, 1 to 128 in fp32."""
+    if dtype == torch.float32 and d > FP32_MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"head_dim {d} in fp32: the fp32 kernels take 1 to "
+            f"{FP32_MAX_HEAD_DIM} (an fp32 tile is three bf16 part tiles, 96 "
+            f"KB each at a width of 256, so the dk/dv kernel's four would "
+            f"need 384 KB of shared memory against the card's 227 KB)")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"head_dim {d}: the kernels take 1 to {MAX_HEAD_DIM} (no wider "
+            f"width is built: a row of 256 is the widest one wgmma product "
+            f"writes, and dq's fp32 accumulator of it already takes half a "
+            f"thread's registers)")
+
+
+def tma_width(d: int) -> int:
+    """The head width the bf16/fp16 backward kernels read: ``d``
+    rounded up to a multiple of 8 and at least 32 (TMA copies need
+    16-byte row strides; narrower boxes are zero-filled)."""
+    return max(32, -(-d // 8) * 8)
+
+
 def _check_kernel_args(q, k, v, q_seg, k_seg):
     """Raise on what the kernels do not take; returns the segment ids as
     contiguous int32 (or None)."""
@@ -316,10 +345,7 @@ def _check_kernel_args(q, k, v, q_seg, k_seg):
     for name, t in (("k", k), ("v", v)):
         check_kernel_input(name, t, (q.dtype,), dev)
     b, d = q.shape[0], q.shape[3]
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"head_dim {d}: the kernels take 1 to {MAX_HEAD_DIM} (the dk/dv "
-            f"kernel's accumulators of a wider head exceed its registers)")
+    check_head_dim(d, q.dtype)
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
@@ -369,7 +395,10 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     """The dq kernel and the dk/dv kernel: returns ``(dq, dk, dv)`` like
     ``_flash_bwd_pallas``. ``kernels`` names the ones to launch (both by
     default; one alone to time it); a kernel left out returns None for
-    its outputs. ``glse`` (fp32, like lse) is the cotangent of the lse."""
+    its outputs. ``glse`` (fp32, like lse) is the cotangent of the lse.
+    bf16 and fp16 run the wgmma/TMA kernels (``csrc/flash_bwd_sm90.cuh``),
+    whose tiles TMA copies: a head_dim off :func:`tma_width` is padded
+    with zero columns on the way in and cut on the way out."""
     q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
     dev = q.device
     dout = dout.contiguous()
@@ -379,6 +408,11 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     extra = _extra_args(q, bias, q_pos, k_pos)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    width = d if q.dtype == torch.float32 else tma_width(d)
+    if width != d:
+        # zero columns add nothing to q.k or to any gradient column kept
+        q, k, v, dout = (torch.nn.functional.pad(t, (0, width - d))
+                         for t in (q, k, v, dout))
     dq = torch.empty_like(q) if BWD_DQ_KERNEL in kernels else None
     dk, dv = ((torch.empty_like(k), torch.empty_like(v))
               if BWD_DKV_KERNEL in kernels else (None, None))
@@ -403,7 +437,7 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
             err = lib.apex_flash_bwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), *segs, *extra[:2], gl,
-                *extra[2:], *outs, b, h, hk, sq, sk, d,
+                *extra[2:], *outs, b, h, hk, sq, sk, width,
                 DTYPE_CODES[q.dtype], float(scale),
                 int(causal), 0 if window is None else int(window), *drop,
                 stream)
@@ -412,6 +446,9 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
                 f"{kernel}: CUDA error {err} at launch: "
                 f"{lib.apex_flash_bwd_error_string(err).decode()}")
         _build.count_launch(kernel_name(kernel, q.dtype))
+    if width != d:
+        dq, dk, dv = (None if t is None else t[..., :d].contiguous()
+                      for t in (dq, dk, dv))
     return dq, dk, dv
 
 

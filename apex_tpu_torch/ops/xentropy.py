@@ -30,6 +30,7 @@ from __future__ import annotations
 import ctypes
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from apex_tpu_torch import _build
@@ -51,12 +52,41 @@ def _pick(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, torch.gather(x, -1, y.clamp(0, k - 1)), 0.0)
 
 
+# On the CPU the row lse and the probabilities' exp are taken in fp64 (numpy,
+# single-threaded) and rounded once to fp32, so the plain path is within
+# half an ulp of the exact value. PyTorch's fp32 CPU kernels are an ulp or
+# two off on some rows, which rows depending on the vector kernels the CPU
+# dispatches to: the lse's rounding moves every probability of its row, and
+# with the reference's fp32 lse an ulp off on other rows the port's fp32
+# gradients sat 7.2e-7 from the reference's against the tests' 1e-6. A
+# CUDA tensor keeps PyTorch's ops (the kernels are held against them
+# bitwise).
+def _logsumexp_rn(x: torch.Tensor) -> torch.Tensor:
+    """fp32 logsumexp over the last dim of (T, K) ``x``, kept as (T, 1)."""
+    if x.device.type != "cpu":
+        return torch.logsumexp(x, dim=-1, keepdim=True)
+    xd = x.detach().numpy().astype(np.float64)
+    m = xd.max(axis=-1, keepdims=True)
+    m = np.where(np.isfinite(m), m, 0.0)   # all -inf rows give -inf
+    with np.errstate(divide="ignore"):
+        lse = np.log(np.exp(xd - m).sum(axis=-1, keepdims=True)) + m
+    return torch.from_numpy(lse.astype(np.float32))
+
+
+def _exp_rn(x: torch.Tensor) -> torch.Tensor:
+    """fp32 exp, correctly rounded on the CPU (see above)."""
+    if x.device.type != "cpu":
+        return torch.exp(x)
+    return torch.from_numpy(
+        np.exp(x.detach().numpy().astype(np.float64)).astype(np.float32))
+
+
 def _fwd_torch(logits2: torch.Tensor, labels: torch.Tensor, smoothing: float
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain forward on (T, K) logits and (T,) labels: ``(loss, lse)``,
     both (T,) fp32 (the reference's XLA branch of ``_fwd_impl``)."""
     x = logits2.float()
-    lse = torch.logsumexp(x, dim=-1, keepdim=True)
+    lse = _logsumexp_rn(x)
     loss = lse - (1.0 - smoothing) * _pick(x, labels)
     if smoothing > 0.0:
         loss = loss - smoothing * torch.mean(x, dim=-1, keepdim=True)
@@ -69,7 +99,7 @@ def _bwd_torch(logits2: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
     lse and the (T,) fp32 cotangent (the XLA branch of ``_bwd_impl``)."""
     x = logits2.float()
     k = x.shape[-1]
-    p = torch.exp(x - lse[:, None])
+    p = _exp_rn(x - lse[:, None])
     cols = torch.arange(k, device=x.device)
     onehot = (cols[None, :] == labels.long()[:, None]).float()
     dx = g[:, None] * (p - (1.0 - smoothing) * onehot - smoothing / k)

@@ -277,7 +277,18 @@ Phases, in order; any failure exits non-zero before the last line:
    rung bitwise its plain version, the found flag 0 and then 1 on an
    injected inf, each rung's GB/s against 3.35 TB/s) and the launch probe
    (``apex_tpu_torch/tools/launch_probe.py``: every case inside sm_90's
-   limits PASSes, every case outside FAILs).
+   limits PASSes, every case outside FAILs). (f) The bf16 and fp16 flash
+   backward (``csrc/flash_bwd_sm90.cuh``: wgmma, TMA) with the forward at
+   the training shape (h 16, s 1024, causal) in bf16 and fp16, bf16 with
+   dropout 0.1, and head_dim 96, 128, 256 (256 in fp16 too) and 60 (padded
+   to 64 for TMA, the padding's own device time beside it): each
+   against its plain versions, each kernel's device ms beside its bound
+   and SDPA's backward by device time. Every flash backward check on the
+   way (phases 2, 11a, 13a, 14a and f) also runs the kernels a second
+   time on the same inputs and holds the two results bitwise equal, and
+   SDPA's backward, the library yardstick of dq and dk/dv, is timed as
+   device time (its forward and backward captured in a CUDA graph, less
+   the forward alone) with its host reading beside it.
 15. Each phase's wall seconds, the ``kernels`` JSON line (all fifty-six
    kernels and variants, each with its launches on its path), then the
    device line the caller reads.
@@ -289,6 +300,7 @@ Needs a CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -815,6 +827,8 @@ def flash_bwd_case(name, gen, dev, b, h, hk, sq, sk, d) -> dict:
     got = attention._flash_bwd_cuda(*args)
     want = attention._flash_bwd_torch(*args)
     torch.cuda.synchronize()
+    check_repeat(f"flash_bwd[{name}]", lambda: attention._flash_bwd_cuda(
+        *args), got)
     errs = {}
     for gname, gt, wt in zip(("dq", "dk", "dv"), got, want):
         check(bool(torch.isfinite(gt.float()).all()),
@@ -830,17 +844,13 @@ def flash_bwd_case(name, gen, dev, b, h, hk, sq, sk, d) -> dict:
     plain_ms = device_ms(lambda: attention._flash_bwd_torch(*args), iters=3,
                          replays=2)
     # the library's attention backward (SDPA), from its own forward
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    with torch.enable_grad():
-        if sq == sk:
-            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                                enable_gqa=hk != h)
-        else:
-            lo = F.scaled_dot_product_attention(
-                ql, kl, vl, enable_gqa=hk != h,
-                attn_mask=_allowed(b, sq, sk, True, None, dev)[:, None])
-    lib_ms = host_ms(lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
-                                                 retain_graph=True), iters=10)
+    sdpa_kw = (dict(is_causal=True, enable_gqa=hk != h) if sq == sk else
+               dict(enable_gqa=hk != h, attn_mask=_allowed(
+                   b, sq, sk, True, None, dev)[:, None]))
+    lib_ms, lib_host = sdpa_bwd_ms(f"SDPA backward {name}", q, k, v, do,
+                                   **sdpa_kw)
+    print(f"    SDPA backward: device ms (CUDA graph) {_ms(lib_ms)}, host ms "
+          f"(CUDA events, back-to-back calls) {_ms(lib_host)}")
     pairs = int(_allowed(b, sq, sk, True, None, dev).sum()) * h
     rows = []
     for kname, n_products, outs in (
@@ -853,10 +863,11 @@ def flash_bwd_case(name, gen, dev, b, h, hk, sq, sk, d) -> dict:
                          2 * d * n_products * pairs, PEAK_BF16_TENSOR_FLOPS)
         print(f"    {kname}: ms={ms:.5f} host_ms={h_ms:.5f} "
               f"bound_ms={b_ms:.5f} ({by}); both kernels' plain_ms="
-              f"{plain_ms:.5f} SDPA backward library_ms={lib_ms:.5f}")
+              f"{plain_ms:.5f} SDPA backward library_ms={_ms(lib_ms)}")
         rows.append({"case": name, "ms": ms, "host_ms": h_ms,
                      "bound_ms": b_ms, "bound_by": by, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "errors": errs,
+                     "library_ms": lib_ms, "library_host_ms": lib_host,
+                     "errors": errs,
                      "shape": f"b={b} h={h} hk={hk} sq={sq} sk={sk} d={d} "
                               f"causal"})
     return rows
@@ -1812,6 +1823,47 @@ def _library_ms(name, fn):
         return None
 
 
+def sdpa_bwd_ms(name, q, k, v, do, **sdpa_kw):
+    """SDPA's backward (``torch.autograd.grad`` of
+    ``F.scaled_dot_product_attention(q, k, v, **sdpa_kw)``) as device time
+    and as host time: ``(device_ms, host_ms)``. Device time as the kernels'
+    is taken, by CUDA graph replay: the forward and the backward captured
+    together, less the forward alone (the backward alone cannot be
+    captured: autograd launches it on the stream its forward ran on). Host
+    time by CUDA events over back-to-back backward calls."""
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def forward():
+        with torch.enable_grad():
+            return F.scaled_dot_product_attention(ql, kl, vl, **sdpa_kw)
+
+    def forward_backward():
+        return torch.autograd.grad(forward(), (ql, kl, vl), do)
+
+    dev_ms = device_ms(forward_backward, iters=10) - device_ms(forward,
+                                                                iters=10)
+    lo = forward()
+    host = _library_ms(name, lambda: torch.autograd.grad(
+        lo, (ql, kl, vl), do, retain_graph=True))
+    del lo
+    torch.cuda.empty_cache()     # the graphs' private pools
+    return dev_ms, host
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.5f}"
+
+
+def check_repeat(name, fn, got) -> None:
+    """The flash backward kernels write each output element once, with no
+    atomics: a second call on the same inputs must be bitwise equal."""
+    again = fn()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)
+              if a is not None),
+          f"{name}: a repeated backward call is not bitwise equal")
+
+
 def softmax_fwd_case(name, x, mask, mode, lib, bound_bytes) -> dict:
     """One forward kernel of ``csrc/softmax.cu`` against its plain version
     on the same inputs: within one ulp of x's dtype elementwise (bf16
@@ -1993,7 +2045,9 @@ def train(seed: int, dev, card: str) -> dict:
     # where the time goes: one more step under the profiler
     (state, _), prof = _profiled(
         lambda: step(state, x, y), "step",
-        {"optimizer": OPT_KERNEL_KEYS + ("adam_kernel",)})
+        {"optimizer": OPT_KERNEL_KEYS + ("adam_kernel",),
+         "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
+         "flash_fwd": ("flash_fwd",)})
     state, split = split_step(step, state, x, y)
 
     # the kernel path against the plain path: one loss and every
@@ -3505,6 +3559,8 @@ def flash_option_case(name, q, k, v, do, *, causal, live_pairs, seg=None,
     got = attention._flash_bwd_cuda(*args, **bkw)
     want = attention._flash_bwd_torch(*args, **bkw)
     torch.cuda.synchronize()
+    check_repeat(f"flash {name}", lambda: attention._flash_bwd_cuda(
+        *args, **bkw), got)
     diff = (out.float() - pout.float()).abs()
     # fully masked rows are 0 on both sides: any floor keeps them at 0
     row_scale = pout.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
@@ -3532,12 +3588,8 @@ def flash_option_case(name, q, k, v, do, *, causal, live_pairs, seg=None,
         sdpa = dict(sdpa, dropout_p=rate)
         lib_fwd = _library_ms(f"SDPA {name}", lambda: (
             F.scaled_dot_product_attention(q, k, v, **sdpa)))
-        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-        with torch.enable_grad():
-            lo = F.scaled_dot_product_attention(ql, kl, vl, **sdpa)
-        lib_bwd = _library_ms(f"SDPA {name} backward", lambda: (
-            torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True)))
-        del lo, ql, kl, vl
+        lib_bwd, _ = sdpa_bwd_ms(f"SDPA {name} backward", q, k, v, do,
+                                 **sdpa)
     b_ms, by = bound(nbytes(q, k, v, out, lse) + extra_bytes,
                      4 * q.shape[-1] * live_pairs, PEAK_BF16_TENSOR_FLOPS)
     print(f"    flash_fwd: ms={fwd_ms:.5f} plain_ms={fwd_plain:.5f} "
@@ -5354,6 +5406,8 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
     grads = attention._flash_bwd_cuda(*args, **ex)
     pgrads = attention._flash_bwd_torch(*args, **ex)
     torch.cuda.synchronize()
+    check_repeat(f"flash {name}", lambda: attention._flash_bwd_cuda(
+        *args, **ex), grads)
     tol = FLASH_DTYPE_TOLS[dtype]
     # bf16 and fp16 per output row (their roundings are the row's); fp32
     # against the output's largest |value| (FLASH32_REL_TOL)
@@ -5406,12 +5460,8 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
                    is_causal=causal and mask is None)
     lib_fwd = _library_ms(f"SDPA {dname}", lambda: (
         F.scaled_dot_product_attention(q, k, v, **sdpa_kw)))
-    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-    with torch.enable_grad():
-        lo = F.scaled_dot_product_attention(ql, kl, vl, **sdpa_kw)
-    lib_bwd = _library_ms(f"SDPA backward {dname}", lambda: (
-        torch.autograd.grad(lo, (ql, kl, vl), do, retain_graph=True)))
-    del lo, ql, kl, vl
+    lib_bwd, lib_bwd_host = sdpa_bwd_ms(f"SDPA backward {dname}", q, k, v,
+                                        do, **sdpa_kw)
     pairs = int(live.sum()) * h
     rows = {}
     for key, kname, kernel, n_prod, outs, pms, lms in (
@@ -5435,6 +5485,8 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
                  "backward kernels' work)"))
         rows[key] = {"case": name, "ms": ms, "bound_ms": b_ms,
                      "bound_by": by, "plain_ms": pms, "library_ms": lms,
+                     **({} if key == "fwd" else
+                        {"library_host_ms": lib_bwd_host}),
                      "max_abs_err": abs_errs[key],
                      "rel_err": out_err if key == "fwd" else max(
                          g_errs[x_] for x_ in (("dq",) if key == "dq"
@@ -5492,6 +5544,64 @@ def flash_dtype_cases(gen, dev) -> tuple:
     d96 = flash_dtype_case("head_dim_96", gen, dev, torch.bfloat16, 4, 16,
                            16, 1024, 1024, 96)
     return rows, d96
+
+
+# phase 14f: the bf16/fp16 flash backward (wgmma, TMA; PR 12) at the
+# training shape (h 16, s 1024, causal) and each head width, each beside its
+# bound and SDPA's backward by device time: name, dtype, batch, head_dim,
+# dropout 0.1
+BWD_REPORT = (
+    ("bf16_train", torch.bfloat16, TRAIN_BATCH, 64, False),
+    ("fp16_train", torch.float16, TRAIN_BATCH, 64, False),
+    ("bf16_train_dropout", torch.bfloat16, TRAIN_BATCH, 64, True),
+    ("bf16_d96", torch.bfloat16, 4, 96, False),
+    ("bf16_d128", torch.bfloat16, 4, 128, False),
+    ("bf16_d256", torch.bfloat16, 4, 256, False),
+    ("fp16_d256", torch.float16, 4, 256, False),
+    # no multiple of 8: the backward's wrapper pads it to 64 (TMA's rows)
+    ("bf16_d60", torch.bfloat16, 4, 60, False),
+)
+
+
+def bwd_report_cases(gen, dev) -> dict:
+    """Phase 14f: ``flash_dtype_case`` at each BWD_REPORT shape (the
+    forward, dq and dk/dv against their plain versions, a repeated
+    backward bitwise equal, device ms beside the bound and SDPA's backward
+    by device time). Returns {name: {"fwd", "dq", "dkv"}}."""
+    out = {}
+    for name, dtype, b, d, drop in BWD_REPORT:
+        out[name] = flash_dtype_case(name, gen, dev, dtype, b, 16, 16, 1024,
+                                     1024, d, dropout=drop)
+        torch.cuda.empty_cache()
+    print("  flash backward per call (dq + dk/dv, device ms) against SDPA's "
+          "backward (device ms): " + "; ".join(
+              f"{n} {r['dq']['ms'] + r['dkv']['ms']:.4f} vs "
+              f"{r['dq']['library_ms']}" for n, r in out.items()))
+    # the host cost of the tensor maps each launch encodes (four)
+    lib = _build.library("flash_bwd", "apex_flash_bwd_map_us",
+                         (_build.P,) + (_build.I,) * 4,
+                         "apex_flash_bwd_error_string")
+    lib.apex_flash_bwd_map_us.restype = ctypes.c_double
+    x = torch.empty(TRAIN_BATCH * 16, 1024, 64, dtype=torch.bfloat16,
+                    device=dev)
+    map_us = lib.apex_flash_bwd_map_us(x.data_ptr(), TRAIN_BATCH * 16, 1024,
+                                       64, 1000)
+    print(f"  tensor-map encoding: {map_us:.3f} us a map on the host, four a "
+          "launch")
+    check(map_us > 0, "a tensor map failed to encode")
+    out["map_encode_us"] = map_us
+    # the host-side padding of a head_dim off TMA's 16-byte rows (60 -> 64
+    # at b4 h16 s1024): q, k, v and dO padded, dq, dk and dv cut back
+    t = torch.zeros(4, 16, 1024, 60, dtype=torch.bfloat16, device=dev)
+
+    def pad_and_cut():
+        wide = [F.pad(t, (0, 4)) for _ in range(4)]
+        return [w[..., :60].contiguous() for w in wide[:3]]
+
+    out["pad_ms"] = device_ms(pad_and_cut)
+    print(f"  padding d 60 to 64 around the backward: {out['pad_ms']:.5f} ms "
+          "(device, b4 h16 s1024 bf16)")
+    return out
 
 
 def ln_fp16_cases(gen, dev) -> list:
@@ -6068,6 +6178,15 @@ def main(argv=None) -> int:
         for dt in (torch.float32, torch.float16)}
     prb = phase("phase 14e: the kprobe ladder and the launch probe",
                 lambda: probe_cases(dev))
+
+    def bwd_report():
+        with torch.no_grad():
+            return bwd_report_cases(torch.Generator().manual_seed(
+                args.seed + 17), dev)
+
+    bwr = phase("phase 14f: the wgmma/TMA flash backward (bf16, fp16) at "
+                "the training shape and head widths 64 to 256",
+                bwd_report)
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -6090,6 +6209,14 @@ def main(argv=None) -> int:
     kernels.append(drow)
     kernels += srk
     kernels += dk14["rows"] + prb
+    # phase 14f's cases join the rows of their dtype
+    by_name = {k["name"]: k for k in kernels}
+    for name, dtype, *_ in BWD_REPORT:
+        for key, base in (("fwd", attention.KERNEL),
+                          ("dq", attention.BWD_DQ_KERNEL),
+                          ("dkv", attention.BWD_DKV_KERNEL)):
+            by_name[attention.kernel_name(base, dtype)]["cases"].append(
+                bwr[name][key])
     # where each kernel's launches are read: the path that runs it (the
     # forward kernels run on every GPT path: their launches are the
     # serving run's; the scaled sum of squares runs on the scaler step;
@@ -6233,6 +6360,7 @@ def main(argv=None) -> int:
                        "multihead_attn_dtypes": mha16,
                        "phase14_kernels": {"d96": dk14["d96"],
                                            "rope": dk14["rope"]},
+                       "flash_bwd_report": bwr,
                        **line}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -168,7 +168,8 @@ def test_flash_kernel_refuses_unported_options(cuda_device):
     # bias and positions have kernels, and so (since fp16 and fp32 were
     # ported and head widths pad to the built ones) do fp32 and fp16 q/k/v,
     # head_dim 48 and an fp16 bias: each launches its dtype's kernel. What
-    # is still refused: a head_dim past 128 and integer inputs.
+    # is still refused: a head_dim past 128 in fp32, past 256 in bf16 and
+    # fp16, and integer inputs.
     q = torch.zeros(1, 2, 8, 64, device=cuda_device, dtype=torch.bfloat16)
     before = _build.launch_counts()
     attention.flash_attention(
@@ -189,9 +190,9 @@ def test_flash_kernel_refuses_unported_options(cuda_device):
                                         q.to(dtype))
         assert out.dtype == dtype
         assert _build.launch_counts()[name] == n0 + 1
-    with pytest.raises(NotImplementedError, match="head_dim"):
+    with pytest.raises(NotImplementedError, match="head_dim 160 in fp32"):
         w = torch.zeros(1, 2, 8, 160, device=cuda_device,
-                        dtype=torch.bfloat16)
+                        dtype=torch.float32)
         attention.flash_attention(w, w, w)
     with pytest.raises(NotImplementedError, match="head_dim"):
         w = torch.zeros(1, 2, 8, 272, device=cuda_device,
@@ -233,6 +234,100 @@ def test_flash_bwd_kernels_match_plain(cuda_device, case):
         scale_w = max(float(w.float().abs().max()), 1e-6)
         err = float((g.float() - w.float()).abs().max())
         assert err <= 2.0 ** -6 * scale_w, (name, err, scale_w)
+
+
+# The bf16/fp16 backward (wgmma, TMA; csrc/flash_bwd_sm90.cuh) over its
+# options: name -> keyword arguments of _sm90_case
+SM90_OPTIONS = {
+    "causal": dict(),
+    "window": dict(window=37),
+    "noncausal_segments": dict(causal=False, segments=True),
+    "bias": dict(bias="full"),
+    "positions_glse": dict(positions=True, glse=True),
+    "dropout": dict(rate=0.1),
+    "all": dict(segments=True, bias="keys", glse=True, rate=0.1),
+}
+SM90_TOLS = {torch.bfloat16: 2.0 ** -6, torch.float16: 2.0 ** -9}
+
+
+def _sm90_case(dev, dtype, d, *, causal=True, window=None, segments=False,
+               bias=None, positions=False, glse=False, rate=0.0, seed=3):
+    """Backward arguments at a ragged GQA shape (b 2, h 4 over hk 2, sq 150,
+    sk 200), the lse from the plain forward."""
+    b, h, hk, sq, sk = 2, 4, 2, 150, 200
+    if positions:
+        sq = sk = 192
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(
+        np.float32)).to(dev, dtype) for shape in (
+        (b, h, sq, d), (b, hk, sk, d), (b, hk, sk, d), (b, h, sq, d)))
+    q_seg = k_seg = None
+    if segments:
+        q_seg = torch.from_numpy(np.sort(rng.randint(0, 3, (b, sq)), -1)
+                                 .astype(np.int32)).to(dev)
+        k_seg = torch.from_numpy(np.sort(rng.randint(0, 3, (b, sk)), -1)
+                                 .astype(np.int32)).to(dev)
+    bt = None
+    if bias == "full":
+        bt = torch.from_numpy(rng.randn(b, h, sq, sk).astype(
+            np.float32)).to(dev)
+    elif bias == "keys":
+        bt = torch.from_numpy(2 * rng.randn(b, 1, 1, sk).astype(
+            np.float32)).to(dev, torch.bfloat16)
+    q_pos = k_pos = None
+    if positions:
+        q_pos = torch.from_numpy(np.sort(rng.permutation(2 * sq)[:sq])
+                                 .astype(np.int32)).to(dev)
+        k_pos = torch.from_numpy(np.sort(rng.permutation(2 * sk)[:sk])
+                                 .astype(np.int32)).to(dev)
+    seed_ = 1234 if rate > 0 else None
+    scale = d ** -0.5
+    out, lse = attention._attention_torch(
+        q, k, v, bt, q_seg, k_seg, scale, causal, window, rate, seed_,
+        return_lse=True, q_pos=q_pos, k_pos=k_pos)
+    delta = (out.float() * do.float()).sum(-1)
+    gl = (torch.from_numpy(rng.randn(b, h, sq).astype(np.float32)).to(dev)
+          if glse else None)
+    args = (q, k, v, lse, do, delta, q_seg, k_seg, scale, causal, window,
+            rate, seed_)
+    return args, dict(bias=bt, glse=gl, q_pos=q_pos, k_pos=k_pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", sorted(SM90_OPTIONS))
+@pytest.mark.parametrize("d", [32, 40, 64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_sm90_flash_bwd_matches_plain(cuda_device, dtype, d, opt):
+    args, kw = _sm90_case(cuda_device, dtype, d, **SM90_OPTIONS[opt])
+    names = [attention.kernel_name(k_, dtype) for k_ in (
+        attention.BWD_DQ_KERNEL, attention.BWD_DKV_KERNEL)]
+    counts = _build.launch_counts()
+    got = attention._flash_bwd_cuda(*args, **kw)
+    want = attention._flash_bwd_torch(*args, **kw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for n_ in names:
+        assert after[n_] == counts.get(n_, 0) + 1
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert g_.dtype == dtype and g_.shape == w_.shape
+        assert bool(torch.isfinite(g_.float()).all()), name
+        scale_w = max(float(w_.float().abs().max()), 1e-6)
+        err = float((g_.float() - w_.float()).abs().max())
+        assert err <= SM90_TOLS[dtype] * scale_w, (name, err, scale_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_sm90_flash_bwd_repeats_bitwise(cuda_device, dtype, d):
+    """No atomics: each output element is written once, so two calls on
+    the same inputs give the same bits."""
+    args, kw = _sm90_case(cuda_device, dtype, d, **SM90_OPTIONS["all"])
+    first = attention._flash_bwd_cuda(*args, **kw)
+    second = attention._flash_bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    for a_, b_ in zip(first, second):
+        assert torch.equal(a_, b_)
 
 
 def _row_rel_err(got, want) -> float:
