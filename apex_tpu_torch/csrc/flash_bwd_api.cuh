@@ -24,13 +24,6 @@ struct Args {
 template <typename T>
 int launch_width(const Args& a, cudaStream_t stream);
 
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 // The launcher of element type T (each flash_bwd*.cu exports it for its
 // dtype, one library each, so that the dtypes build in parallel).
 // One entry for both kernels: dq null skips the dq kernel, dk (and dv)

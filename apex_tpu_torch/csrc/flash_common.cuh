@@ -325,6 +325,26 @@ __device__ __forceinline__ float dropped(const Dropout& dr, uint32_t bh,
              : 0.f;
 }
 
+// the max and the sum over the four lanes of a quad (the lanes that hold one
+// accumulator row)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// a kernel's dynamic shared memory past the default 48 KB allowed
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
 // The kParts registers of a fragment pair: p[0], p[1] of each part (part j
 // `PS` elements after part 0), or two elements at unrelated addresses.
 template <typename T, int PS, typename S>

@@ -1,5 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a): bf16, fp16 or fp32 in, fp32
-// softmax.
+// Flash-attention forward for fp32 q, k, v on `mma.sync` (sm_90a), fp32
+// softmax. bf16 and fp16 run the wgmma/TMA design of flash_fwd_sm90.cuh;
+// fp32 stays here, as `wgmma` has no exact fp32 product.
 //
 // Replaces: apex_tpu/ops/attention.py `_fwd_kernel` (:182), launched by
 // `_flash_fwd_pallas` (`pallas_call` at :373). Same function: for every
@@ -22,22 +23,20 @@
 // the input dtype for the P.V product (the reference's `p.astype(v.dtype)`,
 // :249), while l sums the fp32 probabilities. fp32 inputs take exact
 // products (three bf16 parts a value, `flash_common.cuh`) and the accurate
-// exp; any head_dim up to 128 runs (up to 256 in bf16 and fp16),
-// zero-padded in shared memory to the next built width (32, 64, 96, 128,
-// 256).
+// exp; any head_dim up to 128 runs, zero-padded in shared memory to the
+// next built width (32, 64, 96, 128).
 //
 // Bound on the card: prefill is compute-bound (4 * b * h * sq * sk * d
-// flops, about half of that when causal, against 989 TFLOP/s of bf16 or
-// fp16 tensor-core rate; fp32 runs six bf16 products for each, and its
-// bound is taken at the card's 67 TFLOP/s of fp32 FMA); single-token
-// decode (sq = 1) is memory-bound (reading K and V once, 2 * b * hk * sk
-// * d * sizeof(element) bytes at 3.35 TB/s).
+// flops, about half of that when causal; fp32 runs six bf16 products for
+// each, and its bound is taken at the card's 67 TFLOP/s of fp32 FMA);
+// single-token decode (sq = 1) is memory-bound (reading K and V once, 2 *
+// b * hk * sk * d * 4 bytes at 3.35 TB/s).
 //
 // Design: one 128-thread block per (64-query tile, batch*head). Each of
 // the four warps owns 16 query rows and keeps its Q fragments, its
 // 16 x 64 score tile and its 16 x d output accumulator in registers; the
-// products run on the tensor cores through `mma.sync` m16n8k16 (bf16 or
-// fp16 in, fp32 accumulate), and the score fragments are re-packed in
+// products run on the tensor cores through `mma.sync` m16n8k16 (six bf16
+// products a value, fp32 accumulate), and the score fragments are re-packed in
 // registers as the A operand of P.V, so scores never touch shared or device
 // memory. K and V stream through shared memory one 64-key tile at a time
 // with 16-byte loads. Tiles wholly above the causal diagonal or wholly
@@ -58,23 +57,13 @@
 
 #pragma once
 
-#include "flash_common.cuh"
+#include "flash_fwd_api.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;            // query rows per block (16 per warp)
 constexpr int kBK = 64;            // keys per tile
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 template <typename T, int D, bool EXTRA>
 constexpr int smem_bytes() {
@@ -103,12 +92,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int KS = D / 16;    // k16 steps of q.k^T
   constexpr int NT = kBK / 8;   // n8 tiles of a score row
   constexpr int DT = D / 8;     // n8 tiles of an output row
-  // 16-bit Q fragments stay in registers for the whole key loop up to D =
-  // 128; at 256 (beside 128 output accumulators) and for fp32 (three parts
-  // each) they are re-read from shared memory per k16 step. At 256 ptxas
-  // keeps 250 registers a thread, 255 and a 16-byte spill with EXTRA: the
-  // 64-key tile stays.
-  constexpr bool kQRegs = P == 1 && D <= 128;
+  // fp32 Q fragments (three parts each) are re-read from shared memory per
+  // k16 step
   extern __shared__ __align__(16) unsigned char smem_raw[];
   using S = typename E::S;
   constexpr int PS = part_stride<T, D>(), TE = tile_elems<T, D>();
@@ -139,12 +124,6 @@ __global__ void __launch_bounds__(kThreads)
 
   // this thread's rows of the warp's 16-row slab: r0 and r0 + 8
   const int r0 = warp * 16 + g;
-  uint32_t qa[kQRegs ? KS : 1][4 * P];
-  if constexpr (kQRegs) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-      load_a<T, PS>(qa[kk], sQ, r0, LD, kk, t);
-  }
   const int qi0 = q0 + r0, qi1 = qi0 + 8;
   const int qs0 = (has_seg && qi0 < SQ) ? q_seg[(size_t)bi * SQ + qi0] : 0;
   const int qs1 = (has_seg && qi1 < SQ) ? q_seg[(size_t)bi * SQ + qi1] : 0;
@@ -196,22 +175,13 @@ __global__ void __launch_bounds__(kThreads)
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    if constexpr (kQRegs) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t a[4 * P];
+      load_a<T, PS>(a, sQ, r0, LD, kk, t);
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk)
-          mma_abt<T, PS>(s[j], qa[kk], sK, j * 8, LD, kk, g, t);
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t a[4 * P];
-        load_a<T, PS>(a, sQ, r0, LD, kk, t);
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_abt<T, PS>(s[j], a, sK, j * 8, LD, kk, g, t);
-      }
+      for (int j = 0; j < NT; ++j)
+        mma_abt<T, PS>(s[j], a, sK, j * 8, LD, kk, g, t);
     }
 
     float mx0 = kNegInf, mx1 = kNegInf;
@@ -314,16 +284,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *q_seg, *k_seg, *q_pos, *k_pos;
-  Bias bias;
-  void *out, *lse;
-  int B, H, HK, SQ, SK, DH;
-  float scale;
-  int causal, window;
-  Dropout dr;
-};
-
 template <typename T, int D, bool EXTRA>
 int launch_one(const Args& a, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<T, D, EXTRA>();
@@ -363,69 +323,9 @@ int launch_width(const Args& a, cudaStream_t stream) {
       return launch<T, 96>(a, stream);
     case 128:
       return launch<T, 128>(a, stream);
-    case 256:   // bf16 and fp16: fp32's three part tiles would not fit
-      if constexpr (Elem<T>::kParts == 1) return launch<T, 256>(a, stream);
-      return (int)cudaErrorInvalidValue;
-    default:
+    default:   // fp32's three part tiles would not fit at 256
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// The launcher of element type T (each flash_fwd*.cu exports it for its
-// dtype, one library each, so that the dtypes build in parallel).
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// a head_dim past the dtype's widest built width, an unknown dtype or a
-// grid beyond the y limit).
-// dtype: 0 fp32, 1 bf16, 2 fp16, for q, k, v and out. window <= 0 means
-// no window; q_seg and k_seg are both null or both set, as are q_pos and
-// k_pos (positions need causal != 0). bias null means no bias; else
-// bias_dtype (0 fp32, 1 bf16, 2 fp16) says its type and sb, sh, sq, sk are
-// its element strides over (b, h, q, k), 0 where it broadcasts. dropout !=
-// 0 drops P in the P.V product: kept where the hash of (seed, b * H + h,
-// row, col) is >= thresh, divided by keep (1 - rate).
-template <typename T>
-int apex_flash_fwd_entry(const void* q, const void* k, const void* v,
-                              const void* q_seg, const void* k_seg,
-                              const void* q_pos, const void* k_pos,
-                              const void* bias, int bias_dtype, long long sb,
-                              long long sh, long long sq, long long sk,
-                              void* out, void* lse, int B, int H, int HK,
-                              int SQ, int SK, int D, int dtype, float scale,
-                              int causal, int window, int dropout,
-                              uint32_t seed, uint32_t thresh, float keep,
-                              void* stream) {
-  if (dtype != Elem<T>::kCode) return (int)cudaErrorInvalidValue;
-  if (B == 0 || H == 0 || SQ == 0) return (int)cudaGetLastError();
-  if (HK <= 0 || H % HK || B * H > 65535 || SK < 1)
-    return (int)cudaErrorInvalidValue;
-  if ((q_pos == nullptr) != (k_pos == nullptr) || (q_pos && !causal))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{q,   k,  v,  q_seg, k_seg, q_pos, k_pos,
-               Bias{bias, bias_dtype, sb, sh, sq, sk},
-               out, lse, B, H, HK, SQ, SK, D, scale, causal, window,
-               Dropout{dropout, seed, thresh, keep}};
-  return launch_width<T>(a, s);
 }
 
 }  // namespace
-
-// The C entry points of one dtype's library: `apex_flash_fwd`, the entry
-// above for T (its dtype argument must be T's code), and the error string.
-#define APEX_EXPORT_FLASH_FWD(T)                                             \
-  extern "C" int apex_flash_fwd(                                             \
-      const void* q, const void* k, const void* v, const void* q_seg,       \
-      const void* k_seg, const void* q_pos, const void* k_pos,              \
-      const void* bias, int bias_dtype, long long sb, long long sh,         \
-      long long sq, long long sk, void* out, void* lse, int B, int H,       \
-      int HK, int SQ, int SK, int D, int dtype, float scale, int causal,    \
-      int window, int dropout, uint32_t seed, uint32_t thresh, float keep,  \
-      void* stream) {                                                       \
-    return apex_flash_fwd_entry<T>(                                         \
-        q, k, v, q_seg, k_seg, q_pos, k_pos, bias, bias_dtype, sb, sh, sq,  \
-        sk, out, lse, B, H, HK, SQ, SK, D, dtype, scale, causal, window,    \
-        dropout, seed, thresh, keep, stream);                               \
-  }                                                                         \
-  extern "C" const char* apex_flash_error_string(int err) {                 \
-    return cudaGetErrorString(static_cast<cudaError_t>(err));               \
-  }

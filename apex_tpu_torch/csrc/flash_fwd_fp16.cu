@@ -1,6 +1,6 @@
-// Flash-attention forward for fp16 q, k, v: the kernels of
-// flash_fwd.cuh (the fp16 `mma`, P and dS rounded to fp16).
+// Flash-attention forward for fp16 q, k, v: the wgmma/TMA kernel of
+// flash_fwd_sm90.cuh (the fp16 `wgmma`, P rounded to fp16).
 
-#include "flash_fwd.cuh"
+#include "flash_fwd_sm90.cuh"
 
 APEX_EXPORT_FLASH_FWD(__half)

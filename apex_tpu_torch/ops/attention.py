@@ -26,10 +26,13 @@ tiles are skipped by their position bounds) and attention dropout, with
 bf16, fp16 or fp32 inputs and any head_dim up to 256 in bf16 and fp16, up
 to 128 in fp32 (zero-padded inside the kernels to the next built width,
 :data:`BUILT_WIDTHS`; :func:`check_head_dim` says why wider ones raise).
-The bf16 and fp16 backward is the wgmma/TMA design of
-``csrc/flash_bwd_sm90.cuh``; fp32's keeps ``csrc/flash_bwd.cuh``. Launch
-counts are kept per dtype: bf16 under the kernel's
-name, fp16 and fp32 with a ``_fp16`` / ``_fp32`` suffix
+The bf16 and fp16 forward and backward are the wgmma/TMA designs of
+``csrc/flash_fwd_sm90.cuh`` and ``csrc/flash_bwd_sm90.cuh``, whose tiles
+TMA copies (a head_dim off :func:`tma_width` is padded with zero columns
+on the way in and cut on the way out, :func:`pad_head_dim`); fp32 keeps
+``csrc/flash_fwd.cuh`` and ``csrc/flash_bwd.cuh``. Launch counts are kept
+per dtype: bf16 under the kernel's name, fp16 and fp32 with a ``_fp16`` /
+``_fp32`` suffix
 (:func:`kernel_name`). Dropout is the reference's
 counter-based mask (:func:`_dropout_keep`, the murmur3 finaliser of the
 seed, the flat q-head index and the global query row and key column),
@@ -331,10 +334,26 @@ def check_head_dim(d: int, dtype: torch.dtype) -> None:
 
 
 def tma_width(d: int) -> int:
-    """The head width the bf16/fp16 backward kernels read: ``d``
-    rounded up to a multiple of 8 and at least 32 (TMA copies need
-    16-byte row strides; narrower boxes are zero-filled)."""
+    """The head width the bf16/fp16 kernels read: ``d`` rounded up to a
+    multiple of 8 and at least 32 (TMA copies need 16-byte row strides;
+    narrower boxes are zero-filled)."""
     return max(32, -(-d // 8) * 8)
+
+
+def kernel_width(d: int, dtype: torch.dtype) -> int:
+    """The head width the kernels of ``dtype`` are launched at: fp32's
+    read any ``d`` (zero-padded in shared memory), bf16's and fp16's
+    :func:`tma_width`."""
+    return d if dtype == torch.float32 else tma_width(d)
+
+
+def pad_head_dim(tensors, width: int):
+    """Each tensor (None passes through) with zero columns appended to
+    ``width``: they add nothing to q.k, and the output and gradient
+    columns they give are cut again."""
+    return [t if t is None or t.shape[-1] == width else
+            torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+            for t in tensors]
 
 
 def _check_kernel_args(q, k, v, q_seg, k_seg):
@@ -408,11 +427,8 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     extra = _extra_args(q, bias, q_pos, k_pos)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    width = d if q.dtype == torch.float32 else tma_width(d)
-    if width != d:
-        # zero columns add nothing to q.k or to any gradient column kept
-        q, k, v, dout = (torch.nn.functional.pad(t, (0, width - d))
-                         for t in (q, k, v, dout))
+    width = kernel_width(d, q.dtype)
+    q, k, v, dout = pad_head_dim((q, k, v, dout), width)
     dq = torch.empty_like(q) if BWD_DQ_KERNEL in kernels else None
     dk, dv = ((torch.empty_like(k), torch.empty_like(v))
               if BWD_DKV_KERNEL in kernels else (None, None))
@@ -515,12 +531,17 @@ def _library(dtype: torch.dtype) -> ctypes.CDLL:
 
 def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
                 seed=None, *, bias=None, q_pos=None, k_pos=None):
-    """The kernel: returns ``(out, lse)`` like ``_flash_fwd_pallas``."""
+    """The kernel: returns ``(out, lse)`` like ``_flash_fwd_pallas``.
+    bf16 and fp16 run the wgmma/TMA kernel (``csrc/flash_fwd_sm90.cuh``):
+    a head_dim off :func:`tma_width` is padded with zero columns on the
+    way in and the output cut on the way out."""
     q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
     extra = _extra_args(q, bias, q_pos, k_pos)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     dev = q.device
+    width = kernel_width(d, q.dtype)
+    q, k, v = pad_head_dim((q, k, v), width)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     lib = _library(q.dtype)
@@ -531,13 +552,16 @@ def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if q_seg is None else q_seg.data_ptr(),
             None if k_seg is None else k_seg.data_ptr(), *extra,
-            out.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, d,
-            DTYPE_CODES[q.dtype], float(scale), int(causal), 0 if window is None else int(window),
+            out.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, width,
+            DTYPE_CODES[q.dtype], float(scale), int(causal),
+            0 if window is None else int(window),
             *_dropout_args(rate, seed), stream)
     if err:
         raise RuntimeError(f"{KERNEL}: CUDA error {err} at launch: "
                            f"{lib.apex_flash_error_string(err).decode()}")
     _build.count_launch(kernel_name(KERNEL, q.dtype))
+    if width != d:
+        out = out[..., :d].contiguous()
     return out, lse
 
 

@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero before the last line:
    the port never calls it) and the least time the card could take
    (``bound_ms``: bytes over 3.35 TB/s or operations over the peak rate
    of their type, whichever is larger). The forward kernels at the
-   serving shapes; the LayerNorm backward, the flash dq and dk/dv and
+   serving shapes (the flash forward, on wgmma and TMA, also run a
+   second time on the same inputs, output and lse bitwise equal);
+   the LayerNorm backward, the flash dq and dk/dv and
    the Adam kernels at the training shapes (Adam bitwise, with an
    injected inf: found_inf set, a skipped step leaving the state as it
    was). Then the LAMB kernels on GPT-2 345M's buffers: both
@@ -278,17 +280,20 @@ Phases, in order; any failure exits non-zero before the last line:
    injected inf, each rung's GB/s against 3.35 TB/s) and the launch probe
    (``apex_tpu_torch/tools/launch_probe.py``: every case inside sm_90's
    limits PASSes, every case outside FAILs). (f) The bf16 and fp16 flash
-   backward (``csrc/flash_bwd_sm90.cuh``: wgmma, TMA) with the forward at
-   the training shape (h 16, s 1024, causal) in bf16 and fp16, bf16 with
-   dropout 0.1, and head_dim 96, 128, 256 (256 in fp16 too) and 60 (padded
-   to 64 for TMA, the padding's own device time beside it): each
-   against its plain versions, each kernel's device ms beside its bound
-   and SDPA's backward by device time. Every flash backward check on the
-   way (phases 2, 11a, 13a, 14a and f) also runs the kernels a second
-   time on the same inputs and holds the two results bitwise equal, and
-   SDPA's backward, the library yardstick of dq and dk/dv, is timed as
-   device time (its forward and backward captured in a CUDA graph, less
-   the forward alone) with its host reading beside it.
+   forward and backward (``csrc/flash_fwd_sm90.cuh``,
+   ``csrc/flash_bwd_sm90.cuh``: wgmma, TMA) at the training shape (h 16, s
+   1024, causal) in bf16 and fp16, bf16 with dropout 0.1, the serving
+   decode (b 8, sq 1, sk 1025, the context's segment ids) and prefill (b 4,
+   s 512), the multi-head attention shape with its key-padding bias, and
+   head_dim 96, 128, 256 and 60 (padded to 64 for TMA, the padding's own
+   device time beside it) in both: each against its plain versions, each
+   kernel's device ms beside its bound and SDPA's forward and backward by
+   device time. Every flash check on the way (phases 2, 11a, 13a, 14a and
+   f) also runs the kernels a second time on the same inputs and holds the
+   two results bitwise equal, and SDPA's backward, the library yardstick
+   of dq and dk/dv, is timed as device time (its forward and backward
+   captured in a CUDA graph, less the forward alone) with its host
+   reading beside it.
 15. Each phase's wall seconds, the ``kernels`` JSON line (all fifty-six
    kernels and variants, each with its launches on its path), then the
    device line the caller reads.
@@ -696,6 +701,8 @@ def flash_case(name, gen, dev, b, h, hk, sq, sk, d, causal, written=None):
     out, lse = attention.flash_attention(q, k, v, return_lse=True, **kw)
     pout, plse = attention.attention_plain(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
+    check_repeat(f"flash_fwd[{name}]", lambda: attention.flash_attention(
+        q, k, v, return_lse=True, **kw), (out, lse))
     diff = (out.float() - pout.float()).abs()
     err = float(diff.max())
     # fully masked rows are 0 on both sides: any floor keeps them at 0
@@ -1855,13 +1862,14 @@ def _ms(x) -> str:
 
 
 def check_repeat(name, fn, got) -> None:
-    """The flash backward kernels write each output element once, with no
-    atomics: a second call on the same inputs must be bitwise equal."""
+    """The flash kernels write each output element once, with no atomics:
+    a second call on the same inputs must be bitwise equal (the forward's
+    output and lse, the backward's gradients)."""
     again = fn()
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)
               if a is not None),
-          f"{name}: a repeated backward call is not bitwise equal")
+          f"{name}: a repeated call is not bitwise equal")
 
 
 def softmax_fwd_case(name, x, mask, mode, lib, bound_bytes) -> dict:
@@ -2048,6 +2056,11 @@ def train(seed: int, dev, card: str) -> dict:
         {"optimizer": OPT_KERNEL_KEYS + ("adam_kernel",),
          "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
          "flash_fwd": ("flash_fwd",)})
+    if prof["device_busy_ms"] > 0:
+        print(f"  the flash forward in the profiled step: "
+              f"{prof['flash_fwd_ms']:.3f} ms of {prof['device_busy_ms']:.1f} "
+              f"ms of device time "
+              f"({100 * prof['flash_fwd_ms'] / prof['device_busy_ms']:.2f}%)")
     state, split = split_step(step, state, x, y)
 
     # the kernel path against the plain path: one loss and every
@@ -3559,6 +3572,8 @@ def flash_option_case(name, q, k, v, do, *, causal, live_pairs, seg=None,
     got = attention._flash_bwd_cuda(*args, **bkw)
     want = attention._flash_bwd_torch(*args, **bkw)
     torch.cuda.synchronize()
+    check_repeat(f"flash_fwd {name}", lambda: attention._flash_cuda(
+        *fwd_args, **kw), (out, lse))
     check_repeat(f"flash {name}", lambda: attention._flash_bwd_cuda(
         *args, **bkw), got)
     diff = (out.float() - pout.float()).abs()
@@ -5406,6 +5421,7 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
     grads = attention._flash_bwd_cuda(*args, **ex)
     pgrads = attention._flash_bwd_torch(*args, **ex)
     torch.cuda.synchronize()
+    check_repeat(f"flash_fwd {name}", fwd, (out, lse))
     check_repeat(f"flash {name}", lambda: attention._flash_bwd_cuda(
         *args, **ex), grads)
     tol = FLASH_DTYPE_TOLS[dtype]
@@ -5458,8 +5474,10 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
         mask = live[:, None]
     sdpa_kw = dict(attn_mask=mask, dropout_p=rate, enable_gqa=hk != h,
                    is_causal=causal and mask is None)
-    lib_fwd = _library_ms(f"SDPA {dname}", lambda: (
-        F.scaled_dot_product_attention(q, k, v, **sdpa_kw)))
+    sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, **sdpa_kw)
+    lib_fwd = _library_ms(f"SDPA {dname}", sdpa_fwd)
+    lib_fwd_dev = device_ms(sdpa_fwd)
     lib_bwd, lib_bwd_host = sdpa_bwd_ms(f"SDPA backward {dname}", q, k, v,
                                         do, **sdpa_kw)
     pairs = int(live.sum()) * h
@@ -5481,12 +5499,12 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
         print(f"    {attention.kernel_name(kname, dtype)}: ms={ms:.5f} "
               f"bound_ms={b_ms:.5f} ({by}) plain_ms={pms:.5f} "
               f"library_ms={lms if lms is None else round(lms, 5)}"
-              + ("" if key == "fwd" else " (plain and library: both "
-                 "backward kernels' work)"))
+              + (f" (SDPA by device time {lib_fwd_dev:.5f})" if key == "fwd"
+                 else " (plain and library: both backward kernels' work)"))
         rows[key] = {"case": name, "ms": ms, "bound_ms": b_ms,
                      "bound_by": by, "plain_ms": pms, "library_ms": lms,
-                     **({} if key == "fwd" else
-                        {"library_host_ms": lib_bwd_host}),
+                     **({"library_device_ms": lib_fwd_dev} if key == "fwd"
+                        else {"library_host_ms": lib_bwd_host}),
                      "max_abs_err": abs_errs[key],
                      "rel_err": out_err if key == "fwd" else max(
                          g_errs[x_] for x_ in (("dq",) if key == "dq"
@@ -5546,33 +5564,50 @@ def flash_dtype_cases(gen, dev) -> tuple:
     return rows, d96
 
 
-# phase 14f: the bf16/fp16 flash backward (wgmma, TMA; PR 12) at the
-# training shape (h 16, s 1024, causal) and each head width, each beside its
-# bound and SDPA's backward by device time: name, dtype, batch, head_dim,
-# dropout 0.1
-BWD_REPORT = (
-    ("bf16_train", torch.bfloat16, TRAIN_BATCH, 64, False),
-    ("fp16_train", torch.float16, TRAIN_BATCH, 64, False),
-    ("bf16_train_dropout", torch.bfloat16, TRAIN_BATCH, 64, True),
-    ("bf16_d96", torch.bfloat16, 4, 96, False),
-    ("bf16_d128", torch.bfloat16, 4, 128, False),
-    ("bf16_d256", torch.bfloat16, 4, 256, False),
-    ("fp16_d256", torch.float16, 4, 256, False),
-    # no multiple of 8: the backward's wrapper pads it to 64 (TMA's rows)
-    ("bf16_d60", torch.bfloat16, 4, 60, False),
+# phase 14f: the bf16/fp16 flash kernels on wgmma and TMA at the training
+# shape (h 16, s 1024, causal), each head width, and the forward's serving
+# and multi-head attention shapes, each beside its bound and SDPA's by
+# device time: name, dtype, (batch, sq, sk, head_dim), flash_dtype_case's
+# options
+_TRAIN = (TRAIN_BATCH, 1024, 1024, 64)
+FLASH_REPORT = (
+    ("bf16_train", torch.bfloat16, _TRAIN, {}),
+    ("fp16_train", torch.float16, _TRAIN, {}),
+    ("bf16_train_dropout", torch.bfloat16, _TRAIN, dict(dropout=True)),
+    # serving: GPT-2 345M's decode over the paged context (segment ids for
+    # the unwritten tail) and a prefill; one warpgroup a block at sq 1
+    ("bf16_decode", torch.bfloat16, (8, 1, 1025, 64),
+     dict(causal=False, written=[1024, 700, 512, 300, 200, 100, 64, 32])),
+    ("bf16_prefill", torch.bfloat16, (4, 512, 512, 64), {}),
+    # the multi-head attention stacks' 64 tokens with a key-padding bias
+    ("bf16_mha_bias", torch.bfloat16, (MHA_SEQS, MHA_SEQ, MHA_SEQ, 64),
+     dict(causal=False, bias_shape=(MHA_SEQS, 1, 1, MHA_SEQ))),
+    ("bf16_d96", torch.bfloat16, (4, 1024, 1024, 96), {}),
+    ("fp16_d96", torch.float16, (4, 1024, 1024, 96), {}),
+    ("bf16_d128", torch.bfloat16, (4, 1024, 1024, 128), {}),
+    ("fp16_d128", torch.float16, (4, 1024, 1024, 128), {}),
+    ("bf16_d256", torch.bfloat16, (4, 1024, 1024, 256), {}),
+    ("fp16_d256", torch.float16, (4, 1024, 1024, 256), {}),
+    # no multiple of 8: the wrappers pad it to 64 (TMA's rows)
+    ("bf16_d60", torch.bfloat16, (4, 1024, 1024, 60), {}),
+    ("fp16_d60", torch.float16, (4, 1024, 1024, 60), {}),
 )
 
 
-def bwd_report_cases(gen, dev) -> dict:
-    """Phase 14f: ``flash_dtype_case`` at each BWD_REPORT shape (the
-    forward, dq and dk/dv against their plain versions, a repeated
-    backward bitwise equal, device ms beside the bound and SDPA's backward
-    by device time). Returns {name: {"fwd", "dq", "dkv"}}."""
+def flash_report_cases(gen, dev) -> dict:
+    """Phase 14f: ``flash_dtype_case`` at each FLASH_REPORT shape (the
+    forward, dq and dk/dv against their plain versions, repeated calls
+    bitwise equal, device ms beside the bound and SDPA's by device time).
+    Returns {name: {"fwd", "dq", "dkv"}}."""
     out = {}
-    for name, dtype, b, d, drop in BWD_REPORT:
-        out[name] = flash_dtype_case(name, gen, dev, dtype, b, 16, 16, 1024,
-                                     1024, d, dropout=drop)
+    for name, dtype, (b, sq, sk, d), opts in FLASH_REPORT:
+        out[name] = flash_dtype_case(name, gen, dev, dtype, b, 16, 16, sq,
+                                     sk, d, **opts)
         torch.cuda.empty_cache()
+    print("  flash forward per call (device ms) against SDPA's forward "
+          "(device ms) and the bound: " + "; ".join(
+              f"{n} {r['fwd']['ms']:.4f} vs {r['fwd']['library_device_ms']:.4f}"
+              f", bound {r['fwd']['bound_ms']:.4f}" for n, r in out.items()))
     print("  flash backward per call (dq + dk/dv, device ms) against SDPA's "
           "backward (device ms): " + "; ".join(
               f"{n} {r['dq']['ms'] + r['dkv']['ms']:.4f} vs "
@@ -5591,16 +5626,19 @@ def bwd_report_cases(gen, dev) -> dict:
     check(map_us > 0, "a tensor map failed to encode")
     out["map_encode_us"] = map_us
     # the host-side padding of a head_dim off TMA's 16-byte rows (60 -> 64
-    # at b4 h16 s1024): q, k, v and dO padded, dq, dk and dv cut back
+    # at b4 h16 s1024): the forward pads q, k, v and cuts out back, the
+    # backward pads q, k, v and dO and cuts dq, dk and dv back
     t = torch.zeros(4, 16, 1024, 60, dtype=torch.bfloat16, device=dev)
 
-    def pad_and_cut():
-        wide = [F.pad(t, (0, 4)) for _ in range(4)]
-        return [w[..., :60].contiguous() for w in wide[:3]]
+    def pad_and_cut(n_in, n_out):
+        wide = [F.pad(t, (0, 4)) for _ in range(n_in)]
+        return [w[..., :60].contiguous() for w in wide[:n_out]]
 
-    out["pad_ms"] = device_ms(pad_and_cut)
-    print(f"  padding d 60 to 64 around the backward: {out['pad_ms']:.5f} ms "
-          "(device, b4 h16 s1024 bf16)")
+    out["pad_fwd_ms"] = device_ms(lambda: pad_and_cut(3, 1))
+    out["pad_ms"] = device_ms(lambda: pad_and_cut(4, 3))
+    print(f"  padding d 60 to 64 around the forward: {out['pad_fwd_ms']:.5f} "
+          f"ms, around the backward: {out['pad_ms']:.5f} ms (device, b4 h16 "
+          "s1024 bf16)")
     return out
 
 
@@ -6179,14 +6217,14 @@ def main(argv=None) -> int:
     prb = phase("phase 14e: the kprobe ladder and the launch probe",
                 lambda: probe_cases(dev))
 
-    def bwd_report():
+    def flash_report():
         with torch.no_grad():
-            return bwd_report_cases(torch.Generator().manual_seed(
+            return flash_report_cases(torch.Generator().manual_seed(
                 args.seed + 17), dev)
 
-    bwr = phase("phase 14f: the wgmma/TMA flash backward (bf16, fp16) at "
-                "the training shape and head widths 64 to 256",
-                bwd_report)
+    bwr = phase("phase 14f: the wgmma/TMA flash forward and backward (bf16, "
+                "fp16) at the training, serving and multi-head attention "
+                "shapes and head widths 60 to 256", flash_report)
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -6211,7 +6249,7 @@ def main(argv=None) -> int:
     kernels += dk14["rows"] + prb
     # phase 14f's cases join the rows of their dtype
     by_name = {k["name"]: k for k in kernels}
-    for name, dtype, *_ in BWD_REPORT:
+    for name, dtype, *_ in FLASH_REPORT:
         for key, base in (("fwd", attention.KERNEL),
                           ("dq", attention.BWD_DQ_KERNEL),
                           ("dkv", attention.BWD_DKV_KERNEL)):
@@ -6360,7 +6398,7 @@ def main(argv=None) -> int:
                        "multihead_attn_dtypes": mha16,
                        "phase14_kernels": {"d96": dk14["d96"],
                                            "rope": dk14["rope"]},
-                       "flash_bwd_report": bwr,
+                       "flash_report": bwr,
                        **line}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -330,6 +330,119 @@ def test_sm90_flash_bwd_repeats_bitwise(cuda_device, dtype, d):
         assert torch.equal(a_, b_)
 
 
+# The bf16/fp16 forward (wgmma, TMA; csrc/flash_fwd_sm90.cuh) over its
+# options: name -> keyword arguments of _sm90_fwd_case. "short" (sq 50) and
+# "decode" (sq 1, key-side segment ids) take the one-warpgroup blocks.
+SM90_FWD_OPTIONS = {
+    "causal": dict(),
+    "window": dict(window=37),
+    "noncausal_segments": dict(causal=False, segments=True),
+    "bias_full": dict(bias="full"),
+    "bias_keys": dict(causal=False, bias="keys"),
+    "positions": dict(positions=True),
+    "positions_window": dict(positions=True, window=70),
+    "dropout": dict(rate=0.1),
+    "all": dict(segments=True, bias="keys", rate=0.1),
+    "short": dict(sq=50, bias="keys"),
+    "decode": dict(causal=False, sq=1, key_segments=True),
+    # more query tiles than the card runs blocks at once: each block walks
+    # several (query tile, head) items
+    "many_causal": dict(many=True),
+    "many_window_segments_dropout": dict(many=True, window=200,
+                                         segments=True, rate=0.1),
+    "many_short_bias": dict(many=True, sq=50, causal=False, bias="keys"),
+}
+
+
+def _sm90_fwd_case(dev, dtype, d, *, sq=150, causal=True, window=None,
+                   segments=False, key_segments=False, bias=None,
+                   positions=False, rate=0.0, many=False, seed=5):
+    """Forward arguments at a ragged GQA shape (b 2, h 4 over hk 2, sk 200,
+    sq 150 unless given; 192 and 192 with positions; with ``many``, b 8, h
+    32 over hk 16, sk 700 and sq 600): ``(args, kw)`` of
+    ``_flash_cuda``."""
+    b, h, hk, sk = (8, 32, 16, 700) if many else (2, 4, 2, 200)
+    if many and sq == 150:
+        sq = 600
+    if positions:
+        sq = sk = 192
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        dev, dtype) for shape in ((b, h, sq, d), (b, hk, sk, d),
+                                  (b, hk, sk, d)))
+    q_seg = k_seg = None
+    if segments:
+        # queries of segment 3 find no key: rows of exactly 0
+        q_seg, k_seg = (torch.from_numpy(np.sort(rng.randint(
+            0, top, (b, n)), -1).astype(np.int32)).to(dev)
+            for top, n in ((4, sq), (3, sk)))
+    if key_segments:
+        # the decode context mask: queries in segment 0, a ragged tail of
+        # keys in segment 1
+        k_seg = torch.from_numpy((np.arange(sk)[None, :] >= np.array(
+            [[150], [61]])).astype(np.int32)).to(dev)
+        q_seg = torch.zeros(b, sq, dtype=torch.int32, device=dev)
+    bt = None
+    if bias == "full":
+        bt = torch.from_numpy(rng.randn(b, h, sq, sk).astype(
+            np.float32)).to(dev)
+    elif bias == "keys":
+        # a key-padding bias, as the multi-head attention stacks pass it
+        bt = torch.from_numpy(np.where(rng.rand(b, 1, 1, sk) < 0.25,
+                                       -10000.0, 0.0).astype(
+            np.float32)).to(dev, dtype)
+    q_pos = k_pos = None
+    if positions:
+        q_pos, k_pos = (torch.from_numpy(np.sort(rng.permutation(2 * n)[:n])
+                                         .astype(np.int32)).to(dev)
+                        for n in (sq, sk))
+    args = (q, k, v, q_seg, k_seg, d ** -0.5, causal, window, rate,
+            1234 if rate > 0 else None)
+    return args, dict(bias=bt, q_pos=q_pos, k_pos=k_pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", sorted(SM90_FWD_OPTIONS))
+@pytest.mark.parametrize("d", [32, 40, 64, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_sm90_flash_fwd_matches_plain(cuda_device, dtype, d, opt):
+    args, kw = _sm90_fwd_case(cuda_device, dtype, d,
+                              **SM90_FWD_OPTIONS[opt])
+    name = attention.kernel_name(attention.KERNEL, dtype)
+    before = _build.launch_counts().get(name, 0)
+    out, lse = attention._flash_cuda(*args, **kw)
+    q, k, v, q_seg, k_seg, scale, causal, window, rate, seed = args
+    pout, plse = attention._attention_torch(
+        q, k, v, kw["bias"], q_seg, k_seg, scale, causal, window, rate,
+        seed, return_lse=True, q_pos=kw["q_pos"], k_pos=kw["k_pos"])
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    assert out.dtype == dtype and out.shape == pout.shape
+    assert bool(torch.isfinite(out.float()).all())
+    live = plse > attention.NEG_INF * 0.5
+    assert torch.equal(live, lse > attention.NEG_INF * 0.5)
+    # rows with no live key: out exactly 0, lse NEG_INF
+    assert (out[~live] == 0).all() and (lse[~live] == attention.NEG_INF).all()
+    assert _row_rel_err(out, pout) <= SM90_TOLS[dtype]
+    torch.testing.assert_close(lse[live], plse[live], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ["all", "decode", "positions"])
+@pytest.mark.parametrize("d", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_sm90_flash_fwd_repeats_bitwise(cuda_device, dtype, d, opt):
+    """No atomics: each output element is written once, so two calls on
+    the same inputs give the same bits."""
+    args, kw = _sm90_fwd_case(cuda_device, dtype, d,
+                              **SM90_FWD_OPTIONS[opt])
+    first = attention._flash_cuda(*args, **kw)
+    second = attention._flash_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    for a_, b_ in zip(first, second):
+        assert torch.equal(a_, b_)
+
+
 def _row_rel_err(got, want) -> float:
     """The largest |got - want| of each row over the row's largest
     |want|: with dropout the kept probabilities are 1 / (1 - rate) larger,
