@@ -1,8 +1,31 @@
 // The C entry point shared by the flash backward libraries (flash_bwd.cu
 // bf16, flash_bwd_fp16.cu, flash_bwd_fp32.cu): argument checks, then the
 // launcher of the dtype's design, `launch_width<T>`, which the including
-// header defines (flash_bwd_sm90.cuh for bf16 and fp16, flash_bwd.cuh for
-// fp32).
+// header defines (flash_bwd_sm90.cuh for bf16 and fp16,
+// flash_bwd32_sm90.cuh for fp32).
+//
+// The function both designs compute replaces apex_tpu/ops/attention.py
+// `_bwd_dq_kernel` (:402, `pallas_call` at :657) and `_bwd_dkv_kernel`
+// (:470, `pallas_call` at :711), both launched by `_flash_bwd_pallas`
+// (:547): two kernels as there, each recomputing the probabilities from
+// the forward's lse:
+//   s  = scale * q k^T + mask            (mask: `_mask_block`, NEG_INF)
+//   P  = exp(s - max(lse, NEG_INF / 2))  (:433: fully-masked rows give 0)
+//   dP = dO v^T,  dS = P * (dP - delta) [+ P * glse], rounded to the
+//   input dtype (:456-460, :533-536)
+//   dq = scale * dS k,  dk = scale * dS^T q,  dv = P^T dO (P rounded too)
+// with delta = rowsum(out * dO) computed by the caller (`_flash_bwd_rule`
+// :828 leaves it to XLA). glse, the cotangent of a returned lse (`_flash_
+// lse_bwd_rule` :933-946), adds P * glse with the undropped P (:457-459,
+// :534-535). GQA sums dk and dv over the q heads of each kv head's group
+// inside one block (:475-483); nothing is repeated in memory. Masking is
+// the forward's: causal with the sk - sq offset, the sliding window on the
+// same offset, segment ids, fully-masked rows, the additive bias (:437-438,
+// :509-510), and with global positions the causal and window tests on
+// positions, a tile pair skipped when its position bounds leave no live
+// score (`_block_live_dynamic`, in place of the static bounds). Dropout
+// (`_dropout_keep`, flash_common.cuh) drops dP and the P of dv: keep ? x
+// / (1 - rate) : 0.
 
 #pragma once
 

@@ -1,7 +1,8 @@
-// Flash-attention backward (dq and dk/dv) for fp32 q, k, v: the kernels of
-// flash_bwd.cuh, with exact products from three bf16 parts a value
-// (flash_common.cuh).
+// Flash-attention backward (dq and dk/dv) for fp32 q, k, v: the wgmma/TMA
+// kernels of flash_bwd32_sm90.cuh, exact products from three bf16 parts a
+// value, and its split pass (`apex_flash_split3`), which writes those
+// parts.
 
-#include "flash_bwd.cuh"
+#include "flash_bwd32_sm90.cuh"
 
 APEX_EXPORT_FLASH_BWD(float)

@@ -5,8 +5,9 @@ Counterpart of ``flash_attention`` in ``apex_tpu/ops/attention.py``. On
 a CUDA tensor the forward runs the hand-written kernel in
 ``csrc/flash_fwd.cu`` (the port of the Pallas ``_fwd_kernel``) and the
 backward the two kernels in ``csrc/flash_bwd.cu`` (``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel``); on a CPU tensor they run :func:`_attention_torch`
-and :func:`_flash_bwd_torch`, the plain PyTorch versions. A call that
+``_bwd_dkv_kernel``; one library a dtype); on a CPU tensor they run
+:func:`_attention_torch` and :func:`_flash_bwd_torch`, the plain PyTorch
+versions. A call that
 autograd has to differentiate goes through ``_FlashFn``, the counterpart
 of the reference's ``custom_vjp`` (``_flash_fwd_rule`` /
 ``_flash_bwd_rule``, and with ``return_lse=True`` ``_flash_lse_fwd_rule``
@@ -29,8 +30,12 @@ to 128 in fp32 (zero-padded inside the kernels to the next built width,
 The bf16 and fp16 forward and backward are the wgmma/TMA designs of
 ``csrc/flash_fwd_sm90.cuh`` and ``csrc/flash_bwd_sm90.cuh``, whose tiles
 TMA copies (a head_dim off :func:`tma_width` is padded with zero columns
-on the way in and cut on the way out, :func:`pad_head_dim`); fp32 keeps
-``csrc/flash_fwd.cuh`` and ``csrc/flash_bwd.cuh``. Launch counts are kept
+on the way in and cut on the way out, :func:`pad_head_dim`). The fp32
+backward is the wgmma/TMA design of ``csrc/flash_bwd32_sm90.cuh``: exact
+products from three bf16 parts a value, which a split pass
+(:func:`_split3_cuda`, its own launch and counter) writes as bf16 planes
+already padded to :func:`tma_width`; the fp32 forward keeps
+``csrc/flash_fwd.cuh``. Launch counts are kept
 per dtype: bf16 under the kernel's name, fp16 and fp32 with a ``_fp16`` /
 ``_fp32`` suffix
 (:func:`kernel_name`). Dropout is the reference's
@@ -56,6 +61,8 @@ NEG_INF = -1e30
 KERNEL = "flash_fwd"
 BWD_DQ_KERNEL = "flash_bwd_dq"
 BWD_DKV_KERNEL = "flash_bwd_dkv"
+# the fp32 backward's split pass (fp32 only: no dtype suffix)
+SPLIT_KERNEL = "flash_split3"
 # head widths the kernels are built for; a narrower head_dim is zero-padded
 # in shared memory to the next one. fp32 stops at 128: its three bf16 part
 # tiles take 96 KB each at 256, so the dk/dv kernel's four would need 384 KB
@@ -342,8 +349,9 @@ def tma_width(d: int) -> int:
 
 def kernel_width(d: int, dtype: torch.dtype) -> int:
     """The head width the kernels of ``dtype`` are launched at: fp32's
-    read any ``d`` (zero-padded in shared memory), bf16's and fp16's
-    :func:`tma_width`."""
+    take any ``d`` (the forward pads in shared memory, the backward reads
+    the split pass's planes, padded there to :func:`tma_width`), bf16's and
+    fp16's :func:`tma_width`."""
     return d if dtype == torch.float32 else tma_width(d)
 
 
@@ -354,6 +362,66 @@ def pad_head_dim(tensors, width: int):
     return [t if t is None or t.shape[-1] == width else
             torch.nn.functional.pad(t, (0, width - t.shape[-1]))
             for t in tensors]
+
+
+def _split3_torch(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Plain version of the split pass: fp32 ``x`` (..., d) as its three
+    bf16 parts (3, ..., width), ``x = hi + mid + lo`` with ``hi`` and
+    ``mid`` the round-to-nearest bf16 of ``x`` and of ``x - hi``, ``lo``
+    that of ``(x - hi) - mid`` (``split3`` in ``csrc/flash_common.cuh``);
+    columns d .. width - 1 zero."""
+    x = x.float()
+    hi = x.bfloat16().float()
+    r = x - hi
+    mid = r.bfloat16().float()
+    planes = torch.stack([hi, mid, r - mid]).bfloat16()
+    return torch.nn.functional.pad(planes, (0, width - x.shape[-1]))
+
+
+def _split3_cuda(ts, width: int):
+    """The split pass over up to four fp32 CUDA tensors in one launch:
+    each tensor's planes, as :func:`_split3_torch` returns them."""
+    dev = ts[0].device
+    for i, t in enumerate(ts):
+        check_kernel_input(f"split input {i}", t, (torch.float32,), dev)
+    d = ts[0].shape[-1]
+    if any(t.shape[-1] != d for t in ts) or not 1 <= len(ts) <= 4:
+        raise ValueError("the split pass takes one to four tensors of one "
+                         "head_dim")
+    planes = [torch.empty((3, *t.shape[:-1], width), dtype=torch.bfloat16,
+                          device=dev) for t in ts]
+    P, I, L = _build.P, _build.I, _build.L
+    lib = _build.library("flash_bwd_fp32", "apex_flash_split3",
+                         (P,) * 8 + (L,) * 4 + (I, I, P),
+                         "apex_flash_bwd_error_string")
+    pad = [None] * (4 - len(ts))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.apex_flash_split3(
+            *[t.data_ptr() for t in ts], *pad,
+            *[p.data_ptr() for p in planes], *pad,
+            *[t.numel() // d for t in ts], *([0] * len(pad)), d, width,
+            stream)
+    if err:
+        raise RuntimeError(
+            f"{SPLIT_KERNEL}: CUDA error {err} at launch: "
+            f"{lib.apex_flash_bwd_error_string(err).decode()}")
+    _build.count_launch(SPLIT_KERNEL)
+    return planes
+
+
+def _check_planes(planes, ts, width: int) -> None:
+    """Raise unless ``planes`` are what :func:`_split3_cuda` gives for
+    ``ts`` at ``width``: one contiguous bf16 (3, ..., width) tensor a
+    tensor, on its device, that the kernels' tensor maps may read."""
+    if len(planes) != len(ts):
+        raise ValueError(f"{len(planes)} planes for {len(ts)} tensors")
+    for i, (p, t) in enumerate(zip(planes, ts)):
+        check_kernel_input(f"planes {i}", p, (torch.bfloat16,), t.device)
+        want = (3, *t.shape[:-1], width)
+        if tuple(p.shape) != want:
+            raise ValueError(f"planes {i} have shape {tuple(p.shape)}, "
+                             f"expected {want}")
 
 
 def _check_kernel_args(q, k, v, q_seg, k_seg):
@@ -410,14 +478,17 @@ def _dropout_args(rate: float, seed):
 def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
                     causal, window, rate=0.0, seed=None,
                     kernels=(BWD_DQ_KERNEL, BWD_DKV_KERNEL), *, bias=None,
-                    glse=None, q_pos=None, k_pos=None):
+                    glse=None, q_pos=None, k_pos=None, planes=None):
     """The dq kernel and the dk/dv kernel: returns ``(dq, dk, dv)`` like
     ``_flash_bwd_pallas``. ``kernels`` names the ones to launch (both by
     default; one alone to time it); a kernel left out returns None for
     its outputs. ``glse`` (fp32, like lse) is the cotangent of the lse.
     bf16 and fp16 run the wgmma/TMA kernels (``csrc/flash_bwd_sm90.cuh``),
     whose tiles TMA copies: a head_dim off :func:`tma_width` is padded
-    with zero columns on the way in and cut on the way out."""
+    with zero columns on the way in and cut on the way out. fp32 runs
+    ``csrc/flash_bwd32_sm90.cuh`` on the bf16 part planes of q, k, v and
+    dO: the split pass writes them first (one launch), unless ``planes``
+    gives them (as :func:`_split3_cuda` returns them)."""
     q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
     dev = q.device
     dout = dout.contiguous()
@@ -429,6 +500,15 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     hk, sk = k.shape[1], k.shape[2]
     width = kernel_width(d, q.dtype)
     q, k, v, dout = pad_head_dim((q, k, v, dout), width)
+    if q.dtype == torch.float32:
+        # the kernels read the bf16 parts, rows padded to TMA's width
+        if planes is None:
+            planes = _split3_cuda((q, k, v, dout), tma_width(d))
+        else:
+            _check_planes(planes, (q, k, v, dout), tma_width(d))
+        ins = [t.data_ptr() for t in planes]
+    else:
+        ins = [t.data_ptr() for t in (q, k, v, dout)]
     dq = torch.empty_like(q) if BWD_DQ_KERNEL in kernels else None
     dk, dv = ((torch.empty_like(k), torch.empty_like(v))
               if BWD_DKV_KERNEL in kernels else (None, None))
@@ -451,8 +531,7 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.apex_flash_bwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), *segs, *extra[:2], gl,
+                *ins, lse.data_ptr(), delta.data_ptr(), *segs, *extra[:2], gl,
                 *extra[2:], *outs, b, h, hk, sq, sk, width,
                 DTYPE_CODES[q.dtype], float(scale),
                 int(causal), 0 if window is None else int(window), *drop,

@@ -264,9 +264,10 @@ Phases, in order; any failure exits non-zero before the last line:
    runs bitwise). Each with its device ms, bound, plain ms and the library
    call at the same dtype. (b) GPT-2 345M at the example's dtype, fp32
    (flash, FusedAdam, 8 x 1024, FP32_STEPS steps; ``allow_tf32`` False,
-   PyTorch's default): every fp32 flash kernel exactly 24 times a step,
-   losses finite and falling, step time, tokens/s, peak memory, a
-   profiled step; batch 2 against the plain path. (c) GPT-2 345M at
+   PyTorch's default): every fp32 flash kernel and the backward's split
+   pass exactly 24 times a step, losses finite and falling, step time,
+   tokens/s, peak memory, a profiled step and the backward's share of it;
+   batch 2 against the plain path. (c) GPT-2 345M at
    ``dtype=float16`` under the dynamic loss scaler, FP16_STEPS steps on
    each attention backend (the fp16 flash kernels, or the fp16 causal
    softmax and its backward, 24 a step; LayerNorm fp16 49), the scale and
@@ -286,15 +287,20 @@ Phases, in order; any failure exits non-zero before the last line:
    decode (b 8, sq 1, sk 1025, the context's segment ids) and prefill (b 4,
    s 512), the multi-head attention shape with its key-padding bias, and
    head_dim 96, 128, 256 and 60 (padded to 64 for TMA, the padding's own
-   device time beside it) in both: each against its plain versions, each
-   kernel's device ms beside its bound and SDPA's forward and backward by
-   device time. Every flash check on the way (phases 2, 11a, 13a, 14a and
-   f) also runs the kernels a second time on the same inputs and holds the
-   two results bitwise equal, and SDPA's backward, the library yardstick
-   of dq and dk/dv, is timed as device time (its forward and backward
-   captured in a CUDA graph, less the forward alone) with its host
-   reading beside it.
-15. Each phase's wall seconds, the ``kernels`` JSON line (all fifty-six
+   device time beside it) in both; and the fp32 backward
+   (``csrc/flash_bwd32_sm90.cuh``: wgmma, TMA, exact three-part products)
+   at the training shape with and without dropout, the MHA shape, prefill,
+   decode and head_dim 32, 60, 96 and 128, its split pass timed apart and
+   held bitwise against its plain version at the training shape: each
+   against its plain versions, each kernel's device ms beside its bound
+   (fp32 at 989 / 6 TFLOP/s) and SDPA's forward and backward by device
+   time (fp32 with TF32 off). Every flash check on the way (phases 2,
+   11a, 13a, 14a and f) also runs the kernels a second time on the same
+   inputs and holds the two results bitwise equal, and SDPA's backward,
+   the library yardstick of dq and dk/dv, is timed as device time (its
+   forward and backward captured in a CUDA graph, less the forward
+   alone) with its host reading beside it.
+15. Each phase's wall seconds, the ``kernels`` JSON line (all fifty-seven
    kernels and variants, each with its launches on its path), then the
    device line the caller reads.
 
@@ -383,6 +389,12 @@ from apex_tpu_torch.serving import (
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+# an exact fp32 product on the tensor cores: six bf16 products (three
+# bf16 parts a value, the pairs whose parts reach 2^-16 of the leading
+# one), so the card's least time for an fp32 flash kernel's operations is
+# at 989 / 6 TFLOP/s, whatever the design (the fp32 FMA rate, 67 TFLOP/s,
+# is a design's choice, not the card's floor)
+PEAK_FP32_EXACT_FLOPS = PEAK_BF16_TENSOR_FLOPS / 6
 
 # LayerNorm output: one bf16 ulp of the value (at most 2^-7 |y|), plus
 # 1e-5 for values near zero, where fp32 results a few 1e-7 apart (sums
@@ -2049,6 +2061,9 @@ def train(seed: int, dev, card: str) -> dict:
     for kernel in path:
         check(launches.get(kernel, 0) > 0,
               f"kernel {kernel} never launched on the training path")
+    for kernel in _flash_names(torch.float32) + (attention.SPLIT_KERNEL,):
+        check(launches.get(kernel, 0) == 0,
+              f"the bf16 training path launched {kernel}")
 
     # where the time goes: one more step under the profiler
     (state, _), prof = _profiled(
@@ -4970,7 +4985,8 @@ def mha_stacks(seed: int, dev, card: str, dtype=torch.bfloat16) -> dict:
     out_tol, grad_tol = MHA_REL_TOLS[dtype]
     ls = MHA_FP16_LOSS_SCALE if dtype == torch.float16 else 1.0
     kernels = [attention.kernel_name(k_, dtype) for k_ in MHA_KERNELS[:3]] \
-        + [layer_norm.kernel_name(k_, dtype) for k_ in MHA_KERNELS[3:]]
+        + [layer_norm.kernel_name(k_, dtype) for k_ in MHA_KERNELS[3:]] \
+        + ([attention.SPLIT_KERNEL] if dtype == torch.float32 else [])
     rng = np.random.RandomState(seed)
     x = torch.from_numpy(0.5 * rng.randn(s, b, e).astype(np.float32)).to(
         dev, dtype)
@@ -5368,9 +5384,10 @@ LN_TRAIN_ROWS = TRAIN_BATCH * 1024
 
 def _rate(dtype) -> float:
     """The peak the flash kernels' operations are bounded by: the fp16 and
-    bf16 tensor cores, or, for the fp32 design (six bf16 products for each
-    fp32 one), the card's fp32 FMA rate."""
-    return PEAK_FP32_FLOPS if dtype == torch.float32 else \
+    bf16 tensor cores, or, in fp32, the same tensor cores at a sixth of
+    that (PEAK_FP32_EXACT_FLOPS: six bf16 products for each exact fp32
+    one)."""
+    return PEAK_FP32_EXACT_FLOPS if dtype == torch.float32 else \
         PEAK_BF16_TENSOR_FLOPS
 
 
@@ -5482,15 +5499,23 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
                                         do, **sdpa_kw)
     pairs = int(live.sum()) * h
     rows = {}
+    split_ms, bex = None, ex
+    if dtype == torch.float32:
+        # fp32's pair reads the split pass's planes: timed apart, the pair
+        # on planes made once
+        width = attention.tma_width(d)
+        split_ms = device_ms(lambda: attention._split3_cuda((q, k, v, do),
+                                                            width))
+        bex = dict(ex, planes=attention._split3_cuda((q, k, v, do), width))
     for key, kname, kernel, n_prod, outs, pms, lms in (
             ("fwd", attention.KERNEL, fwd, 2, (out, lse), plain_fwd,
              lib_fwd),
             ("dq", attention.BWD_DQ_KERNEL, lambda: attention._flash_bwd_cuda(
-                *args, kernels=(attention.BWD_DQ_KERNEL,), **ex), 3,
+                *args, kernels=(attention.BWD_DQ_KERNEL,), **bex), 3,
              grads[:1], plain_bwd, lib_bwd),
             ("dkv", attention.BWD_DKV_KERNEL,
              lambda: attention._flash_bwd_cuda(
-                 *args, kernels=(attention.BWD_DKV_KERNEL,), **ex), 4,
+                 *args, kernels=(attention.BWD_DKV_KERNEL,), **bex), 4,
              grads[1:], plain_bwd, lib_bwd)):
         ms = device_ms(kernel)
         ins = (q, k, v) if key == "fwd" else (q, k, v, do, lse, delta)
@@ -5505,13 +5530,54 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
                      "bound_by": by, "plain_ms": pms, "library_ms": lms,
                      **({"library_device_ms": lib_fwd_dev} if key == "fwd"
                         else {"library_host_ms": lib_bwd_host}),
+                     **({"split_ms": split_ms} if key == "dq" and split_ms
+                        is not None else {}),
                      "max_abs_err": abs_errs[key],
                      "rel_err": out_err if key == "fwd" else max(
                          g_errs[x_] for x_ in (("dq",) if key == "dq"
                                                else ("dk", "dv"))),
                      "shape": shape}
+    if split_ms is not None:
+        print(f"    {attention.SPLIT_KERNEL} (q, k, v, dO into bf16 parts, "
+              f"one launch): ms={split_ms:.5f}; dq + dk/dv + split "
+              f"{rows['dq']['ms'] + rows['dkv']['ms'] + split_ms:.5f} against "
+              f"SDPA's backward {lib_bwd:.5f} (device)")
     del out, lse, grads
     return rows
+
+
+def split_case(gen, dev) -> dict:
+    """The fp32 backward's split pass (``csrc/flash_bwd32_sm90.cuh``
+    ``flash_split3_kernel``) at GPT-2 345M's training shape, q, k, v and dO
+    (b 8, h 16, s 1024, d 64) in one launch: bitwise its plain version,
+    its device ms beside its bound (each fp32 input read once, each bf16
+    plane written once) and the plain version's. No PyTorch call computes
+    the same planes (library_ms null)."""
+    xs = [torch.randn(TRAIN_BATCH, 16, 1024, 64, generator=gen).to(dev)
+          for _ in range(4)]
+    width = attention.tma_width(64)
+    got = attention._split3_cuda(xs, width)
+    want = [attention._split3_torch(x, width) for x in xs]
+    torch.cuda.synchronize()
+    same = all(torch.equal(g_.view(torch.int16), w_.view(torch.int16))
+               for g_, w_ in zip(got, want))
+    check(same, f"{attention.SPLIT_KERNEL}: the planes differ from the plain "
+          "version's")
+    ms = device_ms(lambda: attention._split3_cuda(xs, width))
+    plain_ms = device_ms(lambda: [attention._split3_torch(x, width)
+                                  for x in xs], iters=5)
+    b_ms, by = bound(nbytes(*xs, *got), 8 * sum(x.numel() for x in xs),
+                     PEAK_FP32_FLOPS)
+    print(f"  {attention.SPLIT_KERNEL} 4 x (8, 16, 1024, 64) fp32 -> bf16 "
+          f"planes: bitwise={same} ms={ms:.5f} plain_ms={plain_ms:.5f} "
+          f"bound_ms={b_ms:.5f} ({by})")
+    return {"name": attention.SPLIT_KERNEL, "route": "cuda",
+            "source": "apex_tpu_torch/csrc/flash_bwd_fp32.cu",
+            "replaces": "apex_tpu/ops/attention.py:402",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None, "max_abs_err": 0.0,
+            "bitwise": same,
+            "shape": "q, k, v, dO (8, 16, 1024, 64) fp32, planes of 64"}
 
 
 def flash_dtype_cases(gen, dev) -> tuple:
@@ -5591,6 +5657,19 @@ FLASH_REPORT = (
     # no multiple of 8: the wrappers pad it to 64 (TMA's rows)
     ("bf16_d60", torch.bfloat16, (4, 1024, 1024, 60), {}),
     ("fp16_d60", torch.float16, (4, 1024, 1024, 60), {}),
+    # fp32 (the exact three-part design of csrc/flash_bwd32_sm90.cuh),
+    # at each shape above and each built width
+    ("fp32_train", torch.float32, _TRAIN, {}),
+    ("fp32_train_dropout", torch.float32, _TRAIN, dict(dropout=True)),
+    ("fp32_mha_bias", torch.float32, (MHA_SEQS, MHA_SEQ, MHA_SEQ, 64),
+     dict(causal=False, bias_shape=(MHA_SEQS, 1, 1, MHA_SEQ))),
+    ("fp32_prefill", torch.float32, (4, 512, 512, 64), {}),
+    ("fp32_decode", torch.float32, (8, 1, 1025, 64),
+     dict(causal=False, written=[1024, 700, 512, 300, 200, 100, 64, 32])),
+    ("fp32_d32", torch.float32, (4, 1024, 1024, 32), {}),
+    ("fp32_d96", torch.float32, (4, 1024, 1024, 96), {}),
+    ("fp32_d128", torch.float32, (4, 1024, 1024, 128), {}),
+    ("fp32_d60", torch.float32, (4, 1024, 1024, 60), {}),
 )
 
 
@@ -5609,9 +5688,12 @@ def flash_report_cases(gen, dev) -> dict:
               f"{n} {r['fwd']['ms']:.4f} vs {r['fwd']['library_device_ms']:.4f}"
               f", bound {r['fwd']['bound_ms']:.4f}" for n, r in out.items()))
     print("  flash backward per call (dq + dk/dv, device ms) against SDPA's "
-          "backward (device ms): " + "; ".join(
+          "backward (device ms) and the bound: " + "; ".join(
               f"{n} {r['dq']['ms'] + r['dkv']['ms']:.4f} vs "
-              f"{r['dq']['library_ms']}" for n, r in out.items()))
+              f"{r['dq']['library_ms']}, bound "
+              f"{r['dq']['bound_ms'] + r['dkv']['bound_ms']:.4f}"
+              for n, r in out.items()))
+    out["split"] = split_case(gen, dev)
     # the host cost of the tensor maps each launch encodes (four)
     lib = _build.library("flash_bwd", "apex_flash_bwd_map_us",
                          (_build.P,) + (_build.I,) * 4,
@@ -5823,7 +5905,8 @@ def train_fp32(seed: int, dev, card: str) -> dict:
     out = _run_summary("GPT-2 fp32", losses, times, launches,
                        torch.cuda.max_memory_allocated(), card, cfg)
     check(losses[-1] < losses[0], "the fp32 training loss did not fall")
-    per_step = {k_: cfg.num_layers for k_ in _flash_names(torch.float32)}
+    per_step = {k_: cfg.num_layers for k_ in _flash_names(torch.float32)
+                + (attention.SPLIT_KERNEL,)}
     per_step.update({k_: 2 * cfg.num_layers + 1
                      for k_ in _ln_names(torch.float32)})
     per_step[mt_ops.ADAM_KERNEL] = 1
@@ -5835,6 +5918,16 @@ def train_fp32(seed: int, dev, card: str) -> dict:
         lambda: step(state, x, y), "GPT-2 fp32 step",
         {"flash": ("flash_",), "optimizer": ("adam_kernel",),
          "layer_norm": ("ln_",)})
+    prof = out["profile"]
+    # the backward pair and its split pass, a part of the "flash" share
+    prof["flash_bwd_ms"] = sum(m["ms"] for m in prof["matched"]
+                               if "flash_bwd" in m["name"]
+                               or "flash_split3" in m["name"])
+    if prof["device_busy_ms"] > 0:
+        share = 100 * prof["flash_bwd_ms"] / prof["device_busy_ms"]
+        print(f"  the fp32 backward pair and its split pass: "
+              f"{prof['flash_bwd_ms']:.3f} ms of {prof['device_busy_ms']:.1f}"
+              f" ms busy ({share:.2f}%)")
     x2, y2 = x[:2], y[:2]
     loss_k, gk = _grads(step, model, model, x2, y2)
     loss_p, gp = _grads(step, model, model.forward_plain, x2, y2)
@@ -5898,6 +5991,8 @@ def train_fp16(seed: int, dev, card: str, backend: str) -> dict:
                                                    softmax.BWD_KERNEL)})
         for k_ in _flash_names(torch.float16):
             check(launches.get(k_, 0) == 0, f"{label}: {k_} launched")
+    for k_ in _flash_names(torch.float32) + (attention.SPLIT_KERNEL,):
+        check(launches.get(k_, 0) == 0, f"{label}: {k_} launched")
     _check_per_step(label, launches, per_step, FP16_STEPS)
     x2, y2 = x[:2], y[:2]
     step._bind(state)          # the model on the state's (new) master
@@ -6248,6 +6343,7 @@ def main(argv=None) -> int:
     kernels += srk
     kernels += dk14["rows"] + prb
     # phase 14f's cases join the rows of their dtype
+    kernels.append(bwr.pop("split"))
     by_name = {k["name"]: k for k in kernels}
     for name, dtype, *_ in FLASH_REPORT:
         for key, base in (("fwd", attention.KERNEL),
@@ -6302,7 +6398,7 @@ def main(argv=None) -> int:
     for k in (segmented.SEGMENT_SR_KERNEL, mt_ops.LAMB_STAGE1_BF16_KERNEL,
               mt_ops.LAMB_STAGE2_KERNEL + mt_ops.SR_SUFFIX):
         paths[k] = ("training_bert_bf16", bsr["launches"], bsr["steps"])
-    for k in _flash_names(torch.float32):
+    for k in _flash_names(torch.float32) + (attention.SPLIT_KERNEL,):
         paths[k] = ("training_gpt_fp32", f32["launches"], f32["steps"])
     for k in _flash_names(torch.float16) + _ln_names(torch.float16):
         paths[k] = ("training_gpt_fp16_flash", f16["flash"]["launches"],
@@ -6373,7 +6469,7 @@ def main(argv=None) -> int:
     for counter in DROPOUT_COUNTERS:
         drow[f"launches_{counter}"] = gdr["launches"].get(counter, 0)
 
-    check(len(kernels) == 56, f"{len(kernels)} kernels in the line, not 56")
+    check(len(kernels) == 57, f"{len(kernels)} kernels in the line, not 57")
     print("phase 15: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))

@@ -45,7 +45,9 @@ plain path: the output within 2e-2 absolute, each gradient within 2e-2
 in relative L2 norm (bf16 projections and LayerNorm on both sides; the
 attention rounds P and dS to bf16 on one). Dropout (``csrc/dropout.cu``): output and
 gradient bitwise. Stochastic rounding (a bf16 master): stated with its
-tests.
+tests. The fp32 backward (wgmma, exact three-part products): dq, dk and
+dv within 1e-5 of each one's largest |value| (fp32 sums in other
+orders); its split pass bitwise.
 """
 
 import numpy as np
@@ -267,6 +269,9 @@ def _sm90_case(dev, dtype, d, *, causal=True, window=None, segments=False,
                                  .astype(np.int32)).to(dev)
         k_seg = torch.from_numpy(np.sort(rng.randint(0, 3, (b, sk)), -1)
                                  .astype(np.int32)).to(dev)
+        if segments == "keys":
+            # key-side segments only: every query in segment 0
+            q_seg = torch.zeros_like(q_seg)
     bt = None
     if bias == "full":
         bt = torch.from_numpy(rng.randn(b, h, sq, sk).astype(
@@ -328,6 +333,118 @@ def test_sm90_flash_bwd_repeats_bitwise(cuda_device, dtype, d):
     torch.cuda.synchronize()
     for a_, b_ in zip(first, second):
         assert torch.equal(a_, b_)
+
+
+# The fp32 backward (wgmma, TMA, exact three-part products;
+# csrc/flash_bwd32_sm90.cuh) over its options, at _sm90_case's ragged GQA
+# shape, plus the short sequences that take one dq warpgroup a block (64
+# tokens with a key-padding bias: the multi-head attention stacks; one
+# decoded query over key segments). Within 1e-5 of each gradient's largest
+# |value|: exact products, fp32 sums in other orders.
+FP32_SM90_OPTIONS = dict(SM90_OPTIONS, **{
+    "key_segments_window": dict(segments="keys", window=70),
+    "positions_window_glse": dict(positions=True, window=50, glse=True),
+})
+FP32_SHORT = {"mha_bias": (2, 4, 4, 64, 64), "decode": (2, 4, 2, 1, 130),
+              "short_causal": (1, 2, 1, 40, 40)}
+
+
+def _fp32_short_case(dev, d, case, seed=5):
+    b, h, hk, sq, sk = FP32_SHORT[case]
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(
+        np.float32)).to(dev) for shape in (
+        (b, h, sq, d), (b, hk, sk, d), (b, hk, sk, d), (b, h, sq, d)))
+    causal, bias, q_seg, k_seg = case == "short_causal", None, None, None
+    if case == "mha_bias":
+        bias = torch.where(torch.from_numpy(rng.rand(b, 1, 1, sk)) < 0.25,
+                           -10000.0, 0.0).float().to(dev)
+    if case == "decode":
+        k_seg = torch.from_numpy((np.arange(sk)[None, :] >= np.array(
+            [[100], [57]])).astype(np.int32)).to(dev)
+        q_seg = torch.zeros((b, sq), dtype=torch.int32, device=dev)
+    scale = d ** -0.5
+    out, lse = attention._attention_torch(q, k, v, bias, q_seg, k_seg,
+                                          scale, causal, return_lse=True)
+    delta = (out * do).sum(-1)
+    args = (q, k, v, lse, do, delta, q_seg, k_seg, scale, causal, None)
+    return args, dict(bias=bias)
+
+
+def _fp32_check(got, want):
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        assert g_.dtype == torch.float32 and g_.shape == w_.shape
+        assert bool(torch.isfinite(g_).all()), name
+        scale_w = max(float(w_.abs().max()), 1e-6)
+        err = float((g_ - w_).abs().max())
+        assert err <= 1e-5 * scale_w, (name, err, scale_w)
+
+
+def _fp32_counted(args, kw):
+    names = [attention.kernel_name(k_, torch.float32) for k_ in (
+        attention.BWD_DQ_KERNEL, attention.BWD_DKV_KERNEL)]
+    names.append(attention.SPLIT_KERNEL)
+    counts = _build.launch_counts()
+    got = attention._flash_bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for n_ in names:
+        assert after[n_] == counts.get(n_, 0) + 1, n_
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", sorted(FP32_SM90_OPTIONS))
+@pytest.mark.parametrize("d", [16, 32, 40, 64, 96, 128])
+def test_sm90_fp32_flash_bwd_matches_plain(cuda_device, d, opt):
+    args, kw = _sm90_case(cuda_device, torch.float32, d,
+                          **FP32_SM90_OPTIONS[opt])
+    got = _fp32_counted(args, kw)
+    _fp32_check(got, attention._flash_bwd_torch(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FP32_SHORT))
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_sm90_fp32_flash_bwd_short_sequences(cuda_device, d, case):
+    args, kw = _fp32_short_case(cuda_device, d, case)
+    got = _fp32_counted(args, kw)
+    _fp32_check(got, attention._flash_bwd_torch(*args, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 64, 128])
+def test_sm90_fp32_flash_bwd_repeats_bitwise(cuda_device, d):
+    """No atomics: two calls on the same inputs give the same bits."""
+    args, kw = _sm90_case(cuda_device, torch.float32, d,
+                          **SM90_OPTIONS["all"])
+    first = attention._flash_bwd_cuda(*args, **kw)
+    second = attention._flash_bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    for a_, b_ in zip(first, second):
+        assert torch.equal(a_, b_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 20, 64, 100, 128])
+def test_split_kernel_bitwise_equals_plain(cuda_device, d):
+    """The split pass: the planes of up to four tensors in one launch,
+    bitwise the plain version's (normal values and subnormals, zeros)."""
+    rng = np.random.RandomState(d)
+    xs = [torch.from_numpy((rng.randn(2, 3, n, d) * np.exp(rng.uniform(
+        -30, 30, (2, 3, n, d)))).astype(np.float32)).to(cuda_device)
+        for n in (33, 70, 70, 33)]
+    xs[1].view(-1)[:7] = torch.tensor(
+        [0.0, -0.0, 1e-40, -3e-42, 2.0 ** -126, 1e-45, 3.0e38])
+    width = attention.tma_width(d)
+    before = _build.launch_counts().get(attention.SPLIT_KERNEL, 0)
+    got = attention._split3_cuda(xs, width)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[attention.SPLIT_KERNEL] == before + 1
+    for x, g_ in zip(xs, got):
+        want = attention._split3_torch(x, width)
+        assert g_.shape == want.shape and torch.equal(
+            g_.view(torch.int16), want.view(torch.int16))
 
 
 # The bf16/fp16 forward (wgmma, TMA; csrc/flash_fwd_sm90.cuh) over its
