@@ -1,10 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a) on warpgroup MMA and TMA: bf16
-// or fp16 in, fp32 softmax (fp32 inputs keep the `mma.sync` design of
-// flash_fwd.cuh: `wgmma` has no exact fp32 product).
+// or fp16 in, fp32 softmax (fp32 inputs take flash_fwd32_sm90.cuh: `wgmma`
+// has no exact fp32 product, so there every product is six bf16 ones).
 //
 // Replaces: apex_tpu/ops/attention.py `_fwd_kernel` (:182), launched by
-// `_flash_fwd_pallas` (`pallas_call` at :373). The function is
-// flash_fwd.cuh's (its header sets it out): for every (batch, head) and
+// `_flash_fwd_pallas` (`pallas_call` at :373). The function is the
+// one flash_fwd_api.cuh sets out: for every (batch, head) and
 // query row, softmax(scale q k^T + bias + mask) v with an online softmax
 // over key tiles (running max m and normaliser l in fp32), the output in
 // q's dtype and the fp32 log-sum-exp. Causal with the sk - sq offset, the

@@ -15,14 +15,27 @@
 //
 // Design against that bound: each element is read from device memory
 // exactly once, with 16-byte vector loads and stores (8 bf16 or fp16, or
-// 4 fp32, per lane) whenever h allows it. For h <= 1024 one warp owns one row
-// and keeps the whole row in registers, so both reduction passes run on
-// registers and reduce through warp shuffles alone; four rows share a
-// 128-thread block. Wider rows take one 256-thread block per row, which
-// re-reads its row (from L1/L2, not device memory in practice) for each
-// pass and reduces through warp shuffles plus shared memory. Any row
+// 4 fp32, per lane) whenever h allows it. For h <= 1024 rows stream through
+// warps: the grid is sized to the warps the card keeps resident (not to
+// the rows), and each warp walks rows at a stride of all of them, the
+// whole row in registers, so both reduction passes run on registers and
+// reduce through warp shuffles alone. A lane's columns are the same in
+// every row, so it loads its gamma and beta once, as float4, into
+// registers; and it issues the next row's 16-byte loads before this row's
+// two reductions, so that every warp keeps a row's bytes in flight while
+// it computes (a warp that loaded, reduced and stored one row and exited
+// left device memory idle while all warps of a wave reduced at once). The
+// arithmetic is the one-row-a-warp kernel's that this replaced: each lane's
+// elements, the summing order and `warp_sum` unchanged, and the affine step
+// rounded as two operations (the plain version's, never one fma): on the
+// H100 its outputs are bitwise the one-row-a-warp kernel's. ptxas gives the
+// 16-bit packs 127 registers (two 256-thread blocks an SM; 60 bytes of spill
+// stores), fp32 rows 156 and single elements up to 243 (one block). Wider
+// rows take one 256-thread block per row, which re-reads its row (from
+// L1/L2, not device memory in practice) for each pass, reads gamma and beta
+// as float4 and reduces through warp shuffles plus shared memory. Any row
 // count works: the TPU version sent row counts that did not tile to XLA
-// (`_tileable`, :206); here the grid simply covers every row.
+// (`_tileable`, :206); here the grid covers every row.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -36,27 +49,41 @@ struct Pack {
   static constexpr int N = 16 / sizeof(T);  // elements per 16-byte load
 };
 
+// n consecutive elements as they sit in memory: one 16-byte pack, or one
+// element where h does not divide into packs
+template <typename T, int n>
+struct Raw {
+  using type = uint4;
+};
+template <typename T>
+struct Raw<T, 1> {
+  using type = T;
+};
+
 __device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
   return __uint_as_float(bits << 16);
 }
 
-// Load n consecutive elements (n = 1 or the 16-byte pack) as fp32.
+// n consecutive elements (n = 1 or the 16-byte pack) as loaded, widened to
+// fp32.
 template <typename T, int n>
-__device__ __forceinline__ void load(const T* p, float* out);
+__device__ __forceinline__ void unpack(const typename Raw<T, n>::type& r,
+                                       float* out);
 
 template <>
-__device__ __forceinline__ void load<float, 4>(const float* p, float* out) {
-  float4 r = *reinterpret_cast<const float4*>(p);
-  out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
+__device__ __forceinline__ void unpack<float, 4>(const uint4& r, float* out) {
+  out[0] = __uint_as_float(r.x);
+  out[1] = __uint_as_float(r.y);
+  out[2] = __uint_as_float(r.z);
+  out[3] = __uint_as_float(r.w);
 }
 template <>
-__device__ __forceinline__ void load<float, 1>(const float* p, float* out) {
-  out[0] = *p;
+__device__ __forceinline__ void unpack<float, 1>(const float& r, float* out) {
+  out[0] = r;
 }
 template <>
-__device__ __forceinline__ void load<__nv_bfloat16, 8>(const __nv_bfloat16* p,
-                                                       float* out) {
-  uint4 r = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack<__nv_bfloat16, 8>(const uint4& r,
+                                                         float* out) {
   const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -65,13 +92,13 @@ __device__ __forceinline__ void load<__nv_bfloat16, 8>(const __nv_bfloat16* p,
   }
 }
 template <>
-__device__ __forceinline__ void load<__nv_bfloat16, 1>(const __nv_bfloat16* p,
-                                                       float* out) {
-  out[0] = __bfloat162float(*p);
+__device__ __forceinline__ void unpack<__nv_bfloat16, 1>(
+    const __nv_bfloat16& r, float* out) {
+  out[0] = __bfloat162float(r);
 }
 template <>
-__device__ __forceinline__ void load<__half, 8>(const __half* p, float* out) {
-  uint4 r = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack<__half, 8>(const uint4& r,
+                                                  float* out) {
   const uint32_t w[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -81,8 +108,21 @@ __device__ __forceinline__ void load<__half, 8>(const __half* p, float* out) {
   }
 }
 template <>
-__device__ __forceinline__ void load<__half, 1>(const __half* p, float* out) {
-  out[0] = __half2float(*p);
+__device__ __forceinline__ void unpack<__half, 1>(const __half& r,
+                                                  float* out) {
+  out[0] = __half2float(r);
+}
+
+// the raw elements at p (one pack, or one element)
+template <typename T, int n>
+__device__ __forceinline__ typename Raw<T, n>::type load_raw(const T* p) {
+  return *reinterpret_cast<const typename Raw<T, n>::type*>(p);
+}
+
+// Load n consecutive elements (n = 1 or the 16-byte pack) as fp32.
+template <typename T, int n>
+__device__ __forceinline__ void load(const T* p, float* out) {
+  unpack<T, n>(load_raw<T, n>(p), out);
 }
 
 template <typename T, int n>
@@ -146,71 +186,131 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return warp_sum(v);
 }
 
-__device__ __forceinline__ float affine_at(float xhat, const float* w,
-                                           const float* b, int i) {
+// n (1 or a multiple of 4) consecutive fp32 weights, 16 bytes a load
+template <int n>
+__device__ __forceinline__ void load_w(const float* p, float* out) {
+  if constexpr (n % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < n; i += 4) load<float, 4>(p + i, out + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < n; ++i) out[i] = p[i];
+  }
+}
+
+// x-hat [* w] [+ b], each factor present or not, each operation rounded on
+// its own as the plain version's (never one fma)
+__device__ __forceinline__ float affine(float xhat, const float* w,
+                                        const float* b, float wv, float bv) {
   float y = xhat;
-  if (w != nullptr) y *= __ldg(w + i);
-  if (b != nullptr) y += __ldg(b + i);
+  if (w != nullptr) y = __fmul_rn(y, wv);
+  if (b != nullptr) y = __fadd_rn(y, bv);
   return y;
 }
 
 constexpr int kWarpRowMax = 1024;  // widest row one warp keeps in registers
-constexpr int kRowsPerWarpBlock = 4;
+constexpr int kFwdWarps = 8;       // warps a block of the streaming forward
 
-// One warp per row, the row held in registers. N elements per load
-// (the 16-byte pack, or 1 when h does not divide into packs).
+// Blocks of the streaming forward an SM should hold: two (128 registers a
+// thread) for 16-bit packs, whose rows are half as many bytes, so that
+// twice the warps keep as many bytes in flight; one for fp32 rows and for
+// rows of single elements, whose registers do not fit in 128.
 template <typename T, int N>
-__global__ void __launch_bounds__(32 * kRowsPerWarpBlock)
+constexpr int fwd_min_blocks() {
+  return sizeof(T) == 2 && N == Pack<T>::N ? 2 : 1;
+}
+
+// Rows streamed through warps: warp i of the grid takes rows i, i + W, i +
+// 2W, ... (W the grid's warps), each row held in registers, the next row's
+// loads issued once this row is unpacked, before its reductions. N
+// elements per load (the 16-byte pack, or 1 when h does not divide into
+// packs).
+template <typename T, int N>
+__global__ void __launch_bounds__(32 * kFwdWarps, fwd_min_blocks<T, N>())
     ln_fwd_warp(const T* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ b, T* __restrict__ y,
                 float* __restrict__ mean_out, float* __restrict__ rstd_out,
                 int rows, int h, float eps, int rms) {
   constexpr int kSlots = kWarpRowMax / (32 * N);
+  using R = typename Raw<T, N>::type;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsPerWarpBlock + (threadIdx.x >> 5);
+  const int stride = gridDim.x * kFwdWarps;
+  int row = blockIdx.x * kFwdWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const T* xr = x + (size_t)row * h;
-  T* yr = y + (size_t)row * h;
 
-  float v[kSlots * N];
-  float sum = 0.f;
+  // this lane's gamma and beta: its columns are the same in every row
+  float wr[kSlots * N] = {}, br[kSlots * N] = {};
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int c = (s * 32 + lane) * N;
     if (c < h) {
-      load<T, N>(xr + c, v + s * N);
-#pragma unroll
-      for (int i = 0; i < N; ++i) sum += v[s * N + i];
+      if (w != nullptr) load_w<N>(w + c, wr + s * N);
+      if (b != nullptr) load_w<N>(b + c, br + s * N);
     }
   }
-  const float mean = rms ? 0.f : warp_sum(sum) / (float)h;
-  float sq = 0.f;
+  // the raw packs of the row on its way
+  R raw[kSlots];
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     const int c = (s * 32 + lane) * N;
-    if (c < h) {
+    if (c < h) raw[s] = load_raw<T, N>(x + (size_t)row * h + c);
+  }
+  for (; row < rows; row += stride) {
+    float v[kSlots * N];
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float d = v[s * N + i] - mean;
-        sq += d * d;
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = (s * 32 + lane) * N;
+      if (c < h) unpack<T, N>(raw[s], v + s * N);
+    }
+    // the next row's bytes on their way before this row's reductions
+    const int next = row + stride;
+    if (next < rows) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const int c = (s * 32 + lane) * N;
+        if (c < h) raw[s] = load_raw<T, N>(x + (size_t)next * h + c);
       }
     }
-  }
-  const float rstd = rsqrtf(warp_sum(sq) / (float)h + eps);
+    float sum = 0.f;
 #pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int c = (s * 32 + lane) * N;
-    if (c < h) {
-      float o[N];
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = (s * 32 + lane) * N;
+      if (c < h) {
 #pragma unroll
-      for (int i = 0; i < N; ++i)
-        o[i] = affine_at((v[s * N + i] - mean) * rstd, w, b, c + i);
-      store<T, N>(yr + c, o);
+        for (int i = 0; i < N; ++i) sum += v[s * N + i];
+      }
     }
-  }
-  if (lane == 0) {
-    mean_out[row] = mean;
-    rstd_out[row] = rstd;
+    const float mean = rms ? 0.f : warp_sum(sum) / (float)h;
+    float sq = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = (s * 32 + lane) * N;
+      if (c < h) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const float d = v[s * N + i] - mean;
+          sq += d * d;
+        }
+      }
+    }
+    const float rstd = rsqrtf(warp_sum(sq) / (float)h + eps);
+    T* yr = y + (size_t)row * h;
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int c = (s * 32 + lane) * N;
+      if (c < h) {
+        float o[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          o[i] = affine((v[s * N + i] - mean) * rstd, w, b, wr[s * N + i],
+                        br[s * N + i]);
+        store<T, N>(yr + c, o);
+      }
+    }
+    if (lane == 0) {
+      mean_out[row] = mean;
+      rstd_out[row] = rstd;
+    }
   }
 }
 
@@ -248,10 +348,13 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
   const float rstd = rsqrtf(block_sum(sq, red) / (float)h + eps);
   for (int c = threadIdx.x * N; c < h; c += kBlockThreads * N) {
+    float wv[N] = {}, bv[N] = {};
+    if (w != nullptr) load_w<N>(w + c, wv);
+    if (b != nullptr) load_w<N>(b + c, bv);
     load<T, N>(xr + c, buf);
 #pragma unroll
     for (int i = 0; i < N; ++i)
-      buf[i] = affine_at((buf[i] - mean) * rstd, w, b, c + i);
+      buf[i] = affine((buf[i] - mean) * rstd, w, b, wv[i], bv[i]);
     store<T, N>(yr + c, buf);
   }
   if (threadIdx.x == 0) {
@@ -261,7 +364,8 @@ __global__ void __launch_bounds__(kBlockThreads)
 }
 
 // Dispatch on dtype (0 fp32, 1 bf16, 2 fp16) and on whether h divides
-// into 16-byte packs: F<T, N>::run(args...), or -1 for an unknown dtype.
+// into 16-byte packs: F<T, N>::run(args...), or -1 for an unknown dtype
+// (-2 from Fwd where the card's occupancy could not be read).
 template <template <typename, int> class F, typename... A>
 int dispatch(int dtype, int h, A... args) {
   if (dtype == 0)
@@ -277,6 +381,27 @@ int dispatch(int dtype, int h, A... args) {
   return -1;
 }
 
+// The blocks of the streaming forward the card keeps resident on the
+// current device (computed once a device), or 0 after a failed query.
+template <typename T, int N>
+int fwd_resident_blocks() {
+  constexpr int kDevices = 64;
+  static int cached[kDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kDevices)
+    return 0;
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, ln_fwd_warp<T, N>, 32 * kFwdWarps, 0) != cudaSuccess)
+      return 0;
+    cached[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return cached[dev];
+}
+
 template <typename T, int N>
 struct Fwd {
   static int run(const void* x, const float* w, const float* b, void* y,
@@ -285,8 +410,13 @@ struct Fwd {
     const T* xt = static_cast<const T*>(x);
     T* yt = static_cast<T*>(y);
     if (h <= kWarpRowMax) {
-      const int grid = (rows + kRowsPerWarpBlock - 1) / kRowsPerWarpBlock;
-      ln_fwd_warp<T, N><<<grid, 32 * kRowsPerWarpBlock, 0, stream>>>(
+      // one warp a row up to what the card keeps resident; past it each
+      // warp streams rows
+      const int resident = fwd_resident_blocks<T, N>();
+      if (resident <= 0) return -2;
+      const int need = (rows + kFwdWarps - 1) / kFwdWarps;
+      ln_fwd_warp<T, N><<<need < resident ? need : resident,
+                          32 * kFwdWarps, 0, stream>>>(
           xt, w, b, yt, mean, rstd, rows, h, eps, rms);
     } else {
       ln_fwd_block<T, N><<<rows, kBlockThreads, 0, stream>>>(
@@ -531,6 +661,10 @@ extern "C" int apex_ln_fwd(const void* x, const void* w, const void* b,
       static_cast<const float*>(b), y, static_cast<float*>(mean),
       static_cast<float*>(rstd), rows, h, eps, rms,
       static_cast<cudaStream_t>(stream));
+  if (r == -2) {
+    const cudaError_t e = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : cudaErrorUnknown);
+  }
   if (r < 0) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,9 @@ versions. A call that
 autograd has to differentiate goes through ``_FlashFn``, the counterpart
 of the reference's ``custom_vjp`` (``_flash_fwd_rule`` /
 ``_flash_bwd_rule``, and with ``return_lse=True`` ``_flash_lse_fwd_rule``
-/ ``_flash_lse_bwd_rule``): the forward saves ``(q, k, v, out, lse)``,
-the backward forms ``delta = rowsum(out * dO)`` in PyTorch (the reference
+/ ``_flash_lse_bwd_rule``): the forward saves ``(q, k, v, out, lse)``
+(and in fp32 the bf16 part planes of q, k and v its kernel read), the
+backward forms ``delta = rowsum(out * dO)`` in PyTorch (the reference
 leaves it to XLA, :828), recomputes the probabilities from the lse and
 passes the lse's cotangent ``glse`` to the kernels; the bias's gradient
 is recomputed in PyTorch (:func:`_dbias`, the reference's ``_finish_bwd``
@@ -31,11 +32,13 @@ The bf16 and fp16 forward and backward are the wgmma/TMA designs of
 ``csrc/flash_fwd_sm90.cuh`` and ``csrc/flash_bwd_sm90.cuh``, whose tiles
 TMA copies (a head_dim off :func:`tma_width` is padded with zero columns
 on the way in and cut on the way out, :func:`pad_head_dim`). The fp32
-backward is the wgmma/TMA design of ``csrc/flash_bwd32_sm90.cuh``: exact
+forward and backward are the wgmma/TMA designs of
+``csrc/flash_fwd32_sm90.cuh`` and ``csrc/flash_bwd32_sm90.cuh``: exact
 products from three bf16 parts a value, which a split pass
-(:func:`_split3_cuda`, its own launch and counter) writes as bf16 planes
-already padded to :func:`tma_width`; the fp32 forward keeps
-``csrc/flash_fwd.cuh``. Launch counts are kept
+(:func:`_split3_cuda`, ``csrc/flash_split3.cu``, its own launch and
+counter) writes as bf16 planes already padded to :func:`tma_width`; a
+differentiated fp32 call splits q, k and v once, in the forward, and dO
+in the backward. Launch counts are kept
 per dtype: bf16 under the kernel's name, fp16 and fp32 with a ``_fp16`` /
 ``_fp32`` suffix
 (:func:`kernel_name`). Dropout is the reference's
@@ -61,7 +64,7 @@ NEG_INF = -1e30
 KERNEL = "flash_fwd"
 BWD_DQ_KERNEL = "flash_bwd_dq"
 BWD_DKV_KERNEL = "flash_bwd_dkv"
-# the fp32 backward's split pass (fp32 only: no dtype suffix)
+# the fp32 kernels' split pass (fp32 only: no dtype suffix)
 SPLIT_KERNEL = "flash_split3"
 # head widths the kernels are built for; a narrower head_dim is zero-padded
 # in shared memory to the next one. fp32 stops at 128: its three bf16 part
@@ -348,11 +351,11 @@ def tma_width(d: int) -> int:
 
 
 def kernel_width(d: int, dtype: torch.dtype) -> int:
-    """The head width the kernels of ``dtype`` are launched at: fp32's
-    take any ``d`` (the forward pads in shared memory, the backward reads
-    the split pass's planes, padded there to :func:`tma_width`), bf16's and
-    fp16's :func:`tma_width`."""
-    return d if dtype == torch.float32 else tma_width(d)
+    """The head width the kernels of ``dtype`` read, :func:`tma_width`
+    for every dtype: bf16's and fp16's wrappers pad q, k, v (and dO) to it
+    (:func:`pad_head_dim`), fp32's split pass writes its planes at it while
+    the fp32 tensors and outputs keep ``d``."""
+    return tma_width(d)
 
 
 def pad_head_dim(tensors, width: int):
@@ -391,9 +394,9 @@ def _split3_cuda(ts, width: int):
     planes = [torch.empty((3, *t.shape[:-1], width), dtype=torch.bfloat16,
                           device=dev) for t in ts]
     P, I, L = _build.P, _build.I, _build.L
-    lib = _build.library("flash_bwd_fp32", "apex_flash_split3",
+    lib = _build.library("flash_split3", "apex_flash_split3",
                          (P,) * 8 + (L,) * 4 + (I, I, P),
-                         "apex_flash_bwd_error_string")
+                         "apex_flash_split3_error_string")
     pad = [None] * (4 - len(ts))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -405,7 +408,7 @@ def _split3_cuda(ts, width: int):
     if err:
         raise RuntimeError(
             f"{SPLIT_KERNEL}: CUDA error {err} at launch: "
-            f"{lib.apex_flash_bwd_error_string(err).decode()}")
+            f"{lib.apex_flash_split3_error_string(err).decode()}")
     _build.count_launch(SPLIT_KERNEL)
     return planes
 
@@ -487,8 +490,10 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     whose tiles TMA copies: a head_dim off :func:`tma_width` is padded
     with zero columns on the way in and cut on the way out. fp32 runs
     ``csrc/flash_bwd32_sm90.cuh`` on the bf16 part planes of q, k, v and
-    dO: the split pass writes them first (one launch), unless ``planes``
-    gives them (as :func:`_split3_cuda` returns them)."""
+    dO: ``planes`` gives those of q, k and v (the forward's; dO is then
+    split alone, one launch) or of all four, as :func:`_split3_cuda`
+    returns them; without it the split pass writes all four (one
+    launch)."""
     q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
     dev = q.device
     dout = dout.contiguous()
@@ -499,15 +504,20 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     width = kernel_width(d, q.dtype)
-    q, k, v, dout = pad_head_dim((q, k, v, dout), width)
     if q.dtype == torch.float32:
-        # the kernels read the bf16 parts, rows padded to TMA's width
+        # the kernels read the bf16 parts, rows padded to TMA's width; the
+        # fp32 tensors and gradients keep d
         if planes is None:
-            planes = _split3_cuda((q, k, v, dout), tma_width(d))
+            planes = _split3_cuda((q, k, v, dout), width)
         else:
-            _check_planes(planes, (q, k, v, dout), tma_width(d))
+            planes = list(planes)
+            if len(planes) == 3:
+                planes += _split3_cuda((dout,), width)
+            _check_planes(planes, (q, k, v, dout), width)
         ins = [t.data_ptr() for t in planes]
+        width = d
     else:
+        q, k, v, dout = pad_head_dim((q, k, v, dout), width)
         ins = [t.data_ptr() for t in (q, k, v, dout)]
     dq = torch.empty_like(q) if BWD_DQ_KERNEL in kernels else None
     dk, dv = ((torch.empty_like(k), torch.empty_like(v))
@@ -558,10 +568,16 @@ class _FlashFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, q_seg, k_seg, q_pos, k_pos, scale,
                 causal, window, rate, seed, kernel, with_lse):
+        ctx.planes = None
         if kernel:
+            if q.dtype == torch.float32:
+                # q, k and v split once: the forward's planes are the
+                # backward's too
+                ctx.planes = _split3_cuda((q, k, v), tma_width(q.shape[-1]))
             out, lse = _flash_cuda(q, k, v, q_seg, k_seg, scale, causal,
                                    window, rate, seed, bias=bias,
-                                   q_pos=q_pos, k_pos=k_pos)
+                                   q_pos=q_pos, k_pos=k_pos,
+                                   planes=ctx.planes)
         else:
             out, lse = _attention_torch(q, k, v, bias, q_seg, k_seg, scale,
                                         causal, window, rate, seed,
@@ -586,9 +602,11 @@ class _FlashFn(torch.autograd.Function):
         if glse is not None:
             glse = glse.float().contiguous()
         pos = dict(q_pos=q_pos, k_pos=k_pos)
+        # the kernels take the forward's planes (fp32)
+        kw = dict(pos, planes=ctx.planes) if kernel else pos
         dq, dk, dv = (_flash_bwd_cuda if kernel else _flash_bwd_torch)(
             q, k, v, lse, dout, delta, q_seg, k_seg, scale, causal, window,
-            rate, seed, bias=bias, glse=glse, **pos)
+            rate, seed, bias=bias, glse=glse, **kw)
         dbias = None
         if bias is not None and ctx.needs_input_grad[3]:
             dbias = _dbias(q, k, v, bias, lse, dout, delta, q_seg, k_seg,
@@ -609,18 +627,31 @@ def _library(dtype: torch.dtype) -> ctypes.CDLL:
 
 
 def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
-                seed=None, *, bias=None, q_pos=None, k_pos=None):
+                seed=None, *, bias=None, q_pos=None, k_pos=None,
+                planes=None):
     """The kernel: returns ``(out, lse)`` like ``_flash_fwd_pallas``.
     bf16 and fp16 run the wgmma/TMA kernel (``csrc/flash_fwd_sm90.cuh``):
     a head_dim off :func:`tma_width` is padded with zero columns on the
-    way in and the output cut on the way out."""
+    way in and the output cut on the way out. fp32 runs
+    ``csrc/flash_fwd32_sm90.cuh`` on the bf16 part planes of q, k and v:
+    ``planes`` gives them (as :func:`_split3_cuda` returns them), else the
+    split pass writes them first (one launch); the output keeps d."""
     q_seg, k_seg = _check_kernel_args(q, k, v, q_seg, k_seg)
     extra = _extra_args(q, bias, q_pos, k_pos)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     dev = q.device
     width = kernel_width(d, q.dtype)
-    q, k, v = pad_head_dim((q, k, v), width)
+    if q.dtype == torch.float32:
+        if planes is None:
+            planes = _split3_cuda((q, k, v), width)
+        else:
+            _check_planes(planes, (q, k, v), width)
+        ins = [t.data_ptr() for t in planes]
+        width = d
+    else:
+        q, k, v = pad_head_dim((q, k, v), width)
+        ins = [t.data_ptr() for t in (q, k, v)]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
     lib = _library(q.dtype)
@@ -628,8 +659,7 @@ def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.apex_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if q_seg is None else q_seg.data_ptr(),
+            *ins, None if q_seg is None else q_seg.data_ptr(),
             None if k_seg is None else k_seg.data_ptr(), *extra,
             out.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, width,
             DTYPE_CODES[q.dtype], float(scale), int(causal),

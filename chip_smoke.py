@@ -666,6 +666,7 @@ def layer_norm_case(gen: torch.Generator, dev, rows: int) -> dict:
     check(excess <= LN_ABS_TOL and stat_err <= LN_STAT_TOL,
           "layer_norm_fwd kernel disagrees with its plain version")
     kernel = lambda: layer_norm._fwd_cuda(x, w, b, 1e-5, False)  # noqa: E731
+    check_repeat(f"layer_norm_fwd rows={rows}", kernel, (y, mean, rstd))
     ms, h_ms = device_ms(kernel), host_ms(kernel)
     plain_ms = device_ms(lambda: layer_norm._fwd_torch(x, w, b, 1e-5, False))
     # the library call takes weights in x's dtype: bf16 copies, made once
@@ -1874,9 +1875,10 @@ def _ms(x) -> str:
 
 
 def check_repeat(name, fn, got) -> None:
-    """The flash kernels write each output element once, with no atomics:
-    a second call on the same inputs must be bitwise equal (the forward's
-    output and lse, the backward's gradients)."""
+    """The flash and LayerNorm kernels write each output element once,
+    with no atomics: a second call on the same inputs must be bitwise
+    equal (the forward's output and lse or statistics, the backward's
+    gradients)."""
     again = fn()
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)
@@ -5021,6 +5023,9 @@ def mha_stacks(seed: int, dev, card: str, dtype=torch.bfloat16) -> dict:
             want = MHA_LAYERS if impl == "fast" else 0
             for kname in kernels:
                 n = want if kname.startswith("flash") else MHA_LAYERS
+                if kname == attention.SPLIT_KERNEL:
+                    # q, k, v in the forward, dO in the backward
+                    n = 2 * want
                 check(launches[impl].get(kname, 0) == n,
                       f"MHA {sname} {impl}: {kname} launched "
                       f"{launches[impl].get(kname, 0)} times, not {n}")
@@ -5499,16 +5504,23 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
                                         do, **sdpa_kw)
     pairs = int(live.sum()) * h
     rows = {}
-    split_ms, bex = None, ex
+    split_ms, fsplit_ms, bex, fwd_k = None, None, ex, fwd
     if dtype == torch.float32:
-        # fp32's pair reads the split pass's planes: timed apart, the pair
-        # on planes made once
+        # fp32's kernels read the split pass's planes: the split timed
+        # apart (q, k, v for the forward; q, k, v, dO for the backward
+        # pair), the kernels on planes made once
         width = attention.tma_width(d)
         split_ms = device_ms(lambda: attention._split3_cuda((q, k, v, do),
                                                             width))
+        fsplit_ms = device_ms(lambda: attention._split3_cuda((q, k, v),
+                                                             width))
         bex = dict(ex, planes=attention._split3_cuda((q, k, v, do), width))
+        fex = dict(ex, planes=bex["planes"][:3])
+        fwd_k = lambda: attention._flash_cuda(  # noqa: E731
+            q, k, v, q_seg, k_seg, scale, causal, None, rate, seed, **fex)
+        check_repeat(f"flash_fwd {name} on given planes", fwd_k, (out, lse))
     for key, kname, kernel, n_prod, outs, pms, lms in (
-            ("fwd", attention.KERNEL, fwd, 2, (out, lse), plain_fwd,
+            ("fwd", attention.KERNEL, fwd_k, 2, (out, lse), plain_fwd,
              lib_fwd),
             ("dq", attention.BWD_DQ_KERNEL, lambda: attention._flash_bwd_cuda(
                 *args, kernels=(attention.BWD_DQ_KERNEL,), **bex), 3,
@@ -5532,12 +5544,19 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
                         else {"library_host_ms": lib_bwd_host}),
                      **({"split_ms": split_ms} if key == "dq" and split_ms
                         is not None else {}),
+                     **({"split_ms": fsplit_ms, "with_split_ms": ms
+                         + fsplit_ms} if key == "fwd" and fsplit_ms
+                        is not None else {}),
                      "max_abs_err": abs_errs[key],
                      "rel_err": out_err if key == "fwd" else max(
                          g_errs[x_] for x_ in (("dq",) if key == "dq"
                                                else ("dk", "dv"))),
                      "shape": shape}
     if split_ms is not None:
+        print(f"    {attention.SPLIT_KERNEL} (q, k, v into bf16 parts, one "
+              f"launch): ms={fsplit_ms:.5f}; forward + split "
+              f"{rows['fwd']['with_split_ms']:.5f} against SDPA's forward "
+              f"{lib_fwd_dev:.5f} (device)")
         print(f"    {attention.SPLIT_KERNEL} (q, k, v, dO into bf16 parts, "
               f"one launch): ms={split_ms:.5f}; dq + dk/dv + split "
               f"{rows['dq']['ms'] + rows['dkv']['ms'] + split_ms:.5f} against "
@@ -5547,7 +5566,7 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
 
 
 def split_case(gen, dev) -> dict:
-    """The fp32 backward's split pass (``csrc/flash_bwd32_sm90.cuh``
+    """The fp32 kernels' split pass (``csrc/flash_split3.cu``
     ``flash_split3_kernel``) at GPT-2 345M's training shape, q, k, v and dO
     (b 8, h 16, s 1024, d 64) in one launch: bitwise its plain version,
     its device ms beside its bound (each fp32 input read once, each bf16
@@ -5572,8 +5591,8 @@ def split_case(gen, dev) -> dict:
           f"planes: bitwise={same} ms={ms:.5f} plain_ms={plain_ms:.5f} "
           f"bound_ms={b_ms:.5f} ({by})")
     return {"name": attention.SPLIT_KERNEL, "route": "cuda",
-            "source": "apex_tpu_torch/csrc/flash_bwd_fp32.cu",
-            "replaces": "apex_tpu/ops/attention.py:402",
+            "source": "apex_tpu_torch/csrc/flash_split3.cu",
+            "replaces": "apex_tpu/ops/attention.py:182",
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": by, "library_ms": None, "max_abs_err": 0.0,
             "bitwise": same,
@@ -5683,9 +5702,13 @@ def flash_report_cases(gen, dev) -> dict:
         out[name] = flash_dtype_case(name, gen, dev, dtype, b, 16, 16, sq,
                                      sk, d, **opts)
         torch.cuda.empty_cache()
-    print("  flash forward per call (device ms) against SDPA's forward "
-          "(device ms) and the bound: " + "; ".join(
-              f"{n} {r['fwd']['ms']:.4f} vs {r['fwd']['library_device_ms']:.4f}"
+    print("  flash forward per call (device ms; fp32 also with its split of "
+          "q, k, v) against SDPA's forward (device ms) and the bound: "
+          + "; ".join(
+              f"{n} {r['fwd']['ms']:.4f}"
+              + (f" (+ split {r['fwd']['with_split_ms']:.4f})"
+                 if "with_split_ms" in r["fwd"] else "")
+              + f" vs {r['fwd']['library_device_ms']:.4f}"
               f", bound {r['fwd']['bound_ms']:.4f}" for n, r in out.items()))
     print("  flash backward per call (dq + dk/dv, device ms) against SDPA's "
           "backward (device ms) and the bound: " + "; ".join(
@@ -5754,6 +5777,9 @@ def ln_fp16_cases(gen, dev) -> list:
           f"{LN_PARAM_TOL})")
     check(y_ex <= FP16_ABS and stat <= LN_STAT_TOL,
           "layer_norm_fwd fp16 kernel disagrees with its plain version")
+    check_repeat(f"layer_norm_fwd fp16 rows={rows}",
+                 lambda: layer_norm._fwd_cuda(x, w, b, 1e-5, False),
+                 (y, mean, rstd))
     check(dx_ex <= FP16_ABS and p_err <= LN_PARAM_TOL,
           "layer_norm_bwd fp16 kernel disagrees with its plain version")
     wl, bl = w.half(), b.half()
@@ -5887,9 +5913,12 @@ def _worst_grad(space, gk, gp):
 def train_fp32(seed: int, dev, card: str) -> dict:
     """Phase 14b: GPT-2 345M at the example's own dtype, fp32 (flash
     backend, FusedAdam, 8 x 1024 tokens, FP32_STEPS steps): every fp32
-    flash kernel exactly 24 times a step, losses finite and falling, step
-    time, tokens/s, peak memory, a profiled step's busy share; at batch 2
-    the loss and gradients against the plain path."""
+    flash kernel exactly 24 times a step and the split pass 48 (q, k, v in
+    each layer's forward, whose planes the backward takes; dO in its
+    backward), losses finite and falling, step time, tokens/s, peak memory,
+    a profiled step's busy share with the forward's and the backward's
+    flash time; at batch 2 the loss and gradients against the plain
+    path."""
     cfg = GPTConfig.gpt2_345m(dtype=torch.float32)
     t0 = time.perf_counter()
     model = init_gpt_pretrain_params(
@@ -5905,8 +5934,8 @@ def train_fp32(seed: int, dev, card: str) -> dict:
     out = _run_summary("GPT-2 fp32", losses, times, launches,
                        torch.cuda.max_memory_allocated(), card, cfg)
     check(losses[-1] < losses[0], "the fp32 training loss did not fall")
-    per_step = {k_: cfg.num_layers for k_ in _flash_names(torch.float32)
-                + (attention.SPLIT_KERNEL,)}
+    per_step = {k_: cfg.num_layers for k_ in _flash_names(torch.float32)}
+    per_step[attention.SPLIT_KERNEL] = 2 * cfg.num_layers
     per_step.update({k_: 2 * cfg.num_layers + 1
                      for k_ in _ln_names(torch.float32)})
     per_step[mt_ops.ADAM_KERNEL] = 1
@@ -5919,15 +5948,21 @@ def train_fp32(seed: int, dev, card: str) -> dict:
         {"flash": ("flash_",), "optimizer": ("adam_kernel",),
          "layer_norm": ("ln_",)})
     prof = out["profile"]
-    # the backward pair and its split pass, a part of the "flash" share
+    # parts of the "flash" share: the forward and its split of q, k, v
+    # (the split's three-job instance), the backward pair and its split of
+    # dO (one job)
+    prof["flash_fwd_ms"] = sum(m["ms"] for m in prof["matched"]
+                               if "flash_fwd" in m["name"]
+                               or "flash_split3_kernel<3>" in m["name"])
     prof["flash_bwd_ms"] = sum(m["ms"] for m in prof["matched"]
                                if "flash_bwd" in m["name"]
-                               or "flash_split3" in m["name"])
+                               or "flash_split3_kernel<1>" in m["name"])
     if prof["device_busy_ms"] > 0:
-        share = 100 * prof["flash_bwd_ms"] / prof["device_busy_ms"]
-        print(f"  the fp32 backward pair and its split pass: "
-              f"{prof['flash_bwd_ms']:.3f} ms of {prof['device_busy_ms']:.1f}"
-              f" ms busy ({share:.2f}%)")
+        for part in ("fwd", "bwd"):
+            ms = prof[f"flash_{part}_ms"]
+            print(f"  the fp32 flash {part} and its split pass: {ms:.3f} ms "
+                  f"of {prof['device_busy_ms']:.1f} ms busy "
+                  f"({100 * ms / prof['device_busy_ms']:.2f}%)")
     x2, y2 = x[:2], y[:2]
     loss_k, gk = _grads(step, model, model, x2, y2)
     loss_p, gp = _grads(step, model, model.forward_plain, x2, y2)

@@ -77,9 +77,13 @@ def test_padded_heads_give_the_reference_forward(dt, d):
 
 
 def test_pad_head_dim_leaves_fp32_and_full_widths():
+    """Every dtype's kernels read TMA's width: bf16 and fp16 tensors are
+    padded to it, fp32's split pass writes its planes at it (the fp32
+    tensors keep d); a tensor already at the width passes as it is."""
     z = torch.zeros(1, 2, 8, 48)
     assert port.kernel_width(48, torch.float32) == 48
-    assert port.kernel_width(20, torch.float32) == 20
+    assert port.kernel_width(20, torch.float32) == 32
+    assert port._split3_torch(torch.ones(2, 20), 32).shape == (3, 2, 32)
     assert port.kernel_width(20, torch.bfloat16) == 32
     assert port.kernel_width(60, torch.float16) == 64
     same, none = port.pad_head_dim((z, None), 48)

@@ -47,7 +47,10 @@ attention rounds P and dS to bf16 on one). Dropout (``csrc/dropout.cu``): output
 gradient bitwise. Stochastic rounding (a bf16 master): stated with its
 tests. The fp32 backward (wgmma, exact three-part products): dq, dk and
 dv within 1e-5 of each one's largest |value| (fp32 sums in other
-orders); its split pass bitwise.
+orders); its split pass bitwise. The fp32 forward (the same design): the
+output within 1e-5 of its largest |value|, the lse within 1e-5. The
+LayerNorm forward's streamed rows: as above, fp16 within one fp16 ulp
+(2^-10 of the value) plus 1e-5, and a repeated call bitwise.
 """
 
 import numpy as np
@@ -116,6 +119,41 @@ def test_layer_norm_bwd_kernel_matches_plain(cuda_device, h, dtype, rms):
     for got, want in ((dw, pdw), (db, pdb)):
         torch.testing.assert_close(
             got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [5, 8192, 8199])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_layer_norm_streamed_rows_match_plain_and_repeat(cuda_device, dtype,
+                                                          rows):
+    """The forward's warps walk rows at a stride of the resident grid: 5
+    rows (fewer than one block's warps), 8192 (the training rows, past one
+    row a resident warp) and 8199 (a ragged tail of the stride loop), at h
+    1024, within the tolerances above; a repeated call is bitwise equal."""
+    h = 1024
+    rng = np.random.RandomState(rows)
+    x = torch.from_numpy(rng.randn(rows, h).astype(np.float32) * 2 + 0.5)
+    x = x.to(cuda_device, dtype)
+    w = torch.from_numpy(1 + 0.1 * rng.randn(h).astype(np.float32)).cuda()
+    b = torch.from_numpy(0.1 * rng.randn(h).astype(np.float32)).cuda()
+    with torch.no_grad():
+        got = layer_norm._fwd_cuda(x, w, b, 1e-5, False)
+        again = layer_norm._fwd_cuda(x, w, b, 1e-5, False)
+        py, pmean, prstd = layer_norm._fwd_torch(x, w, b, 1e-5, False)
+    torch.cuda.synchronize()
+    for a_, b_ in zip(got, again):
+        assert torch.equal(a_, b_)
+    y, mean, rstd = got
+    torch.testing.assert_close(mean, pmean, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, prstd, rtol=1e-5, atol=0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, py, rtol=0, atol=1e-5)
+    else:
+        # one ulp of the value (bf16 2^-7, fp16 2^-10) plus 1e-5 near zero
+        ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+        diff = (y.float() - py.float()).abs()
+        assert (diff <= ulp * py.float().abs() + 1e-5).all()
 
 
 @pytest.mark.cuda
@@ -518,36 +556,60 @@ def _sm90_fwd_case(dev, dtype, d, *, sq=150, causal=True, window=None,
     return args, dict(bias=bt, q_pos=q_pos, k_pos=k_pos)
 
 
+# (dtype, head_dim) of the forward's cases: bf16 and fp16 to 256; fp32 (the
+# exact three-part design, csrc/flash_fwd32_sm90.cuh) to 128, with widths
+# whose rows are no multiple of 4 (33: single stores) or of 8 (20, 100)
+SM90_FWD_WIDTHS = ([(dt, d) for dt in (torch.bfloat16, torch.float16)
+                    for d in (32, 40, 64, 96, 128, 256)]
+                   + [(torch.float32, d) for d in (20, 32, 33, 64, 96, 100,
+                                                   128)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("opt", sorted(SM90_FWD_OPTIONS))
-@pytest.mark.parametrize("d", [32, 40, 64, 96, 128, 256])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype,d", SM90_FWD_WIDTHS)
 def test_sm90_flash_fwd_matches_plain(cuda_device, dtype, d, opt):
+    """bf16 and fp16 within SM90_TOLS of each row's largest |value|, the
+    lse within 1e-3; fp32 within 1e-5 of the output's largest |value| and
+    the lse within 1e-5 (exact products, fp32 sums in other orders), its
+    split pass launched once beside it."""
     args, kw = _sm90_fwd_case(cuda_device, dtype, d,
                               **SM90_FWD_OPTIONS[opt])
-    name = attention.kernel_name(attention.KERNEL, dtype)
-    before = _build.launch_counts().get(name, 0)
+    names = [attention.kernel_name(attention.KERNEL, dtype)]
+    if dtype == torch.float32:
+        names.append(attention.SPLIT_KERNEL)
+    before = _build.launch_counts()
     out, lse = attention._flash_cuda(*args, **kw)
     q, k, v, q_seg, k_seg, scale, causal, window, rate, seed = args
     pout, plse = attention._attention_torch(
         q, k, v, kw["bias"], q_seg, k_seg, scale, causal, window, rate,
         seed, return_lse=True, q_pos=kw["q_pos"], k_pos=kw["k_pos"])
     torch.cuda.synchronize()
-    assert _build.launch_counts()[name] == before + 1
+    for n_ in names:
+        assert _build.launch_counts()[n_] == before.get(n_, 0) + 1, n_
     assert out.dtype == dtype and out.shape == pout.shape
     assert bool(torch.isfinite(out.float()).all())
     live = plse > attention.NEG_INF * 0.5
     assert torch.equal(live, lse > attention.NEG_INF * 0.5)
     # rows with no live key: out exactly 0, lse NEG_INF
     assert (out[~live] == 0).all() and (lse[~live] == attention.NEG_INF).all()
-    assert _row_rel_err(out, pout) <= SM90_TOLS[dtype]
-    torch.testing.assert_close(lse[live], plse[live], rtol=0, atol=1e-3)
+    if dtype == torch.float32:
+        err = float((out - pout).abs().max())
+        assert err <= 1e-5 * float(pout.abs().max()), err
+        torch.testing.assert_close(lse[live], plse[live], rtol=0, atol=1e-5)
+    else:
+        assert _row_rel_err(out, pout) <= SM90_TOLS[dtype]
+        torch.testing.assert_close(lse[live], plse[live], rtol=0, atol=1e-3)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("opt", ["all", "decode", "positions"])
-@pytest.mark.parametrize("d", [64, 256])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 256),
+                                     (torch.float16, 64),
+                                     (torch.float16, 256),
+                                     (torch.float32, 64),
+                                     (torch.float32, 128)])
 def test_sm90_flash_fwd_repeats_bitwise(cuda_device, dtype, d, opt):
     """No atomics: each output element is written once, so two calls on
     the same inputs give the same bits."""
