@@ -21,12 +21,17 @@
 // from the key: nothing is saved.
 //
 // Bound on the card: the generator's integer work. Twenty rounds of
-// add, rotate (one funnel shift) and xor plus the key injections are ~78
-// integer operations an element, ~84 with the compare and the select,
-// against 4 bytes an element for bf16 (read x, write y): at the fp32 rate
-// of 67 T operations/s (the H100's 64 INT32 lanes an SM give half of
-// that) and 3.35 TB/s the two bounds are within a factor of two, and the
-// integer pipe is the likelier limit.
+// add, rotate (one funnel shift) and xor plus the key injections, the
+// index, the compare, the division and the select: counted from the bf16
+// instance's SASS (nvcc 12.8, apex_tpu_torch/tools/sass_count.py), its
+// loop issues 96.75 instructions an element. 44.5 of them only the ALU
+// pipe runs (LOP3, SHF, the compares, PRMT); 32.5 are adds and moves
+// (IADD3, LEA, MOV, IMAD.IADD, IMAD.MOV) that the ALU or the FMA pipe
+// runs; 2 are multiplies and 6 fp32 operations (FMA pipe). At 1980 MHz
+// over 132 SMs, for GPT's hidden dropout (1024, 8, 1024): the 4 x 32 issue
+// slots an SM take 0.0243 ms, the ALU-only work on its 64 lanes 0.0223,
+// all integer work on both pipes' 128 lanes 0.0198, and the 4 bytes an
+// element at 3.35 TB/s 0.0100. The issue slots bound it.
 //
 // The generator (`threefry_bits`) is csrc/sr_common.cuh's, shared with the
 // stochastic-rounding kernels.

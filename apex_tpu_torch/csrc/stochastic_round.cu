@@ -11,12 +11,18 @@
 // bitwise the plain version's.
 //
 // Bound on the card: the generator's integer work. It reads 4 bytes and
-// writes 2 an element (6 bytes: 2.1 ms for GPT-2 345M's 355 M elements at
-// 3.35 TB/s would be 0.64 ms) against ~84 integer operations (threefry's
-// 20 rounds and key injections, the add, mask and truncation): at the
-// fp32 rate of 67 T operations/s, 0.45 ms; the integer pipe has half
-// that rate. It is the yardstick of what threefry costs inside the
-// optimizer kernels' SR outputs.
+// writes 2 an element (6 bytes: for GPT-2 345M's 355 M elements 0.64 ms
+// at 3.35 TB/s) against threefry's 20 rounds and key injections, the add,
+// mask and truncation. Counted from this kernel's SASS (nvcc 12.8,
+// apex_tpu_torch/tools/sass_count.py), its loop issues 81.75 instructions
+// an element: 47.5 that only the ALU pipe runs (LOP3, SHF, the compares,
+// PRMT), 31 adds and moves that the ALU or the FMA pipe runs, 1.25
+// multiplies. At 1980 MHz over 132 SMs, for 355 M elements, the ALU-only
+// work on its 64 lanes an SM takes 1.008 ms, all integer work on both
+// pipes' 128 lanes 0.846 and the 4 x 32 issue slots 0.868: the ALU pipe
+// bounds it.
+// It is the yardstick of what threefry costs inside the optimizer kernels'
+// SR outputs.
 //
 // Design: csrc/dropout.cu's: a grid-stride loop, four consecutive
 // elements a thread an iteration (one 16-byte load, one 8-byte store),

@@ -113,9 +113,11 @@ def _bwd_torch(x2: torch.Tensor, w: Optional[torch.Tensor],
 def _bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
               mean: torch.Tensor, rstd: torch.Tensor, g2: torch.Tensor,
               rms: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel on (rows, h): dx plus per-block fp32 dw/db
-    partials, summed here as the reference sums its per-tile partials
-    in XLA (``_bwd_pallas`` :152)."""
+    """The backward kernels on (rows, h): dx, and dw and db summed from
+    the row kernel's per-block partials by the library's second kernel,
+    in block order (the reference sums its per-tile partials in XLA,
+    ``_bwd_pallas`` :152). One call launches both kernels and counts
+    once."""
     dev = x2.device
     check_kernel_input("x", x2, tuple(_DTYPE_CODES), dev)
     g2 = g2.contiguous()
@@ -137,22 +139,23 @@ def _bwd_cuda(x2: torch.Tensor, w: Optional[torch.Tensor],
             raise RuntimeError(f"{BWD_KERNEL}: no launch for rows={rows} "
                                f"h={h}: " + lib.apex_ln_error_string(
                                    -blocks).decode())
-        dw_part = torch.empty((blocks, h), dtype=torch.float32, device=dev)
-        db_part = torch.empty((blocks, h), dtype=torch.float32, device=dev)
+        part = torch.empty((blocks, 2, h), dtype=torch.float32, device=dev)
+        dw = torch.empty(h, dtype=torch.float32, device=dev)
+        db = torch.empty(h, dtype=torch.float32, device=dev)
         P, I = _build.P, _build.I
-        lib = _library("apex_ln_bwd", (P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                       P))
+        lib = _library("apex_ln_bwd", (P, P, P, P, P, P, P, P, P, I, I, I, I,
+                                       I, P))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.apex_ln_bwd(
             x2.data_ptr(), g2.data_ptr(), None if w is None else w.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-            dw_part.data_ptr(), db_part.data_ptr(), blocks, rows, h,
-            int(rms), code, stream)
+            mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), blocks, rows, h, int(rms), code,
+            stream)
     if err:
         raise RuntimeError(f"{BWD_KERNEL}: CUDA error {err} at launch: "
                            f"{lib.apex_ln_error_string(err).decode()}")
     _build.count_launch(kernel_name(BWD_KERNEL, x2.dtype))
-    return dx, dw_part.sum(dim=0), db_part.sum(dim=0)
+    return dx, dw, db
 
 
 def _library(launcher: str = "apex_ln_fwd", argtypes=None) -> ctypes.CDLL:

@@ -1,22 +1,30 @@
-"""The LayerNorm forward and the fp32 flash forward of two checkouts of the
-port, side by side on the card.
+"""The LayerNorm forward and backward and the fp32 flash forward of two
+checkouts of the port, side by side on the card.
 
-``save`` runs fixed seeded cases through the public wrappers
-(``ops.layer_norm._fwd_cuda``; ``ops.attention._flash_cuda``, which in fp32
-includes the split of q, k and v where the checkout's design has one) of
-the checkout at ``--root``, each checkout in its own process so that each
-loads its own build, and saves every output's SHA-256 with the call's device
-time; ``compare`` then says, case by case, whether two saves are bitwise
-equal and prints both times:
+``save`` runs fixed seeded cases through the wrappers
+(``ops.layer_norm._fwd_cuda`` and ``_bwd_cuda``; ``ops.attention._flash_cuda``,
+which in fp32 includes the split of q, k and v where the checkout's design
+has one) of the checkout at ``--root``, each checkout in its own process so
+that each loads its own build, and saves every output's SHA-256 with the
+call's device time. The backward's cases hash dx alone and keep dw and db
+as values (2 x h floats), since their summing order is the design's.
+``compare`` then says, case by case, whether two saves are bitwise equal
+(dx, for the backward), prints dw's and db's largest difference relative to
+their largest |value|, and both times:
 
     python apex_tpu_torch/tools/tree_compare.py save --root OLD old.json
     python apex_tpu_torch/tools/tree_compare.py save --root . new.json
     python apex_tpu_torch/tools/tree_compare.py compare old.json new.json
 
-Run the saves in turns (old, new, new, old) to see the spread of the
-times. Device time: ``--iters`` calls captured in one CUDA graph, replayed
-five times between CUDA events (the inputs stay in the card's L2 where they
-fit).
+``--only layer_norm`` (or ``flash``) saves those cases alone. Run the saves
+in turns (old, new, new, old) to see the spread of the times. Device time:
+``--iters`` calls captured in one CUDA graph, replayed five times between
+CUDA events. That replay keeps the inputs in the card's 50 MB L2 where they
+fit, so the LayerNorm cases also give a cold time (``cold_ms``: the calls
+of the graph rotate over enough copies of the inputs that x alone passes
+200 MB; none under 1 MB of x) and the time of the one PyTorch call that
+computes the same function (``lib_ms``: ``F.layer_norm``,
+``native_layer_norm_backward``, on weights in x's dtype; none for RMSNorm).
 """
 
 from __future__ import annotations
@@ -51,16 +59,26 @@ FLASH_CASES = (
 )
 
 
-def _device_ms(torch, fn, iters: int) -> float:
+# the cold time's inputs: copies of x enough to pass this many bytes, four L2s
+COLD_BYTES = 200e6
+
+
+def _device_ms(torch, fns, iters: int) -> float:
+    """Device ms a call: ``iters`` calls (rounded up to a whole number of
+    turns over ``fns``, one function or a list that the calls rotate
+    over) captured in one CUDA graph, replayed five times."""
+    fns = fns if isinstance(fns, list) else [fns]
+    iters = -(-iters // len(fns)) * len(fns)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for fn in fns:
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+        for i in range(iters):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -83,18 +101,60 @@ def _digest(torch, ts) -> str:
     return h.hexdigest()
 
 
+def _ln_inputs(torch, layer_norm, case):
+    """x, g, w, b, mean, rstd of a LayerNorm case (mean and rstd from the
+    plain forward, so that both checkouts' backwards read the same)."""
+    rows, h, dt, affine, rms = case
+    gen = torch.Generator().manual_seed(rows * 7 + h)
+    x = (torch.randn(rows, h, generator=gen) * 2 + 0.5).to(
+        "cuda", getattr(torch, dt))
+    w = (1 + 0.1 * torch.randn(h, generator=gen)).cuda() if affine \
+        else None
+    b = (0.1 * torch.randn(h, generator=gen)).cuda() \
+        if affine and not rms else None
+    g = torch.randn(rows, h, generator=gen).to("cuda", x.dtype)
+    _, mean, rstd = layer_norm._fwd_torch(x, w, b, 1e-5, rms)
+    return x, g, w, b, mean, rstd
+
+
 def _ln_cases(torch, layer_norm, iters):
-    for rows, h, dt, affine, rms in LN_CASES:
-        gen = torch.Generator().manual_seed(rows * 7 + h)
-        x = (torch.randn(rows, h, generator=gen) * 2 + 0.5).to(
-            "cuda", getattr(torch, dt))
-        w = (1 + 0.1 * torch.randn(h, generator=gen)).cuda() if affine \
-            else None
-        b = (0.1 * torch.randn(h, generator=gen)).cuda() \
-            if affine and not rms else None
-        fn = lambda: layer_norm._fwd_cuda(x, w, b, 1e-5, rms)  # noqa: E731
-        key = f"layer_norm rows={rows} h={h} {dt} affine={affine} rms={rms}"
-        yield key, fn, _device_ms(torch, fn, iters)
+    """(key, call, {ms, cold_ms, lib_ms}) of the forward and the backward
+    of each case."""
+    F = torch.nn.functional
+    for case in LN_CASES:
+        rows, h, dt, affine, rms = case
+        x, g, w, b, mean, rstd = _ln_inputs(torch, layer_norm, case)
+        x_bytes = x.numel() * x.element_size()
+        copies = max(2, -(-int(COLD_BYTES) // x_bytes))
+        sets = [tuple(t.clone() for t in (x, g, mean, rstd))
+                for _ in range(copies)] if x_bytes >= 1 << 20 else []
+        wl = None if w is None else w.to(x.dtype)
+        bl = None if b is None else b.to(x.dtype)
+        tag = f"rows={rows} h={h} {dt} affine={affine} rms={rms}"
+
+        def fwd(x_=x):
+            return layer_norm._fwd_cuda(x_, w, b, 1e-5, rms)
+
+        def bwd(x_=x, g_=g, m_=mean, r_=rstd):
+            return layer_norm._bwd_cuda(x_, w, m_, r_, g_, rms)
+        lib_fwd = lib_bwd = None
+        if not rms:
+            lmean, lrstd = torch.native_layer_norm(x, (h,), wl, bl, 1e-5)[1:]
+            mask = [True, affine, affine]
+            lib_fwd = lambda: F.layer_norm(x, (h,), wl, bl, 1e-5)  # noqa
+            lib_bwd = lambda: torch.ops.aten.native_layer_norm_backward(  # noqa
+                g, x, (h,), lmean, lrstd, wl, bl, mask)
+        for key, fn, cold, lib in (
+                (f"layer_norm {tag}", fwd,
+                 [lambda s=s: fwd(s[0]) for s in sets], lib_fwd),
+                (f"layer_norm_bwd {tag}", bwd,
+                 [lambda s=s: bwd(*s) for s in sets], lib_bwd)):
+            yield key, fn, {
+                "ms": _device_ms(torch, fn, iters),
+                "cold_ms": _device_ms(torch, cold, iters) if cold else None,
+                "lib_ms": _device_ms(torch, lib, iters) if lib else None}
+        del sets
+        torch.cuda.empty_cache()
 
 
 def _flash_cases(torch, attention, iters):
@@ -113,10 +173,14 @@ def _flash_cases(torch, attention, iters):
         key = (f"flash fp32 {name} b={b} h={h} sq={sq} sk={sk} d={d}"
                + (" dropout 0.1" if drop else "")
                + (" key-padding bias" if pad else ""))
-        yield key, fn, _device_ms(torch, fn, max(iters // 5, 2))
+        yield key, fn, {"ms": _device_ms(torch, fn, max(iters // 5, 2))}
 
 
-def save(root: str, path: str, iters: int) -> None:
+def _fmt(v) -> str:
+    return "-" if v is None else f"{v:.5f}"
+
+
+def save(root: str, path: str, iters: int, only=None) -> None:
     sys.path.insert(0, root)
     import torch
     from apex_tpu_torch import _build
@@ -125,21 +189,42 @@ def save(root: str, path: str, iters: int) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("tree_compare: no CUDA device")
     # these libraries alone (a checkout with the split pass has its own)
-    names = ["layer_norm", "flash_fwd_fp32"]
-    if "flash_split3" in _build.SOURCES:
-        names.append("flash_split3")
+    names = [] if only == "flash" else ["layer_norm"]
+    if only != "layer_norm":
+        names.append("flash_fwd_fp32")
+        if "flash_split3" in _build.SOURCES:
+            names.append("flash_split3")
     _build.build_all(names)
     out = {"card": torch.cuda.get_device_name(0), "cases": {}}
-    for cases in (_ln_cases(torch, layer_norm, iters),
-                  _flash_cases(torch, attention, iters)):
-        for key, fn, ms in cases:
+    groups = []
+    if only != "flash":
+        groups.append(_ln_cases(torch, layer_norm, iters))
+    if only != "layer_norm":
+        groups.append(_flash_cases(torch, attention, iters))
+    for cases in groups:
+        for key, fn, times in cases:
             got = fn()
-            out["cases"][key] = {"sha256": _digest(torch, got), "ms": ms}
-            print(f"{key}: {ms:.5f} ms")
+            rec = dict(times)
+            if key.startswith("layer_norm_bwd"):
+                dx, dw, db = got
+                rec.update(sha256=_digest(torch, [dx]),
+                           dw=dw.float().cpu().tolist(),
+                           db=db.float().cpu().tolist())
+            else:
+                rec["sha256"] = _digest(torch, got)
+            out["cases"][key] = rec
+            print(f"{key}: " + " ".join(f"{k} {_fmt(v)}"
+                                        for k, v in times.items()))
             del got
             torch.cuda.empty_cache()
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
+
+
+def _rel(a, b) -> float:
+    """The largest |a - b| relative to the largest |b|."""
+    top = max(abs(v) for v in b) or 1.0
+    return max(abs(x - y) for x, y in zip(a, b)) / top
 
 
 def compare(a_path: str, b_path: str) -> int:
@@ -149,8 +234,18 @@ def compare(a_path: str, b_path: str) -> int:
         b = json.load(f)["cases"]
     for key, first in a.items():
         second = b[key]
-        print(f"{key}: bitwise {first['sha256'] == second['sha256']}; ms "
-              f"{first['ms']:.5f} (first) {second['ms']:.5f} (second)")
+        what = "dx bitwise" if "dw" in first else "bitwise"
+        line = f"{key}: {what} {first['sha256'] == second['sha256']}"
+        if "dw" in first:
+            line += (f"; dw rel {_rel(second['dw'], first['dw']):.3e}, "
+                     f"db rel {_rel(second['db'], first['db']):.3e}")
+        for t in ("ms", "cold_ms"):
+            if first.get(t) is not None:
+                line += (f"; {t} {first[t]:.5f} (first) "
+                         f"{_fmt(second.get(t))} (second)")
+        if first.get("lib_ms") is not None:
+            line += f"; lib_ms {first['lib_ms']:.5f}"
+        print(line)
     return 0
 
 
@@ -161,13 +256,14 @@ def main(argv=None) -> int:
     s.add_argument("--root", required=True,
                    help="the checkout whose apex_tpu_torch runs")
     s.add_argument("--iters", type=int, default=50)
+    s.add_argument("--only", choices=("layer_norm", "flash"))
     s.add_argument("path")
     c = sub.add_parser("compare")
     c.add_argument("first")
     c.add_argument("second")
     args = ap.parse_args(argv)
     if args.cmd == "save":
-        save(args.root, args.path, args.iters)
+        save(args.root, args.path, args.iters, args.only)
         return 0
     return compare(args.first, args.second)
 

@@ -583,6 +583,72 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+# the integer kernels' (dropout, the SR kernels') least time: threefry's
+# hash is integer work, bounded by what the card's pipes can run of it, at
+# the card's maximum SM clock (`nvidia-smi --query-gpu=clocks.max.sm`) over
+# 132 SMs. Instructions an element of each kernel's main loop (nvcc 12.8,
+# sm_90a; four elements a thread a pass), counted from its SASS by
+# `python apex_tpu_torch/tools/sass_count.py dropout --kernel
+# dropout_kernel --elements 4` (and `stochastic_round --kernel
+# sr_cast_kernel`), by class: "alu" only the ALU pipe runs (LOP3, SHF,
+# the compares, PRMT), "add" the ALU or the FMA pipe runs (integer adds
+# and moves: IADD3, LEA, MOV and IMAD.IADD, IMAD.MOV), "imad" only the
+# FMA pipe (multiplies), "fp32" FFMA/FADD/FMUL, "all" every instruction
+MAX_SM_HZ = 1980e6
+SMS = 132
+DROPOUT_SASS = {"all": 96.75, "alu": 44.5, "add": 32.5, "imad": 2.0,
+                "fp32": 6.0}    # dropout_kernel<bf16>
+SR_SASS = {"all": 81.75, "alu": 47.5, "add": 31.0, "imad": 1.25,
+           "fp32": 0.0}         # sr_cast_kernel
+
+
+def int_bound(nbytes_: float, per_element: dict, n: int,
+              fp32_ops: float = 0.0):
+    """The least time of ``n`` elements of a kernel whose instructions an
+    element are ``per_element`` (DROPOUT_SASS, SR_SASS), plus ``fp32_ops``
+    fp32 operations in all (one issue slot each), moving ``nbytes_``: the
+    largest of the bytes over 3.35 TB/s and, a clock an SM, the ALU-only
+    instructions over the ALU pipe's 64 lanes, all integer instructions
+    over the 128 lanes of the ALU and FMA pipes together, the multiplies
+    over the FMA pipe's 64 integer lanes, the fp32 operations over its 128
+    and all instructions over the 4 x 32 issue slots. Returns (ms, "bytes"
+    or "operations", the bytes or the limit that bounds it)."""
+    pe = per_element
+    fp32 = pe["fp32"] + fp32_ops / max(n, 1)
+    clocks = {"alu": pe["alu"] / 64,
+              "integer": (pe["alu"] + pe["add"] + pe["imad"]) / 128,
+              "imad": pe["imad"] / 64, "fp32": fp32 / 128,
+              "issue": (pe["all"] + fp32 - pe["fp32"]) / 128}
+    limit, per_element_clocks = max(clocks.items(), key=lambda kv: kv[1])
+    t_ops = n * per_element_clocks / (SMS * MAX_SM_HZ) * 1e3
+    t_bytes = nbytes_ / PEAK_BYTES_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", "bytes"
+    return t_ops, "operations", limit
+
+
+# a cold reading: the calls of the graph rotate over copies of the inputs
+# until the first input alone passes this many bytes (four of the card's
+# 50 MB L2), so that no call finds its inputs in L2
+COLD_BYTES = 200e6
+
+
+def cold_ms(fn, *ins) -> float:
+    """Device ms of ``fn(*ins)`` with cold inputs: ``device_ms`` over calls
+    that rotate over copies of ``ins``."""
+    copies = max(2, -(-int(COLD_BYTES) // nbytes(ins[0])))
+    sets = [tuple(t.clone() for t in ins) for _ in range(copies)]
+    turn = [0]
+
+    def call():
+        turn[0] += 1
+        return fn(*sets[turn[0] % copies])
+    ms = device_ms(call, iters=2 * copies)
+    del sets
+    torch.cuda.empty_cache()
+    return ms
+
+
 def _profiled(run, label: str, shares: dict):
     """One call of ``run`` under the profiler (device activity): returns
     its result and a dict of the wall, the device-busy ms and, for each
@@ -626,6 +692,32 @@ def _profiled(run, label: str, shares: dict):
                     "matched": matched,
                     "top": [{"ms": t, "count": n, "name": key}
                             for t, n, key in per_kernel[:20]]}
+
+
+# a profiled GPT step's LayerNorm kernels (forward, backward and the
+# backward's sum of dw and db) and PyTorch's reductions, apart
+LN_PROFILE_SHARES = {"layer_norm": ("ln_",),
+                     "reductions": ("reduce_kernel",)}
+
+
+def _ln_profile(prof: dict, label: str) -> None:
+    """Adds to ``prof`` (``_profiled``'s) the launches of each LayerNorm
+    kernel and of PyTorch's reductions, and prints them: no reduction
+    follows the backward for dw and db."""
+    ln = {}
+    for m in prof["matched"]:
+        if m["share"] == "layer_norm":
+            kname = m["name"][m["name"].index("ln_"):].split("<")[0]
+            kname = kname.split("(")[0]
+            ln[kname] = ln.get(kname, 0) + m["count"]
+    prof["layer_norm_launches"] = ln
+    prof["reduction_launches"] = sum(m["count"] for m in prof["matched"]
+                                     if m["share"] == "reductions")
+    if prof["device_busy_ms"] > 0:
+        print(f"  LayerNorm in {label}: {prof['layer_norm_ms']:.3f} ms; "
+              f"launches {ln}; PyTorch reductions "
+              f"{prof['reduction_launches']} launches, "
+              f"{prof['reductions_ms']:.3f} ms")
 
 
 def _train_loop(step, state, batch, steps: int):
@@ -788,11 +880,16 @@ def flash_cases(gen, dev) -> dict:
             "cases": cases}
 
 
-def layer_norm_bwd_case(gen: torch.Generator, dev) -> dict:
-    rows, h = TRAIN_BATCH * 1024, 1024
-    x = torch.randn(rows, h, generator=gen).mul_(2).add_(0.5).to(
-        dev, torch.bfloat16)
-    g = torch.randn(rows, h, generator=gen).to(dev, torch.bfloat16)
+def layer_norm_bwd_case(gen: torch.Generator, dev, rows: int,
+                        dtype=torch.bfloat16) -> dict:
+    """#3 at (rows, 1024) in ``dtype`` against its plain version (dx as
+    the forward's output, dw and db within LN_PARAM_TOL), a repeated call
+    bitwise; device (graph replay and cold), host, plain and
+    ``native_layer_norm_backward`` ms and the bound. The kernel's time
+    includes its second kernel, which sums dw and db."""
+    h = 1024
+    x = torch.randn(rows, h, generator=gen).mul_(2).add_(0.5).to(dev, dtype)
+    g = torch.randn(rows, h, generator=gen).to(dev, dtype)
     w = (1 + 0.1 * torch.randn(h, generator=gen)).to(dev)
     b = (0.1 * torch.randn(h, generator=gen)).to(dev)
     _, mean, rstd = layer_norm._fwd_cuda(x, w, b, 1e-5, False)
@@ -804,18 +901,22 @@ def layer_norm_bwd_case(gen: torch.Generator, dev) -> dict:
     excess = float((diff - LN_REL_TOL * pdx.float().abs()).max())
     p_err = max(float((a - e).abs().max()) / float(e.abs().max())
                 for a, e in ((dw, pdw), (db, pdb)))
-    print(f"  layer_norm_bwd rows={rows} h={h} bf16: max_abs_err={err:.3e} "
+    dt = str(dtype)[6:]
+    print(f"  layer_norm_bwd rows={rows} h={h} {dt}: max_abs_err={err:.3e} "
           f"max(|diff| - 2^-7|dx|)={excess:.3e} (tol {LN_ABS_TOL}) "
           f"dw/db rel_err={p_err:.3e} (tol {LN_PARAM_TOL})")
     check(excess <= LN_ABS_TOL and p_err <= LN_PARAM_TOL,
           "layer_norm_bwd kernel disagrees with its plain version")
-    kernel = lambda: layer_norm._bwd_cuda(  # noqa: E731
-        x, w, mean, rstd, g, False)
+
+    def kernel(x_=x, g_=g, m_=mean, r_=rstd):
+        return layer_norm._bwd_cuda(x_, w, m_, r_, g_, False)
+    check_repeat(f"layer_norm_bwd rows={rows} {dt}", kernel, (dx, dw, db))
     ms, h_ms = device_ms(kernel), host_ms(kernel)
+    c_ms = cold_ms(kernel, x, g, mean, rstd)
     plain_ms = device_ms(
         lambda: layer_norm._bwd_torch(x, w, mean, rstd, g, False), iters=5)
-    # the library's LayerNorm backward on bf16 weights, from its own
-    # forward's statistics
+    # the library's LayerNorm backward on weights in x's dtype, from its
+    # own forward's statistics
     wl, bl = w.to(x.dtype), b.to(x.dtype)
     _, lmean, lrstd = torch.native_layer_norm(x, (h,), wl, bl, 1e-5)
     lib_ms = device_ms(lambda: torch.ops.aten.native_layer_norm_backward(
@@ -823,14 +924,26 @@ def layer_norm_bwd_case(gen: torch.Generator, dev) -> dict:
     # per element: x-hat, w*g, two row sums, dw/db sums, dx
     b_ms, by = bound(nbytes(x, g, w, mean, rstd, dx, dw, db), 13 * rows * h,
                      PEAK_FP32_FLOPS)
-    print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
-          f"library_ms={lib_ms:.5f} bound_ms={b_ms:.5f} ({by})")
+    print(f"    ms={ms:.5f} cold_ms={c_ms:.5f} host_ms={h_ms:.5f} "
+          f"plain_ms={plain_ms:.5f} library_ms={lib_ms:.5f} "
+          f"bound_ms={b_ms:.5f} ({by})")
+    return {"max_abs_err": err, "ms": ms, "cold_ms": c_ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms, "host_ms": h_ms,
+            "shape": f"rows={rows} h={h} {dt} x, fp32 w"}
+
+
+def layer_norm_bwd_cases(gen: torch.Generator, dev) -> dict:
+    """#3 at GPT-2 345M's training rows in bf16 (the headline) and fp32
+    (the example's own dtype), and at BERT-Large's 8 x 512 rows in bf16."""
+    cases = [layer_norm_bwd_case(gen, dev, TRAIN_BATCH * 1024),
+             layer_norm_bwd_case(gen, dev, 8 * 512),
+             layer_norm_bwd_case(gen, dev, TRAIN_BATCH * 1024,
+                                 torch.float32)]
     return {"name": layer_norm.BWD_KERNEL, "route": "cuda",
             "source": "apex_tpu_torch/csrc/layer_norm.cu",
-            "replaces": "apex_tpu/ops/layer_norm.py:67",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
-            "host_ms": h_ms, "shape": f"rows={rows} h={h} bf16 x, fp32 w"}
+            "replaces": "apex_tpu/ops/layer_norm.py:67", **cases[0],
+            "max_abs_err": cases[0]["max_abs_err"], "cases": cases}
 
 
 def flash_bwd_case(name, gen, dev, b, h, hk, sq, sk, d) -> dict:
@@ -2072,7 +2185,8 @@ def train(seed: int, dev, card: str) -> dict:
         lambda: step(state, x, y), "step",
         {"optimizer": OPT_KERNEL_KEYS + ("adam_kernel",),
          "flash_bwd": ("flash_bwd_dq", "flash_bwd_dkv"),
-         "flash_fwd": ("flash_fwd",)})
+         "flash_fwd": ("flash_fwd",), **LN_PROFILE_SHARES})
+    _ln_profile(prof, "the bf16 step")
     if prof["device_busy_ms"] > 0:
         print(f"  the flash forward in the profiled step: "
               f"{prof['flash_fwd_ms']:.3f} ms of {prof['device_busy_ms']:.1f} "
@@ -3529,13 +3643,6 @@ DROPOUT_STEPS = 10
 # the kept share of the flash mask over 8.4 M (query, key) pairs: its
 # standard deviation there is 1.0e-4, so 0.001 is ten of them
 KEPT_TOL = 0.001
-# dropout.cu's integer work an element: threefry2x32's 20 rounds of add,
-# rotate and xor (60) and 5 key injections (2 each, 10), the counter's
-# words and the xor of the outputs (4), the uniform float (3), the
-# compare, the division and the select (3), the index (4); counted
-# against the fp32 rate, the card's fastest non-tensor rate (its INT32
-# lanes are half as many), so the bound is the least time it could take
-DROPOUT_OPS_PER_ELEMENT = 84
 DROPOUT_SHAPES = {"hidden": (1024, 8, 1024), "probs": (8, 16, 512, 512)}
 # BERT-Large with dropout at batch 2, kernels against plain versions: the
 # dropout kernel alone is bitwise its plain version (loss and gradients
@@ -3762,12 +3869,16 @@ def dropout_case(name, gen, dev, shape) -> dict:
     plain_ms = device_ms(lambda: dropout_op._dropout_torch(x, key, DROP_RATE),
                          iters=3, replays=2)
     lib_ms = _library_ms("F.dropout", lambda: F.dropout(x, DROP_RATE))
-    b_ms, by = bound(nbytes(x, got), DROPOUT_OPS_PER_ELEMENT * x.numel(),
-                     PEAK_FP32_FLOPS)
+    # the integer work of threefry2x32's 20 rounds of add, rotate and xor,
+    # the key injections, the index, the uniform float, the compare, the
+    # division and the select
+    b_ms, by, pipe = int_bound(nbytes(x, got), DROPOUT_SASS, x.numel())
     print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
-          f"library_ms={lib_ms} (F.dropout) bound_ms={b_ms:.5f} ({by})")
+          f"library_ms={lib_ms} (F.dropout) bound_ms={b_ms:.5f} ({by}: "
+          f"{pipe})")
     return {"case": name, "ms": ms, "host_ms": h_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by,
+            "bound_pipe": pipe,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "kept": kept, "shape": f"{tuple(shape)} bf16"}
 
@@ -4106,9 +4217,6 @@ SR_SEED = 3
 # up must be 1/8 within 0.1% (a binomial's sd there is 0.008%)
 SR_UNBIASED_N = 1 << 24
 SR_UP_TOL = 1e-3
-# integer operations a threefry-hashed element costs (csrc/sr_common.cuh:
-# 20 rounds, the key injections, the add and truncation), as dropout.cu's
-SR_HASH_OPS = 84
 # the bf16-master paths (12b, 12c): phase 6's and phase 4's settings with
 # master_dtype=bf16 and stochastic_rounding=True
 SR_OPT = dict(master_dtype=torch.bfloat16, stochastic_rounding=True)
@@ -4123,17 +4231,24 @@ def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
 
 
 def _sr_row(name, source, n, err, run, plain_run, fp32_run, nbytes_, ops,
-            shape, library_run=None, **extra) -> dict:
+            shape, library_run=None, hashed=0, **extra) -> dict:
     """Time an SR kernel (CUDA graph replay), its plain version (host
     clock), the same kernel over an fp32 master (the yardstick) and, where
     one PyTorch call computes the same function (none rounds
-    stochastically), that call, with its bound: bytes over 3.35 TB/s or
-    integer and fp32 operations over 67 T/s, whichever is larger."""
+    stochastically), that call, with its bound: bytes over 3.35 TB/s or,
+    for a kernel that hashes ``hashed`` elements (csrc/sr_common.cuh: 20
+    rounds, the key injections, the add and truncation), the SR cast's
+    instructions an element plus ``ops`` fp32 operations (``int_bound``),
+    else ``ops`` over 67 T/s, whichever is larger."""
     ms = device_ms(run, iters=5, replays=3)
     plain_ms = host_ms(plain_run, iters=1, warmup=1)
     fp32_ms = device_ms(fp32_run, iters=5, replays=3) if fp32_run else None
     lib_ms = device_ms(library_run) if library_run else None
-    b_ms, by = bound(nbytes_, ops, PEAK_FP32_FLOPS)
+    if hashed:
+        b_ms, by, pipe = int_bound(nbytes_, SR_SASS, hashed, ops)
+        extra["bound_pipe"] = pipe
+    else:
+        b_ms, by = bound(nbytes_, ops, PEAK_FP32_FLOPS)
     fmt = lambda x: "none" if x is None else f"{x:.5f}"  # noqa: E731
     print(f"    {name}: ms={ms:.5f} plain_ms={plain_ms:.5f} fp32_master_ms="
           f"{fmt(fp32_ms)} library_ms={fmt(lib_ms)} bound_ms={b_ms:.5f} "
@@ -4179,8 +4294,8 @@ def sr_cast_case(dev) -> dict:
         engine.SR_CAST_KERNEL, "stochastic_round.cu", n, err,
         lambda: engine.stochastic_round_cast(x, SR_SEED),
         lambda: engine.stochastic_round_cast(x, SR_SEED, plain=True), None,
-        6 * n, SR_HASH_OPS * n, f"n={n} fp32 -> bf16 (GPT-2 345M flat "
-        "buffer)", replaces="apex_tpu/multi_tensor/engine.py:48",
+        6 * n, 0, f"n={n} fp32 -> bf16 (GPT-2 345M flat buffer)",
+        hashed=n, replaces="apex_tpu/multi_tensor/engine.py:48",
         up_share=up, direct_launches=launches)
 
 
@@ -4209,7 +4324,7 @@ def _sr_update(name, fn, p32, slots, n, shape, nbytes_, ops, source,
     return _sr_row(name, source, n, err, lambda: fn(pb, slots, False),
                    lambda: fn(pb.clone(), copies(), True),
                    lambda: fn(p32, slots, False), nbytes_,
-                   ops + SR_HASH_OPS * n, shape, direct_launches=launches)
+                   ops, shape, hashed=n, direct_launches=launches)
 
 
 def _direct(run) -> dict:
@@ -4410,8 +4525,9 @@ def _sr_lamb_cases(dev, cfg, space, ids, p32, m, v, g) -> list:
     row = _sr_row(
         mt_ops.LAMB_STAGE2_KERNEL + mt_ops.SR_SUFFIX, "fused_lamb.cu", n,
         err2, lambda: s2(pb), lambda: s2(pb, True), lambda: s2(p32),
-        8 * n + 4 * (n // 2048), (3 + SR_HASH_OPS) * n,
-        f"n={n} (GPT-2 345M plain flat space), bf16 p, per-leaf ratios")
+        8 * n + 4 * (n // 2048), 3 * n,
+        f"n={n} (GPT-2 345M plain flat space), bf16 p, per-leaf ratios",
+        hashed=n)
     seg_ms = device_ms(lambda: seg(out), iters=5, replays=3)
     seg_plain_ms = host_ms(lambda: seg(out, True), iters=1, warmup=1)
     # the same segment list over an fp32 master (no stochastic rounding)
@@ -4421,8 +4537,7 @@ def _sr_lamb_cases(dev, cfg, space, ids, p32, m, v, g) -> list:
         sp32, su, out32, sratio, sids, segs, meta.seg_elems, lr=1e-3),
         iters=5, replays=3)
     del sp32, out32
-    seg_bound, seg_by = bound(8 * large, (3 + SR_HASH_OPS) * large,
-                              PEAK_FP32_FLOPS)
+    seg_bound, seg_by, _ = int_bound(8 * large, SR_SASS, large, 3 * large)
     print(f"    segment list ({large} elements): ms={seg_ms:.5f} "
           f"plain_ms={seg_plain_ms:.5f} fp32_master_ms={seg32_ms:.5f} "
           f"bound_ms={seg_bound:.5f} ({seg_by})")
@@ -5782,28 +5897,35 @@ def ln_fp16_cases(gen, dev) -> list:
                  (y, mean, rstd))
     check(dx_ex <= FP16_ABS and p_err <= LN_PARAM_TOL,
           "layer_norm_bwd fp16 kernel disagrees with its plain version")
+
+    def fwd(x_=x):
+        return layer_norm._fwd_cuda(x_, w, b, 1e-5, False)
+
+    def bwd(x_=x, g_=g, m_=mean, r_=rstd):
+        return layer_norm._bwd_cuda(x_, w, m_, r_, g_, False)
+    check_repeat(f"layer_norm_bwd fp16 rows={rows}", bwd, (dx, dw, db))
     wl, bl = w.half(), b.half()
     _, lmean, lrstd = torch.native_layer_norm(x, (h,), wl, bl, 1e-5)
     out = []
-    for base, kernel, plain, lib, ins, outs, ops, line in (
-            (layer_norm.KERNEL,
-             lambda: layer_norm._fwd_cuda(x, w, b, 1e-5, False),
+    for base, kernel, cold_ins, plain, lib, ins, outs, ops, line in (
+            (layer_norm.KERNEL, fwd, (x,),
              lambda: layer_norm._fwd_torch(x, w, b, 1e-5, False),
              lambda: F.layer_norm(x, (h,), wl, bl, 1e-5), (x, w, b),
              (y, mean, rstd), 8, 45),
-            (layer_norm.BWD_KERNEL,
-             lambda: layer_norm._bwd_cuda(x, w, mean, rstd, g, False),
+            (layer_norm.BWD_KERNEL, bwd, (x, g, mean, rstd),
              lambda: layer_norm._bwd_torch(x, w, mean, rstd, g, False),
              lambda: torch.ops.aten.native_layer_norm_backward(
                  g, x, (h,), lmean, lrstd, wl, bl, [True, True, True]),
              (x, g, w, mean, rstd), (dx, dw, db), 13, 67)):
-        ms = device_ms(kernel)
+        ms, h_ms = device_ms(kernel), host_ms(kernel)
+        c_ms = cold_ms(kernel, *cold_ins)
         plain_ms = device_ms(plain, iters=5)
         lib_ms = device_ms(lib)
         b_ms, by = bound(nbytes(*ins, *outs), ops * rows * h,
                          PEAK_FP32_FLOPS)
         name = layer_norm.kernel_name(base, torch.float16)
-        print(f"    {name}: ms={ms:.5f} plain_ms={plain_ms:.5f} library_ms="
+        print(f"    {name}: ms={ms:.5f} cold_ms={c_ms:.5f} host_ms="
+              f"{h_ms:.5f} plain_ms={plain_ms:.5f} library_ms="
               f"{lib_ms:.5f} bound_ms={b_ms:.5f} ({by})")
         out.append({"name": name, "route": "cuda",
                     "source": "apex_tpu_torch/csrc/layer_norm.cu",
@@ -5811,7 +5933,8 @@ def ln_fp16_cases(gen, dev) -> list:
                     "max_abs_err": float((y.float() - py.float()).abs().max())
                     if base == layer_norm.KERNEL
                     else float((dx.float() - pdx.float()).abs().max()),
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "ms": ms, "cold_ms": c_ms, "host_ms": h_ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": by, "library_ms": lib_ms,
                     "shape": f"rows={rows} h={h} fp16 x, fp32 w/b"})
     return out
@@ -5946,8 +6069,9 @@ def train_fp32(seed: int, dev, card: str) -> dict:
     (state, _), out["profile"] = _profiled(
         lambda: step(state, x, y), "GPT-2 fp32 step",
         {"flash": ("flash_",), "optimizer": ("adam_kernel",),
-         "layer_norm": ("ln_",)})
+         **LN_PROFILE_SHARES})
     prof = out["profile"]
+    _ln_profile(prof, "the fp32 step")
     # parts of the "flash" share: the forward and its split of q, k, v
     # (the split's three-job instance), the backward pair and its split of
     # dO (one job)
@@ -6224,7 +6348,7 @@ def main(argv=None) -> int:
             # training path's (8 x 1024); the headline is the serving one's
             ln = layer_norm_case(gen, dev, 8 * 512)
             ln["cases"] = [layer_norm_case(gen, dev, TRAIN_BATCH * 1024)]
-            rows = [ln, flash_cases(gen, dev), layer_norm_bwd_case(gen, dev),
+            rows = [ln, flash_cases(gen, dev), layer_norm_bwd_cases(gen, dev),
                     *flash_bwd_cases(gen, dev), adam_case(dev)]
             torch.cuda.empty_cache()
             rows += sumsq_cases(dev)

@@ -157,6 +157,54 @@ def test_layer_norm_streamed_rows_match_plain_and_repeat(cuda_device, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("norm", ["layer", "layer_no_affine", "rms"])
+@pytest.mark.parametrize("rows", [5, 8192, 8199])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_layer_norm_bwd_streamed_rows_match_plain_and_repeat(
+        cuda_device, dtype, rows, norm):
+    """The backward's warps stream rows through their shared-memory rings
+    at a stride of the resident grid: 5 rows (fewer than one block's
+    warps), 8192 (the training rows) and 8199 (a ragged tail of the
+    stride loop), at h 1024, with and without gamma, LayerNorm and
+    RMSNorm. dx, dw and db (summed by the library's second kernel) within
+    the tolerances above, dw and db tensors of their own, a repeated call
+    bitwise equal, one launch counted a call."""
+    h = 1024
+    rng = np.random.RandomState(rows + 3)
+    x = torch.from_numpy(rng.randn(rows, h).astype(np.float32) * 2 + 0.5)
+    x = x.to(cuda_device, dtype)
+    g = torch.from_numpy(rng.randn(rows, h).astype(np.float32)).to(
+        cuda_device, dtype)
+    w = None if norm == "layer_no_affine" else torch.from_numpy(
+        1 + 0.1 * rng.randn(h).astype(np.float32)).cuda()
+    rms = norm == "rms"
+    _, mean, rstd = layer_norm._fwd_torch(x, w, None, 1e-5, rms)
+    name = layer_norm.kernel_name(layer_norm.BWD_KERNEL, dtype)
+    before = _build.launch_counts().get(name, 0)
+    got = layer_norm._bwd_cuda(x, w, mean, rstd, g, rms)
+    again = layer_norm._bwd_cuda(x, w, mean, rstd, g, rms)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 2
+    for a_, b_ in zip(got, again):
+        assert torch.equal(a_, b_)
+    dx, dw, db = got
+    pdx, pdw, pdb = layer_norm._bwd_torch(x, w, mean, rstd, g, rms)
+    assert dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
+    assert (dw.untyped_storage().data_ptr()
+            != db.untyped_storage().data_ptr())
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, pdx, rtol=0, atol=1e-5)
+    else:
+        ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+        diff = (dx.float() - pdx.float()).abs()
+        assert (diff <= ulp * pdx.float().abs() + 1e-5).all()
+    for got_, want in ((dw, pdw), (db, pdb)):
+        torch.testing.assert_close(
+            got_, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
 def test_layer_norm_autograd_runs_both_kernels(cuda_device):
     x = torch.randn(64, 256, device=cuda_device,
                     dtype=torch.bfloat16).requires_grad_()

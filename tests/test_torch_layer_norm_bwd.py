@@ -90,20 +90,27 @@ def _check(got, want, bf16):
             p, p_want, rtol=0, atol=PARAM_RTOL * np.abs(p_want).max())
 
 
+# h: a narrow row, GPT-2 345M's and BERT-Large's 1024, and 1000 (the last
+# 16-byte packs of a lane's row ragged)
+WIDTHS = [128, 1024, 1000]
+
+
+@pytest.mark.parametrize("h", WIDTHS)
 @pytest.mark.parametrize("rows", [64, 7, 129])   # tiles, and does not
 @pytest.mark.parametrize("affine", [True, False])
 @pytest.mark.parametrize("rms", [False, True])
-def test_fp32_matches_reference(impl, rows, affine, rms):
-    x, w, b, g = _inputs((rows,), 128, seed=rows)
+def test_fp32_matches_reference(impl, rows, affine, rms, h):
+    x, w, b, g = _inputs((rows,), h, seed=rows)
     want = _ref_grads(x, w, b, g, rms, affine, jnp.float32, impl)
     got = _port_grads(x, w, b, g, rms, affine, torch.float32)
     _check(got, want, bf16=False)
 
 
+@pytest.mark.parametrize("h", WIDTHS)
 @pytest.mark.parametrize("rms", [False, True])
 @pytest.mark.parametrize("rows", [32, 9])
-def test_bf16_x_fp32_weights(impl, rows, rms):
-    x, w, b, g = _inputs((rows,), 128, seed=10 + rows)
+def test_bf16_x_fp32_weights(impl, rows, rms, h):
+    x, w, b, g = _inputs((rows,), h, seed=10 + rows)
     # the same bf16 values on both sides
     x = np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
     g = np.array(jnp.asarray(g).astype(jnp.bfloat16).astype(jnp.float32))

@@ -49,7 +49,8 @@ def _close_rows(dx, wdx, floor=1e-3):
 
 
 @pytest.mark.parametrize("rms", [False, True], ids=["layer", "rms"])
-@pytest.mark.parametrize("rows,h", [(8, 96), (33, 256), (4, 100)])
+@pytest.mark.parametrize("rows,h", [(8, 96), (33, 256), (4, 100),
+                                    (37, 1024)])
 def test_fp16_norm_matches_reference(rms, rows, h):
     rng = np.random.RandomState(rows + h)
     x = (2.0 * rng.randn(rows, h) + 0.5).astype(np.float32)
