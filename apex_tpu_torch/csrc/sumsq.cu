@@ -27,15 +27,27 @@
 // Also the finishing sum by leaf that the per-tensor norms take
 // (`leaf_sum_kernel`; the reference's `jax.ops.segment_sum` over
 // `tile_leaf_ids`, in XLA outside any `pallas_call`): each leaf's
-// per-subtile partials lie in one contiguous run, and one block sums a
-// run in one documented order, so two runs and the plain version
+// per-subtile partials lie in one contiguous run, summed in one
+// documented order, so two runs and the plain version
 // (`engine._leaf_sum_torch`) agree bit for bit, which atomics into one
-// float per leaf (`index_add_`) never did. The order: thread i of 256 adds
-// elements i, i + 256, i + 512, ... of the run, in turn, to its own sum
-// (from +0); then a halving tree over the 256 sums, v[i] += v[i + s] for s
-// = 128, 64, ..., 1; v[0] is the leaf's sum. Bound: memory, one read of
-// the partials (GPT-2 345M: 173 k floats, under 1 us at 3.35 TB/s); its
-// 292 blocks are one wave.
+// float per leaf (`index_add_`) never did. Bound: memory, one read of the
+// partials (GPT-2 345M: 173 k floats, 0.2 us at 3.35 TB/s), far under a
+// launch: the kernel is launch- and latency-bound, and its lever is the
+// longest run (GPT-2 345M's embedding, 25,152 partials): one block alone
+// would walk it in ~98 strided loads a thread.
+// Design: a run is cut into chunks of 2048 partials (an empty run is one
+// chunk), one block of 256 threads a chunk, which reads its span of the
+// partials and its leaf from one 16-byte descriptor. The order: thread i of a
+// chunk adds its elements i, i + 256, ..., i + 1792 (eight loads in
+// flight, absent ones +0) in turn to its own sum from +0; a halving tree
+// over the 256 sums, v[i] += v[i + s] for s = 128, 64, ..., 1, gives the
+// chunk's sum; the leaf's sum is its chunks' sums added in chunk order,
+// ((c0 + c1) + c2) + .... A leaf of one chunk writes c0. A leaf of more
+// writes each chunk's sum to `partial`, and the block that finishes the
+// leaf's chunks last (a per-leaf counter, not a sum: one acquire-release
+// atomic add a block) adds them in chunk order and resets the counter for
+// the next launch, so a leaf is finished within the same launch, with no
+// atomic into a sum, and a CUDA graph replays it unchanged.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,25 +99,57 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 constexpr int kLeafThreads = 256;
+constexpr int kLeafPer = 8;                             // loads a thread
+constexpr int kLeafChunk = kLeafThreads * kLeafPer;     // 2048 partials
 
-// runs: (leaves, 2) int32 [start, end) into x; out: (leaves,) fp32.
+// spans: (n_chunks, 4) int32 [lo, hi, leaf, (c << 16) | n] of each block:
+// its partials [lo, hi) of x, its leaf, its chunk c within the leaf and
+// the leaf's chunk count n (one load, so the block's loads of x wait on
+// no other); partial: n_chunks fp32 scratch; count: (leaves,) uint32, 0
+// before and after each launch; out: (leaves,) fp32.
 __global__ void __launch_bounds__(kLeafThreads)
-    leaf_sum_kernel(const float* __restrict__ x, const int* __restrict__ runs,
-                    float* __restrict__ out) {
+    leaf_sum_kernel(const float* __restrict__ x, const int4* __restrict__ spans,
+                    float* partial, unsigned* count, float* __restrict__ out) {
   __shared__ float v[kLeafThreads];
-  const int leaf = blockIdx.x;
-  const int start = runs[2 * leaf], end = runs[2 * leaf + 1];
+  const int4 sp = spans[blockIdx.x];
+  const int lo = sp.x, hi = sp.y, leaf = sp.z;
+  float xs[kLeafPer];
+#pragma unroll
+  for (int k = 0; k < kLeafPer; ++k) {
+    const int j = lo + (int)threadIdx.x + k * kLeafThreads;
+    xs[k] = j < hi ? x[j] : 0.0f;
+  }
   float acc = 0.0f;
-  for (int j = start + threadIdx.x; j < end; j += kLeafThreads)
-    acc = __fadd_rn(acc, x[j]);
+#pragma unroll
+  for (int k = 0; k < kLeafPer; ++k) acc = __fadd_rn(acc, xs[k]);
   v[threadIdx.x] = acc;
   __syncthreads();
-  for (int s = kLeafThreads / 2; s > 0; s >>= 1) {
+  for (int s = kLeafThreads / 2; s >= 32; s >>= 1) {
     if (threadIdx.x < s)
       v[threadIdx.x] = __fadd_rn(v[threadIdx.x], v[threadIdx.x + s]);
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[leaf] = v[0];
+  if (threadIdx.x >= 32) return;
+  float t = v[threadIdx.x];
+  for (int s = 16; s > 0; s >>= 1)        // lane i: v[i] + v[i + s]
+    t = __fadd_rn(t, __shfl_down_sync(0xffffffffu, t, s));
+  if (threadIdx.x != 0) return;
+  const int c = sp.w >> 16, n_chunks = sp.w & 0xffff;
+  if (n_chunks == 1) {
+    out[leaf] = t;
+    return;
+  }
+  partial[blockIdx.x] = t;
+  // one atomic that releases this block's sum and acquires the others'
+  unsigned done;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(done) : "l"(count + leaf) : "memory");
+  if (done != (unsigned)(n_chunks - 1)) return;
+  const float* mine = partial + (blockIdx.x - c);
+  float total = __ldcg(mine);
+  for (int k = 1; k < n_chunks; ++k) total = __fadd_rn(total, __ldcg(mine + k));
+  out[leaf] = total;
+  count[leaf] = 0;
 }
 
 }  // namespace
@@ -133,16 +177,20 @@ extern "C" int apex_sumsq(const void* x, void* partials, int64_t n,
   return (int)cudaGetLastError();
 }
 
-// x: fp32 per-subtile partials; runs: (leaves, 2) int32 [start, end) of
-// each leaf's partials in x; out: (leaves,) fp32, each run summed in the
-// order above (an empty run gives +0). Returns cudaGetLastError() after
-// the launch.
-extern "C" int apex_leaf_sum(const void* x, const void* runs, void* out,
-                             int leaves, void* stream) {
-  if (leaves <= 0) return (int)cudaGetLastError();
-  leaf_sum_kernel<<<(unsigned)leaves, kLeafThreads, 0,
+// x: fp32 per-subtile partials; spans: (n_chunks, 4) int32, each block's
+// [lo, hi, leaf, (c << 16) | n] as above (engine.leaf_sums builds it from
+// the leaves' runs of partials; n < 65536); partial: n_chunks fp32 scratch;
+// count: (leaves,) int32 zeros (left zero); out: (leaves,) fp32, each run
+// summed in the order above (an empty run gives +0). Returns
+// cudaGetLastError() after the launch.
+extern "C" int apex_leaf_sum(const void* x, const void* spans, void* partial,
+                             void* count, void* out, int n_chunks,
+                             void* stream) {
+  if (n_chunks <= 0) return (int)cudaGetLastError();
+  leaf_sum_kernel<<<(unsigned)n_chunks, kLeafThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(runs),
+      static_cast<const float*>(x), static_cast<const int4*>(spans),
+      static_cast<float*>(partial), static_cast<unsigned*>(count),
       static_cast<float*>(out));
   return (int)cudaGetLastError();
 }

@@ -64,6 +64,7 @@ SUMSQ_KERNEL = "sumsq"
 SUMSQ_SCALED_KERNEL = "sumsq_scaled"
 LEAF_SUM_KERNEL = "leaf_sum"
 LEAF_SUM_THREADS = 256      # the kernel's block: the width of its order
+LEAF_SUM_CHUNK = 2048       # partials a block sums: 8 a thread
 SR_CAST_KERNEL = "stochastic_round"
 
 # functor -> its CUDA launcher; see register_kernel
@@ -456,30 +457,72 @@ def leaf_runs(space) -> torch.Tensor:
                         dtype=torch.int32).reshape(-1, 2)
 
 
+def leaf_chunks(runs: torch.Tensor) -> torch.Tensor:
+    """(n_chunks, 2) int32 ``[leaf, chunk within the leaf]``, on the CPU:
+    each run of ``runs`` cut into ``LEAF_SUM_CHUNK`` partials (an empty
+    run is one chunk), a leaf's chunks consecutive and in order."""
+    length = (runs[:, 1] - runs[:, 0]).long().cpu()
+    n = ((length + LEAF_SUM_CHUNK - 1) // LEAF_SUM_CHUNK).clamp_min(1)
+    leaf = torch.repeat_interleave(torch.arange(len(n)), n)
+    first = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+    chunk = torch.arange(len(leaf)) - first
+    return torch.stack([leaf, chunk], 1).to(torch.int32)
+
+
+def _leaf_sum_scratch(runs: torch.Tensor):
+    """The kernel's tables for ``runs`` (CPU): each block's span
+    ``[lo, hi, leaf, (c << 16) | n]`` (chunk c of its leaf's n), a
+    partial a block and a zeroed counter a leaf."""
+    chunks = leaf_chunks(runs).long()
+    leaf, c = chunks[:, 0], chunks[:, 1]
+    start, end = runs[:, 0].long(), runs[:, 1].long()
+    n = torch.bincount(leaf, minlength=runs.shape[0])
+    if len(n) and int(n.max()) >= 1 << 16:
+        raise ValueError(f"a run of {int((end - start).max())} partials "
+                         f"passes the kernel's {(1 << 16) - 1} chunks")
+    lo = start[leaf] + c * LEAF_SUM_CHUNK
+    hi = torch.minimum(lo + LEAF_SUM_CHUNK, end[leaf])
+    spans = torch.stack([lo, hi, leaf, (c << 16) | n[leaf]], 1).to(
+        torch.int32)
+    return (spans, torch.zeros(len(chunks), dtype=torch.float32),
+            torch.zeros(runs.shape[0], dtype=torch.int32))
+
+
 def _leaf_sum_torch(x: torch.Tensor, runs: torch.Tensor) -> torch.Tensor:
     """Plain version of ``leaf_sum``: each run of ``x`` summed in the
-    kernel's order — ``LEAF_SUM_THREADS`` strided running sums (element
-    j of a run goes to sum j mod 256, in turn, from +0), then a halving
-    tree (``v[i] += v[i + s]``, s = 128, ..., 1). Padding adds +0, which
-    changes no sum, so the result is bitwise the kernel's."""
-    runs = runs.to(x.device).long()
-    start, length = runs[:, 0], runs[:, 1] - runs[:, 0]
+    kernel's order. A run is cut into chunks of ``LEAF_SUM_CHUNK``
+    (:func:`leaf_chunks`); in a chunk, element j goes to running sum j
+    mod ``LEAF_SUM_THREADS``, in turn, from +0, then a halving tree
+    (``v[i] += v[i + s]``, s = 128, ..., 1) gives the chunk's sum; a
+    leaf's sum is its chunks' sums added in chunk order. Absent elements
+    and chunks add +0, which changes no sum started from +0, so the
+    result is bitwise the kernel's."""
+    dev = x.device
+    runs_l = runs.to(dev).long()
+    chunks = leaf_chunks(runs).to(dev).long()
+    leaf, c = chunks[:, 0], chunks[:, 1]
+    lo = runs_l[leaf, 0] + c * LEAF_SUM_CHUNK
+    hi = torch.minimum(lo + LEAF_SUM_CHUNK, runs_l[leaf, 1])
+    idx = lo[:, None] + torch.arange(LEAF_SUM_CHUNK, device=dev)[None, :]
+    vals = torch.where(idx < hi[:, None],
+                       x[idx.clamp(0, max(x.shape[0] - 1, 0))],
+                       torch.zeros((), dtype=torch.float32, device=dev))
     w = LEAF_SUM_THREADS
-    depth = max(1, -(-int(length.max()) // w)) if runs.shape[0] else 1
-    k = torch.arange(depth * w, device=x.device)
-    idx = start[:, None] + k[None, :]
-    live = k[None, :] < length[:, None]
-    vals = torch.where(live, x[idx.clamp(0, max(x.shape[0] - 1, 0))],
-                       torch.zeros((), dtype=torch.float32,
-                                   device=x.device))
-    vals = vals.reshape(-1, depth, w)
-    acc = torch.zeros(vals.shape[0], w, dtype=torch.float32, device=x.device)
-    for j in range(depth):
-        acc = acc + vals[:, j]
+    vals = vals.view(-1, LEAF_SUM_CHUNK // w, w)
+    acc = torch.zeros(vals.shape[0], w, dtype=torch.float32, device=dev)
+    for k in range(vals.shape[1]):
+        acc = acc + vals[:, k]
     while w > 1:
         w //= 2
         acc = acc[:, :w] + acc[:, w:2 * w]
-    return acc[:, 0]
+    n_leaves = runs.shape[0]
+    depth = int(c.max()) + 1 if len(c) else 1
+    per_leaf = torch.zeros(n_leaves, depth, dtype=torch.float32, device=dev)
+    per_leaf[leaf, c] = acc[:, 0]
+    total = per_leaf[:, 0]
+    for k in range(1, depth):
+        total = total + per_leaf[:, k]
+    return total
 
 
 def leaf_sums(per_subtile: torch.Tensor, space, *,
@@ -489,24 +532,31 @@ def leaf_sums(per_subtile: torch.Tensor, space, *,
     ``jax.ops.segment_sum`` over ``tile_leaf_ids``. On a CUDA tensor the
     ``leaf_sum`` kernel of ``csrc/sumsq.cu`` (bitwise the plain version,
     and the same bits on every run); on a CPU tensor, or with
-    ``plain=True``, the plain version."""
+    ``plain=True``, the plain version. The kernel's block spans, its
+    per-leaf counters and its chunk scratch are kept with the space, per
+    device (:func:`_leaf_sum_scratch`), so calls over one space on one
+    device run on one stream."""
     dev = per_subtile.device
-    runs = space._device_ids.get(("leaf_runs", dev))
-    if runs is None:
-        runs = space._device_ids[("leaf_runs", dev)] = leaf_runs(space).to(
-            dev)
+    key = ("leaf_runs", dev)
+    cached = space._device_ids.get(key)
+    if cached is None:
+        runs = leaf_runs(space)
+        cached = space._device_ids[key] = (runs.to(dev),) + tuple(
+            t.to(dev) for t in _leaf_sum_scratch(runs))
+    runs, spans, partial, count = cached
     x = per_subtile.float().contiguous()
     if plain or not uses_kernel(x):
         return _leaf_sum_torch(x, runs)
     check_kernel_input("partials", x, (torch.float32,), dev)
     out = torch.empty(runs.shape[0], dtype=torch.float32, device=dev)
     lib = _build.library("sumsq", "apex_leaf_sum",
-                         (_build.P, _build.P, _build.P, _build.I, _build.P),
+                         (_build.P,) * 5 + (_build.I, _build.P),
                          "apex_sumsq_error_string")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.apex_leaf_sum(x.data_ptr(), runs.data_ptr(),
-                                out.data_ptr(), runs.shape[0], stream)
+        err = lib.apex_leaf_sum(x.data_ptr(), spans.data_ptr(),
+                                partial.data_ptr(), count.data_ptr(),
+                                out.data_ptr(), spans.shape[0], stream)
     if err:
         raise RuntimeError(f"{LEAF_SUM_KERNEL}: CUDA error {err} at launch: "
                            f"{lib.apex_sumsq_error_string(err).decode()}")
@@ -514,11 +564,11 @@ def leaf_sums(per_subtile: torch.Tensor, space, *,
     return out
 
 
-__all__ = ["LANES", "DEFAULT_TILE_ROWS", "LEAF_SUM_KERNEL",
+__all__ = ["LANES", "DEFAULT_TILE_ROWS", "LEAF_SUM_CHUNK", "LEAF_SUM_KERNEL",
            "PER_TENSOR_TILE_ROWS",
            "SR_CAST_KERNEL", "SUMSQ_KERNEL", "SUMSQ_SCALED_KERNEL",
            "fused_elementwise", "fused_sumsq_partials", "kernel_scalar",
-           "leaf_sums",
+           "leaf_chunks", "leaf_sums",
            "murmur_bits", "register_kernel", "scalar_pointer",
            "sqrt_rn", "sr_key_words", "sr_round_bits",
            "stochastic_round_cast"]

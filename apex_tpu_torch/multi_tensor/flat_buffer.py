@@ -22,8 +22,9 @@ flat. This is the contiguous-buffer layout of Megatron-LM's optimizer.
 ``segmented_space`` gives the segment-aligned layout of the one-pass
 LAMB (``multi_tensor/segmented.py``) with its :class:`SegmentMeta`, the
 reference's layout for the same leaves in the same order. A segment
-there is sized to the TPU's VMEM; here to the shared memory of one
-thread-block cluster (:data:`DEFAULT_SEG_SMEM_BUDGET`).
+there is sized to the TPU's VMEM; here to a budget of shared memory
+across the thread-block cluster that holds it
+(:data:`DEFAULT_SEG_SMEM_BUDGET`).
 
 The small index maps the kernels read (the subtile -> leaf map, the
 segment and slot maps) are copied to a device once per layout and kept
@@ -61,8 +62,9 @@ class FlatSpace:
     padded_sizes: Tuple[int, ...]
     total: int
     align: int
-    # device -> int32 subtile -> leaf map on that device
-    _device_ids: Dict[Any, torch.Tensor] = dataclasses.field(
+    # device -> int32 subtile -> leaf map on that device; ("leaf_runs",
+    # device) -> the per-leaf sum's runs and kernel tables there
+    _device_ids: Dict[Any, Any] = dataclasses.field(
         default_factory=dict, compare=False, repr=False, hash=False)
 
     @classmethod
@@ -213,24 +215,32 @@ class FlatSpace:
 CHUNK_ROWS = 512
 CHUNK = CHUNK_ROWS * 128
 # The segment kernel (csrc/lamb_segment.cu) runs one thread-block cluster
-# of CLUSTER_BLOCKS blocks per segment, each holding an eighth of the
-# segment in shared memory (227 KB a block on an H100). A block also
-# keeps its per-slot sums (at most 8 KB at 512 slots); the rest of its
-# shared memory is the budget for the stash.
-CLUSTER_BLOCKS = 8
+# of CLUSTER_BLOCKS blocks per segment, each holding a sixteenth of the
+# segment in shared memory (227 KB a block on an H100), in rounds of
+# SEG_WARP_ELEMS elements a warp. A block also keeps its per-slot sums (6
+# KB at 512 slots), its warps' sums and a ratio a subtile.
+CLUSTER_BLOCKS = 16
+SEG_WARP_ELEMS = 512            # 32 lanes x 4 float4s
 BLOCK_SMEM_BYTES = 232448
-DEFAULT_SEG_SMEM_BUDGET = CLUSTER_BLOCKS * (BLOCK_SMEM_BYTES - 16384)
+# The stash's budget across a segment, which sizes the segments
+# (default_seg_elems, FusedLAMB's choice): eight blocks' shared memory
+# less 16 KB each. It is held apart from CLUSTER_BLOCKS so that the
+# layout, and the SR streams keyed by it, do not move with the kernel's
+# cluster size; at sixteen blocks a cluster every segment it allows
+# leaves a block under half an SM's shared memory (two blocks an SM).
+DEFAULT_SEG_SMEM_BUDGET = 8 * (BLOCK_SMEM_BYTES - 16384)
 
 
 def segment_smem_bytes(seg_elems: int, max_slots: int, stash_p: bool,
                        u_bytes: int = 4) -> int:
     """Shared memory one block of the segment kernel takes: its share of
     u (``u_bytes`` an element: 4 for fp32, 2 for a bf16 stash) and of p
-    with ``stash_p`` (fp32), the per-slot sums and ratios, and its
-    per-subtile sums (``segment_smem`` in the source)."""
+    with ``stash_p`` (fp32), its per-slot sums, its warps' sums and a
+    ratio a subtile (``segment_smem`` in the source)."""
     e = seg_elems // CLUSTER_BLOCKS
     return (u_bytes * e + (4 * e if stash_p else 0)
-            + 4 * (4 * max_slots + 3 * (e // DEFAULT_ALIGN)))
+            + 4 * (3 * max_slots + 3 * (e // SEG_WARP_ELEMS)
+                   + e // DEFAULT_ALIGN))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -435,5 +445,6 @@ def segmented_space(tensors: Mapping[str, torch.Tensor],
 
 
 __all__ = ["CHUNK", "CHUNK_ROWS", "CLUSTER_BLOCKS", "DEFAULT_ALIGN",
-           "DEFAULT_SEG_SMEM_BUDGET", "FlatSpace", "SegmentMeta",
+           "DEFAULT_SEG_SMEM_BUDGET", "FlatSpace", "SEG_WARP_ELEMS",
+           "SegmentMeta",
            "default_seg_elems", "segment_smem_bytes", "segmented_space"]

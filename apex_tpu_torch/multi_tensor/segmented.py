@@ -9,15 +9,17 @@ inside one segment, so its norms are segment-local, and one kernel
 per segment with u (and p) held on chip: 7 accesses an element, 8
 without the p stash. Where the reference holds a segment in one TPU
 core's VMEM, the port holds it across the shared memory of a
-thread-block cluster (the source's note says how). Leaves larger than a
-segment take the two stages over their own segments: one launch of
-``lamb_stage1`` and one of ``lamb_stage2`` over the list of every large
-leaf's segments (the reference runs the two stages leaf by leaf), the
-per-leaf norms summed per segment, then per leaf, in a fixed order.
+thread-block cluster of 16 blocks (the source's note says how). Leaves
+larger than a segment take the two stages over their own segments: one
+launch of ``lamb_stage1`` and one of ``lamb_stage2`` over the list of
+every large leaf's segments (the reference runs the two stages leaf by
+leaf), the per-leaf norms summed per segment, then per leaf, in a fixed
+order.
 
 On CPU tensors (or with ``plain=True``) the segment pass runs its plain
-version, which follows the reference kernel's arithmetic: per-subtile
-sums, per-slot sums, trust ratios, p'.
+version, which follows the reference kernel's arithmetic (per-subtile
+sums, per-slot sums, trust ratios, p') and the CUDA kernel's order of
+the sums (:func:`_slot_sums`), so the two agree bit for bit.
 
 A bf16 master (``sr_seed``) follows the reference's kernel schedule
 (its ``impl="pallas"``/``"interpret"`` path): the segment pass writes p'
@@ -34,6 +36,7 @@ memory, at ~2^-9 relative error in u.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -53,6 +56,7 @@ from apex_tpu_torch.multi_tensor.flat_buffer import (
     CHUNK_ROWS,
     CLUSTER_BLOCKS,
     DEFAULT_ALIGN,
+    SEG_WARP_ELEMS,
     FlatSpace,
     SegmentMeta,
     segment_smem_bytes,
@@ -70,6 +74,51 @@ SEGMENT_KERNEL = "lamb_segment"
 SEGMENT_SR_KERNEL = "lamb_segment_sr"      # a bf16 master's, counted apart
 
 _stage1_math = _lamb_stage1_fn      # the reference's _stage1_math (:57)
+
+_LANE_VECS = SEG_WARP_ELEMS // 128      # float4s of a lane's round
+
+
+def _slot_sums(x: torch.Tensor, slot: torch.Tensor,
+               max_slots: int) -> torch.Tensor:
+    """(n_small, max_slots) per-slot sums of x^2 over the small segments
+    (``x`` (n_small, seg_elems) fp32, ``slot`` their (n_small, subtiles)
+    slot map, -1 for padding), in the segment kernel's order: a segment
+    is ``CLUSTER_BLOCKS`` blocks' slices, each in warp rounds of
+    ``SEG_WARP_ELEMS`` elements, lane l's four float4s at 128 j + 4 l;
+    a lane adds its 16 squares in order from +0, the warp adds its lanes
+    by the xor butterfly (16, 8, 4, 2, 1), a subtile's sum is ((w0 + w1)
+    + w2) + w3 over its four warps, a block adds its subtiles into its
+    per-slot sums in subtile order from +0, and the segment adds its
+    blocks' per-slot sums in block order from +0. Every step an fp32
+    add, so the result is bitwise the kernel's."""
+    n_small, se = x.shape
+    blocks = CLUSTER_BLOCKS
+    chunks = se // blocks // SEG_WARP_ELEMS     # a block's warp rounds
+    sq = (x * x).view(n_small, blocks, chunks, _LANE_VECS, 32, 4)
+    lane = torch.zeros(n_small, blocks, chunks, 32, dtype=torch.float32,
+                       device=x.device)
+    for j in range(_LANE_VECS):
+        for c in range(4):
+            lane = lane + sq[:, :, :, j, :, c]
+    ar = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        lane = lane + lane[..., ar ^ off]
+    w = lane[..., 0].reshape(n_small, blocks, -1,
+                             DEFAULT_ALIGN // SEG_WARP_ELEMS)
+    sub = w[..., 0]
+    for k in range(1, w.shape[-1]):
+        sub = sub + w[..., k]
+    ids = slot.long().view(n_small, blocks, -1)
+    ids = torch.where(ids >= 0, ids, max_slots)
+    per_block = torch.zeros(n_small, blocks, max_slots + 1,
+                            dtype=torch.float32, device=x.device)
+    for t in range(ids.shape[-1]):      # one add a row: order-free
+        per_block.scatter_add_(2, ids[..., t:t + 1], sub[..., t:t + 1])
+    total = torch.zeros(n_small, max_slots + 1, dtype=torch.float32,
+                        device=x.device)
+    for r in range(blocks):
+        total = total + per_block[:, r]
+    return total[:, :max_slots]
 
 
 def _small_segment_pass(p, m, v, g, outs, *, meta: SegmentMeta, scalars,
@@ -111,13 +160,8 @@ def _small_segment_pass(p, m, v, g, outs, *, meta: SegmentMeta, scalars,
          for x in (*scalars, inv_scale)]
     u, m2, v2 = _stage1_math([P, M, V, G], s, None)
 
-    def per_slot(x):
-        per_sub = (x * x).reshape(n_small, sub, DEFAULT_ALIGN).sum(-1)
-        acc = torch.zeros(n_small, ms + 1, dtype=torch.float32, device=dev)
-        return acc.scatter_add_(1, torch.where(slot >= 0, slot, ms),
-                                per_sub)[:, :ms]
-
-    wn, un = sqrt_rn(per_slot(P)), sqrt_rn(per_slot(u))
+    wn = sqrt_rn(_slot_sums(P, slot, ms))
+    un = sqrt_rn(_slot_sums(u, slot, ms))
     ratio = torch.where((wn > 0.0) & (un > 0.0), wn / un,
                         torch.ones_like(wn))
     if not use_nvlamb and wd_is_zero:
@@ -134,22 +178,21 @@ def _small_segment_pass(p, m, v, g, outs, *, meta: SegmentMeta, scalars,
     for buf, val in zip(outs, (p2, m2, v2)):
         buf.view(meta.n_segments, se).index_copy_(
             0, segs, val.reshape(n_small, se).to(buf.dtype))
-    return found, per_slot(G) if with_grad_norm else None
+    return found, _slot_sums(G, slot, ms) if with_grad_norm else None
 
 
 def _segment_cuda(p, m, v, g, outs, meta, scalars, inv_scale, lr,
                   use_nvlamb, wd_is_zero, stash_p, with_grad_norm, sr_seed,
                   u_dtype):
     dev = p.device
-    for name, t in zip(("p", "m", "v", "g", "p_out", "m_out", "v_out"),
-                       (p, m, v, g, *outs)):
+    for name, t, src in zip(("p", "m", "v", "g", "p_out", "m_out", "v_out"),
+                            (p, m, v, g, *outs), (None,) * 4 + (p, m, v)):
+        if t is src:                    # in place: checked as the input
+            continue
         check_kernel_input(name, t, (p.dtype,) if name[0] == "p"
                            else (torch.float32,), dev)
         if t.shape[0] != meta.n_segments * meta.seg_elems:
             raise ValueError(f"{name} does not cover the segmented space")
-    if meta.seg_elems % (CLUSTER_BLOCKS * DEFAULT_ALIGN):
-        raise ValueError(f"seg_elems {meta.seg_elems} must be a multiple "
-                         f"of {CLUSTER_BLOCKS * DEFAULT_ALIGN}")
     u_bf16 = u_dtype == torch.bfloat16
     smem = segment_smem_bytes(meta.seg_elems, meta.max_slots, stash_p,
                               u_bytes=2 if u_bf16 else 4)
@@ -192,6 +235,35 @@ def _segment_cuda(p, m, v, g, outs, meta, scalars, inv_scale, lr,
     _build.count_launch(SEGMENT_KERNEL if sr_seed is None
                         else SEGMENT_SR_KERNEL)
     return found, gg
+
+
+def segment_route(meta: SegmentMeta, *, stash_p: bool, p_dtype, u_dtype,
+                  device) -> dict:
+    """How the segment kernel runs ``meta``'s small segments on
+    ``device`` (a CUDA device): blocks a cluster (one cluster a
+    segment), clusters the card holds at once (all ``n_small`` in one
+    wave when at least ``n_small``), blocks an SM, the kernel's
+    registers and spilled bytes a thread, and its shared bytes a
+    block."""
+    u_bf16 = u_dtype == torch.bfloat16
+    out = (ctypes.c_int * 6)()
+    lib = _build.library("lamb_segment", "apex_lamb_segment_route",
+                         (_build.L,) + (_build.I,) * 4 + (_build.P,),
+                         "apex_lamb_segment_error_string")
+    with torch.cuda.device(device):
+        err = lib.apex_lamb_segment_route(
+            meta.seg_elems, meta.max_slots, int(stash_p),
+            int(p_dtype == torch.bfloat16), int(u_bf16),
+            ctypes.addressof(out))
+    if err:
+        msg = lib.apex_lamb_segment_error_string(err).decode()
+        raise RuntimeError(f"{SEGMENT_KERNEL}: CUDA error {err}: {msg}")
+    n_small = len(meta.small_segments)
+    keys = ("cluster_blocks", "resident_clusters", "blocks_per_sm",
+            "registers", "spill_bytes", "smem_bytes")
+    return {**dict(zip(keys, out)), "clusters": n_small,
+            "blocks": n_small * out[0],
+            "one_wave": out[1] >= n_small}
 
 
 def fused_lamb_segmented_update(
@@ -238,7 +310,7 @@ def fused_lamb_segmented_update(
     mode = 1.0 if adam_w_mode else 0.0
     outs = ((p, m, v) if in_place else
             tuple(torch.empty_like(b) for b in (p, m, v)))
-    found = torch.zeros((), dtype=torch.float32, device=dev)
+    found = None                      # the first pass's flag, else zeros
     nl = space.num_leaves
     leaf_gg = (torch.zeros(nl, dtype=torch.float32, device=dev)
                if with_grad_norm else None)
@@ -266,7 +338,7 @@ def fused_lamb_segmented_update(
             scalars=(b1, b2, beta3, eps, weight_decay, bc1, bc2, mode),
             inv_scale=inv_scale, with_grad_partials=with_grad_norm,
             plain=plain)
-        found = torch.maximum(found, f)
+        found = f if found is None else torch.maximum(found, f)
         sub = meta.seg_elems // DEFAULT_ALIGN
 
         def per_leaf(part):
@@ -284,6 +356,8 @@ def fused_lamb_segmented_update(
             else meta.device_large_streams(dev))
         if with_grad_norm:
             leaf_gg = leaf_gg.index_add_(0, leaves, per_leaf(gg))
+    if found is None:
+        found = torch.zeros((), dtype=torch.float32, device=dev)
     p2, m2, v2 = outs
     if with_grad_norm:
         return p2, m2, v2, found, sqrt_rn(leaf_gg)
@@ -291,4 +365,4 @@ def fused_lamb_segmented_update(
 
 
 __all__ = ["CHUNK", "CHUNK_ROWS", "SEGMENT_KERNEL", "SEGMENT_SR_KERNEL",
-           "fused_lamb_segmented_update"]
+           "fused_lamb_segmented_update", "segment_route"]

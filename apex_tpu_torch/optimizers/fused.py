@@ -321,7 +321,7 @@ class FusedLAMB(FlatFusedOptimizer):
     accesses, or re-read it, 8), ``seg_vmem_budget`` (bytes of shared
     memory the stash may take across one thread-block cluster of the
     segment kernel; default ``DEFAULT_SEG_SMEM_BUDGET``, eight blocks'
-    worth), ``seg_u_dtype`` (the update term's stash: fp32, or bf16,
+    worth, which fixes the layout), ``seg_u_dtype`` (the update term's stash: fp32, or bf16,
     which halves it at ~2^-9 relative error in u; never chosen unless
     ``seg_allow_bf16_u=True`` or named, as in the reference). With a
     bf16 master the segment pass and the large leaves' stage 2 write p'

@@ -1,30 +1,45 @@
-"""The LayerNorm forward and backward and the fp32 flash forward of two
-checkouts of the port, side by side on the card.
+"""The LayerNorm forward and backward, the fp32 flash forward, the one-pass
+LAMB segment kernel and the per-leaf sum of two checkouts of the port, side
+by side on the card.
 
 ``save`` runs fixed seeded cases through the wrappers
 (``ops.layer_norm._fwd_cuda`` and ``_bwd_cuda``; ``ops.attention._flash_cuda``,
 which in fp32 includes the split of q, k and v where the checkout's design
-has one) of the checkout at ``--root``, each checkout in its own process so
-that each loads its own build, and saves every output's SHA-256 with the
-call's device time. The backward's cases hash dx alone and keep dw and db
-as values (2 x h floats), since their summing order is the design's.
-``compare`` then says, case by case, whether two saves are bitwise equal
-(dx, for the backward), prints dw's and db's largest difference relative to
-their largest |value|, and both times:
+has one; ``multi_tensor.segmented._small_segment_pass``;
+``multi_tensor.engine.leaf_sums``) of the checkout at ``--root``, each
+checkout in its own process so that each loads its own build, and saves
+every output's SHA-256 with the call's device time. The backward's cases
+hash dx alone and keep dw and db as values (2 x h floats), since their
+summing order is the design's. The segment cases (GPT-2 345M's and
+BERT-Large's FusedLAMB layouts: the stash on and off, with_grad_norm, u fp32
+and bf16, an fp32 master and a bf16 master with stochastic rounding) hash m'
+and v', p' and the per-slot g^2 sums apart, and check each against the
+checkout's own plain version there and then (m', v' bitwise, p' within
+1e-5 of each parameter's step plus one rounding, the sums within 1e-5; p'
+and the sums bitwise or not); their trust ratios come from sums whose order
+is the design's. ``compare`` then says, case by case, whether two saves are
+bitwise equal (dx, for the backward; m' and v', then p' and the sums apart,
+for the segment pass), prints dw's and db's largest difference relative to
+their largest |value|, each save's own check, and both times:
 
     python apex_tpu_torch/tools/tree_compare.py save --root OLD old.json
     python apex_tpu_torch/tools/tree_compare.py save --root . new.json
     python apex_tpu_torch/tools/tree_compare.py compare old.json new.json
 
-``--only layer_norm`` (or ``flash``) saves those cases alone. Run the saves
-in turns (old, new, new, old) to see the spread of the times. Device time:
+``--only layer_norm`` (or ``flash``, ``lamb_segment``, ``leaf_sum``, or a
+comma-separated list of them) saves those cases alone. Run the saves in
+turns (old, new, new, old) to see the spread of the times. Device time:
 ``--iters`` calls captured in one CUDA graph, replayed five times between
 CUDA events. That replay keeps the inputs in the card's 50 MB L2 where they
 fit, so the LayerNorm cases also give a cold time (``cold_ms``: the calls
 of the graph rotate over enough copies of the inputs that x alone passes
 200 MB; none under 1 MB of x) and the time of the one PyTorch call that
 computes the same function (``lib_ms``: ``F.layer_norm``,
-``native_layer_norm_backward``, on weights in x's dtype; none for RMSNorm).
+``native_layer_norm_backward``, on weights in x's dtype; none for RMSNorm;
+``index_add_`` for the per-leaf sum, by atomics). The segment cases also
+save the call's host time (CUDA events around back-to-back calls:
+``host_ms``), where the checkout reports it the kernel's route, and the
+library's ``-Xptxas -v`` log (registers and spills) once a save.
 """
 
 from __future__ import annotations
@@ -176,6 +191,172 @@ def _flash_cases(torch, attention, iters):
         yield key, fn, {"ms": _device_ms(torch, fn, max(iters // 5, 2))}
 
 
+GROUPS = ("layer_norm", "flash", "lamb_segment", "leaf_sum")
+# the segment cases: (layout, master, stash_p, with_grad_norm, u dtype)
+SEGMENT_CASES = tuple(
+    [("gpt2_345m", "fp32", st, gn, u) for st, gn, u in (
+        (True, False, "float32"), (True, True, "float32"),
+        (False, False, "float32"), (False, True, "float32"),
+        (True, False, "bfloat16"), (False, False, "bfloat16"))]
+    + [("bert_large", "fp32", st, gn, "float32")
+       for st, gn in ((True, False), (False, True))]
+    + [("bert_large", "bf16_sr", st, False, u)
+       for st in (True, False) for u in ("float32", "bfloat16")])
+
+
+def _gpt_leaves(torch, cfg) -> dict:
+    """GPT of ``cfg``'s parameters in module order, as shapes on the
+    meta device (``chip_smoke.gpt_leaves``)."""
+    h, f = cfg.hidden_size, cfg.ffn
+    qkv = (cfg.num_heads + 2 * cfg.kv_heads) * cfg.head_dim
+    layer = [(h,), (h,), (qkv, h), (qkv,), (h, h), (h,), (h,), (h,),
+             (f, h), (f,), (h, f), (h,)]
+    shapes = [(cfg.vocab_size, h), (cfg.max_seq_len, h)] \
+        + layer * cfg.num_layers + [(h,), (h,)]
+    return {f"{i:03d}": torch.empty(s_, device="meta")
+            for i, s_ in enumerate(shapes)}
+
+
+def _bert_leaves(torch, models, cfg) -> dict:
+    """BERT of ``cfg``'s parameters in module order, as shapes on the meta
+    device, from a one-layer model's names (``chip_smoke.bert_leaves``)."""
+    import dataclasses
+    one = models.BertModel(dataclasses.replace(cfg, num_layers=1),
+                           device="cpu")
+    items = [(k, tuple(p_.shape)) for k, p_ in one.named_parameters()]
+    layer = [(k[len("layers.0."):], s_) for k, s_ in items
+             if k.startswith("layers.0.")]
+    out = {}
+    for k, s_ in items:
+        if k.startswith("layers.0."):
+            if k == "layers.0." + layer[0][0]:
+                for i in range(cfg.num_layers):
+                    for name, shp in layer:
+                        out[f"layers.{i}.{name}"] = torch.empty(
+                            shp, device="meta")
+        else:
+            out[k] = torch.empty(s_, device="meta")
+    return out
+
+
+def _host_ms(torch, fn, iters: int) -> float:
+    """Host ms a call: CUDA events around ``iters`` back-to-back calls
+    (the wrapper's issue time, where it exceeds the kernel's)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _segment_cases(torch, iters):
+    """(key, record) of each segment case: hashes, its own check against
+    the plain version, device, host and plain ms, the route."""
+    from apex_tpu_torch import models
+    from apex_tpu_torch.multi_tensor import segmented
+    from apex_tpu_torch.optimizers import FusedLAMB
+    layouts = {
+        "gpt2_345m": _gpt_leaves(torch, models.GPTConfig.gpt2_345m()),
+        "bert_large": _bert_leaves(torch, models,
+                                   models.BertConfig.bert_large()),
+    }
+    for name, leaves in layouts.items():
+        space, meta = FusedLAMB(lr=1e-4, weight_decay=0.01, max_grad_norm=1.0,
+                                use_nvlamb=name == "bert_large").layout(leaves)
+        n = space.total
+        gen = torch.Generator(device="cuda").manual_seed(len(name))
+        p32 = torch.randn(n, generator=gen, device="cuda").mul_(2e-2)
+        m = torch.randn(n, generator=gen, device="cuda").mul_(1e-3)
+        v = torch.rand(n, generator=gen, device="cuda").mul_(1e-6)
+        g = torch.randn(n, generator=gen, device="cuda").mul_(1e-2)
+        small = torch.cat([torch.arange(s_ * meta.seg_elems,
+                                        (s_ + 1) * meta.seg_elems,
+                                        device="cuda")
+                           for s_ in meta.small_segments])
+        large_ids = {l_ for l_, _, _ in meta.large}
+        live = torch.cat([torch.arange(off, off + size, device="cuda")
+                          for i, (off, size) in enumerate(zip(space.offsets,
+                                                              space.sizes))
+                          if i not in large_ids])
+        for lay, master, stash, gn, u in SEGMENT_CASES:
+            if lay != name:
+                continue
+            p = p32 if master == "fp32" else p32.bfloat16()
+            u_dt = getattr(torch, u)
+            kw = dict(meta=meta, scalars=(0.9, 0.999, 0.1, 1e-6, 0.01, 0.271,
+                                          0.002997, 1.0),
+                      inv_scale=torch.tensor(1.75, device="cuda"), lr=1e-3,
+                      use_nvlamb=name == "bert_large", wd_is_zero=False,
+                      stash_p=stash, with_grad_norm=gn, u_dtype=u_dt,
+                      sr_seed=None if master == "fp32" else 17)
+            outs = [t.clone() for t in (p, m, v)]
+            ref = [t.clone() for t in (p, m, v)]
+            _, gg = segmented._small_segment_pass(p, m, v, g, outs, **kw)
+            _, wgg = segmented._small_segment_pass(p, m, v, g, ref,
+                                                   plain=True, **kw)
+            torch.cuda.synchronize()
+            got_p, want_p = outs[0][live].float(), ref[0][live].float()
+            step = (p[live].float() - want_p).abs()
+            ulp = (2.0 ** (-7 if master != "fp32" else -23)
+                   * torch.maximum(got_p.abs(), want_p.abs()))
+            rec = {
+                "sha256": _digest(torch, [t[small] for t in outs[1:]]),
+                "p_sha256": _digest(torch, [outs[0][small]]),
+                "gg_sha256": None if gg is None else _digest(torch, [gg]),
+                "mv_plain_bitwise": all(torch.equal(a[small], b[small])
+                                        for a, b in zip(outs[1:], ref[1:])),
+                "p_plain_bitwise": torch.equal(outs[0][small], ref[0][small]),
+                "p_within_tol": bool(((got_p - want_p).abs()
+                                      <= 1e-5 * step + ulp).all()),
+                "gg_plain_rel": None if gg is None else float(
+                    ((gg - wgg).abs() / wgg.abs().clamp_min(1e-30)).max()),
+            }
+            del got_p, want_p, step, ulp, ref
+            def run(kw=kw, outs=outs):
+                return segmented._small_segment_pass(p, m, v, g, outs, **kw)
+            rec["ms"] = _device_ms(torch, run, iters)
+            rec["host_ms"] = _host_ms(torch, run, 20)
+            if hasattr(segmented, "segment_route"):
+                rec["route"] = segmented.segment_route(
+                    meta, stash_p=stash, p_dtype=p.dtype, u_dtype=u_dt,
+                    device=torch.device("cuda"))
+            key = (f"lamb_segment {name} {master} stash_p={stash} "
+                   f"with_grad_norm={gn} u={u}")
+            yield key, rec
+            del outs
+        del p32, m, v, g, small, live
+        torch.cuda.empty_cache()
+
+
+def _leaf_sum_cases(torch, iters):
+    """(key, record) of GPT-2 345M's 292 leaves' sum: its hash, the plain
+    version's, two calls', device ms and ``index_add_``'s."""
+    from apex_tpu_torch import models
+    from apex_tpu_torch.multi_tensor import FlatSpace, engine
+    space = FlatSpace.create(_gpt_leaves(torch, models.GPTConfig.gpt2_345m()))
+    n_sub = space.total // 2048
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    x = torch.rand(n_sub, generator=gen, device="cuda")
+    a = engine.leaf_sums(x, space)
+    b = engine.leaf_sums(x, space)
+    pl = engine.leaf_sums(x, space, plain=True)
+    ids = space.device_subtile_leaf_ids("cuda").long()
+    out = torch.zeros(space.num_leaves, device="cuda")
+    yield "leaf_sum gpt2_345m 292 leaves", {
+        "sha256": _digest(torch, [a]),
+        "plain_bitwise": torch.equal(a, pl),
+        "repeat_bitwise": torch.equal(a, b),
+        "ms": _device_ms(torch, lambda: engine.leaf_sums(x, space), iters),
+        "lib_ms": _device_ms(torch, lambda: out.zero_().index_add_(
+            0, ids, x[:len(ids)]), iters)}
+
+
 def _fmt(v) -> str:
     return "-" if v is None else f"{v:.5f}"
 
@@ -188,18 +369,27 @@ def save(root: str, path: str, iters: int, only=None) -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("tree_compare: no CUDA device")
+    groups_on = set(only or GROUPS)
     # these libraries alone (a checkout with the split pass has its own)
-    names = [] if only == "flash" else ["layer_norm"]
-    if only != "layer_norm":
+    names = []
+    if "layer_norm" in groups_on:
+        names.append("layer_norm")
+    if "flash" in groups_on:
         names.append("flash_fwd_fp32")
         if "flash_split3" in _build.SOURCES:
             names.append("flash_split3")
+    if "lamb_segment" in groups_on:
+        names += ["lamb_segment", "sumsq"]
+    if "leaf_sum" in groups_on and "sumsq" not in names:
+        names.append("sumsq")
     _build.build_all(names)
     out = {"card": torch.cuda.get_device_name(0), "cases": {}}
+    if "lamb_segment" in groups_on:
+        out["build_log_lamb_segment"] = _build.build_log("lamb_segment")
     groups = []
-    if only != "flash":
+    if "layer_norm" in groups_on:
         groups.append(_ln_cases(torch, layer_norm, iters))
-    if only != "layer_norm":
+    if "flash" in groups_on:
         groups.append(_flash_cases(torch, attention, iters))
     for cases in groups:
         for key, fn, times in cases:
@@ -217,6 +407,17 @@ def save(root: str, path: str, iters: int, only=None) -> None:
                                         for k, v in times.items()))
             del got
             torch.cuda.empty_cache()
+    records = []
+    if "lamb_segment" in groups_on:
+        records.append(_segment_cases(torch, iters))
+    if "leaf_sum" in groups_on:
+        records.append(_leaf_sum_cases(torch, iters))
+    for cases in records:
+        for key, rec in cases:
+            out["cases"][key] = rec
+            print(f"{key}: " + " ".join(
+                f"{k} {_fmt(v) if isinstance(v, float) else v}"
+                for k, v in rec.items() if not k.endswith("sha256")))
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
 
@@ -234,12 +435,24 @@ def compare(a_path: str, b_path: str) -> int:
         b = json.load(f)["cases"]
     for key, first in a.items():
         second = b[key]
-        what = "dx bitwise" if "dw" in first else "bitwise"
+        if key.startswith("lamb_segment"):
+            what = "m'/v' bitwise"
+        elif "dw" in first:
+            what = "dx bitwise"
+        else:
+            what = "bitwise"
         line = f"{key}: {what} {first['sha256'] == second['sha256']}"
         if "dw" in first:
             line += (f"; dw rel {_rel(second['dw'], first['dw']):.3e}, "
                      f"db rel {_rel(second['db'], first['db']):.3e}")
-        for t in ("ms", "cold_ms"):
+        for h in ("p_sha256", "gg_sha256"):
+            if first.get(h) is not None:
+                line += f"; {h[:-7]} bitwise {first[h] == second.get(h)}"
+        for c in ("mv_plain_bitwise", "p_plain_bitwise", "p_within_tol",
+                  "gg_plain_rel", "plain_bitwise", "repeat_bitwise"):
+            if c in first:
+                line += f"; {c} {first[c]} / {second.get(c)}"
+        for t in ("ms", "cold_ms", "host_ms"):
             if first.get(t) is not None:
                 line += (f"; {t} {first[t]:.5f} (first) "
                          f"{_fmt(second.get(t))} (second)")
@@ -249,6 +462,15 @@ def compare(a_path: str, b_path: str) -> int:
     return 0
 
 
+def _groups(text: str):
+    names = tuple(t for t in text.split(",") if t)
+    bad = [t for t in names if t not in GROUPS]
+    if bad or not names:
+        raise argparse.ArgumentTypeError(
+            f"--only takes a comma-separated list of {', '.join(GROUPS)}")
+    return names
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -256,7 +478,8 @@ def main(argv=None) -> int:
     s.add_argument("--root", required=True,
                    help="the checkout whose apex_tpu_torch runs")
     s.add_argument("--iters", type=int, default=50)
-    s.add_argument("--only", choices=("layer_norm", "flash"))
+    s.add_argument("--only", type=_groups,
+                   help=f"a comma-separated list of {', '.join(GROUPS)}")
     s.add_argument("path")
     c = sub.add_parser("compare")
     c.add_argument("first")

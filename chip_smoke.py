@@ -1183,14 +1183,10 @@ def lamb_stage_cases(dev) -> list:
     return rows
 
 
-def segment_layout(cfg: GPTConfig, seg_elems=None):
-    """FusedLAMB's segmented layout for GPT of ``cfg`` (its own segment
-    size, or ``seg_elems``), and its numbers: the segmented total against
-    the plain one; the elements the segment pass sweeps, those in live
-    slots and the parameters among them; the large leaves' elements."""
-    leaves = gpt_leaves(cfg)
-    space, meta = FusedLAMB(seg_elems=seg_elems).layout(leaves)
-    plain = FlatSpace.create(leaves).total
+def segment_info(space, meta, label) -> dict:
+    """A segmented layout's numbers, printed: the segmented total; the
+    elements the segment pass sweeps, those in live slots and the
+    parameters among them; the large leaves' elements."""
     small = len(meta.small_segments) * meta.seg_elems
     large = sum(plen for _, _, plen in meta.large)
     large_ids = {l_ for l_, _, _ in meta.large}
@@ -1198,8 +1194,14 @@ def segment_layout(cfg: GPTConfig, seg_elems=None):
                      if i not in large_ids)
     real_large = sum(space.sizes[i] for i in large_ids)
     live = int((meta.slot_ids >= 0).sum()) * 2048
-    info = {"seg_elems": meta.seg_elems, "stash_p": meta.stash_p,
-            "segmented_total": space.total, "plain_total": plain,
+    print(f"  {label} segmented layout: seg_elems={meta.seg_elems} "
+          f"stash_p={meta.stash_p}, total {space.total}; "
+          f"{len(meta.small_segments)} small segments ({small} elements "
+          f"swept, {live} in live slots, {real_small} parameters), "
+          f"{len(meta.large)} large leaves ({large} elements for "
+          f"{real_large} parameters)")
+    return {"seg_elems": meta.seg_elems, "stash_p": meta.stash_p,
+            "segmented_total": space.total,
             "small_segments": len(meta.small_segments),
             "large_leaves": len(meta.large), "elements_small_segments": small,
             "elements_in_live_slots": live,
@@ -1207,35 +1209,47 @@ def segment_layout(cfg: GPTConfig, seg_elems=None):
             "elements_large_leaves": large,
             "parameters_in_large_leaves": real_large,
             "max_slots": meta.max_slots}
-    print(f"  segmented layout: seg_elems={meta.seg_elems} "
-          f"stash_p={meta.stash_p}, total {space.total} against the plain "
-          f"{plain} (+{100 * (space.total / plain - 1):.3f}%); "
-          f"{len(meta.small_segments)} small segments ({small} elements "
-          f"swept, {live} in live slots, {real_small} parameters), "
-          f"{len(meta.large)} large leaves ({large} elements for "
-          f"{real_large} parameters)")
+
+
+def segment_layout(cfg: GPTConfig, seg_elems=None):
+    """FusedLAMB's segmented layout for GPT of ``cfg`` (its own segment
+    size, or ``seg_elems``), and its numbers (``segment_info``), with the
+    plain flat total beside the segmented one."""
+    leaves = gpt_leaves(cfg)
+    space, meta = FusedLAMB(seg_elems=seg_elems).layout(leaves)
+    plain = FlatSpace.create(leaves).total
+    print(f"  GPT plain flat total {plain}: the segmented layout adds "
+          f"{100 * (space.total / plain - 1):.3f}%")
+    info = segment_info(space, meta, "GPT")
+    info["plain_total"] = plain
     return space, meta, info
 
 
-def segment_cases(dev) -> dict:
-    """The segment pass on GPT-2 345M's segmented layout at FusedLAMB's
-    default seg_elems, stash_p on and off, with_grad_norm: m' and v'
-    bitwise, p' (on every parameter of the small leaves) and the
-    per-slot grad sums within tolerance; an inf in a small segment sets
-    found_inf. Then ``FusedLAMB.step_flat`` on the segmented layout, on
-    the layout at the reference rule's segment size and two-stage."""
-    from apex_tpu_torch.multi_tensor.segmented import _small_segment_pass
-    cfg = GPTConfig.gpt2_345m()
-    space, meta, info = segment_layout(cfg)
-    n = space.total
-    p = _seeded(n, dev, 7, 2e-2)
-    m = _seeded(n, dev, 8, 1e-3)
-    v = _seeded(n, dev, 9, 1e-6, positive=True)
-    g = _seeded(n, dev, 10, 1e-2)
+SEGMENT_VARIANTS = ((True, False, torch.float32), (True, True, torch.float32),
+                    (False, False, torch.float32),
+                    (False, True, torch.float32),
+                    (True, False, torch.bfloat16),
+                    (False, False, torch.bfloat16))
+
+
+def _segment_pass_cases(dev, label, space, meta, info, bufs):
+    """The segment pass over one layout's small segments, fp32 master:
+    the stash on and off, with_grad_norm, u fp32 and bf16
+    (``SEGMENT_VARIANTS``). m' and v' bitwise, p' (on every parameter of
+    the small leaves) within SEG_P_REL_TOL of its step plus one rounding,
+    the per-slot grad sums within SUMSQ_REL_TOL, two calls bitwise;
+    whether p' and the sums are bitwise the plain version (its sums in
+    the kernel's order) is printed. Times: device (graph replay), host
+    (the wrapper's issue time) and the plain version's; the byte bound
+    over the parameters and over the elements swept. Returns the cases
+    and the largest |p' - plain|."""
+    from apex_tpu_torch.multi_tensor.segmented import (
+        _small_segment_pass, segment_route)
+    p, m, v, g = bufs
     scal = (0.9, 0.999, 0.1, 1e-6, 0.01, 0.271, 0.002997, 1.0)
     inv = torch.tensor(1.75, device=dev)
-    outs = [torch.empty_like(p) for _ in range(3)]
-    ref = [torch.empty_like(p) for _ in range(3)]
+    sets = [[torch.empty_like(p) for _ in range(3)] for _ in range(3)]
+    outs, again, ref = sets
     large_ids = {l_ for l_, _, _ in meta.large}
     live = torch.cat([torch.arange(off, off + size, device=dev)
                       for i, (off, size) in enumerate(zip(space.offsets,
@@ -1244,69 +1258,119 @@ def segment_cases(dev) -> dict:
     real = info["parameters_in_small_leaves"]
     swept = info["elements_small_segments"]
     cases, worst = [], 0.0
-    for stash in (True, False):
-        for with_gn in (False, True):
-            for o, r in zip(outs + ref, (p, m, v) * 2):
+    for stash, with_gn, u_dt in SEGMENT_VARIANTS:
+        for bufs_ in sets:
+            for o, r in zip(bufs_, (p, m, v)):
                 o.copy_(r)
-            kw = dict(meta=meta, scalars=scal, inv_scale=inv, lr=1e-3,
-                      use_nvlamb=False, wd_is_zero=False, stash_p=stash,
-                      with_grad_norm=with_gn)
-            f, gg = _small_segment_pass(p, m, v, g, outs, **kw)
-            wf, wgg = _small_segment_pass(p, m, v, g, ref, plain=True, **kw)
-            torch.cuda.synchronize()
-            bitwise = all(torch.equal(a.view(torch.int32),
-                                      b.view(torch.int32))
-                          for a, b in zip(outs[1:], ref[1:]))
-            want, p_in, got = ref[0][live], p[live], outs[0][live]
-            step = (p_in - want).abs()
-            diff = (got - want).abs()
-            ulp = 2.0 ** -23 * torch.maximum(got.abs(), want.abs())
-            # beyond the stated share of each parameter's step, at most
-            # one rounding of p' (an element whose step is below an ulp
-            # of p' moves by an ulp when its ratio's last bit moves; the
-            # ulp of the larger value, as the two may round into
-            # neighbouring binades)
-            p_excess = float((diff - SEG_P_REL_TOL * step - ulp).max())
-            p_rel = float((diff / (step + 1e-30)).max())
-            p_rel_ulp = float((diff / (step + ulp + 1e-30)).max())
-            gg_rel = (float(((gg - wgg).abs() / wgg.abs().clamp_min(1e-30))
-                            .max()) if with_gn else 0.0)
-            worst = max(worst, float((outs[0] - ref[0]).abs().max()))
-            print(f"  {SEGMENT_KERNEL} stash_p={stash} with_grad_norm="
-                  f"{with_gn}: m'/v' bitwise={bitwise}; on the {real} "
-                  f"parameters, p' max |diff| / |step|={p_rel:.3e}, / "
-                  f"(|step| + ulp(p'))={p_rel_ulp:.3e}, max(|diff| - "
-                  f"{SEG_P_REL_TOL}|step| - ulp(p'))={p_excess:.3e} (tol 0); "
-                  f"grad sums max_rel={gg_rel:.3e} (tol {SUMSQ_REL_TOL}), "
-                  f"found={float(f)}")
-            check(bitwise and p_excess <= 0.0 and float(f) == 0.0
-                  and gg_rel <= SUMSQ_REL_TOL,
-                  "lamb_segment kernel disagrees with its plain version")
-            run = lambda kw=kw: _small_segment_pass(  # noqa: E731
-                p, m, v, g, outs, **kw)
-            ms, h_ms = device_ms(run, iters=10, replays=3), host_ms(run)
-            plain_ms = host_ms(lambda kw=kw: _small_segment_pass(
-                p, m, v, g, ref, plain=True, **kw), iters=3, warmup=1)
-            # the bytes the LAMB update needs: the small leaves' own
-            # parameters, each read (p, m, v, g) and written (p', m', v')
-            # once, p twice without the stash; not the padding swept
-            b_ms, by = bound((28 if stash else 32) * real, 25 * real,
-                             PEAK_FP32_FLOPS)
-            print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms="
-                  f"{plain_ms:.5f} library_ms=none bound_ms={b_ms:.5f} "
-                  f"({by}) over {real} parameters ({swept} elements swept)")
-            cases.append({"stash_p": stash, "with_grad_norm": with_gn,
-                          "ms": ms, "host_ms": h_ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": by,
-                          "p_rel": p_rel, "p_rel_ulp": p_rel_ulp,
-                          "p_excess": p_excess, "gg_rel": gg_rel})
+        kw = dict(meta=meta, scalars=scal, inv_scale=inv, lr=1e-3,
+                  use_nvlamb=label == "bert_large", wd_is_zero=False,
+                  stash_p=stash, with_grad_norm=with_gn, u_dtype=u_dt)
+        f, gg = _small_segment_pass(p, m, v, g, outs, **kw)
+        f2, gg2 = _small_segment_pass(p, m, v, g, again, **kw)
+        wf, wgg = _small_segment_pass(p, m, v, g, ref, plain=True, **kw)
+        torch.cuda.synchronize()
+        bitwise = _bitwise(outs[1:], ref[1:])
+        repeat = _bitwise(outs, again) and (
+            not with_gn or _bitwise([gg], [gg2])) and float(f2) == 0.0
+        p_bits = _bitwise(outs[:1], ref[:1])
+        gg_bits = not with_gn or _bitwise([gg], [wgg])
+        want, p_in, got = ref[0][live], p[live], outs[0][live]
+        step = (p_in - want).abs()
+        diff = (got - want).abs()
+        ulp = 2.0 ** -23 * torch.maximum(got.abs(), want.abs())
+        # beyond the stated share of each parameter's step, at most one
+        # rounding of p' (an element whose step is below an ulp of p'
+        # moves by an ulp when its ratio's last bit moves; the ulp of the
+        # larger value, as the two may round into neighbouring binades)
+        p_excess = float((diff - SEG_P_REL_TOL * step - ulp).max())
+        p_rel = float((diff / (step + 1e-30)).max())
+        gg_rel = (float(((gg - wgg).abs() / wgg.abs().clamp_min(1e-30))
+                        .max()) if with_gn else 0.0)
+        worst = max(worst, float((outs[0] - ref[0]).abs().max()))
+        del want, p_in, got, step, diff, ulp
+        route = segment_route(meta, stash_p=stash, p_dtype=p.dtype,
+                              u_dtype=u_dt, device=dev)
+        tag = (f"{SEGMENT_KERNEL} {label} stash_p={stash} with_grad_norm="
+               f"{with_gn} u={str(u_dt)[6:]}")
+        print(f"  {tag}: m'/v' bitwise={bitwise}; p' bitwise={p_bits}, on "
+              f"the {real} parameters max |diff| / |step|={p_rel:.3e}, "
+              f"max(|diff| - {SEG_P_REL_TOL}|step| - ulp(p'))="
+              f"{p_excess:.3e} (tol 0); grad sums bitwise={gg_bits} "
+              f"max_rel={gg_rel:.3e} (tol {SUMSQ_REL_TOL}); two calls "
+              f"bitwise={repeat}; found={float(f)}")
+        print(f"    route: clusters of {route['cluster_blocks']} blocks, "
+              f"{route['blocks']} blocks for {route['clusters']} segments, "
+              f"{route['resident_clusters']} clusters resident at once "
+              f"(one wave {route['one_wave']}), {route['blocks_per_sm']} "
+              f"blocks an SM, {route['registers']} registers, "
+              f"{route['spill_bytes']} bytes spilled, {route['smem_bytes']} "
+              f"shared bytes a block")
+        check(bitwise and p_excess <= 0.0 and float(f) == 0.0
+              and gg_rel <= SUMSQ_REL_TOL and repeat,
+              f"lamb_segment kernel disagrees with its plain version "
+              f"({tag})")
+        run = lambda kw=kw: _small_segment_pass(  # noqa: E731
+            p, m, v, g, outs, **kw)
+        ms, h_ms = device_ms(run, iters=10, replays=3), host_ms(run)
+        plain_ms = host_ms(lambda kw=kw: _small_segment_pass(
+            p, m, v, g, ref, plain=True, **kw), iters=3, warmup=1)
+        # the bytes the LAMB update needs: each element read (p, m, v,
+        # g) and written (p', m', v') once, p twice without the stash;
+        # over the small leaves' own parameters, and over every element
+        # the pass sweeps (the padding's m' and v' are written too)
+        per = 28 if stash else 32
+        b_ms, by = bound(per * real, 25 * real, PEAK_FP32_FLOPS)
+        b_sw, _ = bound(per * swept, 25 * swept, PEAK_FP32_FLOPS)
+        print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+              f"library_ms=none bound_ms={b_ms:.5f} ({by}) over {real} "
+              f"parameters, {b_sw:.5f} over the {swept} elements swept")
+        cases.append({"layout": label, "stash_p": stash,
+                      "with_grad_norm": with_gn, "u_dtype": str(u_dt)[6:],
+                      "ms": ms, "host_ms": h_ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_swept_ms": b_sw,
+                      "bound_by": by, "p_rel": p_rel, "p_excess": p_excess,
+                      "p_bitwise": p_bits, "gg_bitwise": gg_bits,
+                      "gg_rel": gg_rel, "repeat_bitwise": repeat,
+                      "route": route})
     bad = g.clone()
     bad[meta.small_segments[0] * meta.seg_elems + 11] = float("inf")
     f, _ = _small_segment_pass(p, m, v, bad, outs, **kw)
-    print(f"  {SEGMENT_KERNEL} with an inf in a small segment: found_inf="
-          f"{float(f)}")
+    print(f"  {SEGMENT_KERNEL} {label} with an inf in a small segment: "
+          f"found_inf={float(f)}")
     check(float(f) == 1.0, "lamb_segment found_inf not set")
-    del bad, outs, ref, live
+    return cases, worst
+
+
+def segment_cases(dev) -> dict:
+    """The segment pass (``_segment_pass_cases``) on GPT-2 345M's and
+    BERT-Large's segmented layouts at FusedLAMB's default seg_elems
+    (BERT's with NVLAMB, as phase 6 runs it). Then ``FusedLAMB.step_flat``
+    on GPT's segmented layout, on the layout at the reference rule's
+    segment size and two-stage."""
+    cfg = GPTConfig.gpt2_345m()
+    bert_space, bert_meta = FusedLAMB(
+        lr=1e-4, weight_decay=0.01, max_grad_norm=1.0,
+        use_nvlamb=True).layout(bert_leaves(BertConfig.bert_large()))
+    bert_info = segment_info(bert_space, bert_meta, "BERT-Large")
+    nb = bert_space.total
+    bufs = [_seeded(nb, dev, 60, 2e-2), _seeded(nb, dev, 61, 1e-3),
+            _seeded(nb, dev, 62, 1e-6, positive=True),
+            _seeded(nb, dev, 63, 1e-2)]
+    bert_cases, bert_worst = _segment_pass_cases(
+        dev, "bert_large", bert_space, bert_meta, bert_info, bufs)
+    del bufs
+    torch.cuda.empty_cache()
+    space, meta, info = segment_layout(cfg)
+    n = space.total
+    p = _seeded(n, dev, 7, 2e-2)
+    m = _seeded(n, dev, 8, 1e-3)
+    v = _seeded(n, dev, 9, 1e-6, positive=True)
+    g = _seeded(n, dev, 10, 1e-2)
+    cases, worst = _segment_pass_cases(dev, "gpt2_345m", space, meta, info,
+                                       (p, m, v, g))
+    real = info["parameters_in_small_leaves"]
+    worst = max(worst, bert_worst)
+    torch.cuda.empty_cache()
     # FusedLAMB.step_flat in place: segmented (the default layout, and
     # the layout at the reference rule's segment size) and two-stage
     from apex_tpu_torch.optimizers import FlatOptState
@@ -1342,9 +1406,11 @@ def segment_cases(dev) -> dict:
             "replaces": "apex_tpu/multi_tensor/segmented.py:126",
             "max_abs_err": worst, "ms": top["ms"], "host_ms": top["host_ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_swept_ms": top["bound_swept_ms"],
             "bound_by": top["bound_by"], "library_ms": None,
-            "cases": cases, "layout": info, "layout_196608": ref_info,
-            "step_flat_ms": times,
+            "cluster": top["route"], "cases": cases + bert_cases,
+            "layout": info, "layout_bert_large": bert_info,
+            "layout_196608": ref_info, "step_flat_ms": times,
             "shape": f"{len(meta.small_segments)} small segments of "
                      f"{meta.seg_elems} fp32 ({real} parameters; GPT-2 "
                      f"345M segmented layout)"}
@@ -4591,28 +4657,34 @@ def sr_segment_case(dev) -> dict:
                 use_nvlamb=True, wd_is_zero=False)
     outs = [torch.empty_like(pb), torch.empty_like(m), torch.empty_like(v)]
     ref = [torch.empty_like(pb), torch.empty_like(m), torch.empty_like(v)]
+    again = [torch.empty_like(pb), torch.empty_like(m), torch.empty_like(v)]
+    small = torch.cat([torch.arange(s_ * meta.seg_elems,
+                                    (s_ + 1) * meta.seg_elems, device=dev)
+                       for s_ in meta.small_segments])
     cases, worst = [], 0
     for stash in (True, False):
         for u_dt in (torch.float32, torch.bfloat16):
             kw = dict(base, stash_p=stash, u_dtype=u_dt, sr_seed=SR_SEED)
             f, _ = _small_segment_pass(pb, m, v, g, outs, **kw)
+            f2, _ = _small_segment_pass(pb, m, v, g, again, **kw)
             wf, _ = _small_segment_pass(pb, m, v, g, ref, plain=True, **kw)
             torch.cuda.synchronize()
-            small = torch.cat([torch.arange(s_ * meta.seg_elems,
-                                            (s_ + 1) * meta.seg_elems,
-                                            device=dev)
-                               for s_ in meta.small_segments])
             mv = all(torch.equal(a[small].view(torch.int32),
                                  b[small].view(torch.int32))
                      for a, b in zip(outs[1:], ref[1:]))
             ulps = _bf16_ulps(outs[0][small], ref[0][small])
+            # two calls: the same bits (the SR stream and the sums' order
+            # are fixed)
+            repeat = all(_same_bits(a[small], b[small])
+                         for a, b in zip(outs, again)) and float(f2) == 0.0
             worst = max(worst, ulps)
-            del small
             print(f"  {segmented.SEGMENT_SR_KERNEL} stash_p={stash} u="
                   f"{str(u_dt)[6:]}: m'/v' bitwise={mv}, p' within {ulps} "
-                  f"bf16 ulp (tol 1), found={float(f)}")
-            check(mv and ulps <= 1 and float(f) == 0.0,
-                  "lamb_segment SR disagrees with its plain version")
+                  f"bf16 ulp (tol 1), two calls bitwise={repeat}, "
+                  f"found={float(f)}")
+            check(mv and ulps <= 1 and float(f) == 0.0 and repeat,
+                  "lamb_segment SR disagrees with its plain version or "
+                  "does not repeat")
             run = lambda kw=kw: _small_segment_pass(  # noqa: E731
                 pb, m, v, g, outs, **kw)
             ms = device_ms(run, iters=5, replays=3)
@@ -4626,7 +4698,8 @@ def sr_segment_case(dev) -> dict:
                   f"{b_ms:.5f} ({by}) over {real} parameters")
             cases.append({"stash_p": stash, "u_dtype": str(u_dt)[6:],
                           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                          "bound_by": by, "p_ulps": ulps})
+                          "bound_by": by, "p_ulps": ulps,
+                          "repeat_bitwise": repeat})
     fkw = dict(base, stash_p=True)
     fp32_ms = device_ms(lambda: _small_segment_pass(p32, m, v, g,
                                                     [p32, m, v], **fkw),
@@ -5974,9 +6047,12 @@ def leaf_sum_case(dev) -> dict:
     lib_rel = float(((lib - p) / p.abs().clamp_min(1e-30)).abs().max())
     runs = engine.leaf_runs(space)
     longest = int((runs[:, 1] - runs[:, 0]).max())
+    chunks = engine.leaf_chunks(runs)
     print(f"  leaf_sum {n_sub} partials in {space.num_leaves} leaves "
-          f"(the longest run {longest}): kernel vs plain and two runs "
-          f"bitwise {ok}; index_add_ (atomics) max rel {lib_rel:.3e}")
+          f"(the longest run {longest}; {len(chunks)} blocks of "
+          f"{engine.LEAF_SUM_CHUNK} partials, the longest run's "
+          f"{-(-longest // engine.LEAF_SUM_CHUNK)}): kernel vs plain and two "
+          f"runs bitwise {ok}; index_add_ (atomics) max rel {lib_rel:.3e}")
     check(ok, "leaf_sum kernel is not bitwise its plain version")
     ms = device_ms(lambda: engine.leaf_sums(x, space))
     # the plain version reads its longest run on the host: CUDA events
@@ -5994,6 +6070,7 @@ def leaf_sum_case(dev) -> dict:
             "max_abs_err": float((a - p).abs().max()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": lib_ms, "index_add_rel_err": lib_rel,
+            "blocks": len(chunks),
             "shape": f"{n_sub} fp32 partials, {space.num_leaves} leaves "
                      "(GPT-2 345M)"}
 

@@ -1108,8 +1108,9 @@ def test_adam_kernel_found_inf_and_out_of_place(cuda_device):
 # sums in another order); LAMB stage 1's u, m' and v', stage 2's p' and
 # the segment pass's m' and v': bitwise (every operation rounded on its
 # own in the plain version's order); the segment pass's p' within 1e-5 of
-# each element's step |p - p'| plus one ulp of p' (its ratios come from
-# sums in another order).
+# each element's step |p - p'| plus one ulp of p' (the bound its checks
+# have always stated), and on the models' layouts p' and the g^2 sums
+# bitwise (the plain version's sums take the kernel's order).
 
 
 def _rand(rng, n, dev, scale=1.0, positive=False):
@@ -1262,6 +1263,87 @@ def test_segmented_lamb_kernels_match_plain(cuda_device, stash_p,
                                         space, meta, **kw)
     for a, b in zip(got[:3], again[:3]):
         assert torch.equal(a, b)
+
+
+_MODEL_LAYOUTS = {}
+
+
+def _model_layout(name, dev):
+    """FusedLAMB's segmented layout of GPT-2 345M or of BERT-Large (NVLAMB,
+    phase 6 of chip_smoke.py), with seeded fp32 p, m, v, g over it (kept
+    for the next case)."""
+    if name not in _MODEL_LAYOUTS:
+        _MODEL_LAYOUTS.clear()
+        import chip_smoke
+        from apex_tpu_torch.models import BertConfig, GPTConfig
+        from apex_tpu_torch.optimizers import FusedLAMB
+        leaves = (chip_smoke.gpt_leaves(GPTConfig.gpt2_345m())
+                  if name == "gpt2_345m"
+                  else chip_smoke.bert_leaves(BertConfig.bert_large()))
+        space, meta = FusedLAMB(lr=1e-4, weight_decay=0.01,
+                                use_nvlamb=True).layout(leaves)
+        gen = torch.Generator(device=dev).manual_seed(len(name))
+        n = space.total
+        bufs = [torch.randn(n, generator=gen, device=dev).mul_(2e-2),
+                torch.randn(n, generator=gen, device=dev).mul_(1e-3),
+                torch.rand(n, generator=gen, device=dev).mul_(1e-6),
+                torch.randn(n, generator=gen, device=dev).mul_(1e-2)]
+        small = torch.cat([torch.arange(s_ * meta.seg_elems,
+                                        (s_ + 1) * meta.seg_elems, device=dev)
+                           for s_ in meta.small_segments])
+        _MODEL_LAYOUTS[name] = (space, meta, bufs, small)
+    return _MODEL_LAYOUTS[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["gpt2_345m", "bert_large"])
+@pytest.mark.parametrize("stash_p", [True, False])
+@pytest.mark.parametrize("master", ["fp32", "bf16_sr"])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_segment_kernel_on_model_layouts_is_bitwise_plain(
+        cuda_device, layout, stash_p, master, u_dtype):
+    """The segment pass on the 16-block clusters (``segment_route``: one
+    cluster a small segment, all of them in one wave) in all eight
+    variants on both models' layouts: m', v', p' (SR bits included) and
+    the per-slot g^2 sums bitwise the plain version (its sums in the
+    kernel's order), two calls bitwise, and an inf in a small segment
+    sets found_inf."""
+    from apex_tpu_torch.multi_tensor.segmented import (
+        SEGMENT_KERNEL, SEGMENT_SR_KERNEL, _small_segment_pass,
+        segment_route)
+    space, meta, (p32, m, v, g), small = _model_layout(layout, cuda_device)
+    p = p32 if master == "fp32" else p32.bfloat16()
+    kw = dict(meta=meta, scalars=(0.9, 0.999, 0.1, 1e-6, 0.01, 0.271,
+                                  0.002997, 1.0),
+              inv_scale=torch.tensor(1.75, device=cuda_device), lr=1e-3,
+              use_nvlamb=layout == "bert_large", wd_is_zero=False,
+              stash_p=stash_p, with_grad_norm=True, u_dtype=u_dtype,
+              sr_seed=None if master == "fp32" else 17)
+    route = segment_route(meta, stash_p=stash_p, p_dtype=p.dtype,
+                          u_dtype=u_dtype, device=cuda_device)
+    assert route["cluster_blocks"] == 16 and route["one_wave"], route
+    assert route["blocks"] == 16 * len(meta.small_segments)
+    name = SEGMENT_KERNEL if master == "fp32" else SEGMENT_SR_KERNEL
+    outs = [torch.empty_like(t) for t in (p, m, v)]
+    again = [torch.empty_like(t) for t in (p, m, v)]
+    ref = [torch.empty_like(t) for t in (p, m, v)]
+    n0 = _build.launch_counts().get(name, 0)
+    f, gg = _small_segment_pass(p, m, v, g, outs, **kw)
+    f2, gg2 = _small_segment_pass(p, m, v, g, again, **kw)
+    wf, wgg = _small_segment_pass(p, m, v, g, ref, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == n0 + 2
+    for a, b, c in zip(outs, again, ref):
+        view = torch.int16 if a.element_size() == 2 else torch.int32
+        a, b, c = (t[small].view(view) for t in (a, b, c))
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(gg.view(torch.int32), gg2.view(torch.int32))
+    assert torch.equal(gg.view(torch.int32), wgg.view(torch.int32))
+    assert float(f) == float(f2) == float(wf) == 0.0
+    bad = g.clone()
+    bad[meta.small_segments[-1] * meta.seg_elems + 11] = float("inf")
+    f3, _ = _small_segment_pass(p, m, v, bad, outs, **kw)
+    assert float(f3) == 1.0
 
 
 @pytest.mark.cuda
@@ -2459,12 +2541,41 @@ def test_rope_kernel_reads_strided_tables(cuda_device, dtype, table):
 # -- the fixed-order leaf sums ------------------------------------------------
 
 
+def _leaf_space(name):
+    """A space (or a duck-typed one: offsets, padded sizes and the device
+    cache are all ``leaf_sums`` reads) whose runs of partials are: a mixed
+    set; exactly one chunk (2048 partials), one chunk plus one, one
+    partial and an empty run; GPT-2 345M's 292 leaves (the embedding's
+    run 25,152 partials)."""
+    import types
+    from apex_tpu_torch.multi_tensor import FlatSpace
+    if name == "mixed":
+        return FlatSpace.create({"emb": torch.empty(25152 * 2048,
+                                                    device="meta"),
+                                 "b": torch.empty(5, device="meta"),
+                                 "w": torch.empty(3 << 20, device="meta")})
+    if name == "chunk_edges":
+        runs = (2048, 0, 2049, 1, 0, 3 * 2048 - 1)
+        offs = [0]
+        for r in runs[:-1]:
+            offs.append(offs[-1] + r * 2048)
+        return types.SimpleNamespace(
+            offsets=offs, padded_sizes=[r * 2048 for r in runs],
+            total=offs[-1] + runs[-1] * 2048, num_leaves=len(runs),
+            _device_ids={})
+    import chip_smoke
+    from apex_tpu_torch.models import GPTConfig
+    return FlatSpace.create(chip_smoke.gpt_leaves(GPTConfig.gpt2_345m()))
+
+
 @pytest.mark.cuda
-def test_leaf_sum_kernel_is_bitwise_the_plain_order(cuda_device):
-    from apex_tpu_torch.multi_tensor import FlatSpace, engine
-    space = FlatSpace.create({"emb": torch.zeros(25152 * 2048),
-                              "b": torch.zeros(5),
-                              "w": torch.zeros(3 << 20)})
+@pytest.mark.parametrize("name", ["mixed", "chunk_edges", "gpt2_345m"])
+def test_leaf_sum_kernel_is_bitwise_the_plain_order(cuda_device, name):
+    """Chunks of 2048 partials, a leaf's chunks finished by its last
+    block in chunk order: bitwise the plain version, and two calls
+    bitwise (the per-leaf counters reset themselves)."""
+    from apex_tpu_torch.multi_tensor import engine
+    space = _leaf_space(name)
     n_sub = space.total // 2048
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.rand(n_sub, device=cuda_device, generator=gen)
@@ -2474,6 +2585,10 @@ def test_leaf_sum_kernel_is_bitwise_the_plain_order(cuda_device):
     p = engine.leaf_sums(x, space, plain=True)
     assert _build.launch_counts()[engine.LEAF_SUM_KERNEL] == n0 + 2
     assert torch.equal(a, b) and torch.equal(a, p)
+    runs = engine.leaf_runs(space)
+    empty = (runs[:, 1] == runs[:, 0]).nonzero().flatten().tolist()
+    for leaf in empty:                  # +0, not -0
+        assert a[leaf].view(torch.int32).item() == 0
 
 
 # -- the probes -----------------------------------------------------------------

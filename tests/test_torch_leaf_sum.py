@@ -3,8 +3,9 @@ paths.
 
 The per-tensor norms (NovoGrad's denominators, LARS's and LAMB's ratios)
 sum each leaf's per-subtile partials. ``engine.leaf_sums`` does it in one
-documented order, the ``leaf_sum`` kernel's (``csrc/sumsq.cu``): 256
-strided running sums from +0, then a halving tree. Its plain version is
+documented order, the ``leaf_sum`` kernel's (``csrc/sumsq.cu``): each run
+cut into chunks of 2048, in a chunk 256 strided running sums from +0 and
+a halving tree, then the chunks' sums in chunk order. Its plain version is
 held bitwise to a numpy evaluation of that order written out here, and
 the kernel to the plain version on the card
 (``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``). Tolerances:
@@ -27,27 +28,37 @@ from apex_tpu_torch.multi_tensor.engine import sqrt_rn
 
 
 def _documented_order(x: np.ndarray) -> np.float32:
-    """A run of fp32 partials summed as the kernel does: element j to
-    running sum j % 256, in turn, from +0; then v[i] += v[i + s] for s =
-    128, 64, ..., 1."""
-    v = np.zeros(256, np.float32)
-    for j, a in enumerate(x.astype(np.float32)):
-        v[j % 256] = np.float32(v[j % 256] + a)
-    s = 128
-    while s >= 1:
-        v[:s] = (v[:s] + v[s:2 * s]).astype(np.float32)
-        s //= 2
-    return v[0]
+    """A run of fp32 partials summed as the kernel does: cut into chunks
+    of 2048 (an empty run one chunk of nothing); in a chunk, element j to
+    running sum j % 256, in turn, from +0, then v[i] += v[i + s] for s =
+    128, 64, ..., 1; the chunks' sums added in chunk order."""
+    x = x.astype(np.float32)
+    sums = []
+    for lo in range(0, max(len(x), 1), 2048):
+        v = np.zeros(256, np.float32)
+        for j, a in enumerate(x[lo:lo + 2048]):
+            v[j % 256] = np.float32(v[j % 256] + a)
+        s = 128
+        while s >= 1:
+            v[:s] = (v[:s] + v[s:2 * s]).astype(np.float32)
+            s //= 2
+        sums.append(v[0])
+    total = sums[0]
+    for c in sums[1:]:
+        total = np.float32(total + c)
+    return total
 
 
 def _space(sizes):
-    return FlatSpace.create({f"t{i}": torch.zeros(n)
+    return FlatSpace.create({f"t{i}": torch.empty(n, device="meta")
                              for i, n in enumerate(sizes)})
 
 
-@pytest.mark.parametrize("sizes", [(3000, 10, 4097), (1,),
-                                   (2048 * 300, 5, 2048 * 1000 + 3)],
-                         ids=["small", "one", "long_runs"])
+@pytest.mark.parametrize("sizes", [
+    (3000, 10, 4097), (1,), (2048 * 300, 5, 2048 * 1000 + 3),
+    (2048 * 2047, 2048 * 2048, 2048 * 2049, 7, 2048 * 4097),
+    (2048 * 25152, 1024, 2048 * 1536)],
+    ids=["small", "one", "long_runs", "chunk_edges", "embedding"])
 def test_leaf_sums_follow_the_documented_order(sizes):
     space = _space(sizes)
     n_sub = space.total // 2048
@@ -60,6 +71,31 @@ def test_leaf_sums_follow_the_documented_order(sizes):
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     again = engine.leaf_sums(torch.from_numpy(x), space, plain=True)
     assert torch.equal(again, torch.from_numpy(got))
+
+
+def test_leaf_chunks_cut_each_run_in_order():
+    runs = torch.tensor([[0, 0], [0, 1], [1, 2049], [2049, 4098],
+                         [4098, 4098 + 25152]], dtype=torch.int32)
+    chunks = engine.leaf_chunks(runs)
+    assert chunks.dtype == torch.int32
+    counts = np.bincount(chunks[:, 0].numpy(), minlength=len(runs))
+    assert counts.tolist() == [1, 1, 1, 2, 13]
+    for leaf in range(len(runs)):
+        mine = chunks[chunks[:, 0] == leaf, 1].tolist()
+        assert mine == list(range(counts[leaf]))
+    # a leaf's chunks are consecutive rows
+    assert (np.diff(chunks[:, 0].numpy()) >= 0).all()
+
+
+def test_plain_leaf_sum_of_an_empty_run_is_plus_zero():
+    x = torch.tensor([-0.0, 1.5, -2.0, 0.25])
+    runs = torch.tensor([[0, 0], [0, 1], [1, 4], [4, 4]], dtype=torch.int32)
+    got = engine._leaf_sum_torch(x, runs)
+    want = np.array([0.0, 0.0, _documented_order(np.array([1.5, -2.0,
+                                                            0.25])), 0.0],
+                    np.float32)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
 
 
 def test_leaf_runs_cover_each_leaf_once():
@@ -114,3 +150,24 @@ def test_plain_sqrt_rounds_once_through_numpy():
     scalar = sqrt_rn(torch.tensor(9.0))
     assert scalar.shape == () and float(scalar) == 3.0
     assert sqrt_rn(torch.tensor([4.0], dtype=torch.float64)).item() == 2.0
+
+
+def test_leaf_sum_kernel_spans_cover_each_chunk_once():
+    """The kernel's block descriptors: chunk c of a leaf's n reads
+    ``[start + 2048 c, min(start + 2048 (c + 1), end))``; an empty run
+    is one block of nothing; the counters and the scratch start at 0."""
+    runs = torch.tensor([[0, 0], [0, 1], [1, 2049], [2049, 4098],
+                         [4098, 4098 + 25152]], dtype=torch.int32)
+    spans, partial, count = engine._leaf_sum_scratch(runs)
+    assert spans.dtype == torch.int32 and spans.shape == (18, 4)
+    lo, hi, leaf, packed = (spans[:, i].tolist() for i in range(4))
+    c, n = [p >> 16 for p in packed], [p & 0xFFFF for p in packed]
+    assert leaf == [0, 1, 2, 3, 3] + [4] * 13
+    assert n == [1, 1, 1, 2, 2] + [13] * 13
+    assert c == [0, 0, 0, 0, 1] + list(range(13))
+    assert list(zip(lo, hi))[:5] == [(0, 0), (0, 1), (1, 2049),
+                                     (2049, 4097), (4097, 4098)]
+    assert lo[5:] == [4098 + 2048 * k for k in range(13)]
+    assert hi[-1] == 4098 + 25152 and hi[-2] == lo[-1]
+    assert not partial.any() and partial.shape == (18,)
+    assert not count.any() and count.shape == (5,)

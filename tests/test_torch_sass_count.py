@@ -114,3 +114,44 @@ def test_tree_compare_reports_dx_bits_and_dw_db_differences(tmp_path,
     assert "cold_ms 0.06000 (first) 0.03000 (second)" in out[0]
     assert out[1].startswith("layer_norm rows=5: bitwise False")
     assert tree_compare._rel([1.0, 2.0], [1.0, 4.0]) == 0.5
+
+
+def test_tree_compare_reports_segment_and_leaf_sum_cases(tmp_path, capsys):
+    seg = {"sha256": "mv", "p_sha256": "p1", "gg_sha256": "g1",
+           "mv_plain_bitwise": True, "p_plain_bitwise": False,
+           "p_within_tol": True, "gg_plain_rel": 1e-7, "ms": 0.02,
+           "host_ms": 0.05}
+    leaf = {"sha256": "s", "plain_bitwise": True, "repeat_bitwise": True,
+            "ms": 0.0036, "lib_ms": 0.09}
+    paths = []
+    for name, p_hash, ms in (("a.json", "p1", 0.02), ("b.json", "p2",
+                                                      0.008)):
+        cases = {"lamb_segment gpt2_345m fp32": dict(seg, p_sha256=p_hash,
+                                                     ms=ms),
+                 "leaf_sum gpt2_345m 292 leaves": leaf}
+        p = tmp_path / name
+        p.write_text(json.dumps({"card": "x", "cases": cases}))
+        paths.append(str(p))
+    assert tree_compare.compare(*paths) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("lamb_segment gpt2_345m fp32: m'/v' bitwise "
+                             "True; p bitwise False; gg bitwise True")
+    assert "p_plain_bitwise False / False" in out[0]
+    assert "ms 0.02000 (first) 0.00800 (second)" in out[0]
+    assert "host_ms 0.05000 (first) 0.05000 (second)" in out[0]
+    assert out[1].startswith("leaf_sum gpt2_345m 292 leaves: bitwise True")
+    assert "repeat_bitwise True / True" in out[1]
+    assert "lib_ms 0.09000" in out[1]
+
+
+@pytest.mark.parametrize("text,want", [
+    ("lamb_segment,leaf_sum", ("lamb_segment", "leaf_sum")),
+    ("layer_norm", ("layer_norm",)), ("flash,", ("flash",))])
+def test_tree_compare_only_takes_a_list_of_groups(text, want):
+    assert tree_compare._groups(text) == want
+
+
+@pytest.mark.parametrize("text", ["", "segment", "flash,lamb"])
+def test_tree_compare_only_refuses_unknown_groups(text):
+    with pytest.raises(Exception, match="comma-separated"):
+        tree_compare._groups(text)
