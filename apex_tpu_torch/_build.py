@@ -37,7 +37,7 @@ BUILD_DIR = _PKG / "_build"
 # one shared library per source; the ops modules bind their symbols
 SOURCES = ("layer_norm", "flash_fwd", "flash_bwd", "flash_fwd_fp16",
            "flash_bwd_fp16", "flash_fwd_fp32", "flash_bwd_fp32",
-           "flash_split3",
+           "flash_split3", "flash_wide",
            "fused_adam", "sumsq",
            "fused_lamb", "lamb_segment", "softmax", "fused_sgd",
            "scale_axpby", "adagrad_novograd", "xentropy", "rope", "dropout",

@@ -1,5 +1,5 @@
 """Models (counterpart of ``apex_tpu/models/``): GPT for serving and
-single-device pretraining, BERT and ResNet for single-device
+single-device pretraining, BERT, T5 and ResNet for single-device
 pretraining."""
 
 from apex_tpu_torch.models.bert import (
@@ -16,6 +16,7 @@ from apex_tpu_torch.models.convert import (
     load_jax_resnet,
     multihead_attn_params_from_jax,
     resnet_params_from_jax,
+    t5_params_from_jax,
 )
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel, gpt_loss_fn
 from apex_tpu_torch.models.resnet import (
@@ -23,6 +24,13 @@ from apex_tpu_torch.models.resnet import (
     ResNetBottleneckBlock,
     ResNetConfig,
     cross_entropy_logits,
+)
+from apex_tpu_torch.models.t5 import (
+    T5Config,
+    T5Model,
+    encoder_decoder_stage_layout,
+    t5_loss_fn,
+    t5_pretrain_loss,
 )
 from apex_tpu_torch.models.pretrain import (
     PretrainStep,
@@ -32,9 +40,11 @@ from apex_tpu_torch.models.pretrain import (
 
 __all__ = ["BertConfig", "BertModel", "GPTConfig", "GPTModel",
            "PretrainStep", "ResNet", "ResNetBottleneckBlock", "ResNetConfig",
+           "T5Config", "T5Model", "encoder_decoder_stage_layout",
            "bert_extended_attention_mask", "bert_loss_fn",
            "bert_params_from_jax", "cross_entropy_logits", "gpt_loss_fn",
            "gpt_params_from_jax", "init_gpt_pretrain_params",
            "load_jax_opt_state", "load_jax_params", "load_jax_resnet",
            "make_gpt_pretrain_step", "multihead_attn_params_from_jax",
-           "resnet_params_from_jax"]
+           "resnet_params_from_jax", "t5_loss_fn", "t5_params_from_jax",
+           "t5_pretrain_loss"]

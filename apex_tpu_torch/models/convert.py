@@ -1,6 +1,6 @@
-"""Convert the reference's GPT, BERT and ResNet parameters (and their
+"""Convert the reference's GPT, BERT, T5 and ResNet parameters (and their
 optimizer state) into the port's ``GPTModel`` / ``BertModel`` /
-``ResNet`` (and ``FlatOptState``).
+``T5Model`` / ``ResNet`` (and ``FlatOptState``).
 
 The input is the parameter tree of the reference's ``GPTModel``
 (``apex_tpu/models/gpt.py``) or ``BertModel`` (``apex_tpu/models/bert.py``)
@@ -10,6 +10,9 @@ layer layouts are read:
 - ``scan_layers=True``: one ``layers/layer/...`` subtree whose leaves
   carry a leading layer axis;
 - ``scan_layers=False``: one ``layer_{i}/...`` subtree per layer.
+
+T5 has two stacks, ``encoder_layers/layer`` / ``encoder_{i}`` and
+``decoder_layers/layer`` / ``decoder_{i}`` (``t5_params_from_jax``).
 
 No leaf is transposed: the parallel linears keep the reference's
 ``(out, in)`` layout and BERT's pooler, LM-head dense and binary head its
@@ -41,7 +44,9 @@ import torch
 
 from apex_tpu_torch.models.bert import BertConfig, BertModel
 from apex_tpu_torch.models.gpt import GPTConfig, GPTModel
+from apex_tpu_torch.models.migrate import unstack_scan_params
 from apex_tpu_torch.models.resnet import ResNet, ResNetConfig
+from apex_tpu_torch.models.t5 import T5Config, T5Model
 from apex_tpu_torch.optimizers.fused import FlatOptState
 
 # torch name inside one layer -> reference path inside one layer
@@ -112,54 +117,86 @@ def _to_torch(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _params_from_jax(params_np: Mapping, num_layers: int,
-                     top_keys: Mapping[str, str], layer_keys: Mapping[str, str],
-                     family: str) -> Dict[str, torch.Tensor]:
-    tree = params_np.get("params", params_np)
-    flat = _flatten(tree)
-    scanned = any(k.startswith("layers/layer/") for k in flat)
+def _params_from_jax(params_np: Mapping, top_keys: Mapping[str, str],
+                     stacks, family: str) -> Dict[str, torch.Tensor]:
+    """The state dict of one model family: ``top_keys`` (torch name ->
+    reference path) and, for each ``(torch stack, reference stack,
+    n_layers, layer_keys)`` of ``stacks``, layer ``i``'s
+    ``<torch stack>.{i}.<name>`` from ``<reference stack>_{i}/<path>``.
+    A scanned stack is unrolled first (``migrate``), so both layouts are
+    read the same way."""
+    flat = _flatten(unstack_scan_params(dict(params_np.get("params",
+                                                           params_np))))
     wanted: Dict[str, str] = dict(top_keys)
-    if scanned:
-        for name, path in layer_keys.items():
-            wanted[f"layers.*.{name}"] = f"layers/layer/{path}"
-    else:
-        for i in range(num_layers):
-            for name, path in layer_keys.items():
-                wanted[f"layers.{i}.{name}"] = f"layer_{i}/{path}"
+    for stack, ref_stack, n, keys in stacks:
+        for i in range(n):
+            for name, path in keys.items():
+                wanted[f"{stack}.{i}.{name}"] = f"{ref_stack}_{i}/{path}"
     missing = sorted(p for p in wanted.values() if p not in flat)
     extra = sorted(set(flat) - set(wanted.values()))
     if missing or extra:
         raise KeyError(f"reference {family} params do not match the config: "
                        f"missing {missing}, unexpected {extra}")
-    state: Dict[str, torch.Tensor] = {}
-    for name, path in wanted.items():
-        t = _to_torch(flat[path])
-        if "*" in name:
-            if t.shape[0] != num_layers:
-                raise ValueError(
-                    f"{path}: leading layer axis {t.shape[0]}, config has "
-                    f"{num_layers} layers")
-            for i in range(num_layers):
-                state[name.replace("*", str(i))] = t[i]
-        else:
-            state[name] = t
-    return state
+    return {name: _to_torch(flat[path]) for name, path in wanted.items()}
 
 
 def gpt_params_from_jax(params_np: Mapping, config: GPTConfig
                         ) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of a :class:`GPTModel` of ``config`` holding
     the reference's parameters ``params_np`` (CPU tensors)."""
-    return _params_from_jax(params_np, config.num_layers, _TOP_KEYS,
-                            _LAYER_KEYS, "GPT")
+    return _params_from_jax(params_np, _TOP_KEYS, (
+        ("layers", "layer", config.num_layers, _LAYER_KEYS),), "GPT")
 
 
 def bert_params_from_jax(params_np: Mapping, config: BertConfig
                          ) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of a :class:`BertModel` of ``config`` holding
     the reference's parameters ``params_np`` (CPU tensors)."""
-    return _params_from_jax(params_np, config.num_layers,
-                            _bert_top_keys(config), _BERT_LAYER_KEYS, "BERT")
+    return _params_from_jax(params_np, _bert_top_keys(config), (
+        ("layers", "layer", config.num_layers, _BERT_LAYER_KEYS),), "BERT")
+
+
+def _linear_keys(scope: str, names) -> Dict[str, str]:
+    return {f"{scope}.{n}.{leaf}":
+            f"{scope}/{n}/{'kernel' if leaf == 'weight' else 'bias'}"
+            for n in names for leaf in ("weight", "bias")}
+
+
+def _norm_keys(*scopes: str) -> Dict[str, str]:
+    return {f"{n}.{leaf}": f"{n}/{'scale' if leaf == 'weight' else 'bias'}"
+            for n in scopes for leaf in ("weight", "bias")}
+
+
+# T5: torch name inside one layer -> reference path inside one layer
+_T5_ENCODER_KEYS = {
+    **_norm_keys("input_norm", "post_norm"),
+    **_linear_keys("self_attention", ("qkv", "proj")),
+    **_linear_keys("mlp", ("fc1", "fc2")),
+}
+_T5_DECODER_KEYS = {
+    **_T5_ENCODER_KEYS,
+    **_norm_keys("post_attn_norm"),
+    **_linear_keys("inter_attention", ("q", "kv", "proj")),
+}
+_T5_TOP_KEYS = {
+    "embedding.weight": "embedding/embedding",
+    "position_embedding": "position_embedding",
+    **_norm_keys("encoder_norm", "decoder_norm"),
+}
+
+
+def t5_params_from_jax(params_np: Mapping, config: T5Config
+                       ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a :class:`T5Model` of ``config`` holding the
+    reference's parameters ``params_np`` (CPU tensors). Both layouts of
+    each stack are read: ``encoder_layers/layer/...`` with a leading layer
+    axis (``scan_layers=True``) or ``encoder_{i}/...`` (the same for the
+    decoder); the scanned one is unrolled by ``migrate``."""
+    return _params_from_jax(params_np, _T5_TOP_KEYS, (
+        ("encoder_layers", "encoder", config.num_encoder_layers,
+         _T5_ENCODER_KEYS),
+        ("decoder_layers", "decoder", config.num_decoder_layers,
+         _T5_DECODER_KEYS)), "T5")
 
 
 _MHA_DENSE = ("qkv_proj", "q_proj", "k_proj", "v_proj", "kv_proj",
@@ -244,15 +281,19 @@ def load_jax_resnet(model: ResNet, params_np: Mapping,
 def _params_for(config, params_np: Mapping) -> Dict[str, torch.Tensor]:
     if isinstance(config, BertConfig):
         return bert_params_from_jax(params_np, config)
+    if isinstance(config, T5Config):
+        return t5_params_from_jax(params_np, config)
     if isinstance(config, ResNetConfig):
         return resnet_params_from_jax(params_np)
     return gpt_params_from_jax(params_np, config)
 
 
-def load_jax_params(model: Union[GPTModel, BertModel],
-                    params_np: Mapping) -> Union[GPTModel, BertModel]:
-    """Copy the reference's parameters into ``model`` (a GPT or a BERT;
-    strict: every parameter is set, shapes must match) and return it."""
+def load_jax_params(model: Union[GPTModel, BertModel, T5Model],
+                    params_np: Mapping
+                    ) -> Union[GPTModel, BertModel, T5Model]:
+    """Copy the reference's parameters into ``model`` (a GPT, a BERT or a
+    T5; strict: every parameter is set, shapes must match) and return
+    it."""
     state = _params_for(model.config, params_np)
     own = model.state_dict()
     for name, t in state.items():
@@ -264,7 +305,8 @@ def load_jax_params(model: Union[GPTModel, BertModel],
 
 
 def load_jax_opt_state(state: FlatOptState,
-                       config: Union[GPTConfig, BertConfig, ResNetConfig],
+                       config: Union[GPTConfig, BertConfig, ResNetConfig,
+                                     T5Config],
                        opt_state_np: Mapping) -> FlatOptState:
     """Copy the reference's optimizer state into ``state`` (the port's,
     for a :class:`GPTModel`, :class:`BertModel` or :class:`ResNet` of
@@ -326,4 +368,4 @@ def _load_per_leaf(buf: torch.Tensor, state: FlatOptState, config,
 
 __all__ = ["bert_params_from_jax", "gpt_params_from_jax",
            "load_jax_opt_state", "load_jax_params", "load_jax_resnet",
-           "resnet_params_from_jax"]
+           "resnet_params_from_jax", "t5_params_from_jax"]

@@ -25,9 +25,13 @@ the sliding window, an additive bias (each dimension full or broadcast,
 fp32, bf16 or fp16), global ``q_positions``/``kv_positions`` (ring and
 blockwise chunks: the causal and window tests compare positions, and
 tiles are skipped by their position bounds) and attention dropout, with
-bf16, fp16 or fp32 inputs and any head_dim up to 256 in bf16 and fp16, up
-to 128 in fp32 (zero-padded inside the kernels to the next built width,
-:data:`BUILT_WIDTHS`; :func:`check_head_dim` says why wider ones raise).
+bf16, fp16 or fp32 inputs and any head_dim >= 1. Up to 256 in bf16 and
+fp16 and up to 128 in fp32 the wgmma/TMA kernels run (zero-padded inside
+the kernels to the next built width, :data:`BUILT_WIDTHS`); past those
+widths (:func:`wide_route`, by dtype and head_dim alone) the three kernels
+of ``csrc/flash_wide.cu`` run instead: fp32 arithmetic on the CUDA cores
+over D in 64-column chunks, the same feature set, launches counted under
+``flash_fwd_wide``, ``flash_bwd_dq_wide`` and ``flash_bwd_dkv_wide``.
 The bf16 and fp16 forward and backward are the wgmma/TMA designs of
 ``csrc/flash_fwd_sm90.cuh`` and ``csrc/flash_bwd_sm90.cuh``, whose tiles
 TMA copies (a head_dim off :func:`tma_width` is padded with zero columns
@@ -66,16 +70,31 @@ BWD_DQ_KERNEL = "flash_bwd_dq"
 BWD_DKV_KERNEL = "flash_bwd_dkv"
 # the fp32 kernels' split pass (fp32 only: no dtype suffix)
 SPLIT_KERNEL = "flash_split3"
-# head widths the kernels are built for; a narrower head_dim is zero-padded
-# in shared memory to the next one. fp32 stops at 128: its three bf16 part
-# tiles take 96 KB each at 256, so the dk/dv kernel's four would need 384 KB
-# of shared memory against the card's 227 KB.
+# the wide route's kernels (csrc/flash_wide.cu), per-dtype suffixes as above
+WIDE_KERNEL = "flash_fwd_wide"
+WIDE_DQ_KERNEL = "flash_bwd_dq_wide"
+WIDE_DKV_KERNEL = "flash_bwd_dkv_wide"
+# head widths the wgmma kernels are built for; a narrower head_dim is
+# zero-padded in shared memory to the next one. fp32 stops at 128: its three
+# bf16 part tiles take 96 KB each at 256, so the dk/dv kernel's four would
+# need 384 KB of shared memory against the card's 227 KB. Wider heads take
+# the wide route.
 BUILT_WIDTHS = (32, 64, 96, 128, 256)
 MAX_HEAD_DIM = BUILT_WIDTHS[-1]
 FP32_MAX_HEAD_DIM = 128
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _SUFFIX = {torch.bfloat16: "", torch.float16: "_fp16",
            torch.float32: "_fp32"}
+
+
+# the C signatures of the forward entries (`apex_flash_fwd`,
+# `apex_flash_wide_fwd`) and of the backward ones (`apex_flash_bwd`,
+# `apex_flash_wide_bwd`): pointers and the stream as c_void_p
+_P, _I, _L, _U, _F = _build.P, _build.I, _build.L, _build.U, _build.F
+FWD_ARGTYPES = ((_P,) * 8 + (_I, _L, _L, _L, _L) + (_P, _P) + (_I,) * 7
+                + (_F, _I, _I, _I, _U, _U, _F, _P))
+BWD_ARGTYPES = ((_P,) * 12 + (_I, _L, _L, _L, _L) + (_P,) * 3 + (_I,) * 7
+                + (_F, _I, _I, _I, _U, _U, _F, _P))
 
 
 def kernel_name(base: str, dtype: torch.dtype) -> str:
@@ -327,20 +346,20 @@ def _dbias(q, k, v, bias, lse, dout, delta, q_seg, k_seg, scale, causal,
 
 
 def check_head_dim(d: int, dtype: torch.dtype) -> None:
-    """Raise unless the kernels are built for head_dim ``d`` at ``dtype``:
-    1 to 256 in bf16 and fp16, 1 to 128 in fp32."""
-    if dtype == torch.float32 and d > FP32_MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"head_dim {d} in fp32: the fp32 kernels take 1 to "
-            f"{FP32_MAX_HEAD_DIM} (an fp32 tile is three bf16 part tiles, 96 "
-            f"KB each at a width of 256, so the dk/dv kernel's four would "
-            f"need 384 KB of shared memory against the card's 227 KB)")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"head_dim {d}: the kernels take 1 to {MAX_HEAD_DIM} (no wider "
-            f"width is built: a row of 256 is the widest one wgmma product "
-            f"writes, and dq's fp32 accumulator of it already takes half a "
-            f"thread's registers)")
+    """Raise unless head_dim ``d`` is at least 1: every width has a kernel
+    (the wgmma ones to 256 in bf16 and fp16 and to 128 in fp32, the wide
+    route past them)."""
+    if d < 1:
+        raise ValueError(f"head_dim {d}: the kernels take head_dim >= 1")
+
+
+def wide_route(d: int, dtype: torch.dtype) -> bool:
+    """Whether head_dim ``d`` at ``dtype`` runs the wide route
+    (``csrc/flash_wide.cu``): fp32 past 128, bf16 and fp16 past 256 — the
+    widths no wgmma kernel is built for. Decided by width and dtype alone:
+    no call takes this route because another kernel failed."""
+    limit = FP32_MAX_HEAD_DIM if dtype == torch.float32 else MAX_HEAD_DIM
+    return d > limit
 
 
 def tma_width(d: int) -> int:
@@ -351,11 +370,11 @@ def tma_width(d: int) -> int:
 
 
 def kernel_width(d: int, dtype: torch.dtype) -> int:
-    """The head width the kernels of ``dtype`` read, :func:`tma_width`
-    for every dtype: bf16's and fp16's wrappers pad q, k, v (and dO) to it
-    (:func:`pad_head_dim`), fp32's split pass writes its planes at it while
-    the fp32 tensors and outputs keep ``d``."""
-    return tma_width(d)
+    """The head width the kernels of ``dtype`` read: ``d`` itself on the
+    wide route, else :func:`tma_width`: bf16's and fp16's wrappers pad q,
+    k, v (and dO) to it (:func:`pad_head_dim`), fp32's split pass writes its
+    planes at it while the fp32 tensors and outputs keep ``d``."""
+    return d if wide_route(d, dtype) else tma_width(d)
 
 
 def pad_head_dim(tensors, width: int):
@@ -503,6 +522,13 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     extra = _extra_args(q, bias, q_pos, k_pos)
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    if wide_route(d, q.dtype):
+        if planes is not None:
+            raise ValueError("the wide route reads q, k, v themselves, no "
+                             "part planes")
+        return _flash_wide_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg,
+                                    scale, causal, window, rate, seed,
+                                    kernels, extra, glse)
     width = kernel_width(d, q.dtype)
     if q.dtype == torch.float32:
         # the kernels read the bf16 parts, rows padded to TMA's width; the
@@ -522,12 +548,8 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     dq = torch.empty_like(q) if BWD_DQ_KERNEL in kernels else None
     dk, dv = ((torch.empty_like(k), torch.empty_like(v))
               if BWD_DKV_KERNEL in kernels else (None, None))
-    P, I, L, U, F = _build.P, _build.I, _build.L, _build.U, _build.F
-    lib = _build.library(
-        "flash_bwd" + _SUFFIX[q.dtype], "apex_flash_bwd",
-        (P,) * 12 + (I, L, L, L, L) + (P,) * 3 + (I,) * 7
-        + (F, I, I, I, U, U, F, P),
-        "apex_flash_bwd_error_string")
+    lib = _build.library("flash_bwd" + _SUFFIX[q.dtype], "apex_flash_bwd",
+                         BWD_ARGTYPES, "apex_flash_bwd_error_string")
     segs = (None if q_seg is None else q_seg.data_ptr(),
             None if k_seg is None else k_seg.data_ptr())
     gl = None if glse is None else glse.data_ptr()
@@ -557,6 +579,83 @@ def _flash_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
     return dq, dk, dv
 
 
+def _wide_library() -> ctypes.CDLL:
+    """The wide route's library (``csrc/flash_wide.cu``, every dtype):
+    its two C entries take the arguments of ``apex_flash_fwd`` and
+    ``apex_flash_bwd``."""
+    _build.library("flash_wide", "apex_flash_wide_fwd", FWD_ARGTYPES,
+                   "apex_flash_wide_error_string")
+    return _build.library("flash_wide", "apex_flash_wide_bwd", BWD_ARGTYPES,
+                          "apex_flash_wide_error_string")
+
+
+def _flash_wide_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate,
+                     seed, extra):
+    """The wide route's forward (``flash_wide_fwd``): ``(out, lse)`` at
+    q's own head_dim, no padding."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    dev = q.device
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    lib = _wide_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.apex_flash_wide_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if q_seg is None else q_seg.data_ptr(),
+            None if k_seg is None else k_seg.data_ptr(), *extra,
+            out.data_ptr(), lse.data_ptr(), b, h, hk, sq, sk, d,
+            DTYPE_CODES[q.dtype], float(scale), int(causal),
+            0 if window is None else int(window),
+            *_dropout_args(rate, seed), stream)
+    if err:
+        raise RuntimeError(
+            f"{WIDE_KERNEL}: CUDA error {err} at launch: "
+            f"{lib.apex_flash_wide_error_string(err).decode()}")
+    _build.count_launch(kernel_name(WIDE_KERNEL, q.dtype))
+    return out, lse
+
+
+def _flash_wide_bwd_cuda(q, k, v, lse, dout, delta, q_seg, k_seg, scale,
+                         causal, window, rate, seed, kernels, extra, glse):
+    """The wide route's dq and dk/dv kernels (``flash_wide_dq``,
+    ``flash_wide_dkv``): ``kernels`` names them as for
+    :func:`_flash_bwd_cuda` (``BWD_DQ_KERNEL``, ``BWD_DKV_KERNEL``); each
+    launch counts under its wide name."""
+    b, h, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    dev = q.device
+    dq = torch.empty_like(q) if BWD_DQ_KERNEL in kernels else None
+    dk, dv = ((torch.empty_like(k), torch.empty_like(v))
+              if BWD_DKV_KERNEL in kernels else (None, None))
+    lib = _wide_library()
+    segs = (None if q_seg is None else q_seg.data_ptr(),
+            None if k_seg is None else k_seg.data_ptr())
+    gl = None if glse is None else glse.data_ptr()
+    drop = _dropout_args(rate, seed)
+    launches = ((BWD_DQ_KERNEL, WIDE_DQ_KERNEL, (dq, None, None)),
+                (BWD_DKV_KERNEL, WIDE_DKV_KERNEL, (None, dk, dv)))
+    for kernel, counter, outs in launches:
+        if kernel not in kernels:
+            continue
+        outs = [None if t is None else t.data_ptr() for t in outs]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.apex_flash_wide_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), *segs, *extra[:2], gl,
+                *extra[2:], *outs, b, h, hk, sq, sk, d,
+                DTYPE_CODES[q.dtype], float(scale), int(causal),
+                0 if window is None else int(window), *drop, stream)
+        if err:
+            raise RuntimeError(
+                f"{counter}: CUDA error {err} at launch: "
+                f"{lib.apex_flash_wide_error_string(err).decode()}")
+        _build.count_launch(kernel_name(counter, q.dtype))
+    return dq, dk, dv
+
+
 class _FlashFn(torch.autograd.Function):
     """The reference's ``custom_vjp`` around flash attention: the
     kernels on CUDA tensors, the plain versions on CPU tensors. With
@@ -570,7 +669,8 @@ class _FlashFn(torch.autograd.Function):
                 causal, window, rate, seed, kernel, with_lse):
         ctx.planes = None
         if kernel:
-            if q.dtype == torch.float32:
+            if q.dtype == torch.float32 and not wide_route(q.shape[-1],
+                                                             q.dtype):
                 # q, k and v split once: the forward's planes are the
                 # backward's too
                 ctx.planes = _split3_cuda((q, k, v), tma_width(q.shape[-1]))
@@ -618,12 +718,8 @@ def _library(dtype: torch.dtype) -> ctypes.CDLL:
     """The forward's library for ``dtype``: one a dtype
     (``csrc/flash_fwd.cu``, ``flash_fwd_fp16.cu``, ``flash_fwd_fp32.cu``),
     built in parallel."""
-    P, I, L, U, F = _build.P, _build.I, _build.L, _build.U, _build.F
-    return _build.library(
-        "flash_fwd" + _SUFFIX[dtype], "apex_flash_fwd",
-        (P,) * 8 + (I, L, L, L, L) + (P, P) + (I,) * 7
-        + (F, I, I, I, U, U, F, P),
-        "apex_flash_error_string")
+    return _build.library("flash_fwd" + _SUFFIX[dtype], "apex_flash_fwd",
+                          FWD_ARGTYPES, "apex_flash_error_string")
 
 
 def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
@@ -641,6 +737,12 @@ def _flash_cuda(q, k, v, q_seg, k_seg, scale, causal, window, rate=0.0,
     b, h, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     dev = q.device
+    if wide_route(d, q.dtype):
+        if planes is not None:
+            raise ValueError("the wide route reads q, k, v themselves, no "
+                             "part planes")
+        return _flash_wide_cuda(q, k, v, q_seg, k_seg, scale, causal, window,
+                                rate, seed, extra)
     width = kernel_width(d, q.dtype)
     if q.dtype == torch.float32:
         if planes is None:
@@ -814,4 +916,4 @@ def attention_plain(q, k, v, **kw):
 
 
 __all__ = ["NEG_INF", "attention_plain", "dropout_seed", "flash_attention",
-           "kernel_name"]
+           "kernel_name", "wide_route"]

@@ -73,6 +73,16 @@ def _logsumexp_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.from_numpy(lse.astype(np.float32))
 
 
+def logsumexp_diff(x: torch.Tensor) -> torch.Tensor:
+    """Differentiable logsumexp over the last dim, with logsumexp's own
+    gradient; on the CPU in fp32 its value is ``_logsumexp_rn``'s."""
+    lse = torch.logsumexp(x, dim=-1)
+    if x.device.type != "cpu" or x.dtype != torch.float32:
+        return lse
+    rn = _logsumexp_rn(x.detach().reshape(-1, x.shape[-1]))
+    return lse + (rn.reshape(lse.shape) - lse).detach()
+
+
 def _exp_rn(x: torch.Tensor) -> torch.Tensor:
     """fp32 exp, correctly rounded on the CPU (see above)."""
     if x.device.type != "cpu":

@@ -300,7 +300,37 @@ Phases, in order; any failure exits non-zero before the last line:
    the library yardstick of dq and dk/dv, is timed as device time (its
    forward and backward captured in a CUDA graph, less the forward
    alone) with its host reading beside it.
-15. Each phase's wall seconds, the ``kernels`` JSON line (all fifty-seven
+   (g) The wide route (``csrc/flash_wide.cu``: fp32 past head_dim 128,
+   bf16 and fp16 past 256): first its path, seven cases through
+   ``flash_attention`` with autograd (forward, lse and backward) with the
+   launch counts set to 0 just before and read just after (each wide
+   kernel once a case of its dtype, no other flash kernel); then each case
+   (fp32 d 160 causal with GQA and packed segments, d 256 with a ring
+   chunk's positions and the lse cotangent, d 256 key-side segments with
+   sq 128 over sk 512; bf16 d 320 key-side segments, d 512 with dropout
+   0.1; fp16 d 320 with a key-padding bias, d 512 causal with GQA and
+   segments) against the plain versions, repeated calls bitwise, rows with
+   no live key exactly 0, each kernel's device ms beside its bound, the
+   plain version's and SDPA's where SDPA runs the shape.
+15. T5-base pretraining (``T5Config()``: vocab 32128, hidden 768, 12
+   encoder and 12 decoder layers, 12 heads of 64, ffn 3072, bf16 compute,
+   fp32 parameters, random weights from the seed) through
+   ``PretrainStep(model, FusedAdam(lr=1e-4, weight_decay=0.01),
+   loss_fn=t5_pretrain_loss)`` on Megatron-LM's ``pretrain_t5.sh`` shapes,
+   16 sequences of 512 encoder and 128 decoder tokens (keep-lengths and
+   loss masks from the seed), on the softmax backend (the masked softmax
+   over the encoder's outer-product mask and the (b, 1, 128, 512) cross
+   mask, the causal one in the decoder) and on the flash backend (the
+   keep-mask as segment ids, key-side segments with sq 128 over sk 512 in
+   cross attention) from the same weights: at batch 2 the kernel path's
+   loss and every gradient against the plain path (BERT_LOSS_TOL,
+   BERT_GRAD_REL_TOL) and the two backends' logits against each other;
+   ten steps each with the exact launches a step (LayerNorm 62 forward
+   and backward, 24 masked and 12 causal softmaxes and 36 backward, or 36
+   of each flash kernel, Adam 1) and no other kernel, losses finite and
+   falling, step time (median of steps 3-10), tokens/s, peak memory and
+   one profiled step's busy share and device time by kernel.
+16. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
    kernels and variants, each with its launches on its path), then the
    device line the caller reads.
 
@@ -314,6 +344,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -337,12 +368,16 @@ from apex_tpu_torch.models import (
     PretrainStep,
     ResNet,
     ResNetConfig,
+    T5Config,
+    T5Model,
     bert_extended_attention_mask,
     bert_loss_fn,
     cross_entropy_logits,
     gpt_loss_fn,
     init_gpt_pretrain_params,
     make_gpt_pretrain_step,
+    t5_loss_fn,
+    t5_pretrain_loss,
 )
 from apex_tpu_torch.amp import LossScaler
 from apex_tpu_torch.multi_tensor import (
@@ -5584,40 +5619,81 @@ def _rate(dtype) -> float:
         PEAK_BF16_TENSOR_FLOPS
 
 
-def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
-                     causal=True, written=None, bias_shape=None,
-                     dropout=False, positions=None) -> dict:
-    """The flash forward, dq and dk/dv kernels at ``dtype`` against their
-    plain versions on one case: the output per row and each gradient
-    within FLASH_DTYPE_TOLS, then each kernel's device ms, its bound, the
-    plain version's ms and SDPA's (forward; backward by autograd) at the
-    same dtype. Returns ``{"fwd": row, "dq": row, "dkv": row}``."""
+def _flash_inputs(gen, dev, dtype, b, h, hk, sq, sk, d, *, causal=True,
+                  written=None, bias_shape=None, dropout=False,
+                  positions=None, segments=None, glse=False):
+    """q, k, v, dO, the ``flash_attention`` keywords and the lse cotangent
+    (None without ``glse``) of one flash case. ``written``: the serving
+    decode's key-side segments (keys past each row's written length in
+    segment 1); ``segments``: "packed" (segment ids on both sides, a
+    boundary every quarter, shifted per batch row), "padded" (key-side
+    only, keep-lengths from ``gen``) or ``(segment_ids,
+    kv_segment_ids)``; ``positions``: (q positions, kv positions), as
+    tensors or as the first position of each."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen).to(dev, dtype)
     q, k, v, do = rnd(b, h, sq, d), rnd(b, hk, sk, d), rnd(b, hk, sk, d), \
         rnd(b, h, sq, d)
     kw = {"causal": causal}
-    kv_seg = None
     if written is not None:
         L = sk - sq
         ctx = torch.arange(L)[None, :] >= torch.tensor(written)[:, None]
-        kv_seg = torch.cat([ctx.int(), torch.zeros(b, sq, dtype=torch.int32)],
-                           dim=1).to(dev)
-        kw["kv_segment_ids"] = kv_seg
-    bias = None
+        kw["kv_segment_ids"] = torch.cat(
+            [ctx.int(), torch.zeros(b, sq, dtype=torch.int32)], dim=1).to(dev)
+    if segments == "packed":
+        pos = torch.arange(sq)[None, :] + 97 * torch.arange(b)[:, None]
+        kw["segment_ids"] = (pos // (sq // 4)).int().to(dev)
+    elif segments == "padded":
+        lens = torch.randint(sk // 4, sk + 1, (b,), generator=gen)
+        kw["kv_segment_ids"] = (torch.arange(sk)[None, :]
+                                >= lens[:, None]).int().to(dev)
+    elif segments is not None:
+        for key, seg in zip(("segment_ids", "kv_segment_ids"), segments):
+            if seg is not None:
+                kw[key] = seg
     if bias_shape is not None:
-        bias = torch.where(torch.rand(*bias_shape, generator=gen) < 0.25,
-                           -10000.0, 0.0).to(dev, dtype)
-        kw["bias"] = bias
+        kw["bias"] = torch.where(torch.rand(*bias_shape, generator=gen)
+                                 < 0.25, -10000.0, 0.0).to(dev, dtype)
     if dropout:
         kw.update(dropout_rate=DROP_RATE, dropout_rng=DROPOUT_KEY)
     if positions is not None:
-        kw.update(q_positions=positions[0], kv_positions=positions[1])
+        qp, kp = positions
+        if isinstance(qp, int):
+            qp = torch.arange(qp, qp + sq, device=dev)
+            kp = torch.arange(kp, kp + sk, device=dev)
+        kw.update(q_positions=qp, kv_positions=kp)
+    glse_t = torch.randn(b, h, sq, generator=gen).to(dev) if glse else None
+    return q, k, v, do, kw, glse_t
+
+
+def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d,
+                     **opts) -> dict:
+    """The flash forward, dq and dk/dv kernels at ``dtype`` against their
+    plain versions on one case (``_flash_inputs``'s options; the backward
+    from the kernel's lse, with the lse cotangent where the case has
+    one): the output per row and each gradient within FLASH_DTYPE_TOLS,
+    repeated calls bitwise, rows with no live key exactly 0; then each
+    kernel's device ms, its bound, the plain version's ms and SDPA's
+    (forward; backward by autograd) at the same dtype, by device time,
+    where SDPA runs the shape. A width of the wide route (``attention.
+    wide_route``) runs its kernels. Returns ``{"fwd": row, "dq": row,
+    "dkv": row}``."""
+    q, k, v, do, kw, glse = _flash_inputs(gen, dev, dtype, b, h, hk, sq, sk,
+                                          d, **opts)
+    causal = kw["causal"]
+    wide = attention.wide_route(d, dtype)
+    names = ((attention.WIDE_KERNEL, attention.WIDE_DQ_KERNEL,
+              attention.WIDE_DKV_KERNEL) if wide else
+             (attention.KERNEL, attention.BWD_DQ_KERNEL,
+              attention.BWD_DKV_KERNEL))
+    # the wide kernels run for tens of ms at these shapes: fewer repeats
+    reps = dict(iters=3, replays=2) if wide else {}
+    bias, seg, kv_seg = (kw.get(k_) for k_ in ("bias", "segment_ids",
+                                               "kv_segment_ids"))
+    rate = kw.get("dropout_rate", 0.0)
     scale, q_seg, k_seg, seed, q_pos, k_pos = attention._prepare(
-        q, k, v, bias, None, kw.get("kv_segment_ids"), causal, None, None,
-        DROP_RATE if dropout else 0.0, kw.get("dropout_rng"),
-        kw.get("q_positions"), kw.get("kv_positions"))
-    rate = DROP_RATE if dropout else 0.0
+        q, k, v, bias, seg, kv_seg, causal, None, None, rate,
+        kw.get("dropout_rng"), kw.get("q_positions"), kw.get("kv_positions"))
     ex = dict(bias=bias, q_pos=q_pos, k_pos=k_pos)
     fwd = lambda: attention._flash_cuda(  # noqa: E731
         q, k, v, q_seg, k_seg, scale, causal, None, rate, seed, **ex)
@@ -5628,12 +5704,14 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
     delta = (out.float() * do.float()).sum(-1)
     args = (q, k, v, lse, do, delta, q_seg, k_seg, scale, causal, None, rate,
             seed)
-    grads = attention._flash_bwd_cuda(*args, **ex)
-    pgrads = attention._flash_bwd_torch(*args, **ex)
+    bex = dict(ex, glse=glse)
+    grads = attention._flash_bwd_cuda(*args, **bex)
+    pgrads = attention._flash_bwd_torch(*args, **bex)
     torch.cuda.synchronize()
-    check_repeat(f"flash_fwd {name}", fwd, (out, lse))
-    check_repeat(f"flash {name}", lambda: attention._flash_bwd_cuda(
-        *args, **ex), grads)
+    check_repeat(f"{attention.kernel_name(names[0], dtype)} {name}", fwd,
+                 (out, lse))
+    check_repeat(f"flash backward {name}", lambda: attention._flash_bwd_cuda(
+        *args, **bex), grads)
     tol = FLASH_DTYPE_TOLS[dtype]
     # bf16 and fp16 per output row (their roundings are the row's); fp32
     # against the output's largest |value| (FLASH32_REL_TOL)
@@ -5650,19 +5728,30 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
                             .max()),
                 "dkv": max(float((a.float() - e.float()).abs().max())
                            for a, e in zip(grads[1:], pgrads[1:]))}
+    dead = plse <= attention.NEG_INF * 0.5
+    dead_zero = (not bool(dead.any())) or (
+        not bool(out[dead].float().abs().any())
+        and bool((lse[dead] == attention.NEG_INF).all())
+        and not bool(grads[0][dead].float().abs().any()))
     finite = all(bool(torch.isfinite(t.float()).all())
                  for t in (out, *grads))
     dname = str(dtype)[6:]
     shape = (f"b={b} h={h} hk={hk} sq={sq} sk={sk} d={d} {dname} causal="
-             f"{causal}" + (" segments" if written is not None else "")
-             + (f" bias {tuple(bias_shape)}" if bias_shape else "")
-             + (f" dropout {DROP_RATE}" if dropout else "")
-             + (" positions" if positions is not None else ""))
+             f"{causal}"
+             + (" segments" if seg is not None else
+                " key-side segments" if kv_seg is not None else "")
+             + (f" bias {tuple(bias.shape)}" if bias is not None else "")
+             + (f" dropout {DROP_RATE}" if rate else "")
+             + (" positions" if q_pos is not None else "")
+             + (" glse" if glse is not None else ""))
     print(f"  flash {dname}[{name}] {shape}: out rel_err={out_err:.3e} "
           f"lse_err={lse_err:.3e} " + " ".join(
               f"{n_}={e_:.3e}" for n_, e_ in g_errs.items())
-          + f" (tol {tol}, lse {FLASH_LSE_TOL})")
+          + f" (tol {tol}, lse {FLASH_LSE_TOL}); {int(dead.sum())} rows "
+          "with no live key")
     check(finite, f"flash {dname}[{name}]: non-finite output or gradient")
+    check(dead_zero, f"flash {dname}[{name}]: a row with no live key is "
+          "not exactly 0")
     check(out_err <= tol and lse_err <= FLASH_LSE_TOL
           and max(g_errs.values()) <= tol,
           f"flash {dname}[{name}] kernels disagree with their plain versions")
@@ -5670,30 +5759,35 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
     plain_fwd = device_ms(lambda: attention._attention_torch(
         q, k, v, bias, q_seg, k_seg, scale, causal, None, rate, seed,
         return_lse=True, q_pos=q_pos, k_pos=k_pos), iters=2, replays=2)
-    plain_bwd = device_ms(lambda: attention._flash_bwd_torch(*args, **ex),
+    plain_bwd = device_ms(lambda: attention._flash_bwd_torch(*args, **bex),
                           iters=2, replays=2)
-    # the library's attention at the same dtype, forward and backward
-    live = _allowed(b, sq, sk, causal, kv_seg, dev)
-    if positions is not None:
-        live = (positions[1][None, None, :].long()
-                <= positions[0][None, :, None].long()).expand(b, sq, sk)
+    # the live (query, key) pairs: the work the kernels' bound counts
+    live = (attention._mask_full(sq, sk, causal, None, q_pos, k_pos, dev)
+            == 0)[None].expand(b, sq, sk)
+    if q_seg is not None:
+        live = live & (q_seg[:, :, None] == k_seg[:, None, :])
+    pairs = int(live.sum()) * h
+    # the library's attention at the same dtype, forward and backward: a
+    # float mask for the bias, a boolean one for segments, positions and
+    # sq != sk, is_causal where causal is the only mask
     mask = None
     if bias is not None:
         mask = bias.expand(b, h, sq, sk)
-    elif written is not None or positions is not None or sq != sk:
+    elif q_seg is not None or q_pos is not None or sq != sk:
         mask = live[:, None]
     sdpa_kw = dict(attn_mask=mask, dropout_p=rate, enable_gqa=hk != h,
                    is_causal=causal and mask is None)
     sdpa_fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, **sdpa_kw)
-    lib_fwd = _library_ms(f"SDPA {dname}", sdpa_fwd)
-    lib_fwd_dev = device_ms(sdpa_fwd)
-    lib_bwd, lib_bwd_host = sdpa_bwd_ms(f"SDPA backward {dname}", q, k, v,
-                                        do, **sdpa_kw)
-    pairs = int(live.sum()) * h
+    lib_fwd_host = _library_ms(f"SDPA {dname} d{d}", sdpa_fwd)
+    lib_fwd, lib_bwd, lib_bwd_host = None, None, None
+    if lib_fwd_host is not None:
+        lib_fwd = device_ms(sdpa_fwd, **reps)
+        lib_bwd, lib_bwd_host = sdpa_bwd_ms(f"SDPA backward {dname} d{d}",
+                                            q, k, v, do, **sdpa_kw)
     rows = {}
-    split_ms, fsplit_ms, bex, fwd_k = None, None, ex, fwd
-    if dtype == torch.float32:
+    split_ms, fsplit_ms, bex_k, fwd_k = None, None, bex, fwd
+    if dtype == torch.float32 and not wide:
         # fp32's kernels read the split pass's planes: the split timed
         # apart (q, k, v for the forward; q, k, v, dO for the backward
         # pair), the kernels on planes made once
@@ -5702,34 +5796,33 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
                                                             width))
         fsplit_ms = device_ms(lambda: attention._split3_cuda((q, k, v),
                                                              width))
-        bex = dict(ex, planes=attention._split3_cuda((q, k, v, do), width))
-        fex = dict(ex, planes=bex["planes"][:3])
+        bex_k = dict(bex, planes=attention._split3_cuda((q, k, v, do),
+                                                        width))
+        fex = dict(ex, planes=bex_k["planes"][:3])
         fwd_k = lambda: attention._flash_cuda(  # noqa: E731
             q, k, v, q_seg, k_seg, scale, causal, None, rate, seed, **fex)
         check_repeat(f"flash_fwd {name} on given planes", fwd_k, (out, lse))
-    for key, kname, kernel, n_prod, outs, pms, lms in (
-            ("fwd", attention.KERNEL, fwd_k, 2, (out, lse), plain_fwd,
-             lib_fwd),
-            ("dq", attention.BWD_DQ_KERNEL, lambda: attention._flash_bwd_cuda(
-                *args, kernels=(attention.BWD_DQ_KERNEL,), **bex), 3,
-             grads[:1], plain_bwd, lib_bwd),
-            ("dkv", attention.BWD_DKV_KERNEL,
-             lambda: attention._flash_bwd_cuda(
-                 *args, kernels=(attention.BWD_DKV_KERNEL,), **bex), 4,
-             grads[1:], plain_bwd, lib_bwd)):
-        ms = device_ms(kernel)
-        ins = (q, k, v) if key == "fwd" else (q, k, v, do, lse, delta)
-        b_ms, by = bound(nbytes(*ins, *outs, bias, kv_seg),
+    for key, kname, kernel, n_prod, outs, pms, lms, lhost in (
+            ("fwd", names[0], fwd_k, 2, (out, lse), plain_fwd, lib_fwd,
+             lib_fwd_host),
+            ("dq", names[1], lambda: attention._flash_bwd_cuda(
+                *args, kernels=(attention.BWD_DQ_KERNEL,), **bex_k), 3,
+             grads[:1], plain_bwd, lib_bwd, lib_bwd_host),
+            ("dkv", names[2], lambda: attention._flash_bwd_cuda(
+                *args, kernels=(attention.BWD_DKV_KERNEL,), **bex_k), 4,
+             grads[1:], plain_bwd, lib_bwd, lib_bwd_host)):
+        ms = device_ms(kernel, **reps)
+        ins = (q, k, v) if key == "fwd" else (q, k, v, do, lse, delta, glse)
+        b_ms, by = bound(nbytes(*ins, *outs, bias, seg, kv_seg),
                          2 * d * n_prod * pairs, _rate(dtype))
         print(f"    {attention.kernel_name(kname, dtype)}: ms={ms:.5f} "
-              f"bound_ms={b_ms:.5f} ({by}) plain_ms={pms:.5f} "
-              f"library_ms={lms if lms is None else round(lms, 5)}"
-              + (f" (SDPA by device time {lib_fwd_dev:.5f})" if key == "fwd"
-                 else " (plain and library: both backward kernels' work)"))
+              f"bound_ms={b_ms:.5f} ({by}, {100 * b_ms / ms:.1f}% of it) "
+              f"plain_ms={pms:.5f} library_ms={_ms(lms)} (SDPA by device "
+              "time" + (")" if key == "fwd" else
+                        "; plain and library: both backward kernels' work)"))
         rows[key] = {"case": name, "ms": ms, "bound_ms": b_ms,
                      "bound_by": by, "plain_ms": pms, "library_ms": lms,
-                     **({"library_device_ms": lib_fwd_dev} if key == "fwd"
-                        else {"library_host_ms": lib_bwd_host}),
+                     "library_host_ms": lhost,
                      **({"split_ms": split_ms} if key == "dq" and split_ms
                         is not None else {}),
                      **({"split_ms": fsplit_ms, "with_split_ms": ms
@@ -5739,16 +5832,16 @@ def flash_dtype_case(name, gen, dev, dtype, b, h, hk, sq, sk, d, *,
                      "rel_err": out_err if key == "fwd" else max(
                          g_errs[x_] for x_ in (("dq",) if key == "dq"
                                                else ("dk", "dv"))),
-                     "shape": shape}
+                     "live_pairs": pairs, "shape": shape}
     if split_ms is not None:
         print(f"    {attention.SPLIT_KERNEL} (q, k, v into bf16 parts, one "
               f"launch): ms={fsplit_ms:.5f}; forward + split "
               f"{rows['fwd']['with_split_ms']:.5f} against SDPA's forward "
-              f"{lib_fwd_dev:.5f} (device)")
+              f"{_ms(lib_fwd)} (device)")
         print(f"    {attention.SPLIT_KERNEL} (q, k, v, dO into bf16 parts, "
               f"one launch): ms={split_ms:.5f}; dq + dk/dv + split "
               f"{rows['dq']['ms'] + rows['dkv']['ms'] + split_ms:.5f} against "
-              f"SDPA's backward {lib_bwd:.5f} (device)")
+              f"SDPA's backward {_ms(lib_bwd)} (device)")
     del out, lse, grads
     return rows
 
@@ -5896,7 +5989,7 @@ def flash_report_cases(gen, dev) -> dict:
               f"{n} {r['fwd']['ms']:.4f}"
               + (f" (+ split {r['fwd']['with_split_ms']:.4f})"
                  if "with_split_ms" in r["fwd"] else "")
-              + f" vs {r['fwd']['library_device_ms']:.4f}"
+              + f" vs {_ms(r['fwd']['library_ms'])}"
               f", bound {r['fwd']['bound_ms']:.4f}" for n, r in out.items()))
     print("  flash backward per call (dq + dk/dv, device ms) against SDPA's "
           "backward (device ms) and the bound: " + "; ".join(
@@ -6377,6 +6470,407 @@ def fp16_softmax_dispatch(seed: int, dev) -> dict:
     return {"launches": launches, "steps": 1}
 
 
+# -- phase 14g: the wide route (csrc/flash_wide.cu) ---------------------------
+
+# the widths no wgmma kernel is built for (fp32 past 128, 16-bit past 256)
+# at training-like shapes, each with options of the flash kernels: name,
+# dtype, (b, h, hk, sq, sk, d), ``_flash_inputs``'s options
+WIDE_REPORT = (
+    ("fp32_d160_causal_gqa_segments", torch.float32,
+     (4, 16, 8, 1024, 1024, 160), dict(segments="packed")),
+    ("fp32_d256_positions_glse", torch.float32, (1, 16, 16, 1024, 2048, 256),
+     dict(positions=(2048, 0), glse=True)),
+    ("fp32_d256_key_segments", torch.float32, (8, 12, 12, 128, 512, 256),
+     dict(causal=False, segments="padded")),
+    ("bf16_d320_key_segments", torch.bfloat16, (8, 8, 8, 128, 512, 320),
+     dict(causal=False, segments="padded")),
+    ("bf16_d512_dropout", torch.bfloat16, (2, 8, 8, 1024, 1024, 512),
+     dict(dropout=True)),
+    ("fp16_d320_bias", torch.float16, (4, 8, 8, 512, 512, 320),
+     dict(causal=False, bias_shape=(4, 1, 1, 512))),
+    ("fp16_d512_causal_gqa_segments", torch.float16,
+     (2, 16, 4, 1024, 1024, 512), dict(segments="packed")),
+)
+WIDE_KERNELS = (attention.WIDE_KERNEL, attention.WIDE_DQ_KERNEL,
+                attention.WIDE_DKV_KERNEL)
+
+
+def wide_cases(seed: int, dev) -> dict:
+    """Phase 14g: first the wide route's path, every WIDE_REPORT case once
+    through ``flash_attention`` with autograd (forward and backward, the
+    lse returned and differentiated), the launch counts set to 0 just
+    before and read just after: each wide kernel once a case of its dtype
+    and no other flash kernel. Then each case against the plain versions,
+    with its times (``flash_dtype_case``). Returns the nine kernel rows
+    (three kernels, three dtypes) and the path's launches."""
+    gen = torch.Generator().manual_seed(seed + 19)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    for name, dtype, shape, opts in WIDE_REPORT:
+        q, k, v, do, kw, glse = _flash_inputs(gen, dev, dtype, *shape,
+                                              **opts)
+        for t in (q, k, v):
+            t.requires_grad_()
+        out, lse = attention.flash_attention(q, k, v, return_lse=True, **kw)
+        torch.autograd.backward(
+            [out, lse], [do, torch.zeros_like(lse) if glse is None else glse])
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t.grad.float()).all())
+                  for t in (q, k, v)), f"wide path [{name}]: non-finite "
+              "gradient")
+        del q, k, v, do, out, lse
+    launches = _build.launch_counts()
+    print(f"  wide path (flash_attention forward and backward, "
+          f"{len(WIDE_REPORT)} cases): launches {launches}")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        n = sum(1 for c in WIDE_REPORT if c[1] == dtype)
+        for base in WIDE_KERNELS:
+            name = attention.kernel_name(base, dtype)
+            check(launches.get(name, 0) == n, f"{name} launched "
+                  f"{launches.get(name, 0)} times on the wide path, not {n}")
+    others = {k_: n_ for k_, n_ in launches.items() if k_.startswith("flash")
+              and not any(k_.startswith(w_) for w_ in WIDE_KERNELS)}
+    check(not others, f"the wide path launched other flash kernels: {others}")
+    gen = torch.Generator().manual_seed(seed + 19)
+    cases = {}
+    with torch.no_grad():
+        for name, dtype, shape, opts in WIDE_REPORT:
+            check(attention.wide_route(shape[-1], dtype),
+                  f"wide[{name}]: not a wide width")
+            cases[name] = (dtype, flash_dtype_case(name, gen, dev, dtype,
+                                                   *shape, **opts))
+            torch.cuda.empty_cache()
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for key, base, line in (("fwd", attention.WIDE_KERNEL, 182),
+                                ("dq", attention.WIDE_DQ_KERNEL, 402),
+                                ("dkv", attention.WIDE_DKV_KERNEL, 470)):
+            crows = [c_[key] for dt_, c_ in cases.values() if dt_ == dtype]
+            top = {k_: v_ for k_, v_ in crows[0].items() if k_ != "case"}
+            rows.append({"name": attention.kernel_name(base, dtype),
+                         "route": "cuda",
+                         "source": "apex_tpu_torch/csrc/flash_wide.cu",
+                         "replaces": f"apex_tpu/ops/attention.py:{line}",
+                         **top, "max_abs_err": max(
+                             c_["max_abs_err"] for c_ in crows),
+                         "cases": crows})
+    return {"rows": rows, "launches": launches, "steps": 1}
+
+
+# -- phase 15: T5-base pretraining --------------------------------------------
+
+# Megatron-LM's examples/pretrain_t5.sh: 512 encoder and 128 decoder tokens
+# a sequence; 16 sequences a step on one card
+T5_BATCH, T5_ENC, T5_DEC = 16, 512, 128
+T5_STEPS = 10
+T5_LR = 1e-4
+T5_SHARES = {"layer_norm": ("ln_",),
+             "softmax": ("softmax_fwd", "softmax_bwd"),
+             "flash": ("flash_",), "optimizer": ("adam_kernel",),
+             "gemm": ("gemm", "nvjet", "xmma", "cutlass")}
+
+
+def t5_batch(seed: int, dev, vocab: int, b: int = T5_BATCH):
+    """One T5 batch from the seed: encoder tokens (0 on the padding) and
+    their keep-mask (keep-lengths from 1/4 to all of 512, the first row
+    full), decoder inputs and labels (a sequence shifted by one), and a
+    loss mask over each row's first 64-128 decoder tokens."""
+    rng = np.random.RandomState(seed + 5)
+    lens = rng.randint(T5_ENC // 4, T5_ENC + 1, b)
+    lens[0] = T5_ENC
+    keep = np.arange(T5_ENC)[None, :] < lens[:, None]
+    enc = np.where(keep, rng.randint(1, vocab, (b, T5_ENC)), 0)
+    dec = rng.randint(1, vocab, (b, T5_DEC + 1))
+    dec_lens = rng.randint(T5_DEC // 2, T5_DEC + 1, b)
+    loss_mask = np.arange(T5_DEC)[None, :] < dec_lens[:, None]
+    return tuple(torch.as_tensor(a).to(dev, dt) for a, dt in (
+        (enc, torch.long), (keep, torch.int32), (dec[:, :-1], torch.long),
+        (dec[:, 1:], torch.long), (loss_mask, torch.float32)))
+
+
+def t5_launches_per_step(cfg: T5Config, backend: str) -> dict:
+    """The exact launches of each kernel in one T5 step, from the layer
+    counts: LayerNorm 2 an encoder layer, 3 a decoder layer and the two
+    final ones, forward and backward; softmax: the masked forward in every
+    encoder self attention and every cross attention, the causal forward in
+    every decoder self attention, the shared backward after each; flash:
+    forward, dq and dk/dv once an attention; Adam once."""
+    enc, dec = cfg.num_encoder_layers, cfg.num_decoder_layers
+    norms = 2 * enc + 3 * dec + 2
+    want = {layer_norm.KERNEL: norms, layer_norm.BWD_KERNEL: norms,
+            mt_ops.ADAM_KERNEL: 1}
+    if backend == "softmax":
+        want.update({softmax.MASKED_KERNEL: enc + dec,
+                     softmax.CAUSAL_KERNEL: dec,
+                     softmax.BWD_KERNEL: enc + 2 * dec})
+    else:
+        want.update({k_: enc + 2 * dec for k_ in FLASH_KERNELS})
+    return want
+
+
+# T5 at batch 2, kernels against plain versions. Each bf16 gradient is
+# held to the bf16 plain path's within BERT_GRAD_REL_TOL where the plain
+# path's own distance from the fp32 plain gradient is at most
+# T5_WELL_POSED. On the flash backend the cross attention's query side
+# (its q projection and the LayerNorm before it, 48 leaves) is not: there
+# the plain bf16 path itself is 10-35% from fp32 at these random weights.
+# Its gradient is a near-cancelling sum over 512 keys, probably one whose
+# common part the flash backward no longer cancels in bf16: its delta
+# comes from the bf16-rounded output while P is recomputed in fp32 (the
+# reference's design too; the softmax backend's plain path is within 4%).
+# Those leaves, and only those (T5_NOISY), are held in fp32 instead (every
+# leaf of the fp32 kernel path within T5_FP32_GRAD_REL_TOL of the fp32
+# plain path), by the bf16 kernels against their plain versions at T5's
+# exact shapes (t5_kernel_cases), and each within T5_NOISY_TOL of its fp32
+# gradient (a zero gradient reads 1). The fp32 check's tolerance is past
+# fp32's rounding because the same leaves amplify fp32 sums taken in
+# another order (~1e-7) some hundredfold
+T5_FP32_GRAD_REL_TOL = 1e-3
+T5_WELL_POSED = 0.05
+T5_NOISY_TOL = 0.5
+T5_NOISY = re.compile(r"decoder_layers\.\d+\.(inter_attention\.q|"
+                      r"post_attn_norm)\.(weight|bias)")
+
+
+def _t5_grads(model, ops, b2):
+    """The loss and the gradient by parameter name (fp32) of one T5
+    forward at ``b2`` through ``ops`` (KERNEL_OPS or PLAIN_OPS)."""
+    enc, keep, dec, labels, loss_mask = b2
+    model.zero_grad(set_to_none=True)
+    loss = t5_loss_fn(model._forward(enc, keep, dec, ops), labels, loss_mask)
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {n: p.grad.detach().float().clone()
+                                  for n, p in model.named_parameters()}
+
+
+def _rel_l2_by_name(got: dict, want: dict) -> dict:
+    return {n: _rel_l2(got[n], w) for n, w in want.items()}
+
+
+def _worst(errs: dict, k: int = 3):
+    return sorted(((e, n) for n, e in errs.items()), reverse=True)[:k]
+
+
+def t5_batch2(seed: int, dev, backend: str, b2) -> dict:
+    """Batch 2 on the initial weights of one backend: the fp32 model's
+    kernel and plain paths (the plain one the anchor), then the bf16
+    model's. Returns the losses, each path's gradient error by parameter
+    and the bf16 logits of the kernel path."""
+    cfg32 = T5Config(attention_backend=backend, dtype=torch.float32)
+    m32 = T5Model(cfg32, device=dev,
+                  generator=torch.Generator().manual_seed(seed))
+    loss32, g32 = _t5_grads(m32, PLAIN_OPS, b2)
+    loss32k, g32k = _t5_grads(m32, KERNEL_OPS, b2)
+    del m32
+    model = T5Model(T5Config(attention_backend=backend), device=dev,
+                    generator=torch.Generator().manual_seed(seed))
+    loss_k, gk = _t5_grads(model, KERNEL_OPS, b2)
+    loss_p, gp = _t5_grads(model, PLAIN_OPS, b2)
+    with torch.no_grad():
+        logits = model(*b2[:3])
+    del model
+    e32 = _rel_l2_by_name(g32k, g32)
+    ek, ep = _rel_l2_by_name(gk, g32), _rel_l2_by_name(gp, g32)
+    direct = _rel_l2_by_name(gk, gp)
+    held = {n: e for n, e in direct.items() if ep[n] <= T5_WELL_POSED}
+    noisy = sorted(((ek[n], ep[n], n) for n in ek if n not in held),
+                   reverse=True)
+    del g32, g32k, gk, gp
+    torch.cuda.empty_cache()
+    out = {"fp32_loss": loss32, "fp32_kernel_loss": loss32k,
+           "fp32_loss_gap": abs(loss32k - loss32),
+           "fp32_grad_worst": _worst(e32),
+           "loss": loss_k, "plain_loss": loss_p,
+           "loss_gap": abs(loss_k - loss_p),
+           "kernel_vs_plain_worst": _worst(direct),
+           "kernel_vs_plain_median": sorted(direct.values())[len(direct) // 2],
+           "held_leaves": len(held), "held_worst": _worst(held),
+           "kernel_vs_fp32_worst": _worst(ek),
+           "plain_vs_fp32_worst": _worst(ep),
+           "noisy": [{"name": n, "kernel_vs_fp32": a, "plain_vs_fp32": b}
+                     for a, b, n in noisy]}
+    print(f"  batch 2, fp32 kernels vs plain: loss {loss32k:.6f} vs "
+          f"{loss32:.6f}; gradient relative L2 worst " + ", ".join(
+              f"{e:.3e} ({n})" for e, n in out["fp32_grad_worst"])
+          + f" (tol {T5_FP32_GRAD_REL_TOL})")
+    print(f"  batch 2, bf16 kernels vs plain: loss {loss_k:.5f} vs "
+          f"{loss_p:.5f} (|diff| {out['loss_gap']:.3e}, tol {BERT_LOSS_TOL});"
+          f" gradient relative L2 median {out['kernel_vs_plain_median']:.3e},"
+          " worst " + ", ".join(f"{e:.3e} ({n})"
+                                for e, n in out["kernel_vs_plain_worst"]))
+    print(f"  bf16 kernels vs plain on the {len(held)} leaves whose plain "
+          f"path is within {T5_WELL_POSED} of fp32: worst " + ", ".join(
+              f"{e:.3e} ({n})" for e, n in out["held_worst"])
+          + f" (tol {BERT_GRAD_REL_TOL})")
+    print("  bf16 gradients against the fp32 plain ones: kernels worst "
+          + ", ".join(f"{e:.3e} ({n})" for e, n in out["kernel_vs_fp32_worst"])
+          + "; plain worst " + ", ".join(
+              f"{e:.3e} ({n})" for e, n in out["plain_vs_fp32_worst"]))
+    if noisy:
+        print(f"  {len(noisy)} leaves where the plain path is past "
+              f"{T5_WELL_POSED} of fp32 (kernels, plain vs fp32; tol "
+              f"{T5_NOISY_TOL}, only {T5_NOISY.pattern}): " + ", ".join(
+                  f"{n} {a:.3f} {b:.3f}" for a, b, n in noisy))
+    return out, logits
+
+
+def t5_kernel_cases(seed: int, dev, keep) -> dict:
+    """The bf16 kernels at the shapes only T5 drives, against their plain
+    versions on the batch's keep-mask ``keep`` (b, 512): the flash
+    forward, dq and dk/dv (``flash_dtype_case``) at the encoder's self
+    attention (512 over 512, the keep-mask as segment ids on both sides),
+    the cross attention (128 decoder queries over 512 encoder keys,
+    key-side segments ``1 - keep``) and the decoder's causal self
+    attention at 128; the masked softmax over the cross scores (16, 12,
+    128, 512) with their unrepeated (b, 1, 1, 512) mask, the causal one at
+    (16 x 12, 128, 128), and the shared backward at both. The masks and
+    segments are built as ``models/t5.py`` builds them."""
+    gen = torch.Generator().manual_seed(seed + 23)
+    cfg = T5Config()
+    b, h = T5_BATCH, cfg.num_heads
+    d = cfg.hidden_size // h
+    out = {}
+    with torch.no_grad():
+        for name, sq, sk, opts in (
+                ("t5_encoder", T5_ENC, T5_ENC,
+                 dict(causal=False, segments=(keep, None))),
+                ("t5_cross", T5_DEC, T5_ENC,
+                 dict(causal=False, segments=(None, 1 - keep))),
+                ("t5_decoder", T5_DEC, T5_DEC, {})):
+            out[name] = flash_dtype_case(name, gen, dev, torch.bfloat16, b,
+                                         h, h, sq, sk, d, **opts)
+            torch.cuda.empty_cache()
+    rnd = lambda *shape: (3 * torch.randn(*shape, generator=gen)).to(  # noqa
+        dev, torch.bfloat16)
+    kn = lambda base: softmax.kernel_name(base,  # noqa: E731
+                                          torch.bfloat16)
+    x = rnd(b, h, T5_DEC, T5_ENC)
+    cross = (keep.float() < 0.5)[:, None, None, :]    # True masking out
+    mask = softmax._masked_args(x, cross)             # as the path passes it
+    full = mask.expand(*x.shape).contiguous()         # for the library
+    out["masked"] = softmax_fwd_case(
+        kn(softmax.MASKED_KERNEL) + "[t5 cross]", x, mask, "masked",
+        lambda: torch._masked_softmax(x, full, 3, 2), nbytes(x, x, cross))
+    y = softmax._fwd_cuda(x, mask, 1.0, "masked")
+    out["bwd_cross"] = softmax_bwd_case("t5_cross", y,
+                                        rnd(*x.shape).div_(3))
+    del x, full, y
+    a, s = b * h, T5_DEC
+    xc = rnd(a, s, s)
+    live = a * s * (s + 1) // 2              # the lower triangle
+    upper = torch.triu(torch.ones(s, s, dtype=torch.bool, device=dev), 1)
+    out["causal"] = softmax_fwd_case(
+        kn(softmax.CAUSAL_KERNEL) + "[t5 decoder]", xc, None, "causal",
+        lambda: torch._masked_softmax(xc.view(b, h, s, s), upper, 3, 0),
+        2 * live + nbytes(xc))
+    yc = softmax._fwd_cuda(xc, None, 1.0, "causal")
+    out["bwd_causal"] = softmax_bwd_case("t5_decoder", yc,
+                                         rnd(a, s, s).div_(3))
+    del xc, yc
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_t5(seed: int, dev, card: str) -> dict:
+    """T5-base pretraining (``T5Config()``: vocab 32128, hidden 768, 12 + 12
+    layers, 12 heads of 64, ffn 3072, bf16 compute, fp32 parameters) with
+    FusedAdam on one batch of 16 x 512 encoder and 128 decoder tokens, on
+    each attention backend from the same weights: at batch 2 the kernel
+    path's loss and gradients against the plain path and the two backends'
+    logits against each other, then ten steps with exact launch counts.
+    First the bf16 kernels at the shapes only T5 drives
+    (``t5_kernel_cases``, on this batch's keep-mask)."""
+    batch = t5_batch(seed, dev, T5Config().vocab_size)
+    b2 = tuple(t[:2] for t in batch)
+    real_enc = int(batch[1].sum())
+    tokens = T5_BATCH * (T5_ENC + T5_DEC)
+    out, logits2 = {"kernel_cases": t5_kernel_cases(seed, dev, batch[1])}, {}
+    for backend in ("softmax", "flash"):
+        res, logits2[backend] = t5_batch2(seed, dev, backend, b2)
+        cfg = T5Config(attention_backend=backend)
+        t0 = time.perf_counter()
+        model = T5Model(cfg, device=dev,
+                        generator=torch.Generator().manual_seed(seed))
+        step = PretrainStep(model, FusedAdam(lr=T5_LR, weight_decay=0.01),
+                            loss_fn=t5_pretrain_loss)
+        state = step.init()
+        print(f"  T5-base ({backend} backend): "
+              f"{sum(p.numel() for p in model.parameters())} parameters, "
+              f"batch {T5_BATCH} x {T5_ENC} encoder ({real_enc} real) + "
+              f"{T5_DEC} decoder tokens, set-up "
+              f"{time.perf_counter() - t0:.1f} s")
+        state, losses, times, launches = _train_loop(step, state, batch,
+                                                     T5_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        step_s = float(np.median(times[2:]))
+        print(f"  losses {[round(v_, 4) for v_ in losses]}")
+        print(f"  launches over {T5_STEPS} steps {launches}")
+        print(f"  T5-base {backend}: step_ms median of steps 3-{T5_STEPS} "
+              f"{step_s * 1e3:.2f} (first {times[0] * 1e3:.1f}), tokens_per_s "
+              f"{tokens / step_s:.0f} (encoder + decoder, padded), "
+              f"{T5_BATCH * T5_DEC / step_s:.0f} decoder; peak memory "
+              f"{peak / 2**30:.2f} GiB on {card}")
+        check(all(np.isfinite(losses)), f"T5 ({backend}): non-finite loss")
+        check(losses[-1] < losses[0], f"T5 ({backend}): the loss did not "
+              "fall")
+        want = t5_launches_per_step(cfg, backend)
+        for k_, n_ in want.items():
+            check(launches.get(k_, 0) == n_ * T5_STEPS,
+                  f"T5 ({backend}): {k_} launched {launches.get(k_, 0)} "
+                  f"times in {T5_STEPS} steps, not {n_} a step")
+        extra = {k_: n_ for k_, n_ in launches.items() if k_ not in want}
+        check(not extra, f"T5 ({backend}): kernels off its path launched: "
+              f"{extra}")
+        prof = _profiled(lambda: step(state, *batch), f"T5 {backend} step",
+                         T5_SHARES)[1]
+        if prof["wall_ms"] > 0:
+            prof["busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
+        out[backend] = {
+            "batch2": res, "launches": launches, "launches_per_step": want,
+            "steps": T5_STEPS, "losses": losses, "step_ms": step_s * 1e3,
+            "step_ms_all": [t * 1e3 for t in times],
+            "tokens_per_s": tokens / step_s,
+            "decoder_tokens_per_s": T5_BATCH * T5_DEC / step_s,
+            "peak_gib": peak / 2**30, "profile": prof}
+        del model, step, state
+        torch.cuda.empty_cache()
+    # the backends agree on every decoder row: the encoder's pad rows
+    # differ between the two masking conventions, but both keep them out
+    # of the cross keys
+    diff = float((logits2["softmax"] - logits2["flash"]).abs().max())
+    gap = abs(out["softmax"]["batch2"]["loss"]
+              - out["flash"]["batch2"]["loss"])
+    print(f"  batch 2, softmax vs flash backend on the same weights: logits "
+          f"max |diff| {diff:.3e} (tol {LOGIT_TOL}), loss |diff| {gap:.3e} "
+          f"(tol {BACKEND_LOSS_TOL})")
+    out.update(backend_logit_diff=diff, backend_loss_gap=gap)
+    for backend in ("softmax", "flash"):
+        r_ = out[backend]["batch2"]
+        check(r_["fp32_loss_gap"] <= TRAIN32_LOSS_TOL
+              and r_["fp32_grad_worst"][0][0] <= T5_FP32_GRAD_REL_TOL,
+              f"T5 ({backend}, fp32): kernel path disagrees with the plain "
+              "path")
+        check(r_["loss_gap"] <= BERT_LOSS_TOL,
+              f"T5 ({backend}) loss: kernel path disagrees with the plain "
+              "path")
+        check(not r_["held_worst"]
+              or r_["held_worst"][0][0] <= BERT_GRAD_REL_TOL,
+              f"T5 ({backend}) gradients: the kernel path is farther than "
+              f"{BERT_GRAD_REL_TOL} from the plain path")
+        stray = [x_["name"] for x_ in r_["noisy"]
+                 if not T5_NOISY.fullmatch(x_["name"])]
+        check(not stray, f"T5 ({backend}): the plain bf16 path is past "
+              f"{T5_WELL_POSED} of fp32 off the cross attention's query "
+              f"side: {stray}")
+        check(all(x_["kernel_vs_fp32"] <= T5_NOISY_TOL for x_ in r_["noisy"]),
+              f"T5 ({backend}): a cross-attention query-side gradient is "
+              f"farther than {T5_NOISY_TOL} from the fp32 one")
+    check(diff <= LOGIT_TOL and gap <= BACKEND_LOSS_TOL,
+          "T5 backends disagree")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6556,6 +7050,12 @@ def main(argv=None) -> int:
     bwr = phase("phase 14f: the wgmma/TMA flash forward and backward (bf16, "
                 "fp16) at the training, serving and multi-head attention "
                 "shapes and head widths 60 to 256", flash_report)
+    wide = phase("phase 14g: the wide route (fp32 past 128, bf16 and fp16 "
+                 "past 256) through flash_attention and against its plain "
+                 "versions", lambda: wide_cases(args.seed, dev))
+    t5 = phase(f"phase 15: T5-base pretraining ({T5_BATCH} x "
+               f"{T5_ENC}/{T5_DEC}, FusedAdam) on both attention backends",
+               lambda: train_t5(args.seed, dev, card))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -6578,8 +7078,10 @@ def main(argv=None) -> int:
     kernels.append(drow)
     kernels += srk
     kernels += dk14["rows"] + prb
-    # phase 14f's cases join the rows of their dtype
+    # phase 14f's cases join the rows of their dtype; the wide route's
+    # nine rows are their own
     kernels.append(bwr.pop("split"))
+    kernels += wide["rows"]
     by_name = {k["name"]: k for k in kernels}
     for name, dtype, *_ in FLASH_REPORT:
         for key, base in (("fwd", attention.KERNEL),
@@ -6648,6 +7150,9 @@ def main(argv=None) -> int:
             "fp16_dispatcher", f16["dispatcher"]["launches"], 1)
     paths[engine.LEAF_SUM_KERNEL] = ("training_novograd", novo["launches"],
                                      novo["steps"])
+    for row in wide["rows"]:
+        paths[row["name"]] = ("flash_wide_path", wide["launches"],
+                              wide["steps"])
     # the SR kernels that no model path here runs: one call each, the
     # counts set to 0 just before; the probes: their own run
     for label, rows_ in (("phase12a_direct", srk), ("phase14e_probes", prb)):
@@ -6696,6 +7201,8 @@ def main(argv=None) -> int:
                          ("zigzag", zz), ("gpt_fp32", f32),
                          ("gpt_fp16_flash", f16["flash"]),
                          ("gpt_fp16_softmax", f16["softmax"]),
+                         ("t5_softmax", t5["softmax"]),
+                         ("t5_flash", t5["flash"]),
                          *((f"mha_{d_}_{k_}", mha16[d_][k_])
                            for d_ in mha16 for k_ in (
                                "self_future", "self_key_padding",
@@ -6705,8 +7212,8 @@ def main(argv=None) -> int:
     for counter in DROPOUT_COUNTERS:
         drow[f"launches_{counter}"] = gdr["launches"].get(counter, 0)
 
-    check(len(kernels) == 57, f"{len(kernels)} kernels in the line, not 57")
-    print("phase 15: kernels")
+    check(len(kernels) == 66, f"{len(kernels)} kernels in the line, not 66")
+    print("phase 16: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -6731,6 +7238,8 @@ def main(argv=None) -> int:
                        "phase14_kernels": {"d96": dk14["d96"],
                                            "rope": dk14["rope"]},
                        "flash_report": bwr,
+                       "flash_wide": {"launches": wide["launches"]},
+                       "training_t5": t5,
                        **line}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -114,14 +114,18 @@ def test_flash_matches_reference_in_its_dtype(case):
 
 
 def test_head_widths_pad_to_the_built_ones():
-    """The kernels' width for each head_dim: the next built one, and none
-    past 256 (128 in fp32; the wrapper raises before any launch)."""
+    """The wgmma kernels' width for each head_dim: the next built one, up
+    to 256 (128 in fp32); wider heads take the wide route, at their own
+    width."""
     assert port.BUILT_WIDTHS == (32, 64, 96, 128, 256)
     want = {1: 32, 17: 32, 32: 32, 33: 64, 48: 64, 64: 64, 65: 96, 96: 96,
             97: 128, 128: 128, 129: 256, 160: 256, 256: 256}
     for d, w in want.items():
         assert min(x for x in port.BUILT_WIDTHS if x >= d) == w
     assert port.MAX_HEAD_DIM == 256 and port.FP32_MAX_HEAD_DIM == 128
+    for dtype, d in ((torch.float32, 129), (torch.bfloat16, 257),
+                     (torch.float16, 300)):
+        assert port.wide_route(d, dtype) and port.kernel_width(d, dtype) == d
 
 
 @pytest.mark.parametrize("dtype,suffix", [(torch.bfloat16, ""),
@@ -136,9 +140,10 @@ def test_launch_counters_are_kept_per_dtype(dtype, suffix):
 
 def test_kernel_args_take_every_dtype_and_refuse_the_rest():
     """The checks the wrappers run before a launch, on CPU tensors of a
-    fake device: fp16, fp32 and head widths up to 128 pass, and up to 256
-    in fp16 and bf16; a mixed dtype, an integer tensor, head_dim 160 in
-    fp32 and 257 in fp16 raise."""
+    fake device: fp16, fp32 and every head width pass (the wgmma kernels'
+    to 128 in fp32 and to 256 in fp16 and bf16, the wide route's past
+    them: fp32 160, fp16 257); a mixed dtype, an integer tensor and head_dim
+    0 raise."""
     def z(d=64, dtype=torch.float16):
         return torch.zeros(1, 2, 8, d, dtype=dtype)
     for dtype in (torch.float16, torch.float32, torch.bfloat16):
@@ -150,11 +155,11 @@ def test_kernel_args_take_every_dtype_and_refuse_the_rest():
             port._check_kernel_args(z(d, dtype), z(d, dtype), z(d, dtype),
                                     None, None)
     f32 = torch.float32
-    with pytest.raises(NotImplementedError, match="head_dim 160 in fp32"):
-        port._check_kernel_args(z(160, f32), z(160, f32), z(160, f32), None,
-                                None)
-    with pytest.raises(NotImplementedError, match="head_dim 257"):
-        port._check_kernel_args(z(257), z(257), z(257), None, None)
+    port._check_kernel_args(z(160, f32), z(160, f32), z(160, f32), None,
+                            None)
+    port._check_kernel_args(z(257), z(257), z(257), None, None)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        port._check_kernel_args(z(0), z(0), z(0), None, None)
     with pytest.raises(TypeError):
         port._check_kernel_args(z(), z(dtype=torch.float32), z(), None,
                                 None)

@@ -255,9 +255,10 @@ def test_flash_kernel_matches_plain(cuda_device, case):
 def test_flash_kernel_refuses_unported_options(cuda_device):
     # bias and positions have kernels, and so (since fp16 and fp32 were
     # ported and head widths pad to the built ones) do fp32 and fp16 q/k/v,
-    # head_dim 48 and an fp16 bias: each launches its dtype's kernel. What
-    # is still refused: a head_dim past 128 in fp32, past 256 in bf16 and
-    # fp16, and integer inputs.
+    # head_dim 48 and an fp16 bias: each launches its dtype's kernel. A
+    # head_dim past 128 in fp32 or past 256 in bf16 launches the wide
+    # route's kernel (and no wgmma one). What is still refused: integer
+    # inputs.
     q = torch.zeros(1, 2, 8, 64, device=cuda_device, dtype=torch.bfloat16)
     before = _build.launch_counts()
     attention.flash_attention(
@@ -278,14 +279,15 @@ def test_flash_kernel_refuses_unported_options(cuda_device):
                                         q.to(dtype))
         assert out.dtype == dtype
         assert _build.launch_counts()[name] == n0 + 1
-    with pytest.raises(NotImplementedError, match="head_dim 160 in fp32"):
-        w = torch.zeros(1, 2, 8, 160, device=cuda_device,
-                        dtype=torch.float32)
-        attention.flash_attention(w, w, w)
-    with pytest.raises(NotImplementedError, match="head_dim"):
-        w = torch.zeros(1, 2, 8, 272, device=cuda_device,
-                        dtype=torch.bfloat16)
-        attention.flash_attention(w, w, w)
+    for d, dtype in ((160, torch.float32), (272, torch.bfloat16)):
+        w = torch.zeros(1, 2, 8, d, device=cuda_device, dtype=dtype)
+        n0 = _build.launch_counts()
+        out = attention.flash_attention(w, w, w)
+        assert out.shape == w.shape and out.dtype == dtype
+        diff = {n: c - n0.get(n, 0) for n, c in _build.launch_counts().items()
+                if c != n0.get(n, 0)}
+        assert diff == {attention.kernel_name(attention.WIDE_KERNEL,
+                                              dtype): 1}, diff
     with pytest.raises(TypeError, match="dtype"):
         i = torch.zeros(1, 2, 8, 64, device=cuda_device, dtype=torch.int32)
         attention.flash_attention(i, i, i)
@@ -2613,3 +2615,145 @@ def test_launch_probe_passes_inside_the_limits_and_fails_outside(
     off = [r for r in results if r["result"] != r["expected"]]
     assert not off, off
     assert any(r["result"] == "FAIL" for r in results)
+
+
+# -- the wide route (csrc/flash_wide.cu) -----------------------------------------
+
+# name: (dtype, b, h, hk, sq, sk, d, options)
+WIDE_CASES = {
+    "fp32_d160_causal_gqa_segments": (torch.float32, 2, 4, 2, 200, 200, 160,
+                                      "causal_segments"),
+    "fp32_d256_key_segments": (torch.float32, 2, 2, 2, 100, 300, 256,
+                               "key_segments"),
+    "fp32_d129_window": (torch.float32, 1, 2, 1, 150, 150, 129, "window"),
+    "fp32_d256_positions_glse": (torch.float32, 1, 2, 2, 128, 192, 256,
+                                 "positions"),
+    "bf16_d320_bias": (torch.bfloat16, 2, 2, 1, 96, 130, 320, "bias"),
+    "bf16_d512_dropout": (torch.bfloat16, 1, 2, 2, 128, 128, 512, "dropout"),
+    "fp16_d320_causal_gqa_segments": (torch.float16, 2, 4, 2, 140, 140, 320,
+                                      "causal_segments"),
+    "fp16_d257_key_segments_dropout": (torch.float16, 1, 2, 1, 64, 257, 257,
+                                       "key_segments_dropout"),
+    "fp16_d1000_causal": (torch.float16, 1, 1, 1, 70, 70, 1000, "causal"),
+}
+# relative to each output's largest |value| (fp32 sums in other orders;
+# 16-bit outputs and the rounded dS may land on a neighbouring value)
+WIDE_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6,
+            torch.float16: 2.0 ** -9}
+
+
+def _wide_inputs(case, dev, seed=23):
+    dtype, b, h, hk, sq, sk, d, opt = WIDE_CASES[case]
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        dev, dtype) for shape in ((b, h, sq, d), (b, hk, sk, d),
+                                  (b, hk, sk, d)))
+    do = torch.from_numpy(rng.randn(b, h, sq, d).astype(np.float32)).to(
+        dev, dtype)
+    kw = {"causal": "causal" in opt}
+    if opt == "causal_segments":
+        seg = np.zeros((b, sq), np.int32)
+        seg[:, sq // 3:] = 1
+        seg[-1, 2 * sq // 3:] = 2
+        kw["segment_ids"] = torch.from_numpy(seg).to(dev)
+    if opt.startswith("key_segments"):
+        kseg = (rng.rand(b, sk) < 0.3).astype(np.int32)
+        if b > 1:
+            kseg[-1] = 1            # no live key: rows of exactly 0
+        kw["kv_segment_ids"] = torch.from_numpy(kseg).to(dev)
+    if opt == "window":
+        kw.update(causal=True, window_size=37)
+    if opt == "positions":
+        kw.update(causal=True, q_positions=torch.arange(
+            256, 256 + sq, device=dev), kv_positions=torch.arange(
+            100, 100 + sk, device=dev))
+    if opt == "bias":
+        kw["bias"] = torch.from_numpy(rng.randn(b, 1, sq, sk).astype(
+            np.float32)).to(dev, dtype)
+    if "dropout" in opt:
+        kw.update(dropout_rate=0.1, dropout_rng=(12345, 678))
+    glse = None
+    if opt == "positions":
+        glse = torch.from_numpy(rng.randn(b, h, sq).astype(np.float32)).to(
+            dev)
+    return q, k, v, do, kw, glse
+
+
+def _within(got, want, rel):
+    top = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    return err <= rel * top, (err, top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WIDE_CASES))
+def test_wide_kernels_match_plain(cuda_device, case):
+    """Each wide-route kernel against its plain version on the same
+    inputs (the backward from the plain forward's lse and delta), one
+    launch each under its own name and none of any other flash kernel;
+    rows with no live key exactly 0."""
+    q, k, v, do, kw, glse = _wide_inputs(case, cuda_device)
+    dtype, d = q.dtype, q.shape[-1]
+    assert attention.wide_route(d, dtype)
+    rel = WIDE_REL[dtype]
+    scale, q_seg, k_seg, seed, q_pos, k_pos = attention._prepare(
+        q, k, v, kw.get("bias"), kw.get("segment_ids"),
+        kw.get("kv_segment_ids"), kw["causal"], kw.get("window_size"), None,
+        kw.get("dropout_rate", 0.0), kw.get("dropout_rng"),
+        kw.get("q_positions"), kw.get("kv_positions"))
+    args = (q_seg, k_seg, scale, kw["causal"], kw.get("window_size"),
+            kw.get("dropout_rate", 0.0), seed)
+    ex = dict(bias=kw.get("bias"), q_pos=q_pos, k_pos=k_pos)
+    n0 = _build.launch_counts()
+    out, lse = attention._flash_cuda(q, k, v, *args, **ex)
+    pout, plse = attention._attention_torch(
+        q, k, v, kw.get("bias"), q_seg, k_seg, scale, kw["causal"],
+        kw.get("window_size"), kw.get("dropout_rate", 0.0), seed,
+        return_lse=True, q_pos=q_pos, k_pos=k_pos)
+    delta = (pout.float() * do.float()).sum(-1)
+    bargs = (q, k, v, plse, do, delta, *args)
+    got = attention._flash_bwd_cuda(*bargs, glse=glse, **ex)
+    want = attention._flash_bwd_torch(*bargs, glse=glse, **ex)
+    torch.cuda.synchronize()
+    diff = {n: c - n0.get(n, 0) for n, c in _build.launch_counts().items()
+            if c != n0.get(n, 0)}
+    assert diff == {attention.kernel_name(base, dtype): 1 for base in (
+        attention.WIDE_KERNEL, attention.WIDE_DQ_KERNEL,
+        attention.WIDE_DKV_KERNEL)}, diff
+    ok, info = _within(out, pout, rel)
+    assert ok, ("out", info)
+    torch.testing.assert_close(lse, plse, rtol=0, atol=1e-5)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        ok, info = _within(g, w, rel)
+        assert ok, (name, info)
+    dead = plse <= attention.NEG_INF * 0.5
+    if bool(dead.any()):
+        assert not out[dead].float().abs().any()
+        assert bool((lse[dead] == attention.NEG_INF).all())
+        assert not got[0][dead].float().abs().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 160),
+                                     (torch.bfloat16, 320)])
+def test_wide_kernels_repeat_bitwise_and_train(cuda_device, dtype, d):
+    """A repeated call is bitwise equal (each output element is written
+    once, by one thread), and autograd through ``flash_attention`` runs
+    the wide forward once and each wide backward kernel once."""
+    rng = np.random.RandomState(d)
+    q, k, v = (torch.from_numpy(rng.randn(2, 2, 80, d).astype(np.float32))
+               .to(cuda_device, dtype).requires_grad_() for _ in range(3))
+    with torch.no_grad():
+        a = attention.flash_attention(q, k, v, causal=True)
+        b = attention.flash_attention(q, k, v, causal=True)
+    assert torch.equal(a, b)
+    n0 = _build.launch_counts()
+    out = attention.flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    diff = {n: c - n0.get(n, 0) for n, c in _build.launch_counts().items()
+            if c != n0.get(n, 0)}
+    assert diff == {attention.kernel_name(base, dtype): 1 for base in (
+        attention.WIDE_KERNEL, attention.WIDE_DQ_KERNEL,
+        attention.WIDE_DKV_KERNEL)}, diff
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
