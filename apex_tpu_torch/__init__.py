@@ -16,9 +16,12 @@ Ported so far: the GPT serving path (``models.gpt``,
 pretraining (``models.pretrain``, ``optimizers``, ``amp``,
 ``multi_tensor``, ``ops``) and ResNet-50 ImageNet training
 (``models.resnet``, ``parallel``, ``contrib.bottleneck``, FusedSGD,
-FusedLARS and LARC), on the kernels of ``csrc/``.
+FusedLARS and LARC), T5 (``models.t5``), amp's function-level casts
+(``amp.F``, ``amp.scale_loss``) and the gen-1 ``fp16_utils``, on the
+kernels of ``csrc/``.
 """
 
 from apex_tpu_torch._backend import resolve_device
+from apex_tpu_torch import fp16_utils  # noqa: E402,F401
 
-__all__ = ["resolve_device"]
+__all__ = ["fp16_utils", "resolve_device"]

@@ -7,15 +7,19 @@ steps, capped at ``max_loss_scale``). The state is carried as
 ``ScalerState`` and advanced by :meth:`LossScaler.update`, as in the
 reference; here it holds host numbers, and the scale is kept in fp32
 arithmetic (numpy float32), as the reference's fp32 array is. A skipped
-step is the optimizer's ``skip_if_nonfinite``.
+step is the optimizer's ``skip_if_nonfinite``. ``unscale`` takes the
+gradients of an unfused loop (a name -> tensor mapping, or nested
+tuples, lists and dicts of tensors) and stays on the device.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, NamedTuple, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from apex_tpu_torch.amp.functional import _leaves, _tree_map
 
 
 class ScalerState(NamedTuple):
@@ -54,6 +58,30 @@ class LossScaler:
                    state: ScalerState) -> torch.Tensor:
         """``loss.float() * scale``."""
         return loss.float() * state.loss_scale
+
+    def unscale(self, grads: Any, state: ScalerState
+                ) -> Tuple[Any, torch.Tensor]:
+        """The gradients of the scaled loss unscaled, and ``found_inf``.
+
+        Each leaf ``g`` becomes ``(g.float() * inv).to(g.dtype)``, ``inv``
+        the fp32 reciprocal of the scale as a 0-d tensor on the leaves'
+        device (the reference's ``1.0 / loss_scale`` in fp32);
+        ``found_inf`` is a 0-d fp32 device tensor, 1 where any unscaled
+        value is inf or nan. No value is read on the host. (The fused
+        optimizers unscale inside their update through ``grad_scale``.)
+        """
+        leaves = [g for g in _leaves(grads) if isinstance(g, torch.Tensor)]
+        dev = leaves[0].device if leaves else torch.device("cpu")
+        one = torch.ones((), dtype=torch.float32, device=dev)
+        inv = one / torch.full((), state.loss_scale, dtype=torch.float32,
+                               device=dev)
+        unscaled = _tree_map(lambda g: (g.float() * inv).to(g.dtype)
+                             if isinstance(g, torch.Tensor) else g, grads)
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+        for g in _leaves(unscaled):
+            if isinstance(g, torch.Tensor):
+                finite = finite & torch.isfinite(g).all()
+        return unscaled, torch.where(finite, 0.0, one)
 
     def update(self, state: ScalerState, found_inf) -> ScalerState:
         """Advance the state after a step attempt (the reference's

@@ -10,6 +10,7 @@ from apex_tpu_torch.models.bert import (
 )
 from apex_tpu_torch.models.convert import (
     bert_params_from_jax,
+    dcgan_params_from_jax,
     gpt_params_from_jax,
     load_jax_opt_state,
     load_jax_params,
@@ -42,7 +43,8 @@ __all__ = ["BertConfig", "BertModel", "GPTConfig", "GPTModel",
            "PretrainStep", "ResNet", "ResNetBottleneckBlock", "ResNetConfig",
            "T5Config", "T5Model", "encoder_decoder_stage_layout",
            "bert_extended_attention_mask", "bert_loss_fn",
-           "bert_params_from_jax", "cross_entropy_logits", "gpt_loss_fn",
+           "bert_params_from_jax", "cross_entropy_logits",
+           "dcgan_params_from_jax", "gpt_loss_fn",
            "gpt_params_from_jax", "init_gpt_pretrain_params",
            "load_jax_opt_state", "load_jax_params", "load_jax_resnet",
            "make_gpt_pretrain_step", "multihead_attn_params_from_jax",

@@ -1,6 +1,7 @@
 """Convert the reference's GPT, BERT, T5 and ResNet parameters (and their
 optimizer state) into the port's ``GPTModel`` / ``BertModel`` /
-``T5Model`` / ``ResNet`` (and ``FlatOptState``).
+``T5Model`` / ``ResNet`` (and ``FlatOptState``), and the DCGAN example's
+two modules.
 
 The input is the parameter tree of the reference's ``GPTModel``
 (``apex_tpu/models/gpt.py``) or ``BertModel`` (``apex_tpu/models/bert.py``)
@@ -28,6 +29,15 @@ reference's tree names map to module paths ('/' -> '.'), its HWIO conv
 kernels become OIHW, BatchNorm's ``scale`` becomes ``weight`` and the
 ``batch_stats`` ``mean`` / ``var`` the buffers ``running_mean`` /
 ``running_var``.
+
+DCGAN (``dcgan_params_from_jax``): the generator and discriminator of
+``examples/dcgan/main_amp.py`` (Flax ``Dense``, ``GroupNorm``, ``Conv``
+and ``ConvTranspose``), read through the same key check as the model
+zoo's, then laid out for PyTorch: ``Dense`` kernels (in, out) become
+``Linear`` weights (out, in), ``Conv`` kernels HWIO become OIHW, and
+``ConvTranspose`` kernels (H, W, I, O) become ``conv_transpose2d``'s
+(I, O, H, W) flipped in H and W (Flax's transposed convolution does not
+flip its kernel; PyTorch's does).
 
 Multi-head attention (``multihead_attn_params_from_jax``): the
 reference's ``SelfMultiheadAttn`` / ``EncdecMultiheadAttn`` tree. Its
@@ -199,6 +209,44 @@ def t5_params_from_jax(params_np: Mapping, config: T5Config
          _T5_DECODER_KEYS)), "T5")
 
 
+_DCGAN_KEYS = {
+    "generator": {"dense.weight": "Dense_0/kernel", "dense.bias": "Dense_0/bias",
+                  **{f"group_norm{i}.{leaf}": f"GroupNorm_{i}/{leaf}"
+                     for i in (0, 1) for leaf in ("scale", "bias")},
+                  **{f"deconv{i}.{leaf}": f"ConvTranspose_{i}/{ref}"
+                     for i in (0, 1) for leaf, ref in (("weight", "kernel"),
+                                                       ("bias", "bias"))}},
+    "discriminator": {**{f"conv{i}.{leaf}": f"Conv_{i}/{ref}"
+                         for i in (0, 1) for leaf, ref in (("weight", "kernel"),
+                                                           ("bias", "bias"))},
+                      "dense.weight": "Dense_0/kernel",
+                      "dense.bias": "Dense_0/bias"},
+}
+
+
+def dcgan_params_from_jax(params_np: Mapping, kind: str
+                          ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` (CPU tensors) of the port's DCGAN ``Generator``
+    (``kind="generator"``) or ``Discriminator`` (``"discriminator"``,
+    ``apex_tpu_torch.examples.dcgan_amp``) holding the reference module's
+    parameters ``params_np`` (numpy leaves, with or without
+    ``{"params": ...}``)."""
+    if kind not in _DCGAN_KEYS:
+        raise ValueError(f"kind {kind!r}: expected one of "
+                         f"{sorted(_DCGAN_KEYS)}")
+    state = _params_from_jax(params_np, _DCGAN_KEYS[kind], (),
+                             f"DCGAN {kind}")
+    for name, t in state.items():
+        if name.startswith("dense.") and t.ndim == 2:
+            t = t.T                                      # (in, out) -> (out, in)
+        elif name.startswith("conv") and t.ndim == 4:
+            t = t.permute(3, 2, 0, 1)                    # HWIO -> OIHW
+        elif name.startswith("deconv") and t.ndim == 4:
+            t = t.permute(2, 3, 0, 1).flip(2, 3)         # HWIO -> IOHW, flipped
+        state[name] = t.contiguous()
+    return state
+
+
 _MHA_DENSE = ("qkv_proj", "q_proj", "k_proj", "v_proj", "kv_proj",
               "out_proj")
 
@@ -366,6 +414,7 @@ def _load_per_leaf(buf: torch.Tensor, state: FlatOptState, config,
                            for name in state.space.names]))
 
 
-__all__ = ["bert_params_from_jax", "gpt_params_from_jax",
+__all__ = ["bert_params_from_jax", "dcgan_params_from_jax",
+           "gpt_params_from_jax",
            "load_jax_opt_state", "load_jax_params", "load_jax_resnet",
            "resnet_params_from_jax", "t5_params_from_jax"]

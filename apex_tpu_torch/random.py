@@ -2,7 +2,7 @@
 
 Counterpart of the subset of ``jax.random`` the reference draws from:
 ``PRNGKey``, ``key_data``, ``fold_in``, ``split``, ``bits`` (32-bit),
-``uniform``, ``bernoulli`` and ``gumbel``. A key is a (2,) int64 tensor
+``uniform``, ``normal``, ``bernoulli`` and ``gumbel``. A key is a (2,) int64 tensor
 holding two uint32 words; every operation is uint32 arithmetic carried
 in int64 (or in Python ints, for the few words of a key derivation,
 which stay on the host) and cut back with ``& 0xFFFFFFFF``, so the same
@@ -19,9 +19,13 @@ as JAX 0.9.0 with its defaults (64-bit types off and
   (``_threefry_split_foldlike``);
 - ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``.
 
-``uniform``, ``bernoulli`` and ``gumbel`` follow ``jax/_src/random.py``:
-23 random mantissa bits under the exponent of 1.0, minus 1.0, then
-scaled; ``bernoulli`` is ``uniform < p`` in fp32; ``gumbel`` is
+``uniform``, ``normal``, ``bernoulli`` and ``gumbel`` follow
+``jax/_src/random.py``: 23 random mantissa bits under the exponent of
+1.0, minus 1.0, then scaled; ``normal`` is ``sqrt(2) erfinv(u)`` with
+``u`` uniform on ``(-1, 1)`` and XLA's single-precision ``erfinv`` (M.
+Giles' polynomials; its ``log1p`` and ``sqrt`` are PyTorch's, so a draw
+is within a few ulps of JAX's, most of them bitwise);
+``bernoulli`` is ``uniform < p`` in fp32; ``gumbel`` is
 ``-log(-log(u))`` with ``u`` drawn on ``[tiny, 1)``.
 
 The fused dropout kernel (``csrc/dropout.cu``) computes ``bits`` per
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
@@ -148,6 +153,37 @@ def uniform(key: KeyLike, shape: Sequence[int], minval: float = 0.0,
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 
+# XLA's fp32 erfinv: M. Giles, "Approximating the erfinv function", in
+# w = -log1p(-x^2) - 2.5 below 5, sqrt(w) - 3 above
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv(x: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = None
+    for a, b in zip(_ERFINV_LT5, _ERFINV_GE5):
+        c = torch.where(lt, torch.full((), np.float32(a), device=x.device),
+                        torch.full((), np.float32(b), device=x.device))
+        p = c if p is None else c + p * w
+    return torch.where(x.abs() == 1, x * float("inf"), p * x)
+
+
+def normal(key: KeyLike, shape: Sequence[int], device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) erfinv(u)``,
+    ``u`` uniform on ``[nextafter(-1, 0), 1)`` in fp32."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(key, shape, lo, 1.0, device)
+    return torch.full((), np.float32(np.sqrt(2.0)), dtype=torch.float32,
+                      device=u.device) * _erfinv(u)
+
+
 def bernoulli(key: KeyLike, p: float, shape: Sequence[int],
               device=None) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
@@ -164,4 +200,4 @@ def gumbel(key: KeyLike, shape: Sequence[int], device=None) -> torch.Tensor:
 
 
 __all__ = ["PRNGKey", "bernoulli", "bits", "fold_in", "gumbel", "key_data",
-           "key_words", "split", "threefry2x32", "uniform"]
+           "key_words", "normal", "split", "threefry2x32", "uniform"]

@@ -330,7 +330,32 @@ Phases, in order; any failure exits non-zero before the last line:
    of each flash kernel, Adam 1) and no other kernel, losses finite and
    falling, step time (median of steps 3-10), tokens/s, peak memory and
    one profiled step's busy share and device time by kernel.
-16. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
+16. The rest of amp, which adds no kernel: (a) ``amp.F`` at GPT-2 345M's
+   activation shapes (``linear`` (8192, 1024) x (4096, 1024)^T,
+   ``layer_norm`` and ``gelu`` on (8192, 4096), ``softmax`` on (8, 16,
+   1024, 1024), ``cross_entropy`` on (8192, 50304), fp16 ``add`` of an
+   fp32 0-d tensor) and ResNet-50's first stage (``conv2d`` on (128, 64,
+   56, 56)) under no policy, O1, O4 and O1 inside ``disable_casts``: the
+   output dtype the lists give, the value against fp64 within AMP_F_TOLS;
+   ``binary_cross_entropy`` refused under O1, run with ``allow_banned``.
+   (b) ``examples.amp_functional`` under O1 and O4: the loss falls over 30
+   steps, the SGD kernel once a step and nothing else. (c) The DCGAN at
+   apex's widths (batch 64, nz 100, 64 features, lr 2e-4, O1, 20 steps,
+   16 x 16 images): one D and one G step on the card against the CPU
+   (gradients within TRAIN32_LOSS_TOL and TRAIN32_GRAD_REL_TOL, the Adam
+   kernel's updates bitwise its plain version's), then the 20 steps with a
+   nan in D's gradient at one: D's scaler halves and G's does not, losses
+   finite, Adam exactly twice an iteration. (d) GPT-2 345M at fp16 (flash)
+   under ``FP16_Optimizer(FusedAdam(lr=1e-4, weight_decay=0.01),
+   dynamic_loss_scale=True)`` through ``PretrainStep`` from 2^32 until five
+   steps are taken after the last skip (at most FP16_OPT_CAP): the scale
+   after each step, a skip leaving the master bitwise and halving the
+   scale, the fp16 kernels launched as phase 14c counts them in every
+   step; then ``make_train_step`` with a ``LossScaler`` starting at the
+   first scale that did not overflow, from the same weights: the master
+   bitwise the first run's after as many taken steps; the median step of
+   the taken steps, peak memory and a profiled step's busy share.
+17. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
    kernels and variants, each with its launches on its path), then the
    device line the caller reads.
 
@@ -352,9 +377,11 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
-from apex_tpu_torch import _build, amp
+from apex_tpu_torch import _build, amp, fp16_utils
 from apex_tpu_torch import random as jrandom
+from apex_tpu_torch.amp import _amp_state as amp_state
 from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
 from apex_tpu_torch.contrib.multihead_attn import (
     EncdecMultiheadAttn,
@@ -391,6 +418,7 @@ from apex_tpu_torch.multi_tensor import ops as mt_ops
 from apex_tpu_torch.multi_tensor.segmented import SEGMENT_KERNEL
 from apex_tpu_torch.models.gpt import KERNEL_OPS, PLAIN_OPS
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy
+from apex_tpu_torch.examples import amp_functional, dcgan_amp
 from apex_tpu_torch.ops import attention, layer_norm, rope, softmax, xentropy
 from apex_tpu_torch.ops import dropout as dropout_op
 from apex_tpu_torch.transformer.functional import (
@@ -6608,23 +6636,28 @@ def t5_launches_per_step(cfg: T5Config, backend: str) -> dict:
     return want
 
 
-# T5 at batch 2, kernels against plain versions. Each bf16 gradient is
-# held to the bf16 plain path's within BERT_GRAD_REL_TOL where the plain
-# path's own distance from the fp32 plain gradient is at most
-# T5_WELL_POSED. On the flash backend the cross attention's query side
-# (its q projection and the LayerNorm before it, 48 leaves) is not: there
-# the plain bf16 path itself is 10-35% from fp32 at these random weights.
-# Its gradient is a near-cancelling sum over 512 keys, probably one whose
-# common part the flash backward no longer cancels in bf16: its delta
-# comes from the bf16-rounded output while P is recomputed in fp32 (the
-# reference's design too; the softmax backend's plain path is within 4%).
+# T5 at batch 2, kernels against plain versions. Each bf16 gradient is held to
+# the bf16 plain path's within BERT_GRAD_REL_TOL where the plain path's own
+# distance from the fp32 plain gradient is at most T5_WELL_POSED. On the flash
+# backend the cross attention's query side (its q projection and the LayerNorm
+# before it, 48 leaves) is not: there the plain bf16 path itself is 10-35%
+# from fp32 at these random weights (the softmax backend's plain path is
+# within 4%). That distance is the flash backward's design, shared with the
+# reference: its delta comes from the bf16-rounded output while P is
+# recomputed in fp32. A CPU test measures it
+# (tests/test_torch_t5_bf16_grads.py, 256 encoder keys): on those leaves the
+# reference's own bf16 Pallas kernels read 2.5-3.7% from fp32 and its plain
+# autodiff 0.9-1.9%, the other leaves 0.8% on both, and the port's plain path
+# 1.7-3.2%, no farther than the reference's kernels (and 1.6-3.7% from them,
+# as far as the reference's autodiff is). That test runs at hidden 64; the
+# larger distance at T5-base is not reproduced against the reference there.
 # Those leaves, and only those (T5_NOISY), are held in fp32 instead (every
-# leaf of the fp32 kernel path within T5_FP32_GRAD_REL_TOL of the fp32
-# plain path), by the bf16 kernels against their plain versions at T5's
-# exact shapes (t5_kernel_cases), and each within T5_NOISY_TOL of its fp32
-# gradient (a zero gradient reads 1). The fp32 check's tolerance is past
-# fp32's rounding because the same leaves amplify fp32 sums taken in
-# another order (~1e-7) some hundredfold
+# leaf of the fp32 kernel path within T5_FP32_GRAD_REL_TOL of the fp32 plain
+# path), by the bf16 kernels against their plain versions at T5's exact shapes
+# (t5_kernel_cases), and each within T5_NOISY_TOL of its fp32 gradient (a zero
+# gradient reads 1). The fp32 check's tolerance is past fp32's rounding
+# because the same leaves amplify fp32 sums taken in another order (~1e-7)
+# some hundredfold
 T5_FP32_GRAD_REL_TOL = 1e-3
 T5_WELL_POSED = 0.05
 T5_NOISY_TOL = 0.5
@@ -6871,6 +6904,542 @@ def train_t5(seed: int, dev, card: str) -> dict:
     return out
 
 
+# -- phase 16: the rest of amp (amp.F, scale_loss, fp16_utils) ----------------
+
+# amp.F at the activation shapes of GPT-2 345M (8 x 1024 tokens, hidden
+# 1024, ffn 4096, 16 heads, vocab 50304) and ResNet-50's first stage,
+# each value against the same call on fp64 copies of the inputs: the
+# largest |error| over the largest |value|. fp32 (TF32 off): sums of up to
+# 50304 terms in other orders, ~1e-7 a term; fp16 and bf16 outputs carry
+# their inputs' and their own rounding (2^-11 and 2^-8 relative, summed
+# over 576-4096 products at random signs)
+AMP_F_TOLS = {torch.float32: 1e-5, torch.float16: 2.0 ** -8,
+              torch.bfloat16: 2.0 ** -5}
+AMP_F_POLICIES = (("none", None, False), ("O1", "O1", False),
+                  ("O4", "O4", False), ("O1_disable_casts", "O1", True))
+AMP_O1_STEPS = 30
+# apex's examples/dcgan/main_amp.py: batch 64, nz 100, ngf = ndf = 64,
+# lr 2e-4, O1; images 16 x 16 (the reference's two stride-2 layers; the
+# upstream script trains at 64 x 64)
+DCGAN_ARGV = ["--steps", "20", "--batch-size", "64", "--nz", "100",
+              "--feat", "64", "--lr", "2e-4", "--opt-level", "O1"]
+DCGAN_POISON_STEP = 10
+# One D step card against CPU holds every leaf of the gradient within
+# TRAIN32_GRAD_REL_TOL relative L2 but D's dense.bias. That leaf is one
+# scalar, the sum of the real half's mean(sigmoid(logit) - 1) and the fake
+# half's mean(sigmoid(logit)), whose terms have opposite signs and nearly
+# cancel at random weights (-0.518 + 0.526, the sum 146 times smaller than
+# the terms' magnitudes: tests/test_torch_amp_examples.py), so the logits'
+# rounding in another summation order (cuDNN's against the CPU's) reaches
+# it amplified by that ratio. It alone is held in absolute terms: within
+# TRAIN32_GRAD_REL_TOL of the sum of its terms' magnitudes (times the loss
+# scale), mean(1 - sigmoid(real)) + mean(sigmoid(fake)) on the CPU
+DCGAN_NEAR_CANCELLING = "dense.bias"
+# amp.scale_loss on the card: an inf put at this flat index of D's
+# gradient of the scaled loss (inside conv1.weight)
+SCALE_LOSS_INF_LEAF, SCALE_LOSS_INF_AT = "conv1.weight", 1234
+# GPT-2 345M at fp16 under FP16_Optimizer: steps until five are taken
+# after the last skip, at most FP16_OPT_CAP (2^32 down to 2^16 is 16
+# halvings)
+FP16_OPT_AFTER_SKIP, FP16_OPT_CAP = 5, 40
+
+
+def _amp_f_inputs(seed: int, dev) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+    return {
+        "linear": ((rnd(8192, 1024), rnd(4096, 1024, scale=0.03),
+                    rnd(4096)), {}),
+        "layer_norm": ((rnd(8192, 4096), 4096, rnd(4096), rnd(4096)), {}),
+        "gelu": ((rnd(8192, 4096, scale=2),), {}),
+        "softmax": ((rnd(8, 16, 1024, 1024, scale=3),), {}),
+        "cross_entropy": ((rnd(8192, 50304, scale=2), torch.randint(
+            0, 50304, (8192,), generator=gen, device=dev)), {}),
+        "add": ((rnd(8192, 1024).half(), torch.full(
+            (), 1.7, dtype=torch.float32, device=dev)), {}),
+        "conv2d": ((rnd(128, 64, 56, 56), rnd(64, 64, 3, 3, scale=0.05),
+                    rnd(64)), {"padding": 1}),
+    }
+
+
+def _amp_f_expected(name: str, level) -> torch.dtype:
+    """The output dtype the lists give: a whitelisted op in the compute
+    dtype of an active policy, a promoted one in the widest float of its
+    operands (fp16 with an fp32 0-d tensor: fp32), anything else fp32."""
+    if level is not None and name in amp.lists.COMPUTE_FUNCS:
+        return amp.OPT_LEVELS[level].compute_dtype
+    return torch.float32
+
+
+def _rel_max(got, want) -> float:
+    return float((got.double() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-300))
+
+
+def amp_f_cases(seed: int, dev) -> dict:
+    """16a: every case of ``_amp_f_inputs`` under no policy, O1, O4 and
+    O1 inside ``disable_casts``: the output dtype the lists give, the value
+    within AMP_F_TOLS of its dtype against fp64; then the banned
+    ``binary_cross_entropy``, refused under O1 and run with
+    ``allow_banned``."""
+    out = {}
+    with torch.no_grad():
+        for name, (args, kw) in _amp_f_inputs(seed, dev).items():
+            fn = getattr(amp.F, name)
+            with amp.policy_scope(None):
+                want = fn(*(a.double() if torch.is_tensor(a)
+                            and a.is_floating_point() else a for a in args),
+                          **kw)
+            row = {}
+            for label, level, disabled in AMP_F_POLICIES:
+                props = None if level is None else amp.OPT_LEVELS[level]
+                with amp.policy_scope(props):
+                    if disabled:
+                        with amp.disable_casts():
+                            got = fn(*args, **kw)
+                    else:
+                        got = fn(*args, **kw)
+                dtype = _amp_f_expected(name, None if disabled else level)
+                err = _rel_max(got, want)
+                row[label] = {"dtype": str(got.dtype)[6:], "rel_err": err}
+                check(got.dtype == dtype, f"amp.F.{name} under {label}: "
+                      f"{got.dtype}, the lists give {dtype}")
+                check(err <= AMP_F_TOLS[got.dtype], f"amp.F.{name} under "
+                      f"{label}: {err:.3e} from fp64 (tol "
+                      f"{AMP_F_TOLS[got.dtype]})")
+                del got
+            shapes = [tuple(a.shape) for a in args if torch.is_tensor(a)]
+            print(f"  amp.F.{name} {shapes}: " + "; ".join(
+                f"{k} {v['dtype']} {v['rel_err']:.2e}" for k, v in
+                row.items()))
+            out[name] = row
+            del want, args
+            torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(seed + 31)
+        p = torch.rand(8192, 1024, generator=gen, device=dev) * 0.9 + 0.05
+        t = (torch.rand(8192, 1024, generator=gen, device=dev) < 0.5).float()
+        with amp.policy_scope(amp.OPT_LEVELS["O1"]):
+            try:
+                amp.F.binary_cross_entropy(p, t)
+                refused = False
+            except RuntimeError:
+                refused = True
+            prev = amp_state.allow_banned
+            amp_state.allow_banned = True
+            try:
+                got = amp.F.binary_cross_entropy(p, t)
+            finally:
+                amp_state.allow_banned = prev
+        with amp.policy_scope(None):
+            err = _rel_max(got, amp.F.binary_cross_entropy(p.double(),
+                                                           t.double()))
+        print(f"  amp.F.binary_cross_entropy (8192, 1024): refused under O1 "
+              f"{refused}; with allow_banned {str(got.dtype)[6:]} "
+              f"{err:.2e} from fp64")
+        check(refused, "binary_cross_entropy ran under O1")
+        check(got.dtype == torch.float32 and err <= AMP_F_TOLS[torch.float32],
+              "binary_cross_entropy with allow_banned")
+        out["binary_cross_entropy"] = {"refused_under_O1": refused,
+                                       "rel_err": err}
+    return out
+
+
+def amp_o1_example(dev) -> dict:
+    """16b: ``examples.amp_functional.main`` under O1 and O4 (30 steps of
+    FusedSGD under ``make_train_step``): the loss falls, the SGD kernel
+    launches once a step and nothing else launches."""
+    out = {}
+    for level in ("O1", "O4"):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = amp_functional.main(dev, level, AMP_O1_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _build.launch_counts()
+        print(f"  {level}: losses {[round(x, 4) for x in res['losses'][::5]]}"
+              f" ... {res['losses'][-1]:.4f}, scales {set(res['scales'])}, "
+              f"launches {launches}, {wall:.2f} s")
+        check(all(np.isfinite(res["losses"])), f"amp_functional {level}: "
+              "non-finite loss")
+        check(res["losses"][-1] < res["losses"][0],
+              f"amp_functional {level}: the loss did not fall")
+        check(launches == {mt_ops.SGD_KERNEL: AMP_O1_STEPS},
+              f"amp_functional {level}: launches {launches}, not "
+              f"{mt_ops.SGD_KERNEL} once a step")
+        out[level] = {"losses": res["losses"], "scales": res["scales"],
+                      "launches": launches, "steps": AMP_O1_STEPS,
+                      "wall_s": wall}
+    return out
+
+
+def _plain_adam(opt: FusedAdam, state, g, grad_scale) -> torch.Tensor:
+    """The master after ``opt``'s step on ``g`` by Adam's plain version,
+    on the card."""
+    p, *_ = fused_adam_update(
+        state.master.clone(), state.slots["m"].clone(),
+        state.slots["v"].clone(), g.float(), plain=True, lr=opt.lr,
+        beta1=opt.betas[0], beta2=opt.betas[1], eps=opt.eps,
+        step=state.count + 1, adam_w_mode=opt.adam_w_mode,
+        bias_correction=opt.bias_correction, weight_decay=opt.weight_decay,
+        grad_scale=grad_scale, in_place=False)
+    return p
+
+
+def dcgan_step_check(dev) -> dict:
+    """16c, one D step and one G step from the same weights and batch:
+    the loss and flat gradient on the card against the CPU's (the path's
+    only kernel is Adam's; the convolutions are cuDNN's, TF32 off) within
+    TRAIN32_LOSS_TOL and TRAIN32_GRAD_REL_TOL a leaf; each update by the
+    Adam kernel bitwise Adam's plain version given the same gradient."""
+    args = dcgan_amp.parse(DCGAN_ARGV)
+    nets = {d: dcgan_amp.build(args, d) for d in ("cpu", dev)}
+    real = {d: dcgan_amp.real_images(args, d) for d in nets}
+    z = jrandom.normal(jrandom.split(jrandom.PRNGKey(2))[1],
+                       (args.batch_size, args.nz))
+    scale = LossScaler().init().loss_scale
+    out = {}
+    opts, states = {}, {}
+    for d, (netG, netD) in nets.items():
+        opts[d] = (FusedAdam(lr=args.lr, betas=(0.5, 0.999)),
+                   FusedAdam(lr=args.lr, betas=(0.5, 0.999)))
+        states[d] = [opts[d][0].init(dict(netD.named_parameters())),
+                     opts[d][1].init(dict(netG.named_parameters()))]
+    with torch.no_grad():
+        netG, netD = nets["cpu"]
+        fake = functional_call(netG, opts["cpu"][1].master_params(
+            states["cpu"][1]), (z,))
+        pD = opts["cpu"][0].master_params(states["cpu"][0])
+        bias_terms = scale * float(
+            (1 - torch.sigmoid(functional_call(netD, pD, (real["cpu"],))))
+            .mean() + torch.sigmoid(functional_call(netD, pD, (fake,)))
+            .mean())
+    for which in ("D", "G"):
+        res = {}
+        for d, (netG, netD) in nets.items():
+            sD, sG = states[d]
+            if which == "D":
+                fn = sD.space.grad_fn(lambda p: dcgan_amp.d_loss(
+                    netD, netG, p, opts[d][1].master_params(sG), real[d],
+                    z.to(d)) * scale, with_value=True)
+                res[d] = fn(sD.master)
+            else:
+                fn = sG.space.grad_fn(lambda p: dcgan_amp.g_loss(
+                    netD, netG, p, opts[d][0].master_params(sD),
+                    z.to(d)) * scale, with_value=True)
+                res[d] = fn(sG.master)
+        k = 0 if which == "D" else 1
+        space = states[dev][k].space
+        (lc, gc), (lp, gp) = res[dev], res["cpu"]
+        loss_gap = abs(float(lc) - float(lp)) / scale
+        card, host = (space.unpack(g_, "buffer") for g_ in (gc, gp))
+        rels = {n: _rel_l2(card[n].cpu(), host[n]) for n in card}
+        rule = ", ".join(f"{n} {e:.3e}" for n, e in rels.items())
+        bias_gap = None
+        if which == "D":
+            n_ = DCGAN_NEAR_CANCELLING
+            bias_gap = abs(float(card[n_]) - float(host[n_])) / bias_terms
+            rule += (f"; {n_} |diff| {bias_gap:.3e} of its terms' "
+                     f"magnitudes {bias_terms / scale:.4f} (tol "
+                     f"{TRAIN32_GRAD_REL_TOL}), {n_} itself "
+                     f"{float(host[n_]) / scale:.4e}")
+            del rels[n_]
+        worst_n = max(rels, key=rels.get)
+        worst = rels[worst_n]
+        opt = opts[dev][k]
+        want = _plain_adam(opt, states[dev][k], gc, scale)
+        _, new = opt.step_flat(states[dev][k], gc, grad_scale=scale,
+                               skip_if_nonfinite=True)
+        torch.cuda.synchronize()
+        same = torch.equal(new.master.view(torch.int32),
+                           want.view(torch.int32))
+        # the CPU's state steps on the card's gradient, so the next step
+        # starts from the same weights on both sides
+        _, states["cpu"][k] = opts["cpu"][k].step_flat(
+            states["cpu"][k], gc.cpu(), grad_scale=scale,
+            skip_if_nonfinite=True)
+        states[dev][k] = new
+        cpu_same = torch.equal(states["cpu"][k].master,
+                               new.master.cpu())
+        print(f"  {which} step: loss card vs CPU |diff| {loss_gap:.3e} "
+              f"(tol {TRAIN32_LOSS_TOL}); gradient relative L2 by leaf "
+              f"{rule}; worst held {worst:.3e} ({worst_n}, tol "
+              f"{TRAIN32_GRAD_REL_TOL}); Adam kernel bitwise its plain "
+              f"version {same} (and the CPU's update {cpu_same})")
+        check(loss_gap <= TRAIN32_LOSS_TOL and worst <= TRAIN32_GRAD_REL_TOL
+              and (bias_gap is None or bias_gap <= TRAIN32_GRAD_REL_TOL),
+              f"DCGAN {which}: the card's gradient disagrees with the CPU's")
+        check(same, f"DCGAN {which}: the Adam kernel's update is not its "
+              "plain version's")
+        out[which] = {"loss_gap": loss_gap, "grad_rel_l2": worst,
+                      "grad_rel_l2_worst_leaf": worst_n,
+                      "grad_rel_l2_by_leaf": rels,
+                      "near_cancelling_gap": bias_gap,
+                      "bitwise": same, "cpu_bitwise": cpu_same}
+    return out
+
+
+def scale_loss_check(dev) -> dict:
+    """16c, one D step through ``amp.scale_loss`` on the card, from the
+    example's first weights and batch: the backward runs inside the block
+    into D's flat gradient, whose views go to the handle; leaving the
+    block unscales them and advances D's scaler, and FusedAdam steps on
+    the unscaled gradients (grad_scale 1, the handle's ``skip`` as
+    ``extra_found_inf``). Held against the fused path on the same
+    gradients of the scaled loss (grad_scale the loss scale, found_inf
+    from its own sweep): the unscaled gradients bitwise the scaled ones
+    times 2^-16 (the scale a power of two), ``skip`` and ``found_inf``
+    equal, the scaler states equal and the masters bitwise. Then the same
+    with an inf at SCALE_LOSS_INF_AT of SCALE_LOSS_INF_LEAF: both paths
+    skip and keep the master, both halve the scale, and the unscaled
+    gradients are non-finite at that one index and nowhere else."""
+    args = dcgan_amp.parse(DCGAN_ARGV)
+    netG, netD = dcgan_amp.build(args, dev)
+    real = dcgan_amp.real_images(args, dev)
+    z = jrandom.normal(jrandom.split(jrandom.PRNGKey(2))[1],
+                       (args.batch_size, args.nz), device=dev)
+    opt = FusedAdam(lr=args.lr, betas=(0.5, 0.999))
+    with amp.policy_scope(amp_state.get_active()):
+        _, state, astate = amp.initialize(dict(netD.named_parameters()),
+                                          opt, opt_level=args.opt_level)
+    space, ss = state.space, astate.scalers[0]
+    scaler = amp.make_scaler(astate.properties)
+    pG = {n: p.detach() for n, p in netG.named_parameters()}
+    inf_at = (space.offsets[space.names.index(SCALE_LOSS_INF_LEAF)]
+              + SCALE_LOSS_INF_AT)
+    out = {}
+    for case in ("clean", "inf"):
+        grad = torch.zeros_like(state.master)
+        loss = dcgan_amp.d_loss(netD, netG, space.leaves(state.master, grad),
+                                pG, real, z)
+        with amp.scale_loss(loss, astate, loss_id=0) as scaled:
+            scaled.loss.backward()
+            if case == "inf":
+                grad[inf_at] = float("inf")
+            scaled.grads = space.unpack(grad, "buffer")
+            scaled_loss = float(scaled.loss.detach())
+        unscaled = space.pack(scaled.grads, dtype=torch.float32, device=dev)
+        _, fused = opt.step_flat(state, grad, grad_scale=ss.loss_scale,
+                                 skip_if_nonfinite=True)
+        ss_fused = scaler.update(ss, fused.found_inf)
+        _, handle = opt.step_flat(state, unscaled, grad_scale=1.0,
+                                  skip_if_nonfinite=True,
+                                  extra_found_inf=scaled.skip)
+        ss_handle = scaled.amp_state.scalers[0]
+        torch.cuda.synchronize()
+        bad = torch.nonzero(~torch.isfinite(unscaled)).flatten().tolist()
+        res = {
+            "loss_scaled": (scaled_loss
+                            == float(loss.detach()) * ss.loss_scale),
+            "grads_bitwise": torch.equal(unscaled, grad * (
+                1.0 / ss.loss_scale)),
+            "skip": float(scaled.skip), "found_inf": float(fused.found_inf),
+            "scalers_equal": ss_handle == ss_fused,
+            "scale_after": ss_handle.loss_scale,
+            "masters_bitwise": torch.equal(handle.master.view(torch.int32),
+                                           fused.master.view(torch.int32)),
+            "master_kept": torch.equal(handle.master, state.master),
+            "nonfinite_at": bad}
+        want_skip = float(case == "inf")
+        print(f"  scale_loss, {case}: scaled loss exact "
+              f"{res['loss_scaled']}; unscaled gradients bitwise the fused "
+              f"path's {res['grads_bitwise']}; skip {res['skip']}, fused "
+              f"found_inf {res['found_inf']}; "
+              f"scale {ss.loss_scale} -> {ss_handle.loss_scale} (the fused "
+              f"path's: {res['scalers_equal']}); masters bitwise "
+              f"{res['masters_bitwise']}; non-finite at {bad[:4]} (inf put "
+              f"at {inf_at if case == 'inf' else 'none'})")
+        check(res["loss_scaled"] and res["grads_bitwise"]
+              and res["skip"] == res["found_inf"] == want_skip
+              and res["scalers_equal"] and res["masters_bitwise"]
+              and res["master_kept"] == (case == "inf")
+              and ss_handle.loss_scale == (ss.loss_scale / 2 if want_skip
+                                           else ss.loss_scale)
+              and bad == ([inf_at] if want_skip else []),
+              f"amp.scale_loss ({case}) disagrees with the fused path")
+        out[case] = res
+    return out
+
+
+def dcgan_train(dev) -> dict:
+    """16c: the DCGAN example at apex's widths (DCGAN_ARGV), a nan in D's
+    gradient at DCGAN_POISON_STEP: losses finite, D's scale halved there
+    and G's not, D's count one behind G's, the Adam kernel exactly twice
+    an iteration (read before each D update) and nothing else."""
+    args = dcgan_amp.parse(DCGAN_ARGV)
+    netG, netD = dcgan_amp.build(args, dev)
+    adam_before = []
+
+    def hook(net, i, g):
+        if net == "D":
+            adam_before.append(_build.launch_counts().get(
+                mt_ops.ADAM_KERNEL, 0))
+            if i == DCGAN_POISON_STEP:
+                g = g.clone()
+                g[0] = float("nan")
+        return g
+
+    print(f"  batch {args.batch_size} x 16 x 16 x 3 (the reference's "
+          f"architecture: 16 x 16 images; apex's script trains at 64 x 64), "
+          f"nz {args.nz}, feat {args.feat}, lr {args.lr}, "
+          f"{args.opt_level}, {args.steps} steps; "
+          f"{sum(p.numel() for p in netG.parameters())} + "
+          f"{sum(p.numel() for p in netD.parameters())} parameters")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = dcgan_amp.train(netG, netD, args, dev, grad_hook=hook)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    around = slice(DCGAN_POISON_STEP - 1, DCGAN_POISON_STEP + 2)
+    print(f"  losses D {[round(v_, 4) for v_ in res['lossD'][::5]]}, G "
+          f"{[round(v_, 4) for v_ in res['lossG'][::5]]} (every fifth); "
+          f"scales D {res['scaleD'][around]} G {res['scaleG'][around]} "
+          f"around the nan; counts D {res['stateD'].count} G "
+          f"{res['stateG'].count}; launches {launches}; {wall:.2f} s")
+    losses = res["lossD"] + res["lossG"]
+    check(all(np.isfinite(losses)), "DCGAN: a non-finite loss")
+    s = DCGAN_POISON_STEP
+    check(res["scaleD"][s] == res["scaleG"][s] / 2
+          and res["scaleD"][s - 1] == res["scaleG"][s - 1],
+          "DCGAN: the scalers did not move apart at the nan")
+    check(res["stateD"].count == args.steps - 1
+          and res["stateG"].count == args.steps,
+          "DCGAN: the skipped D step was counted")
+    check(adam_before == [2 * i for i in range(args.steps)]
+          and launches == {mt_ops.ADAM_KERNEL: 2 * args.steps},
+          f"DCGAN: Adam launched {adam_before} before each D step, "
+          f"{launches} in all, not twice an iteration")
+    return {"lossD": res["lossD"], "lossG": res["lossG"],
+            "scaleD": res["scaleD"], "scaleG": res["scaleG"],
+            "launches": launches, "steps": args.steps, "wall_s": wall}
+
+
+def train_fp16_optimizer(seed: int, dev, card: str) -> dict:
+    """16d: GPT-2 345M at fp16 (flash backend) under
+    ``FP16_Optimizer(FusedAdam(lr=1e-4, weight_decay=0.01),
+    dynamic_loss_scale=True)`` through ``PretrainStep``: from 2^32 until
+    FP16_OPT_AFTER_SKIP steps are taken after the last skip (at most
+    FP16_OPT_CAP). A skipped step leaves the master bitwise and halves the
+    scale; every step, taken or skipped, launches the fp16 LayerNorm and
+    flash kernels as phase 14c counts them and Adam once. Then
+    ``make_train_step(FusedAdam, scaler=LossScaler(init_scale=<the first
+    scale that did not overflow>, max_loss_scale=inf))`` from the same
+    weights: after as many taken steps the master is bitwise the first
+    run's."""
+    cfg = GPTConfig.gpt2_345m(dtype=torch.float16, attention_backend="flash")
+    per_step = {k_: 2 * cfg.num_layers + 1 for k_ in _ln_names(torch.float16)}
+    per_step.update({k_: cfg.num_layers for k_ in _flash_names(torch.float16)})
+    per_step[mt_ops.ADAM_KERNEL] = 1
+    x, y = _gpt_batch(seed, dev, cfg)
+
+    def build(train_step_of):
+        model = init_gpt_pretrain_params(
+            cfg, torch.Generator().manual_seed(seed), device=dev)
+        opt = FusedAdam(lr=1e-4, weight_decay=0.01)
+        tstep = train_step_of(opt)
+        step = PretrainStep(model, opt, train_step=tstep)
+        return step, step.init(), tstep.scaler.init()
+
+    step, state, ss = build(lambda o: fp16_utils.FP16_Optimizer(
+        o, dynamic_loss_scale=True).train_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scales, skipped, times, losses = [], [], [], []
+    first_ok, since_skip, launches = None, 0, {}
+    while since_skip < FP16_OPT_AFTER_SKIP and len(scales) < FP16_OPT_CAP:
+        before, count, scale = state.master.clone(), state.count, \
+            ss.loss_scale
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, ss, loss = step(state, x, y, scaler_state=ss)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        got = _build.launch_counts()
+        for k_, n_ in got.items():
+            launches[k_] = launches.get(k_, 0) + n_
+        skip = state.count == count
+        check(got == per_step, f"FP16_Optimizer step {len(scales)}: "
+              f"launches {got}, not {per_step}")
+        if skip:
+            check(torch.equal(state.master, before)
+                  and ss.loss_scale == scale / 2,
+                  f"FP16_Optimizer step {len(scales)}: a skipped step moved "
+                  "the master or did not halve the scale")
+            since_skip = 0
+        else:
+            first_ok = scale if first_ok is None else first_ok
+            since_skip += 1
+        scales.append(ss.loss_scale)
+        skipped.append(skip)
+        del before
+    taken = state.count
+    print(f"  FP16_Optimizer (2^32 start): scale after each step {scales}; "
+          f"skipped {[i for i, s_ in enumerate(skipped) if s_]} "
+          f"({sum(skipped)} of {len(scales)}); losses of the taken steps "
+          f"{[round(l_, 4) for l_, s_ in zip(losses, skipped) if not s_]}")
+    check(since_skip == FP16_OPT_AFTER_SKIP, f"FP16_Optimizer: not "
+          f"{FP16_OPT_AFTER_SKIP} taken steps after the last skip within "
+          f"{FP16_OPT_CAP} steps")
+    check(all(np.isfinite(losses)), "FP16_Optimizer: a non-finite loss")
+    peak = torch.cuda.max_memory_allocated()
+    taken_ms = [t * 1e3 for t, s_ in zip(times, skipped) if not s_]
+    master = state.master.clone()
+    del step, state
+    torch.cuda.empty_cache()
+    step, state, ss = build(lambda o: make_train_step(o, scaler=LossScaler(
+        init_scale=first_ok, max_loss_scale=float("inf"))))
+    n2 = 0
+    while state.count < taken and n2 < FP16_OPT_CAP:
+        state, ss, _ = step(state, x, y, scaler_state=ss)
+        n2 += 1
+    same = torch.equal(state.master.view(torch.int32),
+                       master.view(torch.int32))
+    print(f"  make_train_step from scale {first_ok}: {taken} taken steps in "
+          f"{n2}; master bitwise the FP16_Optimizer run's: {same}")
+    check(same, "FP16_Optimizer and make_train_step disagree")
+    prof = _profiled(lambda: step(state, x, y, scaler_state=ss),
+                     "GPT-2 fp16 FP16_Optimizer step",
+                     {"flash": ("flash_",), "optimizer": ("adam_kernel",),
+                      **LN_PROFILE_SHARES})[1]
+    busy = (prof["device_busy_ms"] / prof["wall_ms"]
+            if prof["wall_ms"] > 0 else None)
+    step_ms = float(np.median(taken_ms))
+    print(f"  GPT-2 345M fp16 FP16_Optimizer: median step of the taken "
+          f"{step_ms:.2f} ms ({len(taken_ms)} steps; all "
+          f"{[round(t, 1) for t in taken_ms]}), peak memory "
+          f"{peak / 2**30:.2f} GiB, busy share "
+          f"{'not measured' if busy is None else f'{100 * busy:.1f}%'} "
+          f"on {card}")
+    del master
+    torch.cuda.empty_cache()
+    return {"scales": scales, "skipped": skipped, "losses": losses,
+            "first_ok_scale": first_ok, "taken": taken,
+            "make_train_step_steps": n2, "bitwise": same,
+            "launches": launches, "steps": len(scales),
+            "step_ms": step_ms, "step_ms_taken": taken_ms,
+            "peak_gib": peak / 2**30, "busy_share": busy, "profile": prof}
+
+
+def amp_phase(seed: int, dev, card: str) -> dict:
+    """Phase 16: amp.F on the card (16a), the O1 example (16b), the DCGAN
+    with two scalers and a step through amp.scale_loss (16c) and GPT-2
+    345M under FP16_Optimizer (16d)."""
+    out = {"amp_f": amp_f_cases(seed, dev)}
+    torch.cuda.empty_cache()
+    out["o1_example"] = amp_o1_example(dev)
+    out["dcgan_step"] = dcgan_step_check(dev)
+    out["scale_loss"] = scale_loss_check(dev)
+    out["dcgan"] = dcgan_train(dev)
+    torch.cuda.empty_cache()
+    out["fp16_optimizer"] = train_fp16_optimizer(seed, dev, card)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7056,6 +7625,9 @@ def main(argv=None) -> int:
     t5 = phase(f"phase 15: T5-base pretraining ({T5_BATCH} x "
                f"{T5_ENC}/{T5_DEC}, FusedAdam) on both attention backends",
                lambda: train_t5(args.seed, dev, card))
+    amp16 = phase("phase 16: amp.F at GPT-2 345M's and ResNet-50's shapes, "
+                  "the O1 example, the two-scaler DCGAN and GPT-2 345M under "
+                  "FP16_Optimizer", lambda: amp_phase(args.seed, dev, card))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -7203,6 +7775,10 @@ def main(argv=None) -> int:
                          ("gpt_fp16_softmax", f16["softmax"]),
                          ("t5_softmax", t5["softmax"]),
                          ("t5_flash", t5["flash"]),
+                         ("amp_o1_example", amp16["o1_example"]["O1"]),
+                         ("amp_o4_example", amp16["o1_example"]["O4"]),
+                         ("dcgan", amp16["dcgan"]),
+                         ("gpt_fp16_optimizer", amp16["fp16_optimizer"]),
                          *((f"mha_{d_}_{k_}", mha16[d_][k_])
                            for d_ in mha16 for k_ in (
                                "self_future", "self_key_padding",
@@ -7213,7 +7789,7 @@ def main(argv=None) -> int:
         drow[f"launches_{counter}"] = gdr["launches"].get(counter, 0)
 
     check(len(kernels) == 66, f"{len(kernels)} kernels in the line, not 66")
-    print("phase 16: kernels")
+    print("phase 17: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -7240,7 +7816,7 @@ def main(argv=None) -> int:
                        "flash_report": bwr,
                        "flash_wide": {"launches": wide["launches"]},
                        "training_t5": t5,
-                       **line}, f, indent=1)
+                       "amp": amp16, **line}, f, indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -238,7 +238,11 @@ def test_training_modules_import_no_jax():
             "apex_tpu_torch.multi_tensor.segmented, "
             "apex_tpu_torch.multi_tensor.engine, "
             "apex_tpu_torch.optimizers.fused, apex_tpu_torch.models.pretrain, "
-            "apex_tpu_torch.models.convert, apex_tpu_torch.random; "
+            "apex_tpu_torch.models.convert, apex_tpu_torch.random, "
+            "apex_tpu_torch.amp.nn_functional, apex_tpu_torch.amp.handle, "
+            "apex_tpu_torch.amp.functional, apex_tpu_torch.amp.lists, "
+            "apex_tpu_torch.fp16_utils, apex_tpu_torch.examples.amp_functional, "
+            "apex_tpu_torch.examples.dcgan_amp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'apex_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
