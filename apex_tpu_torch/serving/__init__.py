@@ -1,5 +1,6 @@
-"""Serving: paged KV cache, prefill/decode steps and the
-continuous-batching scheduler (counterpart of ``apex_tpu/serving/``).
+"""Serving: paged KV cache, prefill/decode steps, the
+continuous-batching scheduler with its resilience and request planes
+(counterpart of ``apex_tpu/serving/`` except the fleet router).
 
     from apex_tpu_torch.models import GPTConfig, GPTModel
     from apex_tpu_torch.serving import (ContinuousBatcher, KVCache,
@@ -32,12 +33,30 @@ from apex_tpu_torch.serving.kv_cache import (
     gather_kv,
     scrub_blocks,
 )
+from apex_tpu_torch.serving.resilience import (
+    SnapshotError,
+    WeightSwapError,
+    latest_snapshot,
+    load_snapshot,
+    merge_results,
+    params_digest,
+    params_fingerprint,
+    params_signature,
+    resume_requests,
+    save_snapshot,
+    swap_weights,
+    validate_snapshot,
+)
 from apex_tpu_torch.serving.scheduler import (
     ContinuousBatcher,
     Request,
     RequestResult,
     serve_loop,
     static_batch_generate,
+)
+from apex_tpu_torch.serving.tracing import (
+    RequestTrace,
+    RequestTracer,
 )
 
 __all__ = [
@@ -49,17 +68,31 @@ __all__ = [
     "PrefixMatch",
     "Request",
     "RequestResult",
+    "RequestTrace",
+    "RequestTracer",
+    "SnapshotError",
     "StepOut",
     "TRASH_BLOCK",
+    "WeightSwapError",
     "append_kv",
     "append_kv_chunk",
     "append_kv_prefill",
     "apply_copies",
     "gather_kv",
     "greedy_sampling",
+    "latest_snapshot",
+    "load_snapshot",
     "make_decode_step",
+    "merge_results",
+    "params_digest",
+    "params_fingerprint",
+    "params_signature",
+    "resume_requests",
+    "save_snapshot",
     "scrub_blocks",
     "select_token",
     "serve_loop",
     "static_batch_generate",
+    "swap_weights",
+    "validate_snapshot",
 ]

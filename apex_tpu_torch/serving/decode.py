@@ -3,7 +3,9 @@
 Counterpart of ``apex_tpu/serving/decode.py`` (:88-356). Each step runs
 the model over the batch, writes this call's K/V into the cache pools
 in place, and returns the last real token's fp32 logits, the selected
-next token and a per-lane all-finite flag:
+next token and a per-lane all-finite flag, by which the scheduler
+quarantines a lane whose logits are not finite while the rest of its
+batch keeps its tokens:
 
 - ``prefill``: whole right-padded prompts (full causal attention);
 - ``prefill_chunk``: one chunk per sequence resuming at ``starts``,

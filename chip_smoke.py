@@ -355,7 +355,44 @@ Phases, in order; any failure exits non-zero before the last line:
    first scale that did not overflow, from the same weights: the master
    bitwise the first run's after as many taken steps; the median step of
    the taken steps, peak memory and a profiled step's busy share.
-17. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
+17. Serving GPT-2 345M under faults: phase 3's model, cache, eight
+   prompts, MAX_NEW and PREFILL_CHUNK through the scheduler's resilience
+   and request planes, every case ending with no KV block held, its
+   fault path's counters under the reference's names, and the LayerNorm
+   and flash forward kernels launched on its path (counts set to 0 just
+   before, read just after). A faulted run is held to a clean run of the
+   same requests by the comparison rule (``follow_rule``): logits within
+   LOGIT_TOL while the tokens agree, a token differing only at a step
+   whose clean top-2 margin is within LOGIT_TOL (for a sampled lane, the
+   margin of the scores it draws from). (a) The registry, a timeline, a
+   request tracer and an SLO monitor armed against the unarmed engine,
+   in turns: tokens bitwise, and bitwise phase 3's; each request's span
+   sequence; the median wall time a prefill, chunk and decode call;
+   TPOT armed and unarmed. (b) ``decode_nonfinite`` on lane 1 at
+   FAULT_STEP: NaN rows in that lane's cached K/V go through the flash
+   decode kernel, that request alone finishes ``error`` with one
+   ``serving_quarantine`` bundle, and a request admitted next onto its
+   scrubbed blocks decodes finite. (c) A transient ``io:decode_step``
+   index (no quarantine), ``decode_step_exception`` (four lanes
+   quarantined, the queue served) and ``prefill_chunk_exception`` over
+   two prompts resuming a published prefix (both quarantined, the shared
+   blocks released and zeroed), with the retries' wall time. (d) The
+   ``sigterm`` clause under an installed ``PreemptionHandler`` over phase
+   11d's mixed lanes: an atomic snapshot, a fresh engine resumes it
+   (prompt + generated re-prefilled), the merged streams against the
+   uninterrupted run, every sampled token the host sampler's draw under
+   (seed, token index) on its own run's logits; a snapshot truncated by
+   ``serving_snapshot_corrupt`` refused, ``latest_snapshot`` falling back
+   to the good one. (e) GPT-2 345M weights from seed + 1 swapped in at a
+   step boundary: in-flight requests finish, a later request against a
+   fresh engine on the new weights, a state dict with one shape changed
+   refused with one bundle; the host seconds of validation and digests
+   and the install's device ms. (f) A request expiring queued and one in
+   flight. (g) The ``serving_pool_exhausted`` drill holds the first wave
+   past a TTFT objective on a fake clock: one burn-rate alert, admission
+   shed, recovery, the violation bundle with the traces and
+   ``introspect()``.
+18. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
    kernels and variants, each with its launches on its path), then the
    device line the caller reads.
 
@@ -369,9 +406,13 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -379,7 +420,8 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from apex_tpu_torch import _build, amp, fp16_utils
+from apex_tpu_torch import _build, amp, fp16_utils, telemetry
+from apex_tpu_torch import records as port_records
 from apex_tpu_torch import random as jrandom
 from apex_tpu_torch.amp import _amp_state as amp_state
 from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
@@ -439,13 +481,35 @@ from apex_tpu_torch.optimizers import (
 from apex_tpu_torch.parallel import LARC
 from apex_tpu_torch.transformer import context_parallel
 from apex_tpu_torch.tools import kprobe, launch_probe
+from apex_tpu_torch.resilience import faults
+from apex_tpu_torch.resilience.guard import (
+    PreemptionHandler,
+    install_preemption_handler,
+)
 from apex_tpu_torch.serving import (
     ContinuousBatcher,
     DecodeStep,
     KVCache,
     Request,
+    RequestTracer,
+    WeightSwapError,
+    latest_snapshot,
+    load_snapshot,
+    merge_results,
+    params_digest,
+    resume_requests,
     select_token,
     serve_loop,
+    swap_weights,
+    validate_snapshot,
+)
+from apex_tpu_torch.telemetry import (
+    InMemorySink,
+    MetricsRegistry,
+    SLOMonitor,
+    SLOTarget,
+    StepTimeline,
+    flight,
 )
 
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
@@ -7440,6 +7504,863 @@ def amp_phase(seed: int, dev, card: str) -> dict:
     return out
 
 
+
+# -- phase 17: serving GPT-2 345M under injected faults -------------------------
+
+# the step each drill fires at: a few decode steps in, with every prompt
+# admitted (phase 3's eight requests are all in the engine by step 2)
+FAULT_STEP = 6
+# the SLO drill (17g): admission held for the first SHED_STEPS steps by
+# the pool-exhaustion drill, each step FAKE_DT seconds of the engine's
+# clock, against a TTFT objective the held wave breaks
+SHED_STEPS = 10
+FAKE_DT = 0.05
+SLO_TTFT_S = 0.2
+
+
+class _KeepOut:
+    """Wraps a DecodeStep and keeps its last dispatch's StepOut."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.out = None
+
+    def prefill(self, *a, **kw):
+        self.out = self.inner.prefill(*a, **kw)
+        return self.out
+
+    def prefill_chunk(self, *a, **kw):
+        self.out = self.inner.prefill_chunk(*a, **kw)
+        return self.out
+
+    def decode(self, *a, **kw):
+        self.out = self.inner.decode(*a, **kw)
+        return self.out
+
+
+class _LoggingBatcher(ContinuousBatcher):
+    """A ContinuousBatcher that keeps each emitted token's fp32 logits
+    on the host, by (request id, token index): what the comparison rule
+    reads."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.step_fn = _KeepOut(self.step_fn)
+        self.logits = {}
+
+    def _prefill(self, admitted, state):
+        state, finite = super()._prefill(admitted, state)
+        lg = self.step_fn.out.logits.float().cpu()
+        for i, f in enumerate(admitted):
+            self.logits[(f.req.id, 0)] = lg[i]
+        return state, finite
+
+    def _chunk_batch(self, state, batchees, cidx, s, width):
+        res = super()._chunk_batch(state, batchees, cidx, s, width)
+        lg = self.step_fn.out.logits.float().cpu()
+        for i, (f, cs) in enumerate(batchees):
+            if f.prefilled + cs >= len(f.req.prompt):
+                self.logits[(f.req.id, 0)] = lg[i]
+        return res
+
+    def _decode_batch(self, state, flights, idx, width):
+        res = super()._decode_batch(state, flights, idx, width)
+        lg = self.step_fn.out.logits.float().cpu()
+        for i, f in enumerate(flights):
+            self.logits[(f.req.id, len(f.generated))] = lg[i]
+        return res
+
+
+def _sampled_margin(logits, req, fold_pos: int) -> float:
+    """How far a sampled lane's draw is from another outcome, in logit
+    units as the greedy top-2 margin is: the gap between the two best
+    scores ``select_token`` draws from (top-k and nucleus cut, plus the
+    lane's gumbel noise) times the temperature, or, if smaller, the
+    distance from the cut of the drawn token and of any token outside the
+    cut whose perturbed score beats it (a logit that moves across the
+    cut changes the draw whatever the gap)."""
+    t = float(req.temperature)
+    scaled = logits.double() / t
+    sdesc = torch.sort(scaled, descending=True).values
+    v = scaled.numel()
+    k = min(max(int(req.top_k), 1), v) if req.top_k > 0 else v
+    e = torch.exp(sdesc - sdesc[0])
+    cum = torch.cumsum(e / e.sum(), 0)
+    n_keep = 1 + int((cum[:-1] < req.top_p).sum())
+    thresh = max(float(sdesc[k - 1]), float(sdesc[n_keep - 1]))
+    key = torch.tensor([jrandom.threefry2x32(0, int(req.seed), 0,
+                                             int(fold_pos) & jrandom.M32)],
+                       dtype=torch.int64)
+    full = scaled + jrandom.gumbel(key, (v,), device="cpu")[0].double()
+    inside = scaled >= thresh
+    score = torch.where(inside, full, torch.full_like(full, -float("inf")))
+    top2 = torch.topk(score, 2)
+    w = int(top2.indices[0])
+    margin = min(float(top2.values[0] - top2.values[1]),
+                 float(scaled[w]) - thresh)
+    beat = ~inside & (full > full[w])
+    if bool(beat.any()):
+        margin = min(margin, thresh - float(scaled[beat].max()))
+    return margin * t
+
+
+def follow_rule(label: str, got: dict, clean: dict, got_lg: dict,
+                clean_lg: dict, reqs: dict) -> dict:
+    """The comparison rule for a faulted run against a clean one: while a
+    request's tokens agree, every logit within LOGIT_TOL of the clean
+    run's; a token may differ only at a step whose clean top-2 margin
+    (for a sampled lane, ``_sampled_margin``) is within LOGIT_TOL, and
+    past it the streams part (another context). Counts the steps under
+    the margin."""
+    under, compared, worst, parted, exact = 0, 0, 0.0, [], []
+    for rid, toks in got.items():
+        ref = clean[rid]
+        req = reqs[rid]
+        same = True
+        for j in range(min(len(toks), len(ref))):
+            cl = clean_lg[(rid, j)]
+            if req.temperature > 0:
+                margin = _sampled_margin(cl, req, len(req.prompt) + j)
+            else:
+                top2 = torch.topk(cl, 2).values
+                margin = float(top2[0] - top2[1])
+            under += margin <= LOGIT_TOL
+            gl = got_lg.get((rid, j))
+            d = None
+            if gl is not None:
+                d = float((gl - cl).abs().max())
+                worst = max(worst, d)
+                check(bool(torch.isfinite(gl).all()),
+                      f"17{label}: request {rid} token {j}: non-finite "
+                      "logits")
+                check(d <= LOGIT_TOL, f"17{label}: request {rid} token "
+                      f"{j}: logits {d:.4f} from the clean run's")
+            compared += 1
+            if toks[j] != ref[j]:
+                check(margin <= LOGIT_TOL, f"17{label}: request {rid} "
+                      f"token {j} differs at a clean margin {margin:.4f}")
+                parted.append([rid, j, round(margin, 5),
+                               None if d is None else round(d, 5)])
+                same = False
+                break
+        if same and len(toks) == len(ref):
+            exact.append(rid)
+    print(f"  17{label} against the clean run: {compared} tokens compared, "
+          f"logits within {worst:.4f} (tol {LOGIT_TOL}), {under} steps under "
+          f"the {LOGIT_TOL} margin, streams parted at {parted or 'none'}, "
+          f"{len(exact)} of {len(got)} equal token for token")
+    return {"compared": compared, "logit_max_abs_diff": worst,
+            "steps_under_margin": under, "parted": parted,
+            "token_for_token": sorted(map(str, exact))}
+
+
+class _Flight:
+    """The flight recorder over a records directory of the phase's own:
+    counts the bundles each case writes, by trigger."""
+
+    def __init__(self, root: str):
+        os.makedirs(root, exist_ok=True)
+        port_records.RECORDS_DIR = root
+        self.root = root
+        self.rec = flight.enable(keep=1000)
+
+    def names(self) -> set:
+        return {n for n in os.listdir(self.root)
+                if n.startswith(flight.FLIGHT_KIND + "_")}
+
+    def new(self, before: set, trigger: str):
+        """The bundles written since ``before`` (a ``names()``): those of
+        ``trigger``, and all of them."""
+        got = []
+        for name in sorted(self.names() - before):
+            with open(os.path.join(self.root, name)) as f:
+                got.append(json.load(f)["payload"])
+        return [b for b in got if b["trigger"] == trigger], got
+
+
+class _FaultBench:
+    """Phase 17's shared model, cache and prompts, and the engine
+    factory every case runs through."""
+
+    def __init__(self, seed, dev, card, root):
+        self.cfg = GPTConfig.gpt2_345m()
+        self.dev, self.card, self.seed = dev, card, seed
+        self.model = GPTModel(self.cfg, device=dev,
+                              generator=torch.Generator().manual_seed(seed))
+        self.model.requires_grad_(False)
+        self.cache = KVCache.for_config(self.cfg, num_blocks=8 * 1024 // 16,
+                                        block_size=16, device=dev)
+        self.state = self.cache.init_state()
+        rng = np.random.RandomState(seed)
+        self.prompts = [rng.randint(0, self.cfg.vocab_size, n)
+                        for n in PROMPT_LENS]
+        self.rng = np.random.RandomState(seed + 17)
+        self.root = root
+        self.flight = _Flight(os.path.join(root, "records"))
+
+    def requests(self, sampled=False, **kw):
+        return [Request(id=i, prompt=p, max_new_tokens=MAX_NEW,
+                        **(dict(SAMPLED, seed=1000 + i)
+                           if sampled and i % 2 else {}), **kw)
+                for i, p in enumerate(self.prompts)]
+
+    def prompt(self, n: int) -> np.ndarray:
+        return self.rng.randint(0, self.cfg.vocab_size, n)
+
+    def engine(self, logging=True, **kw):
+        self.cache.reset_prefix_cache()
+        kw.setdefault("max_batch", 8)
+        kw.setdefault("registry", MetricsRegistry())
+        return (_LoggingBatcher if logging else ContinuousBatcher)(
+            self.model, self.cache, prefill_chunk=PREFILL_CHUNK, **kw)
+
+    def serve(self, eng, requests):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.state, results = serve_loop(eng, self.state, requests)
+        torch.cuda.synchronize()
+        return {r.id: r for r in results}, time.perf_counter() - t0
+
+    def step(self, eng):
+        self.state, rep = eng.step(self.state)
+        return rep
+
+    def run_out(self, eng) -> list:
+        reps = []
+        while not eng.idle():
+            reps.append(self.step(eng))
+        return reps
+
+    def done(self, label: str, eng, launches: dict) -> dict:
+        """The case's closing checks: no block held, kernels #1 and #2
+        launched on its path."""
+        check(self.cache.blocks_in_use == 0,
+              f"17{label}: {self.cache.blocks_in_use} KV blocks held")
+        check(eng.idle(), f"17{label}: the engine is not idle")
+        for kernel in (layer_norm.KERNEL, attention.KERNEL):
+            check(launches.get(kernel, 0) > 0,
+                  f"17{label}: kernel {kernel} never launched")
+        return {k: launches.get(k, 0)
+                for k in (layer_norm.KERNEL, attention.KERNEL)}
+
+
+def _counter(reg, name: str, **labels) -> float:
+    return reg.counter(name).value(**labels)
+
+
+def _tpot_ms(res: dict) -> float:
+    return float(np.mean([r.tpot_s for r in res.values()])) * 1e3
+
+
+def fault_case_armed(fb: _FaultBench, srv: dict) -> dict:
+    """17a: the registry, the timeline, the tracer and an SLO monitor
+    armed against the unarmed engine: the same tokens bitwise, each
+    request's span sequence, the median wall time a prefill, chunk and
+    decode call, and TPOT armed against unarmed in turns."""
+    runs, launches = [], {}
+    for armed in (False, True, True, False):
+        kw = {}
+        if armed:
+            tl = StepTimeline(capacity=16384)
+            tracer = RequestTracer()
+            slo = SLOMonitor.serving_default(ttft_p99_s=60.0,
+                                             tpot_p99_s=10.0)
+            kw = dict(timeline=tl, tracer=tracer, slo=slo)
+        eng = fb.engine(logging=False, **kw)
+        _build.reset_launch_counts()
+        res, wall = fb.serve(eng, fb.requests())
+        launches = _build.launch_counts()
+        runs.append((armed, res, wall, kw, eng, launches))
+    unarmed = [r for r in runs if not r[0]]
+    armed_runs = [r for r in runs if r[0]]
+    base = {i: r.tokens for i, r in unarmed[0][1].items()}
+    check(base == srv["tokens"], "17a: the unarmed engine's tokens differ "
+          "from phase 3's")
+    for armed, res, *_ in runs:
+        check({i: r.tokens for i, r in res.items()} == base,
+              f"17a: an {'armed' if armed else 'unarmed'} run's tokens "
+              "differ from the unarmed run's")
+    _, res, wall, kw, eng, launches = armed_runs[-1]
+    traces = kw["tracer"].trace_dicts()
+    seqs = {}
+    for t in traces:
+        names = [s["name"] for s in t["spans"]]
+        seqs[t["request_id"]] = names
+        print(f"  17a request {t['request_id']} spans: {' '.join(names)}; "
+              f"marks {' '.join(m['name'] for m in t['marks'])}")
+        check(names[0] == "queued" and names[-1] == "decode",
+              f"17a: request {t['request_id']}: span sequence {names}")
+    per_call = {}
+    for s in kw["timeline"].spans():
+        per_call.setdefault(s.name, []).append(s.dur * 1e3)
+    medians = {k: float(np.median(v)) for k, v in per_call.items()}
+    counts = {k: len(v) for k, v in per_call.items()}
+    chunk_ord = {}
+    for t in traces:
+        for s in t["spans"]:
+            if s["name"].startswith("prefill_chunk["):
+                chunk_ord.setdefault(s["name"], []).append(s["dur"] * 1e3)
+    decode_per = [s["dur"] * 1e3 / s["args"]["dispatches"]
+                  for t in traces for s in t["spans"]
+                  if s["name"] == "decode"]
+    tp_u = [_tpot_ms(r[1]) for r in unarmed]
+    tp_a = [_tpot_ms(r[1]) for r in armed_runs]
+    print(f"  17a per-call wall ms (engine timeline, median of n): "
+          + ", ".join(f"{k} {medians[k]:.3f} (n {counts[k]})"
+                      for k in sorted(medians)))
+    print("  17a per-request chunk spans, median ms: " + ", ".join(
+        f"{k} {np.median(v):.3f} (n {len(v)})"
+        for k, v in sorted(chunk_ord.items())))
+    print(f"  17a decode window per dispatch, median over requests: "
+          f"{np.median(decode_per):.3f} ms")
+    print(f"  17a TPOT ms unarmed {tp_u[0]:.3f}, armed {tp_a[0]:.3f}, armed "
+          f"{tp_a[1]:.3f}, unarmed {tp_u[1]:.3f} (in that order, this call, "
+          f"{fb.card})")
+    snap = eng._registry.snapshot()
+    check(snap["counters"].get('serving_requests{outcome="length"}') == 8,
+          "17a: serving_requests{outcome=length} is not 8")
+    check(kw["slo"].summary()["alerting"] == [], "17a: an SLO alert fired")
+    return {"launches": fb.done("a", eng, launches),
+            "span_sequences": seqs, "per_call_ms": medians,
+            "per_call_n": counts,
+            "chunk_span_ms": {k: float(np.median(v))
+                              for k, v in chunk_ord.items()},
+            "decode_per_dispatch_ms": float(np.median(decode_per)),
+            "tpot_ms_unarmed": tp_u, "tpot_ms_armed": tp_a}
+
+
+def fault_case_nonfinite(fb: _FaultBench, clean: dict) -> dict:
+    """17b: decode_nonfinite at FAULT_STEP on lane 1: that request alone
+    finishes ``error`` through the real decode kernel, one
+    serving_quarantine bundle; a request admitted next lands on the
+    scrubbed blocks and decodes finite."""
+    before = fb.flight.names()
+    eng = fb.engine()
+    reqs = fb.requests()
+    for r in reqs:
+        eng.submit(r)
+    _build.reset_launch_counts()
+    with faults.inject(decode_nonfinite_steps=frozenset({FAULT_STEP}),
+                       decode_nonfinite_lane=1):
+        while eng.step_idx < FAULT_STEP:
+            fb.step(eng)
+        victim = eng.running[1]
+        blocks = set(fb.cache.table(victim.seq_id))
+        # zeroed at once; its published prompt blocks wait for the next
+        # step's pending scrub
+        excl = fb.cache.exclusive_blocks(victim.seq_id)
+        counts = _build.launch_counts()
+        rep = fb.step(eng)
+        step_launch = {k: _build.launch_counts().get(k, 0) - counts.get(k, 0)
+                       for k in (layer_norm.KERNEL, attention.KERNEL)}
+    check(rep["quarantined"] == [victim.req.id],
+          f"17b: quarantined {rep.get('quarantined')}, not "
+          f"[{victim.req.id}]")
+    check(step_launch[attention.KERNEL] > 0, "17b: the poisoned decode did "
+          "not run the flash kernel")
+    nxt = Request(id="next", prompt=fb.prompt(96), max_new_tokens=MAX_NEW)
+    eng.submit(nxt)
+    fb.step(eng)
+    tenant = next(f for f in eng.running + eng.prefilling
+                  if f.req.id == "next")
+    shared = blocks & set(fb.cache.table(tenant.seq_id))
+    check(bool(shared), "17b: the next request got none of the "
+          "quarantined request's blocks")
+    fb.run_out(eng)
+    launches = _build.launch_counts()
+    res = {r.id: r for r in eng.drain()}
+    bad = res[victim.req.id]
+    check(bad.finish_reason == "error" and bad.reason == "quarantined"
+          and "nonfinite" in bad.error, f"17b: {bad.finish_reason} "
+          f"{bad.reason} {bad.error}")
+    for i, r in res.items():
+        if i != victim.req.id:
+            check(r.finish_reason == "length",
+                  f"17b: request {i} finished {r.finish_reason}")
+    quar, allb = fb.flight.new(before, "serving_quarantine")
+    check(len(quar) == 1 and len(allb) == 1,
+          f"17b: {len(quar)} serving_quarantine bundles of {len(allb)}")
+    check(quar[0]["extra"]["requests"] == [str(victim.req.id)],
+          "17b: the bundle names another request")
+    reg = eng._registry
+    check(_counter(reg, "serving_quarantined", reason="nonfinite") == 1,
+          "17b: serving_quarantined{reason=nonfinite} is not 1")
+    pending = int(_counter(reg, "serving_blocks_scrubbed"))
+    check(len(excl) + pending == len(blocks), f"17b: {len(excl)} blocks "
+          f"zeroed at once and {pending} by the pending scrub, of "
+          f"{len(blocks)}")
+    got = {i: r.tokens for i, r in res.items() if i != "next"}
+    rule = follow_rule("b", got, clean["tokens"], eng.logits,
+                       clean["logits"], clean["reqs"])
+    # the next tenant against its own clean run
+    alone = fb.engine()
+    ares, _ = fb.serve(alone, [Request(id="next", prompt=nxt.prompt,
+                                       max_new_tokens=MAX_NEW)])
+    nrule = follow_rule("b next", {"next": res["next"].tokens},
+                        {"next": ares["next"].tokens}, eng.logits,
+                        alone.logits, {"next": nxt})
+    print(f"  17b lane 1 (request {victim.req.id}) quarantined at step "
+          f"{FAULT_STEP} after {len(bad.tokens)} tokens; the next request "
+          f"took {len(shared)} of its {len(blocks)} blocks ({len(excl)} "
+          f"zeroed at once, {pending} by the pending scrub); the poisoned "
+          f"step launched {step_launch}")
+    return {"launches": fb.done("b", eng, launches), "rule": rule,
+            "next_rule": nrule, "victim": victim.req.id,
+            "shared_blocks": len(shared), "zeroed_at_once": len(excl),
+            "blocks_scrubbed": pending}
+
+
+def _timed_steps(fb, eng) -> list:
+    out = []
+    while not eng.idle():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = fb.step(eng)
+        torch.cuda.synchronize()
+        out.append((rep, (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def fault_case_split(fb: _FaultBench, clean: dict) -> dict:
+    """17c: a transient io:decode_step index (absorbed by the split, no
+    quarantine), decode_step_exception (the whole batch quarantines, the
+    queue is served), prefill_chunk_exception (the chunk batch
+    quarantines and releases its prefix references), and the wall time
+    the retries cost."""
+    out, launches_all = {}, {}
+    # c1: one transient call index, the full batch's dispatch at FAULT_STEP
+    eng = fb.engine()
+    for r in fb.requests():
+        eng.submit(r)
+    _build.reset_launch_counts()
+    with faults.inject(io_errors={"decode_step": frozenset({FAULT_STEP})}):
+        steps = _timed_steps(fb, eng)
+    launches_all["c1"] = fb.done("c1", eng, _build.launch_counts())
+    res = {r.id: r for r in eng.drain()}
+    check(all(r.finish_reason == "length" for r in res.values()),
+          "17c1: a request did not finish by length")
+    check(_counter(eng._registry, "serving_quarantined",
+                   reason="exception") == 0, "17c1: a quarantine")
+    faulted = [ms for rep, ms in steps if rep["step"] == FAULT_STEP][0]
+    plain = float(np.median([ms for rep, ms in steps
+                             if rep["step"] > FAULT_STEP]))
+    out["c1"] = {"rule": follow_rule("c1", {i: r.tokens
+                                            for i, r in res.items()},
+                                     clean["tokens"], eng.logits,
+                                     clean["logits"], clean["reqs"]),
+                 "faulted_step_ms": faulted, "median_step_ms": plain}
+    print(f"  17c1 the split retry's step {faulted:.2f} ms against a median "
+          f"later step {plain:.2f} ms")
+    # c2: a step fault at FAULT_STEP with four lanes: all four quarantine
+    eng = fb.engine(max_batch=4)
+    for r in fb.requests():
+        eng.submit(r)
+    _build.reset_launch_counts()
+    with faults.inject(decode_exception_steps=frozenset({FAULT_STEP})):
+        steps = _timed_steps(fb, eng)
+    launches_all["c2"] = fb.done("c2", eng, _build.launch_counts())
+    rep = [rep for rep, _ in steps if rep["step"] == FAULT_STEP][0]
+    res = {r.id: r for r in eng.drain()}
+    gone = rep.get("quarantined", [])
+    check(len(gone) == 4, f"17c2: quarantined {gone}, not four lanes")
+    check(all(res[i].reason == "quarantined" for i in gone),
+          "17c2: a quarantined request finished otherwise")
+    check(sum(r.finish_reason == "length" for r in res.values()) == 4,
+          "17c2: the queue was not served")
+    check(_counter(eng._registry, "serving_quarantined",
+                   reason="exception") == 4, "17c2: counter is not 4")
+    faulted = [ms for rep, ms in steps if rep["step"] == FAULT_STEP][0]
+    out["c2"] = {"rule": follow_rule("c2", {i: r.tokens
+                                            for i, r in res.items()},
+                                     clean["tokens"], eng.logits,
+                                     clean["logits"], clean["reqs"]),
+                 "quarantined": gone, "faulted_step_ms": faulted}
+    print(f"  17c2 quarantined {gone} at step {FAULT_STEP} ({faulted:.2f} ms "
+          "with the split's seven dispatches); the queue served")
+    # c3: two prompts resume a published 512-token prefix by reference;
+    # their chunk dispatch raises at every split retry
+    eng = fb.engine()
+    base = fb.prompts[0]
+    fb.serve(eng, [Request(id="a", prompt=base, max_new_tokens=2)])
+    eng.drain()
+    cidx = eng._chunk_dispatches
+    share = 2 * PREFILL_CHUNK
+    reqs = [Request(id=n, prompt=np.concatenate([base[:share], fb.prompt(m)]),
+                    max_new_tokens=MAX_NEW) for n, m in (("b", 100),
+                                                         ("c", 60))]
+    _build.reset_launch_counts()
+    with faults.inject(prefill_chunk_exception_indices=frozenset({cidx})):
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = fb.step(eng)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    check(rep.get("quarantined") == ["b", "c"],
+          f"17c3: quarantined {rep.get('quarantined')}")
+    check(fb.cache.prefix_stats()["shared_blocks"] == 0,
+          "17c3: a prefix reference was not released")
+    res, _ = fb.serve(eng, [Request(id="d", prompt=fb.prompt(80),
+                                    max_new_tokens=MAX_NEW)])
+    check(res["d"].finish_reason == "length", "17c3: the next request "
+          "was not served")
+    launches_all["c3"] = fb.done("c3", eng, _build.launch_counts())
+    scrubbed = _counter(eng._registry, "serving_blocks_scrubbed")
+    check(scrubbed >= share // 16, f"17c3: {scrubbed} blocks scrubbed")
+    check(_counter(eng._registry, "serving_quarantined",
+                   reason="exception") == 2, "17c3: counter is not 2")
+    print(f"  17c3 chunk dispatch {cidx} quarantined b and c "
+          f"({ms:.2f} ms for the three raising dispatches); their "
+          f"{share // 16} shared prefix blocks released, {int(scrubbed)} "
+          "blocks zeroed; the next request served")
+    out["c3"] = {"quarantine_step_ms": ms, "blocks_scrubbed": scrubbed}
+    out["launches"] = launches_all
+    return out
+
+
+def fault_case_drain(fb: _FaultBench, clean_s: dict, ssv: dict) -> dict:
+    """17d: the sigterm clause at FAULT_STEP under an installed
+    PreemptionHandler, over phase 11d's mixed requests: a snapshot, a
+    fresh engine resumes it, the merged streams against the
+    uninterrupted run, each sampled token redrawn on the host from its
+    own run's logits; then a corrupted snapshot refused by
+    latest_snapshot, which falls back to the good one."""
+    snap_dir = os.path.join(fb.root, "snapshots")
+    handler = install_preemption_handler()
+    try:
+        eng = fb.engine(preemption=handler, snapshot_dir=snap_dir)
+        reqs = fb.requests(sampled=True)
+        _build.reset_launch_counts()
+        with faults.inject(sigterm_steps=frozenset({FAULT_STEP})):
+            res1, _ = fb.serve(eng, reqs)
+    finally:
+        handler.uninstall()
+    check(handler.requested and handler.signum == signal.SIGTERM,
+          "17d: the SIGTERM was not caught")
+    path = eng.drained_snapshot
+    check(path is not None, "17d: no snapshot")
+    check(latest_snapshot(snap_dir) == path, "17d: latest_snapshot "
+          "does not name the drain's snapshot")
+    snap = load_snapshot(path)
+    nbytes_ = os.path.getsize(os.path.join(path, "snapshot.json"))
+    resumed, prior = resume_requests(snap)
+    check(len(resumed) + len(res1) == len(reqs), "17d: a request was "
+          "neither finished nor snapshotted")
+    eng2 = fb.engine()
+    res2, wall2 = fb.serve(eng2, resumed)
+    launches = _build.launch_counts()
+    merged = {r.id: r for r in merge_results(list(res2.values()), prior)}
+    merged.update(res1)
+    check(sorted(merged) == list(range(len(reqs))), "17d: merged ids")
+    lg = dict(eng.logits)
+    for (rid, j), v in eng2.logits.items():
+        lg[(rid, j + len(prior.get(rid, [])))] = v
+    by_id = {r.id: r for r in reqs}
+    rule = follow_rule("d", {i: r.tokens for i, r in merged.items()},
+                       clean_s["tokens"], lg, clean_s["logits"], by_id)
+    sampled = [i for i in by_id if by_id[i].temperature > 0]
+    exact = [i for i in sampled if merged[i].tokens == ssv["tokens"][i]]
+    print(f"  17d sampled lanes {sampled} token for token as phase 11d: "
+          f"{exact}")
+    # across the drain every sampled token is the host sampler's draw
+    # under fold_in(seed, token index) on the logits its own run gave:
+    # a resume that keyed a draw on another index draws another token
+    redrawn = 0
+    for i in sampled:
+        req = by_id[i]
+        samp = (np.array([req.temperature], np.float32),
+                np.array([req.top_k], np.int32),
+                np.array([req.top_p], np.float32),
+                np.array([req.seed & 0xFFFFFFFF], np.uint32))
+        for j, tok in enumerate(merged[i].tokens):
+            want = int(select_token(lg[(i, j)][None].float(), samp,
+                                    [len(req.prompt) + j])[0])
+            check(want == tok, f"17d: request {i}'s token {j} is {tok}, "
+                  f"the draw under (seed, {len(req.prompt) + j}) is {want}")
+            redrawn += 1
+    print(f"  17d the host sampler redraws all {redrawn} sampled tokens of "
+          "the drained and resumed streams from their own logits")
+    refill = max(r.ttft_s for r in res2.values()) * 1e3
+    r_eng = eng._registry
+    check(_counter(r_eng, "serving_drains", mode="snapshot") == 1,
+          "17d: serving_drains{mode=snapshot} is not 1")
+    check(_counter(r_eng, "serving_snapshots") == 1,
+          "17d: serving_snapshots is not 1")
+    # a second drain, its snapshot truncated after the commit
+    handler = PreemptionHandler()
+    eng3 = fb.engine(preemption=handler, snapshot_dir=snap_dir)
+    for r in fb.requests():
+        eng3.submit(r)
+    while eng3.step_idx < FAULT_STEP + 2:
+        fb.step(eng3)
+    handler.requested = True
+    with faults.inject(snapshot_corrupt_indices=frozenset({0})):
+        rep = fb.step(eng3)
+    bad = rep["snapshot"]
+    ok, reason = validate_snapshot(bad)
+    check(not ok and "truncated" in reason, f"17d: corrupt snapshot "
+          f"validated ({reason})")
+    skipped0 = _counter(telemetry.registry(),
+                        "serving_snapshot_corrupt_skipped")
+    check(latest_snapshot(snap_dir) == path, "17d: latest_snapshot did not "
+          "fall back to the good snapshot")
+    check(_counter(telemetry.registry(), "serving_snapshot_corrupt_skipped")
+          == skipped0 + 1, "17d: serving_snapshot_corrupt_skipped")
+    eng3.drain()
+    check(fb.cache.blocks_in_use == 0, "17d: blocks held after the "
+          "second drain")
+    print(f"  17d drained at step {FAULT_STEP}: {len(res1)} finished, "
+          f"{len(resumed)} snapshotted ({nbytes_} payload bytes); the "
+          f"resume re-prefilled prompt + generated in {refill:.1f} ms "
+          f"(its last first token), served in {wall2 * 1e3:.1f} ms; the "
+          f"truncated snapshot refused ({reason}), latest_snapshot fell "
+          "back to the good one")
+    return {"launches": fb.done("d", eng2, launches), "rule": rule,
+            "snapshot_bytes": nbytes_, "resumed": len(resumed),
+            "refill_ms": refill, "sampled_token_for_token": exact,
+            "sampled": sampled, "sampled_redrawn": redrawn}
+
+
+def fault_case_deadlines(fb: _FaultBench) -> dict:
+    """17f: one request expires queued and one in flight (a fake clock);
+    both finish ``deadline_exceeded`` and their blocks are freed."""
+    t = [0.0]
+    eng = fb.engine(max_batch=2, clock=lambda: t[0])
+    eng.submit(Request(id="flight", prompt=fb.prompts[1],
+                       max_new_tokens=MAX_NEW, deadline_ms=1000.0))
+    eng.submit(Request(id="ok", prompt=fb.prompts[3], max_new_tokens=8))
+    eng.submit(Request(id="queued", prompt=fb.prompts[6],
+                       max_new_tokens=8, deadline_ms=50.0))
+    _build.reset_launch_counts()
+    reps = [fb.step(eng)]
+    t[0] = 0.1
+    reps.append(fb.step(eng))
+    held = len(fb.cache.table(next(f.seq_id for f in eng.running
+                                   if f.req.id == "flight")))
+    t[0] = 2.0
+    reps.append(fb.step(eng))
+    reps += fb.run_out(eng)
+    launches = _build.launch_counts()
+    res = {r.id: r for r in eng.drain()}
+    expired = [i for rep in reps for i in rep["expired"]]
+    check(expired == ["queued", "flight"], f"17f: expired {expired}")
+    check(res["queued"].reason == "deadline_queued"
+          and res["flight"].reason == "deadline_in_flight"
+          and res["flight"].finish_reason == "deadline_exceeded"
+          and res["ok"].finish_reason == "length", "17f: outcomes")
+    reg = eng._registry
+    for where in ("queued", "in_flight"):
+        check(_counter(reg, "serving_deadline_exceeded", where=where) == 1,
+              f"17f: serving_deadline_exceeded{{where={where}}}")
+    print(f"  17f 'queued' expired before admission, 'flight' after "
+          f"{len(res['flight'].tokens)} tokens holding {held} blocks; "
+          "both freed")
+    return {"launches": fb.done("f", eng, launches),
+            "flight_tokens": len(res["flight"].tokens)}
+
+
+def fault_case_slo(fb: _FaultBench) -> dict:
+    """17g: the pool-exhaustion drill holds the first wave past a TTFT
+    objective; the burn-rate alert latches once, admission sheds the
+    second wave (serving_slo_shed), the alert recovers and the second
+    wave is served; the violation bundle embeds the traces and
+    introspect()."""
+    t = [0.0]
+    clock = lambda: t[0]  # noqa: E731
+    reg = MetricsRegistry()
+    tracer = RequestTracer(clock=clock)
+    slo = SLOMonitor([SLOTarget("ttft_p99", SLO_TTFT_S, budget=0.1)],
+                     windows=((4.0, 1.0, 1.0),), min_samples=5,
+                     check_every=1, registry=reg, clock=clock)
+    sink = InMemorySink()
+    reg.add_sink(sink)
+    eng = fb.engine(registry=reg, tracer=tracer, slo=slo, clock=clock)
+    before = fb.flight.names()
+    for r in fb.requests():
+        eng.submit(r)
+    wave2 = [Request(id=f"w{i}", prompt=fb.prompt(64), max_new_tokens=8)
+             for i in range(3)]
+    _build.reset_launch_counts()
+    shed_steps, submitted = [], False
+    with faults.inject(pool_exhausted_steps=frozenset(range(SHED_STEPS))):
+        while not eng.idle() or not submitted:
+            if slo.should_shed() and not submitted:
+                for r in wave2:
+                    eng.submit(r)
+                submitted = True
+            t[0] += FAKE_DT
+            rep = fb.step(eng)
+            if submitted and rep["queued"] and slo.should_shed():
+                shed_steps.append(rep["step"])
+            check(eng.step_idx < 400, "17g: the engine did not finish")
+    launches = _build.launch_counts()
+    res = {r.id: r for r in eng.drain()}
+    events = [e["event"] for e in sink.events]
+    check(all(r.finish_reason == "length" for r in res.values())
+          and len(res) == 11, "17g: not every request finished")
+    check(events.count("slo_alert") == 1, f"17g: {events.count('slo_alert')}"
+          " slo_alert events")
+    check("slo_recovered" in events, "17g: the alert did not recover")
+    check(_counter(reg, "serving_slo_shed") > 0 and "serving_slo_shed"
+          in events, "17g: admission was not shed")
+    check(not slo.should_shed(), "17g: still shedding at the end")
+    viol, _ = fb.flight.new(before, "slo_violation")
+    check(len(viol) == 1, f"17g: {len(viol)} slo_violation bundles")
+    extra = viol[0]["extra"]
+    check(bool(extra["traces"]) and extra["introspect"] is not None
+          and extra["introspect"]["slo"]["alerting"] == ["ttft_p99"],
+          "17g: the bundle lacks the traces or introspect()")
+    pool, _ = fb.flight.new(before, "serving_pool_exhausted")
+    check(len(pool) == 1, "17g: serving_pool_exhausted bundles")
+    ttft = sorted(r.ttft_s for i, r in res.items() if isinstance(i, int))
+    print(f"  17g held {SHED_STEPS} steps ({SHED_STEPS * FAKE_DT:.2f} s of "
+          f"the engine's clock): first-wave TTFT {ttft[0]:.2f}-{ttft[-1]:.2f}"
+          f" s against {SLO_TTFT_S} s; one slo_alert, admission shed at "
+          f"{len(shed_steps)} steps ({int(_counter(reg, 'serving_slo_shed'))}"
+          f" passes), recovered; the bundle embeds "
+          f"{len(extra['traces'])} traces and introspect()")
+    return {"launches": fb.done("g", eng, launches),
+            "shed_passes": _counter(reg, "serving_slo_shed"),
+            "shed_steps": len(shed_steps)}
+
+
+def fault_case_swap(fb: _FaultBench) -> dict:
+    """17e: GPT-2 345M weights from seed + 1 staged at FAULT_STEP: the
+    in-flight requests finish; a request submitted after the swap against
+    a fresh engine on the new weights; a state dict with one shape
+    changed is refused with one bundle while the engine keeps serving.
+    The host seconds of validation and digests, the install's device
+    ms."""
+    new = GPTModel(fb.cfg, device=fb.dev,
+                   generator=torch.Generator().manual_seed(fb.seed + 1))
+    new_sd = new.state_dict()
+    hashed = sum(t.numel() * t.element_size() for t in new_sd.values())
+    eng = fb.engine()
+    for r in fb.requests():
+        eng.submit(r)
+    install = {}
+    inner = eng._install_pending_params
+
+    def timed_install(idx):
+        if eng._pending_swap is None:
+            return inner(idx)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        e0.record()
+        inner(idx)
+        e1.record()
+        e1.synchronize()
+        install["ms"] = e0.elapsed_time(e1)
+
+    eng._install_pending_params = timed_install
+    _build.reset_launch_counts()
+    while eng.step_idx < FAULT_STEP:
+        fb.step(eng)
+    in_flight = [f.req.id for f in eng.running]
+    t0 = time.perf_counter()
+    info = swap_weights(eng, new_sd)
+    swap_s = time.perf_counter() - t0
+    fb.step(eng)
+    check("ms" in install, "17e: the swap was not installed at the step "
+          "boundary")
+    after = Request(id="after", prompt=fb.prompt(200), max_new_tokens=MAX_NEW)
+    eng.submit(after)
+    fb.run_out(eng)
+    launches = _build.launch_counts()
+    res = {r.id: r for r in eng.drain()}
+    for i in in_flight:
+        check(res[i].finish_reason == "length"
+              and len(res[i].tokens) == MAX_NEW,
+              f"17e: in-flight request {i} dropped across the swap")
+    check(params_digest(fb.model) == info["new_digest"], "17e: the model's "
+          "digest is not the staged weights'")
+    alone = fb.engine()
+    ares, _ = fb.serve(alone, [Request(id="after", prompt=after.prompt,
+                                       max_new_tokens=MAX_NEW)])
+    rule = follow_rule("e", {"after": res["after"].tokens},
+                       {"after": ares["after"].tokens}, eng.logits,
+                       alone.logits, {"after": after})
+    reg = eng._registry
+    check(_counter(reg, "serving_weight_swaps") == 1,
+          "17e: serving_weight_swaps is not 1")
+    # one leaf's shape changed: refused, one bundle, the engine serves on
+    bad = dict(new_sd)
+    name = next(iter(bad))
+    bad[name] = bad[name][:-1]
+    before = fb.flight.names()
+    try:
+        swap_weights(eng, bad)
+        refused = None
+    except WeightSwapError as e:
+        refused = e
+    check(refused is not None and refused.mismatches[0]["path"] == name,
+          "17e: the mismatched state dict was not refused")
+    check(eng._pending_swap is None, "17e: a refused swap was staged")
+    swaps, allb = fb.flight.new(before, "serving_weight_swap")
+    check(len(swaps) == 1 and len(allb) == 1,
+          f"17e: {len(swaps)} serving_weight_swap bundles")
+    check(_counter(reg, "serving_weight_swap_rejected") == 1,
+          "17e: serving_weight_swap_rejected is not 1")
+    res2, _ = fb.serve(eng, [Request(id="later", prompt=fb.prompt(48),
+                                     max_new_tokens=4)])
+    check(res2["later"].finish_reason == "length", "17e: the engine stopped "
+          "serving after the refusal")
+    print(f"  17e swap staged at step {FAULT_STEP} over {len(in_flight)} "
+          f"in-flight requests: validation and two digests "
+          f"({2 * hashed / 1e9:.2f} GB hashed) {swap_s:.2f} s on the host, "
+          f"install {install['ms']:.2f} ms on the device; refused "
+          f"{refused.mismatches[0]}")
+    del new, new_sd, bad
+    return {"launches": fb.done("e", eng, launches), "rule": rule,
+            "swap_host_s": swap_s, "install_ms": install["ms"],
+            "bytes_hashed": 2 * hashed}
+
+
+def serve_faults(seed: int, dev, card: str, srv: dict, ssv: dict) -> dict:
+    """Phase 17: phase 3's model, cache and requests under every serving
+    fault clause (cases a-g)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    records_dir = port_records.RECORDS_DIR
+    t0 = time.perf_counter()
+    try:
+        fb = _FaultBench(seed, dev, card, root)
+        fb.serve(fb.engine(logging=False), [Request(
+            id="warm", prompt=fb.prompts[1][:16], max_new_tokens=2)])
+        out = {"a": fault_case_armed(fb, srv)}
+        clean = {}
+        for key, sampled in (("greedy", False), ("sampled", True)):
+            eng = fb.engine()
+            reqs = fb.requests(sampled=sampled)
+            res, _ = fb.serve(eng, reqs)
+            clean[key] = {"tokens": {i: r.tokens for i, r in res.items()},
+                          "logits": eng.logits,
+                          "reqs": {r.id: r for r in reqs}}
+        check(clean["greedy"]["tokens"] == srv["tokens"], "17: the logging "
+              "engine's tokens differ from phase 3's")
+        check(clean["sampled"]["tokens"] == ssv["tokens"], "17: the logging "
+              "engine's sampled tokens differ from phase 11d's")
+        out["b"] = fault_case_nonfinite(fb, clean["greedy"])
+        out["c"] = fault_case_split(fb, clean["greedy"])
+        out["d"] = fault_case_drain(fb, clean["sampled"], ssv)
+        out["f"] = fault_case_deadlines(fb)
+        out["g"] = fault_case_slo(fb)
+        out["e"] = fault_case_swap(fb)
+    finally:
+        flight.disable()
+        port_records.RECORDS_DIR = records_dir
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {}
+    for case in "abdefg":
+        launches[case] = out[case]["launches"]
+    for sub, lc in out["c"]["launches"].items():
+        launches[sub] = lc
+    out["launches"] = launches
+    print(f"  17 launches of kernels #1 and #2 a case: {launches}; "
+          f"{time.perf_counter() - t0:.1f} s, on {card}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7628,6 +8549,8 @@ def main(argv=None) -> int:
     amp16 = phase("phase 16: amp.F at GPT-2 345M's and ResNet-50's shapes, "
                   "the O1 example, the two-scaler DCGAN and GPT-2 345M under "
                   "FP16_Optimizer", lambda: amp_phase(args.seed, dev, card))
+    sfl = phase("phase 17: serving GPT-2 345M under faults",
+                lambda: serve_faults(args.seed, dev, card, srv, ssv))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -7784,12 +8707,15 @@ def main(argv=None) -> int:
                                "self_future", "self_key_padding",
                                "encdec_key_padding"))):
             k[f"launches_{key}"] = launched(run["launches"], name)
+        if name in (layer_norm.KERNEL, attention.KERNEL):
+            for case, counts in sfl["launches"].items():
+                k[f"launches_serving_faults_{case}"] = counts[name]
         check(k["launches"] > 0, f"{name}: no launch on its path")
     for counter in DROPOUT_COUNTERS:
         drow[f"launches_{counter}"] = gdr["launches"].get(counter, 0)
 
     check(len(kernels) == 66, f"{len(kernels)} kernels in the line, not 66")
-    print("phase 17: kernels")
+    print("phase 18: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -7816,7 +8742,8 @@ def main(argv=None) -> int:
                        "flash_report": bwr,
                        "flash_wide": {"launches": wide["launches"]},
                        "training_t5": t5,
-                       "amp": amp16, **line}, f, indent=1)
+                       "amp": amp16, "serving_faults": sfl, **line}, f,
+                      indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -451,7 +451,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 def test_import_loads_no_jax():
     code = ("import sys, apex_tpu_torch, apex_tpu_torch.serving, "
-            "apex_tpu_torch.models, apex_tpu_torch.ops; "
+            "apex_tpu_torch.models, apex_tpu_torch.ops, "
+            "apex_tpu_torch.telemetry, apex_tpu_torch.resilience, "
+            "apex_tpu_torch.records, apex_tpu_torch.serving.resilience, "
+            "apex_tpu_torch.serving.tracing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'apex_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
