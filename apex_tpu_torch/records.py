@@ -5,8 +5,9 @@ need: :func:`write_record` (one dated, git-stamped JSON file under
 :data:`RECORDS_DIR`, claimed with ``O_CREAT|O_EXCL``, fsync'd, then its
 directory fsync'd), :func:`latest_record` and :func:`prune_records`
 (the flight recorder's keep-last-k retention). Transient disk errors
-get three short retries before the write gives up; the reference runs
-them through ``resilience/retry.py``, which is not ported yet.
+get three short retries through
+:func:`apex_tpu_torch.resilience.retry.retry_call` (site
+``record_write``) before the write gives up.
 """
 
 from __future__ import annotations
@@ -97,13 +98,11 @@ def write_record(kind: str, payload: Dict[str, Any]) -> Optional[str]:
                 raise
             return path
 
-        for delay in (0.02, 0.04, 0.08, None):
-            try:
-                return attempt()
-            except OSError:
-                if delay is None:
-                    raise
-                time.sleep(delay)
+        from apex_tpu_torch.resilience.retry import retry_call
+
+        return retry_call(attempt, retries=3, base_delay=0.02,
+                          max_delay=0.25, deadline=2.0,
+                          retry_on=(OSError,), site="record_write")
     except Exception:  # noqa: BLE001
         return None
 

@@ -6,18 +6,26 @@ one clause string means the same thing in both packages: every clause
 parses into the same field, including those whose sites (training
 arrays, checkpoints, collectives, the fleet router) the port has not
 ported yet; their decisions come with their sites. The port decides for
-the call-indexed sites (:func:`check`) and the serving sites
+the call-indexed sites (:func:`check`), the serving sites
 (:func:`maybe_sigterm`, :func:`should_pool_exhaust`,
 :func:`maybe_decode_exception`, :func:`maybe_prefill_chunk_exception`,
 :func:`nonfinite_lane_at`, :func:`should_snapshot_corrupt`,
-:func:`should_weight_swap_mismatch`).
+:func:`should_weight_swap_mismatch`), the fleet router's
+(:func:`maybe_engine_crash`, :func:`engine_stall_s`,
+:func:`should_skip_router_snapshot`, :func:`kv_transfer_fault`,
+:func:`should_orphan_handoff`), the comms plane's
+(:func:`collective_delay_s`, :func:`should_corrupt_collective`) and the
+MoE router-collapse drill's decision (:func:`should_collapse_router`,
+whose site comes with the MoE train step).
 
 Injection is *site + counter* based: components call
 ``faults.check("site")`` at their fault points, and the active
 :class:`FaultInjector` raises at the call indices the plan names.
 Sites wired into the port: ``record_write`` / ``record_fsync``
 (``records.write_record``), ``serving_snapshot``
-(``serving.resilience.save_snapshot``), ``decode_step`` and
+(``serving.resilience.save_snapshot``), ``fleet_router`` and
+``kv_handoff`` (``serving.fleet``), ``collective``
+(``telemetry.comms``), ``decode_step`` and
 ``prefill_chunk`` (the scheduler's dispatches).
 
 Env knob grammar (semicolon-separated clauses)::
@@ -269,8 +277,8 @@ class FaultInjector:
     """A deterministic fault plan. All counters are call-order based;
     two identical runs inject at identical points. Every clause parses
     into its field; the decisions are those of the sites the port has:
-    the call-indexed ``io:`` / ``io_permanent:`` sites and the serving
-    sites."""
+    the call-indexed ``io:`` / ``io_permanent:`` sites, the serving and
+    fleet sites and the comms plane's."""
 
     nan_grad_steps: FrozenSet[int] = frozenset()
     nan_leaf: Optional[int] = None          # None -> poison element 0
@@ -396,6 +404,103 @@ class FaultInjector:
         """True when ``swap_weights`` call number ``index`` (0-based,
         per engine) must report a forced signature mismatch."""
         return int(index) in self.weight_swap_mismatch_indices
+
+    # -- comms-plane sites -------------------------------------------------
+
+    def collective_delay_s(self) -> float:
+        """Seconds of injected delay for THIS traced collective op
+        (each call advances the 0-based traced-op index;
+        ``collective_slow_at`` empty means every op once
+        ``collective_slow_ms`` is set). 0.0 off-plan."""
+        with self._lock:
+            idx = self._counts.get("collective_slow", 0)
+            self._counts["collective_slow"] = idx + 1
+        if self.collective_slow_ms <= 0.0:
+            return 0.0
+        if self.collective_slow_at and idx not in self.collective_slow_at:
+            return 0.0
+        return self.collective_slow_ms / 1e3
+
+    def should_corrupt_collective(self) -> bool:
+        """True when THIS payload-carrying traced op (all_gather /
+        broadcast_from; each call advances the 0-based payload-op
+        index) must have one result byte flipped."""
+        with self._lock:
+            idx = self._counts.get("collective_corrupt", 0)
+            self._counts["collective_corrupt"] = idx + 1
+        return idx in self.collective_corrupt_indices
+
+    # -- fleet-router sites ------------------------------------------------
+
+    def maybe_engine_crash(self, step: int, engine: int) -> None:
+        """Raise :class:`EngineCrash` out of the fleet router's step
+        dispatch for engine ``engine`` (0-based join order) at planned
+        ROUTER steps — the deterministic hard-death drill behind the
+        router's fence-and-recover path."""
+        if (int(step) in self.engine_crash_steps
+                and int(engine) == self.engine_crash_engine):
+            raise EngineCrash(
+                f"injected engine crash: engine {int(engine)} at "
+                f"router step {int(step)}")
+
+    def engine_stall_s(self, step: int, engine: int) -> float:
+        """Seconds of injected stall for engine ``engine``'s step
+        dispatch at router step ``step`` (``engine_stall_at`` empty
+        means every step once ``engine_stall_ms`` is set). The engine
+        stays alive — its heartbeat just goes stale, so the router
+        must hedge, not fence. 0.0 off-plan."""
+        if (self.engine_stall_ms <= 0.0
+                or int(engine) != self.engine_stall_engine):
+            return 0.0
+        if self.engine_stall_at and int(step) not in self.engine_stall_at:
+            return 0.0
+        return self.engine_stall_ms / 1e3
+
+    def should_skip_router_snapshot(self, index: int) -> bool:
+        """True when the fleet router's recovery number ``index``
+        (0-based, per router) must behave as if NO drain snapshot were
+        usable — forcing the replay-from-prompt+generated path."""
+        return int(index) in self.router_snapshot_missing
+
+    # -- kv-handoff sites --------------------------------------------------
+
+    def kv_transfer_fault(self) -> Optional[str]:
+        """Fault planned for THIS KV handoff transfer attempt (each
+        call advances the 0-based transfer-attempt index): one of
+        ``"corrupt"`` (flip one received byte — verify must refuse),
+        ``"timeout"`` (raise before any bytes move), ``"partial"``
+        (zero the received tail block — verify must refuse), or None
+        off-plan. Retries advance the counter too, so a single planned
+        index is absorbed by one idempotent re-send."""
+        with self._lock:
+            idx = self._counts.get("kv_transfer", 0)
+            self._counts["kv_transfer"] = idx + 1
+        if idx in self.kv_transfer_corrupt:
+            return "corrupt"
+        if idx in self.kv_transfer_timeout:
+            return "timeout"
+        if idx in self.kv_transfer_partial:
+            return "partial"
+        return None
+
+    def should_orphan_handoff(self) -> bool:
+        """True when THIS handoff (each call advances the 0-based
+        handoff index) must be abandoned after export — as if the
+        decode target died holding the payload. The router must free
+        and scrub the exported source blocks under the dirty-block
+        rule and re-prefill the request on a survivor."""
+        with self._lock:
+            idx = self._counts.get("handoff_orphan", 0)
+            self._counts["handoff_orphan"] = idx + 1
+        return idx in self.handoff_orphan
+
+    # -- MoE workload-plane sites ------------------------------------------
+
+    def should_collapse_router(self, step: int) -> bool:
+        """True when the MoE train step at ``step`` must zero every
+        gate kernel before dispatch — the deterministic router-collapse
+        drill behind the ``moe_imbalance`` latch."""
+        return int(step) in self.moe_router_collapse_steps
 
     # -- the preemption drill ---------------------------------------------
 
@@ -589,10 +694,55 @@ def should_weight_swap_mismatch(index: int) -> bool:
     return inj is not None and inj.should_weight_swap_mismatch(index)
 
 
+def collective_delay_s() -> float:
+    inj = active()
+    return 0.0 if inj is None else inj.collective_delay_s()
+
+
+def should_corrupt_collective() -> bool:
+    inj = active()
+    return inj is not None and inj.should_corrupt_collective()
+
+
+def maybe_engine_crash(step: int, engine: int) -> None:
+    inj = active()
+    if inj is not None:
+        inj.maybe_engine_crash(step, engine)
+
+
+def engine_stall_s(step: int, engine: int) -> float:
+    inj = active()
+    return 0.0 if inj is None else inj.engine_stall_s(step, engine)
+
+
+def should_skip_router_snapshot(index: int) -> bool:
+    inj = active()
+    return inj is not None and inj.should_skip_router_snapshot(index)
+
+
+def kv_transfer_fault() -> Optional[str]:
+    inj = active()
+    return None if inj is None else inj.kv_transfer_fault()
+
+
+def should_orphan_handoff() -> bool:
+    inj = active()
+    return inj is not None and inj.should_orphan_handoff()
+
+
+def should_collapse_router(step: int) -> bool:
+    inj = active()
+    return inj is not None and inj.should_collapse_router(step)
+
+
 __all__ = [
     "ENV_KNOB", "EngineCrash", "FaultError", "FaultInjector",
-    "SimulatedCrash", "active", "check", "inject", "install",
-    "maybe_decode_exception", "maybe_prefill_chunk_exception",
-    "maybe_sigterm", "nonfinite_lane_at", "should_pool_exhaust",
-    "should_snapshot_corrupt", "should_weight_swap_mismatch",
+    "SimulatedCrash", "active", "check", "collective_delay_s",
+    "engine_stall_s", "inject", "install", "kv_transfer_fault",
+    "maybe_decode_exception", "maybe_engine_crash",
+    "maybe_prefill_chunk_exception", "maybe_sigterm", "nonfinite_lane_at",
+    "should_collapse_router", "should_corrupt_collective",
+    "should_orphan_handoff", "should_pool_exhaust",
+    "should_skip_router_snapshot", "should_snapshot_corrupt",
+    "should_weight_swap_mismatch",
 ]

@@ -1,6 +1,7 @@
 """Serving: paged KV cache, prefill/decode steps, the
-continuous-batching scheduler with its resilience and request planes
-(counterpart of ``apex_tpu/serving/`` except the fleet router).
+continuous-batching scheduler with its resilience and request planes,
+and the fleet router over several engines (counterpart of
+``apex_tpu/serving/``).
 
     from apex_tpu_torch.models import GPTConfig, GPTModel
     from apex_tpu_torch.serving import (ContinuousBatcher, KVCache,
@@ -59,9 +60,23 @@ from apex_tpu_torch.serving.tracing import (
     RequestTracer,
 )
 
+# imported last: the router fronts the scheduler, resilience and tracing
+# modules above
+from apex_tpu_torch.serving.fleet import (  # noqa: E402
+    ENGINE_ROLES,
+    ENGINE_STATES,
+    EngineHandle,
+    FleetRouter,
+    fleet_serve_loop,
+)
+
 __all__ = [
     "ContinuousBatcher",
     "DecodeStep",
+    "ENGINE_ROLES",
+    "ENGINE_STATES",
+    "EngineHandle",
+    "FleetRouter",
     "KVCache",
     "KVCacheState",
     "PoolExhausted",
@@ -78,6 +93,7 @@ __all__ = [
     "append_kv_chunk",
     "append_kv_prefill",
     "apply_copies",
+    "fleet_serve_loop",
     "gather_kv",
     "greedy_sampling",
     "latest_snapshot",

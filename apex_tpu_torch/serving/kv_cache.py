@@ -541,28 +541,44 @@ class KVCache:
 
     # -- handoff between engines --------------------------------------------
 
+    @property
+    def dtype_name(self) -> str:
+        """The pool dtype's name as the reference's numpy payloads spell
+        it (``"bfloat16"``, ``"float32"``): what a handoff manifest
+        records, whatever array type carries the bytes."""
+        return str(self.dtype).replace("torch.", "")
+
     def export_blocks(self, state: KVCacheState, seq_id, *,
                       length: Optional[int] = None
                       ) -> Tuple[List[int], np.ndarray, np.ndarray]:
         """A sequence's KV rows on the host: ``(blocks, k, v)`` with
         ``k``/``v`` ``(num_layers, n, block_size, kv_heads, head_dim)``.
         ``length`` bounds the export to the blocks that hold tokens;
-        ``None`` exports the whole reservation. Read-only."""
+        ``None`` exports the whole reservation. Read-only.
+
+        numpy has no bfloat16, so a 16-bit pool (bf16 or fp16) exports
+        as ``uint16`` views of the pool's bits: ``tobytes()`` is the
+        reference's payload byte for byte, and :meth:`import_blocks`
+        reinterprets the bits back (:attr:`dtype_name` names the
+        dtype). Wider pools export their own dtype."""
         table = self.table(seq_id)
         if length is not None:
             table = table[:self.blocks_for(length)]
         idx = torch.as_tensor(table, dtype=torch.long, device=state.k.device)
-        return (list(table), state.k[:, idx].cpu().numpy(),
-                state.v[:, idx].cpu().numpy())
+        return (list(table), _host_payload(state.k[:, idx]),
+                _host_payload(state.v[:, idx]))
 
     def import_blocks(self, state: KVCacheState, seq_id, k,
                       v) -> KVCacheState:
         """Write exported KV rows into an already-allocated ``seq_id``'s
         blocks (row block ``i`` lands in ``table[i]``), in place; the
-        caller has verified the payload."""
+        caller has verified the payload. A 16-bit payload (``uint16``
+        bits, or a 16-bit float array) into a 16-bit pool is
+        reinterpreted bit for bit, never cast by value; any other payload
+        is cast to the pool's dtype."""
         table = self.table(seq_id)
-        k = torch.as_tensor(np.asarray(k))
-        v = torch.as_tensor(np.asarray(v))
+        k = _pool_payload(k, state.k.dtype)
+        v = _pool_payload(v, state.v.dtype)
         n = k.shape[1]
         if n > len(table):
             raise ValueError(
@@ -573,6 +589,32 @@ class KVCache:
         state.k[:, idx] = k.to(state.k.device, state.k.dtype)
         state.v[:, idx] = v.to(state.v.device, state.v.dtype)
         return state
+
+
+_BITS16 = (torch.bfloat16, torch.float16)
+
+
+def _host_payload(t: torch.Tensor) -> np.ndarray:
+    """A pool slice on the host: ``uint16`` bits for a 16-bit float
+    pool (numpy cannot hold bfloat16), else its own dtype."""
+    if t.dtype in _BITS16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def _pool_payload(a, dtype: torch.dtype) -> torch.Tensor:
+    """A host payload as a CPU tensor ready for a ``dtype`` pool: for a
+    16-bit pool, 16-bit integer bits (what :func:`_host_payload` gives)
+    or an array of the pool's own dtype (the reference's bfloat16
+    arrays) reinterpreted bit for bit; anything else by value."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if not a.flags.writeable:
+        a = a.copy()
+    name = str(dtype).replace("torch.", "")
+    if dtype in _BITS16 and a.dtype.itemsize == 2 and (
+            a.dtype.kind in "iu" or a.dtype.name == name):
+        return torch.from_numpy(a.view(np.int16)).view(dtype)
+    return torch.as_tensor(a)
 
 
 # ---------------------------------------------------------------------------

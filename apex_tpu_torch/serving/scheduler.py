@@ -2,10 +2,8 @@
 prefills and decodes, eviction, per-request fault isolation and
 end-to-end telemetry.
 
-Counterpart of ``apex_tpu/serving/scheduler.py`` except the fleet
-handoff hooks (``take_queued``, ``take_prefilled``,
-``install_prefilled``, :523-604), which come with ``serving/fleet.py``.
-Every engine :meth:`ContinuousBatcher.step`:
+Counterpart of ``apex_tpu/serving/scheduler.py``. Every engine
+:meth:`ContinuousBatcher.step`:
 
 1. **Admits** queued requests against the KV pool, reusing published
    prompt-prefix blocks by reference (the prefix cache): the private
@@ -30,7 +28,14 @@ Every engine :meth:`ContinuousBatcher.step`:
 Every batch is padded only to its own largest prompt, chunk and block
 table: the attention mask drops the padding, and eager PyTorch has no
 compiled shapes to reuse, so the reference's power-of-two shape buckets
-(and its ``warmup``) would only add work.
+would only add work (:meth:`ContinuousBatcher.warmup` loads the kernel
+libraries and library handles instead).
+
+The fleet router (``serving/fleet.py``) reaches three hooks:
+:meth:`ContinuousBatcher.take_queued` (the bounded hedge),
+:meth:`ContinuousBatcher.take_prefilled` and
+:meth:`ContinuousBatcher.install_prefilled` (the disaggregated KV
+handoff).
 
 The engine degrades per request, never per process:
 
@@ -80,6 +85,7 @@ import numpy as np
 from apex_tpu_torch.resilience import faults
 from apex_tpu_torch.serving.decode import DecodeStep, make_decode_step
 from apex_tpu_torch.serving.kv_cache import (
+    TRASH_BLOCK,
     KVCache,
     PoolExhausted,
     apply_copies,
@@ -372,6 +378,108 @@ class ContinuousBatcher:
             return
         with self._lock:
             self.queue.append((request, now))
+
+    def warmup(self, state, seq_buckets: Optional[Sequence[int]] = None,
+               width_buckets: Optional[Sequence[int]] = None,
+               chunk_buckets: Optional[Sequence[int]] = None):
+        """Load what the engine's first routed request would otherwise
+        pay for, before it is routed to: one small prefill and one
+        decode, every write landing in the pool's trash block, so the
+        kernel libraries are loaded and the library handles (cuBLAS)
+        made on this engine's device. The port has no shape buckets to
+        compile (module docstring): the bucket arguments keep the
+        reference's call shape, and any value but None is refused, as
+        it could tune nothing. Returns ``state`` unchanged (the trash
+        block is no sequence's)."""
+        if (seq_buckets, width_buckets, chunk_buckets) != (None,) * 3:
+            raise ValueError("warmup: the port compiles no shape buckets; "
+                             "seq_buckets, width_buckets and chunk_buckets "
+                             "take None only")
+        s = min(self.cache.block_size, 8)
+        trash = np.full((1, 1), TRASH_BLOCK, np.int32)
+        self.step_fn.prefill(state, np.zeros((1, s), np.int32),
+                             np.full((1,), s, np.int32), trash)
+        out = self.step_fn.decode(state, np.zeros((1,), np.int32),
+                                  np.zeros((1,), np.int32), trash)
+        out.next_token.cpu()                  # waits for the device
+        return state
+
+    def take_queued(self, max_n: Optional[int] = None
+                    ) -> List[Tuple[Request, float]]:
+        """Withdraw up to ``max_n`` queued (not yet admitted) requests
+        from the tail of the queue — newest first, so the oldest
+        arrivals keep their admission order — as ``[(request,
+        t_submit)]``. The engine forgets them (no result, no trace
+        transition: the caller owns both now): the fleet router's
+        bounded hedge moves work a stalled engine has not started;
+        in-flight work stays put."""
+        out: List[Tuple[Request, float]] = []
+        with self._lock:
+            while self.queue and (max_n is None or len(out) < max_n):
+                out.append(self.queue.pop())
+        return out
+
+    # -- disaggregated handoff hooks (serving/fleet.py) ----------------------
+
+    def take_prefilled(self, max_n: Optional[int] = None
+                       ) -> List[_InFlight]:
+        """Surrender up to ``max_n`` prefill-complete in-flight
+        sequences (prompt cached, first token sampled): the prefill side
+        of a disaggregated handoff. The engine forgets each request (no
+        result, no trace transition) but its KV reservation stays
+        allocated: the caller exports the blocks and then
+        ``cache.free``-s the sequence, on success and on failure.
+        Engine-thread only, like ``step``."""
+        out: List[_InFlight] = []
+        keep: List[_InFlight] = []
+        for f in self.running:
+            if ((max_n is None or len(out) < max_n)
+                    and f.prefilled >= len(f.req.prompt)
+                    and f.generated):
+                out.append(f)
+            else:
+                keep.append(f)
+        self.running = keep
+        for f in out:
+            self._pending_copies.pop(f.seq_id, None)
+        return out
+
+    def install_prefilled(self, state, req: Request,
+                          generated: Sequence[int], k, v, *,
+                          t_submit: float,
+                          t_first: Optional[float] = None,
+                          t_last: Optional[float] = None):
+        """Adopt a handed-off, prefill-complete request: reserve its
+        full decode span (prompt + max_new_tokens), install the
+        already-verified KV payload into the fresh blocks
+        (``KVCache.import_blocks``; verification is the caller's,
+        before this call), publish the prompt blocks into the local
+        prefix index and join ``running`` directly. ``t_submit`` /
+        ``t_first`` / ``t_last`` are the source engine's, so TTFT and
+        TPOT stay end to end. Raises ``PoolExhausted`` (reserving
+        nothing) when the local pool cannot hold the span; returns the
+        state. Engine-thread only, like ``step``."""
+        total = len(req.prompt) + req.max_new_tokens
+        with self._lock:
+            self._seq_counter += 1
+            seq_id = ("h", self._seq_counter, req.id)
+        self.cache.allocate(seq_id, total)
+        try:
+            state = self.cache.import_blocks(state, seq_id, k, v)
+        except Exception:
+            self.cache.free(seq_id)
+            raise
+        fl = _InFlight(req=req, seq_id=seq_id,
+                       generated=[int(t) for t in generated],
+                       t_submit=t_submit, t_first=t_first,
+                       t_last=(t_last if t_last is not None else t_first),
+                       prefilled=len(req.prompt))
+        self.running.append(fl)
+        self.cache.publish_prefix(seq_id, req.prompt)
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.decoding(req.id)
+        return state
 
     def idle(self) -> bool:
         with self._lock:

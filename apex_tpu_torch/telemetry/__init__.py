@@ -1,6 +1,7 @@
-"""Telemetry: the metrics registry, the step timeline, the SLO monitor
-and the crash flight recorder (the host planes of ``apex_tpu/telemetry/``
-that the serving scheduler reaches).
+"""Telemetry: the metrics registry, the step timeline, the SLO monitor,
+the crash flight recorder, the comms plane and the fleet view (the host
+planes of ``apex_tpu/telemetry/`` that the serving scheduler and the
+fleet router reach).
 
 - :mod:`~apex_tpu_torch.telemetry.metrics` — the process-global
   registry (counters, gauges, histograms with labeled series,
@@ -10,19 +11,29 @@ that the serving scheduler reaches).
 - :mod:`~apex_tpu_torch.telemetry.slo` — windowed SLO targets with
   burn-rate alerting and the admission shed signal;
 - :mod:`~apex_tpu_torch.telemetry.flight` — the flight recorder's
-  postmortem bundles.
+  postmortem bundles;
+- :mod:`~apex_tpu_torch.telemetry.comms` — collective tracing and the
+  wire bandwidth ledger;
+- :mod:`~apex_tpu_torch.telemetry.fleet` — cross-host snapshot gathers,
+  merges, straggler detection, clock offsets and the merged trace.
 
 The reference's compile plane (its ``jax.monitoring`` bridge) has no
 counterpart: eager PyTorch compiles nothing. Its cost model, device
-memory ledger, sharding, comms, fleet, MoE and goodput planes are not
-ported; :func:`snapshot_detail` carries each as a null with its reason.
+memory ledger, sharding, MoE and goodput planes are not ported;
+:func:`snapshot_detail` carries each as a null with its reason.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
-from apex_tpu_torch.telemetry import flight, metrics, slo, timeline
+from apex_tpu_torch.telemetry import comms, fleet, flight, metrics, slo, timeline
+from apex_tpu_torch.telemetry.comms import CommsTracer, InstrumentedCollective
+from apex_tpu_torch.telemetry.fleet import (
+    FleetAggregator,
+    gather_snapshots,
+    merge_snapshots,
+)
 from apex_tpu_torch.telemetry.flight import FlightRecorder
 from apex_tpu_torch.telemetry.metrics import (
     Counter,
@@ -30,7 +41,9 @@ from apex_tpu_torch.telemetry.metrics import (
     Histogram,
     InMemorySink,
     JsonlSink,
+    LATENCY_MS_BUCKETS,
     MetricsRegistry,
+    PAYLOAD_BYTES_BUCKETS,
     StdoutSink,
     TOKEN_COUNT_BUCKETS,
     registry,
@@ -86,20 +99,26 @@ def snapshot_detail() -> Dict[str, Any]:
 
 def reset() -> None:
     """Fresh registry, disabled global timeline, disarmed flight
-    recorder (tests)."""
+    recorder and comms tracer (tests)."""
     flight.disable()
+    comms.disable()
     metrics.reset()
     timeline.disable()
 
 
 __all__ = [
+    "CommsTracer",
     "Counter",
+    "FleetAggregator",
     "FlightRecorder",
     "Gauge",
     "Histogram",
     "InMemorySink",
+    "InstrumentedCollective",
     "JsonlSink",
+    "LATENCY_MS_BUCKETS",
     "MetricsRegistry",
+    "PAYLOAD_BYTES_BUCKETS",
     "SLOMonitor",
     "SLOTarget",
     "SlidingWindowQuantile",
@@ -107,10 +126,14 @@ __all__ = [
     "StdoutSink",
     "StepTimeline",
     "TOKEN_COUNT_BUCKETS",
+    "comms",
     "disable",
     "enable",
+    "fleet",
     "flight",
+    "gather_snapshots",
     "get_timeline",
+    "merge_snapshots",
     "metrics",
     "registry",
     "reset",

@@ -8,21 +8,32 @@ self-contained ``flightrec_*.json`` bundle through
 ``records.write_record`` (O_EXCL claim, fsync, directory fsync), then
 prunes the kind to the newest ``keep``.
 
-The serving triggers the port fires (all host-local, ``fleet=False``):
+The triggers the port fires (all host-local, ``fleet=False``):
 ``serving_pool_exhausted``, ``serving_request_error``,
 ``serving_quarantine``, ``serving_drain``, ``serving_weight_swap`` (a
-rejected swap) and ``slo_violation`` (``telemetry/slo.py``; the bundle
-embeds the offending requests' traces and ``introspect()``).
+rejected swap), ``slo_violation`` (``telemetry/slo.py``; the bundle
+embeds the offending requests' traces and ``introspect()``), and the
+fleet router's (``serving/fleet.py``): ``fleet_engine_lost`` (a fenced
+engine; ``extra`` embeds the victim's last ``introspect()`` and the
+recovery plan: snapshot or replay, the snapshot path, each recovered
+request's target engine) and ``kv_handoff_failed`` (a KV handoff whose
+wire retries ran out or whose install was refused; ``extra`` carries
+the sha256 manifest's root and per-block hashes and the last attempt's
+per-block verify log).
 
-Each bundle carries the registry snapshot, the timeline slice and the
+Each bundle carries the registry snapshot, the timeline slice, the
 device memory from ``torch.cuda.memory_stats()`` (nulls with
-``devmem_reason`` where there is no CUDA device). The planes the port
-has not ported carry the reference's disabled markers with a reason:
-``fleet`` (None with ``fleet_unavailable``), ``compile_plane`` (eager
-PyTorch compiles nothing), ``comms`` and ``goodput``; with no
-consistency guard and no checkpoint manager in the port,
-``state_digests`` is empty and ``last_checkpoint`` None. A failing dump
-never raises (:func:`notify` swallows everything).
+``devmem_reason`` where there is no CUDA device) and the comms plane
+(``telemetry.comms.section()``). A fleet-safe trigger (``fleet=True``)
+over an attached or passed multi-replica collective gathers and merges
+every replica's snapshot (``telemetry.fleet.FleetAggregator``) into
+``fleet``; otherwise ``fleet`` is None and ``fleet_unavailable`` says
+why, in the reference's words. The planes the port has not ported carry
+the reference's disabled markers with a reason: ``compile_plane``
+(eager PyTorch compiles nothing) and ``goodput``; with no consistency
+guard and no checkpoint manager in the port, ``state_digests`` is empty
+and ``last_checkpoint`` None. A failing dump never raises
+(:func:`notify` swallows everything).
 """
 
 from __future__ import annotations
@@ -38,7 +49,6 @@ FLIGHT_KIND = "flightrec"
 # the reasons the unported planes' sections carry
 COMPILE_REASON = ("eager PyTorch compiles nothing: no compile tracker "
                   "in the port")
-COMMS_REASON = "comms tracing is not ported (telemetry/comms.py)"
 GOODPUT_REASON = "the goodput ledger is not ported (telemetry/goodput.py)"
 
 # torch.cuda.memory_stats() keys behind the reference's devmem keys
@@ -89,14 +99,20 @@ class FlightRecorder:
       bundle's perfetto slice covers.
     - ``timeline``: a :class:`~apex_tpu_torch.telemetry.StepTimeline`; None
       means the process-global timeline at dump time.
+    - ``collective``: a replica-set collective (the fleet snapshot in
+      the bundle, when the trigger is fleet-safe).
     - ``keep``: keep-last-k pruning of ``flightrec`` records.
     """
 
     def __init__(self, *, last_steps: int = 64, event_capacity: int = 256,
-                 timeline=None, keep: int = 5):
+                 timeline=None, collective=None, keep: int = 5,
+                 straggler_factor: float = 2.0):
         self.last_steps = int(last_steps)
         self.keep = int(keep)
         self.timeline = timeline
+        self.collective = collective
+        self._aggregator = None
+        self._straggler_factor = float(straggler_factor)
         self.events: "deque[Dict[str, Any]]" = deque(
             maxlen=int(event_capacity))
         self.dumps = 0
@@ -116,6 +132,17 @@ class FlightRecorder:
         pass
 
     # -- the dump -----------------------------------------------------------
+
+    def _fleet_snapshot(self, collective):
+        from apex_tpu_torch.telemetry.fleet import FleetAggregator
+
+        if self._aggregator is None or \
+                self._aggregator.collective is not collective:
+            self._aggregator = FleetAggregator(
+                collective, straggler_factor=self._straggler_factor)
+        # publishes the fleet/straggler gauges BEFORE the local
+        # snapshot below is taken, so the bundle's registry carries them
+        return self._aggregator.aggregate()
 
     def _trace_slice(self, timeline):
         from apex_tpu_torch.telemetry import timeline as _timeline
@@ -139,42 +166,63 @@ class FlightRecorder:
                 "reason": COMPILE_REASON}
 
     def _comms(self):
-        return {"enabled": False, "reason": COMMS_REASON}
+        # the comms plane: per-op stats + bandwidth ledger + clock
+        # offsets when the tracer is armed, else the explicit disabled
+        # marker with its reason (comms.section's contract)
+        from apex_tpu_torch.telemetry import comms as _comms
+
+        try:
+            return _comms.section()
+        except Exception as e:  # noqa: BLE001
+            return {"error": f"{type(e).__name__}: {e}"}
 
     def _goodput(self):
         return {"enabled": False, "goodput_reason": GOODPUT_REASON}
 
     def dump(self, trigger: str, *, error: Optional[BaseException] = None,
-             fleet: bool = True,
+             fleet: bool = True, collective=None,
              extra: Optional[Dict[str, Any]] = None) -> Optional[str]:
         """Write one postmortem bundle; returns the record path (None
         when the disk write failed — ``write_record`` never raises).
 
-        No fleet snapshot is gathered (the port has no collective):
-        ``fleet`` is None and ``fleet_unavailable`` says why, in the
-        reference's words — a host-local trigger (``fleet=False``) or a
-        single-host bundle.
+        ``fleet=True`` gathers + merges the fleet snapshot over the
+        attached (or passed) collective — only safe when every replica
+        reaches this dump; host-local triggers pass ``fleet=False`` and
+        the bundle records why the fleet view is absent.
         """
         from apex_tpu_torch import records, telemetry
         from apex_tpu_torch.resilience import faults
 
         with self._lock:
-            fleet_unavailable = (
-                "host-local trigger: peers not at this dump point, no "
-                "collective issued" if not fleet else
-                "no multi-replica collective attached (single-host "
-                "bundle)")
+            col = collective if collective is not None else self.collective
+            fleet_snap = None
+            fleet_unavailable = None
+            if not fleet:
+                fleet_unavailable = ("host-local trigger: peers not at "
+                                     "this dump point, no collective "
+                                     "issued")
+            elif col is None or col.n_replicas <= 1:
+                fleet_unavailable = ("no multi-replica collective "
+                                     "attached (single-host bundle)")
+            else:
+                try:
+                    fleet_snap = self._fleet_snapshot(col)
+                except Exception as e:  # noqa: BLE001
+                    fleet_unavailable = f"{type(e).__name__}: {e}"
             bundle = {
                 "trigger": str(trigger),
                 "wall_time": time.time(),
                 "pid": os.getpid(),
-                "replica_id": 0,
-                "n_replicas": 1,
+                "replica_id": getattr(col, "replica_id", 0),
+                "n_replicas": getattr(col, "n_replicas", 1),
                 "error": (f"{type(error).__name__}: {error}"
                           if error is not None else None),
+                # AFTER the fleet aggregation so the straggler gauges
+                # it published are in this registry snapshot
                 "telemetry": telemetry.snapshot_detail(),
-                "fleet": None,
-                "fleet_unavailable": fleet_unavailable,
+                "fleet": fleet_snap,
+                **({"fleet_unavailable": fleet_unavailable}
+                   if fleet_unavailable else {}),
                 "trace": self._trace_slice(self.timeline),
                 "devmem": self._devmem(),
                 "compile_plane": self._compile_plane(),
@@ -239,6 +287,7 @@ def get_recorder() -> Optional[FlightRecorder]:
 
 def notify(trigger: str, *, recorder: Optional[FlightRecorder] = None,
            error: Optional[BaseException] = None, fleet: bool = True,
+           collective=None,
            extra: Optional[Dict[str, Any]] = None) -> Optional[str]:
     """Dump a bundle on ``recorder`` (or the global one); a no-op
     returning None when nothing is armed, and NEVER raises — the
@@ -247,7 +296,8 @@ def notify(trigger: str, *, recorder: Optional[FlightRecorder] = None,
     if rec is None:
         return None
     try:
-        return rec.dump(trigger, error=error, fleet=fleet, extra=extra)
+        return rec.dump(trigger, error=error, fleet=fleet,
+                        collective=collective, extra=extra)
     except Exception:  # noqa: BLE001 — the black box must not crash the run
         return None
 

@@ -11,9 +11,10 @@ every sink; the three sinks (:class:`InMemorySink`, :class:`JsonlSink`
 on the records writer's ``O_CREAT|O_EXCL`` + fsync protocol,
 :class:`StdoutSink`); the count-scale :data:`TOKEN_COUNT_BUCKETS`; and
 the refusal of a histogram re-registered with a conflicting bucket
-grid. The reference's Prometheus text exposition and its
-collective-latency and payload-size grids wait for their users (the
-tools and the comms plane). Nothing here touches a tensor.
+grid; the collective-latency and payload-size grids
+(:data:`LATENCY_MS_BUCKETS`, :data:`PAYLOAD_BYTES_BUCKETS`) the comms
+plane observes into. The reference's Prometheus text exposition waits
+for its users (the tools). Nothing here touches a tensor.
 """
 
 from __future__ import annotations
@@ -39,6 +40,19 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
 # so the mismatch fails loudly instead of silently mis-bucketing.
 TOKEN_COUNT_BUCKETS: Tuple[float, ...] = (
     1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+# millisecond-scale latencies (collective ops): values observed here are
+# already in ms, unlike the seconds-scale default grid
+LATENCY_MS_BUCKETS: Tuple[float, ...] = (
+    0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0,
+    50.0, 100.0, 250.0, 1000.0, 5000.0)
+
+# payload sizes in bytes, 64 B to 256 MB — the grid
+# ``collective_bytes{op=}`` rides
+PAYLOAD_BYTES_BUCKETS: Tuple[float, ...] = (
+    64, 256, 1024, 4096, 16384, 65536, 262144, 1048576, 4194304,
+    16777216, 67108864, 268435456)
+
 
 def _series_key(labels: Dict[str, Any]) -> Tuple[Tuple[str, str], ...]:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
@@ -502,6 +516,8 @@ def reset() -> None:
 __all__ = [
     "Counter",
     "DEFAULT_BUCKETS",
+    "LATENCY_MS_BUCKETS",
+    "PAYLOAD_BYTES_BUCKETS",
     "TOKEN_COUNT_BUCKETS",
     "Gauge",
     "Histogram",

@@ -156,6 +156,14 @@ class StepTimeline:
 
     # -- reading -----------------------------------------------------------
 
+    @property
+    def origin(self) -> float:
+        """The local clock value ``export_trace``'s ``ts=0`` maps to —
+        what ``fleet.export_fleet_trace`` shifts against when it moves
+        every host's events onto the shared barrier instant."""
+        with self._lock:
+            return self._origin
+
     def spans(self) -> list:
         with self._lock:
             return list(self._spans)

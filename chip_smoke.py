@@ -392,7 +392,31 @@ Phases, in order; any failure exits non-zero before the last line:
    past a TTFT objective on a fake clock: one burn-rate alert, admission
    shed, recovery, the violation bundle with the traces and
    ``introspect()``.
-18. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
+18. The serving fleet: phase 3's model behind a ``FleetRouter``, each
+   engine its own KV pool, registry and ``max_batch`` 8, one request
+   tracer, 48 requests of MAX_NEW tokens (half sharing one of three
+   256-token prefixes, half PROMPT_LENS, one in four sampled) submitted
+   four a router step; every case ends with each request finished once,
+   no KV block held, no engine step raised, the streams by the
+   comparison rule (every sampled token redrawn on the host) and kernels
+   #1 and #2 launched (``launches_serving_fleet_<case>``). (a) One
+   engine (the reference run), then three colocated engines under
+   affinity and round-robin placement: tokens/s, TTFT, TPOT, prefix hit
+   rates (affinity's at least round robin's), no failover. (b)
+   ``engine_crash`` on engine 1 at half of (a)'s router steps, recovered
+   from a snapshot and then by replay, a replacement joining warm; one
+   ``fleet_engine_lost`` bundle each, ``fleet_failover_ms`` and tokens/s
+   against (a). (c) ``engine_stall_ms`` on engine 2 past
+   ``stall_after_s``: at most ``hedge_max`` queued requests rerouted,
+   nothing fenced; one ``io:fleet_router`` transient retried. (d) One
+   prefill and two decode seats: every stream's K/V exported, hashed,
+   shipped over the instrumented loopback wire, verified and installed,
+   each part timed, beside the re-prefill of the same prompt. (e) The
+   handoff ladder: corrupt, timed-out and partial transfers re-sent; an
+   orphaned export zeroed and replayed; the fallback latch and the probe
+   that clears it; a decode seat crashing mid-handoff; a planned
+   ``remove_engine``.
+19. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
    kernels and variants, each with its launches on its path), then the
    device line the caller reads.
 
@@ -406,6 +430,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -414,6 +439,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -489,6 +515,7 @@ from apex_tpu_torch.resilience.guard import (
 from apex_tpu_torch.serving import (
     ContinuousBatcher,
     DecodeStep,
+    FleetRouter,
     KVCache,
     Request,
     RequestTracer,
@@ -509,6 +536,7 @@ from apex_tpu_torch.telemetry import (
     SLOMonitor,
     SLOTarget,
     StepTimeline,
+    comms,
     flight,
 )
 
@@ -7541,18 +7569,27 @@ class _KeepOut:
 class _LoggingBatcher(ContinuousBatcher):
     """A ContinuousBatcher that keeps each emitted token's fp32 logits
     on the host, by (request id, token index): what the comparison rule
-    reads."""
+    reads. ``logits`` may be a dict shared by several engines, and
+    ``base`` maps request ids to their original prompt lengths: a
+    request resumed elsewhere with ``prompt + generated`` as its prompt
+    then keys its tokens by their index in the whole stream."""
 
-    def __init__(self, *a, **kw):
+    def __init__(self, *a, logits=None, base=None, **kw):
         super().__init__(*a, **kw)
         self.step_fn = _KeepOut(self.step_fn)
-        self.logits = {}
+        self.logits = {} if logits is None else logits
+        self.base = base
+
+    def _key(self, f, j: int):
+        if self.base is not None:
+            j += len(f.req.prompt) - self.base[f.req.id]
+        return (f.req.id, j)
 
     def _prefill(self, admitted, state):
         state, finite = super()._prefill(admitted, state)
         lg = self.step_fn.out.logits.float().cpu()
         for i, f in enumerate(admitted):
-            self.logits[(f.req.id, 0)] = lg[i]
+            self.logits[self._key(f, 0)] = lg[i]
         return state, finite
 
     def _chunk_batch(self, state, batchees, cidx, s, width):
@@ -7560,14 +7597,14 @@ class _LoggingBatcher(ContinuousBatcher):
         lg = self.step_fn.out.logits.float().cpu()
         for i, (f, cs) in enumerate(batchees):
             if f.prefilled + cs >= len(f.req.prompt):
-                self.logits[(f.req.id, 0)] = lg[i]
+                self.logits[self._key(f, 0)] = lg[i]
         return res
 
     def _decode_batch(self, state, flights, idx, width):
         res = super()._decode_batch(state, flights, idx, width)
         lg = self.step_fn.out.logits.float().cpu()
         for i, f in enumerate(flights):
-            self.logits[(f.req.id, len(f.generated))] = lg[i]
+            self.logits[self._key(f, len(f.generated))] = lg[i]
         return res
 
 
@@ -7605,13 +7642,15 @@ def _sampled_margin(logits, req, fold_pos: int) -> float:
 
 
 def follow_rule(label: str, got: dict, clean: dict, got_lg: dict,
-                clean_lg: dict, reqs: dict) -> dict:
+                clean_lg: dict, reqs: dict, phase: str = "17",
+                margins: dict = None) -> dict:
     """The comparison rule for a faulted run against a clean one: while a
     request's tokens agree, every logit within LOGIT_TOL of the clean
     run's; a token may differ only at a step whose clean top-2 margin
     (for a sampled lane, ``_sampled_margin``) is within LOGIT_TOL, and
     past it the streams part (another context). Counts the steps under
-    the margin."""
+    the margin. ``margins``, a dict kept beside ``clean_lg``, holds each
+    clean step's margin across calls against the same clean run."""
     under, compared, worst, parted, exact = 0, 0, 0.0, [], []
     for rid, toks in got.items():
         ref = clean[rid]
@@ -7619,11 +7658,14 @@ def follow_rule(label: str, got: dict, clean: dict, got_lg: dict,
         same = True
         for j in range(min(len(toks), len(ref))):
             cl = clean_lg[(rid, j)]
-            if req.temperature > 0:
+            margin = None if margins is None else margins.get((rid, j))
+            if margin is None and req.temperature > 0:
                 margin = _sampled_margin(cl, req, len(req.prompt) + j)
-            else:
+            elif margin is None:
                 top2 = torch.topk(cl, 2).values
                 margin = float(top2[0] - top2[1])
+            if margins is not None:
+                margins[(rid, j)] = margin
             under += margin <= LOGIT_TOL
             gl = got_lg.get((rid, j))
             d = None
@@ -7631,13 +7673,13 @@ def follow_rule(label: str, got: dict, clean: dict, got_lg: dict,
                 d = float((gl - cl).abs().max())
                 worst = max(worst, d)
                 check(bool(torch.isfinite(gl).all()),
-                      f"17{label}: request {rid} token {j}: non-finite "
+                      f"{phase}{label}: request {rid} token {j}: non-finite "
                       "logits")
-                check(d <= LOGIT_TOL, f"17{label}: request {rid} token "
+                check(d <= LOGIT_TOL, f"{phase}{label}: request {rid} token "
                       f"{j}: logits {d:.4f} from the clean run's")
             compared += 1
             if toks[j] != ref[j]:
-                check(margin <= LOGIT_TOL, f"17{label}: request {rid} "
+                check(margin <= LOGIT_TOL, f"{phase}{label}: request {rid} "
                       f"token {j} differs at a clean margin {margin:.4f}")
                 parted.append([rid, j, round(margin, 5),
                                None if d is None else round(d, 5)])
@@ -7645,7 +7687,8 @@ def follow_rule(label: str, got: dict, clean: dict, got_lg: dict,
                 break
         if same and len(toks) == len(ref):
             exact.append(rid)
-    print(f"  17{label} against the clean run: {compared} tokens compared, "
+    print(f"  {phase}{label} against the clean run: {compared} tokens "
+          f"compared, "
           f"logits within {worst:.4f} (tol {LOGIT_TOL}), {under} steps under "
           f"the {LOGIT_TOL} margin, streams parted at {parted or 'none'}, "
           f"{len(exact)} of {len(got)} equal token for token")
@@ -8361,6 +8404,799 @@ def serve_faults(seed: int, dev, card: str, srv: dict, ssv: dict) -> dict:
     return out
 
 
+# -- phase 18: the serving fleet, three GPT-2 345M engines ---------------------
+
+FLEET_ENGINES = 3
+FLEET_REQUESTS = 48
+# half the requests share one of three 256-token prefixes (16 blocks of
+# 16) followed by 16-128 private tokens; the other half take PROMPT_LENS
+FLEET_FAMILIES = 3
+FLEET_PREFIX = 256
+FLEET_PRIVATE = (16, 128)
+FLEET_PER_STEP = 4            # requests submitted a router step
+FLEET_BLOCKS = 512            # a colocated or prefill seat's pool, ~0.8 GB
+# a decode seat adopts every stream handed to it at once
+# (install_prefilled joins running past max_batch), up to half the
+# fleet's: twice the pool
+FLEET_DECODE_BLOCKS = 1024
+# case c: one stall of engine 2 at a router step where every engine has
+# a queue, above the router's threshold; one transient io:fleet_router
+FLEET_STALL_AFTER_S = 1.0
+FLEET_STALL_MS = 1500.0
+FLEET_STALL_STEP = 9
+FLEET_HEDGE_MAX = 2
+FLEET_IO_INDEX = 3
+# the handoff ladder (case e): twelve requests a run; the planned exit at
+# this router step
+FLEET_LADDER = 12
+FLEET_REMOVE_STEP = 6
+# any other case: no step is slow enough to hedge
+FLEET_NO_STALL_S = 60.0
+# case b: the last requests wait for the warm replacement to join, so
+# that it serves some of them
+FLEET_LATE = 8
+# the host checks (the sampled lanes' clean margins and every sampled
+# token's redraw, ~25 ms each on one core: threefry over 50,304 logits)
+# run in this many spawned worker processes of one thread each (on the
+# H100 machine's host, 2.6x faster than batched select_token calls of 32
+# rows on eight threads: PERF.md §6)
+FLEET_HOST_WORKERS = max(1, min(6, (os.cpu_count() or 2) - 2))
+
+
+class _FleetBench:
+    """Phase 18's model (one, shared by every engine), its 48 requests and
+    the engine and router factories: each engine has its own KVCache and
+    MetricsRegistry and max_batch 8, the engines of a router share one
+    RequestTracer, and every engine logs its logits into the router's
+    one dict by (request id, index in the whole stream). ``pool`` runs
+    the host checks (``_fleet_rule``)."""
+
+    def __init__(self, seed, dev, card, root, pool):
+        self.cfg = GPTConfig.gpt2_345m()
+        self.dev, self.card, self.root, self.pool = dev, card, root, pool
+        self.model = GPTModel(self.cfg, device=dev,
+                              generator=torch.Generator().manual_seed(seed))
+        self.model.requires_grad_(False)
+        v = self.cfg.vocab_size
+        rng = np.random.RandomState(seed + 18)
+        prefixes = [rng.randint(0, v, FLEET_PREFIX)
+                    for _ in range(FLEET_FAMILIES)]
+        self.specs = []
+        for i in range(FLEET_REQUESTS):
+            if i % 2 == 0:
+                tail = rng.randint(0, v, int(rng.randint(
+                    FLEET_PRIVATE[0], FLEET_PRIVATE[1] + 1)))
+                prompt = np.concatenate(
+                    [prefixes[rng.randint(FLEET_FAMILIES)], tail])
+            else:
+                prompt = rng.randint(0, v,
+                                     PROMPT_LENS[(i // 2) % len(PROMPT_LENS)])
+            # one in four samples, with its own seed
+            kw = dict(SAMPLED, seed=4000 + i) if i % 8 in (1, 6) else {}
+            self.specs.append(dict(id=i, prompt=prompt,
+                                   max_new_tokens=MAX_NEW, **kw))
+        self.base = {s["id"]: len(s["prompt"]) for s in self.specs}
+        self.flight = _Flight(os.path.join(root, "records"))
+
+    def requests(self, n=None) -> list:
+        return [Request(**s) for s in self.specs[:n]]
+
+    def by_id(self) -> dict:
+        return {s["id"]: Request(**s) for s in self.specs}
+
+    def engine(self, logits: dict, blocks: int = FLEET_BLOCKS):
+        cache = KVCache.for_config(self.cfg, num_blocks=blocks,
+                                   block_size=16, device=self.dev)
+        return _LoggingBatcher(self.model, cache, max_batch=8,
+                               prefill_chunk=PREFILL_CHUNK,
+                               registry=MetricsRegistry(), logits=logits,
+                               base=self.base)
+
+    def router(self, roles, logits: dict, cls=None, **kw):
+        kw.setdefault("stall_after_s", FLEET_NO_STALL_S)
+        router = (cls or FleetRouter)(registry=MetricsRegistry(),
+                                      tracer=RequestTracer(), **kw)
+        for i, role in enumerate(roles):
+            b = self.engine(logits, FLEET_DECODE_BLOCKS if role == "decode"
+                            else FLEET_BLOCKS)
+            router.add_engine(f"e{i}", b, b.cache.init_state(), role=role)
+        return router
+
+
+def _fleet_drive(router, reqs, on_step=None, limit: int = 4000,
+                 late=(), late_after=None):
+    """Submit FLEET_PER_STEP requests a router step, in order, and step
+    until the fleet is idle: ``(results by id, wall s)``. The ``late``
+    requests are submitted together after the first step at whose end
+    ``late_after(router)`` holds. Every request must finish exactly once,
+    with MAX_NEW tokens."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, i = [], 0
+    reqs, pending = list(reqs), list(late)
+    while i < len(reqs) or pending or not router.idle():
+        for r in reqs[i:i + FLEET_PER_STEP]:
+            router.submit(r)
+        i += FLEET_PER_STEP
+        router.step()
+        if on_step is not None:
+            on_step(router)
+        if pending and late_after(router):
+            for r in pending:
+                router.submit(r)
+            pending = []
+        out.extend(router.merge_results())
+        check(router.step_idx < limit, "18: the fleet did not converge")
+    out.extend(router.merge_results())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ids = [r.id for r in out]
+    check(sorted(ids) == sorted(r.id for r in reqs + list(late)),
+          f"18: results for {sorted(ids)}, not each request once")
+    for r in out:
+        check(r.finish_reason == "length" and len(r.tokens) == MAX_NEW,
+              f"18: request {r.id} finished {r.finish_reason} with "
+              f"{len(r.tokens)} tokens ({r.error})")
+    return {r.id: r for r in out}, wall
+
+
+def _fleet_close(label: str, router, launches=None, gone=()):
+    """A run's closing checks: no engine step raised (an exception the
+    router survives would hide a kernel that failed), every engine idle
+    with no KV block held, and with a case's ``launches``, kernels #1
+    and #2 launched (returns their counts). A fenced or
+    removed engine keeps the reservations of the requests the router
+    recovered from it (the router never touches a dead engine's pool, as
+    the reference's does not): they are checked to be those requests'
+    and released here, as the engine's process would."""
+    moved = set(gone) | {i for fo in router.failovers
+                         for i in fo["recovered"]}
+    check(_counter(router._registry, "fleet_engine_step_errors") == 0,
+          f"18{label}: an engine step raised")
+    for h in router.engines():
+        b = h.batcher
+        if h.status in ("fenced", "removed"):
+            held = b.running + b.prefilling
+            check({f.req.id for f in held} <= moved, f"18{label}: {h.name} "
+                  "holds a request the router did not recover")
+            for f in held:
+                b.cache.free(f.seq_id)
+            b.running, b.prefilling = [], []
+            b.queue.clear()
+        check(b.idle(), f"18{label}: {h.name} is not idle")
+        check(b.cache.blocks_in_use == 0, f"18{label}: {h.name} holds "
+              f"{b.cache.blocks_in_use} KV blocks")
+    if launches is None:
+        return None
+    for kernel in (layer_norm.KERNEL, attention.KERNEL):
+        check(launches.get(kernel, 0) > 0,
+              f"18{label}: kernel {kernel} never launched")
+    return {k: launches.get(k, 0)
+            for k in (layer_norm.KERNEL, attention.KERNEL)}
+
+
+def _no_failover(label: str, router) -> None:
+    check(router.failovers == [] and
+          _counter(router._registry, "fleet_failovers") == 0 and
+          all(h.status in ("active", "stalled") for h in router.engines()),
+          f"18{label}: a failover nobody injected: {router.failovers}")
+
+
+def _host_draw(args) -> int:
+    """The host sampler's draw (``select_token`` on CPU logits) of one
+    sampled token: ``(fp32 logits row as numpy, request, the token's fold
+    position)``."""
+    row, req, pos = args
+    samp = (np.array([req.temperature], np.float32),
+            np.array([req.top_k], np.int32),
+            np.array([req.top_p], np.float32),
+            np.array([req.seed & 0xFFFFFFFF], np.uint32))
+    return int(select_token(torch.from_numpy(row)[None], samp, [pos])[0])
+
+
+def _host_margin(args) -> float:
+    row, req, pos = args
+    return _sampled_margin(torch.from_numpy(row), req, pos)
+
+
+def _one_thread() -> None:
+    torch.set_num_threads(1)
+
+
+def _fleet_rule(label: str, fb: _FleetBench, res: dict, logits: dict,
+                ref: dict) -> dict:
+    """``follow_rule`` against ``ref`` (tokens and logits by id), and
+    every sampled token the host sampler's draw under (seed, token index)
+    from the logits its own run gave. The sampled lanes' clean margins
+    (kept in ``ref`` for later runs) and the redraws run in ``fb.pool``."""
+    reqs = fb.by_id()
+    got = {i: r.tokens for i, r in res.items()}
+    t0 = time.perf_counter()
+    margins = ref.setdefault("margins", {})
+    sampled = [i for i in res if reqs[i].temperature > 0]
+    todo = [(i, j) for i in sampled
+            for j in range(min(len(got[i]), len(ref["tokens"][i])))
+            if (i, j) not in margins]
+    margins.update(zip(todo, fb.pool.map(
+        _host_margin, [(ref["logits"][k].numpy(), reqs[k[0]],
+                        len(reqs[k[0]].prompt) + k[1]) for k in todo],
+        chunksize=8)))
+    rule = follow_rule(label, got, ref["tokens"], logits, ref["logits"],
+                       reqs, phase="18", margins=margins)
+    keys = [(i, j) for i in sampled for j in range(len(got[i]))]
+    drawn = fb.pool.map(_host_draw, [(logits[k].numpy(), reqs[k[0]],
+                                      len(reqs[k[0]].prompt) + k[1])
+                                     for k in keys], chunksize=8)
+    for (i, j), want in zip(keys, drawn):
+        check(want == got[i][j], f"18{label}: request {i}'s token {j} is "
+              f"{got[i][j]}, the draw under (seed, "
+              f"{len(reqs[i].prompt) + j}) is {want}")
+    rule["sampled_redrawn"] = len(keys)
+    rule["check_s"] = time.perf_counter() - t0
+    return rule
+
+
+def _fleet_stats(res: dict, wall: float) -> dict:
+    toks = sum(len(r.tokens) for r in res.values())
+    ttft = [r.ttft_s * 1e3 for r in res.values() if r.ttft_s is not None]
+    tpot = [r.tpot_s * 1e3 for r in res.values() if r.tpot_s is not None]
+    return {"tokens": toks, "wall_s": wall, "tokens_per_s": toks / wall,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)),
+            "ttft_p99_ms": float(np.percentile(ttft, 99)),
+            "tpot_p50_ms": float(np.percentile(tpot, 50)),
+            "tpot_mean_ms": float(np.mean(tpot))}
+
+
+def _hit_rate(router) -> float:
+    hits = miss = 0.0
+    for h in router.engines():
+        reg = h.batcher._registry
+        hits += _counter(reg, "serving_prefix_cache_hits", outcome="hit")
+        miss += _counter(reg, "serving_prefix_cache_hits", outcome="miss")
+    return hits / max(hits + miss, 1.0)
+
+
+def _fmt(st: dict) -> str:
+    return (f"{st['tokens_per_s']:.1f} tokens/s ({st['tokens']} in "
+            f"{st['wall_s']:.2f} s), TTFT p50 {st['ttft_p50_ms']:.1f} / p99 "
+            f"{st['ttft_p99_ms']:.1f} ms, TPOT p50 {st['tpot_p50_ms']:.2f} "
+            f"ms")
+
+
+def fleet_case_clean(fb: _FleetBench):
+    """18a: the 48 requests on one engine (the reference run), then on
+    three colocated engines under affinity and round-robin placement:
+    each request once, streams by the comparison rule, affinity's prefix
+    hit rate at least round robin's, no failover. Returns (summary, the
+    one-engine run's and the affinity run's tokens and logits)."""
+    lg1 = {}
+    solo = fb.engine(lg1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, results = serve_loop(solo, solo.cache.init_state(), fb.requests())
+    torch.cuda.synchronize()
+    one = {"tokens": {r.id: r.tokens for r in results}, "logits": lg1}
+    out = {"one_engine": _fleet_stats({r.id: r for r in results},
+                                      time.perf_counter() - t0)}
+    check(solo.cache.blocks_in_use == 0, "18a: the one engine holds blocks")
+    print(f"  18a one engine: {_fmt(out['one_engine'])}")
+    refs = {"one": one}
+    _build.reset_launch_counts()
+    for placement in ("affinity", "round_robin"):
+        lg = {}
+        router = fb.router(["colocated"] * FLEET_ENGINES, lg,
+                           placement=placement)
+        res, wall = _fleet_drive(router, fb.requests())
+        _no_failover("a", router)
+        st = _fleet_stats(res, wall)
+        st["prefix_hit_rate"] = _hit_rate(router)
+        st["affinity_hits"] = _counter(router._registry,
+                                       "fleet_prefix_affinity_hits")
+        st["router_steps"] = router.step_idx
+        st["rule"] = _fleet_rule(f"a/{placement}", fb, res, lg, one)
+        out[placement] = st
+        refs[placement] = {"tokens": {i: r.tokens for i, r in res.items()},
+                           "logits": lg}
+        _fleet_close("a", router)
+        print(f"  18a {placement}: {_fmt(st)}; prefix hit rate "
+              f"{st['prefix_hit_rate']:.3f}, {router.step_idx} router steps")
+    out["launches"] = _fleet_close("a", router, _build.launch_counts())
+    check(out["affinity"]["prefix_hit_rate"]
+          >= out["round_robin"]["prefix_hit_rate"], "18a: affinity's prefix "
+          "hit rate is under round robin's")
+    return out, refs
+
+
+def fleet_case_failover(fb: _FleetBench, refs: dict, clean: dict) -> dict:
+    """18b: engine 1 crashes at half of 18a's affinity run's router steps;
+    its work recovers from a snapshot, then (router_snapshot_missing=0)
+    by replay; a replacement joins with warm=True and the last FLEET_LATE
+    requests, held back until it has, are routed among the survivors and
+    it: it must serve some. Every request once,
+    the streams by the rule against the one-engine run, one
+    fleet_engine_lost bundle, fleet_failover_ms as the reference's bench
+    reads it (the router's fence and recovery plus the first recovered
+    request's TTFT) and tokens/s against 18a's clean run."""
+    kill = max(clean["affinity"]["router_steps"] // 2, 1)
+    out = {"kill_step": kill}
+    _build.reset_launch_counts()
+    for source, extra in (("snapshot", {}),
+                          ("replay",
+                           {"router_snapshot_missing": frozenset({0})})):
+        lg = {}
+        router = fb.router(["colocated"] * FLEET_ENGINES, lg,
+                           snapshot_dir=os.path.join(fb.root, source))
+        joined = []
+
+        def join(r):
+            if r.failovers and not joined:
+                b = fb.engine(lg)
+                t0 = time.perf_counter()
+                r.add_engine("e3", b, b.cache.init_state(), warm=True)
+                torch.cuda.synchronize()
+                joined.append((time.perf_counter() - t0) * 1e3)
+
+        before = fb.flight.names()
+        reqs = fb.requests()
+        with faults.inject(engine_crash_steps=frozenset({kill}),
+                           engine_crash_engine=1, **extra):
+            res, wall = _fleet_drive(router, reqs[:-FLEET_LATE],
+                                     on_step=join,
+                                     late=reqs[-FLEET_LATE:],
+                                     late_after=lambda r: bool(joined))
+        check(len(router.failovers) == 1, f"18b: {len(router.failovers)} "
+              "failovers, not 1")
+        fo = router.failovers[0]
+        check((fo["engine"], fo["cause"], fo["source"]) ==
+              ("e1", "crash", source), f"18b: failover {fo}")
+        check(len(fo["recovered"]) > 0, "18b: nothing was recovered")
+        bundles, _ = fb.flight.new(before, "fleet_engine_lost")
+        check(len(bundles) == 1 and bundles[0]["extra"]["plan"]["source"]
+              == source, "18b: no fleet_engine_lost bundle of the plan")
+        check(bundles[0]["extra"]["last_introspect"] is not None,
+              "18b: the bundle lacks the engine's last introspect")
+        e3 = [h for h in router.engines() if h.name == "e3"]
+        check(len(e3) == 1 and e3[0].status == "active",
+              "18b: the replacement did not join")
+        served = _counter(e3[0].batcher._registry, "serving_requests",
+                          outcome="length")
+        check(served > 0, "18b: the warm replacement served no request")
+        rec = [res[i].ttft_s for i in fo["recovered"]
+               if res[i].ttft_s is not None]
+        st = _fleet_stats(res, wall)
+        st.update(
+            recovered=len(fo["recovered"]),
+            recover_ms=fo["recover_s"] * 1e3,
+            first_recovered_ttft_ms=min(rec) * 1e3,
+            fleet_failover_ms=(fo["recover_s"] + min(rec)) * 1e3,
+            tokens_per_s_vs_clean=(st["tokens_per_s"]
+                                   / clean["affinity"]["tokens_per_s"]),
+            replacement_warmup_ms=joined[0],
+            replacement_served=served,
+            rule=_fleet_rule(f"b/{source}", fb, res, lg, refs["one"]))
+        out[source] = st
+        _fleet_close("b", router)
+        print(f"  18b {source}: engine 1 killed at router step {kill}, "
+              f"{len(fo['recovered'])} requests recovered in "
+              f"{st['recover_ms']:.1f} ms, first recovered token "
+              f"{st['first_recovered_ttft_ms']:.1f} ms later: "
+              f"fleet_failover_ms {st['fleet_failover_ms']:.1f}; "
+              f"{_fmt(st)} ({st['tokens_per_s_vs_clean']:.3f} of clean); "
+              f"the replacement warmed in {joined[0]:.1f} ms and served "
+              f"{served:.0f} of the {FLEET_LATE} late requests ({fb.card})")
+    out["launches"] = _fleet_close("b", router, _build.launch_counts())
+    return out
+
+
+def fleet_case_stall(fb: _FleetBench, refs: dict) -> dict:
+    """18c: engine 2 stalls FLEET_STALL_MS (above stall_after_s) at a
+    router step where it has a queue: at most hedge_max queued requests
+    move with outcome ``rerouted``, no stream is duplicated and nothing
+    is fenced; one io:fleet_router transient is absorbed by the retry."""
+    lg = {}
+    router = fb.router(["colocated"] * FLEET_ENGINES, lg,
+                       placement="least_queue",
+                       stall_after_s=FLEET_STALL_AFTER_S,
+                       hedge_max=FLEET_HEDGE_MAX)
+    queued = {}
+
+    def look(r):
+        if r.step_idx == FLEET_STALL_STEP:
+            queued.update({h.name: len(h.batcher.queue)
+                           for h in r.engines()})
+
+    retries0 = _counter(telemetry.registry(), "retry_attempts",
+                        site="fleet_router")
+    _build.reset_launch_counts()
+    with faults.inject(engine_stall_ms=FLEET_STALL_MS, engine_stall_engine=2,
+                       engine_stall_at=frozenset({FLEET_STALL_STEP}),
+                       io_errors={"fleet_router":
+                                  frozenset({FLEET_IO_INDEX})}):
+        res, wall = _fleet_drive(router, fb.requests(), on_step=look)
+    launches = _build.launch_counts()
+    _no_failover("c", router)
+    [h2] = [h for h in router.engines() if h.name == "e2"]
+    check(queued.get("e2", 0) > 0, f"18c: engine 2 had no queue before the "
+          f"stall ({queued})")
+    check(1 <= h2.hedged <= FLEET_HEDGE_MAX, f"18c: {h2.hedged} requests "
+          f"hedged, not 1-{FLEET_HEDGE_MAX}")
+    reg = router._registry
+    check(_counter(reg, "fleet_requests_rerouted", cause="hedge")
+          == h2.hedged, "18c: fleet_requests_rerouted{cause=hedge}")
+    rerouted = [d["request_id"] for d in router.tracer.trace_dicts()
+                if d["outcome"] == "rerouted"]
+    check(len(rerouted) == h2.hedged, f"18c: {len(rerouted)} trace segments "
+          f"closed rerouted, {h2.hedged} hedged")
+    absorbed = _counter(telemetry.registry(), "retry_attempts",
+                        site="fleet_router") - retries0
+    check(absorbed == 1, f"18c: {absorbed} fleet_router retries, not 1")
+    st = _fleet_stats(res, wall)
+    st.update(hedged=h2.hedged, hedged_ids=rerouted, queue_at_stall=queued,
+              retries_absorbed=absorbed,
+              stalled_step_s=h2.last_step_s,
+              rule=_fleet_rule("c", fb, res, lg, refs["one"]))
+    print(f"  18c engine 2 stalled {FLEET_STALL_MS:.0f} ms at router step "
+          f"{FLEET_STALL_STEP} (queues {queued}): {h2.hedged} queued "
+          f"requests hedged ({rerouted}), none fenced; the io:fleet_router "
+          f"transient absorbed by {absorbed} retry; {_fmt(st)}")
+    st["launches"] = _fleet_close("c", router, launches)
+    return st
+
+
+class _TimedRouter(FleetRouter):
+    """A FleetRouter that times each handoff's parts on the host clock:
+    the manifest, the ship and the verify here, the export (device to
+    host) and the import (host to device) through the engines' wrapped
+    methods (``_time_handoffs``), the device synchronized around each.
+    ``parts`` holds one record a handoff."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.parts = []
+        self.cur = None
+
+    def _handoff(self, src, dst, fl, idx):
+        self.cur = {"request": fl.req.id, "ship_ms": 0.0, "verify_ms": 0.0,
+                    "attempts": 0,
+                    "tokens": len(fl.req.prompt) + len(fl.generated) - 1}
+        t0 = time.perf_counter()
+        ok = super()._handoff(src, dst, fl, idx)
+        torch.cuda.synchronize()
+        self.cur.update(ok=ok, total_ms=(time.perf_counter() - t0) * 1e3)
+        self.parts.append(self.cur)
+        self.cur = None
+        return ok
+
+    def _manifest(self, blocks, k, v, dtype=None):
+        t0 = time.perf_counter()
+        out = FleetRouter._manifest(blocks, k, v, dtype=dtype)
+        if self.cur is not None:
+            self.cur.update(manifest_ms=(time.perf_counter() - t0) * 1e3,
+                            bytes=int(k.nbytes + v.nbytes),
+                            blocks=len(blocks), dtype=out["dtype"])
+        return out
+
+    def _ship(self, k, v):
+        t0 = time.perf_counter()
+        out = super()._ship(k, v)
+        if self.cur is not None:
+            self.cur["ship_ms"] += (time.perf_counter() - t0) * 1e3
+            self.cur["attempts"] += 1
+        return out
+
+    def _verify_blocks(self, manifest, k, v, log):
+        t0 = time.perf_counter()
+        bad = FleetRouter._verify_blocks(manifest, k, v, log)
+        if self.cur is not None:
+            self.cur["verify_ms"] += (time.perf_counter() - t0) * 1e3
+        return bad
+
+
+def _time_handoffs(router: _TimedRouter) -> None:
+    for h in router.engines():
+        for obj, name, key in ((h.batcher.cache, "export_blocks",
+                                "export_ms"),
+                               (h.batcher, "install_prefilled",
+                                "import_ms")):
+            def timed(*a, _fn=getattr(obj, name), _key=key, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                if router.cur is not None:
+                    router.cur[_key] = (time.perf_counter() - t0) * 1e3
+                return out
+            setattr(obj, name, timed)
+
+
+def fleet_case_disagg(fb: _FleetBench, refs: dict) -> dict:
+    """18d: one prefill seat and two decode seats; every stream's K/V
+    handed off, each handoff's bytes, export, manifest, ship, verify and
+    import timed apart, the comms ledger's broadcast bytes equal to the
+    handoff bytes, the streams by the rule against 18a's affinity run;
+    then each prompt re-prefilled alone on one engine, the time a
+    handoff saves (or costs)."""
+    lg = {}
+    router = fb.router(["prefill", "decode", "decode"], lg, cls=_TimedRouter)
+    _time_handoffs(router)
+    tracer = comms.enable()
+    _build.reset_launch_counts()
+    try:
+        res, wall = _fleet_drive(router, fb.requests())
+    finally:
+        comms.disable()
+    launches = _build.launch_counts()
+    _no_failover("d", router)
+    hs = router.handoff_stats
+    check(hs["ok"] == FLEET_REQUESTS and hs["failed"] == 0
+          and hs["retries"] == 0, f"18d: handoffs {hs}")
+    parts = router.parts
+    check(len(parts) == FLEET_REQUESTS and all(p["ok"] for p in parts),
+          "18d: a handoff was not installed")
+    check(all(p["dtype"] == "bfloat16" for p in parts),
+          "18d: a manifest does not name bfloat16")
+    ledger = tracer.op_stats().get("broadcast_from", {})
+    check(ledger.get("payload_bytes") == hs["bytes"], f"18d: the comms "
+          f"ledger moved {ledger.get('payload_bytes')} bytes, the handoffs "
+          f"{hs['bytes']}")
+    st = _fleet_stats(res, wall)
+    st.update(handoffs=hs, rule=_fleet_rule("d", fb, res, lg,
+                                            refs["affinity"]))
+    # the same prompts re-prefilled alone, each on an engine of its own
+    # state (what a replay costs), prefix cache reset each time
+    solo = ContinuousBatcher(fb.model, KVCache.for_config(
+        fb.cfg, num_blocks=FLEET_BLOCKS, block_size=16, device=fb.dev),
+        max_batch=8, prefill_chunk=PREFILL_CHUNK)
+    state = solo.cache.init_state()
+    reqs = fb.by_id()
+    for p in parts:
+        req = reqs[p["request"]]
+        solo.cache.reset_prefix_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = serve_loop(solo, state, [Request(
+            id=req.id, prompt=req.prompt, max_new_tokens=1)])
+        torch.cuda.synchronize()
+        p["reprefill_ms"] = (time.perf_counter() - t0) * 1e3
+    keys = ("export_ms", "manifest_ms", "ship_ms", "verify_ms",
+            "import_ms", "total_ms", "reprefill_ms")
+    st["per_handoff"] = parts
+    st["median"] = {k: float(np.median([p[k] for p in parts]))
+                    for k in keys + ("bytes", "tokens")}
+    st["sum"] = {k: float(np.sum([p[k] for p in parts])) for k in keys}
+    st["bytes_per_token"] = hs["bytes"] / sum(p["tokens"] for p in parts)
+    big = max(parts, key=lambda p: p["tokens"])
+    st["largest"] = big
+    m = st["median"]
+    print(f"  18d {hs['ok']} handoffs, {hs['bytes'] / 1e6:.1f} MB "
+          f"({st['bytes_per_token']:.0f} bytes a token); per handoff, "
+          f"median of {len(parts)}: {m['bytes'] / 1e6:.2f} MB, export "
+          f"{m['export_ms']:.2f} ms, manifest {m['manifest_ms']:.2f}, ship "
+          f"{m['ship_ms']:.3f}, verify {m['verify_ms']:.2f}, import "
+          f"{m['import_ms']:.2f}, total {m['total_ms']:.2f} ms against a "
+          f"re-prefill of the same prompt of {m['reprefill_ms']:.2f} ms")
+    print(f"  18d the largest ({big['tokens']} tokens, "
+          f"{big['bytes'] / 1e6:.1f} MB): export {big['export_ms']:.2f}, "
+          f"manifest {big['manifest_ms']:.2f}, verify "
+          f"{big['verify_ms']:.2f}, import {big['import_ms']:.2f}, total "
+          f"{big['total_ms']:.2f} ms; re-prefill {big['reprefill_ms']:.2f} "
+          f"ms; the run: {_fmt(st)} ({fb.card})")
+    st["launches"] = _fleet_close("d", router, launches)
+    return st
+
+
+def _ladder(fb: _FleetBench, refs: dict, label: str, plan: dict,
+            on_step=None, **kw):
+    """One run of the handoff ladder: FLEET_LADDER requests through one
+    prefill and two decode seats under ``plan``; the streams by the rule
+    against 18a's affinity run. Returns (router, results, the flight
+    bundles written, by trigger)."""
+    lg = {}
+    router = fb.router(["prefill", "decode", "decode"], lg, **kw)
+    before = fb.flight.names()
+    with faults.inject(**plan):
+        res, _ = _fleet_drive(router, fb.requests(FLEET_LADDER),
+                              on_step=on_step)
+    _, written = fb.flight.new(before, "")
+    by_trigger = {}
+    for b in written:
+        by_trigger[b["trigger"]] = by_trigger.get(b["trigger"], 0) + 1
+    rule = _fleet_rule(f"e/{label}", fb, res, lg, refs["affinity"])
+    return router, res, by_trigger, rule
+
+
+def fleet_case_ladder(fb: _FleetBench, refs: dict) -> dict:
+    """18e: the handoff's failure ladder on a prefill seat and two decode
+    seats: corrupt, timed-out and partial transfers refused before
+    install and re-sent; an orphaned export freed and zeroed and its
+    stream replayed; the fallback latch after fallback_after failures
+    and the probe that clears it; a decode seat crashing mid-handoff,
+    fenced, its stream re-prefilled; a planned remove_engine, rerouted
+    and no bundle."""
+    out = {}
+    _build.reset_launch_counts()
+    # 1: three wire faults on consecutive attempts, retries enough
+    router, _, bundles, rule = _ladder(
+        fb, refs, "wire", dict(kv_transfer_corrupt=frozenset({0}),
+                               kv_transfer_timeout=frozenset({1}),
+                               kv_transfer_partial=frozenset({2})),
+        handoff_retries=3)
+    hs = router.handoff_stats
+    check(hs["retries"] == 3 and hs["failed"] == 0
+          and hs["ok"] == FLEET_LADDER, f"18e wire: handoffs {hs}")
+    check("kv_handoff_failed" not in bundles, "18e wire: a bundle")
+    _no_failover("e", router)
+    _fleet_close("e", router)
+    out["wire"] = {"handoffs": dict(hs), "rule": rule}
+    # 2: the first handoff orphaned after export: its blocks freed dirty,
+    # zeroed before reuse, the stream replayed
+    seen = {"export": None, "scrubbed": [], "zero": []}
+    lg = {}
+    router = fb.router(["prefill", "decode", "decode"], lg)
+    src = router.engines()[0].batcher
+    real_export = src.cache.export_blocks
+    real_take = src.cache.take_pending_scrub
+    real_scrub = src._scrub_pending
+
+    def export(*a, **kw):
+        got = real_export(*a, **kw)
+        if seen["export"] is None:
+            seen["export"] = list(got[0])
+        return got
+
+    def take():
+        blocks = real_take()
+        seen["scrubbed"].append(list(blocks))
+        return blocks
+
+    def scrub(state):
+        state = real_scrub(state)
+        if seen["scrubbed"] and seen["scrubbed"][-1]:
+            idx = torch.as_tensor(seen["scrubbed"][-1],
+                                  device=state.k.device)
+            seen["zero"].append(bool((state.k[:, idx] == 0).all())
+                                and bool((state.v[:, idx] == 0).all()))
+        return state
+
+    src.cache.export_blocks, src.cache.take_pending_scrub = export, take
+    src._scrub_pending = scrub
+    with faults.inject(handoff_orphan=frozenset({0})):
+        res, _ = _fleet_drive(router, fb.requests(FLEET_LADDER))
+    hs = router.handoff_stats
+    check(hs["orphan"] == 1 and _counter(
+        router._registry, "fleet_requests_rerouted", cause="handoff_orphan")
+        == 1, f"18e orphan: handoffs {hs}")
+    scrubbed = {b for blocks in seen["scrubbed"] for b in blocks}
+    check(set(seen["export"]) <= scrubbed and seen["zero"]
+          and all(seen["zero"]), f"18e orphan: exported blocks "
+          f"{seen['export']} not all zeroed ({seen['scrubbed']})")
+    _no_failover("e", router)
+    rule = _fleet_rule("e/orphan", fb, res, lg, refs["affinity"])
+    _fleet_close("e", router)
+    out["orphan"] = {"handoffs": dict(hs), "blocks": seen["export"],
+                     "rule": rule}
+    # 3: consecutive refused transfers latch the colocated fallback; the
+    # probe that passes clears it
+    router, _, bundles, rule = _ladder(
+        fb, refs, "fallback", dict(kv_transfer_corrupt=frozenset(range(4))),
+        handoff_retries=0, fallback_after=2)
+    reg = router._registry
+    hs = router.handoff_stats
+    latched = _counter(reg, "fleet_colocated_fallback", transition="latched")
+    unlatched = _counter(reg, "fleet_colocated_fallback",
+                         transition="unlatched")
+    probes = (_counter(reg, "fleet_handoff_probes", outcome="failed"),
+              _counter(reg, "fleet_handoff_probes", outcome="ok"))
+    check(hs["failed"] == 2 and latched == 1 and unlatched == 1
+          and probes == (2.0, 1.0) and not router._fallback,
+          f"18e fallback: handoffs {hs}, latched {latched}, unlatched "
+          f"{unlatched}, probes failed/ok {probes}")
+    check(bundles.get("kv_handoff_failed") == 2, f"18e fallback: bundles "
+          f"{bundles}")
+    check(hs["ok"] > 0, "18e fallback: no handoff after the probe")
+    _no_failover("e", router)
+    _fleet_close("e", router)
+    out["fallback"] = {"handoffs": dict(hs), "probes_failed_ok": probes,
+                       "rule": rule}
+    # 4: decode seat 1 dies inside the first handoff to it
+    router, _, bundles, rule = _ladder(
+        fb, refs, "dst_crash", dict(engine_crash_steps=frozenset({0}),
+                                    engine_crash_engine=1))
+    hs = router.handoff_stats
+    [h1] = [h for h in router.engines() if h.name == "e1"]
+    check(h1.status == "fenced" and hs["dst_crash"] == 1
+          and len(router.failovers) == 1
+          and router.failovers[0]["cause"] == "crash",
+          f"18e dst_crash: handoffs {hs}, failovers {router.failovers}")
+    check(bundles.get("fleet_engine_lost") == 1, f"18e dst_crash: bundles "
+          f"{bundles}")
+    check(_counter(router._registry, "fleet_requests_rerouted",
+                   cause="handoff_dst_crash") == 1,
+          "18e dst_crash: fleet_requests_rerouted{cause=handoff_dst_crash}")
+    _fleet_close("e", router)
+    out["dst_crash"] = {"handoffs": dict(hs), "rule": rule}
+    # 5: decode seat 2 leaves (a planned exit) mid-run
+    left = {}
+
+    def leave(r):
+        if r.step_idx == FLEET_REMOVE_STEP:
+            left.update(r.remove_engine("e2"))
+
+    router, _, bundles, rule = _ladder(fb, refs, "remove", {},
+                                       on_step=leave)
+    check(len(left.get("recovered", [])) > 0, f"18e remove: {left}")
+    check(_counter(router._registry, "fleet_requests_rerouted",
+                   cause="remove") == len(left["recovered"]),
+          "18e remove: fleet_requests_rerouted{cause=remove}")
+    check(not bundles and router.failovers == []
+          and _counter(router._registry, "fleet_failovers") == 0,
+          f"18e remove: bundles {bundles}, failovers {router.failovers}")
+    out["launches"] = _fleet_close("e", router, _build.launch_counts(),
+                                   gone=left["recovered"])
+    out["remove"] = {"recovered": len(left["recovered"]),
+                     "source": left["source"], "rule": rule}
+    print(f"  18e wire faults: {out['wire']['handoffs']['retries']} "
+          f"re-sends, 0 installs refused late; orphan: blocks "
+          f"{out['orphan']['blocks']} freed and zeroed, the stream "
+          f"replayed; fallback: 2 failures latched, probes failed/ok "
+          f"{probes}, unlatched; dst_crash: e1 fenced, the stream "
+          f"re-prefilled; remove: {len(left['recovered'])} requests "
+          f"rerouted from e2 ({left['source']}), no bundle")
+    return out
+
+
+def _sum_key(obj, key: str) -> float:
+    """The sum of every ``key`` in a nested dict."""
+    if not isinstance(obj, dict):
+        return 0.0
+    return sum(v if k == key else _sum_key(v, key) for k, v in obj.items())
+
+
+def serve_fleet(seed: int, dev, card: str) -> dict:
+    """Phase 18: the fleet router over GPT-2 345M engines (cases a-e)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    records_dir = port_records.RECORDS_DIR
+    t0 = time.perf_counter()
+    pool = ProcessPoolExecutor(FLEET_HOST_WORKERS,
+                               mp_context=multiprocessing.get_context(
+                                   "spawn"), initializer=_one_thread)
+    try:
+        fb = _FleetBench(seed, dev, card, root, pool)
+        warm = ContinuousBatcher(fb.model, KVCache.for_config(
+            fb.cfg, num_blocks=8, block_size=16, device=dev), max_batch=8)
+        serve_loop(warm, warm.cache.init_state(), [Request(
+            id="warm", prompt=fb.specs[1]["prompt"][:16], max_new_tokens=2)])
+        del warm
+        out, walls = {}, {}
+        t1 = time.perf_counter()
+        out["a"], refs = fleet_case_clean(fb)
+        walls["a"] = time.perf_counter() - t1
+        for case, fn in (("b", lambda: fleet_case_failover(fb, refs,
+                                                            out["a"])),
+                         ("c", lambda: fleet_case_stall(fb, refs)),
+                         ("d", lambda: fleet_case_disagg(fb, refs)),
+                         ("e", lambda: fleet_case_ladder(fb, refs))):
+            t1 = time.perf_counter()
+            out[case] = fn()
+            walls[case] = time.perf_counter() - t1
+    finally:
+        pool.shutdown(cancel_futures=True)
+        flight.disable()
+        comms.disable()
+        port_records.RECORDS_DIR = records_dir
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {c: out[c]["launches"] for c in "abcde"}
+    out["wall_s"] = time.perf_counter() - t0
+    out["case_wall_s"] = walls
+    out["check_s"] = _sum_key(out, "check_s")
+    print(f"  18 launches of kernels #1 and #2 a case: {out['launches']}; "
+          f"{out['wall_s']:.1f} s, a case: " + ", ".join(
+              f"{c} {w:.1f}" for c, w in walls.items()) + f"; of which "
+          f"{out['check_s']:.1f} s the comparison rule and the host "
+          f"redraws in {FLEET_HOST_WORKERS} processes ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8551,6 +9387,8 @@ def main(argv=None) -> int:
                   "FP16_Optimizer", lambda: amp_phase(args.seed, dev, card))
     sfl = phase("phase 17: serving GPT-2 345M under faults",
                 lambda: serve_faults(args.seed, dev, card, srv, ssv))
+    sft = phase("phase 18: the serving fleet, GPT-2 345M engines behind "
+                "one router", lambda: serve_fleet(args.seed, dev, card))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -8710,12 +9548,14 @@ def main(argv=None) -> int:
         if name in (layer_norm.KERNEL, attention.KERNEL):
             for case, counts in sfl["launches"].items():
                 k[f"launches_serving_faults_{case}"] = counts[name]
+            for case, counts in sft["launches"].items():
+                k[f"launches_serving_fleet_{case}"] = counts[name]
         check(k["launches"] > 0, f"{name}: no launch on its path")
     for counter in DROPOUT_COUNTERS:
         drow[f"launches_{counter}"] = gdr["launches"].get(counter, 0)
 
     check(len(kernels) == 66, f"{len(kernels)} kernels in the line, not 66")
-    print("phase 18: kernels")
+    print("phase 19: kernels")
     print("  phase wall seconds: " + ", ".join(
         f"{label.split(':')[0]} {t:.1f}" for label, t in walls.items()))
     line = {"kernels": kernels}
@@ -8742,7 +9582,8 @@ def main(argv=None) -> int:
                        "flash_report": bwr,
                        "flash_wide": {"launches": wide["launches"]},
                        "training_t5": t5,
-                       "amp": amp16, "serving_faults": sfl, **line}, f,
+                       "amp": amp16, "serving_faults": sfl,
+                       "serving_fleet": sft, **line}, f,
                       indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

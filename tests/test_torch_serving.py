@@ -167,6 +167,73 @@ def test_export_import_round_trip():
                                   state.k[:, blocks].numpy())
 
 
+def _bf16_pools(seed):
+    """One bf16 pool's bits in both packages: the port's cache state and
+    the reference's, filled with the same random bf16 values (signed
+    zeros, subnormals and large magnitudes included)."""
+    rng = np.random.RandomState(seed)
+    shape = (LAYERS, BLOCKS + 1, BS, KV, D)
+    vals = (rng.randn(*shape) * 10.0 ** rng.randint(-40, 5, shape)).astype(
+        np.float32)
+    vals.reshape(-1)[:3] = (-0.0, 1e-40, 3e38)
+    bits = torch.from_numpy(vals).bfloat16()
+    pc = port_kv.KVCache(LAYERS, KV, D, num_blocks=BLOCKS, block_size=BS,
+                         dtype=torch.bfloat16, device="cpu")
+    ps = port_kv.KVCacheState(bits.clone(), bits.flip(0).contiguous())
+    raw = [t.view(torch.int16).numpy().view(np.uint16)
+           for t in (ps.k, ps.v)]
+    rc = ref_kv.KVCache(LAYERS, KV, D, num_blocks=BLOCKS, block_size=BS,
+                        dtype=jnp.bfloat16)
+    rs = ref_kv.KVCacheState(
+        *(jax.lax.bitcast_convert_type(jnp.asarray(r), jnp.bfloat16)
+          for r in raw))
+    return pc, ps, rc, rs, raw
+
+
+def test_bf16_export_gives_the_pool_bits_as_uint16():
+    pc, ps, _, _, raw = _bf16_pools(11)
+    pc.allocate("src", 3 * BS)
+    blocks, k, v = pc.export_blocks(ps, "src", length=2 * BS + 1)
+    assert k.dtype == v.dtype == np.uint16 and k.shape[1] == 3
+    np.testing.assert_array_equal(k, raw[0][:, blocks])
+    np.testing.assert_array_equal(v, raw[1][:, blocks])
+    assert pc.dtype_name == "bfloat16"
+
+
+def test_bf16_import_is_bitwise():
+    pc, ps, _, _, raw = _bf16_pools(12)
+    pc.allocate("src", 2 * BS)
+    blocks, k, v = pc.export_blocks(ps, "src")
+    pc.allocate("dst", 3 * BS)
+    pc.import_blocks(ps, "dst", k, v)
+    dst = pc.table("dst")[:2]
+    for t, r in zip((ps.k, ps.v), raw):
+        got = t[:, dst].view(torch.int16).numpy().view(np.uint16)
+        np.testing.assert_array_equal(got, r[:, blocks])
+
+
+def test_bf16_manifest_matches_the_reference():
+    """The port's manifest over its uint16 export names ``bfloat16`` and
+    has the reference's root over the reference's own export of the same
+    bits; the reference's bfloat16 arrays import into the port's pool
+    bit for bit."""
+    pc, ps, rc, rs, _ = _bf16_pools(13)
+    for c in (pc, rc):
+        c.allocate("src", 3 * BS)
+    pb, pk, pv = pc.export_blocks(ps, "src", length=3 * BS)
+    rb, rk, rv = rc.export_blocks(rs, "src", length=3 * BS)
+    assert pb == rb and str(rk.dtype) == "bfloat16"
+    want = ref_serving.FleetRouter._manifest(rb, rk, rv)
+    got = serving.FleetRouter._manifest(pb, pk, pv, dtype=pc.dtype_name)
+    assert got == want and got["dtype"] == "bfloat16"
+    assert serving.FleetRouter._manifest(rb, rk, rv) == want
+    pc.allocate("dst", 3 * BS)
+    pc.import_blocks(ps, "dst", rk, rv)
+    _, k2, v2 = pc.export_blocks(ps, "dst")
+    np.testing.assert_array_equal(k2, pk)
+    np.testing.assert_array_equal(v2, pv)
+
+
 def test_copies_and_scrub_bitwise_against_reference():
     rng = np.random.RandomState(2)
     pool = rng.randn(LAYERS, BLOCKS + 1, BS, KV, D).astype(np.float32)
@@ -454,7 +521,9 @@ def test_import_loads_no_jax():
             "apex_tpu_torch.models, apex_tpu_torch.ops, "
             "apex_tpu_torch.telemetry, apex_tpu_torch.resilience, "
             "apex_tpu_torch.records, apex_tpu_torch.serving.resilience, "
-            "apex_tpu_torch.serving.tracing; "
+            "apex_tpu_torch.serving.tracing, apex_tpu_torch.serving.fleet, "
+            "apex_tpu_torch.telemetry.comms, apex_tpu_torch.telemetry.fleet, "
+            "apex_tpu_torch.resilience.retry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'apex_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
