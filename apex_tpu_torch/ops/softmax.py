@@ -9,7 +9,9 @@ the Pallas ``_scaled_kernel``, ``_causal_kernel`` and ``_masked_kernel``)
 and the backward its shared backward kernel (``_bwd_kernel``); on a CPU
 tensor they run :func:`_fwd_torch` and :func:`_bwd_torch`, the plain
 versions, op for op the reference's ``_softmax_rows`` and the XLA branch
-of ``_bwd_any`` in fp32.
+of ``_bwd_any`` in fp32. The masked kernel reads its mask through a batch
+and a query stride (:func:`mask_layout`), so a (b, 1, 1, sk) or (1, 1,
+sq, sk) mask is not copied: one call, one kernel.
 
 The fills are the reference's: the masked variants *add* ``MASK_FILL``
 (-10000) to ``scale * x`` where the mask is True, so a row whose keys
@@ -120,41 +122,113 @@ def _check(name: str, t: torch.Tensor, dtypes, device) -> None:
                         f"takes {', '.join(str(d) for d in dtypes)}")
 
 
+def _check_mask_shape(x: torch.Tensor, mask: torch.Tensor) -> None:
+    if x.ndim != 4 or mask.ndim != 4:
+        raise ValueError(f"expected x (b, h, sq, sk) and a 4-D mask, got "
+                         f"{tuple(x.shape)} and {tuple(mask.shape)}")
+    b, _, sq, sk = x.shape
+    mb, one, mq, mk = mask.shape
+    if mb not in (1, b) or one != 1 or mq not in (1, sq) or mk not in (1,
+                                                                       sk):
+        raise ValueError(f"mask {tuple(mask.shape)} does not broadcast as "
+                         f"(b or 1, 1, sq, sk) over x {tuple(x.shape)}")
+
+
+def mask_layout(x: torch.Tensor, mask: torch.Tensor):
+    """How the masked kernel reads ``mask`` for (b, h, sq, sk) scores
+    ``x``: ``(mask, batch_stride, query_stride)``, ``mask`` a bool tensor
+    of shape (mb, 1, sq or 1, sk) (mb 1 or b) whose keys lie at unit
+    stride, and the strides (in elements, which are bytes) of its batch
+    and query dims, 0 where it broadcasts over them. A (b, 1, 1, sk), (1,
+    1, sq, sk) or (b, 1, sq, sk) mask, or any expanded view of one, comes
+    back as it is; a non-bool mask is compared with 0, and one broadcast
+    along the keys (or strided there) is copied to unit stride. Raises
+    ValueError where the mask does not broadcast as (b or 1, 1, sq, sk)
+    over x."""
+    _check_mask_shape(x, mask)
+    mb, _, mq, mk = mask.shape
+    sk = x.shape[-1]
+    if mask.dtype != torch.bool:
+        mask = mask != 0
+    if mk != sk or (sk > 1 and mask.stride(3) != 1):
+        mask = mask.expand(mb, 1, mq, sk).contiguous()
+    return (mask, mask.stride(0) if mb > 1 else 0,
+            mask.stride(2) if mq > 1 else 0)
+
+
+def _fwd_args(x: torch.Tensor, mask: Optional[torch.Tensor], mode: str):
+    """The kernel's arguments for x (contiguous) and the mask of ``mode``:
+    rows, sq, sk, heads, the mask (or None) and its two strides."""
+    sk = x.shape[-1]
+    sq = x.shape[-2] if x.ndim >= 2 else 1
+    if mode != "masked":
+        return x.numel() // max(sk, 1), sq, sk, 1, None, 0, 0
+    mask, mbs, mqs = mask_layout(x, mask)
+    return x.numel() // max(sk, 1), sq, sk, x.shape[1], mask, mbs, mqs
+
+
 def _fwd_cuda(x: torch.Tensor, mask: Optional[torch.Tensor], scale: float,
               mode: str) -> torch.Tensor:
     """The forward kernel of ``mode`` on the same shapes as
-    :func:`_fwd_torch`. Rows whose width does not divide into 16-byte
+    :func:`_fwd_torch`: one launch, the mask read where it lies
+    (:func:`mask_layout`). Rows whose width does not divide into 16-byte
     packs, or tensors that are not 16-byte aligned, take the kernel's
     one-element loads."""
     dev = x.device
     _check("x", x, tuple(_DTYPE_CODES), dev)
-    x = x.contiguous()
-    code, counter = _MODES[mode]
-    sk = x.shape[-1]
-    sq = x.shape[-2] if x.ndim >= 2 else 1
-    heads, mb = 1, 1
-    y = torch.empty_like(x)
     if mode == "masked":
         _check("mask", mask, (torch.bool,), dev)
-        heads, mb = x.shape[1], mask.shape[0]
-        mask = mask.contiguous()
+    x = x.contiguous()
+    code, counter = _MODES[mode]
+    y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    rows = x.numel() // sk
+    rows, sq, sk, heads, mask, mbs, mqs = _fwd_args(x, mask, mode)
     P, I, L, F = _build.P, _build.I, _build.L, _build.F
-    lib = _library("apex_softmax_fwd", (P, P, P, L, I, I, I, I, F, I, I, P))
+    lib = _library("apex_softmax_fwd", (P, P, P, L, I, I, I, L, L, F, I, I,
+                                        P))
     # the ctypes call launches on the current device: make it x's
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.apex_softmax_fwd(
             x.data_ptr(), None if mask is None else mask.data_ptr(),
-            y.data_ptr(), rows, sq, sk, heads, mb, float(scale), code,
+            y.data_ptr(), rows, sq, sk, heads, mbs, mqs, float(scale), code,
             _DTYPE_CODES[x.dtype], stream)
     if err:
         raise RuntimeError(f"{counter}: CUDA error {err} at launch: "
                            f"{lib.apex_softmax_error_string(err).decode()}")
     _build.count_launch(kernel_name(counter, x.dtype))
     return y
+
+
+ROUTE_KEYS = ("lanes", "slots", "threads", "blocks", "resident_blocks",
+              "registers", "spill_bytes")
+
+
+def fwd_route(x: torch.Tensor, mask: Optional[torch.Tensor],
+              mode: str) -> dict:
+    """How :func:`_fwd_cuda` runs these arguments on x's device: lanes a
+    row (0 on the block path of rows past 1024 columns), 16-byte slots (or
+    elements) a lane, threads a block, blocks, blocks resident at once, and
+    the instance's registers and spilled bytes a thread. Launches
+    nothing."""
+    x = x.contiguous()
+    if mode == "masked":
+        _check("mask", mask, (torch.bool,), x.device)
+    rows, sq, sk, _, mask, mbs, mqs = _fwd_args(x, mask, mode)
+    P, I, L = _build.P, _build.I, _build.L
+    lib = _library("apex_softmax_fwd_route", (P, P, P, L, I, I, L, L, I, I,
+                                              P))
+    out = (ctypes.c_int * len(ROUTE_KEYS))()
+    with torch.cuda.device(x.device):
+        err = lib.apex_softmax_fwd_route(
+            x.data_ptr(), None if mask is None else mask.data_ptr(),
+            x.data_ptr(), rows, sq, sk, mbs, mqs, _MODES[mode][0],
+            _DTYPE_CODES[x.dtype], ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"softmax route: CUDA error {err}: "
+                           f"{lib.apex_softmax_error_string(err).decode()}")
+    return dict(zip(ROUTE_KEYS, out))
 
 
 def _bwd_cuda(y: torch.Tensor, g: torch.Tensor, scale: float
@@ -212,19 +286,12 @@ def _softmax(x, mask, scale, mode, kernel) -> torch.Tensor:
 
 def _masked_args(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Validate (b, h, sq, sk) x and its (mb, 1, sq | 1, sk | 1) mask
-    (mb 1 or b); return the mask as a (mb, 1, sq, sk) bool tensor."""
-    if x.ndim != 4 or mask.ndim != 4:
-        raise ValueError(f"expected x (b, h, sq, sk) and a 4-D mask, got "
-                         f"{tuple(x.shape)} and {tuple(mask.shape)}")
-    b, _, sq, sk = x.shape
-    mb = mask.shape[0]
-    if (mb not in (1, b) or mask.shape[1] != 1
-            or mask.shape[2] not in (1, sq) or mask.shape[3] not in (1, sk)):
-        raise ValueError(f"mask {tuple(mask.shape)} does not broadcast as "
-                         f"(b or 1, 1, sq, sk) over x {tuple(x.shape)}")
+    (mb 1 or b); return the mask as a (mb, 1, sq, sk) bool view (stride 0
+    where it broadcasts: the kernel reads it through its strides)."""
+    _check_mask_shape(x, mask)
     if mask.dtype != torch.bool:
         mask = mask != 0
-    return mask.expand(mb, 1, sq, sk)
+    return mask.expand(mask.shape[0], 1, *x.shape[2:])
 
 
 def scaled_softmax(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The LayerNorm forward and backward, the fp32 flash forward, the one-pass
-LAMB segment kernel and the per-leaf sum of two checkouts of the port, side
-by side on the card.
+LAMB segment kernel, the per-leaf sum and the softmax forwards of two
+checkouts of the port, side by side on the card.
 
 ``save`` runs fixed seeded cases through the wrappers
 (``ops.layer_norm._fwd_cuda`` and ``_bwd_cuda``; ``ops.attention._flash_cuda``,
@@ -26,8 +26,20 @@ their largest |value|, each save's own check, and both times:
     python apex_tpu_torch/tools/tree_compare.py save --root . new.json
     python apex_tpu_torch/tools/tree_compare.py compare old.json new.json
 
-``--only layer_norm`` (or ``flash``, ``lamb_segment``, ``leaf_sum``, or a
-comma-separated list of them) saves those cases alone. Run the saves in
+The softmax cases (``SOFTMAX_CASES``: T5-base's decoder and cross
+attention, GPT-2 345M's causal scores, BERT-Large's masked and unmasked
+ones, one 8-column row for the launch floor; bf16 and fp16) call
+``ops.softmax._fwd_cuda`` with the mask as ``scaled_masked_softmax`` passes
+it (through ``_masked_args``), and save the output's hash, its own check
+against the checkout's plain version (the largest excess over one ulp), a
+repeated call's bitwise equality, the device allocations a call makes (1:
+the output alone, no copy of the mask), replay and cold ms, the library
+call's ms (``torch._masked_softmax``, ``torch.softmax``), the bound and,
+where the checkout has ``softmax.fwd_route``, the kernel's route
+(lanes a row, blocks, registers, spills).
+
+``--only layer_norm`` (or ``flash``, ``lamb_segment``, ``leaf_sum``,
+``softmax``, or a comma-separated list of them) saves those cases alone. Run the saves in
 turns (old, new, new, old) to see the spread of the times. Device time:
 ``--iters`` calls captured in one CUDA graph, replayed five times between
 CUDA events. That replay keeps the inputs in the card's 50 MB L2 where they
@@ -76,6 +88,31 @@ FLASH_CASES = (
 
 # the cold time's inputs: copies of x enough to pass this many bytes, four L2s
 COLD_BYTES = 200e6
+
+# the softmax forwards (name, mode, x shape, mask): T5-base's decoder (16 x
+# 12 heads, 128 queries, causal) and its cross attention (128 queries over
+# 512 encoder keys, the (b, 1, 1, 512) key mask as the model passes it, and
+# the same mask made dense, as the kernel alone read it before strides),
+# GPT-2 345M's causal scores (8 x 16, 1024, 1024), BERT-Large's (8, 16, 512,
+# 512) under its padded outer-product mask (mask batch 8, and one
+# sequence's broadcast from batch 1) and unmasked, and one 8-column row:
+# the launch of the kernel alone, its floor. Each in bf16 and fp16.
+SOFTMAX_CASES = (
+    ("t5_decoder", "causal", (192, 128, 128), None),
+    ("gpt", "causal", (128, 1024, 1024), None),
+    ("t5_cross", "masked", (16, 12, 128, 512), "t5_keys"),
+    ("t5_cross_dense_mask", "masked", (16, 12, 128, 512), "t5_dense"),
+    ("bert", "masked", (8, 16, 512, 512), "bert"),
+    ("bert_mask_batch_1", "masked", (8, 16, 512, 512), "bert_1"),
+    ("bert_scaled", "scaled", (8, 16, 512, 512), None),
+    ("floor", "scaled", (1, 8), None),
+)
+SOFTMAX_DTYPES = ("bfloat16", "float16")
+# real lengths of BERT-Large's eight sequences of 512 (chip_smoke.BERT_LENS)
+# and of T5's sixteen encoder sequences of 512
+BERT_LENS = (512, 448, 384, 320, 512, 256, 480, 200)
+T5_LENS = (512, 301, 451, 128, 389, 512, 260, 477, 333, 498, 175, 512, 402,
+           287, 466, 350)
 
 
 def _device_ms(torch, fns, iters: int) -> float:
@@ -191,7 +228,112 @@ def _flash_cases(torch, attention, iters):
         yield key, fn, {"ms": _device_ms(torch, fn, max(iters // 5, 2))}
 
 
-GROUPS = ("layer_norm", "flash", "lamb_segment", "leaf_sum")
+def _keep(torch, lens, s=512):
+    return (torch.arange(s)[None, :] < torch.tensor(lens)[:, None]).cuda()
+
+
+def _softmax_mask(torch, kind, sq):
+    """The bool mask (True masking out) of a masked case, as its model
+    builds it, and the bytes the kernel must read of it (the unrepeated
+    mask)."""
+    if kind in ("t5_keys", "t5_dense"):
+        m = ~_keep(torch, T5_LENS)[:, None, None, :]       # (b, 1, 1, sk)
+        need = m.numel()
+        if kind == "t5_dense":
+            m = m.expand(-1, 1, sq, -1).contiguous()
+        return m, need
+    keep = _keep(torch, BERT_LENS)                          # (8, 512)
+    m = ~(keep[:, None, :, None] & keep[:, None, None, :])  # (b, 1, s, s)
+    if kind == "bert_1":
+        m = m[7:8]
+    return m, m.numel()
+
+
+def _softmax_check(torch, y, want, dtype) -> float:
+    """The largest |y - y_plain| beyond one ulp of the larger |value| (bf16
+    2^-7, fp16 2^-10 with 2^-24 below fp16's normals); <= 0 passes."""
+    tol, floor = {"bfloat16": (2.0 ** -7, 0.0),
+                  "float16": (2.0 ** -10, 2.0 ** -24)}[dtype]
+    a, b = y.float(), want.float()
+    return float(((a - b).abs() - tol * torch.maximum(a.abs(), b.abs())
+                  ).max()) - floor
+
+
+def _allocations(torch, fn) -> int:
+    """Device allocations one call of ``fn`` makes: 1 where the output is
+    all it allocates (no copy of an input on the way)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    out = fn()
+    n = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    del out
+    return n
+
+
+def _softmax_cases(torch, iters):
+    """(key, record) of each softmax forward case: the output's hash, its
+    own check against the checkout's plain version, a repeated call's
+    bitwise equality, device ms by replay and cold (inputs rotated past
+    200 MB), the library call's ms, the bound, allocations a call and,
+    where the checkout reports it, the kernel's route."""
+    from apex_tpu_torch.ops import softmax
+    for (name, mode, shape, mkind), dt in (
+            (c, d) for c in SOFTMAX_CASES for d in SOFTMAX_DTYPES):
+        dtype = getattr(torch, dt)
+        gen = torch.Generator().manual_seed(sum(shape) + len(name))
+        x = (3 * torch.randn(*shape, generator=gen)).to("cuda", dtype)
+        mask, mask_bytes = (None, 0) if mkind is None else _softmax_mask(
+            torch, mkind, shape[-2])
+
+        def run(x_=x, m_=mask):
+            m = None if m_ is None else softmax._masked_args(x_, m_)
+            return softmax._fwd_cuda(x_, m, 1.0, mode)
+        y, again = run(), run()
+        m_full = None if mask is None else softmax._masked_args(x, mask)
+        want = softmax._fwd_torch(x, m_full, 1.0, mode)
+        esize = x.element_size()
+        if mode == "causal":
+            a, sq, sk = shape
+            live = a * sum(min(q + 1, sk) for q in range(sq))
+            need = esize * (live + x.numel())
+        else:
+            need = 2 * esize * x.numel() + mask_bytes
+        rec = {"sha256": _digest(torch, [y]),
+               "plain_ulp_excess": _softmax_check(torch, y, want, dt),
+               "repeat_bitwise": torch.equal(y, again),
+               "allocations": _allocations(torch, run),
+               "bound_ms": need / 3.35e12 * 1e3}
+        del y, again, want, m_full
+        rec["ms"] = _device_ms(torch, run, iters)
+        copies = max(2, -(-int(COLD_BYTES) // (x.numel() * esize)))
+        if x.numel() * esize >= 1 << 20:
+            sets = [(x.clone(), None if mask is None else mask.clone())
+                    for _ in range(copies)]
+            rec["cold_ms"] = _device_ms(
+                torch, [lambda s=s: run(*s) for s in sets], 2 * copies)
+            del sets
+        if mode == "scaled":
+            lib = lambda: torch.softmax(x, -1)  # noqa: E731
+        elif mode == "causal":
+            a, sq, sk = shape
+            upper = torch.triu(torch.ones(sq, sk, dtype=torch.bool,
+                                          device="cuda"), 1)
+            x4 = x.view(1, a, sq, sk)
+            lib = lambda: torch._masked_softmax(x4, upper, 3, 0)  # noqa
+        else:
+            full = mask.expand(shape[0], *shape[1:]).contiguous()
+            lib = lambda: torch._masked_softmax(x, full, 3, 2)  # noqa
+        rec["lib_ms"] = _device_ms(torch, lib, iters)
+        if hasattr(softmax, "fwd_route"):
+            rec["route"] = softmax.fwd_route(
+                x, None if mask is None else softmax._masked_args(x, mask),
+                mode)
+        yield f"softmax {mode} {name} {tuple(shape)} {dt}", rec
+        del x, mask, lib
+        torch.cuda.empty_cache()
+
+
+GROUPS = ("layer_norm", "flash", "lamb_segment", "leaf_sum", "softmax")
 # the segment cases: (layout, master, stash_p, with_grad_norm, u dtype)
 SEGMENT_CASES = tuple(
     [("gpt2_345m", "fp32", st, gn, u) for st, gn, u in (
@@ -357,6 +499,20 @@ def _leaf_sum_cases(torch, iters):
             0, ids, x[:len(ids)]), iters)}
 
 
+def _card(torch) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them (a
+    card may be set below its 700 W), else its name alone."""
+    import subprocess
+    try:
+        got = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True)
+        return got.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(0)
+
+
 def _fmt(v) -> str:
     return "-" if v is None else f"{v:.5f}"
 
@@ -382,10 +538,13 @@ def save(root: str, path: str, iters: int, only=None) -> None:
         names += ["lamb_segment", "sumsq"]
     if "leaf_sum" in groups_on and "sumsq" not in names:
         names.append("sumsq")
+    if "softmax" in groups_on:
+        names.append("softmax")
     _build.build_all(names)
-    out = {"card": torch.cuda.get_device_name(0), "cases": {}}
-    if "lamb_segment" in groups_on:
-        out["build_log_lamb_segment"] = _build.build_log("lamb_segment")
+    out = {"card": _card(torch), "cases": {}}
+    for lib_name in ("lamb_segment", "softmax"):
+        if lib_name in groups_on:
+            out[f"build_log_{lib_name}"] = _build.build_log(lib_name)
     groups = []
     if "layer_norm" in groups_on:
         groups.append(_ln_cases(torch, layer_norm, iters))
@@ -412,6 +571,8 @@ def save(root: str, path: str, iters: int, only=None) -> None:
         records.append(_segment_cases(torch, iters))
     if "leaf_sum" in groups_on:
         records.append(_leaf_sum_cases(torch, iters))
+    if "softmax" in groups_on:
+        records.append(_softmax_cases(torch, iters))
     for cases in records:
         for key, rec in cases:
             out["cases"][key] = rec
@@ -449,15 +610,20 @@ def compare(a_path: str, b_path: str) -> int:
             if first.get(h) is not None:
                 line += f"; {h[:-7]} bitwise {first[h] == second.get(h)}"
         for c in ("mv_plain_bitwise", "p_plain_bitwise", "p_within_tol",
-                  "gg_plain_rel", "plain_bitwise", "repeat_bitwise"):
+                  "gg_plain_rel", "plain_bitwise", "plain_ulp_excess",
+                  "repeat_bitwise", "allocations"):
             if c in first:
                 line += f"; {c} {first[c]} / {second.get(c)}"
         for t in ("ms", "cold_ms", "host_ms"):
             if first.get(t) is not None:
                 line += (f"; {t} {first[t]:.5f} (first) "
                          f"{_fmt(second.get(t))} (second)")
-        if first.get("lib_ms") is not None:
-            line += f"; lib_ms {first['lib_ms']:.5f}"
+        for t in ("lib_ms", "bound_ms"):
+            if first.get(t) is not None:
+                line += f"; {t} {first[t]:.5f}"
+        for r in (first.get("route"), second.get("route")):
+            if r is not None:
+                line += f"; route {r}"
         print(line)
     return 0
 

@@ -30,8 +30,11 @@ Phases, in order; any failure exits non-zero before the last line:
    512, 512) bf16 with its padded outer-product mask (mask batch 8, and
    broadcast from 1), the scaled forward at the same shape, the causal
    forward at GPT-2 345M's (128, 1024, 1024), the shared backward at
-   both; forwards within one bf16 ulp elementwise, the backward within
-   one bf16 ulp of each row's largest |dx|. Then the SGD and LARS kernels
+   both; forwards within one bf16 ulp elementwise, bitwise from call to
+   call and one kernel a call (the output the call's only allocation),
+   timed by replay and with x cold beside their registers and spills, the
+   backward within one bf16 ulp of each row's largest |dx|. Then the SGD
+   and LARS kernels
    over ResNet-50's flat buffers (25.7 M fp32): SGD bitwise with
    momentum, first run, nesterov, dampening with the weight decay after
    momentum, no momentum, and a device scale and first-run flag; an inf
@@ -2223,35 +2226,54 @@ def check_repeat(name, fn, got) -> None:
 def softmax_fwd_case(name, x, mask, mode, lib, bound_bytes) -> dict:
     """One forward kernel of ``csrc/softmax.cu`` against its plain version
     on the same inputs: within one ulp of x's dtype elementwise (bf16
-    SOFTMAX_FWD_TOL, fp16 FP16_ULP)."""
+    SOFTMAX_FWD_TOL, fp16 FP16_ULP), bitwise from call to call, and one
+    kernel a call (the output its only allocation: a mask that broadcasts
+    is read through its strides, not copied). Timed alone by replay and
+    with x cold (rotated past L2; the mask, which every head of a batch
+    row rereads, as the path leaves it), with the instance's registers and
+    spills (``softmax.fwd_route``, kept as ``launch``)."""
     fp16 = x.dtype == torch.float16
     tol = FP16_ULP if fp16 else SOFTMAX_FWD_TOL
     # fp16's subnormals (below 2^-14) are 2^-24 apart: one of them is an
     # ulp there, however small the value
     floor = FP16_SUBNORMAL_ULP if fp16 else 0.0
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
     y = softmax._fwd_cuda(x, mask, 1.0, mode)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
     want = softmax._fwd_torch(x, mask, 1.0, mode)
     torch.cuda.synchronize()
     err = float((y.float() - want.float()).abs().max())
     excess = _ulp_excess(y, want, tol)
     check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
+    launch = softmax.fwd_route(x, mask, mode)
     print(f"  {name} {tuple(x.shape)} {str(x.dtype)[6:]}: max_abs_err="
           f"{err:.3e} max(|diff| - {tol} max(|y|, |y_plain|))={excess:.3e} "
-          f"(tol {floor})")
+          f"(tol {floor}); {launch['lanes']} lanes a row, "
+          f"{launch['blocks']} blocks, "
+          f"{launch['registers']} registers, {launch['spill_bytes']} bytes "
+          f"spilled; {allocs} allocation(s) a call")
     check(excess <= floor, f"{name} kernel disagrees with its plain version")
+    check(allocs == 1, f"{name}: the call allocates {allocs} tensors (a "
+                       f"copy besides its output)")
+    check_repeat(name, lambda: [softmax._fwd_cuda(x, mask, 1.0, mode)], [y])
+    del y, want
     kernel = lambda: softmax._fwd_cuda(x, mask, 1.0, mode)  # noqa: E731
     ms, h_ms = device_ms(kernel), host_ms(kernel)
+    c_ms = cold_ms(lambda x_: softmax._fwd_cuda(x_, mask, 1.0, mode), x)
     plain_ms = device_ms(lambda: softmax._fwd_torch(x, mask, 1.0, mode),
                          iters=3, replays=2)
     lib_ms = _library_ms(name, lib) if lib is not None else None
     # per score: scale, fill, max, subtract, exp, sum, divide
     b_ms, by = bound(bound_bytes, 7 * x.numel(), PEAK_FP32_FLOPS)
-    print(f"    ms={ms:.5f} host_ms={h_ms:.5f} plain_ms={plain_ms:.5f} "
+    print(f"    ms={ms:.5f} cold_ms={c_ms:.5f} host_ms={h_ms:.5f} "
+          f"plain_ms={plain_ms:.5f} "
           f"library_ms={lib_ms if lib_ms is None else round(lib_ms, 5)} "
-          f"bound_ms={b_ms:.5f} ({by})")
+          f"bound_ms={b_ms:.5f} ({by}, {b_ms / ms:.0%} of it)")
     return {"max_abs_err": err, "ulp_excess": excess, "ms": ms,
-            "host_ms": h_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": by,
+            "cold_ms": c_ms, "host_ms": h_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by,
+            "launch": launch,
             "shape": f"{tuple(x.shape)} {str(x.dtype)[6:]}"
                      + ("" if mask is None else
                         f", mask {tuple(mask.shape)} bool")}
@@ -6889,6 +6911,12 @@ def t5_kernel_cases(seed: int, dev, keep) -> dict:
         kn(softmax.CAUSAL_KERNEL) + "[t5 decoder]", xc, None, "causal",
         lambda: torch._masked_softmax(xc.view(b, h, s, s), upper, 3, 0),
         2 * live + nbytes(xc))
+    # the kernel's launch floor in this run: one launch on one 8-column row
+    tiny = rnd(1, 1, 8)
+    floor = device_ms(lambda: softmax._fwd_cuda(tiny, None, 1.0, "causal"))
+    out["causal"]["floor_ms"] = floor
+    print(f"    launch floor (one 8-column row) {floor:.5f} ms; half of the "
+          f"bound is reached at {2 * out['causal']['bound_ms']:.5f} ms")
     yc = softmax._fwd_cuda(xc, None, 1.0, "causal")
     out["bwd_causal"] = softmax_bwd_case("t5_decoder", yc,
                                          rnd(a, s, s).div_(3))

@@ -24,8 +24,9 @@ dq, dk and dv within 2^-6 of each one's largest |value| (both round dS
 to bf16 before its products; fp32 values that differ in their last bits
 may round to neighbouring bf16 values). Adam: bitwise (the kernel
 rounds every operation on its own, in the plain version's order).
-Softmax forwards within one bf16 ulp of the value (2^-7; fp32 within
-1e-5 of the value: sums in another order), the backward within one ulp
+Softmax forwards within one bf16 ulp of the value (2^-7; fp16 2^-10 and
+2^-14 near zero; fp32 within 1e-5 of the value: sums in another order)
+and bitwise from call to call, the backward within one ulp
 of each row's largest |dx| (the row's dot product is summed in another
 order). SGD, LARS, scale, axpby, Adagrad and NovoGrad: bitwise (the
 tolerances of the whole LARS and NovoGrad updates are stated with their
@@ -1399,7 +1400,11 @@ def test_fused_lamb_step_on_card_matches_plain(cuda_device, segmented):
 
 # -- the softmax family (ops/softmax.py, csrc/softmax.cu) --------------------
 
-# name: (mode, x shape, mask batch or None)
+# name: (mode, x shape, mask batch or None[, mask layout]); the layout
+# "outer" (the default) is BERT's (mb, 1, sq, sk) outer-product padding
+# mask, "keys" T5's cross mask (mb, 1, 1, sk), which masks keys alone. The
+# widths 32-256 put 4, 8, 16 or 32 lanes (one 16-byte pack each) on a row
+# of bf16, several rows a warp
 SOFTMAX_CASES = {
     "scaled_bert": ("scaled", (2, 4, 64, 512), None),
     "scaled_ragged_37": ("scaled", (3, 5, 37), None),
@@ -1410,17 +1415,25 @@ SOFTMAX_CASES = {
     "causal_1024": ("causal", (2, 1024, 1024), None),
     "causal_offset_33x100": ("causal", (3, 33, 100), None),
     "causal_block_1500": ("causal", (2, 40, 1500), None),
+    "causal_ragged_45": ("causal", (3, 20, 45), None),
+    "causal_t5_decoder": ("causal", (192, 128, 128), None),
     "masked_bert": ("masked", (2, 4, 128, 512), 2),
     "masked_broadcast": ("masked", (2, 4, 128, 512), 1),
     "masked_ragged_45": ("masked", (2, 3, 20, 45), 2),
     "masked_block_1100": ("masked", (2, 2, 24, 1100), 2),
+    "masked_t5_cross_keys": ("masked", (16, 12, 128, 512), 16, "keys"),
+    "masked_t5_cross_batch_1": ("masked", (16, 12, 128, 512), 1),
+    **{f"causal_width_{w}": ("causal", (3, 37, w), None)
+       for w in (32, 64, 96, 128, 256)},
+    **{f"masked_width_{w}": ("masked", (2, 3, 37, w), 2)
+       for w in (32, 64, 96, 128, 256)},
 }
 
 
 def _softmax_inputs(case, dev, dtype, seed=0):
-    """x and the mask (the outer-product padding mask of BERT, pad query
-    rows fully masked) for one case."""
-    mode, shape, mb = SOFTMAX_CASES[case]
+    """x and the mask (BERT's outer-product padding mask, pad query rows
+    fully masked, or T5's key mask) for one case."""
+    mode, shape, mb, *layout = SOFTMAX_CASES[case]
     rng = np.random.RandomState(seed)
     x = torch.from_numpy(3 * rng.randn(*shape).astype(np.float32)).to(
         dev, dtype)
@@ -1429,49 +1442,155 @@ def _softmax_inputs(case, dev, dtype, seed=0):
         b, _, sq, sk = shape
         lens = rng.randint(sk // 4, sk, b)
         keep = np.arange(sk)[None, :] < lens[:, None]
-        qkeep = np.arange(sq)[None, :] < np.minimum(lens, sq - 2)[:, None]
-        full = ~(qkeep[:, :, None] & keep[:, None, :])[:, None]
+        if layout == ["keys"]:
+            full = ~keep[:, None, None, :]
+        else:
+            qkeep = np.arange(sq)[None, :] < np.minimum(lens, sq - 2)[:, None]
+            full = ~(qkeep[:, :, None] & keep[:, None, :])[:, None]
         mask = torch.from_numpy(full[:mb]).to(dev)
     return mode, x, mask
 
 
 def _close_to_plain(got, want, dtype):
-    """bf16: within one bf16 ulp of the value elementwise; fp32: within
-    1e-5 of the value (fp32 sums in another order)."""
+    """Within one ulp of the value elementwise: bf16 2^-7; fp16 2^-10,
+    and 2^-14 absolute near zero (fp16's subnormals); fp32 1e-5 (fp32 sums
+    in another order)."""
     a, b = got.float(), want.float()
-    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    tol, floor = {torch.bfloat16: (2.0 ** -7, 0.0),
+                  torch.float16: (2.0 ** -10, 2.0 ** -14),
+                  torch.float32: (1e-5, 0.0)}[dtype]
     excess = (a - b).abs() - tol * torch.maximum(a.abs(), b.abs())
-    assert float(excess.max()) <= 0.0, float(excess.max())
+    assert float(excess.max()) <= floor, float(excess.max())
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("case", sorted(SOFTMAX_CASES))
 def test_softmax_fwd_kernels_match_plain(cuda_device, case, dtype):
+    """One ulp of the plain version, bitwise from call to call, and one
+    launch a call: the counter moves by one and the output is the call's
+    only allocation (a mask that broadcasts is read through its strides,
+    not copied)."""
     from apex_tpu_torch.ops import softmax
     mode, x, mask = _softmax_inputs(case, cuda_device, dtype)
-    kernel = softmax._MODES[mode][1]
-    before = _build.launch_counts().get(kernel, 0)
+    kernel = softmax.kernel_name(softmax._MODES[mode][1], dtype)
     if mask is not None:
-        mask = mask.expand(mask.shape[0], 1, *x.shape[2:])
-    y = softmax._fwd_cuda(x, mask, 0.8, mode)
-    want = softmax._fwd_torch(x, mask, 0.8, mode)
+        mask = softmax._masked_args(x, mask)
+    before = _build.launch_counts().get(kernel, 0)
     torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    y = softmax._fwd_cuda(x, mask, 0.8, mode)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
     assert _build.launch_counts()[kernel] == before + 1
+    assert allocs == 1
+    want = softmax._fwd_torch(x, mask, 0.8, mode)
+    again = softmax._fwd_cuda(x, mask, 0.8, mode)
+    torch.cuda.synchronize()
     assert y.dtype == dtype and y.shape == x.shape
+    assert torch.equal(y, again)
     _close_to_plain(y, want, dtype)
     if mode == "causal":
         sq, sk = x.shape[-2:]
         upper = torch.arange(sk, device=cuda_device)[None, :] > torch.arange(
             sq, device=cuda_device)[:, None]
         assert bool((y[:, upper] == 0).all())
-    if mode == "masked":
+    if mode == "masked" and mask.shape[2] > 1 and mask.stride(2) > 0:
         # pad query rows (every key masked): the softmax of the shifted
         # scores, not zeros
         pad = mask[:, 0].all(dim=-1)
         rows = y[pad.expand(x.shape[0], -1)[:, None].expand(
             -1, x.shape[1], -1)]
         assert rows.numel() and bool((rows.float().sum(-1) > 0.9).all())
+
+
+# every fp32 e in [lo, hi) against __fdiv_rn(e, sum) at each sum, through
+# csrc/softmax_div.cuh's three-operation division
+_DIV_CHECK_SRC = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "softmax_div.cuh"
+__global__ void check(const float* sums, int n, uint32_t lo, uint32_t hi,
+                      unsigned long long* bad) {
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x;
+       i < (uint64_t)(hi - lo); i += (uint64_t)gridDim.x * blockDim.x) {
+    const float e = __uint_as_float(lo + (uint32_t)i);
+    unsigned long long local = 0;
+    for (int j = 0; j < n; ++j) {
+      const float q = softmax_div::div_tiny(e)
+          ? __fdiv_rn(e, sums[j])
+          : softmax_div::div_row(e, sums[j], __frcp_rn(sums[j]));
+      local += __float_as_uint(q) != __float_as_uint(__fdiv_rn(e, sums[j]));
+    }
+    if (local) atomicAdd(bad, local);
+  }
+}
+extern "C" int div_check(const float* sums, int n, uint32_t lo, uint32_t hi,
+                         unsigned long long* bad) {
+  check<<<132 * 16, 256>>>(sums, n, lo, hi, bad);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.mark.cuda
+def test_softmax_division_rounds_as_fdiv_rn(cuda_device, tmp_path):
+    """The forward's e / sum (reciprocal, product, residual by FMA,
+    correction by FMA; ``__fdiv_rn`` for e in (0, 2^-100)) bitwise
+    ``__fdiv_rn(e, sum)`` for every fp32 e in [0, 1] at sums in [1, 1024]
+    (a row's sum): the binade edges, 1 + ulp and 2 - ulp of each binade,
+    and 1,000 drawn log-uniformly."""
+    import ctypes
+    import subprocess
+    src = tmp_path / "div_check.cu"
+    src.write_text(_DIV_CHECK_SRC)
+    lib_path = tmp_path / "libdiv_check.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.div_check.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                              ctypes.c_uint32, ctypes.c_void_p]
+    f32 = np.float32
+    sums = [f32(2.0 ** k) * f32(m) for k in range(10)
+            for m in (1.0, 1 + 2.0 ** -23, 2 - 2.0 ** -23, 1.5)]
+    sums += list(np.exp(np.random.RandomState(5).uniform(
+        0, np.log(1024), 1000)).astype(f32))
+    sums = torch.tensor(np.array(sums, f32), device=cuda_device)
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    bits = lambda v: int(f32(v).view(np.uint32))  # noqa: E731
+    assert lib.div_check(sums.data_ptr(), len(sums), 0, bits(1.0) + 1,
+                         bad.data_ptr()) == 0
+    assert int(bad) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+@pytest.mark.parametrize("mode,shape", [("scaled", (4, 6, 96)),
+                                        ("causal", (4, 96, 96)),
+                                        ("masked", (2, 2, 24, 512))])
+def test_softmax_tiny_scores_take_the_division(cuda_device, mode, shape,
+                                                dtype):
+    """Scores 70-80 below their row's max give e = exp(s - m) in (0,
+    2^-100), where the kernel divides by ``__fdiv_rn`` itself: within one
+    ulp of the plain version, and bitwise from call to call."""
+    from apex_tpu_torch.ops import softmax
+    rng = np.random.RandomState(3)
+    x = rng.randn(*shape).astype(np.float32)
+    far = rng.rand(*shape) < 0.3
+    x[far] -= rng.uniform(70.0, 80.0, int(far.sum()))
+    x = torch.from_numpy(x).to(cuda_device, dtype)
+    mask = None
+    if mode == "masked":
+        mask = torch.from_numpy(rng.rand(shape[0], 1, shape[2], shape[3])
+                                < 0.2).to(cuda_device)
+    y = softmax._fwd_cuda(x, mask, 1.0, mode)
+    again = softmax._fwd_cuda(x, mask, 1.0, mode)
+    want = softmax._fwd_torch(x, mask, 1.0, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    _close_to_plain(y, want, dtype)
 
 
 @pytest.mark.cuda
