@@ -17,8 +17,11 @@ pretraining (``models.pretrain``, ``optimizers``, ``amp``,
 ``multi_tensor``, ``ops``) and ResNet-50 ImageNet training
 (``models.resnet``, ``parallel``, ``contrib.bottleneck``, FusedSGD,
 FusedLARS and LARC), T5 (``models.t5``), amp's function-level casts
-(``amp.F``, ``amp.scale_loss``) and the gen-1 ``fp16_utils``, on the
-kernels of ``csrc/``.
+(``amp.F``, ``amp.scale_loss``) and the gen-1 ``fp16_utils``, and
+data-parallel training over ``torch.distributed``
+(``transformer.parallel_state``, ``parallel.DistributedDataParallel``,
+cross-device ``parallel.SyncBatchNorm``, ``parallel.multiproc``), on
+the kernels of ``csrc/``.
 """
 
 from apex_tpu_torch._backend import resolve_device

@@ -67,15 +67,22 @@ dropout_key=key)``, the counterpart of the reference's user feeding
 the model then runs with ``deterministic=False``. Without a key the step
 is as before, deterministic.
 
-The mesh (data, tensor and pipeline parallelism) waits for the
-distributed slice: ``mesh=`` and interleaved pipeline chunks raise.
+Data parallelism: ``PretrainStep(..., grad_reduce=ddp)`` (a
+``parallel.DistributedDataParallel``, or any callable that reduces the
+flat gradient in place) reduces the flat gradient over the data axis
+between the backward pass and the update, one collective a step. The
+update (and under a loss scaler its ``found_inf``) reads the reduced
+gradient, as the reference's ``opt.step`` reads the all-reduced one: an
+inf on one rank skips the step on every rank. Without it the step is as
+before. The mesh (tensor and pipeline parallelism) waits for the
+roadmap's A 9b: ``mesh=`` and interleaved pipeline chunks raise.
 ``schedule``, ``num_microbatches`` and ``remat`` are accepted and, as in
 the reference at one pipeline stage, have no effect.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -115,17 +122,20 @@ class PretrainStep:
     ``make_train_step``) takes the update instead of
     ``optimizer.step_flat``; with a loss scaler the backward pass runs
     on the scaled loss and the call is ``state, scaler_state, loss =
-    step(state, *batch, scaler_state=...)``."""
+    step(state, *batch, scaler_state=...)``. ``grad_reduce(grad)``,
+    when given, reduces the flat gradient in place before the update."""
 
     def __init__(self, model: torch.nn.Module, optimizer: FlatFusedOptimizer,
                  *, loss_fn: Optional[Callable[..., torch.Tensor]] = None,
-                 train_step: Optional[TrainStep] = None):
+                 train_step: Optional[TrainStep] = None,
+                 grad_reduce: Optional[Callable[[torch.Tensor], Any]] = None):
         if train_step is not None and train_step.opt is not optimizer:
             raise ValueError("train_step was built for another optimizer")
         self.model = model
         self.opt = optimizer
         self.loss_fn = _gpt_loss if loss_fn is None else loss_fn
         self.train_step = train_step
+        self.grad_reduce = grad_reduce
         self._grad: Optional[torch.Tensor] = None
         self._bound: Optional[torch.Tensor] = None
 
@@ -136,6 +146,12 @@ class PretrainStep:
         state = self.opt.init(dict(self.model.named_parameters()))
         self._bind(state)
         return state
+
+    def bind(self, state: FlatOptState) -> None:
+        """Bind the model's parameters to ``state``'s master (a step
+        whose update may skip writes a new master; the model follows
+        it at the next call, or now through this)."""
+        self._bind(state)
 
     def _bind(self, state: FlatOptState) -> None:
         if self._grad is None or self._grad.shape != state.master.shape:
@@ -181,6 +197,8 @@ class PretrainStep:
                              "train_step has a loss scaler")
         loss = self.backward(state, *batch, scaler_state=scaler_state,
                              dropout_key=dropout_key)
+        if self.grad_reduce is not None:
+            self.grad_reduce(self._grad)
         if self.train_step is None:
             _, new_state = self.opt.step_flat(state, self._grad)
             return new_state, loss

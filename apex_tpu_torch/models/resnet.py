@@ -13,9 +13,12 @@ reference's:
   ``models/convert.py`` transposes); convolutions and the 3x3 stride-2
   max-pool pad as XLA's ``"SAME"`` does (``contrib/bottleneck``; the
   pool pads with -inf);
-- BatchNorm is ``parallel.SyncBatchNorm`` on one device (fp32
-  statistics, the running statistics updated in the forward when
-  training), ReLU fused where the reference fuses it;
+- BatchNorm is ``parallel.SyncBatchNorm`` (fp32 statistics, the
+  running statistics updated in the forward when training), over the
+  ranks of ``bn_axis_name`` (``"data"``: synchronised across the data
+  axis's process group) in the BN groups ``bn_groups``, or on each
+  device alone when ``bn_axis_name`` is None; ReLU fused where the
+  reference fuses it;
 - the residual is ``max(y + x, 0)`` in the compute dtype;
 - the global mean over H and W is summed in fp32 and rounded to the
   compute dtype (:118), the head is fp32 (:123-124).
@@ -25,8 +28,7 @@ standard deviations, std ``sqrt(2 / fan_in) / 0.8796`` with fan-in
 ``kh * kw * cin``) for the convolutions, N(0, 0.01) for the head, zero
 bias and BN shift, unit BN scale. Parameters are drawn on the CPU from
 an explicit ``torch.Generator`` and moved to ``device`` (CUDA unless the
-caller names another). Cross-device BatchNorm (``bn_axis_name``,
-``bn_groups``) raises until the distributed slice.
+caller names another).
 """
 
 from __future__ import annotations

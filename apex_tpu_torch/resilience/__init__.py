@@ -11,7 +11,8 @@ the replica-set collectives and the preemption flag (the part of
   (tmp -> fsync -> rename), which the serving drain snapshots commit
   through;
 - :mod:`~apex_tpu_torch.resilience.guard` — the ``Collective`` contract
-  (``NullCollective``, ``LocalCollective``) and ``PreemptionHandler``.
+  (``NullCollective``, ``LocalCollective``, ``ProcessCollective``,
+  ``KVStoreCollective``) and ``PreemptionHandler``.
 """
 
 from apex_tpu_torch.resilience import checkpoint, faults, guard
@@ -24,9 +25,11 @@ from apex_tpu_torch.resilience.faults import (
 )
 from apex_tpu_torch.resilience.guard import (
     Collective,
+    KVStoreCollective,
     LocalCollective,
     NullCollective,
     PreemptionHandler,
+    ProcessCollective,
     install_preemption_handler,
 )
 from apex_tpu_torch.resilience.retry import (
@@ -41,10 +44,12 @@ __all__ = [
     "EngineCrash",
     "FaultError",
     "FaultInjector",
+    "KVStoreCollective",
     "LocalCollective",
     "NON_RETRYABLE",
     "NullCollective",
     "PreemptionHandler",
+    "ProcessCollective",
     "SimulatedCrash",
     "atomic_write_files",
     "backoff_delays",

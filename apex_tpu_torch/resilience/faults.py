@@ -502,6 +502,14 @@ class FaultInjector:
         drill behind the ``moe_imbalance`` latch."""
         return int(step) in self.moe_router_collapse_steps
 
+    # -- the input pipeline's stall site -----------------------------------
+
+    def data_stall_s(self) -> float:
+        """Seconds the ``PrefetchLoader`` worker sleeps a transfer: a
+        stalled input pipeline, which the consumer sees as its
+        ``data_wait`` span. 0.0 off-plan."""
+        return max(0.0, self.data_stall_ms) / 1e3
+
     # -- the preemption drill ---------------------------------------------
 
     def maybe_sigterm(self, step: int) -> None:
@@ -735,11 +743,16 @@ def should_collapse_router(step: int) -> bool:
     return inj is not None and inj.should_collapse_router(step)
 
 
+def data_stall_s() -> float:
+    inj = active()
+    return 0.0 if inj is None else inj.data_stall_s()
+
+
 __all__ = [
     "ENV_KNOB", "EngineCrash", "FaultError", "FaultInjector",
     "SimulatedCrash", "active", "check", "collective_delay_s",
-    "engine_stall_s", "inject", "install", "kv_transfer_fault",
-    "maybe_decode_exception", "maybe_engine_crash",
+    "data_stall_s", "engine_stall_s", "inject", "install",
+    "kv_transfer_fault", "maybe_decode_exception", "maybe_engine_crash",
     "maybe_prefill_chunk_exception", "maybe_sigterm", "nonfinite_lane_at",
     "should_collapse_router", "should_corrupt_collective",
     "should_orphan_handoff", "should_pool_exhaust",

@@ -4,24 +4,31 @@ Counterpart of two parts of ``apex_tpu/resilience/guard.py``:
 
 - the :class:`Collective` contract (``all_gather`` / ``broadcast_from``
   / ``barrier`` / ``agree_any`` over host numpy arrays), the one-replica
-  :class:`NullCollective` and the threaded in-process
-  :class:`LocalCollective` (:189-407): what the fleet router's handoff
-  wire, ``telemetry.comms`` and ``telemetry.fleet`` ride;
+  :class:`NullCollective`, the threaded in-process
+  :class:`LocalCollective` (:189-407) and the multi-process ones
+  (:241-348): :class:`ProcessCollective` over ``torch.distributed``'s
+  default process group (a gloo group of its own for the host payloads
+  when the default group is NCCL) and :class:`KVStoreCollective` over
+  that group's key-value store (``TCPStore`` or ``FileStore``), with the
+  reference's key scheme. What the fleet router's handoff wire,
+  ``telemetry.comms`` and ``telemetry.fleet`` ride;
 - ``PreemptionHandler`` and ``install_preemption_handler`` (:692-757):
-  the SIGTERM flag the serving drain polls.
+  the SIGTERM flag the serving drain and the training loops poll;
+  :meth:`PreemptionHandler.should_stop` with a collective of more than
+  one replica runs ``agree_any``: any flagged replica stops them all.
 
-The multi-process collectives (``ProcessCollective``,
-``KVStoreCollective``, :241-350), the ``ConsistencyGuard`` and
-``graceful_shutdown`` come with the distributed planes (the roadmap's
-A 9), and so does the cross-host agreement:
-:meth:`PreemptionHandler.should_stop` takes no collective or a
-one-replica one and raises for more.
+The ``ConsistencyGuard``, the state fingerprints and
+``graceful_shutdown`` need the checkpoint manager, the per-leaf
+checksums and the train step's ``fingerprint_every``, which come with
+the checkpoint plane (the roadmap's A 10).
 """
 
 from __future__ import annotations
 
+import io
 import signal
 import threading
+from datetime import timedelta
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -77,6 +84,111 @@ class NullCollective(Collective):
 
     def barrier(self) -> None:
         pass
+
+
+class ProcessCollective(Collective):
+    """One replica per rank of ``torch.distributed``'s default process
+    group (the reference's :241, over ``multihost_utils``). Host arrays
+    ride CPU tensors: gathers as raw bytes (every replica passes one
+    shape and dtype, as the contract says), broadcasts as pickled
+    objects (only the source knows the shapes). When the default group
+    is NCCL, a gloo group over the same ranks, made here, carries them;
+    so every rank constructs its collective at the same point."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError("torch.distributed is not initialized; call "
+                               "parallel.multiproc.initialize_distributed")
+        self._dist = dist
+        self.n_replicas = dist.get_world_size()
+        self.replica_id = dist.get_rank()
+        self._group = (dist.new_group(backend="gloo")
+                       if dist.get_backend() == "nccl" else None)
+
+    def all_gather(self, arr: np.ndarray) -> np.ndarray:
+        import torch
+
+        arr = np.ascontiguousarray(arr)
+        mine = torch.from_numpy(arr.reshape(-1).view(np.uint8).copy())
+        out = [torch.empty_like(mine) for _ in range(self.n_replicas)]
+        self._dist.all_gather(out, mine, group=self._group)
+        return np.stack([o.numpy().view(arr.dtype).reshape(arr.shape)
+                         for o in out])
+
+    def broadcast_from(self, src, arrays):
+        box = [[np.asarray(a) for a in arrays]
+               if self.replica_id == src else None]
+        self._dist.broadcast_object_list(box, src=src, group=self._group)
+        return [np.asarray(a) for a in box[0]]
+
+    def barrier(self) -> None:
+        self._dist.barrier(group=self._group)
+
+
+class KVStoreCollective(Collective):
+    """A replica set over the default process group's key-value store
+    (the reference's :273 over the ``jax.distributed`` coordination
+    service), not over its collectives. The reference's key scheme:
+    each op takes a fresh key namespace ``{prefix}/{seq}`` (replicas
+    issue collectives in lockstep, so their sequence numbers agree),
+    values travel as ``.npy`` bytes, a barrier is every replica's key
+    under one namespace."""
+
+    def __init__(self, *, timeout: float = 60.0,
+                 prefix: str = "apex_tpu_kvc"):
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError("torch.distributed is not initialized; call "
+                               "parallel.multiproc.initialize_distributed")
+        self._store = dist.distributed_c10d._get_default_store()
+        self.n_replicas = dist.get_world_size()
+        self.replica_id = dist.get_rank()
+        self.timeout = timedelta(seconds=timeout)
+        self._prefix = prefix
+        self._seq = 0
+
+    def _op(self) -> str:
+        self._seq += 1
+        return f"{self._prefix}/{self._seq}"
+
+    @staticmethod
+    def _encode(arr: np.ndarray) -> bytes:
+        buf = io.BytesIO()
+        np.save(buf, np.ascontiguousarray(arr), allow_pickle=False)
+        return buf.getvalue()
+
+    @staticmethod
+    def _decode(data: bytes) -> np.ndarray:
+        return np.load(io.BytesIO(data), allow_pickle=False)
+
+    def _get(self, key: str) -> bytes:
+        self._store.wait([key], self.timeout)
+        return self._store.get(key)
+
+    def all_gather(self, arr: np.ndarray) -> np.ndarray:
+        op = self._op()
+        self._store.set(f"{op}/{self.replica_id}",
+                        self._encode(np.asarray(arr)))
+        return np.stack([self._decode(self._get(f"{op}/{r}"))
+                         for r in range(self.n_replicas)])
+
+    def broadcast_from(self, src, arrays):
+        op = self._op()
+        if self.replica_id == src:
+            for i, a in enumerate(arrays):
+                self._store.set(f"{op}/{i}", self._encode(np.asarray(a)))
+            return [np.asarray(a) for a in arrays]
+        n = len(arrays)
+        return [self._decode(self._get(f"{op}/{i}")) for i in range(n)]
+
+    def barrier(self) -> None:
+        op = self._op().replace("/", "_")
+        self._store.set(f"{op}/{self.replica_id}", b"1")
+        self._store.wait([f"{op}/{r}" for r in range(self.n_replicas)],
+                         self.timeout)
 
 
 class LocalCollective:
@@ -168,14 +280,13 @@ class PreemptionHandler:
         self._installed = False
 
     def should_stop(self, collective=None) -> bool:
-        """Drain point for the step loop: the local flag. A collective
-        over more than one replica (the reference's cross-host
-        agreement) raises until the distributed planes are ported."""
-        if collective is not None and collective.n_replicas > 1:
-            raise NotImplementedError(
-                "PreemptionHandler.should_stop: cross-replica agreement "
-                f"over {collective.n_replicas} replicas is not ported")
-        return self.requested
+        """Drain point for the step loop. With a collective of more
+        than one replica, the cross-host agreement: ANY flagged replica
+        stops them all (a world that half-stops deadlocks its next
+        collective). Without one, the local flag."""
+        if collective is None or collective.n_replicas <= 1:
+            return self.requested
+        return collective.agree_any(self.requested)
 
     def __enter__(self):
         return self.install()
@@ -193,8 +304,10 @@ def install_preemption_handler(
 
 __all__ = [
     "Collective",
+    "KVStoreCollective",
     "LocalCollective",
     "NullCollective",
     "PreemptionHandler",
+    "ProcessCollective",
     "install_preemption_handler",
 ]

@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``apex_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out results.json]
+    python3 chip_smoke.py --data-parallel N    # phase 20 alone, N cards
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -419,9 +420,45 @@ Phases, in order; any failure exits non-zero before the last line:
    orphaned export zeroed and replayed; the fallback latch and the probe
    that clears it; a decode seat crashing mid-handoff; a planned
    ``remove_engine``.
+20. Data parallelism: two ranks spawned (``multiproc.launch``, the
+   ``spawn`` start method, a ``TCPStore`` rendezvous on a free port)
+   after every library is built, sharing the one card over gloo, which
+   moves CUDA tensors through host memory, so no time here is a
+   multi-GPU number. (a) The DDP example (``examples/simple_ddp.py``:
+   the 784-128-128-10 MLP, amp O1, FusedSGD, ``DistributedDataParallel``)
+   at global batch 64 for 50 steps: losses falling, ``sync_deviation`` of
+   master and momentum exactly 0 after every step, the final master
+   against one process of the same global batch within DP_WEIGHT_TOL,
+   ``fused_sgd`` once a step on each rank; ``ProcessCollective`` and
+   ``KVStoreCollective`` equal to ``LocalCollective`` on the same inputs;
+   a SIGTERM to rank 1 at step 20 stopping both ranks there
+   (``should_stop`` over the process collective). (b) ResNet-50 at 224^2
+   through the ImageNet example's loop (``--sync-bn --fixed-batch``),
+   global batch RESNET_BATCH as two halves, under O5 (bf16) and O2
+   (fp16, the dynamic scaler): 10 timed steps, one metered step and one
+   profiled step (device busy share, copies, convolutions), master,
+   momentum and every running statistic replicated bitwise after every
+   step, ``fused_sgd`` once a step on each rank, the first update taken
+   lowering the loss (the dynamic scaler may skip the first steps);
+   under O2 an inf written into rank 1's gradient before the all-reduce
+   skips the step on both ranks and halves both scales. Per
+   rank the median step of steps 3-10, images/s over both ranks, the
+   gradient all-reduce's calls, bytes and ms and SyncBN's all-reduces a
+   step (each synchronised, in the metered step), peak memory and the
+   card's memory in use. (c) fp32 with TF32 off: two ranks of 2 images
+   against one process of 4 on the same weights: the mean loss and the
+   running statistics within DP_LOSS_TOL and DP_STATS_TOL, the head's
+   all-reduced gradient within DP_GRAD_TOL, the whole flat gradient within
+   DP_FLOOR_FACTOR times fp32's own floor (the one-process gradient on the
+   card against the same on the CPU: fp32 resolves only the head's
+   gradient of this model, see DP_GRAD_TOL), the ranks' gradients bitwise
+   equal. ``--data-parallel N`` runs this phase alone over N ranks, one
+   card each, on NCCL (20b's global batch 64 a rank), after building the
+   FusedSGD library alone, and exits.
 19. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
-   kernels and variants, each with its launches on its path), then the
-   device line the caller reads.
+   kernels and variants, each with its launches on its path, and the
+   data-parallel paths' per rank), then the device line the caller
+   reads.
 
 Needs a CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``); exits 1 without printing a result otherwise.
@@ -430,8 +467,10 @@ Needs a CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import multiprocessing
 import os
@@ -441,11 +480,14 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 from torch.func import functional_call
 
@@ -489,7 +531,8 @@ from apex_tpu_torch.multi_tensor import ops as mt_ops
 from apex_tpu_torch.multi_tensor.segmented import SEGMENT_KERNEL
 from apex_tpu_torch.models.gpt import KERNEL_OPS, PLAIN_OPS
 from apex_tpu_torch.contrib.xentropy import softmax_cross_entropy
-from apex_tpu_torch.examples import amp_functional, dcgan_amp
+from apex_tpu_torch.examples import (amp_functional, dcgan_amp,
+                                     imagenet_main_amp, simple_ddp)
 from apex_tpu_torch.ops import attention, layer_norm, rope, softmax, xentropy
 from apex_tpu_torch.ops import dropout as dropout_op
 from apex_tpu_torch.transformer.functional import (
@@ -507,12 +550,17 @@ from apex_tpu_torch.optimizers import (
     FusedSGD,
     make_train_step,
 )
-from apex_tpu_torch.parallel import LARC
+from apex_tpu_torch.parallel import (LARC, DistributedDataParallel,
+                                     multiproc, sync_deviation)
+from apex_tpu_torch.transformer import parallel_state as ps
 from apex_tpu_torch.transformer import context_parallel
 from apex_tpu_torch.tools import kprobe, launch_probe
 from apex_tpu_torch.resilience import faults
 from apex_tpu_torch.resilience.guard import (
+    KVStoreCollective,
+    LocalCollective,
     PreemptionHandler,
+    ProcessCollective,
     install_preemption_handler,
 )
 from apex_tpu_torch.serving import (
@@ -9225,11 +9273,542 @@ def serve_fleet(seed: int, dev, card: str) -> dict:
     return out
 
 
+# -- phase 20: data parallelism ------------------------------------------------
+
+DP_WORLD = 2
+DDP_STEPS, DDP_BATCH, DDP_SIGTERM_STEP = 50, 64, 20
+DP_RESNET_STEPS = 10             # timed steps; one metered step follows
+DP_INF_INDEX = 12345
+DP_PARITY_PER_RANK = 2
+DP_FLAGGED = 1
+# the DDP example's world of 2 against one process on the same global
+# batch, relative L2 a leaf: tests/test_torch_ddp_examples.py's WEIGHT_TOL
+DP_WEIGHT_TOL = 1e-5
+# 20c, fp32 with TF32 off, two ranks of 2 images against one process of 4:
+# the mean of the ranks' losses (relative) and each BN running statistic
+# (relative to its largest |value|): fp32 sums in other orders (the batch
+# statistics' sums split over ranks). The gradient: fp32 resolves only the
+# head's (behind no BatchNorm) of this randomly initialised ResNet-50. The
+# same one-process gradient in fp32 on the CPU is 1.9-2.6% (relative L2)
+# from its float64 value at batch 4 and 16 (a two-pass variance does not
+# help), the head's 1.6e-5, the last stage's BN 1e-3 and more; on the card
+# against the CPU 2.27%. So the head's gradient within DP_GRAD_TOL of the
+# one process's, and the whole flat gradient within DP_FLOOR_FACTOR times
+# the gap between the one-process gradient on the card and on the CPU (the
+# same computation in other fp32 orders), measured in the same run
+DP_LOSS_TOL, DP_GRAD_TOL, DP_STATS_TOL = 1e-5, 1e-4, 1e-5
+DP_FLOOR_FACTOR = 1.5
+DP_WELL_POSED = ("head", "head_bias")
+DP_NOTE = ("both ranks share one card and gloo moves every tensor through "
+           "host memory: no time here is a multi-GPU number")
+
+
+def _dp_collective_inputs(seed: int, world: int) -> dict:
+    rng = np.random.RandomState(seed + 20)
+    return {"gather": [rng.randn(world, 4, 3).astype(np.float32),
+                       rng.randint(0, 2 ** 32, (world, 5), dtype=np.uint32)],
+            "bcast": [rng.randn(world, 7), rng.randint(
+                0, 255, (world, 2, 2), dtype=np.uint8)]}
+
+
+def _dp_collective_ops(col, inp: dict, rank: int) -> dict:
+    """The Collective contract's ops on ``inp``, and ``should_stop`` with
+    rank DP_FLAGGED's preemption flag set."""
+    out = {"gather": [col.all_gather(a[rank]) for a in inp["gather"]],
+           "bcast": col.broadcast_from(DP_FLAGGED, [a[rank]
+                                                    for a in inp["bcast"]])}
+    col.barrier()
+    out["any_none"] = col.agree_any(False)
+    out["any_one"] = col.agree_any(rank == DP_FLAGGED)
+    handler = PreemptionHandler()
+    handler.requested = rank == DP_FLAGGED
+    out["should_stop"] = handler.should_stop(col)
+    return out
+
+
+def _same_tree(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_tree, a, b))
+    if isinstance(a, np.ndarray):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b))
+    return a == b
+
+
+class _AllReduceMeter:
+    """While armed, counts and times every ``dist.all_reduce`` (the
+    device synchronised before and after each), by payload."""
+
+    def __init__(self):
+        self.calls = []
+        self._orig = None
+
+    def arm(self):
+        orig = self._orig = tdist.all_reduce
+
+        def metered(t, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig(t, *a, **k)
+            torch.cuda.synchronize()
+            self.calls.append((t.numel(), t.numel() * t.element_size(),
+                               (time.perf_counter() - t0) * 1e3))
+            return res
+
+        tdist.all_reduce = metered
+
+    def disarm(self):
+        if self._orig is not None:
+            tdist.all_reduce, self._orig = self._orig, None
+
+
+DP_SHARES = {"copies": ("Memcpy", "memcpy"), **RESNET_SHARES}
+
+
+class _StepProfile:
+    """A profiler window between ``arm`` and ``disarm`` (device activity):
+    its wall, device-busy ms and each DP_SHARES entry's ms."""
+
+    def __init__(self):
+        self.prof, self.result = None, None
+
+    def arm(self):
+        torch.cuda.synchronize()
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+        self.prof, self.t0 = prof, time.perf_counter()
+
+    def disarm(self):
+        if self.prof is None:
+            return
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - self.t0) * 1e3
+        self.prof.__exit__(None, None, None)
+        per = [(e.self_device_time_total / 1e3, e.key)
+               for e in self.prof.key_averages()]
+        self.prof = None
+        part = dict.fromkeys(DP_SHARES, 0.0)
+        for t, key in per:
+            for k, keys in DP_SHARES.items():
+                if any(x in key for x in keys):
+                    part[k] += t
+                    break
+        self.result = {"wall_ms": wall, "device_busy_ms": sum(t for t, _ in
+                                                              per),
+                       **{f"{k}_ms": v for k, v in part.items()}}
+
+
+def _dp_ddp_example(dev) -> dict:
+    """20a: the DDP example, 50 steps at global batch 64, the master and
+    momentum held replicated after every step; then again with a SIGTERM
+    to rank 1 at step DDP_SIGTERM_STEP."""
+    devs = []
+
+    def on_step(i, state, ss, loss):
+        devs.append(float(sync_deviation([state.master,
+                                          state.slots["momentum"]])))
+
+    args = simple_ddp.parse_args(["--steps", str(DDP_STEPS), "--batch-size",
+                                  str(DDP_BATCH)])
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = simple_ddp.train(args, device=dev, on_step=on_step)
+    wall = time.perf_counter() - t0
+    out = {"losses": res["losses"], "deviations": devs, "wall_s": wall,
+           "launches": _build.launch_counts(),
+           "master": {k: v.cpu().numpy() for k, v in res["state"].space
+                      .unpack(res["state"].master, dtype="buffer").items()}}
+    plan = ({"sigterm_steps": frozenset({DDP_SIGTERM_STEP})}
+            if tdist.get_rank() == DP_FLAGGED else {})
+    with faults.inject(**plan):
+        res = simple_ddp.train(args, device=dev)
+    out["sigterm"] = {"stopped_at": res["stopped_at"],
+                      "steps_run": len(res["losses"])}
+    return out
+
+
+def _dp_resnet(dev, level: str, batch: int) -> dict:
+    """20b: the ImageNet example's loop, ResNet-50 at 224^2 with
+    --sync-bn and a fixed global batch of ``batch``, this rank its
+    share; DP_RESNET_STEPS timed steps, one step with every all-reduce
+    metered, and under O2 one step with an inf in rank 1's gradient
+    before the all-reduce. After every step: master, momentum and every
+    BN running statistic held replicated (sync_deviation 0)."""
+    rank = tdist.get_rank()
+    metered, profiled = DP_RESNET_STEPS, DP_RESNET_STEPS + 1
+    inf_step = DP_RESNET_STEPS + 2 if level == "O2" else None
+    steps = DP_RESNET_STEPS + (3 if inf_step else 2)
+    args = imagenet_main_amp.parse_args([
+        "--arch", "resnet50", "--steps", str(steps), "--batch-size",
+        str(batch), "--opt-level", level, "--sync-bn", "--fixed-batch",
+        "--print-freq", str(steps)])
+    meter, prof = _AllReduceMeter(), _StepProfile()
+    box = {"devs": [], "scales": [], "found": [], "prev": None}
+
+    def grad_hook(i, grad):
+        if i == inf_step and rank == DP_FLAGGED:
+            grad[DP_INF_INDEX] = float("inf")
+
+    def on_step(i, step, state, ss, loss):
+        if i == metered:
+            meter.disarm()
+        if i == profiled:
+            prof.disarm()
+        bufs = [state.master, state.slots["momentum"], *step.model.buffers()]
+        box["devs"].append(float(sync_deviation(bufs)))
+        box["scales"].append(ss.loss_scale)
+        box["found"].append(ss.found_inf)
+        prev = box["prev"]
+        if i == inf_step:
+            box["inf"] = {
+                "found_inf": ss.found_inf,
+                "master_unchanged": torch.equal(state.master, prev.master),
+                "momentum_unchanged": torch.equal(
+                    state.slots["momentum"], prev.slots["momentum"]),
+                "count": [prev.count, state.count],
+                "scale": [box["scales"][-2], ss.loss_scale]}
+        box["prev"] = state
+        if i == metered - 1:
+            meter.arm()
+        if i == profiled - 1:
+            prof.arm()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    try:
+        res = imagenet_main_amp.train(args, device=dev, grad_hook=grad_hook,
+                                      on_step=on_step, sync_steps=True)
+    finally:
+        meter.disarm()
+        prof.disarm()
+    launches = _build.launch_counts()
+    free, total = torch.cuda.mem_get_info(dev)
+    n_grad = box["prev"].master.numel()
+    grad = [c for c in meter.calls if c[0] == n_grad]
+    bn = [c for c in meter.calls if c[0] != n_grad]
+    return {"losses": res["losses"], "step_ms_all": [t * 1e3 for t in
+                                                    res["step_s"]],
+            "deviations": box["devs"], "scales": box["scales"],
+            "found_inf": box["found"], "inf": box.get("inf"),
+            "launches": launches, "steps": steps,
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+            "card_used_gib": (total - free) / 2 ** 30,
+            "allreduce": {"calls": len(grad), "bytes": sum(c[1] for c in grad),
+                          "ms": sum(c[2] for c in grad)},
+            "syncbn": {"calls": len(bn), "bytes": sum(c[1] for c in bn),
+                       "ms": sum(c[2] for c in bn)},
+            "stats_finite": _stats_finite(res["model"]),
+            "profile": prof.result}
+
+
+def _dp_parity_batch(seed: int, world: int):
+    rng = np.random.RandomState(seed + 21)
+    n = world * DP_PARITY_PER_RANK
+    return (rng.randn(n, RESNET_HW, RESNET_HW, 3).astype(np.float32),
+            rng.randint(0, 1000, n))
+
+
+def _dp_gradient(seed: int, dev, x, y, ddp=None) -> dict:
+    """ResNet-50 in fp32 on ``x``: the loss, the (reduced) flat gradient
+    and the BN running statistics after the forward."""
+    model = ResNet(ResNetConfig.resnet50(dtype=torch.float32,
+                                         bn_axis_name=ps.DATA_AXIS),
+                   device=dev, generator=torch.Generator().manual_seed(seed))
+    step = PretrainStep(model, FusedSGD(**RESNET_SGD), loss_fn=resnet_loss,
+                        grad_reduce=ddp)
+    state = step.init()
+    loss = step.backward(state, x, y)
+    if ddp is not None:
+        ddp(step.grad)
+    leaves = state.space.unpack(step.grad, dtype="buffer")
+    return {"loss": float(loss), "grad": step.grad.cpu().numpy(),
+            "head": np.concatenate([leaves[k].reshape(-1).cpu().numpy()
+                                    for k in DP_WELL_POSED]),
+            "deviation": float(sync_deviation(step.grad)),
+            "stats": {k: b.cpu().numpy() for k, b in model.named_buffers()}}
+
+
+def _dp_rank(seed: int, batch: int) -> dict:
+    """Phase 20 on one rank (spawned by ``multiproc.launch`` after the
+    parent built every library; here they only load); ``batch`` is
+    20b's global batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = multiproc.device()
+    rank, world = tdist.get_rank(), tdist.get_world_size()
+    ps.initialize_model_parallel()
+    log = io.StringIO()
+    out = {"walls": {}}
+    try:
+        with contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            out["ddp"] = _dp_ddp_example(dev)
+            inp = _dp_collective_inputs(seed, world)
+            out["collectives"] = {
+                "process": _dp_collective_ops(ProcessCollective(), inp, rank),
+                "kvstore": _dp_collective_ops(KVStoreCollective(), inp,
+                                              rank)}
+            out["walls"]["a"] = time.perf_counter() - t0
+            for level in ("O5", "O2"):
+                t0 = time.perf_counter()
+                out[level] = _dp_resnet(dev, level, batch)
+                torch.cuda.empty_cache()
+                out["walls"][level] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            x, y = _dp_parity_batch(seed, world)
+            mine = slice(rank * DP_PARITY_PER_RANK,
+                         (rank + 1) * DP_PARITY_PER_RANK)
+            out["parity"] = _dp_gradient(seed, dev, x[mine], y[mine],
+                                         DistributedDataParallel())
+            out["walls"]["c"] = time.perf_counter() - t0
+    finally:
+        ps.destroy_model_parallel()
+    out["log"] = log.getvalue()
+    return out
+
+
+def _dp_median_ms(run: dict) -> float:
+    return float(np.median(run["step_ms_all"][2:DP_RESNET_STEPS]))
+
+
+def data_parallel(seed: int, dev, card: str, world: int = DP_WORLD,
+                  backend: Optional[str] = "gloo") -> dict:
+    """Phase 20 (20a-c): ``world`` ranks, by default two on the one card
+    over gloo; ``backend=None`` is multiproc's default (NCCL, a card a
+    rank). 20b's global batch is RESNET_BATCH's share a rank, times
+    ``world``."""
+    batch = RESNET_BATCH // DP_WORLD * world
+    note = DP_NOTE if backend == "gloo" else (
+        f"{world} ranks, one card each, over the default backend (NCCL)")
+    print(f"  {note} ({card})")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = multiproc.launch(_dp_rank, world, (seed, batch), backend=backend,
+                             rendezvous="tcp", timeout=900)
+    spawn_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        for line in res["log"].splitlines():
+            if line.startswith("{") or "loss" in line:
+                print(f"    rank {r}: {line}")
+    out = {"world": world, "backend": backend or "default", "note": note,
+           "wall_s_ranks": spawn_s, "rank_walls": [r["walls"] for r in ranks]}
+
+    # 20a: the DDP example
+    ddp = [r["ddp"] for r in ranks]
+    ps.initialize_model_parallel()           # one process: a world of one
+    try:
+        one = simple_ddp.train(simple_ddp.parse_args(
+            ["--steps", str(DDP_STEPS), "--batch-size", str(DDP_BATCH)]),
+            device=dev)
+    finally:
+        ps.destroy_model_parallel()
+    one_master = {k: v.cpu().numpy() for k, v in one["state"].space.unpack(
+        one["state"].master, dtype="buffer").items()}
+    rel = {k: float(np.linalg.norm(ddp[0]["master"][k] - v)
+                    / np.linalg.norm(v)) for k, v in one_master.items()}
+    worst = max(rel.values())
+    print(f"  20a DDP example, {world} ranks x {DDP_BATCH // world}: "
+          f"losses {ddp[0]['losses'][0]:.4f} -> {ddp[0]['losses'][-1]:.4f} "
+          f"(rank 0), {ddp[1]['losses'][0]:.4f} -> {ddp[1]['losses'][-1]:.4f}"
+          f" (rank 1); sync_deviation of master and momentum after every "
+          f"step: max {max(max(d['deviations']) for d in ddp)}; final master "
+          f"against one process of batch {DDP_BATCH}: worst relative L2 "
+          f"{worst:.3e} (tol {DP_WEIGHT_TOL}); fused_sgd launches "
+          f"{[d['launches'].get(mt_ops.SGD_KERNEL, 0) for d in ddp]} over "
+          f"{DDP_STEPS} steps; {ddp[0]['wall_s']:.2f} s ({card})")
+    for r, d in enumerate(ddp):
+        check(all(np.isfinite(d["losses"])) and d["losses"][-1]
+              < d["losses"][0], f"DDP example rank {r}: losses did not fall")
+        check(all(v == 0.0 for v in d["deviations"]),
+              f"DDP example rank {r}: replicas diverged")
+        check(d["launches"].get(mt_ops.SGD_KERNEL, 0) == DDP_STEPS,
+              f"DDP example rank {r}: fused_sgd not once a step")
+        check(d["sigterm"]["stopped_at"] == DDP_SIGTERM_STEP
+              and d["sigterm"]["steps_run"] == DDP_SIGTERM_STEP,
+              f"DDP example rank {r}: the SIGTERM to rank {DP_FLAGGED} "
+              f"stopped it at {d['sigterm']}")
+    check(_same_tree(ddp[0]["master"], ddp[1]["master"]),
+          "DDP example: the two ranks' masters differ")
+    check(worst <= DP_WEIGHT_TOL, "DDP example: the world of 2 is "
+          f"{worst:.3e} from one process")
+    print(f"  20a SIGTERM to rank {DP_FLAGGED} at step {DDP_SIGTERM_STEP}: "
+          f"the ranks stopped at {[d['sigterm']['stopped_at'] for d in ddp]}")
+    inp = _dp_collective_inputs(seed, world)
+    handles = LocalCollective(world).handles()
+    local = [None] * world
+
+    def run_local(r):
+        local[r] = _dp_collective_ops(handles[r], inp, r)
+
+    threads = [threading.Thread(target=run_local, args=(r,))
+               for r in range(world)]
+    for t_ in threads:
+        t_.start()
+    for t_ in threads:
+        t_.join(60)
+    for impl in ("process", "kvstore"):
+        same = all(_same_tree(ranks[r]["collectives"][impl], local[r])
+                   for r in range(world))
+        stops = [res["collectives"][impl]["should_stop"] for res in ranks]
+        print(f"  20a {impl} collective against LocalCollective: equal "
+              f"{same}; should_stop with rank {DP_FLAGGED} flagged: {stops}")
+        check(same, f"{impl} collective disagrees with LocalCollective")
+    out["ddp_example"] = {
+        "losses": [d["losses"] for d in ddp], "worst_rel_l2_vs_one": worst,
+        "launches": [d["launches"] for d in ddp],
+        "sigterm": [d["sigterm"] for d in ddp], "wall_s": ddp[0]["wall_s"]}
+
+    # 20b: ResNet-50 under O5 and O2 with SyncBN
+    for level in ("O5", "O2"):
+        runs = [r[level] for r in ranks]
+        med = [_dp_median_ms(run) for run in runs]
+        print(f"  20b ResNet-50 {level}, {world} x "
+              f"{batch // world} at {RESNET_HW}^2 with SyncBN: "
+              f"losses (rank 0) {[round(v_, 4) for v_ in runs[0]['losses']]}")
+        print(f"    step ms median of steps 3-{DP_RESNET_STEPS} per rank "
+              f"{[round(m, 2) for m in med]}, images/s over the ranks "
+              f"{batch / (max(med) / 1e3):.1f}; gradient all-reduce "
+              f"{runs[0]['allreduce']['calls']} a step, "
+              f"{runs[0]['allreduce']['bytes'] / 1e6:.1f} MB, "
+              f"{runs[0]['allreduce']['ms']:.2f} ms (rank 0; "
+              f"{runs[1]['allreduce']['ms']:.2f} rank 1); SyncBN "
+              f"{runs[0]['syncbn']['calls']} all-reduces a step, "
+              f"{runs[0]['syncbn']['bytes'] / 1e3:.1f} kB, "
+              f"{runs[0]['syncbn']['ms']:.2f} ms (rank 0; "
+              f"{runs[1]['syncbn']['ms']:.2f} rank 1; each synchronised, "
+              f"in the metered step); peak memory per rank "
+              f"{[round(run['peak_gib'], 2) for run in runs]} GiB, card in "
+              f"use {max(run['card_used_gib'] for run in runs):.2f} GiB "
+              f"({card})")
+        for r, run in enumerate(runs):
+            p_ = run["profile"]
+            print(f"    profiled step, rank {r}: wall {p_['wall_ms']:.1f} ms, "
+                  f"device busy {p_['device_busy_ms']:.1f} ms ("
+                  f"{100 * p_['device_busy_ms'] / p_['wall_ms']:.1f}%); "
+                  + ", ".join(f"{k} {p_[f'{k}_ms']:.2f}" for k in DP_SHARES))
+        print(f"    fused_sgd launches per rank "
+              f"{[run['launches'].get(mt_ops.SGD_KERNEL, 0) for run in runs]}"
+              f" over {runs[0]['steps']} steps; launches (rank 0) "
+              f"{runs[0]['launches']}; sync_deviation after every step: max "
+              f"{max(max(run['deviations']) for run in runs)}; scales "
+              f"{runs[0]['scales']}; skipped (found_inf) "
+              f"{[int(f) for f in runs[0]['found_inf']]}")
+        for r, run in enumerate(runs):
+            check(all(np.isfinite(run["losses"][:DP_RESNET_STEPS + 1])),
+                  f"ResNet-50 {level} rank {r}: non-finite loss")
+            # the dynamic scaler may skip the first steps (an overflow at
+            # its initial scale): the first update taken must lower the loss
+            first = run["found_inf"].index(0.0)
+            check(run["losses"][first + 1] < run["losses"][first],
+                  f"ResNet-50 {level} rank {r}: the first update taken "
+                  f"(step {first + 1}) did not lower the loss")
+            check(all(v == 0.0 for v in run["deviations"]),
+                  f"ResNet-50 {level} rank {r}: replicas diverged "
+                  f"{run['deviations']}")
+            check(run["launches"].get(mt_ops.SGD_KERNEL, 0) == run["steps"],
+                  f"ResNet-50 {level} rank {r}: fused_sgd not once a step")
+            check(run["stats_finite"], f"ResNet-50 {level} rank {r}: "
+                  "non-finite running statistics")
+            check(run["allreduce"]["calls"] == 1,
+                  f"ResNet-50 {level} rank {r}: {run['allreduce']['calls']} "
+                  "gradient all-reduces in a step")
+            if level == "O2":
+                inf = run["inf"]
+                ok = (inf["found_inf"] == 1.0 and inf["master_unchanged"]
+                      and inf["momentum_unchanged"]
+                      and inf["count"][0] == inf["count"][1]
+                      and inf["scale"][1] == inf["scale"][0] / 2)
+                check(ok, f"ResNet-50 O2 rank {r}: the inf on rank "
+                      f"{DP_FLAGGED} was not skipped here: {inf}")
+        if level == "O2":
+            print(f"    inf written into rank {DP_FLAGGED}'s gradient before "
+                  f"the all-reduce: {[run['inf'] for run in runs]}")
+        out[f"resnet_{level}"] = {
+            **{k: [run[k] for run in runs] for k in (
+                "losses", "step_ms_all", "launches", "peak_gib",
+                "card_used_gib", "allreduce", "syncbn", "scales", "found_inf",
+                "inf", "profile")},
+            "step_ms": med, "images_per_s": batch / (max(med) / 1e3),
+            "steps": runs[0]["steps"]}
+
+    # 20c: fp32 parity against one process of the whole batch
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    x, y = _dp_parity_batch(seed, world)
+    ref = _dp_gradient(seed, dev, x, y)
+    cpu = _dp_gradient(seed, torch.device("cpu"), x, y)
+    par = [r["parity"] for r in ranks]
+    loss = float(np.mean([p["loss"] for p in par]))
+    loss_gap = abs(loss - ref["loss"]) / abs(ref["loss"])
+    grad_gap = rel_l2(par[0]["grad"], ref["grad"])
+    floor = rel_l2(ref["grad"], cpu["grad"])
+    head_gap = rel_l2(par[0]["head"], ref["head"])
+    stats_gap = max(float(np.abs(par[0]["stats"][k] - v).max()
+                          / max(np.abs(v).max(), 1e-30))
+                    for k, v in ref["stats"].items())
+    print(f"  20c fp32 parity (TF32 off), {world} ranks x "
+          f"{DP_PARITY_PER_RANK} against one process of "
+          f"{world * DP_PARITY_PER_RANK}: loss {loss_gap:.3e} relative "
+          f"(tol {DP_LOSS_TOL}), running statistics {stats_gap:.3e} "
+          f"(tol {DP_STATS_TOL}), the head's all-reduced gradient "
+          f"{head_gap:.3e} relative L2 (tol {DP_GRAD_TOL}), the whole flat "
+          f"gradient {grad_gap:.3e} against the fp32 floor {floor:.3e} (the "
+          f"one process on the card against the CPU; tol {DP_FLOOR_FACTOR}x)"
+          f", sync_deviation of the gradient {[p['deviation'] for p in par]}")
+    check(loss_gap <= DP_LOSS_TOL, "20c: the ranks' loss is off")
+    check(head_gap <= DP_GRAD_TOL, "20c: the head's reduced gradient is off")
+    check(grad_gap <= DP_FLOOR_FACTOR * floor,
+          "20c: the reduced gradient is past the fp32 floor")
+    check(stats_gap <= DP_STATS_TOL, "20c: the running statistics are off")
+    check(all(p["deviation"] == 0.0 for p in par),
+          "20c: the reduced gradients differ between the ranks")
+    out["parity"] = {"loss_rel": loss_gap, "grad_rel_l2": grad_gap,
+                     "fp32_floor_rel_l2": floor, "head_rel_l2": head_gap,
+                     "stats_rel": stats_gap}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  20 {out['wall_s']:.1f} s, of which the ranks "
+          f"{spawn_s:.1f} s (a: {ranks[0]['walls']['a']:.1f}, O5: "
+          f"{ranks[0]['walls']['O5']:.1f}, O2: {ranks[0]['walls']['O2']:.1f},"
+          f" c: {ranks[0]['walls']['c']:.1f})")
+    return out
+
+
+def data_parallel_alone(args, dev) -> int:
+    """``--data-parallel N``: phase 20 over N ranks, one card each (its
+    path builds the FusedSGD library alone)."""
+    n, cards = args.data_parallel, torch.cuda.device_count()
+    if n > cards:
+        print(f"chip_smoke: --data-parallel {n} needs {n} cards, found "
+              f"{cards}", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"{card} x {cards}")
+    print(f"  built fused_sgd in {_build.build_all(['fused_sgd']):.1f} s")
+    t0 = time.perf_counter()
+    out = data_parallel(args.seed, dev, card, world=n, backend=None)
+    print(f"  (phase 20 over {n} cards: {time.perf_counter() - t0:.1f} s "
+          "wall)")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "data_parallel": out}, f, indent=1)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards}}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every number to this JSON file")
+    ap.add_argument("--data-parallel", type=int, default=None, metavar="N",
+                    help="run phase 20 alone over N ranks, one card each, "
+                    "on the default backend (NCCL), and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9237,6 +9816,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False     # fp32 LM head in fp32
     torch.backends.cudnn.allow_tf32 = False
+    if args.data_parallel:
+        return data_parallel_alone(args, dev)
 
     walls = {}
 
@@ -9417,6 +9998,10 @@ def main(argv=None) -> int:
                 lambda: serve_faults(args.seed, dev, card, srv, ssv))
     sft = phase("phase 18: the serving fleet, GPT-2 345M engines behind "
                 "one router", lambda: serve_fleet(args.seed, dev, card))
+    dpl = phase("phase 20: data parallelism, two ranks sharing the card "
+                "over gloo (the DDP example, ResNet-50 with SyncBN under O5 "
+                "and O2, fp32 parity)",
+                lambda: data_parallel(args.seed, dev, card))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -9573,6 +10158,13 @@ def main(argv=None) -> int:
                                "self_future", "self_key_padding",
                                "encdec_key_padding"))):
             k[f"launches_{key}"] = launched(run["launches"], name)
+        # the data-parallel paths' launches, each rank's own (phase 20)
+        for r in range(DP_WORLD):
+            k[f"launches_dp_ddp_example_rank{r}"] = launched(
+                dpl["ddp_example"]["launches"][r], name)
+            for level in ("O5", "O2"):
+                k[f"launches_dp_resnet_{level}_rank{r}"] = launched(
+                    dpl[f"resnet_{level}"]["launches"][r], name)
         if name in (layer_norm.KERNEL, attention.KERNEL):
             for case, counts in sfl["launches"].items():
                 k[f"launches_serving_faults_{case}"] = counts[name]
@@ -9611,7 +10203,8 @@ def main(argv=None) -> int:
                        "flash_wide": {"launches": wide["launches"]},
                        "training_t5": t5,
                        "amp": amp16, "serving_faults": sfl,
-                       "serving_fleet": sft, **line}, f,
+                       "serving_fleet": sft, "data_parallel": dpl,
+                       **line}, f,
                       indent=1)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

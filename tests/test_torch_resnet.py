@@ -222,18 +222,26 @@ def test_sync_batchnorm_matches_reference(fuse_relu, dtype):
 
 def test_sync_batchnorm_takes_a_channels_last_view_and_refuses_sync():
     """The ResNet's activations are NCHW views of NHWC memory; the
-    statistics stay per channel whatever the strides."""
+    statistics stay per channel whatever the strides. Outside an
+    initialized topology the data axis is a world of one, so the
+    synchronised module acts unsynchronised (the reference's outside
+    shard_map); an axis that parallel_state does not name is refused."""
     x = torch.randn(2, 4, 3, 5, generator=torch.Generator().manual_seed(0))
-    bn = SyncBatchNorm(5)
+    bn = SyncBatchNorm(5, axis_name=None)
     y1 = bn(x)
     view = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     assert not view.is_contiguous()
     # sums over another order of the same values
     torch.testing.assert_close(SyncBatchNorm(5)(view), y1, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        SyncBatchNorm(5, axis_name="data")
-    with pytest.raises(NotImplementedError):
-        ResNet(ResNetConfig.resnet18ish(bn_groups=[[0, 1]]), device="cpu")
+    torch.testing.assert_close(SyncBatchNorm(5, axis_name="data")(x), y1,
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        SyncBatchNorm(5, axis_name="batch")
+    with pytest.raises(ValueError):
+        SyncBatchNorm(5, axis_name=None, axis_index_groups=[[0]])
+    model = ResNet(ResNetConfig.resnet18ish(bn_axis_name="data",
+                                            bn_groups=[[0]]), device="cpu")
+    assert model(torch.zeros(1, 8, 8, 3)).shape == (1, 1000)
     assert create_syncbn_group_assignment(8, 4) == ref_groups(8, 4)
     with pytest.raises(ValueError):
         create_syncbn_group_assignment(6, 4)

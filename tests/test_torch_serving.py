@@ -523,7 +523,11 @@ def test_import_loads_no_jax():
             "apex_tpu_torch.records, apex_tpu_torch.serving.resilience, "
             "apex_tpu_torch.serving.tracing, apex_tpu_torch.serving.fleet, "
             "apex_tpu_torch.telemetry.comms, apex_tpu_torch.telemetry.fleet, "
-            "apex_tpu_torch.resilience.retry; "
+            "apex_tpu_torch.resilience.retry, apex_tpu_torch.parallel, "
+            "apex_tpu_torch.parallel.multiproc, apex_tpu_torch.runtime, "
+            "apex_tpu_torch.transformer.parallel_state, "
+            "apex_tpu_torch.examples.simple_ddp, "
+            "apex_tpu_torch.examples.imagenet_main_amp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'apex_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
