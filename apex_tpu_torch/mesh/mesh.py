@@ -1,0 +1,375 @@
+"""One process-global named mesh (``batch`` / ``pipe`` / ``model``), the
+sharding plan of a model on it, and the train step over this rank's
+shard.
+
+Counterpart of ``apex_tpu/mesh/mesh.py`` (:40-492). The reference's mesh
+is one ``jax.sharding.Mesh`` whose arrays carry ``NamedSharding``s, and
+XLA places every collective (GSPMD). PyTorch has no compiler to place
+them, so the port's mesh is the explicit one: each process is one rank,
+:func:`initialize_mesh` lays the ranks out through
+``transformer.parallel_state`` (``batch`` is its data axis, ``model`` its
+tensor axis, innermost; ``pipe`` its pipeline axis), and each rank holds
+its shard of every parameter; the tensor-parallel layers place the
+collectives themselves (``transformer/tensor_parallel``).
+
+- :class:`ShardingPlan`: a spec a parameter name (the models'
+  ``*_param_specs`` with the tensor axis renamed ``model``) and the
+  batch spec. ``shard_params`` gives this rank's slice of each full
+  tensor, ``shard_batch`` this data rank's rows, ``shard_state`` this
+  rank's part of an optimizer state over the full parameters. Each is
+  the identity (the same object) on a mesh of one rank.
+- :class:`MeshTrainStep`: ``PretrainStep`` over this rank's shard: the
+  backward, the gradient's all-reduce over the data group (a
+  ``DistributedDataParallel`` as ``grad_reduce``, only where ``batch >
+  1``), then ``opt.step_flat``. The loss returned is the whole batch's,
+  the mean over the data group.
+
+**The optimizer state is sharded, not replicated.** The reference
+replicates its flat master on the mesh (:184-197) and lets XLA slice the
+parameters out of it. Here a parameter is a view into this rank's flat
+master, and a strided column slice of a full master cannot be one, so
+each rank's flat state holds its own shard (the replicated leaves on
+every rank). For an elementwise update (FusedAdam, FusedSGD,
+FusedAdagrad) the numbers are those of the replicated master. FusedLAMB,
+the global-norm clip, FusedNovoGrad and FusedLARS / LARC need norms over
+the whole of a sharded leaf and the whole gradient, a reduction over
+the tensor group they do not have yet: at tp > 1 they raise (ROADMAP A
+9h).
+
+Not ported: the compile-plane observation and the sharding telemetry of
+the reference's step (:436-443, ROADMAP A 10) and its MoE fault hooks
+(A 9f). The pipeline axis raises in the pretrain step (A 9c).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, ClassVar, Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from apex_tpu_torch.transformer import parallel_state as ps
+from apex_tpu_torch.transformer.tensor_parallel import shard_tensor
+
+BATCH_AXIS = "batch"
+MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
+
+#: outer -> inner; model innermost (the latency-critical axis on
+#: adjacent ranks, as parallel_state puts its tensor axis)
+MESH_AXES = (BATCH_AXIS, PIPE_AXIS, MODEL_AXIS)
+
+# the parallel_state axis each mesh axis is
+_PS_AXIS = {BATCH_AXIS: ps.DATA_AXIS, PIPE_AXIS: ps.PIPELINE_AXIS,
+            MODEL_AXIS: ps.TENSOR_AXIS}
+
+# where the optimizers that need norms over a sharded leaf wait
+SHARDED_NORMS_ITEM = "ROADMAP A 9h"
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The live layout of the world's ranks: ``shape`` maps each mesh
+    axis to its size, ``coords`` to this rank's index along it."""
+
+    topology: ps.Topology
+    axis_names: ClassVar[Tuple[str, ...]] = MESH_AXES
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        sizes = self.topology.shape
+        return {a: int(sizes[_PS_AXIS[a]]) for a in MESH_AXES}
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        return {a: int(self.topology.coords[_PS_AXIS[a]]) for a in MESH_AXES}
+
+    @property
+    def size(self) -> int:
+        return int(self.topology.size)
+
+    def group(self, axis: str):
+        """``(process group or None, ranks)`` of this rank along ``axis``."""
+        return ps.axis_group(_PS_AXIS[axis])
+
+
+_MESH: Optional[Mesh] = None
+
+
+def mesh_initialized() -> bool:
+    return _MESH is not None
+
+
+def current_mesh() -> Mesh:
+    if _MESH is None:
+        raise RuntimeError("the mesh is not initialized (call "
+                           "mesh.initialize_mesh first)")
+    return _MESH
+
+
+def mesh_size() -> int:
+    """Ranks of the live mesh (1 when none is live)."""
+    return 1 if _MESH is None else _MESH.size
+
+
+def axis_sizes() -> Dict[str, int]:
+    """``{axis: size}`` of the live mesh (all 1 when none is live)."""
+    if _MESH is None:
+        return {a: 1 for a in MESH_AXES}
+    return _MESH.shape
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_available() \
+        and dist.is_initialized() else 1
+
+
+def initialize_mesh(batch: Optional[int] = None, model: int = 1,
+                    pipe: int = 1) -> Mesh:
+    """Lay the world's ranks out as ``(batch, pipe, model)`` through
+    ``parallel_state`` (its data, pipeline and tensor axes) and arm the
+    mesh. ``batch`` defaults to ``world // (model * pipe)``. Without a
+    process group the world is one rank, and a mesh of one is legal."""
+    global _MESH
+    world = _world()
+    model, pipe = int(model), int(pipe)
+    if model < 1 or pipe < 1:
+        raise ValueError(f"axis sizes must be >= 1 (model={model}, "
+                         f"pipe={pipe})")
+    if batch is None:
+        if world % (model * pipe):
+            raise ValueError(f"world size {world} not divisible by "
+                             f"model({model}) x pipe({pipe})")
+        batch = world // (model * pipe)
+    if int(batch) * model * pipe != world:
+        raise ValueError(f"batch({batch}) x model({model}) x pipe({pipe}) "
+                         f"!= world size {world}")
+    topo = ps.initialize_model_parallel(tensor_model_parallel_size=model,
+                                        pipeline_model_parallel_size=pipe)
+    _MESH = Mesh(topo)
+    return _MESH
+
+
+def destroy_mesh() -> None:
+    """Disarm the mesh and forget its topology."""
+    global _MESH
+    if _MESH is not None:
+        ps.destroy_model_parallel()
+    _MESH = None
+
+
+# -- ShardingPlan -------------------------------------------------------------
+
+
+def _rows(x, n: int, index: int):
+    """Rows ``[index * b / n, (index + 1) * b / n)`` of a batch-major
+    tensor or array."""
+    b = x.shape[0]
+    if b % n:
+        raise ValueError(f"batch of {b} does not split over {n} data ranks")
+    chunk = b // n
+    return x[index * chunk:(index + 1) * chunk]
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingPlan:
+    """How one model's tensors lie on one mesh: a spec a parameter name
+    (a tuple of mesh axis names or None, one a dim) and the batch spec.
+    Every ``shard_*`` returns its argument itself on a mesh of one
+    rank."""
+
+    mesh: Mesh
+    param_specs: Dict[str, tuple]
+    batch_spec: tuple = (BATCH_AXIS,)
+
+    @property
+    def n_devices(self) -> int:
+        return self.mesh.size
+
+    def is_identity(self) -> bool:
+        return self.n_devices <= 1
+
+    def shard_params(self, params: Mapping[str, torch.Tensor]
+                     ) -> Mapping[str, torch.Tensor]:
+        """This rank's slice of each full parameter, by name (contiguous
+        tensors, views where the slice is whole)."""
+        if self.is_identity():
+            return params
+        shape, coords = self.mesh.shape, self.mesh.coords
+        return {n: shard_tensor(t, self.param_specs.get(n, ()), shape,
+                                coords).contiguous()
+                for n, t in params.items()}
+
+    def shard_batch(self, batch: Any) -> Any:
+        """This data rank's rows of a batch-major tensor or array (or a
+        dict, list or tuple of them)."""
+        if self.is_identity():
+            return batch
+        n, i = self.mesh.shape[BATCH_AXIS], self.mesh.coords[BATCH_AXIS]
+        return _map(lambda x: _rows(x, n, i), batch)
+
+    def shard_state(self, state):
+        """This rank's part of a ``FlatOptState`` over the full
+        parameters: a flat state over this rank's shards, its master and
+        every elementwise slot cut the way the parameters are, the count
+        and found_inf kept. A segmented layout (FusedLAMB) or a per-leaf
+        slot (FusedNovoGrad) has no such cut and raises."""
+        if self.is_identity():
+            return state
+        from apex_tpu_torch.multi_tensor.flat_buffer import FlatSpace
+        from apex_tpu_torch.optimizers.fused import FlatOptState
+
+        if state.seg_meta is not None:
+            raise NotImplementedError(
+                "shard_state of a segmented (FusedLAMB) state "
+                f"({SHARDED_NORMS_ITEM})")
+        total = state.master.numel()
+        for k, buf in state.slots.items():
+            if buf.numel() != total:
+                raise NotImplementedError(
+                    f"shard_state: slot {k!r} is not elementwise "
+                    f"({SHARDED_NORMS_ITEM})")
+        space = FlatSpace.create(self.shard_params(
+            state.space.unpack(state.master)), align=state.space.align)
+
+        def cut(buf):
+            return space.pack(self.shard_params(
+                state.space.unpack(buf, dtype="buffer")), dtype=buf.dtype)
+
+        return FlatOptState(
+            space=space, master=cut(state.master),
+            slots={k: cut(b) for k, b in state.slots.items()},
+            count=state.count, found_inf=state.found_inf.clone())
+
+    def detail(self) -> Dict[str, Any]:
+        """A JSON-able summary (the reference's keys)."""
+        specs = list(self.param_specs.values())
+        return {"mesh": self.mesh.shape, "n_devices": self.n_devices,
+                "batch_spec": str(tuple(self.batch_spec)),
+                "param_leaves": len(specs),
+                "param_leaves_sharded": sum(
+                    1 for s in specs if any(a is not None for a in s))}
+
+
+def plan_gpt(params: Any, *, mesh: Optional[Mesh] = None) -> ShardingPlan:
+    """The GPT plan: ``gpt_param_specs`` with the tensor axis renamed to
+    the mesh's ``model`` axis (column kernels on the output dim, row
+    kernels on the input dim, the embedding on the vocab), the batch on
+    ``batch``. ``params``: a model, a state dict or the names."""
+    from apex_tpu_torch.models.gpt import gpt_param_specs
+
+    mesh = mesh if mesh is not None else current_mesh()
+    specs = {n: tuple(MODEL_AXIS if a == ps.TENSOR_AXIS else a for a in s)
+             for n, s in gpt_param_specs(params).items()}
+    return ShardingPlan(mesh=mesh, param_specs=specs)
+
+
+def shard_params(plan: ShardingPlan, params):
+    return plan.shard_params(params)
+
+
+def shard_state(plan: ShardingPlan, state):
+    return plan.shard_state(state)
+
+
+def shard_batch(plan: ShardingPlan, batch):
+    return plan.shard_batch(batch)
+
+
+# -- the train step over this rank's shard -----------------------------------
+
+
+def _needs_sharded_norms(optimizer) -> bool:
+    from apex_tpu_torch.optimizers.fused import (FusedLAMB, FusedLARS,
+                                                 FusedNovoGrad)
+    from apex_tpu_torch.parallel.larc import LARC
+
+    return isinstance(optimizer, (FusedLAMB, FusedLARS, FusedNovoGrad, LARC))
+
+
+class MeshTrainStep:
+    """One training step of this rank's shard ``model`` (a module built
+    under the plan's mesh, e.g. a ``GPTModel``) over ``plan``:
+    ``state, loss = step(state, tokens, labels)`` with the whole
+    batch, of which this data rank takes its rows. ``loss_fn(model,
+    tokens, labels)`` defaults to GPT's. ``init(params=None)`` gives the
+    optimizer state over the model's parameters, after loading this
+    rank's slice of ``params`` (full-size, by name) when given."""
+
+    def __init__(self, model: torch.nn.Module, optimizer, plan: ShardingPlan,
+                 *, loss_fn: Optional[Callable[..., torch.Tensor]] = None):
+        from apex_tpu_torch.models.pretrain import PretrainStep
+        from apex_tpu_torch.parallel.distributed import \
+            DistributedDataParallel
+
+        sizes = plan.mesh.shape
+        if sizes[PIPE_AXIS] > 1:
+            raise NotImplementedError(
+                f"a mesh with pipe={sizes[PIPE_AXIS]}: pipeline schedules "
+                "are not ported yet (ROADMAP A 9c)")
+        if sizes[MODEL_AXIS] > 1 and _needs_sharded_norms(optimizer):
+            raise NotImplementedError(
+                f"{type(optimizer).__name__} at model={sizes[MODEL_AXIS]}: "
+                "its norms over a sharded master need a reduction over the "
+                f"tensor group ({SHARDED_NORMS_ITEM})")
+        self.model = model
+        self.opt = optimizer
+        self.plan = plan
+        self._data = plan.mesh.group(BATCH_AXIS)
+        ddp = DistributedDataParallel() if sizes[BATCH_AXIS] > 1 else None
+        self.inner = PretrainStep(model, optimizer, loss_fn=loss_fn,
+                                  grad_reduce=ddp)
+
+    def init(self, params: Optional[Mapping[str, torch.Tensor]] = None):
+        if params is not None:
+            mine = self.plan.shard_params(params)
+            own = dict(self.model.named_parameters())
+            with torch.no_grad():
+                for n, p in own.items():
+                    p.copy_(mine[n])
+        return self.inner.init()
+
+    @property
+    def grad(self) -> Optional[torch.Tensor]:
+        """This rank's flat gradient of the last step (reduced over the
+        data group)."""
+        return self.inner.grad
+
+    def step(self, state, tokens, labels):
+        tokens = self.plan.shard_batch(tokens)
+        labels = self.plan.shard_batch(labels)
+        state, loss = self.inner(state, tokens, labels)
+        group, ranks = self._data
+        if group is not None:
+            loss = loss.clone()
+            dist.all_reduce(loss, group=group)
+            loss = loss / torch.full((), float(len(ranks)),
+                                     device=loss.device)
+        return state, loss
+
+    __call__ = step
+
+
+def make_mesh_train_step(model, optimizer, plan: ShardingPlan, *,
+                         loss_fn=None) -> MeshTrainStep:
+    """:class:`MeshTrainStep` of ``model`` (this rank's shard) over
+    ``plan``."""
+    return MeshTrainStep(model, optimizer, plan, loss_fn=loss_fn)
+
+
+__all__ = [
+    "BATCH_AXIS", "MESH_AXES", "MODEL_AXIS", "PIPE_AXIS", "Mesh",
+    "MeshTrainStep", "SHARDED_NORMS_ITEM", "ShardingPlan", "axis_sizes",
+    "current_mesh", "destroy_mesh", "initialize_mesh",
+    "make_mesh_train_step", "mesh_initialized", "mesh_size", "plan_gpt",
+    "shard_batch", "shard_params", "shard_state",
+]

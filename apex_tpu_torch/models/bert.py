@@ -39,7 +39,7 @@ mesh.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +53,9 @@ from apex_tpu_torch.models.gpt import (
     _dropout_keys,
     _hidden_dropout,
     _norm,
+    _names,
     _Ops,
+    param_spec,
     softmax_attention,
 )
 from apex_tpu_torch.normalization import FusedLayerNorm
@@ -61,6 +63,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    tensor_axis,
 )
 
 
@@ -254,6 +257,11 @@ class BertModel(nn.Module):
     def __init__(self, config: BertConfig, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if tensor_axis().size > 1:
+            raise NotImplementedError(
+                "BERT's tensor-parallel forward is not ported yet "
+                "(ROADMAP A 11); build it outside a tensor axis of more than "
+                "one rank")
         dev = resolve_device(device)
         cfg = config
         h = cfg.hidden_size
@@ -361,6 +369,13 @@ def bert_loss_fn(lm_logits: torch.Tensor,
     return lm_loss + nsp
 
 
+def bert_param_specs(params) -> Dict[str, tuple]:
+    """Each BERT parameter's layout, by name (the reference's
+    ``bert_param_specs`` :381): ``gpt_param_specs``' rules plus the LM
+    head's bias on the vocab dim."""
+    return {n: param_spec(n, vocab_bias=True) for n in _names(params)}
+
+
 __all__ = ["BertConfig", "BertLayer", "BertLMHead", "BertModel",
-           "BertParallelAttention", "BertPooler",
+           "BertParallelAttention", "BertPooler", "bert_param_specs",
            "bert_extended_attention_mask", "bert_loss_fn"]

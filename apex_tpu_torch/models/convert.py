@@ -158,6 +158,24 @@ def gpt_params_from_jax(params_np: Mapping, config: GPTConfig
         ("layers", "layer", config.num_layers, _LAYER_KEYS),), "GPT")
 
 
+def gpt_shard_from_jax(params_np: Mapping, config: GPTConfig,
+                       specs: Mapping[str, tuple], rank: int, tp: int
+                       ) -> Dict[str, torch.Tensor]:
+    """Tensor rank ``rank``'s shard (of ``tp``) of the reference's GPT
+    parameters ``params_np``, in the port's names: each tensor of
+    :func:`gpt_params_from_jax` cut by its spec in ``specs``
+    (``gpt_param_specs``, axis ``tensor``), the counterpart of the
+    reference's ``ShardingPlan.shard_params`` (``mesh.py`` :174-181) on
+    its tree. Load it into a :class:`GPTModel` built at that rank."""
+    from apex_tpu_torch.transformer.parallel_state import TENSOR_AXIS
+    from apex_tpu_torch.transformer.tensor_parallel import shard_tensor
+
+    full = gpt_params_from_jax(params_np, config)
+    sizes, coords = {TENSOR_AXIS: int(tp)}, {TENSOR_AXIS: int(rank)}
+    return {n: shard_tensor(t, specs[n], sizes, coords).clone()
+            for n, t in full.items()}
+
+
 def bert_params_from_jax(params_np: Mapping, config: BertConfig
                          ) -> Dict[str, torch.Tensor]:
     """The ``state_dict`` of a :class:`BertModel` of ``config`` holding

@@ -1,10 +1,10 @@
-"""Megatron-style GPT, dense, for serving and training.
+"""Megatron-style GPT for serving and training, dense or tensor-parallel.
 
-Counterpart of ``apex_tpu/models/gpt.py`` (:43-577) at tp=1: token +
-position embedding, L pre-LN blocks [LayerNorm, fused-QKV attention,
-LayerNorm, GELU MLP], a final LayerNorm and the tied LM head. What the
-port keeps exactly, because the tests hold it against the reference on
-converted weights:
+Counterpart of ``apex_tpu/models/gpt.py`` (:43-626): token + position
+embedding, L pre-LN blocks [LayerNorm, fused-QKV attention, LayerNorm,
+GELU MLP], a final LayerNorm and the tied LM head. What the port keeps
+exactly, because the tests hold it against the reference on converted
+weights:
 
 - activations in the ``(s, b, h)`` layout; logits ``(s, b, vocab)`` fp32;
 - the fused QKV output laid out per kv group,
@@ -35,17 +35,34 @@ converted weights:
   key is the one Flax gives that scope (``_rng.py``), so the masks are
   the reference's bit for bit.
 
+Tensor parallelism (the reference's :202-231, :506-590): a model built
+inside a topology whose tensor axis has more than one rank (``axis_name``,
+``transformer.parallel_state``) holds this rank's shard, drawn full-size
+and cut (``gpt_param_specs``): local heads and kv heads (tp divides
+both), the fused-QKV rows of whole kv groups, ``proj`` and ``fc2``
+row-parallel, the embedding split on the vocab. The LM head is a copy to
+the tensor region and an fp32 product with the local vocab shard:
+logits ``(s, b, V / tp)``, which :func:`gpt_loss_fn` reduces through the
+vocab-parallel cross entropy. ``sequence_parallel`` splits the sequence
+between the embedding and the final LayerNorm in the forward, as the
+reference tests it, at the loss. Two things raise at tp > 1, each
+waiting for ROADMAP A 9g: attention dropout (the flash kernels hash the
+global q-head index, so a rank's heads need an offset in kernels #2, #4
+and #5 to draw the reference's mask) and dropout under sequence
+parallelism; hidden dropout is replicated and runs.
+
 Layers are a Python loop over an ``nn.ModuleList``; the reference's
 ``scan_layers`` is a parameter layout there, which ``convert.py`` reads
 either way, and the layout of the dropout keys, which ``scan_layers``
-selects. MoE, the ring attention backend and sequence parallelism
-belong to later slices of the port.
+selects. MoE and the ring attention backend belong to later slices of
+the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Optional
+from typing import (Callable, Dict, Iterable, List, Mapping, NamedTuple,
+                    Optional, Union)
 
 import torch
 import torch.nn.functional as F
@@ -62,11 +79,26 @@ from apex_tpu_torch.transformer.functional import (
     AttnMaskType,
     FusedScaleMaskSoftmax,
 )
+from apex_tpu_torch.transformer.parallel_state import TENSOR_AXIS
 from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    column_bias_spec,
+    column_kernel_spec,
+    copy_to_tensor_model_parallel_region,
+    gather_from_sequence_parallel_region,
+    row_kernel_spec,
+    scatter_to_sequence_parallel_region,
+    shard_tensor,
+    tensor_axis,
+    vocab_embedding_spec,
+    vocab_parallel_cross_entropy,
 )
+from apex_tpu_torch.transformer.tensor_parallel.mappings import AxisLike
+
+# the queue item the tensor-parallel paths that raise wait for
+TP_DROPOUT_ITEM = "ROADMAP A 9g"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +122,10 @@ class GPTConfig:
     attention_dropout: float = 0.0
     hidden_dropout: float = 0.0
     attention_backend: str = "flash"
+    # split the sequence over the tensor axis between the embedding and
+    # the final LayerNorm (tp > 1 only; the forward, as the reference
+    # tests it)
+    sequence_parallel: bool = False
     # the reference's layer scan: here only the layout of the dropout
     # keys (its parameter layout is convert.py's business)
     scan_layers: bool = True
@@ -201,33 +237,52 @@ class ParallelAttention(nn.Module):
     K/V as ``(b, kv_heads, s, head_dim)``; ``kv_ctx=(k_ctx, v_ctx,
     ctx_mask)`` attends over the gathered cache ``(b, kv_heads, L, d)``
     (``ctx_mask`` (b, L) marks the written prefix) plus this call's own
-    keys."""
+    keys. At tp > 1 it holds ``num_heads / tp`` q heads and ``kv_heads /
+    tp`` kv heads; the cache K/V are this rank's kv heads."""
 
-    def __init__(self, config: GPTConfig, *, device: DeviceLike = None):
+    def __init__(self, config: GPTConfig, *, device: DeviceLike = None,
+                 axis_name: Optional[AxisLike] = TENSOR_AXIS):
         super().__init__()
         cfg = config
         self.config = cfg
+        ax = self.axis = tensor_axis(axis_name)
+        if cfg.num_heads % ax.size or cfg.kv_heads % ax.size:
+            raise ValueError(
+                f"tensor-parallel size {ax.size} must divide num_heads "
+                f"({cfg.num_heads}) and kv heads ({cfg.kv_heads})")
+        self.heads_local = cfg.num_heads // ax.size
+        self.kv_local = cfg.kv_heads // ax.size
+        sp = cfg.sequence_parallel
         self.qkv = ColumnParallelLinear(
             cfg.hidden_size, (cfg.num_heads + 2 * cfg.kv_heads) * cfg.head_dim,
+            gather_output=False, sequence_parallel_enabled=sp, axis_name=ax,
             dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
         self.proj = RowParallelLinear(
-            cfg.num_heads * cfg.head_dim, cfg.hidden_size, dtype=cfg.dtype,
+            cfg.num_heads * cfg.head_dim, cfg.hidden_size,
+            sequence_parallel_enabled=sp, axis_name=ax, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, device=device)
 
     def forward(self, x, *, kv_ctx=None, return_kv=False, ops=KERNEL_OPS,
                 keys: Optional[LayerKeys] = None):
         """``keys``: the layer's dropout keys (None: deterministic)."""
         cfg = self.config
-        hd, nkv = cfg.head_dim, cfg.kv_heads
+        hd, nkv, nh = cfg.head_dim, self.kv_local, self.heads_local
         rate = cfg.attention_dropout if keys is not None else 0.0
-        group = cfg.num_heads // nkv
+        if rate and self.axis.size > 1:
+            raise NotImplementedError(
+                "attention_dropout > 0 at tensor-parallel size "
+                f"{self.axis.size}: the flash kernels hash the global q-head "
+                "index, so a rank's heads need a head offset in the mask "
+                f"({TP_DROPOUT_ITEM})")
+        group = nh // nkv
         qkv = self.qkv(x)
         s, b = qkv.shape[0], qkv.shape[1]
         # one slab per kv group: [q_0..q_{g-1} | k | v]; q head
-        # g*group + j shares kv head g (the kernel's h / group map)
+        # g*group + j shares kv head g (the kernel's h / group map); a
+        # rank's contiguous rows are whole groups
         q, k, v = torch.split(qkv.reshape(s, b, nkv, (group + 2) * hd),
                               [group * hd, hd, hd], dim=-1)
-        q = q.reshape(s, b, cfg.num_heads, hd)
+        q = q.reshape(s, b, nh, hd)
         k = k.reshape(s, b, nkv, hd)
         v = v.reshape(s, b, nkv, hd)
         kv_new = (k.permute(1, 2, 0, 3).contiguous(),
@@ -264,22 +319,27 @@ class ParallelAttention(nn.Module):
                                 window_size=cfg.attention_window,
                                 dropout_rate=rate,
                                 dropout_rng=keys.attention if rate else None)
-        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, cfg.num_heads * hd)
+        ctx = ctx.permute(2, 0, 1, 3).reshape(s, b, nh * hd)
         out = self.proj(ctx)
         return (out, kv_new) if return_kv else out
 
 
 class ParallelMLP(nn.Module):
-    """fc1 (h -> ffn) -> tanh GELU -> fc2 (ffn -> h)."""
+    """fc1 (h -> ffn, column-parallel) -> tanh GELU -> fc2 (ffn -> h,
+    row-parallel)."""
 
-    def __init__(self, config: GPTConfig, *, device: DeviceLike = None):
+    def __init__(self, config: GPTConfig, *, device: DeviceLike = None,
+                 axis_name: Optional[AxisLike] = TENSOR_AXIS):
         super().__init__()
         cfg = config
+        sp = cfg.sequence_parallel
         self.fc1 = ColumnParallelLinear(
-            cfg.hidden_size, cfg.ffn, dtype=cfg.dtype,
-            param_dtype=cfg.param_dtype, device=device)
+            cfg.hidden_size, cfg.ffn, gather_output=False,
+            sequence_parallel_enabled=sp, axis_name=axis_name,
+            dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device)
         self.fc2 = RowParallelLinear(
-            cfg.ffn, cfg.hidden_size, dtype=cfg.dtype,
+            cfg.ffn, cfg.hidden_size, sequence_parallel_enabled=sp,
+            axis_name=axis_name, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, device=device)
 
     def forward(self, x):
@@ -298,15 +358,17 @@ def _hidden_dropout(ops: _Ops, rate: float, x, keys: Optional[LayerKeys],
 class GPTLayer(nn.Module):
     """Pre-LN transformer block."""
 
-    def __init__(self, config: GPTConfig, *, device: DeviceLike = None):
+    def __init__(self, config: GPTConfig, *, device: DeviceLike = None,
+                 axis_name: Optional[AxisLike] = TENSOR_AXIS):
         super().__init__()
         cfg = config
         self.input_norm = FusedLayerNorm(cfg.hidden_size, device=device,
                                          dtype=torch.float32)
-        self.attention = ParallelAttention(cfg, device=device)
+        self.attention = ParallelAttention(cfg, device=device,
+                                           axis_name=axis_name)
         self.post_norm = FusedLayerNorm(cfg.hidden_size, device=device,
                                         dtype=torch.float32)
-        self.mlp = ParallelMLP(cfg, device=device)
+        self.mlp = ParallelMLP(cfg, device=device, axis_name=axis_name)
 
     def forward(self, x, *, kv_ctx=None, return_kv=False, ops=KERNEL_OPS,
                 keys: Optional[LayerKeys] = None):
@@ -325,36 +387,68 @@ class GPTLayer(nn.Module):
 
 class GPTModel(nn.Module):
     """GPT LM. ``forward(tokens (b, s))`` returns logits ``(s, b,
-    vocab)`` in fp32.
+    vocab / tp)`` in fp32 (the whole vocab at tp=1).
 
     Parameters are made on the CPU from ``generator`` (a
     ``torch.Generator``; the default generator when None) and then
-    moved to ``device`` — CUDA unless the caller names another."""
+    moved to ``device`` — CUDA unless the caller names another. Inside a
+    topology whose tensor axis (``axis_name``; None: none, a whole
+    model) has tp > 1 ranks, every rank draws the same full-size
+    parameters and keeps its shard (``gpt_param_specs``), so the tp
+    ranks' shards put together are the tp=1 model of the same generator.
+    ``params`` (full-size tensors by name, e.g. a tp=1 model's
+    ``named_parameters()`` or a converted checkpoint) takes the place of
+    the draw: each rank keeps its slice of them."""
 
     def __init__(self, config: GPTConfig, *, device: DeviceLike = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 params: Optional[Mapping[str, torch.Tensor]] = None,
+                 axis_name: Optional[AxisLike] = TENSOR_AXIS):
         super().__init__()
         dev = resolve_device(device)
         cfg = config
         self.config = cfg
+        ax = self.axis = tensor_axis(axis_name)
         self.embedding = VocabParallelEmbedding(
-            cfg.vocab_size, cfg.hidden_size, dtype=cfg.dtype,
+            cfg.vocab_size, cfg.hidden_size, axis_name=ax, dtype=cfg.dtype,
             param_dtype=cfg.param_dtype, device="cpu")
         self.position_embedding = nn.Parameter(torch.empty(
             (cfg.max_seq_len, cfg.hidden_size), dtype=cfg.param_dtype))
         self.layers = nn.ModuleList(
-            [GPTLayer(cfg, device="cpu") for _ in range(cfg.num_layers)])
+            [GPTLayer(cfg, device="cpu", axis_name=ax)
+             for _ in range(cfg.num_layers)])
         self.final_norm = FusedLayerNorm(cfg.hidden_size, device="cpu",
                                          dtype=torch.float32)
+        specs = gpt_param_specs(self)
+        if params is not None and set(params) != set(specs):
+            raise KeyError(
+                "params do not match the model: missing "
+                f"{sorted(set(specs) - set(params))}, unexpected "
+                f"{sorted(set(params) - set(specs))}")
+        sizes, coords = {TENSOR_AXIS: ax.size}, {TENSOR_AXIS: ax.index}
         with torch.no_grad():
             for name, p in self.named_parameters():
+                spec = specs[name]
+                if params is not None:
+                    full = params[name]
+                    shape = _full_shape(p, spec, ax.size)
+                    if tuple(full.shape) != shape:
+                        raise ValueError(f"{name}: shape {tuple(full.shape)},"
+                                         f" the model's full shape {shape}")
+                    p.copy_(shard_tensor(full, spec, sizes, coords))
+                    continue
                 if name.endswith("norm.weight"):
                     continue                      # ones
                 if name.endswith("bias"):
                     continue                      # zeros
-                fan_in = p.shape[-1] if p.ndim == 2 else 1
+                shape = _full_shape(p, spec, ax.size)
+                fan_in = shape[-1] if p.ndim == 2 else 1
                 std = (0.02 if "embedding" in name else fan_in ** -0.5)
-                p.normal_(0.0, std, generator=generator)
+                full = p if ax.size == 1 else torch.empty(shape,
+                                                          dtype=p.dtype)
+                full.normal_(0.0, std, generator=generator)
+                if full is not p:
+                    p.copy_(shard_tensor(full, spec, sizes, coords))
         self.to(dev)
 
     def forward(self, tokens, *, positions=None, kv_ctx=None, ctx_mask=None,
@@ -384,8 +478,22 @@ class GPTModel(nn.Module):
     def _forward(self, tokens, positions, kv_ctx, ctx_mask, return_kv, ops,
                  deterministic=True, dropout_key=None):
         cfg = self.config
+        ax = self.axis
+        sp = cfg.sequence_parallel and ax.size > 1
         keys = _dropout_keys(cfg, deterministic, dropout_key,
                              cfg.attention_backend == "softmax")
+        if keys is not None and sp:
+            raise NotImplementedError(
+                "dropout under sequence_parallel at tensor-parallel size "
+                f"{ax.size} ({TP_DROPOUT_ITEM})")
+        if sp and torch.is_grad_enabled() \
+                and self.position_embedding.requires_grad:
+            raise NotImplementedError(
+                "training under sequence_parallel at tensor-parallel size "
+                f"{ax.size}: the replicated LayerNorm gradients would be "
+                "partial sums over the sequence shards, and their reduction "
+                f"over the tensor group is not ported ({TP_DROPOUT_ITEM}); "
+                "run the forward under torch.no_grad")
         b, s = tokens.shape
         x = self.embedding(tokens)                           # (b, s, h)
         pos = self.position_embedding
@@ -397,6 +505,8 @@ class GPTModel(nn.Module):
             if positions.ndim == 1:
                 pos_emb = pos_emb[None]
         x = (x + pos_emb.to(cfg.dtype)).transpose(0, 1)      # (s, b, h)
+        if sp:
+            x = scatter_to_sequence_parallel_region(x, ax)
         serving = return_kv or kv_ctx is not None
         ks, vs = [], []
         for i, layer in enumerate(self.layers):
@@ -409,7 +519,11 @@ class GPTModel(nn.Module):
                 ks.append(k)
                 vs.append(v)
         x = _norm(ops, self.final_norm, x)
-        # tied LM head in fp32
+        if sp:
+            x = gather_from_sequence_parallel_region(x, ax, True)
+        # tied LM head in fp32 over the local vocab shard; the copy makes
+        # the gradient of x the sum over the shards
+        x = copy_to_tensor_model_parallel_region(x, ax)
         logits = torch.matmul(x.float(), self.embedding.weight.float().t())
         if return_kv:
             return logits, (torch.stack(ks), torch.stack(vs))
@@ -432,15 +546,71 @@ def _dropout_keys(cfg, deterministic: bool, dropout_key,
                       softmax_backend=softmax_backend)
 
 
-def gpt_loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def gpt_loss_fn(logits: torch.Tensor, labels: torch.Tensor,
+                axis_name: Optional[AxisLike] = TENSOR_AXIS) -> torch.Tensor:
     """Mean cross entropy over tokens (the reference's ``gpt_loss_fn``
-    :577 outside a tensor-parallel axis): ``logits`` (s, b, vocab) fp32,
-    ``labels`` (b, s)."""
+    :577): ``logits`` (s, b, vocab / tp) fp32, ``labels`` (b, s). Over a
+    tensor axis of more than one rank (a model's ``axis``), the
+    vocab-parallel cross entropy; else a plain logsumexp."""
     labels_sb = labels.transpose(0, 1).long()
+    ax = tensor_axis(axis_name)
+    if ax.size > 1:
+        return torch.mean(vocab_parallel_cross_entropy(logits, labels_sb,
+                                                       axis_name=ax))
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, labels_sb[..., None])[..., 0]
     return torch.mean(lse - tgt)
 
 
+# -- partition specs ----------------------------------------------------------
+
+
+Spec = tuple
+
+
+def _full_shape(p: torch.Tensor, spec: Spec, tp: int) -> tuple:
+    return tuple(n * tp if i < len(spec) and spec[i] is not None else n
+                 for i, n in enumerate(p.shape))
+
+
+def _names(params) -> Iterable[str]:
+    if isinstance(params, nn.Module):
+        return [n for n, _ in params.named_parameters()]
+    if isinstance(params, Mapping):
+        return list(params)
+    return list(params)
+
+
+def param_spec(name: str, column=("qkv", "fc1"), row=("proj", "fc2"),
+               vocab_bias: bool = False) -> Spec:
+    """One parameter's layout by the reference's rules (``gpt.py``
+    :596-626, ``bert.py`` :381, ``t5.py`` :355) on the port's dotted
+    name: the word embedding on the vocab dim, the weight and bias of a
+    module named in ``column`` on the output dim, the weight of one in
+    ``row`` on the input dim, with ``vocab_bias`` BERT's LM-head bias on
+    the vocab; everything else replicated (``()``)."""
+    *mods, leaf = name.split(".")
+    last = mods[-1] if mods else ""
+    if name == "embedding.weight":
+        return vocab_embedding_spec()
+    if last in column:
+        return column_kernel_spec() if leaf == "weight" else column_bias_spec()
+    if last in row and leaf == "weight":
+        return row_kernel_spec()
+    if vocab_bias and name == "lm_head.bias":
+        return column_bias_spec()
+    return ()
+
+
+def gpt_param_specs(params: Union[nn.Module, Mapping[str, torch.Tensor],
+                                  Iterable[str]]) -> Dict[str, Spec]:
+    """Each GPT parameter's layout, by name (a model, a state dict or
+    the names): a tuple with the tensor axis's name on a split dim and
+    None elsewhere; ``()`` for a replicated parameter. The port's
+    names are per layer (``layers.{i}...``), so no leading layer axis."""
+    return {n: param_spec(n) for n in _names(params)}
+
+
 __all__ = ["GPTConfig", "GPTLayer", "GPTModel", "ParallelAttention",
-           "ParallelMLP", "gpt_loss_fn", "softmax_attention"]
+           "ParallelMLP", "TP_DROPOUT_ITEM", "gpt_loss_fn", "gpt_param_specs",
+           "param_spec", "softmax_attention"]

@@ -74,15 +74,31 @@ between the backward pass and the update, one collective a step. The
 update (and under a loss scaler its ``found_inf``) reads the reduced
 gradient, as the reference's ``opt.step`` reads the all-reduced one: an
 inf on one rank skips the step on every rank. Without it the step is as
-before. The mesh (tensor and pipeline parallelism) waits for the
-roadmap's A 9b: ``mesh=`` and interleaved pipeline chunks raise.
-``schedule``, ``num_microbatches`` and ``remat`` are accepted and, as in
-the reference at one pipeline stage, have no effect.
+before.
+
+The mesh (``make_gpt_pretrain_step(..., mesh=...)``, or the live one of
+``mesh.initialize_mesh``): ``build(model)`` takes the full model, as the
+reference's ``build(params)`` takes the full tree (:82-130), and returns
+a ``mesh.MeshTrainStep`` over this rank's shard of it (a ``GPTModel``
+at the mesh's ``model`` size, its slice of the full parameters, on the
+full model's device or ``build(model, device=...)``) with its state;
+the step takes the whole batch, of which each data rank trains its rows,
+the gradient all-reduced over the data group::
+
+    mesh.initialize_mesh(model=2)               # in each rank of a world
+    model = init_gpt_pretrain_params(cfg, generator)      # the full model
+    step, state = make_gpt_pretrain_step(cfg, FusedAdam(lr))(model)
+    state, loss = step(state, tokens, labels)
+
+A mesh with ``pipe > 1`` and ``num_model_chunks > 1`` raise (pipeline
+schedules, ROADMAP A 9c). ``schedule``, ``num_microbatches`` and
+``remat`` are accepted and, as in the reference at one pipeline stage,
+have no effect.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -96,17 +112,19 @@ from apex_tpu_torch.optimizers.train_step import TrainStep
 def init_gpt_pretrain_params(cfg: GPTConfig,
                              generator: Optional[torch.Generator] = None,
                              *, device: DeviceLike = None) -> GPTModel:
-    """A :class:`GPTModel` of ``cfg`` with weights drawn from
-    ``generator``, on ``device`` (CUDA unless the caller names
-    another) — the model whose parameters the step trains."""
-    return GPTModel(cfg, device=device, generator=generator)
+    """The full :class:`GPTModel` of ``cfg`` (whatever the topology) with
+    weights drawn from ``generator``, on ``device`` (CUDA unless the
+    caller names another) — the model whose parameters the step trains,
+    or whose shards it trains on a mesh."""
+    return GPTModel(cfg, device=device, generator=generator, axis_name=None)
 
 
 def _gpt_loss(model: GPTModel, tokens, labels,
               dropout_key=None) -> torch.Tensor:
     return gpt_loss_fn(model(tokens.long(),
                              deterministic=dropout_key is None,
-                             dropout_key=dropout_key), labels)
+                             dropout_key=dropout_key), labels,
+                       axis_name=model.axis)
 
 
 class PretrainStep:
@@ -222,22 +240,42 @@ def make_gpt_pretrain_step(
     num_model_chunks: int = 1,
     mesh=None,
 ):
-    """Returns ``build(model) -> (step, state)``: ``step`` a
+    """Returns ``build(model, device=None) -> (step, state)``: without a
+    mesh (neither ``mesh`` nor a live one) ``step`` is a
     :class:`PretrainStep` over ``model`` (a :class:`GPTModel` of
-    ``cfg``), ``state`` its optimizer state."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (data, tensor and pipeline parallelism) is not ported "
-            "yet; the pretrain step runs on one device")
+    ``cfg``); on a mesh, a ``mesh.MeshTrainStep`` over this rank's shard
+    of the full ``model`` (on ``device``, else the model's); ``state``
+    its optimizer state."""
     if num_model_chunks > 1:
         raise NotImplementedError(
             f"num_model_chunks={num_model_chunks}: pipeline parallelism "
-            "(more than one pipe stage) is not ported yet")
+            "(more than one pipe stage) is not ported yet (ROADMAP A 9c)")
 
-    def build(model: GPTModel) -> Tuple[PretrainStep, FlatOptState]:
+    def build(model: GPTModel, *, device: DeviceLike = None):
+        from apex_tpu_torch import mesh as gmesh
+
         if model.config != cfg:
             raise ValueError("the model's config is not the step's config")
-        step = PretrainStep(model, optimizer)
+        live = mesh if mesh is not None else (
+            gmesh.current_mesh() if gmesh.mesh_initialized() else None)
+        if live is None:
+            step = PretrainStep(model, optimizer)
+            return step, step.init()
+        if model.axis.size > 1:
+            raise ValueError("build takes the full model (a GPTModel built "
+                             "with axis_name=None, as "
+                             "init_gpt_pretrain_params builds it)")
+        if live.shape[gmesh.PIPE_AXIS] > 1:
+            raise NotImplementedError(
+                f"a mesh with pipe={live.shape[gmesh.PIPE_AXIS]}: pipeline "
+                "schedules are not ported yet (ROADMAP A 9c)")
+        plan = gmesh.plan_gpt(model, mesh=live)
+        full = dict(model.named_parameters())
+        dev = (device if device is not None
+               else next(iter(full.values())).device)
+        shard = (model if plan.is_identity() and device is None else
+                 GPTModel(cfg, device=dev, params=full))
+        step = gmesh.make_mesh_train_step(shard, optimizer, plan)
         return step, step.init()
 
     return build

@@ -37,7 +37,7 @@ way. ``t5_param_specs`` (tensor parallel) waits for the mesh.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,7 +47,7 @@ from apex_tpu_torch._backend import DeviceLike, resolve_device
 from apex_tpu_torch.models._flash_bridge import flash_sbhd
 from apex_tpu_torch.models.bert import bert_extended_attention_mask
 from apex_tpu_torch.models.gpt import KERNEL_OPS, PLAIN_OPS, _norm, _Ops
-from apex_tpu_torch.models.gpt import softmax_attention
+from apex_tpu_torch.models.gpt import _names, param_spec, softmax_attention
 from apex_tpu_torch.normalization import FusedLayerNorm
 from apex_tpu_torch.ops.xentropy import logsumexp_diff
 from apex_tpu_torch.transformer.enums import AttnMaskType, AttnType
@@ -55,6 +55,7 @@ from apex_tpu_torch.transformer.tensor_parallel import (
     ColumnParallelLinear,
     RowParallelLinear,
     VocabParallelEmbedding,
+    tensor_axis,
 )
 
 
@@ -244,6 +245,11 @@ class T5Model(nn.Module):
     def __init__(self, config: T5Config, *, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if tensor_axis().size > 1:
+            raise NotImplementedError(
+                "T5's tensor-parallel forward is not ported yet "
+                "(ROADMAP A 11); build it outside a tensor axis of more than "
+                "one rank")
         dev = resolve_device(device)
         cfg = config
         h = cfg.hidden_size
@@ -331,5 +337,14 @@ def t5_pretrain_loss(model: T5Model, enc_tokens, enc_mask, dec_tokens,
                       loss_mask)
 
 
+def t5_param_specs(params) -> Dict[str, tuple]:
+    """Each T5 parameter's layout, by name (the reference's
+    ``t5_param_specs`` :355): ``gpt_param_specs``' rules plus the cross
+    attention's ``q`` and ``kv`` columns."""
+    return {n: param_spec(n, column=("qkv", "fc1", "q", "kv"))
+            for n in _names(params)}
+
+
 __all__ = ["DecoderLayer", "EncoderLayer", "T5Config", "T5Model",
-           "encoder_decoder_stage_layout", "t5_loss_fn", "t5_pretrain_loss"]
+           "encoder_decoder_stage_layout", "t5_loss_fn", "t5_param_specs",
+           "t5_pretrain_loss"]

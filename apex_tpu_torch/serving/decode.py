@@ -18,7 +18,12 @@ there): greedy argmax on ``temperature == 0`` lanes, and on the others a
 temperature / top-k / top-p gumbel-max draw keyed on
 ``fold_in(PRNGKey(seed), fold_pos)``, ``fold_pos`` the emitted token's
 sequence index, with :mod:`apex_tpu_torch.random`'s threefry2x32, so a
-sampled stream is the reference's token for token. PyTorch runs eagerly,
+sampled stream is the reference's token for token. A model sharded over
+a tensor axis (its ``axis``, tp > 1; the reference's
+``tests/test_mesh.py::TestServingSharded``) runs on this rank's kv heads
+(``KVCache.for_config`` sizes the pool so), and its vocab-parallel logits
+are all-gathered over the tensor group before the selection, so every
+rank emits the same token. PyTorch runs eagerly,
 so the reference's per-shape compile cache and compile-tracker hooks
 have no counterpart.
 """
@@ -32,6 +37,9 @@ import torch
 
 from apex_tpu_torch import random as jrandom
 
+from apex_tpu_torch.transformer.tensor_parallel import (
+    gather_from_tensor_model_parallel_region,
+)
 from apex_tpu_torch.serving.kv_cache import (
     KVCache,
     KVCacheState,
@@ -134,9 +142,12 @@ class DecodeStep:
             x = x.copy()
         return torch.as_tensor(x, device=self.cache.device, dtype=dtype)
 
-    @staticmethod
-    def _select(out: torch.Tensor, state: KVCacheState, sampling,
+    def _select(self, out: torch.Tensor, state: KVCacheState, sampling,
                 fold_pos) -> StepOut:
+        # a tensor-parallel model's logits are its vocab shard: gathered
+        # over the tensor group first, so every rank picks the same token
+        out = gather_from_tensor_model_parallel_region(
+            out, getattr(self.model, "axis", None))
         nxt = select_token(out, _sampling_arrays(out.shape[0], sampling),
                            fold_pos)
         return StepOut(out, nxt, state, torch.isfinite(out).all(dim=-1))

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._backend import DeviceLike, resolve_device
+from apex_tpu_torch.transformer.parallel_state import TENSOR_AXIS
+from apex_tpu_torch.transformer.tensor_parallel.mappings import tensor_axis
 
 TRASH_BLOCK = 0
 
@@ -134,11 +136,18 @@ class KVCache:
     @classmethod
     def for_config(cls, cfg, *, num_blocks: int, block_size: int = 16,
                    dtype: Optional[torch.dtype] = None,
-                   device: DeviceLike = None) -> "KVCache":
+                   device: DeviceLike = None,
+                   axis_name=TENSOR_AXIS) -> "KVCache":
         """Size the cache from a ``GPTConfig``-shaped model config:
         ``kv_heads`` (the GQA-narrowed count) x ``head_dim`` blocks —
-        GQA pays GQA-sized blocks, never ``num_heads``-sized ones."""
-        return cls(cfg.num_layers, cfg.kv_heads,
+        GQA pays GQA-sized blocks, never ``num_heads``-sized ones. Over a
+        tensor axis (``axis_name``) of tp > 1 ranks the pool holds this
+        rank's ``kv_heads / tp`` heads, those of its model shard."""
+        tp = tensor_axis(axis_name).size
+        if cfg.kv_heads % tp:
+            raise ValueError(f"tensor-parallel size {tp} does not divide "
+                             f"{cfg.kv_heads} kv heads")
+        return cls(cfg.num_layers, cfg.kv_heads // tp,
                    cfg.hidden_size // cfg.num_heads,
                    num_blocks=num_blocks, block_size=block_size,
                    dtype=dtype if dtype is not None else cfg.dtype,

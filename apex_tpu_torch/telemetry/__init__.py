@@ -20,7 +20,9 @@ fleet router reach).
 The reference's compile plane (its ``jax.monitoring`` bridge) has no
 counterpart: eager PyTorch compiles nothing. Its cost model, device
 memory ledger, sharding, MoE and goodput planes are not ported;
-:func:`snapshot_detail` carries each as a null with its reason.
+:func:`snapshot_detail` carries each as a null with its reason, and the
+mesh planner's published layout (``mesh.planner.publish_plan``) where
+there is one.
 """
 
 from __future__ import annotations
@@ -90,8 +92,14 @@ def snapshot_detail() -> Dict[str, Any]:
         "devmem section polls torch.cuda.memory_stats)")
     out["sharding"] = None
     out["sharding_reason"] = "sharding introspection is not ported"
-    out["layout_plan"] = None
-    out["layout_plan_reason"] = "the mesh planner is not ported"
+    plan = reg.get_info("layout_plan")
+    if plan:
+        out["layout_plan"] = plan
+    else:
+        out["layout_plan"] = None
+        out["layout_plan_reason"] = (
+            "no layout plan published in this process "
+            "(mesh.planner.publish_plan)")
     out["goodput"] = None
     out["goodput_reason"] = flight.GOODPUT_REASON
     return out

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out results.json]
     python3 chip_smoke.py --data-parallel N    # phase 20 alone, N cards
+    python3 chip_smoke.py --tensor-parallel N  # phase 21 alone, N cards
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -455,9 +456,41 @@ Phases, in order; any failure exits non-zero before the last line:
    equal. ``--data-parallel N`` runs this phase alone over N ranks, one
    card each, on NCCL (20b's global batch 64 a rank), after building the
    FusedSGD library alone, and exits.
+21. Tensor parallelism: two ranks spawned as in phase 20, sharing the card
+   over gloo (every activation all-reduce crosses host memory, so no time
+   here is a multi-GPU number), under ``mesh.initialize_mesh(model=2)``.
+   (a) GPT-2 345M (hidden 1024, 24 layers, 16 heads, 8 a rank, seq 1024,
+   vocab 50304, 25152 a rank; bf16 compute, fp32 parameters, the flash
+   backend) through ``make_gpt_pretrain_step(cfg, FusedAdam(lr=1e-4,
+   weight_decay=0.01))`` on the full model (each rank keeps its shard), at
+   batch TP_BATCH x 1024 for TP_STEPS steps with the launch counts set to
+   0 just before and read just after: losses finite and equal on both
+   ranks, the first update lowering the loss, every replicated leaf
+   (LayerNorms, row-parallel biases, position embedding) replicated
+   bitwise across the ranks after every step (``sync_deviation`` over the
+   tensor group 0), flash #2/#4/#5 24 times a step, LayerNorm #1/#3 49,
+   Adam once on each rank; step 1's loss and its gradient (each rank's
+   shard against the same slice) within TRAIN_LOSS_TOL and
+   TRAIN_GRAD_REL_TOL (per leaf, relative L2 over the whole leaf) of one
+   process at tp=1 on the same weights and batch; then one step with every
+   all-reduce synchronised and metered (calls, bytes, ms) and one profiled
+   step (busy share); per rank the median step of steps 3-6, tokens/s and
+   peak memory. The same at fp32, TP_FP32_LAYERS layers, TF32 off, held to
+   TRAIN32_LOSS_TOL and TRAIN32_GRAD_REL_TOL. (b) Phase 3's model (its
+   generator) built sharded, the pool at 8 kv heads a rank, phase 3's
+   eight prompts through ``DecodeStep`` (each prefill in chunks of
+   PREFILL_CHUNK, then MAX_NEW - 1 decode steps over the eight), the
+   vocab-parallel logits all-gathered before the greedy selection: the
+   tokens equal on both ranks and held to one process's run of the same
+   requests in this call by phase 17's comparison rule (``follow_rule``);
+   TTFT and TPOT a rank. ``--tensor-parallel N`` runs this phase alone
+   over N ranks, one card each, on NCCL (21a at phase 4's batch of
+   TRAIN_BATCH x 1024), after building its libraries alone, and exits.
 19. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
-   kernels and variants, each with its launches on its path, and the
-   data-parallel paths' per rank), then the device line the caller
+   kernels and variants, each with its launches on its path, and each
+   rank's on the data-parallel paths, ``launches_dp_*_rank{r}``, and on
+   the tensor-parallel ones, ``launches_tp_gpt_rank{r}`` and
+   ``launches_tp_decode_rank{r}``), then the device line the caller
    reads.
 
 Needs a CUDA device and ``nvcc`` (``$CUDA_HOME`` or
@@ -492,6 +525,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from apex_tpu_torch import _build, amp, fp16_utils, telemetry
+from apex_tpu_torch import mesh as gmesh
 from apex_tpu_torch import records as port_records
 from apex_tpu_torch import random as jrandom
 from apex_tpu_torch.amp import _amp_state as amp_state
@@ -4413,8 +4447,9 @@ class _RecordingStep(DecodeStep):
         self.calls = []
 
     def _select(self, out, state, sampling, fold_pos):
-        res = DecodeStep._select(out, state, sampling, fold_pos)
-        self.calls.append((out.cpu(), sampling, np.asarray(fold_pos).copy(),
+        res = super()._select(out, state, sampling, fold_pos)
+        self.calls.append((res.logits.cpu(), sampling,
+                           np.asarray(fold_pos).copy(),
                            res.next_token.cpu()))
         return res
 
@@ -9801,6 +9836,400 @@ def data_parallel_alone(args, dev) -> int:
     return 0
 
 
+# -- phase 21: tensor parallelism ---------------------------------------------
+
+TP_WORLD = 2
+# 21a's batch over gloo on one card: every activation all-reduce crosses
+# host memory (about a hundred of 4-8 MB a step), so phase 4's batch of 8
+# is cut to 2; over NCCL (--tensor-parallel N) phase 4's TRAIN_BATCH
+TP_BATCH = 2
+TP_STEPS = 6
+TP_FP32_LAYERS = 2
+TP_NOTE = ("both ranks share one card and gloo moves every activation "
+           "all-reduce through host memory: no time here is a multi-GPU "
+           "number")
+TP_SHARES = {"copies": ("Memcpy", "memcpy"), "flash": ("flash_",),
+             "layer_norm": ("ln_",), "optimizer": ("adam_kernel",)}
+
+
+def _tp_batch(seed: int, dev, cfg: GPTConfig, batch: int):
+    rng = np.random.RandomState(seed + 24)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size,
+                                       (batch, cfg.max_seq_len + 1)),
+                           device=dev).long()
+    return toks[:, :-1], toks[:, 1:]
+
+
+def _dense_grads(cfg, full, dev, x, y):
+    """One process's tp=1 loss and gradient (by name) of the full model's
+    weights on the card: the comparison phase 4 makes, at one rank."""
+    dense = GPTModel(cfg, device=dev, axis_name=None,
+                     params=dict(full.named_parameters()))
+    loss = gpt_loss_fn(dense(x), y, axis_name=None)
+    loss.backward()
+    grads = {n: p.grad for n, p in dense.named_parameters()}
+    return float(loss.detach()), grads
+
+
+def _grad_gap(grads: dict, shard_grads: dict, plan) -> dict:
+    """Per leaf, this rank's share of the squared difference between its
+    gradient shard and the same slice of the tp=1 gradient, and of the
+    tp=1 gradient's squared norm; ``sharded`` says whether the ranks'
+    shares add up (a replicated leaf is whole on every rank)."""
+    mine = plan.shard_params(grads)
+    out = {}
+    for n, g in shard_grads.items():
+        w = mine[n].float()
+        out[n] = (float(((g.float() - w) ** 2).sum()), float((w ** 2).sum()),
+                  any(a is not None for a in plan.param_specs[n]))
+    return out
+
+
+def _tp_train(seed: int, dev, batch: int, tp: int) -> dict:
+    """21a on one rank: GPT-2 345M's shard through
+    ``make_gpt_pretrain_step(mesh=...)`` (FusedAdam), TP_STEPS steps with
+    the launch counts set to 0 just before and read just after; after
+    every step the replicated leaves' ``sync_deviation`` over the tensor
+    group; step 1's loss and gradient against one process's tp=1 ones on
+    the same weights and batch; then one metered and one profiled step."""
+    cfg = GPTConfig.gpt2_345m()
+    full = init_gpt_pretrain_params(cfg, torch.Generator().manual_seed(seed),
+                                    device="cpu")
+    x, y = _tp_batch(seed, dev, cfg, batch)
+    dense_loss, dense = _dense_grads(cfg, full, dev, x, y)
+    step, state = make_gpt_pretrain_step(
+        cfg, FusedAdam(lr=1e-4, weight_decay=0.01))(full, device=dev)
+    del full
+    params = dict(step.model.named_parameters())
+    replicated = [p for n, p in params.items()
+                  if not any(step.plan.param_specs[n])]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    losses, times, devs, gap = [], [], [], None
+    for i in range(TP_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        losses.append(float(loss))               # synchronises
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            gap = _grad_gap(dense, state.space.unpack(step.grad, "buffer"),
+                            step.plan)
+            del dense
+        devs.append(float(sync_deviation(replicated,
+                                         axis_name=ps.TENSOR_AXIS)))
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    meter = _AllReduceMeter()
+    meter.arm()
+    try:
+        state, _ = step(state, x, y)
+    finally:
+        meter.disarm()
+    (state, _), prof = _profiled(lambda: step(state, x, y),
+                                 f"tp={tp} rank {tdist.get_rank()} step",
+                                 TP_SHARES)
+    return {"losses": losses, "step_ms_all": [t * 1e3 for t in times],
+            "deviations": devs, "launches": launches, "steps": TP_STEPS,
+            "dense_loss": dense_loss, "gap": gap, "peak_gib": peak / 2**30,
+            "allreduce": {"calls": len(meter.calls),
+                          "bytes": sum(c[1] for c in meter.calls),
+                          "ms": sum(c[2] for c in meter.calls)},
+            "profile": prof, "batch": batch}
+
+
+def _tp_fp32(seed: int, dev, batch: int) -> dict:
+    """21a's fp32 case (TF32 off): a TP_FP32_LAYERS-layer GPT-2 345M at
+    this rank's shard against one process's tp=1 model on the same
+    weights and batch, loss and every gradient."""
+    cfg = dataclasses.replace(GPTConfig.gpt2_345m(dtype=torch.float32),
+                              num_layers=TP_FP32_LAYERS)
+    full = GPTModel(cfg, device="cpu", axis_name=None,
+                    generator=torch.Generator().manual_seed(seed + 1))
+    x, y = _tp_batch(seed, dev, cfg, batch)
+    dense_loss, dense = _dense_grads(cfg, full, dev, x, y)
+    shard = GPTModel(cfg, device=dev, params=dict(full.named_parameters()))
+    loss = gpt_loss_fn(shard(x), y, axis_name=shard.axis)
+    loss.backward()
+    plan = gmesh.plan_gpt(shard)
+    return {"loss": float(loss.detach()), "dense_loss": dense_loss,
+            "gap": _grad_gap(dense, {n: p.grad for n, p in
+                                     shard.named_parameters()}, plan)}
+
+
+def _decode_run(model, cache: KVCache, state, prompts, new: int) -> dict:
+    """``prompts`` through ``DecodeStep``: each prompt's prefill in chunks
+    of PREFILL_CHUNK alone (its wall, synchronised, is its TTFT), then
+    ``new - 1`` decode steps over all of them at once (each step's wall
+    a TPOT sample). Every emitted token's logits (the whole vocab) kept
+    on the host."""
+    step = DecodeStep(model, cache)
+    b = len(prompts)
+    for i, p in enumerate(prompts):
+        cache.allocate(i, len(p) + new)
+    tables = cache.table_array(list(range(b)),
+                               max(len(cache.table(i)) for i in range(b)))
+    tokens = {i: [] for i in range(b)}
+    logits = np.zeros((b, new, model.config.vocab_size), np.float32)
+    ttft, tpot = [], []
+    for i, p in enumerate(prompts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for st in range(0, len(p), PREFILL_CHUNK):
+            chunk = p[st:st + PREFILL_CHUNK]
+            out = step.prefill_chunk(state, chunk[None], [st], [len(chunk)],
+                                     tables[i:i + 1])
+        tokens[i].append(int(out.next_token[0]))       # synchronises
+        ttft.append((time.perf_counter() - t0) * 1e3)
+        logits[i, 0] = out.logits[0].float().cpu().numpy()
+    pos = np.array([len(p) for p in prompts])
+    for j in range(1, new):
+        cur = np.array([tokens[i][-1] for i in range(b)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step.decode(state, cur, pos, tables)
+        nxt = out.next_token.cpu().numpy()
+        tpot.append((time.perf_counter() - t0) * 1e3)
+        logits[:, j] = out.logits.float().cpu().numpy()
+        for i in range(b):
+            tokens[i].append(int(nxt[i]))
+        pos = pos + 1
+    for i in range(b):
+        cache.free(i)
+    return {"tokens": tokens, "logits": logits, "ttft_ms": ttft,
+            "tpot_ms": tpot}
+
+
+def _tp_prompts(seed: int, cfg: GPTConfig):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+
+
+def _tp_decode(seed: int, dev) -> dict:
+    """21b on one rank: phase 3's GPT-2 345M (the same generator) built at
+    this rank's shard, its pool at kv_heads / tp heads, phase 3's eight
+    prompts and MAX_NEW tokens each through ``DecodeStep``."""
+    cfg = GPTConfig.gpt2_345m()
+    model = GPTModel(cfg, device=dev,
+                     generator=torch.Generator().manual_seed(seed))
+    model.requires_grad_(False)
+    cache = KVCache.for_config(cfg, num_blocks=8 * 1024 // 16, block_size=16,
+                               device=dev)
+    state = cache.init_state()
+    # warm-up (cuBLAS handles, the allocator), uncounted
+    _decode_run(model, cache, state, [_tp_prompts(seed, cfg)[1][:16]], 2)
+    _build.reset_launch_counts()
+    out = _decode_run(model, cache, state, _tp_prompts(seed, cfg), MAX_NEW)
+    out["launches"] = _build.launch_counts()
+    out["kv_heads"] = cache.kv_heads
+    if tdist.get_rank() != 0:
+        out.pop("logits")
+    return out
+
+
+def _tp_rank(seed: int, batch: int) -> dict:
+    """Phase 21 on one rank (spawned by ``multiproc.launch`` after the
+    parent built every library; here they only load)."""
+    dev = multiproc.device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = tdist.get_world_size()
+    log = io.StringIO()
+    out = {"walls": {}}
+    gmesh.initialize_mesh(model=tp)
+    try:
+        with contextlib.redirect_stdout(log):
+            for key, fn in (("a", lambda: _tp_train(seed, dev, batch, tp)),
+                            ("fp32", lambda: _tp_fp32(seed, dev, batch)),
+                            ("b", lambda: _tp_decode(seed, dev))):
+                t0 = time.perf_counter()
+                out[key] = fn()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                out["walls"][key] = time.perf_counter() - t0
+    finally:
+        gmesh.destroy_mesh()
+    out["log"] = log.getvalue()
+    return out
+
+
+def _gap_summary(ranks: list, key: str) -> tuple:
+    """The worst per-leaf relative L2 gap over the ranks' shares
+    (sharded leaves summed over the ranks, replicated ones rank 0's)."""
+    gaps = [r[key]["gap"] for r in ranks]
+    worst = (0.0, "")
+    for n, (d2, n2, sharded) in gaps[0].items():
+        if sharded:
+            d2 = sum(g[n][0] for g in gaps)
+            n2 = sum(g[n][1] for g in gaps)
+        worst = max(worst, (float(np.sqrt(d2 / max(n2, 1e-60))), n))
+    return worst
+
+
+def tensor_parallel(seed: int, dev, card: str, world: int = TP_WORLD,
+                    backend: Optional[str] = "gloo") -> dict:
+    """Phase 21 (21a, 21b): ``world`` tensor ranks, by default two on the
+    one card over gloo; ``backend=None`` is multiproc's default (NCCL, a
+    card a rank), with phase 4's batch."""
+    batch = TP_BATCH if backend == "gloo" else TRAIN_BATCH
+    note = TP_NOTE if backend == "gloo" else (
+        f"{world} ranks, one card each, over the default backend (NCCL)")
+    print(f"  {note} ({card})")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = multiproc.launch(_tp_rank, world, (seed, batch), backend=backend,
+                             rendezvous="tcp", timeout=900)
+    spawn_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        for line in res["log"].splitlines():
+            if "profiled" in line:
+                print(f"    rank {r}: {line.strip()}")
+    cfg = GPTConfig.gpt2_345m()
+    out = {"world": world, "backend": backend or "default", "note": note,
+           "wall_s_ranks": spawn_s, "rank_walls": [r["walls"] for r in ranks],
+           "batch": batch}
+
+    # 21a: training
+    tokens = batch * cfg.max_seq_len
+    per_step = {k_: cfg.num_layers for k_ in _flash_names(torch.bfloat16)}
+    per_step.update({k_: 2 * cfg.num_layers + 1
+                     for k_ in _ln_names(torch.bfloat16)})
+    per_step[mt_ops.ADAM_KERNEL] = 1
+    train = []
+    for r, res in enumerate(ranks):
+        a = res["a"]
+        med = float(np.median(a["step_ms_all"][2:]))
+        prof = a["profile"]
+        busy = prof["device_busy_ms"] / max(prof["wall_ms"], 1e-9)
+        print(f"  21a rank {r}: losses {[round(v_, 4) for v_ in a['losses']]}"
+              f" (one process at tp=1: {a['dense_loss']:.5f}); step_ms "
+              f"median of steps 3-{TP_STEPS} {med:.1f}, tokens_per_s "
+              f"{tokens / med * 1e3:.0f}; all-reduces a step "
+              f"{a['allreduce']['calls']} of "
+              f"{a['allreduce']['bytes'] / 1e6:.1f} MB in "
+              f"{a['allreduce']['ms']:.1f} ms (synchronised); peak "
+              f"{a['peak_gib']:.2f} GiB; profiled step busy "
+              f"{100 * busy:.1f}% ({card})")
+        check(all(np.isfinite(a["losses"])), f"21a rank {r}: non-finite loss")
+        check(a["losses"][1] < a["losses"][0],
+              f"21a rank {r}: the first update did not lower the loss")
+        check(a["deviations"] == [0.0] * TP_STEPS,
+              f"21a rank {r}: replicated leaves differ across the tensor "
+              f"ranks: {a['deviations']}")
+        check(a["losses"] == ranks[0]["a"]["losses"],
+              f"21a rank {r}: the loss differs from rank 0's")
+        _check_launches(f"21a rank {r}", a["launches"], per_step, TP_STEPS)
+        check(abs(a["losses"][0] - a["dense_loss"]) <= TRAIN_LOSS_TOL,
+              f"21a rank {r}: step 1 loss {a['losses'][0]} against tp=1 "
+              f"{a['dense_loss']}")
+        train.append({"step_ms": med, "tokens_per_s": tokens / med * 1e3,
+                      "allreduce": a["allreduce"], "peak_gib": a["peak_gib"],
+                      "busy_share": busy, "losses": a["losses"],
+                      "step_ms_all": a["step_ms_all"],
+                      "profile": {k_: v for k_, v in prof.items()
+                                  if k_ != "matched"},
+                      "collective_share": a["allreduce"]["ms"] / med})
+    worst = _gap_summary(ranks, "a")
+    print(f"  21a step 1 against one process at tp=1: loss "
+          f"{ranks[0]['a']['losses'][0]:.5f} vs "
+          f"{ranks[0]['a']['dense_loss']:.5f} (tol {TRAIN_LOSS_TOL}); worst "
+          f"gradient relative L2 {worst[0]:.3e} in {worst[1]} (tol "
+          f"{TRAIN_GRAD_REL_TOL})")
+    check(worst[0] <= TRAIN_GRAD_REL_TOL,
+          f"21a: the gathered tp={world} gradient disagrees with tp=1")
+    w32 = _gap_summary(ranks, "fp32")
+    f32 = ranks[0]["fp32"]
+    print(f"  21a fp32 ({TP_FP32_LAYERS} layers, TF32 off): loss "
+          f"{f32['loss']:.7f} vs tp=1 {f32['dense_loss']:.7f} (tol "
+          f"{TRAIN32_LOSS_TOL}); worst gradient relative L2 {w32[0]:.3e} in "
+          f"{w32[1]} (tol {TRAIN32_GRAD_REL_TOL})")
+    check(abs(f32["loss"] - f32["dense_loss"]) <= TRAIN32_LOSS_TOL,
+          "21a fp32: the tp loss disagrees with tp=1")
+    check(w32[0] <= TRAIN32_GRAD_REL_TOL,
+          "21a fp32: the tp gradient disagrees with tp=1")
+    out.update(training=train, grad_gap={"max": worst[0], "param": worst[1]},
+               fp32={"loss": f32["loss"], "dense_loss": f32["dense_loss"],
+                     "grad_gap": {"max": w32[0], "param": w32[1]}},
+               launches_train=[r["a"]["launches"] for r in ranks])
+
+    # 21b: the model-sharded greedy decode against one process's
+    model = GPTModel(cfg, device=dev,
+                     generator=torch.Generator().manual_seed(seed))
+    model.requires_grad_(False)
+    cache = KVCache.for_config(cfg, num_blocks=8 * 1024 // 16, block_size=16,
+                               device=dev)
+    state = cache.init_state()
+    prompts = _tp_prompts(seed, cfg)
+    _decode_run(model, cache, state, [prompts[1][:16]], 2)
+    clean = _decode_run(model, cache, state, prompts, MAX_NEW)
+    del model, state
+    torch.cuda.empty_cache()
+    reqs = {i: Request(id=i, prompt=p, max_new_tokens=MAX_NEW)
+            for i, p in enumerate(prompts)}
+    got = ranks[0]["b"]
+
+    def lg(run):
+        return {(i, j): torch.from_numpy(run["logits"][i, j])
+                for i in range(len(prompts)) for j in range(MAX_NEW)}
+
+    rule = follow_rule("b", got["tokens"], clean["tokens"], lg(got),
+                       lg(clean), reqs, phase="21")
+    decode = []
+    for r, res in enumerate(ranks):
+        b = res["b"]
+        check(b["tokens"] == got["tokens"],
+              f"21b rank {r}: tokens differ from rank 0's")
+        check(b["kv_heads"] == cfg.kv_heads // world,
+              f"21b rank {r}: a pool of {b['kv_heads']} kv heads")
+        for k_ in (layer_norm.KERNEL, attention.KERNEL):
+            check(b["launches"].get(k_, 0) > 0,
+                  f"21b rank {r}: {k_} never launched")
+        decode.append({"ttft_ms": b["ttft_ms"], "tpot_ms": b["tpot_ms"],
+                       "mean_ttft_ms": float(np.mean(b["ttft_ms"])),
+                       "mean_tpot_ms": float(np.mean(b["tpot_ms"]))})
+        print(f"  21b rank {r}: mean TTFT {decode[-1]['mean_ttft_ms']:.2f} ms,"
+              f" mean TPOT {decode[-1]['mean_tpot_ms']:.2f} ms (one process "
+              f"in this call: {np.mean(clean['ttft_ms']):.2f} / "
+              f"{np.mean(clean['tpot_ms']):.2f}) on {card}")
+    out.update(decode=decode, decode_rule=rule,
+               decode_one_process={"mean_ttft_ms": float(np.mean(
+                   clean["ttft_ms"])), "mean_tpot_ms": float(np.mean(
+                       clean["tpot_ms"]))},
+               launches_decode=[r["b"]["launches"] for r in ranks])
+    return out
+
+
+# the libraries phase 21 runs (bf16 and fp32 flash, LayerNorm, Adam)
+TP_LIBRARIES = ["layer_norm", "flash_fwd", "flash_bwd", "flash_fwd_fp32",
+                "flash_bwd_fp32", "flash_split3", "fused_adam"]
+
+
+def tensor_parallel_alone(args, dev) -> int:
+    """``--tensor-parallel N``: phase 21 over N ranks, one card each
+    (its path builds its own libraries alone)."""
+    n, cards = args.tensor_parallel, torch.cuda.device_count()
+    if n > cards:
+        print(f"chip_smoke: --tensor-parallel {n} needs {n} cards, found "
+              f"{cards}", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"{card} x {cards}")
+    print(f"  built {', '.join(TP_LIBRARIES)} in "
+          f"{_build.build_all(TP_LIBRARIES):.1f} s")
+    t0 = time.perf_counter()
+    out = tensor_parallel(args.seed, dev, card, world=n, backend=None)
+    print(f"  (phase 21 over {n} cards: {time.perf_counter() - t0:.1f} s "
+          "wall)")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "tensor_parallel": out}, f, indent=1)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards}}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9809,6 +10238,9 @@ def main(argv=None) -> int:
     ap.add_argument("--data-parallel", type=int, default=None, metavar="N",
                     help="run phase 20 alone over N ranks, one card each, "
                     "on the default backend (NCCL), and exit")
+    ap.add_argument("--tensor-parallel", type=int, default=None, metavar="N",
+                    help="run phase 21 alone over N tensor ranks, one card "
+                    "each, on the default backend (NCCL), and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -9818,6 +10250,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.data_parallel:
         return data_parallel_alone(args, dev)
+    if args.tensor_parallel:
+        return tensor_parallel_alone(args, dev)
 
     walls = {}
 
@@ -10002,6 +10436,10 @@ def main(argv=None) -> int:
                 "over gloo (the DDP example, ResNet-50 with SyncBN under O5 "
                 "and O2, fp32 parity)",
                 lambda: data_parallel(args.seed, dev, card))
+    tpl = phase("phase 21: tensor parallelism, GPT-2 345M at tp=2 on two "
+                "ranks sharing the card over gloo (pretraining, fp32 parity, "
+                "model-sharded greedy decode)",
+                lambda: tensor_parallel(args.seed, dev, card))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -10165,6 +10603,12 @@ def main(argv=None) -> int:
             for level in ("O5", "O2"):
                 k[f"launches_dp_resnet_{level}_rank{r}"] = launched(
                     dpl[f"resnet_{level}"]["launches"][r], name)
+        # the tensor-parallel paths' launches, each rank's own (phase 21)
+        for r in range(TP_WORLD):
+            k[f"launches_tp_gpt_rank{r}"] = launched(
+                tpl["launches_train"][r], name)
+            k[f"launches_tp_decode_rank{r}"] = launched(
+                tpl["launches_decode"][r], name)
         if name in (layer_norm.KERNEL, attention.KERNEL):
             for case, counts in sfl["launches"].items():
                 k[f"launches_serving_faults_{case}"] = counts[name]
@@ -10204,6 +10648,7 @@ def main(argv=None) -> int:
                        "training_t5": t5,
                        "amp": amp16, "serving_faults": sfl,
                        "serving_fleet": sft, "data_parallel": dpl,
+                       "tensor_parallel": tpl,
                        **line}, f,
                       indent=1)
     print(json.dumps({"ok": True, "device": {

@@ -211,8 +211,19 @@ def test_unported_options_raise():
         make_train_step(opt, fingerprint_every=10)
     with pytest.raises(NotImplementedError, match="chained"):
         make_train_step(FusedLAMB(lr=LR), max_grad_norm=1.0).chained(4)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_gpt_pretrain_step(cfg, opt, mesh=object())
+    # mesh= is ported; a mesh with a pipe axis is not (two pipe stages:
+    # the layout alone, no process group needed before the raise)
+    from apex_tpu_torch.mesh import Mesh
+    from apex_tpu_torch.transformer import parallel_state as ps
+
+    grid = ps.rank_grid(2, pipeline_model_parallel_size=2)
+    two_stages = Mesh(ps.Topology(grid=grid, rank=0,
+                                  coords=dict.fromkeys(ps.AXES, 0),
+                                  groups={}))
+    model = init_gpt_pretrain_params(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    with pytest.raises(NotImplementedError, match="pipe=2"):
+        make_gpt_pretrain_step(cfg, opt, mesh=two_stages)(model)
     with pytest.raises(NotImplementedError, match="pipe"):
         make_gpt_pretrain_step(cfg, opt, num_model_chunks=2)
     with pytest.raises(ValueError, match="requires master_dtype=bfloat16"):

@@ -526,6 +526,8 @@ def test_import_loads_no_jax():
             "apex_tpu_torch.resilience.retry, apex_tpu_torch.parallel, "
             "apex_tpu_torch.parallel.multiproc, apex_tpu_torch.runtime, "
             "apex_tpu_torch.transformer.parallel_state, "
+            "apex_tpu_torch.transformer.tensor_parallel, "
+            "apex_tpu_torch.mesh, apex_tpu_torch.mesh.planner, "
             "apex_tpu_torch.examples.simple_ddp, "
             "apex_tpu_torch.examples.imagenet_main_amp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
