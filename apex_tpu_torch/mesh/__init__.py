@@ -1,7 +1,7 @@
 """The mesh: one named layout of the ranks for training and serving.
 
-Counterpart of ``apex_tpu/mesh/`` (``__init__.py``'s ``__all__``, less
-the pipeline schedules, ROADMAP A 9c):
+Counterpart of ``apex_tpu/mesh/`` (``__init__.py``'s ``__all__``,
+:48-55 for the pipeline):
 
 - :mod:`~apex_tpu_torch.mesh.mesh`: the process-global mesh (``batch`` /
   ``pipe`` / ``model`` over ``transformer.parallel_state``),
@@ -9,7 +9,10 @@ the pipeline schedules, ROADMAP A 9c):
   shard; every entry point is the identity on a mesh of one rank;
 - :mod:`~apex_tpu_torch.mesh.annotate`: a model-sharded GPT checkpoint
   and a KV pool of this rank's kv heads for serving;
-- :mod:`~apex_tpu_torch.mesh.pipeline`: the schedules' analytic bubble;
+- :mod:`~apex_tpu_torch.mesh.pipeline`: :class:`PipelineSpec`, the GPipe,
+  1F1B, interleaved and async schedules over the ``pipe`` axis (a stage a
+  rank, explicit boundary transfers), :func:`make_pipeline_loss_fn` and
+  :class:`MeshPipelineTrainStep`;
 - :mod:`~apex_tpu_torch.mesh.planner`: the (dp, tp, pp, schedule,
   microbatches) layout search, returning a ranked :class:`LayoutPlan`.
 """
@@ -35,7 +38,14 @@ from apex_tpu_torch.mesh.mesh import (
     shard_params,
     shard_state,
 )
-from apex_tpu_torch.mesh.pipeline import SCHEDULES, bubble_fraction
+from apex_tpu_torch.mesh.pipeline import (
+    SCHEDULES,
+    MeshPipelineTrainStep,
+    PipelineSpec,
+    bubble_fraction,
+    make_mesh_pipeline_train_step,
+    make_pipeline_loss_fn,
+)
 from apex_tpu_torch.mesh.planner import (
     LayoutPlan,
     LayoutScore,
@@ -55,7 +65,9 @@ __all__ = [
     "LayoutPlan",
     "LayoutScore",
     "Mesh",
+    "MeshPipelineTrainStep",
     "MeshTrainStep",
+    "PipelineSpec",
     "ShardingPlan",
     "annotate",
     "axis_sizes",
@@ -64,7 +76,9 @@ __all__ = [
     "destroy_mesh",
     "enumerate_layouts",
     "initialize_mesh",
+    "make_mesh_pipeline_train_step",
     "make_mesh_train_step",
+    "make_pipeline_loss_fn",
     "measured_link_gbps",
     "mesh_initialized",
     "mesh_size",

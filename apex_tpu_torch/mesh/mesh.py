@@ -36,9 +36,16 @@ the whole of a sharded leaf and the whole gradient, a reduction over
 the tensor group they do not have yet: at tp > 1 they raise (ROADMAP A
 9h).
 
+Pipelining: on a mesh with ``pipe > 1`` each rank holds one stage of the
+model (``mesh/pipeline.py``); :func:`plan_gpt` then keeps this rank's
+stage's parameters (``num_model_chunks`` chunks a stage), each cut on the
+tensor axis within, and ``shard_params`` / ``shard_state`` cut by stage.
+:class:`MeshTrainStep` runs one stage and refuses a pipe axis: the
+pipelined step is ``mesh.MeshPipelineTrainStep``.
+
 Not ported: the compile-plane observation and the sharding telemetry of
 the reference's step (:436-443, ROADMAP A 10) and its MoE fault hooks
-(A 9f). The pipeline axis raises in the pretrain step (A 9c).
+(A 9f).
 """
 
 from __future__ import annotations
@@ -201,13 +208,16 @@ class ShardingPlan:
     def shard_params(self, params: Mapping[str, torch.Tensor]
                      ) -> Mapping[str, torch.Tensor]:
         """This rank's slice of each full parameter, by name (contiguous
-        tensors, views where the slice is whole)."""
+        tensors, views where the slice is whole); with ``pipe > 1`` only
+        this rank's stage's parameters (the names the plan holds)."""
         if self.is_identity():
             return params
         shape, coords = self.mesh.shape, self.mesh.coords
+        staged = shape[PIPE_AXIS] > 1
         return {n: shard_tensor(t, self.param_specs.get(n, ()), shape,
                                 coords).contiguous()
-                for n, t in params.items()}
+                for n, t in params.items()
+                if not staged or n in self.param_specs}
 
     def shard_batch(self, batch: Any) -> Any:
         """This data rank's rows of a batch-major tensor or array (or a
@@ -260,16 +270,27 @@ class ShardingPlan:
                     1 for s in specs if any(a is not None for a in s))}
 
 
-def plan_gpt(params: Any, *, mesh: Optional[Mesh] = None) -> ShardingPlan:
+def plan_gpt(params: Any, *, mesh: Optional[Mesh] = None,
+             num_model_chunks: int = 1) -> ShardingPlan:
     """The GPT plan: ``gpt_param_specs`` with the tensor axis renamed to
     the mesh's ``model`` axis (column kernels on the output dim, row
     kernels on the input dim, the embedding on the vocab), the batch on
-    ``batch``. ``params``: a model, a state dict or the names."""
+    ``batch``. ``params``: the full model, a state dict or the names.
+    With ``pipe > 1`` the plan holds this rank's stage's parameters
+    (``mesh.pipeline.stage_param_names``: its ``num_model_chunks``
+    chunks of layers, the embeddings on the first stage, the final norm
+    and the tied head's copy of the embedding on the last)."""
+    from apex_tpu_torch.mesh.pipeline import stage_param_names
     from apex_tpu_torch.models.gpt import gpt_param_specs
 
     mesh = mesh if mesh is not None else current_mesh()
     specs = {n: tuple(MODEL_AXIS if a == ps.TENSOR_AXIS else a for a in s)
              for n, s in gpt_param_specs(params).items()}
+    pipe = mesh.shape[PIPE_AXIS]
+    if pipe > 1:
+        keep = stage_param_names(list(specs), pipe, mesh.coords[PIPE_AXIS],
+                                 num_model_chunks)
+        specs = {n: specs[n] for n in keep}
     return ShardingPlan(mesh=mesh, param_specs=specs)
 
 
@@ -312,10 +333,7 @@ class MeshTrainStep:
             DistributedDataParallel
 
         sizes = plan.mesh.shape
-        if sizes[PIPE_AXIS] > 1:
-            raise NotImplementedError(
-                f"a mesh with pipe={sizes[PIPE_AXIS]}: pipeline schedules "
-                "are not ported yet (ROADMAP A 9c)")
+        self._check_layout(sizes)
         if sizes[MODEL_AXIS] > 1 and _needs_sharded_norms(optimizer):
             raise NotImplementedError(
                 f"{type(optimizer).__name__} at model={sizes[MODEL_AXIS]}: "
@@ -328,6 +346,13 @@ class MeshTrainStep:
         ddp = DistributedDataParallel() if sizes[BATCH_AXIS] > 1 else None
         self.inner = PretrainStep(model, optimizer, loss_fn=loss_fn,
                                   grad_reduce=ddp)
+
+    def _check_layout(self, sizes: Dict[str, int]) -> None:
+        if sizes[PIPE_AXIS] > 1:
+            raise NotImplementedError(
+                f"a mesh with pipe={sizes[PIPE_AXIS]}: MeshTrainStep runs "
+                "one pipeline stage; the pipe axis takes "
+                "mesh.MeshPipelineTrainStep (make_mesh_pipeline_train_step)")
 
     def init(self, params: Optional[Mapping[str, torch.Tensor]] = None):
         if params is not None:
@@ -348,13 +373,17 @@ class MeshTrainStep:
         tokens = self.plan.shard_batch(tokens)
         labels = self.plan.shard_batch(labels)
         state, loss = self.inner(state, tokens, labels)
+        return state, self._data_mean(loss)
+
+    def _data_mean(self, loss: torch.Tensor) -> torch.Tensor:
+        """The data ranks' losses averaged (the loss itself on one)."""
         group, ranks = self._data
         if group is not None:
             loss = loss.clone()
             dist.all_reduce(loss, group=group)
             loss = loss / torch.full((), float(len(ranks)),
                                      device=loss.device)
-        return state, loss
+        return loss
 
     __call__ = step
 

@@ -159,18 +159,29 @@ def gpt_params_from_jax(params_np: Mapping, config: GPTConfig
 
 
 def gpt_shard_from_jax(params_np: Mapping, config: GPTConfig,
-                       specs: Mapping[str, tuple], rank: int, tp: int
+                       specs: Mapping[str, tuple], rank: int, tp: int,
+                       *, pipe_rank: int = 0, pipe: int = 1,
+                       num_model_chunks: int = 1
                        ) -> Dict[str, torch.Tensor]:
     """Tensor rank ``rank``'s shard (of ``tp``) of the reference's GPT
-    parameters ``params_np``, in the port's names: each tensor of
+    parameters ``params_np`` (its scan-stacked ``(L, ...)`` leaves or
+    its per-layer ones), in the port's names: each tensor of
     :func:`gpt_params_from_jax` cut by its spec in ``specs``
     (``gpt_param_specs``, axis ``tensor``), the counterpart of the
     reference's ``ShardingPlan.shard_params`` (``mesh.py`` :174-181) on
-    its tree. Load it into a :class:`GPTModel` built at that rank."""
+    its tree. With ``pipe > 1`` only pipe stage ``pipe_rank``'s
+    parameters (``num_model_chunks`` chunks a stage;
+    ``mesh.pipeline.stage_param_names``), the last stage's copy of the
+    tied embedding included. Load it into a :class:`GPTModel` built at
+    that rank, or its ``mesh.pipeline.GPTStage``."""
+    from apex_tpu_torch.mesh.pipeline import stage_param_names
     from apex_tpu_torch.transformer.parallel_state import TENSOR_AXIS
     from apex_tpu_torch.transformer.tensor_parallel import shard_tensor
 
     full = gpt_params_from_jax(params_np, config)
+    if pipe > 1:
+        full = {n: full[n] for n in stage_param_names(
+            list(full), pipe, pipe_rank, num_model_chunks)}
     sizes, coords = {TENSOR_AXIS: int(tp)}, {TENSOR_AXIS: int(rank)}
     return {n: shard_tensor(t, specs[n], sizes, coords).clone()
             for n, t in full.items()}

@@ -90,10 +90,22 @@ the gradient all-reduced over the data group::
     step, state = make_gpt_pretrain_step(cfg, FusedAdam(lr))(model)
     state, loss = step(state, tokens, labels)
 
-A mesh with ``pipe > 1`` and ``num_model_chunks > 1`` raise (pipeline
-schedules, ROADMAP A 9c). ``schedule``, ``num_microbatches`` and
-``remat`` are accepted and, as in the reference at one pipeline stage,
-have no effect.
+A mesh with ``pipe > 1`` runs a pipeline schedule (the reference's
+:92-108): ``build`` cuts this rank's stage (``mesh.pipeline.GPTStage``,
+tp-sharded within) from the full model and returns a
+``mesh.MeshPipelineTrainStep`` running ``schedule`` over
+``num_microbatches`` (``interleaved_1f1b`` with ``num_model_chunks``
+chunks a stage when that is more than one), ``remat`` checkpointing each
+layer::
+
+    mesh.initialize_mesh(pipe=2)                # in each rank of a world
+    step, state = make_gpt_pretrain_step(cfg, FusedAdam(lr),
+                                         schedule="1f1b",
+                                         num_microbatches=8)(model)
+    state, loss = step(state, tokens, labels)
+
+At one pipeline stage ``schedule``, ``num_microbatches``,
+``num_model_chunks`` and ``remat`` have no effect, as in the reference.
 """
 
 from __future__ import annotations
@@ -244,12 +256,9 @@ def make_gpt_pretrain_step(
     mesh (neither ``mesh`` nor a live one) ``step`` is a
     :class:`PretrainStep` over ``model`` (a :class:`GPTModel` of
     ``cfg``); on a mesh, a ``mesh.MeshTrainStep`` over this rank's shard
-    of the full ``model`` (on ``device``, else the model's); ``state``
-    its optimizer state."""
-    if num_model_chunks > 1:
-        raise NotImplementedError(
-            f"num_model_chunks={num_model_chunks}: pipeline parallelism "
-            "(more than one pipe stage) is not ported yet (ROADMAP A 9c)")
+    of the full ``model`` (on ``device``, else the model's), or with
+    ``pipe > 1`` a ``mesh.MeshPipelineTrainStep`` over this rank's stage;
+    ``state`` its optimizer state."""
 
     def build(model: GPTModel, *, device: DeviceLike = None):
         from apex_tpu_torch import mesh as gmesh
@@ -265,14 +274,25 @@ def make_gpt_pretrain_step(
             raise ValueError("build takes the full model (a GPTModel built "
                              "with axis_name=None, as "
                              "init_gpt_pretrain_params builds it)")
-        if live.shape[gmesh.PIPE_AXIS] > 1:
-            raise NotImplementedError(
-                f"a mesh with pipe={live.shape[gmesh.PIPE_AXIS]}: pipeline "
-                "schedules are not ported yet (ROADMAP A 9c)")
-        plan = gmesh.plan_gpt(model, mesh=live)
         full = dict(model.named_parameters())
         dev = (device if device is not None
                else next(iter(full.values())).device)
+        pp = live.shape[gmesh.PIPE_AXIS]
+        if pp > 1:
+            chunks = max(num_model_chunks, 1)
+            spec = gmesh.PipelineSpec(
+                schedule=("interleaved_1f1b" if num_model_chunks > 1
+                          else schedule),
+                num_stages=pp, num_microbatches=num_microbatches,
+                num_model_chunks=chunks)
+            plan = gmesh.plan_gpt(model, mesh=live, num_model_chunks=chunks)
+            stage = gmesh.pipeline.GPTStage(
+                cfg, spec, live.coords[gmesh.PIPE_AXIS], params=full,
+                device=dev)
+            step = gmesh.make_mesh_pipeline_train_step(
+                stage, optimizer, plan, spec, remat=remat)
+            return step, step.init()
+        plan = gmesh.plan_gpt(model, mesh=live)
         shard = (model if plan.is_identity() and device is None else
                  GPTModel(cfg, device=dev, params=full))
         step = gmesh.make_mesh_train_step(shard, optimizer, plan)

@@ -302,6 +302,14 @@ def disable() -> None:
     _GLOBAL = StepTimeline(enabled=False)
 
 
+def global_enabled() -> bool:
+    """Whether the global timeline records (a cheap hot-path check)."""
+    tl = _GLOBAL
+    if tl is None:
+        return _env_enabled() and get_timeline().enabled
+    return tl.enabled
+
+
 def record_global_span(name: str, t0: float, dur: float, *,
                        category: str = "phase",
                        args: Optional[Dict[str, Any]] = None) -> None:
@@ -321,6 +329,7 @@ __all__ = [
     "disable",
     "enable",
     "get_timeline",
+    "global_enabled",
     "record_global_span",
     "set_span_observer",
     "sync_tensor",

@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N] [--out results.json]
     python3 chip_smoke.py --data-parallel N    # phase 20 alone, N cards
     python3 chip_smoke.py --tensor-parallel N  # phase 21 alone, N cards
+    python3 chip_smoke.py --pipeline-parallel N  # phase 22 alone, N cards
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -486,11 +487,43 @@ Phases, in order; any failure exits non-zero before the last line:
    TTFT and TPOT a rank. ``--tensor-parallel N`` runs this phase alone
    over N ranks, one card each, on NCCL (21a at phase 4's batch of
    TRAIN_BATCH x 1024), after building its libraries alone, and exits.
+22. Pipeline parallelism: two ranks spawned as in phase 20, sharing the
+   card over gloo (every boundary tensor and the tied embedding's
+   all-reduce cross host memory, so no time here is a multi-GPU number),
+   under ``mesh.initialize_mesh(pipe=2)``. GPT-2 345M (24 layers, 12 a
+   stage; bf16 compute, fp32 parameters, FusedAdam) at batch TRAIN_BATCH
+   x 1024 in PP_MICRO microbatches, remat on, through
+   ``make_mesh_pipeline_train_step`` over each rank's
+   ``mesh.pipeline.GPTStage``, for each schedule (gpipe, 1f1b,
+   interleaved_1f1b with two 6-layer chunks a stage, async_1f1b) PP_STEPS
+   steps with the launch counts set to 0 just before and read just after:
+   every loss finite and equal on both ranks; the two copies of the tied
+   embedding bitwise equal after every step (a device digest of each);
+   the LayerNorm, flash and Adam launches exactly as the schedule works
+   them out (``pp_expected_launches``: remat recomputes each layer's
+   forward in the backward; the final norm on the last stage only); the
+   bubble gauge equal to ``bubble_fraction``; gpipe's and 1f1b's step 1
+   (loss and flat master) bitwise equal; 1f1b's step-1 loss and gradient
+   (each rank's stage, the tied embedding's summed) within
+   TRAIN_LOSS_TOL and TRAIN_GRAD_REL_TOL of one process's ``PretrainStep``
+   on the same weights and batch, interleaved's loss within
+   TRAIN_LOSS_TOL; async's last loss below its first and finite again
+   after ``reset_pipeline``; 1f1b's peak memory on stage 0 no higher
+   than gpipe's. Then one step with every transfer and the tied
+   all-reduce synchronised and metered and one profiled step: per rank
+   and schedule the median step of steps 3-PP_STEPS, tokens/s, the
+   transfers (calls, bytes, ms; their share of the step is the time the
+   rank is blocked in them), the tied all-reduce (bytes, ms), peak memory
+   and busy share. The same at fp32 (PP_FP32_LAYERS layers, TF32 off,
+   1f1b) held to TRAIN32_LOSS_TOL and TRAIN32_GRAD_REL_TOL.
+   ``--pipeline-parallel N`` runs this phase alone over N ranks, one card
+   each, on NCCL (24 / N layers a stage), and exits.
 19. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
    kernels and variants, each with its launches on its path, and each
-   rank's on the data-parallel paths, ``launches_dp_*_rank{r}``, and on
+   rank's on the data-parallel paths, ``launches_dp_*_rank{r}``, on
    the tensor-parallel ones, ``launches_tp_gpt_rank{r}`` and
-   ``launches_tp_decode_rank{r}``), then the device line the caller
+   ``launches_tp_decode_rank{r}``, and on the pipeline ones,
+   ``launches_pp_{schedule}_rank{r}``), then the device line the caller
    reads.
 
 Needs a CUDA device and ``nvcc`` (``$CUDA_HOME`` or
@@ -522,6 +555,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch.func import functional_call
 
 from apex_tpu_torch import _build, amp, fp16_utils, telemetry
@@ -10230,6 +10264,424 @@ def tensor_parallel_alone(args, dev) -> int:
     return 0
 
 
+# -- phase 22: pipeline parallelism -------------------------------------------
+
+PP_WORLD = 2
+PP_MICRO = 8
+PP_STEPS = 6
+PP_FP32_LAYERS = 4
+# (schedule, model chunks a stage)
+PP_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved_1f1b", 2),
+                ("async_1f1b", 1))
+PP_NOTE = ("both ranks share one card and gloo moves every boundary tensor "
+           "and the tied embedding's all-reduce through host memory: no time "
+           "here is a multi-GPU number")
+
+
+def pp_expected_launches(schedule: str, layers: int, stages: int,
+                         micro: int, stage: int, steps: int) -> dict:
+    """The LayerNorm, flash and Adam launches of ``stage`` over ``steps``
+    steps of ``schedule`` (bf16, remat on), worked out from the schedule:
+    every forward unit runs its layers once and every backward unit
+    again (the recompute) with their backward kernels; the last stage's
+    final norm runs once for each scored microbatch, forward and
+    backward. A synchronous schedule scores and back-propagates all
+    ``micro`` microbatches; the asynchronous one, at tick ``j`` of step
+    ``k``, the unit whose output reaches the last stage within the step
+    (``j + d < micro``, ``d = stages - 1 - stage``) after the global
+    warm-up (``k * micro + j + d >= stages - 1``)."""
+    per = layers // stages
+    last = stage == stages - 1
+    out = dict.fromkeys((attention.KERNEL, attention.BWD_DQ_KERNEL,
+                         attention.BWD_DKV_KERNEL, layer_norm.KERNEL,
+                         layer_norm.BWD_KERNEL, mt_ops.ADAM_KERNEL), 0)
+    d = stages - 1 - stage
+    for k in range(steps):
+        nb = micro if schedule != "async_1f1b" else sum(
+            1 for j in range(micro)
+            if j + d < micro and k * micro + j + d >= stages - 1)
+        out[attention.KERNEL] += per * (micro + nb)
+        out[attention.BWD_DQ_KERNEL] += per * nb
+        out[attention.BWD_DKV_KERNEL] += per * nb
+        out[layer_norm.KERNEL] += 2 * per * (micro + nb) + (nb if last
+                                                             else 0)
+        out[layer_norm.BWD_KERNEL] += 2 * per * nb + (nb if last else 0)
+        out[mt_ops.ADAM_KERNEL] += 1
+    return out
+
+
+def _digest(t: torch.Tensor, chunk: int = 1 << 22) -> tuple:
+    """A digest of ``t``'s bits on its device (two int64 sums, wrapping,
+    of its 32-bit words: plain and weighted by position, a chunk at a
+    time so that it adds little to the peak): equal tensors give equal
+    digests, and a change of any one word changes the weighted one."""
+    words = t.detach().contiguous().view(torch.int32).reshape(-1)
+    plain = torch.zeros((), dtype=torch.int64, device=words.device)
+    weighted = torch.zeros_like(plain)
+    for lo in range(0, words.numel(), chunk):
+        v = words[lo:lo + chunk].long()
+        w = torch.arange(lo + 1, lo + 1 + v.numel(), device=v.device,
+                         dtype=torch.int64) * 2654435761
+        plain += v.sum()
+        weighted += (v * w).sum()
+    return int(plain), int(weighted)
+
+
+def _pp_dense(cfg, full, dev, x, y, names) -> tuple:
+    """One process's ``PretrainStep``-equivalent loss and gradient on the
+    full model (TF32 as set), the gradients of ``names`` kept on the host
+    (off the card, so the schedules' peaks do not count them); ranks that
+    share a card take turns, so two dense passes never share its
+    memory."""
+    out = None
+    world = tdist.get_world_size()
+    shared = torch.cuda.device_count() < world
+    for r in range(world if shared else 1):
+        if not shared or r == tdist.get_rank():
+            loss, grads = _dense_grads(cfg, full, dev, x, y)
+            out = (loss, {n: grads[n].cpu() for n in names})
+            del grads
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        tdist.barrier()
+    return out
+
+
+def _pp_gap(dense: dict, grads: dict) -> dict:
+    """Per leaf of this stage, ``(|g - dense|^2, |dense|^2)``, on the host
+    (no device memory)."""
+    out = {}
+    for n, g in grads.items():
+        g, d = g.float().cpu(), dense[n].float()
+        out[n] = (float(((g - d) ** 2).sum()), float((d ** 2).sum()))
+    return out
+
+
+def _pp_schedule(cfg, full, dev, x, y, schedule: str, chunks: int,
+                 micro: int, dense) -> dict:
+    """One schedule on this rank: PP_STEPS steps with the launch counts
+    set to 0 just before and read just after (the tied embedding's digest
+    after every step, step 1's master kept on the host), the bubble
+    gauge, one metered and one profiled step; async then resets."""
+    from apex_tpu_torch.mesh.pipeline import GPTStage
+
+    mesh = gmesh.current_mesh()
+    S, s = mesh.shape[gmesh.PIPE_AXIS], mesh.coords[gmesh.PIPE_AXIS]
+    spec = gmesh.PipelineSpec(schedule, S, micro, chunks)
+    plan = gmesh.plan_gpt(full, num_model_chunks=chunks)
+    stage = GPTStage(cfg, spec, s, params=dict(full.named_parameters()),
+                     device=dev)
+    step = gmesh.make_mesh_pipeline_train_step(
+        stage, FusedAdam(lr=1e-4, weight_decay=0.01), plan, spec)
+    state = step.init()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"losses": [], "step_ms_all": [], "tied": [], "gap": None}
+    _build.reset_launch_counts()
+    for i in range(PP_STEPS):
+        step.meter = i == 0          # step 1's parts, synchronised
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        out["losses"].append(float(loss))            # synchronises
+        out["step_ms_all"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            step.meter = False
+            out["step1_phases"] = dict(step.last_phases)
+        out["tied"].append(_digest(step.model.embedding.weight)
+                           if hasattr(step.model, "embedding") else None)
+        if i == 0:
+            if dense is not None:
+                out["gap"] = _pp_gap(dense[1], state.space.unpack(
+                    step.grad, "buffer"))
+            out["first_master"] = state.master.detach().cpu()
+    out["launches"] = _build.launch_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    gauges = telemetry.metrics.registry().snapshot()["gauges"]
+    out["bubble_gauge"] = gauges.get(
+        f'pipeline_bubble_fraction{{schedule="{schedule}",stage="{s}"}}')
+    out["bubble"] = gmesh.bubble_fraction(schedule, S, micro, chunks)
+    step.meter = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, x, y)
+    torch.cuda.synchronize()
+    out["metered_ms"] = (time.perf_counter() - t0) * 1e3
+    step.meter = False
+    tr, td = step.last_transfers, step.last_tied
+    out["transfers"] = {"calls": tr.calls, "bytes": tr.bytes,
+                        "ms": tr.seconds * 1e3}
+    out["phases"] = dict(step.last_phases)
+    out["tied_allreduce"] = {"calls": td.calls, "bytes": td.bytes,
+                             "ms": td.seconds * 1e3}
+    (state, _), prof = _profiled(
+        lambda: step(state, x, y), f"pp={S} {schedule} rank {s} step",
+        TP_SHARES)
+    out["profile"] = {k_: v for k_, v in prof.items() if k_ != "matched"}
+    if schedule == "async_1f1b":
+        step.reset_pipeline()
+        _, loss = step(state, x, y)
+        out["after_reset"] = float(loss)
+    del step, state, stage
+    return out
+
+
+def _pp_fp32(seed: int, dev, batch: int, micro: int) -> dict:
+    """The fp32 case (TF32 off): a PP_FP32_LAYERS-layer GPT-2 345M through
+    1f1b at this pipe size against one process's loss and gradient on the
+    same weights and batch."""
+    from apex_tpu_torch.mesh.pipeline import GPTStage
+
+    cfg = dataclasses.replace(GPTConfig.gpt2_345m(dtype=torch.float32),
+                              num_layers=PP_FP32_LAYERS)
+    full = GPTModel(cfg, device="cpu", axis_name=None,
+                    generator=torch.Generator().manual_seed(seed + 1))
+    x, y = _tp_batch(seed, dev, cfg, batch)
+    mesh = gmesh.current_mesh()
+    S, s = mesh.shape[gmesh.PIPE_AXIS], mesh.coords[gmesh.PIPE_AXIS]
+    spec = gmesh.PipelineSpec("1f1b", S, micro)
+    plan = gmesh.plan_gpt(full)
+    dense = _pp_dense(cfg, full, dev, x, y, list(plan.param_specs))
+    step = gmesh.make_mesh_pipeline_train_step(
+        GPTStage(cfg, spec, s, params=dict(full.named_parameters()),
+                 device=dev), FusedAdam(lr=1e-4), plan, spec)
+    state = step.init()
+    state, loss = step(state, x, y)
+    return {"loss": float(loss), "dense_loss": dense[0],
+            "gap": _pp_gap(dense[1], state.space.unpack(step.grad,
+                                                        "buffer"))}
+
+
+def _pp_train(seed: int, dev, batch: int, micro: int) -> dict:
+    walls, t0 = {}, time.perf_counter()
+    cfg = GPTConfig.gpt2_345m()
+    full = init_gpt_pretrain_params(cfg, torch.Generator().manual_seed(seed),
+                                    device="cpu")
+    x, y = _tp_batch(seed, dev, cfg, batch)
+    walls["init"] = time.perf_counter() - t0
+    names = list(gmesh.plan_gpt(full).param_specs)
+    dense = _pp_dense(cfg, full, dev, x, y, names)
+    walls["dense"] = time.perf_counter() - t0 - walls["init"]
+    runs, gpipe_master, bitwise = {}, None, None
+    for schedule, chunks in PP_SCHEDULES:
+        t1 = time.perf_counter()
+        run = runs[schedule] = _pp_schedule(
+            cfg, full, dev, x, y, schedule, chunks, micro,
+            dense if schedule == "1f1b" else None)
+        walls[schedule] = time.perf_counter() - t1
+        master = run.pop("first_master")
+        if schedule == "gpipe":
+            gpipe_master = master
+        elif schedule == "1f1b":
+            bitwise = torch.equal(master, gpipe_master)
+        del master
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return {"dense_loss": dense[0], "runs": runs,
+            "gpipe_1f1b_master_bitwise": bitwise, "walls": walls}
+
+
+def _pp_rank(seed: int, batch: int, micro: int) -> dict:
+    """Phase 22 on one rank (spawned by ``multiproc.launch`` after the
+    parent built every library; here they only load)."""
+    dev = multiproc.device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pp = tdist.get_world_size()
+    log = io.StringIO()
+    # the first non-reentrant checkpoint imports torch's compiler stack
+    # (seconds): paid here, apart, not inside the first step
+    t0 = time.perf_counter()
+    x0 = torch.zeros(1, requires_grad=True)
+    torch.utils.checkpoint.checkpoint(torch.sin, x0,
+                                      use_reentrant=False).backward()
+    out = {"walls": {"checkpoint_import": time.perf_counter() - t0}}
+    gmesh.initialize_mesh(pipe=pp)
+    try:
+        with contextlib.redirect_stdout(log):
+            for key, fn in (("a", lambda: _pp_train(seed, dev, batch, micro)),
+                            ("fp32", lambda: _pp_fp32(seed, dev, batch,
+                                                      micro))):
+                t0 = time.perf_counter()
+                out[key] = fn()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                out["walls"][key] = time.perf_counter() - t0
+    finally:
+        gmesh.destroy_mesh()
+    out["log"] = log.getvalue()
+    return out
+
+
+def _pp_worst(ranks: list, key) -> tuple:
+    """The worst per-leaf relative L2 gap over the leaves of every stage
+    (each rank's own; the tied embedding's on the first and last)."""
+    worst = (0.0, "")
+    for r in ranks:
+        for n, (d2, n2) in key(r).items():
+            worst = max(worst, (float(np.sqrt(d2 / max(n2, 1e-60))), n))
+    return worst
+
+
+def pipeline_parallel(seed: int, dev, card: str, world: int = PP_WORLD,
+                      backend: Optional[str] = "gloo") -> dict:
+    """Phase 22: ``world`` pipe ranks, by default two on the one card over
+    gloo; ``backend=None`` is multiproc's default (NCCL, a card a
+    rank)."""
+    note = PP_NOTE if backend == "gloo" else (
+        f"{world} ranks, one card each, over the default backend (NCCL)")
+    print(f"  {note} ({card})")
+    batch, micro = TRAIN_BATCH, PP_MICRO
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = multiproc.launch(_pp_rank, world, (seed, batch, micro),
+                             backend=backend, rendezvous="tcp", timeout=900)
+    spawn_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        for line in res["log"].splitlines():
+            if "profiled" in line:
+                print(f"    rank {r}: {line.strip()}")
+    cfg = GPTConfig.gpt2_345m()
+    tokens = batch * cfg.max_seq_len
+    dense_loss = ranks[0]["a"]["dense_loss"]
+    out = {"world": world, "backend": backend or "default", "note": note,
+           "wall_s_ranks": spawn_s,
+           "rank_walls": [{**r["walls"], **r["a"]["walls"]} for r in ranks],
+           "batch": batch, "microbatches": micro, "dense_loss": dense_loss,
+           "schedules": {}, "launches": {}}
+    for schedule, chunks in PP_SCHEDULES:
+        rows = []
+        runs = [r["a"]["runs"][schedule] for r in ranks]
+        for r, run in enumerate(runs):
+            med = float(np.median(run["step_ms_all"][2:]))
+            prof = run["profile"]
+            busy = prof["device_busy_ms"] / max(prof["wall_ms"], 1e-9)
+            tr, td = run["transfers"], run["tied_allreduce"]
+            blocked = tr["ms"] / max(run["metered_ms"], 1e-9)
+            print(f"  22 {schedule} rank {r}: losses "
+                  f"{[round(v_, 4) for v_ in run['losses']]}; step_ms "
+                  f"median of steps 3-{PP_STEPS} {med:.1f}, tokens_per_s "
+                  f"{tokens / med * 1e3:.0f}; transfers a step "
+                  f"{tr['calls']} of {tr['bytes'] / 1e6:.1f} MB in "
+                  f"{tr['ms']:.1f} ms (synchronised; {100 * blocked:.1f}% "
+                  f"of the metered step, {run['metered_ms']:.1f} ms); tied "
+                  f"all-reduce {td['bytes'] / 1e6:.1f} MB in "
+                  f"{td['ms']:.1f} ms; peak {run['peak_gib']:.2f} GiB; "
+                  f"profiled step busy {100 * busy:.1f}% ({card})")
+            check(all(np.isfinite(run["losses"])),
+                  f"22 {schedule} rank {r}: non-finite loss")
+            check(run["losses"] == runs[0]["losses"],
+                  f"22 {schedule} rank {r}: the loss differs from rank 0's")
+            want = pp_expected_launches(schedule, cfg.num_layers, world,
+                                        micro, r, PP_STEPS)
+            for k_, n_ in want.items():
+                check(run["launches"].get(k_, 0) == n_,
+                      f"22 {schedule} rank {r}: {k_} launched "
+                      f"{run['launches'].get(k_, 0)} times in {PP_STEPS} "
+                      f"steps, not {n_}")
+            check(run["bubble_gauge"] == run["bubble"],
+                  f"22 {schedule} rank {r}: bubble gauge "
+                  f"{run['bubble_gauge']} != {run['bubble']}")
+            rows.append({"step_ms": med, "tokens_per_s": tokens / med * 1e3,
+                         "transfers": tr, "tied_allreduce": td,
+                         "blocked_share": blocked,
+                         "metered_ms": run["metered_ms"],
+                         "peak_gib": run["peak_gib"], "busy_share": busy,
+                         "losses": run["losses"],
+                         "step_ms_all": run["step_ms_all"],
+                         "bubble": run["bubble"],
+                         "phases": run["phases"],
+                         "step1_phases": run["step1_phases"],
+                         "profile": run["profile"]})
+            print(f"    parts of step 1 (ms, synchronised): "
+                  + ", ".join(f"{k_} {v_:.1f}" for k_, v_ in
+                              run["step1_phases"].items())
+                  + "; of the metered step: " + ", ".join(
+                      f"{k_} {v_:.1f}" for k_, v_ in run["phases"].items()))
+        first, last = runs[0], runs[-1]
+        check(first["tied"] == last["tied"] and None not in first["tied"],
+              f"22 {schedule}: the tied embedding's copies differ")
+        out["schedules"][schedule] = rows
+        out["launches"][schedule] = [run["launches"] for run in runs]
+    run = {k_: [r["a"]["runs"][k_] for r in ranks] for k_, _ in PP_SCHEDULES}
+    bitwise = all(r["a"]["gpipe_1f1b_master_bitwise"] for r in ranks)
+    print(f"  22 gpipe and 1f1b step 1: loss {run['gpipe'][0]['losses'][0]} "
+          f"/ {run['1f1b'][0]['losses'][0]}, master bitwise {bitwise}")
+    check(run["gpipe"][0]["losses"][0] == run["1f1b"][0]["losses"][0]
+          and bitwise, "22: gpipe and 1f1b differ after step 1")
+    worst = _pp_worst(ranks, lambda r: r["a"]["runs"]["1f1b"]["gap"])
+    l1 = run["1f1b"][0]["losses"][0]
+    li = run["interleaved_1f1b"][0]["losses"][0]
+    print(f"  22 step 1 against one process at pp=1: 1f1b loss {l1:.5f}, "
+          f"interleaved {li:.5f} vs {dense_loss:.5f} (tol {TRAIN_LOSS_TOL});"
+          f" worst gradient relative L2 {worst[0]:.3e} in {worst[1]} (tol "
+          f"{TRAIN_GRAD_REL_TOL})")
+    check(abs(l1 - dense_loss) <= TRAIN_LOSS_TOL,
+          "22: the 1f1b step-1 loss disagrees with pp=1")
+    check(abs(li - dense_loss) <= TRAIN_LOSS_TOL,
+          "22: the interleaved step-1 loss disagrees with pp=1")
+    check(worst[0] <= TRAIN_GRAD_REL_TOL,
+          "22: the pipelined gradient disagrees with pp=1")
+    a = run["async_1f1b"][0]
+    check(a["losses"][-1] < a["losses"][0],
+          "22 async_1f1b: the last loss is not below the first")
+    check(all(np.isfinite(r_["after_reset"]) for r_ in run["async_1f1b"]),
+          "22 async_1f1b: no finite loss after reset_pipeline")
+    p1, pg = run["1f1b"][0]["peak_gib"], run["gpipe"][0]["peak_gib"]
+    print(f"  22 stage 0 peak memory at M={micro}: 1f1b {p1:.3f} GiB, gpipe "
+          f"{pg:.3f} GiB; async after reset {a['after_reset']:.4f}")
+    check(p1 <= pg, "22: 1f1b's peak on stage 0 exceeds gpipe's")
+    w32 = _pp_worst(ranks, lambda r: r["fp32"]["gap"])
+    f32 = ranks[0]["fp32"]
+    print(f"  22 fp32 ({PP_FP32_LAYERS} layers, TF32 off, 1f1b): loss "
+          f"{f32['loss']:.7f} vs pp=1 {f32['dense_loss']:.7f} (tol "
+          f"{TRAIN32_LOSS_TOL}); worst gradient relative L2 {w32[0]:.3e} in "
+          f"{w32[1]} (tol {TRAIN32_GRAD_REL_TOL})")
+    check(abs(f32["loss"] - f32["dense_loss"]) <= TRAIN32_LOSS_TOL,
+          "22 fp32: the pipelined loss disagrees with pp=1")
+    check(w32[0] <= TRAIN32_GRAD_REL_TOL,
+          "22 fp32: the pipelined gradient disagrees with pp=1")
+    out.update(grad_gap={"max": worst[0], "param": worst[1]},
+               step1={"1f1b": l1, "interleaved_1f1b": li,
+                      "gpipe": run["gpipe"][0]["losses"][0]},
+               gpipe_1f1b_bitwise=bitwise,
+               peak_stage0={"1f1b": p1, "gpipe": pg},
+               async_after_reset=[r_["after_reset"]
+                                  for r_ in run["async_1f1b"]],
+               fp32={"loss": f32["loss"], "dense_loss": f32["dense_loss"],
+                     "grad_gap": {"max": w32[0], "param": w32[1]}})
+    return out
+
+
+# the libraries phase 22 runs (bf16 and fp32 flash, LayerNorm, Adam)
+PP_LIBRARIES = TP_LIBRARIES
+
+
+def pipeline_parallel_alone(args, dev) -> int:
+    """``--pipeline-parallel N``: phase 22 over N ranks, one card each
+    (its path builds its own libraries alone)."""
+    n, cards = args.pipeline_parallel, torch.cuda.device_count()
+    if n > cards:
+        print(f"chip_smoke: --pipeline-parallel {n} needs {n} cards, found "
+              f"{cards}", file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"{card} x {cards}")
+    print(f"  built {', '.join(PP_LIBRARIES)} in "
+          f"{_build.build_all(PP_LIBRARIES):.1f} s")
+    t0 = time.perf_counter()
+    out = pipeline_parallel(args.seed, dev, card, world=n, backend=None)
+    print(f"  (phase 22 over {n} cards: {time.perf_counter() - t0:.1f} s "
+          "wall)")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "pipeline_parallel": out}, f, indent=1)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards}}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10241,6 +10693,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tensor-parallel", type=int, default=None, metavar="N",
                     help="run phase 21 alone over N tensor ranks, one card "
                     "each, on the default backend (NCCL), and exit")
+    ap.add_argument("--pipeline-parallel", type=int, default=None,
+                    metavar="N", help="run phase 22 alone over N pipe "
+                    "ranks, one card each, on the default backend (NCCL), "
+                    "and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -10252,6 +10708,8 @@ def main(argv=None) -> int:
         return data_parallel_alone(args, dev)
     if args.tensor_parallel:
         return tensor_parallel_alone(args, dev)
+    if args.pipeline_parallel:
+        return pipeline_parallel_alone(args, dev)
 
     walls = {}
 
@@ -10440,6 +10898,10 @@ def main(argv=None) -> int:
                 "ranks sharing the card over gloo (pretraining, fp32 parity, "
                 "model-sharded greedy decode)",
                 lambda: tensor_parallel(args.seed, dev, card))
+    ppl = phase("phase 22: pipeline parallelism, GPT-2 345M at pp=2 on two "
+                "ranks sharing the card over gloo (gpipe, 1f1b, interleaved "
+                "and async schedules, fp32 parity)",
+                lambda: pipeline_parallel(args.seed, dev, card))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -10609,6 +11071,10 @@ def main(argv=None) -> int:
                 tpl["launches_train"][r], name)
             k[f"launches_tp_decode_rank{r}"] = launched(
                 tpl["launches_decode"][r], name)
+        # the pipeline paths' launches, each rank's own (phase 22)
+        for sched, per_rank in ppl["launches"].items():
+            for r, counts in enumerate(per_rank):
+                k[f"launches_pp_{sched}_rank{r}"] = launched(counts, name)
         if name in (layer_norm.KERNEL, attention.KERNEL):
             for case, counts in sfl["launches"].items():
                 k[f"launches_serving_faults_{case}"] = counts[name]
@@ -10649,6 +11115,7 @@ def main(argv=None) -> int:
                        "amp": amp16, "serving_faults": sfl,
                        "serving_fleet": sft, "data_parallel": dpl,
                        "tensor_parallel": tpl,
+                       "pipeline_parallel": ppl,
                        **line}, f,
                       indent=1)
     print(json.dumps({"ok": True, "device": {

@@ -302,7 +302,7 @@ def test_tensor_parallel_paths_that_wait_raise(world):
         assert "A 9g" in msgs["sp_training"]
         for opt in ("lamb", "novograd"):
             assert "A 9h" in msgs[opt] and "tensor group" in msgs[opt]
-        assert "A 9c" in got[r]["life"]["pipe"]
+        assert "MeshPipelineTrainStep" in got[r]["life"]["pipe"]
         # BERT's and T5's tensor-parallel forwards are not ported
         assert "A 11" in msgs["bert"] and "A 11" in msgs["t5"]
 

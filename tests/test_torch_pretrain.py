@@ -55,6 +55,7 @@ from apex_tpu_torch.models import (
     load_jax_params,
     make_gpt_pretrain_step,
 )
+from apex_tpu_torch.models.pretrain import PretrainStep
 from apex_tpu_torch.optimizers import FusedAdam, FusedLAMB, make_train_step
 
 VOCAB, SEQ, HID, LAYERS, HEADS, BATCH = 128, 32, 64, 2, 4, 4
@@ -211,8 +212,11 @@ def test_unported_options_raise():
         make_train_step(opt, fingerprint_every=10)
     with pytest.raises(NotImplementedError, match="chained"):
         make_train_step(FusedLAMB(lr=LR), max_grad_norm=1.0).chained(4)
-    # mesh= is ported; a mesh with a pipe axis is not (two pipe stages:
-    # the layout alone, no process group needed before the raise)
+    # the pipe axis is ported; on a mesh of two pipe stages (the layout
+    # alone, no process group needed before the raises) the one-stage
+    # step still refuses it, and so does a stage count the pipe axis
+    # cannot hold
+    from apex_tpu_torch import mesh as gmesh
     from apex_tpu_torch.mesh import Mesh
     from apex_tpu_torch.transformer import parallel_state as ps
 
@@ -222,10 +226,13 @@ def test_unported_options_raise():
                                   groups={}))
     model = init_gpt_pretrain_params(cfg, torch.Generator().manual_seed(0),
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="pipe=2"):
-        make_gpt_pretrain_step(cfg, opt, mesh=two_stages)(model)
-    with pytest.raises(NotImplementedError, match="pipe"):
-        make_gpt_pretrain_step(cfg, opt, num_model_chunks=2)
+    plan = gmesh.plan_gpt(model, mesh=two_stages)
+    with pytest.raises(NotImplementedError,
+                       match="pipe=2: MeshTrainStep runs one pipeline stage"):
+        gmesh.make_mesh_train_step(model, opt, plan)
+    with pytest.raises(ValueError, match="num_stages \\(4\\) must equal"):
+        gmesh.MeshPipelineTrainStep(model, opt, plan, gmesh.PipelineSpec(
+            "1f1b", num_stages=4, num_microbatches=4))
     with pytest.raises(ValueError, match="requires master_dtype=bfloat16"):
         FusedAdam(lr=LR, stochastic_rounding=True)
 
@@ -241,6 +248,26 @@ def test_loss_falls_over_steps_on_one_batch():
         state, loss = step(state, x, y)
         losses.append(float(loss))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def test_model_chunks_ignored_at_one_pipe_stage():
+    """Without a mesh (one pipe stage) ``num_model_chunks`` has no effect,
+    as in the reference (``models/pretrain.py`` :92-106): the plain step,
+    whose losses are the default build's bitwise."""
+    _, cfg = _configs("fp32")
+    x, y = _batches(1, seed=3)[0]
+    losses = {}
+    for chunks in (1, 2):
+        model = init_gpt_pretrain_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu")
+        step, state = make_gpt_pretrain_step(
+            cfg, FusedAdam(lr=1e-2), num_model_chunks=chunks)(model)
+        assert isinstance(step, PretrainStep)
+        losses[chunks] = []
+        for _ in range(2):
+            state, loss = step(state, x, y)
+            losses[chunks].append(float(loss))
+    assert losses[2] == losses[1]
 
 
 def test_training_modules_import_no_jax():

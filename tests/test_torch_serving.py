@@ -528,6 +528,9 @@ def test_import_loads_no_jax():
             "apex_tpu_torch.transformer.parallel_state, "
             "apex_tpu_torch.transformer.tensor_parallel, "
             "apex_tpu_torch.mesh, apex_tpu_torch.mesh.planner, "
+            "apex_tpu_torch.mesh.pipeline, "
+            "apex_tpu_torch.transformer.pipeline_parallel, "
+            "apex_tpu_torch.examples.pretrain_gpt, "
             "apex_tpu_torch.examples.simple_ddp, "
             "apex_tpu_torch.examples.imagenet_main_amp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

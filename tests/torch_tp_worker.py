@@ -369,8 +369,10 @@ def mesh_world(inp):
     try:
         cfg = GPTConfig(**inp["train"]["cfg"])
         full = GPTModel(cfg, device="cpu", axis_name=None)
-        life["pipe"] = _raises(lambda: make_gpt_pretrain_step(
-            cfg, FusedAdam(lr=1e-3))(full), NotImplementedError)
+        # a pipe axis takes the pipelined step; the one-stage step refuses it
+        life["pipe"] = _raises(lambda: gmesh.make_mesh_train_step(
+            full, FusedAdam(lr=1e-3), gmesh.plan_gpt(full)),
+            NotImplementedError)
     finally:
         gmesh.destroy_mesh()
     out["life"] = life
