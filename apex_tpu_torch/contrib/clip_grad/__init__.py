@@ -16,6 +16,13 @@ copied back scaled, each in its own dtype), or one flat fp32 buffer such
 as ``PretrainStep.grad``, which is scaled where it lies, without
 packing. Other p-norms and the inf-norm are plain PyTorch, as they are
 XLA in the reference (:56-71).
+
+``norms`` (a ``parallel.sharded_norms.ShardedNorms``, a sharded
+``FlatOptState``'s ``norms``) makes the 2-norm of a flat gradient that
+is one rank's part of the model (a tensor or pipe shard) the whole
+model's, as the reference's replicated tree gives it: each leaf's sum
+of squares summed over the ranks that split it, every leaf counted
+once.
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ def _is_flat(grads) -> bool:
 
 
 def clip_grad_norm_(grads: Any, max_norm: float, norm_type: float = 2.0,
-                    error_if_nonfinite: bool = False
+                    error_if_nonfinite: bool = False, *, norms=None
                     ) -> Tuple[Any, torch.Tensor]:
     """Scale ``grads`` in place so that their global ``norm_type``-norm
     is at most ``max_norm`` (by ``min(max_norm / (norm + 1e-6), 1)``)
@@ -55,7 +62,10 @@ def clip_grad_norm_(grads: Any, max_norm: float, norm_type: float = 2.0,
     fp32 tensor on the gradients' device. ``error_if_nonfinite`` reads
     the norm on the host and raises when it is inf or nan (the
     reference checks only the other norms; ``torch.nn.utils.
-    clip_grad_norm_`` checks all)."""
+    clip_grad_norm_`` checks all). ``norms``: the module docstring (a
+    flat fp32 gradient laid out by its space)."""
+    if norms is not None and (norm_type != 2.0 or not _is_flat(grads)):
+        raise ValueError("norms takes the 2-norm of a flat fp32 gradient")
     leaves = _leaves(grads)
     if not leaves:
         return grads, torch.zeros((), dtype=torch.float32)
@@ -69,7 +79,10 @@ def clip_grad_norm_(grads: Any, max_norm: float, norm_type: float = 2.0,
                      {str(i): t for i, t in enumerate(leaves)})
             space = FlatSpace.create(named)
             buf = space.pack(named, dtype=torch.float32)
-        total_norm, _ = multi_tensor_l2norm(buf)
+        if norms is not None:
+            total_norm = norms.global_norm(buf)
+        else:
+            total_norm, _ = multi_tensor_l2norm(buf)
         coef = _clip_coef(total_norm, max_norm, norm_type, error_if_nonfinite)
         multi_tensor_scale(buf, coef, in_place=True)
         if space is not None:

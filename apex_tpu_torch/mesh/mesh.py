@@ -32,9 +32,14 @@ each rank's flat state holds its own shard (the replicated leaves on
 every rank). For an elementwise update (FusedAdam, FusedSGD,
 FusedAdagrad) the numbers are those of the replicated master. FusedLAMB,
 the global-norm clip, FusedNovoGrad and FusedLARS / LARC need norms over
-the whole of a sharded leaf and the whole gradient, a reduction over
-the tensor group they do not have yet: at tp > 1 they raise (ROADMAP A
-9h).
+the whole of a split leaf and the whole gradient: the state carries the
+plan's :meth:`ShardingPlan.norms` (``FlatOptState.norms``), which sums a
+split leaf's squares over the tensor group, counts a replicated leaf
+once, and sums the global norm over the pipe group with the tied
+embedding counted once (``parallel/sharded_norms.py``). FusedLAMB's
+segmented layout then keeps the split leaves and the tied embedding out
+of the small segments, whose norms the segment kernel computes on its
+own (:meth:`ShardingPlan.cross_rank_names`).
 
 Pipelining: on a mesh with ``pipe > 1`` each rank holds one stage of the
 model (``mesh/pipeline.py``); :func:`plan_gpt` then keeps this rank's
@@ -70,9 +75,6 @@ MESH_AXES = (BATCH_AXIS, PIPE_AXIS, MODEL_AXIS)
 # the parallel_state axis each mesh axis is
 _PS_AXIS = {BATCH_AXIS: ps.DATA_AXIS, PIPE_AXIS: ps.PIPELINE_AXIS,
             MODEL_AXIS: ps.TENSOR_AXIS}
-
-# where the optimizers that need norms over a sharded leaf wait
-SHARDED_NORMS_ITEM = "ROADMAP A 9h"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +199,9 @@ class ShardingPlan:
     mesh: Mesh
     param_specs: Dict[str, tuple]
     batch_spec: tuple = (BATCH_AXIS,)
+    # leaves two pipe stages hold (GPT's tied embedding, on the first and
+    # the last): counted once in a global norm, on the first stage
+    tied: Tuple[str, ...] = ()
 
     @property
     def n_devices(self) -> int:
@@ -227,38 +232,91 @@ class ShardingPlan:
         n, i = self.mesh.shape[BATCH_AXIS], self.mesh.coords[BATCH_AXIS]
         return _map(lambda x: _rows(x, n, i), batch)
 
+    def split_names(self, names) -> Tuple[str, ...]:
+        """The names among ``names`` cut over a model axis of more than
+        one rank."""
+        if self.mesh.shape[MODEL_AXIS] <= 1:
+            return ()
+        return tuple(n for n in names
+                     if MODEL_AXIS in self.param_specs.get(n, ()))
+
+    def cross_rank_names(self, names) -> Tuple[str, ...]:
+        """The names among ``names`` whose norms span ranks or must agree
+        across them: the :meth:`split_names`, and a ``tied`` leaf that
+        two pipe stages hold. FusedLAMB's segmented layout keeps them
+        out of the small segments, whose norms the segment kernel sums
+        in an order that depends on the segment a leaf shares."""
+        tied = (() if self.mesh.shape[PIPE_AXIS] <= 1 else
+                tuple(n for n in names if n in self.tied))
+        return self.split_names(names) + tied
+
+    def norms(self, space):
+        """The rule that turns norms over this rank's flat state (laid
+        out by ``space``) into the whole model's
+        (``parallel.sharded_norms.ShardedNorms``): the split leaves
+        summed over the model group, the global sum over the pipe group
+        with each ``tied`` leaf counted on the first stage. None where
+        both axes are one rank (every norm is local)."""
+        from apex_tpu_torch.parallel.sharded_norms import ShardedNorms
+
+        shape, coords = self.mesh.shape, self.mesh.coords
+        if shape[MODEL_AXIS] <= 1 and shape[PIPE_AXIS] <= 1:
+            return None
+        split = set(self.split_names(space.names))
+        later = coords[PIPE_AXIS] > 0
+        return ShardedNorms(
+            space=space, split=tuple(n in split for n in space.names),
+            counted=tuple(not (later and n in self.tied)
+                          for n in space.names),
+            group=self.mesh.group(MODEL_AXIS)[0],
+            outer=self.mesh.group(PIPE_AXIS)[0])
+
     def shard_state(self, state):
         """This rank's part of a ``FlatOptState`` over the full
         parameters: a flat state over this rank's shards, its master and
-        every elementwise slot cut the way the parameters are, the count
-        and found_inf kept. A segmented layout (FusedLAMB) or a per-leaf
-        slot (FusedNovoGrad) has no such cut and raises."""
+        every elementwise slot cut the way the parameters are, a per-leaf
+        slot (FusedNovoGrad's ``v``, the norm of the whole leaf) and a
+        0-d one (the first-run flag) kept per leaf, the count and
+        found_inf kept, and the plan's :meth:`norms`. A segmented layout
+        (FusedLAMB) is laid out anew over the shards at its segment size,
+        the split leaves out of the small segments
+        (``optimizers.fused.segmented_layout``)."""
         if self.is_identity():
             return state
         from apex_tpu_torch.multi_tensor.flat_buffer import FlatSpace
-        from apex_tpu_torch.optimizers.fused import FlatOptState
+        from apex_tpu_torch.optimizers.fused import segmented_layout
 
-        if state.seg_meta is not None:
-            raise NotImplementedError(
-                "shard_state of a segmented (FusedLAMB) state "
-                f"({SHARDED_NORMS_ITEM})")
-        total = state.master.numel()
-        for k, buf in state.slots.items():
-            if buf.numel() != total:
-                raise NotImplementedError(
-                    f"shard_state: slot {k!r} is not elementwise "
-                    f"({SHARDED_NORMS_ITEM})")
-        space = FlatSpace.create(self.shard_params(
-            state.space.unpack(state.master)), align=state.space.align)
+        mine = self.shard_params(state.space.unpack(state.master))
+        meta = state.seg_meta
+        if meta is None:
+            space = FlatSpace.create(mine, align=state.space.align)
+        else:
+            space, new = segmented_layout(mine, meta.seg_elems,
+                                          self.cross_rank_names(mine))
+            meta = dataclasses.replace(new, stash_p=meta.stash_p,
+                                       u_dtype_name=meta.u_dtype_name)
+        total, leaves = state.master.numel(), state.space.num_leaves
+        keep = torch.tensor([state.space.names.index(n)
+                             for n in space.names], dtype=torch.long)
 
         def cut(buf):
-            return space.pack(self.shard_params(
-                state.space.unpack(buf, dtype="buffer")), dtype=buf.dtype)
+            if buf.numel() == total:
+                return space.pack(self.shard_params(
+                    state.space.unpack(buf, dtype="buffer")),
+                    dtype=buf.dtype)
+            if buf.ndim == 1 and buf.numel() == leaves:
+                return buf[keep.to(buf.device)].clone()
+            if buf.ndim == 0:
+                return buf.clone()
+            raise ValueError(f"shard_state: a slot of shape "
+                             f"{tuple(buf.shape)} is neither elementwise, "
+                             "per leaf nor a scalar")
 
-        return FlatOptState(
+        return state._replace(
             space=space, master=cut(state.master),
             slots={k: cut(b) for k, b in state.slots.items()},
-            count=state.count, found_inf=state.found_inf.clone())
+            found_inf=state.found_inf.clone(), seg_meta=meta,
+            norms=self.norms(space))
 
     def detail(self) -> Dict[str, Any]:
         """A JSON-able summary (the reference's keys)."""
@@ -287,11 +345,13 @@ def plan_gpt(params: Any, *, mesh: Optional[Mesh] = None,
     specs = {n: tuple(MODEL_AXIS if a == ps.TENSOR_AXIS else a for a in s)
              for n, s in gpt_param_specs(params).items()}
     pipe = mesh.shape[PIPE_AXIS]
+    tied: Tuple[str, ...] = ()
     if pipe > 1:
         keep = stage_param_names(list(specs), pipe, mesh.coords[PIPE_AXIS],
                                  num_model_chunks)
         specs = {n: specs[n] for n in keep}
-    return ShardingPlan(mesh=mesh, param_specs=specs)
+        tied = ("embedding.weight",)
+    return ShardingPlan(mesh=mesh, param_specs=specs, tied=tied)
 
 
 def shard_params(plan: ShardingPlan, params):
@@ -307,14 +367,6 @@ def shard_batch(plan: ShardingPlan, batch):
 
 
 # -- the train step over this rank's shard -----------------------------------
-
-
-def _needs_sharded_norms(optimizer) -> bool:
-    from apex_tpu_torch.optimizers.fused import (FusedLAMB, FusedLARS,
-                                                 FusedNovoGrad)
-    from apex_tpu_torch.parallel.larc import LARC
-
-    return isinstance(optimizer, (FusedLAMB, FusedLARS, FusedNovoGrad, LARC))
 
 
 class MeshTrainStep:
@@ -334,11 +386,6 @@ class MeshTrainStep:
 
         sizes = plan.mesh.shape
         self._check_layout(sizes)
-        if sizes[MODEL_AXIS] > 1 and _needs_sharded_norms(optimizer):
-            raise NotImplementedError(
-                f"{type(optimizer).__name__} at model={sizes[MODEL_AXIS]}: "
-                "its norms over a sharded master need a reduction over the "
-                f"tensor group ({SHARDED_NORMS_ITEM})")
         self.model = model
         self.opt = optimizer
         self.plan = plan
@@ -355,13 +402,26 @@ class MeshTrainStep:
                 "mesh.MeshPipelineTrainStep (make_mesh_pipeline_train_step)")
 
     def init(self, params: Optional[Mapping[str, torch.Tensor]] = None):
+        """The optimizer state over this rank's shard, carrying the
+        plan's :meth:`ShardingPlan.norms`; a segmented FusedLAMB lays
+        the :meth:`ShardingPlan.cross_rank_names` out of its small
+        segments."""
+        from apex_tpu_torch.optimizers.fused import FusedLAMB
+
+        own = dict(self.model.named_parameters())
         if params is not None:
             mine = self.plan.shard_params(params)
-            own = dict(self.model.named_parameters())
             with torch.no_grad():
                 for n, p in own.items():
                     p.copy_(mine[n])
-        return self.inner.init()
+        split = self.plan.cross_rank_names(own)
+        if split and isinstance(self.opt, FusedLAMB) and self.opt.segmented:
+            state = self.opt.init(own, split=split)
+        else:
+            state = self.opt.init(own)
+        state = state._replace(norms=self.plan.norms(state.space))
+        self.inner.bind(state)
+        return state
 
     @property
     def grad(self) -> Optional[torch.Tensor]:
@@ -397,7 +457,7 @@ def make_mesh_train_step(model, optimizer, plan: ShardingPlan, *,
 
 __all__ = [
     "BATCH_AXIS", "MESH_AXES", "MODEL_AXIS", "PIPE_AXIS", "Mesh",
-    "MeshTrainStep", "SHARDED_NORMS_ITEM", "ShardingPlan", "axis_sizes",
+    "MeshTrainStep", "ShardingPlan", "axis_sizes",
     "current_mesh", "destroy_mesh", "initialize_mesh",
     "make_mesh_train_step", "mesh_initialized", "mesh_size", "plan_gpt",
     "shard_batch", "shard_params", "shard_state",

@@ -1,7 +1,8 @@
 """Convert the reference's GPT, BERT, T5 and ResNet parameters (and their
 optimizer state) into the port's ``GPTModel`` / ``BertModel`` /
-``T5Model`` / ``ResNet`` (and ``FlatOptState``), and the DCGAN example's
-two modules.
+``T5Model`` / ``ResNet`` (and ``FlatOptState``, or one rank's shard of
+a ZeRO state, ``load_jax_dist_state``), and the DCGAN example's two
+modules.
 
 The input is the parameter tree of the reference's ``GPTModel``
 (``apex_tpu/models/gpt.py``) or ``BertModel`` (``apex_tpu/models/bert.py``)
@@ -443,7 +444,45 @@ def _load_per_leaf(buf: torch.Tensor, state: FlatOptState, config,
                            for name in state.space.names]))
 
 
+def load_jax_dist_state(state, dist_state_np: Mapping):
+    """Copy one device's shard of the reference's ZeRO state
+    (``DistFlatOptState``, ``apex_tpu/contrib/optimizers``) into ``state``
+    (the port's ``DistFlatOptState`` of the same rank, over the same
+    parameters laid out alike) and return it.
+
+    ``dist_state_np`` holds that device's ``"master"`` shard (a bf16
+    one as bf16 or its uint16 bits, bit for bit), each slot's shard
+    (``"m"``, ``"v"``), ``"count"``, ``"found_inf"`` and
+    ``"l2_grad_norm"``, and optionally ``"leaf_ids"``: the shard's
+    per-element leaf map, held against the port's (a shard of another
+    layout, world or rank raises). The shards go into the port's
+    buffers in place, so a LAMB state's windows see them."""
+    ids = dist_state_np.get("leaf_ids")
+    if ids is not None and not np.array_equal(np.asarray(ids),
+                                              state.leaf_ids):
+        raise ValueError("leaf_ids: the reference's shard is laid out "
+                         "otherwise (another tree order, world or rank)")
+    bufs = {"master": state.master, **state.slots}
+    with torch.no_grad():
+        for key, buf in bufs.items():
+            src = _to_torch(dist_state_np[key])
+            if src.shape != buf.shape:
+                raise ValueError(f"{key!r}: a shard of shape "
+                                 f"{tuple(src.shape)}, not "
+                                 f"{tuple(buf.shape)}")
+            buf.copy_(src.to(buf.dtype))
+    dev = state.master.device
+
+    def scalar(key):
+        return torch.tensor(float(np.asarray(dist_state_np[key])),
+                            dtype=torch.float32, device=dev)
+
+    return state._replace(count=int(np.asarray(dist_state_np["count"])),
+                          found_inf=scalar("found_inf"),
+                          l2_grad_norm=scalar("l2_grad_norm"))
+
+
 __all__ = ["bert_params_from_jax", "dcgan_params_from_jax",
-           "gpt_params_from_jax",
+           "gpt_params_from_jax", "load_jax_dist_state",
            "load_jax_opt_state", "load_jax_params", "load_jax_resnet",
            "resnet_params_from_jax", "t5_params_from_jax"]

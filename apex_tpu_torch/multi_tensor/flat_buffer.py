@@ -35,7 +35,7 @@ not once a step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -360,7 +360,7 @@ def default_seg_elems(total_estimate: int, cap: Optional[int] = None,
 
 def segmented_space(tensors: Mapping[str, torch.Tensor],
                     seg_elems: Optional[int] = None, max_slots: int = 512,
-                    align: int = DEFAULT_ALIGN
+                    align: int = DEFAULT_ALIGN, large: Sequence[str] = ()
                     ) -> Tuple[FlatSpace, SegmentMeta]:
     """A :class:`FlatSpace` whose leaf padding is segment-aware, plus its
     :class:`SegmentMeta` (the reference's ``segmented_space``, :269).
@@ -368,7 +368,11 @@ def segmented_space(tensors: Mapping[str, torch.Tensor],
     Leaves keep the order they are given in. Padding grows where a small
     leaf would straddle a segment boundary, where a segment would pass
     ``max_slots`` leaves, and around a large leaf, which owns whole
-    segments; each gap is absorbed into the previous leaf's padding."""
+    segments; each gap is absorbed into the previous leaf's padding.
+    The leaves named in ``large`` are laid out as large ones whatever
+    their size (a leaf whose norms are summed across ranks, which the
+    segment kernel cannot wait for)."""
+    large = frozenset(large)
     sizes_in = [(name, t.numel(), tuple(t.shape), t.dtype)
                 for name, t in tensors.items()]
     if seg_elems is None:
@@ -383,7 +387,7 @@ def segmented_space(tensors: Mapping[str, torch.Tensor],
     seg_fill_slots = 0
     for idx, (name, size, shape, dtype) in enumerate(sizes_in):
         base_pad = _round_up(max(size, 1), align)
-        if base_pad > seg_elems:
+        if base_pad > seg_elems or name in large:
             start = _round_up(off, seg_elems)
             psize = _round_up(base_pad, seg_elems)
             large_places.append((idx, start, psize))

@@ -575,23 +575,33 @@ def fused_sgd_update(
 _PT_TILE = PER_TENSOR_TILE_ROWS * LANES
 
 
+def _leaf_norms(leaf_sq: torch.Tensor, norms=None) -> torch.Tensor:
+    """L2 norms from per-leaf sums of squares: over the ranks a sharded
+    state spans when ``norms`` (a ``parallel.sharded_norms.ShardedNorms``)
+    is given."""
+    return sqrt_rn(leaf_sq) if norms is None else norms.leaf_norms(leaf_sq)
+
+
 def _norms_from_subtile_partials(partials: torch.Tensor, space: FlatSpace,
-                                 plain: bool = False) -> torch.Tensor:
+                                 plain: bool = False, norms=None
+                                 ) -> torch.Tensor:
     """(num_leaves,) L2 norms from per-subtile sum-of-squares partials
     (the engine's ``sumsq_subtiles`` outputs): a lane sum, then a sum by
     leaf in a fixed order (``leaf_sums``) — every leaf is aligned to the
-    subtile, so nothing re-reads the buffer."""
-    return sqrt_rn(leaf_sums(partials.sum(-1).reshape(-1), space,
-                             plain=plain))
+    subtile, so nothing re-reads the buffer. ``norms``: a sharded
+    state's rule (:func:`_leaf_norms`)."""
+    return _leaf_norms(leaf_sums(partials.sum(-1).reshape(-1), space,
+                                 plain=plain), norms)
 
 
 def per_tensor_l2norm(buf: torch.Tensor, space: FlatSpace, *,
-                      plain: bool = False) -> torch.Tensor:
+                      plain: bool = False, norms=None) -> torch.Tensor:
     """(num_leaves,) L2 norms of each tensor in the flat buffer: per-
     subtile partials (kernel ``sumsq``) and a sum by leaf in a fixed order
-    (kernel ``leaf_sum``)."""
+    (kernel ``leaf_sum``); with ``norms``, of the whole leaves a sharded
+    state holds parts of."""
     partials = fused_sumsq_partials(buf, PER_TENSOR_TILE_ROWS, plain=plain)
-    return sqrt_rn(leaf_sums(partials, space, plain=plain))
+    return _leaf_norms(leaf_sums(partials, space, plain=plain), norms)
 
 
 def multi_tensor_l2norm(buf: torch.Tensor, space: Optional[FlatSpace] = None,
@@ -771,15 +781,18 @@ def lamb_scalars(*, beta1, beta2, step, bias_correction, grad_averaging):
 
 
 def lamb_inv_scale(g: torch.Tensor, *, max_grad_norm, global_grad_norm,
-                   grad_scale, plain: bool = False):
+                   grad_scale, plain: bool = False, norms=None):
     """The divisor of stage 1, clip x grad_scale (:362-374): with a clip,
     a 0-d fp32 tensor on ``g``'s device computed from the (device)
-    global norm — ``multi_tensor_l2norm(g)`` when none is handed in —
-    and never read on the host; without one, ``grad_scale`` itself."""
+    global norm — ``multi_tensor_l2norm(g)`` when none is handed in, or
+    the whole model's through ``norms`` on a sharded state — and never
+    read on the host; without one, ``grad_scale`` itself."""
     if not (max_grad_norm and max_grad_norm > 0):
         return grad_scale
     dev = g.device
-    if global_grad_norm is None:
+    if global_grad_norm is None and norms is not None:
+        global_grad_norm = norms.global_norm(g, plain=plain)
+    elif global_grad_norm is None:
         global_grad_norm, _ = multi_tensor_l2norm(g, plain=plain)
     gs = _dev_f32(grad_scale, dev)
     norm = _dev_f32(global_grad_norm, dev) / gs
@@ -846,7 +859,7 @@ def fused_lamb_update(
     weight_decay=0.0, bias_correction=True, grad_averaging=True,
     max_grad_norm=0.0, adam_w_mode=True, use_nvlamb=False,
     global_grad_norm=None, grad_scale=1.0, with_grad_norm=False,
-    in_place=True, plain=False, sr_seed=None,
+    in_place=True, plain=False, sr_seed=None, norms=None,
 ):
     """One fused LAMB step over flat fp32 buffers (p bf16 with
     ``sr_seed``: stage 1 reads it, stage 2 writes p' with stochastic
@@ -857,13 +870,16 @@ def fused_lamb_update(
     gradient, from the same stage-1 pass. With ``in_place`` p, m and v
     are overwritten; else new buffers are returned and the inputs left
     as they were. ``plain=True`` runs the plain versions on any device.
-    Returns ``(p', m', v', found_inf[, grad_norm_per_tensor])``."""
+    ``norms`` (a ``parallel.sharded_norms.ShardedNorms``): the state is
+    one rank's part, and every norm is the whole leaf's or the whole
+    model's. Returns ``(p', m', v', found_inf[, grad_norm_per_tensor])``."""
     b1, b2, beta3, bc1, bc2 = lamb_scalars(
         beta1=beta1, beta2=beta2, step=step, bias_correction=bias_correction,
         grad_averaging=grad_averaging)
     inv_scale = lamb_inv_scale(g, max_grad_norm=max_grad_norm,
                                global_grad_norm=global_grad_norm,
-                               grad_scale=grad_scale, plain=plain)
+                               grad_scale=grad_scale, plain=plain,
+                               norms=norms)
     outs, found = fused_lamb_compute_update_term(
         p, m, v, g, beta1=b1, beta2=b2, beta3=beta3, eps=eps,
         weight_decay=weight_decay, bias_correction1=bc1,
@@ -872,15 +888,15 @@ def fused_lamb_update(
         in_place=in_place, plain=plain)
     u, m2, v2, p_part, u_part = outs[:5]
     ratio = lamb_trust_ratio(
-        _norms_from_subtile_partials(p_part, space, plain),
-        _norms_from_subtile_partials(u_part, space, plain),
+        _norms_from_subtile_partials(p_part, space, plain, norms),
+        _norms_from_subtile_partials(u_part, space, plain, norms),
         weight_decay=weight_decay, use_nvlamb=use_nvlamb)
     p2 = lamb_apply(p, u, ratio, lr=lr,
                     tile_ids=space.device_subtile_leaf_ids(p.device),
                     in_place=in_place, plain=plain, sr_seed=sr_seed)
     if with_grad_norm:
-        return p2, m2, v2, found, _norms_from_subtile_partials(outs[5],
-                                                               space, plain)
+        return p2, m2, v2, found, _norms_from_subtile_partials(
+            outs[5], space, plain, norms)
     return p2, m2, v2, found
 
 
@@ -1065,7 +1081,7 @@ def fused_novograd_update(
     p, m, v, g, space: FlatSpace, *,
     lr, beta1=0.95, beta2=0.98, eps=1e-8, step=1, weight_decay=0.0,
     grad_averaging=True, bias_correction=False, in_place=True, plain=False,
-    sr_seed=None,
+    sr_seed=None, norms=None,
 ):
     """One NovoGrad step over flat fp32 buffers (p bf16 with ``sr_seed``): the second moment ``v``
     is one fp32 scalar per leaf (``(num_leaves,)``), an EMA of the leaf's
@@ -1076,10 +1092,12 @@ def fused_novograd_update(
     to fp32, as the reference takes it (:438); LAMB's is computed in
     fp32. With ``in_place`` p, m and v are overwritten; else new buffers
     are returned and the inputs left as they were. ``plain=True`` runs
-    the plain versions on any device. Returns ``(p', m', v', found_inf)``,
-    ``found_inf`` covering g."""
+    the plain versions on any device; ``norms``, the whole leaves' norms
+    of a sharded state (``fused_lamb_update``). Returns ``(p', m', v',
+    found_inf)``, ``found_inf`` covering g."""
     v2, denom = novograd_denominators(
-        per_tensor_l2norm(g, space, plain=plain), v, beta2=beta2, eps=eps,
+        per_tensor_l2norm(g, space, plain=plain, norms=norms), v,
+        beta2=beta2, eps=eps,
         step=step, bias_correction=bias_correction)
     bc1 = (1.0 - torch.pow(_f32(beta1), _f32(float(step)))
            if bias_correction else _f32(1.0))
@@ -1171,6 +1189,7 @@ def fused_lars_update(
     p, mom, g, space: FlatSpace, *,
     lr, momentum=0.9, weight_decay=0.0, trust_coefficient=0.02, eps=1e-8,
     clip=True, first_run=False, in_place=True, plain=False, sr_seed=None,
+    norms=None,
 ):
     """One LARS/LARC step over flat fp32 buffers (p bf16 with ``sr_seed``:
     its norms read it as fp32, p' stochastically rounded): the per-tensor
@@ -1178,10 +1197,11 @@ def fused_lars_update(
     (:func:`lars_ratio`, on the device), then the LARS sweep
     (:func:`lars_apply`). With ``in_place`` p and mom are overwritten;
     else new buffers are returned and the inputs left as they were.
-    ``plain=True`` runs the plain versions on any device. Returns
-    ``(p', mom', found_inf)``."""
-    ratio = lars_ratio(per_tensor_l2norm(p, space, plain=plain),
-                       per_tensor_l2norm(g, space, plain=plain),
+    ``plain=True`` runs the plain versions on any device; ``norms``, the
+    whole leaves' norms of a sharded state (``fused_lamb_update``).
+    Returns ``(p', mom', found_inf)``."""
+    ratio = lars_ratio(per_tensor_l2norm(p, space, plain=plain, norms=norms),
+                       per_tensor_l2norm(g, space, plain=plain, norms=norms),
                        trust_coefficient=trust_coefficient,
                        weight_decay=weight_decay, eps=eps, clip=clip)
     return lars_apply(p, mom, g, ratio, lr=lr, momentum=momentum,

@@ -45,6 +45,7 @@ from apex_tpu_torch import _build
 from apex_tpu_torch._backend import check_kernel_input, uses_kernel
 from apex_tpu_torch.multi_tensor.engine import (
     kernel_scalar,
+    leaf_sums,
     murmur_bits,
     scalar_pointer,
     sqrt_rn,
@@ -273,6 +274,7 @@ def fused_lamb_segmented_update(
     max_grad_norm=0.0, adam_w_mode=True, use_nvlamb=False,
     global_grad_norm=None, grad_scale=1.0, stash_p=None, u_dtype=None,
     with_grad_norm=False, in_place=True, plain=False, sr_seed=None,
+    norms=None,
 ):
     """LAMB step over a segment-aligned flat space (the reference's
     ``fused_lamb_segmented_update``, :350): the one-pass kernel over the
@@ -285,13 +287,28 @@ def fused_lamb_segmented_update(
     the segment pass, the large leaves' by their stages) and the inputs
     left as they were. ``sr_seed`` (a bf16 p): p' written with stochastic
     rounding, the streams of the module docstring; ``u_dtype`` (default
-    the meta's) the segment pass's update-term stash. Returns ``(p', m',
+    the meta's) the segment pass's update-term stash. ``norms`` (a
+    ``parallel.sharded_norms.ShardedNorms``): the state is one rank's
+    part; the global norm is the whole model's and a large leaf's norms
+    the whole leaf's. A segment computes its leaves' norms inside the
+    kernel, so a leaf split over ranks must lie outside the small
+    segments (``FusedLAMB.layout(..., split=...)``). Returns ``(p', m',
     v', found_inf[, grad_norm_per_tensor])``."""
     if meta.n_segments * meta.seg_elems != space.total:
         raise ValueError(
             f"SegmentMeta (n_segments={meta.n_segments}, seg_elems="
             f"{meta.seg_elems}) does not cover the space (total="
             f"{space.total}): it was built for another layout")
+    if norms is not None and norms.splits_any:
+        large = {idx for idx, _, _ in meta.large}
+        inside = [space.names[i] for i, split in enumerate(norms.split)
+                  if split and i not in large]
+        if inside:
+            raise ValueError(
+                f"leaves split over ranks lie in the small segments "
+                f"({inside[:3]}...): their norms cannot be summed across "
+                "ranks inside the segment kernel; lay the state out with "
+                "FusedLAMB.layout(params, split=...)")
     stash_p = meta.stash_p if stash_p is None else bool(stash_p)
     if u_dtype is None:
         u_dtype = getattr(torch, meta.u_dtype_name)
@@ -306,7 +323,8 @@ def fused_lamb_segmented_update(
         grad_averaging=grad_averaging)
     inv_scale = lamb_inv_scale(g, max_grad_norm=max_grad_norm,
                                global_grad_norm=global_grad_norm,
-                               grad_scale=grad_scale, plain=plain)
+                               grad_scale=grad_scale, plain=plain,
+                               norms=norms)
     mode = 1.0 if adam_w_mode else 0.0
     outs = ((p, m, v) if in_place else
             tuple(torch.empty_like(b) for b in (p, m, v)))
@@ -342,8 +360,15 @@ def fused_lamb_segmented_update(
         sub = meta.seg_elems // DEFAULT_ALIGN
 
         def per_leaf(part):
-            per_seg = part.view(-1, sub)[segs.long()].sum(-1)
-            return torch.cat([per_seg, per_seg.new_zeros(1)])[gather].sum(-1)
+            if norms is None:
+                per_seg = part.view(-1, sub)[segs.long()].sum(-1)
+                return torch.cat([per_seg, per_seg.new_zeros(1)])[
+                    gather].sum(-1)
+            # a state across ranks: by leaf in the space's fixed order
+            # (the same bits for a leaf two pipe stages hold, whatever
+            # segment size each chose), then over the ranks
+            return norms.leaf_sumsq(leaf_sums(part.reshape(-1), space,
+                                              plain=plain))[leaves]
 
         ratio = torch.ones(nl, dtype=torch.float32, device=dev)
         ratio.index_copy_(0, leaves, lamb_trust_ratio(

@@ -83,6 +83,10 @@ class FlatOptState(NamedTuple):
     # the SegmentMeta of a segment-aligned space (FusedLAMB with
     # segmented=True), carried with the space it was built for; else None
     seg_meta: Optional[SegmentMeta] = None
+    # a state that is one rank's part of the model's (a tensor or pipe
+    # shard): the parallel.sharded_norms.ShardedNorms its norms and
+    # found_inf are reduced by; None on one rank
+    norms: Optional[Any] = None
 
 
 def validate_master_dtype(master_dtype, stochastic_rounding: bool
@@ -122,13 +126,25 @@ def _resolve_lr(lr: Schedule, count: int):
     return lr(count) if callable(lr) else lr
 
 
-def _small_last(params: Mapping[str, torch.Tensor], seg: int
-                ) -> Dict[str, torch.Tensor]:
+def _small_last(params: Mapping[str, torch.Tensor], seg: int,
+                split: frozenset = frozenset()) -> Dict[str, torch.Tensor]:
     """``params`` with the leaves larger than a ``seg``-element segment
-    first, each group in the order given."""
+    (and those in ``split``) first, each group in the order given."""
     large = {k: t for k, t in params.items()
-             if _round_up(max(t.numel(), 1), DEFAULT_ALIGN) > seg}
+             if _round_up(max(t.numel(), 1), DEFAULT_ALIGN) > seg
+             or k in split}
     return {**large, **{k: t for k, t in params.items() if k not in large}}
+
+
+def segmented_layout(params: Mapping[str, torch.Tensor], seg_elems: int,
+                     split=()) -> Tuple[FlatSpace, SegmentMeta]:
+    """FusedLAMB's segmented layout of ``params`` at ``seg_elems``: the
+    large leaves and the leaves named in ``split`` (whose norms are
+    summed across ranks, or must agree across them) first, each owning
+    whole segments, then the small ones packed into shared segments."""
+    split = frozenset(split)
+    return segmented_space(_small_last(params, seg_elems, split),
+                           seg_elems=seg_elems, large=split)
 
 
 def _mv_slots(master: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -238,13 +254,15 @@ class FlatFusedOptimizer:
         if extra_found_inf is not None:
             found = torch.maximum(found, torch.as_tensor(
                 extra_found_inf, dtype=torch.float32, device=found.device))
+        if state.norms is not None:
+            # every rank of a sharded state skips alike
+            found = state.norms.any(found)
         count = state.count + 1
         if skip_if_nonfinite and float(found) > 0:
             new_master, new_slots, count = (state.master, state.slots,
                                             state.count)
-        new_state = FlatOptState(space=state.space, master=new_master,
-                                 slots=new_slots, count=count,
-                                 found_inf=found, seg_meta=state.seg_meta)
+        new_state = state._replace(master=new_master, slots=new_slots,
+                                   count=count, found_inf=found)
         if with_grad_norm:
             return state.space.unpack(new_master), new_state, upd[3]
         return state.space.unpack(new_master), new_state
@@ -355,8 +373,8 @@ class FusedLAMB(FlatFusedOptimizer):
         self.seg_allow_bf16_u = bool(seg_allow_bf16_u)
         self.seg_vmem_budget = seg_vmem_budget
 
-    def _segment_config(self, params: Mapping[str, torch.Tensor]
-                        ) -> Tuple[int, bool, torch.dtype]:
+    def _segment_config(self, params: Mapping[str, torch.Tensor],
+                        split=()) -> Tuple[int, bool, torch.dtype]:
         """``(seg_elems, stash_p, u_dtype)``: explicit knobs win; the rest
         is chosen for the fewest expected memory accesses an element
         within the budget, as the reference chooses (:368-425), but
@@ -401,8 +419,7 @@ class FusedLAMB(FlatFusedOptimizer):
                     segs = range(CHUNK, top + 1, CHUNK)
                     over = False
                 for seg in segs:
-                    _, meta = segmented_space(_small_last(shapes, seg),
-                                              seg_elems=seg)
+                    _, meta = segmented_layout(shapes, seg, split)
                     small = len(meta.small_segments) * seg
                     expected = (cost * small
                                 + 10 * (meta.n_segments * seg - small)
@@ -415,7 +432,7 @@ class FusedLAMB(FlatFusedOptimizer):
                              f"(seg_elems={self.seg_elems})")
         return best[1]
 
-    def layout(self, params: Mapping[str, torch.Tensor]
+    def layout(self, params: Mapping[str, torch.Tensor], split=()
                ) -> Tuple[FlatSpace, SegmentMeta]:
         """The segmented master's layout for ``params``: the space and
         its :class:`SegmentMeta`. The leaves larger than a segment come
@@ -425,19 +442,25 @@ class FusedLAMB(FlatFusedOptimizer):
         after each large leaf: in module order (ln, qkv.w, qkv.b,
         proj.w, ...) each run of biases and norms would take a mostly
         empty segment of its own, which both LAMB passes would sweep.
-        Leaves are bound and loaded by name, so the order is free."""
-        seg, stash_p, u_dtype = self._segment_config(params)
-        space, meta = segmented_space(_small_last(params, seg),
-                                      seg_elems=seg)
+        Leaves are bound and loaded by name, so the order is free.
+        ``split`` names the leaves whose norms span ranks or must agree
+        across them (``mesh.ShardingPlan.cross_rank_names``): the
+        segment kernel cannot wait for a sum across ranks, and sums a
+        leaf in an order that depends on its segment, so they take the
+        two stages as large leaves do."""
+        seg, stash_p, u_dtype = self._segment_config(params, split)
+        space, meta = segmented_layout(params, seg, split)
         return space, dataclasses.replace(
             meta, stash_p=stash_p,
             u_dtype_name=str(u_dtype).replace("torch.", ""))
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> FlatOptState:
+    def init(self, params: Mapping[str, torch.Tensor], split=()
+             ) -> FlatOptState:
+        """The state for ``params``; ``split`` as for :meth:`layout`."""
         if not self.segmented:
             return super().init(params)
         check_leaf_dtypes(params, self.master_dtype)
-        space, meta = self.layout(params)
+        space, meta = self.layout(params, split)
         master = space.pack(params, dtype=self.master_dtype)
         return FlatOptState(
             space=space, master=master, slots=self._init_slots(space, master),
@@ -458,7 +481,8 @@ class FusedLAMB(FlatFusedOptimizer):
             max_grad_norm=self.max_grad_norm, adam_w_mode=self.adam_w_mode,
             use_nvlamb=self.use_nvlamb, grad_scale=grad_scale,
             global_grad_norm=global_grad_norm, with_grad_norm=with_grad_norm,
-            in_place=in_place, sr_seed=self._sr_seed(state))
+            in_place=in_place, sr_seed=self._sr_seed(state),
+            norms=state.norms)
         args = (state.master, state.slots["m"], state.slots["v"], g,
                 state.space)
         if self.segmented and state.seg_meta is not None:
@@ -557,7 +581,7 @@ class FusedNovoGrad(FlatFusedOptimizer):
             step=state.count + 1, weight_decay=self.weight_decay,
             grad_averaging=self.grad_averaging,
             bias_correction=self.bias_correction, in_place=in_place,
-            sr_seed=self._sr_seed(state))
+            sr_seed=self._sr_seed(state), norms=state.norms)
         return p2, {"m": m2, "v": v2}, found
 
 
@@ -618,7 +642,8 @@ class FusedLARS(FlatFusedOptimizer):
             momentum=self.momentum, weight_decay=self.weight_decay,
             trust_coefficient=self.trust_coefficient, eps=self.eps,
             clip=self.clip, first_run=state.slots["initialized"] == 0,
-            in_place=in_place, sr_seed=self._sr_seed(state))
+            in_place=in_place, sr_seed=self._sr_seed(state),
+            norms=state.norms)
         return p2, _momentum_slots(state, mom2), found
 
 
@@ -655,4 +680,4 @@ class FusedMixedPrecisionLamb(FusedLAMB):
 __all__ = ["FlatFusedOptimizer", "FlatOptState", "FusedAdagrad", "FusedAdam",
            "FusedLAMB", "FusedLARS", "FusedMixedPrecisionLamb",
            "FusedNovoGrad", "FusedSGD", "check_leaf_dtypes",
-           "validate_master_dtype"]
+           "segmented_layout", "validate_master_dtype"]

@@ -16,7 +16,10 @@ that norm through ``global_grad_norm`` (its in-update clip), any other
 optimizer gets the clip factor folded into ``grad_scale``. The norm and
 the clip factor stay on the device. ``with_grad_norm`` reports the
 global and per-tensor norms of the unscaled gradient (FusedLAMB reduces
-them inside its update; other optimizers pay the one norm read).
+them inside its update; other optimizers pay the one norm read). On a
+state that is one rank's part of the model (``FlatOptState.norms``, a
+tensor or pipe shard) every norm is the whole model's, summed over the
+ranks by ``parallel.sharded_norms``.
 
 What has no counterpart here, and is left out: the jit, buffer donation
 (``donate_grads``; the update is in place already), the factory cache,
@@ -88,7 +91,13 @@ class TrainStep:
         if self.internal_clip or self.generic_clip or (
                 self.with_grad_norm and not self.is_lamb):
             # one read of g; the unscale is scalar work on the device
-            norm, extra_found = fused_unscale_l2norm(g, inv_scale=1.0)
+            if state.norms is not None:
+                # one rank's part of the model: the whole model's norm
+                total = state.norms.global_sumsq(g)
+                norm = sqrt_rn(total)
+                extra_found = (~torch.isfinite(total)).to(torch.float32)
+            else:
+                norm, extra_found = fused_unscale_l2norm(g, inv_scale=1.0)
             unscaled_norm = (norm / _dev_f32(loss_scale, dev)
                              if loss_scale is not None else norm)
             if self.internal_clip:
@@ -111,7 +120,9 @@ class TrainStep:
             gnorm_pt = outs[2]
             if loss_scale is not None:
                 gnorm_pt = gnorm_pt / _dev_f32(loss_scale, dev)
-            unscaled_norm = sqrt_rn(torch.sum(gnorm_pt * gnorm_pt))
+            sq = gnorm_pt * gnorm_pt
+            unscaled_norm = sqrt_rn(torch.sum(sq) if state.norms is None
+                                    else state.norms.total_sumsq(sq))
         aux = StepAux(found_inf=new_state.found_inf, grad_norm=unscaled_norm,
                       grad_norm_per_tensor=gnorm_pt, loss_scale=loss_scale)
         if scaler_state is not None:

@@ -105,8 +105,10 @@ class LARC:
         dev = state.master.device
         g = flat_grads.float()
         ratio = adaptive_ratio(
-            per_tensor_l2norm(state.master, state.space, plain=True),
-            per_tensor_l2norm(g, state.space, plain=True), _dev_f32(lr, dev),
+            per_tensor_l2norm(state.master, state.space, plain=True,
+                              norms=state.norms),
+            per_tensor_l2norm(g, state.space, plain=True, norms=state.norms),
+            _dev_f32(lr, dev),
             trust_coefficient=self.trust_coefficient, clip=self.clip,
             eps=self.eps,
             weight_decay=getattr(self.optimizer, "weight_decay", 0.0))

@@ -194,9 +194,18 @@ def bernoulli(key: KeyLike, p: float, shape: Sequence[int],
 
 def gumbel(key: KeyLike, shape: Sequence[int], device=None) -> torch.Tensor:
     """``jax.random.gumbel(key, shape, float32)`` (its default "low"
-    mode): ``-log(-log(u))``, ``u`` uniform on ``[tiny, 1)``."""
+    mode): ``-log(-log(u))``, ``u`` uniform on ``[tiny, 1)``. On the CPU
+    both logs are taken in fp64 through numpy and the result rounded
+    once to fp32: PyTorch's fp32 CPU ``log`` splits a large tensor over
+    worker threads, and a chunk may take another vector path, so its
+    bits would depend on the thread count (as ``torch.sqrt``'s do,
+    ``multi_tensor.engine.sqrt_rn``). On the card, ``torch.log``."""
     tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0, device)))
+    u = uniform(key, shape, tiny, 1.0, device)
+    if u.device.type == "cpu":
+        g = -np.log(-np.log(u.numpy().astype(np.float64)))
+        return torch.from_numpy(np.asarray(g.astype(np.float32)))
+    return -torch.log(-torch.log(u))
 
 
 __all__ = ["PRNGKey", "bernoulli", "bits", "fold_in", "gumbel", "key_data",

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --data-parallel N    # phase 20 alone, N cards
     python3 chip_smoke.py --tensor-parallel N  # phase 21 alone, N cards
     python3 chip_smoke.py --pipeline-parallel N  # phase 22 alone, N cards
+    python3 chip_smoke.py --zero N             # phase 23a-b alone, N cards
 
 Phases, in order; any failure exits non-zero before the last line:
 
@@ -437,14 +438,15 @@ Phases, in order; any failure exits non-zero before the last line:
    (``should_stop`` over the process collective). (b) ResNet-50 at 224^2
    through the ImageNet example's loop (``--sync-bn --fixed-batch``),
    global batch RESNET_BATCH as two halves, under O5 (bf16) and O2
-   (fp16, the dynamic scaler): 10 timed steps, one metered step and one
-   profiled step (device busy share, copies, convolutions), master,
-   momentum and every running statistic replicated bitwise after every
-   step, ``fused_sgd`` once a step on each rank, the first update taken
-   lowering the loss (the dynamic scaler may skip the first steps);
+   (fp16, the dynamic scaler): DP_RESNET_STEPS timed steps, one metered
+   step and one profiled step (device busy share, copies,
+   convolutions), master, momentum and every running statistic
+   replicated bitwise after every step, ``fused_sgd`` once a step on
+   each rank, the first update taken lowering the loss (the dynamic
+   scaler may skip the first steps);
    under O2 an inf written into rank 1's gradient before the all-reduce
-   skips the step on both ranks and halves both scales. Per
-   rank the median step of steps 3-10, images/s over both ranks, the
+   skips the step on both ranks and halves both scales. Per rank the
+   median step of steps 3-DP_RESNET_STEPS, images/s over both ranks, the
    gradient all-reduce's calls, bytes and ms and SyncBN's all-reduces a
    step (each synchronised, in the metered step), peak memory and the
    card's memory in use. (c) fp32 with TF32 off: two ranks of 2 images
@@ -475,18 +477,19 @@ Phases, in order; any failure exits non-zero before the last line:
    TRAIN_GRAD_REL_TOL (per leaf, relative L2 over the whole leaf) of one
    process at tp=1 on the same weights and batch; then one step with every
    all-reduce synchronised and metered (calls, bytes, ms) and one profiled
-   step (busy share); per rank the median step of steps 3-6, tokens/s and
-   peak memory. The same at fp32, TP_FP32_LAYERS layers, TF32 off, held to
-   TRAIN32_LOSS_TOL and TRAIN32_GRAD_REL_TOL. (b) Phase 3's model (its
-   generator) built sharded, the pool at 8 kv heads a rank, phase 3's
-   eight prompts through ``DecodeStep`` (each prefill in chunks of
-   PREFILL_CHUNK, then MAX_NEW - 1 decode steps over the eight), the
-   vocab-parallel logits all-gathered before the greedy selection: the
-   tokens equal on both ranks and held to one process's run of the same
-   requests in this call by phase 17's comparison rule (``follow_rule``);
-   TTFT and TPOT a rank. ``--tensor-parallel N`` runs this phase alone
-   over N ranks, one card each, on NCCL (21a at phase 4's batch of
-   TRAIN_BATCH x 1024), after building its libraries alone, and exits.
+   step (busy share); per rank the median step of steps 3-TP_STEPS,
+   tokens/s and peak memory. The same at fp32, TP_FP32_LAYERS layers,
+   TF32 off, held to TRAIN32_LOSS_TOL and TRAIN32_GRAD_REL_TOL. (b)
+   Phase 3's model (its generator) built sharded, the pool at 8 kv
+   heads a rank, phase 3's eight prompts through ``DecodeStep`` (each
+   prefill in chunks of PREFILL_CHUNK, then MAX_NEW - 1 decode steps
+   over the eight), the vocab-parallel logits all-gathered before the
+   greedy selection: the tokens equal on both ranks and held to one
+   process's run of the same requests in this call by phase 17's
+   comparison rule (``follow_rule``); TTFT and TPOT a rank.
+   ``--tensor-parallel N`` runs this phase alone over N ranks, one card
+   each, on NCCL (21a at phase 4's batch of TRAIN_BATCH x 1024), after
+   building its libraries alone, and exits.
 22. Pipeline parallelism: two ranks spawned as in phase 20, sharing the
    card over gloo (every boundary tensor and the tied embedding's
    all-reduce cross host memory, so no time here is a multi-GPU number),
@@ -518,13 +521,57 @@ Phases, in order; any failure exits non-zero before the last line:
    1f1b) held to TRAIN32_LOSS_TOL and TRAIN32_GRAD_REL_TOL.
    ``--pipeline-parallel N`` runs this phase alone over N ranks, one card
    each, on NCCL (24 / N layers a stage), and exits.
+23. ZeRO and norms over a sharded flat state: two ranks spawned as in
+   phase 20, sharing the card over gloo (the reduce-scatter, the
+   all-gather and DDP's all-reduce cross host memory, so no time here
+   is a multi-GPU number). GPT-2 345M (bf16 compute, fp32 parameters,
+   seed 0), ZERO_BATCH x 1024 a rank (phase 4's global batch of 8), the
+   parameters views into the flat buffer the optimizer gathers into.
+   (a) ``DistributedFusedAdam`` ZERO_ADAM_STEPS steps with the launch
+   counts set to 0 just before and read just after, its first
+   ZERO_DDP_STEPS in lockstep with DDP + FusedAdam from the same weights
+   on the same local gradients (all-reduced, then ``step_flat``): the
+   gathered master bitwise DDP's after each; step 1's loss (the ranks'
+   mean) and the synced gradient within TRAIN_LOSS_TOL and
+   TRAIN_GRAD_REL_TOL of one process's on the whole batch; then a
+   metered step (the reduce-scatter's and the all-gather's calls, bytes
+   and synchronised ms) and a profiled one (busy share); DDP + FusedAdam
+   ZERO_DDP_STEPS steps of its own for its step time and peak memory; one
+   step with a bf16 gradient sync; a non-finite gradient on the last rank
+   alone: every rank skips, the count, the master and the gathered
+   parameters kept. (b) ``DistributedFusedLAMB`` (NVLAMB)
+   ZERO_LAMB_STEPS steps in lockstep with DDP + FusedLAMB, each element
+   within ZERO_ULPS ulp + lr x 2^-20 (the trust ratios' norms summed in
+   another order; a second run of its own would part from the first
+   where the bf16 forward meets weights an ulp apart); one step gathering
+   in float8_e5m2 (this rank's part of the parameters bitwise the cast
+   of its shard); one step of a bf16 master under stochastic rounding,
+   its shard bitwise the plain SR cast of its fp32 twin's.
+   (c) A 9h: FusedLAMB through ``make_gpt_pretrain_step`` at tp=2
+   (TP_BATCH x 1024) and at pp=2 (1f1b, the whole batch in PP_MICRO
+   microbatches), ZERO_NORMS_STEPS steps each: step 1's loss and gradient
+   within TRAIN_LOSS_TOL and TRAIN_GRAD_REL_TOL of one process, the whole
+   model's gradient norm (and at tp every whole leaf's) from the state's
+   cross-rank norms within TRAIN_GRAD_REL_TOL of one process's, the
+   replicated leaves bitwise equal across the tensor ranks and the tied
+   copies across the stages after every step; the same at fp32 and tp=2
+   (TP_FP32_LAYERS layers, TF32 off) within TRAIN32_LOSS_TOL and
+   TRAIN32_GRAD_REL_TOL. ``--zero N`` runs (a) and (b) alone over N
+   ranks, one card each, on NCCL (ZERO_ADAM_STEPS steps of each
+   optimizer, in lockstep for ZERO_DDP_STEPS (Adam) or all (LAMB) with
+   the single-device optimizer on the gradient summed as the
+   reduce-scatter sums it, then all-gathered (``_Twin(ring=True)``: the
+   ring adds an element's values in another order than DDP's
+   all-reduce): Adam's master bitwise, LAMB's within ZERO_ULPS ulp + lr x
+   2^-20), and exits.
 19. Each phase's wall seconds, the ``kernels`` JSON line (all sixty-six
    kernels and variants, each with its launches on its path, and each
    rank's on the data-parallel paths, ``launches_dp_*_rank{r}``, on
    the tensor-parallel ones, ``launches_tp_gpt_rank{r}`` and
-   ``launches_tp_decode_rank{r}``, and on the pipeline ones,
-   ``launches_pp_{schedule}_rank{r}``), then the device line the caller
-   reads.
+   ``launches_tp_decode_rank{r}``, on the pipeline ones,
+   ``launches_pp_{schedule}_rank{r}``, and on phase 23's,
+   ``launches_zero_{adam,lamb,tp_lamb,pp_lamb}_rank{r}``), then the device
+   line the caller reads.
 
 Needs a CUDA device and ``nvcc`` (``$CUDA_HOME`` or
 ``/usr/local/cuda``); exits 1 without printing a result otherwise.
@@ -564,6 +611,9 @@ from apex_tpu_torch import records as port_records
 from apex_tpu_torch import random as jrandom
 from apex_tpu_torch.amp import _amp_state as amp_state
 from apex_tpu_torch.contrib.clip_grad import clip_grad_norm_
+from apex_tpu_torch.contrib.optimizers import (DistributedFusedAdam,
+                                               DistributedFusedLAMB,
+                                               e5m2_bits)
 from apex_tpu_torch.contrib.multihead_attn import (
     EncdecMultiheadAttn,
     SelfMultiheadAttn,
@@ -9346,7 +9396,7 @@ def serve_fleet(seed: int, dev, card: str) -> dict:
 
 DP_WORLD = 2
 DDP_STEPS, DDP_BATCH, DDP_SIGTERM_STEP = 50, 64, 20
-DP_RESNET_STEPS = 10             # timed steps; one metered step follows
+DP_RESNET_STEPS = 6              # timed steps; one metered step follows
 DP_INF_INDEX = 12345
 DP_PARITY_PER_RANK = 2
 DP_FLAGGED = 1
@@ -9877,7 +9927,7 @@ TP_WORLD = 2
 # host memory (about a hundred of 4-8 MB a step), so phase 4's batch of 8
 # is cut to 2; over NCCL (--tensor-parallel N) phase 4's TRAIN_BATCH
 TP_BATCH = 2
-TP_STEPS = 6
+TP_STEPS = 4
 TP_FP32_LAYERS = 2
 TP_NOTE = ("both ranks share one card and gloo moves every activation "
            "all-reduce through host memory: no time here is a multi-GPU "
@@ -10268,7 +10318,7 @@ def tensor_parallel_alone(args, dev) -> int:
 
 PP_WORLD = 2
 PP_MICRO = 8
-PP_STEPS = 6
+PP_STEPS = 4
 PP_FP32_LAYERS = 4
 # (schedule, model chunks a stage)
 PP_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved_1f1b", 2),
@@ -10682,6 +10732,734 @@ def pipeline_parallel_alone(args, dev) -> int:
     return 0
 
 
+# -- phase 23: ZeRO and norms over a sharded flat state -------------------------
+
+ZERO_WORLD = 2
+# a rank's rows: phase 4's global batch of 8 over the two ranks
+ZERO_BATCH = 4
+ZERO_ADAM_STEPS = 4
+ZERO_LAMB_STEPS = 3
+ZERO_DDP_STEPS = 2
+ZERO_NORMS_STEPS = 3
+ZERO_LR = 1e-4
+ZERO_NOTE = ("both ranks share one card and gloo moves the gradient's "
+             "reduce-scatter, the parameters' all-gather and DDP's all-reduce "
+             "through host memory: no time here is a multi-GPU number")
+ZERO_SHARES = {"copies": ("Memcpy", "memcpy"), "flash": ("flash_",),
+               "layer_norm": ("ln_",),
+               "optimizer": ("adam_kernel", "stage1_kernel", "stage2_kernel",
+                             "sumsq_kernel", "leaf_sum_kernel",
+                             "sr_cast_kernel")}
+# ZeRO-LAMB against DDP + FusedLAMB on the same gradients: the same
+# elementwise updates, with per-leaf norms summed in another order, so
+# each element within 2 ulp of DDP's plus lr x 2^-20 (a trust ratio's few
+# ulps times the largest step)
+ZERO_ULPS = 2
+# the libraries phase 23 runs alone (--zero N)
+ZERO_LIBRARIES = ["layer_norm", "flash_fwd", "flash_bwd", "flash_fwd_fp32",
+                  "flash_bwd_fp32", "flash_split3", "fused_adam", "sumsq",
+                  "fused_lamb", "lamb_segment", "stochastic_round"]
+
+
+def _zero_gap(got: torch.Tensor, want: torch.Tensor, lr: float) -> dict:
+    """``got`` against ``want`` (fp32, on one device): the elements that differ,
+    the largest difference and its excess over ZERO_ULPS ulp of |want|
+    plus lr x 2^-20 (0 or less: within), and the elements past it."""
+    d = (got - want).abs()
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) \
+        - want.abs()
+    excess = d - (ZERO_ULPS * ulp + lr * 2.0 ** -20)
+    i = int(excess.argmax())
+    return {"differ": int((got != want).sum()), "n": want.numel(),
+            "past": int((excess > 0).sum()),
+            "max_abs": float(d.max()), "worst_excess": float(excess[i]),
+            "worst_at": (i, float(got[i]), float(want[i])),
+            "bitwise": bool(torch.equal(got, want))}
+
+
+class _ZeroRun:
+    """GPT-2 345M on this rank under a ZeRO optimizer, as the reference's
+    docstring drives it: the parameters views into the padded flat fp32
+    buffer the optimizer gathers into (``FlatSpace.bind``), their
+    gradients into one flat buffer; a step is the local backward, then
+    ``step_flat(state, grad, out=flat)``."""
+
+    def __init__(self, cfg, full, dev, opt):
+        self.model = GPTModel(cfg, device=dev, axis_name=None,
+                              params=dict(full.named_parameters()))
+        params = dict(self.model.named_parameters())
+        self.opt = opt
+        self.state = opt.init(params)
+        space, lay = self.state.space, self.state.layout
+        self.flat = torch.zeros(lay.padded_total, device=dev)
+        space.pack_into(self.flat, params)
+        # padded as step_flat reads it, so that no step copies it
+        self.grad = torch.zeros(lay.padded_total, device=dev)
+        space.bind(self.model, self.flat[:space.total],
+                   self.grad[:space.total])
+
+    def backward(self, x, y) -> torch.Tensor:
+        self.grad.zero_()
+        loss = gpt_loss_fn(self.model(x), y, axis_name=None)
+        loss.backward()
+        return loss.detach()
+
+    def step(self, x, y, opt=None, **kw):
+        loss = self.backward(x, y)
+        _, self.state = (opt or self.opt).step_flat(self.state, self.grad,
+                                                    out=self.flat, **kw)
+        return loss
+
+    def master(self) -> torch.Tensor:
+        """The whole flat master (every rank's shard, gathered), on the
+        host."""
+        n = self.state.space.total
+        return self.flat[:n].detach().to("cpu", copy=True)
+
+
+def _ddp_run(cfg, full, dev, opt, x, y, steps: int) -> dict:
+    """DDP + ``opt`` (``PretrainStep`` over the data group) from the same
+    weights and batch: its step times and peak."""
+    model = GPTModel(cfg, device=dev, axis_name=None,
+                     params=dict(full.named_parameters()))
+    step = PretrainStep(model, opt, grad_reduce=DistributedDataParallel())
+    state = step.init()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        losses.append(float(loss))
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del step, state, model
+    return {"step_ms_all": times, "losses": losses, "peak_gib": peak}
+
+
+class _Twin:
+    """DDP + the single-device ``opt`` stepped in lockstep with a ZeRO
+    run on the run's own local gradient (all-reduced, then
+    ``step_flat``): from the same weights, on the same gradients every
+    step, so that the two masters differ only by the optimizers' own
+    arithmetic (a second run's bf16 forward would part from the first's
+    once a weight is an ulp apart). The first reduced gradient is kept
+    on the host, by name.
+
+    ``ring``: the gradient is summed as ZeRO's reduce-scatter sums it,
+    then all-gathered, instead of by DDP's all-reduce. Over NCCL at
+    world > 2 the ring of the reduce-scatter adds an element's values
+    in another order than the all-reduce, and Adam's normalised step
+    carries that rounding where a gradient nears 0; summed alike, the
+    two masters again differ only by the optimizers' arithmetic."""
+
+    def __init__(self, opt, run: _ZeroRun, ring: bool = False):
+        self.opt, self.space = opt, run.state.space
+        self.layout = run.state.layout
+        self.state = opt.init(dict(run.model.named_parameters()))
+        self.ddp = None if ring else DistributedDataParallel()
+        self.first_grad = None
+
+    def _ring_mean(self, grad: torch.Tensor) -> torch.Tensor:
+        """The mean of the ranks' padded flat ``grad`` as ZeRO's
+        ``step_flat`` sums it: reduce-scattered into a shard at its place
+        in a LAMB window (the same buffers, sizes and alignment), then
+        all-gathered and divided by the world."""
+        lay = self.layout
+        group, _ = ps.axis_group(ps.DATA_AXIS)
+        win = lay.new_window(grad)
+        tdist.reduce_scatter_tensor(lay.shard_of(win), grad, group=group)
+        full = torch.empty(lay.padded_total, device=grad.device)
+        tdist.all_gather_into_tensor(full, lay.shard_of(win), group=group)
+        return full.div_(float(lay.world))
+
+    def step(self, grad: torch.Tensor) -> None:
+        # the gradient laid out as the optimizer's own space (FusedLAMB's
+        # segmented layout orders and pads its leaves otherwise)
+        if self.ddp is None:
+            grad = self._ring_mean(grad)
+        red = self.state.space.pack(self.space.unpack(grad, "buffer"))
+        if self.ddp is not None:
+            self.ddp(red)
+        if self.first_grad is None:
+            self.first_grad = self.state.space.unpack(
+                red.to("cpu", copy=True), "buffer")
+        _, self.state = self.opt.step_flat(self.state, red)
+
+    def master(self) -> torch.Tensor:
+        """The master laid out as the ZeRO run's flat space."""
+        return self.space.pack(self.state.space.unpack(
+            self.state.master.detach(), "buffer"))
+
+
+def _zero_loop(run: _ZeroRun, x, y, steps: int, dev,
+               twin: Optional[_Twin] = None, twin_steps: int = 0) -> dict:
+    """``steps`` steps with the launch counts set to 0 just before and
+    read just after (the twin's own launches left out). With ``twin``,
+    each of the first ``twin_steps`` steps first steps it on the same
+    gradient (synchronised, its time left out of the step's) and holds
+    the two masters against each other on the card (``vs_ddp``); then
+    it is dropped and the peak counted afresh."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    out = {"losses": [], "step_ms_all": [], "vs_ddp": []}
+    aside_counts: dict = {}
+    n = run.state.space.total
+    for i in range(steps):
+        if twin is not None and i == twin_steps:
+            out["ddp_grad"], twin = twin.first_grad, None
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        loss = run.backward(x, y)
+        aside = 0.0
+        if twin is not None:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, counts = _uncounted(lambda: twin.step(run.grad))
+            torch.cuda.synchronize()
+            aside = time.perf_counter() - t1
+            for k_, v_ in counts.items():
+                aside_counts[k_] = aside_counts.get(k_, 0) + v_
+        _, run.state = run.opt.step_flat(run.state, run.grad, out=run.flat)
+        out["losses"].append(float(loss))           # synchronises
+        out["step_ms_all"].append((time.perf_counter() - t0 - aside) * 1e3)
+        if twin is not None:
+            out["vs_ddp"].append(_zero_gap(run.flat[:n], twin.master(),
+                                           ZERO_LR))
+    if twin is not None:
+        out["ddp_grad"] = twin.first_grad
+    out["launches"] = _less(_build.launch_counts(), aside_counts)
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["count"] = run.state.count
+    return out
+
+
+def _zero_metered(run: _ZeroRun, x, y, label: str) -> dict:
+    """One step with every collective synchronised and timed, then one
+    under the profiler."""
+    run.opt.meter = True
+    run.opt.comm_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.step(x, y)
+    torch.cuda.synchronize()
+    metered = (time.perf_counter() - t0) * 1e3
+    run.opt.meter = False
+    comm = run.opt.comm_stats()
+    _, prof = _profiled(lambda: run.step(x, y), label, ZERO_SHARES)
+    return {"metered_ms": metered, "comm": comm,
+            "profile": {k: v for k, v in prof.items() if k != "matched"}}
+
+
+def _zero_adam(cfg, full, dev, x, y, steps, ddp_steps, world,
+               ring: bool) -> dict:
+    """23a on one rank: ZeRO-Adam ``steps`` steps, the first
+    ``ddp_steps`` in lockstep with DDP + FusedAdam (``_Twin``), then a
+    metered and a profiled step; DDP + FusedAdam's own run of
+    ``ddp_steps`` from the same weights and batch for its step time and
+    peak; one step with a bf16 gradient sync; one with a non-finite
+    gradient on the last rank. ``ring``: the twin sums as the
+    reduce-scatter does (``_Twin``)."""
+    kw = dict(lr=ZERO_LR, weight_decay=0.01)
+    run = _ZeroRun(cfg, full, dev, DistributedFusedAdam(**kw))
+    out = _zero_loop(run, x, y, steps, dev,
+                     _Twin(FusedAdam(**kw), run, ring), ddp_steps)
+    out.update(_zero_metered(run, x, y, f"ZeRO-Adam rank "
+                             f"{tdist.get_rank()} step"))
+    # one step with the gradient summed in bf16 on the wire
+    bf16 = DistributedFusedAdam(**kw, grad_sync_dtype=torch.bfloat16)
+    bf16.meter = True
+    loss = run.step(x, y, opt=bf16)
+    out["bf16_sync"] = {"loss": float(loss), "comm": bf16.comm_stats(),
+                        "finite": bool(torch.isfinite(run.flat).all())}
+    # a non-finite gradient on the last rank alone: every rank skips
+    run.backward(x, y)
+    if tdist.get_rank() == world - 1:
+        run.grad[run.state.space.total // 3] = float("inf")
+    count, before = run.state.count, _digest(run.state.master)
+    flat_before = _digest(run.flat)
+    _, run.state = run.opt.step_flat(run.state, run.grad, out=run.flat,
+                                     skip_if_nonfinite=True)
+    out["skip"] = {"found_inf": float(run.state.found_inf),
+                   "count_kept": run.state.count == count,
+                   "master_kept": _digest(run.state.master) == before,
+                   "params_kept": _digest(run.flat) == flat_before}
+    del run
+    torch.cuda.empty_cache()
+    out["ddp"] = _ddp_run(cfg, full, dev, FusedAdam(**kw), x, y, ddp_steps)
+    return out
+
+
+def _zero_lamb(cfg, full, dev, x, y, steps, ring: bool) -> dict:
+    """23b on one rank: ZeRO-LAMB (NVLAMB) ``steps`` steps against DDP +
+    FusedLAMB in lockstep on the same gradients (``_Twin``: a second
+    run's bf16 forward would part from the first one's an ulp of a
+    weight later); one step with the all-gather in float8_e5m2; one step
+    of a bf16 master under SR against its fp32 twin's values rounded by
+    the plain version. ``ring``: as in ``_zero_adam``."""
+    kw = dict(lr=ZERO_LR, weight_decay=0.01, max_grad_norm=1.0,
+              use_nvlamb=True)
+    run = _ZeroRun(cfg, full, dev, DistributedFusedLAMB(**kw))
+    out = _zero_loop(run, x, y, steps, dev,
+                     _Twin(FusedLAMB(**kw), run, ring), steps)
+    out.pop("ddp_grad")
+    # one step with the gather in e5m2: this rank's part of the gathered
+    # parameters is the e5m2 cast of its master shard
+    e5 = DistributedFusedLAMB(**kw, e5m2_allgather=True)
+    e5.meter = True
+    loss = run.step(x, y, opt=e5)
+    lay = run.state.layout
+    mine = run.flat[lay.start:lay.start + lay.shard]
+    cast = e5m2_bits(run.state.master).view(torch.float8_e5m2).float()
+    out["e5m2"] = {"loss": float(loss), "comm": e5.comm_stats(),
+                   "bitwise": bool(torch.equal(mine, cast))}
+    # a bf16 master under SR from the current weights, one step, and its
+    # fp32 twin from the same bf16 values: the SR shard is the plain
+    # SR cast of the twin's (the stage-2 values), seeded count x world +
+    # shard
+    grad = run.grad.clone()
+    params = {n: p.detach() for n, p in run.model.named_parameters()}
+    del run
+    torch.cuda.empty_cache()
+    sr = DistributedFusedLAMB(**kw, master_dtype=torch.bfloat16,
+                              stochastic_rounding=True)
+    twin = DistributedFusedLAMB(**kw)
+    bf = {n: p.to(torch.bfloat16) for n, p in params.items()}
+    s_sr = sr.init(bf)
+    s_tw = twin.init({n: p.float() for n, p in bf.items()})
+    del params, bf
+    _build.reset_launch_counts()
+    _, s_sr = sr.step_flat(s_sr, grad)
+    sr_launches = _build.launch_counts()
+    _, s_tw = twin.step_flat(s_tw, grad)
+    seed = 0 * s_sr.layout.world + s_sr.layout.rank
+    want = engine.stochastic_round_cast(s_tw.master, seed, plain=True)
+    out["sr"] = {"bitwise": bool(torch.equal(s_sr.master, want)),
+                 "launches": sr_launches,
+                 "max_abs_vs_fp32": float((s_sr.master.float()
+                                           - s_tw.master).abs().max())}
+    del s_sr, s_tw, grad
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zero_dense(cfg, full, dev, x, y) -> tuple:
+    """One process's loss, per-leaf gradient (host) and the gradient's
+    per-leaf and global norms (fp64, on the card) on the whole batch; the
+    ranks sharing the card take turns (``_pp_dense``)."""
+    out = None
+    world = tdist.get_world_size()
+    shared = torch.cuda.device_count() < world
+    for r in range(world if shared else 1):
+        if not shared or r == tdist.get_rank():
+            loss, grads = _dense_grads(cfg, full, dev, x, y)
+            leaf = {n: float(torch.linalg.vector_norm(g.double()))
+                    for n, g in grads.items()}
+            out = (loss, {n: g.cpu() for n, g in grads.items()}, leaf,
+                   float(np.sqrt(sum(v * v for v in leaf.values()))))
+            del grads
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        tdist.barrier()
+    return out
+
+
+def _uncounted(fn) -> tuple:
+    """``(fn(), its launches)``: a check's launches, to leave out of the
+    path's counts (``_less``)."""
+    before = _build.launch_counts()
+    out = fn()
+    return out, {k: v - before.get(k, 0)
+                 for k, v in _build.launch_counts().items()}
+
+
+def _less(counts: dict, aside: dict) -> dict:
+    return {k: v - aside.get(k, 0) for k, v in counts.items()
+            if v - aside.get(k, 0)}
+
+
+def _norms_of(step, state) -> tuple:
+    """The whole model's gradient norm and each leaf's whole norm as the
+    state's reduction gives them (``state.norms``), from this rank's
+    flat gradient of the last step."""
+    from apex_tpu_torch.parallel.sharded_norms import local_leaf_sumsq
+
+    g = step.grad
+    leaf = state.norms.leaf_norms(local_leaf_sumsq(g, state.space))
+    return (float(state.norms.global_norm(g)),
+            {n: float(v) for n, v in zip(state.space.names, leaf.cpu())})
+
+
+def _zero_tp(seed: int, cfg, full, dev, batch: int) -> dict:
+    """23c at tp = 2: GPT-2 345M with FusedLAMB through the mesh step,
+    ZERO_NORMS_STEPS steps; step 1's loss, gradient and norms against one
+    process; the replicated leaves' deviation over the tensor group
+    after every step."""
+    x, y = _tp_batch(seed, dev, cfg, batch)
+    dense_loss, dense, dleaf, dtotal = _zero_dense(cfg, full, dev, x, y)
+    step, state = make_gpt_pretrain_step(
+        cfg, FusedLAMB(lr=ZERO_LR, weight_decay=0.01, max_grad_norm=1.0))(
+        full, device=dev)
+    params = dict(step.model.named_parameters())
+    replicated = [p for n, p in params.items()
+                  if not any(step.plan.param_specs[n])]
+    _build.reset_launch_counts()
+    losses, devs, gap, norms = [], [], None, None
+    for i in range(ZERO_NORMS_STEPS):
+        state, loss = step(state, x, y)
+        losses.append(float(loss))
+        if i == 0:
+            gap = _grad_gap({n: g.to(dev) for n, g in dense.items()},
+                            state.space.unpack(step.grad, "buffer"),
+                            step.plan)
+            norms, check_launches = _uncounted(lambda: _norms_of(step,
+                                                                 state))
+        devs.append(float(sync_deviation(replicated,
+                                         axis_name=ps.TENSOR_AXIS)))
+    return {"losses": losses, "dense_loss": dense_loss, "gap": gap,
+            "deviations": devs,
+            "launches": _less(_build.launch_counts(), check_launches),
+            "norm": norms[0], "dense_norm": dtotal,
+            "leaf_gap": max(abs(v - dleaf[n]) / max(dleaf[n], 1e-30)
+                            for n, v in norms[1].items())}
+
+
+def _zero_tp_fp32(seed: int, dev, batch: int) -> dict:
+    """23c's fp32 case (TF32 off) at tp = 2: a TP_FP32_LAYERS-layer GPT-2
+    345M, one FusedLAMB step; the loss, the gradient, the global norm and
+    every whole leaf's norm against one process."""
+    cfg = dataclasses.replace(GPTConfig.gpt2_345m(dtype=torch.float32),
+                              num_layers=TP_FP32_LAYERS)
+    full = GPTModel(cfg, device="cpu", axis_name=None,
+                    generator=torch.Generator().manual_seed(seed + 1))
+    x, y = _tp_batch(seed, dev, cfg, batch)
+    dense_loss, dense, dleaf, dtotal = _zero_dense(cfg, full, dev, x, y)
+    step, state = make_gpt_pretrain_step(
+        cfg, FusedLAMB(lr=ZERO_LR, weight_decay=0.01, max_grad_norm=1.0))(
+        full, device=dev)
+    state, loss = step(state, x, y)
+    norm, leaf = _norms_of(step, state)
+    return {"loss": float(loss), "dense_loss": dense_loss,
+            "gap": _grad_gap({n: g.to(dev) for n, g in dense.items()},
+                             state.space.unpack(step.grad, "buffer"),
+                             step.plan),
+            "norm": norm, "dense_norm": dtotal,
+            "leaf_gap": max(abs(v - dleaf[n]) / max(dleaf[n], 1e-30)
+                            for n, v in leaf.items())}
+
+
+def _zero_pp(cfg, full, dev, x, y, dense) -> dict:
+    """23c at pp = 2: FusedLAMB under 1f1b (PP_MICRO microbatches),
+    ZERO_NORMS_STEPS steps; step 1's loss, gradient and global norm (the
+    tied embedding counted once) against one process; the tied copies'
+    digest after every step."""
+    dense_loss, grads, _, dtotal = dense
+    step, state = make_gpt_pretrain_step(
+        cfg, FusedLAMB(lr=ZERO_LR, weight_decay=0.01, max_grad_norm=1.0),
+        schedule="1f1b", num_microbatches=PP_MICRO)(full, device=dev)
+    _build.reset_launch_counts()
+    losses, tied, gap, norm = [], [], None, None
+    for i in range(ZERO_NORMS_STEPS):
+        state, loss = step(state, x, y)
+        losses.append(float(loss))
+        if i == 0:
+            gap = _pp_gap(grads, state.space.unpack(step.grad, "buffer"))
+            (norm, _), check_launches = _uncounted(lambda: _norms_of(step,
+                                                                     state))
+        tied.append(_digest(step.model.embedding.weight)
+                    if hasattr(step.model, "embedding") else None)
+    return {"losses": losses, "dense_loss": dense_loss, "gap": gap,
+            "tied": tied, "norm": norm, "dense_norm": dtotal,
+            "launches": _less(_build.launch_counts(), check_launches)}
+
+
+def _zero_rank(seed: int, batch: int, gloo: bool) -> dict:
+    """Phase 23 on one rank (spawned by ``multiproc.launch`` after the
+    parent built every library; here they only load): 23a and 23b at dp
+    = world over the data axis, then, two ranks sharing the card, 23c."""
+    dev = multiproc.device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = tdist.get_rank(), tdist.get_world_size()
+    log = io.StringIO()
+    out = {"walls": {}}
+    t0 = time.perf_counter()
+    cfg = GPTConfig.gpt2_345m()
+    full = init_gpt_pretrain_params(cfg, torch.Generator().manual_seed(seed),
+                                    device="cpu")
+    xg, yg = _tp_batch(seed, dev, cfg, batch * world)
+    mine = slice(rank * batch, (rank + 1) * batch)
+    x, y = xg[mine], yg[mine]
+    out["walls"]["init"] = time.perf_counter() - t0
+    adam_steps, lamb_steps = ZERO_ADAM_STEPS, (ZERO_LAMB_STEPS if gloo
+                                               else ZERO_ADAM_STEPS)
+    with contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        dense = _zero_dense(cfg, full, dev, xg, yg)
+        out["walls"]["dense"] = time.perf_counter() - t0
+        ps.initialize_model_parallel()
+        try:
+            for key, fn in (
+                    ("a", lambda: _zero_adam(cfg, full, dev, x, y,
+                                             adam_steps, ZERO_DDP_STEPS,
+                                             world, not gloo)),
+                    ("b", lambda: _zero_lamb(cfg, full, dev, x, y,
+                                             lamb_steps, not gloo))):
+                t0 = time.perf_counter()
+                out[key] = fn()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                out["walls"][key] = time.perf_counter() - t0
+        finally:
+            ps.destroy_model_parallel()
+        g = out["a"].pop("ddp_grad")
+        out["a"]["gap"] = _pp_gap(dense[1], g)
+        out["dense_loss"] = dense[0]
+        del g
+        if gloo:
+            for key, mesh_kw, fn in (
+                    ("tp", {"model": world},
+                     lambda: _zero_tp(seed, cfg, full, dev, TP_BATCH)),
+                    ("tp_fp32", {"model": world},
+                     lambda: _zero_tp_fp32(seed, dev, TP_BATCH)),
+                    ("pp", {"pipe": world},
+                     lambda: _zero_pp(cfg, full, dev, xg, yg, dense))):
+                t0 = time.perf_counter()
+                gmesh.initialize_mesh(**mesh_kw)
+                try:
+                    out[key] = fn()
+                finally:
+                    gmesh.destroy_mesh()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                out["walls"][key] = time.perf_counter() - t0
+    out["log"] = log.getvalue()
+    return out
+
+
+def _zero_print_run(label: str, r: int, run: dict, tokens: int,
+                    card: str) -> float:
+    med = float(np.median(run["step_ms_all"][1:]))
+    line = (f"  23{label} rank {r}: losses "
+            f"{[round(v_, 4) for v_ in run['losses']]}; step_ms median of "
+            f"steps 2-{len(run['step_ms_all'])} {med:.1f} (tokens_per_s "
+            f"{tokens / med * 1e3:.0f})")
+    if "ddp" in run:
+        line += (f", DDP {float(np.median(run['ddp']['step_ms_all'])):.1f}; "
+                 f"peak {run['peak_gib']:.3f} GiB against DDP's "
+                 f"{run['ddp']['peak_gib']:.3f}")
+    if "comm" in run:
+        prof = run["profile"]
+        busy = prof["device_busy_ms"] / max(prof["wall_ms"], 1e-9)
+        line += "; " + ", ".join(
+            f"{op} {c['calls']}x {c['bytes'] / 1e6:.1f} MB {c['ms']:.1f} ms"
+            for op, c in run["comm"].items()) + (
+            f" (synchronised, of the metered step's "
+            f"{run['metered_ms']:.1f} ms); profiled step busy "
+            f"{100 * busy:.1f}%")
+    print(line + f" ({card})")
+    return med
+
+
+def zero_parallel(seed: int, dev, card: str, world: int = ZERO_WORLD,
+                  backend: Optional[str] = "gloo") -> dict:
+    """Phase 23 (23a-c): ``world`` ranks, by default two on the one card
+    over gloo (with 23c); ``backend=None`` is multiproc's default (NCCL,
+    a card a rank; 23a and 23b)."""
+    gloo = backend == "gloo"
+    note = ZERO_NOTE if gloo else (
+        f"{world} ranks, one card each, over the default backend (NCCL)")
+    print(f"  {note} ({card})")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = multiproc.launch(_zero_rank, world, (seed, ZERO_BATCH, gloo),
+                             backend=backend, rendezvous="tcp", timeout=900)
+    spawn_s = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        for line in res["log"].splitlines():
+            if "profiled" in line:
+                print(f"    rank {r}: {line.strip()}")
+    tokens = ZERO_BATCH * world * GPTConfig.gpt2_345m().max_seq_len
+    dense_loss = ranks[0]["dense_loss"]
+    out = {"world": world, "backend": backend or "default", "note": note,
+           "wall_s_ranks": spawn_s, "rank_walls": [r["walls"] for r in ranks],
+           "batch_per_rank": ZERO_BATCH, "dense_loss": dense_loss,
+           "launches": {}}
+    for key, label in (("a", "a ZeRO-Adam"), ("b", "b ZeRO-LAMB")):
+        rows = []
+        for r, res in enumerate(ranks):
+            run = res[key]
+            med = _zero_print_run(label, r, run, tokens, card)
+            check(all(np.isfinite(run["losses"])),
+                  f"23{key} rank {r}: non-finite loss")
+            for i, gap in enumerate(run["vs_ddp"]):
+                print(f"    rank {r} step {i + 1} against DDP: {gap}")
+                if key == "a":
+                    check(gap["bitwise"], f"23a rank {r}: the gathered "
+                          f"master after step {i + 1} is not DDP's bitwise")
+                else:
+                    check(gap["worst_excess"] <= 0,
+                          f"23{key} rank {r}: the gathered master after step "
+                          f"{i + 1} differs from DDP's past {ZERO_ULPS} ulp "
+                          "+ lr x 2^-20")
+            want = ((mt_ops.ADAM_KERNEL, engine.SUMSQ_KERNEL) if key == "a"
+                    else (mt_ops.LAMB_STAGE1_KERNEL, mt_ops.LAMB_STAGE2_KERNEL,
+                          engine.SUMSQ_KERNEL, engine.LEAF_SUM_KERNEL))
+            steps = len(run["losses"])
+            for k_ in want + (layer_norm.KERNEL, attention.KERNEL):
+                check(run["launches"].get(k_, 0) >= steps,
+                      f"23{key} rank {r}: {k_} launched "
+                      f"{run['launches'].get(k_, 0)} times in {steps} steps")
+            rows.append({"step_ms": med, "tokens_per_s": tokens / med * 1e3,
+                         **{k_: v_ for k_, v_ in run.items()
+                            if k_ not in ("log",)}})
+        out[key] = rows
+        out["launches"][{"a": "adam", "b": "lamb"}[key]] = [
+            res[key]["launches"] for res in ranks]
+    # 23a: step 1 against one process on the whole batch; the skip
+    l1 = float(np.mean([res["a"]["losses"][0] for res in ranks]))
+    worst = _pp_worst(ranks[:1], lambda r_: r_["a"]["gap"])
+    print(f"  23a step 1 against one process at dp=1: loss {l1:.5f} vs "
+          f"{dense_loss:.5f} (tol {TRAIN_LOSS_TOL}); worst gradient "
+          f"relative L2 {worst[0]:.3e} in {worst[1]} (tol "
+          f"{TRAIN_GRAD_REL_TOL})")
+    check(abs(l1 - dense_loss) <= TRAIN_LOSS_TOL,
+          "23a: the step-1 loss disagrees with dp=1")
+    check(worst[0] <= TRAIN_GRAD_REL_TOL,
+          "23a: the synced gradient disagrees with dp=1")
+    for r, res in enumerate(ranks):
+        sk, bs = res["a"]["skip"], res["a"]["bf16_sync"]
+        print(f"  23a rank {r}: non-finite gradient on rank {world - 1}: "
+              f"{sk}; bf16 sync step loss {bs['loss']:.4f}, "
+              + ", ".join(f"{op} {c['bytes'] / 1e6:.1f} MB {c['ms']:.1f} ms"
+                          for op, c in bs["comm"].items()))
+        check(sk["found_inf"] == 1.0 and sk["count_kept"]
+              and sk["master_kept"] and sk["params_kept"],
+              f"23a rank {r}: the non-finite step did not skip alike")
+        check(bs["finite"] and np.isfinite(bs["loss"]),
+              f"23a rank {r}: the bf16-sync step is not finite")
+        e5, sr = res["b"]["e5m2"], res["b"]["sr"]
+        print(f"  23b rank {r}: e5m2 gather bitwise the cast {e5['bitwise']}"
+              f" (loss {e5['loss']:.4f}; "
+              + ", ".join(f"{op} {c['bytes'] / 1e6:.1f} MB {c['ms']:.1f} ms"
+                          for op, c in e5["comm"].items())
+              + f"); bf16 SR shard bitwise the plain SR of its fp32 twin "
+              f"{sr['bitwise']} (max |sr - fp32| {sr['max_abs_vs_fp32']:.3e};"
+              f" launches {sr['launches']})")
+        check(e5["bitwise"] and np.isfinite(e5["loss"]),
+              f"23b rank {r}: the e5m2 gather is not the cast")
+        check(sr["bitwise"] and sr["launches"].get(engine.SR_CAST_KERNEL, 0)
+              >= 1, f"23b rank {r}: the SR shard is not its plain version's")
+    out["step1"] = {"loss": l1, "grad_gap": {"max": worst[0],
+                                             "param": worst[1]}}
+    if not gloo:
+        return out
+    # 23c: tp = 2, its fp32 case, pp = 2
+    tp = [res["tp"] for res in ranks]
+    wt = _gap_summary(ranks, "tp")
+    l1 = tp[0]["losses"][0]
+    print(f"  23c tp={world} FusedLAMB: losses {[round(v_, 4) for v_ in tp[0]['losses']]}; "
+          f"step 1 loss {l1:.5f} vs one process {tp[0]['dense_loss']:.5f} "
+          f"(tol {TRAIN_LOSS_TOL}); worst gradient relative L2 {wt[0]:.3e} "
+          f"in {wt[1]} (tol {TRAIN_GRAD_REL_TOL}); global norm "
+          f"{tp[0]['norm']:.5f} vs {tp[0]['dense_norm']:.5f}, worst leaf "
+          f"norm relative gap {max(t['leaf_gap'] for t in tp):.3e}; "
+          f"replicated leaves' deviation {[t['deviations'] for t in tp]}")
+    check(abs(l1 - tp[0]["dense_loss"]) <= TRAIN_LOSS_TOL,
+          "23c tp: the step-1 loss disagrees with one process")
+    check(wt[0] <= TRAIN_GRAD_REL_TOL,
+          "23c tp: the gradient disagrees with one process")
+    for t in tp:
+        check(abs(t["norm"] - t["dense_norm"]) <= TRAIN_GRAD_REL_TOL
+              * t["dense_norm"] and t["leaf_gap"] <= TRAIN_GRAD_REL_TOL,
+              "23c tp: the whole model's norms disagree with one process")
+        check(all(d_ == 0.0 for d_ in t["deviations"]),
+              "23c tp: a replicated leaf differs across the tensor ranks")
+        check(all(np.isfinite(t["losses"])), "23c tp: non-finite loss")
+    f32 = [res["tp_fp32"] for res in ranks]
+    w32 = _gap_summary(ranks, "tp_fp32")
+    print(f"  23c tp={world} fp32 ({TP_FP32_LAYERS} layers, TF32 off): loss "
+          f"{f32[0]['loss']:.7f} vs {f32[0]['dense_loss']:.7f}; worst "
+          f"gradient relative L2 {w32[0]:.3e} in {w32[1]}; global norm "
+          f"{f32[0]['norm']:.7f} vs {f32[0]['dense_norm']:.7f}; worst leaf "
+          f"norm relative gap {max(t['leaf_gap'] for t in f32):.3e} (tol "
+          f"{TRAIN32_LOSS_TOL})")
+    check(abs(f32[0]["loss"] - f32[0]["dense_loss"]) <= TRAIN32_LOSS_TOL
+          and w32[0] <= TRAIN32_GRAD_REL_TOL,
+          "23c tp fp32: the loss or gradient disagrees with one process")
+    for t in f32:
+        check(abs(t["norm"] - t["dense_norm"]) <= TRAIN32_GRAD_REL_TOL
+              * t["dense_norm"] and t["leaf_gap"] <= TRAIN32_GRAD_REL_TOL,
+              "23c tp fp32: the whole model's norms disagree with one "
+              "process")
+    pp = [res["pp"] for res in ranks]
+    wp = _pp_worst(ranks, lambda r_: r_["pp"]["gap"])
+    l1 = pp[0]["losses"][0]
+    print(f"  23c pp={world} FusedLAMB 1f1b: losses "
+          f"{[round(v_, 4) for v_ in pp[0]['losses']]}; step 1 loss "
+          f"{l1:.5f} vs one process {pp[0]['dense_loss']:.5f}; worst "
+          f"gradient relative L2 {wp[0]:.3e} in {wp[1]}; global norm "
+          f"{[round(p_['norm'], 5) for p_ in pp]} vs "
+          f"{pp[0]['dense_norm']:.5f}; tied copies equal "
+          f"{pp[0]['tied'] == pp[-1]['tied']}")
+    check(abs(l1 - pp[0]["dense_loss"]) <= TRAIN_LOSS_TOL,
+          "23c pp: the step-1 loss disagrees with one process")
+    check(wp[0] <= TRAIN_GRAD_REL_TOL,
+          "23c pp: the gradient disagrees with one process")
+    check(pp[0]["tied"] == pp[-1]["tied"] and None not in pp[0]["tied"],
+          "23c pp: the tied embedding's copies differ")
+    for p_ in pp:
+        check(abs(p_["norm"] - p_["dense_norm"]) <= TRAIN_GRAD_REL_TOL
+              * p_["dense_norm"], "23c pp: the global norm disagrees with "
+              "one process")
+        check(all(np.isfinite(p_["losses"])), "23c pp: non-finite loss")
+    out["launches"]["tp_lamb"] = [t["launches"] for t in tp]
+    out["launches"]["pp_lamb"] = [p_["launches"] for p_ in pp]
+    out.update(tp={"losses": tp[0]["losses"], "grad_gap": wt,
+                   "norm": [t["norm"] for t in tp],
+                   "dense_norm": tp[0]["dense_norm"],
+                   "deviations": [t["deviations"] for t in tp]},
+               tp_fp32={"loss": f32[0]["loss"],
+                        "dense_loss": f32[0]["dense_loss"],
+                        "grad_gap": w32, "norm": f32[0]["norm"],
+                        "dense_norm": f32[0]["dense_norm"]},
+               pp={"losses": pp[0]["losses"], "grad_gap": wp,
+                   "norm": [p_["norm"] for p_ in pp],
+                   "dense_norm": pp[0]["dense_norm"]})
+    return out
+
+
+def zero_alone(args, dev) -> int:
+    """``--zero N``: 23a and 23b over N ranks, one card each (its path
+    builds its own libraries alone)."""
+    n, cards = args.zero, torch.cuda.device_count()
+    if n > cards:
+        print(f"chip_smoke: --zero {n} needs {n} cards, found {cards}",
+              file=sys.stderr)
+        return 1
+    card = card_line()
+    print(f"{card} x {cards}")
+    print(f"  built {', '.join(ZERO_LIBRARIES)} in "
+          f"{_build.build_all(ZERO_LIBRARIES):.1f} s")
+    t0 = time.perf_counter()
+    out = zero_parallel(args.seed, dev, card, world=n, backend=None)
+    print(f"  (phase 23 over {n} cards: {time.perf_counter() - t0:.1f} s "
+          "wall)")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "zero": out}, f, indent=1,
+                      default=str)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards}}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10697,6 +11475,10 @@ def main(argv=None) -> int:
                     metavar="N", help="run phase 22 alone over N pipe "
                     "ranks, one card each, on the default backend (NCCL), "
                     "and exit")
+    ap.add_argument("--zero", type=int, default=None, metavar="N",
+                    help="run phase 23's ZeRO runs (23a, 23b) alone over N "
+                    "data ranks, one card each, on the default backend "
+                    "(NCCL), and exit")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -10710,6 +11492,8 @@ def main(argv=None) -> int:
         return tensor_parallel_alone(args, dev)
     if args.pipeline_parallel:
         return pipeline_parallel_alone(args, dev)
+    if args.zero:
+        return zero_alone(args, dev)
 
     walls = {}
 
@@ -10902,6 +11686,11 @@ def main(argv=None) -> int:
                 "ranks sharing the card over gloo (gpipe, 1f1b, interleaved "
                 "and async schedules, fp32 parity)",
                 lambda: pipeline_parallel(args.seed, dev, card))
+    zpl = phase("phase 23: ZeRO and norms over a sharded flat state, GPT-2 "
+                "345M on two ranks sharing the card over gloo "
+                "(DistributedFusedAdam and DistributedFusedLAMB against DDP, "
+                "FusedLAMB at tp=2 and pp=2)",
+                lambda: zero_parallel(args.seed, dev, card))
     # the dropout cases join their kernels' rows; dropout.cu gets its own
     by_name = {k["name"]: k for k in kernels}
     by_name[attention.KERNEL]["cases"] += fdrop["fwd"]
@@ -11075,6 +11864,11 @@ def main(argv=None) -> int:
         for sched, per_rank in ppl["launches"].items():
             for r, counts in enumerate(per_rank):
                 k[f"launches_pp_{sched}_rank{r}"] = launched(counts, name)
+        # the ZeRO and sharded-norm paths' launches, each rank's own
+        # (phase 23)
+        for key, per_rank in zpl["launches"].items():
+            for r, counts in enumerate(per_rank):
+                k[f"launches_zero_{key}_rank{r}"] = launched(counts, name)
         if name in (layer_norm.KERNEL, attention.KERNEL):
             for case, counts in sfl["launches"].items():
                 k[f"launches_serving_faults_{case}"] = counts[name]
@@ -11115,7 +11909,7 @@ def main(argv=None) -> int:
                        "amp": amp16, "serving_faults": sfl,
                        "serving_fleet": sft, "data_parallel": dpl,
                        "tensor_parallel": tpl,
-                       "pipeline_parallel": ppl,
+                       "pipeline_parallel": ppl, "zero": zpl,
                        **line}, f,
                       indent=1)
     print(json.dumps({"ok": True, "device": {

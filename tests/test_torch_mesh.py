@@ -300,8 +300,9 @@ def test_tensor_parallel_paths_that_wait_raise(world):
         assert "head offset" in msgs["attention_dropout"]
         assert "sequence_parallel" in msgs["sp_training"]
         assert "A 9g" in msgs["sp_training"]
+        # the optimizers whose norms span the tensor group run (A 9h)
         for opt in ("lamb", "novograd"):
-            assert "A 9h" in msgs[opt] and "tensor group" in msgs[opt]
+            assert isinstance(msgs[opt], float) and np.isfinite(msgs[opt])
         assert "MeshPipelineTrainStep" in got[r]["life"]["pipe"]
         # BERT's and T5's tensor-parallel forwards are not ported
         assert "A 11" in msgs["bert"] and "A 11" in msgs["t5"]

@@ -528,6 +528,8 @@ def test_import_loads_no_jax():
             "apex_tpu_torch.transformer.parallel_state, "
             "apex_tpu_torch.transformer.tensor_parallel, "
             "apex_tpu_torch.mesh, apex_tpu_torch.mesh.planner, "
+            "apex_tpu_torch.contrib.optimizers, "
+            "apex_tpu_torch.parallel.sharded_norms, "
             "apex_tpu_torch.mesh.pipeline, "
             "apex_tpu_torch.transformer.pipeline_parallel, "
             "apex_tpu_torch.examples.pretrain_gpt, "
